@@ -15,6 +15,8 @@ import torch
 
 from llm_inference_engine_tpu_torch.utils.common import KERNEL_CHOICES
 
+QUANT_MODES = ("none", "int8", "int4")    # weight-only quantization
+
 __all__ = [
     "ModelConfig",
     "EngineConfig",
@@ -215,11 +217,11 @@ class EngineConfig:
     """Static runtime/engine shape configuration.
 
     The fields mirror the JAX package's ``EngineConfig``. Its TPU tiling
-    knobs (attention block sizes, layer-scan unroll, page sizes), the
-    unused ``max_prefill_batch`` and the int4 group size have no
-    counterpart here yet. Values outside the ported slice (quantized
-    weights, an int8 KV cache, meshes, the paged layout) are accepted by
-    the dataclass and refused by the engine with ``NotImplementedError``.
+    knobs (attention block sizes, layer-scan unroll, page sizes) and the
+    unused ``max_prefill_batch`` have no counterpart here yet. Values
+    outside the ported slice (an int8 KV cache, meshes, the paged layout)
+    are accepted by the dataclass and refused by the engine with
+    ``NotImplementedError``.
     """
 
     max_batch_size: int = 8          # decode batch slots
@@ -227,6 +229,7 @@ class EngineConfig:
     max_prefill_len: int = 512       # per-chunk prefill length
     kv_cache_dtype_name: str = ""    # "" = same as model dtype
     quant_mode: str = "none"         # none | int8 | int4 (weight-only)
+    quant_group_size: int = 128      # int4 grouped-scale group size
     dp: int = 1
     tp: int = 1
     cp: int = 1
@@ -239,6 +242,9 @@ class EngineConfig:
         if self.kernels not in KERNEL_CHOICES:
             raise ValueError(f"kernels must be one of {KERNEL_CHOICES}, got "
                              f"{self.kernels!r}")
+        if self.quant_mode not in QUANT_MODES:
+            raise ValueError(f"quant_mode must be one of {QUANT_MODES}, got "
+                             f"{self.quant_mode!r}")
 
     @property
     def kv_cache_dtype(self) -> Optional[torch.dtype]:

@@ -7,7 +7,11 @@ fused write+attend decode mode of kernel D at T == 1 on a bf16 cache) ->
 o-proj -> fused add-residual + rmsnorm -> gate|up matmul -> silu_and_mul
 -> down-proj -> residual add. The layer loop is a Python loop over
 ``w[layer]`` views of the stacked weights (the JAX package's
-``lax.scan``); the KV cache is updated in place.
+``lax.scan``; a stacked quantized weight gives a ``QuantizedTensor`` of
+views, the counterpart of its scalar-prefetched layer index); every
+projection, the lm_head included, goes through ``linear``, which runs the
+quantized kernels for quantized weights. The KV cache is updated in
+place.
 
 Not ported: the TPU tile-padded cache adapter, context parallelism, the
 paged branch, tensor-parallel partial sums and debug taps (ROADMAP.md,
@@ -47,7 +51,7 @@ def _layer_step(cfg: ModelConfig, eng: EngineConfig, x: torch.Tensor,
     B, T, _ = x.shape
 
     h_norm = rmsnorm(x, layer["attn_norm"], cfg.rms_norm_eps, kernels=kernels)
-    qkv = linear(h_norm, layer["wqkv"])
+    qkv = linear(h_norm, layer["wqkv"], kernels=kernels)
     if "bqkv" in layer:
         qkv = qkv + layer["bqkv"].to(qkv.dtype)
     q, k_new, v_new = split_qkv(qkv, cfg.num_heads, cfg.num_kv_heads,
@@ -69,20 +73,22 @@ def _layer_step(cfg: ModelConfig, eng: EngineConfig, x: torch.Tensor,
         attn_out = attention(q, cache.k, cache.v, q_start, kv_len,
                              sm_scale=sm_scale, kernels=kernels,
                              layer=layer_idx, window=cfg.sliding_window)
-    attn_out = linear(attn_out.reshape(B, T, cfg.q_size), layer["wo"])
+    attn_out = linear(attn_out.reshape(B, T, cfg.q_size), layer["wo"],
+                      kernels=kernels)
 
     ffn_in, resid = add_residual_rmsnorm(
         attn_out, x, layer["ffn_norm"], cfg.rms_norm_eps, kernels=kernels)
-    gate_up = linear(ffn_in, layer["w_gate_up"])
+    gate_up = linear(ffn_in, layer["w_gate_up"], kernels=kernels)
     act = silu_and_mul(gate_up, kernels=kernels)
-    down = linear(act, layer["w_down"])
+    down = linear(act, layer["w_down"], kernels=kernels)
     return add_residual(down, resid)
 
 
 def run_layers(cfg: ModelConfig, eng: EngineConfig, layers_params: dict,
                x: torch.Tensor, cache: kvc.KVCache, cos, sin,
                q_start: torch.Tensor, kv_len: torch.Tensor) -> torch.Tensor:
-    """The decoder layer loop over ``w[i]`` views of the stacked weights."""
+    """The decoder layer loop over ``w[i]`` views of the stacked weights
+    (quantized or not)."""
     for i in range(cache.num_layers):
         layer = {name: w[i] for name, w in layers_params.items()}
         x = _layer_step(cfg, eng, x, layer, i, cache, cos, sin, q_start,
@@ -122,7 +128,8 @@ def lm_head_logits(cfg: ModelConfig, eng: EngineConfig, params: dict,
                    hidden_last: torch.Tensor) -> torch.Tensor:
     """hidden_last: [B, H] -> logits [B, V] (f32, never rounded through
     the model dtype)."""
-    return linear(hidden_last, params["lm_head"], out_dtype=torch.float32)
+    return linear(hidden_last, params["lm_head"], out_dtype=torch.float32,
+                  kernels=eng.kernels)
 
 
 def forward_hidden(cfg: ModelConfig, eng: EngineConfig, params: dict,

@@ -1,7 +1,7 @@
 """Compute ops.
 
 Where the JAX package had a Pallas kernel on the ported path (rmsnorm,
-activations, kv_cache, attention), the module holds a dispatcher
+activations, kv_cache, attention, quant), the module holds a dispatcher
 ``<op>(..., kernels=...)`` and the plain version ``<op>_torch(...)``:
 on CUDA tensors the dispatcher runs a kernel written by hand for Hopper
 (Triton in ``_triton_kernels.py``, CUDA C++ in ``../csrc`` via
@@ -17,10 +17,11 @@ from llm_inference_engine_tpu_torch.ops import (  # noqa: F401
     embedding,
     kv_cache,
     linear,
+    quant,
     rmsnorm,
     rope,
     sampling,
 )
 
 __all__ = ["activations", "attention", "embedding", "kv_cache", "linear",
-           "rmsnorm", "rope", "sampling"]
+           "quant", "rmsnorm", "rope", "sampling"]

@@ -29,7 +29,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 # C signatures of csrc/*.cu, in argument order
 _SIGNATURES = {
     # k_new, v_new, k_cache, v_cache, starts, new_len,
@@ -43,6 +44,11 @@ _SIGNATURES = {
     # layer, B, H, K, S, D, sm_scale, window, stream
     "attention_decode": [_P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # x, q, scale, out, m, k, n, halves, q_half, s_half, group, out_f32,
+    # stream
+    "int4_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _I, _P],
+    # x, q, scale, out, m, k, n, halves, q_half, s_half, out_f32, stream
+    "int8_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _P],
 }
 
 

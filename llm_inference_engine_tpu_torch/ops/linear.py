@@ -1,10 +1,10 @@
-"""Dense matrix multiplication.
+"""Dense (and, via ops.quant, dequantizing) matrix multiplication.
 
 Port of ``llm_inference_engine_tpu/ops/linear.py``. The JAX package leaves
 the dense matmul to XLA (``dot_general``); the port leaves it to
 ``torch.matmul`` (cuBLAS on the card). Weights are stored [in, out].
-Quantized weights are not ported yet (ROADMAP.md, queue 1, "INT8/INT4
-weights").
+A :class:`~llm_inference_engine_tpu_torch.ops.quant.QuantizedTensor`
+weight goes to ``quant.quantized_linear`` (kernels E, F and G).
 """
 
 from __future__ import annotations
@@ -13,18 +13,23 @@ from typing import Optional
 
 import torch
 
+from llm_inference_engine_tpu_torch.ops import quant
+
 __all__ = ["linear"]
 
 
-def linear(x: torch.Tensor, w: torch.Tensor,
-           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+def linear(x: torch.Tensor, w, out_dtype: Optional[torch.dtype] = None, *,
+           kernels: str = "auto") -> torch.Tensor:
     """y = x @ w. x: [..., in], w: [in, out] or [in, *out_dims] (trailing
-    out dims are flattened, e.g. the [in, 2, I] gate|up stack).
+    out dims are flattened, e.g. the [in, 2, I] gate|up stack), or a
+    quantized weight (``kernels`` picks its kernels or plain versions).
 
     Products accumulate in f32. With ``out_dtype=torch.float32`` and
     half-precision inputs (the lm_head) the result is never rounded
     through the input dtype, matching the JAX package's
     ``preferred_element_type=f32``."""
+    if isinstance(w, quant.QuantizedTensor):
+        return quant.quantized_linear(x, w, out_dtype, kernels=kernels)
     out_dtype = out_dtype or x.dtype
     if w.dim() > 2:
         w = w.reshape(w.shape[0], -1)

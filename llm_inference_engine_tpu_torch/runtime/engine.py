@@ -14,8 +14,9 @@ The KV cache is updated in place. Slot lengths live on the device (the
 kernels read them) and in a host mirror that the engine keeps in step,
 since it decides every length change on the host.
 
-Not ported yet (each raises NotImplementedError): meshes (dp/tp/cp),
-the paged layout, the int8 KV cache, quantized weights, multi-host
+Weights may be dense or quantized (``ops/quant.py``); the engine does
+not look at them. Not ported yet (each raises NotImplementedError):
+meshes (dp/tp/cp), the paged layout, the int8 KV cache, multi-host
 lockstep overrides (ROADMAP.md, queue 1).
 """
 
@@ -68,10 +69,6 @@ def _refuse_unported(eng: EngineConfig) -> None:
         raise NotImplementedError(
             "the int8 KV cache is not ported yet (ROADMAP.md, queue 1, "
             "'INT8 KV cache')")
-    if eng.quant_mode != "none":
-        raise NotImplementedError(
-            f"quant_mode={eng.quant_mode!r} is not ported yet (ROADMAP.md, "
-            "queue 1, 'INT8/INT4 weights')")
 
 
 class InferenceEngine:

@@ -32,7 +32,7 @@ from llm_inference_engine_tpu_torch.config import (
 from llm_inference_engine_tpu_torch.models import llama
 from llm_inference_engine_tpu_torch.models.registry import create_engine
 from llm_inference_engine_tpu_torch.models.weights import (
-    init_dummy_params, param_count, params_from_numpy)
+    init_dummy_params, param_bytes, param_count, params_from_numpy)
 from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
 from llm_inference_engine_tpu_torch.runtime.engine import InferenceEngine
 
@@ -207,12 +207,32 @@ def test_create_engine_dummy_and_unported_paths():
                             + 3 * cfg.hidden_size * cfg.intermediate_size))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_engine("debug", "/nonexistent/checkpoint")
-    for bad in (dict(quant_mode="int4"), dict(kv_cache_dtype_name="int8"),
-                dict(kv_layout="paged"), dict(tp=2)):
+    for bad in (dict(kv_cache_dtype_name="int8"), dict(kv_layout="paged"),
+                dict(tp=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             create_engine("debug", None, EngineConfig(**bad))
-    with pytest.raises(ValueError):
-        EngineConfig(kernels="pallas")
+    for bad in (dict(kernels="pallas"), dict(quant_mode="int2")):
+        with pytest.raises(ValueError):
+            EngineConfig(**bad)
+    # quant_mode="int4" is ported: born-quantized dummy weights, q and
+    # scale counted as the JAX package counts its leaves
+    g = 64
+    q4 = create_engine("debug", None, EngineConfig(
+        max_batch_size=2, max_seq_len=32, quant_mode="int4",
+        quant_group_size=g))
+    H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    quant = [(H, cfg.qkv_size), (cfg.q_size, H), (H, 2 * I), (I, H)]
+    packed = cfg.num_layers * sum(k * n // 2 for k, n in quant) + H * V // 2
+    scales = cfg.num_layers * sum(k // g * n for k, n in quant) + H // g * V
+    dense = V * H + H + cfg.num_layers * 2 * H
+    assert param_count(q4.params) == dense + packed + scales
+    assert param_bytes(q4.params) == 4 * dense + packed + 4 * scales
+    assert q4.params["layers"]["w_gate_up"].q.shape == (
+        cfg.num_layers, 2, H // 2, I)
+    out = q4.generate([[1, 2, 3]], SamplingParams(greedy=True,
+                                                  max_new_tokens=4),
+                      eos_token_id=None)
+    assert out.num_generated == [4]
 
 
 def test_package_imports_no_jax():
