@@ -216,10 +216,11 @@ class ModelConfig:
 class EngineConfig:
     """Static runtime/engine shape configuration.
 
-    The fields mirror the JAX package's ``EngineConfig``. Its TPU tiling
-    knobs (attention block sizes, layer-scan unroll, page sizes) and the
-    unused ``max_prefill_batch`` have no counterpart here yet. Values
-    outside the ported slice (an int8 KV cache, meshes, the paged layout)
+    The fields mirror the JAX package's ``EngineConfig``, the paged
+    layout's ``page_size`` and ``num_pages`` included. Its TPU tiling
+    knobs (attention block sizes, layer-scan unroll) and the unused
+    ``max_prefill_batch`` have no counterpart: the CUDA kernels pick their
+    own tiles. Values outside the ported slice (an int8 KV cache, meshes)
     are accepted by the dataclass and refused by the engine with
     ``NotImplementedError``.
     """
@@ -236,7 +237,14 @@ class EngineConfig:
     # "auto": hand kernels on CUDA tensors, plain torch on CPU tensors;
     # "torch": plain torch everywhere; "cuda": hand kernels, CPU raises
     kernels: str = "auto"
+    # "slot" = max_seq_len rows per slot; "paged" = one shared pool of
+    # page_size-token pages behind per-slot block tables
+    # (ops/paged_kv.py), so tokens in flight, not slots, bound memory.
+    # num_pages=0 sizes the pool to the slot-cache equivalent
+    # (max_batch_size * ceil(max_seq_len / page_size) + the scratch page).
     kv_layout: str = "slot"
+    page_size: int = 64
+    num_pages: int = 0
 
     def __post_init__(self):
         if self.kernels not in KERNEL_CHOICES:

@@ -1,20 +1,36 @@
 // Kernel D: causal attention of bf16 queries against the stacked,
 // token-major bf16 KV cache, with online softmax in f32.
 //
-// Replaces two TPU kernels of the JAX package:
+// Replaces three TPU kernels of the JAX package:
 //   - llm_inference_engine_tpu/ops/attention.py `_attn_kernel` (launched
-//     by `_attention_pallas`): flash attention for prefill and chunked
-//     prefill (WRITE_NEW = false, after kernel C has written the chunk);
+//     by `_attention_pallas`, slot or paged index map): flash attention for
+//     prefill, chunked prefill and mixed steps (WRITE_NEW = false, after
+//     kernel C or H has written the chunk);
 //   - llm_inference_engine_tpu/ops/attention.py `_decode_fused_mxu_kernel`
 //     (launched by `_attention_decode_fused_mxu`): single-token decode
 //     that writes the new K/V row and attends in one kernel
-//     (WRITE_NEW = true).
+//     (WRITE_NEW = true, slot cache only);
+//   - llm_inference_engine_tpu/ops/attention.py `_decode_mxu_kernel`
+//     (launched by `_attention_decode_mxu` with a block table): attend-only
+//     single-token decode over the paged pool, after kernel H has written
+//     the token (decode launch shape, WRITE_NEW = false, PAGED = true).
 //
-// Semantics (both modes). q [B, T, H, D]; caches [L, B, S, K, D]; out
-// [B, T, H, D]. Query row (t, h) sits at position p = q_start[b] + t and
-// attends key j iff j < kv_len[b], j <= p, and (window > 0) j > p - window,
-// using kv head h / G (G = H / K, GQA). Rows with no visible key give 0.
-// In decode mode the block of (b, kv head) first copies that head's new
+// Addressing (PAGED). The slot cache is [L, B, S, K, D]; the paged pool is
+// [L, P, page, K, D] with a block table [B, max_pages]: key row j of
+// sequence b lives at page table[b, j / page], row j % page. The kernel
+// translates every key row it loads on its own, so any page size works
+// (the JAX package's tests use 16, the engine 64) and a tile may straddle
+// pages. Only keys below hi <= kv_len[b] are loaded, so no table entry at
+// or past ceil(kv_len[b] / page) is ever read: those point at the scratch
+// page 0. The paged modes change addressing only; their summation order is
+// the slot modes', so a paged engine reproduces a slot engine bit for bit.
+//
+// Semantics (all modes). q [B, T, H, D]; out [B, T, H, D]. Query row
+// (t, h) sits at position p = q_start[b] + t and attends key j iff
+// j < kv_len[b], j <= p, and (window > 0) j > p - window, using kv head
+// h / G (G = H / K, GQA). Rows with no visible key give 0.
+// In the fused decode mode the block of (b, kv head) first copies that
+// head's new
 // K/V row into the cache at q_start[b] when kv_len[b] > q_start[b]
 // (inactive rows write nothing), synchronises, and then attends; the
 // block that writes a row is its only reader, so there is no race.
@@ -56,12 +72,14 @@ struct Params {
   const __nv_bfloat16* q;      // [B, T, H, D]
   const __nv_bfloat16* k_new;  // [B, 1, K, D] (decode)
   const __nv_bfloat16* v_new;
-  __nv_bfloat16* k_cache;      // [L, B, S, K, D]
+  __nv_bfloat16* k_cache;      // [L, B, S, K, D] or pool [L, P, page, K, D]
   __nv_bfloat16* v_cache;
   __nv_bfloat16* out;          // [B, T, H, D]
   const int* q_start;          // [B]
   const int* kv_len;           // [B]
+  const int* table;            // [B, max_pages] (paged)
   int layer, B, T, H, K, S, G;
+  int P, page, max_pages;      // paged pool geometry
   int rows_per_block;          // R: query rows (t, g) of one kv head
   int ksplit;                  // warps sharing a row, one 32-key slice each
   float scale_log2;            // sm_scale * log2(e)
@@ -98,9 +116,10 @@ size_t smem_bytes(int D, int rows, int ksplit) {
   return q + (tiles > comb ? tiles : comb);
 }
 
-template <int D, bool WRITE_NEW>
+template <int D, bool WRITE_NEW, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
 attention_kernel(const Params p) {
+  static_assert(!(WRITE_NEW && PAGED), "the fused write is slot-only");
   using Dm = Dims<D>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int R = p.rows_per_block;
@@ -126,7 +145,17 @@ attention_kernel(const Params p) {
   const int kl = p.kv_len[b];
   const size_t tok_stride = (size_t)p.K * D;   // between cache tokens
   const size_t base =
-      ((size_t)p.layer * p.B + b) * p.S * tok_stride + (size_t)kh * D;
+      PAGED ? (size_t)p.layer * p.P * p.page * tok_stride + (size_t)kh * D
+            : ((size_t)p.layer * p.B + b) * p.S * tok_stride + (size_t)kh * D;
+  // element offset of key row `key` of this (sequence, kv head)
+  auto key_offset = [&](int key) -> size_t {
+    if constexpr (PAGED) {
+      const int pg = p.table[(size_t)b * p.max_pages + key / p.page];
+      return base + ((size_t)pg * p.page + key % p.page) * tok_stride;
+    } else {
+      return base + (size_t)key * tok_stride;
+    }
+  };
 
   if (WRITE_NEW) {
     if (kl > qs && qs >= 0 && qs < p.S) {
@@ -183,7 +212,7 @@ attention_kernel(const Params p) {
       const int key = j0 + jr;
       uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
       if (key < hi) {   // rows past hi are zero-filled, never stale
-        const size_t off = base + (size_t)key * tok_stride;
+        const size_t off = key_offset(key);
         kv = reinterpret_cast<const uint4*>(p.k_cache + off)[c];
         vv = reinterpret_cast<const uint4*>(p.v_cache + off)[c];
       }
@@ -288,10 +317,10 @@ attention_kernel(const Params p) {
   }
 }
 
-template <int D, bool WRITE_NEW>
+template <int D, bool WRITE_NEW, bool PAGED>
 int launch(const Params& p, cudaStream_t stream) {
   const size_t smem = smem_bytes(D, p.rows_per_block, p.ksplit);
-  auto kernel = attention_kernel<D, WRITE_NEW>;
+  auto kernel = attention_kernel<D, WRITE_NEW, PAGED>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -300,19 +329,58 @@ int launch(const Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <bool WRITE_NEW>
+template <bool WRITE_NEW, bool PAGED>
 int dispatch(const Params& p, int D, cudaStream_t stream) {
   switch (D) {
-    case 64: return launch<64, WRITE_NEW>(p, stream);
-    case 128: return launch<128, WRITE_NEW>(p, stream);
+    case 64: return launch<64, WRITE_NEW, PAGED>(p, stream);
+    case 128: return launch<128, WRITE_NEW, PAGED>(p, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+// Prefill launch shape: 32 query rows per block, two warps per row
+// (64-key tiles).
+void prefill_shape(Params& p) {
+  p.G = p.H / p.K;
+  p.ksplit = 2;
+  p.rows_per_block = (kWarps / p.ksplit) * kMaxRowsPerWarp;   // 32
+}
+
+// Decode launch shape: one block per (sequence, kv head) holding the G
+// query heads of that kv head, and as many warps per row as the group
+// leaves free (8 rows per warp max). Returns false if G is too large.
+bool decode_shape(Params& p) {
+  p.T = 1;
+  p.G = p.H / p.K;
+  p.ksplit = p.G <= 8 ? 8 : p.G <= 16 ? 4 : p.G <= 32 ? 2 : 1;
+  p.rows_per_block = p.G;
+  return p.G <= (kWarps / p.ksplit) * kMaxRowsPerWarp;
+}
+
+Params paged_params(const void* q, const void* k_pool, const void* v_pool,
+                    void* out, const int* q_start, const int* kv_len,
+                    const int* table, int layer, int B, int T, int H, int K,
+                    int P, int page, int max_pages, float sm_scale,
+                    int window) {
+  Params p{};
+  p.q = (const __nv_bfloat16*)q;
+  p.k_cache = (__nv_bfloat16*)k_pool;
+  p.v_cache = (__nv_bfloat16*)v_pool;
+  p.out = (__nv_bfloat16*)out;
+  p.q_start = q_start;
+  p.kv_len = kv_len;
+  p.table = table;
+  p.layer = layer; p.B = B; p.T = T; p.H = H; p.K = K;
+  p.P = P; p.page = page; p.max_pages = max_pages;
+  p.S = page * max_pages;
+  p.scale_log2 = sm_scale * kLog2e;
+  p.window = window;
+  return p;
+}
+
 }  // namespace
 
-// Prefill / chunked prefill: 32 query rows per block, two warps per row
-// (64-key tiles).
+// Prefill / chunked prefill over the slot cache.
 extern "C" int attention_prefill(const void* q, const void* k_cache,
                                  const void* v_cache, void* out,
                                  const int* q_start, const int* kv_len,
@@ -327,16 +395,13 @@ extern "C" int attention_prefill(const void* q, const void* k_cache,
   p.q_start = q_start;
   p.kv_len = kv_len;
   p.layer = layer; p.B = B; p.T = T; p.H = H; p.K = K; p.S = S;
-  p.G = H / K;
-  p.ksplit = 2;
-  p.rows_per_block = (kWarps / p.ksplit) * kMaxRowsPerWarp;   // 32
+  prefill_shape(p);
   p.scale_log2 = sm_scale * kLog2e;
   p.window = window;
-  return dispatch<false>(p, D, (cudaStream_t)stream);
+  return dispatch<false, false>(p, D, (cudaStream_t)stream);
 }
 
-// Decode (T == 1) with the new token's K/V write: one block per
-// (sequence, kv head) holding the G query heads of that kv head.
+// Decode (T == 1) over the slot cache with the new token's K/V write.
 extern "C" int attention_decode(const void* q, const void* k_new,
                                 const void* v_new, void* k_cache,
                                 void* v_cache, void* out, const int* q_start,
@@ -352,14 +417,40 @@ extern "C" int attention_decode(const void* q, const void* k_new,
   p.out = (__nv_bfloat16*)out;
   p.q_start = q_start;
   p.kv_len = kv_len;
-  p.layer = layer; p.B = B; p.T = 1; p.H = H; p.K = K; p.S = S;
-  p.G = H / K;
-  // as many warps per row as the group leaves free (8 rows per warp max)
-  p.ksplit = p.G <= 8 ? 8 : p.G <= 16 ? 4 : p.G <= 32 ? 2 : 1;
-  if (p.G > (kWarps / p.ksplit) * kMaxRowsPerWarp)
-    return (int)cudaErrorInvalidValue;
-  p.rows_per_block = p.G;
+  p.layer = layer; p.B = B; p.H = H; p.K = K; p.S = S;
+  if (!decode_shape(p)) return (int)cudaErrorInvalidValue;
   p.scale_log2 = sm_scale * kLog2e;
   p.window = window;
-  return dispatch<true>(p, D, (cudaStream_t)stream);
+  return dispatch<true, false>(p, D, (cudaStream_t)stream);
+}
+
+// Prefill / chunked prefill / mixed steps over the paged pool.
+extern "C" int attention_prefill_paged(const void* q, const void* k_pool,
+                                       const void* v_pool, void* out,
+                                       const int* q_start, const int* kv_len,
+                                       const int* table, int layer, int B,
+                                       int T, int H, int K, int P, int page,
+                                       int max_pages, int D, float sm_scale,
+                                       int window, void* stream) {
+  Params p = paged_params(q, k_pool, v_pool, out, q_start, kv_len, table,
+                          layer, B, T, H, K, P, page, max_pages, sm_scale,
+                          window);
+  prefill_shape(p);
+  return dispatch<false, true>(p, D, (cudaStream_t)stream);
+}
+
+// Attend-only decode (T == 1) over the paged pool: kernel H has written
+// the token; the launch shape is the fused decode's.
+extern "C" int attention_decode_paged(const void* q, const void* k_pool,
+                                      const void* v_pool, void* out,
+                                      const int* q_start, const int* kv_len,
+                                      const int* table, int layer, int B,
+                                      int H, int K, int P, int page,
+                                      int max_pages, int D, float sm_scale,
+                                      int window, void* stream) {
+  Params p = paged_params(q, k_pool, v_pool, out, q_start, kv_len, table,
+                          layer, B, 1, H, K, P, page, max_pages, sm_scale,
+                          window);
+  if (!decode_shape(p)) return (int)cudaErrorInvalidValue;
+  return dispatch<false, true>(p, D, (cudaStream_t)stream);
 }

@@ -1,21 +1,22 @@
-"""Llama-class decoder forward pass over the slot KV cache.
+"""Llama-class decoder forward pass over the slot or the paged KV cache.
 
-Port of ``llm_inference_engine_tpu/models/llama.py`` for one device and
-the slot cache. Each layer runs: rmsnorm -> packed QKV matmul -> split +
-RoPE -> cache write -> attention (kernel C then kernel D at prefill; the
-fused write+attend decode mode of kernel D at T == 1 on a bf16 cache) ->
-o-proj -> fused add-residual + rmsnorm -> gate|up matmul -> silu_and_mul
--> down-proj -> residual add. The layer loop is a Python loop over
-``w[layer]`` views of the stacked weights (the JAX package's
-``lax.scan``; a stacked quantized weight gives a ``QuantizedTensor`` of
-views, the counterpart of its scalar-prefetched layer index); every
-projection, the lm_head included, goes through ``linear``, which runs the
-quantized kernels for quantized weights. The KV cache is updated in
-place.
+Port of ``llm_inference_engine_tpu/models/llama.py`` for one device.
+Each layer runs: rmsnorm -> packed QKV matmul -> split + RoPE -> cache
+write -> attention -> o-proj -> fused add-residual + rmsnorm -> gate|up
+matmul -> silu_and_mul -> down-proj -> residual add. The cache write and
+attention, by layout: slot, kernel C then kernel D at T > 1, and the
+fused write+attend decode mode of kernel D at T == 1 on a bf16 cache;
+paged (the JAX package's paged branch), kernel H through the block table,
+then kernel D's paged prefill mode at T > 1 or its attend-only paged
+decode at T == 1. The layer loop is a Python loop over ``w[layer]``
+views of the stacked weights (the JAX package's ``lax.scan``; a stacked
+quantized weight gives a ``QuantizedTensor`` of views, the counterpart of
+its scalar-prefetched layer index); every projection, the lm_head
+included, goes through ``linear``, which runs the quantized kernels for
+quantized weights. The KV cache is updated in place.
 
-Not ported: the TPU tile-padded cache adapter, context parallelism, the
-paged branch, tensor-parallel partial sums and debug taps (ROADMAP.md,
-queue 1).
+Not ported: the TPU tile-padded cache adapter, context parallelism,
+tensor-parallel partial sums and debug taps (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -29,8 +30,9 @@ from llm_inference_engine_tpu_torch.config import EngineConfig, ModelConfig
 from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
 from llm_inference_engine_tpu_torch.ops.activations import (
     add_residual, silu_and_mul)
+from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
 from llm_inference_engine_tpu_torch.ops.attention import (
-    attention, attention_decode_fused, can_fuse_decode)
+    attention, attention_decode, attention_decode_fused, can_fuse_decode)
 from llm_inference_engine_tpu_torch.ops.embedding import embedding_lookup
 from llm_inference_engine_tpu_torch.ops.linear import linear
 from llm_inference_engine_tpu_torch.ops.rmsnorm import (
@@ -43,7 +45,7 @@ __all__ = ["decoder_forward", "forward_hidden", "lm_head_logits",
 
 
 def _layer_step(cfg: ModelConfig, eng: EngineConfig, x: torch.Tensor,
-                layer: dict, layer_idx: int, cache: kvc.KVCache, cos, sin,
+                layer: dict, layer_idx: int, cache, cos, sin,
                 q_start: torch.Tensor, kv_len: torch.Tensor) -> torch.Tensor:
     """One decoder layer. x: [B, T, hidden]; ``layer`` holds this layer's
     weight views; the cache is written in place at ``layer_idx``."""
@@ -61,7 +63,16 @@ def _layer_step(cfg: ModelConfig, eng: EngineConfig, x: torch.Tensor,
     v_new = v_new.contiguous()
     sm_scale = 1.0 / math.sqrt(cfg.head_dim)
 
-    if can_fuse_decode(q.shape, cache):
+    if isinstance(cache, pkv.PagedKVCache):
+        # paged: write through the block table, then attend through it
+        pkv.paged_update_at_layer(cache, layer_idx, k_new, v_new, q_start,
+                                  new_len=kv_len - q_start, kernels=kernels)
+        attend = attention_decode if T == 1 else attention
+        attn_out = attend(q, cache.k, cache.v, q_start, kv_len,
+                          layer=layer_idx, table=cache.block_table,
+                          sm_scale=sm_scale, window=cfg.sliding_window,
+                          kernels=kernels)
+    elif can_fuse_decode(q.shape, cache):
         # decode: one kernel writes the token's K/V and attends
         attn_out, _, _ = attention_decode_fused(
             q, k_new, v_new, cache.k, cache.v, q_start, kv_len, layer_idx,

@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels; import Triton lazily.
 
 The CUDA sources (``llm_inference_engine_tpu_torch/csrc/*.cu``) expose a
-plain C interface. They are compiled with one ``nvcc`` call into a shared
-library under ``build/torch_kernels/`` at the repository root, at first
-use, and loaded with ``ctypes``; a library whose name carries the hash of
-the sources is reused. Pointers and the CUDA stream travel as
+plain C interface. At first use each is compiled by its own ``nvcc``
+process, all started together, and the objects are linked into one
+shared library under ``build/torch_kernels/`` at the repository root,
+loaded with ``ctypes``; a library whose name carries the hash of the
+sources is reused. Pointers and the CUDA stream travel as
 ``c_void_p``; every entry point returns ``cudaGetLastError()`` and
 :func:`check` raises when it is not 0.
 
@@ -27,7 +28,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
@@ -44,6 +45,19 @@ _SIGNATURES = {
     # layer, B, H, K, S, D, sm_scale, window, stream
     "attention_decode": [_P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # k_new, v_new, k_pool, v_pool, starts, new_len, table,
+    # layer, B, T, P, page, max_pages, row_bytes, stream
+    "paged_kv_write": [_P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, k_pool, v_pool, out, q_start, kv_len, table,
+    # layer, B, T, H, K, P, page, max_pages, D, sm_scale, window, stream
+    "attention_prefill_paged": [_P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                                _P],
+    # q, k_pool, v_pool, out, q_start, kv_len, table,
+    # layer, B, H, K, P, page, max_pages, D, sm_scale, window, stream
+    "attention_decode_paged": [_P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # x, q, scale, out, m, k, n, halves, q_half, s_half, group, out_f32,
     # stream
     "int4_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _I, _P],
@@ -77,16 +91,35 @@ def build() -> tuple[Path, float]:
     if lib.exists():
         return lib, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)     # atomic: a concurrent loader never sees half
-    return lib, seconds
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources, objs)]
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+    try:
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for cmd in compiles]
+        runs = [(cmd, *proc.communicate(), proc.returncode)
+                for cmd, proc in zip(compiles, procs)]
+        for run in runs:
+            _check_nvcc(*run)
+        proc = subprocess.run(link, capture_output=True, text=True)
+        _check_nvcc(link, proc.stdout, proc.stderr, proc.returncode)
+        os.replace(tmp, lib)  # atomic: a concurrent loader never sees half
+    finally:
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
+    return lib, time.perf_counter() - t0
+
+
+def _check_nvcc(cmd, out: str, err: str, returncode: int) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}\n"
+                           f"{out}\n{err}")
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,17 +1,27 @@
 """Causal attention over the stacked token-major KV cache, GQA-native.
 
-Port of the bf16 paths of ``llm_inference_engine_tpu/ops/attention.py``:
+Port of the bf16 paths of ``llm_inference_engine_tpu/ops/attention.py``,
+over the slot cache [L, B, S, K, D] and the paged pool [L, P, page, K, D]
+with its block table (``ops/paged_kv.py``):
 
 - :func:`attention_torch` is the plain version, a port of
-  ``attention_xla`` (dense mask, f32 math);
-- :func:`attention` (prefill and chunked prefill) runs kernel D
-  (``csrc/attention.cu``, ``attention_prefill``) in place of the TPU
-  kernel ``_attn_kernel``;
-- :func:`attention_decode_fused` (one new token per sequence) runs kernel
-  D in decode mode (``attention_decode``) in place of the TPU kernel
-  ``_decode_fused_mxu_kernel`` (the JAX package's
+  ``attention_xla`` (dense mask, f32 math); over a pool,
+  :func:`attention_paged_torch` gathers the table into a dense view first,
+  as the JAX package's golden does;
+- :func:`attention` (prefill, chunked prefill, mixed steps) runs kernel D
+  (``csrc/attention.cu``) in place of the TPU kernel ``_attn_kernel``:
+  ``attention_prefill`` on the slot cache, ``attention_prefill_paged``
+  (through :func:`attention_prefill_paged`) with ``table=`` given;
+- :func:`attention_decode_fused` (one new token per sequence, slot cache)
+  runs kernel D in decode mode (``attention_decode``) in place of the TPU
+  kernel ``_decode_fused_mxu_kernel`` (the JAX package's
   ``attention_decode_fused_mxu``): it writes the new K/V row into the
-  cache IN PLACE and attends history plus the new token.
+  cache IN PLACE and attends history plus the new token;
+- :func:`attention_decode` (one token per sequence, paged pool, written
+  by kernel H first) runs kernel D's attend-only decode
+  (``attention_decode_paged``) in place of the TPU kernel
+  ``_decode_mxu_kernel`` (``_attention_decode_mxu`` with a table). It
+  shares the fused decode's launch shape and summation order.
 
 Row semantics (all versions): query row (t, h) at position
 p = q_start[b] + t attends key j iff j < kv_len[b], j <= p and, with a
@@ -19,9 +29,8 @@ sliding window W, j > p - W, using kv head h // G. A row with no visible
 key gives 0, not NaN. The decode kernel reads ``kv_len`` per sequence, so
 the JAX package's static ``kv_hi`` watermark has no counterpart.
 
-Not ported yet: int8 KV scales, the paged block table and the attend-only
-``_decode_mxu_kernel`` (ROADMAP.md, queue 1, "INT8 KV cache" and
-"Paged KV and prefix cache").
+Not ported yet: int8 KV scales and the attend-only decode over a slot
+cache (ROADMAP.md, queue 1, "INT8 KV cache").
 """
 
 from __future__ import annotations
@@ -31,10 +40,14 @@ from typing import Optional
 
 import torch
 
+from llm_inference_engine_tpu_torch.ops.paged_kv import (
+    PagedKVCache, gather_layer_pages)
 from llm_inference_engine_tpu_torch.utils import use_kernel
 
-__all__ = ["attention", "attention_torch", "attention_decode_fused",
-           "attention_decode_fused_torch", "can_fuse_decode"]
+__all__ = ["attention", "attention_torch", "attention_paged_torch",
+           "attention_prefill_paged", "attention_decode",
+           "attention_decode_fused", "attention_decode_fused_torch",
+           "can_fuse_decode"]
 
 
 def attention_torch(q, k_cache, v_cache, q_start, kv_len, *,
@@ -76,13 +89,33 @@ def attention_torch(q, k_cache, v_cache, q_start, kv_len, *,
     return out.reshape(B, Sq, H, D).to(q.dtype)
 
 
-def _check(q, k_cache, v_cache, q_start, kv_len, layer):
+def attention_paged_torch(q, k_pool, v_pool, q_start, kv_len, layer: int,
+                          table, *, sm_scale: Optional[float] = None,
+                          window: Optional[int] = None) -> torch.Tensor:
+    """Plain version over the paged pool [L, P, page, K, D]: gather the
+    table into a dense [B, max_pages * page, K, D] view, then
+    :func:`attention_torch` (prefill and decode alike)."""
+    kd, vd = gather_layer_pages(PagedKVCache(k_pool, v_pool, table, kv_len),
+                                layer)
+    return attention_torch(q, kd, vd, q_start, kv_len, sm_scale=sm_scale,
+                           window=window)
+
+
+def _check(q, k_cache, v_cache, q_start, kv_len, layer, table=None):
     if q.dim() != 4 or k_cache.dim() != 5:
         raise ValueError(f"attention kernel: need q [B,T,H,D] and a stacked "
-                         f"cache [L,B,S,K,D], got {tuple(q.shape)} and "
-                         f"{tuple(k_cache.shape)}")
+                         f"cache [L,B,S,K,D] or pool [L,P,page,K,D], got "
+                         f"{tuple(q.shape)} and {tuple(k_cache.shape)}")
     B, T, H, D = q.shape
     L, Bc, S, K, Dc = k_cache.shape
+    if table is not None:
+        if (table.dtype != torch.int32 or table.dim() != 2
+                or table.shape[0] != B or table.device != q.device
+                or not table.is_contiguous()):
+            raise ValueError(f"attention kernel: the block table must be "
+                             f"contiguous int32 [{B}, max_pages] on "
+                             f"{q.device}")
+        Bc = B                        # pool pages are not sequences
     if Bc != B or Dc != D or H % K:
         raise ValueError(f"attention kernel: q {tuple(q.shape)} does not fit "
                          f"cache {tuple(k_cache.shape)}")
@@ -111,10 +144,17 @@ def _check(q, k_cache, v_cache, q_start, kv_len, layer):
 def attention(q, k_cache, v_cache, q_start, kv_len, *,
               sm_scale: Optional[float] = None, kernels: str = "auto",
               layer: Optional[int] = None,
-              window: Optional[int] = None) -> torch.Tensor:
+              window: Optional[int] = None,
+              table: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention of q against the (already updated) KV cache: the cache
-    must hold the current tokens' K/V at [q_start, kv_len) (kernel C runs
-    first). See :func:`attention_torch` for shapes."""
+    must hold the current tokens' K/V at [q_start, kv_len) (kernel C or H
+    runs first). See :func:`attention_torch` for shapes; with ``table``
+    [B, max_pages] given, k_cache/v_cache are the paged pool and
+    ``layer`` is required (:func:`attention_prefill_paged`)."""
+    if table is not None:
+        return attention_prefill_paged(q, k_cache, v_cache, q_start, kv_len,
+                                       layer, table, sm_scale=sm_scale,
+                                       window=window, kernels=kernels)
     if not use_kernel(kernels, q):
         return attention_torch(q, k_cache, v_cache, q_start, kv_len,
                                sm_scale=sm_scale, layer=layer, window=window)
@@ -138,9 +178,75 @@ def attention(q, k_cache, v_cache, q_start, kv_len, *,
 attention.launches = 0
 
 
+def _launch_paged(entry: str, q, k_pool, v_pool, q_start, kv_len, layer,
+                  table, sm_scale, window):
+    _check(q, k_pool, v_pool, q_start, kv_len, layer, table)
+    from llm_inference_engine_tpu_torch.ops import _native
+    B, T, H, D = q.shape
+    _, P, page, K, _ = k_pool.shape
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    out = torch.empty_like(q)
+    shape = (B, T, H, K) if entry == "attention_prefill_paged" else (B, H, K)
+    status = getattr(_native.library(), entry)(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(),
+        q_start.data_ptr(), kv_len.data_ptr(), table.data_ptr(), int(layer),
+        *shape, P, page, table.shape[1], D, float(scale), int(window or 0),
+        _native.stream_of(q))
+    _native.check(status, entry)
+    return out
+
+
+def attention_prefill_paged(q, k_pool, v_pool, q_start, kv_len, layer: int,
+                            table, *, sm_scale: Optional[float] = None,
+                            window: Optional[int] = None,
+                            kernels: str = "auto") -> torch.Tensor:
+    """Kernel D's prefill mode through the block table (the counterpart of
+    ``_attn_kernel`` under the paged index map): q [B, T, H, D] against the
+    pool [L, P, page, K, D] at ``layer``, key row j of sequence b at page
+    table[b, j // page]. Table entries at or past ceil(kv_len / page) are
+    never read."""
+    if not use_kernel(kernels, q):
+        return attention_paged_torch(q, k_pool, v_pool, q_start, kv_len,
+                                     layer, table, sm_scale=sm_scale,
+                                     window=window)
+    out = _launch_paged("attention_prefill_paged", q, k_pool, v_pool,
+                        q_start, kv_len, layer, table, sm_scale, window)
+    attention_prefill_paged.launches += 1
+    return out
+
+
+attention_prefill_paged.launches = 0
+
+
+def attention_decode(q, k_pool, v_pool, q_start, kv_len, layer: int, *,
+                     table, sm_scale: Optional[float] = None,
+                     window: Optional[int] = None,
+                     kernels: str = "auto") -> torch.Tensor:
+    """Attend-only decode over the paged pool (the counterpart of
+    ``_decode_mxu_kernel``): q [B, 1, H, D]; the pool must already hold
+    the token's K/V at q_start (kernel H runs first); decode rows use
+    kv_len = q_start + active. Returns [B, 1, H, D]."""
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"attention_decode: q must be [B, 1, H, D], got "
+                         f"{tuple(q.shape)}")
+    if not use_kernel(kernels, q):
+        return attention_paged_torch(q, k_pool, v_pool, q_start, kv_len,
+                                     layer, table, sm_scale=sm_scale,
+                                     window=window)
+    out = _launch_paged("attention_decode_paged", q, k_pool, v_pool,
+                        q_start, kv_len, layer, table, sm_scale, window)
+    attention_decode.launches += 1
+    return out
+
+
+attention_decode.launches = 0
+
+
 def can_fuse_decode(q_shape, cache) -> bool:
-    """Fused-decode gate: one new token against a bf16 slot cache."""
-    return q_shape[1] == 1 and cache.k.dtype == torch.bfloat16
+    """Fused-decode gate: one new token against a bf16 SLOT cache (the
+    paged pool writes through kernel H, then attends)."""
+    return (q_shape[1] == 1 and cache.k.dtype == torch.bfloat16
+            and not isinstance(cache, PagedKVCache))
 
 
 def attention_decode_fused_torch(q, k_new, v_new, k_cache, v_cache, q_start,

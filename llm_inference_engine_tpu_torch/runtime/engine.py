@@ -1,7 +1,8 @@
 """Inference engine: prefill / decode steps + generation loop.
 
-Port of the single-device slot-cache path of
-``llm_inference_engine_tpu/runtime/engine.py``. The JAX package's jitted
+Port of the single-device path of
+``llm_inference_engine_tpu/runtime/engine.py``, over the slot cache or
+the paged pool. The JAX package's jitted
 closures become methods; its device-side ``while_loop`` rollout becomes a
 Python loop of decode steps (CUDA graphs come later). Kept from it:
 power-of-two prefill buckets (so later CUDA-graph capture per bucket has
@@ -14,10 +15,20 @@ The KV cache is updated in place. Slot lengths live on the device (the
 kernels read them) and in a host mirror that the engine keeps in step,
 since it decides every length change on the host.
 
+Paged layout (``kv_layout="paged"``, ``ops/paged_kv.py``): the page
+management of the JAX engine — chunk size capped to the page, a
+host-side refcounting allocator, page-aligned multi-token writes,
+capacity grown before every write (``ensure_capacity``; MemoryError on
+exhaustion, where the scheduler preempts), the worst case of a
+non-streaming ``generate`` reserved before its first decode step, pages
+released by ``reset`` and shared by the prefix caches. The block table
+has a host mirror; the device table is updated in place from pinned
+memory, and only when the host table changed.
+
 Weights may be dense or quantized (``ops/quant.py``); the engine does
 not look at them. Not ported yet (each raises NotImplementedError):
-meshes (dp/tp/cp), the paged layout, the int8 KV cache, multi-host
-lockstep overrides (ROADMAP.md, queue 1).
+meshes (dp/tp/cp), the int8 KV cache, multi-host lockstep overrides
+(ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ from llm_inference_engine_tpu_torch.config import (
     EngineConfig, ModelConfig, SamplingParams, resolve_rope_scaling)
 from llm_inference_engine_tpu_torch.models import llama as llama_model
 from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
+from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
 from llm_inference_engine_tpu_torch.ops.sampling import (
     apply_penalties, greedy_sample, sample_tokens, token_logprobs)
 
@@ -61,18 +73,18 @@ def _refuse_unported(eng: EngineConfig) -> None:
         raise NotImplementedError(
             "dp/tp/cp meshes are not ported yet (ROADMAP.md, queue 1, "
             "'Parallelism')")
-    if eng.kv_layout != "slot":
-        raise NotImplementedError(
-            f"kv_layout={eng.kv_layout!r} is not ported yet (ROADMAP.md, "
-            "queue 1, 'Paged KV and prefix cache')")
+    if eng.kv_layout not in ("slot", "paged"):
+        raise ValueError(f"kv_layout must be 'slot' or 'paged', got "
+                         f"{eng.kv_layout!r}")
     if eng.kv_cache_dtype == torch.int8:
         raise NotImplementedError(
-            "the int8 KV cache is not ported yet (ROADMAP.md, queue 1, "
-            "'INT8 KV cache')")
+            f"the int8 KV cache ({eng.kv_layout} layout) is not ported yet "
+            "(ROADMAP.md, queue 1, 'INT8 KV cache')")
 
 
 class InferenceEngine:
-    """Single-device engine over one model replica and its slot cache."""
+    """Single-device engine over one model replica and its slot cache or
+    paged pool."""
 
     def __init__(self, config: ModelConfig, engine_config: EngineConfig,
                  params: dict, rng_seed: int = 0, device=None):
@@ -86,11 +98,15 @@ class InferenceEngine:
             params["embed"].device
         self.params = params
         B, V = engine_config.max_batch_size, config.vocab_size
-        self.cache = kvc.new_kv_cache(
-            config.num_layers, B, config.num_kv_heads,
-            engine_config.max_seq_len, config.head_dim,
-            dtype=engine_config.kv_cache_dtype or config.dtype,
-            device=self.device)
+        dtype = engine_config.kv_cache_dtype or config.dtype
+        self.paged = engine_config.kv_layout == "paged"
+        if self.paged:
+            self._init_paged(dtype)
+        else:
+            self.cache = kvc.new_kv_cache(
+                config.num_layers, B, config.num_kv_heads,
+                engine_config.max_seq_len, config.head_dim, dtype=dtype,
+                device=self.device)
         self._lengths = np.zeros((B,), np.int32)     # host mirror
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(rng_seed)
@@ -99,6 +115,34 @@ class InferenceEngine:
         self._counts_ctx = torch.zeros((B, V), dtype=torch.int32,
                                        device=self.device)
         self._counts_gen = torch.zeros_like(self._counts_ctx)
+
+    def _init_paged(self, dtype: torch.dtype) -> None:
+        eng = self.engine_config
+        page = eng.page_size
+        # multi-token writes must stay within one page: the chunk size
+        # divides the page (ops/paged_kv.py write invariant)
+        C = max(1, eng.max_prefill_len)
+        if C > page:
+            eng = self.engine_config = eng.replace(max_prefill_len=page)
+        elif page % C:
+            raise ValueError(f"page_size {page} must be a multiple of "
+                             f"max_prefill_len {C}")
+        B = eng.max_batch_size
+        maxp = -(-eng.max_seq_len // page)
+        num_pages = eng.num_pages or (B * maxp + 1)   # +1: reserved page 0
+        self.cache = pkv.new_paged_kv_cache(
+            self.config.num_layers, B, self.config.num_kv_heads, num_pages,
+            page, self.config.head_dim, maxp, dtype=dtype,
+            device=self.device)
+        self._allocator = pkv.PageAllocator(num_pages)
+        self._slot_pages: list[list[int]] = [[] for _ in range(B)]
+        self._table_host = np.zeros((B, maxp), np.int32)
+        if self.device.type == "cuda":
+            # staging for in-place uploads; the event marks the last
+            # upload's copy done, so the buffer may be overwritten
+            self._table_pinned = torch.zeros((B, maxp), dtype=torch.int32,
+                                             pin_memory=True)
+            self._table_copied = torch.cuda.Event()
 
     # ------------------------------------------------------------------
     # helpers
@@ -119,6 +163,20 @@ class InferenceEngine:
         self._lengths = np.asarray(lengths, np.int32).copy()
         self.cache.lengths = self._dev(self._lengths)
 
+    def _upload_table(self) -> None:
+        """Copy the host block table into the device table, in place. On
+        the card the copy leaves from pinned memory and does not make the
+        host wait for the card; the staging buffer is rewritten only after
+        the previous upload's copy has run."""
+        table = self.cache.block_table
+        if self.device.type != "cuda":
+            table.copy_(torch.from_numpy(self._table_host))
+            return
+        self._table_copied.synchronize()
+        self._table_pinned.numpy()[...] = self._table_host
+        table.copy_(self._table_pinned, non_blocking=True)
+        self._table_copied.record()
+
     @staticmethod
     def _count_tokens(counts: torch.Tensor, token_ids: torch.Tensor,
                       valid: torch.Tensor) -> None:
@@ -137,13 +195,111 @@ class InferenceEngine:
         return logits
 
     # ------------------------------------------------------------------
+    # paged-mode page management (host side; ops/paged_kv.py)
+    # ------------------------------------------------------------------
+
+    @property
+    def free_pages(self) -> int:
+        return self._allocator.free_pages if self.paged else 1 << 30
+
+    def max_pool_tokens(self) -> int:
+        """Largest context one request can EVER hold: max_seq_len, further
+        capped by the whole paged pool (page 0 is reserved). The single
+        source of truth for admission and rejection thresholds."""
+        cap = self.engine_config.max_seq_len
+        if self.paged:
+            cap = min(cap, (self._allocator.num_pages - 1)
+                      * self.engine_config.page_size)
+        return cap
+
+    def pages_needed(self, n_tokens: int) -> int:
+        page = self.engine_config.page_size
+        return -(-max(n_tokens, 0) // page)
+
+    def _release_pages(self, slots: Sequence[int]) -> None:
+        changed = False
+        for b in slots:
+            if self._slot_pages[b]:
+                self._allocator.free(self._slot_pages[b])
+                self._slot_pages[b] = []
+                self._table_host[b, :] = 0
+                changed = True
+        if changed:
+            self._upload_table()
+
+    def adopt_prefix_pages(self, slot: int, pages: Sequence[int],
+                           length: int) -> None:
+        """Point a freshly reset slot's block table at SHARED read-only
+        prefix pages (zero-copy prefix caching, runtime/prefix_cache.py):
+        the allocator refcounts them, the slot's length starts at the
+        shared token count, and all later writes land in the slot's own
+        pages (length is a page multiple, so the chunk-alignment invariant
+        holds)."""
+        assert self.paged and not self._slot_pages[slot]
+        assert length % self.engine_config.page_size == 0
+        self._allocator.share(pages)
+        self._slot_pages[slot] = list(pages)
+        self._table_host[slot, :len(pages)] = pages
+        self._upload_table()
+        lengths = self._lengths.copy()
+        lengths[slot] = length
+        self._set_lengths(lengths)
+
+    def take_slot_pages(self, slot: int, n: int) -> list[int]:
+        """Transfer ownership of a slot's first ``n`` pages to the caller
+        (prefix registration: the entry keeps them alive after the scratch
+        slot resets). The slot keeps its remaining pages; the slot is
+        reset right after, which rewrites its table row."""
+        assert self.paged
+        pages = self._slot_pages[slot][:n]
+        self._slot_pages[slot] = self._slot_pages[slot][n:]
+        return pages
+
+    def ensure_capacity(self, targets) -> None:
+        """Grow each slot's page list to cover ``targets`` [B] tokens
+        (host-side allocator + block-table update). Raises MemoryError on
+        pool exhaustion; callers (the scheduler) preempt on that."""
+        if not self.paged:
+            return
+        changed = False
+        for b, t in enumerate(np.asarray(targets)):
+            need = self.pages_needed(int(t))
+            have = len(self._slot_pages[b])
+            if need > have:
+                new = self._allocator.alloc(need - have)
+                self._table_host[b, have:have + len(new)] = new
+                self._slot_pages[b].extend(new)
+                changed = True
+        if changed:
+            self._upload_table()
+
+    def seed_counts(self, slot: int, ctx_tokens=None, gen_tokens=None):
+        """Overwrite one slot's penalty-count rows from explicit token
+        lists: bookkeeping for tokens that enter the context WITHOUT
+        flowing through prefill/decode counting (a restored prefix's
+        tokens; a preempted request's generated-so-far tokens on
+        re-admission)."""
+        V = self._counts_ctx.shape[1]
+
+        def hist(tokens):
+            h = np.bincount(np.asarray(tokens, np.int64), minlength=V)[:V]
+            return self._dev(h)
+
+        if ctx_tokens is not None:
+            self._counts_ctx[slot] = hist(ctx_tokens)
+        if gen_tokens is not None:
+            self._counts_gen[slot] = hist(gen_tokens)
+
+    # ------------------------------------------------------------------
     # low-level API
     # ------------------------------------------------------------------
 
     def reset(self, slots: Optional[Sequence[int]] = None):
-        """Clear history (all slots, or specific ones)."""
+        """Clear history (all slots, or specific ones); a paged slot's
+        pages go back to the pool."""
         lengths = self._lengths.copy()
         if slots is None:
+            rows = list(range(self.engine_config.max_batch_size))
             lengths[:] = 0
             self._counts_ctx.zero_()
             self._counts_gen.zero_()
@@ -153,6 +309,8 @@ class InferenceEngine:
             self._counts_ctx[rows] = 0
             self._counts_gen[rows] = 0
         self._set_lengths(lengths)
+        if self.paged:
+            self._release_pages(rows)
 
     def prefill(self, prompts: Sequence[Sequence[int]],
                 slots: Optional[Sequence[int]] = None) -> torch.Tensor:
@@ -235,6 +393,20 @@ class InferenceEngine:
                 chunk = p[offset:offset + chunk_lens[slot]]
                 token_ids[slot, :len(chunk)] = np.asarray(chunk, np.int32)
 
+            if self.paged:
+                # kernel H's chunk rows must start page-aligned:
+                # multi-token writes start at a multiple of C (true for
+                # prompts admitted from 0 or from a shared prefix;
+                # multi-round appends at arbitrary history need the slot
+                # layout)
+                bad = (chunk_lens > 1) & (lengths_host % C != 0)
+                if bad.any():
+                    raise ValueError(
+                        "paged KV: multi-token prefill must start at a "
+                        f"multiple of max_prefill_len={C} (slots "
+                        f"{np.nonzero(bad)[0].tolist()} are mid-page); "
+                        "use kv_layout='slot' for arbitrary-offset appends")
+                self.ensure_capacity(lengths_host + chunk_lens)
             ids = self._dev(token_ids)
             q_start = self.cache.lengths
             kv_len = self._dev(lengths_host + chunk_lens)
@@ -318,6 +490,7 @@ class InferenceEngine:
             topp = self._dev(topp, torch.float32)
             extras = tuple(self._dev(e, torch.float32) for e in extras)
         active_host = np.asarray(active, bool)
+        self.ensure_capacity(self._lengths + active_host)
         q_start = self.cache.lengths
         kv_len = self._dev(self._lengths + active_host)
         tokens = torch.as_tensor(tokens, device=self.device).to(torch.int32)
@@ -332,6 +505,9 @@ class InferenceEngine:
         """Greedy decode ``num_steps`` tokens for all slots. Returns
         [num_steps, B] int32 token ids."""
         B = self.engine_config.max_batch_size
+        # a paged rollout reserves its pages up front, as the JAX
+        # package's device-side loop must
+        self.ensure_capacity(self._lengths + num_steps)
         toks = torch.as_tensor(tokens, device=self.device).to(torch.int32)
         out = []
         for _ in range(num_steps):
@@ -389,7 +565,14 @@ class InferenceEngine:
             emit(i, int(tok_host[i]), float(lp_host[i]))
 
         max_room = self.engine_config.max_seq_len - 1
-        for _ in range(sampling.max_new_tokens - 1):
+        steps = sampling.max_new_tokens - 1
+        if stream_callback is None and steps > 0 and not done.all():
+            # the JAX package runs this tail as one device-side rollout and
+            # reserves its worst case first: raise MemoryError here too,
+            # before the first decode step
+            self.ensure_capacity(np.minimum(
+                self._lengths + np.where(done, 0, steps), max_room + 1))
+        for _ in range(steps):
             # a row at capacity never advances again, so it stays inactive
             active = ~done & (self._lengths < max_room)
             if not active.any():

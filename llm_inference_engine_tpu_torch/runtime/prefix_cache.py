@@ -1,0 +1,265 @@
+"""Prefix caching for the paged layout: reuse the KV pages of a shared
+prompt prefix.
+
+Port of the framework-free paged half of
+``llm_inference_engine_tpu/runtime/prefix_cache.py``: a prefix shared by
+many requests (a system prompt, or the earlier turns of a conversation
+that a stateless client resends) is prefilled once, and every later
+request that starts with it adopts its pool pages into its block table
+(refcounted by the engine's ``PageAllocator``, zero copies) and prefills
+only the tail.
+
+- :class:`PagedPrefixStore`: explicitly registered prefixes
+  (``ContinuousBatchingScheduler.register_prefix``);
+- :class:`AutoPrefixCache`: every finished request donates its
+  page-aligned context (``auto_prefix_cache=True``).
+
+The slot layout's :class:`PrefixStore` keeps snapshots of cache rows and
+restores them by copy; it is not ported yet and raises
+NotImplementedError (ROADMAP.md, queue 1, "Paged KV and prefix cache").
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections import OrderedDict
+from typing import Sequence
+
+__all__ = ["PrefixStore", "PagedPrefixEntry", "PagedPrefixStore",
+           "AutoPrefixCache"]
+
+
+class PrefixStore:
+    """The slot layout's snapshot store (not ported yet)."""
+
+    def __init__(self, engine, max_tokens: int = 16384):
+        raise NotImplementedError(
+            "prefix caching over the slot KV layout (snapshots of cache "
+            "rows) is not ported yet (ROADMAP.md, queue 1, 'Paged KV and "
+            "prefix cache'); use kv_layout='paged'")
+
+
+# ---------------------------------------------------------------------------
+# Zero-copy prefix caching for the paged layout
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PagedPrefixEntry:
+    """A prefix held as SHARED read-only pool pages. Restoring it is a
+    block-table edit — no bytes move. Only whole pages are shareable, so
+    ``length`` is the page-aligned floor of the registered prefix; the
+    partial tail re-prefills per request (cheap, < one page)."""
+    tokens: tuple[int, ...]           # the SHARED (page-aligned) tokens
+    length: int                       # == len(tokens), multiple of page
+    pages: list
+
+    @property
+    def padded_length(self) -> int:   # budget accounting parity
+        return self.length
+
+
+class PagedPrefixStore:
+    """PrefixStore interface over shared pool pages (paged engines).
+
+    Unlike the slot-layout store (storage-form copies), entries here cost
+    ZERO copies to restore and their pages are protected by the
+    allocator's refcounts — an entry evicted while slots still reference
+    its pages merely drops one reference."""
+
+    def __init__(self, engine, max_tokens: int = 16384):
+        if not getattr(engine, "paged", False):
+            raise ValueError("PagedPrefixStore needs a paged engine")
+        self.engine = engine
+        self.max_tokens = max_tokens
+        self._entries: OrderedDict[tuple, PagedPrefixEntry] = OrderedDict()
+
+    @property
+    def stored_tokens(self) -> int:
+        return sum(e.length for e in self._entries.values())
+
+    def _evict_to_fit(self, incoming: int) -> None:
+        while (self._entries
+               and self.stored_tokens + incoming > self.max_tokens):
+            _, e = self._entries.popitem(last=False)
+            self.engine._allocator.free(e.pages)
+
+    def evict(self, tokens: Sequence[int]) -> bool:
+        e = self._entries.pop(tuple(tokens), None)
+        if e is None:
+            return False
+        self.engine._allocator.free(e.pages)
+        return True
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def register(self, tokens: Sequence[int], slot: int = 0):
+        """Prefill ``tokens`` on scratch ``slot`` and take its FULL pages
+        as the shared entry (the partial tail page stays with the slot
+        and is freed by the reset)."""
+        key = tuple(int(t) for t in tokens)
+        page = self.engine.engine_config.page_size
+        n_full = len(key) // page
+        shared = key[:n_full * page]
+        if shared in self._entries:
+            self._entries.move_to_end(shared)
+            return self._entries[shared]
+        if n_full == 0:
+            raise ValueError(
+                f"prefix of {len(key)} tokens is shorter than one page "
+                f"({page}): nothing shareable")
+        if len(key) >= self.engine.max_pool_tokens():
+            raise ValueError("prefix exceeds the pool")
+        eng = self.engine
+        eng.reset([slot])
+        eng.prefill([list(shared)], slots=[slot])
+        pages = eng.take_slot_pages(slot, n_full)
+        eng.reset([slot])                 # frees any tail page only
+        entry = PagedPrefixEntry(tokens=shared, length=len(shared),
+                                 pages=pages)
+        self._evict_to_fit(entry.length)
+        self._entries[shared] = entry
+        return entry
+
+    def match(self, prompt: Sequence[int]):
+        best = None
+        for key, entry in self._entries.items():
+            if (len(key) < len(prompt)
+                    and (best is None or len(key) > len(best.tokens))
+                    and tuple(prompt[:len(key)]) == key):
+                best = entry
+        if best is not None:
+            self._entries.move_to_end(best.tokens)
+        return best
+
+    def match_len(self, prompt: Sequence[int]) -> int:
+        """Reusable token count WITHOUT touching LRU order (admission
+        gating peek; entries are page-aligned by construction)."""
+        best = 0
+        for key in self._entries:
+            if (best < len(key) < len(prompt)
+                    and tuple(prompt[:len(key)]) == key):
+                best = len(key)
+        return best
+
+    def restore(self, slot: int, entry: PagedPrefixEntry) -> int:
+        """Adopt the shared pages into ``slot`` (block-table edit, zero
+        copies); returns the prompt tokens the caller may skip."""
+        self.engine.adopt_prefix_pages(slot, entry.pages, entry.length)
+        return entry.length
+
+
+class AutoPrefixCache:
+    """Automatic prefix caching for paged engines (the vLLM-APC idea):
+    every FINISHED request donates its page-aligned context pages to a
+    hash cache — no registration — and every admission adopts the longest
+    cached chain matching its prompt. Multi-turn chat over the stateless
+    HTTP endpoint is the killer case: round N+1 resends round N's whole
+    conversation, whose pages are all still here.
+
+    Entry i of a donated context covers tokens[:i*page] and holds a
+    reference on pages[:i] (the allocator refcounts; eviction and slot
+    frees each drop one reference, the page returns to the pool with the
+    last). ``max_pages`` bounds the cache's distinct page references
+    (LRU)."""
+
+    def __init__(self, engine, max_pages: int = 1024):
+        if not getattr(engine, "paged", False):
+            raise ValueError("AutoPrefixCache needs a paged engine")
+        self.engine = engine
+        self.max_pages = max_pages
+        self._chains: OrderedDict[tuple, list] = OrderedDict()
+        self.hits = 0
+        self.misses = 0
+        self.tokens_reused = 0
+
+    @property
+    def cached_pages(self) -> int:
+        """DISTINCT pages held by the cache (chains share their common
+        prefix pages — that is the whole point — so the HBM footprint is
+        the union, not the sum of chain lengths)."""
+        pages: set = set()
+        for chain in self._chains.values():
+            pages.update(chain)
+        return len(pages)
+
+    def _evict_to_fit(self, incoming: int) -> None:
+        while (self._chains
+               and self.cached_pages + incoming > self.max_pages):
+            _, pages = self._chains.popitem(last=False)
+            self.engine._allocator.free(pages)
+
+    def insert(self, tokens: Sequence[int], slot_pages: Sequence[int],
+               valid_tokens: int) -> None:
+        """Donate a finishing slot's pages: one chain entry per page-
+        aligned prefix of ``tokens[:valid_tokens]`` not already cached.
+        Call BEFORE the slot releases its pages."""
+        page = self.engine.engine_config.page_size
+        n_full = min(valid_tokens // page, len(slot_pages))
+        for i in range(n_full, 0, -1):
+            key = tuple(int(t) for t in tokens[:i * page])
+            if key in self._chains:
+                self._chains.move_to_end(key)
+                continue
+            if i > self.max_pages:
+                continue
+            chain = list(slot_pages[:i])
+            # budget only the DISTINCT pages this chain adds — its prefix
+            # chains (inserted next, i-1, i-2, ...) share every page, and
+            # charging them again would evict the longer chain just added
+            cached: set = set()
+            for c in self._chains.values():
+                cached.update(c)
+            self._evict_to_fit(len(set(chain) - cached))
+            self.engine._allocator.share(chain)
+            self._chains[key] = chain
+
+    def match(self, prompt: Sequence[int]):
+        """Longest cached chain strictly prefixing ``prompt`` (at least
+        one tail token must remain). Returns (tokens, pages) or None."""
+        page = self.engine.engine_config.page_size
+        max_i = (len(prompt) - 1) // page
+        for i in range(max_i, 0, -1):
+            key = tuple(int(t) for t in prompt[:i * page])
+            chain = self._chains.get(key)
+            if chain is not None:
+                self._chains.move_to_end(key)
+                self.hits += 1
+                self.tokens_reused += i * page
+                return key, chain
+        self.misses += 1
+        return None
+
+    def restore(self, slot: int, match) -> int:
+        tokens, pages = match
+        self.engine.adopt_prefix_pages(slot, pages, len(tokens))
+        return len(tokens)
+
+    def match_len(self, prompt: Sequence[int]) -> int:
+        """Reusable (page-aligned) token count for ``prompt`` WITHOUT
+        touching LRU order or hit/miss counters — admission gating peeks
+        at what a later real match would reuse."""
+        page = self.engine.engine_config.page_size
+        for i in range((len(prompt) - 1) // page, 0, -1):
+            if tuple(int(t) for t in prompt[:i * page]) in self._chains:
+                return i * page
+        return 0
+
+    def evict_for(self, n_pages: int) -> int:
+        """Free LRU chains until the POOL gained ``n_pages`` free pages
+        (shared pages only return with their last reference, so chains
+        are dropped until the allocator actually shows the gain). Returns
+        the pages actually freed. Called by the scheduler when admission
+        or in-flight growth cannot get pages — cached-but-idle prefixes
+        must never starve live work (vLLM-APC frees cached blocks under
+        allocation pressure the same way)."""
+        start = self.engine.free_pages
+        while self._chains and self.engine.free_pages - start < n_pages:
+            _, pages = self._chains.popitem(last=False)
+            self.engine._allocator.free(pages)
+        return self.engine.free_pages - start
+
+    def clear(self) -> None:
+        for pages in self._chains.values():
+            self.engine._allocator.free(pages)
+        self._chains.clear()

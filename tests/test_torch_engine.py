@@ -207,7 +207,8 @@ def test_create_engine_dummy_and_unported_paths():
                             + 3 * cfg.hidden_size * cfg.intermediate_size))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_engine("debug", "/nonexistent/checkpoint")
-    for bad in (dict(kv_cache_dtype_name="int8"), dict(kv_layout="paged"),
+    for bad in (dict(kv_cache_dtype_name="int8"),
+                dict(kv_layout="paged", kv_cache_dtype_name="int8"),
                 dict(tp=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             create_engine("debug", None, EngineConfig(**bad))
@@ -243,6 +244,12 @@ def test_package_imports_no_jax():
         "import llm_inference_engine_tpu_torch.ops._native\n"
         "import llm_inference_engine_tpu_torch.models.registry\n"
         "import llm_inference_engine_tpu_torch.runtime.engine\n"
+        "import llm_inference_engine_tpu_torch.runtime.scheduler\n"
+        "import llm_inference_engine_tpu_torch.runtime.prefix_cache\n"
+        "import llm_inference_engine_tpu_torch.runtime.chat_template\n"
+        "import llm_inference_engine_tpu_torch.ops.paged_kv\n"
+        "import llm_inference_engine_tpu_torch.cli\n"
+        "import llm_inference_engine_tpu_torch.server\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('llm_inference_engine_tpu.')"
         " or m == 'llm_inference_engine_tpu']\n"
@@ -251,3 +258,44 @@ def test_package_imports_no_jax():
                           text=True, timeout=120,
                           cwd=Path(__file__).resolve().parent.parent)
     assert proc.returncode == 0, proc.stderr
+
+
+_FAKE_NVCC = """#!{python}
+import sys
+args = sys.argv[1:]
+out = args[args.index("-o") + 1]
+text = "".join(open(p).read() for p in args[args.index("-o") + 2:])
+if "-c" in args and "COMPILE_ERROR" in text:
+    sys.exit("fake nvcc: compile error")
+if "-shared" in args and "LINK_ERROR" in text:
+    sys.exit("fake nvcc: link error")
+open(out, "w").write(text)
+"""
+
+
+@pytest.mark.parametrize("fault", [None, "COMPILE_ERROR", "LINK_ERROR"])
+def test_kernel_build_raises_on_nvcc_failure_and_cleans_up(
+        tmp_path, monkeypatch, fault):
+    """The build compiles each source (a stand-in nvcc copies it to its
+    object), links the objects, reuses a library of the same source hash,
+    and raises on a failed compile or link, leaving nothing behind."""
+    from llm_inference_engine_tpu_torch.ops import _native
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    (csrc / "a.cu").write_text("int a;\n")
+    (csrc / "b.cu").write_text(f"int b; // {fault}\n")
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(_FAKE_NVCC.format(python=sys.executable))
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_native, "CSRC", csrc)
+    monkeypatch.setattr(_native, "BUILD_DIR", build)
+    monkeypatch.setattr(_native, "nvcc_path", lambda: str(nvcc))
+    if fault is None:
+        lib, _ = _native.build()
+        assert [p.name for p in build.iterdir()] == [lib.name]
+        assert lib.read_text() == "int a;\nint b; // None\n"
+        assert _native.build() == (lib, 0.0)
+    else:
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            _native.build()
+        assert list(build.iterdir()) == []

@@ -266,3 +266,184 @@ def test_quantized_engine_kernels_match_plain(cuda, mode):
     assert _fused(mode).launches > before
     assert torch.isfinite(lk).all()
     torch.testing.assert_close(lk, lt, atol=5e-2, rtol=5e-2)
+
+
+# ---------------------------------------------------------------------------
+# kernel H (paged write) and kernel D's paged modes
+# ---------------------------------------------------------------------------
+
+def _paged_pool(cuda, L, B, maxp, page, K, D, spare=3):
+    """Random pool with a shuffled table over pages 1.. (page 0 is the
+    scratch page; ``spare`` pages stay unreferenced)."""
+    from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+    P = 1 + B * maxp + spare
+    k = torch.randn(L, P, page, K, D, device=cuda, dtype=torch.bfloat16)
+    table = (torch.randperm(P - 1, device=cuda)[:B * maxp] + 1).to(
+        torch.int32).reshape(B, maxp).contiguous()
+    return pkv.PagedKVCache(k, torch.randn_like(k), table,
+                            torch.zeros(B, device=cuda, dtype=torch.int32))
+
+
+def _cut_table(cache, kv_len, page):
+    """Point every entry at or past ceil(kv_len / page) at page 0 and fill
+    page 0 with NaN: a kernel that reads such an entry shows it."""
+    used = (kv_len.long() + page - 1) // page
+    cols = torch.arange(cache.block_table.shape[1], device=kv_len.device)
+    cache.block_table[cols[None, :] >= used[:, None]] = 0
+    cache.k[:, 0] = float("nan")
+    cache.v[:, 0] = float("nan")
+
+
+@pytest.mark.parametrize("page", [16, 64])
+def test_paged_write_kernel(cuda, page):
+    """Chunk rows (one spanning pages at page 16), decode rows at odd
+    offsets and new_len == 0 rows in one launch; bit-identical to the plain
+    scatter, and page 0 and the unreferenced pages keep their bytes."""
+    from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+    L, B, maxp, K, D, T = 3, 5, 6, 8, 128, 64
+    cache = _paged_pool(cuda, L, B, maxp, page, K, D)
+    ref = pkv.PagedKVCache(cache.k.clone(), cache.v.clone(),
+                           cache.block_table, cache.lengths)
+    before = cache.k.clone()
+    new_k = torch.randn(B, T, K, D, device=cuda, dtype=torch.bfloat16)
+    new_v = torch.randn_like(new_k)
+    starts = torch.tensor([0, page, 2 * page + 7, 5, 3 * page], device=cuda,
+                          dtype=torch.int32)
+    new_len = torch.tensor([T, 37, 1, 1, 0], device=cuda, dtype=torch.int32)
+    n0 = pkv.paged_update_at_layer.launches
+    pkv.paged_update_at_layer(cache, 2, new_k, new_v, starts, new_len,
+                              kernels="cuda")
+    pkv.paged_update_at_layer_torch(ref, 2, new_k, new_v, starts, new_len)
+    torch.cuda.synchronize()
+    assert pkv.paged_update_at_layer.launches == n0 + 1
+    assert torch.equal(cache.k, ref.k) and torch.equal(cache.v, ref.v)
+    used = torch.zeros(cache.k.shape[1], dtype=torch.bool, device=cuda)
+    used[cache.block_table.long().flatten()] = True
+    assert torch.equal(cache.k[:, ~used], before[:, ~used])
+    assert not used[0]
+
+
+@pytest.mark.parametrize("page,K,G,window", [(16, 2, 4, None),
+                                             (64, 4, 1, None),
+                                             (16, 2, 4, 70)])
+def test_paged_prefill_attention_kernel(cuda, page, K, G, window):
+    from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+    L, B, T, D, maxp = 2, 4, 77, 128, 300 // page + 2
+    cache = _paged_pool(cuda, L, B, maxp, page, K, D)
+    q = torch.randn(B, T, K * G, D, device=cuda, dtype=torch.bfloat16)
+    q_start = torch.tensor([0, 5, 150, 2 * page], device=cuda,
+                           dtype=torch.int32)
+    kv_len = q_start + torch.tensor([77, 40, 1, 0], device=cuda,
+                                    dtype=torch.int32)
+    _cut_table(cache, kv_len, page)
+    want = attention.attention_paged_torch(
+        q, cache.k.nan_to_num(), cache.v.nan_to_num(), q_start, kv_len, 1,
+        cache.block_table, window=window)
+    got = attention.attention(q, cache.k, cache.v, q_start, kv_len, layer=1,
+                              window=window, table=cache.block_table,
+                              kernels="cuda")
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("page,K,G,window", [(16, 4, 4, None),
+                                             (64, 8, 1, None),
+                                             (64, 4, 4, 100)])
+def test_paged_decode_attention_kernel(cuda, page, K, G, window):
+    from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+    L, B, D, maxp = 2, 6, 128, 1000 // page + 1
+    cache = _paged_pool(cuda, L, B, maxp, page, K, D)
+    q = torch.randn(B, 1, K * G, D, device=cuda, dtype=torch.bfloat16)
+    kv_len = torch.tensor([1, 17, page, page + 1, 999, 500], device=cuda,
+                          dtype=torch.int32)
+    q_start = kv_len - 1
+    _cut_table(cache, kv_len, page)
+    n0 = attention.attention_decode.launches
+    got = attention.attention_decode(q, cache.k, cache.v, q_start, kv_len, 1,
+                                     table=cache.block_table, window=window,
+                                     kernels="cuda")
+    want = attention.attention_paged_torch(
+        q, cache.k.nan_to_num(), cache.v.nan_to_num(), q_start, kv_len, 1,
+        cache.block_table, window=window)
+    torch.cuda.synchronize()
+    assert attention.attention_decode.launches == n0 + 1
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("page", [16, 64])
+def test_paged_modes_are_bit_identical_to_slot_modes(cuda, page):
+    """The paged modes change addressing only: H then the attend-only
+    decode gives the fused slot decode's bytes, and the paged prefill the
+    slot prefill's, on the same keys."""
+    from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+    L, B, K, G, D, maxp = 2, 4, 4, 4, 128, 512 // page
+    cache = _paged_pool(cuda, L, B, maxp, page, K, D)
+    S = maxp * page
+    slot_k, slot_v = (torch.empty(L, B, S, K, D, device=cuda,
+                                  dtype=torch.bfloat16) for _ in range(2))
+    for layer in range(L):
+        slot_k[layer], slot_v[layer] = pkv.gather_layer_pages(cache, layer)
+    hist = torch.tensor([0, 63, 64, 400], device=cuda, dtype=torch.int32)
+    kv_len = hist + 1
+    q = torch.randn(B, 1, K * G, D, device=cuda, dtype=torch.bfloat16)
+    kn = torch.randn(B, 1, K, D, device=cuda, dtype=torch.bfloat16)
+    vn = torch.randn_like(kn)
+    want, _, _ = attention.attention_decode_fused(
+        q, kn, vn, slot_k, slot_v, hist, kv_len, 1, kernels="cuda")
+    pkv.paged_update_at_layer(cache, 1, kn, vn, hist, kv_len - hist,
+                              kernels="cuda")
+    got = attention.attention_decode(q, cache.k, cache.v, hist, kv_len, 1,
+                                     table=cache.block_table, kernels="cuda")
+    assert torch.equal(got, want)
+    qp = torch.randn(B, 40, K * G, D, device=cuda, dtype=torch.bfloat16)
+    kv_len = hist + 40
+    assert torch.equal(
+        attention.attention(qp, cache.k, cache.v, hist, kv_len, layer=1,
+                            table=cache.block_table, kernels="cuda"),
+        attention.attention(qp, slot_k, slot_v, hist, kv_len, layer=1,
+                            kernels="cuda"))
+
+
+def test_paged_kernels_refuse_instead_of_falling_back(cuda):
+    from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+    cache = _paged_pool(cuda, 1, 2, 2, 16, 2, 128)
+    q = torch.randn(2, 1, 4, 128, device=cuda)                 # f32
+    lens = torch.ones(2, device=cuda, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        attention.attention_decode(q, cache.k, cache.v, lens - 1, lens, 0,
+                                   table=cache.block_table)
+    with pytest.raises(ValueError):
+        attention.attention_decode(q.bfloat16(), cache.k, cache.v, lens - 1,
+                                   lens, 0, table=cache.block_table.long())
+    with pytest.raises(TypeError):
+        pkv.paged_update_at_layer(cache, 0, q[:, :, :2], q[:, :, :2],
+                                  lens, lens)
+
+
+def test_paged_engine_matches_slot_engine_and_plain(cuda):
+    """A small bf16 model, pages of 16: the paged engine's prefill logits
+    are bit-identical to the slot engine's under the same kernels (equal
+    chunk size), its greedy ids equal, and its logits agree with the plain
+    path within the bf16 engine tolerance."""
+    cfg = get_config("debug").replace(dtype_name="bfloat16", head_dim=128,
+                                      num_layers=3)
+    eng = EngineConfig(max_batch_size=3, max_seq_len=256, max_prefill_len=16)
+    params = init_dummy_params(cfg, device=cuda)
+    paged = InferenceEngine(cfg, eng.replace(kv_layout="paged",
+                                             page_size=16), params,
+                            device=cuda)
+    slot = InferenceEngine(cfg, eng, params, device=cuda)
+    plain = InferenceEngine(cfg, eng.replace(kv_layout="paged", page_size=16,
+                                             kernels="torch"), params,
+                            device=cuda)
+    prompts = [[1, 2, 3], list(range(5, 100)), [7] * 30]
+    lp, ls, lt = (e.prefill(prompts) for e in (paged, slot, plain))
+    assert torch.equal(lp, ls)
+    torch.testing.assert_close(lp, lt, atol=5e-2, rtol=5e-2)
+    from llm_inference_engine_tpu_torch.config import SamplingParams
+    sp = SamplingParams(greedy=True, max_new_tokens=12)
+    paged.reset()
+    slot.reset()
+    assert (paged.generate(prompts, sp, eos_token_id=None).token_ids
+            == slot.generate(prompts, sp, eos_token_id=None).token_ids)
