@@ -42,14 +42,34 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
       prompts that fit the pool and full lengths that do not; prefill
       logits held against the plain path within the limits of 4b, then
       first tokens under the f32 tie rule;
-5. one JSON line of kernel results, the nvidia-smi line, and as the last
-   line ``{"ok": true, "device": {...}}``.
+   g. llama2-7b INT4 with an int8 KV cache (slot, B=8, snapped scales):
+      4b's prompts and rounds through kernel I and kernel D's int8 prefill
+      and fused decode, never C or D's bf16 modes; KV bytes against 4b's
+      cache, and the prefill logits' distance to 4b's (printed only);
+      the plain prefill is rerun with faults planted in its int8
+      attention (INT8_FAULTS) and the distances printed: the INT4
+      dummies' logits barely move with K/V;
+   j. llama2-7b INT8 with an int8 KV cache (slot, B=8): as 4g through F,
+      whose logits do move with K/V: every planted fault must leave the
+      logit limits;
+   h. paged == slot with the int8 cache: as 4d, bit-identical logits and
+      ids, through H's and D's int8 paged modes only;
+   i. the server over a paged INT4 engine with an int8 pool of 4e's pool
+      bytes (~2x the pages): 4e's wave 1;
+   (3d, before 4: kernel I, H's int8 mode and D's int8 modes against their
+   plain versions at 7B widths, in both scale numerics, the decode modes
+   held per row, DECODE_ROW_TOL; 4j runs after 4g, before 4d);
+5. one JSON line of kernel results (each with its time, its plain
+   version's, its bound from this run's inputs and, where one PyTorch call
+   computes the same function, that call's time), the nvidia-smi line,
+   and as the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -74,6 +94,21 @@ KERNEL_VS_F32 = 1.5
 # bf16 kernel outputs vs plain: one bf16 ulp apart at most, plus f32 sums
 # taken in another order.
 KERNEL_TOL = dict(atol=2e-2, rtol=2e-2)
+# The int8 decode modes' outputs at long contexts are averages of many
+# random V rows, a few hundredths in size, where KERNEL_TOL's atol would
+# hide a mask off by one. There each element is held to one bf16 ulp of
+# itself (at most 2^-7 of it) plus 2^-5 of its (token, head) row's RMS.
+DECODE_ROW_TOL = 2.0 ** -5
+# int8 KV writes vs plain: bit for bit expected (the same CUDA log2f/exp2f
+# and IEEE divide); otherwise no looser than the CPU tests' limits against
+# the JAX package: values off by 1 in at most 0.1% of elements, scales
+# within 2^-20 relative.
+INT8_SHARE, INT8_SCALE_REL = 1e-3, 2.0 ** -20
+# bound_ms: the H100 SXM data sheet's HBM rate and dense bf16 tensor-core
+# rate (the int8 KV modes compute in bf16/f32, so their operations count
+# at the bf16 rate)
+HBM_BYTES_PER_S = 3.35e12
+BF16_OPS_PER_S = 989e12
 
 REPLACES = {
     "rmsnorm": "llm_inference_engine_tpu/ops/rmsnorm.py:58",
@@ -88,6 +123,14 @@ REPLACES = {
     "paged_kv_write": "llm_inference_engine_tpu/ops/paged_kv.py:169",
     "attention_prefill_paged": "llm_inference_engine_tpu/ops/attention.py:135",
     "attention_decode_paged": "llm_inference_engine_tpu/ops/attention.py:356",
+    "kv_write_quant": "llm_inference_engine_tpu/ops/kv_cache.py:289",
+    "attention_prefill_int8": "llm_inference_engine_tpu/ops/attention.py:135",
+    "attention_decode_int8": "llm_inference_engine_tpu/ops/attention.py:569",
+    "paged_kv_write_int8": "llm_inference_engine_tpu/ops/paged_kv.py:169",
+    "attention_prefill_paged_int8":
+        "llm_inference_engine_tpu/ops/attention.py:135",
+    "attention_decode_paged_int8":
+        "llm_inference_engine_tpu/ops/attention.py:356",
 }
 _TRITON = ("triton", "llm_inference_engine_tpu_torch/ops/_triton_kernels.py")
 SOURCES = {
@@ -103,21 +146,65 @@ SOURCES = {
     "paged_kv_write": ("cuda", "llm_inference_engine_tpu_torch/csrc/paged_kv_write.cu"),
     "attention_prefill_paged": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention.cu"),
     "attention_decode_paged": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention.cu"),
+    "kv_write_quant": ("cuda", "llm_inference_engine_tpu_torch/csrc/kv_write_quant.cu"),
+    "attention_prefill_int8": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention_int8.cu"),
+    "attention_decode_int8": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention_int8.cu"),
+    "paged_kv_write_int8": ("cuda", "llm_inference_engine_tpu_torch/csrc/kv_write_quant.cu"),
+    "attention_prefill_paged_int8": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention_int8.cu"),
+    "attention_decode_paged_int8": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention_int8.cu"),
 }
 # the main path whose launch count each kernel reports
 PATH_OF = {name: "bf16" for name in REPLACES}
 PATH_OF.update(int4_matmul="int4", dequant_int4="int4", int8_matmul="int8",
                paged_kv_write="server", attention_prefill_paged="server",
-               attention_decode_paged="server")
-# the slot cache's kernels, never launched by a paged engine
-SLOT_ONLY = ("kv_write", "attention_prefill", "attention_decode")
+               attention_decode_paged="server", kv_write_quant="int4-kv8",
+               attention_prefill_int8="int4-kv8",
+               attention_decode_int8="int4-kv8",
+               paged_kv_write_int8="server-kv8",
+               attention_prefill_paged_int8="server-kv8",
+               attention_decode_paged_int8="server-kv8")
+NORM_ACT = ("rmsnorm", "add_residual_rmsnorm", "silu_and_mul")
+BF16_SLOT = ("kv_write", "attention_prefill", "attention_decode")
+INT8_SLOT = ("kv_write_quant", "attention_prefill_int8",
+             "attention_decode_int8")
+BF16_PAGED = ("paged_kv_write", "attention_prefill_paged",
+              "attention_decode_paged")
+INT8_PAGED = ("paged_kv_write_int8", "attention_prefill_paged_int8",
+              "attention_decode_paged_int8")
+# each slot main path: (kernels that must launch, kernels that must not)
+MAIN_PATHS = {
+    "bf16": (NORM_ACT + BF16_SLOT, INT8_SLOT + BF16_PAGED + INT8_PAGED),
+    "int4": (NORM_ACT + BF16_SLOT + ("int4_matmul", "dequant_int4"),
+             INT8_SLOT + BF16_PAGED + INT8_PAGED),
+    "int8": (NORM_ACT + BF16_SLOT + ("int8_matmul",),
+             INT8_SLOT + BF16_PAGED + INT8_PAGED),
+    "int4-kv8": (NORM_ACT + INT8_SLOT + ("int4_matmul", "dequant_int4"),
+                 BF16_SLOT + BF16_PAGED + INT8_PAGED),
+    "int8-kv8": (NORM_ACT + INT8_SLOT + ("int8_matmul",),
+                 BF16_SLOT + BF16_PAGED + INT8_PAGED),
+}
+# Faults planted in the plain int8 attention (attention_torch with scale
+# planes) to show that a path's logit limits can see a broken int8 kernel:
+# each maps (kv_len, k_scale, v_scale) to the faulted triple. On a path in
+# MUST_SEE_FAULTS, the kernel path against each faulted plain path must
+# leave the limits, or the check fails; elsewhere the distances are printed.
+INT8_FAULTS = {
+    "v scales set to 1": lambda kl, ks, vs: (kl, ks, vs * 0 + 1),
+    "k and v scales swapped": lambda kl, ks, vs: (kl, vs, ks),
+    "newest key dropped": lambda kl, ks, vs: (kl - 1, ks, vs),
+}
+MUST_SEE_FAULTS = ("int8-kv8",)
 
 
 def say(*parts) -> None:
     print(*parts, flush=True)
 
 
-def time_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
+_FLUSH = []
+
+
+def time_ms(torch, fn, iters: int = 10, warmup: int = 2,
+            cold: bool = False) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back launches.
 
     A ~30 ms device-side sleep is queued first, so the host has enqueued
@@ -126,10 +213,30 @@ def time_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
     events then time the kernels, not Python's launch overhead. A plain
     version that synchronises with the host inside cannot run ahead; its
     time is its real cost. Inputs that fit the 50 MB L2 stay there
-    across repeats."""
+    across repeats, unless ``cold``: then 128 MB are written before each
+    launch (warm-up included), so the L2 holds none of its inputs; each
+    launch is timed between its own pair of events, and the median is
+    returned."""
+    if cold and not _FLUSH:
+        _FLUSH.append(torch.zeros(32 << 20, dtype=torch.float32,
+                                  device="cuda"))
     for _ in range(warmup):
+        if cold:
+            _FLUSH[0].zero_()
         fn()
     torch.cuda.synchronize()
+    if cold:
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+                  for _ in range(iters)]
+        torch.cuda._sleep(50_000_000)
+        for start, end in events:
+            _FLUSH[0].zero_()
+            start.record()
+            fn()
+            end.record()
+        events[-1][1].synchronize()
+        return sorted(s.elapsed_time(e) for s, e in events)[iters // 2]
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(50_000_000)
@@ -141,25 +248,146 @@ def time_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def check_close(torch, name, got, want, results, case, timed=None):
-    """Hold a kernel's result against the plain version's; record it."""
-    err = (got.float() - want.float()).abs().max().item()
-    bad = not torch.allclose(got.float(), want.float(), **KERNEL_TOL)
-    if bad or not torch.isfinite(got.float()).all():
-        raise AssertionError(f"{name} [{case}]: kernel disagrees with its "
-                             f"plain version (max abs err {err})")
+def bound_ms(work):
+    """(least time in ms, "bytes" or "operations") for ``work`` = (bytes
+    moved, each input read once and each output written once; operations)
+    at the H100's HBM rate and bf16 tensor-core rate."""
+    t_bytes = work[0] / HBM_BYTES_PER_S * 1e3
+    t_ops = work[1] / BF16_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def record(name, err, results, case, timed=None, work=None, library=None):
+    """Record a kernel's check; the first timed case is the main path's
+    shape, and its time, work and library time go into the JSON line."""
     r = results.setdefault(name, {"max_abs_err": 0.0})
     r["max_abs_err"] = max(r["max_abs_err"], err)
     line = f"  {name:22s} {case:44s} max_abs_err {err:.3e}"
     if timed is not None:
         ms, plain_ms = timed
-        r.setdefault("ms", ms)            # first case = main-path shape
-        r.setdefault("plain_ms", plain_ms)
+        if "ms" not in r:
+            r.update(ms=ms, plain_ms=plain_ms, work=work, library_ms=library)
         line += f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
+        if work is not None:
+            b, by = bound_ms(work)
+            line += f"  bound {b:.4f} ms ({by}, {b / ms:.2f} of it)"
+        if library is not None:
+            line += f"  library {library:.4f} ms"
     say(line)
 
 
+def check_close(torch, name, got, want, results, case, timed=None,
+                work=None, library=None, row_rel=None):
+    """Hold a kernel's result against the plain version's; record it.
+    With ``row_rel``, each element is held to 2^-7 of itself plus
+    ``row_rel`` times the RMS of its row (the last dimension) in place of
+    KERNEL_TOL."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    err = diff.max().item()
+    if row_rel is None:
+        bad = not torch.allclose(g, w, **KERNEL_TOL)
+    else:
+        rms = w.pow(2).mean(-1, keepdim=True).sqrt()
+        limit = 2.0 ** -7 * w.abs() + row_rel * rms
+        bad = bool((diff > limit).any())
+        med = rms.median().item()
+        case += (f" [row limit: worst err/limit "
+                 f"{(diff / limit.clamp_min(1e-30)).max().item():.2f}; "
+                 f"median row RMS {med:.3e}, KERNEL_TOL's atol "
+                 f"{KERNEL_TOL['atol'] / med:.2f}x it]")
+    if bad or not torch.isfinite(g).all():
+        raise AssertionError(f"{name} [{case}]: kernel disagrees with its "
+                             f"plain version (max abs err {err})")
+    record(name, err, results, case, timed, work, library)
+
+
+def hold_int8_write(torch, name, got, want, results, case, timed=None,
+                    work=None):
+    """Hold an int8 KV write (values, scale planes) against the plain
+    version's: bit for bit, or else within the CPU tests' limits, with the
+    share that differs printed. Records the largest difference of the
+    dequantized rows."""
+    (gv, gs), (wv, ws) = got, want
+    if torch.equal(gv, wv) and torch.equal(gs, ws):
+        note = "bit-identical"
+    else:
+        diff = (gv.int() - wv.int()).abs()
+        share = (diff > 0).float().mean().item()
+        rel = ((gs - ws).abs() / ws.abs()).max().item()
+        note = (f"NOT bit-identical: {share:.2e} of values differ (max "
+                f"{diff.max().item()}), scales up to {rel:.2e} relative")
+        if diff.max().item() > 1 or share > INT8_SHARE or rel > INT8_SCALE_REL:
+            raise AssertionError(f"{name} [{case}]: {note}")
+    err = (gv.float() * gs[..., None] - wv.float() * ws[..., None]).abs()
+    record(name, err.max().item(), results, f"{case} {note}", timed, work)
+
+
+def attn_work(q_start, kv_len, T, H, K, D, kv_elem=2, new_rows=0):
+    """(bytes, operations) of kernel D over this run's rows: every query
+    row t < T of sequence b sees min(kv_len[b], q_start[b] + t + 1) keys
+    (no window in the timed cases); q and out are read and written once,
+    each sequence's kv_len keys once (k and v, int8 with a 4-byte scale per
+    head, or bf16), plus ``new_rows`` bytes of a fused write. Operations:
+    QK^T and PV, 2 per multiply-add each."""
+    qs, kl = [int(x) for x in q_start], [int(x) for x in kv_len]
+    pairs = sum(min(l, s + t + 1) for s, l in zip(qs, kl) for t in range(T))
+    per_key = K * (D * kv_elem + (4 if kv_elem == 1 else 0)) * 2
+    return (2 * len(qs) * T * H * D * 2 + sum(kl) * per_key + new_rows,
+            4 * D * H * pairs)
+
+
+def write_work(rows, K, D, quant=False):
+    """(bytes, operations) of a K/V row write: bf16 rows read (k and v),
+    bf16 rows or int8 rows with a 4-byte scale per head written."""
+    out = K * (D + 4) if quant else K * D * 2
+    return rows * 2 * (K * D * 2 + out), (rows * 2 * K * D * 4 if quant
+                                          else 0)
+
+
+def sdpa_ms(torch, q, k_layer, v_layer, q_start, kv_len):
+    """Time of torch's scaled_dot_product_attention over the slot layer's
+    view (q [B, T, H, D]; k/v [B, S, K, D]) with an explicit causal and
+    length mask and enable_gqa: the library yardstick of kernel D's bf16
+    slot modes (the port never calls it)."""
+    import torch.nn.functional as F
+    B, T = q.shape[:2]
+    S = k_layer.shape[1]
+    pos = q_start.long()[:, None] + torch.arange(T, device=q.device)[None]
+    j = torch.arange(S, device=q.device)
+    mask = ((j[None, None, :] < kv_len.long()[:, None, None])
+            & (j[None, None, :] <= pos[:, :, None]))[:, None]
+    qt, kt, vt = q.transpose(1, 2), k_layer.transpose(1, 2), \
+        v_layer.transpose(1, 2)
+    return time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True), iters=5)
+
+
+def index_copy_ms(torch, pools, news, rows_of):
+    """Time of index_copy_ into the k and v row views over precomputed row
+    indices and gathered sources (two calls): the library yardstick of the
+    bf16 row writes C and H (the port never calls it)."""
+    idx, picked = rows_of
+    views = [p.view(-1, p.shape[-2] * p.shape[-1]) for p in pools]
+    srcs = [n.reshape(-1, views[0].shape[1])[picked].contiguous()
+            for n in news]
+    return time_ms(torch, lambda: [v.index_copy_(0, idx, s)
+                                   for v, s in zip(views, srcs)], cold=True)
+
+
+def slot_rows(starts, new_len, T, S):
+    """(cache row index per written row, its flat index in the new rows):
+    row t < new_len[b] of sequence b lands at row b * S + starts[b] + t of
+    a layer's [B * S] token rows (index_copy_'s precomputed indices)."""
+    pairs = [(b * S + s + t, b * T + t)
+             for b, (s, n) in enumerate(zip(starts, new_len))
+             for t in range(n)]
+    return [list(x) for x in zip(*pairs)]
+
+
 def phase_kernels(torch, dev, results) -> None:
+    import torch.nn.functional as F
+
     from llm_inference_engine_tpu_torch.ops import activations, attention
     from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
     from llm_inference_engine_tpu_torch.ops import rmsnorm
@@ -178,22 +406,28 @@ def phase_kernels(torch, dev, results) -> None:
     for n in (2048, 4):
         x, r = randn(n, 4096), randn(n, 4096)
         w = randn(4096) * 0.1 + 1.0
+        # A's working set fits the L2: timed cold (128 MB written between
+        # launches), as the library call
         got = rmsnorm.rmsnorm(x, w, kernels="cuda")
         check_close(torch, "rmsnorm", got, rmsnorm.rmsnorm_torch(x, w),
-                    results, f"[{n},4096]", (
+                    results, f"[{n},4096] cold L2", (
                         time_ms(torch, lambda: rmsnorm.rmsnorm(
-                            x, w, kernels="cuda")),
-                        time_ms(torch, lambda: rmsnorm.rmsnorm_torch(x, w))))
+                            x, w, kernels="cuda"), cold=True),
+                        time_ms(torch, lambda: rmsnorm.rmsnorm_torch(x, w))),
+                    work=((2 * n + 1) * 4096 * 2, 4 * n * 4096),
+                    library=time_ms(torch, lambda: F.rms_norm(
+                        x, (4096,), w, 1e-5), cold=True))
         y, h = rmsnorm.add_residual_rmsnorm(x, r, w, kernels="cuda")
         y0, h0 = rmsnorm.add_residual_rmsnorm_torch(x, r, w)
         if not torch.equal(h, h0):
             raise AssertionError("add_residual_rmsnorm: residual sum differs")
         check_close(torch, "add_residual_rmsnorm", y, y0, results,
-                    f"[{n},4096] with residual", (
+                    f"[{n},4096] with residual, cold L2", (
                         time_ms(torch, lambda: rmsnorm.add_residual_rmsnorm(
-                            x, r, w, kernels="cuda")),
+                            x, r, w, kernels="cuda"), cold=True),
                         time_ms(torch, lambda: rmsnorm.add_residual_rmsnorm_torch(
-                            x, r, w))))
+                            x, r, w))),
+                    work=((4 * n + 1) * 4096 * 2, 5 * n * 4096))
 
     # B: silu_and_mul over the packed gate|up [N, 2*11008]
     for n in (2048, 4):
@@ -204,12 +438,13 @@ def phase_kernels(torch, dev, results) -> None:
                     f"[{n},22016]", (
                         time_ms(torch, lambda: activations.silu_and_mul(
                             gu, kernels="cuda")),
-                        time_ms(torch, lambda: activations.silu_and_mul_torch(gu))))
+                        time_ms(torch, lambda: activations.silu_and_mul_torch(gu))),
+                    work=(3 * n * 11008 * 2, 5 * n * 11008))
 
     # C: a 512-token prefill chunk into the full 7B cache at layer 31
     L, B, S, K, D, T = 32, 4, 2048, 32, 128, 512
-    starts = ints([0, 100, 1000, 1535])
-    new_len = ints([512, 300, 1, 0])
+    starts_l, new_len_l = [0, 100, 1000, 1535], [512, 300, 1, 0]
+    starts, new_len = ints(starts_l), ints(new_len_l)
     kn, vn = randn(B, T, K, D), randn(B, T, K, D)
     cache = kvc.new_kv_cache(L, B, K, S, D, device=dev)
     cache.k[31], cache.v[31] = randn(B, S, K, D), randn(B, S, K, D)
@@ -220,12 +455,18 @@ def phase_kernels(torch, dev, results) -> None:
     torch.cuda.synchronize()
     if not (torch.equal(cache.k, ref.k) and torch.equal(cache.v, ref.v)):
         raise AssertionError("kv_write: cache differs from the plain write")
+    rows, picked = slot_rows(starts_l, new_len_l, T, S)
     check_close(torch, "kv_write", cache.k[31], ref.k[31], results,
-                "[4,512,32,128] -> [32,4,2048,32,128] @31", (
+                "[4,512,32,128] -> [32,4,2048,32,128] @31 cold L2", (
                     time_ms(torch, lambda: kvc.update_cache_at_layer(
-                        cache, 31, kn, vn, starts, new_len, kernels="cuda")),
+                        cache, 31, kn, vn, starts, new_len, kernels="cuda"),
+                        cold=True),
                     time_ms(torch, lambda: kvc.update_cache_at_layer_torch(
-                        ref, 31, kn, vn, starts, new_len))))
+                        ref, 31, kn, vn, starts, new_len))),
+                work=write_work(len(rows), K, D),
+                library=index_copy_ms(torch, (cache.k[31], cache.v[31]),
+                                      (kn, vn), (ints(rows).long(),
+                                                 ints(picked).long())))
     del ref
 
     # D prefill: the chunk above attends its random history + itself
@@ -237,7 +478,11 @@ def phase_kernels(torch, dev, results) -> None:
     check_close(torch, "attention_prefill", run("cuda"), run("torch"),
                 results, "B4 T512 H32 K32 qs[0,100,1000,1535]", (
                     time_ms(torch, lambda: run("cuda"), iters=5),
-                    time_ms(torch, lambda: run("torch"), iters=5)))
+                    time_ms(torch, lambda: run("torch"), iters=5)),
+                work=attn_work(starts_l, [s + n for s, n in zip(
+                    starts_l, new_len_l)], T, 32, K, D),
+                library=sdpa_ms(torch, q, cache.k[31], cache.v[31], q_start,
+                                kv_len))
 
     # D decode: row 0 has no history, row 2 is inactive
     dq_start = ints([0, 700, 1300, 2047])
@@ -259,7 +504,11 @@ def phase_kernels(torch, dev, results) -> None:
                         q1, k1, v1, kc, vc, dq_start, dkv_len, 31,
                         kernels="cuda")),
                     time_ms(torch, lambda: attention.attention_decode_fused_torch(
-                        q1, k1, v1, kc, vc, dq_start, dkv_len, 31))))
+                        q1, k1, v1, kc, vc, dq_start, dkv_len, 31))),
+                work=attn_work([0, 700, 1300, 2047], [1, 701, 1300, 2048], 1,
+                               32, K, D, new_rows=3 * 2 * K * D * 2 * 2),
+                library=sdpa_ms(torch, q1, kc[31], vc[31], dq_start,
+                                dkv_len))
     del cache, kc, vc
 
     # D at GQA widths (H=32, K=8, as in llama3-8b), without and with a
@@ -350,9 +599,15 @@ def phase_quant_kernels(torch, dev, results) -> None:
             if not label.startswith("lm_head"):
                 layer_ms, layer_plain = layer_ms + ms, layer_plain + plain_ms
             gbs = ts[0].nbytes / ms / 1e6     # weight bytes read per second
+            n_out = halves * n
             check_close(torch, name, fused(ts[0], x, out, "cuda"),
                         fused(ts[0], x, out, "torch"), results,
-                        f"m8 {label} {gbs:.0f} GB/s", (ms, plain_ms))
+                        f"m8 {label} {gbs:.0f} GB/s", (ms, plain_ms),
+                        work=(ts[0].nbytes + x.numel() * 2
+                              + 8 * n_out * out.itemsize, 2 * 8 * k * n_out),
+                        library=(int8pack_ms(torch, ts, x, out)
+                                 if mode == "int8" and halves == 1
+                                 and out == bf16 else None))
             del ts
         say(f"  {name} one decode layer (4 projections, m=8): kernel "
             f"{layer_ms:.4f} ms, plain {layer_plain:.4f} ms")
@@ -382,7 +637,8 @@ def phase_quant_kernels(torch, dev, results) -> None:
             raise AssertionError(f"dequant_int4 [{k},{n}]: not bit-identical "
                                  "to the plain dequant")
         check_close(torch, "dequant_int4", got, want, results,
-                    f"[{k // 2},{n}] -> bf16 [{k},{n}] (torch.equal)", (
+                    f"[{k // 2},{n}] -> bf16 [{k},{n}] (torch.equal)", work=(
+                        ts[0].nbytes + k * n * 2, 2 * k * n), timed=(
                         time_ms(torch, cycling(ts, lambda t: quant.dequant_int4(
                             t.q, t.scale, 128, kernels="cuda"))),
                         time_ms(torch, cycling(ts, lambda t: quant.dequant_int4(
@@ -391,6 +647,21 @@ def phase_quant_kernels(torch, dev, results) -> None:
         del ts, got, want
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+
+
+def int8pack_ms(torch, ts, x, out_dtype):
+    """Time of torch._weight_int8pack_mm (per-output-channel scales, as
+    kernel F's) over the same weights laid out [n, k] beforehand, cycled
+    as the kernel's: F's library yardstick (the port never calls it)."""
+    packed = [(t.q.t().contiguous(), t.scale.reshape(-1).to(x.dtype))
+              for t in ts]
+    it = [0]
+
+    def run():
+        it[0] += 1
+        w, sc = packed[it[0] % len(packed)]
+        return torch._weight_int8pack_mm(x, w, sc).to(out_dtype)
+    return time_ms(torch, run)
 
 
 def device_profile(torch, fn, reps: int):
@@ -405,6 +676,14 @@ def device_profile(torch, fn, reps: int):
     per_kernel = sorted(((e.self_device_time_total / 1e3 / reps, e.key)
                          for e in prof.key_averages()), reverse=True)
     return sum(ms for ms, _ in per_kernel), per_kernel
+
+
+def _short(kernel_name: str) -> str:
+    """A profiler kernel name without its namespace and argument list, its
+    template arguments kept (kernel D's modes differ only there)."""
+    name = kernel_name.replace("void ", "").replace(
+        "(anonymous namespace)::", "")
+    return name.split("(")[0][:60]
 
 
 def _logit_diff(x, ref):
@@ -430,14 +709,32 @@ def _counters():
         "paged_kv_write": pkv.paged_update_at_layer,
         "attention_prefill_paged": attention.attention_prefill_paged,
         "attention_decode_paged": attention.attention_decode,
+        "kv_write_quant": kvc.kv_write_quant,
+        "attention_prefill_int8": attention.attention_int8,
+        "attention_decode_int8": attention.attention_decode_fused_int8,
+        "paged_kv_write_int8": pkv.paged_kv_write_quant,
+        "attention_prefill_paged_int8":
+            attention.attention_prefill_paged_int8,
+        "attention_decode_paged_int8": attention.attention_decode_int8,
     }
 
 
+def kv_bytes(cache) -> int:
+    """Bytes of a KV cache or pool: values, and an int8 cache's scale
+    planes."""
+    return sum(t.numel() * t.element_size() for t in (
+        cache.k, cache.v, cache.k_scale, cache.v_scale) if t is not None)
+
+
+def _launch_counts(counters) -> dict:
+    return {k: f.launches for k, f in counters.items() if f.launches}
+
+
 def phase_main_path(torch, dev, results, path: str, eng_cfg, prompt_lens,
-                    follow_lens, greedy_tokens: int) -> None:
-    """One main path of llama2-7b: ``path`` is "bf16", "int4" or "int8"
-    (``eng_cfg.quant_mode``). Every kernel whose PATH_OF is ``path`` must
-    launch, and so must A-D."""
+                    follow_lens, greedy_tokens: int):
+    """One slot main path of llama2-7b: ``path`` names its MAIN_PATHS row,
+    the kernels that must launch and those that must not. Returns the
+    kernel path's prefill logits."""
     import numpy as np
 
     from llm_inference_engine_tpu_torch.config import SamplingParams, get_config
@@ -448,15 +745,19 @@ def phase_main_path(torch, dev, results, path: str, eng_cfg, prompt_lens,
     from llm_inference_engine_tpu_torch.runtime.engine import InferenceEngine
 
     counters = _counters()
-    expected = [name for name in counters
-                if PATH_OF[name] in ("bf16", path)]
+    expected, forbidden = MAIN_PATHS[path]
     B = eng_cfg.max_batch_size
     cfg = get_config("llama2-7b")
     engine = create_engine("llama2-7b", None, eng_cfg, seed=0, device=dev)
     torch.cuda.synchronize()
     say(f"  engine: llama2-7b {path}, {param_count(engine.params) / 1e9:.3f} "
         f"G stored elements ({param_bytes(engine.params) / 1e9:.2f} GB), "
-        f"B={B}, cache {2 * engine.cache.k.numel() * 2 / 1e9:.2f} GB")
+        f"B={B}, KV cache {kv_bytes(engine.cache) / 1e9:.2f} GB"
+        + (f" (int8 values {2 * engine.cache.k.numel() / 1e9:.2f} GB + "
+           f"scale planes {8 * engine.cache.k_scale.numel() / 1e9:.2f} GB, "
+           f"{'snapped' if engine.cache.snapped else 'absmax'} scales; a "
+           f"bf16 cache: {4 * engine.cache.k.numel() / 1e9:.2f} GB)"
+           if engine.cache.quantized else ""))
 
     rng = np.random.default_rng(0)
     prompts = [rng.integers(3, 32000, n).tolist() for n in prompt_lens]
@@ -505,18 +806,29 @@ def phase_main_path(torch, dev, results, path: str, eng_cfg, prompt_lens,
     busy_ms, per_kernel = device_profile(torch, step, 4)
     peak = torch.cuda.max_memory_allocated()
     lengths = engine.cache.lengths.tolist()
-    # one more warm prefill of the same prompts into fresh slots, profiled
-    engine.reset()
-    prefill_busy, prefill_kernels = device_profile(
-        torch, lambda: engine.prefill(prompts), 1)
     launches = {k: f.launches for k, f in counters.items()}
     say(f"  launches during the {path} path: {launches}")
+    missing = [n for n in expected if launches[n] <= 0]
+    extra = [n for n in forbidden if launches[n]]
+    if missing or extra:
+        raise AssertionError(f"{path} path: kernels never launched "
+                             f"{missing}; kernels that must not launch "
+                             f"{extra}")
     for name in expected:
-        if launches[name] <= 0:
-            raise AssertionError(f"kernel {name} was never launched on the "
-                                 f"{path} path")
         if PATH_OF[name] == path:
-            results[name]["launches"] = launches[name]
+            results.setdefault(name, {})["launches"] = launches[name]
+    # one more warm prefill of the same prompts into fresh slots, profiled,
+    # then one decode step: the launches of each
+    engine.reset()
+    _zero_counters()
+    prefill_busy, prefill_kernels = device_profile(
+        torch, lambda: engine.prefill(prompts), 1)
+    per_prefill = _launch_counts(counters)
+    _zero_counters()
+    engine.decode_step(state["toks"], active, SamplingParams(greedy=True))
+    per_step = _launch_counts(counters)
+    say(f"  launches per prefill of the {B} prompts: {per_prefill}; per "
+        f"decode step: {per_step}")
     for rnd, res, n in (("round 1", r1, greedy_tokens), ("round 2", r2, 16)):
         if res.num_generated != [n] * B:
             raise AssertionError(f"{rnd}: tokens per row {res.num_generated}")
@@ -533,9 +845,9 @@ def phase_main_path(torch, dev, results, path: str, eng_cfg, prompt_lens,
         f"(idle {1 - busy_ms / step_ms:.3f} of the step); peak memory "
         f"{peak / 2**30:.2f} GiB")
     say("  decode step, device ms by kernel: " + "; ".join(
-        f"{name[:40]} {ms:.3f}" for ms, name in per_kernel[:8]))
+        f"{_short(name)} {ms:.3f}" for ms, name in per_kernel[:8]))
     say(f"  warm prefill: card busy {prefill_busy:.3f} ms; by kernel: "
-        + "; ".join(f"{name[:40]} {ms:.3f}"
+        + "; ".join(f"{_short(name)} {ms:.3f}"
                     for ms, name in prefill_kernels[:8]))
 
     # reference: round 1 again through the plain versions, same weights
@@ -544,6 +856,27 @@ def phase_main_path(torch, dev, results, path: str, eng_cfg, prompt_lens,
     logits_t = ref.prefill(prompts)
     ref.reset()
     r1_ref = ref.generate(prompts, greedy, eos_token_id=None)
+    # int8 KV paths: the plain prefill again with a fault planted in its
+    # int8 attention, for each of INT8_FAULTS (instrumentation of this
+    # check only; the plain attention is restored after each)
+    planted = {}
+    if engine.cache.quantized:
+        from llm_inference_engine_tpu_torch.ops import attention as attn_mod
+        plain = attn_mod.attention_torch
+        for fault, plant in INT8_FAULTS.items():
+            def faulted(q, k, v, q_start, kv_len, *, k_scale=None,
+                        v_scale=None, **kw):
+                if k_scale is not None:
+                    kv_len, k_scale, v_scale = plant(kv_len, k_scale,
+                                                     v_scale)
+                return plain(q, k, v, q_start, kv_len, k_scale=k_scale,
+                             v_scale=v_scale, **kw)
+            attn_mod.attention_torch = faulted
+            try:
+                ref.reset()
+                planted[fault] = _logit_diff(logits, ref.prefill(prompts))
+            finally:
+                attn_mod.attention_torch = plain
     del ref
     torch.cuda.empty_cache()
     # arbiter: the plain path in f32 on the same (upcast) weights;
@@ -594,6 +927,17 @@ def phase_main_path(torch, dev, results, path: str, eng_cfg, prompt_lens,
     failures = []
     if d_kt > LOGIT_ATOL or r_kt > LOGIT_REL_L2:
         failures.append("prefill logits disagree with the plain path")
+    if planted:
+        say("  planted faults, kernels vs the faulted plain path (max abs / "
+            "rel L2): " + "; ".join(f"{f} {d:.4e} / {r:.4e}"
+                                    for f, (d, r) in planted.items()))
+        blind = [f for f, (d, r) in planted.items()
+                 if d <= LOGIT_ATOL and r <= LOGIT_REL_L2]
+        say(f"  faults inside the logit limits: {blind}"
+            + ("" if path in MUST_SEE_FAULTS else " (printed only)"))
+        if blind and path in MUST_SEE_FAULTS:
+            failures.append(f"the logit limits cannot see planted faults "
+                            f"{blind}")
     if r_k32 > KERNEL_VS_F32 * r_t32:
         failures.append("kernel path is further from f32 than the plain path")
     if bad:
@@ -603,6 +947,19 @@ def phase_main_path(torch, dev, results, path: str, eng_cfg, prompt_lens,
         failures.append("generate's first token is not the prefill argmax")
     if failures:
         raise AssertionError(f"{path} path: " + "; ".join(failures))
+    return logits
+
+
+# 3c's and 3d's mixed-step shapes at B = 16, pages of 64: kernel H's rows
+# (8 page-aligned 64-row chunks and 8 decode rows at odd offsets) and
+# kernel D's paged prefill rows (6 full chunks, 2 ragged tails, 7 decode
+# rows, 1 inactive row; kv_len up to 808)
+H_STARTS = [0, 192, 448, 768, 1280, 1600, 1920, 1984,
+            1, 77, 333, 701, 1023, 1501, 1999, 2047]
+H_NEW_LEN = [64] * 8 + [1] * 8
+MIXED_START = [0, 64, 192, 320, 448, 576, 704, 768,
+               1, 77, 129, 333, 501, 641, 799, 255]
+MIXED_LEN = [64] * 6 + [37, 40] + [1] * 7 + [0]
 
 
 def phase_paged_kernels(torch, dev, results) -> None:
@@ -655,14 +1012,15 @@ def phase_paged_kernels(torch, dev, results) -> None:
         kv_bytes = int(kv_len.sum()) * K * D * 2 * 2
         check_close(torch, "attention_decode_paged", run("cuda"), run("torch"),
                     results, f"B{B} page {page} {tag} "
-                    f"{kv_bytes / ms / 1e6:.0f} GB/s", (ms, plain_ms))
+                    f"{kv_bytes / ms / 1e6:.0f} GB/s", (ms, plain_ms),
+                    work=attn_work((kv_len - 1).tolist(), kv_len.tolist(), 1,
+                                   32, K, D))
 
     cache = pool(16, 64)
     # H: 8 page-aligned 64-row chunks and 8 decode rows at odd offsets in
     # one launch, at layer 31; the plain write runs on a copy of layer 31
-    chunk_starts = [0, 192, 448, 768, 1280, 1600, 1920, 1984]
-    starts = ints(chunk_starts + [1, 77, 333, 701, 1023, 1501, 1999, 2047])
-    new_len = ints([64] * 8 + [1] * 8)
+    starts = ints(H_STARTS)
+    new_len = ints(H_NEW_LEN)
     kn, vn = randn(16, 64, K, D), randn(16, 64, K, D)
     ref = pkv.PagedKVCache(cache.k[31:].clone(), cache.v[31:].clone(),
                            cache.block_table, cache.lengths)
@@ -675,21 +1033,31 @@ def phase_paged_kernels(torch, dev, results) -> None:
         raise AssertionError("paged_kv_write: pool differs from the plain "
                              "write")
     rows = new_len.sum().item()
+    # the pool row of each written token (its position translated through
+    # the table), and its flat index in the new rows
+    table = cache.block_table.tolist()
+    pos, picked = slot_rows(H_STARTS, H_NEW_LEN, 64, 0)
+    flat = [table[i // 64][p // 64] * 64 + p % 64
+            for p, i in zip(pos, picked)]
     check_close(torch, "paged_kv_write", cache.k[31], ref.k[0], results,
-                f"B16: 8x64-row chunks + 8 decode rows ({rows} rows) page 64",
+                f"B16: 8x64-row chunks + 8 decode rows ({rows} rows) page 64"
+                " cold L2",
                 (time_ms(torch, lambda: pkv.paged_update_at_layer(
-                    cache, 31, kn, vn, starts, new_len, kernels="cuda")),
+                    cache, 31, kn, vn, starts, new_len, kernels="cuda"),
+                    cold=True),
                  time_ms(torch, lambda: pkv.paged_update_at_layer_torch(
-                     ref, 0, kn, vn, starts, new_len))))
+                     ref, 0, kn, vn, starts, new_len))),
+                work=write_work(rows, K, D),
+                library=index_copy_ms(torch, (cache.k[31], cache.v[31]),
+                                      (kn, vn), (ints(flat).long(),
+                                                 ints(picked).long())))
     del ref
 
     # D paged prefill at the engine's shape first (chunks are capped to the
     # page): a scheduler mixed step, B = 16, T = 64, page-aligned chunk
     # rows (two ragged tails) beside decode rows at odd offsets and one
     # inactive row, kv_len up to 808
-    mixed_start = ints([0, 64, 192, 320, 448, 576, 704, 768,
-                        1, 77, 129, 333, 501, 641, 799, 255])
-    mixed_len = ints([64] * 6 + [37, 40] + [1] * 7 + [0])
+    mixed_start, mixed_len = ints(MIXED_START), ints(MIXED_LEN)
     kv_mixed = mixed_start + mixed_len
     table16 = cut(cache.block_table, kv_mixed, 64)
     q = randn(16, 64, 32, D)
@@ -699,7 +1067,9 @@ def phase_paged_kernels(torch, dev, results) -> None:
     check_close(torch, "attention_prefill_paged", run("cuda"), run("torch"),
                 results, "B16 T64 mixed step kv_len 1-808 page 64", (
                     time_ms(torch, lambda: run("cuda")),
-                    time_ms(torch, lambda: run("torch"), iters=3, warmup=1)))
+                    time_ms(torch, lambda: run("torch"), iters=3, warmup=1)),
+                work=attn_work(MIXED_START, [s + n for s, n in zip(
+                    MIXED_START, MIXED_LEN)], 64, 32, K, D))
     # and a long prefill: 8 x 512 new rows against kv_len 512-2048
     q_start = ints([0, 256, 512, 768, 1024, 1280, 1536, 1536])
     kv_len = q_start + 512
@@ -723,6 +1093,229 @@ def phase_paged_kernels(torch, dev, results) -> None:
     torch.cuda.empty_cache()
 
 
+# 4b's and 4g's prompts and follow-ups: the first prefill chunk is 8 x 512
+# rows, the 560-token prompt's tail an 8 x 64 chunk
+QUANT_PROMPTS = (5, 40, 130, 200, 333, 420, 512, 560)
+QUANT_FOLLOW = (3, 9, 17, 33, 5, 64, 12, 40)
+
+
+def phase_kv_int8_kernels(torch, dev, results) -> None:
+    """3d: the int8 KV kernels against their plain versions at Llama2-7B
+    widths (L=32, K=32, D=128; random int8 values and scales): kernel I at
+    the engine's prefill chunks (8 x 512 and 8 x 64 rows, ragged, one row of
+    new_len 0, one all-zero row) in both scale numerics, bit for bit; D's
+    int8 slot prefill at the engine's first 8 x 512 chunk, then ragged up to
+    kv_len 560; D's fused int8 decode at B = 8 at 4g's contexts in both
+    numerics, its write bit for bit; H's int8 mode at 3c's mixed step; D's
+    int8 paged prefill at 3c's B = 16, T = 64 mixed step first; D's int8
+    paged decode at B = 16, kv_len 1-2048, pages of 64 and 16."""
+    from llm_inference_engine_tpu_torch.ops import attention
+    from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
+    from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(808)
+    L, K, D, S = 32, 32, 128, 2048
+
+    def ints(vals):
+        return torch.tensor(vals, device=dev, dtype=torch.int32)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=bf16)
+
+    def fill(cache):
+        for t in (cache.k, cache.v):
+            t.copy_(torch.randint(-127, 128, t.shape, generator=gen,
+                                  device=dev, dtype=torch.int8))
+        for t in (cache.k_scale, cache.v_scale):
+            t.copy_(torch.rand(t.shape, generator=gen, device=dev) * 0.02
+                    + 0.005)
+        return cache
+
+    def planes(cache):
+        return dict(k_scale=cache.k_scale, v_scale=cache.v_scale)
+
+    def layer_copy(cache):
+        """The last layer alone, copied: the plain versions write it as
+        layer 0."""
+        return dataclasses.replace(cache, **{
+            n: getattr(cache, n)[31:].clone()
+            for n in ("k", "v", "k_scale", "v_scale")})
+
+    def held(cache, layer):
+        return [(getattr(cache, v)[layer], getattr(cache, sc)[layer])
+                for v, sc in (("k", "k_scale"), ("v", "v_scale"))]
+
+    cache = fill(kvc.new_kv_cache(L, 8, K, S, D, device=dev, quantized=True,
+                                  snapped=True))
+    # I: the engine's two prefill chunks, snapped (the engine's numerics on
+    # the card) first, then absmax
+    for T, st, nl in ((512, [0, 512, 1000, 1535, 7, 1536, 100, 1200],
+                       [512, 300, 512, 1, 0, 512, 17, 400]),
+                      (64, [512, 64, 0, 1984, 333, 1000, 2047, 5],
+                       [64, 37, 64, 64, 0, 1, 1, 20])):
+        kn, vn = randn(8, T, K, D), randn(8, T, K, D)
+        kn[0, 0, 0] = 0.0                            # a row of zeros
+        starts, new_len = ints(st), ints(nl)
+        for snapped in (True, False):
+            cache.snapped = snapped
+            ref = layer_copy(cache)
+            kvc.update_cache_at_layer(cache, 31, kn, vn, starts, new_len,
+                                      kernels="cuda")
+            kvc.update_cache_at_layer_torch(ref, 0, kn, vn, starts, new_len)
+            torch.cuda.synchronize()
+            timed = work = None
+            if T == 512 and snapped:
+                timed = (time_ms(torch, lambda: kvc.update_cache_at_layer(
+                    cache, 31, kn, vn, starts, new_len, kernels="cuda")),
+                    time_ms(torch, lambda: kvc.update_cache_at_layer_torch(
+                        ref, 0, kn, vn, starts, new_len), iters=3, warmup=1))
+                work = write_work(sum(nl), K, D, quant=True)
+            tag = f"8x{T} rows {'snapped' if snapped else 'absmax'}"
+            for side, (got, want) in enumerate(zip(held(cache, 31),
+                                                   held(ref, 0))):
+                hold_int8_write(torch, "kv_write_quant", got, want, results,
+                                f"{tag} {'kv'[side]}", timed, work)
+            del ref
+
+    # D int8 slot prefill: the engine's first chunk (q_start 0, kv_len
+    # 5-512), then ragged chunks reaching kv_len 560
+    cache.snapped = True
+    q = randn(8, 512, 32, D)
+    for qs, kl, timed in (([0] * 8, [min(n, 512) for n in QUANT_PROMPTS],
+                           True),
+                          ([0, 48, 0, 7, 0, 30, 0, 48], None, False)):
+        kl = kl or [s + 512 for s in qs]
+        q_start, kv_len = ints(qs), ints(kl)
+        run = lambda kern: attention.attention(  # noqa: E731
+            q, cache.k, cache.v, q_start, kv_len, layer=31, kernels=kern,
+            **planes(cache))
+        check_close(torch, "attention_prefill_int8", run("cuda"),
+                    run("torch"), results,
+                    f"B8 T512 qs {qs[:2]}.. kv_len {min(kl)}-{max(kl)}",
+                    (time_ms(torch, lambda: run("cuda"), iters=5),
+                     time_ms(torch, lambda: run("torch"), iters=3,
+                             warmup=1)) if timed else None,
+                    work=attn_work(qs, kl, 512, 32, K, D, kv_elem=1))
+
+    # D fused int8 decode at 4g's contexts (two rounds of 16 tokens on
+    # 4b's prompts and follow-ups), row 2 inactive
+    hist = [p + 16 + f + 16 for p, f in zip(QUANT_PROMPTS, QUANT_FOLLOW)]
+    q_start, kv_len = ints(hist), ints([h + (i != 2)
+                                        for i, h in enumerate(hist)])
+    q1, k1, v1 = randn(8, 1, 32, D), randn(8, 1, K, D), randn(8, 1, K, D)
+    for snapped in (True, False):
+        cache.snapped = snapped
+        ref = layer_copy(cache)
+        got, _, _ = attention.attention_decode_fused(
+            q1, k1, v1, cache.k, cache.v, q_start, kv_len, 31, kernels="cuda",
+            snapped=snapped, **planes(cache))
+        want, _, _ = attention.attention_decode_fused_torch(
+            q1, k1, v1, ref.k, ref.v, q_start, kv_len, 0, snapped=snapped,
+            **planes(ref))
+        torch.cuda.synchronize()
+        for got_w, want_w in zip(held(cache, 31), held(ref, 0)):
+            if not all(torch.equal(a, b) for a, b in zip(got_w, want_w)):
+                raise AssertionError("attention_decode_int8: the in-kernel "
+                                     "write differs from the plain write")
+        timed = None
+        if snapped:
+            timed = (time_ms(torch, lambda: attention.attention_decode_fused(
+                q1, k1, v1, cache.k, cache.v, q_start, kv_len, 31,
+                kernels="cuda", snapped=True, **planes(cache))),
+                time_ms(torch, lambda: attention.attention_decode_fused_torch(
+                    q1, k1, v1, ref.k, ref.v, q_start, kv_len, 0,
+                    snapped=True, **planes(ref))))
+        check_close(torch, "attention_decode_int8", got, want, results,
+                    f"B8 H32 K32 contexts {min(hist)}-{max(hist)} "
+                    f"{'snapped' if snapped else 'absmax'} (write bit for "
+                    "bit)", timed,
+                    work=attn_work(hist, kv_len.tolist(), 1, 32, K, D,
+                                   kv_elem=1, new_rows=7 * 2 * K * (
+                                       D * 2 + D + 4)),
+                    row_rel=DECODE_ROW_TOL)
+        del ref
+    del cache
+    torch.cuda.empty_cache()
+
+    def int8_pool(page):
+        maxp = S // page
+        P = 1 + 16 * maxp
+        pool = fill(pkv.new_paged_kv_cache(L, 16, K, P, page, D, maxp,
+                                           device=dev, quantized=True))
+        pool.block_table.copy_((torch.randperm(P - 1, generator=gen,
+                                               device=dev) + 1)
+                               .to(torch.int32).reshape(16, maxp))
+        return pool
+
+    def cut(table, kv_len, page):
+        used = (kv_len.long() + page - 1) // page
+        cols = torch.arange(table.shape[1], device=dev)
+        return torch.where(cols[None, :] < used[:, None], table,
+                           0).to(torch.int32).contiguous()
+
+    pool = int8_pool(64)
+    # H's int8 mode at 3c's mixed step
+    starts, new_len = ints(H_STARTS), ints(H_NEW_LEN)
+    kn, vn = randn(16, 64, K, D), randn(16, 64, K, D)
+    ref = layer_copy(pool)
+    pkv.paged_update_at_layer(pool, 31, kn, vn, starts, new_len,
+                              kernels="cuda")
+    pkv.paged_update_at_layer_torch(ref, 0, kn, vn, starts, new_len)
+    torch.cuda.synchronize()
+    timed = (time_ms(torch, lambda: pkv.paged_update_at_layer(
+        pool, 31, kn, vn, starts, new_len, kernels="cuda"), cold=True),
+        time_ms(torch, lambda: pkv.paged_update_at_layer_torch(
+            ref, 0, kn, vn, starts, new_len)))
+    for side, (got, want) in enumerate(zip(held(pool, 31), held(ref, 0))):
+        hold_int8_write(torch, "paged_kv_write_int8", got, want, results,
+                        f"B16 3c's mixed step ({sum(H_NEW_LEN)} rows) page "
+                        f"64 cold L2 {'kv'[side]}", timed,
+                        write_work(sum(H_NEW_LEN), K, D, quant=True))
+    del ref
+    # D's int8 paged prefill at the mixed step
+    mixed_start, kv_mixed = ints(MIXED_START), ints(
+        [s + n for s, n in zip(MIXED_START, MIXED_LEN)])
+    table = cut(pool.block_table, kv_mixed, 64)
+    q = randn(16, 64, 32, D)
+    run = lambda kern: attention.attention(  # noqa: E731
+        q, pool.k, pool.v, mixed_start, kv_mixed, layer=31, table=table,
+        kernels=kern, **planes(pool))
+    check_close(torch, "attention_prefill_paged_int8", run("cuda"),
+                run("torch"), results,
+                "B16 T64 mixed step kv_len 1-808 page 64", (
+                    time_ms(torch, lambda: run("cuda")),
+                    time_ms(torch, lambda: run("torch"), iters=3, warmup=1)),
+                work=attn_work(MIXED_START, kv_mixed.tolist(), 64, 32, K, D,
+                               kv_elem=1))
+    # D's int8 attend-only paged decode, B = 16, kv_len 1-2048
+    for page in (64, 16):
+        if page == 16:
+            del pool
+            torch.cuda.empty_cache()
+            pool = int8_pool(16)
+        kv_len = torch.cat([ints([1, S]), torch.randint(
+            2, S, (14,), generator=gen, device=dev, dtype=torch.int32)])
+        table = cut(pool.block_table, kv_len, page)
+        q = randn(16, 1, 32, D)
+        run = lambda kern: attention.attention_decode(  # noqa: E731
+            q, pool.k, pool.v, kv_len - 1, kv_len, 31, table=table,
+            kernels=kern, **planes(pool))
+        ms = time_ms(torch, lambda: run("cuda"))
+        kv_bytes = int(kv_len.sum()) * K * (D + 4) * 2
+        check_close(torch, "attention_decode_paged_int8", run("cuda"),
+                    run("torch"), results, f"B16 page {page} kv_len 1-2048 "
+                    f"{kv_bytes / ms / 1e6:.0f} GB/s",
+                    (ms, time_ms(torch, lambda: run("torch"), iters=3,
+                                 warmup=1)),
+                    work=attn_work((kv_len - 1).tolist(), kv_len.tolist(), 1,
+                                   32, K, D, kv_elem=1),
+                    row_rel=DECODE_ROW_TOL)
+    del pool
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 def _zero_counters():
     counters = _counters()
     for f in counters.values():
@@ -732,27 +1325,31 @@ def _zero_counters():
 
 def _check_paged_launches(label, counters, expected) -> dict:
     """Read the counters after a paged path: every kernel of ``expected``
-    launched, the slot cache's kernels never."""
+    launched; the slot cache's kernels never, nor the paged kernels of the
+    other KV dtype."""
     launches = {k: f.launches for k, f in counters.items()}
     say(f"  launches during {label}: {launches}")
     missing = [n for n in expected if launches[n] <= 0]
-    slot = [n for n in SLOT_ONLY if launches[n]]
-    if missing or slot:
+    other = INT8_PAGED if "paged_kv_write" in expected else BF16_PAGED
+    extra = [n for n in BF16_SLOT + INT8_SLOT + other if launches[n]]
+    if missing or extra:
         raise AssertionError(f"{label}: kernels never launched {missing}; "
-                             f"slot-cache kernels launched {slot}")
+                             f"kernels that must not launch {extra}")
     return launches
 
 
-PAGED_KERNELS = ("rmsnorm", "add_residual_rmsnorm", "silu_and_mul",
-                 "int4_matmul", "paged_kv_write", "attention_prefill_paged",
-                 "attention_decode_paged")
+def paged_kernels(quant: dict) -> tuple:
+    """The kernels a paged INT4 engine launches, by its KV dtype."""
+    kv = INT8_PAGED if quant.get("kv_cache_dtype_name") else BF16_PAGED
+    return NORM_ACT + ("int4_matmul",) + kv
 
 
 def phase_paged_vs_slot(torch, dev, model: str, quant: dict, prompts,
                         greedy_tokens: int):
-    """4d: a paged engine (page 64) and a slot engine, same kernels, same
-    weights, chunks of 64: bit-identical prefill logits and the same greedy
-    ids. Returns the paged engine's params for the phases after it."""
+    """4d (4h with an int8 cache): a paged engine (page 64) and a slot
+    engine, same kernels, same weights, chunks of 64: bit-identical prefill
+    logits and the same greedy ids. Returns the paged engine's params for
+    the phases after it."""
     import numpy as np
 
     from llm_inference_engine_tpu_torch.config import (
@@ -768,9 +1365,8 @@ def phase_paged_vs_slot(torch, dev, model: str, quant: dict, prompts,
                                                     page_size=64),
                           seed=0, device=dev)
     B = len(prompts)
-    pool_gb = 2 * paged.cache.k.numel() * paged.cache.k.element_size() / 1e9
-    say(f"  paged engine: {model}, B={B}, {paged.cache.num_pages} pages of "
-        f"64, pool {pool_gb:.2f} GB")
+    say(f"  paged engine: {model} {quant}, B={B}, {paged.cache.num_pages} "
+        f"pages of 64, pool {kv_bytes(paged.cache) / 1e9:.2f} GB")
     counters = _zero_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -794,7 +1390,17 @@ def phase_paged_vs_slot(torch, dev, model: str, quant: dict, prompts,
     def step():
         state["toks"] = paged.decode_step(state["toks"], active, sp)
     busy_ms, per_kernel = device_profile(torch, step, 4)
-    _check_paged_launches("the paged engine (4d)", counters, PAGED_KERNELS)
+    _check_paged_launches(f"the paged engine {quant}", counters,
+                          paged_kernels(quant))
+    # the launches of one decode step and of one prefill of the prompts
+    _zero_counters()
+    paged.decode_step(state["toks"], active, sp)
+    per_step = _launch_counts(counters)
+    paged.reset()
+    _zero_counters()
+    paged.prefill(prompts)
+    say(f"  launches per paged prefill of the {B} prompts: "
+        f"{_launch_counts(counters)}; per paged decode step: {per_step}")
     params = paged.params
     del paged
     torch.cuda.empty_cache()
@@ -810,7 +1416,7 @@ def phase_paged_vs_slot(torch, dev, model: str, quant: dict, prompts,
         f"{step_ms:.3f} ms/step at B={B}, card busy {busy_ms:.3f} ms/step "
         f"(idle {1 - busy_ms / step_ms:.3f})")
     say("  paged decode step, device ms by kernel: " + "; ".join(
-        f"{name[:40]} {ms:.3f}" for ms, name in per_kernel[:8]))
+        f"{_short(name)} {ms:.3f}" for ms, name in per_kernel[:8]))
     same_ids = rp.token_ids == rs.token_ids
     say(f"  paged vs slot: prefill logits torch.equal {torch.equal(lp, ls)} "
         f"(max abs diff {(lp - ls).abs().max().item():.3e}); "
@@ -827,7 +1433,8 @@ def _percentiles(xs):
 
 
 def phase_server(torch, dev, results, model: str, quant: dict, params,
-                 n_wave1: int = 24, n_wave2: int = 8):
+                 num_pages: int = 193, n_wave1: int = 24, n_wave2: int = 8,
+                 expect_page_waits: bool = True):
     """4e: the port's HTTP server in-process over the scheduler and a
     paged engine (B=16, 193 pages of 64: 12288 tokens, against 32768 for
     a slot cache, so pages bound concurrency), automatic prefix cache on.
@@ -835,7 +1442,9 @@ def phase_server(torch, dev, results, model: str, quant: dict, params,
     16-96 tokens from seed 0, all enqueued before the engine thread
     starts so the scheduler sees them in order. Wave 2: multi-turn
     resends (a wave-1 prompt + its answer + a short suffix) of the
-    requests that finished last. Returns the engine."""
+    requests that finished last. 4i runs wave 1 alone over an int8 pool
+    of the same bytes (``num_pages`` ~2x), where admission need not wait
+    for pages. Returns the engine."""
     import http.client
     import threading
 
@@ -852,7 +1461,7 @@ def phase_server(torch, dev, results, model: str, quant: dict, params,
 
     cfg = get_config(model)
     eng = EngineConfig(max_batch_size=16, max_seq_len=2048,
-                       kv_layout="paged", page_size=64, num_pages=193,
+                       kv_layout="paged", page_size=64, num_pages=num_pages,
                        **quant)
     engine = InferenceEngine(cfg, eng, params, device=dev)
     sched = ContinuousBatchingScheduler(engine, eos_token_id=None,
@@ -879,9 +1488,9 @@ def phase_server(torch, dev, results, model: str, quant: dict, params,
     server = threading.Thread(target=httpd.serve_forever, daemon=True)
     server.start()
     addr = httpd.server_address
-    pool_gb = 2 * engine.cache.k.numel() * engine.cache.k.element_size() / 1e9
-    say(f"  server on {addr[0]}:{addr[1]}: {model}, B=16, 193 pages of 64 "
-        f"({pool_gb:.2f} GB pool), auto prefix cache")
+    say(f"  server on {addr[0]}:{addr[1]}: {model} {quant}, B=16, "
+        f"{num_pages} pages of 64 ({kv_bytes(engine.cache) / 1e9:.2f} GB "
+        "pool), auto prefix cache")
 
     def post(body, out, i):
         conn = http.client.HTTPConnection(*addr, timeout=300)
@@ -928,17 +1537,19 @@ def phase_server(torch, dev, results, model: str, quant: dict, params,
     wall1 = time.perf_counter() - t0
     check(bodies1, out1, "wave 1")
     wave1 = list(requests)
-    last = sorted(wave1, key=lambda r: r.finish_time)[-n_wave2:]
-    bodies2 = [dict(prompt=r.prompt_ids + r.output_ids
-                    + rng.integers(3, cfg.vocab_size, 5).tolist(),
-                    max_tokens=16, temperature=0.0) for r in last]
-    threads, out2 = wave(bodies2, ordered=False)
-    t0 = time.perf_counter()
-    for t in threads:
-        t.join()
-    wall2 = time.perf_counter() - t0
-    check(bodies2, out2, "wave 2")
-    wave2 = requests[len(wave1):]
+    waves = [("wave 1", wave1, wall1)]
+    if n_wave2:
+        last = sorted(wave1, key=lambda r: r.finish_time)[-n_wave2:]
+        bodies2 = [dict(prompt=r.prompt_ids + r.output_ids
+                        + rng.integers(3, cfg.vocab_size, 5).tolist(),
+                        max_tokens=16, temperature=0.0) for r in last]
+        threads, out2 = wave(bodies2, ordered=False)
+        t0 = time.perf_counter()
+        for t in threads:
+            t.join()
+        waves.append(("wave 2", requests[len(wave1):],
+                      time.perf_counter() - t0))
+        check(bodies2, out2, "wave 2")
     while sched.has_work:
         time.sleep(0.01)
     peak = torch.cuda.max_memory_allocated()
@@ -946,15 +1557,14 @@ def phase_server(torch, dev, results, model: str, quant: dict, params,
     httpd.server_close()
     llm.shutdown()
     server.join()
-    launches = _check_paged_launches(
-        "the server (4e)", counters, PAGED_KERNELS + ("dequant_int4",))
-    for name in ("paged_kv_write", "attention_prefill_paged",
-                 "attention_decode_paged"):
-        results[name]["launches"] = launches[name]
+    expected = paged_kernels(quant)
+    launches = _check_paged_launches(f"the server {quant}", counters,
+                                     expected + ("dequant_int4",))
+    for name in expected[-3:]:            # the paged write and attention
+        results.setdefault(name, {})["launches"] = launches[name]
     ap = sched.auto_prefix
-    reused = [r.reused_prefix_len for r in wave2]
-    for tag, reqs, wall in (("wave 1", wave1, wall1), ("wave 2", wave2,
-                                                       wall2)):
+    reused = [r.reused_prefix_len for r in requests[len(wave1):]]
+    for tag, reqs, wall in waves:
         gen = sum(len(r.output_ids) for r in reqs)
         say(f"  {tag}: {len(reqs)} requests, "
             f"{sum(len(r.prompt_ids) for r in reqs)} prompt tokens, {gen} "
@@ -967,12 +1577,12 @@ def phase_server(torch, dev, results, model: str, quant: dict, params,
         f"lengths {reused}; prefix cache hits {ap.hits}, misses {ap.misses},"
         f" {ap.tokens_reused} tokens reused; peak memory "
         f"{peak / 2**30:.2f} GiB")
-    say(f"  after both waves: free pages {engine.free_pages} + cached "
+    say(f"  after the waves: free pages {engine.free_pages} + cached "
         f"{ap.cached_pages} = {engine.free_pages + ap.cached_pages} "
         f"(pool {engine._allocator.num_pages - 1} usable)")
-    if not page_waits:
+    if expect_page_waits and not page_waits:
         raise AssertionError("no admission waited for pages")
-    if not any(n > 0 for n in reused):
+    if n_wave2 and not any(n > 0 for n in reused):
         raise AssertionError("wave 2 reused no cached prefix")
     if engine.free_pages + ap.cached_pages != engine._allocator.num_pages - 1:
         raise AssertionError("pages leaked")
@@ -1018,7 +1628,8 @@ def phase_preemption(torch, dev, model: str, engine, n: int = 16,
     sched.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    _check_paged_launches("preemption (4f)", counters, PAGED_KERNELS)
+    _check_paged_launches("preemption (4f)", counters,
+                          paged_kernels(dict(quant_mode="int4")))
     preempted = [r.preemptions for r in reqs]
     say(f"  {n} x {prompt_len}-token prompts, {new_tokens} tokens each: "
         f"{wall:.3f} s; preemptions per request {preempted}; free pages "
@@ -1101,79 +1712,112 @@ def main() -> int:
     _native.library()
     say(f"  {path.relative_to(ROOT)} built in {seconds:.2f} s")
 
+    def phase(tag: str, title: str, fn, *args):
+        say(f"== {tag}. {title}")
+        t0 = time.perf_counter()
+        out = fn(*args)
+        say(f"  phase time {time.perf_counter() - t0:.1f} s")
+        return out
+
     # 3. kernels vs plain
-    say("== 3. kernels vs plain versions (7B shapes, bf16)")
     results: dict = {}
-    t0 = time.perf_counter()
-    phase_kernels(torch, dev, results)
-    say(f"  phase time {time.perf_counter() - t0:.1f} s")
-
-    say("== 3b. quantized matmul kernels vs plain versions (7B shapes)")
-    t0 = time.perf_counter()
-    phase_quant_kernels(torch, dev, results)
-    say(f"  phase time {time.perf_counter() - t0:.1f} s")
-
-    say("== 3c. paged kernels vs plain versions (7B widths, pages of 64 "
-        "and 16)")
-    t0 = time.perf_counter()
-    phase_paged_kernels(torch, dev, results)
-    say(f"  phase time {time.perf_counter() - t0:.1f} s")
+    phase("3", "kernels vs plain versions (7B shapes, bf16)", phase_kernels,
+          torch, dev, results)
+    phase("3b", "quantized matmul kernels vs plain versions (7B shapes)",
+          phase_quant_kernels, torch, dev, results)
+    phase("3c", "paged kernels vs plain versions (7B widths, pages of 64 "
+          "and 16)", phase_paged_kernels, torch, dev, results)
+    phase("3d", "int8 KV kernels vs plain versions (7B widths, both scale "
+          "numerics, pages of 64 and 16)", phase_kv_int8_kernels, torch, dev,
+          results)
 
     # 4. main paths
-    from llm_inference_engine_tpu_torch.config import EngineConfig
+    from llm_inference_engine_tpu_torch.config import EngineConfig, get_config
     # 8 ragged prompts: the first chunk (8 x 512 rows) prefills through
     # kernel G, the second (8 x 64 rows, the 560-token prompt's tail)
     # through kernel E
-    quant_prompts = (5, 40, 130, 200, 333, 420, 512, 560)
-    quant_follow = (3, 9, 17, 33, 5, 64, 12, 40)
-    for label, path, eng_cfg, lens, follow, greedy_tokens in (
-            ("4a. main path: llama2-7b bf16, B=4", "bf16",
-             EngineConfig(max_batch_size=4, max_seq_len=2048),
-             (7, 129, 384, 700), (5, 17, 33, 64), 32),
-            ("4b. main path: llama2-7b INT4, B=8", "int4",
-             EngineConfig(quant_mode="int4", max_batch_size=8,
-                          max_seq_len=2048), quant_prompts, quant_follow, 16),
-            ("4c. main path: llama2-7b INT8, B=8", "int8",
-             EngineConfig(quant_mode="int8", max_batch_size=8,
-                          max_seq_len=2048), quant_prompts, quant_follow, 16)):
-        say(f"== {label}: generate x2 + steady decode + reference")
-        t0 = time.perf_counter()
-        phase_main_path(torch, dev, results, path, eng_cfg, lens, follow,
-                        greedy_tokens)
-        say(f"  phase time {time.perf_counter() - t0:.1f} s")
+    int4_slot = EngineConfig(quant_mode="int4", max_batch_size=8,
+                             max_seq_len=2048)
+    main_paths = [
+        ("4a", "main path: llama2-7b bf16, B=4", "bf16",
+         EngineConfig(max_batch_size=4, max_seq_len=2048),
+         (7, 129, 384, 700), (5, 17, 33, 64), 32),
+        ("4b", "main path: llama2-7b INT4, B=8", "int4", int4_slot,
+         QUANT_PROMPTS, QUANT_FOLLOW, 16),
+        ("4c", "main path: llama2-7b INT8, B=8", "int8",
+         EngineConfig(quant_mode="int8", max_batch_size=8, max_seq_len=2048),
+         QUANT_PROMPTS, QUANT_FOLLOW, 16),
+        ("4g", "main path: llama2-7b INT4 + int8 KV cache (slot), B=8",
+         "int4-kv8", int4_slot.replace(kv_cache_dtype_name="int8"),
+         QUANT_PROMPTS, QUANT_FOLLOW, 16),
+        # the INT4 dummies' logits barely move with K/V (4g's planted
+        # faults show it); the INT8 dummies' do, so this path holds the
+        # int8 attention end to end
+        ("4j", "main path: llama2-7b INT8 + int8 KV cache (slot), B=8",
+         "int8-kv8", EngineConfig(quant_mode="int8", max_batch_size=8,
+                                  max_seq_len=2048,
+                                  kv_cache_dtype_name="int8"),
+         QUANT_PROMPTS, QUANT_FOLLOW, 16)]
+    logits = {}
+    for tag, title, path, eng_cfg, lens, follow, greedy_tokens in main_paths:
+        logits[path] = phase(
+            tag, title + ": generate x2 + steady decode + reference",
+            phase_main_path, torch, dev, results, path, eng_cfg, lens,
+            follow, greedy_tokens)
+    for tags, kv8, kv16 in (("4g vs 4b", "int4-kv8", "int4"),
+                            ("4j vs 4c", "int8-kv8", "int8")):
+        d, r = _logit_diff(logits[kv8], logits[kv16])
+        say(f"  {tags} (int8 vs bf16 KV, same weights, both kernel paths): "
+            f"prefill logits max abs {d:.4e}, rel L2 {r:.4e} (quantization "
+            "noise, not a check)")
 
     # the paged serving path, INT4 weights (the JAX package's benchmark
     # format, bench.py)
     int4 = dict(quant_mode="int4")
+    int4_kv8 = dict(quant_mode="int4", kv_cache_dtype_name="int8")
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(3, 32000, n).tolist() for n in quant_prompts]
-    say("== 4d. paged == slot: llama2-7b INT4, B=8, chunks of 64")
-    t0 = time.perf_counter()
-    params = phase_paged_vs_slot(torch, dev, "llama2-7b", int4, prompts, 32)
-    say(f"  phase time {time.perf_counter() - t0:.1f} s")
-    say("== 4e. serving path: HTTP server + scheduler + paged llama2-7b INT4")
-    t0 = time.perf_counter()
-    engine = phase_server(torch, dev, results, "llama2-7b", int4, params)
-    say(f"  phase time {time.perf_counter() - t0:.1f} s")
-    say("== 4f. recompute preemption on the server's engine")
-    t0 = time.perf_counter()
-    phase_preemption(torch, dev, "llama2-7b", engine)
-    say(f"  phase time {time.perf_counter() - t0:.1f} s")
+    prompts = [rng.integers(3, 32000, n).tolist() for n in QUANT_PROMPTS]
+    params = phase("4d", "paged == slot: llama2-7b INT4, B=8, chunks of 64",
+                   phase_paged_vs_slot, torch, dev, "llama2-7b", int4,
+                   prompts, 32)
+    engine = phase("4e", "serving path: HTTP server + scheduler + paged "
+                   "llama2-7b INT4", phase_server, torch, dev, results,
+                   "llama2-7b", int4, params)
+    phase("4f", "recompute preemption on the server's engine",
+          phase_preemption, torch, dev, "llama2-7b", engine)
+    del engine, params
+    params = phase("4h", "paged == slot with the int8 KV cache: llama2-7b "
+                   "INT4, B=8, chunks of 64", phase_paged_vs_slot, torch,
+                   dev, "llama2-7b", int4_kv8, prompts, 32)
+    # 4i: an int8 pool of 4e's pool bytes (a page's values at 1 byte and
+    # its scales at 4 bytes per (token, head), against 2 bytes a value)
+    cfg = get_config("llama2-7b")
+    page_heads = 2 * cfg.num_layers * 64 * cfg.num_kv_heads
+    int8_pages = 193 * page_heads * cfg.head_dim * 2 // (
+        page_heads * (cfg.head_dim + 4))
+    engine = phase("4i", f"serving path over an int8 pool of 4e's bytes "
+                   f"({int8_pages} pages of 64): wave 1", phase_server, torch,
+                   dev, results, "llama2-7b", int4_kv8, params, int8_pages,
+                   24, 0, False)
     del engine, params
 
     # 5. results
-    kernels = [dict(name=name, route=SOURCES[name][0],
-                    source=SOURCES[name][1], replaces=REPLACES[name],
-                    launches=results[name]["launches"],
-                    max_abs_err=results[name]["max_abs_err"],
-                    ms=results[name]["ms"],
-                    plain_ms=results[name]["plain_ms"])
-               for name in REPLACES]
+    kernels = []
+    for name in REPLACES:
+        r = results[name]
+        bound, bound_by = bound_ms(r["work"])
+        kernels.append(dict(
+            name=name, route=SOURCES[name][0], source=SOURCES[name][1],
+            replaces=REPLACES[name], launches=r["launches"],
+            max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=bound, bound_by=bound_by,
+            library_ms=r["library_ms"]))
     say(json.dumps({"kernels": kernels}))
     say(smi)
-    say(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    say(json.dumps({"ok": True,
+                    "device": {"platform": "gpu",
+                               "kind": torch.cuda.get_device_name(0),
+                               "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -220,9 +220,8 @@ class EngineConfig:
     layout's ``page_size`` and ``num_pages`` included. Its TPU tiling
     knobs (attention block sizes, layer-scan unroll) and the unused
     ``max_prefill_batch`` have no counterpart: the CUDA kernels pick their
-    own tiles. Values outside the ported slice (an int8 KV cache, meshes)
-    are accepted by the dataclass and refused by the engine with
-    ``NotImplementedError``.
+    own tiles. Values outside the ported slice (meshes) are accepted by
+    the dataclass and refused by the engine with ``NotImplementedError``.
     """
 
     max_batch_size: int = 8          # decode batch slots

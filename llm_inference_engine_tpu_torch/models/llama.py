@@ -4,11 +4,13 @@ Port of ``llm_inference_engine_tpu/models/llama.py`` for one device.
 Each layer runs: rmsnorm -> packed QKV matmul -> split + RoPE -> cache
 write -> attention -> o-proj -> fused add-residual + rmsnorm -> gate|up
 matmul -> silu_and_mul -> down-proj -> residual add. The cache write and
-attention, by layout: slot, kernel C then kernel D at T > 1, and the
-fused write+attend decode mode of kernel D at T == 1 on a bf16 cache;
+attention, by layout: slot, kernel C (int8: kernel I) then kernel D at
+T > 1, and the fused write+attend decode mode of kernel D at T == 1;
 paged (the JAX package's paged branch), kernel H through the block table,
 then kernel D's paged prefill mode at T > 1 or its attend-only paged
-decode at T == 1. The layer loop is a Python loop over ``w[layer]``
+decode at T == 1. An int8 cache or pool passes its scale planes (the
+slot cache also its ``snapped`` numerics) to the same calls, which run
+the kernels' int8 modes. The layer loop is a Python loop over ``w[layer]``
 views of the stacked weights (the JAX package's ``lax.scan``; a stacked
 quantized weight gives a ``QuantizedTensor`` of views, the counterpart of
 its scalar-prefetched layer index); every projection, the lm_head
@@ -63,6 +65,8 @@ def _layer_step(cfg: ModelConfig, eng: EngineConfig, x: torch.Tensor,
     v_new = v_new.contiguous()
     sm_scale = 1.0 / math.sqrt(cfg.head_dim)
 
+    # an int8 cache's scale planes (None for bf16)
+    scales = dict(k_scale=cache.k_scale, v_scale=cache.v_scale)
     if isinstance(cache, pkv.PagedKVCache):
         # paged: write through the block table, then attend through it
         pkv.paged_update_at_layer(cache, layer_idx, k_new, v_new, q_start,
@@ -71,19 +75,21 @@ def _layer_step(cfg: ModelConfig, eng: EngineConfig, x: torch.Tensor,
         attn_out = attend(q, cache.k, cache.v, q_start, kv_len,
                           layer=layer_idx, table=cache.block_table,
                           sm_scale=sm_scale, window=cfg.sliding_window,
-                          kernels=kernels)
+                          kernels=kernels, **scales)
     elif can_fuse_decode(q.shape, cache):
         # decode: one kernel writes the token's K/V and attends
         attn_out, _, _ = attention_decode_fused(
             q, k_new, v_new, cache.k, cache.v, q_start, kv_len, layer_idx,
-            sm_scale=sm_scale, window=cfg.sliding_window, kernels=kernels)
+            sm_scale=sm_scale, window=cfg.sliding_window, kernels=kernels,
+            snapped=cache.snapped, **scales)
     else:
         # write before attend
         kvc.update_cache_at_layer(cache, layer_idx, k_new, v_new, q_start,
                                   new_len=kv_len - q_start, kernels=kernels)
         attn_out = attention(q, cache.k, cache.v, q_start, kv_len,
                              sm_scale=sm_scale, kernels=kernels,
-                             layer=layer_idx, window=cfg.sliding_window)
+                             layer=layer_idx, window=cfg.sliding_window,
+                             **scales)
     attn_out = linear(attn_out.reshape(B, T, cfg.q_size), layer["wo"],
                       kernels=kernels)
 

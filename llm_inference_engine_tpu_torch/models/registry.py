@@ -12,6 +12,8 @@ from __future__ import annotations
 import os
 from typing import Optional
 
+import torch
+
 from llm_inference_engine_tpu_torch.config import (
     EngineConfig, ModelConfig, PRESETS, get_config)
 from llm_inference_engine_tpu_torch.models import weights as W
@@ -29,11 +31,23 @@ def _resolve_config(model: str) -> ModelConfig:
                      f"({sorted(PRESETS)}) nor a config file path")
 
 
+def _on_device(device) -> torch.device:
+    """The factories' device: the card unless the caller asks for the CPU;
+    no silent move to the CPU when there is no card."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"create_engine: device {device} asked for, but "
+                           "no CUDA device is available (pass "
+                           "device='cpu' to build on the CPU)")
+    return device
+
+
 def create_dummy_engine(model: str,
                         engine_config: EngineConfig = EngineConfig(),
-                        seed: int = 0, device=None) -> InferenceEngine:
+                        seed: int = 0, device="cuda") -> InferenceEngine:
     """Engine with random weights drawn on ``device`` from ``seed``
     (born quantized when ``engine_config.quant_mode`` says so)."""
+    device = _on_device(device)
     cfg = _resolve_config(model)
     if engine_config.quant_mode in ("int8", "int4"):
         params = W.init_dummy_quantized_params(
@@ -46,9 +60,11 @@ def create_dummy_engine(model: str,
 
 def create_real_engine(model: str, checkpoint_path: str,
                        engine_config: EngineConfig = EngineConfig(),
-                       device=None) -> InferenceEngine:
-    """Engine with real weights. A ``.npz`` file from ``save_params`` (of
-    either package) loads as it is: no re-quantization."""
+                       device="cuda") -> InferenceEngine:
+    """Engine with real weights on ``device``. A ``.npz`` file from
+    ``save_params`` (of either package) loads as it is: no
+    re-quantization."""
+    device = _on_device(device)
     cfg = _resolve_config(model)
     if checkpoint_path.endswith(".npz"):
         return InferenceEngine(cfg, engine_config,
@@ -62,9 +78,10 @@ def create_real_engine(model: str, checkpoint_path: str,
 
 def create_engine(model: str, checkpoint_path: Optional[str] = None,
                   engine_config: EngineConfig = EngineConfig(),
-                  seed: int = 0, device=None) -> InferenceEngine:
+                  seed: int = 0, device="cuda") -> InferenceEngine:
     """Engine for ``model`` (a preset name or a config JSON path) on
-    ``device`` (default: the CPU)."""
+    ``device``: the card by default (RuntimeError when there is none);
+    pass ``device="cpu"`` to build on the CPU."""
     if checkpoint_path:
         return create_real_engine(model, checkpoint_path, engine_config,
                                   device=device)

@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels; import Triton lazily.
 
-The CUDA sources (``llm_inference_engine_tpu_torch/csrc/*.cu``) expose a
-plain C interface. At first use each is compiled by its own ``nvcc``
-process, all started together, and the objects are linked into one
-shared library under ``build/torch_kernels/`` at the repository root,
-loaded with ``ctypes``; a library whose name carries the hash of the
-sources is reused. Pointers and the CUDA stream travel as
+The CUDA sources (``llm_inference_engine_tpu_torch/csrc/*.cu``, with the
+headers ``*.cuh`` they share) expose a plain C interface. At first use
+each ``.cu`` is compiled by its own ``nvcc`` process, all started
+together, and the objects are linked into one shared library under
+``build/torch_kernels/`` at the repository root, loaded with ``ctypes``;
+a library whose name carries the hash of the sources and headers is
+reused. Pointers and the CUDA stream travel as
 ``c_void_p``; every entry point returns ``cudaGetLastError()`` and
 :func:`check` raises when it is not 0.
 
@@ -45,10 +46,26 @@ _SIGNATURES = {
     # layer, B, H, K, S, D, sm_scale, window, stream
     "attention_decode": [_P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # k_new, v_new, k_cache, v_cache, k_scale, v_scale, starts, new_len,
+    # layer, B, T, K, S, D, snapped, stream
+    "kv_write_quant": [_P, _P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, k_cache, v_cache, k_scale, v_scale, out, q_start, kv_len,
+    # layer, B, T, H, K, S, D, sm_scale, window, stream
+    "attention_prefill_int8": [_P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, out, q_start,
+    # kv_len, layer, B, H, K, S, D, sm_scale, window, snapped, stream
+    "attention_decode_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     # k_new, v_new, k_pool, v_pool, starts, new_len, table,
     # layer, B, T, P, page, max_pages, row_bytes, stream
     "paged_kv_write": [_P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _P],
+    # k_new, v_new, k_pool, v_pool, k_scale, v_scale, starts, new_len,
+    # table, layer, B, T, K, P, page, max_pages, D, stream
+    "paged_kv_write_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k_pool, v_pool, out, q_start, kv_len, table,
     # layer, B, T, H, K, P, page, max_pages, D, sm_scale, window, stream
     "attention_prefill_paged": [_P, _P, _P, _P, _P, _P, _P,
@@ -58,6 +75,16 @@ _SIGNATURES = {
     # layer, B, H, K, P, page, max_pages, D, sm_scale, window, stream
     "attention_decode_paged": [_P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # q, k_pool, v_pool, k_scale, v_scale, out, q_start, kv_len, table,
+    # layer, B, T, H, K, P, page, max_pages, D, sm_scale, window, stream
+    "attention_prefill_paged_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                     _F, _I, _P],
+    # q, k_pool, v_pool, k_scale, v_scale, out, q_start, kv_len, table,
+    # layer, B, H, K, P, page, max_pages, D, sm_scale, window, stream
+    "attention_decode_paged_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                                    _P],
     # x, q, scale, out, m, k, n, halves, q_half, s_half, group, out_f32,
     # stream
     "int4_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _I, _P],
@@ -83,7 +110,7 @@ def build() -> tuple[Path, float]:
     exists. Returns (library path, seconds spent compiling)."""
     digest = hashlib.sha256()
     sources = sorted(CSRC.glob("*.cu"))
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())

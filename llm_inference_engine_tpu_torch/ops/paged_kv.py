@@ -1,7 +1,7 @@
 """Paged KV cache: block-table indirection over a shared page pool.
 
-Port of ``llm_inference_engine_tpu/ops/paged_kv.py`` for the bf16 (or
-f32) pool. The pool is ``[L, P, page, K, D]``, token-major within a page;
+Port of ``llm_inference_engine_tpu/ops/paged_kv.py``, bf16 (or f32) and
+int8 pools. The pool is ``[L, P, page, K, D]``, token-major within a page;
 a page is the unit of allocation across layers (physical page p is
 ``pool[:, p]`` on every layer), so the block table ``[B, max_pages]``
 int32 is per sequence: key row j of sequence b lives at page
@@ -21,8 +21,15 @@ padded T-window inside the page. The two differ only in rows at or past
 ``kv_len``, which attention never reads and a later write overwrites
 before they become valid.
 
-Not ported yet: the int8 pool with embedded scale rows (ROADMAP.md,
-queue 1, "INT8 KV cache").
+The int8 pool (``quantized=True``) holds int8 values [L, P, page, K, D]
+and f32 scale planes [L, P, page, K], indexed by page as the values are,
+so a page shared through the table shares its scales. The JAX package
+embeds log2-snapped scale codes in 8 pad rows per token of its int8 pool
+(a TPU DMA workaround); the port keeps those snapped numerics
+(``kv_cache.quantize_kv_snapped``) in the plane layout. Kernel H's int8
+mode (``paged_kv_write_quant``, the paged instance of kernel I in
+``csrc/kv_write_quant.cu``) quantizes the bf16 rows and writes values and
+scales through the table in one launch.
 """
 
 from __future__ import annotations
@@ -32,23 +39,37 @@ from typing import Optional, Sequence
 
 import torch
 
+from llm_inference_engine_tpu_torch.ops.kv_cache import quantize_kv_snapped
 from llm_inference_engine_tpu_torch.utils import use_kernel
 
 __all__ = ["PagedKVCache", "PageAllocator", "new_paged_kv_cache",
            "paged_update_at_layer", "paged_update_at_layer_torch",
-           "gather_layer_pages"]
+           "paged_kv_write_quant", "gather_pages", "gather_layer_pages"]
 
 
 @dataclasses.dataclass
 class PagedKVCache:
     """k/v: [L, P, page, K, D] page pool; block_table: [B, max_pages]
     int32 physical page per (slot, logical block); lengths: [B] int32
-    valid tokens per slot. All on the pool's device."""
+    valid tokens per slot. The int8 pool adds f32 scale planes
+    k_scale/v_scale [L, P, page, K]. All on the pool's device."""
 
     k: torch.Tensor
     v: torch.Tensor
     block_table: torch.Tensor
     lengths: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    @property
+    def snapped(self) -> bool:
+        """The int8 pool always quantizes with snapped scales, as the JAX
+        package's embedded-scale pool does."""
+        return self.quantized
 
     @property
     def num_layers(self) -> int:
@@ -83,15 +104,22 @@ def new_paged_kv_cache(num_layers: int, batch_size: int, num_kv_heads: int,
                        num_pages: int, page_size: int, head_dim: int,
                        max_pages_per_seq: int,
                        dtype: torch.dtype = torch.bfloat16,
-                       device: Optional[torch.device] = None) -> PagedKVCache:
-    """Zero-filled pool and an all-scratch table on ``device``."""
+                       device: Optional[torch.device] = None,
+                       quantized: bool = False) -> PagedKVCache:
+    """Zero-filled pool and an all-scratch table on ``device``;
+    ``quantized`` gives int8 values and scale planes of ones (``dtype`` is
+    then unused)."""
     shape = (num_layers, num_pages, page_size, num_kv_heads, head_dim)
+    vdt = torch.int8 if quantized else dtype
+    planes = [torch.ones(shape[:-1], dtype=torch.float32, device=device)
+              for _ in range(2)] if quantized else [None, None]
     return PagedKVCache(
-        k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device),
-        block_table=torch.zeros((batch_size, max_pages_per_seq),
-                                dtype=torch.int32, device=device),
-        lengths=torch.zeros((batch_size,), dtype=torch.int32, device=device))
+        torch.zeros(shape, dtype=vdt, device=device),
+        torch.zeros(shape, dtype=vdt, device=device),
+        torch.zeros((batch_size, max_pages_per_seq), dtype=torch.int32,
+                    device=device),
+        torch.zeros((batch_size,), dtype=torch.int32, device=device),
+        *planes)
 
 
 class PageAllocator:
@@ -151,8 +179,9 @@ def _write_rows_torch(pool: torch.Tensor, new: torch.Tensor, layer: int,
                       starts: torch.Tensor, new_len: torch.Tensor,
                       table: torch.Tensor) -> None:
     """pool[layer, table[b, p // page], p % page] = new[b, t] for
-    p = starts[b] + t, t < new_len[b] and p inside the table (in place)."""
-    _, _, page, K, D = pool.shape
+    p = starts[b] + t, t < new_len[b] and p inside the table (in place;
+    a scale plane [L, P, page, K] takes rows [B, T, K])."""
+    page = pool.shape[2]
     B, T = new.shape[:2]
     t = torch.arange(T, device=new.device)
     pos = starts.long()[:, None] + t[None, :]                      # [B, T]
@@ -161,7 +190,7 @@ def _write_rows_torch(pool: torch.Tensor, new: torch.Tensor, layer: int,
     blk = torch.where(valid, pos // page, 0)
     pg = torch.gather(table.long(), 1, blk)
     rows = (pg * page + pos % page)[valid]
-    pool[layer].view(-1, K, D)[rows] = new[valid].to(pool.dtype)
+    pool[layer].view(-1, *pool.shape[3:])[rows] = new[valid].to(pool.dtype)
 
 
 def paged_update_at_layer_torch(cache: PagedKVCache, layer: int,
@@ -170,9 +199,19 @@ def paged_update_at_layer_torch(cache: PagedKVCache, layer: int,
                                 new_len: Optional[torch.Tensor] = None
                                 ) -> PagedKVCache:
     """Plain version of kernel H: a per-row scatter through the table (the
-    JAX package's ``_paged_write_xla`` on real rows)."""
+    JAX package's ``_paged_write_xla`` on real rows); an int8 pool gets the
+    rows quantized with snapped scales, values and scales."""
     if new_len is None:
         new_len = torch.full_like(starts, new_k.shape[1])
+    if cache.quantized:
+        for new, vals, scales in ((new_k, cache.k, cache.k_scale),
+                                  (new_v, cache.v, cache.v_scale)):
+            q, sc = quantize_kv_snapped(new)
+            _write_rows_torch(vals, q, layer, starts, new_len,
+                              cache.block_table)
+            _write_rows_torch(scales, sc, layer, starts, new_len,
+                              cache.block_table)
+        return cache
     _write_rows_torch(cache.k, new_k, layer, starts, new_len,
                       cache.block_table)
     _write_rows_torch(cache.v, new_v, layer, starts, new_len,
@@ -180,33 +219,46 @@ def paged_update_at_layer_torch(cache: PagedKVCache, layer: int,
     return cache
 
 
-def _check_write(cache, layer, new_k, new_v, starts, new_len):
+def _check_write(cache, layer, new_k, new_v, starts, new_len,
+                 name="paged_kv_write"):
     L, P, page, K, D = cache.k.shape
     B = cache.block_table.shape[0]
     if not 0 <= layer < L:
         raise IndexError(f"layer {layer} outside [0, {L})")
     if new_k.dim() != 4 or new_k.shape[0] != B or new_k.shape[2:] != (K, D):
-        raise ValueError(f"paged_kv_write: new rows {tuple(new_k.shape)} do "
+        raise ValueError(f"{name}: new rows {tuple(new_k.shape)} do "
                          f"not fit pool {tuple(cache.k.shape)} with {B} "
                          "table rows")
-    for t in (new_k, new_v, cache.k, cache.v):
-        if t.dtype != cache.k.dtype or t.device != cache.k.device:
-            raise TypeError("paged_kv_write: new rows and pools must share "
-                            "dtype and device")
+    # an int8 pool takes bf16 rows (the kernel quantizes them)
+    new_dtype = torch.bfloat16 if cache.quantized else cache.k.dtype
+    for t, want in ((new_k, new_dtype), (new_v, new_dtype),
+                    (cache.k, cache.k.dtype), (cache.v, cache.k.dtype)):
+        if t.dtype != want or t.device != cache.k.device:
+            raise TypeError(f"{name}: new rows must be {new_dtype}, on the "
+                            "pool's device")
         if not t.is_contiguous():
-            raise ValueError("paged_kv_write: tensors must be contiguous")
+            raise ValueError(f"{name}: tensors must be contiguous")
+    if cache.quantized:
+        for t in (cache.k_scale, cache.v_scale):
+            if (t.dtype != torch.float32 or t.shape != (L, P, page, K)
+                    or t.device != cache.k.device or not t.is_contiguous()):
+                raise ValueError(f"{name}: scale planes must be contiguous "
+                                 f"float32 [{L}, {P}, {page}, {K}]")
+        if D not in (64, 128):
+            raise NotImplementedError(f"{name}: head_dim {D} (built for 64 "
+                                      "and 128)")
     if new_v.shape != new_k.shape or cache.v.shape != cache.k.shape:
-        raise ValueError("paged_kv_write: k and v shapes differ")
+        raise ValueError(f"{name}: k and v shapes differ")
     for t in (starts, new_len, cache.block_table):
         if (t.dtype != torch.int32 or t.device != cache.k.device
                 or not t.is_contiguous()):
-            raise ValueError("paged_kv_write: starts/new_len/table must be "
+            raise ValueError(f"{name}: starts/new_len/table must be "
                              "contiguous int32 on the pool's device")
     if starts.shape != (B,) or new_len.shape != (B,):
-        raise ValueError(f"paged_kv_write: starts/new_len must be [{B}]")
+        raise ValueError(f"{name}: starts/new_len must be [{B}]")
     row_bytes = K * D * cache.k.element_size()
     if row_bytes % 16:
-        raise ValueError(f"paged_kv_write: a token row of {row_bytes} bytes "
+        raise ValueError(f"{name}: a token row of {row_bytes} bytes "
                          "is not a multiple of the kernel's 16-byte copies")
     return row_bytes
 
@@ -225,6 +277,9 @@ def paged_update_at_layer(cache: PagedKVCache, layer: int,
     """
     if new_len is None:
         new_len = torch.full_like(starts, new_k.shape[1])
+    if cache.quantized:
+        return paged_kv_write_quant(cache, layer, new_k, new_v, starts,
+                                    new_len, kernels=kernels)
     if not use_kernel(kernels, new_k):
         return paged_update_at_layer_torch(cache, layer, new_k, new_v,
                                            starts, new_len)
@@ -245,12 +300,48 @@ def paged_update_at_layer(cache: PagedKVCache, layer: int,
 paged_update_at_layer.launches = 0
 
 
+def paged_kv_write_quant(cache: PagedKVCache, layer: int,
+                         new_k: torch.Tensor, new_v: torch.Tensor,
+                         starts: torch.Tensor, new_len: torch.Tensor,
+                         kernels: str = "auto") -> PagedKVCache:
+    """Kernel H's int8 mode: quantize bf16 rows [B, T, K, D] with snapped
+    scales and write values and scales through the table (the rules of
+    :func:`paged_update_at_layer`), in place."""
+    if not use_kernel(kernels, new_k):
+        return paged_update_at_layer_torch(cache, layer, new_k, new_v,
+                                           starts, new_len)
+    from llm_inference_engine_tpu_torch.ops import _native
+    _check_write(cache, layer, new_k, new_v, starts, new_len,
+                 "paged_kv_write_quant")
+    L, P, page, K, D = cache.k.shape
+    B, max_pages = cache.block_table.shape
+    status = _native.library().paged_kv_write_quant(
+        new_k.data_ptr(), new_v.data_ptr(), cache.k.data_ptr(),
+        cache.v.data_ptr(), cache.k_scale.data_ptr(),
+        cache.v_scale.data_ptr(), starts.data_ptr(), new_len.data_ptr(),
+        cache.block_table.data_ptr(), int(layer), B, new_k.shape[1], K, P,
+        page, max_pages, D, _native.stream_of(new_k))
+    _native.check(status, "paged_kv_write_quant")
+    paged_kv_write_quant.launches += 1
+    return cache
+
+
+paged_kv_write_quant.launches = 0
+
+
+def gather_pages(pool: torch.Tensor, layer: int, table: torch.Tensor):
+    """Dense [B, max_pages * page, ...] copy of one layer of a pool or a
+    scale plane (the plain path: gathers the whole table; rows past a
+    sequence's length hold whatever their page holds and must be masked by
+    kv_len)."""
+    B, MP = table.shape
+    page = pool.shape[2]
+    idx = table.reshape(-1).long()
+    return pool[layer][idx].reshape(B, MP * page, *pool.shape[3:])
+
+
 def gather_layer_pages(cache: PagedKVCache, layer: int):
-    """Dense [B, max_pages * page, K, D] copies of one layer of the pool
-    (the plain path: gathers the whole table; rows past a sequence's
-    length hold whatever their page holds and must be masked by kv_len)."""
-    B, MP = cache.block_table.shape
-    _, _, page, K, D = cache.k.shape
-    idx = cache.block_table.reshape(-1).long()
-    return (cache.k[layer][idx].reshape(B, MP * page, K, D),
-            cache.v[layer][idx].reshape(B, MP * page, K, D))
+    """Dense [B, max_pages * page, K, D] copies of one layer of the pool's
+    values (see :func:`gather_pages`)."""
+    return (gather_pages(cache.k, layer, cache.block_table),
+            gather_pages(cache.v, layer, cache.block_table))

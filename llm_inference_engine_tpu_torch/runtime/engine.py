@@ -26,8 +26,11 @@ has a host mirror; the device table is updated in place from pinned
 memory, and only when the host table changed.
 
 Weights may be dense or quantized (``ops/quant.py``); the engine does
-not look at them. Not ported yet (each raises NotImplementedError):
-meshes (dp/tp/cp), the int8 KV cache, multi-host lockstep overrides
+not look at them. ``kv_cache_dtype_name="int8"`` gives an int8 cache or
+pool with f32 scale planes (``ops/kv_cache.py``, ``ops/paged_kv.py``);
+the slot cache picks its scale numerics by device as the JAX engine
+does, the pool is always snapped. Not ported yet (each raises
+NotImplementedError): meshes (dp/tp/cp), multi-host lockstep overrides
 (ROADMAP.md, queue 1).
 """
 
@@ -76,10 +79,6 @@ def _refuse_unported(eng: EngineConfig) -> None:
     if eng.kv_layout not in ("slot", "paged"):
         raise ValueError(f"kv_layout must be 'slot' or 'paged', got "
                          f"{eng.kv_layout!r}")
-    if eng.kv_cache_dtype == torch.int8:
-        raise NotImplementedError(
-            f"the int8 KV cache ({eng.kv_layout} layout) is not ported yet "
-            "(ROADMAP.md, queue 1, 'INT8 KV cache')")
 
 
 class InferenceEngine:
@@ -98,15 +97,17 @@ class InferenceEngine:
             params["embed"].device
         self.params = params
         B, V = engine_config.max_batch_size, config.vocab_size
+        # an int8 cache holds int8 values and f32 scale planes
+        quantized = engine_config.kv_cache_dtype == torch.int8
         dtype = engine_config.kv_cache_dtype or config.dtype
         self.paged = engine_config.kv_layout == "paged"
         if self.paged:
-            self._init_paged(dtype)
+            self._init_paged(dtype, quantized)
         else:
             self.cache = kvc.new_kv_cache(
                 config.num_layers, B, config.num_kv_heads,
                 engine_config.max_seq_len, config.head_dim, dtype=dtype,
-                device=self.device)
+                device=self.device, quantized=quantized)
         self._lengths = np.zeros((B,), np.int32)     # host mirror
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(rng_seed)
@@ -116,7 +117,7 @@ class InferenceEngine:
                                        device=self.device)
         self._counts_gen = torch.zeros_like(self._counts_ctx)
 
-    def _init_paged(self, dtype: torch.dtype) -> None:
+    def _init_paged(self, dtype: torch.dtype, quantized: bool) -> None:
         eng = self.engine_config
         page = eng.page_size
         # multi-token writes must stay within one page: the chunk size
@@ -133,7 +134,7 @@ class InferenceEngine:
         self.cache = pkv.new_paged_kv_cache(
             self.config.num_layers, B, self.config.num_kv_heads, num_pages,
             page, self.config.head_dim, maxp, dtype=dtype,
-            device=self.device)
+            device=self.device, quantized=quantized)
         self._allocator = pkv.PageAllocator(num_pages)
         self._slot_pages: list[list[int]] = [[] for _ in range(B)]
         self._table_host = np.zeros((B, maxp), np.int32)

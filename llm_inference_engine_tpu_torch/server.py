@@ -4,10 +4,11 @@ Port of ``llm_inference_engine_tpu/server.py`` (framework-free apart from
 ``main``): the same routes, JSON shapes, streaming, ``n``, logprobs, stop
 strings, 429 backpressure and ``/metrics``, over the port's scheduler and
 engine. The engine runs on an explicit ``--device`` (default ``cuda``;
-there is no CPU fallback: without a card ``main`` raises). Not ported
+there is no CPU fallback: without a card ``main`` raises).
+``--kv-cache-dtype int8`` serves from an int8 cache or pool. Not ported
 yet, each raising NotImplementedError: ``--draft-model`` (speculative
-serving), ``--kv-cache-dtype int8`` and a real ``--tokenizer``; the JAX
-package's ``--platform`` picks a JAX backend and has no counterpart.
+serving) and a real ``--tokenizer``; the JAX package's ``--platform``
+picks a JAX backend and has no counterpart.
 
 The reference's only user surface was a single-user blocking CLI REPL
 (user_entry.cpp:9-43). This is the deployable counterpart: an HTTP server
@@ -662,7 +663,6 @@ def main(argv=None) -> int:
 
     for flag, item in (("draft_model", "Speculative decoding and beam "
                         "search"),
-                       ("kv_cache_dtype", "INT8 KV cache"),
                        ("tokenizer", "Host-side serving")):
         if getattr(args, flag):
             raise NotImplementedError(
@@ -679,6 +679,7 @@ def main(argv=None) -> int:
 
     eng = EngineConfig(max_batch_size=args.max_batch_size,
                        max_seq_len=args.max_seq_len, quant_mode=args.quant,
+                       kv_cache_dtype_name=args.kv_cache_dtype,
                        kv_layout=args.kv_layout, page_size=args.page_size,
                        num_pages=args.num_pages)
     engine = create_engine(args.model, args.checkpoint or None, eng,

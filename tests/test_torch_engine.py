@@ -197,7 +197,8 @@ def test_prefill_refuses_chunk_past_capacity():
 
 def test_create_engine_dummy_and_unported_paths():
     eng = create_engine("debug", None, EngineConfig(max_batch_size=2,
-                                                    max_seq_len=32))
+                                                    max_seq_len=32),
+                        device="cpu")
     cfg = get_config("debug")
     assert param_count(eng.params) == (
         2 * cfg.vocab_size * cfg.hidden_size + cfg.hidden_size
@@ -206,12 +207,15 @@ def test_create_engine_dummy_and_unported_paths():
                             + cfg.q_size * cfg.hidden_size
                             + 3 * cfg.hidden_size * cfg.intermediate_size))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_engine("debug", "/nonexistent/checkpoint")
-    for bad in (dict(kv_cache_dtype_name="int8"),
-                dict(kv_layout="paged", kv_cache_dtype_name="int8"),
-                dict(tp=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            create_engine("debug", None, EngineConfig(**bad))
+        create_engine("debug", "/nonexistent/checkpoint", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        create_engine("debug", None, EngineConfig(tp=2), device="cpu")
+    # the int8 KV cache is ported in both layouts
+    for kw in (dict(), dict(kv_layout="paged", max_prefill_len=16)):
+        e8 = create_engine("debug", None, EngineConfig(
+            max_batch_size=2, max_seq_len=32, kv_cache_dtype_name="int8",
+            **kw), device="cpu")
+        assert e8.cache.quantized and e8.cache.k.dtype == torch.int8
     for bad in (dict(kernels="pallas"), dict(quant_mode="int2")):
         with pytest.raises(ValueError):
             EngineConfig(**bad)
@@ -220,7 +224,7 @@ def test_create_engine_dummy_and_unported_paths():
     g = 64
     q4 = create_engine("debug", None, EngineConfig(
         max_batch_size=2, max_seq_len=32, quant_mode="int4",
-        quant_group_size=g))
+        quant_group_size=g), device="cpu")
     H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     quant = [(H, cfg.qkv_size), (cfg.q_size, H), (H, 2 * I), (I, H)]
     packed = cfg.num_layers * sum(k * n // 2 for k, n in quant) + H * V // 2
@@ -234,6 +238,20 @@ def test_create_engine_dummy_and_unported_paths():
                                                   max_new_tokens=4),
                       eos_token_id=None)
     assert out.num_generated == [4]
+
+
+@pytest.mark.parametrize("factory", ["create_engine", "create_dummy_engine",
+                                     "create_real_engine"])
+def test_factories_run_on_the_card_unless_asked_for_the_cpu(factory):
+    """With no device argument the factories build on the card; where
+    there is none they raise rather than build on the CPU."""
+    from llm_inference_engine_tpu_torch.models import registry
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    args = ("debug", "w.npz") if factory == "create_real_engine" \
+        else ("debug",)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(registry, factory)(*args)
 
 
 def test_package_imports_no_jax():

@@ -447,3 +447,286 @@ def test_paged_engine_matches_slot_engine_and_plain(cuda):
     slot.reset()
     assert (paged.generate(prompts, sp, eos_token_id=None).token_ids
             == slot.generate(prompts, sp, eos_token_id=None).token_ids)
+
+
+# ---------------------------------------------------------------------------
+# the int8 KV cache: kernel I, kernel H's int8 mode, kernel D's int8 modes
+# ---------------------------------------------------------------------------
+
+def _quantized(x, snapped):
+    return (kvc.quantize_kv_snapped if snapped else kvc.quantize_kv)(x)
+
+
+def _int8_slot(cuda, L, B, S, K, D, snapped):
+    """An int8 slot cache filled with quantized random rows."""
+    c = kvc.new_kv_cache(L, B, K, S, D, device=cuda, quantized=True,
+                         snapped=snapped)
+    for vals, scales in ((c.k, c.k_scale), (c.v, c.v_scale)):
+        q, s = _quantized(torch.randn(L, B, S, K, D, device=cuda,
+                                      dtype=torch.bfloat16), snapped)
+        vals.copy_(q)
+        scales.copy_(s)
+    return c
+
+
+def _int8_pool(cuda, L, B, maxp, page, K, D, spare=3):
+    """An int8 pool of quantized random rows with a shuffled table; page 0
+    (the scratch page) gets NaN scales, so a kernel that reads a table
+    entry past kv_len's pages shows it."""
+    from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+    P = 1 + B * maxp + spare
+    c = pkv.new_paged_kv_cache(L, B, K, P, page, D, maxp, device=cuda,
+                               quantized=True)
+    for vals, scales in ((c.k, c.k_scale), (c.v, c.v_scale)):
+        q, s = kvc.quantize_kv_snapped(torch.randn(
+            L, P, page, K, D, device=cuda, dtype=torch.bfloat16))
+        vals.copy_(q)
+        scales.copy_(s)
+    c.block_table.copy_((torch.randperm(P - 1, device=cuda)[:B * maxp] + 1)
+                        .to(torch.int32).reshape(B, maxp))
+    return c
+
+
+def _cut_int8_table(cache, kv_len, page):
+    used = (kv_len.long() + page - 1) // page
+    cols = torch.arange(cache.block_table.shape[1], device=kv_len.device)
+    cache.block_table[cols[None, :] >= used[:, None]] = 0
+    cache.k_scale[:, 0] = float("nan")
+    cache.v_scale[:, 0] = float("nan")
+
+
+def _planes(c):
+    return dict(k_scale=c.k_scale, v_scale=c.v_scale)
+
+
+@pytest.mark.parametrize("K,D,snapped", [(8, 128, False), (8, 128, True),
+                                         (32, 128, True), (2, 64, False)])
+def test_kv_write_quant_kernel(cuda, K, D, snapped):
+    """Kernel I at ragged T with a new_len == 0 row and an all-zero input
+    row: values and scales bit-identical to the plain quantize + write, and
+    every other row untouched."""
+    L, B, S, T = 3, 4, 600, 77
+    c = _int8_slot(cuda, L, B, S, K, D, snapped)
+    caches = [c, kvc.KVCache(c.k.clone(), c.v.clone(), c.lengths,
+                             c.k_scale.clone(), c.v_scale.clone(),
+                             snapped=snapped)]
+    new_k = torch.randn(B, T, K, D, device=cuda, dtype=torch.bfloat16)
+    new_v = torch.randn_like(new_k)
+    new_k[0, 0, 0] = 0.0
+    starts = torch.tensor([0, 37, 599, 88], device=cuda, dtype=torch.int32)
+    new_len = torch.tensor([77, 40, 1, 0], device=cuda, dtype=torch.int32)
+    before = caches[0].k.clone()
+    n0 = kvc.kv_write_quant.launches
+    kvc.update_cache_at_layer(caches[0], 2, new_k, new_v, starts, new_len,
+                              kernels="cuda")
+    kvc.update_cache_at_layer_torch(caches[1], 2, new_k, new_v, starts,
+                                    new_len)
+    torch.cuda.synchronize()
+    assert kvc.kv_write_quant.launches == n0 + 1
+    for name in ("k", "v", "k_scale", "v_scale"):
+        assert torch.equal(getattr(caches[0], name), getattr(caches[1], name))
+    assert not caches[0].k[2, 0, 0, 0].any()
+    assert torch.equal(caches[0].k[:2], before[:2])
+    assert torch.equal(caches[0].k[2, 3], before[2, 3])
+
+
+@pytest.mark.parametrize("K,G,window", [(4, 1, None), (2, 4, None),
+                                        (2, 4, 70)])
+def test_int8_prefill_attention_kernel(cuda, K, G, window):
+    L, B, T, S, D = 2, 4, 77, 300, 128
+    c = _int8_slot(cuda, L, B, S, K, D, False)
+    q = torch.randn(B, T, K * G, D, device=cuda, dtype=torch.bfloat16)
+    q_start = torch.tensor([0, 5, 150, 223], device=cuda, dtype=torch.int32)
+    kv_len = q_start + torch.tensor([77, 40, 1, 0], device=cuda,
+                                    dtype=torch.int32)
+    n0 = attention.attention_int8.launches
+    got = attention.attention(q, c.k, c.v, q_start, kv_len, layer=1,
+                              window=window, kernels="cuda", **_planes(c))
+    want = attention.attention_torch(q, c.k, c.v, q_start, kv_len, layer=1,
+                                     window=window, **_planes(c))
+    assert attention.attention_int8.launches == n0 + 1
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("K,G,window,snapped", [(8, 1, None, True),
+                                                (4, 4, None, False),
+                                                (4, 4, 100, True)])
+def test_fused_int8_decode_kernel(cuda, K, G, window, snapped):
+    """The in-kernel quantize writes the same bytes as the plain version;
+    the output agrees within TOL. Row 2 is inactive."""
+    L, B, S, D = 2, 4, 1000, 128
+    c = _int8_slot(cuda, L, B, S, K, D, snapped)
+    ref = [t.clone() for t in (c.k, c.v, c.k_scale, c.v_scale)]
+    q = torch.randn(B, 1, K * G, D, device=cuda, dtype=torch.bfloat16)
+    k_new = torch.randn(B, 1, K, D, device=cuda, dtype=torch.bfloat16)
+    v_new = torch.randn_like(k_new)
+    q_start = torch.tensor([0, 17, 500, 999], device=cuda, dtype=torch.int32)
+    kv_len = q_start + torch.tensor([1, 1, 0, 1], device=cuda,
+                                    dtype=torch.int32)
+    n0 = attention.attention_decode_fused_int8.launches
+    got, _, _ = attention.attention_decode_fused(
+        q, k_new, v_new, c.k, c.v, q_start, kv_len, 1, window=window,
+        kernels="cuda", snapped=snapped, **_planes(c))
+    want, _, _ = attention.attention_decode_fused_torch(
+        q, k_new, v_new, ref[0], ref[1], q_start, kv_len, 1, window=window,
+        k_scale=ref[2], v_scale=ref[3], snapped=snapped)
+    torch.cuda.synchronize()
+    assert attention.attention_decode_fused_int8.launches == n0 + 1
+    for got_t, want_t in zip((c.k, c.v, c.k_scale, c.v_scale), ref):
+        assert torch.equal(got_t, want_t)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("page", [16, 64])
+def test_paged_int8_write_kernel(cuda, page):
+    """Kernel H's int8 mode: chunk rows (one spanning pages at page 16),
+    decode rows and a new_len == 0 row in one launch; bit-identical to the
+    plain quantize + scatter, unreferenced pages untouched."""
+    from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+    L, B, maxp, K, D, T = 3, 5, 6, 8, 128, 64
+    cache = _int8_pool(cuda, L, B, maxp, page, K, D)
+    ref = pkv.PagedKVCache(cache.k.clone(), cache.v.clone(),
+                           cache.block_table, cache.lengths,
+                           cache.k_scale.clone(), cache.v_scale.clone())
+    before = cache.k.clone()
+    new_k = torch.randn(B, T, K, D, device=cuda, dtype=torch.bfloat16)
+    new_v = torch.randn_like(new_k)
+    starts = torch.tensor([0, page, 2 * page + 7, 5, 3 * page], device=cuda,
+                          dtype=torch.int32)
+    new_len = torch.tensor([T, 37, 1, 1, 0], device=cuda, dtype=torch.int32)
+    n0 = pkv.paged_kv_write_quant.launches
+    pkv.paged_update_at_layer(cache, 2, new_k, new_v, starts, new_len,
+                              kernels="cuda")
+    pkv.paged_update_at_layer_torch(ref, 2, new_k, new_v, starts, new_len)
+    torch.cuda.synchronize()
+    assert pkv.paged_kv_write_quant.launches == n0 + 1
+    for name in ("k", "v", "k_scale", "v_scale"):
+        assert torch.equal(getattr(cache, name), getattr(ref, name))
+    used = torch.zeros(cache.k.shape[1], dtype=torch.bool, device=cuda)
+    used[cache.block_table.long().flatten()] = True
+    assert torch.equal(cache.k[:, ~used], before[:, ~used])
+
+
+@pytest.mark.parametrize("page,K,G,window", [(16, 2, 4, None),
+                                             (64, 4, 1, None),
+                                             (16, 2, 4, 70)])
+def test_paged_int8_attention_kernels(cuda, page, K, G, window):
+    """Kernel D's int8 paged prefill and attend-only decode against the
+    plain paged versions; no table entry past kv_len's pages is read (page
+    0's scales are NaN)."""
+    L, B, T, D, maxp = 2, 4, 77, 128, 1000 // page + 1
+    cache = _int8_pool(cuda, L, B, maxp, page, K, D)
+    q = torch.randn(B, T, K * G, D, device=cuda, dtype=torch.bfloat16)
+    q_start = torch.tensor([0, 5, 150, 2 * page], device=cuda,
+                           dtype=torch.int32)
+    kv_len = q_start + torch.tensor([77, 40, 1, 0], device=cuda,
+                                    dtype=torch.int32)
+    dec_len = torch.tensor([1, page, page + 1, 999], device=cuda,
+                           dtype=torch.int32)
+    _cut_int8_table(cache, torch.maximum(kv_len, dec_len), page)
+    clean = dict(k_scale=cache.k_scale.nan_to_num(),
+                 v_scale=cache.v_scale.nan_to_num())
+    got = attention.attention(q, cache.k, cache.v, q_start, kv_len, layer=1,
+                              window=window, table=cache.block_table,
+                              kernels="cuda", **_planes(cache))
+    want = attention.attention_paged_torch(
+        q, cache.k, cache.v, q_start, kv_len, 1, cache.block_table,
+        window=window, **clean)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **TOL)
+    q1 = q[:, :1].contiguous()
+    n0 = attention.attention_decode_int8.launches
+    got = attention.attention_decode(q1, cache.k, cache.v, dec_len - 1,
+                                     dec_len, 1, table=cache.block_table,
+                                     window=window, kernels="cuda",
+                                     **_planes(cache))
+    want = attention.attention_paged_torch(
+        q1, cache.k, cache.v, dec_len - 1, dec_len, 1, cache.block_table,
+        window=window, **clean)
+    torch.cuda.synchronize()
+    assert attention.attention_decode_int8.launches == n0 + 1
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("page", [16, 64])
+def test_paged_int8_modes_are_bit_identical_to_slot_int8(cuda, page):
+    """As for bf16: H's int8 mode then the int8 attend-only decode gives
+    the fused int8 slot decode's bytes (snapped numerics, as the pool),
+    and the int8 paged prefill the int8 slot prefill's."""
+    from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+    L, B, K, G, D, maxp = 2, 4, 4, 4, 128, 512 // page
+    cache = _int8_pool(cuda, L, B, maxp, page, K, D)
+    S = maxp * page
+    slot = kvc.new_kv_cache(L, B, K, S, D, device=cuda, quantized=True,
+                            snapped=True)
+    for layer in range(L):
+        for src, dst in ((cache.k, slot.k), (cache.v, slot.v),
+                         (cache.k_scale, slot.k_scale),
+                         (cache.v_scale, slot.v_scale)):
+            dst[layer] = pkv.gather_pages(src, layer, cache.block_table)
+    hist = torch.tensor([0, 63, 64, 400], device=cuda, dtype=torch.int32)
+    kv_len = hist + 1
+    q = torch.randn(B, 1, K * G, D, device=cuda, dtype=torch.bfloat16)
+    kn = torch.randn(B, 1, K, D, device=cuda, dtype=torch.bfloat16)
+    vn = torch.randn_like(kn)
+    want, _, _ = attention.attention_decode_fused(
+        q, kn, vn, slot.k, slot.v, hist, kv_len, 1, kernels="cuda",
+        snapped=True, **_planes(slot))
+    pkv.paged_update_at_layer(cache, 1, kn, vn, hist, kv_len - hist,
+                              kernels="cuda")
+    got = attention.attention_decode(q, cache.k, cache.v, hist, kv_len, 1,
+                                     table=cache.block_table, kernels="cuda",
+                                     **_planes(cache))
+    assert torch.equal(got, want)
+    qp = torch.randn(B, 40, K * G, D, device=cuda, dtype=torch.bfloat16)
+    kv_len = hist + 40
+    assert torch.equal(
+        attention.attention(qp, cache.k, cache.v, hist, kv_len, layer=1,
+                            table=cache.block_table, kernels="cuda",
+                            **_planes(cache)),
+        attention.attention(qp, slot.k, slot.v, hist, kv_len, layer=1,
+                            kernels="cuda", **_planes(slot)))
+
+
+def test_int8_kernels_refuse_instead_of_falling_back(cuda):
+    c = _int8_slot(cuda, 1, 2, 32, 2, 128, True)
+    q = torch.randn(2, 3, 4, 128, device=cuda, dtype=torch.bfloat16)
+    lens = torch.full((2,), 3, device=cuda, dtype=torch.int32)
+    with pytest.raises(TypeError):            # an f32 row into an int8 cache
+        kvc.update_cache_at_layer(c, 0, q[:, :, :2].float(),
+                                  q[:, :, :2].float(), lens - 3, lens)
+    with pytest.raises(ValueError):           # a scale plane of the wrong type
+        attention.attention(q, c.k, c.v, lens - 3, lens, layer=0,
+                            k_scale=c.k_scale.double(), v_scale=c.v_scale)
+
+
+def test_int8_kv_engines_match_plain_and_paged_matches_slot(cuda):
+    """A small bf16 model (K = 8, D = 128: the slot cache is snapped on the
+    card, as the pool is) with an int8 KV cache: the kernel path's prefill
+    logits agree with the plain path's, the paged engine's are
+    bit-identical to the slot engine's, and their greedy ids are equal."""
+    from llm_inference_engine_tpu_torch.config import SamplingParams
+    cfg = get_config("debug").replace(dtype_name="bfloat16", head_dim=128,
+                                      num_heads=8, num_kv_heads=8,
+                                      num_layers=3)
+    eng = EngineConfig(max_batch_size=3, max_seq_len=256, max_prefill_len=16,
+                       kv_cache_dtype_name="int8")
+    params = init_dummy_params(cfg, device=cuda)
+    slot = InferenceEngine(cfg, eng, params, device=cuda)
+    paged = InferenceEngine(cfg, eng.replace(kv_layout="paged",
+                                             page_size=16), params,
+                            device=cuda)
+    plain = InferenceEngine(cfg, eng.replace(kernels="torch"), params,
+                            device=cuda)
+    assert slot.cache.snapped and paged.cache.snapped
+    prompts = [[1, 2, 3], list(range(5, 100)), [7] * 30]
+    ls, lp, lt = (e.prefill(prompts) for e in (slot, paged, plain))
+    assert torch.isfinite(ls).all()
+    assert torch.equal(lp, ls)
+    torch.testing.assert_close(ls, lt, atol=5e-2, rtol=5e-2)
+    sp = SamplingParams(greedy=True, max_new_tokens=12)
+    slot.reset()
+    paged.reset()
+    assert (paged.generate(prompts, sp, eos_token_id=None).token_ids
+            == slot.generate(prompts, sp, eos_token_id=None).token_ids)

@@ -306,19 +306,21 @@ def test_paged_engine_refuses_mid_page_append_and_bad_configs(weights):
                              weights[1])
     assert capped.engine_config.max_prefill_len == PAGE
     assert capped.cache.k.shape == (2, 2 * 4 + 1, PAGE, 2, 16)
-    with pytest.raises(NotImplementedError, match="INT8 KV cache"):
-        create_engine("debug", None, EngineConfig(
-            **{**_KW, "kv_cache_dtype_name": "int8"}))
+    # the int8 pool is ported: int8 values, scale planes beside them
+    q8 = create_engine("debug", None, EngineConfig(
+        **{**_KW, "kv_cache_dtype_name": "int8"}), device="cpu")
+    assert q8.cache.k.dtype == torch.int8 and q8.cache.snapped
+    assert q8.cache.k_scale.shape == (2, 2 * 4 + 1, PAGE, 2)
 
 
 def test_create_engine_passes_the_paged_layout_through(tmp_path, weights):
     """Dummy and .npz engines alike get the paged pool of their config."""
     from llm_inference_engine_tpu_torch.models.weights import save_params
     eng = EngineConfig(**{**_KW, "num_pages": 6})
-    dummy = create_engine("debug", None, eng)
+    dummy = create_engine("debug", None, eng, device="cpu")
     path = str(tmp_path / "w.npz")
     save_params(weights[1], path)
-    loaded = create_engine("debug", path, eng)
+    loaded = create_engine("debug", path, eng, device="cpu")
     for e in (dummy, loaded):
         assert e.paged and e.cache.k.shape[1:3] == (6, PAGE)
         assert e.free_pages == 5
@@ -365,11 +367,17 @@ def _scenario(name):
     raise KeyError(name)
 
 
-@pytest.mark.parametrize("name", ["load", "preemption", "admission",
-                                  "capacity", "counts"])
-def test_paged_scheduler_matches_jax(weights, name):
+_SCENARIOS = ["load", "preemption", "admission", "capacity", "counts"]
+
+
+# each scenario over the bf16 pool and over the int8 pool (snapped scales
+# in the port, embedded scale rows in the JAX package)
+@pytest.mark.parametrize("name,kv", [
+    *[pytest.param(n, "", id=n) for n in _SCENARIOS],
+    *[pytest.param(n, "int8", id=f"{n}-int8") for n in _SCENARIOS]])
+def test_paged_scheduler_matches_jax(weights, name, kv):
     eng_kw, sp_kw, prompts = _scenario(name)
-    je, te = _engines(weights, **eng_kw)
+    je, te = _engines(weights, kv_cache_dtype_name=kv, **eng_kw)
     js, ts = (JScheduler(je, eos_token_id=None),
               ContinuousBatchingScheduler(te, eos_token_id=None))
     jr = [js.submit(p, JSamplingParams(**sp_kw)) for p in prompts]
@@ -431,7 +439,18 @@ def test_scheduler_cancel_returns_pages(weights):
 def test_registered_prefix_matches_jax(weights):
     """A 20-token registered prefix shares its one full page; requests
     starting with it adopt the page and prefill only their tails."""
-    je, te = _engines(weights)
+    _registered_prefix(weights, "")
+
+
+@pytest.mark.parametrize("kv", ["int8"])
+def test_registered_prefix_over_int8_pool_matches_jax(weights, kv):
+    """As above over the int8 pool: a shared page shares its scale rows
+    (the planes are indexed by page)."""
+    _registered_prefix(weights, kv)
+
+
+def _registered_prefix(weights, kv):
+    je, te = _engines(weights, kv_cache_dtype_name=kv)
     js, ts = (JScheduler(je, eos_token_id=None),
               ContinuousBatchingScheduler(te, eos_token_id=None))
     prefix = list(range(40, 60))
@@ -458,7 +477,17 @@ def test_auto_prefix_cache_matches_jax(weights):
     conversation plus a suffix (a stateless multi-turn client) and reuses
     the cached pages. Ids and reused lengths match the JAX scheduler, and
     every page is accounted for: free + cached == num_pages - 1."""
-    je, te = _engines(weights)
+    _auto_prefix(weights, "")
+
+
+@pytest.mark.parametrize("kv", ["int8"])
+def test_auto_prefix_cache_over_int8_pool_matches_jax(weights, kv):
+    """As above over the int8 pool."""
+    _auto_prefix(weights, kv)
+
+
+def _auto_prefix(weights, kv):
+    je, te = _engines(weights, kv_cache_dtype_name=kv)
     js = JScheduler(je, eos_token_id=None, auto_prefix_cache=True)
     ts = ContinuousBatchingScheduler(te, eos_token_id=None,
                                      auto_prefix_cache=True)

@@ -382,7 +382,7 @@ def test_npz_checkpoint_crosses_both_ways(rng, tmp_path, mode):
     j_weights.save_params(jp, path_j)
     te = create_engine("debug", path_j,
                        EngineConfig(quant_mode=mode, quant_group_size=64,
-                                    **kw))
+                                    **kw), device="cpu")
     prompts = [rng.integers(3, 256, n).tolist() for n in (6, 21)]
     sp = dict(greedy=True, max_new_tokens=8)
     rj = je.generate(prompts, JSamplingParams(**sp), eos_token_id=None)
@@ -402,4 +402,5 @@ def test_unported_quantization_paths_raise(tmp_path):
     (tmp_path / "model.safetensors").write_bytes(b"")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_engine("debug", str(tmp_path),
-                      EngineConfig(quant_mode="int4", quant_group_size=64))
+                      EngineConfig(quant_mode="int4", quant_group_size=64),
+                      device="cpu")

@@ -318,20 +318,27 @@ def test_engine_failure_answers_500_at_once(weights, monkeypatch):
         _stop(pair)
 
 
-@pytest.mark.parametrize("prompt", ["5 9 2",
-                                    " ".join(str(i) for i in range(3, 40))],
-                         ids=["short", "chunked"])
-def test_greedy_completion_matches_jax_server(weights, prompt):
+_PROMPTS = {"short": "5 9 2",
+            "chunked": " ".join(str(i) for i in range(3, 40))}
+
+
+# each prompt over the bf16 pool and over the int8 pool
+@pytest.mark.parametrize("prompt,kv", [
+    *[pytest.param(p, "", id=name) for name, p in _PROMPTS.items()],
+    *[pytest.param(p, "int8", id=f"{name}-int8")
+      for name, p in _PROMPTS.items()]])
+def test_greedy_completion_matches_jax_server(weights, prompt, kv):
     """The same request to the JAX server and to the port's, both over a
     paged engine with the same weights: identical greedy tokens, usage and
     finish reason (the second prompt prefills in five chunks)."""
     je = JInferenceEngine(j_get_config("debug"),
-                          JEngineConfig(kernels="xla", **KW), weights[0])
+                          JEngineConfig(kernels="xla", kv_cache_dtype_name=kv,
+                                        **KW), weights[0])
     jpair = _serve(*j_make_server(
         JScheduler(je, eos_token_id=None, auto_prefix_cache=True),
         JIdTokenizer(CFG.vocab_size), j_get_chat_template("plain"), "debug",
         host="127.0.0.1", port=0))
-    tpair = _port_server(weights)
+    tpair = _port_server(weights, kv_cache_dtype_name=kv)
     try:
         body = dict(prompt=prompt, max_tokens=12, logprobs=1)
         want = _completion(jpair[0].server_address, **body)
@@ -351,7 +358,6 @@ def test_greedy_completion_matches_jax_server(weights, prompt):
 def test_main_refuses_what_is_not_ported_and_a_missing_card():
     for argv, err, match in (
             (["--draft-model", "debug"], NotImplementedError, "Speculative"),
-            (["--kv-cache-dtype", "int8"], NotImplementedError, "INT8 KV"),
             (["--tokenizer", "x.json"], NotImplementedError, "Host-side"),
             (["--dummy-weights", "--device", "cuda"], RuntimeError,
              "no CUDA device")):
@@ -360,3 +366,37 @@ def test_main_refuses_what_is_not_ported_and_a_missing_card():
         with pytest.raises(err, match=match):
             port_server.main(["--model", "debug", *argv])
     assert port_server.main(["--model", "debug", "--device", "cpu"]) == 2
+    # ported: the int8 KV flag is no longer refused before the weights
+    assert port_server.main(["--model", "debug", "--device", "cpu",
+                             "--kv-cache-dtype", "int8"]) == 2
+
+
+def test_main_serves_an_int8_kv_engine(monkeypatch):
+    """``--kv-cache-dtype int8`` reaches the engine: ``main`` builds an
+    int8 pool, and its server answers a completion before it stops as on
+    Ctrl-C."""
+    made = {}
+    real = port_server.make_server
+
+    def make_server(sched, *a, **kw):
+        httpd, llm = real(sched, *a, **kw)
+        made["engine"] = sched.engine
+
+        def serve_forever():
+            threading.Thread(target=type(httpd).serve_forever, args=(httpd,),
+                             daemon=True).start()
+            made["out"] = _completion(httpd.server_address, max_tokens=4)
+            httpd.shutdown()
+            raise KeyboardInterrupt
+        httpd.serve_forever = serve_forever
+        return httpd, llm
+    monkeypatch.setattr(port_server, "make_server", make_server)
+    torch.set_num_threads(2)
+    assert port_server.main([
+        "--model", "debug", "--dummy-weights", "--device", "cpu",
+        "--kv-cache-dtype", "int8", "--kv-layout", "paged",
+        "--page-size", "16", "--max-batch-size", "2", "--max-seq-len", "64",
+        "--port", "0"]) == 0
+    cache = made["engine"].cache
+    assert cache.quantized and cache.k.dtype == torch.int8
+    assert made["out"]["usage"]["completion_tokens"] == 4
