@@ -13,11 +13,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 2. build the CUDA kernels from the sources in the checkout;
 3. every hand-written kernel against its plain PyTorch version on the
    card, at Llama2-7B shapes, with its time beside the plain version's
-   (CUDA events, after warm-up): A-D, then E and F (fused dequant-matmul,
-   INT4 and INT8) and G (INT4 dequantize, bit-identical), then (3c) H
-   (the paged write) and kernel D's paged prefill (a B=16, T=64 mixed
-   step, then 8 x 512) and attend-only paged decode over a pool of page
-   64 with a random page permutation, the decode case again at page 16;
+   (CUDA events, after warm-up): A-C, kernel D2 (the prefill modes:
+   B4 T512, GQA with and without a window, G = 8 against kv_len 2048)
+   and kernel D's fused decode, then E and F (fused dequant-matmul, INT4
+   and INT8) and G (INT4 dequantize, bit-identical), then (3c) H (the
+   paged write) and D2's paged mode (a B=16, T=64 mixed step, then
+   8 x 512) and D's attend-only paged decode over a pool of page 64 with
+   a random page permutation, the mixed step and the decode case again
+   at page 16;
 4. the main paths, each through ``create_engine`` with dummy weights (seed
    0) at full width and depth, with every launch counter set to 0 just
    before the path and read just after, and a rerun of round 1 with
@@ -56,9 +59,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
       ids, through H's and D's int8 paged modes only;
    i. the server over a paged INT4 engine with an int8 pool of 4e's pool
       bytes (~2x the pages): 4e's wave 1;
-   (3d, before 4: kernel I, H's int8 mode and D's int8 modes against their
-   plain versions at 7B widths, in both scale numerics, the decode modes
-   held per row, DECODE_ROW_TOL; 4j runs after 4g, before 4d);
+   (3d, before 4: kernel I, H's int8 mode, D2's and D's int8 modes
+   against their plain versions at 7B widths, in both scale numerics, the
+   decode modes held per row, DECODE_ROW_TOL; 4j runs after 4g, before
+   4d); every profiled step and prefill prints its device time by kernel
+   group (KERNEL_GROUPS);
 5. one JSON line of kernel results (each with its time, its plain
    version's, its bound from this run's inputs and, where one PyTorch call
    computes the same function, that call's time), the nvidia-smi line,
@@ -138,19 +143,19 @@ SOURCES = {
     "add_residual_rmsnorm": _TRITON,
     "silu_and_mul": _TRITON,
     "kv_write": ("cuda", "llm_inference_engine_tpu_torch/csrc/kv_write.cu"),
-    "attention_prefill": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention.cu"),
+    "attention_prefill": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention_prefill.cu"),
     "attention_decode": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention.cu"),
     "int4_matmul": ("cuda", "llm_inference_engine_tpu_torch/csrc/quant_matmul.cu"),
     "int8_matmul": ("cuda", "llm_inference_engine_tpu_torch/csrc/quant_matmul.cu"),
     "dequant_int4": _TRITON,
     "paged_kv_write": ("cuda", "llm_inference_engine_tpu_torch/csrc/paged_kv_write.cu"),
-    "attention_prefill_paged": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention.cu"),
+    "attention_prefill_paged": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention_prefill.cu"),
     "attention_decode_paged": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention.cu"),
     "kv_write_quant": ("cuda", "llm_inference_engine_tpu_torch/csrc/kv_write_quant.cu"),
-    "attention_prefill_int8": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention_int8.cu"),
+    "attention_prefill_int8": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention_prefill.cu"),
     "attention_decode_int8": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention_int8.cu"),
     "paged_kv_write_int8": ("cuda", "llm_inference_engine_tpu_torch/csrc/kv_write_quant.cu"),
-    "attention_prefill_paged_int8": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention_int8.cu"),
+    "attention_prefill_paged_int8": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention_prefill.cu"),
     "attention_decode_paged_int8": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention_int8.cu"),
 }
 # the main path whose launch count each kernel reports
@@ -535,6 +540,19 @@ def phase_kernels(torch, dev, results) -> None:
         check_close(torch, "attention_decode", got, want, results,
                     f"B4 H32 {tag}")
     del kc, vc, kc2, vc2
+    # D2 at G = 8 (H=32, K=4): 130 rows against kv_len up to 2048 (32
+    # tiles, the copy ring wraps), once with a window that starts inside a
+    # tile
+    kc, vc = randn(1, B, S, 4, D), randn(1, B, S, 4, D)
+    q_start, kv_len = ints([0, 5, 1024, 1918]), ints([130, 75, 1025, 2048])
+    q130 = randn(B, 130, 32, D)
+    for window in (None, 100):
+        got = attention.attention(q130, kc, vc, q_start, kv_len, layer=0,
+                                  window=window, kernels="cuda")
+        check_close(torch, "attention_prefill", got, attention.attention_torch(
+            q130, kc, vc, q_start, kv_len, layer=0, window=window), results,
+            f"B4 T130 H32 K4 kv_len 75-2048 window {window}")
+    del kc, vc
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -684,6 +702,26 @@ def _short(kernel_name: str) -> str:
     name = kernel_name.replace("void ", "").replace(
         "(anonymous namespace)::", "")
     return name.split("(")[0][:60]
+
+
+# device time by group of kernels (profiler names, first match wins):
+# kernel D2 (the prefill modes), kernel D (the decode modes), E/F, cuBLAS
+KERNEL_GROUPS = (("D2", ("attention_prefill_kernel",)),
+                 ("D", ("attention_kernel", "attention_int8_kernel")),
+                 ("E/F", ("quant_matmul_kernel",)),
+                 ("cuBLAS", ("nvjet", "gemm", "cutlass", "xmma")))
+
+
+def _groups(per_kernel) -> str:
+    """``per_kernel`` ([(ms, name)]) summed by KERNEL_GROUPS, the rest
+    apart."""
+    sums = {g: 0.0 for g, _ in KERNEL_GROUPS}
+    sums["rest"] = 0.0
+    for ms, name in per_kernel:
+        group = next((g for g, keys in KERNEL_GROUPS
+                      if any(k in name for k in keys)), "rest")
+        sums[group] += ms
+    return ", ".join(f"{g} {ms:.3f}" for g, ms in sums.items())
 
 
 def _logit_diff(x, ref):
@@ -844,9 +882,11 @@ def phase_main_path(torch, dev, results, path: str, eng_cfg, prompt_lens,
         f"{B * 1e3 / step_ms:.1f} tok/s; card busy {busy_ms:.3f} ms/step "
         f"(idle {1 - busy_ms / step_ms:.3f} of the step); peak memory "
         f"{peak / 2**30:.2f} GiB")
-    say("  decode step, device ms by kernel: " + "; ".join(
-        f"{_short(name)} {ms:.3f}" for ms, name in per_kernel[:8]))
-    say(f"  warm prefill: card busy {prefill_busy:.3f} ms; by kernel: "
+    say(f"  decode step, device ms by group: {_groups(per_kernel)}; by "
+        "kernel: " + "; ".join(f"{_short(name)} {ms:.3f}"
+                               for ms, name in per_kernel[:8]))
+    say(f"  warm prefill: card busy {prefill_busy:.3f} ms; by group: "
+        f"{_groups(prefill_kernels)}; by kernel: "
         + "; ".join(f"{_short(name)} {ms:.3f}"
                     for ms, name in prefill_kernels[:8]))
 
@@ -1087,8 +1127,16 @@ def phase_paged_kernels(torch, dev, results) -> None:
     del cache, kn, vn, q
     torch.cuda.empty_cache()
     cache = pool(16, 16)
+    # D2's paged prefill at pages of 16: 64-key tiles straddle pages
+    table16 = cut(cache.block_table, kv_mixed, 16)
+    q = randn(16, 64, 32, D)
+    check_close(torch, "attention_prefill_paged", attention.attention(
+        q, cache.k, cache.v, mixed_start, kv_mixed, layer=31, table=table16,
+        kernels="cuda"), attention.attention(
+        q, cache.k, cache.v, mixed_start, kv_mixed, layer=31, table=table16,
+        kernels="torch"), results, "B16 T64 mixed step kv_len 1-808 page 16")
     decode_case(cache, 16, "kv_len 1-2048")
-    del cache
+    del cache, q
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -1294,6 +1342,19 @@ def phase_kv_int8_kernels(torch, dev, results) -> None:
             del pool
             torch.cuda.empty_cache()
             pool = int8_pool(16)
+            # D2's int8 paged prefill at pages of 16 (tiles straddle pages)
+            table = cut(pool.block_table, kv_mixed, 16)
+            q = randn(16, 64, 32, D)
+            check_close(torch, "attention_prefill_paged_int8",
+                        attention.attention(
+                            q, pool.k, pool.v, mixed_start, kv_mixed,
+                            layer=31, table=table, kernels="cuda",
+                            **planes(pool)),
+                        attention.attention(
+                            q, pool.k, pool.v, mixed_start, kv_mixed,
+                            layer=31, table=table, kernels="torch",
+                            **planes(pool)), results,
+                        "B16 T64 mixed step kv_len 1-808 page 16")
         kv_len = torch.cat([ints([1, S]), torch.randint(
             2, S, (14,), generator=gen, device=dev, dtype=torch.int32)])
         table = cut(pool.block_table, kv_len, page)
@@ -1415,8 +1476,9 @@ def phase_paged_vs_slot(torch, dev, model: str, quant: dict, prompts,
         f"{prefill_s:.3f} s (first use of each shape); decode "
         f"{step_ms:.3f} ms/step at B={B}, card busy {busy_ms:.3f} ms/step "
         f"(idle {1 - busy_ms / step_ms:.3f})")
-    say("  paged decode step, device ms by kernel: " + "; ".join(
-        f"{_short(name)} {ms:.3f}" for ms, name in per_kernel[:8]))
+    say(f"  paged decode step, device ms by group: {_groups(per_kernel)}; "
+        "by kernel: " + "; ".join(f"{_short(name)} {ms:.3f}"
+                                  for ms, name in per_kernel[:8]))
     same_ids = rp.token_ids == rs.token_ids
     say(f"  paged vs slot: prefill logits torch.equal {torch.equal(lp, ls)} "
         f"(max abs diff {(lp - ls).abs().max().item():.3e}); "

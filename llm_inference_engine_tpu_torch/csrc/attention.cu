@@ -1,11 +1,8 @@
-// Kernel D: causal attention of bf16 queries against the stacked,
-// token-major bf16 KV cache, with online softmax in f32.
+// Kernel D, decode modes: single-token attention of bf16 queries against
+// the stacked, token-major bf16 KV cache, with online softmax in f32.
+// The prefill modes (`_attn_kernel`) are kernel D2, attention_prefill.cu.
 //
-// Replaces three TPU kernels of the JAX package:
-//   - llm_inference_engine_tpu/ops/attention.py `_attn_kernel` (launched
-//     by `_attention_pallas`, slot or paged index map): flash attention for
-//     prefill, chunked prefill and mixed steps (WRITE_NEW = false, after
-//     kernel C or H has written the chunk);
+// Replaces two TPU kernels of the JAX package:
 //   - llm_inference_engine_tpu/ops/attention.py `_decode_fused_mxu_kernel`
 //     (launched by `_attention_decode_fused_mxu`): single-token decode
 //     that writes the new K/V row and attends in one kernel
@@ -22,32 +19,32 @@
 // (the JAX package's tests use 16, the engine 64) and a tile may straddle
 // pages. Only keys below hi <= kv_len[b] are loaded, so no table entry at
 // or past ceil(kv_len[b] / page) is ever read: those point at the scratch
-// page 0. The paged modes change addressing only; their summation order is
-// the slot modes', so a paged engine reproduces a slot engine bit for bit.
+// page 0. The paged mode changes addressing only; its summation order is
+// the slot mode's, so a paged engine reproduces a slot engine bit for bit.
 //
-// Semantics (all modes). q [B, T, H, D]; out [B, T, H, D]. Query row
-// (t, h) sits at position p = q_start[b] + t and attends key j iff
-// j < kv_len[b], j <= p, and (window > 0) j > p - window, using kv head
-// h / G (G = H / K, GQA). Rows with no visible key give 0.
+// Semantics. q [B, 1, H, D]; out [B, 1, H, D]. Query row h sits at
+// position p = q_start[b] and attends key j iff j < kv_len[b], j <= p,
+// and (window > 0) j > p - window, using kv head h / G (G = H / K, GQA).
+// Rows with no visible key give 0.
 // In the fused decode mode the block of (b, kv head) first copies that
-// head's new
-// K/V row into the cache at q_start[b] when kv_len[b] > q_start[b]
-// (inactive rows write nothing), synchronises, and then attends; the
-// block that writes a row is its only reader, so there is no race.
+// head's new K/V row into the cache at q_start[b] when kv_len[b] >
+// q_start[b] (inactive rows write nothing), synchronises, and then
+// attends; the block that writes a row is its only reader, so there is no
+// race.
 //
-// Bound: at decode the kernel streams the whole valid cache once per
-// step, so it is bound by HBM bytes; at long prefill it is bound by the
-// QK^T and PV FLOPs. This first design is simple and right rather than
-// fast: scalar f32 FMAs (no wgmma, no TMA). What it does about the
-// bounds: K/V tiles are staged once per block in shared memory with
-// coalesced 16-byte loads and reused by every query row of the block (all
-// G query heads of a kv head and up to 32 query rows at prefill); the
-// scale and log2(e) are folded into q once; a row's softmax state stays
-// in registers; key tiles outside [lo, hi) of the block (causal end,
-// kv_len, window start) are never read. At decode, the 8 warps of a block
+// Bound: the kernel streams the whole valid cache once per step, so it is
+// bound by HBM bytes. This first design is simple and right rather than
+// fast: scalar f32 FMAs (no wgmma, no TMA). What it does about the bound:
+// K/V tiles are staged once per block in shared memory with coalesced
+// 16-byte loads and reused by every query row of the block (all G query
+// heads of a kv head); the scale and log2(e) are folded into q once; a
+// row's softmax state stays in registers; key tiles outside [lo, hi) of
+// the block (kv_len, window start) are never read. The 8 warps of a block
 // split each 256-key tile between them and merge their partial softmax
 // states at the end, so one block per (sequence, kv head) keeps 256
-// threads loading.
+// threads loading. (The template keeps the general row-block shape of the
+// former prefill mode; it is left byte for byte, since nvcc's code for
+// the fused decode proved sensitive to neutral edits.)
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -338,14 +335,6 @@ int dispatch(const Params& p, int D, cudaStream_t stream) {
   }
 }
 
-// Prefill launch shape: 32 query rows per block, two warps per row
-// (64-key tiles).
-void prefill_shape(Params& p) {
-  p.G = p.H / p.K;
-  p.ksplit = 2;
-  p.rows_per_block = (kWarps / p.ksplit) * kMaxRowsPerWarp;   // 32
-}
-
 // Decode launch shape: one block per (sequence, kv head) holding the G
 // query heads of that kv head, and as many warps per row as the group
 // leaves free (8 rows per warp max). Returns false if G is too large.
@@ -380,27 +369,6 @@ Params paged_params(const void* q, const void* k_pool, const void* v_pool,
 
 }  // namespace
 
-// Prefill / chunked prefill over the slot cache.
-extern "C" int attention_prefill(const void* q, const void* k_cache,
-                                 const void* v_cache, void* out,
-                                 const int* q_start, const int* kv_len,
-                                 int layer, int B, int T, int H, int K, int S,
-                                 int D, float sm_scale, int window,
-                                 void* stream) {
-  Params p{};
-  p.q = (const __nv_bfloat16*)q;
-  p.k_cache = (__nv_bfloat16*)k_cache;
-  p.v_cache = (__nv_bfloat16*)v_cache;
-  p.out = (__nv_bfloat16*)out;
-  p.q_start = q_start;
-  p.kv_len = kv_len;
-  p.layer = layer; p.B = B; p.T = T; p.H = H; p.K = K; p.S = S;
-  prefill_shape(p);
-  p.scale_log2 = sm_scale * kLog2e;
-  p.window = window;
-  return dispatch<false, false>(p, D, (cudaStream_t)stream);
-}
-
 // Decode (T == 1) over the slot cache with the new token's K/V write.
 extern "C" int attention_decode(const void* q, const void* k_new,
                                 const void* v_new, void* k_cache,
@@ -422,21 +390,6 @@ extern "C" int attention_decode(const void* q, const void* k_new,
   p.scale_log2 = sm_scale * kLog2e;
   p.window = window;
   return dispatch<true, false>(p, D, (cudaStream_t)stream);
-}
-
-// Prefill / chunked prefill / mixed steps over the paged pool.
-extern "C" int attention_prefill_paged(const void* q, const void* k_pool,
-                                       const void* v_pool, void* out,
-                                       const int* q_start, const int* kv_len,
-                                       const int* table, int layer, int B,
-                                       int T, int H, int K, int P, int page,
-                                       int max_pages, int D, float sm_scale,
-                                       int window, void* stream) {
-  Params p = paged_params(q, k_pool, v_pool, out, q_start, kv_len, table,
-                          layer, B, T, H, K, P, page, max_pages, sm_scale,
-                          window);
-  prefill_shape(p);
-  return dispatch<false, true>(p, D, (cudaStream_t)stream);
 }
 
 // Attend-only decode (T == 1) over the paged pool: kernel H has written

@@ -1,22 +1,22 @@
-// Kernel D, int8 modes: causal attention of bf16 queries against the
-// int8 KV cache (slot [L, B, S, K, D] or pool [L, P, page, K, D]) with f32
-// scale planes [.., K] beside the values, online softmax in f32.
+// Kernel D, int8 decode modes: single-token attention of bf16 queries
+// against the int8 KV cache (slot [L, B, S, K, D] or pool
+// [L, P, page, K, D]) with f32 scale planes [.., K] beside the values,
+// online softmax in f32. The int8 prefill modes (`_attn_kernel`) are
+// kernel D2, attention_prefill.cu.
 //
-// Replaces the int8 modes of three TPU kernels of the JAX package
-// (llm_inference_engine_tpu/ops/attention.py): `_attn_kernel` (prefill,
-// chunked prefill, mixed steps; slot or paged index map), the embedded-
-// scale mode of `_decode_fused_mxu_kernel` (single-token decode that writes
-// the new row and attends, slot cache) and the int8 mode of
-// `_decode_mxu_kernel` (attend-only decode through the block table).
+// Replaces the int8 modes of two TPU kernels of the JAX package
+// (llm_inference_engine_tpu/ops/attention.py): the embedded-scale mode of
+// `_decode_fused_mxu_kernel` (single-token decode that writes the new row
+// and attends, slot cache) and the int8 mode of `_decode_mxu_kernel`
+// (attend-only decode through the block table).
 //
-// The design, addressing, row semantics and launch shapes are kernel D's
-// bf16 ones (attention.cu): one block per (query-row block, kv head,
-// sequence), K/V tiles staged once per block in shared memory, softmax
-// state in registers, the 8 warps of a decode block splitting each
-// 256-key tile. The bf16 modes keep their own source: nvcc's code for
-// them proved sensitive to small changes of a shared template (the fused
-// bf16 decode ran ~50% slower), so the int8 modes are a template of their
-// own. What differs:
+// The design, addressing, row semantics and launch shape are kernel D's
+// bf16 decode ones (attention.cu): one block per (sequence, kv head), K/V
+// tiles staged once per block in shared memory, softmax state in
+// registers, the 8 warps of a block splitting each 256-key tile. The bf16
+// modes keep their own source: nvcc's code for them proved sensitive to
+// small changes of a shared template (the fused bf16 decode ran ~50%
+// slower), so the int8 modes are a template of their own. What differs:
 //   - A tile's int8 values are converted to bf16 (exact, |v| <= 127) as
 //     they are staged into shared memory, with the tile's k and v scales
 //     beside them. The plane holds the final f32 scale, so the absmax and
@@ -31,14 +31,15 @@
 //     attends the token in its dequantized form, as the JAX fused kernel
 //     attends its packed row.
 //   - RPW, the query rows a warp holds: 8, or 1 where the launch shape
-//     gives each warp one row (decode with G = 1, MHA), which shrinks the
-//     per-row loops to one iteration without changing a row's sums.
-// Paged and slot modes share launch shapes and summation order, so a paged
-// int8 engine reproduces a slot int8 engine (snapped) bit for bit.
+//     gives each warp one row (G = 1, MHA), which shrinks the per-row
+//     loops to one iteration without changing a row's sums.
+// The paged and slot modes share launch shape and summation order, so a
+// paged int8 engine reproduces a slot int8 engine (snapped) bit for bit.
+// (The template keeps the general row-block shape of the former prefill
+// mode, left byte for byte.)
 //
-// Bound: at decode, HBM bytes (int8 values plus 4 bytes per (token, head)
-// of scale, about half the bf16 bytes); at long prefill, the QK^T and PV
-// operations, on scalar f32 FMAs here (no wgmma, no TMA).
+// Bound: HBM bytes (int8 values plus 4 bytes per (token, head) of scale,
+// about half the bf16 bytes), on scalar f32 FMAs here (no wgmma, no TMA).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -358,14 +359,6 @@ int dispatch(const Params& p, int D, cudaStream_t stream) {
   }
 }
 
-// Prefill launch shape: 32 query rows per block, two warps per row
-// (64-key tiles), as the bf16 prefill.
-void prefill_shape(Params& p) {
-  p.G = p.H / p.K;
-  p.ksplit = 2;
-  p.rows_per_block = (kWarps / p.ksplit) * kMaxRowsPerWarp;   // 32
-}
-
 // Decode launch shape, as the bf16 decode: one block per (sequence, kv
 // head) holding its G query heads. Returns false if G is too large.
 bool decode_shape(Params& p) {
@@ -403,21 +396,6 @@ Params paged(Params p, const int* table, int P, int page, int max_pages) {
 
 }  // namespace
 
-// Prefill / chunked prefill over the int8 slot cache.
-extern "C" int attention_prefill_int8(const void* q, const void* k_cache,
-                                      const void* v_cache, void* k_scale,
-                                      void* v_scale, void* out,
-                                      const int* q_start, const int* kv_len,
-                                      int layer, int B, int T, int H, int K,
-                                      int S, int D, float sm_scale,
-                                      int window, void* stream) {
-  Params p = make_params(q, k_cache, v_cache, k_scale, v_scale, out,
-                         q_start, kv_len, layer, B, T, H, K, S, sm_scale,
-                         window);
-  prefill_shape(p);
-  return dispatch<false, false, false>(p, D, (cudaStream_t)stream);
-}
-
 // Decode (T == 1) over the int8 slot cache: the new token's K/V rows are
 // quantized (snapped != 0: log2-snapped scales, else absmax / 127) and
 // written with their scales, then attended.
@@ -437,20 +415,6 @@ extern "C" int attention_decode_int8(const void* q, const void* k_new,
   if (!decode_shape(p)) return (int)cudaErrorInvalidValue;
   return snapped ? dispatch<true, false, true>(p, D, (cudaStream_t)stream)
                  : dispatch<true, false, false>(p, D, (cudaStream_t)stream);
-}
-
-// Prefill / chunked prefill / mixed steps over the int8 paged pool.
-extern "C" int attention_prefill_paged_int8(
-    const void* q, const void* k_pool, const void* v_pool, void* k_scale,
-    void* v_scale, void* out, const int* q_start, const int* kv_len,
-    const int* table, int layer, int B, int T, int H, int K, int P, int page,
-    int max_pages, int D, float sm_scale, int window, void* stream) {
-  Params p = paged(make_params(q, k_pool, v_pool, k_scale, v_scale, out,
-                               q_start, kv_len, layer, B, T, H, K,
-                               page * max_pages, sm_scale, window),
-                   table, P, page, max_pages);
-  prefill_shape(p);
-  return dispatch<false, true, false>(p, D, (cudaStream_t)stream);
 }
 
 // Attend-only decode (T == 1) over the int8 paged pool, after kernel H's

@@ -10,12 +10,15 @@ Port of ``llm_inference_engine_tpu/ops/attention.py`` over the slot cache
   scales); over a pool, :func:`attention_paged_torch` gathers the table
   (values and planes) into a dense view first, as the JAX package's golden
   does;
-- :func:`attention` (prefill, chunked prefill, mixed steps) runs kernel D
-  (``csrc/attention.cu``, ``csrc/attention_int8.cu``) in place of the TPU
-  kernel ``_attn_kernel``: ``attention_prefill`` on the slot cache,
-  ``attention_prefill_paged`` (through :func:`attention_prefill_paged`)
-  with ``table=`` given, and their int8 modes (:func:`attention_int8`,
+- :func:`attention` (prefill, chunked prefill, mixed steps) runs kernel
+  D2 (``csrc/attention_prefill.cu``, a flash-attention kernel on the
+  tensor cores) in place of the TPU kernel ``_attn_kernel``:
+  ``attention_prefill`` on the slot cache, ``attention_prefill_paged``
+  (through :func:`attention_prefill_paged`) with ``table=`` given, and
+  their int8 modes (:func:`attention_int8`,
   :func:`attention_prefill_paged_int8`) when scale planes are given;
+  kernel D (``csrc/attention.cu``, ``csrc/attention_int8.cu``) keeps the
+  decode modes below;
 - :func:`attention_decode_fused` (one new token per sequence, slot cache)
   runs kernel D in decode mode (``attention_decode``, int8:
   :func:`attention_decode_fused_int8`) in place of the TPU kernel

@@ -33,6 +33,7 @@ from llm_inference_engine_tpu_torch.models import llama
 from llm_inference_engine_tpu_torch.models.registry import create_engine
 from llm_inference_engine_tpu_torch.models.weights import (
     init_dummy_params, param_bytes, param_count, params_from_numpy)
+from llm_inference_engine_tpu_torch.ops import _native
 from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
 from llm_inference_engine_tpu_torch.runtime.engine import InferenceEngine
 
@@ -289,6 +290,56 @@ if "-shared" in args and "LINK_ERROR" in text:
     sys.exit("fake nvcc: link error")
 open(out, "w").write(text)
 """
+
+
+def _c_entry_points():
+    """{name: [ctypes type per parameter]} of every ``extern "C" int
+    name(...)`` in csrc/*.cu, and the names defined more than once."""
+    import ctypes
+    import re
+    found, twice = {}, []
+    for src in sorted(_native.CSRC.glob("*.cu")):
+        text = src.read_text()
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text):
+            params = [p.strip() for p in m.group(2).split(",") if p.strip()]
+            types = [ctypes.c_void_p if "*" in p
+                     else ctypes.c_longlong if p.startswith("long long")
+                     else ctypes.c_float if p.startswith("float")
+                     else ctypes.c_int if p.startswith("int") else p
+                     for p in params]
+            if m.group(1) in found:
+                twice.append(m.group(1))
+            found[m.group(1)] = types
+    return found, twice
+
+
+@pytest.mark.parametrize("name", sorted(_native._SIGNATURES))
+def test_native_entry_point_matches_its_signature(name):
+    """Before any build on the card: each entry point that ``_native``
+    binds is defined exactly once across csrc/*.cu, with the parameter
+    types its ctypes signature lists (a pointer as c_void_p, int, float,
+    long long), in order."""
+    found, twice = _c_entry_points()
+    assert name in found, f"{name} is defined in no csrc/*.cu"
+    assert name not in twice, f"{name} is defined more than once"
+    assert found[name] == _native._SIGNATURES[name]
+
+
+def test_chip_smoke_sources_exist_and_entry_points_are_bound():
+    """Every source that chip_smoke.py names for a kernel row exists, and
+    every C entry point of csrc/*.cu has a ctypes signature."""
+    import importlib.util
+    root = Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location("chip_smoke_sources",
+                                                  root / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)       # standard library only at load
+    assert set(smoke.SOURCES) == set(smoke.REPLACES)
+    for name, (route, path) in smoke.SOURCES.items():
+        assert route in ("cuda", "triton"), name
+        assert (root / path).is_file(), f"{name}: {path} missing"
+    found, _ = _c_entry_points()
+    assert set(found) == set(_native._SIGNATURES)
 
 
 @pytest.mark.parametrize("fault", [None, "COMPILE_ERROR", "LINK_ERROR"])

@@ -81,14 +81,41 @@ def _qkv(cuda, L, B, T, H, K, S, D):
     return q, kc, vc
 
 
-@pytest.mark.parametrize("K,G,D,window", [(4, 1, 128, None), (2, 4, 128, None),
-                                          (2, 4, 128, 70), (3, 2, 64, None)])
-def test_prefill_attention_kernel(cuda, K, G, D, window):
-    L, B, T, S = 2, 4, 77, 300
-    q, kc, vc = _qkv(cuda, L, B, T, K * G, K, S, D)
-    q_start = torch.tensor([0, 5, 150, 223], device=cuda, dtype=torch.int32)
-    kv_len = q_start + torch.tensor([77, 40, 1, 0], device=cuda,
-                                    dtype=torch.int32)
+# Prefill cases of kernel D2: (T, S, q_start, new rows per sequence). The
+# first is a ragged 77-row chunk (a row of 1 and one of 0 new rows); the
+# others reach kv_len 2048 (32 tiles of 64 keys, so the copy ring wraps
+# many times) from 130 rows and from 1 row.
+CHUNK = (77, 300, [0, 5, 150, 223], [77, 40, 1, 0])
+LONG = (130, 2048, [0, 5, 1024, 1918], [130, 70, 1, 130])
+ONE_ROW = (1, 2048, [0, 5, 1024, 2047], [1, 0, 1, 1])
+
+
+def _case(*args, D=None, lens=CHUNK, tag=""):
+    """A parametrize case: ``args``, then ``D`` where given, then ``lens``.
+    Its id is ``args`` joined, then ``tag``, so the original cases keep
+    their ids."""
+    values = args + (() if D is None else (D,)) + (lens,)
+    return pytest.param(*values, id="-".join(map(str, args)) + tag)
+
+
+def _lens(cuda, lens):
+    T, S, starts, new = lens
+    q_start = torch.tensor(starts, device=cuda, dtype=torch.int32)
+    return T, S, q_start, q_start + torch.tensor(new, device=cuda,
+                                                 dtype=torch.int32)
+
+
+@pytest.mark.parametrize("K,G,D,window,lens", [
+    _case(4, 1, 128, None), _case(2, 4, 128, None), _case(2, 4, 128, 70),
+    _case(3, 2, 64, None),
+    _case(4, 8, 128, None, lens=LONG, tag="-long"),
+    _case(2, 8, 64, 100, lens=LONG, tag="-long"),   # window starts mid-tile
+    _case(8, 1, 128, 300, lens=LONG, tag="-long"),
+    _case(4, 8, 128, None, lens=ONE_ROW, tag="-one-row"),
+    _case(2, 4, 64, 70, lens=ONE_ROW, tag="-one-row")])
+def test_prefill_attention_kernel(cuda, K, G, D, window, lens):
+    T, S, q_start, kv_len = _lens(cuda, lens)
+    q, kc, vc = _qkv(cuda, 2, 4, T, K * G, K, S, D)
     got = attention.attention(q, kc, vc, q_start, kv_len, layer=1,
                               window=window, kernels="cuda")
     want = attention.attention_torch(q, kc, vc, q_start, kv_len, layer=1,
@@ -96,11 +123,89 @@ def test_prefill_attention_kernel(cuda, K, G, D, window):
     torch.testing.assert_close(got, want, **TOL)
 
 
-def test_prefill_attention_empty_rows_are_zero(cuda):
-    q, kc, vc = _qkv(cuda, 1, 2, 9, 4, 4, 64, 128)
+@pytest.mark.parametrize("mode", ["slot", "paged", "int8", "paged-int8"])
+def test_prefill_attention_empty_rows_are_zero(cuda, mode):
+    """kv_len 0 (no visible key) gives exact zeros in every D2 mode."""
+    q = torch.randn(2, 9, 4, 128, device=cuda, dtype=torch.bfloat16)
     zero = torch.zeros(2, device=cuda, dtype=torch.int32)
-    out = attention.attention(q, kc, vc, zero, zero, layer=0, kernels="cuda")
+    if mode.startswith("paged"):
+        c = (_int8_pool if mode == "paged-int8" else _paged_pool)(
+            cuda, 1, 2, 4, 16, 4, 128)
+        kw = dict(table=c.block_table)
+    elif mode == "int8":
+        c = _int8_slot(cuda, 1, 2, 64, 4, 128, False)
+        kw = {}
+    else:
+        c = kvc.KVCache(*_qkv(cuda, 1, 2, 9, 4, 4, 64, 128)[1:], zero)
+        kw = {}
+    if mode.endswith("int8"):
+        kw.update(_planes(c))
+    out = attention.attention(q, c.k, c.v, zero, zero, layer=0,
+                              kernels="cuda", **kw)
     assert torch.equal(out, torch.zeros_like(out))
+
+
+def _poison_slot(c, kv_len):
+    """NaN into every row at or past kv_len of each sequence: the values of
+    a bf16 cache, the scales of an int8 one."""
+    names = ("k_scale", "v_scale") if c.k_scale is not None else ("k", "v")
+    for name in names:
+        t = getattr(c, name)
+        for b, n in enumerate(kv_len.tolist()):
+            t[:, b, n:] = float("nan")
+
+
+def _poison_pool(c, kv_len, page):
+    """NaN into every pool row that no key below kv_len maps to: the pages
+    not in the table (page 0 included) and the tails of the last used
+    pages; table entries past the used pages point at page 0."""
+    used = (kv_len.long() + page - 1) // page
+    cols = torch.arange(c.block_table.shape[1], device=kv_len.device)
+    c.block_table[cols[None, :] >= used[:, None]] = 0
+    keep = torch.zeros(c.k.shape[1], page, dtype=torch.bool,
+                       device=kv_len.device)
+    for b, n in enumerate(kv_len.tolist()):
+        j = torch.arange(n, device=kv_len.device)
+        keep[c.block_table[b, j // page].long(), j % page] = True
+    names = ("k_scale", "v_scale") if c.k_scale is not None else ("k", "v")
+    for name in names:
+        getattr(c, name)[:, ~keep] = float("nan")
+
+
+@pytest.mark.parametrize("mode", ["slot", "paged", "int8", "paged-int8"])
+@pytest.mark.parametrize("lens", [CHUNK, LONG], ids=["chunk", "long"])
+def test_prefill_attention_ignores_poisoned_tail(cuda, mode, lens):
+    """Every cache row at or past kv_len, and every pool page outside the
+    table, holds NaN (values, or an int8 cache's scales): D2 must read
+    none of it, and its zero-filled tail rows must stay zero, so it agrees
+    with the plain version on a clean copy."""
+    T, S, q_start, kv_len = _lens(cuda, lens)
+    K, G, D, page = 2, 4, 128, 16
+    q = torch.randn(4, T, K * G, D, device=cuda, dtype=torch.bfloat16)
+    if mode.startswith("paged"):
+        c = (_int8_pool if mode == "paged-int8" else _paged_pool)(
+            cuda, 2, 4, S // page + 1, page, K, D)
+    elif mode == "int8":
+        c = _int8_slot(cuda, 2, 4, S, K, D, True)
+    else:
+        c = kvc.KVCache(*_qkv(cuda, 2, 4, 1, 1, K, S, D)[1:], q_start)
+    clean = [None if t is None else t.clone()
+             for t in (c.k, c.v, c.k_scale, c.v_scale)]
+    kw = {}
+    if mode.startswith("paged"):
+        _poison_pool(c, kv_len, page)
+        kw = dict(table=c.block_table)
+    else:
+        _poison_slot(c, kv_len)
+    got = attention.attention(q, c.k, c.v, q_start, kv_len, layer=1,
+                              kernels="cuda", **kw,
+                              **(_planes(c) if c.k_scale is not None else {}))
+    want = attention.attention(q, clean[0], clean[1], q_start, kv_len,
+                               layer=1, kernels="torch", **kw,
+                               **({} if clean[2] is None else dict(
+                                   k_scale=clean[2], v_scale=clean[3])))
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **TOL)
 
 
 @pytest.mark.parametrize("K,G,window", [(8, 1, None), (4, 4, None),
@@ -323,18 +428,23 @@ def test_paged_write_kernel(cuda, page):
     assert not used[0]
 
 
-@pytest.mark.parametrize("page,K,G,window", [(16, 2, 4, None),
-                                             (64, 4, 1, None),
-                                             (16, 2, 4, 70)])
-def test_paged_prefill_attention_kernel(cuda, page, K, G, window):
-    from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
-    L, B, T, D, maxp = 2, 4, 77, 128, 300 // page + 2
+@pytest.mark.parametrize("page,K,G,window,D,lens", [
+    _case(16, 2, 4, None, D=128), _case(64, 4, 1, None, D=128),
+    _case(16, 2, 4, 70, D=128),
+    _case(16, 4, 8, None, D=64, lens=LONG, tag="-d64-long"),
+    _case(16, 2, 8, 100, D=128, lens=LONG, tag="-long"),
+    _case(64, 4, 2, None, D=64, lens=ONE_ROW, tag="-d64-one-row")])
+def test_paged_prefill_attention_kernel(cuda, page, K, G, window, D, lens):
+    """D2's paged mode; lens CHUNK keeps the original q_start [0, 5, 150,
+    2 * page]."""
+    T, S, q_start, kv_len = _lens(cuda, lens)
+    if lens is CHUNK:
+        q_start[3] = 2 * page
+        kv_len = q_start + torch.tensor(CHUNK[3], device=cuda,
+                                        dtype=torch.int32)
+    L, B, maxp = 2, 4, S // page + 2
     cache = _paged_pool(cuda, L, B, maxp, page, K, D)
     q = torch.randn(B, T, K * G, D, device=cuda, dtype=torch.bfloat16)
-    q_start = torch.tensor([0, 5, 150, 2 * page], device=cuda,
-                           dtype=torch.int32)
-    kv_len = q_start + torch.tensor([77, 40, 1, 0], device=cuda,
-                                    dtype=torch.int32)
     _cut_table(cache, kv_len, page)
     want = attention.attention_paged_torch(
         q, cache.k.nan_to_num(), cache.v.nan_to_num(), q_start, kv_len, 1,
@@ -530,15 +640,17 @@ def test_kv_write_quant_kernel(cuda, K, D, snapped):
     assert torch.equal(caches[0].k[2, 3], before[2, 3])
 
 
-@pytest.mark.parametrize("K,G,window", [(4, 1, None), (2, 4, None),
-                                        (2, 4, 70)])
-def test_int8_prefill_attention_kernel(cuda, K, G, window):
-    L, B, T, S, D = 2, 4, 77, 300, 128
+@pytest.mark.parametrize("K,G,window,D,lens", [
+    _case(4, 1, None, D=128), _case(2, 4, None, D=128),
+    _case(2, 4, 70, D=128),
+    _case(4, 8, None, D=64, lens=LONG, tag="-d64-long"),
+    _case(2, 8, 100, D=128, lens=LONG, tag="-long"),
+    _case(8, 1, None, D=64, lens=ONE_ROW, tag="-d64-one-row")])
+def test_int8_prefill_attention_kernel(cuda, K, G, window, D, lens):
+    T, S, q_start, kv_len = _lens(cuda, lens)
+    L, B = 2, 4
     c = _int8_slot(cuda, L, B, S, K, D, False)
     q = torch.randn(B, T, K * G, D, device=cuda, dtype=torch.bfloat16)
-    q_start = torch.tensor([0, 5, 150, 223], device=cuda, dtype=torch.int32)
-    kv_len = q_start + torch.tensor([77, 40, 1, 0], device=cuda,
-                                    dtype=torch.int32)
     n0 = attention.attention_int8.launches
     got = attention.attention(q, c.k, c.v, q_start, kv_len, layer=1,
                               window=window, kernels="cuda", **_planes(c))
@@ -607,20 +719,25 @@ def test_paged_int8_write_kernel(cuda, page):
     assert torch.equal(cache.k[:, ~used], before[:, ~used])
 
 
-@pytest.mark.parametrize("page,K,G,window", [(16, 2, 4, None),
-                                             (64, 4, 1, None),
-                                             (16, 2, 4, 70)])
-def test_paged_int8_attention_kernels(cuda, page, K, G, window):
-    """Kernel D's int8 paged prefill and attend-only decode against the
-    plain paged versions; no table entry past kv_len's pages is read (page
-    0's scales are NaN)."""
-    L, B, T, D, maxp = 2, 4, 77, 128, 1000 // page + 1
+@pytest.mark.parametrize("page,K,G,window,D,lens", [
+    _case(16, 2, 4, None, D=128), _case(64, 4, 1, None, D=128),
+    _case(16, 2, 4, 70, D=128),
+    _case(16, 4, 8, None, D=64, lens=LONG, tag="-d64-long"),
+    _case(16, 2, 8, 100, D=64, lens=LONG, tag="-d64-long"),
+    _case(64, 8, 1, None, D=128, lens=ONE_ROW, tag="-one-row")])
+def test_paged_int8_attention_kernels(cuda, page, K, G, window, D, lens):
+    """D2's int8 paged prefill and kernel D's attend-only int8 decode
+    against the plain paged versions; no table entry past kv_len's pages is
+    read (page 0's scales are NaN). Lens CHUNK keeps the original q_start
+    [0, 5, 150, 2 * page]."""
+    T, S, q_start, kv_len = _lens(cuda, lens)
+    if lens is CHUNK:
+        q_start[3] = 2 * page
+        kv_len = q_start + torch.tensor(CHUNK[3], device=cuda,
+                                        dtype=torch.int32)
+    L, B, maxp = 2, 4, max(1000, S) // page + 1
     cache = _int8_pool(cuda, L, B, maxp, page, K, D)
     q = torch.randn(B, T, K * G, D, device=cuda, dtype=torch.bfloat16)
-    q_start = torch.tensor([0, 5, 150, 2 * page], device=cuda,
-                           dtype=torch.int32)
-    kv_len = q_start + torch.tensor([77, 40, 1, 0], device=cuda,
-                                    dtype=torch.int32)
     dec_len = torch.tensor([1, page, page + 1, 999], device=cuda,
                            dtype=torch.int32)
     _cut_int8_table(cache, torch.maximum(kv_len, dec_len), page)

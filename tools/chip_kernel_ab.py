@@ -1,0 +1,95 @@
+#!/usr/bin/env python3
+"""Time kernel D's rows of ``chip_smoke.py`` in two checkouts, in turns, on
+one CUDA card (an H100).
+
+    python3 tools/chip_kernel_ab.py PARENT_ROOT [CHANGE_ROOT]
+
+PARENT_ROOT and CHANGE_ROOT (default: this checkout) are roots of the
+repository, e.g. a parent commit unpacked with ``git archive`` into a
+directory that ``.gitignore`` lists. For each root in the order parent,
+change, change, parent, a fresh process builds that root's kernels from
+its own sources into its own build directory and runs that root's
+``chip_smoke.py`` kernel phases 3, 3c and 3d: every kernel is held against
+its plain version there and timed with CUDA events at the main path's
+shapes. The script prints each run's attention rows (kernel ms of the
+first timed case of each row, as in the ``kernels`` line of
+``chip_smoke.py``), then one JSON line with every run's times and, per
+row, the mean of the change's runs over the mean of the parent's. It
+fails where there is no card.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent.parent
+
+
+def one(root: Path) -> dict:
+    """Run the kernel phases of ``root``'s chip_smoke.py in this process;
+    return {row: kernel ms} of its attention rows."""
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_kernel_ab: no CUDA device")
+    sys.path.insert(0, str(root))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", root / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    from llm_inference_engine_tpu_torch.ops import _native
+    if Path(_native.__file__).resolve().parents[2] != root:
+        raise SystemExit(f"chip_kernel_ab: imported {_native.__file__}, "
+                         f"not the package of {root}")
+    _native.library()
+    dev = torch.device("cuda", 0)
+    results: dict = {}
+    for fn in (smoke.phase_kernels, smoke.phase_paged_kernels,
+               smoke.phase_kv_int8_kernels):
+        fn(torch, dev, results)
+    return {name: r["ms"] for name, r in results.items()
+            if name.startswith("attention") and "ms" in r}
+
+
+def main(argv) -> int:
+    if len(argv) >= 2 and argv[0] == "--one":
+        print(json.dumps(one(Path(argv[1]).resolve())), flush=True)
+        return 0
+    if len(argv) not in (1, 2):
+        raise SystemExit(__doc__)
+    parent = Path(argv[0]).resolve()
+    change = Path(argv[1]).resolve() if len(argv) == 2 else HERE
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"card: {smi}", flush=True)
+    runs = []
+    for tag, root in (("parent", parent), ("change", change),
+                      ("change", change), ("parent", parent)):
+        proc = subprocess.run([sys.executable, __file__, "--one", str(root)],
+                              capture_output=True, text=True, cwd=root)
+        if proc.returncode != 0:
+            sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
+            raise SystemExit(f"chip_kernel_ab: the {tag} run failed")
+        ms = json.loads(proc.stdout.strip().splitlines()[-1])
+        runs.append((tag, ms))
+        print(f"{tag} ({root}): " + "; ".join(
+            f"{k} {v:.4f} ms" for k, v in ms.items()), flush=True)
+    ratio = {}
+    for name in runs[0][1]:
+        mean = {tag: sum(ms[name] for t, ms in runs if t == tag) / 2
+                for tag in ("parent", "change")}
+        ratio[name] = mean["change"] / mean["parent"]
+        print(f"  {name:30s} parent {mean['parent']:.4f} ms, change "
+              f"{mean['change']:.4f} ms, change / parent "
+              f"{ratio[name]:.4f}", flush=True)
+    print(json.dumps({"card": smi, "runs": runs, "change_over_parent": ratio}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
