@@ -15,12 +15,18 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    card, at Llama2-7B shapes, with its time beside the plain version's
    (CUDA events, after warm-up): A-C, kernel D2 (the prefill modes:
    B4 T512, GQA with and without a window, G = 8 against kv_len 2048)
-   and kernel D's fused decode, then E and F (fused dequant-matmul, INT4
-   and INT8) and G (INT4 dequantize, bit-identical), then (3c) H (the
-   paged write) and D2's paged mode (a B=16, T=64 mixed step, then
-   8 x 512) and D's attend-only paged decode over a pool of page 64 with
-   a random page permutation, the mixed step and the decode case again
-   at page 16;
+   and kernel D's fused decode (split-KV over a cluster; B4, then the
+   engine's B8, kv_len of one tile and one tile + 1, G = 7 with a
+   window), then E and F (fused dequant-matmul, INT4 and INT8) and G
+   (INT4 dequantize, bit-identical), then (3c) H (the paged write) and
+   D2's paged mode (a B=16, T=64 mixed step, then 8 x 512) and D's
+   attend-only paged decode over a pool of page 64 with a random page
+   permutation, the mixed step and the decode case again at page 16, and
+   a G = 7 paged decode, then both bf16 decode modes at G = 4, 7 and 8
+   at the engine's B8, timed; every decode row prints kernel D's split
+   plan (blocks a cluster, tile, stages, shared memory, blocks an SM
+   holds), and D2's tiling of every head dim is printed; the decode rows
+   are held per row (DECODE_ROW_TOL);
 4. the main paths, each through ``create_engine`` with dummy weights (seed
    0) at full width and depth, with every launch counter set to 0 just
    before the path and read just after, and a rerun of round 1 with
@@ -61,9 +67,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
       bytes (~2x the pages): 4e's wave 1;
    (3d, before 4: kernel I, H's int8 mode, D2's and D's int8 modes
    against their plain versions at 7B widths, in both scale numerics, the
-   decode modes held per row, DECODE_ROW_TOL; 4j runs after 4g, before
-   4d); every profiled step and prefill prints its device time by kernel
-   group (KERNEL_GROUPS);
+   decode modes held per row; then at head_dim 80, 96
+   and 256, at small shapes, D's four decode modes, D2's four prefill
+   modes and I's two writes; 4j runs after 4g, before 4d); every
+   profiled step and prefill prints its device time by kernel group
+   (KERNEL_GROUPS);
 5. one JSON line of kernel results (each with its time, its plain
    version's, its bound from this run's inputs and, where one PyTorch call
    computes the same function, that call's time), the nvidia-smi line,
@@ -99,10 +107,11 @@ KERNEL_VS_F32 = 1.5
 # bf16 kernel outputs vs plain: one bf16 ulp apart at most, plus f32 sums
 # taken in another order.
 KERNEL_TOL = dict(atol=2e-2, rtol=2e-2)
-# The int8 decode modes' outputs at long contexts are averages of many
-# random V rows, a few hundredths in size, where KERNEL_TOL's atol would
-# hide a mask off by one. There each element is held to one bf16 ulp of
-# itself (at most 2^-7 of it) plus 2^-5 of its (token, head) row's RMS.
+# The decode modes' outputs (bf16 and int8) at long contexts are averages
+# of many random V rows, a few hundredths in size, where KERNEL_TOL's atol
+# would hide a key dropped or read twice (a mask off by one, a split
+# slice's edge). There each element is held to one bf16 ulp of itself (at
+# most 2^-7 of it) plus 2^-5 of its (token, head) row's RMS.
 DECODE_ROW_TOL = 2.0 ** -5
 # int8 KV writes vs plain: bit for bit expected (the same CUDA log2f/exp2f
 # and IEEE divide); otherwise no looser than the CPU tests' limits against
@@ -144,19 +153,19 @@ SOURCES = {
     "silu_and_mul": _TRITON,
     "kv_write": ("cuda", "llm_inference_engine_tpu_torch/csrc/kv_write.cu"),
     "attention_prefill": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention_prefill.cu"),
-    "attention_decode": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention.cu"),
+    "attention_decode": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention_decode.cu"),
     "int4_matmul": ("cuda", "llm_inference_engine_tpu_torch/csrc/quant_matmul.cu"),
     "int8_matmul": ("cuda", "llm_inference_engine_tpu_torch/csrc/quant_matmul.cu"),
     "dequant_int4": _TRITON,
     "paged_kv_write": ("cuda", "llm_inference_engine_tpu_torch/csrc/paged_kv_write.cu"),
     "attention_prefill_paged": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention_prefill.cu"),
-    "attention_decode_paged": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention.cu"),
+    "attention_decode_paged": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention_decode.cu"),
     "kv_write_quant": ("cuda", "llm_inference_engine_tpu_torch/csrc/kv_write_quant.cu"),
     "attention_prefill_int8": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention_prefill.cu"),
-    "attention_decode_int8": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention_int8.cu"),
+    "attention_decode_int8": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention_decode.cu"),
     "paged_kv_write_int8": ("cuda", "llm_inference_engine_tpu_torch/csrc/kv_write_quant.cu"),
     "attention_prefill_paged_int8": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention_prefill.cu"),
-    "attention_decode_paged_int8": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention_int8.cu"),
+    "attention_decode_paged_int8": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention_decode.cu"),
 }
 # the main path whose launch count each kernel reports
 PATH_OF = {name: "bf16" for name in REPLACES}
@@ -390,10 +399,70 @@ def slot_rows(starts, new_len, T, S):
     return [list(x) for x in zip(*pairs)]
 
 
+def say_plan(attention, tag, B, H, K, D, **kw) -> None:
+    """Print kernel D's split plan for a decode row's launch."""
+    plan = attention.decode_plan(B, H, K, D, **kw)
+    say(f"  decode plan {tag}: " + ", ".join(f"{k} {v}"
+                                             for k, v in plan.items()))
+
+
+def fused_decode_case(torch, attention, results, case, randn, ints, *, B, H,
+                      K, D, S, q_start, active, window=None, int8=False,
+                      timed=False, fill=None):
+    """Kernel D's fused decode (``attention_decode``, or with ``int8`` an
+    int8 cache in both numerics, ``attention_decode_int8``) against the
+    plain version on a copy of a random two-layer slot cache at layer 1:
+    the writes bit for bit, the output per row (DECODE_ROW_TOL). ``timed``
+    prints the kernel's time and returns it (the JSON line keeps each
+    row's first timed case)."""
+    from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
+    q_start, kv_len = ints(q_start), ints(q_start) + ints(active)
+    q, kn, vn = randn(B, 1, H, D), randn(B, 1, K, D), randn(B, 1, K, D)
+    cache = kvc.new_kv_cache(2, B, K, S, D, device=q.device, quantized=int8)
+    if int8:
+        fill(cache)
+    else:
+        cache.k.copy_(randn(2, B, S, K, D))
+        cache.v.copy_(randn(2, B, S, K, D))
+    name = "attention_decode_int8" if int8 else "attention_decode"
+    ms = None
+    for snapped in ((True, False) if int8 else (False,)):
+        ref = dataclasses.replace(cache, **{
+            n: getattr(cache, n).clone()
+            for n in ("k", "v", "k_scale", "v_scale")
+            if getattr(cache, n) is not None})
+        planes = (dict(k_scale=cache.k_scale, v_scale=cache.v_scale,
+                       snapped=snapped) if int8 else {})
+        ref_planes = (dict(k_scale=ref.k_scale, v_scale=ref.v_scale,
+                           snapped=snapped) if int8 else {})
+        run = lambda: attention.attention_decode_fused(  # noqa: E731
+            q, kn, vn, cache.k, cache.v, q_start, kv_len, 1, window=window,
+            kernels="cuda", **planes)[0]
+        got = run()
+        want = attention.attention_decode_fused_torch(
+            q, kn, vn, ref.k, ref.v, q_start, kv_len, 1, window=window,
+            **ref_planes)[0]
+        torch.cuda.synchronize()
+        for n in ("k", "v", "k_scale", "v_scale"):
+            if getattr(cache, n) is not None and not torch.equal(
+                    getattr(cache, n), getattr(ref, n)):
+                raise AssertionError(f"{name} [{case}]: the fused write of "
+                                     f"{n} differs from the plain write")
+        tag = case + (f" {'snapped' if snapped else 'absmax'}" if int8
+                      else "")
+        if timed:
+            ms = ms or time_ms(torch, run)
+            tag += f" kernel {ms:.4f} ms (printed only)"
+        check_close(torch, name, got, want, results, tag + " (write bit for "
+                    "bit)", row_rel=DECODE_ROW_TOL)
+    return ms
+
+
 def phase_kernels(torch, dev, results) -> None:
     import torch.nn.functional as F
 
-    from llm_inference_engine_tpu_torch.ops import activations, attention
+    from llm_inference_engine_tpu_torch.ops import _native, activations
+    from llm_inference_engine_tpu_torch.ops import attention
     from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
     from llm_inference_engine_tpu_torch.ops import rmsnorm
 
@@ -474,6 +543,12 @@ def phase_kernels(torch, dev, results) -> None:
                                                  ints(picked).long())))
     del ref
 
+    # D2's tiling of every instance (the paged modes tile alike)
+    for d in _native.HEAD_DIMS:
+        for int8 in (False, True):
+            say(f"  prefill plan D{d}{' int8' if int8 else ''}: " + ", ".join(
+                f"{k} {v}" for k, v in attention.prefill_plan(
+                    d, int8=int8).items()))
     # D prefill: the chunk above attends its random history + itself
     q = randn(B, T, 32, D)
     q_start = starts
@@ -490,6 +565,7 @@ def phase_kernels(torch, dev, results) -> None:
                                 kv_len))
 
     # D decode: row 0 has no history, row 2 is inactive
+    say_plan(attention, "B4 H32 K32 D128", B, 32, K, D)
     dq_start = ints([0, 700, 1300, 2047])
     dkv_len = dq_start + ints([1, 1, 0, 1])
     q1, k1, v1 = randn(B, 1, 32, D), randn(B, 1, K, D), randn(B, 1, K, D)
@@ -513,7 +589,8 @@ def phase_kernels(torch, dev, results) -> None:
                 work=attn_work([0, 700, 1300, 2047], [1, 701, 1300, 2048], 1,
                                32, K, D, new_rows=3 * 2 * K * D * 2 * 2),
                 library=sdpa_ms(torch, q1, kc[31], vc[31], dq_start,
-                                dkv_len))
+                                dkv_len),
+                row_rel=DECODE_ROW_TOL)
     del cache, kc, vc
 
     # D at GQA widths (H=32, K=8, as in llama3-8b), without and with a
@@ -538,8 +615,25 @@ def phase_kernels(torch, dev, results) -> None:
         if not (torch.equal(kc, kc2) and torch.equal(vc, vc2)):
             raise AssertionError(f"attention_decode [{tag}]: cache differs")
         check_close(torch, "attention_decode", got, want, results,
-                    f"B4 H32 {tag}")
+                    f"B4 H32 {tag}", row_rel=DECODE_ROW_TOL)
     del kc, vc, kc2, vc2
+    # D decode at the engine's B = 8 shape (4b's decode contexts), at
+    # kv_len of one 32-key tile and one tile + 1, and at G = 7 (H = 28,
+    # K = 4, qwen2-7b's group) with a window starting inside a tile
+    hist = [p + 16 + f + 16 for p, f in zip(QUANT_PROMPTS, QUANT_FOLLOW)]
+    say_plan(attention, "B8 H32 K32 D128", 8, 32, 32, D)
+    fused_decode_case(torch, attention, results, "B8 H32 K32 4b contexts "
+                      f"{min(hist)}-{max(hist)}", randn, ints, B=8, H=32,
+                      K=32, D=D, S=S, q_start=hist, active=[1] * 8,
+                      timed=True)
+    fused_decode_case(torch, attention, results, "B4 kv_len 1, 32, 33, 65",
+                      randn, ints, B=4, H=32, K=32, D=D, S=S,
+                      q_start=[0, 31, 32, 64], active=[1] * 4)
+    say_plan(attention, "B4 H28 K4 D128", B, 28, 4, D)
+    fused_decode_case(torch, attention, results, "B4 G7 H28 K4 window 300",
+                      randn, ints, B=4, H=28, K=4, D=D, S=S,
+                      q_start=[0, 700, 1300, 2047], active=[1, 1, 0, 1],
+                      window=300)
     # D2 at G = 8 (H=32, K=4): 130 rows against kv_len up to 2048 (32
     # tiles, the copy ring wraps), once with a window that starts inside a
     # tile
@@ -707,7 +801,7 @@ def _short(kernel_name: str) -> str:
 # device time by group of kernels (profiler names, first match wins):
 # kernel D2 (the prefill modes), kernel D (the decode modes), E/F, cuBLAS
 KERNEL_GROUPS = (("D2", ("attention_prefill_kernel",)),
-                 ("D", ("attention_kernel", "attention_int8_kernel")),
+                 ("D", ("attention_decode_kernel",)),
                  ("E/F", ("quant_matmul_kernel",)),
                  ("cuBLAS", ("nvjet", "gemm", "cutlass", "xmma")))
 
@@ -1044,6 +1138,8 @@ def phase_paged_kernels(torch, dev, results) -> None:
             2, S, (B - 2,), generator=gen, device=dev, dtype=torch.int32)])
         table = cut(cache.block_table, kv_len, page)
         q = randn(B, 1, 32, D)
+        say_plan(attention, f"paged B{B} H32 K32 D128 page {page}", B, 32, K,
+                 D, page=page, max_pages=table.shape[1])
         run = lambda kern: attention.attention_decode(  # noqa: E731
             q, cache.k, cache.v, kv_len - 1, kv_len, 31, table=table,
             kernels=kern)
@@ -1054,7 +1150,8 @@ def phase_paged_kernels(torch, dev, results) -> None:
                     results, f"B{B} page {page} {tag} "
                     f"{kv_bytes / ms / 1e6:.0f} GB/s", (ms, plain_ms),
                     work=attn_work((kv_len - 1).tolist(), kv_len.tolist(), 1,
-                                   32, K, D))
+                                   32, K, D),
+                    row_rel=DECODE_ROW_TOL)
 
     cache = pool(16, 64)
     # H: 8 page-aligned 64-row chunks and 8 decode rows at odd offsets in
@@ -1137,8 +1234,86 @@ def phase_paged_kernels(torch, dev, results) -> None:
         kernels="torch"), results, "B16 T64 mixed step kv_len 1-808 page 16")
     decode_case(cache, 16, "kv_len 1-2048")
     del cache, q
+    torch.cuda.empty_cache()
+    # D paged decode at G = 7 (H = 28, K = 4), pages of 16, kv_len 1, one
+    # tile, one tile + 1 and 2048, a window starting inside a tile
+    pool4 = pkv.PagedKVCache(randn(2, 1 + 4 * 128, 16, 4, D),
+                             randn(2, 1 + 4 * 128, 16, 4, D),
+                             (torch.randperm(4 * 128, generator=gen,
+                                             device=dev) + 1)
+                             .to(torch.int32).reshape(4, 128), ints([0] * 4))
+    kv_len = ints([1, 32, 33, S])
+    table = cut(pool4.block_table, kv_len, 16)
+    q = randn(4, 1, 28, D)
+    say_plan(attention, "paged B4 H28 K4 D128 page 16", 4, 28, 4, D, page=16,
+             max_pages=128)
+    check_close(torch, "attention_decode_paged", attention.attention_decode(
+        q, pool4.k, pool4.v, kv_len - 1, kv_len, 1, table=table, window=300,
+        kernels="cuda"), attention.attention_decode(
+        q, pool4.k, pool4.v, kv_len - 1, kv_len, 1, table=table, window=300,
+        kernels="torch"), results,
+        "B4 G7 H28 K4 page 16 kv_len 1, 32, 33, 2048 window 300",
+        row_rel=DECODE_ROW_TOL)
+    del pool4, q
+    torch.cuda.empty_cache()
+    for H, Kg in GQA_WIDTHS:
+        say_plan(attention, f"G{H // Kg} B8 H{H} K{Kg} D128", 8, H, Kg, D)
+    gqa_decode_cases(torch, dev, results)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+
+
+# Kernel D's bf16 decode at GQA widths (H, K), timed: G = 4 (llama3-8b,
+# mistral-7b), 7 (qwen2-7b), 8
+GQA_WIDTHS = ((32, 8), (28, 4), (32, 4))
+
+
+def gqa_decode_cases(torch, dev, results) -> dict:
+    """Kernel D's bf16 decode modes at GQA_WIDTHS, D = 128, at the engine's
+    B = 8 and 4b's decode contexts: the fused decode over a two-layer slot
+    cache and the attend-only decode over a pool of page 64 with a random
+    page permutation, each held against its plain version per row
+    (DECODE_ROW_TOL) and printed with its time. Returns {row: kernel ms};
+    ``tools/chip_kernel_ab.py`` times another tree's kernels through this
+    function, so it calls only the wrappers every tree has."""
+    from llm_inference_engine_tpu_torch.ops import attention
+
+    gen = torch.Generator(device=dev).manual_seed(77)
+    D, S, page, B = 128, 2048, 64, 8
+    maxp, hist = S // page, [p + 16 + f + 16
+                             for p, f in zip(QUANT_PROMPTS, QUANT_FOLLOW)]
+
+    def ints(vals):
+        return torch.tensor(vals, device=dev, dtype=torch.int32)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    q_start = ints(hist)
+    kv_len = q_start + 1
+    out = {}
+    for H, K in GQA_WIDTHS:
+        tag = f"G{H // K} B8 H{H} K{K}"
+        out[f"attention_decode {tag}"] = fused_decode_case(
+            torch, attention, results, f"{tag} 4b contexts {min(hist)}-"
+            f"{max(hist)}", randn, ints, B=B, H=H, K=K, D=D, S=S,
+            q_start=hist, active=[1] * B, timed=True)
+        P = 1 + B * maxp
+        kp, vp = randn(2, P, page, K, D), randn(2, P, page, K, D)
+        table = (torch.randperm(P - 1, generator=gen, device=dev) + 1).to(
+            torch.int32).reshape(B, maxp)
+        q = randn(B, 1, H, D)
+        run = lambda kern: attention.attention_decode(  # noqa: E731
+            q, kp, vp, q_start, kv_len, 1, table=table, kernels=kern)
+        ms = time_ms(torch, lambda: run("cuda"))
+        out[f"attention_decode_paged {tag}"] = ms
+        check_close(torch, "attention_decode_paged", run("cuda"),
+                    run("torch"), results, f"{tag} page {page} 4b contexts "
+                    f"kernel {ms:.4f} ms (printed only)",
+                    row_rel=DECODE_ROW_TOL)
+        del kp, vp
+    return out
 
 
 # 4b's and 4g's prompts and follow-ups: the first prefill chunk is 8 x 512
@@ -1252,6 +1427,7 @@ def phase_kv_int8_kernels(torch, dev, results) -> None:
     q_start, kv_len = ints(hist), ints([h + (i != 2)
                                         for i, h in enumerate(hist)])
     q1, k1, v1 = randn(8, 1, 32, D), randn(8, 1, K, D), randn(8, 1, K, D)
+    say_plan(attention, "int8 B8 H32 K32 D128", 8, 32, K, D, int8=True)
     for snapped in (True, False):
         cache.snapped = snapped
         ref = layer_copy(cache)
@@ -1359,6 +1535,8 @@ def phase_kv_int8_kernels(torch, dev, results) -> None:
             2, S, (14,), generator=gen, device=dev, dtype=torch.int32)])
         table = cut(pool.block_table, kv_len, page)
         q = randn(16, 1, 32, D)
+        say_plan(attention, f"int8 paged B16 H32 K32 D128 page {page}", 16,
+                 32, K, D, int8=True, page=page, max_pages=table.shape[1])
         run = lambda kern: attention.attention_decode(  # noqa: E731
             q, pool.k, pool.v, kv_len - 1, kv_len, 31, table=table,
             kernels=kern, **planes(pool))
@@ -1373,8 +1551,121 @@ def phase_kv_int8_kernels(torch, dev, results) -> None:
                                    32, K, D, kv_elem=1),
                     row_rel=DECODE_ROW_TOL)
     del pool
+    torch.cuda.empty_cache()
+    for head_dim in (80, 96, 256):
+        head_dim_kernels(torch, dev, results, head_dim, gen, fill)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+
+
+def head_dim_kernels(torch, dev, results, D, gen, fill) -> None:
+    """Kernel D's four decode modes, D2's four prefill modes and kernel
+    I's two writes at head_dim D (80, 96 or 256: no Llama2-7B width, so
+    small shapes: B = 4, S = 512, H = 28, K = 4, G = 7, pages of 16),
+    each against its plain version; the writes bit for bit."""
+    from llm_inference_engine_tpu_torch.ops import attention
+    from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
+    from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+
+    B, S, H, K, page = 4, 512, 28, 4, 16
+    maxp = S // page
+
+    def ints(vals):
+        return torch.tensor(vals, device=dev, dtype=torch.int32)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    def pool(int8):
+        P = 1 + B * maxp
+        c = pkv.new_paged_kv_cache(2, B, K, P, page, D, maxp, device=dev,
+                                   quantized=int8)
+        if int8:
+            fill(c)
+        else:
+            c.k.copy_(randn(*c.k.shape))
+            c.v.copy_(randn(*c.v.shape))
+        c.block_table.copy_((torch.randperm(P - 1, generator=gen,
+                                            device=dev) + 1)
+                            .to(torch.int32).reshape(B, maxp))
+        return c
+
+    def planes(c):
+        return ({} if c.k_scale is None
+                else dict(k_scale=c.k_scale, v_scale=c.v_scale))
+
+    tag = f"D{D} B4 H28 K4"
+    say_plan(attention, tag, B, H, K, D)
+    # decode: the fused slot modes, then the attend-only paged modes
+    for int8 in (False, True):
+        fused_decode_case(torch, attention, results, f"{tag} kv_len 1, 32, "
+                          "33, 512, row 2 inactive", randn, ints, B=B, H=H,
+                          K=K, D=D, S=S, q_start=[0, 31, 300, 511],
+                          active=[1, 1, 0, 1], window=None, int8=int8,
+                          fill=fill)
+    kv_len = ints([1, 32, 33, S])
+    q1 = randn(B, 1, H, D)
+    for int8 in (False, True):
+        c = pool(int8)
+        name = "attention_decode_paged_int8" if int8 else \
+            "attention_decode_paged"
+        run = lambda kern: attention.attention_decode(  # noqa: E731
+            q1, c.k, c.v, kv_len - 1, kv_len, 1, table=c.block_table,
+            window=200, kernels=kern, **planes(c))
+        check_close(torch, name, run("cuda"), run("torch"), results,
+                    f"{tag} page {page} kv_len 1, 32, 33, 512 window 200",
+                    row_rel=DECODE_ROW_TOL)
+    # D2: a 64-row chunk (ragged) in the four prefill modes
+    q_start, new = ints([0, 100, 300, 448]), ints([64, 37, 1, 64])
+    kv_len = q_start + new
+    q = randn(B, 64, H, D)
+    slot = kvc.new_kv_cache(2, B, K, S, D, device=dev)
+    slot.k.copy_(randn(2, B, S, K, D))
+    slot.v.copy_(randn(2, B, S, K, D))
+    slot8 = fill(kvc.new_kv_cache(2, B, K, S, D, device=dev, quantized=True))
+    for name, c, table in (("attention_prefill", slot, None),
+                           ("attention_prefill_int8", slot8, None),
+                           ("attention_prefill_paged", pool(False), True),
+                           ("attention_prefill_paged_int8", pool(True),
+                            True)):
+        kw = dict(table=c.block_table) if table else {}
+        run = lambda kern: attention.attention(  # noqa: E731
+            q, c.k, c.v, q_start, kv_len, layer=1, kernels=kern, **kw,
+            **planes(c))
+        check_close(torch, name, run("cuda"), run("torch"), results,
+                    f"{tag} T64 kv_len 64-512")
+    # I: slot (both numerics) and paged, bit for bit
+    kn, vn = randn(B, 64, K, D), randn(B, 64, K, D)
+    kn[0, 0, 0] = 0.0
+    for snapped in (True, False):
+        slot8.snapped = snapped
+        ref = dataclasses.replace(slot8, k=slot8.k.clone(),
+                                  v=slot8.v.clone(),
+                                  k_scale=slot8.k_scale.clone(),
+                                  v_scale=slot8.v_scale.clone())
+        kvc.update_cache_at_layer(slot8, 1, kn, vn, q_start, new,
+                                  kernels="cuda")
+        kvc.update_cache_at_layer_torch(ref, 1, kn, vn, q_start, new)
+        torch.cuda.synchronize()
+        for v, sc in (("k", "k_scale"), ("v", "v_scale")):
+            hold_int8_write(torch, "kv_write_quant", (getattr(slot8, v)[1],
+                            getattr(slot8, sc)[1]), (getattr(ref, v)[1],
+                                                     getattr(ref, sc)[1]),
+                            results, f"{tag} T64 "
+                            f"{'snapped' if snapped else 'absmax'} {v}")
+    c = pool(True)
+    ref = dataclasses.replace(c, k=c.k.clone(), v=c.v.clone(),
+                              k_scale=c.k_scale.clone(),
+                              v_scale=c.v_scale.clone())
+    pkv.paged_update_at_layer(c, 1, kn, vn, q_start, new, kernels="cuda")
+    pkv.paged_update_at_layer_torch(ref, 1, kn, vn, q_start, new)
+    torch.cuda.synchronize()
+    for v, sc in (("k", "k_scale"), ("v", "v_scale")):
+        hold_int8_write(torch, "paged_kv_write_int8", (getattr(c, v)[1],
+                        getattr(c, sc)[1]), (getattr(ref, v)[1],
+                                             getattr(ref, sc)[1]),
+                        results, f"{tag} T64 page {page} {v}")
 
 
 def _zero_counters():

@@ -1,0 +1,717 @@
+// Kernel D: single-token decode attention of bf16 queries against the
+// stacked KV cache, split along the keys over a thread-block cluster
+// (flash-decoding), in all four decode modes: the fused write + attend over
+// the slot cache and the attend-only decode over the paged pool, each with a
+// bf16 or an int8 cache. The prefill modes are kernel D2
+// (attention_prefill.cu).
+//
+// Replaces two TPU kernels of the JAX package
+// (llm_inference_engine_tpu/ops/attention.py):
+//   - `_decode_fused_mxu_kernel` (launched by `_attention_decode_fused_mxu`):
+//     write the token's K/V row into the slot cache, then attend
+//     (WRITE_NEW; an int8 cache gets the row quantized with kernel I's row
+//     quantizer, kv_quant.cuh, in the numerics `snapped` picks);
+//   - `_decode_mxu_kernel` (launched by `_attention_decode_mxu` with a block
+//     table): attend-only decode over the paged pool, after kernel H wrote
+//     the token (PAGED).
+//
+// Semantics. q [B, 1, H, D]; out [B, 1, H, D]. Query head h sits at position
+// p = q_start[b] and attends key j iff j < kv_len[b], j <= p and, with a
+// window W > 0, j > p - W, using kv head h / G (G = H / K). All heads of a
+// sequence share p, so they see the same keys [lo, hi): lo = max(0, p - W +
+// 1) (0 without a window), hi = min(kv_len[b], p + 1). A head with no
+// visible key gives 0. The fused modes first write the token at p when
+// kv_len[b] > p and 0 <= p < S (inactive rows write nothing). The cache is
+// the slot cache [L, B, S, K, D] or the pool [L, P, page, K, D] with a block
+// table [B, max_pages] (key j of sequence b at page table[b, j / page], row
+// j % page); bf16, or int8 with f32 scale planes [.., K] holding each
+// (token, head) row's final scale.
+//
+// Bound: HBM bytes. A decode step reads each sequence's visible keys once
+// (2 K/V rows of D values per key and kv head) and does 4 D operations per
+// key and query head, far below the card's ratio of operations to bytes.
+// The design keeps enough bytes in flight on every SM:
+//   - Split-KV over a cluster. Each (sequence, kv head, block of up to R
+//     query heads) is a cluster of `nsplit` blocks along the keys. Block r
+//     takes a contiguous, tile-aligned slice of [lo, hi), computed on the
+//     card from kv_len, q_start and the window, and keeps a softmax state
+//     (m, l, acc) per query head. Rank 0 merges the blocks' states in rank
+//     order through distributed shared memory, so the merge is one launch,
+//     needs no workspace and no atomics, and is deterministic. The split
+//     plan (nsplit, tile) depends on B, K, G, D and the SM count only,
+//     never on S, the page size or kv_len: tiles start at the slice's lo,
+//     never at a page boundary, so a paged instance sums in the slot
+//     instance's order and a paged engine reproduces a slot engine bit for
+//     bit.
+//   - A cp.async ring of kStages tiles of kKeys keys: the next tile's K/V
+//     (and an int8 tile's scales, in the same group as its values) is in
+//     flight while a tile is consumed. Two stages of 32 keys, with about
+//     kTargetBlocksPerSm = 8 blocks an SM in the grid, timed fastest on
+//     the H100 of the plans tried (tools/decode_plan_sweep.py, PERF.md):
+//     small blocks keep 6 (bf16) or 10 (int8) of them resident an SM.
+//     Keys at or past the slice's end are zero-filled (src-size 0), never
+//     left stale. In the paged modes the
+//     slice's table entries are staged in shared memory once, before the
+//     ring starts, so no K/V copy waits on a table load.
+//   - Parallel P V on the CUDA cores. A warp takes kKeys / kWarps keys of
+//     each tile, a few at a time: lane (group, c) holds query values
+//     [8c, 8c + 8) of each head in registers and owns output columns
+//     [8c, 8c + 8) for the keys of its lane group. A score is one 8-wide
+//     product per lane and a shuffle sum over the group; every lane weighs
+//     its own V columns, with no serial loop over keys. int8 values are
+//     converted in registers as they are consumed; the k scale multiplies
+//     the score, the v scale the softmax weight before it weighs V (the row
+//     sum l takes the unscaled weight), the placement of the JAX kernels.
+//   - One warp's state is merged over its lane groups with shuffles, a
+//     block's warps through shared memory, then the cluster as above.
+// The kernel allocates nothing, does not synchronise with the host and
+// never reads kv_len on the host, so a CUDA graph can capture it.
+
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "kv_quant.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kKeys = 32;            // keys of one tile
+constexpr int kStages = 2;           // tiles in the cp.async ring
+constexpr int kKeysPerWarp = kKeys / kWarps;
+constexpr int kMaxSplit = 8;         // the portable cluster size
+constexpr int kTargetBlocksPerSm = 8;
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct Params {
+  const __nv_bfloat16* q;        // [B, 1, H, D]
+  const __nv_bfloat16* k_new;    // [B, 1, K, D] (WRITE_NEW)
+  const __nv_bfloat16* v_new;
+  void* k_cache;                 // [L, B, S, K, D] or pool [L, P, page, K, D]
+  void* v_cache;                 // bf16, or int8 (INT8)
+  float* k_scale;                // INT8: [L, B, S, K] or [L, P, page, K]
+  float* v_scale;
+  __nv_bfloat16* out;            // [B, 1, H, D]
+  const int* q_start;            // [B]
+  const int* kv_len;             // [B]
+  const int* table;              // [B, max_pages] (PAGED)
+  int layer, B, H, K, S, G;
+  int P, page, max_pages;        // paged pool geometry
+  int nsplit;                    // blocks of a cluster along the keys
+  int rows;                      // R: query heads a block (1, 4 or 8)
+  int row_blocks;                // blocks of R query heads per kv head
+  int table_max;                 // table entries a slice can span (PAGED)
+  float scale_log2;              // sm_scale * log2(e)
+  int window;                    // 0 = no sliding window
+  int snapped;                   // INT8 && WRITE_NEW: snapped scale numerics
+};
+
+// Lanes of a warp: lane = group * kLanes + c. Lane c < kChunks of a group
+// holds 8 consecutive values [8c, 8c + 8) of the D-wide rows; a group
+// handles one key at a time, kGroups keys side by side.
+template <int D>
+struct Lanes {
+  static constexpr int kChunks = D / 8;
+  static constexpr int kLanes = kChunks <= 8 ? 8 : kChunks <= 16 ? 16 : 32;
+  static constexpr int kGroups = 32 / kLanes;
+  static_assert(D % 8 == 0 && kChunks <= 32, "head_dim a multiple of 8, <= 256");
+  static_assert(kKeysPerWarp % kGroups == 0, "a warp's keys fill its groups");
+};
+
+// Shared memory of one block (bytes): the ring (K and V tiles, int8 scales
+// beside them), then the slice's table entries; after the loop the ring
+// holds the warps' states and the block's merged state.
+template <int D, int R, bool INT8>
+struct Layout {
+  static constexpr int kRowBytes = INT8 ? D : 2 * D;
+  static constexpr int kTileBytes = kKeys * kRowBytes;
+  static constexpr int kStageBytes = 2 * kTileBytes + (INT8 ? 2 * kKeys * 4 : 0);
+  static constexpr int kRing = kStages * kStageBytes;
+  static constexpr int kState = R * (D + 2);           // floats: acc, m, l
+  static constexpr int kMerge = (kWarps + 1) * kState * 4;
+  static constexpr int kBytes = kRing > kMerge ? kRing : kMerge;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16- or 4-byte copy into shared memory; !valid zero-fills it and reads
+// nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 8 bf16 values -> f32 (exact)
+__device__ __forceinline__ void bf16x8_to_f32(const uint4& raw, float* f) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// 8 int8 values -> f32 (exact): byte b ^ 0x80 as the low mantissa byte of
+// 2^23, minus 2^23 + 128
+__device__ __forceinline__ void int8x8_to_f32(const uint2& raw, float* f) {
+  const uint32_t w[2] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u};
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    f[i] = __uint_as_float(__byte_perm(w[i >> 2], 0x4b000000u,
+                                       0x7540u | (i & 3))) - 8388736.f;
+}
+
+template <int D, int R, bool PAGED, bool INT8, bool WRITE_NEW>
+__global__ void __launch_bounds__(kThreads)
+attention_decode_kernel(const Params p) {
+  static_assert(!(WRITE_NEW && PAGED), "the fused write is slot-only");
+  using Ln = Lanes<D>;
+  using Ly = Layout<D, R, INT8>;
+  constexpr int kChunks = Ln::kChunks;
+  constexpr int kLanes = Ln::kLanes;
+  constexpr int kGroups = Ln::kGroups;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* tbl_s = reinterpret_cast<int*>(smem + Ly::kBytes);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.z;
+  const int kh = blockIdx.y / p.row_blocks;
+  const int r0 = (blockIdx.y % p.row_blocks) * R;   // first query head of kh
+  const int nrows = min(R, p.G - r0);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int grp = lane / kLanes;
+  const int c = lane % kLanes;
+  const bool live = c < kChunks;
+
+  // this block's slice [k0, k1) of the visible keys [lo, hi): whole tiles
+  // from lo, split evenly over the cluster
+  const int qs = p.q_start[b];
+  const int kl = p.kv_len[b];
+  const int hi = min(min(kl, qs + 1), p.S);
+  const int lo = p.window > 0 ? max(0, qs - p.window + 1) : 0;
+  const int n_all = hi > lo ? (hi - lo + kKeys - 1) / kKeys : 0;
+  const int per = (n_all + p.nsplit - 1) / p.nsplit;
+  const int t0 = min(rank * per, n_all);
+  const int n_tiles = min(t0 + per, n_all) - t0;
+  const int k0 = lo + t0 * kKeys;
+  const int k1 = min(k0 + n_tiles * kKeys, hi);
+
+  // (token, head) row of key `key`: values at element row * D, scale at row
+  const size_t base = PAGED ? (size_t)p.layer * p.P * p.page * p.K + kh
+                            : ((size_t)p.layer * p.B + b) * p.S * p.K + kh;
+  const int pg0 = PAGED && n_tiles > 0 ? k0 / p.page : 0;
+  auto kv_row = [&](int key) -> size_t {
+    if constexpr (PAGED) {
+      return base + ((size_t)tbl_s[key / p.page - pg0] * p.page +
+                     key % p.page) * p.K;
+    } else {
+      return base + (size_t)key * p.K;
+    }
+  };
+
+  // queries of this lane's chunk, pre-scaled into the log2 domain
+  float qf[R][8];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    uint4 raw = make_uint4(0, 0, 0, 0);
+    if (live && r < nrows)
+      raw = reinterpret_cast<const uint4*>(
+          p.q + ((size_t)b * p.H + kh * p.G + r0 + r) * D)[c];
+    bf16x8_to_f32(raw, qf[r]);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) qf[r][e] *= p.scale_log2;
+  }
+
+  // the fused write: the block whose slice holds the token writes it before
+  // any tile of the slice is loaded (with G > R, the block of each row
+  // block of kh writes the same bytes)
+  if constexpr (WRITE_NEW) {
+    if (kl > qs && qs >= 0 && qs < p.S && qs >= k0 && qs < k1) {
+      const size_t src = ((size_t)b * p.K + kh) * D;
+      const size_t row = kv_row(qs);
+      if constexpr (INT8) {
+        // warp 0 quantizes and writes the k row, warp 1 the v row
+        if (warp < 2) {
+          const __nv_bfloat16* from = (warp ? p.v_new : p.k_new) + src;
+          signed char* to = static_cast<signed char*>(
+              warp ? p.v_cache : p.k_cache) + row * D;
+          float* sc = (warp ? p.v_scale : p.k_scale) + row;
+          if (p.snapped)
+            kvq::quantize_row<D, true>(from, to, sc, lane);
+          else
+            kvq::quantize_row<D, false>(from, to, sc, lane);
+        }
+      } else {
+        for (int x = tid; x < 2 * kChunks; x += kThreads) {
+          const bool is_v = x >= kChunks;
+          const int cc = x % kChunks;
+          reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(
+              is_v ? p.v_cache : p.k_cache) + row * D)[cc] =
+              reinterpret_cast<const uint4*>((is_v ? p.v_new : p.k_new) +
+                                             src)[cc];
+        }
+      }
+    }
+  }
+  // the slice's table entries, once
+  if constexpr (PAGED) {
+    const int n_pg = n_tiles > 0 ? (k1 - 1) / p.page - pg0 + 1 : 0;
+    for (int x = tid; x < n_pg; x += kThreads)
+      tbl_s[x] = p.table[(size_t)b * p.max_pages + pg0 + x];
+  }
+  __syncthreads();   // the written row and the table entries are visible
+
+  // tile i of the slice (keys k0 + kKeys i ..) into its ring stage; keys at
+  // or past k1 zero-filled
+  auto load_tile = [&](int i) {
+    const int j0 = k0 + i * kKeys;
+    unsigned char* st = smem + (i % kStages) * Ly::kStageBytes;
+    constexpr int kCopies = Ly::kRowBytes / 16;      // 16-byte copies a row
+    constexpr int kPasses = (kKeys * kCopies + kThreads - 1) / kThreads;
+    const unsigned char* kg = static_cast<const unsigned char*>(p.k_cache);
+    const unsigned char* vg = static_cast<const unsigned char*>(p.v_cache);
+#pragma unroll
+    for (int it = 0; it < kPasses; ++it) {
+      const int x = tid + it * kThreads;
+      if (kKeys * kCopies % kThreads != 0 && x >= kKeys * kCopies) break;
+      const int r = x / kCopies;
+      const int cc = x % kCopies;
+      const bool ok = j0 + r < k1;
+      const size_t off = (ok ? kv_row(j0 + r) : 0) * Ly::kRowBytes + cc * 16;
+      cp_async16(st + r * Ly::kRowBytes + cc * 16, kg + off, ok);
+      cp_async16(st + Ly::kTileBytes + r * Ly::kRowBytes + cc * 16, vg + off,
+                 ok);
+    }
+    if constexpr (INT8) {
+      // the tile's scales ride in the group of its values
+      float* ks = reinterpret_cast<float*>(st + 2 * Ly::kTileBytes);
+      if (tid < kKeys) {
+        const bool ok = j0 + tid < k1;
+        const size_t row = ok ? kv_row(j0 + tid) : 0;
+        cp_async4(ks + tid, p.k_scale + row, ok);
+        cp_async4(ks + kKeys + tid, p.v_scale + row, ok);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_tiles) load_tile(s);
+    cp_async_commit();
+  }
+
+  // softmax state of each query head: m (warp-uniform), l (this lane
+  // group's keys), acc (this lane's 8 columns, this group's keys)
+  float m[R], l[R], acc[R][8];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[r][e] = 0.f;
+  }
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();   // tile i landed for all; every warp is done with i - 1
+    if (i + kStages - 1 < n_tiles) load_tile(i + kStages - 1);
+    cp_async_commit();
+
+    const unsigned char* st = smem + (i % kStages) * Ly::kStageBytes;
+    const int j0 = k0 + i * kKeys;
+#pragma unroll
+    for (int s = 0; s < kKeysPerWarp / kGroups; ++s) {
+      const int kk = warp * kKeysPerWarp + s * kGroups + grp;   // tile key
+      const bool valid = j0 + kk < k1;
+      float kf[8], vf[8];
+      if constexpr (INT8) {
+        uint2 kr = make_uint2(0, 0), vr = make_uint2(0, 0);
+        if (live) {
+          kr = *reinterpret_cast<const uint2*>(st + kk * D + c * 8);
+          vr = *reinterpret_cast<const uint2*>(st + Ly::kTileBytes + kk * D +
+                                                c * 8);
+        }
+        int8x8_to_f32(kr, kf);
+        int8x8_to_f32(vr, vf);
+      } else {
+        uint4 kr = make_uint4(0, 0, 0, 0), vr = make_uint4(0, 0, 0, 0);
+        if (live) {
+          kr = *reinterpret_cast<const uint4*>(st + kk * 2 * D + c * 16);
+          vr = *reinterpret_cast<const uint4*>(st + Ly::kTileBytes +
+                                                kk * 2 * D + c * 16);
+        }
+        bf16x8_to_f32(kr, kf);
+        bf16x8_to_f32(vr, vf);
+      }
+      float ksc = 1.f, vsc = 1.f;
+      if constexpr (INT8) {
+        const float* sc = reinterpret_cast<const float*>(st + 2 * Ly::kTileBytes);
+        ksc = sc[kk];
+        vsc = sc[kKeys + kk];
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (r >= nrows) break;                          // block-uniform
+        float part = 0.f;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) part += qf[r][e] * kf[e];
+#pragma unroll
+        for (int o = kLanes / 2; o > 0; o >>= 1)
+          part += __shfl_xor_sync(0xffffffffu, part, o);
+        const float sc = valid ? part * ksc : -INFINITY;
+        float mx = sc;
+#pragma unroll
+        for (int o = kLanes; o < 32; o <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        const float mn = fmaxf(m[r], mx);
+        if (mn == -INFINITY) continue;                  // warp-uniform
+        if (mn > m[r]) {                                // warp-uniform
+          const float alpha = exp2f(m[r] - mn);         // 0 while m = -inf
+          l[r] *= alpha;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[r][e] *= alpha;
+          m[r] = mn;
+        }
+        const float pr = valid ? exp2f(sc - mn) : 0.f;
+        l[r] += pr;
+        const float pw = pr * vsc;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[r][e] += pw * vf[e];
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // merge the warp's lane groups (m is warp-uniform)
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int o = kLanes; o < 32; o <<= 1) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], o);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], o);
+    }
+  }
+  // the warps' states, then the block's, in the ring's space: state s of
+  // head r is acc at [s][r][0, D), m at [s][r][D], l at [s][r][D + 1]
+  __syncthreads();   // every warp is done with the ring
+  float* st_w = reinterpret_cast<float*>(smem);
+  constexpr int kSt = D + 2;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float* dst = st_w + (warp * R + r) * kSt;
+    if (grp == 0 && live) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) dst[c * 8 + e] = acc[r][e];
+    }
+    if (lane == 0) {
+      dst[D] = m[r];
+      dst[D + 1] = l[r];
+    }
+  }
+  __syncthreads();
+  float* blk = st_w + kWarps * R * kSt;
+  for (int x = tid; x < R * kSt; x += kThreads) {
+    const int r = x / kSt;
+    const int d = x % kSt;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, st_w[(w * R + r) * kSt + D]);
+    float v;
+    if (d == D) {
+      v = mx;
+    } else if (mx == -INFINITY) {
+      v = 0.f;
+    } else {
+      v = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float* src = st_w + (w * R + r) * kSt;
+        v += src[d] * exp2f(src[D] - mx);
+      }
+    }
+    blk[r * kSt + d] = v;
+  }
+
+  // rank 0 merges the cluster's states in rank order and writes out
+  cluster.sync();
+  if (rank == 0) {
+    for (int x = tid; x < nrows * D; x += kThreads) {
+      const int r = x / D;
+      const int d = x % D;
+      float mx = -INFINITY;
+      for (int s = 0; s < p.nsplit; ++s)
+        mx = fmaxf(mx, cluster.map_shared_rank(blk, s)[r * kSt + D]);
+      float o = 0.f;
+      if (mx != -INFINITY) {
+        float a = 0.f, lsum = 0.f;
+        for (int s = 0; s < p.nsplit; ++s) {
+          const float* src = cluster.map_shared_rank(blk, s) + r * kSt;
+          const float e = exp2f(src[D] - mx);
+          a += src[d] * e;
+          lsum += src[D + 1] * e;
+        }
+        o = lsum > 0.f ? a / lsum : 0.f;
+      }
+      p.out[((size_t)b * p.H + kh * p.G + r0 + r) * D + d] =
+          __float2bfloat16(o);
+    }
+  }
+  cluster.sync();    // every block's state stays until rank 0 has read it
+}
+
+// The split plan: blocks of R query heads per kv head (R = 1 at G = 1, 4
+// up to G = 4, else 8: a block's registers grow with R, so a small group
+// keeps more blocks resident), and nsplit blocks along the keys so that
+// the grid holds about kTargetBlocksPerSm blocks an SM. A function of B,
+// K, G and the SM count only.
+struct Plan {
+  int rows, row_blocks, nsplit;
+};
+
+Plan make_plan(int B, int K, int G, int sms) {
+  Plan pl;
+  pl.rows = G == 1 ? 1 : G <= 4 ? 4 : 8;
+  pl.row_blocks = (G + pl.rows - 1) / pl.rows;
+  const long long clusters = (long long)B * K * pl.row_blocks;
+  const long long want = (long long)kTargetBlocksPerSm * sms;
+  pl.nsplit = (int)max(1ll, min((long long)kMaxSplit,
+                                (want + clusters / 2) / max(clusters, 1ll)));
+  return pl;
+}
+
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      sms = 132;
+  }
+  return sms;
+}
+
+// Launch one instance with a cluster of nsplit blocks along x; with
+// `report`, launch nothing and report instead {blocks an SM holds,
+// clusters the card holds at once, dynamic shared memory a block}.
+template <int D, int R, bool PAGED, bool INT8, bool WRITE_NEW>
+int launch(const Params& p, cudaStream_t stream, int* report) {
+  auto kernel = attention_decode_kernel<D, R, PAGED, INT8, WRITE_NEW>;
+  const int smem = Layout<D, R, INT8>::kBytes + (PAGED ? 4 * p.table_max : 0);
+  static int smem_set = 0;   // the largest dynamic shared memory allowed yet
+  if (smem > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.nsplit, p.K * p.row_blocks, p.B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.nsplit;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (report) {
+    report[2] = smem;
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &report[0], kernel, kThreads, smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveClusters(&report[1], kernel, &cfg);
+    return (int)err;
+  }
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// One head_dim: the instance of the plan's query heads a block.
+template <int D, bool PAGED, bool INT8, bool WRITE_NEW>
+int run(const Params& p, cudaStream_t stream, int* report) {
+  switch (p.rows) {
+    case 1: return launch<D, 1, PAGED, INT8, WRITE_NEW>(p, stream, report);
+    case 4: return launch<D, 4, PAGED, INT8, WRITE_NEW>(p, stream, report);
+    default: return launch<D, 8, PAGED, INT8, WRITE_NEW>(p, stream, report);
+  }
+}
+
+template <bool PAGED, bool INT8, bool WRITE_NEW>
+int dispatch(const Params& p, int D, cudaStream_t stream, int* report) {
+  switch (D) {
+    case 64: return run<64, PAGED, INT8, WRITE_NEW>(p, stream, report);
+    case 80: return run<80, PAGED, INT8, WRITE_NEW>(p, stream, report);
+    case 96: return run<96, PAGED, INT8, WRITE_NEW>(p, stream, report);
+    case 128: return run<128, PAGED, INT8, WRITE_NEW>(p, stream, report);
+    case 256: return run<256, PAGED, INT8, WRITE_NEW>(p, stream, report);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+Params make_params(const void* q, void* k_cache, void* v_cache,
+                   void* k_scale, void* v_scale, void* out,
+                   const int* q_start, const int* kv_len, int layer, int B,
+                   int H, int K, int S, float sm_scale, int window) {
+  Params p{};
+  p.q = (const __nv_bfloat16*)q;
+  p.k_cache = k_cache;
+  p.v_cache = v_cache;
+  p.k_scale = (float*)k_scale;
+  p.v_scale = (float*)v_scale;
+  p.out = (__nv_bfloat16*)out;
+  p.q_start = q_start;
+  p.kv_len = kv_len;
+  p.layer = layer; p.B = B; p.H = H; p.K = K; p.S = S;
+  p.G = K > 0 ? H / K : 0;
+  const Plan pl = make_plan(B, K, p.G, sm_count());
+  p.nsplit = pl.nsplit;
+  p.rows = pl.rows;
+  p.row_blocks = pl.row_blocks;
+  p.scale_log2 = sm_scale * kLog2e;
+  p.window = window;
+  return p;
+}
+
+// The paged geometry, and the most table entries one slice can span.
+Params paged(Params p, const int* table, int P, int page, int max_pages) {
+  p.table = table;
+  p.P = P; p.page = page; p.max_pages = max_pages;
+  const int tiles = (page * max_pages + kKeys - 1) / kKeys;
+  const int slice = (tiles + p.nsplit - 1) / p.nsplit * kKeys;
+  p.table_max = page > 0 ? (slice + page - 2) / page + 1 : 0;
+  return p;
+}
+
+bool valid_shape(const Params& p) {
+  return p.B > 0 && p.K > 0 && p.H % p.K == 0 && p.G > 0;
+}
+
+}  // namespace
+
+// Decode over the bf16 slot cache with the new token's K/V write.
+extern "C" int attention_decode(const void* q, const void* k_new,
+                                const void* v_new, void* k_cache,
+                                void* v_cache, void* out, const int* q_start,
+                                const int* kv_len, int layer, int B, int H,
+                                int K, int S, int D, float sm_scale,
+                                int window, void* stream) {
+  Params p = make_params(q, k_cache, v_cache, nullptr, nullptr, out, q_start,
+                         kv_len, layer, B, H, K, S, sm_scale, window);
+  p.k_new = (const __nv_bfloat16*)k_new;
+  p.v_new = (const __nv_bfloat16*)v_new;
+  if (!valid_shape(p)) return (int)cudaErrorInvalidValue;
+  return dispatch<false, false, true>(p, D, (cudaStream_t)stream, nullptr);
+}
+
+// Attend-only decode over the bf16 paged pool, after kernel H wrote the
+// token.
+extern "C" int attention_decode_paged(const void* q, const void* k_pool,
+                                      const void* v_pool, void* out,
+                                      const int* q_start, const int* kv_len,
+                                      const int* table, int layer, int B,
+                                      int H, int K, int P, int page,
+                                      int max_pages, int D, float sm_scale,
+                                      int window, void* stream) {
+  Params p = paged(make_params(q, (void*)k_pool, (void*)v_pool, nullptr,
+                               nullptr, out, q_start, kv_len, layer, B, H, K,
+                               page * max_pages, sm_scale, window),
+                   table, P, page, max_pages);
+  if (!valid_shape(p) || page <= 0) return (int)cudaErrorInvalidValue;
+  return dispatch<true, false, false>(p, D, (cudaStream_t)stream, nullptr);
+}
+
+// Decode over the int8 slot cache: the new token's K/V rows are quantized
+// (snapped != 0: log2-snapped scales, else absmax / 127) and written with
+// their scales, then attended.
+extern "C" int attention_decode_int8(const void* q, const void* k_new,
+                                     const void* v_new, void* k_cache,
+                                     void* v_cache, void* k_scale,
+                                     void* v_scale, void* out,
+                                     const int* q_start, const int* kv_len,
+                                     int layer, int B, int H, int K, int S,
+                                     int D, float sm_scale, int window,
+                                     int snapped, void* stream) {
+  Params p = make_params(q, k_cache, v_cache, k_scale, v_scale, out, q_start,
+                         kv_len, layer, B, H, K, S, sm_scale, window);
+  p.k_new = (const __nv_bfloat16*)k_new;
+  p.v_new = (const __nv_bfloat16*)v_new;
+  p.snapped = snapped;
+  if (!valid_shape(p)) return (int)cudaErrorInvalidValue;
+  return dispatch<false, true, true>(p, D, (cudaStream_t)stream, nullptr);
+}
+
+// Attend-only decode over the int8 paged pool, after kernel H's int8 mode
+// wrote the token.
+extern "C" int attention_decode_paged_int8(
+    const void* q, const void* k_pool, const void* v_pool, void* k_scale,
+    void* v_scale, void* out, const int* q_start, const int* kv_len,
+    const int* table, int layer, int B, int H, int K, int P, int page,
+    int max_pages, int D, float sm_scale, int window, void* stream) {
+  Params p = paged(make_params(q, (void*)k_pool, (void*)v_pool, k_scale,
+                               v_scale, out, q_start, kv_len, layer, B, H, K,
+                               page * max_pages, sm_scale, window),
+                   table, P, page, max_pages);
+  if (!valid_shape(p) || page <= 0) return (int)cudaErrorInvalidValue;
+  return dispatch<true, true, false>(p, D, (cudaStream_t)stream, nullptr);
+}
+
+// The split plan of a decode launch at these shapes (paged: page and
+// max_pages > 0), for reports: out = {nsplit, query heads a block, tile
+// keys, ring stages, dynamic shared memory bytes, blocks an SM holds,
+// clusters the card holds}.
+extern "C" int attention_decode_plan(int B, int H, int K, int D, int int8,
+                                     int page, int max_pages, int* out) {
+  Params p = make_params(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                         nullptr, nullptr, 0, B, H, K, page * max_pages, 1.f,
+                         0);
+  if (!valid_shape(p)) return (int)cudaErrorInvalidValue;
+  const bool is_paged = page > 0 && max_pages > 0;
+  if (is_paged) p = paged(p, nullptr, 1, page, max_pages);
+  int occ[3] = {0, 0, 0};
+  const int err =
+      is_paged ? (int8 ? dispatch<true, true, false>(p, D, nullptr, occ)
+                       : dispatch<true, false, false>(p, D, nullptr, occ))
+               : (int8 ? dispatch<false, true, true>(p, D, nullptr, occ)
+                       : dispatch<false, false, true>(p, D, nullptr, occ));
+  out[0] = p.nsplit;
+  out[1] = p.rows;
+  out[2] = kKeys;
+  out[3] = kStages;
+  out[4] = occ[2];
+  out[5] = occ[0];
+  out[6] = occ[1];
+  return err;
+}

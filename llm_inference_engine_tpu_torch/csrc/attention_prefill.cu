@@ -5,8 +5,8 @@
 // Replaces the TPU kernel llm_inference_engine_tpu/ops/attention.py
 // `_attn_kernel` (launched by `_attention_pallas`, slot or paged index
 // map, bf16 cache or int8 cache) in all four of its modes, one template
-// <D, PAGED, INT8> for D in {64, 128}. Kernel D's decode modes stay in
-// attention.cu and attention_int8.cu.
+// <D, PAGED, INT8> for D in {64, 80, 96, 128, 256}. Kernel D's decode
+// modes are attention_decode.cu.
 //
 // Semantics (all modes). q [B, T, H, D]; out [B, T, H, D]. Query row
 // (t, h) sits at position p = q_start[b] + t and attends key j iff
@@ -40,8 +40,11 @@
 //     whose running max is still -inf keeps alpha = 1 and p = 0;
 //   - 64-key K/V tiles in a two-stage ring of dynamic shared memory filled
 //     by 16-byte cp.async.cg: tile i + 1 is in flight while tile i
-//     computes. Rows are padded by 16 bytes, so ldmatrix is free of bank
-//     conflicts. Keys at or past hi are zero-filled (src-size 0), never
+//     computes. At D = 256 the output accumulator alone takes 128
+//     registers a lane, so that instance takes 32-key tiles and reads its
+//     Q fragments from shared memory for each tile instead of holding
+//     them (ptxas reports no spills). Rows are padded by 16 bytes, so
+//     ldmatrix is free of bank conflicts. Keys at or past hi are zero-filled (src-size 0), never
 //     left stale: the mma multiplies p = 0 by whatever V holds, and
 //     0 * NaN is NaN. Tiles outside the block's key range [lo, hi) are
 //     never loaded, and the mask (kv_len, causal, window) runs only on
@@ -68,7 +71,6 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = kWarps * 16;   // query rows (t, g) of one block
-constexpr int kKeys = 64;            // keys of one tile
 constexpr int kStages = 2;           // tiles in the cp.async ring
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -88,10 +90,19 @@ struct Params {
   int window;               // 0 = no sliding window
 };
 
+// Keys of one tile, and whether a lane holds its Q fragments in registers
+// for the whole loop (else it reads them from the Q tile each tile).
+template <int D>
+struct Tile {
+  static constexpr int kKeys = D > 128 ? 32 : 64;
+  static constexpr bool kQInRegs = D <= 128;
+};
+
 // Shared memory of one block, in bytes: the Q tile (reused for the
 // output), the ring, and (INT8) the converted bf16 tiles with their scales.
 template <int D, bool INT8>
 struct Layout {
+  static constexpr int kKeys = Tile<D>::kKeys;
   static constexpr int kStride = D + 8;          // bf16 row pitch (+16 B)
   static constexpr int kTile = kKeys * kStride;  // bf16 elements of a tile
   static constexpr int kQBytes = kRows * kStride * 2;
@@ -176,6 +187,8 @@ template <int D, bool PAGED, bool INT8>
 __global__ void __launch_bounds__(kThreads, 2)
 attention_prefill_kernel(const Params p) {
   using Ly = Layout<D, INT8>;
+  constexpr int kKeys = Tile<D>::kKeys;
+  constexpr bool kQInRegs = Tile<D>::kQInRegs;
   constexpr int kStride = Ly::kStride;
   constexpr int kChunks = D / 8;     // 16-byte chunks of a bf16 row
   constexpr int kDB = D / 8;         // 8-wide output column blocks
@@ -222,43 +235,36 @@ attention_prefill_kernel(const Params p) {
     }
   };
 
-  // tile i (keys lo + 64 i ..) into its ring stage; keys >= hi zero-filled
+  // tile i (keys lo + kKeys i ..) into its ring stage; keys >= hi
+  // zero-filled. Copy x of a tile is 16 bytes of key row x / kCopies; a
+  // thread takes copies tid, tid + kThreads, .. (at D = 80 and 96 a row's
+  // copies do not divide the threads, and the last pass is partial)
   auto load_tile = [&](int i) {
     const int j0 = lo + i * kKeys;
     unsigned char* st = ring + (i % kStages) * Ly::kStageBytes;
-    if constexpr (!INT8) {
-      constexpr int kPass = kThreads / kChunks;   // rows per pass
-      const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k_cache);
-      const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v_cache);
-      __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(st);
-      __nv_bfloat16* vs = ks + Ly::kTile;
-      const int c = tid % kChunks;
+    constexpr int kCopies = INT8 ? D / 16 : D / 8;   // 16-byte copies a row
+    constexpr int kPasses = (kKeys * kCopies + kThreads - 1) / kThreads;
+    const unsigned char* kg = static_cast<const unsigned char*>(p.k_cache);
+    const unsigned char* vg = static_cast<const unsigned char*>(p.v_cache);
+    // bf16 rows at a pitch of kStride elements; int8 rows packed, then the
+    // tile's scales
+    constexpr int kPitch = INT8 ? D : 2 * kStride;
+    constexpr int kVOffset = INT8 ? kKeys * D : 2 * Ly::kTile;
+    float* ksr = reinterpret_cast<float*>(st + 2 * kKeys * D);   // INT8
+    float* vsr = ksr + kKeys;
 #pragma unroll
-      for (int it = 0; it < kKeys / kPass; ++it) {
-        const int r = tid / kChunks + it * kPass;
-        const bool ok = j0 + r < hi;
-        const size_t off = ok ? kv_row(j0 + r) * D + c * 8 : 0;
-        cp_async16(ks + r * kStride + c * 8, kg + off, ok);
-        cp_async16(vs + r * kStride + c * 8, vg + off, ok);
-      }
-    } else {
-      constexpr int kChunks8 = D / 16;             // 16-byte int8 chunks
-      constexpr int kPass = kThreads / kChunks8;
-      const signed char* kg = static_cast<const signed char*>(p.k_cache);
-      const signed char* vg = static_cast<const signed char*>(p.v_cache);
-      signed char* kr = reinterpret_cast<signed char*>(st);   // [kKeys][D]
-      signed char* vr = kr + kKeys * D;
-      float* ksr = reinterpret_cast<float*>(vr + kKeys * D);  // [kKeys]
-      float* vsr = ksr + kKeys;
-      const int c = tid % kChunks8;
-#pragma unroll
-      for (int it = 0; it < kKeys / kPass; ++it) {
-        const int r = tid / kChunks8 + it * kPass;
-        const bool ok = j0 + r < hi;
-        const size_t row = ok ? kv_row(j0 + r) : 0;
-        cp_async16(kr + r * D + c * 16, kg + row * D + c * 16, ok);
-        cp_async16(vr + r * D + c * 16, vg + row * D + c * 16, ok);
-        if (c == 0) {   // the row's scales ride with its first chunk
+    for (int it = 0; it < kPasses; ++it) {
+      const int x = tid + it * kThreads;
+      if (kKeys * kCopies % kThreads != 0 && x >= kKeys * kCopies) break;
+      const int r = x / kCopies;
+      const int c = x % kCopies;
+      const bool ok = j0 + r < hi;
+      const size_t row = ok ? kv_row(j0 + r) : 0;
+      const size_t off = row * (INT8 ? D : 2 * D) + c * 16;
+      cp_async16(st + r * kPitch + c * 16, kg + off, ok);
+      cp_async16(st + kVOffset + r * kPitch + c * 16, vg + off, ok);
+      if constexpr (INT8) {
+        if (c == 0) {   // the row's scales ride with its first copy
           cp_async4(ksr + r, p.k_scale + row, ok);
           cp_async4(vsr + r, p.v_scale + row, ok);
         }
@@ -297,7 +303,7 @@ attention_prefill_kernel(const Params p) {
   for (int d = 0; d < kDB; ++d)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
-  uint32_t qa[D / 16][4];
+  uint32_t qa[kQInRegs ? D / 16 : 1][4];
 
   // per-lane ldmatrix offsets (elements): K tiles as B of QK^T (keys as
   // rows), V tiles as B of PV (.trans), the warp's Q rows as A
@@ -310,7 +316,7 @@ attention_prefill_kernel(const Params p) {
   for (int i = 0; i < n_tiles; ++i) {
     cp_async_wait<kStages - 2>();
     __syncthreads();   // tile i landed for all; every warp is done with i - 1
-    if (i == 0) {
+    if (kQInRegs && i == 0) {
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) ldmatrix_x4(qa[kk], q_s + q_off + kk * 16);
     }
@@ -357,12 +363,19 @@ attention_prefill_kernel(const Params p) {
       for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qk[4];
+      if constexpr (kQInRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qk[e] = qa[kk][e];
+      } else {
+        ldmatrix_x4(qk, q_s + q_off + kk * 16);
+      }
 #pragma unroll
       for (int nb = 0; nb < kKeys / 16; ++nb) {
         uint32_t kb[4];
         ldmatrix_x4(kb, k_t + k_off + nb * 16 * kStride + kk * 16);
-        mma_bf16(s[2 * nb], qa[kk], kb[0], kb[1]);
-        mma_bf16(s[2 * nb + 1], qa[kk], kb[2], kb[3]);
+        mma_bf16(s[2 * nb], qk, kb[0], kb[1]);
+        mma_bf16(s[2 * nb + 1], qk, kb[2], kb[3]);
       }
     }
 
@@ -475,9 +488,17 @@ attention_prefill_kernel(const Params p) {
   }
 }
 
+// Launch one instance; with `report`, launch nothing and report instead
+// {tile keys, ring stages, dynamic shared memory a block}.
 template <int D, bool PAGED, bool INT8>
-int launch(const Params& p, cudaStream_t stream) {
+int launch(const Params& p, cudaStream_t stream, int* report = nullptr) {
   constexpr int smem = Layout<D, INT8>::kBytes;
+  if (report) {
+    report[0] = Tile<D>::kKeys;
+    report[1] = kStages;
+    report[2] = smem;
+    return 0;
+  }
   auto kernel = attention_prefill_kernel<D, PAGED, INT8>;
   static bool attr_set = false;
   if (!attr_set) {
@@ -492,10 +513,14 @@ int launch(const Params& p, cudaStream_t stream) {
 }
 
 template <bool PAGED, bool INT8>
-int dispatch(const Params& p, int D, cudaStream_t stream) {
+int dispatch(const Params& p, int D, cudaStream_t stream,
+             int* report = nullptr) {
   switch (D) {
-    case 64: return launch<64, PAGED, INT8>(p, stream);
-    case 128: return launch<128, PAGED, INT8>(p, stream);
+    case 64: return launch<64, PAGED, INT8>(p, stream, report);
+    case 80: return launch<80, PAGED, INT8>(p, stream, report);
+    case 96: return launch<96, PAGED, INT8>(p, stream, report);
+    case 128: return launch<128, PAGED, INT8>(p, stream, report);
+    case 256: return launch<256, PAGED, INT8>(p, stream, report);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -583,4 +608,13 @@ extern "C" int attention_prefill_paged_int8(
                         window),
             table, P, page, max_pages),
       D, (cudaStream_t)stream);
+}
+
+// The tiling of a prefill launch at head_dim D (int8 != 0: an int8 cache;
+// the paged modes tile alike), for reports: out = {tile keys, ring
+// stages, dynamic shared memory bytes a block}.
+extern "C" int attention_prefill_plan(int D, int int8, int* out) {
+  const Params p{};
+  return int8 ? dispatch<false, true>(p, D, nullptr, out)
+              : dispatch<false, false>(p, D, nullptr, out);
 }

@@ -111,11 +111,14 @@ using LaunchFn = int (*)(const void*, const void*, void*, void*, void*,
 
 template <bool PAGED>
 LaunchFn pick(int D, int snapped) {
-  if (D == 64) return snapped ? &launch<64, true, PAGED>
-                              : &launch<64, false, PAGED>;
-  if (D == 128) return snapped ? &launch<128, true, PAGED>
-                               : &launch<128, false, PAGED>;
-  return nullptr;
+  switch (D) {
+    case 64: return snapped ? &launch<64, true, PAGED> : &launch<64, false, PAGED>;
+    case 80: return snapped ? &launch<80, true, PAGED> : &launch<80, false, PAGED>;
+    case 96: return snapped ? &launch<96, true, PAGED> : &launch<96, false, PAGED>;
+    case 128: return snapped ? &launch<128, true, PAGED> : &launch<128, false, PAGED>;
+    case 256: return snapped ? &launch<256, true, PAGED> : &launch<256, false, PAGED>;
+    default: return nullptr;
+  }
 }
 
 }  // namespace

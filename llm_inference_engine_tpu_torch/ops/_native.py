@@ -31,6 +31,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
+# head_dim of every attention and int8-write kernel instance (the
+# ``switch (D)`` of each source; a test holds them equal)
+HEAD_DIMS = (64, 80, 96, 128, 256)
+
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 # C signatures of csrc/*.cu, in argument order
@@ -85,6 +89,10 @@ _SIGNATURES = {
     "attention_decode_paged_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                                     _P],
+    # B, H, K, D, int8, page, max_pages, out[7]
+    "attention_decode_plan": [_I, _I, _I, _I, _I, _I, _I, _P],
+    # D, int8, out[3]
+    "attention_prefill_plan": [_I, _I, _P],
     # x, q, scale, out, m, k, n, halves, q_half, s_half, group, out_f32,
     # stream
     "int4_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _I, _P],

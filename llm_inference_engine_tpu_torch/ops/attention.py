@@ -17,21 +17,25 @@ Port of ``llm_inference_engine_tpu/ops/attention.py`` over the slot cache
   (through :func:`attention_prefill_paged`) with ``table=`` given, and
   their int8 modes (:func:`attention_int8`,
   :func:`attention_prefill_paged_int8`) when scale planes are given;
-  kernel D (``csrc/attention.cu``, ``csrc/attention_int8.cu``) keeps the
-  decode modes below;
 - :func:`attention_decode_fused` (one new token per sequence, slot cache)
-  runs kernel D in decode mode (``attention_decode``, int8:
+  runs kernel D (``csrc/attention_decode.cu``, split-KV over a thread-block
+  cluster) in its fused mode (``attention_decode``, int8:
   :func:`attention_decode_fused_int8`) in place of the TPU kernel
   ``_decode_fused_mxu_kernel`` (the JAX package's
   ``attention_decode_fused_mxu``): it writes the new K/V row into the
   cache IN PLACE (an int8 cache: quantized in the cache's numerics, with
   its scale) and attends history plus the new token;
 - :func:`attention_decode` (one token per sequence, paged pool, written
-  by kernel H first) runs kernel D's attend-only decode
+  by kernel H first) runs kernel D's attend-only mode
   (``attention_decode_paged``, int8: :func:`attention_decode_int8`) in
   place of the TPU kernel ``_decode_mxu_kernel`` (``_attention_decode_mxu``
-  with a table). It shares the fused decode's launch shape and summation
-  order.
+  with a table). Its split plan and summation order are the fused mode's
+  (:func:`decode_plan`), so a paged engine reproduces a slot engine bit
+  for bit.
+
+Every kernel is built for the head dims ``_native.HEAD_DIMS`` (64, 80,
+96, 128, 256); another head_dim raises ``NotImplementedError`` on a CUDA
+tensor.
 
 Each int8 mode is a wrapper of its own with its own launch counter.
 
@@ -53,6 +57,7 @@ from typing import Optional
 
 import torch
 
+from llm_inference_engine_tpu_torch.ops import _native
 from llm_inference_engine_tpu_torch.ops.kv_cache import (
     _write_rows_torch, quantize_rows)
 from llm_inference_engine_tpu_torch.ops.paged_kv import (
@@ -64,7 +69,7 @@ __all__ = ["attention", "attention_torch", "attention_paged_torch",
            "attention_prefill_paged_int8", "attention_decode",
            "attention_decode_int8", "attention_decode_fused",
            "attention_decode_fused_int8", "attention_decode_fused_torch",
-           "can_fuse_decode"]
+           "can_fuse_decode", "decode_plan", "prefill_plan"]
 
 
 def attention_torch(q, k_cache, v_cache, q_start, kv_len, *,
@@ -150,9 +155,9 @@ def _check(q, k_cache, v_cache, q_start, kv_len, layer, table=None,
     if Bc != B or Dc != D or H % K:
         raise ValueError(f"attention kernel: q {tuple(q.shape)} does not fit "
                          f"cache {tuple(k_cache.shape)}")
-    if D not in (64, 128):
+    if D not in _native.HEAD_DIMS:
         raise NotImplementedError(f"attention kernel: head_dim {D} (built "
-                                  "for 64 and 128)")
+                                  f"for {_native.HEAD_DIMS})")
     if not 0 <= layer < L:
         raise IndexError(f"layer {layer} outside [0, {L})")
     int8 = k_scale is not None
@@ -218,7 +223,6 @@ def attention(q, k_cache, v_cache, q_start, kv_len, *,
     if layer is None:                 # a plain [B, S, K, D] cache
         k_cache, v_cache, layer = k_cache[None], v_cache[None], 0
     _check(q, k_cache, v_cache, q_start, kv_len, layer)
-    from llm_inference_engine_tpu_torch.ops import _native
     B, T, H, D = q.shape
     _, _, S, K, _ = k_cache.shape
     out = torch.empty_like(q)
@@ -250,7 +254,6 @@ def attention_int8(q, k_cache, v_cache, q_start, kv_len, *, k_scale,
         k_scale, v_scale = k_scale[None], v_scale[None]
     _check(q, k_cache, v_cache, q_start, kv_len, layer, k_scale=k_scale,
            v_scale=v_scale)
-    from llm_inference_engine_tpu_torch.ops import _native
     B, T, H, D = q.shape
     _, _, S, K, _ = k_cache.shape
     out = torch.empty_like(q)
@@ -271,7 +274,6 @@ def _launch_paged(entry: str, q, k_pool, v_pool, q_start, kv_len, layer,
                   table, sm_scale, window, k_scale=None, v_scale=None):
     _check(q, k_pool, v_pool, q_start, kv_len, layer, table, k_scale,
            v_scale)
-    from llm_inference_engine_tpu_torch.ops import _native
     B, T, H, D = q.shape
     _, P, page, K, _ = k_pool.shape
     out = torch.empty_like(q)
@@ -400,6 +402,34 @@ def attention_decode_int8(q, k_pool, v_pool, q_start, kv_len, layer: int,
 attention_decode_int8.launches = 0
 
 
+def decode_plan(B: int, H: int, K: int, D: int, *, int8: bool = False,
+                page: int = 0, max_pages: int = 0) -> dict:
+    """Kernel D's split plan for a decode launch at these shapes (a paged
+    pool: ``page`` and ``max_pages`` > 0), from the built library on the
+    card: blocks a cluster along the keys, query heads a block, tile keys,
+    ring stages, dynamic shared memory a block, blocks an SM holds and
+    clusters the card holds at once."""
+    import ctypes
+    out = (ctypes.c_int * 7)()
+    status = _native.library().attention_decode_plan(
+        B, H, K, D, int(int8), page, max_pages, out)
+    _native.check(status, "attention_decode_plan")
+    return dict(zip(("nsplit", "heads_per_block", "tile_keys", "stages",
+                     "smem_bytes", "blocks_per_sm", "max_active_clusters"),
+                    out))
+
+
+def prefill_plan(D: int, *, int8: bool = False) -> dict:
+    """Kernel D2's tiling at head_dim ``D`` (the paged modes tile alike),
+    from the built library on the card: tile keys, ring stages and dynamic
+    shared memory a block."""
+    import ctypes
+    out = (ctypes.c_int * 3)()
+    status = _native.library().attention_prefill_plan(D, int(int8), out)
+    _native.check(status, "attention_prefill_plan")
+    return dict(zip(("tile_keys", "stages", "smem_bytes"), out))
+
+
 def can_fuse_decode(q_shape, cache) -> bool:
     """Fused-decode gate: one new token against a bf16 or int8 SLOT cache
     (the paged pool writes through kernel H, then attends). The JAX
@@ -478,7 +508,6 @@ def attention_decode_fused(q, k_new, v_new, k_cache, v_cache, q_start,
             sm_scale=sm_scale, window=window)
     _check(q, k_cache, v_cache, q_start, kv_len, layer)
     _check_new_rows(q, k_new, v_new, k_cache)
-    from llm_inference_engine_tpu_torch.ops import _native
     B, _, H, D = q.shape
     _, _, S, K, _ = k_cache.shape
     out = torch.empty_like(q)
@@ -515,7 +544,6 @@ def attention_decode_fused_int8(q, k_new, v_new, k_cache, v_cache, q_start,
     _check(q, k_cache, v_cache, q_start, kv_len, layer, k_scale=k_scale,
            v_scale=v_scale)
     _check_new_rows(q, k_new, v_new, k_cache)
-    from llm_inference_engine_tpu_torch.ops import _native
     B, _, H, D = q.shape
     _, _, S, K, _ = k_cache.shape
     out = torch.empty_like(q)

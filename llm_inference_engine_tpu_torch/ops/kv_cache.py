@@ -40,6 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from llm_inference_engine_tpu_torch.ops._native import HEAD_DIMS
 from llm_inference_engine_tpu_torch.utils import use_kernel
 
 __all__ = ["KVCache", "new_kv_cache", "update_cache_at_layer",
@@ -215,9 +216,9 @@ def _check_write(cache, layer, new_k, new_v, starts, new_len,
                     or t.device != cache.k.device or not t.is_contiguous()):
                 raise ValueError(f"{name}: scale planes must be contiguous "
                                  f"float32 [{L}, {B}, {S}, {K}]")
-        if D not in (64, 128):
-            raise NotImplementedError(f"{name}: head_dim {D} (built for 64 "
-                                      "and 128)")
+        if D not in HEAD_DIMS:
+            raise NotImplementedError(f"{name}: head_dim {D} (built for "
+                                      f"{HEAD_DIMS})")
     if new_v.shape != new_k.shape or cache.v.shape != cache.k.shape:
         raise ValueError(f"{name}: k and v shapes differ")
     for t in (starts, new_len):

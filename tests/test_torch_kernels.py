@@ -13,6 +13,8 @@ versions both compute in f32 and round once, but sum in another order,
 so an output can land one bf16 ulp (~4e-3 relative) apart.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -847,3 +849,276 @@ def test_int8_kv_engines_match_plain_and_paged_matches_slot(cuda):
     paged.reset()
     assert (paged.generate(prompts, sp, eos_token_id=None).token_ids
             == slot.generate(prompts, sp, eos_token_id=None).token_ids)
+
+
+# ---------------------------------------------------------------------------
+# kernel D's decode (split-KV over a cluster) in all four modes, and every
+# kernel at the head dims 80, 96 and 256
+# ---------------------------------------------------------------------------
+
+HEAD_DIMS = (64, 80, 96, 128, 256)
+DECODE_MODES = ("fused", "paged", "fused-int8", "paged-int8")
+# kv_len per sequence: 1, one 32-key tile, one tile + 1, a slice ending
+# mid-page, an inactive row (kv_len == q_start), and S itself
+DEC_S = 600
+DEC_LENS = [1, 32, 33, 217, 301, DEC_S]
+DEC_INACTIVE = 4
+
+
+def _decode_inputs(cuda, mode, K, G, D, page=16, snapped=True):
+    """A cache of random rows for one decode mode (L = 2, B = 6): slot or a
+    pool with a shuffled table over S = DEC_S tokens, bf16 or int8 (pools
+    snapped), q, k_new/v_new, q_start and kv_len (DEC_LENS; the inactive
+    row's kv_len equals its q_start)."""
+    B = len(DEC_LENS)
+    kv_len = torch.tensor(DEC_LENS, device=cuda, dtype=torch.int32)
+    q_start = kv_len - 1
+    q_start[DEC_INACTIVE] = kv_len[DEC_INACTIVE]
+    if mode.startswith("paged"):
+        maxp = -(-DEC_S // page)
+        c = (_int8_pool if mode.endswith("int8") else _paged_pool)(
+            cuda, 2, B, maxp, page, K, D)
+    elif mode == "fused-int8":
+        c = _int8_slot(cuda, 2, B, DEC_S, K, D, snapped)
+    else:
+        c = kvc.KVCache(*_qkv(cuda, 2, B, 1, 1, K, DEC_S, D)[1:], kv_len)
+    q = torch.randn(B, 1, K * G, D, device=cuda, dtype=torch.bfloat16)
+    kn = torch.randn(B, 1, K, D, device=cuda, dtype=torch.bfloat16)
+    return c, q, kn, torch.randn_like(kn), q_start, kv_len
+
+
+def _run_decode(mode, c, q, kn, vn, q_start, kv_len, window, kernels,
+                snapped=True):
+    """One decode step of ``mode`` at layer 1: the fused modes write the
+    token and attend; the paged modes attend (the pool holds the token)."""
+    planes = _planes(c) if c.k_scale is not None else {}
+    if mode.startswith("paged"):
+        if kernels == "torch":
+            return attention.attention_paged_torch(
+                q, c.k, c.v, q_start, kv_len, 1, c.block_table,
+                window=window, **planes)
+        return attention.attention_decode(
+            q, c.k, c.v, q_start, kv_len, 1, table=c.block_table,
+            window=window, kernels="cuda", **planes)
+    if kernels == "torch":
+        return attention.attention_decode_fused_torch(
+            q, kn, vn, c.k, c.v, q_start, kv_len, 1, window=window,
+            snapped=snapped, **planes)[0]
+    return attention.attention_decode_fused(
+        q, kn, vn, c.k, c.v, q_start, kv_len, 1, window=window,
+        kernels="cuda", snapped=snapped, **planes)[0]
+
+
+def _clone_cache(c):
+    return dataclasses.replace(c, **{
+        n: getattr(c, n).clone() for n in ("k", "v", "k_scale", "v_scale")
+        if getattr(c, n) is not None})
+
+
+@pytest.mark.parametrize("mode", DECODE_MODES)
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("G,window", [(1, None), (4, None), (7, 45),
+                                      (8, 100), (1, 200), (3, 30)])
+def test_decode_kernel_modes(cuda, mode, D, G, window):
+    """Kernel D's four decode modes at every head dim against the plain
+    versions: kv_len 1, one tile, one tile + 1, slices ending mid-page, S,
+    an inactive row; G 1, 3 and 4 (blocks of 4 query heads, one idle at
+    3), 7 (a group that is no power of two) and 8, windows starting inside
+    a tile. The fused writes are bit-identical to
+    the plain write; page 0 and the pages past each sequence's pages hold
+    NaN, so a read outside the table shows."""
+    K = 2
+    page = 16 if D != 96 else 24
+    c, q, kn, vn, q_start, kv_len = _decode_inputs(cuda, mode, K, G, D, page)
+    if mode.startswith("paged"):
+        (_cut_int8_table if mode.endswith("int8") else _cut_table)(
+            c, kv_len, page)
+    ref = _clone_cache(c)
+    if mode.startswith("paged"):
+        for name in ("k", "v", "k_scale", "v_scale"):
+            if getattr(ref, name) is not None:
+                setattr(ref, name, getattr(ref, name).nan_to_num())
+    counter = {"fused": attention.attention_decode_fused,
+               "paged": attention.attention_decode,
+               "fused-int8": attention.attention_decode_fused_int8,
+               "paged-int8": attention.attention_decode_int8}[mode]
+    n0 = counter.launches
+    got = _run_decode(mode, c, q, kn, vn, q_start, kv_len, window, "cuda")
+    want = _run_decode(mode, ref, q, kn, vn, q_start, kv_len, window,
+                       "torch")
+    torch.cuda.synchronize()
+    assert counter.launches == n0 + 1
+    if mode.startswith("fused"):
+        for name in ("k", "v", "k_scale", "v_scale"):
+            if getattr(c, name) is not None:
+                assert torch.equal(getattr(c, name), getattr(ref, name)), name
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("mode", DECODE_MODES)
+@pytest.mark.parametrize("D", [128, 80])
+def test_decode_ignores_poisoned_tail(cuda, mode, D):
+    """Every cache row at or past kv_len, and every pool page outside the
+    table, holds NaN (values, or an int8 cache's scales): the decode must
+    read none of it, and its zero-filled tail keys must stay zero, so it
+    agrees with the plain version on a clean copy."""
+    K, G, page = 2, 4, 16
+    c, q, kn, vn, q_start, kv_len = _decode_inputs(cuda, mode, K, G, D, page)
+    clean = _clone_cache(c)
+    if mode.startswith("paged"):
+        _poison_pool(c, kv_len, page)
+        clean.block_table = c.block_table
+    else:
+        # rows past each fused write's row; the write fills kv_len - 1
+        _poison_slot(c, kv_len)
+    got = _run_decode(mode, c, q, kn, vn, q_start, kv_len, None, "cuda")
+    want = _run_decode(mode, clean, q, kn, vn, q_start, kv_len, None,
+                       "torch")
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("D", [80, 96, 256])
+def test_paged_decode_bit_identical_to_slot_at_head_dims(cuda, int8, D):
+    """The paged write then the attend-only decode gives the fused slot
+    decode's bytes at the new head dims (int8: snapped, as the pool)."""
+    from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+    L, B, K, G, page, maxp = 2, 4, 2, 4, 16, 24
+    cache = (_int8_pool if int8 else _paged_pool)(cuda, L, B, maxp, page, K,
+                                                 D)
+    S = maxp * page
+    slot = kvc.new_kv_cache(L, B, K, S, D, device=cuda, quantized=int8,
+                            snapped=True)
+    names = ("k", "v", "k_scale", "v_scale") if int8 else ("k", "v")
+    for layer in range(L):
+        for n in names:
+            getattr(slot, n)[layer] = pkv.gather_pages(
+                getattr(cache, n), layer, cache.block_table)
+    hist = torch.tensor([0, 31, 32, 300], device=cuda, dtype=torch.int32)
+    kv_len = hist + 1
+    q = torch.randn(B, 1, K * G, D, device=cuda, dtype=torch.bfloat16)
+    kn = torch.randn(B, 1, K, D, device=cuda, dtype=torch.bfloat16)
+    vn = torch.randn_like(kn)
+    sp = _planes(slot) if int8 else {}
+    pp = _planes(cache) if int8 else {}
+    want, _, _ = attention.attention_decode_fused(
+        q, kn, vn, slot.k, slot.v, hist, kv_len, 1, kernels="cuda",
+        snapped=True, **sp)
+    pkv.paged_update_at_layer(cache, 1, kn, vn, hist, kv_len - hist,
+                              kernels="cuda")
+    got = attention.attention_decode(q, cache.k, cache.v, hist, kv_len, 1,
+                                     table=cache.block_table, kernels="cuda",
+                                     **pp)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("K,G,D,window,lens", [
+    _case(2, 4, 80, None), _case(2, 7, 96, 70),
+    _case(4, 1, 256, None), _case(2, 8, 80, 100, lens=LONG, tag="-long"),
+    _case(2, 4, 256, None, lens=LONG, tag="-long"),
+    _case(2, 4, 96, None, lens=ONE_ROW, tag="-one-row")])
+def test_prefill_attention_kernel_at_head_dims(cuda, K, G, D, window, lens):
+    """D2's four prefill modes at head dims 80, 96 and 256 against the
+    plain versions (the pools' table entries past kv_len's pages point at
+    a NaN page 0)."""
+    T, S, q_start, kv_len = _lens(cuda, lens)
+    L, B, page = 2, 4, 16
+    q = torch.randn(B, T, K * G, D, device=cuda, dtype=torch.bfloat16)
+    _, kc, vc = _qkv(cuda, L, B, 1, 1, K, S, D)
+    torch.testing.assert_close(
+        attention.attention(q, kc, vc, q_start, kv_len, layer=1,
+                            window=window, kernels="cuda"),
+        attention.attention_torch(q, kc, vc, q_start, kv_len, layer=1,
+                                  window=window), **TOL)
+    c8 = _int8_slot(cuda, L, B, S, K, D, False)
+    torch.testing.assert_close(
+        attention.attention(q, c8.k, c8.v, q_start, kv_len, layer=1,
+                            window=window, kernels="cuda", **_planes(c8)),
+        attention.attention_torch(q, c8.k, c8.v, q_start, kv_len, layer=1,
+                                  window=window, **_planes(c8)), **TOL)
+    maxp = S // page + 1
+    for pool, cut in ((_paged_pool(cuda, L, B, maxp, page, K, D), _cut_table),
+                      (_int8_pool(cuda, L, B, maxp, page, K, D),
+                       _cut_int8_table)):
+        cut(pool, kv_len, page)
+        planes = _planes(pool) if pool.k_scale is not None else {}
+        clean = {n: t.nan_to_num() for n, t in planes.items()}
+        got = attention.attention(q, pool.k, pool.v, q_start, kv_len,
+                                  layer=1, window=window,
+                                  table=pool.block_table, kernels="cuda",
+                                  **planes)
+        want = attention.attention_paged_torch(
+            q, pool.k.nan_to_num(), pool.v.nan_to_num(), q_start, kv_len, 1,
+            pool.block_table, window=window, **clean)
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("K,D,snapped", [(4, 80, True), (4, 96, False),
+                                         (2, 256, True), (8, 80, False)])
+def test_kv_write_quant_kernel_at_head_dims(cuda, K, D, snapped):
+    """Kernel I at head dims 80, 96 and 256, slot (both numerics) and
+    paged: values and scales bit-identical to the plain quantize + write."""
+    from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+    L, B, S, T = 2, 4, 300, 40
+    c = _int8_slot(cuda, L, B, S, K, D, snapped)
+    ref = _clone_cache(c)
+    new_k = torch.randn(B, T, K, D, device=cuda, dtype=torch.bfloat16)
+    new_v = torch.randn_like(new_k)
+    new_k[0, 0, 0] = 0.0
+    starts = torch.tensor([0, 37, 299, 88], device=cuda, dtype=torch.int32)
+    new_len = torch.tensor([40, 17, 1, 0], device=cuda, dtype=torch.int32)
+    kvc.update_cache_at_layer(c, 1, new_k, new_v, starts, new_len,
+                              kernels="cuda")
+    kvc.update_cache_at_layer_torch(ref, 1, new_k, new_v, starts, new_len)
+    pool = _int8_pool(cuda, L, B, 20, 16, K, D)
+    pref = _clone_cache(pool)
+    pkv.paged_update_at_layer(pool, 1, new_k, new_v, starts, new_len,
+                              kernels="cuda")
+    pkv.paged_update_at_layer_torch(pref, 1, new_k, new_v, starts, new_len)
+    torch.cuda.synchronize()
+    for got, want in ((c, ref), (pool, pref)):
+        for name in ("k", "v", "k_scale", "v_scale"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+def test_unsupported_head_dim_raises(cuda):
+    """A head_dim outside the built set raises on a CUDA tensor; it never
+    falls back to the plain version."""
+    q = torch.randn(2, 1, 4, 48, device=cuda, dtype=torch.bfloat16)
+    c = torch.randn(1, 2, 32, 2, 48, device=cuda, dtype=torch.bfloat16)
+    new = torch.randn(2, 1, 2, 48, device=cuda, dtype=torch.bfloat16)
+    lens = torch.ones(2, device=cuda, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="head_dim 48"):
+        attention.attention_decode_fused(q, new, new, c, c.clone(), lens - 1,
+                                         lens, 0)
+    with pytest.raises(NotImplementedError, match="head_dim 48"):
+        attention.attention(q, c, c, lens - 1, lens, layer=0)
+
+
+@pytest.mark.parametrize("B,H,K,D", [(4, 32, 32, 128), (8, 32, 32, 128),
+                                     (16, 32, 32, 128), (2, 28, 4, 96),
+                                     (8, 32, 8, 128)])
+def test_decode_plan_ignores_page_and_length(cuda, B, H, K, D):
+    """The split plan depends on B, K, G and D only: slot and paged (any
+    page size) launches split alike, so they sum alike."""
+    slot = attention.decode_plan(B, H, K, D)
+    for page, maxp in ((16, 128), (64, 32)):
+        plan = attention.decode_plan(B, H, K, D, page=page, max_pages=maxp)
+        assert plan["nsplit"] == slot["nsplit"]
+    assert 1 <= slot["nsplit"] <= 8 and slot["blocks_per_sm"] >= 1
+    assert slot["max_active_clusters"] >= 1
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_prefill_plan_reports_every_head_dim(cuda, int8):
+    """D2's tiling, as the source reports it, at every head dim: 64-key
+    tiles up to D = 128, 32 at 256, and dynamic shared memory that fits an
+    SM (227 KB) twice."""
+    for D in HEAD_DIMS:
+        plan = attention.prefill_plan(D, int8=int8)
+        assert plan["tile_keys"] == (32 if D > 128 else 64)
+        assert plan["stages"] >= 2
+        assert 0 < 2 * plan["smem_bytes"] <= 227 * 1024

@@ -11,11 +11,14 @@ change, change, parent, a fresh process builds that root's kernels from
 its own sources into its own build directory and runs that root's
 ``chip_smoke.py`` kernel phases 3, 3c and 3d: every kernel is held against
 its plain version there and timed with CUDA events at the main path's
-shapes. The script prints each run's attention rows (kernel ms of the
-first timed case of each row, as in the ``kernels`` line of
-``chip_smoke.py``), then one JSON line with every run's times and, per
-row, the mean of the change's runs over the mean of the parent's. It
-fails where there is no card.
+shapes. Then the same process times that root's kernel D at GQA widths
+through this checkout's ``chip_smoke.gqa_decode_cases`` (bf16 fused and
+paged decode at G = 4, 7 and 8, B = 8; the same cases for both roots,
+which the parent's chip_smoke may lack). The script prints each run's
+attention rows (kernel ms of the first timed case of each row, as in the
+``kernels`` line of ``chip_smoke.py``, and the GQA rows), then one JSON
+line with every run's times and, per row, the mean of the change's runs
+over the mean of the parent's. It fails where there is no card.
 """
 
 from __future__ import annotations
@@ -50,8 +53,13 @@ def one(root: Path) -> dict:
     for fn in (smoke.phase_kernels, smoke.phase_paged_kernels,
                smoke.phase_kv_int8_kernels):
         fn(torch, dev, results)
-    return {name: r["ms"] for name, r in results.items()
-            if name.startswith("attention") and "ms" in r}
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_here", HERE / "chip_smoke.py")
+    here = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(here)
+    gqa = here.gqa_decode_cases(torch, dev, {})
+    return {**{name: r["ms"] for name, r in results.items()
+               if name.startswith("attention") and "ms" in r}, **gqa}
 
 
 def main(argv) -> int:
