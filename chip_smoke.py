@@ -17,8 +17,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    B4 T512, GQA with and without a window, G = 8 against kv_len 2048)
    and kernel D's fused decode (split-KV over a cluster; B4, then the
    engine's B8, kv_len of one tile and one tile + 1, G = 7 with a
-   window), then E and F (fused dequant-matmul, INT4 and INT8) and G
-   (INT4 dequantize, bit-identical), then (3c) H (the paged write) and
+   window), then E and F (fused dequant-matmul, INT4 and INT8: the
+   decode mode at m = 8 on every projection and the lm_head and at m =
+   16 on wo and down, each with its plan; the prefill mode at m = 512 on
+   the four projections beside G + cuBLAS; library calls
+   ``_weight_int4pack_mm`` and ``_weight_int8pack_mm``) and G (INT4
+   dequantize, bit-identical), then (3c) H (the paged write) and
    D2's paged mode (a B=16, T=64 mixed step, then 8 x 512) and D's
    attend-only paged decode over a pool of page 64 with a random page
    permutation, the mixed step and the decode case again at page 16, and
@@ -651,20 +655,27 @@ def phase_kernels(torch, dev, results) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_quant_kernels(torch, dev, results) -> None:
-    """E and F at the decode projections of Llama2-7B (m = 8), at ragged m,
-    and G at two weight shapes. Each timed case cycles through enough
-    copies of its weight (>= 120 MB) that the 50 MB L2 holds none of them
+# Kernels E and F in phase 3b: (k, n, halves) of Llama2-7B's quantized
+# projections, and the timed rows (m, projection): a decode layer and the
+# lm_head at the engine's m = 8, the server's B = 16 step (wo and down,
+# the n = 4096 projections), and the 8 x 64 prefill tail (m = 512)
+QUANT_SHAPES = {"wqkv": (4096, 12288, 1), "wo": (4096, 4096, 1),
+                "gate|up": (4096, 11008, 2), "down": (11008, 4096, 1),
+                "lm_head": (4096, 32000, 1)}
+QUANT_ROWS = ([(8, p) for p in QUANT_SHAPES] + [(16, "wo"), (16, "down")]
+              + [(512, p) for p in ("wqkv", "wo", "gate|up", "down")])
+
+
+def quant_weights(torch, quant, dev, gen, mode, k, n, halves=1,
+                  min_bytes=0):
+    """Random quantized weights at the dummy model's magnitudes (scale
+    ~0.02 / qmax a value step): enough copies to hold ``min_bytes``
+    together, so that cycling through them leaves none in the 50 MB L2
     between uses, as in a decode step."""
-    from llm_inference_engine_tpu_torch.ops import quant
+    lead = (2,) if halves == 2 else ()
+    int4 = mode == "int4"
 
-    bf16, f32 = torch.bfloat16, torch.float32
-    gen = torch.Generator(device=dev).manual_seed(4321)
-
-    def qweight(mode, k, n, halves=1):
-        # the dummy model's magnitudes: scale ~0.02 / qmax per value step
-        lead = (2,) if halves == 2 else ()
-        int4 = mode == "int4"
+    def one():
         q = torch.randint(-128 if int4 else -127, 128,
                           (*lead, k // 2 if int4 else k, n), generator=gen,
                           dtype=torch.int8, device=dev)
@@ -672,76 +683,137 @@ def phase_quant_kernels(torch, dev, results) -> None:
                        device=dev) + 0.5
         return quant.QuantizedTensor(q, s * (0.02 / (7 if int4 else 127)),
                                      mode, 128)
+    first = one()
+    return [first] + [one() for _ in range(
+        max(1, -(-min_bytes // first.nbytes)) - 1)]
 
-    def copies(mode, k, n, halves=1):
-        first = qweight(mode, k, n, halves)
-        count = max(1, -(-120_000_000 // first.nbytes))
-        return [first] + [qweight(mode, k, n, halves)
-                          for _ in range(count - 1)]
+
+def fused_matmul(quant, t, x, out, kern):
+    """Kernel E or F (or its plain version) through the wrapper every tree
+    has."""
+    if t.mode == "int4":
+        return quant.int4_matmul(x, t.q, t.scale, 128, out, kernels=kern)
+    return quant.int8_matmul(x, t.q, t.scale, out, kernels=kern)
+
+
+def cycling(ts, fn):
+    """A thunk that calls ``fn`` on the next of ``ts`` each time."""
+    it = [0]
+
+    def run():
+        it[0] += 1
+        return fn(ts[it[0] % len(ts)])
+    return run
+
+
+def quant_rows(torch, dev) -> dict:
+    """Kernel ms of E and F at QUANT_ROWS (weights cycled as in 3b), no
+    checks: ``tools/chip_kernel_ab.py`` times another tree's kernels
+    through this function, so it calls only the wrappers every tree
+    has."""
+    from llm_inference_engine_tpu_torch.ops import quant
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    out = {}
+    for mode, name in (("int4", "int4_matmul"), ("int8", "int8_matmul")):
+        for m, label in QUANT_ROWS:
+            k, n, halves = QUANT_SHAPES[label]
+            dt = torch.float32 if label == "lm_head" else torch.bfloat16
+            ts = quant_weights(torch, quant, dev, gen, mode, k, n, halves,
+                               120_000_000)
+            x = torch.randn(m, k, generator=gen, device=dev,
+                            dtype=torch.bfloat16)
+            out[f"{name} m{m} {label}"] = time_ms(torch, cycling(
+                ts, lambda t: fused_matmul(quant, t, x, dt, "cuda")))
+            del ts
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_quant_kernels(torch, dev, results) -> None:
+    """E and F at QUANT_ROWS, each timed with its plain version, its bound
+    and its library call (F: ``_weight_int8pack_mm``; E:
+    ``_weight_int4pack_mm``), the decode rows with their plan, the m = 512
+    rows with G + cuBLAS (``_large_m_linear``, the m >= 1024 route) beside
+    them; then ragged m (5, 300, 1023; 1023 timed with G + cuBLAS too) on
+    the gate|up stack and the down projection, and G at two weight
+    shapes."""
+    from llm_inference_engine_tpu_torch.ops import quant
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(4321)
+
+    def qweight(mode, k, n, halves=1):
+        return quant_weights(torch, quant, dev, gen, mode, k, n, halves)[0]
 
     def fused(t, x, out, kern):
-        if t.mode == "int4":
-            return quant.int4_matmul(x, t.q, t.scale, 128, out, kernels=kern)
-        return quant.int8_matmul(x, t.q, t.scale, out, kernels=kern)
+        return fused_matmul(quant, t, x, out, kern)
 
-    def cycling(ts, fn):
-        it = [0]
+    def cutover(ts, x, out):
+        ms = time_ms(torch, cycling(ts, lambda t: quant._large_m_linear(
+            x, t, out, "auto")), iters=5)
+        say(f"    G + cuBLAS (_large_m_linear, the m >= 1024 route) on the "
+            f"same weights: {ms:.4f} ms")
 
-        def run():
-            it[0] += 1
-            return fn(ts[it[0] % len(ts)])
-        return run
-
-    # (label, k, n, halves, out dtype): a decode layer's projections and
-    # the lm_head
-    shapes = [("wqkv 4096->12288", 4096, 12288, 1, bf16),
-              ("wo 4096->4096", 4096, 4096, 1, bf16),
-              ("gate|up 4096->2x11008", 4096, 11008, 2, bf16),
-              ("down 11008->4096", 11008, 4096, 1, bf16),
-              ("lm_head 4096->32000 f32", 4096, 32000, 1, f32)]
     for mode, name in (("int4", "int4_matmul"), ("int8", "int8_matmul")):
-        layer_ms = layer_plain = 0.0
-        for label, k, n, halves, out in shapes:
-            ts = copies(mode, k, n, halves)
-            x = torch.randn(8, k, generator=gen, device=dev, dtype=bf16)
+        layer, summed = {}, {}
+        for m, label in QUANT_ROWS:
+            k, n, halves = QUANT_SHAPES[label]
+            out = f32 if label == "lm_head" else bf16
+            ts = quant_weights(torch, quant, dev, gen, mode, k, n, halves,
+                               120_000_000)
+            x = torch.randn(m, k, generator=gen, device=dev, dtype=bf16)
             ms = time_ms(torch, cycling(ts, lambda t: fused(t, x, out,
                                                             "cuda")))
             plain_ms = time_ms(torch, cycling(ts, lambda t: fused(
                 t, x, out, "torch")), iters=3, warmup=1)
-            if not label.startswith("lm_head"):
-                layer_ms, layer_plain = layer_ms + ms, layer_plain + plain_ms
+            if label != "lm_head":
+                layer[m] = layer.get(m, 0.0) + ms
+                summed.setdefault(m, []).append(label)
             gbs = ts[0].nbytes / ms / 1e6     # weight bytes read per second
             n_out = halves * n
+            library = None
+            if halves == 1 and out == bf16:
+                library = (int4pack_ms(torch, quant, ts, x, out)
+                           if mode == "int4" else
+                           int8pack_ms(torch, ts, x, out))
             check_close(torch, name, fused(ts[0], x, out, "cuda"),
                         fused(ts[0], x, out, "torch"), results,
-                        f"m8 {label} {gbs:.0f} GB/s", (ms, plain_ms),
+                        f"m{m} {label} {gbs:.0f} GB/s", (ms, plain_ms),
                         work=(ts[0].nbytes + x.numel() * 2
-                              + 8 * n_out * out.itemsize, 2 * 8 * k * n_out),
-                        library=(int8pack_ms(torch, ts, x, out)
-                                 if mode == "int8" and halves == 1
-                                 and out == bf16 else None))
+                              + m * n_out * out.itemsize, 2 * m * k * n_out),
+                        library=library)
+            plan = quant.quant_matmul_plan_native(m, k, n, halves,
+                                                  int4=mode == "int4")
+            say(f"    plan: {plan}")
+            if m >= 512:
+                cutover(ts, x, out)
             del ts
-        say(f"  {name} one decode layer (4 projections, m=8): kernel "
-            f"{layer_ms:.4f} ms, plain {layer_plain:.4f} ms")
+        for m, ms in layer.items():
+            say(f"  {name} at m={m}, {' + '.join(summed[m])}: kernel "
+                f"{ms:.4f} ms")
         # ragged m, the structured stack and the down projection's K
         for m in (5, 300, 1023):
-            for label, k, n, halves, out in (shapes[2], shapes[3]):
+            for label in ("gate|up", "down"):
+                k, n, halves = QUANT_SHAPES[label]
                 t = qweight(mode, k, n, halves)
                 x = torch.randn(m, k, generator=gen, device=dev, dtype=bf16)
                 timed = None
                 if m == 1023 and halves == 1:
-                    timed = (time_ms(torch, lambda: fused(t, x, out, "cuda"),
+                    timed = (time_ms(torch, lambda: fused(t, x, bf16, "cuda"),
                                      iters=5),
-                             time_ms(torch, lambda: fused(t, x, out, "torch"),
+                             time_ms(torch, lambda: fused(t, x, bf16, "torch"),
                                      iters=2, warmup=1))
-                check_close(torch, name, fused(t, x, out, "cuda"),
-                            fused(t, x, out, "torch"), results,
+                check_close(torch, name, fused(t, x, bf16, "cuda"),
+                            fused(t, x, bf16, "torch"), results,
                             f"m{m} {label}", timed)
+                if timed is not None:
+                    cutover([t], x, bf16)
         torch.cuda.empty_cache()
 
     # G: bit-identical to its plain version
     for k, n in ((4096, 12288), (11008, 4096)):
-        ts = copies("int4", k, n)
+        ts = quant_weights(torch, quant, dev, gen, "int4", k, n,
+                           min_bytes=120_000_000)
         got = quant.dequant_int4(ts[0].q, ts[0].scale, 128, kernels="cuda")
         want = quant.dequant_int4(ts[0].q, ts[0].scale, 128, kernels="torch")
         torch.cuda.synchronize()
@@ -776,6 +848,41 @@ def int8pack_ms(torch, ts, x, out_dtype):
     return time_ms(torch, run)
 
 
+def int4pack_ms(torch, quant, ts, x, out_dtype):
+    """Time of torch._weight_int4pack_mm (tinygemm: group-128 bf16 scales
+    and zero points, its own packing) over the same weights converted
+    beforehand with torch._convert_weight_to_int4pack (unsigned nibble =
+    value + 8, zero point 0), cycled as the kernel's: E's library
+    yardstick (the port never calls it). Its distance to kernel E's
+    output is printed (its scales are bf16, E's f32). None, with the
+    reason printed, where this torch refuses it."""
+    try:
+        packed = []
+        for t in ts:
+            u = (quant._unpack_int4(t.q).to(torch.int32) + 8).t()  # [n, k]
+            w = ((u[:, 0::2] << 4) | u[:, 1::2]).to(torch.uint8)
+            sz = torch.stack([t.scale.to(torch.bfloat16),
+                              torch.zeros_like(t.scale, dtype=torch.bfloat16)],
+                             dim=-1).contiguous()                 # [k/g, n, 2]
+            packed.append((torch._convert_weight_to_int4pack(
+                w.contiguous(), 8), sz))
+        got = torch._weight_int4pack_mm(x, packed[0][0], 128, packed[0][1])
+        want = quant.int4_matmul(x, ts[0].q, ts[0].scale, 128, x.dtype)
+        say(f"    _weight_int4pack_mm vs kernel E: max abs "
+            f"{(got.float() - want.float()).abs().max().item():.3e} "
+            f"(output max {want.float().abs().max().item():.3e})")
+    except (RuntimeError, NotImplementedError) as e:
+        say(f"    _weight_int4pack_mm refused: {str(e).splitlines()[0]}")
+        return None
+    it = [0]
+
+    def run():
+        it[0] += 1
+        w, sz = packed[it[0] % len(packed)]
+        return torch._weight_int4pack_mm(x, w, 128, sz).to(out_dtype)
+    return time_ms(torch, run)
+
+
 def device_profile(torch, fn, reps: int):
     """(busy ms per rep, [(ms per rep, kernel name)] by time) of ``reps``
     calls of ``fn`` under torch.profiler: the card's busy time is the sum
@@ -802,7 +909,7 @@ def _short(kernel_name: str) -> str:
 # kernel D2 (the prefill modes), kernel D (the decode modes), E/F, cuBLAS
 KERNEL_GROUPS = (("D2", ("attention_prefill_kernel",)),
                  ("D", ("attention_decode_kernel",)),
-                 ("E/F", ("quant_matmul_kernel",)),
+                 ("E/F", ("quant_matmul_decode", "quant_matmul_prefill")),
                  ("cuBLAS", ("nvjet", "gemm", "cutlass", "xmma")))
 
 

@@ -17,7 +17,8 @@ import torch
 from llm_inference_engine_tpu_torch.config import (
     EngineConfig, ModelConfig, PRESETS, get_config)
 from llm_inference_engine_tpu_torch.models import weights as W
-from llm_inference_engine_tpu_torch.runtime.engine import InferenceEngine
+from llm_inference_engine_tpu_torch.runtime.engine import (
+    InferenceEngine, check_kernel_dtypes)
 
 __all__ = ["create_engine", "create_dummy_engine", "create_real_engine"]
 
@@ -49,6 +50,7 @@ def create_dummy_engine(model: str,
     (born quantized when ``engine_config.quant_mode`` says so)."""
     device = _on_device(device)
     cfg = _resolve_config(model)
+    check_kernel_dtypes(cfg, engine_config, device)
     if engine_config.quant_mode in ("int8", "int4"):
         params = W.init_dummy_quantized_params(
             cfg, engine_config.quant_mode, engine_config.quant_group_size,
@@ -66,6 +68,7 @@ def create_real_engine(model: str, checkpoint_path: str,
     re-quantization."""
     device = _on_device(device)
     cfg = _resolve_config(model)
+    check_kernel_dtypes(cfg, engine_config, device)
     if checkpoint_path.endswith(".npz"):
         return InferenceEngine(cfg, engine_config,
                                W.load_saved_params(checkpoint_path, device),

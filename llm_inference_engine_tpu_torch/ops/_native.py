@@ -98,6 +98,8 @@ _SIGNATURES = {
     "int4_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _I, _P],
     # x, q, scale, out, m, k, n, halves, q_half, s_half, out_f32, stream
     "int8_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _P],
+    # m, k, n, halves, int4, group, out[8]
+    "quant_matmul_plan": [_I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -19,8 +19,10 @@ scalar-prefetched layer index.
 
 Routing follows the JAX package: at m < 1024 rows the fused kernels run,
 E (``int4_matmul``) or F (``int8_matmul``), CUDA C++ in
-``csrc/quant_matmul.cu``; at m >= 1024 (``_PREFILL_M``) the weight is
-dequantized once to bf16 (INT4: kernel G, ``dequant_int4``, Triton in
+``csrc/quant_matmul.cu``, in one of two modes that
+:func:`quant_matmul_plan` describes (a decode mode at m <= 16, split-K
+over a thread-block cluster; a prefill mode on wgmma above); at m >= 1024
+(``_PREFILL_M``) the weight is dequantized once to bf16 (INT4: kernel G, ``dequant_int4``, Triton in
 ``_triton_kernels.py``; INT8: an exact cast) and a plain bf16
 ``torch.matmul`` with f32 accumulation runs, as the JAX package's
 ``_large_m_linear`` leaves that product to XLA. The INT4 large-m path
@@ -41,7 +43,7 @@ from typing import Optional
 
 import torch
 
-from llm_inference_engine_tpu_torch.utils import use_kernel
+from llm_inference_engine_tpu_torch.utils import cdiv, use_kernel
 
 __all__ = [
     "QuantizedTensor",
@@ -56,9 +58,26 @@ __all__ = [
     "int8_matmul_torch",
     "dequant_int4",
     "dequant_int4_torch",
+    "quant_matmul_plan",
+    "quant_matmul_plan_native",
+    "cluster_k_ranges",
 ]
 
 _PREFILL_M = 1024   # m >= this dequantizes once and runs a bf16 matmul
+
+# The plan of kernels E and F (``make_plan`` in csrc/quant_matmul.cu; a
+# card test holds the two equal).
+_DECODE_M = 16             # m <= this: the decode mode
+_DEC_COLS = 64             # output columns of a decode block
+_INT8_UNIT = 128           # K rows of an INT8 split unit
+_DEC_STAGE_K = {True: 256, False: 128}   # K rows a decode stage (INT4, INT8)
+_DEC_STAGES = {True: 3, False: 4}        # decode ring stages
+_MAX_CLUSTER = 8
+_PRE_COLS = 128            # output columns of a prefill block
+_PRE_K = 128               # K elements a prefill stage
+_PRE_STAGES = 4
+_PLAN_KEYS = ("mode", "rows", "cols", "cluster", "blocks", "stages",
+              "smem_bytes")
 
 
 @dataclasses.dataclass
@@ -261,6 +280,76 @@ def dequant_int4_torch(q: torch.Tensor, scale: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# the plan of kernels E and F
+# ---------------------------------------------------------------------------
+
+def _decode_split(m: int, k: int, n: int, halves: int, int4: bool,
+                  group: int, sms: int):
+    """(split unit in K rows, split units, blocks a cluster) of the decode
+    mode: the smallest power-of-two cluster (<= 8, >= 2 units a rank) that
+    gives >= 2 blocks an SM."""
+    su = group if int4 else _INT8_UNIT
+    nsu = cdiv(k, su)
+    tiles = cdiv(n, _DEC_COLS) * halves
+    cs = 1
+    while cs < _MAX_CLUSTER and 2 * cs <= nsu and tiles * cs < 2 * sms:
+        cs *= 2
+    return su, nsu, cs
+
+
+def quant_matmul_plan(m: int, k: int, n: int, halves: int = 1, *,
+                      int4: bool = True, group: int = 128,
+                      sms: int = 132) -> dict:
+    """Kernel E's (``int4``) or F's plan for x [m, k] times a [k, n] weight
+    (``halves`` = 2: the gate|up stack) on ``sms`` SMs, as
+    ``csrc/quant_matmul.cu`` makes it: mode ("decode" at m <= 16 with
+    INT4 groups of 64 or 128, else "prefill"), x rows and output columns a
+    block, blocks a cluster along K, blocks, ring stages and dynamic shared
+    memory a block. Pure Python: the CPU tests call it;
+    :func:`quant_matmul_plan_native` asks the built library."""
+    if m <= _DECODE_M and (not int4 or group in (64, 128)):
+        rows = 8 if m <= 8 else 16
+        _, _, cs = _decode_split(m, k, n, halves, int4, group, sms)
+        stages, kk = _DEC_STAGES[int4], _DEC_STAGE_K[int4]
+        stage = (128 * _DEC_COLS + rows * (kk * 2 + 16)
+                 + (kk // 64 * _DEC_COLS * 4 if int4 else 0))
+        return dict(mode="decode", rows=rows, cols=_DEC_COLS, cluster=cs,
+                    blocks=cdiv(n, _DEC_COLS) * halves * cs, stages=stages,
+                    smem_bytes=1024 + stages * stage + 8 * stages)
+    rows = 64 if m <= 64 else 128
+    stage = rows * _PRE_K * 2 + (_PRE_K // 2 if int4 else _PRE_K) * _PRE_COLS
+    return dict(mode="prefill", rows=rows, cols=_PRE_COLS, cluster=1,
+                blocks=cdiv(n, _PRE_COLS) * halves * cdiv(m, rows),
+                stages=_PRE_STAGES,
+                smem_bytes=1024 + _PRE_STAGES * stage + 2 * _PRE_STAGES * 8)
+
+
+def cluster_k_ranges(m: int, k: int, n: int, halves: int = 1, *,
+                     int4: bool = True, group: int = 128,
+                     sms: int = 132) -> list:
+    """The K rows [lo, hi) of each cluster rank in the decode mode: whole
+    split units, balanced (rank r takes units [r u / c, (r + 1) u / c))."""
+    su, nsu, cs = _decode_split(m, k, n, halves, int4, group, sms)
+    return [(r * nsu // cs * su, min((r + 1) * nsu // cs * su, k))
+            for r in range(cs)]
+
+
+def quant_matmul_plan_native(m: int, k: int, n: int, halves: int = 1, *,
+                             int4: bool = True, group: int = 128) -> dict:
+    """The plan from the built library on the card (``quant_matmul_plan``
+    in ``csrc/quant_matmul.cu``), with the blocks an SM holds."""
+    import ctypes
+    from llm_inference_engine_tpu_torch.ops import _native
+    out = (ctypes.c_int * 8)()
+    status = _native.library().quant_matmul_plan(m, k, n, halves, int(int4),
+                                                 group, out)
+    _native.check(status, "quant_matmul_plan")
+    plan = dict(zip(_PLAN_KEYS + ("blocks_per_sm",), out))
+    plan["mode"] = ("decode", "prefill")[plan["mode"]]
+    return plan
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -300,8 +389,8 @@ def _check_fused(name, x2, q, scale, out_dtype, int4: bool, group_size: int):
     if k % 8 or n % 16:
         raise ValueError(f"{name}: the kernel's 16-byte copies need k % 8 "
                          f"== 0 and n % 16 == 0 (k {k}, n {n})")
-    if x2.data_ptr() % 16 or q.data_ptr() % 16:
-        raise ValueError(f"{name}: x and q must be 16-byte aligned")
+    if x2.data_ptr() % 16 or q.data_ptr() % 16 or scale.data_ptr() % 16:
+        raise ValueError(f"{name}: x, q and scale must be 16-byte aligned")
     return halves, k, n
 
 

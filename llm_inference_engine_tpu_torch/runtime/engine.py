@@ -50,7 +50,7 @@ from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
 from llm_inference_engine_tpu_torch.ops.sampling import (
     apply_penalties, greedy_sample, sample_tokens, token_logprobs)
 
-__all__ = ["InferenceEngine", "GenerationResult"]
+__all__ = ["InferenceEngine", "GenerationResult", "check_kernel_dtypes"]
 
 
 @dataclasses.dataclass
@@ -71,6 +71,27 @@ def _bucket_len(n: int, floor: int = 16, cap: int | None = None) -> int:
     return min(b, cap) if cap is not None else b
 
 
+def check_kernel_dtypes(config: ModelConfig, eng: EngineConfig,
+                        device) -> None:
+    """Refuse, before anything is allocated, an engine whose kernels
+    cannot take its dtypes: on a CUDA device with ``kernels`` other than
+    "torch", the attention, KV-write and quantized-matmul kernels take a
+    bf16 model (and a bf16 or int8 cache) only. Raises ValueError naming
+    the dtype."""
+    if torch.device(device).type != "cuda" or eng.kernels == "torch":
+        return
+    cache = eng.kv_cache_dtype or config.dtype
+    for what, dtype, allowed in (("model", config.dtype, (torch.bfloat16,)),
+                                 ("KV cache", cache,
+                                  (torch.bfloat16, torch.int8))):
+        if dtype not in allowed:
+            raise ValueError(
+                f"{config.name}: {what} dtype {dtype} on {device}: the CUDA "
+                "kernels (attention, KV write, quantized matmul) take "
+                "bfloat16 only (an int8 KV cache too); use a bfloat16 "
+                "config or kernels='torch'")
+
+
 def _refuse_unported(eng: EngineConfig) -> None:
     if eng.dp > 1 or eng.tp > 1 or eng.cp > 1:
         raise NotImplementedError(
@@ -88,13 +109,15 @@ class InferenceEngine:
     def __init__(self, config: ModelConfig, engine_config: EngineConfig,
                  params: dict, rng_seed: int = 0, device=None):
         _refuse_unported(engine_config)
+        device = torch.device(device) if device is not None else \
+            params["embed"].device
+        check_kernel_dtypes(config, engine_config, device)
         # NTK rope scaling folds into rope_theta at the engine's context
         # length (config.NTKScaling: one theta, cached keys consistent)
         config = resolve_rope_scaling(config, engine_config.max_seq_len)
         self.config = config
         self.engine_config = engine_config
-        self.device = torch.device(device) if device is not None else \
-            params["embed"].device
+        self.device = device
         self.params = params
         B, V = engine_config.max_batch_size, config.vocab_size
         # an int8 cache holds int8 values and f32 scale planes

@@ -35,7 +35,8 @@ from llm_inference_engine_tpu_torch.models.weights import (
     init_dummy_params, param_bytes, param_count, params_from_numpy)
 from llm_inference_engine_tpu_torch.ops import _native
 from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
-from llm_inference_engine_tpu_torch.runtime.engine import InferenceEngine
+from llm_inference_engine_tpu_torch.runtime.engine import (
+    InferenceEngine, check_kernel_dtypes)
 
 
 @pytest.fixture(autouse=True)
@@ -239,6 +240,34 @@ def test_create_engine_dummy_and_unported_paths():
                                                   max_new_tokens=4),
                       eos_token_id=None)
     assert out.num_generated == [4]
+
+
+@pytest.mark.parametrize("dtype,kv,device,kernels,refused", [
+    ("float32", "", "cuda", "auto", "model dtype torch.float32"),
+    ("float32", "", "cuda", "cuda", "model dtype torch.float32"),
+    ("bfloat16", "float32", "cuda", "auto", "KV cache dtype torch.float32"),
+    ("float16", "", "cuda", "auto", "model dtype torch.float16"),
+    ("float32", "", "cuda", "torch", None),
+    ("float32", "", "cpu", "auto", None),
+    ("bfloat16", "", "cuda", "auto", None),
+    ("bfloat16", "int8", "cuda", "auto", None)])
+def test_kernel_dtype_check_refuses_before_allocating(dtype, kv, device,
+                                                      kernels, refused):
+    """On a CUDA device the kernels take a bf16 model and a bf16 or int8
+    cache; anything else is refused with the dtype named, before the
+    engine allocates (here its params lie on the CPU and no card exists,
+    so any allocation on the device would fail otherwise)."""
+    cfg = get_config("debug").replace(dtype_name=dtype)
+    eng = EngineConfig(max_batch_size=2, max_seq_len=32,
+                       kv_cache_dtype_name=kv, kernels=kernels)
+    if refused is None:
+        check_kernel_dtypes(cfg, eng, torch.device(device))
+        return
+    with pytest.raises(ValueError, match=refused):
+        check_kernel_dtypes(cfg, eng, torch.device(device))
+    params = init_dummy_params(cfg, seed=0, device="cpu")
+    with pytest.raises(ValueError, match="bfloat16 only"):
+        InferenceEngine(cfg, eng, params, device=device)
 
 
 @pytest.mark.parametrize("factory", ["create_engine", "create_dummy_engine",

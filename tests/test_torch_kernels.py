@@ -274,23 +274,40 @@ def _run_fused(t, x, out_dtype, kernels):
     return quant.int8_matmul(x, t.q, t.scale, out_dtype, kernels=kernels)
 
 
+def _held_against_plain(t, x, out_dtype, **tol):
+    before = _fused(t.mode).launches
+    got = _run_fused(t, x, out_dtype, "cuda")
+    torch.cuda.synchronize()
+    assert _fused(t.mode).launches == before + 1
+    assert got.dtype == out_dtype
+    torch.testing.assert_close(got, _run_fused(t, x, out_dtype, "torch"),
+                               **(tol or TOL))
+    return got
+
+
+# m of both modes: decode 8-row (1, 5, 8) and 16-row (9, 16) tiles,
+# prefill 64-row (17, 33, 64) and 128-row (300, 512, 1023) tiles
 @pytest.mark.parametrize("mode", ["int4", "int8"])
-@pytest.mark.parametrize("m", [1, 5, 33, 300, 1023])
+@pytest.mark.parametrize("m", [1, 5, 8, 9, 16, 17, 33, 64, 300, 512, 1023])
 def test_fused_quant_matmul_kernels(cuda, mode, m):
-    """K = 11008 (no power of two divides it past 256), n = 384 (ragged
-    against the 64-column tiles), bf16 out."""
+    """K = 11008 (86 scale groups: no power of two divides it past 256,
+    uneven over a cluster of 8), n = 384, bf16 out."""
     t = _qweight(cuda, mode, 11008, 384)
     x = torch.randn(m, 11008, device=cuda, dtype=torch.bfloat16)
-    before = _fused(mode).launches
-    got = _run_fused(t, x, torch.bfloat16, "cuda")
-    torch.cuda.synchronize()
-    assert _fused(mode).launches == before + 1
-    torch.testing.assert_close(got, _run_fused(t, x, torch.bfloat16, "torch"),
-                               **TOL)
+    _held_against_plain(t, x, torch.bfloat16)
 
 
 @pytest.mark.parametrize("mode", ["int4", "int8"])
-@pytest.mark.parametrize("m", [5, 300])
+@pytest.mark.parametrize("m", [1, 8, 9, 16, 17, 64, 512, 1023])
+def test_fused_quant_matmul_k4096_ragged_n(cuda, mode, m):
+    """K = 4096, n = 1040: ragged against the 64- and 128-column tiles."""
+    t = _qweight(cuda, mode, 4096, 1040)
+    x = torch.randn(m, 4096, device=cuda, dtype=torch.bfloat16)
+    _held_against_plain(t, x, torch.bfloat16)
+
+
+@pytest.mark.parametrize("mode", ["int4", "int8"])
+@pytest.mark.parametrize("m", [5, 16, 300, 512])
 def test_fused_quant_matmul_gate_up_stack(cuda, mode, m):
     """One launch over both halves of a layer of the [L, 2, k', I] stack
     (a view with an offset), flat [m, gate | up] out."""
@@ -309,15 +326,53 @@ def test_fused_quant_matmul_gate_up_stack(cuda, mode, m):
 
 
 @pytest.mark.parametrize("mode", ["int4", "int8"])
-def test_fused_quant_matmul_f32_out(cuda, mode):
+@pytest.mark.parametrize("m", [8, 16])
+def test_fused_quant_matmul_f32_out(cuda, mode, m):
     """The lm_head: bf16 x, f32 out, vocab 32000 (not a power of two).
     Only the order of the f32 sums differs from the plain version."""
     t = _qweight(cuda, mode, 4096, 32000)
-    x = torch.randn(8, 4096, device=cuda, dtype=torch.bfloat16)
-    got = _run_fused(t, x, torch.float32, "cuda")
-    want = _run_fused(t, x, torch.float32, "torch")
-    assert got.dtype == torch.float32
-    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)
+    x = torch.randn(m, 4096, device=cuda, dtype=torch.bfloat16)
+    _held_against_plain(t, x, torch.float32, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["int4", "int8"])
+@pytest.mark.parametrize("m,k,n", [(8, 11008, 4096), (16, 4096, 4096),
+                                   (512, 4096, 1040)])
+def test_fused_quant_matmul_is_deterministic(cuda, mode, m, k, n):
+    """Two launches on the same inputs are bit-identical: the decode
+    mode's cluster merge sums the ranks in order, with no atomics."""
+    t = _qweight(cuda, mode, k, n)
+    x = torch.randn(m, k, device=cuda, dtype=torch.bfloat16)
+    first = _run_fused(t, x, torch.bfloat16, "cuda")
+    second = _run_fused(t, x, torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("m", [8, 16, 512])
+def test_quant_matmul_plan_mirror_equals_library(cuda, m):
+    """ops.quant.quant_matmul_plan (Python, what the CPU tests check)
+    equals the library's quant_matmul_plan on every 7B projection."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cfg = get_config("llama2-7b")
+    H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    for k, n, halves in ((H, 3 * H, 1), (H, H, 1), (H, I, 2), (I, H, 1),
+                         (H, V, 1)):
+        for int4 in (True, False):
+            native = quant.quant_matmul_plan_native(m, k, n, halves,
+                                                    int4=int4)
+            assert native.pop("blocks_per_sm") >= 1
+            assert native == quant.quant_matmul_plan(
+                m, k, n, halves, int4=int4, sms=sms), (k, n, halves, int4)
+
+
+def test_debug_preset_is_refused_on_the_card(cuda):
+    """The f32 debug preset: refused at construction, naming the dtype,
+    where the kernels would raise deep inside the first forward."""
+    from llm_inference_engine_tpu_torch.models.registry import create_engine
+    with pytest.raises(ValueError, match="float32"):
+        create_engine("debug", None, EngineConfig(max_batch_size=2,
+                                                  max_seq_len=32))
 
 
 @pytest.mark.parametrize("k,n,halves", [(11008, 384, 1), (512, 1040, 2)])

@@ -404,3 +404,69 @@ def test_unported_quantization_paths_raise(tmp_path):
         create_engine("debug", str(tmp_path),
                       EngineConfig(quant_mode="int4", quant_group_size=64),
                       device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the plan of kernels E and F (csrc/quant_matmul.cu; a card test holds the
+# Python mirror equal to the library's)
+# ---------------------------------------------------------------------------
+
+def _projections(name):
+    """(label, k, n, halves) of a preset's quantized matmuls."""
+    cfg = get_config(name)
+    H, I = cfg.hidden_size, cfg.intermediate_size
+    return [("wqkv", H, cfg.qkv_size, 1), ("wo", cfg.q_size, H, 1),
+            ("gate|up", H, I, 2), ("down", I, H, 1),
+            ("lm_head", H, cfg.vocab_size, 1)]
+
+
+@pytest.mark.parametrize("int4", [True, False], ids=["int4", "int8"])
+@pytest.mark.parametrize("m", [8, 16])
+@pytest.mark.parametrize("model", ["llama2-7b", "llama3-8b", "mistral-7b",
+                                   "qwen2-7b"])
+def test_decode_plan_fills_the_card_with_whole_groups(model, m, int4):
+    """Decode mode on 132 SMs: >= 2 blocks an SM for every projection
+    (n = 4096 included), and every cluster rank a whole number of scale
+    groups (INT4) or 128-row units (INT8), balanced and covering K."""
+    for label, k, n, halves in _projections(model):
+        plan = quant.quant_matmul_plan(m, k, n, halves, int4=int4, sms=132)
+        assert plan["mode"] == "decode" and plan["rows"] == (8 if m <= 8
+                                                             else 16), label
+        assert plan["blocks"] >= 2 * 132, (label, plan)
+        assert plan["cluster"] in (1, 2, 4, 8), (label, plan)
+        assert plan["smem_bytes"] <= 232448, (label, plan)
+        ranges = quant.cluster_k_ranges(m, k, n, halves, int4=int4, sms=132)
+        assert len(ranges) == plan["cluster"]
+        assert ranges[0][0] == 0 and ranges[-1][1] == k, label
+        unit = 128
+        sizes = []
+        for (lo, hi), (nxt, _) in zip(ranges, ranges[1:] + [(k, k)]):
+            assert hi == nxt and hi > lo, (label, ranges)
+            assert lo % unit == 0 and (hi == k or hi % unit == 0), label
+            sizes.append(-(-(hi - lo) // unit))
+        assert max(sizes) - min(sizes) <= 1, (label, ranges)
+
+
+def test_plan_modes_follow_m():
+    """m <= 8: 8-row decode tiles; 9-16: 16-row ones; above: the prefill
+    mode, 64-row tiles up to m = 64, then 128; the routing's 1024 is not
+    the plan's. Shared memory fits a block at every m."""
+    for m, mode, rows in ((1, "decode", 8), (8, "decode", 8),
+                          (9, "decode", 16), (16, "decode", 16),
+                          (17, "prefill", 64), (64, "prefill", 64),
+                          (65, "prefill", 128), (512, "prefill", 128),
+                          (1023, "prefill", 128)):
+        for int4 in (True, False):
+            plan = quant.quant_matmul_plan(m, 4096, 12288, int4=int4)
+            assert (plan["mode"], plan["rows"]) == (mode, rows), (m, plan)
+            assert plan["smem_bytes"] <= 232448
+            if mode == "prefill":
+                assert plan["cluster"] == 1 and plan["cols"] == 128
+                assert plan["blocks"] == 96 * -(-m // rows)
+    # INT4 groups other than 64 and 128 take the prefill mode at any m
+    for group in (64, 128, 256):
+        plan = quant.quant_matmul_plan(8, 4096, 4096, group=group)
+        assert plan["mode"] == ("prefill" if group == 256 else "decode")
+    assert quant.quant_matmul_plan(8, 4096, 4096, int4=False)["mode"] == \
+        "decode"
+    assert quant._PREFILL_M == 1024

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time kernel D's rows of ``chip_smoke.py`` in two checkouts, in turns, on
-one CUDA card (an H100).
+"""Time kernel rows of ``chip_smoke.py`` in two checkouts, in turns, on one
+CUDA card (an H100).
 
-    python3 tools/chip_kernel_ab.py PARENT_ROOT [CHANGE_ROOT]
+    python3 tools/chip_kernel_ab.py [--rows attention|quant] PARENT_ROOT
+        [CHANGE_ROOT]
 
 PARENT_ROOT and CHANGE_ROOT (default: this checkout) are roots of the
 repository, e.g. a parent commit unpacked with ``git archive`` into a
@@ -19,6 +20,13 @@ attention rows (kernel ms of the first timed case of each row, as in the
 ``kernels`` line of ``chip_smoke.py``, and the GQA rows), then one JSON
 line with every run's times and, per row, the mean of the change's runs
 over the mean of the parent's. It fails where there is no card.
+
+``--rows quant`` times kernels E and F instead, and only them: each run
+builds its root's kernels and times them at ``QUANT_ROWS`` (the decode
+projections and lm_head at m = 8, wo and down at m = 16, the four
+projections at m = 512, weights cycled past the L2 as in phase 3b)
+through this checkout's ``chip_smoke.quant_rows``, which calls only the
+wrappers every tree has.
 """
 
 from __future__ import annotations
@@ -32,9 +40,10 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent.parent
 
 
-def one(root: Path) -> dict:
+def one(root: Path, rows: str = "attention") -> dict:
     """Run the kernel phases of ``root``'s chip_smoke.py in this process;
-    return {row: kernel ms} of its attention rows."""
+    return {row: kernel ms} of its attention rows (``rows="quant"``: of
+    kernels E and F at QUANT_ROWS)."""
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_kernel_ab: no CUDA device")
@@ -49,22 +58,29 @@ def one(root: Path) -> dict:
                          f"not the package of {root}")
     _native.library()
     dev = torch.device("cuda", 0)
-    results: dict = {}
-    for fn in (smoke.phase_kernels, smoke.phase_paged_kernels,
-               smoke.phase_kv_int8_kernels):
-        fn(torch, dev, results)
     spec = importlib.util.spec_from_file_location(
         "chip_smoke_here", HERE / "chip_smoke.py")
     here = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(here)
+    if rows == "quant":
+        return here.quant_rows(torch, dev)
+    results: dict = {}
+    for fn in (smoke.phase_kernels, smoke.phase_paged_kernels,
+               smoke.phase_kv_int8_kernels):
+        fn(torch, dev, results)
     gqa = here.gqa_decode_cases(torch, dev, {})
     return {**{name: r["ms"] for name, r in results.items()
                if name.startswith("attention") and "ms" in r}, **gqa}
 
 
 def main(argv) -> int:
+    rows = "attention"
+    if len(argv) >= 2 and argv[0] == "--rows":
+        rows, argv = argv[1], argv[2:]
+    if rows not in ("attention", "quant"):
+        raise SystemExit(__doc__)
     if len(argv) >= 2 and argv[0] == "--one":
-        print(json.dumps(one(Path(argv[1]).resolve())), flush=True)
+        print(json.dumps(one(Path(argv[1]).resolve(), rows)), flush=True)
         return 0
     if len(argv) not in (1, 2):
         raise SystemExit(__doc__)
@@ -78,7 +94,8 @@ def main(argv) -> int:
     runs = []
     for tag, root in (("parent", parent), ("change", change),
                       ("change", change), ("parent", parent)):
-        proc = subprocess.run([sys.executable, __file__, "--one", str(root)],
+        proc = subprocess.run([sys.executable, __file__, "--rows", rows,
+                               "--one", str(root)],
                               capture_output=True, text=True, cwd=root)
         if proc.returncode != 0:
             sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])

@@ -8,7 +8,8 @@ Runs ``nvcc -Xptxas -v -c`` (the flags of ``ops/_native.py``) on each
 ``llm_inference_engine_tpu_torch/csrc/*.cu`` (or the sources named), one
 process per source, all started together, and prints one line per kernel
 instance: registers a thread, spill stores and loads (bytes) and static
-shared memory. Kernels D and D2 take dynamic shared memory, which ptxas
+shared memory, after any warning ptxas gives (a wgmma serialized, a
+setmaxnreg ignored). Kernels D and D2 take dynamic shared memory, which ptxas
 does not see: the sources report it (``ops.attention.decode_plan`` and
 ``prefill_plan``, printed by ``chip_smoke.py``). Needs nvcc (the machine
 with the card).
@@ -73,6 +74,10 @@ def main(argv) -> int:
                 print(out)
                 failed = True
                 continue
+            for line in out.splitlines():   # e.g. wgmma serialized
+                if ("warning" in line.lower()
+                        or "Performance Loss" in line):
+                    print(f"{src.name}: {line.strip()}", flush=True)
             rows = parse(out)
             names = demangle([r[0] for r in rows])
             for (_, regs, st, ld, smem), name in sorted(
