@@ -30,7 +30,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    at the engine's B8, timed; every decode row prints kernel D's split
    plan (blocks a cluster, tile, stages, shared memory, blocks an SM
    holds), and D2's tiling of every head dim is printed; the decode rows
-   are held per row (DECODE_ROW_TOL);
+   are held per row (DECODE_ROW_TOL); every K/V row write (C, H, H's
+   int8 mode, I) prints its floor (floor_ms: one ``copy_`` of the same
+   live rows under the same warm or cold method), and H and its int8
+   mode are also timed at decode shape (B = 8 and 16, one token each at
+   odd in-page offsets, DECODE_WRITE_STARTS), I at 8 x 64 as well as
+   8 x 512;
 4. the main paths, each through ``create_engine`` with dummy weights (seed
    0) at full width and depth, with every launch counter set to 0 just
    before the path and read just after, and a rerun of round 1 with
@@ -45,7 +50,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
       64: a paged engine (page 64) and a slot engine give bit-identical
       prefill logits and the same 32 greedy tokens; the paged engine
       launches H and D's paged modes and never kernel C or the fused
-      decode; steady paged decode steps are timed and profiled;
+      decode; steady paged decode steps are timed and profiled, and a
+      warm paged prefill is profiled (card busy by kernel group);
    e. the serving path: the port's HTTP server in-process on
       127.0.0.1:0 over the continuous-batching scheduler and a paged
       INT4 engine (B=16, 193 pages of 64 = 12288 tokens, automatic prefix
@@ -75,7 +81,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    and 256, at small shapes, D's four decode modes, D2's four prefill
    modes and I's two writes; 4j runs after 4g, before 4d); every
    profiled step and prefill prints its device time by kernel group
-   (KERNEL_GROUPS);
+   (KERNEL_GROUPS, the writes among them);
 5. one JSON line of kernel results (each with its time, its plain
    version's, its bound from this run's inputs and, where one PyTorch call
    computes the same function, that call's time), the nvidia-smi line,
@@ -222,7 +228,7 @@ _FLUSH = []
 
 
 def time_ms(torch, fn, iters: int = 10, warmup: int = 2,
-            cold: bool = False) -> float:
+            cold: bool = False, clean: bool = False) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back launches.
 
     A ~30 ms device-side sleep is queued first, so the host has enqueued
@@ -234,13 +240,22 @@ def time_ms(torch, fn, iters: int = 10, warmup: int = 2,
     across repeats, unless ``cold``: then 128 MB are written before each
     launch (warm-up included), so the L2 holds none of its inputs; each
     launch is timed between its own pair of events, and the median is
-    returned."""
+    returned. Written lines are dirty: a launch that evicts them pays
+    their writeback. ``clean`` reads the 128 MB instead (a sum), leaving
+    clean lines, so the two methods together show what the writebacks
+    cost."""
     if cold and not _FLUSH:
         _FLUSH.append(torch.zeros(32 << 20, dtype=torch.float32,
                                   device="cuda"))
+
+    def flush():
+        if clean:
+            _FLUSH[0].sum()
+        else:
+            _FLUSH[0].zero_()
     for _ in range(warmup):
         if cold:
-            _FLUSH[0].zero_()
+            flush()
         fn()
     torch.cuda.synchronize()
     if cold:
@@ -249,7 +264,7 @@ def time_ms(torch, fn, iters: int = 10, warmup: int = 2,
                   for _ in range(iters)]
         torch.cuda._sleep(50_000_000)
         for start, end in events:
-            _FLUSH[0].zero_()
+            flush()
             start.record()
             fn()
             end.record()
@@ -275,9 +290,11 @@ def bound_ms(work):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def record(name, err, results, case, timed=None, work=None, library=None):
+def record(name, err, results, case, timed=None, work=None, library=None,
+           floor=None):
     """Record a kernel's check; the first timed case is the main path's
-    shape, and its time, work and library time go into the JSON line."""
+    shape, and its time, work and library time go into the JSON line. A
+    write row's ``floor`` (floor_ms) is printed beside its time."""
     r = results.setdefault(name, {"max_abs_err": 0.0})
     r["max_abs_err"] = max(r["max_abs_err"], err)
     line = f"  {name:22s} {case:44s} max_abs_err {err:.3e}"
@@ -291,11 +308,13 @@ def record(name, err, results, case, timed=None, work=None, library=None):
             line += f"  bound {b:.4f} ms ({by}, {b / ms:.2f} of it)"
         if library is not None:
             line += f"  library {library:.4f} ms"
+        if floor is not None:
+            line += f"  floor {floor:.4f} ms ({ms / floor:.2f}x it)"
     say(line)
 
 
 def check_close(torch, name, got, want, results, case, timed=None,
-                work=None, library=None, row_rel=None):
+                work=None, library=None, row_rel=None, floor=None):
     """Hold a kernel's result against the plain version's; record it.
     With ``row_rel``, each element is held to 2^-7 of itself plus
     ``row_rel`` times the RMS of its row (the last dimension) in place of
@@ -317,11 +336,11 @@ def check_close(torch, name, got, want, results, case, timed=None,
     if bad or not torch.isfinite(g).all():
         raise AssertionError(f"{name} [{case}]: kernel disagrees with its "
                              f"plain version (max abs err {err})")
-    record(name, err, results, case, timed, work, library)
+    record(name, err, results, case, timed, work, library, floor)
 
 
 def hold_int8_write(torch, name, got, want, results, case, timed=None,
-                    work=None):
+                    work=None, floor=None):
     """Hold an int8 KV write (values, scale planes) against the plain
     version's: bit for bit, or else within the CPU tests' limits, with the
     share that differs printed. Records the largest difference of the
@@ -338,7 +357,8 @@ def hold_int8_write(torch, name, got, want, results, case, timed=None,
         if diff.max().item() > 1 or share > INT8_SHARE or rel > INT8_SCALE_REL:
             raise AssertionError(f"{name} [{case}]: {note}")
     err = (gv.float() * gs[..., None] - wv.float() * ws[..., None]).abs()
-    record(name, err.max().item(), results, f"{case} {note}", timed, work)
+    record(name, err.max().item(), results, f"{case} {note}", timed, work,
+           floor=floor)
 
 
 def attn_work(q_start, kv_len, T, H, K, D, kv_elem=2, new_rows=0):
@@ -391,6 +411,23 @@ def index_copy_ms(torch, pools, news, rows_of):
             for n in news]
     return time_ms(torch, lambda: [v.index_copy_(0, idx, s)
                                    for v, s in zip(views, srcs)], cold=True)
+
+
+def floor_ms(torch, news, picked, out_dtype, cold, clean=False):
+    """The floor of a K/V row write: one ``torch.Tensor.copy_`` of its live
+    new rows (k and v, gathered into one contiguous tensor beforehand) into
+    a contiguous tensor of the output's element type (bf16, or int8 by
+    torch's cast), timed under the row's own method (``cold``: the L2
+    flushed before each launch, as time_ms does, by writes unless
+    ``clean``). It moves the row's bytes in one launch with no table, no
+    scatter and no scales: the practical ceiling of a write kernel under
+    that method, its launch and the flush's writebacks included. It is no
+    library version of the write (the bound column stays the bytes over
+    the HBM rate)."""
+    idx = torch.as_tensor(picked, device=news[0].device, dtype=torch.long)
+    src = torch.stack([n.reshape(-1, *n.shape[2:])[idx] for n in news])
+    dst = torch.empty(src.shape, dtype=out_dtype, device=src.device)
+    return time_ms(torch, lambda: dst.copy_(src), cold=cold, clean=clean)
 
 
 def slot_rows(starts, new_len, T, S):
@@ -520,8 +557,8 @@ def phase_kernels(torch, dev, results) -> None:
                     work=(3 * n * 11008 * 2, 5 * n * 11008))
 
     # C: a 512-token prefill chunk into the full 7B cache at layer 31
-    L, B, S, K, D, T = 32, 4, 2048, 32, 128, 512
-    starts_l, new_len_l = [0, 100, 1000, 1535], [512, 300, 1, 0]
+    L, B, S, K, D = 32, 4, 2048, 32, 128
+    T, starts_l, new_len_l = C_CHUNK
     starts, new_len = ints(starts_l), ints(new_len_l)
     kn, vn = randn(B, T, K, D), randn(B, T, K, D)
     cache = kvc.new_kv_cache(L, B, K, S, D, device=dev)
@@ -544,7 +581,9 @@ def phase_kernels(torch, dev, results) -> None:
                 work=write_work(len(rows), K, D),
                 library=index_copy_ms(torch, (cache.k[31], cache.v[31]),
                                       (kn, vn), (ints(rows).long(),
-                                                 ints(picked).long())))
+                                                 ints(picked).long())),
+                floor=floor_ms(torch, (kn, vn), picked, torch.bfloat16,
+                               cold=True))
     del ref
 
     # D2's tiling of every instance (the paged modes tile alike)
@@ -664,6 +703,116 @@ QUANT_SHAPES = {"wqkv": (4096, 12288, 1), "wo": (4096, 4096, 1),
                 "lm_head": (4096, 32000, 1)}
 QUANT_ROWS = ([(8, p) for p in QUANT_SHAPES] + [(16, "wo"), (16, "down")]
               + [(512, p) for p in ("wqkv", "wo", "gate|up", "down")])
+
+
+def write_rows(torch, dev) -> dict:
+    """Kernel ms of the K/V row writes, no checks: C at C_CHUNK, H and its
+    int8 mode at 3c's mixed step (520 rows) and at decode shape (B = 8 and
+    16), cold; I at I_CHUNKS, warm (snapped); each beside its floor, and
+    the 520-row rows and their floors again under a clean flush
+    (time_ms's ``clean``). ``tools/chip_kernel_ab.py --rows writes`` times
+    another tree's kernels through this function, so it calls only the
+    wrappers every tree has."""
+    from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
+    from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+    bf16, i8 = torch.bfloat16, torch.int8
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    L, K, D, S = 32, 32, 128, 2048
+    out = {}
+
+    def ints(vals):
+        return torch.tensor(vals, device=dev, dtype=torch.int32)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=bf16)
+
+    def row(label, write, news, picked, dtype, cold, clean=False):
+        out[label] = time_ms(torch, write, cold=cold, clean=clean)
+        out[label + " floor"] = floor_ms(torch, news, picked, dtype, cold,
+                                         clean)
+
+    T, st, nl = C_CHUNK
+    cache = kvc.new_kv_cache(L, len(st), K, S, D, device=dev)
+    kn, vn = randn(len(st), T, K, D), randn(len(st), T, K, D)
+    starts, new_len = ints(st), ints(nl)
+    row(f"kv_write {len(st)}x{T} cold", lambda: kvc.update_cache_at_layer(
+        cache, 31, kn, vn, starts, new_len, kernels="cuda"), (kn, vn),
+        slot_rows(st, nl, T, S)[1], bf16, True)
+    del cache
+    cache = kvc.new_kv_cache(L, 8, K, S, D, device=dev, quantized=True,
+                             snapped=True)
+    for T, st, nl in I_CHUNKS:
+        kn, vn = randn(8, T, K, D), randn(8, T, K, D)
+        starts, new_len = ints(st), ints(nl)
+        row(f"kv_write_quant 8x{T} ({sum(nl)} rows) warm",
+            lambda: kvc.update_cache_at_layer(cache, 31, kn, vn, starts,
+                                              new_len, kernels="cuda"),
+            (kn, vn), slot_rows(st, nl, T, S)[1], i8, False)
+    del cache
+    torch.cuda.empty_cache()
+    maxp = S // 64
+    P = 1 + 16 * maxp
+    table = (torch.randperm(P - 1, generator=gen, device=dev) + 1).to(
+        torch.int32).reshape(16, maxp)
+    for quant, name, dtype in ((False, "paged_kv_write", bf16),
+                               (True, "paged_kv_write_int8", i8)):
+        pool = pkv.new_paged_kv_cache(L, 16, K, P, 64, D, maxp, device=dev,
+                                      quantized=quant)
+        pool.block_table.copy_(table)
+        kn, vn = randn(16, 64, K, D), randn(16, 64, K, D)
+        starts, new_len = ints(H_STARTS), ints(H_NEW_LEN)
+        picked = slot_rows(H_STARTS, H_NEW_LEN, 64, 0)[1]
+        for clean in (False, True):
+            row(f"{name} {sum(H_NEW_LEN)} rows cold"
+                + (" clean" if clean else ""),
+                lambda: pkv.paged_update_at_layer(
+                    pool, 31, kn, vn, starts, new_len, kernels="cuda"),
+                (kn, vn), picked, dtype, True, clean)
+        for B in (8, 16):
+            sub = dataclasses.replace(pool, block_table=pool.block_table[:B])
+            kn1, vn1 = randn(B, 1, K, D), randn(B, 1, K, D)
+            s1, n1 = ints(DECODE_WRITE_STARTS[:B]), ints([1] * B)
+            row(f"{name} decode B{B} cold", lambda: pkv.paged_update_at_layer(
+                sub, 31, kn1, vn1, s1, n1, kernels="cuda"), (kn1, vn1),
+                list(range(B)), dtype, True)
+        del pool
+        torch.cuda.empty_cache()
+    return out
+
+
+def prefill_rows(torch, dev) -> dict:
+    """Card busy ms of one warm prefill of 4b's prompts (llama2-7b INT4,
+    B = 8) and the K/V writes' share of it, no checks: paged with a bf16
+    pool (4d) and an int8 pool (4h), pages and chunks of 64, and slot with
+    an int8 cache (4g). ``tools/chip_kernel_ab.py --rows prefill`` times
+    another tree through this function, so it calls only what every tree
+    has."""
+    import numpy as np
+
+    from llm_inference_engine_tpu_torch.config import EngineConfig
+    from llm_inference_engine_tpu_torch.models.registry import create_engine
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(3, 32000, n).tolist() for n in QUANT_PROMPTS]
+    base = EngineConfig(max_batch_size=len(prompts), max_seq_len=2048,
+                        quant_mode="int4")
+    paged = dict(kv_layout="paged", page_size=64, max_prefill_len=64)
+    out = {}
+    for tag, cfg in (("4d bf16 pool", base.replace(**paged)),
+                     ("4h int8 pool", base.replace(
+                         kv_cache_dtype_name="int8", **paged)),
+                     ("4g int8 slot", base.replace(
+                         kv_cache_dtype_name="int8"))):
+        engine = create_engine("llama2-7b", None, cfg, seed=0, device=dev)
+        engine.prefill(prompts)                  # first use of each shape
+        engine.reset()
+        busy, per_kernel = device_profile(
+            torch, lambda: engine.prefill(prompts), 1)
+        out[f"{tag} prefill busy"] = busy
+        out[f"{tag} prefill writes"] = sum(
+            ms for ms, name in per_kernel if "kv_write" in name)
+        del engine
+        torch.cuda.empty_cache()
+    return out
 
 
 def quant_weights(torch, quant, dev, gen, mode, k, n, halves=1,
@@ -906,11 +1055,14 @@ def _short(kernel_name: str) -> str:
 
 
 # device time by group of kernels (profiler names, first match wins):
-# kernel D2 (the prefill modes), kernel D (the decode modes), E/F, cuBLAS
+# kernel D2 (the prefill modes), kernel D (the decode modes), E/F, cuBLAS,
+# the K/V row writes C, H, I (kv_write_kernel, paged_kv_write_kernel,
+# kv_write_quant_kernel)
 KERNEL_GROUPS = (("D2", ("attention_prefill_kernel",)),
                  ("D", ("attention_decode_kernel",)),
                  ("E/F", ("quant_matmul_decode", "quant_matmul_prefill")),
-                 ("cuBLAS", ("nvjet", "gemm", "cutlass", "xmma")))
+                 ("cuBLAS", ("nvjet", "gemm", "cutlass", "xmma")),
+                 ("writes", ("kv_write",)))
 
 
 def _groups(per_kernel) -> str:
@@ -1191,6 +1343,9 @@ def phase_main_path(torch, dev, results, path: str, eng_cfg, prompt_lens,
     return logits
 
 
+# kernel C's row (phase 3): a 512-token prefill chunk at B = 4 into the
+# full 7B slot cache, ragged, with a row of new_len 0: (T, starts, new_len)
+C_CHUNK = (512, [0, 100, 1000, 1535], [512, 300, 1, 0])
 # 3c's and 3d's mixed-step shapes at B = 16, pages of 64: kernel H's rows
 # (8 page-aligned 64-row chunks and 8 decode rows at odd offsets) and
 # kernel D's paged prefill rows (6 full chunks, 2 ragged tails, 7 decode
@@ -1201,6 +1356,70 @@ H_NEW_LEN = [64] * 8 + [1] * 8
 MIXED_START = [0, 64, 192, 320, 448, 576, 704, 768,
                1, 77, 129, 333, 501, 641, 799, 255]
 MIXED_LEN = [64] * 6 + [37, 40] + [1] * 7 + [0]
+# kernel I's rows (3d): the engine's 8 x 512 first chunk (2254 live rows)
+# and 8 x 64 tail (251), ragged, with a row of new_len 0: (T, starts,
+# new_len)
+I_CHUNKS = ((512, [0, 512, 1000, 1535, 7, 1536, 100, 1200],
+             [512, 300, 512, 1, 0, 512, 17, 400]),
+            (64, [512, 64, 0, 1984, 333, 1000, 2047, 5],
+             [64, 37, 64, 64, 0, 1, 1, 20]))
+# kernel H's decode-shape rows: one token a sequence at odd in-page offsets
+# (pages of 64), B = 8 (the first eight) and 16
+DECODE_WRITE_STARTS = [1, 77, 333, 701, 1023, 1501, 1999, 2047,
+                       3, 129, 517, 811, 1101, 1337, 1777, 2021]
+
+
+def decode_write_rows(torch, results, cache, ints) -> None:
+    """Kernel H (an int8 ``cache``: its int8 mode) at decode shape, layer
+    31 of a pool of 16 table rows: B = 8 and 16 tokens at
+    DECODE_WRITE_STARTS, a step's write of one layer; bit for bit against
+    the plain write on a copy of the layer, timed cold beside the floor
+    (printed only: the JSON line keeps each row's first timed case). Its
+    rows come from a generator of its own, so the phase's later cases
+    draw what they drew before."""
+    from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+    gen = torch.Generator(device=cache.k.device).manual_seed(77)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=cache.k.device,
+                           dtype=torch.bfloat16)
+    K, D = cache.k.shape[3:]
+    int8 = cache.quantized
+    name = "paged_kv_write_int8" if int8 else "paged_kv_write"
+    planes = ("k", "v", "k_scale", "v_scale") if int8 else ("k", "v")
+    for B in (8, 16):
+        pool = dataclasses.replace(cache, block_table=cache.block_table[:B])
+        ref = dataclasses.replace(pool, **{
+            n: getattr(cache, n)[31:].clone() for n in planes})
+        starts, new_len = ints(DECODE_WRITE_STARTS[:B]), ints([1] * B)
+        kn, vn = randn(B, 1, K, D), randn(B, 1, K, D)
+        pkv.paged_update_at_layer(pool, 31, kn, vn, starts, new_len,
+                                  kernels="cuda")
+        pkv.paged_update_at_layer_torch(ref, 0, kn, vn, starts, new_len)
+        torch.cuda.synchronize()
+        timed = (time_ms(torch, lambda: pkv.paged_update_at_layer(
+            pool, 31, kn, vn, starts, new_len, kernels="cuda"), cold=True),
+            time_ms(torch, lambda: pkv.paged_update_at_layer_torch(
+                ref, 0, kn, vn, starts, new_len)))
+        floor = floor_ms(torch, (kn, vn), list(range(B)),
+                         torch.int8 if int8 else torch.bfloat16, cold=True)
+        case = f"decode B{B} T1 odd in-page offsets page 64 cold L2"
+        work = write_work(B, K, D, quant=int8)
+        if int8:
+            for side, v, sc in ((0, "k", "k_scale"), (1, "v", "v_scale")):
+                hold_int8_write(torch, name, (getattr(pool, v)[31],
+                                              getattr(pool, sc)[31]),
+                                (getattr(ref, v)[0], getattr(ref, sc)[0]),
+                                results, f"{case} {'kv'[side]}", timed, work,
+                                floor)
+        else:
+            if not (torch.equal(pool.k[31], ref.k[0])
+                    and torch.equal(pool.v[31], ref.v[0])):
+                raise AssertionError(f"{name} [{case}]: pool differs from "
+                                     "the plain write")
+            check_close(torch, name, pool.k[31], ref.k[0], results, case,
+                        timed, work=work, floor=floor)
+        del ref
 
 
 def phase_paged_kernels(torch, dev, results) -> None:
@@ -1294,8 +1513,10 @@ def phase_paged_kernels(torch, dev, results) -> None:
                 work=write_work(rows, K, D),
                 library=index_copy_ms(torch, (cache.k[31], cache.v[31]),
                                       (kn, vn), (ints(flat).long(),
-                                                 ints(picked).long())))
+                                                 ints(picked).long())),
+                floor=floor_ms(torch, (kn, vn), picked, bf16, cold=True))
     del ref
+    decode_write_rows(torch, results, cache, ints)
 
     # D paged prefill at the engine's shape first (chunks are capped to the
     # page): a scheduler mixed step, B = 16, T = 64, page-aligned chunk
@@ -1480,10 +1701,7 @@ def phase_kv_int8_kernels(torch, dev, results) -> None:
                                   snapped=True))
     # I: the engine's two prefill chunks, snapped (the engine's numerics on
     # the card) first, then absmax
-    for T, st, nl in ((512, [0, 512, 1000, 1535, 7, 1536, 100, 1200],
-                       [512, 300, 512, 1, 0, 512, 17, 400]),
-                      (64, [512, 64, 0, 1984, 333, 1000, 2047, 5],
-                       [64, 37, 64, 64, 0, 1, 1, 20])):
+    for T, st, nl in I_CHUNKS:
         kn, vn = randn(8, T, K, D), randn(8, T, K, D)
         kn[0, 0, 0] = 0.0                            # a row of zeros
         starts, new_len = ints(st), ints(nl)
@@ -1494,18 +1712,21 @@ def phase_kv_int8_kernels(torch, dev, results) -> None:
                                       kernels="cuda")
             kvc.update_cache_at_layer_torch(ref, 0, kn, vn, starts, new_len)
             torch.cuda.synchronize()
-            timed = work = None
-            if T == 512 and snapped:
+            timed = work = floor = None
+            if snapped:                # the 8 x 512 row goes into the JSON
                 timed = (time_ms(torch, lambda: kvc.update_cache_at_layer(
                     cache, 31, kn, vn, starts, new_len, kernels="cuda")),
                     time_ms(torch, lambda: kvc.update_cache_at_layer_torch(
                         ref, 0, kn, vn, starts, new_len), iters=3, warmup=1))
                 work = write_work(sum(nl), K, D, quant=True)
-            tag = f"8x{T} rows {'snapped' if snapped else 'absmax'}"
+                floor = floor_ms(torch, (kn, vn), slot_rows(st, nl, T, S)[1],
+                                 torch.int8, cold=False)
+            tag = (f"8x{T} rows ({sum(nl)} live) "
+                   f"{'snapped' if snapped else 'absmax'}")
             for side, (got, want) in enumerate(zip(held(cache, 31),
                                                    held(ref, 0))):
                 hold_int8_write(torch, "kv_write_quant", got, want, results,
-                                f"{tag} {'kv'[side]}", timed, work)
+                                f"{tag} {'kv'[side]}", timed, work, floor)
             del ref
 
     # D int8 slot prefill: the engine's first chunk (q_start 0, kv_len
@@ -1598,12 +1819,16 @@ def phase_kv_int8_kernels(torch, dev, results) -> None:
         pool, 31, kn, vn, starts, new_len, kernels="cuda"), cold=True),
         time_ms(torch, lambda: pkv.paged_update_at_layer_torch(
             ref, 0, kn, vn, starts, new_len)))
+    floor = floor_ms(torch, (kn, vn),
+                     slot_rows(H_STARTS, H_NEW_LEN, 64, 0)[1], torch.int8,
+                     cold=True)
     for side, (got, want) in enumerate(zip(held(pool, 31), held(ref, 0))):
         hold_int8_write(torch, "paged_kv_write_int8", got, want, results,
                         f"B16 3c's mixed step ({sum(H_NEW_LEN)} rows) page "
                         f"64 cold L2 {'kv'[side]}", timed,
-                        write_work(sum(H_NEW_LEN), K, D, quant=True))
+                        write_work(sum(H_NEW_LEN), K, D, quant=True), floor)
     del ref
+    decode_write_rows(torch, results, pool, ints)
     # D's int8 paged prefill at the mixed step
     mixed_start, kv_mixed = ints(MIXED_START), ints(
         [s + n for s, n in zip(MIXED_START, MIXED_LEN)])
@@ -1851,15 +2076,21 @@ def phase_paged_vs_slot(torch, dev, model: str, quant: dict, prompts,
     busy_ms, per_kernel = device_profile(torch, step, 4)
     _check_paged_launches(f"the paged engine {quant}", counters,
                           paged_kernels(quant))
-    # the launches of one decode step and of one prefill of the prompts
+    # the launches of one decode step and of one warm prefill of the
+    # prompts, the prefill profiled
     _zero_counters()
     paged.decode_step(state["toks"], active, sp)
     per_step = _launch_counts(counters)
     paged.reset()
     _zero_counters()
-    paged.prefill(prompts)
+    prefill_busy, prefill_kernels = device_profile(
+        torch, lambda: paged.prefill(prompts), 1)
     say(f"  launches per paged prefill of the {B} prompts: "
         f"{_launch_counts(counters)}; per paged decode step: {per_step}")
+    say(f"  warm paged prefill: card busy {prefill_busy:.3f} ms; by group: "
+        f"{_groups(prefill_kernels)}; by kernel: "
+        + "; ".join(f"{_short(name)} {ms:.3f}"
+                    for ms, name in prefill_kernels[:8]))
     params = paged.params
     del paged
     torch.cuda.empty_cache()

@@ -26,10 +26,33 @@
 // pool always uses them), otherwise absmax / 127 (kv_quant.cuh).
 //
 // Bound: HBM bytes (2 x rows x K x D x 2 bytes read, half that plus 4 bytes
-// per (token, head) written); the quantize is a few FLOPs per byte. Design:
-// one warp per (token, head, k|v) row of D values, eight rows per block;
-// the warp's absmax is one shuffle reduction, its loads and stores are
-// contiguous across lanes; warps of skipped rows exit at once.
+// per (token, head) written). The quantize is the next cost: the card's
+// issue slots nearly match its memory here, so every value takes a
+// handful of full-rate instructions (kv_quant.cuh), and what a thread
+// pays once (its row, addresses, the scale) is spread over 16 values a
+// row. Design:
+//   - a group of W lanes holds a row, each lane two 16-byte pieces (16
+//     values, 32 contiguous bytes): W = 4 at D = 64, 8 at D = 80, 96 and
+//     128, 16 at D = 256, so a warp holds 32 / W rows at once; D = 80 and
+//     96 leave the group's lanes past D / 16 idle; values are stored 16
+//     bytes a lane;
+//   - a block's rows are a run of the flat order (t, k|v, head) of one
+//     sequence: neighbouring groups take neighbouring heads of one token,
+//     so a warp reads and writes contiguous spans;
+//   - a row's source does not depend on the table, so its two loads and
+//     its table entry's are in flight together;
+//   - a warp computes the scales of its G = 32 / W rows at once, each lane
+//     one row's, and shuffles them back: the log2, exp2 and divides of a
+//     scale are paid once a row, not once a lane;
+//   - the first lane of each group stores its row's scale, so a warp
+//     stores its G rows' scales, G neighbouring heads, as one contiguous
+//     run; staging a block's scales in shared memory to store each
+//     (token, k|v)'s K floats at once measured slower on the H100 (it put
+//     a barrier and a second table read on every block's path);
+//   - the grid runs over the padded rows of each sequence (the host does not
+//     know new_len), and a block past min(new_len, T) rows exits at once.
+// make_plan sets the grid; ops/kv_cache.py `write_quant_plan` mirrors it,
+// and a CPU test holds that the blocks take every row once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -39,7 +62,7 @@
 
 namespace {
 
-constexpr int kRowsPerBlock = 8;
+constexpr int kThreads = 256;
 
 // Where the rows go: slot (B, S) or paged (table, P, page, max_pages).
 struct Dest {
@@ -48,23 +71,52 @@ struct Dest {
   int P, page, max_pages;
 };
 
-// The token row of [L, *, K] that position `pos` of sequence b lands at, or
-// -1 when the row is not written.
+// The table entry of position pos of sequence b, -1 past the table's reach
+// (slot: 0 inside the cache, else -1). It is checked against [0, P) only
+// where it is used, so that its load stays in flight meanwhile.
+template <bool PAGED>
+__device__ __forceinline__ int entry_of(const Dest& d, int b, long long pos) {
+  if (PAGED) {
+    if (pos < 0 || pos >= (long long)d.max_pages * d.page ||
+        pos > 0x7fffffff)
+      return -1;
+    return d.table[(size_t)b * d.max_pages + (int)pos / d.page];
+  }
+  return pos >= 0 && pos < d.S ? 0 : -1;
+}
+
+// The token row of [L, *, K] that position pos of sequence b lands at, or
+// -1 when the row is not written (entry from entry_of).
 template <bool PAGED>
 __device__ __forceinline__ long long token_row(const Dest& d, int b,
-                                               long long pos) {
+                                               long long pos, int entry) {
   if (PAGED) {
-    if (pos < 0 || pos >= (long long)d.max_pages * d.page) return -1;
-    const int pg = d.table[(size_t)b * d.max_pages + (int)(pos / d.page)];
-    if (pg < 0 || pg >= d.P) return -1;
-    return ((long long)d.layer * d.P + pg) * d.page + pos % d.page;
+    if (entry < 0 || entry >= d.P) return -1;
+    // entry_of checked that pos fits an int
+    return ((long long)d.layer * d.P + entry) * d.page + (int)pos % d.page;
   }
-  if (pos < 0 || pos >= d.S) return -1;
+  if (entry < 0) return -1;
   return ((long long)d.layer * d.B + b) * d.S + pos;
 }
 
+__host__ __device__ constexpr int lanes_a_row(int D) {
+  return D == 64 ? 4 : D == 256 ? 16 : 8;
+}
+
+// The launch: kThreads / lanes rows of the flat (t, k|v, head) order a
+// block, grid (blocks_x, B).
+struct Plan {
+  int lanes, rows_per_block, blocks_x;
+};
+
+Plan make_plan(int T, int K, int D) {
+  const int lanes = lanes_a_row(D);
+  const int rb = kThreads / lanes;
+  return {lanes, rb, (int)((2LL * T * K + rb - 1) / rb)};
+}
+
 template <int D, bool SNAPPED, bool PAGED>
-__global__ void __launch_bounds__(kRowsPerBlock * 32)
+__global__ void __launch_bounds__(kThreads)
 kv_write_quant_kernel(const __nv_bfloat16* __restrict__ k_new,
                       const __nv_bfloat16* __restrict__ v_new,
                       signed char* __restrict__ k_cache,
@@ -74,21 +126,53 @@ kv_write_quant_kernel(const __nv_bfloat16* __restrict__ k_new,
                       const int* __restrict__ starts,
                       const int* __restrict__ new_len, Dest dest, int T,
                       int K) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  constexpr int W = lanes_a_row(D);
+  constexpr int G = 32 / W;                  // rows a warp holds
+  constexpr int kRows = kThreads / W;        // rows a block holds
   const int b = blockIdx.y;
-  if (row >= T * K) return;                    // warp-uniform
-  const int t = row / K;
-  const int kh = row % K;
-  if (t >= new_len[b]) return;
-  const long long tok = token_row<PAGED>(dest, b, (long long)starts[b] + t);
-  if (tok < 0) return;
-  const bool is_v = blockIdx.z != 0;
-  const size_t src = (((size_t)b * T + t) * K + kh) * D;
-  const size_t dst = (size_t)tok * K + kh;
-  kvq::quantize_row<D, SNAPPED>((is_v ? v_new : k_new) + src,
-                                (is_v ? v_cache : k_cache) + dst * D,
-                                (is_v ? v_scale : k_scale) + dst, lane);
+  const long long start = starts[b];
+  const int n_tok = max(min(new_len[b], T), 0);
+  const int rows_a_token = 2 * K;            // K k rows, then K v rows
+  const int r = blockIdx.x * kRows + threadIdx.x / W;  // the thread's row
+  if (blockIdx.x * kRows >= n_tok * rows_a_token) return;  // block-uniform
+  const int lane = threadIdx.x % 32;
+  // the lane's two pieces: values [16 p, 16 p + 16) of its row
+  const int p = lane % W;
+  const bool has = 16 * p < D;
+  const int t = r / rows_a_token;
+  const int head = r - t * rows_a_token;
+  const bool v = head >= K;
+  const int kh = v ? head - K : head;
+  uint4 raw[2] = {make_uint4(0, 0, 0, 0), make_uint4(0, 0, 0, 0)};
+  int entry = -1;
+  if (t < n_tok) {
+    const uint4* src = reinterpret_cast<const uint4*>(
+        (v ? v_new : k_new) + (((size_t)b * T + t) * K + kh) * D);
+    if (has) {
+      raw[0] = __ldg(src + 2 * p);
+      raw[1] = __ldg(src + 2 * p + 1);
+    }
+    entry = entry_of<PAGED>(dest, b, start + t);
+  }
+  // the row's absmax, reduced over its group; lane l computes the scale
+  // (and its reciprocal) of the warp's row l % G, then each lane takes its
+  // own row's; x and y keep the two pieces' values for the quantize
+  float x[8], y[8];
+  const float amax = kvq::group_max<W>(fmaxf(kvq::piece_absmax(raw[0], x),
+                                             kvq::piece_absmax(raw[1], y)));
+  const float mine = kvq::row_scale<SNAPPED>(
+      __shfl_sync(0xffffffffu, amax, lane % G * W));
+  const float mine_recip = kvq::divide_recip(mine);
+  const float scale = __shfl_sync(0xffffffffu, mine, lane / W);
+  const float recip = __shfl_sync(0xffffffffu, mine_recip, lane / W);
+  const long long row = token_row<PAGED>(dest, b, start + t, entry);
+  if (row >= 0 && has) {
+    const uint2 lo = kvq::quantize_piece(x, scale, recip);
+    const uint2 hi = kvq::quantize_piece(y, scale, recip);
+    reinterpret_cast<uint4*>((v ? v_cache : k_cache) + (row * K + kh) * D)[p] =
+        make_uint4(lo.x, lo.y, hi.x, hi.y);
+    if (p == 0) (v ? v_scale : k_scale)[row * K + kh] = scale;
+  }
 }
 
 template <int D, bool SNAPPED, bool PAGED>
@@ -96,9 +180,9 @@ int launch(const void* k_new, const void* v_new, void* k_cache,
            void* v_cache, void* k_scale, void* v_scale, const int* starts,
            const int* new_len, const Dest& dest, int B, int T, int K,
            cudaStream_t stream) {
-  dim3 grid((T * K + kRowsPerBlock - 1) / kRowsPerBlock, B, 2);
+  const Plan pl = make_plan(T, K, D);
   kv_write_quant_kernel<D, SNAPPED, PAGED>
-      <<<grid, kRowsPerBlock * 32, 0, stream>>>(
+      <<<dim3(pl.blocks_x, B), kThreads, 0, stream>>>(
           (const __nv_bfloat16*)k_new, (const __nv_bfloat16*)v_new,
           (signed char*)k_cache, (signed char*)v_cache, (float*)k_scale,
           (float*)v_scale, starts, new_len, dest, T, K);
@@ -151,4 +235,16 @@ extern "C" int paged_kv_write_quant(const void* k_new, const void* v_new,
   const Dest dest{layer, B, 0, table, P, page, max_pages};
   return fn(k_new, v_new, k_pool, v_pool, k_scale, v_scale, starts,
             new_len, dest, B, T, K, (cudaStream_t)stream);
+}
+
+// The launch of kv_write_quant / paged_kv_write_quant at these shapes:
+// out = {threads, lanes a row, rows a block, blocks_x, blocks_y}.
+extern "C" int kv_write_quant_plan(int B, int T, int K, int D, int* out) {
+  if (B <= 0 || T <= 0 || K <= 0 || pick<false>(D, 0) == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const Plan pl = make_plan(T, K, D);
+  const int vals[5] = {kThreads, pl.lanes, pl.rows_per_block, pl.blocks_x,
+                       B};
+  for (int i = 0; i < 5; ++i) out[i] = vals[i];
+  return 0;
 }

@@ -89,6 +89,8 @@ _SIGNATURES = {
     "attention_decode_paged_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                                     _P],
+    # B, T, K, D, out[5]
+    "kv_write_quant_plan": [_I, _I, _I, _I, _P],
     # B, H, K, D, int8, page, max_pages, out[7]
     "attention_decode_plan": [_I, _I, _I, _I, _I, _I, _I, _P],
     # D, int8, out[3]

@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from llm_inference_engine_tpu_torch.ops._native import HEAD_DIMS
-from llm_inference_engine_tpu_torch.utils import use_kernel
+from llm_inference_engine_tpu_torch.utils import cdiv, use_kernel
 
 __all__ = ["KVCache", "new_kv_cache", "update_cache_at_layer",
            "update_cache_at_layer_torch", "kv_write_quant",
@@ -270,6 +270,37 @@ def update_cache_at_layer(cache: KVCache, layer: int, new_k: torch.Tensor,
 
 
 update_cache_at_layer.launches = 0
+
+
+_WRITE_THREADS = 256
+_WRITE_PLAN_KEYS = ("threads", "lanes", "rows_per_block", "blocks_x",
+                    "blocks_y")
+
+
+def write_quant_plan(B: int, T: int, K: int, D: int) -> dict:
+    """The launch of kernel I (and of kernel H's int8 mode) for new rows
+    [B, T, K, D], as ``csrc/kv_write_quant.cu`` makes it: ``lanes`` lanes
+    hold a row of D values, 32 bytes each, so a block of ``threads``
+    holds rows_per_block = threads // lanes rows; block (x, y) takes rows
+    [x * rows_per_block, (x + 1) * rows_per_block) of sequence y's flat
+    order r = (t * 2 + kv) * K + head, thread i its row i // lanes. Pure
+    Python: the CPU tests call it; :func:`write_quant_plan_native` asks the
+    built library."""
+    lanes = 4 if D == 64 else 16 if D == 256 else 8
+    rb = _WRITE_THREADS // lanes
+    return dict(zip(_WRITE_PLAN_KEYS, (_WRITE_THREADS, lanes, rb,
+                                       cdiv(2 * T * K, rb), B)))
+
+
+def write_quant_plan_native(B: int, T: int, K: int, D: int) -> dict:
+    """The plan from the built library on the card
+    (``kv_write_quant_plan``)."""
+    import ctypes
+    from llm_inference_engine_tpu_torch.ops import _native
+    out = (ctypes.c_int * len(_WRITE_PLAN_KEYS))()
+    _native.check(_native.library().kv_write_quant_plan(B, T, K, D, out),
+                  "kv_write_quant_plan")
+    return dict(zip(_WRITE_PLAN_KEYS, out))
 
 
 def kv_write_quant(cache: KVCache, layer: int, new_k: torch.Tensor,

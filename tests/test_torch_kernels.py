@@ -1177,3 +1177,191 @@ def test_prefill_plan_reports_every_head_dim(cuda, int8):
         assert plan["tile_keys"] == (32 if D > 128 else 64)
         assert plan["stages"] >= 2
         assert 0 < 2 * plan["smem_bytes"] <= 227 * 1024
+
+
+# ---------------------------------------------------------------------------
+# the K/V row writes: C (bf16 slot), I (int8 slot), H (bf16 pool) and H's
+# int8 mode, at every head dim, bit for bit against the plain writes
+# ---------------------------------------------------------------------------
+
+WRITE_MODES = ("slot", "slot-int8-snapped", "slot-int8-absmax", "paged",
+               "paged-int8")
+WRITE_PAGE = 16
+# int8 values the quantizers never produce (they clamp to +-127)
+INT8_POISON = -128
+
+
+def _bits(t):
+    """``t`` as integers of its width, so that NaN bytes compare equal."""
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32}[
+        t.element_size()])
+
+
+def _poisoned_write_target(cuda, mode, L, B, S, K, D):
+    """A slot cache or a pool whose every value is poison (NaN, or -128 in
+    an int8 cache, with NaN scales), for ``mode``; pools get a shuffled
+    table over pages 1.. of S tokens a sequence."""
+    from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+    int8 = "int8" in mode
+    if mode.startswith("paged"):
+        maxp = -(-S // WRITE_PAGE)
+        P = 1 + B * maxp + 3
+        c = pkv.new_paged_kv_cache(L, B, K, P, WRITE_PAGE, D, maxp,
+                                   device=cuda, quantized=int8)
+        c.block_table.copy_((torch.randperm(P - 1, device=cuda)[:B * maxp]
+                             + 1).to(torch.int32).reshape(B, maxp))
+    else:
+        c = kvc.new_kv_cache(L, B, K, S, D, device=cuda, quantized=int8,
+                             snapped=mode.endswith("snapped"))
+    for t in (c.k, c.v):
+        t.fill_(INT8_POISON if int8 else float("nan"))
+    for t in (c.k_scale, c.v_scale):
+        if t is not None:
+            t.fill_(float("nan"))
+    return c
+
+
+def _write_plain_through_trash(c, layer, kn, vn, starts, new_len):
+    """The plain write of ``c`` on a copy with one more page (the trash
+    page P), table entries outside [0, P) pointed at it: the plain scatter
+    would index with them, the kernel skips their rows. Returns the copy's
+    first P pages."""
+    from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+    P = c.k.shape[1]
+    grow = {n: torch.cat([getattr(c, n), getattr(c, n)[:, :1]], 1)
+            for n in ("k", "v", "k_scale", "v_scale")
+            if getattr(c, n) is not None}
+    table = c.block_table.clone()
+    table[(table < 0) | (table >= P)] = P
+    ref = dataclasses.replace(c, block_table=table, **grow)
+    pkv.paged_update_at_layer_torch(ref, layer, kn, vn, starts, new_len)
+    return {n: t[:, :P] for n, t in grow.items()}
+
+
+@pytest.mark.parametrize("mode", WRITE_MODES)
+@pytest.mark.parametrize("T", [1, 7, 64, 512])
+@pytest.mark.parametrize("K,D", [(k, d) for k in (1, 8, 32)
+                                 for d in HEAD_DIMS])
+def test_kv_write_kernels_bit_identical(cuda, mode, T, K, D):
+    """One launch writes, at layer 1 of a poisoned cache: a full row from
+    0 (one token row of zeros); a row from an odd offset (at T > 1 it
+    straddles page boundaries, at T = 1 it is a decode row); a new_len ==
+    0 row; a row that runs past S (slot) or past the table's reach (paged;
+    wholly past at T = 1); and two rows from odd offsets whose first table
+    entry is -1 and P + 5 (paged: their rows on those pages are skipped).
+    Launched twice, the cache equals the plain write bit for bit, poison
+    outside the written rows included."""
+    from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+    L, B = 2, 6
+    S = T + 2 * WRITE_PAGE
+    c = _poisoned_write_target(cuda, mode, L, B, S, K, D)
+    kn = torch.randn(B, T, K, D, device=cuda, dtype=torch.bfloat16)
+    vn = torch.randn_like(kn)
+    kn[0, 0, 0] = 0.0
+    reach = S
+    if mode.startswith("paged"):
+        reach = c.block_table.shape[1] * WRITE_PAGE
+        c.block_table[4, 1] = -1
+        c.block_table[5, 1] = c.k.shape[1] + 5
+    starts = [0, WRITE_PAGE - 3, 3, reach - T // 2, 2 * WRITE_PAGE - 1,
+              WRITE_PAGE + 5]
+    new_len = [T, T, 0, T, T, T]
+    starts_t = torch.tensor(starts, device=cuda, dtype=torch.int32)
+    new_len_t = torch.tensor(new_len, device=cuda, dtype=torch.int32)
+    if mode.startswith("paged"):
+        want = _write_plain_through_trash(c, 1, kn, vn, starts_t, new_len_t)
+        write, counter = pkv.paged_update_at_layer, (
+            pkv.paged_kv_write_quant if "int8" in mode
+            else pkv.paged_update_at_layer)
+    else:
+        ref = _clone_cache(c)
+        kvc.update_cache_at_layer_torch(ref, 1, kn, vn, starts_t, new_len_t)
+        want = {n: getattr(ref, n) for n in ("k", "v", "k_scale", "v_scale")
+                if getattr(ref, n) is not None}
+        write, counter = kvc.update_cache_at_layer, (
+            kvc.kv_write_quant if "int8" in mode
+            else kvc.update_cache_at_layer)
+    n0 = counter.launches
+    for _ in range(2):
+        write(c, 1, kn, vn, starts_t, new_len_t, kernels="cuda")
+    torch.cuda.synchronize()
+    assert counter.launches == n0 + 2
+    for name, w in want.items():
+        assert torch.equal(_bits(getattr(c, name)), _bits(w)), name
+
+
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("snapped", [True, False])
+def test_fused_decode_write_equals_kernel_i_write(cuda, D, snapped):
+    """Kernel D's fused int8 decode write (a warp a row) and kernel I's
+    write (a sub-warp a row) of the same new token rows give the same
+    values and scales, bit for bit."""
+    L, B, S, K = 2, 4, 300, 8
+    c = _int8_slot(cuda, L, B, S, K, D, snapped)
+    other = _clone_cache(c)
+    q = torch.randn(B, 1, K, D, device=cuda, dtype=torch.bfloat16)
+    kn = torch.randn(B, 1, K, D, device=cuda, dtype=torch.bfloat16)
+    vn = torch.randn_like(kn)
+    kn[1, 0, 3] = 0.0                                  # a row of zeros
+    q_start = torch.tensor([0, 17, 150, 299], device=cuda, dtype=torch.int32)
+    attention.attention_decode_fused(q, kn, vn, c.k, c.v, q_start,
+                                     q_start + 1, 1, kernels="cuda",
+                                     snapped=snapped, **_planes(c))
+    kvc.kv_write_quant(other, 1, kn, vn, q_start,
+                       torch.ones_like(q_start), kernels="cuda")
+    torch.cuda.synchronize()
+    for name in ("k", "v", "k_scale", "v_scale"):
+        assert torch.equal(getattr(c, name), getattr(other, name)), name
+
+
+@pytest.mark.parametrize("B,T", [(1, 1), (8, 1), (16, 1), (8, 7), (8, 64),
+                                 (16, 64), (8, 512), (1, 2048)])
+def test_write_quant_plan_mirror_equals_library(cuda, B, T):
+    """ops.kv_cache.write_quant_plan (Python, what the CPU tests check)
+    equals the library's plan."""
+    for K in (1, 4, 8, 32, 40):
+        for D in HEAD_DIMS:
+            assert kvc.write_quant_plan_native(B, T, K, D) == \
+                kvc.write_quant_plan(B, T, K, D)
+
+
+@pytest.mark.parametrize("snapped", [True, False])
+def test_int8_write_every_bf16_pair(cuda, snapped):
+    """Kernel I's quantize (the IEEE divide's fast path without its range
+    check, the rounding by 1.5 * 2^23) against the plain version on every
+    pair of finite bf16 values x and absmax with |x| <= absmax, zero and
+    subnormals included: rows of 128 values, the absmax and 127 others,
+    values and scales bit for bit."""
+    mags = torch.arange(0x7F80, device=cuda, dtype=torch.int32).to(
+        torch.int16).view(torch.bfloat16)           # +0 .. max finite
+    n = mags.numel()
+    per = 2 * torch.arange(1, n + 1, device=cuda)  # +-mags[:i + 1]
+    rows_of = (per + 126) // 127
+    first = torch.cumsum(rows_of, 0) - rows_of
+    step = 1 << 20                                 # rows a launch
+    i0 = 0
+    while i0 < n:
+        i1 = int(torch.searchsorted(first, first[i0] + step))
+        i1 = max(i1, i0 + 1)
+        which = torch.repeat_interleave(
+            torch.arange(i0, i1, device=cuda), rows_of[i0:i1])
+        chunk = torch.arange(which.numel(), device=cuda) - (
+            first[which] - first[i0])
+        idx = chunk[:, None] * 127 + torch.arange(127, device=cuda)[None]
+        ok = idx < per[which][:, None]
+        vals = mags[(idx // 2).clamp_max(n - 1)].float()
+        vals = torch.where(idx % 2 == 1, -vals, vals)
+        vals = torch.where(ok, vals, torch.zeros_like(vals))
+        rows = torch.cat([mags[which].float()[:, None], vals], 1).to(
+            torch.bfloat16)
+        T = rows.shape[0]
+        new = rows.reshape(1, T, 1, 128).contiguous()
+        c = kvc.new_kv_cache(1, 1, 1, T, 128, device=cuda, quantized=True,
+                             snapped=snapped)
+        zero = torch.zeros(1, device=cuda, dtype=torch.int32)
+        kvc.kv_write_quant(c, 0, new, new, zero, zero + T, kernels="cuda")
+        q, sc = _quantized(rows, snapped)
+        torch.cuda.synchronize()
+        assert torch.equal(c.k[0, 0, :, 0], q), (i0, i1)
+        assert torch.equal(c.k_scale[0, 0, :, 0], sc), (i0, i1)
+        i0 = i1

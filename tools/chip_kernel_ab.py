@@ -2,8 +2,8 @@
 """Time kernel rows of ``chip_smoke.py`` in two checkouts, in turns, on one
 CUDA card (an H100).
 
-    python3 tools/chip_kernel_ab.py [--rows attention|quant] PARENT_ROOT
-        [CHANGE_ROOT]
+    python3 tools/chip_kernel_ab.py [--rows attention|quant|writes|prefill]
+        PARENT_ROOT [CHANGE_ROOT]
 
 PARENT_ROOT and CHANGE_ROOT (default: this checkout) are roots of the
 repository, e.g. a parent commit unpacked with ``git archive`` into a
@@ -27,6 +27,20 @@ projections and lm_head at m = 8, wo and down at m = 16, the four
 projections at m = 512, weights cycled past the L2 as in phase 3b)
 through this checkout's ``chip_smoke.quant_rows``, which calls only the
 wrappers every tree has.
+
+``--rows writes`` times the K/V row writes instead, and only them: kernel
+C at phase 3's chunk, H and its int8 mode at 3c's mixed step (520 rows,
+cold, then under a clean flush) and at decode shape (B = 8 and 16, cold),
+I at the 8 x 512 and 8 x 64 chunks (warm), each beside its floor (one
+``copy_`` of the same live rows), through this checkout's
+``chip_smoke.write_rows``. The floors run the same code in both trees,
+so their change / parent ratios show the noise.
+
+``--rows prefill`` times one warm prefill of llama2-7b INT4 (4b's
+prompts) paged over a bf16 pool (4d) and an int8 pool (4h), chunks and
+pages of 64, and slot over an int8 cache (4g): the card's busy ms and the
+K/V writes' ms of it (torch.profiler), through this checkout's
+``chip_smoke.prefill_rows``.
 """
 
 from __future__ import annotations
@@ -43,7 +57,8 @@ HERE = Path(__file__).resolve().parent.parent
 def one(root: Path, rows: str = "attention") -> dict:
     """Run the kernel phases of ``root``'s chip_smoke.py in this process;
     return {row: kernel ms} of its attention rows (``rows="quant"``: of
-    kernels E and F at QUANT_ROWS)."""
+    kernels E and F at QUANT_ROWS; ``rows="writes"``: of the K/V row
+    writes and their floors; ``rows="prefill"``: warm prefills)."""
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_kernel_ab: no CUDA device")
@@ -64,6 +79,10 @@ def one(root: Path, rows: str = "attention") -> dict:
     spec.loader.exec_module(here)
     if rows == "quant":
         return here.quant_rows(torch, dev)
+    if rows == "writes":
+        return here.write_rows(torch, dev)
+    if rows == "prefill":
+        return here.prefill_rows(torch, dev)
     results: dict = {}
     for fn in (smoke.phase_kernels, smoke.phase_paged_kernels,
                smoke.phase_kv_int8_kernels):
@@ -77,7 +96,7 @@ def main(argv) -> int:
     rows = "attention"
     if len(argv) >= 2 and argv[0] == "--rows":
         rows, argv = argv[1], argv[2:]
-    if rows not in ("attention", "quant"):
+    if rows not in ("attention", "quant", "writes", "prefill"):
         raise SystemExit(__doc__)
     if len(argv) >= 2 and argv[0] == "--one":
         print(json.dumps(one(Path(argv[1]).resolve(), rows)), flush=True)
