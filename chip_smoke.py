@@ -35,28 +35,38 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    live rows under the same warm or cold method), and H and its int8
    mode are also timed at decode shape (B = 8 and 16, one token each at
    odd in-page offsets, DECODE_WRITE_STARTS), I at 8 x 64 as well as
-   8 x 512;
+   8 x 512; (3e) A, A with residual and B at decode shape (B = 8) beside
+   their plain versions and ``F.rms_norm``, 64 calls captured in one CUDA
+   graph and timed over its replays;
 4. the main paths, each through ``create_engine`` with dummy weights (seed
    0) at full width and depth, with every launch counter set to 0 just
    before the path and read just after, and a rerun of round 1 with
    ``kernels="torch"`` on the same weights as the reference:
    a. llama2-7b bf16, B=4: two ``generate`` rounds (greedy, then sampled)
-      over four ragged prompts, then 16 steady decode steps;
+      over four ragged prompts, then ``graph_checks``: 16 decode steps
+      through the eager bodies and the same 16 through the CUDA-graph
+      replays, then a 16-step ``decode_rollout``, from one state (ids and
+      launch counts equal; wall, card busy and idle share of each), and
+      ``generate``'s tail eager against replayed: greedy with a row that
+      reaches capacity, sampled from one seed, sampled with a stop id
+      from a row's eager token (that row stops there);
    b. llama2-7b INT4 (group 128), B=8: eight ragged prompts whose prefill
-      runs through G (1024+ rows) and E, the same two rounds, 16 steady
-      decode steps through E (lm_head included);
+      runs through G (1024+ rows) and E, the same two rounds and
+      ``graph_checks``, decode through E (lm_head included);
    c. llama2-7b INT8, B=8: the same through F;
    d. paged == slot: llama2-7b INT4, B=8, the prompts of 4b, chunks of
       64: a paged engine (page 64) and a slot engine give bit-identical
       prefill logits and the same 32 greedy tokens; the paged engine
       launches H and D's paged modes and never kernel C or the fused
-      decode; steady paged decode steps are timed and profiled, and a
-      warm paged prefill is profiled (card busy by kernel group);
+      decode; ``graph_checks`` on the paged engine, and a warm paged
+      prefill profiled (card busy by kernel group);
    e. the serving path: the port's HTTP server in-process on
       127.0.0.1:0 over the continuous-batching scheduler and a paged
       INT4 engine (B=16, 193 pages of 64 = 12288 tokens, automatic prefix
       cache): 24 concurrent greedy completions (wave 1, admission gated
-      by pages), then 8 multi-turn resends (wave 2, prefix reuse);
+      by pages), then 8 multi-turn resends (wave 2, prefix reuse); the
+      scheduler's pure-decode steps (replays) and mixed steps (eager)
+      counted and timed;
    f. recompute preemption: the scheduler alone on that engine with 16
       prompts that fit the pool and full lengths that do not; prefill
       logits held against the plain path within the limits of 4b, then
@@ -92,6 +102,7 @@ It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -218,6 +229,9 @@ INT8_FAULTS = {
     "newest key dropped": lambda kl, ks, vs: (kl - 1, ks, vs),
 }
 MUST_SEE_FAULTS = ("int8-kv8",)
+# per main path: decode wall and card busy per step, eager bodies against
+# graph replays (graph_checks), printed as one line at the end of phase 4
+DECODE: dict = {}
 
 
 def say(*parts) -> None:
@@ -497,6 +511,62 @@ def fused_decode_case(torch, attention, results, case, randn, ints, *, B, H,
         check_close(torch, name, got, want, results, tag + " (write bit for "
                     "bit)", row_rel=DECODE_ROW_TOL)
     return ms
+
+
+def decode_shape_rows(torch, dev) -> dict:
+    """Kernels A, A with residual and B at the decode shape of 4b (B = 8:
+    [8, 4096], [8, 22016]), where each is a fixed-cost launch, timed as
+    the decode programs run them: 64 calls captured in one CUDA graph,
+    four replays under the profiler, the device time over the calls;
+    each beside its plain version and, for A, ``F.rms_norm``, timed the
+    same way. Returns {name: {kernel, plain, library: ms a call, bound}}."""
+    import torch.nn.functional as F
+
+    from llm_inference_engine_tpu_torch.ops import activations, rmsnorm
+    gen = torch.Generator(device=dev).manual_seed(99)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+    x, r, gu = randn(8, 4096), randn(8, 4096), randn(8, 22016)
+    w = randn(4096) * 0.1 + 1.0
+
+    def replayed_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(64):
+                fn()
+        graph.replay()
+        return device_profile(torch, graph.replay, 4)[0] / 64
+
+    cases = {
+        "rmsnorm": (lambda: rmsnorm.rmsnorm(x, w, kernels="cuda"),
+                    lambda: rmsnorm.rmsnorm_torch(x, w),
+                    lambda: F.rms_norm(x, (4096,), w, 1e-5),
+                    (2 * 8 + 1) * 4096 * 2),
+        "add_residual_rmsnorm": (
+            lambda: rmsnorm.add_residual_rmsnorm(x, r, w, kernels="cuda"),
+            lambda: rmsnorm.add_residual_rmsnorm_torch(x, r, w), None,
+            (4 * 8 + 1) * 4096 * 2),
+        "silu_and_mul": (
+            lambda: activations.silu_and_mul(gu, kernels="cuda"),
+            lambda: activations.silu_and_mul_torch(gu), None,
+            3 * 8 * 11008 * 2)}
+    rows = {}
+    for name, (kern, plain, library, nbytes) in cases.items():
+        row = rows[name] = dict(
+            kernel=replayed_ms(kern), plain=replayed_ms(plain),
+            library=replayed_ms(library) if library else None,
+            bound=bound_ms((nbytes, 0))[0])
+        say(f"  {name:22s} decode shape, graph replays: kernel "
+            f"{row['kernel'] * 1e3:.3f} us a call, plain "
+            f"{row['plain'] * 1e3:.3f} us"
+            + (f", F.rms_norm {row['library'] * 1e3:.3f} us"
+               if library else "")
+            + f"; bound {row['bound'] * 1e3:.4f} us (bytes)")
+    return rows
 
 
 def phase_kernels(torch, dev, results) -> None:
@@ -1121,6 +1191,209 @@ def _launch_counts(counters) -> dict:
     return {k: f.launches for k, f in counters.items() if f.launches}
 
 
+def snapshot(engine):
+    """What a decode run changes besides K/V rows past the lengths: the
+    lengths, both count planes, the generator. Restoring it replays the
+    same run on the same state (the rows it rewrites are rewritten with
+    the same values before they are read)."""
+    return (engine._lengths.copy(), engine._counts_ctx.clone(),
+            engine._counts_gen.clone(), engine._gen.get_state())
+
+
+def restore(engine, snap) -> None:
+    lengths, ctx, gen, rng = snap
+    engine._set_lengths(lengths)
+    engine._counts_ctx.copy_(ctx)
+    engine._counts_gen.copy_(gen)
+    engine._gen.set_state(rng)
+
+
+def sm_clock_mhz() -> int:
+    """The card's SM clock now, as nvidia-smi reads it (MHz)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    return int(out.stdout.split()[0])
+
+
+def _steps(torch, engine, toks, active, n: int, eager: bool):
+    """``n`` greedy decode steps from ``toks``, through the engine's
+    replays or its eager bodies: (ids [n][B], wall ms a step, the
+    launches they added to the counters)."""
+    from llm_inference_engine_tpu_torch.config import SamplingParams
+    from llm_inference_engine_tpu_torch.runtime.decode_graph import (
+        run_eagerly)
+    sp = SamplingParams(greedy=True)
+    counters = _counters()
+    before = {k: f.launches for k, f in counters.items()}
+    ids = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with run_eagerly(engine) if eager else contextlib.nullcontext():
+        for _ in range(n):
+            toks = engine.decode_step(toks, active, sp)
+            ids.append(toks)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n * 1e3
+    added = {k: f.launches - before[k] for k, f in counters.items()}
+    return [t.tolist() for t in ids], wall, {k: n for k, n in added.items()
+                                             if n}
+
+
+def graph_checks(torch, engine, tag: str, toks, active, prompts):
+    """The decode programs as CUDA-graph replays against the same bodies
+    run eagerly, from one state (``snapshot``): 16 steps (ids and launch
+    counts identical, wall per step of each; card busy per step over 4
+    steps, in turns eager, graphs, graphs, eager), a 16-step
+    greedy ``decode_rollout`` (ids identical to the eager steps'), then
+    ``generate``'s non-streaming tail from fresh slots, row 0 a prompt of
+    max_seq_len - 24 tokens that reaches capacity mid-tail: greedy
+    replayed equals eager (ids, logprobs, lengths, row 0 stopped at the
+    same length); sampled (temperature 0.8, top-k 5) from one seed,
+    replayed equals eager; with a stop id taken from a row's eager
+    sampled token at step 5 (or the nearest step where the row draws a
+    token new to it), that row stops there and every row equals the eager
+    ids cut at its first stop id. Records the per-step numbers in
+    DECODE and returns the replayed step's kernels."""
+    import numpy as np
+
+    from llm_inference_engine_tpu_torch.config import SamplingParams
+    from llm_inference_engine_tpu_torch.runtime.decode_graph import (
+        run_eagerly)
+    B = engine.engine_config.max_batch_size
+    S = engine.engine_config.max_seq_len
+    snap = snapshot(engine)
+    eager_ids, eager_ms, eager_launches = _steps(torch, engine, toks,
+                                                 active, 16, True)
+    restore(engine, snap)
+    graph_ids, _, _ = _steps(torch, engine, toks, active, 16, False)
+    restore(engine, snap)
+    again, graph_ms, graph_launches = _steps(torch, engine, toks, active,
+                                             16, False)
+    # card busy a step, in turns (eager, graphs, graphs, eager), each
+    # window followed by the SM clock nvidia-smi reads at its end
+    busy = {"eager": [], "graphs": []}
+    clocks = {"eager": [], "graphs": []}
+    kernels = {}
+    for mode in ("eager", "graphs", "graphs", "eager"):
+        restore(engine, snap)
+        state = {"toks": toks}
+
+        def step():
+            state["toks"] = engine.decode_step(state["toks"], active,
+                                               SamplingParams(greedy=True))
+        with (run_eagerly(engine) if mode == "eager"
+              else contextlib.nullcontext()):
+            ms, kernels[mode] = device_profile(torch, step, 4)
+        busy[mode].append(ms)
+        clocks[mode].append(sm_clock_mhz())
+    restore(engine, snap)
+    rolled = engine.decode_rollout(toks, 16).tolist()
+    restore(engine, snap)
+    failures = []
+    if graph_ids != eager_ids or again != eager_ids:
+        failures.append("replayed steps differ from the eager steps")
+    if graph_launches != eager_launches:
+        failures.append(f"launches of 16 replays {graph_launches} != of 16 "
+                        f"eager steps {eager_launches}")
+    if rolled != eager_ids:
+        failures.append("decode_rollout differs from the eager steps")
+    busy_e, busy_g = (sum(busy[m]) / 2 for m in ("eager", "graphs"))
+    kernels_e, kernels_g = kernels["eager"], kernels["graphs"]
+    say(f"  {tag} decode, eager / graphs: wall {eager_ms:.3f} / "
+        f"{graph_ms:.3f} ms/step ({B * 1e3 / eager_ms:.1f} / "
+        f"{B * 1e3 / graph_ms:.1f} tok/s at B={B}); card busy "
+        f"{busy_e:.3f} / {busy_g:.3f} ms/step (graphs/eager "
+        f"{busy_g / busy_e:.4f}); idle {1 - busy_e / eager_ms:.3f} / "
+        f"{1 - busy_g / graph_ms:.3f}; wall over busy "
+        f"{eager_ms / busy_e:.3f} / {graph_ms / busy_g:.3f}")
+    say(f"  {tag} card busy in turns (eager, graphs, graphs, eager): "
+        f"{busy['eager'][0]:.3f}, {busy['graphs'][0]:.3f}, "
+        f"{busy['graphs'][1]:.3f}, {busy['eager'][1]:.3f} ms/step; SM clock "
+        f"after each window {clocks['eager'][0]}, {clocks['graphs'][0]}, "
+        f"{clocks['graphs'][1]}, {clocks['eager'][1]} MHz")
+    for mode, kernels in (("eager", kernels_e), ("replayed", kernels_g)):
+        say(f"  {tag} {mode} decode step, device ms by group: "
+            f"{_groups(kernels)}; by kernel: "
+            + "; ".join(f"{_short(name)} {ms:.4f}"
+                        for ms, name in kernels[:8]))
+    say(f"  {tag} 16 replayed steps == 16 eager steps: "
+        f"{graph_ids == eager_ids}; decode_rollout(16) == eager: "
+        f"{rolled == eager_ids}; launches equal: "
+        f"{graph_launches == eager_launches}")
+
+    # generate's tail, from fresh slots
+    rng = np.random.default_rng(2)
+    cases = [rng.integers(3, engine.config.vocab_size, S - 24).tolist()] + [
+        p[:40] for p in prompts[1:B]]
+    greedy = SamplingParams(greedy=True, max_new_tokens=32)
+    sampled = SamplingParams(temperature=0.8, top_k=5, max_new_tokens=32)
+
+    def gen(sp, eager):
+        engine.reset()
+        engine._gen.manual_seed(7)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if eager:
+            with run_eagerly(engine):
+                r = engine.generate(cases, sp, eos_token_id=None)
+        else:
+            r = engine.generate(cases, sp, eos_token_id=None)
+        wall = time.perf_counter() - t0
+        return r.token_ids, r.logprobs, engine.cache.lengths.tolist(), wall
+    ref = gen(greedy, True)
+    got = gen(greedy, False)
+    if got[:3] != ref[:3]:
+        failures.append("generate (greedy) replayed differs from eager")
+    if not (len(ref[0][0]) < 32 and ref[2][0] == S
+            and got[2][0] == ref[2][0]):
+        failures.append(f"row 0 did not stop at capacity: "
+                        f"{len(ref[0][0])} tokens, lengths eager "
+                        f"{ref[2][0]} graphs {got[2][0]} (max_seq_len {S})")
+    sam_ref = gen(sampled, True)
+    sam = gen(sampled, False)
+    if sam[:3] != sam_ref[:3]:
+        failures.append("generate (sampled) replayed differs from eager")
+    # stop id: a token a row draws at step k, nearest 5, that it has not
+    # drawn before (k >= 1: the tail's, not the first token's), the one
+    # the fewest other rows draw. Sampled, since greedy INT4 dummies
+    # repeat one token a row; with the same seed each row draws as
+    # without the stop id until it stops
+    picks = sorted((abs(k - 5), sum(ids[k] in other for other in sam_ref[0]),
+                    r, k) for r, ids in enumerate(sam_ref[0])
+                   for k in range(1, len(ids)) if ids[k] not in ids[:k])
+    if not picks:
+        raise AssertionError(f"{tag}: every row repeats one token; no stop "
+                             "id can stop a row mid-tail")
+    _, _, row, k = picks[0]
+    stop = sam_ref[0][row][k]
+    cut = [ids[:ids.index(stop)] if stop in ids else ids
+           for ids in sam_ref[0]]
+    stopped = gen(dataclasses.replace(sampled, stop_token_ids=(stop,)),
+                  False)
+    ran_on = [r for r in range(B) if len(cut[r]) == len(sam_ref[0][r])]
+    if stopped[0] != cut or len(stopped[0][row]) != k:
+        failures.append(f"stop id {stop}: row {row} gave "
+                        f"{len(stopped[0][row])} tokens, rows differ from "
+                        f"the eager ids cut at the stop id")
+    say(f"  {tag} generate tail, eager / graphs: greedy {ref[3]:.3f} / "
+        f"{got[3]:.3f} s, equal {got[:3] == ref[:3]}; capacity row 0: "
+        f"{len(got[0][0])} tokens, length {got[2][0]} (eager "
+        f"{ref[2][0]}); sampled {sam_ref[3]:.3f} / {sam[3]:.3f} s, equal "
+        f"{sam[:3] == sam_ref[:3]}, tokens[1][:6] {sam[0][1][:6]}; stop id "
+        f"{stop} (row {row}'s sampled token {k}): row {row} "
+        f"{len(stopped[0][row])} tokens, rows that ran on {ran_on}, all "
+        f"rows as eager cut at the stop {stopped[0] == cut}")
+    engine.reset()
+    if failures:
+        raise AssertionError(f"{tag} graphs: " + "; ".join(failures))
+    DECODE[tag] = dict(B=B, eager_ms=eager_ms, graph_ms=graph_ms,
+                       eager_busy_ms=busy["eager"],
+                       graph_busy_ms=busy["graphs"],
+                       greedy_generate_s=[ref[3], got[3]])
+    return kernels_g
+
+
 def phase_main_path(torch, dev, results, path: str, eng_cfg, prompt_lens,
                     follow_lens, greedy_tokens: int):
     """One slot main path of llama2-7b: ``path`` names its MAIN_PATHS row,
@@ -1177,26 +1450,16 @@ def phase_main_path(torch, dev, results, path: str, eng_cfg, prompt_lens,
     r1 = engine.generate(prompts, greedy, eos_token_id=None)
     gen1_s = time.perf_counter() - t0
     r2 = engine.generate(follow, sampled, eos_token_id=None)
-    # steady decode: 16 more greedy steps on all slots
-    active = np.ones(B, bool)
-    toks = torch.tensor([o[-1] for o in r2.token_ids], device=dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(16):
-        toks = engine.decode_step(toks, active, SamplingParams(greedy=True))
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / 16 * 1e3
-    # the same steps under the profiler: the card's busy time per step is
-    # the sum of its kernels' durations; the rest of the wall time above
-    # is the card waiting for the host
-    state = {"toks": toks}
-
-    def step():
-        state["toks"] = engine.decode_step(state["toks"], active,
-                                           SamplingParams(greedy=True))
-    busy_ms, per_kernel = device_profile(torch, step, 4)
-    peak = torch.cuda.max_memory_allocated()
     lengths = engine.cache.lengths.tolist()
+    # steady decode from the rounds' last tokens, the eager bodies against
+    # the replays (the card's busy time per step is the sum of its
+    # kernels' durations; the rest of the wall time is the card waiting
+    # for the host), then generate's tail cases
+    active = np.ones(B, bool)
+    toks = torch.tensor([o[-1] for o in r2.token_ids], device=dev,
+                        dtype=torch.int32)
+    graph_checks(torch, engine, path, toks, active, prompts)
+    peak = torch.cuda.max_memory_allocated()
     launches = {k: f.launches for k, f in counters.items()}
     say(f"  launches during the {path} path: {launches}")
     missing = [n for n in expected if launches[n] <= 0]
@@ -1216,7 +1479,7 @@ def phase_main_path(torch, dev, results, path: str, eng_cfg, prompt_lens,
         torch, lambda: engine.prefill(prompts), 1)
     per_prefill = _launch_counts(counters)
     _zero_counters()
-    engine.decode_step(state["toks"], active, SamplingParams(greedy=True))
+    engine.decode_step(toks, active, SamplingParams(greedy=True))
     per_step = _launch_counts(counters)
     say(f"  launches per prefill of the {B} prompts: {per_prefill}; per "
         f"decode step: {per_step}")
@@ -1227,17 +1490,11 @@ def phase_main_path(torch, dev, results, path: str, eng_cfg, prompt_lens,
             raise AssertionError(f"{rnd}: non-finite logprobs")
     say(f"  round 1 greedy  tokens[0][:8] {r1.token_ids[0][:8]}")
     say(f"  round 2 sampled tokens[0][:8] {r2.token_ids[0][:8]}")
-    say(f"  slot lengths after both rounds + 20 steps: {lengths}")
+    say(f"  slot lengths after both rounds: {lengths}")
     say(f"  prefill of {B} prompts ({sum(prompt_lens)} tokens): cold "
         f"{walls[0]:.4f} s, warm {walls[1]:.4f} s; round 1 generate "
         f"{gen1_s:.3f} s")
-    say(f"  decode: {step_ms:.3f} ms/step at B={B}, "
-        f"{B * 1e3 / step_ms:.1f} tok/s; card busy {busy_ms:.3f} ms/step "
-        f"(idle {1 - busy_ms / step_ms:.3f} of the step); peak memory "
-        f"{peak / 2**30:.2f} GiB")
-    say(f"  decode step, device ms by group: {_groups(per_kernel)}; by "
-        "kernel: " + "; ".join(f"{_short(name)} {ms:.3f}"
-                               for ms, name in per_kernel[:8]))
+    say(f"  peak memory {peak / 2**30:.2f} GiB")
     say(f"  warm prefill: card busy {prefill_busy:.3f} ms; by group: "
         f"{_groups(prefill_kernels)}; by kernel: "
         + "; ".join(f"{_short(name)} {ms:.3f}"
@@ -2059,27 +2316,20 @@ def phase_paged_vs_slot(torch, dev, model: str, quant: dict, prompts,
     prefill_s = time.perf_counter() - t0
     paged.reset()
     rp = paged.generate(prompts, greedy, eos_token_id=None)
-    # steady decode, timed, then profiled: the card's busy time per step
+    # steady decode, eager bodies against replays, and generate's tail
+    # cases (graph_checks)
     active = np.ones(B, bool)
-    toks = torch.tensor([o[-1] for o in rp.token_ids], device=dev)
+    toks = torch.tensor([o[-1] for o in rp.token_ids], device=dev,
+                        dtype=torch.int32)
     sp = SamplingParams(greedy=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(16):
-        toks = paged.decode_step(toks, active, sp)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / 16 * 1e3
-    state = {"toks": toks}
-
-    def step():
-        state["toks"] = paged.decode_step(state["toks"], active, sp)
-    busy_ms, per_kernel = device_profile(torch, step, 4)
+    kv = "int4-kv8" if quant.get("kv_cache_dtype_name") else "int4"
+    graph_checks(torch, paged, f"paged {kv}", toks, active, prompts)
     _check_paged_launches(f"the paged engine {quant}", counters,
                           paged_kernels(quant))
     # the launches of one decode step and of one warm prefill of the
     # prompts, the prefill profiled
     _zero_counters()
-    paged.decode_step(state["toks"], active, sp)
+    paged.decode_step(toks, active, sp)
     per_step = _launch_counts(counters)
     paged.reset()
     _zero_counters()
@@ -2102,12 +2352,7 @@ def phase_paged_vs_slot(torch, dev, model: str, quant: dict, prompts,
     del slot
     torch.cuda.empty_cache()
     say(f"  paged prefill of {B} prompts ({sum(map(len, prompts))} tokens) "
-        f"{prefill_s:.3f} s (first use of each shape); decode "
-        f"{step_ms:.3f} ms/step at B={B}, card busy {busy_ms:.3f} ms/step "
-        f"(idle {1 - busy_ms / step_ms:.3f})")
-    say(f"  paged decode step, device ms by group: {_groups(per_kernel)}; "
-        "by kernel: " + "; ".join(f"{_short(name)} {ms:.3f}"
-                                  for ms, name in per_kernel[:8]))
+        f"{prefill_s:.3f} s (first use of each shape)")
     same_ids = rp.token_ids == rs.token_ids
     say(f"  paged vs slot: prefill logits torch.equal {torch.equal(lp, ls)} "
         f"(max abs diff {(lp - ls).abs().max().item():.3e}); "
@@ -2157,11 +2402,30 @@ def phase_server(torch, dev, results, model: str, quant: dict, params,
     engine = InferenceEngine(cfg, eng, params, device=dev)
     sched = ContinuousBatchingScheduler(engine, eos_token_id=None,
                                         auto_prefix_cache=True)
-    # instrumentation of this check only: the Request of every submit, and
-    # the ids of the requests that found a free slot but too few free
-    # pages (admission stops at the head of the queue)
+    # instrumentation of this check only: the Request of every submit, the
+    # ids of the requests that found a free slot but too few free pages
+    # (admission stops at the head of the queue), and the count and host
+    # seconds of the scheduler's steps, pure decode (a replay) or mixed
+    # (eager prefill chunks beside decode rows)
     requests, page_waits = [], set()
+    steps = {"decode": [0, 0.0], "mixed": [0, 0.0]}
     submit, assign = sched.submit, sched._assign_slots
+    sched_step, decode_phase = sched.step, sched._decode_phase
+    kind = []
+
+    def timed_step():
+        kind.clear()
+        t0 = time.perf_counter()
+        done = sched_step()
+        entry = steps["decode" if kind else "mixed"]
+        entry[0] += 1
+        entry[1] += time.perf_counter() - t0
+        return done
+
+    def noted_decode_phase():
+        kind.append(1)
+        return decode_phase()
+    sched.step, sched._decode_phase = timed_step, noted_decode_phase
 
     def recording_submit(*a, **kw):
         requests.append(submit(*a, **kw))
@@ -2262,6 +2526,9 @@ def phase_server(torch, dev, results, model: str, quant: dict, params,
             f"generated in {wall:.3f} s ({gen / wall:.1f} generated tok/s); "
             f"TTFT p50/p90/p99 {_percentiles([r.ttft for r in reqs])} s; "
             f"e2e p50/p90/p99 {_percentiles([r.e2e_latency for r in reqs])} s")
+    say(f"  scheduler steps (both waves): {steps['decode'][0]} pure decode "
+        f"(replays) in {steps['decode'][1]:.3f} s, {steps['mixed'][0]} mixed "
+        f"(eager) in {steps['mixed'][1]:.3f} s, host clock")
     say(f"  requests that waited for pages with a slot free: "
         f"{len(page_waits)}; preemptions "
         f"{sum(r.preemptions for r in requests)}; wave-2 reused prefix "
@@ -2421,6 +2688,8 @@ def main() -> int:
     phase("3d", "int8 KV kernels vs plain versions (7B widths, both scale "
           "numerics, pages of 64 and 16)", phase_kv_int8_kernels, torch, dev,
           results)
+    phase("3e", "kernels A and B at decode shape (B = 8), timed in CUDA-graph "
+          "replays", decode_shape_rows, torch, dev)
 
     # 4. main paths
     from llm_inference_engine_tpu_torch.config import EngineConfig, get_config
@@ -2491,6 +2760,8 @@ def main() -> int:
                    dev, results, "llama2-7b", int4_kv8, params, int8_pages,
                    24, 0, False)
     del engine, params
+    say("  decode per step, eager bodies against graph replays (wall and "
+        "card busy ms): " + json.dumps(DECODE))
 
     # 5. results
     kernels = []

@@ -15,7 +15,9 @@ views of the stacked weights (the JAX package's ``lax.scan``; a stacked
 quantized weight gives a ``QuantizedTensor`` of views, the counterpart of
 its scalar-prefetched layer index); every projection, the lm_head
 included, goes through ``linear``, which runs the quantized kernels for
-quantized weights. The KV cache is updated in place.
+quantized weights. The KV cache is updated in place, its lengths
+included: a captured decode program (``runtime/decode_graph.py``)
+replays fixed addresses.
 
 Not ported: the TPU tile-padded cache adapter, context parallelism,
 tensor-parallel partial sums and debug taps (ROADMAP.md, queue 1).
@@ -23,7 +25,6 @@ tensor-parallel partial sums and debug taps (ROADMAP.md, queue 1).
 
 from __future__ import annotations
 
-import dataclasses
 import math
 
 import torch
@@ -117,7 +118,9 @@ def decoder_forward(cfg: ModelConfig, eng: EngineConfig, params: dict,
                     token_ids: torch.Tensor, cache: kvc.KVCache,
                     q_start: torch.Tensor, kv_len: torch.Tensor):
     """Run all decoder layers. Returns (hidden [B, T, H], cache) with the
-    cache's K/V updated in place and its lengths set to ``kv_len``.
+    cache's K/V updated in place and ``kv_len`` copied into its lengths
+    (in place, after every layer has read ``q_start``, which may be that
+    same buffer).
 
     token_ids: [B, T] int (prefill: padded prompt chunk; decode: T=1)
     q_start:   [B] int32 write/attend offset (history length per slot)
@@ -135,7 +138,7 @@ def decoder_forward(cfg: ModelConfig, eng: EngineConfig, params: dict,
     x = embedding_lookup(params["embed"], token_ids).to(cfg.dtype)
     x = run_layers(cfg, eng, params["layers"], x, cache, cos, sin, q_start,
                    kv_len)
-    cache = dataclasses.replace(cache, lengths=kv_len)
+    cache.lengths.copy_(kv_len)
     x = rmsnorm(x, params["final_norm"], cfg.rms_norm_eps,
                 kernels=eng.kernels)
     return x, cache
@@ -156,9 +159,10 @@ def forward_hidden(cfg: ModelConfig, eng: EngineConfig, params: dict,
 
     The last valid token of sequence b sits at padded index
     kv_len[b] - q_start[b] - 1."""
+    B, T = token_ids.shape
+    # before the forward: it overwrites the lengths, which q_start may be
+    last_idx = torch.clamp(kv_len - q_start - 1, 0, T - 1).long()
     hidden, cache = decoder_forward(cfg, eng, params, token_ids, cache,
                                     q_start, kv_len)
-    B, T, _ = hidden.shape
-    last_idx = torch.clamp(kv_len - q_start - 1, 0, T - 1).long()
     hidden_last = hidden[torch.arange(B, device=hidden.device), last_idx]
     return lm_head_logits(cfg, eng, params, hidden_last), cache

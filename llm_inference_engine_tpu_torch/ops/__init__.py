@@ -8,7 +8,9 @@ on CUDA tensors the dispatcher runs a kernel written by hand for Hopper
 ``_native.py``) and counts its launches in a ``launches`` attribute; on
 CPU tensors, or with ``kernels="torch"``, it runs the plain version. The
 other ops (embedding, linear, rope, sampling) are plain torch, as the
-JAX package left them to XLA.
+JAX package left them to XLA. :func:`counted_wrappers` lists every
+wrapper with a counter (a captured decode program adds its launches on
+each replay, ``runtime/decode_graph.py``).
 """
 
 from llm_inference_engine_tpu_torch.ops import (  # noqa: F401
@@ -17,11 +19,26 @@ from llm_inference_engine_tpu_torch.ops import (  # noqa: F401
     embedding,
     kv_cache,
     linear,
+    paged_kv,
     quant,
     rmsnorm,
     rope,
     sampling,
 )
 
-__all__ = ["activations", "attention", "embedding", "kv_cache", "linear",
-           "quant", "rmsnorm", "rope", "sampling"]
+__all__ = ["activations", "attention", "counted_wrappers", "embedding",
+           "kv_cache", "linear", "paged_kv", "quant", "rmsnorm", "rope",
+           "sampling"]
+
+
+def counted_wrappers() -> list:
+    """Every kernel wrapper with a launch counter (its ``launches``), in
+    a fixed order."""
+    found = []
+    for module in (activations, attention, kv_cache, paged_kv, quant,
+                   rmsnorm):
+        for name in sorted(vars(module)):
+            f = getattr(module, name)
+            if callable(f) and hasattr(f, "launches") and f not in found:
+                found.append(f)
+    return found

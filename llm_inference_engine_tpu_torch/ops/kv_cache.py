@@ -154,14 +154,26 @@ def kv_scales_from_numpy(packed: np.ndarray, num_kv_heads: int):
 def _write_rows_torch(cache_t, new, layer: int, starts, new_len):
     """cache_t[layer, b, starts[b] + t] = new[b, t] for t < new_len[b] and
     starts[b] + t < S (in place; ``new`` may carry fewer trailing dims, as
-    a scale plane does)."""
+    a scale plane does). Reads nothing on the host (a captured decode step
+    runs it with kernels="torch"): every (b, t) is stored, an entry past
+    the real rows where its row stores t = 0, with that value, or, in a
+    row that stores nothing, onto its own place with the value there."""
     B, T = new.shape[:2]
     S = cache_t.shape[2]
     t = torch.arange(T, device=new.device)
     pos = starts.long()[:, None] + t[None, :]                     # [B, T]
     valid = (t[None, :] < new_len.long()[:, None]) & (pos < S)
+    stores = valid[:, :1]                  # the row stores t = 0 (or none)
+    dest = torch.where(valid, pos, torch.where(stores, pos[:, :1],
+                                               pos.clamp(0, S - 1)))
     rows = torch.arange(B, device=new.device)[:, None].expand(B, T)
-    cache_t[layer][rows[valid], pos[valid]] = new[valid].to(cache_t.dtype)
+    layer_t = cache_t[layer]
+    lead = (B, T) + (1,) * (new.dim() - 2)
+    new = new.to(cache_t.dtype)
+    layer_t[rows, dest] = torch.where(
+        valid.view(lead), new,
+        torch.where(stores.view(B, 1, *lead[2:]), new[:, :1],
+                    layer_t[rows, dest]))
 
 
 def quantize_rows(new: torch.Tensor, snapped: bool):

@@ -181,7 +181,12 @@ def _write_rows_torch(pool: torch.Tensor, new: torch.Tensor, layer: int,
                       table: torch.Tensor) -> None:
     """pool[layer, table[b, p // page], p % page] = new[b, t] for
     p = starts[b] + t, t < new_len[b] and p inside the table (in place;
-    a scale plane [L, P, page, K] takes rows [B, T, K])."""
+    a scale plane [L, P, page, K] takes rows [B, T, K]). Reads nothing on
+    the host (a captured decode step runs it with kernels="torch"): every
+    (b, t) is stored, an entry past the real rows where its row stores
+    t = 0, with that value, or, in a row that stores nothing, onto row 0
+    of the reserved page 0 with the value there (a real row never lands
+    there: its page is allocated before the write)."""
     page = pool.shape[2]
     B, T = new.shape[:2]
     t = torch.arange(T, device=new.device)
@@ -189,9 +194,15 @@ def _write_rows_torch(pool: torch.Tensor, new: torch.Tensor, layer: int,
     valid = ((t[None, :] < new_len.long()[:, None]) & (pos >= 0)
              & (pos < table.shape[1] * page))
     blk = torch.where(valid, pos // page, 0)
-    pg = torch.gather(table.long(), 1, blk)
-    rows = (pg * page + pos % page)[valid]
-    pool[layer].view(-1, *pool.shape[3:])[rows] = new[valid].to(pool.dtype)
+    rows = torch.gather(table.long(), 1, blk) * page + pos % page
+    stores = valid[:, :1]                  # the row stores t = 0 (or none)
+    dest = torch.where(valid, rows, torch.where(stores, rows[:, :1], 0))
+    flat = pool[layer].view(-1, *pool.shape[3:])
+    lead = (B, T) + (1,) * (new.dim() - 2)
+    new = new.to(pool.dtype)
+    flat[dest] = torch.where(
+        valid.view(lead), new,
+        torch.where(stores.view(B, 1, *lead[2:]), new[:, :1], flat[dest]))
 
 
 def paged_update_at_layer_torch(cache: PagedKVCache, layer: int,

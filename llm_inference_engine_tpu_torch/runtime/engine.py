@@ -2,28 +2,48 @@
 
 Port of the single-device path of
 ``llm_inference_engine_tpu/runtime/engine.py``, over the slot cache or
-the paged pool. The JAX package's jitted
-closures become methods; its device-side ``while_loop`` rollout becomes a
-Python loop of decode steps (CUDA graphs come later). Kept from it:
-power-of-two prefill buckets (so later CUDA-graph capture per bucket has
-steady shapes), chunked prefill with the near-capacity bucket shrink and
-the loud capacity refusal, per-slot penalty count planes, logprobs,
-multi-round history in the cache, and the one-token top-up of
-length-terminated rows.
+the paged pool. The JAX package's jitted closures become methods. Kept
+from it: power-of-two prefill buckets, chunked prefill with the
+near-capacity bucket shrink and the loud capacity refusal, per-slot
+penalty count planes, logprobs, multi-round history in the cache, and the
+one-token top-up of length-terminated rows.
 
-The KV cache is updated in place. Slot lengths live on the device (the
-kernels read them) and in a host mirror that the engine keeps in step,
-since it decides every length change on the host.
+Decode runs as the JAX engine's device programs do, one device program a
+step or a rollout with its state on the device (``runtime/decode_graph.py``):
+
+- ``decode_step`` (JAX ``_decode_step``): one step over all slots;
+- ``decode_rollout`` (JAX ``_decode_rollout``'s ``lax.scan``): the greedy
+  step replayed ``num_steps`` times into a preallocated buffer;
+- ``generate``'s non-streaming tail (JAX ``_sampled_rollout``'s
+  ``while_loop``): penalties, the draw, stop ids and the capacity check
+  (``lengths < max_seq_len - 1``) on the device, inactive rows emitting
+  -1, the host stopping once a flag says no row is active.
+
+On a CUDA device each of the three bodies is captured into a CUDA graph at
+its first use (batch ``max_batch_size``, a memory pool each) and replayed
+from then on; a capture that fails raises, naming the op. The CPU runs the
+same bodies eagerly. The bodies read their inputs from one static buffer
+that the host fills in one copy before a replay, and keep all state in
+place: the cache and its lengths, the count planes, the block table.
+Lengths also have a host mirror, which the engine keeps in step; a
+rollout refreshes it from the device in the same copy as its tokens.
+Kernel D's decode plan does not depend on the context length, so one
+graph serves every length. What stays eager, and why: prefill and the
+scheduler's mixed prefill+decode steps (their shapes follow the chunk
+bucket), the first token's sample, and ``generate`` with a stream
+callback, which runs ``decode_step`` replays and reads each step's tokens
+on the host.
 
 Paged layout (``kv_layout="paged"``, ``ops/paged_kv.py``): the page
 management of the JAX engine — chunk size capped to the page, a
 host-side refcounting allocator, page-aligned multi-token writes,
-capacity grown before every write (``ensure_capacity``; MemoryError on
-exhaustion, where the scheduler preempts), the worst case of a
-non-streaming ``generate`` reserved before its first decode step, pages
-released by ``reset`` and shared by the prefix caches. The block table
-has a host mirror; the device table is updated in place from pinned
-memory, and only when the host table changed.
+capacity grown on the host before every write and before every replay
+(``ensure_capacity``; MemoryError on exhaustion, where the scheduler
+preempts), the worst case of a rollout reserved before its first step,
+pages released by ``reset`` and shared by the prefix caches. The block
+table has a host mirror; the device table is updated in place from pinned
+memory, and only when the host table changed, so a graph reads the new
+entries.
 
 Weights may be dense or quantized (``ops/quant.py``); the engine does
 not look at them. ``kv_cache_dtype_name="int8"`` gives an int8 cache or
@@ -49,8 +69,34 @@ from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
 from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
 from llm_inference_engine_tpu_torch.ops.sampling import (
     apply_penalties, greedy_sample, sample_tokens, token_logprobs)
+from llm_inference_engine_tpu_torch.runtime import decode_graph
 
 __all__ = ["InferenceEngine", "GenerationResult", "check_kernel_dtypes"]
+
+# Rows of the decode programs' input buffer, int32 [len(INPUT_ROWS), B];
+# the float rows hold f32 bits. A rollout keeps its carry there too:
+# ``tokens`` the last token of each row, ``active`` the rows still running.
+INPUT_ROWS = ("tokens", "active", "temperature", "top_k", "top_p", "min_p",
+              "repetition", "presence", "frequency")
+_FLOAT_ROWS = frozenset((2, 4, 5, 6, 7, 8))
+_NEUTRAL_EXTRAS = (0.0, 1.0, 0.0, 0.0)   # min_p, repetition, presence, freq.
+
+
+@dataclasses.dataclass(frozen=True)
+class _Inputs:
+    """Typed views of the rows of the input buffer."""
+    tokens: torch.Tensor
+    active: torch.Tensor
+    temperature: torch.Tensor
+    top_k: torch.Tensor
+    top_p: torch.Tensor
+    extras: tuple       # min_p, repetition, presence, frequency
+
+    @classmethod
+    def of(cls, buf: torch.Tensor) -> "_Inputs":
+        rows = [buf[i].view(torch.float32) if i in _FLOAT_ROWS else buf[i]
+                for i in range(len(INPUT_ROWS))]
+        return cls(*rows[:5], tuple(rows[5:]))
 
 
 @dataclasses.dataclass
@@ -139,6 +185,7 @@ class InferenceEngine:
         self._counts_ctx = torch.zeros((B, V), dtype=torch.int32,
                                        device=self.device)
         self._counts_gen = torch.zeros_like(self._counts_ctx)
+        self._init_decode_programs()
 
     def _init_paged(self, dtype: torch.dtype, quantized: bool) -> None:
         eng = self.engine_config
@@ -168,6 +215,36 @@ class InferenceEngine:
                                              pin_memory=True)
             self._table_copied = torch.cuda.Event()
 
+    def _init_decode_programs(self) -> None:
+        """The static buffers of the decode programs, and (on the card)
+        the table of their captured graphs, filled at first use."""
+        B, S = self.engine_config.max_batch_size, self.engine_config.max_seq_len
+        dev = self.device
+
+        def zeros(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        self._input_buf = zeros(len(INPUT_ROWS), B)
+        self._x = _Inputs.of(self._input_buf)
+        self._step_out = zeros(2, B)          # next token, its logprob bits
+        # the rollouts' step index and outputs, a row a step
+        self._roll_i = zeros(1, dtype=torch.int64)
+        self._roll_tok = zeros(S, B)
+        self._roll_lp = zeros(S, B, dtype=torch.float32)
+        self._roll_flag = zeros(1, dtype=torch.bool)   # any row active
+        self._stop_mask = zeros(self.config.vocab_size, dtype=torch.bool)
+        self._flags = decode_graph.FlagPoll(self._roll_flag)
+        cuda = dev.type == "cuda"
+        # graphs by body name on the card; None runs the bodies eagerly
+        self._programs: Optional[dict] = {} if cuda else None
+        if cuda:
+            self._input_pinned = torch.zeros(self._input_buf.shape,
+                                             dtype=torch.int32,
+                                             pin_memory=True)
+            self._input_copied = torch.cuda.Event()
+            self._input_host = self._input_pinned.numpy()
+        else:
+            self._input_host = self._input_buf.numpy()
+
     # ------------------------------------------------------------------
     # helpers
     # ------------------------------------------------------------------
@@ -185,7 +262,7 @@ class InferenceEngine:
 
     def _set_lengths(self, lengths) -> None:
         self._lengths = np.asarray(lengths, np.int32).copy()
-        self.cache.lengths = self._dev(self._lengths)
+        self.cache.lengths.copy_(self._dev(self._lengths))
 
     def _upload_table(self) -> None:
         """Copy the host block table into the device table, in place. On
@@ -206,10 +283,7 @@ class InferenceEngine:
                       valid: torch.Tensor) -> None:
         """counts [B, V] += one-hot sums of token_ids [B, T] where valid
         (in place)."""
-        B, T = token_ids.shape
-        rows = torch.arange(B, device=counts.device)[:, None].expand(B, T)
-        counts.index_put_((rows, token_ids.long()),
-                          valid.to(counts.dtype), accumulate=True)
+        counts.scatter_add_(1, token_ids.long(), valid.to(counts.dtype))
 
     def _forward(self, token_ids: torch.Tensor, q_start: torch.Tensor,
                  kv_len: torch.Tensor) -> torch.Tensor:
@@ -450,34 +524,34 @@ class InferenceEngine:
             offset += C
         return final_logits
 
-    def _neutral_extras(self):
-        """(min_p, repetition, presence, frequency) identity values."""
-        B = self.engine_config.max_batch_size
-        z = torch.zeros((B,), dtype=torch.float32, device=self.device)
-        return (z, torch.ones_like(z), z, z)
-
-    def _sampling_arrays(self, sp: SamplingParams):
-        """Per-slot tensors (temperature, top_k, top_p) + the extras tuple
-        (min_p, repetition, presence, frequency)."""
+    def _host_arrays(self, sp: SamplingParams):
+        """Per-slot host arrays [B] (temperature, top_k, top_p) + the
+        extras tuple (min_p, repetition, presence, frequency)."""
         B = self.engine_config.max_batch_size
 
-        def full(v, dtype=torch.float32):
-            return torch.full((B,), v, dtype=dtype, device=self.device)
+        def full(v, dtype=np.float32):
+            return np.full((B,), v, dtype)
 
         t = 0.0 if sp.greedy else sp.temperature
         extras = (full(sp.min_p), full(sp.repetition_penalty),
                   full(sp.presence_penalty), full(sp.frequency_penalty))
-        return full(t), full(sp.top_k, torch.int32), full(sp.top_p), extras
+        return full(t), full(sp.top_k, np.int32), full(sp.top_p), extras
+
+    def _penalized(self, logits, extras):
+        _, rep, pres, freq = extras
+        return apply_penalties(logits, self._counts_ctx, self._counts_gen,
+                               rep, pres, freq)
+
+    def _count_sampled(self, nxt, mask) -> None:
+        self._count_tokens(self._counts_ctx, nxt[:, None], mask[:, None])
+        self._count_tokens(self._counts_gen, nxt[:, None], mask[:, None])
 
     def _sample_and_count(self, logits, temp, topk, topp, extras,
                           count_mask: torch.Tensor):
-        minp, rep, pres, freq = extras
-        logits = apply_penalties(logits, self._counts_ctx, self._counts_gen,
-                                 rep, pres, freq)
-        nxt = sample_tokens(logits, self._gen, temp, topk, topp, minp)
+        logits = self._penalized(logits, extras)
+        nxt = sample_tokens(logits, self._gen, temp, topk, topp, extras[0])
         lp = token_logprobs(logits, nxt)
-        self._count_tokens(self._counts_ctx, nxt[:, None], count_mask[:, None])
-        self._count_tokens(self._counts_gen, nxt[:, None], count_mask[:, None])
+        self._count_sampled(nxt, count_mask)
         return nxt, lp
 
     def sample(self, logits, temperature, top_k, top_p, extras=None,
@@ -485,11 +559,12 @@ class InferenceEngine:
         """Sample token ids from logits [B, V] with per-slot params [B].
 
         ``extras``: (min_p, repetition, presence, frequency) per-slot
-        tensors (None = neutral). ``count_mask`` [B] bool marks rows whose
+        values (None = neutral). ``count_mask`` [B] bool marks rows whose
         sampled token enters the slot's penalty counts."""
-        if extras is None:
-            extras = self._neutral_extras()
         B = logits.shape[0]
+        if extras is None:
+            extras = tuple(np.full((B,), v, np.float32)
+                           for v in _NEUTRAL_EXTRAS)
         mask = self._dev(np.zeros((B,), bool) if count_mask is None
                          else count_mask, torch.bool)
         nxt, lp = self._sample_and_count(
@@ -498,51 +573,173 @@ class InferenceEngine:
             tuple(self._dev(e, torch.float32) for e in extras), mask)
         return (nxt, lp) if return_logprobs else nxt
 
+    # ------------------------------------------------------------------
+    # device-side decode programs (runtime/decode_graph.py)
+    # ------------------------------------------------------------------
+
+    def _stage(self, tokens, active, arrays=None) -> None:
+        """Fill the input buffer for the next program run: ``tokens`` and
+        ``active`` [B], and the sampling ``arrays`` (temperature, top_k,
+        top_p, extras; None keeps the rows as they are). Host values go in
+        one copy from pinned memory; a value already on the card is copied
+        on the card."""
+        values = [tokens, active]
+        if arrays is not None:
+            temp, topk, topp, extras = arrays
+            values += [temp, topk, topp, *extras]
+        if self.device.type == "cuda":
+            # the previous upload's copy must have left the pinned buffer
+            self._input_copied.synchronize()
+        on_card = []
+        for row, v in enumerate(values):
+            if isinstance(v, torch.Tensor) and v.device.type != "cpu":
+                on_card.append((row, v))
+            elif row in _FLOAT_ROWS:
+                self._input_host[row].view(np.float32)[:] = np.asarray(
+                    v, np.float32)
+            else:
+                self._input_host[row] = np.asarray(v).astype(np.int32)
+        if self.device.type == "cuda":
+            self._input_buf.copy_(self._input_pinned, non_blocking=True)
+            self._input_copied.record()
+        for row, v in on_card:
+            dst = self._input_buf[row]
+            (dst.view(torch.float32) if row in _FLOAT_ROWS else dst).copy_(v)
+
+    def _run(self, name: str) -> None:
+        """Run decode body ``name`` once: replay its graph on the card
+        (captured at the first run), call it on the CPU."""
+        body = getattr(self, f"_{name}_body")
+        if self._programs is None:
+            body()
+            return
+        program = self._programs.get(name)
+        if program is None:
+            # warm up with no row active, which changes no state; then put
+            # the staged inputs and the step index back
+            saved = (self._input_buf.clone(), self._roll_i.clone())
+            self._x.active.zero_()
+            program = self._programs[name] = decode_graph.capture(
+                name, body, self._gen)
+            self._input_buf.copy_(saved[0])
+            self._roll_i.copy_(saved[1])
+        program.replay()
+
+    def _step_body(self) -> None:
+        """JAX ``_decode_step``: one step over all slots; rows with
+        ``active`` 0 write no K/V and keep their length and counts."""
+        x = self._x
+        lengths = self.cache.lengths
+        logits = self._forward(x.tokens[:, None], lengths,
+                               lengths + x.active)
+        nxt, lp = self._sample_and_count(logits, x.temperature, x.top_k,
+                                         x.top_p, x.extras, x.active != 0)
+        self._step_out[0].copy_(nxt)
+        self._step_out[1].view(torch.float32).copy_(lp)
+
+    def _greedy_body(self) -> None:
+        """The scan body of JAX ``_decode_rollout``: greedy argmax, no
+        penalties, every row advancing (``active`` is all ones; zeros only
+        in the warm-up before a capture)."""
+        x = self._x
+        lengths = self.cache.lengths
+        logits = self._forward(x.tokens[:, None], lengths,
+                               lengths + x.active)
+        nxt = greedy_sample(logits)
+        x.tokens.copy_(nxt)
+        self._roll_tok.index_copy_(0, self._roll_i, nxt[None])
+        self._roll_i += 1
+
+    def _sampled_body(self) -> None:
+        """The while-loop body of JAX ``_sampled_rollout``: a row runs
+        while ``active`` and below capacity; it emits its token (-1 once
+        stopped) and stops after a stop id."""
+        x = self._x
+        lengths = self.cache.lengths
+        act = (x.active != 0) & (lengths < self.engine_config.max_seq_len - 1)
+        logits = self._forward(x.tokens[:, None], lengths,
+                               lengths + act.to(torch.int32))
+        logits = self._penalized(logits, x.extras)
+        nxt = sample_tokens(logits, self._gen, x.temperature, x.top_k,
+                            x.top_p, x.extras[0])
+        nxt = torch.where(act, nxt, x.tokens)
+        lp = token_logprobs(logits, nxt)
+        self._count_sampled(nxt, act)
+        self._roll_tok.index_copy_(0, self._roll_i,
+                                   torch.where(act, nxt, -1)[None])
+        self._roll_lp.index_copy_(0, self._roll_i, lp[None])
+        self._roll_i += 1
+        x.tokens.copy_(nxt)
+        x.active.copy_(act & ~self._stop_mask[nxt.long()])
+        self._roll_flag.copy_(x.active.amax(0, keepdim=True) != 0)
+
     def decode_step(self, tokens, active, sp_or_arrays,
                     return_logprobs: bool = False):
         """One decode step over all slots. tokens: [B] int tensor or array;
         active: [B] bool (host). ``sp_or_arrays``: a SamplingParams or a
         (temperature, top_k, top_p[, extras]) tuple of per-slot [B]
-        values."""
+        values (host arrays or tensors)."""
         if isinstance(sp_or_arrays, SamplingParams):
-            temp, topk, topp, extras = self._sampling_arrays(sp_or_arrays)
+            arrays = self._host_arrays(sp_or_arrays)
         else:
             temp, topk, topp, *rest = sp_or_arrays
-            extras = tuple(rest[0]) if rest else self._neutral_extras()
-            temp = self._dev(temp, torch.float32)
-            topk = self._dev(topk, torch.int32)
-            topp = self._dev(topp, torch.float32)
-            extras = tuple(self._dev(e, torch.float32) for e in extras)
+            arrays = (temp, topk, topp,
+                      tuple(rest[0]) if rest else _NEUTRAL_EXTRAS)
         active_host = np.asarray(active, bool)
         self.ensure_capacity(self._lengths + active_host)
-        q_start = self.cache.lengths
-        kv_len = self._dev(self._lengths + active_host)
-        tokens = torch.as_tensor(tokens, device=self.device).to(torch.int32)
-        logits = self._forward(tokens[:, None], q_start, kv_len)
+        self._stage(tokens, active_host, arrays)
+        self._run("step")
         self._lengths = self._lengths + active_host.astype(np.int32)
-        nxt, lp = self._sample_and_count(
-            logits, temp, topk, topp, extras,
-            self._dev(active_host, torch.bool))
+        out = self._step_out.clone()
+        nxt, lp = out[0], out[1].view(torch.float32)
         return (nxt, lp) if return_logprobs else nxt
 
     def decode_rollout(self, tokens, num_steps: int) -> torch.Tensor:
-        """Greedy decode ``num_steps`` tokens for all slots. Returns
-        [num_steps, B] int32 token ids."""
-        B = self.engine_config.max_batch_size
+        """Greedy decode ``num_steps`` tokens for all slots in one device
+        program replayed ``num_steps`` times (JAX's ``lax.scan``). Returns
+        [num_steps, B] int32 token ids on the engine's device."""
+        B, S = self.engine_config.max_batch_size, self.engine_config.max_seq_len
+        if num_steps > S:
+            raise ValueError(f"decode_rollout of {num_steps} steps: more "
+                             f"than max_seq_len {S}")
         # a paged rollout reserves its pages up front, as the JAX
         # package's device-side loop must
         self.ensure_capacity(self._lengths + num_steps)
-        toks = torch.as_tensor(tokens, device=self.device).to(torch.int32)
-        out = []
+        self._stage(tokens, np.ones((B,), np.int32))
+        self._roll_i.zero_()
         for _ in range(num_steps):
-            q_start = self.cache.lengths
-            self._lengths = self._lengths + 1
-            logits = self._forward(toks[:, None], q_start,
-                                   self._dev(self._lengths))
-            toks = greedy_sample(logits)
-            out.append(toks)
-        return torch.stack(out) if out else torch.zeros(
-            (0, B), dtype=torch.int32, device=self.device)
+            self._run("greedy")
+        self._lengths = self._lengths + num_steps
+        return self._roll_tok[:num_steps].clone()
+
+    def _sampled_rollout(self, tokens, active, stop_ids, arrays,
+                         steps: int):
+        """JAX ``_sampled_rollout``: up to ``steps`` sampled steps from
+        ``tokens`` for the ``active`` rows, stop ids and capacity checked
+        on the device, the host stopping once a flag read says no row is
+        active. Returns host (tokens [n, B], -1 where a row did not run;
+        logprobs [n, B]) for the n steps run, and refreshes the host
+        mirror of the lengths in the same copy."""
+        B, S = self.engine_config.max_batch_size, self.engine_config.max_seq_len
+        V = self.config.vocab_size
+        stop = np.zeros((V,), bool)
+        stop[[t for t in stop_ids if 0 <= t < V]] = True
+        self._stop_mask.copy_(self._dev(stop, torch.bool))
+        self._stage(tokens, active, arrays)
+        self._roll_i.zero_()
+        # a row runs at most S - 1 steps before it reaches capacity
+        n = min(steps, S)
+        for done in range(1, n + 1):
+            self._run("sampled")
+            if not self._flags.running(done):
+                n = done
+                break
+        host = torch.cat([self._roll_tok[:n].flatten(),
+                          self._roll_lp[:n].view(torch.int32).flatten(),
+                          self.cache.lengths]).cpu().numpy()
+        self._lengths = host[2 * n * B:].copy()
+        return (host[:n * B].reshape(n, B),
+                host[n * B:2 * n * B].view(np.float32).reshape(n, B))
 
     # ------------------------------------------------------------------
     # generation loop
@@ -555,15 +752,17 @@ class InferenceEngine:
                  ) -> GenerationResult:
         """Generate completions for up to max_batch_size prompts, appended
         to the slots' history. stream_callback(seq_index, token_id) fires
-        per generated token."""
+        per generated token; without one, the tail after the first token
+        runs as one device-side sampled rollout."""
         nseq = len(prompts)
         B = self.engine_config.max_batch_size
 
         first_logits = self.prefill(prompts)
-        temp, topk, topp, extras = self._sampling_arrays(sampling)
-        tokens, first_lp = self._sample_and_count(
-            first_logits, temp, topk, topp, extras,
-            self._dev(np.arange(B) < nseq, torch.bool))
+        arrays = self._host_arrays(sampling)
+        tokens, first_lp = self.sample(first_logits, *arrays[:3],
+                                       extras=arrays[3],
+                                       count_mask=np.arange(B) < nseq,
+                                       return_logprobs=True)
         tok_host = tokens.cpu().numpy()
         lp_host = first_lp.cpu().numpy()
 
@@ -591,24 +790,29 @@ class InferenceEngine:
         max_room = self.engine_config.max_seq_len - 1
         steps = sampling.max_new_tokens - 1
         if stream_callback is None and steps > 0 and not done.all():
-            # the JAX package runs this tail as one device-side rollout and
-            # reserves its worst case first: raise MemoryError here too,
-            # before the first decode step
+            # the whole tail in one device-side rollout, its worst case
+            # reserved first: MemoryError here, before the first step
             self.ensure_capacity(np.minimum(
                 self._lengths + np.where(done, 0, steps), max_room + 1))
-        for _ in range(steps):
-            # a row at capacity never advances again, so it stays inactive
-            active = ~done & (self._lengths < max_room)
-            if not active.any():
-                break
-            tokens, step_lp = self.decode_step(tokens, active,
-                                               (temp, topk, topp, extras),
-                                               return_logprobs=True)
-            tok_host = tokens.cpu().numpy()
-            lp_host = step_lp.cpu().numpy()
-            for i in range(nseq):
-                if active[i]:
-                    emit(i, int(tok_host[i]), float(lp_host[i]))
+            rolled, rolled_lp = self._sampled_rollout(
+                tok_host, ~done, stop_ids, arrays, steps)
+            for row, lp_row in zip(rolled, rolled_lp):
+                for i in range(nseq):
+                    if not done[i] and row[i] >= 0:
+                        emit(i, int(row[i]), float(lp_row[i]))
+        else:
+            for _ in range(steps):
+                # a row at capacity never advances again: it stays inactive
+                active = ~done & (self._lengths < max_room)
+                if not active.any():
+                    break
+                tokens, step_lp = self.decode_step(tokens, active, arrays,
+                                                   return_logprobs=True)
+                tok_host = tokens.cpu().numpy()
+                lp_host = step_lp.cpu().numpy()
+                for i in range(nseq):
+                    if active[i]:
+                        emit(i, int(tok_host[i]), float(lp_host[i]))
 
         # A length-terminated row's FINAL sampled token was never fed back,
         # so its K/V is absent from the cache; top it up with a one-token

@@ -13,16 +13,22 @@ versions both compute in f32 and round once, but sum in another order,
 so an output can land one bf16 ulp (~4e-3 relative) apart.
 """
 
+import contextlib
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
-from llm_inference_engine_tpu_torch.config import EngineConfig, get_config
+from llm_inference_engine_tpu_torch.config import (
+    EngineConfig, SamplingParams, get_config)
 from llm_inference_engine_tpu_torch.models.weights import init_dummy_params
 from llm_inference_engine_tpu_torch.ops import activations, attention
 from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
 from llm_inference_engine_tpu_torch.ops import quant, rmsnorm
+from llm_inference_engine_tpu_torch.ops import counted_wrappers
+from llm_inference_engine_tpu_torch.runtime.decode_graph import (
+    HostReadError, run_eagerly)
 from llm_inference_engine_tpu_torch.runtime.engine import InferenceEngine
 
 pytestmark = pytest.mark.gpu
@@ -1365,3 +1371,106 @@ def test_int8_write_every_bf16_pair(cuda, snapped):
         assert torch.equal(c.k[0, 0, :, 0], q), (i0, i1)
         assert torch.equal(c.k_scale[0, 0, :, 0], sc), (i0, i1)
         i0 = i1
+
+
+# ---------------------------------------------------------------------------
+# the decode programs as CUDA-graph replays (runtime/decode_graph.py)
+# ---------------------------------------------------------------------------
+
+GRAPH_LAYOUTS = {"slot": {}, "paged": dict(kv_layout="paged", page_size=16),
+                 "int8": dict(kv_cache_dtype_name="int8")}
+GRAPH_PROMPTS = [[1, 2, 3], list(range(5, 100)), [7] * 30]
+
+
+def _graph_engine(cuda, layout, **kw):
+    cfg = get_config("debug").replace(dtype_name="bfloat16", head_dim=128,
+                                      num_layers=3)
+    eng = EngineConfig(max_batch_size=3, max_seq_len=256, max_prefill_len=16,
+                       **GRAPH_LAYOUTS[layout], **kw)
+    return InferenceEngine(cfg, eng, init_dummy_params(cfg, seed=1,
+                                                       device=cuda),
+                           device=cuda)
+
+
+def _decode_all(e, eager: bool):
+    """From a fresh prefill, the generator seeded: 6 sampled decode steps
+    with a repetition penalty (one row inactive), an 11-step greedy
+    rollout; then from fresh slots, two generate rounds: greedy with a
+    stop id, row 0 reaching capacity, and sampled with top-p. Returns
+    every output with the lengths after each part."""
+    e.reset()
+    e._gen.manual_seed(3)
+    outs = []
+    with run_eagerly(e) if eager else contextlib.nullcontext():
+        toks = e.prefill(GRAPH_PROMPTS).argmax(-1).to(torch.int32)
+        active = np.array([True, True, False])
+        for _ in range(6):
+            toks, lp = e.decode_step(toks, active, SamplingParams(
+                temperature=0.8, repetition_penalty=1.3),
+                return_logprobs=True)
+            outs.append((toks.tolist(), lp.tolist()))
+        rolled = e.decode_rollout(toks, 11).tolist()
+        outs.append((rolled, e.cache.lengths.tolist()))
+        prompts = [list(range(3, 3 + 240)), [5, 9], [11] * 17]
+        for sp in (SamplingParams(greedy=True, max_new_tokens=24,
+                                  stop_token_ids=(rolled[4][1],)),
+                   SamplingParams(temperature=0.9, top_p=0.8,
+                                  max_new_tokens=20)):
+            e.reset()
+            r = e.generate(prompts, sp, eos_token_id=None)
+            outs.append((r.token_ids, r.logprobs, e.cache.lengths.tolist()))
+    return outs
+
+
+@pytest.mark.parametrize("layout", list(GRAPH_LAYOUTS))
+def test_replays_equal_eager_bodies(cuda, layout):
+    """decode_step, decode_rollout and generate replayed equal the same
+    bodies run eagerly (the same kernels), bit for bit: ids, logprobs
+    (sampled rows drawn from the same generator state) and lengths. Row
+    0 of the generate rounds (240 + 1 tokens in 256) stops at capacity
+    on the card, after at most 16 tokens."""
+    e = _graph_engine(cuda, layout)
+    eager = _decode_all(e, eager=True)
+    assert e._programs == {}
+    replayed = _decode_all(e, eager=False)
+    assert set(e._programs) == {"step", "greedy", "sampled"}
+    assert replayed == eager
+    assert all(len(ids[0]) <= 16 for ids, _, _ in replayed[-2:])
+
+
+def test_capture_raises_on_a_host_read(cuda):
+    """A body that reads a device value on the host raises at capture,
+    naming the op, instead of decoding eagerly."""
+    e = _graph_engine(cuda, "slot")
+    body = e._step_body
+
+    def reads():
+        body()
+        e.cache.lengths.max().item()
+    e._step_body = reads
+    with pytest.raises(HostReadError, match="_local_scalar_dense"):
+        e.decode_step(torch.zeros(3, device=cuda, dtype=torch.int32),
+                      np.ones(3, bool), SamplingParams(greedy=True))
+    assert "step" not in e._programs
+
+
+@pytest.mark.parametrize("layout", list(GRAPH_LAYOUTS))
+def test_replay_launch_counts_equal_eager(cuda, layout):
+    """The launch counters after 5 replayed steps equal those after 5
+    eager steps (the capture itself counts nothing)."""
+    e = _graph_engine(cuda, layout)
+    e.prefill(GRAPH_PROMPTS)
+    toks, active = torch.zeros(3, device=cuda, dtype=torch.int32), \
+        np.ones(3, bool)
+    sp = SamplingParams(greedy=True)
+    e.decode_step(toks, active, sp)                # captures the step
+
+    def counts(eager):
+        for f in counted_wrappers():
+            f.launches = 0
+        with run_eagerly(e) if eager else contextlib.nullcontext():
+            for _ in range(5):
+                e.decode_step(toks, active, sp)
+        return {f.__name__: f.launches for f in counted_wrappers()}
+    replayed, eager = counts(False), counts(True)
+    assert replayed == eager and replayed["rmsnorm"] == 5 * 4
