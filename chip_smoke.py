@@ -35,9 +35,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    live rows under the same warm or cold method), and H and its int8
    mode are also timed at decode shape (B = 8 and 16, one token each at
    odd in-page offsets, DECODE_WRITE_STARTS), I at 8 x 64 as well as
-   8 x 512; (3e) A, A with residual and B at decode shape (B = 8) beside
-   their plain versions and ``F.rms_norm``, 64 calls captured in one CUDA
-   graph and timed over its replays;
+   8 x 512; (3e) A, A with residual and B at decode shape (B = 8) held
+   against and timed beside their plain versions and ``F.rms_norm``, 64
+   calls captured in one CUDA graph: CUDA events around its replays, and
+   the union of the kernels' intervals under the profiler;
 4. the main paths, each through ``create_engine`` with dummy weights (seed
    0) at full width and depth, with every launch counter set to 0 just
    before the path and read just after, and a rerun of round 1 with
@@ -91,7 +92,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    and 256, at small shapes, D's four decode modes, D2's four prefill
    modes and I's two writes; 4j runs after 4g, before 4d); every
    profiled step and prefill prints its device time by kernel group
-   (KERNEL_GROUPS, the writes among them);
+   (KERNEL_GROUPS, the writes and kernels A and B among them; a decode
+   step's torch glue split into RoPE, casts, sampling and other by the
+   ops that launch it, GLUE); card busy is the union of the card's
+   activity intervals (kernels A, B and E's decode mode are programmatic
+   dependents and overlap their neighbours); every forward's launches of
+   A and B are counted (``check_norm_launches``);
 5. one JSON line of kernel results (each with its time, its plain
    version's, its bound from this run's inputs and, where one PyTorch call
    computes the same function, that call's time), the nvidia-smi line,
@@ -110,6 +116,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 
@@ -168,10 +175,11 @@ REPLACES = {
         "llm_inference_engine_tpu/ops/attention.py:356",
 }
 _TRITON = ("triton", "llm_inference_engine_tpu_torch/ops/_triton_kernels.py")
+_NORM_ACT = ("cuda", "llm_inference_engine_tpu_torch/csrc/norm_act.cu")
 SOURCES = {
-    "rmsnorm": _TRITON,
-    "add_residual_rmsnorm": _TRITON,
-    "silu_and_mul": _TRITON,
+    "rmsnorm": _NORM_ACT,
+    "add_residual_rmsnorm": _NORM_ACT,
+    "silu_and_mul": _NORM_ACT,
     "kv_write": ("cuda", "llm_inference_engine_tpu_torch/csrc/kv_write.cu"),
     "attention_prefill": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention_prefill.cu"),
     "attention_decode": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention_decode.cu"),
@@ -515,11 +523,14 @@ def fused_decode_case(torch, attention, results, case, randn, ints, *, B, H,
 
 def decode_shape_rows(torch, dev) -> dict:
     """Kernels A, A with residual and B at the decode shape of 4b (B = 8:
-    [8, 4096], [8, 22016]), where each is a fixed-cost launch, timed as
-    the decode programs run them: 64 calls captured in one CUDA graph,
-    four replays under the profiler, the device time over the calls;
-    each beside its plain version and, for A, ``F.rms_norm``, timed the
-    same way. Returns {name: {kernel, plain, library: ms a call, bound}}."""
+    [8, 4096], [8, 22016]), where each is a fixed-cost launch, held
+    against their plain versions and timed as the decode programs run
+    them: 64 calls captured in one CUDA graph, replayed; a call's time is
+    CUDA events around 4 replays over 4 x 64, and beside it the union of
+    the kernels' intervals under torch.profiler over 4 more replays; each
+    beside its plain version and, for A, ``F.rms_norm``, timed the same
+    way. Returns {name: {kernel, kernel_union, plain, library: ms a call,
+    bound}}."""
     import torch.nn.functional as F
 
     from llm_inference_engine_tpu_torch.ops import activations, rmsnorm
@@ -532,6 +543,7 @@ def decode_shape_rows(torch, dev) -> dict:
     w = randn(4096) * 0.1 + 1.0
 
     def replayed_ms(fn):
+        """(events, union) ms a call"""
         fn()
         torch.cuda.synchronize()
         graph = torch.cuda.CUDAGraph()
@@ -539,7 +551,30 @@ def decode_shape_rows(torch, dev) -> dict:
             for _ in range(64):
                 fn()
         graph.replay()
-        return device_profile(torch, graph.replay, 4)[0] / 64
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(4):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        return (start.elapsed_time(end) / 4 / 64,
+                device_profile(torch, graph.replay, 4).busy / 64)
+
+    got = rmsnorm.add_residual_rmsnorm(x, r, w, kernels="cuda")
+    want = rmsnorm.add_residual_rmsnorm_torch(x, r, w)
+    if not torch.equal(got[1], want[1]):
+        raise AssertionError("add_residual_rmsnorm [8,4096]: residual sum "
+                             "differs")
+    for name, a, b in (
+            ("rmsnorm", rmsnorm.rmsnorm(x, w, kernels="cuda"),
+             rmsnorm.rmsnorm_torch(x, w)),
+            ("add_residual_rmsnorm", got[0], want[0]),
+            ("silu_and_mul", activations.silu_and_mul(gu, kernels="cuda"),
+             activations.silu_and_mul_torch(gu))):
+        if not torch.allclose(a.float(), b.float(), **KERNEL_TOL):
+            raise AssertionError(f"{name} at decode shape: kernel disagrees "
+                                 f"with its plain version")
 
     cases = {
         "rmsnorm": (lambda: rmsnorm.rmsnorm(x, w, kernels="cuda"),
@@ -556,13 +591,14 @@ def decode_shape_rows(torch, dev) -> dict:
             3 * 8 * 11008 * 2)}
     rows = {}
     for name, (kern, plain, library, nbytes) in cases.items():
+        (k_ev, k_union), (p_ev, _) = replayed_ms(kern), replayed_ms(plain)
         row = rows[name] = dict(
-            kernel=replayed_ms(kern), plain=replayed_ms(plain),
-            library=replayed_ms(library) if library else None,
+            kernel=k_ev, kernel_union=k_union, plain=p_ev,
+            library=replayed_ms(library)[0] if library else None,
             bound=bound_ms((nbytes, 0))[0])
-        say(f"  {name:22s} decode shape, graph replays: kernel "
-            f"{row['kernel'] * 1e3:.3f} us a call, plain "
-            f"{row['plain'] * 1e3:.3f} us"
+        say(f"  {name:22s} decode shape, graph replays, held against plain: "
+            f"kernel {k_ev * 1e3:.3f} us a call (events; union of kernel "
+            f"intervals {k_union * 1e3:.3f} us), plain {p_ev * 1e3:.3f} us"
             + (f", F.rms_norm {row['library'] * 1e3:.3f} us"
                if library else "")
             + f"; bound {row['bound'] * 1e3:.4f} us (bytes)")
@@ -587,8 +623,8 @@ def phase_kernels(torch, dev, results) -> None:
         return torch.tensor(vals, device=dev, dtype=torch.int32)
 
     # A: rmsnorm / add_residual_rmsnorm at prefill (B*T = 4*512) and
-    # decode (B = 4) token counts, hidden 4096
-    for n in (2048, 4):
+    # decode (B = 8) token counts, hidden 4096
+    for n in (2048, 8):
         x, r = randn(n, 4096), randn(n, 4096)
         w = randn(4096) * 0.1 + 1.0
         # A's working set fits the L2: timed cold (128 MB written between
@@ -615,7 +651,7 @@ def phase_kernels(torch, dev, results) -> None:
                     work=((4 * n + 1) * 4096 * 2, 5 * n * 4096))
 
     # B: silu_and_mul over the packed gate|up [N, 2*11008]
-    for n in (2048, 4):
+    for n in (2048, 8):
         gu = randn(n, 22016)
         check_close(torch, "silu_and_mul",
                     activations.silu_and_mul(gu, kernels="cuda"),
@@ -875,11 +911,10 @@ def prefill_rows(torch, dev) -> dict:
         engine = create_engine("llama2-7b", None, cfg, seed=0, device=dev)
         engine.prefill(prompts)                  # first use of each shape
         engine.reset()
-        busy, per_kernel = device_profile(
-            torch, lambda: engine.prefill(prompts), 1)
-        out[f"{tag} prefill busy"] = busy
+        prof = device_profile(torch, lambda: engine.prefill(prompts), 1)
+        out[f"{tag} prefill busy"] = prof.busy
         out[f"{tag} prefill writes"] = sum(
-            ms for ms, name in per_kernel if "kv_write" in name)
+            ms for ms, name in prof.per_kernel if "kv_write" in name)
         del engine
         torch.cuda.empty_cache()
     return out
@@ -1102,18 +1137,46 @@ def int4pack_ms(torch, quant, ts, x, out_dtype):
     return time_ms(torch, run)
 
 
-def device_profile(torch, fn, reps: int):
-    """(busy ms per rep, [(ms per rep, kernel name)] by time) of ``reps``
-    calls of ``fn`` under torch.profiler: the card's busy time is the sum
-    of its kernels' durations."""
+class Profile(NamedTuple):
+    """What ``device_profile`` read: ms per rep."""
+    busy: float        # the union of the card's activity intervals
+    per_kernel: list   # [(ms, kernel name)], summed durations, by time
+    summed: float      # the sum of the activities' durations
+    overlaps: float    # activities that start before an earlier one ends
+    activities: float  # activities
+
+
+def device_profile(torch, fn, reps: int, cpu_ops: bool = False):
+    """``reps`` calls of ``fn`` under torch.profiler (a ``Profile``; with
+    ``cpu_ops``, also the profiler, which then records the CPU ops). The
+    card's busy time is the union of its activities' intervals (kernels,
+    copies, fills): once kernels are launched as programmatic dependents,
+    a kernel's duration includes the time its blocks sit resident in
+    ``griddepcontrol.wait``, and the sum of durations counts that time
+    twice."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + (
+        [ProfilerActivity.CPU] if cpu_ops else [])
+    with profile(activities=activities) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     per_kernel = sorted(((e.self_device_time_total / 1e3 / reps, e.key)
-                         for e in prof.key_averages()), reverse=True)
-    return sum(ms for ms, _ in per_kernel), per_kernel
+                         for e in prof.key_averages()
+                         if e.self_device_time_total > 0), reverse=True)
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    union, overlaps, reach = 0.0, 0, float("-inf")
+    for start, end in spans:
+        if start < reach:
+            overlaps += 1
+        union += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    out = Profile(union / 1e3 / reps, per_kernel,
+                  sum(ms for ms, _ in per_kernel), overlaps / reps,
+                  len(spans) / reps)
+    return (out, prof) if cpu_ops else out
 
 
 def _short(kernel_name: str) -> str:
@@ -1127,24 +1190,113 @@ def _short(kernel_name: str) -> str:
 # device time by group of kernels (profiler names, first match wins):
 # kernel D2 (the prefill modes), kernel D (the decode modes), E/F, cuBLAS,
 # the K/V row writes C, H, I (kv_write_kernel, paged_kv_write_kernel,
-# kv_write_quant_kernel)
+# kv_write_quant_kernel), kernels A and B
 KERNEL_GROUPS = (("D2", ("attention_prefill_kernel",)),
                  ("D", ("attention_decode_kernel",)),
                  ("E/F", ("quant_matmul_decode", "quant_matmul_prefill")),
                  ("cuBLAS", ("nvjet", "gemm", "cutlass", "xmma")),
-                 ("writes", ("kv_write",)))
+                 ("writes", ("kv_write",)),
+                 ("A", ("rmsnorm_kernel",)),
+                 ("B", ("silu_mul_kernel",)))
+# the torch glue of a decode step (the kernels outside KERNEL_GROUPS), by
+# where the eager body launched them: RoPE (ops/rope.py's rope_cos_sin and
+# rotate), sampling (ops/sampling.py's functions the engine calls), casts
+# (aten::to / copy_ elsewhere), other
+GLUE = ("RoPE", "casts", "sampling", "other")
 
 
-def _groups(per_kernel) -> str:
+@contextlib.contextmanager
+def glue_labels():
+    """Run the RoPE and sampling functions that the decoder and the engine
+    call under ``record_function("glue:RoPE")`` / ``("glue:sampling")``,
+    so that a profile names the ops they launch (instrumentation of this
+    check only; the functions are put back after)."""
+    import torch
+    from llm_inference_engine_tpu_torch.models import llama
+    from llm_inference_engine_tpu_torch.runtime import engine
+    patches = [(llama, n, "RoPE") for n in ("rope_cos_sin", "rotate")] + [
+        (engine, n, "sampling") for n in ("apply_penalties", "greedy_sample",
+                                          "sample_tokens", "token_logprobs")]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
+
+    def labelled(fn, group):
+        def run(*args, **kwargs):
+            with torch.profiler.record_function(f"glue:{group}"):
+                return fn(*args, **kwargs)
+        return run
+    for (m, n, group), (_, _, fn) in zip(patches, saved):
+        setattr(m, n, labelled(fn, group))
+    try:
+        yield
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+def _group_of(name: str) -> str:
+    return next((g for g, keys in KERNEL_GROUPS
+                 if any(k in name for k in keys)), "rest")
+
+
+def group_ms(per_kernel, glue=None) -> dict:
     """``per_kernel`` ([(ms, name)]) summed by KERNEL_GROUPS, the rest
-    apart."""
-    sums = {g: 0.0 for g, _ in KERNEL_GROUPS}
-    sums["rest"] = 0.0
+    apart; with ``glue`` (``glue_map``), the rest split into GLUE too."""
+    sums = dict.fromkeys([g for g, _ in KERNEL_GROUPS] + ["rest"], 0.0)
+    if glue is not None:
+        sums.update(dict.fromkeys(GLUE, 0.0))
     for ms, name in per_kernel:
-        group = next((g for g, keys in KERNEL_GROUPS
-                      if any(k in name for k in keys)), "rest")
+        group = _group_of(name)
         sums[group] += ms
-    return ", ".join(f"{g} {ms:.3f}" for g, ms in sums.items())
+        if group == "rest" and glue is not None:
+            for g, share in glue.get(name, {"other": 1.0}).items():
+                sums[g] += ms * share
+    return sums
+
+
+def _groups(per_kernel, glue=None) -> str:
+    """``group_ms`` as text, the split of the rest in brackets."""
+    sums = group_ms(per_kernel, glue)
+    text = ", ".join(f"{g} {sums[g]:.3f}"
+                     for g in [g for g, _ in KERNEL_GROUPS] + ["rest"])
+    if glue is not None:
+        text += " (" + ", ".join(f"{g} {sums[g]:.3f}" for g in GLUE) + ")"
+    return text
+
+
+def glue_map(prof) -> dict:
+    """{kernel name: {GLUE group: share of its time}} of the torch glue in
+    a profile of CPU ops taken under ``glue_labels``: each kernel goes to
+    the group of the CPU op that launched it, read from the labels around
+    the op (its parents). A replayed step runs the same kernels as the
+    eager body, so its glue is split by these shares."""
+    from torch.autograd import DeviceType
+    ms = {}
+
+    def group(op):
+        while op is not None:
+            if op.name.startswith("glue:"):
+                return op.name[5:]
+            op = op.cpu_parent
+        return None
+
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        g = group(e)
+        if g is None:
+            names, op = [], e
+            while op is not None:
+                names.append(op.name)
+                op = op.cpu_parent
+            g = "casts" if any(n in ("aten::to", "aten::_to_copy",
+                                     "aten::copy_") for n in names) \
+                else "other"
+        for k in e.kernels:
+            if _group_of(k.name) == "rest":
+                d = ms.setdefault(k.name, {})
+                d[g] = d.get(g, 0.0) + k.duration
+    return {name: {g: v / sum(d.values()) for g, v in d.items()}
+            for name, d in ms.items() if sum(d.values()) > 0}
 
 
 def _logit_diff(x, ref):
@@ -1189,6 +1341,22 @@ def kv_bytes(cache) -> int:
 
 def _launch_counts(counters) -> dict:
     return {k: f.launches for k, f in counters.items() if f.launches}
+
+
+def check_norm_launches(label: str, counts: dict, layers: int,
+                        forwards=None) -> None:
+    """Each forward of ``layers`` layers launches kernel A once plain (the
+    first norm), 2 x layers times with a residual (each layer's second
+    norm, and each later first norm or the final norm adding the layer
+    before's output) and B once a layer; ``forwards``: how many forwards
+    ``counts`` covers, where known."""
+    f = counts.get("rmsnorm", 0)
+    want = dict(rmsnorm=f, add_residual_rmsnorm=2 * layers * f,
+                silu_and_mul=layers * f)
+    got = {k: counts.get(k, 0) for k in want}
+    if f == 0 or got != want or forwards not in (None, f):
+        raise AssertionError(f"{label}: launches of A and B {got}, want "
+                             f"{want} for {forwards or 'some'} forward(s)")
 
 
 def snapshot(engine):
@@ -1274,19 +1442,28 @@ def graph_checks(torch, engine, tag: str, toks, active, prompts):
     # window followed by the SM clock nvidia-smi reads at its end
     busy = {"eager": [], "graphs": []}
     clocks = {"eager": [], "graphs": []}
-    kernels = {}
+    profs = {}
+    state = {}
+
+    def step():
+        state["toks"] = engine.decode_step(state["toks"], active,
+                                           SamplingParams(greedy=True))
     for mode in ("eager", "graphs", "graphs", "eager"):
         restore(engine, snap)
-        state = {"toks": toks}
-
-        def step():
-            state["toks"] = engine.decode_step(state["toks"], active,
-                                               SamplingParams(greedy=True))
+        state["toks"] = toks
         with (run_eagerly(engine) if mode == "eager"
               else contextlib.nullcontext()):
-            ms, kernels[mode] = device_profile(torch, step, 4)
-        busy[mode].append(ms)
+            profs[mode] = device_profile(torch, step, 4)
+        busy[mode].append(profs[mode].busy)
         clocks[mode].append(sm_clock_mhz())
+    # one more eager step with its CPU ops: which op launched each glue
+    # kernel (RoPE, casts, sampling, other)
+    restore(engine, snap)
+    state["toks"] = toks
+    with run_eagerly(engine), glue_labels():
+        _, prof = device_profile(torch, step, 1, cpu_ops=True)
+    glue = glue_map(prof)
+    del prof
     restore(engine, snap)
     rolled = engine.decode_rollout(toks, 16).tolist()
     restore(engine, snap)
@@ -1299,7 +1476,7 @@ def graph_checks(torch, engine, tag: str, toks, active, prompts):
     if rolled != eager_ids:
         failures.append("decode_rollout differs from the eager steps")
     busy_e, busy_g = (sum(busy[m]) / 2 for m in ("eager", "graphs"))
-    kernels_e, kernels_g = kernels["eager"], kernels["graphs"]
+    kernels_e, kernels_g = (profs[m].per_kernel for m in ("eager", "graphs"))
     say(f"  {tag} decode, eager / graphs: wall {eager_ms:.3f} / "
         f"{graph_ms:.3f} ms/step ({B * 1e3 / eager_ms:.1f} / "
         f"{B * 1e3 / graph_ms:.1f} tok/s at B={B}); card busy "
@@ -1312,11 +1489,17 @@ def graph_checks(torch, engine, tag: str, toks, active, prompts):
         f"{busy['graphs'][1]:.3f}, {busy['eager'][1]:.3f} ms/step; SM clock "
         f"after each window {clocks['eager'][0]}, {clocks['graphs'][0]}, "
         f"{clocks['graphs'][1]}, {clocks['eager'][1]} MHz")
-    for mode, kernels in (("eager", kernels_e), ("replayed", kernels_g)):
-        say(f"  {tag} {mode} decode step, device ms by group: "
-            f"{_groups(kernels)}; by kernel: "
+    for mode, key in (("eager", "eager"), ("replayed", "graphs")):
+        pr = profs[key]
+        say(f"  {tag} {mode} decode step, device ms by group (durations; "
+            f"the rest split into {', '.join(GLUE)}): "
+            f"{_groups(pr.per_kernel, glue)}; by kernel: "
             + "; ".join(f"{_short(name)} {ms:.4f}"
-                        for ms, name in kernels[:8]))
+                        for ms, name in pr.per_kernel[:8]))
+        say(f"  {tag} {mode} decode step: union of activity intervals "
+            f"{pr.busy:.3f} ms, durations summed {pr.summed:.3f} ms; "
+            f"{pr.overlaps:.0f} of {pr.activities:.0f} activities start "
+            f"before an earlier one ends")
     say(f"  {tag} 16 replayed steps == 16 eager steps: "
         f"{graph_ids == eager_ids}; decode_rollout(16) == eager: "
         f"{rolled == eager_ids}; launches equal: "
@@ -1390,6 +1573,9 @@ def graph_checks(torch, engine, tag: str, toks, active, prompts):
     DECODE[tag] = dict(B=B, eager_ms=eager_ms, graph_ms=graph_ms,
                        eager_busy_ms=busy["eager"],
                        graph_busy_ms=busy["graphs"],
+                       graph_summed_ms=profs["graphs"].summed,
+                       graph_overlaps=profs["graphs"].overlaps,
+                       graph_groups_ms=group_ms(kernels_g, glue),
                        greedy_generate_s=[ref[3], got[3]])
     return kernels_g
 
@@ -1475,14 +1661,15 @@ def phase_main_path(torch, dev, results, path: str, eng_cfg, prompt_lens,
     # then one decode step: the launches of each
     engine.reset()
     _zero_counters()
-    prefill_busy, prefill_kernels = device_profile(
-        torch, lambda: engine.prefill(prompts), 1)
+    prefill = device_profile(torch, lambda: engine.prefill(prompts), 1)
     per_prefill = _launch_counts(counters)
     _zero_counters()
     engine.decode_step(toks, active, SamplingParams(greedy=True))
     per_step = _launch_counts(counters)
     say(f"  launches per prefill of the {B} prompts: {per_prefill}; per "
         f"decode step: {per_step}")
+    check_norm_launches(f"{path} prefill", per_prefill, cfg.num_layers)
+    check_norm_launches(f"{path} decode step", per_step, cfg.num_layers, 1)
     for rnd, res, n in (("round 1", r1, greedy_tokens), ("round 2", r2, 16)):
         if res.num_generated != [n] * B:
             raise AssertionError(f"{rnd}: tokens per row {res.num_generated}")
@@ -1495,10 +1682,11 @@ def phase_main_path(torch, dev, results, path: str, eng_cfg, prompt_lens,
         f"{walls[0]:.4f} s, warm {walls[1]:.4f} s; round 1 generate "
         f"{gen1_s:.3f} s")
     say(f"  peak memory {peak / 2**30:.2f} GiB")
-    say(f"  warm prefill: card busy {prefill_busy:.3f} ms; by group: "
-        f"{_groups(prefill_kernels)}; by kernel: "
+    say(f"  warm prefill: card busy {prefill.busy:.3f} ms (kernel durations "
+        f"summed {prefill.summed:.3f}); by group: "
+        f"{_groups(prefill.per_kernel)}; by kernel: "
         + "; ".join(f"{_short(name)} {ms:.3f}"
-                    for ms, name in prefill_kernels[:8]))
+                    for ms, name in prefill.per_kernel[:8]))
 
     # reference: round 1 again through the plain versions, same weights
     ref = InferenceEngine(cfg, eng_cfg.replace(kernels="torch"),
@@ -2279,6 +2467,83 @@ def _check_paged_launches(label, counters, expected) -> dict:
     return launches
 
 
+def norm_rows(torch, dev) -> dict:
+    """Kernels A, A with residual and B timed, no checks beyond 3e's: at
+    decode shape (``decode_shape_rows``: 64 calls in a CUDA graph, CUDA
+    events over its replays), at prefill shape (A cold at [2048, 4096], B
+    at [2048, 22016], as phase 3 times them), and the wall of 4b's and
+    4c's replayed decode step (llama2-7b INT4 and INT8, B = 8, 32 greedy
+    steps after a 16-token ``generate`` of 4b's prompts) with the count
+    of the card's activities (kernels, copies) in one. Two checksums
+    (keys ending in "checksum") show two trees' bits equal: of A's, A's
+    residual mode's and B's outputs at the prefill shapes, and of the
+    ids of 4b's and 4c's ``generate`` and steps. ``tools/chip_kernel_ab.py
+    --rows norm`` times another tree through this function, so it calls
+    only what every tree has."""
+
+    def checksum(values) -> float:
+        """Position-weighted sum of integers (bf16 bit patterns, ids)."""
+        v = torch.cat([t.reshape(-1).to(torch.int64) for t in values])
+        weights = torch.arange(v.numel(), device=v.device) % 65521 + 1
+        return float((v * weights).sum().item())
+    import numpy as np
+
+    from llm_inference_engine_tpu_torch.config import (
+        EngineConfig, SamplingParams)
+    from llm_inference_engine_tpu_torch.models.registry import create_engine
+    from llm_inference_engine_tpu_torch.ops import activations, rmsnorm
+    out = {f"{name} decode": row["kernel"]
+           for name, row in decode_shape_rows(torch, dev).items()}
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+    x, r, gu = randn(2048, 4096), randn(2048, 4096), randn(2048, 22016)
+    w = randn(4096) * 0.1 + 1.0
+    out["rmsnorm prefill"] = time_ms(
+        torch, lambda: rmsnorm.rmsnorm(x, w, kernels="cuda"), cold=True)
+    out["add_residual_rmsnorm prefill"] = time_ms(
+        torch, lambda: rmsnorm.add_residual_rmsnorm(x, r, w, kernels="cuda"),
+        cold=True)
+    out["silu_and_mul prefill"] = time_ms(
+        torch, lambda: activations.silu_and_mul(gu, kernels="cuda"))
+    out["A, A with residual, B outputs checksum"] = checksum(
+        t.view(torch.int16) for t in (
+            rmsnorm.rmsnorm(x, w, kernels="cuda"),
+            *rmsnorm.add_residual_rmsnorm(x, r, w, kernels="cuda"),
+            activations.silu_and_mul(gu, kernels="cuda")))
+    del x, r, gu
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(3, 32000, n).tolist() for n in QUANT_PROMPTS]
+    for tag, quant in (("4b", "int4"), ("4c", "int8")):
+        engine = create_engine("llama2-7b", None, EngineConfig(
+            quant_mode=quant, max_batch_size=8, max_seq_len=2048), seed=0,
+            device=dev)
+        res = engine.generate(prompts, SamplingParams(greedy=True,
+                                                      max_new_tokens=16),
+                              eos_token_id=None)
+        toks = torch.tensor([o[-1] for o in res.token_ids], device=dev,
+                            dtype=torch.int32)
+        active, sp = np.ones(len(prompts), bool), SamplingParams(greedy=True)
+        toks = engine.decode_step(toks, active, sp)   # captures the step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = []
+        for _ in range(32):
+            toks = engine.decode_step(toks, active, sp)
+            ids.append(toks)
+        torch.cuda.synchronize()
+        out[f"{tag} replayed step wall"] = (time.perf_counter() - t0) / 32 * 1e3
+        out[f"{tag} greedy ids checksum"] = checksum(
+            [torch.tensor(res.token_ids, device=dev), *ids])
+        out[f"{tag} replayed step activities"] = device_profile(
+            torch, lambda: engine.decode_step(toks, active, sp), 1).activities
+        del engine
+        torch.cuda.empty_cache()
+    return out
+
+
 def paged_kernels(quant: dict) -> tuple:
     """The kernels a paged INT4 engine launches, by its KV dtype."""
     kv = INT8_PAGED if quant.get("kv_cache_dtype_name") else BF16_PAGED
@@ -2333,14 +2598,18 @@ def phase_paged_vs_slot(torch, dev, model: str, quant: dict, prompts,
     per_step = _launch_counts(counters)
     paged.reset()
     _zero_counters()
-    prefill_busy, prefill_kernels = device_profile(
-        torch, lambda: paged.prefill(prompts), 1)
+    prefill = device_profile(torch, lambda: paged.prefill(prompts), 1)
+    per_prefill = _launch_counts(counters)
     say(f"  launches per paged prefill of the {B} prompts: "
-        f"{_launch_counts(counters)}; per paged decode step: {per_step}")
-    say(f"  warm paged prefill: card busy {prefill_busy:.3f} ms; by group: "
-        f"{_groups(prefill_kernels)}; by kernel: "
+        f"{per_prefill}; per paged decode step: {per_step}")
+    L = cfg.num_layers
+    check_norm_launches(f"paged {kv} prefill", per_prefill, L)
+    check_norm_launches(f"paged {kv} decode step", per_step, L, 1)
+    say(f"  warm paged prefill: card busy {prefill.busy:.3f} ms (kernel "
+        f"durations summed {prefill.summed:.3f}); by group: "
+        f"{_groups(prefill.per_kernel)}; by kernel: "
         + "; ".join(f"{_short(name)} {ms:.3f}"
-                    for ms, name in prefill_kernels[:8]))
+                    for ms, name in prefill.per_kernel[:8]))
     params = paged.params
     del paged
     torch.cuda.empty_cache()

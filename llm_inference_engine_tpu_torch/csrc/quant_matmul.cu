@@ -53,7 +53,17 @@
 //   - the cluster's partial sums meet in distributed shared memory: after
 //     a cluster barrier every rank sums a share of the tile over ranks 0,
 //     1, ... in order and stores it. Deterministic, no workspace, no host
-//     read: a CUDA graph can capture it.
+//     read: a CUDA graph can capture it;
+//   - it is launched as a programmatic dependent (PDL, the rule in
+//     csrc/norm_act.cu): on the decode step x comes from kernel A or B,
+//     so the first S - 1 stages' weight boxes and INT4 scales are
+//     requested before `griddepcontrol.wait`, and x's copies after it;
+//     it lets the kernel after it (A or B, which wait for it to finish
+//     and only then let the next E launch) become resident once its K
+//     loop is done, not at its start: with the trigger at the start, E
+//     launched back to back (chip_smoke.py phase 3b) ran up to 1.3x
+//     slower at m8 on wqkv and gate|up, the next launch's blocks sharing
+//     the SMs with a decode E that still streams.
 // Prefill mode (16 < m < 1024: the 64-row prefill tails, mixed steps).
 // Bound by tensor-core operations above m ~ 75. The design:
 //   - a block owns 128 output columns x 64 or 128 x rows, no split-K;
@@ -355,6 +365,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// Programmatic dependent launch: wait for the previous kernel's results
+// (at once without the launch attribute), and let the next kernel launch.
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void pdl_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -428,9 +448,11 @@ __global__ void __launch_bounds__(kDecThreads)
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  // stage j into slot j % S. Weight rows past the weight's end are
-  // zero-filled by TMA, and weight rows past k_hi meet zeros of x.
-  auto issue = [&](int j) {
+  // stage j into slot j % S, in two parts: what is constant (the weight
+  // box by TMA, the INT4 scales) and the activations (x). Weight rows
+  // past the weight's end are zero-filled by TMA, and weight rows past
+  // k_hi meet zeros of x.
+  auto issue_weights = [&](int j) {
     const int s = j % S;
     const int k0 = k_lo + j * D::kK;
     if (tid == 0) {
@@ -438,13 +460,6 @@ __global__ void __launch_bounds__(kDecThreads)
       mbar_expect_tx(&full[s], D::kW);
       tma_load_3d(ring + s * D::kW, &wmap, &full[s], col0,
                   kr_lo + j * D::kRows, half);
-    }
-    unsigned char* xs = xring + s * D::kX;
-    for (int i = tid; i < BM * (D::kK / 8); i += kDecThreads) {
-      const int r = i / (D::kK / 8), c = (i % (D::kK / 8)) * 8;
-      const bool ok = r < p.m && k0 + c < k_hi;
-      cp_async16(xs + r * D::kXPitch + c * 2,
-                 ok ? p.x + (long long)r * p.k + k0 + c : p.x, ok);
     }
     if constexpr (INT4) {
       const int groups = min(D::kK, k_hi - k0) / p.group;
@@ -457,11 +472,31 @@ __global__ void __launch_bounds__(kDecThreads)
                    ok);
       }
     }
+  };
+  // x's copies, then this thread's arrival on the stage's barrier when
+  // all its copies so far have landed (the barrier counts arrivals and
+  // bytes, not their order)
+  auto issue_x = [&](int j) {
+    const int s = j % S;
+    const int k0 = k_lo + j * D::kK;
+    unsigned char* xs = xring + s * D::kX;
+    for (int i = tid; i < BM * (D::kK / 8); i += kDecThreads) {
+      const int r = i / (D::kK / 8), c = (i % (D::kK / 8)) * 8;
+      const bool ok = r < p.m && k0 + c < k_hi;
+      cp_async16(xs + r * D::kXPitch + c * 2,
+                 ok ? p.x + (long long)r * p.k + k0 + c : p.x, ok);
+    }
     asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(
                      smem_u32(&full[s]))
                  : "memory");
   };
-  for (int j = 0; j < S - 1 && j < nstage; ++j) issue(j);
+  // Launched as a programmatic dependent (launch_decode): the first S - 1
+  // stages' weights and scales are requested before the wait for the
+  // kernel that writes x (kernel A or B) to finish; x, and every global
+  // store, come after it.
+  for (int j = 0; j < S - 1 && j < nstage; ++j) issue_weights(j);
+  pdl_wait();
+  for (int j = 0; j < S - 1 && j < nstage; ++j) issue_x(j);
 
   // acc[mt][nt]: m16 tile mt (A-row g: column wc + 2 mt, A-row g + 8:
   // column wc + 2 mt + 1) by x rows nt * 8 ..
@@ -474,7 +509,10 @@ __global__ void __launch_bounds__(kDecThreads)
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = part[mt][nt][e] = 0.f;
 
   for (int j = 0; j < nstage; ++j) {
-    if (j + S - 1 < nstage) issue(j + S - 1);
+    if (j + S - 1 < nstage) {
+      issue_weights(j + S - 1);
+      issue_x(j + S - 1);
+    }
     const int s = j % S;
     mbar_wait(&full[s], (j / S) & 1);
     const unsigned char* ws = ring + s * D::kW + pair * HR * 64;
@@ -544,6 +582,10 @@ __global__ void __launch_bounds__(kDecThreads)
     }
     __syncthreads();   // slot j % S is free for stage j + S
   }
+
+  // the K loop is done: the kernel after this one (A or B) may become
+  // resident and load its constants while the sums meet
+  pdl_launch_dependents();
 
   // the two halves' sums meet in shared memory (the ring is free), pair 0
   // first; d0/d1 of a tile hold x rows 2t and 2t + 1 of its A-row g
@@ -963,13 +1005,17 @@ int launch_decode(const Params& p, const Plan& pl, cudaStream_t stream,
   cfg.blockDim = dim3(kDecThreads);
   cfg.dynamicSmemBytes = pl.smem;
   cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = pl.cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
+  // a programmatic dependent of the kernel before it (the PDL rule:
+  // csrc/norm_act.cu), in a cluster of pl.cluster blocks
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  attr[1].id = cudaLaunchAttributeClusterDimension;
+  attr[1].val.clusterDim.x = pl.cluster;
+  attr[1].val.clusterDim.y = 1;
+  attr[1].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = pl.cluster > 1 ? 1 : 0;   // one block: a plain launch
+  cfg.numAttrs = pl.cluster > 1 ? 2 : 1;   // one block: no cluster
   err = cudaLaunchKernelEx(&cfg, kernel, wmap, p);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }

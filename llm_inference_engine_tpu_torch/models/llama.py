@@ -3,7 +3,12 @@
 Port of ``llm_inference_engine_tpu/models/llama.py`` for one device.
 Each layer runs: rmsnorm -> packed QKV matmul -> split + RoPE -> cache
 write -> attention -> o-proj -> fused add-residual + rmsnorm -> gate|up
-matmul -> silu_and_mul -> down-proj -> residual add. The cache write and
+matmul -> silu_and_mul -> down-proj -> residual add. The layer's final
+residual add is handed to the norm that reads its sum next: each layer
+returns (down, residual), and the next layer's first norm (or the final
+norm) is ``add_residual_rmsnorm(down, residual)``, whose stored sum is
+bit for bit ``add_residual(down, residual)`` (kernel A, one launch in
+place of four eager ops). The cache write and
 attention, by layout: slot, kernel C (int8: kernel I) then kernel D at
 T > 1, and the fused write+attend decode mode of kernel D at T == 1;
 paged (the JAX package's paged branch), kernel H through the block table,
@@ -31,8 +36,7 @@ import torch
 
 from llm_inference_engine_tpu_torch.config import EngineConfig, ModelConfig
 from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
-from llm_inference_engine_tpu_torch.ops.activations import (
-    add_residual, silu_and_mul)
+from llm_inference_engine_tpu_torch.ops.activations import silu_and_mul
 from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
 from llm_inference_engine_tpu_torch.ops.attention import (
     attention, attention_decode, attention_decode_fused, can_fuse_decode)
@@ -47,15 +51,16 @@ __all__ = ["decoder_forward", "forward_hidden", "lm_head_logits",
            "run_layers"]
 
 
-def _layer_step(cfg: ModelConfig, eng: EngineConfig, x: torch.Tensor,
-                layer: dict, layer_idx: int, cache, cos, sin,
-                q_start: torch.Tensor, kv_len: torch.Tensor) -> torch.Tensor:
-    """One decoder layer. x: [B, T, hidden]; ``layer`` holds this layer's
-    weight views; the cache is written in place at ``layer_idx``."""
+def _layer_step(cfg: ModelConfig, eng: EngineConfig, h_norm: torch.Tensor,
+                x: torch.Tensor, layer: dict, layer_idx: int, cache, cos,
+                sin, q_start: torch.Tensor, kv_len: torch.Tensor):
+    """One decoder layer from its normed input ``h_norm`` and its residual
+    stream ``x`` ([B, T, hidden] each); ``layer`` holds this layer's weight
+    views; the cache is written in place at ``layer_idx``. Returns (down,
+    residual): the layer's output is their sum, which the next norm adds."""
     kernels = eng.kernels
     B, T, _ = x.shape
 
-    h_norm = rmsnorm(x, layer["attn_norm"], cfg.rms_norm_eps, kernels=kernels)
     qkv = linear(h_norm, layer["wqkv"], kernels=kernels)
     if "bqkv" in layer:
         qkv = qkv + layer["bqkv"].to(qkv.dtype)
@@ -99,19 +104,28 @@ def _layer_step(cfg: ModelConfig, eng: EngineConfig, x: torch.Tensor,
     gate_up = linear(ffn_in, layer["w_gate_up"], kernels=kernels)
     act = silu_and_mul(gate_up, kernels=kernels)
     down = linear(act, layer["w_down"], kernels=kernels)
-    return add_residual(down, resid)
+    return down, resid
 
 
 def run_layers(cfg: ModelConfig, eng: EngineConfig, layers_params: dict,
                x: torch.Tensor, cache: kvc.KVCache, cos, sin,
-               q_start: torch.Tensor, kv_len: torch.Tensor) -> torch.Tensor:
+               q_start: torch.Tensor, kv_len: torch.Tensor):
     """The decoder layer loop over ``w[i]`` views of the stacked weights
-    (quantized or not)."""
+    (quantized or not). Returns the last layer's (down, residual): the
+    caller's final norm adds them."""
+    kernels, eps = eng.kernels, cfg.rms_norm_eps
+    down = None
     for i in range(cache.num_layers):
         layer = {name: w[i] for name, w in layers_params.items()}
-        x = _layer_step(cfg, eng, x, layer, i, cache, cos, sin, q_start,
-                        kv_len)
-    return x
+        if down is None:
+            h_norm = rmsnorm(x, layer["attn_norm"], eps, kernels=kernels)
+        else:
+            # the previous layer's residual add, fused into this norm
+            h_norm, x = add_residual_rmsnorm(down, x, layer["attn_norm"], eps,
+                                             kernels=kernels)
+        down, x = _layer_step(cfg, eng, h_norm, x, layer, i, cache, cos, sin,
+                              q_start, kv_len)
+    return down, x
 
 
 def decoder_forward(cfg: ModelConfig, eng: EngineConfig, params: dict,
@@ -136,11 +150,12 @@ def decoder_forward(cfg: ModelConfig, eng: EngineConfig, params: dict,
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]
 
     x = embedding_lookup(params["embed"], token_ids).to(cfg.dtype)
-    x = run_layers(cfg, eng, params["layers"], x, cache, cos, sin, q_start,
-                   kv_len)
+    down, resid = run_layers(cfg, eng, params["layers"], x, cache, cos, sin,
+                             q_start, kv_len)
     cache.lengths.copy_(kv_len)
-    x = rmsnorm(x, params["final_norm"], cfg.rms_norm_eps,
-                kernels=eng.kernels)
+    # the last layer's residual add, fused into the final norm
+    x, _ = add_residual_rmsnorm(down, resid, params["final_norm"],
+                                cfg.rms_norm_eps, kernels=eng.kernels)
     return x, cache
 
 

@@ -102,6 +102,11 @@ _SIGNATURES = {
     "int8_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _P],
     # m, k, n, halves, int4, group, out[8]
     "quant_matmul_plan": [_I, _I, _I, _I, _I, _I, _P],
+    # x, residual (or null), weight, y, h (or null), n, hidden, dtype, eps,
+    # stream
+    "rmsnorm": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # gate_up, out, n, inter, dtype, stream
+    "silu_and_mul": [_P, _P, _I, _I, _I, _P],
 }
 
 
@@ -178,6 +183,13 @@ def check(status: int, name: str) -> None:
     if status != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {status}")
+
+
+def dtype_code(dtype) -> int:
+    """The dtype code of ``csrc/norm_act.cu``'s entry points (bf16 0, f16
+    1, f32 2)."""
+    import torch
+    return {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}[dtype]
 
 
 def stream_of(t) -> int:

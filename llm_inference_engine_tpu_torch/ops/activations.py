@@ -2,10 +2,14 @@
 
 Port of ``llm_inference_engine_tpu/ops/activations.py``. The packed
 [tokens, 2*inter] convention is kept: gate = [:, :inter], up =
-[:, inter:]. Kernel B (Triton, ``ops/_triton_kernels.py::_silu_mul_kernel``)
-replaces the TPU kernel ``_silu_mul_kernel``; on a CUDA tensor it runs at
-every token count (the JAX package's 64 < tokens < 2048 gate was a TPU
-measurement). The residual add stays plain torch, as in the JAX package.
+[:, inter:]. Kernel B (CUDA C, ``csrc/norm_act.cu``) replaces the TPU
+kernel ``_silu_mul_kernel``: one thread per 8 output columns, launched
+as a programmatic dependent of the kernel before it; on a CUDA tensor it
+runs at every token count (the JAX package's 64 < tokens < 2048 gate was
+a TPU measurement). ``add_residual`` stays the plain counterpart of the
+JAX package's residual add; the decoder no longer calls it, since kernel
+A's residual mode adds each layer's output to its residual
+(``models/llama.py``).
 """
 
 from __future__ import annotations
@@ -37,15 +41,16 @@ def silu_and_mul(gate_up: torch.Tensor, *, kernels: str = "auto") -> torch.Tenso
         raise ValueError(f"silu_and_mul kernel: need a contiguous [..., 2I] "
                          f"input, got {tuple(gate_up.shape)}")
     from llm_inference_engine_tpu_torch.ops import _native
-    _native.triton()
-    from llm_inference_engine_tpu_torch.ops import _triton_kernels
-    shape = gate_up.shape
-    x2 = gate_up.view(-1, shape[-1])
-    out = torch.empty((x2.shape[0], shape[-1] // 2), dtype=gate_up.dtype,
+    inter = gate_up.shape[-1] // 2
+    out = torch.empty((*gate_up.shape[:-1], inter), dtype=gate_up.dtype,
                       device=gate_up.device)
-    _triton_kernels.silu_and_mul(x2, out)
+    status = _native.library().silu_and_mul(
+        gate_up.data_ptr(), out.data_ptr(), out.numel() // inter if inter
+        else 0, inter, _native.dtype_code(gate_up.dtype),
+        _native.stream_of(gate_up))
+    _native.check(status, "silu_and_mul")
     silu_and_mul.launches += 1
-    return out.view(*shape[:-1], shape[-1] // 2)
+    return out
 
 
 silu_and_mul.launches = 0

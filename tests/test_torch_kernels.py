@@ -43,11 +43,22 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n,h", [(7, 4096), (300, 1000)])
-def test_rmsnorm_kernels(cuda, n, h):
-    x = torch.randn(n, h, device=cuda, dtype=torch.bfloat16)
-    r = torch.randn(n, h, device=cuda, dtype=torch.bfloat16)
-    w = torch.rand(h, device=cuda, dtype=torch.bfloat16) + 0.5
+# Kernels A and B (csrc/norm_act.cu): the decode step's rows (1, 8, 16),
+# ragged row counts, a prefill's 2048; widths of 16-byte loads (4096,
+# 1000, 11008) and of one value a load (1001: no row is 16-byte aligned).
+NORM_DTYPES = [torch.bfloat16, torch.float16, torch.float32]
+
+
+@pytest.mark.parametrize("dtype", NORM_DTYPES, ids=str)
+@pytest.mark.parametrize("n,h", [(1, 4096), (7, 4096), (8, 4096),
+                                 (16, 4096), (2048, 4096), (300, 1000),
+                                 (8, 1000), (5, 1001), (16, 1001)])
+def test_rmsnorm_kernels(cuda, n, h, dtype):
+    """A in both modes against the plain versions; the residual sum h is
+    bit-identical (the same f32 add, rounded once)."""
+    x = torch.randn(n, h, device=cuda, dtype=dtype)
+    r = torch.randn(n, h, device=cuda, dtype=dtype)
+    w = torch.rand(h, device=cuda, dtype=dtype) + 0.5
     torch.testing.assert_close(rmsnorm.rmsnorm(x, w, kernels="cuda"),
                                rmsnorm.rmsnorm_torch(x, w), **TOL)
     y, hh = rmsnorm.add_residual_rmsnorm(x, r, w, kernels="cuda")
@@ -56,11 +67,59 @@ def test_rmsnorm_kernels(cuda, n, h):
     torch.testing.assert_close(y, y0, **TOL)
 
 
-@pytest.mark.parametrize("n,inter", [(5, 11008), (129, 1000)])
-def test_silu_and_mul_kernel(cuda, n, inter):
-    x = torch.randn(n, 2 * inter, device=cuda, dtype=torch.bfloat16)
+@pytest.mark.parametrize("dtype", NORM_DTYPES, ids=str)
+@pytest.mark.parametrize("n,inter", [(1, 11008), (5, 11008), (8, 11008),
+                                     (16, 11008), (2048, 11008),
+                                     (129, 1000), (8, 1001)])
+def test_silu_and_mul_kernel(cuda, n, inter, dtype):
+    x = torch.randn(n, 2 * inter, device=cuda, dtype=dtype)
     torch.testing.assert_close(activations.silu_and_mul(x, kernels="cuda"),
                                activations.silu_and_mul_torch(x), **TOL)
+
+
+def test_norm_act_kernels_refuse_instead_of_falling_back(cuda):
+    """Rows wider than kernel A holds, a weight of another dtype and an
+    odd packed width raise on the card."""
+    x = torch.zeros(2, 16385, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="wider"):
+        rmsnorm.rmsnorm(x, torch.ones(16385, device=cuda,
+                                      dtype=torch.bfloat16))
+    with pytest.raises(TypeError, match="weight dtype"):
+        rmsnorm.rmsnorm(x[:, :4096].contiguous(),
+                        torch.ones(4096, device=cuda))
+    with pytest.raises(ValueError):
+        activations.silu_and_mul(torch.zeros(2, 7, device=cuda))
+
+
+@pytest.mark.parametrize("mode", ["int4", "int8"])
+def test_pdl_chain_replays_equal_eager(cuda, mode):
+    """The decode step's chain at 7B widths, m = 8: E(wo) -> A with
+    residual -> E(gate|up) -> B -> E(down), every kernel a programmatic
+    dependent of the one before, captured in one CUDA graph and replayed
+    200 times: every replay's outputs are bit-identical to the eager
+    chain's."""
+    wo = _qweight(cuda, mode, 4096, 4096)
+    gate_up = _qweight(cuda, mode, 4096, 11008, halves=2)
+    down = _qweight(cuda, mode, 11008, 4096)
+    attn = torch.randn(8, 4096, device=cuda, dtype=torch.bfloat16)
+    resid = torch.randn(8, 4096, device=cuda, dtype=torch.bfloat16)
+    w = torch.rand(4096, device=cuda, dtype=torch.bfloat16) + 0.5
+
+    def chain():
+        o = _run_fused(wo, attn, torch.bfloat16, "cuda")
+        y, h = rmsnorm.add_residual_rmsnorm(o, resid, w)
+        act = activations.silu_and_mul(_run_fused(gate_up, y, torch.bfloat16,
+                                                  "cuda"))
+        return h, _run_fused(down, act, torch.bfloat16, "cuda")
+    want = chain()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = chain()
+    for _ in range(200):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, v) for g, v in zip(got, want))
 
 
 def test_kv_write_kernel(cuda):
@@ -1473,4 +1532,8 @@ def test_replay_launch_counts_equal_eager(cuda, layout):
                 e.decode_step(toks, active, sp)
         return {f.__name__: f.launches for f in counted_wrappers()}
     replayed, eager = counts(False), counts(True)
-    assert replayed == eager and replayed["rmsnorm"] == 5 * 4
+    # one forward of 3 layers a step: A once plain, 2 x 3 times with a
+    # residual (the layers' final residual adds folded in), B 3 times
+    assert replayed == eager and replayed["rmsnorm"] == 5
+    assert replayed["add_residual_rmsnorm"] == 5 * 6
+    assert replayed["silu_and_mul"] == 5 * 3

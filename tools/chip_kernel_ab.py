@@ -2,8 +2,8 @@
 """Time kernel rows of ``chip_smoke.py`` in two checkouts, in turns, on one
 CUDA card (an H100).
 
-    python3 tools/chip_kernel_ab.py [--rows attention|quant|writes|prefill]
-        PARENT_ROOT [CHANGE_ROOT]
+    python3 tools/chip_kernel_ab.py
+        [--rows attention|quant|writes|prefill|norm] PARENT_ROOT [CHANGE_ROOT]
 
 PARENT_ROOT and CHANGE_ROOT (default: this checkout) are roots of the
 repository, e.g. a parent commit unpacked with ``git archive`` into a
@@ -41,6 +41,15 @@ prompts) paged over a bf16 pool (4d) and an int8 pool (4h), chunks and
 pages of 64, and slot over an int8 cache (4g): the card's busy ms and the
 K/V writes' ms of it (torch.profiler), through this checkout's
 ``chip_smoke.prefill_rows``.
+
+``--rows norm`` times kernels A (plain and with a residual) and B at
+decode shape ([8, 4096], [8, 22016]: 64 calls in a CUDA graph, CUDA
+events over its replays) and at prefill shape ([2048, 4096] cold,
+[2048, 22016]), and the wall of 4b's and 4c's replayed decode step
+(llama2-7b INT4 and INT8, B = 8), through this checkout's
+``chip_smoke.norm_rows``, with the count of the card's activities in
+one replayed step; it also prints whether checksums of A's and B's
+outputs and of 4b's and 4c's greedy ids are equal in every run.
 """
 
 from __future__ import annotations
@@ -58,7 +67,8 @@ def one(root: Path, rows: str = "attention") -> dict:
     """Run the kernel phases of ``root``'s chip_smoke.py in this process;
     return {row: kernel ms} of its attention rows (``rows="quant"``: of
     kernels E and F at QUANT_ROWS; ``rows="writes"``: of the K/V row
-    writes and their floors; ``rows="prefill"``: warm prefills)."""
+    writes and their floors; ``rows="prefill"``: warm prefills;
+    ``rows="norm"``: kernels A and B and 4b's and 4c's replayed step)."""
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_kernel_ab: no CUDA device")
@@ -83,6 +93,8 @@ def one(root: Path, rows: str = "attention") -> dict:
         return here.write_rows(torch, dev)
     if rows == "prefill":
         return here.prefill_rows(torch, dev)
+    if rows == "norm":
+        return here.norm_rows(torch, dev)
     results: dict = {}
     for fn in (smoke.phase_kernels, smoke.phase_paged_kernels,
                smoke.phase_kv_int8_kernels):
@@ -96,7 +108,7 @@ def main(argv) -> int:
     rows = "attention"
     if len(argv) >= 2 and argv[0] == "--rows":
         rows, argv = argv[1], argv[2:]
-    if rows not in ("attention", "quant", "writes", "prefill"):
+    if rows not in ("attention", "quant", "writes", "prefill", "norm"):
         raise SystemExit(__doc__)
     if len(argv) >= 2 and argv[0] == "--one":
         print(json.dumps(one(Path(argv[1]).resolve(), rows)), flush=True)
@@ -122,12 +134,22 @@ def main(argv) -> int:
         ms = json.loads(proc.stdout.strip().splitlines()[-1])
         runs.append((tag, ms))
         print(f"{tag} ({root}): " + "; ".join(
-            f"{k} {v:.4f} ms" for k, v in ms.items()), flush=True)
+            f"{k} {v:.0f}" if k.endswith(("checksum", "activities"))
+            else f"{k} {v:.4f} ms"
+            for k, v in ms.items()), flush=True)
     ratio = {}
     for name in runs[0][1]:
         mean = {tag: sum(ms[name] for t, ms in runs if t == tag) / 2
                 for tag in ("parent", "change")}
         ratio[name] = mean["change"] / mean["parent"]
+        if name.endswith("checksum"):
+            same = len({ms[name] for _, ms in runs}) == 1
+            print(f"  {name:30s} equal in every run: {same}", flush=True)
+            continue
+        if name.endswith("activities"):
+            print(f"  {name:30s} parent {mean['parent']:.1f}, change "
+                  f"{mean['change']:.1f}", flush=True)
+            continue
         print(f"  {name:30s} parent {mean['parent']:.4f} ms, change "
               f"{mean['change']:.4f} ms, change / parent "
               f"{ratio[name]:.4f}", flush=True)
