@@ -86,6 +86,27 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
       ids, through H's and D's int8 paged modes only;
    i. the server over a paged INT4 engine with an int8 pool of 4e's pool
       bytes (~2x the pages): 4e's wave 1;
+   k. a checkpoint on disk (after 4i, every earlier engine freed): the
+      seed-0 bf16 dummy weights of llama2-7b written as an HF directory
+      (two BF16 shards of unfused [out, in] projections, no
+      ``safetensors`` package) and loaded INT4 through ``create_engine``
+      by the native reader (``build/native/``): every leaf bit for bit
+      ``quantize_params`` of the same weights, greedy ids on 4b's prompts
+      equal to the in-memory engine's, the INT4 main path's kernels
+      launched; load seconds, file GB/s (warm: from the page cache) and
+      peak host RSS; the slot PrefixStore at B = 8 (a 320-token system
+      prompt; the restore an exact copy, timed against its copy bound;
+      tails' logits within the limits of 4b and first tokens under the
+      tie rule; the same tails over a zeroed and over another prompt's
+      prefix must leave the limits; prefill tokens skipped; TTFT with
+      and without the store); a 3-round ChatSession (prefill lengths,
+      the slot's length against the history, streaming tok/s beside
+      ``generate``'s at B = 1); the prefix store again on an INT8 engine
+      loaded from the same directory with chunks of 1024, where the
+      scheduler's greedy ids with and without the store must be equal;
+      then ``tools/quantize`` to an INT4 .npz (equal leaf for leaf) and
+      the chat CLI over it and the SentencePiece asset as a subprocess
+      (exit 0, the streaming protocol);
    (3d, before 4: kernel I, H's int8 mode, D2's and D's int8 modes
    against their plain versions at 7B widths, in both scale numerics, the
    decode modes held per row; then at head_dim 80, 96
@@ -2904,6 +2925,501 @@ def phase_preemption(torch, dev, model: str, engine, n: int = 16,
                              f"the plain path in rows {bad}")
 
 
+# 4k: a checkpoint on disk. The system prompt and the tails of the 8
+# requests that share it (c), and the chat turns of the session (d).
+SYSTEM_LEN = 320
+PREFIX_TAILS = (5, 17, 33, 64, 90, 128, 160, 200)
+CHAT_TURNS = ("What does a tokenizer do?", "Say it in fewer words.",
+              "And what does the cache keep?")
+SPM_ASSET = "tests/assets/tiny_spm_bpe.model"
+CKPT_FREE_GB = 24     # 13.5 GB of shards and a 3.7 GB .npz, with room
+
+
+def hf_tensors(cfg, params, layers) -> dict:
+    """The HF-format tensors of ``layers`` of a fused bf16 ``params``:
+    unfused q/k/v and gate/up projections, [out, in], as views on the card
+    (the writer copies each to the host in turn)."""
+    K, D, Hd = cfg.num_kv_heads, cfg.head_dim, cfg.hidden_size
+    G = cfg.num_heads // K
+    lp = params["layers"]
+    out = {}
+    for l in layers:
+        p = f"model.layers.{l}."
+        qkv = lp["wqkv"][l].view(Hd, K, G + 2, D)
+        out.update({
+            p + "self_attn.q_proj.weight": qkv[:, :, :G].reshape(Hd, -1).T,
+            p + "self_attn.k_proj.weight": qkv[:, :, G].reshape(Hd, -1).T,
+            p + "self_attn.v_proj.weight":
+                qkv[:, :, G + 1].reshape(Hd, -1).T,
+            p + "self_attn.o_proj.weight": lp["wo"][l].T,
+            p + "mlp.gate_proj.weight": lp["w_gate_up"][l][:, 0].T,
+            p + "mlp.up_proj.weight": lp["w_gate_up"][l][:, 1].T,
+            p + "mlp.down_proj.weight": lp["w_down"][l].T,
+            p + "input_layernorm.weight": lp["attn_norm"][l],
+            p + "post_attention_layernorm.weight": lp["ffn_norm"][l]})
+    return out
+
+
+def write_hf_checkpoint(cfg, params, path: Path) -> int:
+    """``params`` as an HF-format directory of two BF16 shards (the
+    embedding and the first half of the layers; the second half, the
+    final norm and the lm_head), written with no ``safetensors`` package.
+    Returns the bytes written."""
+    from llm_inference_engine_tpu_torch.runtime.native_io import (
+        write_safetensors)
+    L = cfg.num_layers
+    shards = (
+        {"model.embed_tokens.weight": params["embed"],
+         **hf_tensors(cfg, params, range(L // 2))},
+        {**hf_tensors(cfg, params, range(L // 2, L)),
+         "model.norm.weight": params["final_norm"],
+         "lm_head.weight": params["lm_head"].T})
+    return sum(write_safetensors(
+        str(path / f"model-{i + 1:05d}-of-00002.safetensors"), shard)
+        for i, shard in enumerate(shards))
+
+
+class RssPeak:
+    """The process's resident set at entry (``base``) and its peak while
+    the block runs, sampled every 2 ms from /proc/self/statm (bytes)."""
+
+    def __enter__(self):
+        import threading
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self.base = self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def _rss(self) -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self._page
+
+    def _run(self):
+        while not self._stop.wait(0.002):
+            self.peak = max(self.peak, self._rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+
+
+def unequal_leaves(torch, got: dict, want: dict, prefix: str = "") -> list:
+    """Names of the leaves of two parameter dicts that differ in any bit
+    (a quantized leaf: its q, scale, mode or group)."""
+    from llm_inference_engine_tpu_torch.ops.quant import QuantizedTensor
+
+    def same(a, b):
+        bits = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+        return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+            a.contiguous().view(bits[a.element_size()]),
+            b.contiguous().view(bits[b.element_size()])))
+    bad = [prefix + k for k in got if k not in want]
+    for k, w in want.items():
+        g, name = got.get(k), prefix + k
+        if isinstance(w, dict):
+            bad += unequal_leaves(torch, g or {}, w, name + ".")
+        elif isinstance(w, QuantizedTensor):
+            if not (isinstance(g, QuantizedTensor)
+                    and (g.mode, g.group_size) == (w.mode, w.group_size)
+                    and same(g.q, w.q) and same(g.scale, w.scale)):
+                bad.append(name)
+        elif g is None or not same(g, w):
+            bad.append(name)
+    return bad
+
+
+def ckpt_dir() -> Path:
+    """A scratch directory for 4k's files on the file system with the most
+    room (the system temp dir or the checkout's build/)."""
+    import shutil
+    import tempfile
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    base = max((Path(tempfile.gettempdir()), build),
+               key=lambda p: shutil.disk_usage(p).free)
+    free = shutil.disk_usage(base).free / 1e9
+    say(f"  scratch for the checkpoint: {base} ({free:.1f} GB free)")
+    if free < CKPT_FREE_GB:
+        raise AssertionError(f"4k needs {CKPT_FREE_GB} GB of disk, "
+                             f"{free:.1f} GB free under {base}")
+    return Path(tempfile.mkdtemp(prefix="llm_ckpt_", dir=base))
+
+
+def phase_checkpoint(torch, dev) -> None:
+    """4k: llama2-7b (32 layers, full width) from a checkpoint on disk;
+    (a) seed-0 bf16 dummy weights written as an HF directory and loaded
+    INT4 through ``create_engine``: bit for bit ``quantize_params`` of the
+    same weights, and the in-memory engine's greedy ids on 4b's prompts;
+    (b) the offline quantizer's .npz, and the chat CLI over it in a
+    subprocess; (c) and (d) on the loaded engine, and (c) again on an INT8
+    engine loaded from the same directory."""
+    import gc
+    import shutil
+
+    import numpy as np
+
+    from llm_inference_engine_tpu_torch import native
+    from llm_inference_engine_tpu_torch.config import (
+        EngineConfig, SamplingParams, get_config)
+    from llm_inference_engine_tpu_torch.models import weights as W
+    from llm_inference_engine_tpu_torch.models.registry import create_engine
+    from llm_inference_engine_tpu_torch.runtime import native_io
+    from llm_inference_engine_tpu_torch.runtime.engine import InferenceEngine
+    from llm_inference_engine_tpu_torch.tools import quantize
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("llama2-7b")
+    eng_cfg = EngineConfig(quant_mode="int4", max_batch_size=8,
+                           max_seq_len=2048)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(3, 32000, n).tolist() for n in QUANT_PROMPTS]
+    greedy = SamplingParams(greedy=True, max_new_tokens=16)
+    tmp = ckpt_dir()
+    try:
+        # (a) write, the in-memory reference, load
+        ckpt = tmp / "llama2-7b-hf"
+        ckpt.mkdir()
+        params = W.init_dummy_params(cfg, seed=0, device=dev)
+        t0 = time.perf_counter()
+        nbytes = write_hf_checkpoint(cfg, params, ckpt)
+        say(f"  (a) wrote {nbytes / 1e9:.3f} GB as 2 BF16 shards in "
+            f"{time.perf_counter() - t0:.2f} s")
+        want = W.quantize_params(params, "int4", eng_cfg.quant_group_size)
+        del params
+        ref = InferenceEngine(cfg, eng_cfg, want, device=dev)
+        want_ids = ref.generate(prompts, greedy, eos_token_id=None).token_ids
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        counters = _zero_counters()
+        before = dict(native_io.READ_BYTES)
+        torch.cuda.synchronize()
+        with RssPeak() as rss:
+            t0 = time.perf_counter()
+            engine = create_engine("llama2-7b", str(ckpt), eng_cfg,
+                                   device=dev)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        read = {k: native_io.READ_BYTES[k] - before[k] for k in before}
+        lib = Path(native.library_path() or ".")
+        say(f"  (a) create_engine from the directory (INT4 on load, warm: "
+            f"the shards were just written, so they are read from the page "
+            f"cache): {load_s:.3f} s, {read['native'] / 1e9 / load_s:.3f} "
+            f"GB/s of file; bytes read by the native reader {read['native']}, by "
+            f"Python {read['python']}; native library {lib}; host RSS "
+            f"{rss.base / 2**30:.3f} GiB before, peak "
+            f"{rss.peak / 2**30:.3f} GiB during the load")
+        if (read["python"] or read["native"] < 0.99 * nbytes
+                or lib.parent != ROOT / "build" / "native"):
+            raise AssertionError(f"4k: the native reader did not read the "
+                                 f"checkpoint ({read}, library {lib})")
+        bad = unequal_leaves(torch, engine.params, want)
+        if bad:
+            raise AssertionError(f"4k: loaded INT4 leaves differ from "
+                                 f"quantize_params of the weights: {bad}")
+        say("  (a) every loaded leaf equals quantize_params of the dummy "
+            "weights bit for bit")
+        got_ids = engine.generate(prompts, greedy, eos_token_id=None).token_ids
+        launches = {k: f.launches for k, f in counters.items()}
+        say(f"  (a) launches during the load and generate: {launches}")
+        expected, forbidden = MAIN_PATHS["int4"]
+        missing = [n for n in expected if launches[n] <= 0]
+        extra = [n for n in forbidden if launches[n]]
+        if missing or extra:
+            raise AssertionError(f"4k: kernels never launched {missing}; "
+                                 f"kernels that must not launch {extra}")
+        say(f"  (a) greedy ids[0][:8] {got_ids[0][:8]}; equal to the "
+            f"in-memory engine's on 4b's prompts: {got_ids == want_ids}")
+        if got_ids != want_ids:
+            raise AssertionError("4k: greedy ids of the loaded engine differ "
+                                 "from the in-memory engine's")
+
+        # (c) and (d) on the loaded INT4 engine; (c) again on an INT8 engine
+        # loaded from the same directory with chunks of 1024, so that every
+        # prompt prefills in one chunk and the scheduler runs with and
+        # without the store take steps of the same shapes: their ids must
+        # be equal (at chunks of 512 the 520-token prompt's second chunk
+        # makes a mixed step that the run with the store does not take)
+        prefix = prefix_prompts(rng)
+        prefix_store_rows(torch, engine, prefix, hold_ids=False)
+        chat_session_rows(torch, engine)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        engine = create_engine(
+            "llama2-7b", str(ckpt),
+            eng_cfg.replace(quant_mode="int8", max_prefill_len=1024),
+            device=dev)
+        torch.cuda.synchronize()
+        say(f"  (c) create_engine from the directory (INT8 on load, chunks "
+            f"of 1024; warm: the shards are in the page cache): "
+            f"{time.perf_counter() - t0:.3f} s")
+        prefix_store_rows(torch, engine, prefix, hold_ids=True)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) the offline quantizer, and the chat CLI over its .npz
+        npz = tmp / "llama2-7b-int4.npz"
+        t0 = time.perf_counter()
+        if quantize.main(["--model", "llama2-7b", "--checkpoint", str(ckpt),
+                          "--mode", "int4", "--out", str(npz)]) != 0:
+            raise AssertionError("4k: tools/quantize failed")
+        say(f"  (b) tools/quantize: {npz.stat().st_size / 1e9:.3f} GB .npz "
+            f"in {time.perf_counter() - t0:.2f} s")
+        shutil.rmtree(ckpt)
+        bad = unequal_leaves(torch, W.load_saved_params(str(npz), dev), want)
+        del want
+        gc.collect()
+        torch.cuda.empty_cache()
+        if bad:
+            raise AssertionError(f"4k: the .npz differs from quantize_params "
+                                 f"in {bad}")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "llm_inference_engine_tpu_torch.cli",
+             "--model", "llama2-7b", "--checkpoint", str(npz),
+             "--tokenizer", SPM_ASSET, "--quant", "int4", "--greedy",
+             "--max-new-tokens", "16"],
+            input=f"{CHAT_TURNS[0]}\n{CHAT_TURNS[1]}\ns\n", cwd=ROOT,
+            capture_output=True, text=True, timeout=600)
+        replies = proc.stdout.split("ready.", 1)[-1].split(
+            "please input the question: ")[1:]
+        say(f"  (b) chat CLI over the .npz and {SPM_ASSET}: exit "
+            f"{proc.returncode} in {time.perf_counter() - t0:.2f} s; "
+            f"replies {replies}")
+        if (proc.returncode != 0 or len(replies) != 3
+                or not all(r.startswith(":") and r.endswith("\n")
+                           for r in replies[:2])):
+            raise AssertionError(f"4k: the chat CLI failed or broke the "
+                                 f"streaming protocol:\n{proc.stdout[-2000:]}"
+                                 f"\n{proc.stderr[-4000:]}")
+        npz.unlink()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def prefix_prompts(rng) -> dict:
+    """4k (c)'s token ids: the system prompt, the 8 tails, and a second
+    system prompt of the same length for the misread-prefix control."""
+    return dict(system=rng.integers(3, 32000, SYSTEM_LEN).tolist(),
+                tails=[rng.integers(3, 32000, n).tolist()
+                       for n in PREFIX_TAILS],
+                other=rng.integers(3, 32000, SYSTEM_LEN).tolist())
+
+
+def prefix_store_rows(torch, engine, prefix: dict, hold_ids: bool) -> None:
+    """4k (c): a 320-token system prompt registered through the scheduler
+    (the slot PrefixStore) on a loaded engine, then 8 requests that share
+    it. The restore must be an exact byte copy; the tails' prefill logits
+    must agree with the full prompts' within LOGIT_ATOL / LOGIT_REL_L2,
+    and first tokens under the tie rule (the full prompts' top two within
+    the largest logit difference). Two controls prefill the same tails
+    over a wrong prefix (its K/V zeroed; another prompt's K/V): each must
+    leave the limits, or the limits could not see a tail prefill that
+    ignores the restored rows. The scheduler's greedy ids with and
+    without the store are compared position by position; with
+    ``hold_ids`` (an engine whose chunks take every prompt whole) they
+    must be equal."""
+    from llm_inference_engine_tpu_torch.config import SamplingParams
+    from llm_inference_engine_tpu_torch.runtime.prefix_cache import (
+        restore_prefix, snapshot_prefix)
+    from llm_inference_engine_tpu_torch.runtime.scheduler import (
+        ContinuousBatchingScheduler)
+
+    system, tails = prefix["system"], prefix["tails"]
+    prompts = [system + t for t in tails]
+    B = len(prompts)
+    tag = "(c) " + engine.engine_config.quant_mode.upper()
+    engine.reset()
+    sched = ContinuousBatchingScheduler(engine, eos_token_id=None)
+    entry = sched.register_prefix(system)
+    store = sched.prefix_store
+    # the restore: an exact copy, then its time against the copy bound
+    store.restore(B - 1, entry)
+    c = engine.cache
+    tpad = entry.padded_length
+    exact = (torch.equal(c.k[:, B - 1, :tpad], entry.k)
+             and torch.equal(c.v[:, B - 1, :tpad], entry.v)
+             and int(c.lengths[B - 1]) == engine._lengths[B - 1]
+             == SYSTEM_LEN)
+    ms = time_ms(torch, lambda: restore_prefix(c, B - 1, entry), iters=20)
+    kv = entry.k.nbytes + entry.v.nbytes
+    moved = 2 * kv                                    # read + write
+    bound = moved / HBM_BYTES_PER_S * 1e3
+    say(f"  {tag}: restore of {SYSTEM_LEN} tokens ({kv} bytes of K/V, "
+        f"padded to {tpad}): exact copy {exact}; {ms:.4f} ms, "
+        f"{moved / ms / 1e6:.1f} GB/s read + write; bound {bound:.4f} ms "
+        f"(bytes, {bound / ms:.2f} of it)")
+    if not exact:
+        raise AssertionError("4k: the restored rows differ from the "
+                             "snapshot")
+    # the misread-prefix control: another system prompt's K/V, same length
+    engine.reset()
+    engine.prefill([prefix["other"]])
+    other = snapshot_prefix(engine.cache, 0, SYSTEM_LEN)
+
+    def prefill_full():
+        engine.reset()
+        return engine.prefill(prompts)
+
+    def prefill_over(e, zero=False):
+        def run():
+            engine.reset()
+            for s in range(B):
+                store.restore(s, e)
+                if zero:
+                    engine.cache.k[:, s, :tpad].zero_()
+                    engine.cache.v[:, s, :tpad].zero_()
+            return engine.prefill(tails)
+        return run
+
+    def prefill_reused():
+        engine.reset()
+        for s in range(B):
+            store.restore(s, entry)
+        return engine.prefill(tails)
+    walls = {}
+    for name, fn in (("full", prefill_full), ("reused", prefill_reused)) * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = fn()
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t0, logits)
+    lg_full, lg_reused = walls["full"][1], walls["reused"][1]
+    d, r = _logit_diff(lg_reused, lg_full)
+    top2, top2_ids = lg_full.topk(2, dim=-1)
+    margins = (top2[:, 0] - top2[:, 1]).tolist()
+
+    first_full = lg_full.argmax(-1).tolist()
+    first_reused = lg_reused.argmax(-1).tolist()
+    differ = [i for i in range(B) if first_full[i] != first_reused[i]]
+    bad = [i for i in differ if not (margins[i] < d and first_reused[i]
+                                     in top2_ids[i].tolist())]
+    say(f"  {tag}: warm prefill of the 8 prompts ({sum(map(len, prompts))} "
+        f"tokens): {walls['full'][0] * 1e3:.2f} ms; 8 restores + the tails "
+        f"({sum(PREFIX_TAILS)} tokens): {walls['reused'][0] * 1e3:.2f} ms; "
+        f"logits max abs {d:.4e}, rel L2 {r:.4e} (limits {LOGIT_ATOL}, "
+        f"{LOGIT_REL_L2}); first tokens that differ {differ}, outside the "
+        f"tie rule {bad}")
+    if d > LOGIT_ATOL or r > LOGIT_REL_L2 or bad:
+        raise AssertionError("4k: prefix reuse moved the logits past the "
+                             "limits or a first token outside the tie rule")
+    controls = {name: _logit_diff(prefill_over(e, zero)(), lg_full)
+                for name, e, zero in (("prefix K/V zeroed", entry, True),
+                                      ("another prompt's prefix", other,
+                                       False))}
+    blind = [k for k, (dc, rc) in controls.items()
+             if dc <= LOGIT_ATOL and rc <= LOGIT_REL_L2]
+    say(f"  {tag}: controls, the tails over a wrong prefix against the full "
+        f"prompts (max abs / rel L2): " + "; ".join(
+            f"{k} {dc:.4e} / {rc:.4e}" for k, (dc, rc) in controls.items())
+        + f"; inside the limits: {blind}")
+    if blind:
+        raise AssertionError(f"4k: the logit limits cannot see a wrong "
+                             f"prefix: {blind}")
+    del other
+
+    def serve(prefix_store):
+        engine.reset()
+        s = ContinuousBatchingScheduler(engine, eos_token_id=None,
+                                        prefix_store=prefix_store)
+        reqs = [s.submit(p, SamplingParams(greedy=True, max_new_tokens=16))
+                for p in prompts]
+        s.run()
+        torch.cuda.synchronize()
+        return reqs
+    runs = {}
+    for name, st in (("without", None), ("with", store)) * 2:
+        runs[name] = serve(st)
+    skipped = sum(q.reused_prefix_len for q in runs["with"])
+    ttft = {k: 1e3 * sum(q.ttft for q in v) / B for k, v in runs.items()}
+    agree = sum(a == b for x, y in zip(runs["with"], runs["without"])
+                for a, b in zip(x.output_ids, y.output_ids))
+    same = sum(x.output_ids == y.output_ids
+               for x, y in zip(runs["with"], runs["without"]))
+    say(f"  {tag}: scheduler, 8 requests sharing the prefix (tails "
+        f"{list(PREFIX_TAILS)}, chunks of "
+        f"{engine.engine_config.max_prefill_len}): prefill tokens skipped "
+        f"{skipped}; mean TTFT {ttft['with']:.2f} ms with the store, "
+        f"{ttft['without']:.2f} ms without; greedy tokens equal position by "
+        f"position {agree}/{16 * B}, requests with all 16 equal {same}/{B}"
+        + ("" if hold_ids else " (printed only: a prompt of two chunks "
+           "makes a mixed step only the run without the store takes)"))
+    if skipped != SYSTEM_LEN * B:
+        raise AssertionError(f"4k: {skipped} prefix tokens reused, want "
+                             f"{SYSTEM_LEN * B}")
+    if hold_ids and same != B:
+        raise AssertionError(f"4k: greedy ids with the store differ from "
+                             f"those without ({agree}/{16 * B} equal)")
+    engine.reset()
+
+
+def chat_session_rows(torch, engine) -> None:
+    """4k (d): a 3-round ChatSession on slot 0 of the loaded engine with
+    the SentencePiece asset through the native encoder: each round's
+    prefill is its new turn only, and the slot's length is the history
+    less the final token of each later round that ended by length (the
+    mirrored top-up). Streaming tok/s beside generate's non-streaming
+    tok/s at B = 1 on round 1's input."""
+    from llm_inference_engine_tpu_torch.config import SamplingParams
+    from llm_inference_engine_tpu_torch.runtime.session import ChatSession
+    from llm_inference_engine_tpu_torch.tokenizer import load_tokenizer
+
+    tok = load_tokenizer(str(ROOT / SPM_ASSET))
+    if type(tok).__name__ != "NativeBPETokenizer":
+        raise AssertionError("4k: the tokenizer is not the native encoder")
+    engine.reset()
+    sess = ChatSession(engine, tok, system_prompt="You are brief.",
+                       template="llama2")
+    sp = SamplingParams(greedy=True, max_new_tokens=32)
+    rounds, ended_by_length = [], []
+    first_input = None
+    for q in CHAT_TURNS:
+        ids = sess.make_input(q)
+        first_input = first_input or ids
+        start = engine._lengths[0]
+        stamps = []
+        t0 = time.perf_counter()
+        sess.response(q, sp, lambda i, c: stamps.append(time.perf_counter()))
+        wall = time.perf_counter() - t0
+        n = len(stamps) - 1
+        ended_by_length.append(n == sp.max_new_tokens)
+        rounds.append(dict(prefill=len(ids), history=start, tokens=n,
+                           tok_s=n / wall))
+    want_len = len(sess.token_history) - sum(ended_by_length[1:])
+    say(f"  (d) ChatSession, 3 rounds on slot 0: "
+        + "; ".join(f"round {i + 1}: prefill {r['prefill']} tokens after "
+                    f"{r['history']} in the cache, {r['tokens']} tokens "
+                    f"streamed at {r['tok_s']:.2f} tok/s"
+                    for i, r in enumerate(rounds))
+        + f"; slot length {engine._lengths[0]} (history "
+        f"{len(sess.token_history)}, want {want_len})")
+    if engine._lengths[0] != want_len:
+        raise AssertionError("4k: the session's slot length is not its "
+                             "history less the mirrored top-up")
+    engine.reset()
+    sp1 = SamplingParams(greedy=True, max_new_tokens=rounds[0]["tokens"])
+    engine.generate([first_input], sp1, eos_token_id=None)   # warm
+    engine.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = engine.generate([first_input], sp1, eos_token_id=None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    say(f"  (d) generate, non-streaming, B = 1, round 1's input: "
+        f"{r.num_generated[0]} tokens at {r.num_generated[0] / wall:.2f} "
+        f"tok/s (streaming round 1: {rounds[0]['tok_s']:.2f} tok/s)")
+    engine.reset()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3029,6 +3545,10 @@ def main() -> int:
                    dev, results, "llama2-7b", int4_kv8, params, int8_pages,
                    24, 0, False)
     del engine, params
+    phase("4k", "a checkpoint on disk: llama2-7b (32 layers) written as an "
+          "HF directory, loaded INT4, the quantizer and the chat CLI, the "
+          "slot PrefixStore at B=8, a 3-round ChatSession", phase_checkpoint,
+          torch, dev)
     say("  decode per step, eager bodies against graph replays (wall and "
         "card busy ms): " + json.dumps(DECODE))
 

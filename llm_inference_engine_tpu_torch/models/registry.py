@@ -1,10 +1,10 @@
 """Model factory: ``create_engine`` (port of the JAX package's registry).
 
-Dummy weights (bf16, or born quantized for ``quant_mode`` int8/int4) and
-the JAX package's ``.npz`` checkpoint (``save_params``, quantize once /
-serve many) are real. The HF safetensors and reference ``.bin`` loaders
-raise ``NotImplementedError`` until they are ported (ROADMAP.md, queue 1,
-'Checkpoint loading').
+Dummy weights (bf16, or born quantized for ``quant_mode`` int8/int4), the
+JAX package's ``.npz`` checkpoint (``save_params``, quantize once / serve
+many), and checkpoint directories: HF safetensors when the directory holds
+any ``*.safetensors``, else the reference's per-tensor ``.bin`` files,
+quantized on load when ``quant_mode`` says so.
 """
 
 from __future__ import annotations
@@ -63,9 +63,11 @@ def create_dummy_engine(model: str,
 def create_real_engine(model: str, checkpoint_path: str,
                        engine_config: EngineConfig = EngineConfig(),
                        device="cuda") -> InferenceEngine:
-    """Engine with real weights on ``device``. A ``.npz`` file from
-    ``save_params`` (of either package) loads as it is: no
-    re-quantization."""
+    """Engine with real weights on ``device``: a ``.npz`` file from
+    ``save_params`` (of either package) loads as it is, with no
+    re-quantization; an HF safetensors or reference ``.bin`` directory
+    loads onto ``device`` and is quantized there when
+    ``engine_config.quant_mode`` says so."""
     device = _on_device(device)
     cfg = _resolve_config(model)
     check_kernel_dtypes(cfg, engine_config, device)
@@ -73,10 +75,19 @@ def create_real_engine(model: str, checkpoint_path: str,
         return InferenceEngine(cfg, engine_config,
                                W.load_saved_params(checkpoint_path, device),
                                device=device)
-    raise NotImplementedError(
-        "HF safetensors and reference .bin checkpoints are not ported yet "
-        "(ROADMAP.md, queue 1, 'Checkpoint loading'); pass a save_params "
-        ".npz file, or checkpoint_path=None for dummy weights")
+    params = load_checkpoint_dir(cfg, checkpoint_path, device)
+    if engine_config.quant_mode in ("int8", "int4"):
+        params = W.quantize_params(params, engine_config.quant_mode,
+                                   engine_config.quant_group_size)
+    return InferenceEngine(cfg, engine_config, params, device=device)
+
+
+def load_checkpoint_dir(cfg: ModelConfig, path: str, device) -> dict:
+    """An HF safetensors directory if it holds any ``*.safetensors``, else
+    a reference ``.bin`` directory, loaded onto ``device``."""
+    if any(f.endswith(".safetensors") for f in os.listdir(path)):
+        return W.load_hf_safetensors(cfg, path, device=device)
+    return W.load_reference_bin(cfg, path, device=device)
 
 
 def create_engine(model: str, checkpoint_path: Optional[str] = None,

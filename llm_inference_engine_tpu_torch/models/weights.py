@@ -10,15 +10,26 @@ quantized weights are :class:`~llm_inference_engine_tpu_torch.ops.quant.Quantize
 leaves. ``save_params`` / ``load_saved_params`` read and write the JAX
 package's ``.npz`` format 1, so one file serves both packages.
 
-Not ported yet: the HF safetensors and reference ``.bin`` loaders
-(ROADMAP.md, queue 1, 'Checkpoint loading') and calibrated quantization
-(queue 1, 'Evals, tools and utils').
+``load_hf_safetensors`` and ``load_reference_bin`` read checkpoint
+directories through ``runtime/native_io.py`` (the native parallel pread)
+and give the JAX loaders' parameters bit for bit: F16 and BF16 widen to
+f32 exactly, the q|k|v and gate|up fusions only move values, and the one
+rounding to the model dtype is round-to-nearest-even in both packages.
+Unlike the JAX loaders, which stack whole-model f32 lists on the host
+(about 54 GB for a 7B model), they fill preallocated stacked tensors of
+the model dtype on the target device tensor by tensor, through one reused
+staging buffer (pinned when the target is the card), and transpose and
+fuse on the device.
+
+Not ported yet: calibrated quantization (ROADMAP.md, queue 1, 'Evals,
+tools and utils').
 """
 
 from __future__ import annotations
 
 import json
-from typing import Optional
+import os
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -31,7 +42,8 @@ __all__ = ["init_dummy_params", "init_dummy_quantized_params",
            "quantize_params", "quantize_params_calibrated", "fuse_qkv",
            "fuse_gate_up",
            "params_from_numpy", "save_params", "load_saved_params",
-           "param_count", "param_bytes"]
+           "load_hf_safetensors", "load_reference_bin", "param_count",
+           "param_bytes"]
 
 Params = dict  # {'embed', 'layers': {...}, 'final_norm', 'lm_head'}
 
@@ -289,6 +301,159 @@ def load_saved_params(path: str, device=None) -> Params:
         "layers": {n: get("layers." + n) for n in layer_names},
         "final_norm": get("final_norm"),
         "lm_head": get("lm_head"),
+    }
+
+
+class _Staging:
+    """One reused uint8 buffer that file reads land in before they move to
+    ``device`` (pinned when ``device`` is the card, so the copy runs at the
+    link's rate); None on the CPU, where the read tensor is used as is."""
+
+    def __init__(self, device: torch.device, nbytes: int):
+        self.buf = (torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+                    if device.type == "cuda" else None)
+        self.device = device
+
+    def to_device(self, read: Callable) -> torch.Tensor:
+        # the copy out of a pinned buffer is synchronous, so the next read
+        # may overwrite it
+        return read(self.buf).to(self.device)
+
+
+def _stacked(config: ModelConfig, dtype, device, bias: bool) -> dict:
+    L, Hd, I = config.num_layers, config.hidden_size, config.intermediate_size
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=dtype, device=device)
+    layers = {"attn_norm": empty(L, Hd), "wqkv": empty(L, Hd, config.qkv_size),
+              "wo": empty(L, config.q_size, Hd), "ffn_norm": empty(L, Hd),
+              "w_gate_up": empty(L, Hd, 2, I), "w_down": empty(L, I, Hd)}
+    if bias:
+        layers["bqkv"] = empty(L, config.qkv_size)
+    return layers
+
+
+def _put_qkv(config: ModelConfig, dst: torch.Tensor, q, k, v) -> None:
+    """Write HF-layout [out, in] q/k/v projections (or [out] biases) into
+    one layer's group-major packed ``dst`` ([in, K*(G+2)*D] or [K*(G+2)*D]),
+    transposing on the fly: the fusion of :func:`fuse_qkv`."""
+    K, D = config.num_kv_heads, config.head_dim
+    G = config.num_heads // K
+    packed = dst.view(*dst.shape[:-1], K, G + 2, D)
+    for w, lo, hi in ((q, 0, G), (k, G, G + 1), (v, G + 1, G + 2)):
+        w = w.view(K, hi - lo, D, *w.shape[1:])
+        packed[..., lo:hi, :].copy_(w.permute(3, 0, 1, 2) if w.dim() == 4
+                                    else w)
+
+
+def _hf_tensor_reader(path: str) -> dict:
+    """name -> the ``SafeTensorsFile`` that holds it, over all
+    ``*.safetensors`` files in a directory (read through the native
+    loader)."""
+    from llm_inference_engine_tpu_torch.runtime.native_io import (
+        SafeTensorsFile)
+
+    files = sorted(os.path.join(path, f) for f in os.listdir(path)
+                   if f.endswith(".safetensors"))
+    if not files:
+        raise FileNotFoundError(f"no .safetensors files under {path}")
+    index: dict = {}
+    for f in files:
+        sf = SafeTensorsFile(f)
+        for name in sf.names:
+            index[name] = sf
+    return index
+
+
+def load_hf_safetensors(config: ModelConfig, path: str, dtype=None,
+                        device=None) -> Params:
+    """Load a HF-format Llama checkpoint directory (one or more
+    ``*.safetensors`` shards) into the fused layout on ``device``: q|k|v
+    into the group-major packed ``wqkv`` (and a Qwen2-style ``bqkv``),
+    gate|up into ``w_gate_up``, every [out, in] matrix to [in, out], and
+    ``lm_head`` from the embedding when the checkpoint ties them."""
+    dtype = dtype or config.dtype
+    device = torch.device(device or "cpu")
+    files = _hf_tensor_reader(path)
+    stage = _Staging(device, max(f.nbytes(n) for n, f in files.items()))
+
+    def fetch(name: str) -> torch.Tensor:
+        return stage.to_device(lambda buf: files[name].raw(name, buf))
+
+    has_bias = "model.layers.0.self_attn.q_proj.bias" in files
+    layers = _stacked(config, dtype, device, has_bias)
+    for l in range(config.num_layers):
+        p = f"model.layers.{l}."
+        a = p + "self_attn."
+        _put_qkv(config, layers["wqkv"][l], fetch(a + "q_proj.weight"),
+                 fetch(a + "k_proj.weight"), fetch(a + "v_proj.weight"))
+        if has_bias:
+            _put_qkv(config, layers["bqkv"][l], fetch(a + "q_proj.bias"),
+                     fetch(a + "k_proj.bias"), fetch(a + "v_proj.bias"))
+        layers["wo"][l].copy_(fetch(a + "o_proj.weight").T)
+        gu = layers["w_gate_up"][l]
+        gu[:, 0].copy_(fetch(p + "mlp.gate_proj.weight").T)
+        gu[:, 1].copy_(fetch(p + "mlp.up_proj.weight").T)
+        layers["w_down"][l].copy_(fetch(p + "mlp.down_proj.weight").T)
+        layers["attn_norm"][l].copy_(fetch(p + "input_layernorm.weight"))
+        layers["ffn_norm"][l].copy_(
+            fetch(p + "post_attention_layernorm.weight"))
+
+    embed = fetch("model.embed_tokens.weight").to(dtype)
+    head = (fetch("lm_head.weight") if "lm_head.weight" in files
+            else embed)                   # tied embeddings
+    return {"embed": embed, "layers": layers,
+            "final_norm": fetch("model.norm.weight").to(dtype),
+            "lm_head": head.T.to(dtype).contiguous()}
+
+
+def load_reference_bin(config: ModelConfig, path: str, dtype=None,
+                       device=None) -> Params:
+    """Load the reference engine's own checkpoint format: one raw
+    little-endian f32 ``.bin`` per tensor with HF-style names, q|k|v and
+    gate|up already fused ([out, in], packed in that order), e.g.
+    ``model.layers.0.self_attn.qkv.weight.bin``."""
+    from llm_inference_engine_tpu_torch.runtime.native_io import (
+        read_bin_tensor)
+    dtype = dtype or config.dtype
+    device = torch.device(device or "cpu")
+    Hd, I, V = config.hidden_size, config.intermediate_size, config.vocab_size
+    stage = _Staging(device, 4 * max(config.qkv_size * Hd, 2 * I * Hd,
+                                     V * Hd))
+
+    def fetch(name: str, shape) -> torch.Tensor:
+        fn = os.path.join(path, name + ".bin")
+        expected = int(np.prod(shape)) * 4
+        if os.path.getsize(fn) != expected:
+            raise ValueError(f"{fn}: expected {expected} bytes "
+                             f"({shape} f32), got {os.path.getsize(fn)}")
+        return stage.to_device(
+            lambda buf: read_bin_tensor(fn, shape, torch.float32, out=buf))
+
+    q_end = config.q_size
+    k_end = q_end + config.kv_size
+    layers = _stacked(config, dtype, device, False)
+    for l in range(config.num_layers):
+        p = f"model.layers.{l}."
+        qkv = fetch(p + "self_attn.qkv.weight", (config.qkv_size, Hd))
+        _put_qkv(config, layers["wqkv"][l], qkv[:q_end], qkv[q_end:k_end],
+                 qkv[k_end:])
+        layers["wo"][l].copy_(
+            fetch(p + "self_attn.o_proj.weight", (Hd, config.q_size)).T)
+        gu = fetch(p + "mlp.gate_up_proj.weight", (2 * I, Hd))
+        layers["w_gate_up"][l][:, 0].copy_(gu[:I].T)
+        layers["w_gate_up"][l][:, 1].copy_(gu[I:].T)
+        layers["w_down"][l].copy_(
+            fetch(p + "mlp.down_proj.weight", (Hd, I)).T)
+        layers["attn_norm"][l].copy_(
+            fetch(p + "input_layernorm.weight", (Hd,)))
+        layers["ffn_norm"][l].copy_(
+            fetch(p + "post_attention_layernorm.weight", (Hd,)))
+    return {
+        "embed": fetch("model.embed_tokens.weight", (V, Hd)).to(dtype),
+        "layers": layers,
+        "final_norm": fetch("model.norm.weight", (Hd,)).to(dtype),
+        "lm_head": fetch("lm_head.weight", (V, Hd)).T.to(dtype).contiguous(),
     }
 
 

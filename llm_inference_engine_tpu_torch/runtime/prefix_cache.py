@@ -1,42 +1,194 @@
-"""Prefix caching for the paged layout: reuse the KV pages of a shared
-prompt prefix.
+"""Prefix caching: reuse the KV cache of a shared prompt prefix.
 
-Port of the framework-free paged half of
+Port of the framework-free parts of
 ``llm_inference_engine_tpu/runtime/prefix_cache.py``: a prefix shared by
 many requests (a system prompt, or the earlier turns of a conversation
 that a stateless client resends) is prefilled once, and every later
-request that starts with it adopts its pool pages into its block table
-(refcounted by the engine's ``PageAllocator``, zero copies) and prefills
-only the tail.
+request that starts with it restores it into its slot and prefills only
+the tail.
 
-- :class:`PagedPrefixStore`: explicitly registered prefixes
-  (``ContinuousBatchingScheduler.register_prefix``);
-- :class:`AutoPrefixCache`: every finished request donates its
+- :class:`PrefixStore` (the slot layout): registered prefixes kept as
+  snapshots of their cache rows in storage form ([L, Tpad, K, D] in the
+  cache dtype, plus the int8 cache's scale planes), restored by an exact
+  byte copy. A snapshot is a ``clone`` (a slice of the live cache is a
+  view and would change with the slot), and a restore copies INTO the
+  live cache tensors, never replacing them: the decode programs are CUDA
+  graphs that captured the cache's addresses (``runtime/decode_graph.py``).
+  The JAX package's restore is a ``dynamic_update_slice`` in XLA, not a
+  Pallas kernel, so here it is a ``copy_``;
+- :class:`PagedPrefixStore` (the paged layout): explicitly registered
+  prefixes whose pool pages are adopted into a slot's block table
+  (refcounted by the engine's ``PageAllocator``, zero copies);
+- :class:`AutoPrefixCache` (paged): every finished request donates its
   page-aligned context (``auto_prefix_cache=True``).
 
-The slot layout's :class:`PrefixStore` keeps snapshots of cache rows and
-restores them by copy; it is not ported yet and raises
-NotImplementedError (ROADMAP.md, queue 1, "Paged KV and prefix cache").
+``DualPrefixStore`` (speculative serving) waits for ROADMAP.md, queue 1,
+"Speculative decoding and beam search".
 """
 
 from __future__ import annotations
 
 import dataclasses
 from collections import OrderedDict
-from typing import Sequence
+from typing import Optional, Sequence
 
-__all__ = ["PrefixStore", "PagedPrefixEntry", "PagedPrefixStore",
-           "AutoPrefixCache"]
+import torch
+
+from llm_inference_engine_tpu_torch.utils import round_up
+
+__all__ = ["PrefixEntry", "PrefixStore", "snapshot_prefix",
+           "restore_prefix", "RESTORE_BUCKET", "PagedPrefixEntry",
+           "PagedPrefixStore", "AutoPrefixCache"]
+
+RESTORE_BUCKET = 64   # snapshot lengths round up to this (the JAX package
+                      # bounds its compiled restore variants with it)
+
+
+@dataclasses.dataclass
+class PrefixEntry:
+    """A KV snapshot of one registered prefix, on the cache's device."""
+    tokens: tuple[int, ...]
+    length: int                       # true token count (<= k.shape[1])
+    k: torch.Tensor                   # [L, Tpad, K, D] storage dtype
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor]   # [L, Tpad, K] for the int8 cache
+    v_scale: Optional[torch.Tensor]
+    snapped: bool = False             # the int8 cache's scale numerics
+
+    @property
+    def padded_length(self) -> int:
+        return self.k.shape[1]
+
+
+def _require_slot_layout(cache) -> None:
+    if hasattr(cache, "block_table"):
+        raise NotImplementedError(
+            "prefix caching requires the slot KV layout (kv_layout='slot'):"
+            " a page pool has no contiguous per-slot rows to snapshot "
+            "(use PagedPrefixStore)")
+
+
+def snapshot_prefix(cache, slot: int, length: int) -> PrefixEntry:
+    """Copy ``length`` KV rows of ``slot`` out of the cache in storage
+    form. The pad rows up to RESTORE_BUCKET carry whatever the cache held
+    (they restore beyond the entry's valid length and are never attended,
+    exactly like a slot's own unwritten tail)."""
+    _require_slot_layout(cache)
+    tpad = min(round_up(max(length, 1), RESTORE_BUCKET), cache.k.shape[2])
+    ks = vs = None
+    if cache.quantized:
+        ks = cache.k_scale[:, slot, :tpad].clone()
+        vs = cache.v_scale[:, slot, :tpad].clone()
+    return PrefixEntry(tokens=(), length=length,
+                       k=cache.k[:, slot, :tpad].clone(),
+                       v=cache.v[:, slot, :tpad].clone(),
+                       k_scale=ks, v_scale=vs, snapped=cache.snapped)
+
+
+def restore_prefix(cache, slot: int, entry: PrefixEntry):
+    """Copy ``entry``'s rows into ``slot`` of the cache IN PLACE and set
+    the slot's device length to the prefix length; returns the same
+    cache. (An engine's host mirror of the lengths is the caller's:
+    :meth:`PrefixStore.restore` keeps it.)"""
+    _require_slot_layout(cache)
+    if (entry.k.dtype != cache.k.dtype
+            or entry.k.shape[2:] != cache.k.shape[3:]
+            or entry.snapped != cache.snapped
+            or (entry.k_scale is None) == cache.quantized):
+        raise ValueError("prefix snapshot does not match the cache's "
+                         "storage (dtype, heads, head_dim or scale "
+                         "numerics)")
+    tpad = entry.padded_length
+    cache.k[:, slot, :tpad].copy_(entry.k)
+    cache.v[:, slot, :tpad].copy_(entry.v)
+    if entry.k_scale is not None:
+        cache.k_scale[:, slot, :tpad].copy_(entry.k_scale)
+        cache.v_scale[:, slot, :tpad].copy_(entry.v_scale)
+    cache.lengths[slot] = entry.length
+    return cache
 
 
 class PrefixStore:
-    """The slot layout's snapshot store (not ported yet)."""
+    """LRU store of prefix KV snapshots for one slot-layout engine.
+
+    ``max_tokens`` bounds the device memory held by snapshots (in KV rows
+    across all entries); registering past the budget evicts least-recently
+    matched entries.
+    """
 
     def __init__(self, engine, max_tokens: int = 16384):
-        raise NotImplementedError(
-            "prefix caching over the slot KV layout (snapshots of cache "
-            "rows) is not ported yet (ROADMAP.md, queue 1, 'Paged KV and "
-            "prefix cache'); use kv_layout='paged'")
+        _require_slot_layout(engine.cache)
+        self.engine = engine
+        self.max_tokens = max_tokens
+        self._entries: OrderedDict[tuple, PrefixEntry] = OrderedDict()
+
+    # -- bookkeeping ----------------------------------------------------
+
+    @property
+    def stored_tokens(self) -> int:
+        return sum(e.padded_length for e in self._entries.values())
+
+    def _evict_to_fit(self, incoming: int) -> None:
+        while (self._entries
+               and self.stored_tokens + incoming > self.max_tokens):
+            self._entries.popitem(last=False)
+
+    def evict(self, tokens: Sequence[int]) -> bool:
+        return self._entries.pop(tuple(tokens), None) is not None
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    # -- core API --------------------------------------------------------
+
+    def register(self, tokens: Sequence[int], slot: int = 0) -> PrefixEntry:
+        """Prefill ``tokens`` through the engine (scratch ``slot``, which
+        must not hold a live request), snapshot the KV rows, and reset the
+        slot. Idempotent per token sequence."""
+        key = tuple(int(t) for t in tokens)
+        if key in self._entries:
+            self._entries.move_to_end(key)
+            return self._entries[key]
+        if not key:
+            raise ValueError("empty prefix")
+        if len(key) >= self.engine.engine_config.max_seq_len:
+            raise ValueError(
+                f"prefix of {len(key)} tokens >= max_seq_len "
+                f"{self.engine.engine_config.max_seq_len}")
+        eng = self.engine
+        eng.reset([slot])
+        eng.prefill([list(key)], slots=[slot])
+        entry = snapshot_prefix(eng.cache, slot, len(key))
+        entry = dataclasses.replace(entry, tokens=key)
+        eng.reset([slot])
+        self._evict_to_fit(entry.padded_length)
+        self._entries[key] = entry
+        return entry
+
+    def match(self, prompt: Sequence[int]) -> Optional[PrefixEntry]:
+        """Longest registered prefix that strictly prefixes ``prompt``
+        (strict: at least one tail token must remain to produce the
+        first-sample logits)."""
+        best = None
+        for key, entry in self._entries.items():
+            if (len(key) < len(prompt)
+                    and (best is None or len(key) > len(best.tokens))
+                    and tuple(prompt[:len(key)]) == key):
+                best = entry
+        if best is not None:
+            self._entries.move_to_end(best.tokens)
+        return best
+
+    def restore(self, slot: int, entry: PrefixEntry) -> int:
+        """Copy ``entry`` into ``slot`` on the engine (in place) and set
+        the slot's length, host mirror included; returns the number of
+        prompt tokens the caller may skip."""
+        eng = self.engine
+        restore_prefix(eng.cache, slot, entry)
+        lengths = eng._lengths.copy()
+        lengths[slot] = entry.length
+        eng._set_lengths(lengths)
+        return entry.length
 
 
 # ---------------------------------------------------------------------------

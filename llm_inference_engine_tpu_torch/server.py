@@ -5,10 +5,13 @@ Port of ``llm_inference_engine_tpu/server.py`` (framework-free apart from
 strings, 429 backpressure and ``/metrics``, over the port's scheduler and
 engine. The engine runs on an explicit ``--device`` (default ``cuda``;
 there is no CPU fallback: without a card ``main`` raises).
-``--kv-cache-dtype int8`` serves from an int8 cache or pool. Not ported
-yet, each raising NotImplementedError: ``--draft-model`` (speculative
-serving) and a real ``--tokenizer``; the JAX package's ``--platform``
-picks a JAX backend and has no counterpart.
+``--kv-cache-dtype int8`` serves from an int8 cache or pool.
+``--checkpoint`` takes an HF safetensors or reference ``.bin`` directory
+or a ``save_params`` ``.npz``; ``--tokenizer`` (default: a checkpoint
+directory's own) loads through ``tokenizer.load_tokenizer``, and dummy
+weights or a ``.npz`` without ``--tokenizer`` serve ids as text. Not ported yet: ``--draft-model`` (speculative serving)
+raises NotImplementedError; the JAX package's ``--platform`` picks a JAX
+backend and has no counterpart.
 
 The reference's only user surface was a single-user blocking CLI REPL
 (user_entry.cpp:9-43). This is the deployable counterpart: an HTTP server
@@ -627,7 +630,7 @@ def make_server(scheduler, tokenizer, template, model_name: str,
 def main(argv=None) -> int:
     import torch
 
-    from llm_inference_engine_tpu_torch.cli import _IdTokenizer
+    from llm_inference_engine_tpu_torch.cli import load_tokenizer_for
     from llm_inference_engine_tpu_torch.config import EngineConfig
     from llm_inference_engine_tpu_torch.models.registry import create_engine
     from llm_inference_engine_tpu_torch.runtime.chat_template import (
@@ -638,8 +641,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--model", default="llama2-7b")
     ap.add_argument("--checkpoint", default="",
-                    help="a save_params .npz file")
-    ap.add_argument("--tokenizer", default="")
+                    help="HF safetensors dir, reference .bin dir or "
+                         "save_params .npz")
+    ap.add_argument("--tokenizer", default="",
+                    help="tokenizer file/dir (json/model/bin); default: "
+                         "the checkpoint directory's, else token ids as "
+                         "text")
     ap.add_argument("--dummy-weights", action="store_true")
     ap.add_argument("--draft-model", default="")
     ap.add_argument("--quant", default="none",
@@ -661,13 +668,10 @@ def main(argv=None) -> int:
                     help="torch device of the engine (default cuda)")
     args = ap.parse_args(argv)
 
-    for flag, item in (("draft_model", "Speculative decoding and beam "
-                        "search"),
-                       ("tokenizer", "Host-side serving")):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet (ROADMAP.md, "
-                f"queue 1, '{item}')")
+    if args.draft_model:
+        raise NotImplementedError(
+            "--draft-model is not ported yet (ROADMAP.md, queue 1, "
+            "'Speculative decoding and beam search')")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available "
@@ -684,12 +688,13 @@ def main(argv=None) -> int:
                        num_pages=args.num_pages)
     engine = create_engine(args.model, args.checkpoint or None, eng,
                            device=device)
-    tokenizer = _IdTokenizer(engine.config.vocab_size)
+    tokenizer = load_tokenizer_for(args.tokenizer, args.checkpoint,
+                                   engine.config.vocab_size)
     template = (template_for_model(args.model)
                 if args.chat_template == "auto"
                 else get_chat_template(args.chat_template))
     sched = ContinuousBatchingScheduler(
-        engine, eos_token_id=tokenizer.eos_id,
+        engine, eos_token_id=getattr(tokenizer, "eos_id", 2),
         auto_prefix_cache=args.auto_prefix_cache
         and args.kv_layout == "paged")
 

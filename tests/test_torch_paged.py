@@ -518,11 +518,21 @@ def _auto_prefix(weights, kv):
 
 
 def test_slot_prefix_store_is_not_ported(weights):
+    """The slot layout's store is ported (the name records the refusal it
+    replaced): ``register_prefix`` on a slot engine takes a PrefixStore
+    snapshot, and the paged stores still refuse a slot engine."""
     te = InferenceEngine(get_config("debug"),
                          EngineConfig(max_batch_size=2, max_seq_len=64),
                          weights[1])
     sched = ContinuousBatchingScheduler(te, eos_token_id=None)
-    with pytest.raises(NotImplementedError, match="Paged KV and prefix"):
-        sched.register_prefix([1, 2, 3])
+    entry = sched.register_prefix([1, 2, 3])
+    assert isinstance(sched.prefix_store, prefix_cache.PrefixStore)
+    assert (entry.tokens, entry.length, entry.padded_length) == (
+        (1, 2, 3), 3, 64)
+    assert te._lengths.tolist() == [0, 0]
+    req = sched.submit([1, 2, 3, 4], SamplingParams(greedy=True,
+                                                    max_new_tokens=2))
+    sched.run()
+    assert req.reused_prefix_len == 3 and len(req.output_ids) == 2
     with pytest.raises(ValueError, match="paged engine"):
         prefix_cache.PagedPrefixStore(te)

@@ -358,7 +358,6 @@ def test_greedy_completion_matches_jax_server(weights, prompt, kv):
 def test_main_refuses_what_is_not_ported_and_a_missing_card():
     for argv, err, match in (
             (["--draft-model", "debug"], NotImplementedError, "Speculative"),
-            (["--tokenizer", "x.json"], NotImplementedError, "Host-side"),
             (["--dummy-weights", "--device", "cuda"], RuntimeError,
              "no CUDA device")):
         if err is RuntimeError and torch.cuda.is_available():
@@ -400,3 +399,78 @@ def test_main_serves_an_int8_kv_engine(monkeypatch):
     cache = made["engine"].cache
     assert cache.quantized and cache.k.dtype == torch.int8
     assert made["out"]["usage"]["completion_tokens"] == 4
+
+
+def test_main_serves_text_through_a_tokenizer(monkeypatch, tmp_path):
+    """``--tokenizer`` is ported: ``main`` over dummy weights of a debug-width
+    model whose vocabulary covers the SentencePiece asset answers a text
+    completion, counting the prompt in the asset's tokens."""
+    from llm_inference_engine_tpu_torch.tokenizer import load_tokenizer
+    spm = "tests/assets/tiny_spm_bpe.model"
+    conf = tmp_path / "config.json"
+    conf.write_text(json.dumps({**{f: getattr(CFG, f) for f in (
+        "hidden_size", "intermediate_size", "num_layers", "num_heads",
+        "num_kv_heads", "head_dim", "dtype_name")}, "vocab_size": 512}))
+    made = {}
+    real = port_server.make_server
+
+    def make_server(sched, tokenizer, *a, **kw):
+        httpd, llm = real(sched, tokenizer, *a, **kw)
+        made["tokenizer"] = tokenizer
+
+        def serve_forever():
+            threading.Thread(target=type(httpd).serve_forever, args=(httpd,),
+                             daemon=True).start()
+            made["out"] = _completion(httpd.server_address, max_tokens=4,
+                                      prompt="the cat sat on the mat")
+            httpd.shutdown()
+            raise KeyboardInterrupt
+        httpd.serve_forever = serve_forever
+        return httpd, llm
+    monkeypatch.setattr(port_server, "make_server", make_server)
+    torch.set_num_threads(2)
+    assert port_server.main([
+        "--model", str(conf), "--dummy-weights", "--tokenizer", spm,
+        "--device", "cpu", "--max-batch-size", "2", "--max-seq-len", "64",
+        "--port", "0"]) == 0
+    out, tok = made["out"], made["tokenizer"]
+    assert type(tok).__name__ == "NativeBPETokenizer"
+    assert out["usage"]["prompt_tokens"] == len(
+        load_tokenizer(spm).encode("the cat sat on the mat"))
+    assert out["usage"]["completion_tokens"] == 4
+    assert isinstance(out["choices"][0]["text"], str)
+
+
+def test_main_serves_ids_from_an_npz_without_a_tokenizer(weights, monkeypatch,
+                                                         tmp_path):
+    """A ``save_params`` ``.npz`` holds no tokenizer: with no
+    ``--tokenizer``, ``main`` serves token ids as text through the id
+    tokenizer (only a checkpoint directory lends its own tokenizer)."""
+    from llm_inference_engine_tpu_torch.models.weights import save_params
+    npz = tmp_path / "debug.npz"
+    save_params(weights[1], str(npz))
+    made = {}
+    real = port_server.make_server
+
+    def make_server(sched, tokenizer, *a, **kw):
+        httpd, llm = real(sched, tokenizer, *a, **kw)
+        made["tokenizer"] = tokenizer
+
+        def serve_forever():
+            threading.Thread(target=type(httpd).serve_forever, args=(httpd,),
+                             daemon=True).start()
+            made["out"] = _completion(httpd.server_address, max_tokens=3)
+            httpd.shutdown()
+            raise KeyboardInterrupt
+        httpd.serve_forever = serve_forever
+        return httpd, llm
+    monkeypatch.setattr(port_server, "make_server", make_server)
+    torch.set_num_threads(2)
+    assert port_server.main([
+        "--model", "debug", "--checkpoint", str(npz), "--device", "cpu",
+        "--max-batch-size", "2", "--max-seq-len", "64", "--port", "0"]) == 0
+    out = made["out"]
+    assert isinstance(made["tokenizer"], _IdTokenizer)
+    assert out["usage"]["prompt_tokens"] == 4          # bos + "5 9 2"
+    assert out["usage"]["completion_tokens"] == 3
+    assert all(t.isdigit() for t in out["choices"][0]["text"].split())
