@@ -106,7 +106,35 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
       scheduler's greedy ids with and without the store must be equal;
       then ``tools/quantize`` to an INT4 .npz (equal leaf for leaf) and
       the chat CLI over it and the SentencePiece asset as a subprocess
-      (exit 0, the streaming protocol);
+      (exit 0, the streaming protocol), and again with ``--beams 2``;
+      after the session's 3 rounds one ``response_beam`` round (the
+      slot's length equal to the history after it);
+   l. speculative decoding and beam search (after 4k): first the kernels
+      at the shapes these paths add (E and F at m = 40, the verify's
+      projections and its f32 lm_head; D2 at T = 5 in chunk mode; at
+      tinyllama-1.1b's widths, B = 8: E's decode mode, D's fused decode
+      at G = 8 and head_dim 64, A and B), each against its plain
+      version with its time, bound and library call; then llama2-7b
+      INT4 at 4b's engine config with a tinyllama-1.1b INT4 draft of
+      the same config, k = 4, every launch counter set to 0 just before
+      and read just after: (a) greedy generate of 64 tokens over 4b's
+      prompts (rounds, acceptance, wall a round, tok/s, launches a
+      round, card busy and idle share a round by kernel group), 8
+      replayed rounds equal to 8 eager rounds from one state, the ids
+      against plain greedy printed; (c) sampled rounds (temperature
+      0.8, top-p 0.95), replayed equal to eager from one generator
+      state, and a round at temperature 0 equal to the greedy round;
+      (b) the target as its own draft (a second engine over its
+      parameters): acceptance >= 0.9, replayed rounds (the ingest
+      among them) equal to eager, and each rejection's top-2 margin
+      against the verify and decode paths' logit difference (near-ties
+      counted); (d) the HTTP server over SpeculativeScheduler, 8
+      requests sharing a 64-token prefix (TTFT, tok/s, acceptance, the
+      ``/metrics`` gauge), one DualPrefixStore restore held against its
+      snapshots' bytes; (e) beam_search on a 128-token prompt, 32 new
+      tokens: one beam equal to ``generate`` at B = 1, 4 beams replayed
+      equal to eager, the step's time and its reorder's bytes beside
+      their bounds, the best score against a teacher-forced recompute;
    (3d, before 4: kernel I, H's int8 mode, D2's and D's int8 modes
    against their plain versions at 7B widths, in both scale numerics, the
    decode modes held per row; then at head_dim 80, 96
@@ -542,9 +570,11 @@ def fused_decode_case(torch, attention, results, case, randn, ints, *, B, H,
     return ms
 
 
-def decode_shape_rows(torch, dev) -> dict:
+def decode_shape_rows(torch, dev, hidden: int = 4096,
+                      inter: int = 11008) -> dict:
     """Kernels A, A with residual and B at the decode shape of 4b (B = 8:
-    [8, 4096], [8, 22016]), where each is a fixed-cost launch, held
+    [8, hidden], [8, 2 inter]; 4096 and 11008 are llama2-7b's, 4l passes
+    tinyllama-1.1b's), where each is a fixed-cost launch, held
     against their plain versions and timed as the decode programs run
     them: 64 calls captured in one CUDA graph, replayed; a call's time is
     CUDA events around 4 replays over 4 x 64, and beside it the union of
@@ -560,8 +590,8 @@ def decode_shape_rows(torch, dev) -> dict:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev,
                            dtype=torch.bfloat16)
-    x, r, gu = randn(8, 4096), randn(8, 4096), randn(8, 22016)
-    w = randn(4096) * 0.1 + 1.0
+    x, r, gu = randn(8, hidden), randn(8, hidden), randn(8, 2 * inter)
+    w = randn(hidden) * 0.1 + 1.0
 
     def replayed_ms(fn):
         """(events, union) ms a call"""
@@ -585,8 +615,8 @@ def decode_shape_rows(torch, dev) -> dict:
     got = rmsnorm.add_residual_rmsnorm(x, r, w, kernels="cuda")
     want = rmsnorm.add_residual_rmsnorm_torch(x, r, w)
     if not torch.equal(got[1], want[1]):
-        raise AssertionError("add_residual_rmsnorm [8,4096]: residual sum "
-                             "differs")
+        raise AssertionError(f"add_residual_rmsnorm [8,{hidden}]: residual "
+                             "sum differs")
     for name, a, b in (
             ("rmsnorm", rmsnorm.rmsnorm(x, w, kernels="cuda"),
              rmsnorm.rmsnorm_torch(x, w)),
@@ -600,16 +630,16 @@ def decode_shape_rows(torch, dev) -> dict:
     cases = {
         "rmsnorm": (lambda: rmsnorm.rmsnorm(x, w, kernels="cuda"),
                     lambda: rmsnorm.rmsnorm_torch(x, w),
-                    lambda: F.rms_norm(x, (4096,), w, 1e-5),
-                    (2 * 8 + 1) * 4096 * 2),
+                    lambda: F.rms_norm(x, (hidden,), w, 1e-5),
+                    (2 * 8 + 1) * hidden * 2),
         "add_residual_rmsnorm": (
             lambda: rmsnorm.add_residual_rmsnorm(x, r, w, kernels="cuda"),
             lambda: rmsnorm.add_residual_rmsnorm_torch(x, r, w), None,
-            (4 * 8 + 1) * 4096 * 2),
+            (4 * 8 + 1) * hidden * 2),
         "silu_and_mul": (
             lambda: activations.silu_and_mul(gu, kernels="cuda"),
             lambda: activations.silu_and_mul_torch(gu), None,
-            3 * 8 * 11008 * 2)}
+            3 * 8 * inter * 2)}
     rows = {}
     for name, (kern, plain, library, nbytes) in cases.items():
         (k_ev, k_union), (p_ev, _) = replayed_ms(kern), replayed_ms(plain)
@@ -617,7 +647,8 @@ def decode_shape_rows(torch, dev) -> dict:
             kernel=k_ev, kernel_union=k_union, plain=p_ev,
             library=replayed_ms(library)[0] if library else None,
             bound=bound_ms((nbytes, 0))[0])
-        say(f"  {name:22s} decode shape, graph replays, held against plain: "
+        say(f"  {name:22s} decode shape [8, {hidden}], graph replays, held "
+            f"against plain: "
             f"kernel {k_ev * 1e3:.3f} us a call (events; union of kernel "
             f"intervals {k_union * 1e3:.3f} us), plain {p_ev * 1e3:.3f} us"
             + (f", F.rms_norm {row['library'] * 1e3:.3f} us"
@@ -1004,6 +1035,45 @@ def quant_rows(torch, dev) -> dict:
     return out
 
 
+def quant_case(torch, dev, gen, results, mode, m, label,
+               shapes=QUANT_SHAPES, tag=""):
+    """Kernel E (``mode`` int4) or F (int8) for x [m, k] times the
+    ``label`` weight of ``shapes`` (k, n, halves; an f32 output for the
+    lm_head), random weights cycled through 120 MB: held against its plain
+    version and timed beside it, with its bound, its library call (one
+    weight with a bf16 output: ``_weight_int4pack_mm`` /
+    ``_weight_int8pack_mm``) and its plan. Returns (kernel ms, the
+    weights, x, the output dtype)."""
+    from llm_inference_engine_tpu_torch.ops import quant
+    bf16 = torch.bfloat16
+    name = f"{mode}_matmul"
+    k, n, halves = shapes[label]
+    out = torch.float32 if label == "lm_head" else bf16
+    ts = quant_weights(torch, quant, dev, gen, mode, k, n, halves,
+                       120_000_000)
+    x = torch.randn(m, k, generator=gen, device=dev, dtype=bf16)
+    ms = time_ms(torch, cycling(ts, lambda t: fused_matmul(quant, t, x, out,
+                                                           "cuda")))
+    plain_ms = time_ms(torch, cycling(ts, lambda t: fused_matmul(
+        quant, t, x, out, "torch")), iters=3, warmup=1)
+    gbs = ts[0].nbytes / ms / 1e6     # weight bytes read per second
+    n_out = halves * n
+    library = None
+    if halves == 1 and out == bf16:
+        library = (int4pack_ms(torch, quant, ts, x, out) if mode == "int4"
+                   else int8pack_ms(torch, ts, x, out))
+    check_close(torch, name, fused_matmul(quant, ts[0], x, out, "cuda"),
+                fused_matmul(quant, ts[0], x, out, "torch"), results,
+                f"{tag}m{m} {label} {gbs:.0f} GB/s", (ms, plain_ms),
+                work=(ts[0].nbytes + x.numel() * 2
+                      + m * n_out * out.itemsize, 2 * m * k * n_out),
+                library=library)
+    plan = quant.quant_matmul_plan_native(m, k, n, halves,
+                                          int4=mode == "int4")
+    say(f"    plan: {plan}")
+    return ms, ts, x, out
+
+
 def phase_quant_kernels(torch, dev, results) -> None:
     """E and F at QUANT_ROWS, each timed with its plain version, its bound
     and its library call (F: ``_weight_int8pack_mm``; E:
@@ -1014,7 +1084,7 @@ def phase_quant_kernels(torch, dev, results) -> None:
     shapes."""
     from llm_inference_engine_tpu_torch.ops import quant
 
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16 = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(4321)
 
     def qweight(mode, k, n, halves=1):
@@ -1032,34 +1102,11 @@ def phase_quant_kernels(torch, dev, results) -> None:
     for mode, name in (("int4", "int4_matmul"), ("int8", "int8_matmul")):
         layer, summed = {}, {}
         for m, label in QUANT_ROWS:
-            k, n, halves = QUANT_SHAPES[label]
-            out = f32 if label == "lm_head" else bf16
-            ts = quant_weights(torch, quant, dev, gen, mode, k, n, halves,
-                               120_000_000)
-            x = torch.randn(m, k, generator=gen, device=dev, dtype=bf16)
-            ms = time_ms(torch, cycling(ts, lambda t: fused(t, x, out,
-                                                            "cuda")))
-            plain_ms = time_ms(torch, cycling(ts, lambda t: fused(
-                t, x, out, "torch")), iters=3, warmup=1)
+            ms, ts, x, out = quant_case(torch, dev, gen, results, mode, m,
+                                        label)
             if label != "lm_head":
                 layer[m] = layer.get(m, 0.0) + ms
                 summed.setdefault(m, []).append(label)
-            gbs = ts[0].nbytes / ms / 1e6     # weight bytes read per second
-            n_out = halves * n
-            library = None
-            if halves == 1 and out == bf16:
-                library = (int4pack_ms(torch, quant, ts, x, out)
-                           if mode == "int4" else
-                           int8pack_ms(torch, ts, x, out))
-            check_close(torch, name, fused(ts[0], x, out, "cuda"),
-                        fused(ts[0], x, out, "torch"), results,
-                        f"m{m} {label} {gbs:.0f} GB/s", (ms, plain_ms),
-                        work=(ts[0].nbytes + x.numel() * 2
-                              + m * n_out * out.itemsize, 2 * m * k * n_out),
-                        library=library)
-            plan = quant.quant_matmul_plan_native(m, k, n, halves,
-                                                  int4=mode == "int4")
-            say(f"    plan: {plan}")
             if m >= 512:
                 cutover(ts, x, out)
             del ts
@@ -3199,6 +3246,25 @@ def phase_checkpoint(torch, dev) -> None:
             raise AssertionError(f"4k: the chat CLI failed or broke the "
                                  f"streaming protocol:\n{proc.stdout[-2000:]}"
                                  f"\n{proc.stderr[-4000:]}")
+        # the same over two beams
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "llm_inference_engine_tpu_torch.cli",
+             "--model", "llama2-7b", "--checkpoint", str(npz),
+             "--tokenizer", SPM_ASSET, "--quant", "int4", "--beams", "2",
+             "--max-new-tokens", "16"],
+            input=f"{CHAT_TURNS[0]}\ns\n", cwd=ROOT, capture_output=True,
+            text=True, timeout=600)
+        replies = proc.stdout.split("ready.", 1)[-1].split(
+            "please input the question: ")[1:]
+        say(f"  (b) chat CLI --beams 2 over the .npz: exit {proc.returncode} "
+            f"in {time.perf_counter() - t0:.2f} s; replies {replies}")
+        if (proc.returncode != 0 or len(replies) != 2
+                or not (replies[0].startswith(":")
+                        and replies[0].endswith("\n"))):
+            raise AssertionError(f"4k: the chat CLI with --beams 2 failed:"
+                                 f"\n{proc.stdout[-2000:]}"
+                                 f"\n{proc.stderr[-4000:]}")
         npz.unlink()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3405,6 +3471,16 @@ def chat_session_rows(torch, engine) -> None:
     if engine._lengths[0] != want_len:
         raise AssertionError("4k: the session's slot length is not its "
                              "history less the mirrored top-up")
+    # a fourth round by beam search: the winning turn re-prefilled into
+    # the slot
+    t0 = time.perf_counter()
+    text = sess.response_beam(CHAT_TURNS[0], num_beams=2, max_new_tokens=16)
+    say(f"  (d) response_beam (2 beams, 16 new tokens): "
+        f"{time.perf_counter() - t0:.3f} s, {text!r}; slot length "
+        f"{engine._lengths[0]} (history {len(sess.token_history)})")
+    if engine._lengths[0] != len(sess.token_history):
+        raise AssertionError("4k: response_beam left the slot out of step "
+                             "with the history")
     engine.reset()
     sp1 = SamplingParams(greedy=True, max_new_tokens=rounds[0]["tokens"])
     engine.generate([first_input], sp1, eos_token_id=None)   # warm
@@ -3418,6 +3494,550 @@ def chat_session_rows(torch, engine) -> None:
         f"{r.num_generated[0]} tokens at {r.num_generated[0] / wall:.2f} "
         f"tok/s (streaming round 1: {rounds[0]['tok_s']:.2f} tok/s)")
     engine.reset()
+
+
+# 4l: speculative decoding and beam search on llama2-7b INT4 (B = 8, the
+# engine config of 4b) with a tinyllama-1.1b INT4 draft
+SPEC_K = 4
+SPEC_NEW = 64
+SPEC_ROUNDS = 8          # eager rounds against replayed ones, one state
+TINY_SHAPES = {"wqkv": (2048, 2560, 1), "wo": (2048, 2048, 1),
+               "gate|up": (2048, 5632, 2), "down": (5632, 2048, 1),
+               "lm_head": (2048, 32000, 1)}
+SPEC_TAILS = (5, 17, 33, 64, 90, 128, 160, 200)
+BEAM_PROMPT, BEAM_NEW, BEAMS = 128, 32, 4
+
+
+def spec_snapshot(spec):
+    """What a round changes besides K/V rows past the lengths, in both
+    engines, and the decoder's generator."""
+    return snapshot(spec.target), snapshot(spec.draft), spec._gen.get_state()
+
+
+def spec_restore(spec, snap) -> None:
+    restore(spec.target, snap[0])
+    restore(spec.draft, snap[1])
+    spec._gen.set_state(snap[2])
+
+
+def spec_rounds(torch, spec, last, arrays, sampled: bool, n: int,
+                eager: bool):
+    """``n`` rounds with every row active from ``last``, replayed or
+    through the eager bodies: ([(emitted, logprob bits, n_acc)] a round,
+    as lists; wall ms a round, host read included)."""
+    import numpy as np
+
+    from llm_inference_engine_tpu_torch.runtime.decode_graph import (
+        run_eagerly)
+    B = len(last)
+    active = np.ones(B, bool)
+    outs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with run_eagerly(spec) if eager else contextlib.nullcontext():
+        for _ in range(n):
+            em, lp, na = spec.run_round(last, active, arrays, sampled)
+            outs.append((em.tolist(), lp.view(np.int32).tolist(),
+                         na.tolist()))
+            last = em[np.arange(B), na]
+    return outs, (time.perf_counter() - t0) / n * 1e3
+
+
+def spec_kernel_rows(torch, dev, results) -> None:
+    """The kernels at the shapes the speculative and beam paths add, each
+    held against its plain version and timed beside it, its bound and its
+    library call: E and F at m = 40 (the verify's projections at B = 8,
+    k + 1 = 5, and its lm_head with an f32 output), D2 at T = 5 in chunk
+    mode (the verify's attention, llama2-7b widths), and at tinyllama's
+    widths (the draft's decode step, B = 8): E's decode mode, D's fused
+    decode (32 q heads, 4 kv heads, head_dim 64), A and B."""
+    from llm_inference_engine_tpu_torch.ops import attention
+    gen = torch.Generator(device=dev).manual_seed(4242)
+    m = 8 * (SPEC_K + 1)
+    for mode in ("int4", "int8"):
+        for label in QUANT_SHAPES:
+            quant_case(torch, dev, gen, results, mode, m, label,
+                       tag="verify ")
+    for label in TINY_SHAPES:
+        quant_case(torch, dev, gen, results, "int4", 8, label, TINY_SHAPES,
+                   tag="tinyllama ")
+    torch.cuda.empty_cache()
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    def ints(vals):
+        return torch.tensor(vals, dtype=torch.int32, device=dev)
+    # D2 at T = 5: 8 rows at 4b's prompt lengths plus a round's worth
+    B, T, H, K, D, S = 8, SPEC_K + 1, 32, 32, 128, 2048
+    starts = [n + 40 for n in QUANT_PROMPTS]
+    q = randn(B, T, H, D)
+    kc, vc = randn(B, S, K, D), randn(B, S, K, D)
+    qs, kl = ints(starts), ints([s + T for s in starts])
+    run = lambda: attention.attention(q, kc, vc, qs, kl,  # noqa: E731
+                                      kernels="cuda")
+    check_close(torch, "attention_prefill", run(),
+                attention.attention_torch(q, kc, vc, qs, kl), results,
+                f"verify B{B} T{T} q_start {starts[0]}..{starts[-1]}",
+                (time_ms(torch, run), time_ms(torch, lambda: (
+                    attention.attention_torch(q, kc, vc, qs, kl)), iters=3,
+                    warmup=1)),
+                work=attn_work(starts, kl.tolist(), T, H, K, D),
+                library=sdpa_ms(torch, q, kc, vc, qs, kl))
+    del kc, vc
+    # D's fused decode at tinyllama's widths (G = 8, head_dim 64)
+    from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
+    H, K, D = 32, 4, 64
+    cache = kvc.new_kv_cache(2, B, K, S, D, device=dev)
+    cache.k.copy_(randn(2, B, S, K, D))
+    cache.v.copy_(randn(2, B, S, K, D))
+    qd, kn, vn = randn(B, 1, H, D), randn(B, 1, K, D), randn(B, 1, K, D)
+    kl = qs + 1
+
+    def fused(kern):
+        if kern == "torch":
+            return attention.attention_decode_fused_torch(
+                qd, kn, vn, cache.k, cache.v, qs, kl, 1)[0]
+        return attention.attention_decode_fused(
+            qd, kn, vn, cache.k, cache.v, qs, kl, 1, kernels=kern)[0]
+    say_plan(attention, "tinyllama B8", B, H, K, D)
+    check_close(torch, "attention_decode", fused("cuda"), fused("torch"),
+                results, f"tinyllama B{B} H{H} K{K} D{D} kv_len "
+                f"{starts[0] + 1}..{starts[-1] + 1}",
+                (time_ms(torch, lambda: fused("cuda")),
+                 time_ms(torch, lambda: fused("torch"), iters=3, warmup=1)),
+                work=attn_work(starts, kl.tolist(), 1, H, K, D,
+                               new_rows=2 * B * K * D * 2),
+                library=sdpa_ms(torch, qd, cache.k[1], cache.v[1], qs, kl),
+                row_rel=DECODE_ROW_TOL)
+    del cache
+    rows = decode_shape_rows(torch, dev, hidden=2048, inter=5632)
+    say("  tinyllama A/B at decode shape (ms a call): " + json.dumps(rows))
+    torch.cuda.empty_cache()
+
+
+def near_ties(torch, engine, events) -> list:
+    """For each rejection ``(context, draft token)`` of a self-draft run:
+    the target's logits at the end of ``context`` through the verify path
+    (a T = 5 forward after the first len - 5 tokens, as a round runs) and
+    through the decode path (a T = 1 forward after the first len - 1),
+    8 contexts a batch. Returns [(top-1 minus top-2 of the verify logits,
+    max |verify - decode|, verify argmax, decode argmax, draft token)]."""
+    from llm_inference_engine_tpu_torch.models import llama
+    B = engine.engine_config.max_batch_size
+    out = []
+    for i in range(0, len(events), B):
+        batch = events[i:i + B]
+        pads = [c for c, _ in batch] + [batch[0][0]] * (B - len(batch))
+        logits = []
+        for T in (SPEC_K + 1, 1):
+            engine.reset()
+            engine.prefill([c[:-T] for c in pads])
+            ids = torch.tensor([c[-T:] for c in pads], dtype=torch.int32,
+                               device=engine.device)
+            q = engine.cache.lengths.clone()
+            lg, _ = llama.forward_all_logits(
+                engine.config, engine.engine_config, engine.params, ids,
+                engine.cache, q, q + T)
+            logits.append(lg[:, -1])
+        v, d = logits
+        top2 = v.topk(2, dim=-1).values
+        for r, (_, tok) in enumerate(batch):
+            out.append(((top2[r, 0] - top2[r, 1]).item(),
+                        (v[r] - d[r]).abs().max().item(),
+                        int(v[r].argmax()), int(d[r].argmax()), tok))
+    engine.reset()
+    return out
+
+
+def phase_speculative(torch, dev, results) -> None:
+    """4l: speculative decoding (SpeculativeDecoder, SpeculativeScheduler
+    behind the HTTP server, DualPrefixStore) and beam search on llama2-7b
+    INT4 at 4b's engine config, the draft tinyllama-1.1b INT4 with the same
+    config; the kernels at the shapes these paths add first
+    (``spec_kernel_rows``). (a) greedy generate at k = 4: replayed rounds
+    equal eager rounds from one state; ids against plain greedy printed.
+    (b) self-draft (the target's own parameters): acceptance >= 0.9, and
+    the rejections that were near-ties. (c) a sampled round (temperature
+    0.8, top-p 0.95): replayed equals eager for the same generator state;
+    at temperature 0 it equals the greedy round. (d) the server over
+    SpeculativeScheduler, 8 requests, one DualPrefixStore restore held
+    against its snapshots. (e) beam_search: one beam equals generate at
+    B = 1, 4 beams replayed equal eager, the best score against a
+    teacher-forced recompute. Every kernel of the INT4 slot path must
+    launch."""
+    import gc
+    import http.client
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from llm_inference_engine_tpu_torch.cli import _IdTokenizer
+    from llm_inference_engine_tpu_torch.config import (
+        EngineConfig, SamplingParams, get_config)
+    from llm_inference_engine_tpu_torch.models import llama
+    from llm_inference_engine_tpu_torch.models.registry import create_engine
+    from llm_inference_engine_tpu_torch.models.weights import param_bytes
+    from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
+    from llm_inference_engine_tpu_torch.runtime.beam_search import (
+        BeamSearch, beam_search)
+    from llm_inference_engine_tpu_torch.runtime.chat_template import (
+        get_chat_template)
+    from llm_inference_engine_tpu_torch.runtime import decode_graph
+    from llm_inference_engine_tpu_torch.runtime.decode_graph import (
+        run_eagerly)
+    from llm_inference_engine_tpu_torch.runtime.engine import InferenceEngine
+    from llm_inference_engine_tpu_torch.runtime.speculative import (
+        SpeculativeDecoder)
+    from llm_inference_engine_tpu_torch.runtime.speculative_scheduler import (
+        SpeculativeScheduler)
+    from llm_inference_engine_tpu_torch.server import make_server
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec_kernel_rows(torch, dev, results)
+    cfg = get_config("llama2-7b")
+    eng_cfg = EngineConfig(quant_mode="int4", max_batch_size=8,
+                           max_seq_len=2048)
+    counters = _zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    target = create_engine("llama2-7b", None, eng_cfg, seed=0, device=dev)
+    draft = create_engine("tinyllama-1.1b", None, eng_cfg, seed=0,
+                          device=dev)
+    B = eng_cfg.max_batch_size
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(3, 32000, n).tolist() for n in QUANT_PROMPTS]
+    greedy = target._host_arrays(SamplingParams(greedy=True))
+    failures = []
+
+    def instrumented(spec):
+        """(instrumentation of this check only) record each round's n_acc
+        and host seconds"""
+        log = []
+        run_round = spec.run_round
+
+        def counted(*a, **kw):
+            t0 = time.perf_counter()
+            out = run_round(*a, **kw)
+            log.append((out[2].copy(), time.perf_counter() - t0))
+            return out
+        spec.run_round = counted
+        return log
+
+    # (a) an unrelated draft
+    spec = SpeculativeDecoder(target, draft, SPEC_K)
+    log = instrumented(spec)
+    spec.generate(prompts, SPEC_NEW, eos_token_id=None)   # captures
+    log.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = spec.generate(prompts, SPEC_NEW, eos_token_id=None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del spec.run_round
+    round_s = sum(s for _, s in log)
+    target.reset()
+    plain = target.generate(prompts, SamplingParams(
+        greedy=True, max_new_tokens=SPEC_NEW), eos_token_id=None).token_ids
+    same = sum(a == b for x, y in zip(res.token_ids, plain)
+               for a, b in zip(x, y))
+    diverge = [next((j for j, (a, b) in enumerate(zip(x, y)) if a != b),
+                    None) for x, y in zip(res.token_ids, plain)]
+    say(f"  (a) tinyllama-1.1b INT4 draft, k = {SPEC_K}, greedy, "
+        f"{SPEC_NEW} new tokens at B = {B}: {len(log)} rounds, acceptance "
+        f"{res.acceptance_rate:.4f} ({res.num_accepted}/{res.num_drafted});"
+        f" generate wall {wall:.3f} s (prefill of both engines included), "
+        f"rounds {round_s / len(log) * 1e3:.3f} ms a round (host clock, the "
+        f"round's read included), {B * SPEC_NEW / wall:.1f} tok/s end to "
+        f"end, {(B * SPEC_NEW - B) / round_s:.1f} tok/s over the rounds")
+    say(f"  (a) ids equal to the target's plain greedy generate position by "
+        f"position: {same}/{B * SPEC_NEW} ({same / (B * SPEC_NEW):.3f}); "
+        f"first divergence per row {diverge} (printed only: the T = 1 and "
+        f"T = 5 paths sum in another order)")
+    # replayed rounds against eager rounds from the state generate left
+    last = np.array([t[-1] for t in res.token_ids], np.int32)
+    snap = spec_snapshot(spec)
+    eager, eager_ms = spec_rounds(torch, spec, last, greedy, False,
+                                  SPEC_ROUNDS, True)
+    spec_restore(spec, snap)
+    before = {k: f.launches for k, f in counters.items()}
+    replayed, graph_ms = spec_rounds(torch, spec, last, greedy, False,
+                                     SPEC_ROUNDS, False)
+    per_round = {k: (f.launches - before[k]) / SPEC_ROUNDS
+                 for k, f in counters.items() if f.launches - before[k]}
+    spec_restore(spec, snap)
+    prof = device_profile(torch, lambda: spec.run_round(
+        last, np.ones(B, bool), greedy, False), 4)
+    spec_restore(spec, snap)
+    say(f"  (a) {SPEC_ROUNDS} replayed rounds == {SPEC_ROUNDS} eager rounds "
+        f"(emitted, logprobs, n_acc): {replayed == eager}; wall eager / "
+        f"replayed {eager_ms:.3f} / {graph_ms:.3f} ms a round; replayed "
+        f"card busy {prof.busy:.3f} ms a round (idle "
+        f"{1 - prof.busy / graph_ms:.3f}); by group: "
+        f"{_groups(prof.per_kernel)}")
+    # the draft's ingest of d_k, its own program: what replaying it every
+    # round (the always-run form of the JAX round's lax.cond) would add
+    spec._ingest[1].zero_()            # no row fully accepted: no write
+    decode_graph.run(spec, "ingest", (spec._ingest,), spec._ingest[1])
+    ingest_ms = time_ms(torch, spec._programs["ingest"].replay)
+    spec_restore(spec, snap)
+    say(f"  (a) launches per round: {per_round}; the ingest program "
+        f"{ingest_ms:.4f} ms a replay (run only after a round in which a "
+        f"row fully accepted; replayed every round it would add that)")
+    if replayed != eager:
+        failures.append("replayed greedy rounds differ from eager rounds")
+    # a round: k draft forwards, the verify, and the draft's ingest of d_k
+    # in the rounds where a row fully accepted
+    ingests = sum(SPEC_K in na for _, _, na in replayed)
+    layers = (SPEC_ROUNDS * (SPEC_K * draft.config.num_layers
+                             + cfg.num_layers)
+              + ingests * draft.config.num_layers)
+    forwards = SPEC_ROUNDS * (SPEC_K + 1) + ingests
+    want = dict(rmsnorm=forwards, add_residual_rmsnorm=2 * layers,
+                silu_and_mul=layers)
+    got = {k: round(per_round.get(k, 0) * SPEC_ROUNDS) for k in want}
+    if got != want:
+        failures.append(f"launches of A and B over {SPEC_ROUNDS} rounds "
+                        f"{got}, want {want}")
+
+    # (c) the sampled round, from the same state
+    sampled = target._host_arrays(SamplingParams(temperature=0.8,
+                                                 top_p=0.95))
+    spec._gen.manual_seed(11)
+    snap = spec_snapshot(spec)
+    spec_rounds(torch, spec, last, sampled, True, 1, False)   # captures
+    spec_restore(spec, snap)
+    s_eager, _ = spec_rounds(torch, spec, last, sampled, True, 4, True)
+    spec_restore(spec, snap)
+    s_graph, s_ms = spec_rounds(torch, spec, last, sampled, True, 4, False)
+    spec_restore(spec, snap)
+    zero_t = (np.zeros(B, np.float32), *sampled[1:])
+    t0_round, _ = spec_rounds(torch, spec, last, zero_t, True, 1, False)
+    spec_restore(spec, snap)
+    g_round, _ = spec_rounds(torch, spec, last, greedy, False, 1, False)
+    spec_restore(spec, snap)
+    acc = sum(sum(na) for _, _, na in s_graph) / (4 * B * SPEC_K)
+    say(f"  (c) sampled rounds (temperature 0.8, top-p 0.95): 4 replayed == "
+        f"4 eager from one generator state: {s_graph == s_eager}; "
+        f"{s_ms:.3f} ms a round; acceptance {acc:.4f}; a round at "
+        f"temperature 0 == the greedy round: {t0_round == g_round}")
+    if s_graph != s_eager:
+        failures.append("replayed sampled rounds differ from eager rounds")
+    if t0_round != g_round:
+        failures.append("the sampled round at temperature 0 differs from "
+                        "the greedy round")
+    del spec
+    peak_a = torch.cuda.max_memory_allocated()
+
+    # (b) self-draft: a second engine over the target's own tensors
+    twin = InferenceEngine(cfg, eng_cfg, target.params, device=dev)
+    spec = SpeculativeDecoder(target, twin, SPEC_K)
+    log = instrumented(spec)
+    res = spec.generate(prompts, SPEC_NEW, eos_token_id=None)
+    del spec.run_round
+    last = np.array([t[-1] for t in res.token_ids], np.int32)
+    snap = spec_snapshot(spec)
+    eager, _ = spec_rounds(torch, spec, last, greedy, False, 4, True)
+    spec_restore(spec, snap)
+    replayed, twin_ms = spec_rounds(torch, spec, last, greedy, False, 4,
+                                    False)
+    full = sum(SPEC_K in na for _, _, na in replayed)
+    say(f"  (b) self-draft: 4 replayed rounds == 4 eager rounds: "
+        f"{replayed == eager} ({full} with a fully accepted row, so the "
+        f"ingest program ran); {twin_ms:.3f} ms a round")
+    if replayed != eager or not full:
+        failures.append("self-draft: replayed rounds differ from eager "
+                        "rounds, or no ingest ran")
+    events, done = [], [1] * B
+    for n_acc, _ in log:
+        for i in range(B):
+            if done[i] >= SPEC_NEW:
+                continue
+            pos = done[i] + int(n_acc[i])
+            if n_acc[i] < SPEC_K and pos < SPEC_NEW:
+                events.append((prompts[i] + res.token_ids[i][:pos],
+                               res.token_ids[i][pos]))
+            done[i] += int(n_acc[i]) + 1
+    ties = near_ties(torch, target, events)
+    near = [t for t in ties if t[0] <= t[1]]
+    say(f"  (b) self-draft: {len(log)} rounds, acceptance "
+        f"{res.acceptance_rate:.4f} ({res.num_accepted}/{res.num_drafted}); "
+        f"{len(events)} rejections, {len(near)} of them near-ties (verify "
+        f"path top-1 minus top-2 <= max |verify - decode logits|); per "
+        f"rejection (margin, noise, verify argmax, decode argmax): "
+        f"{[(round(a, 4), round(b, 4), c, d) for a, b, c, d, _ in ties]}")
+    if res.acceptance_rate < 0.9:
+        failures.append(f"self-draft acceptance {res.acceptance_rate:.4f} "
+                        "< 0.9")
+    del spec, twin
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the server over SpeculativeScheduler
+    target.reset()
+    draft.reset()
+    sched = SpeculativeScheduler(target, draft, eos_token_id=None,
+                                 num_draft=SPEC_K)
+    system = rng.integers(3, 32000, 64).tolist()
+    entry = sched.register_prefix(system)
+    sched.prefix_store.restore(B - 1, entry)
+    exact = all(
+        torch.equal(e.cache.k[:, B - 1, :s.padded_length], s.k)
+        and torch.equal(e.cache.v[:, B - 1, :s.padded_length], s.v)
+        and e._lengths[B - 1] == int(e.cache.lengths[B - 1]) == len(system)
+        for e, s in ((target, entry.target), (draft, entry.draft)))
+    target.reset()
+    draft.reset()
+    say(f"  (d) DualPrefixStore: a {len(system)}-token prefix restored into "
+        f"slot {B - 1} of both engines; exact copies of both snapshots, "
+        f"lengths equal: {exact}")
+    if not exact:
+        failures.append("the dual prefix restore is not an exact copy")
+    requests = []
+    submit = sched.submit
+
+    def recording_submit(*a, **kw):
+        requests.append(submit(*a, **kw))
+        return requests[-1]
+    sched.submit = recording_submit
+    httpd, llm = make_server(sched, _IdTokenizer(cfg.vocab_size),
+                             get_chat_template("plain"), "llama2-7b",
+                             host="127.0.0.1", port=0)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    addr = httpd.server_address
+    bodies = [dict(prompt=system + rng.integers(3, 32000, n).tolist(),
+                   max_tokens=SPEC_NEW // 2, temperature=0.0)
+              for n in SPEC_TAILS]
+    out = [None] * B
+
+    def post(i):
+        conn = http.client.HTTPConnection(*addr, timeout=300)
+        conn.request("POST", "/v1/completions", json.dumps(bodies[i]),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        out[i] = (resp.status, json.loads(resp.read()))
+        conn.close()
+    threads = [threading.Thread(target=post, args=(i,)) for i in range(B)]
+    for t in threads:
+        t.start()
+    t0 = time.perf_counter()
+    llm.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    with urllib.request.urlopen(f"http://{addr[0]}:{addr[1]}/metrics",
+                                timeout=60) as r:
+        metrics = r.read().decode()
+    httpd.shutdown()
+    httpd.server_close()
+    llm.shutdown()
+    server.join()
+    gauge = next((ln for ln in metrics.splitlines()
+                  if ln.startswith("llm_spec_acceptance_rate ")), None)
+    bad = [s for s, resp in out if s != 200
+           or resp["usage"]["completion_tokens"] != SPEC_NEW // 2]
+    gen = sum(len(r.output_ids) for r in requests)
+    say(f"  (d) server over SpeculativeScheduler: {len(requests)} requests "
+        f"(a {len(system)}-token shared prefix + tails {list(SPEC_TAILS)}), "
+        f"{gen} tokens in {wall:.3f} s ({gen / wall:.1f} tok/s); TTFT "
+        f"p50/p90/p99 {_percentiles([r.ttft for r in requests])} s; e2e "
+        f"p50/p90/p99 {_percentiles([r.e2e_latency for r in requests])} s; "
+        f"acceptance {sched.acceptance_rate:.4f} ({sched.num_accepted}/"
+        f"{sched.num_drafted}); /metrics: {gauge}; prefix tokens reused "
+        f"{sum(r.reused_prefix_len for r in requests)}")
+    if bad or gauge != (f"llm_spec_acceptance_rate "
+                        f"{sched.acceptance_rate:.4f}"):
+        failures.append(f"server: bad responses {bad} or gauge {gauge}")
+    if sum(r.reused_prefix_len for r in requests) != B * len(system):
+        failures.append("the server's requests did not reuse the prefix")
+    del sched, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) beam search
+    prompt = rng.integers(3, 32000, BEAM_PROMPT).tolist()
+    one = InferenceEngine(cfg, eng_cfg.replace(max_batch_size=1),
+                          target.params, device=dev)
+    want = one.generate([prompt], SamplingParams(
+        greedy=True, max_new_tokens=BEAM_NEW), eos_token_id=None).token_ids
+    del one
+    b1 = beam_search(cfg, eng_cfg, target.params, prompt, 1, BEAM_NEW,
+                     eos_token_id=None)
+    bs = BeamSearch(cfg, eng_cfg, target.params, BEAMS)
+    with run_eagerly(bs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = bs.search(prompt, BEAM_NEW, eos_token_id=None)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+    got = bs.search(prompt, BEAM_NEW, eos_token_id=None)   # captures
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = bs.search(prompt, BEAM_NEW, eos_token_id=None)
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t0
+    step = bs._programs["step"]
+    step_ms = time_ms(torch, step.replay, iters=8)
+    R = BEAM_PROMPT + BEAM_NEW
+    gather = bs.gather_bytes()
+    planes = bs._planes()
+    parents = torch.tensor([3, 0, 0, 1], device=dev)
+    gather_ms = time_ms(torch, lambda: [
+        (torch.index_select(p[:, :, :R], 1, parents, out=s),
+         p[:, :, :R].copy_(s)) for p, s in zip(planes, bs._scratch)])
+    kv_read = gather // 4      # the live rows, read once by attention
+    step_bound = bound_ms((param_bytes(target.params) + kv_read + gather,
+                           0))[0]
+    # the best beam's score against one forward over prompt + beam
+    best = got.sequences[0]
+    full = prompt + best
+    cache = kvc.new_kv_cache(cfg.num_layers, 1, cfg.num_kv_heads, len(full),
+                             cfg.head_dim, device=dev)
+    logits, _ = llama.forward_all_logits(
+        cfg, eng_cfg.replace(max_batch_size=1, max_seq_len=len(full)),
+        target.params, torch.tensor([full], dtype=torch.int32, device=dev),
+        cache, torch.zeros(1, dtype=torch.int32, device=dev),
+        torch.tensor([len(full)], dtype=torch.int32, device=dev))
+    logp = torch.log_softmax(logits[0], -1)
+    forced = sum(logp[BEAM_PROMPT - 1 + i, t].item()
+                 for i, t in enumerate(best)) / len(best)
+    del cache, logits, logp
+    say(f"  (e) beam_search, {BEAM_PROMPT}-token prompt, {BEAM_NEW} new: one "
+        f"beam == generate at B = 1: {b1.sequences[0] == want[0]}; "
+        f"{BEAMS} beams replayed == eager (sequences, scores): "
+        f"{got == ref}; search {eager_s:.3f} s eager, {graph_s:.3f} s "
+        f"replayed; best score {got.scores[0]:.5f}, teacher-forced "
+        f"{forced:.5f} (a finding: bf16)")
+    say(f"  (e) beam step (replay, CUDA events): {step_ms:.4f} ms; its "
+        f"reorder of {R} rows a beam moves {gather} bytes ({gather / 4e9:.3f}"
+        f" GB gathered, read and written twice through the scratch): "
+        f"{gather_ms:.4f} ms alone, bound {bound_ms((gather, 0))[0]:.4f} ms;"
+        f" the whole cache would be {4 * sum(p.nbytes for p in planes)}"
+        f" bytes; step bound {step_bound:.4f} ms (weights + live K/V + "
+        f"reorder, bytes)")
+    if b1.sequences[0] != want[0]:
+        failures.append("one beam differs from generate at B = 1")
+    if got != ref:
+        failures.append("replayed beam steps differ from the eager steps")
+    del bs
+    peak = max(peak_a, torch.cuda.max_memory_allocated())
+    launches = {k: f.launches for k, f in counters.items()}
+    say(f"  launches during 4l: {launches}; peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    expected, forbidden = MAIN_PATHS["int4"]
+    missing = [n for n in expected if launches[n] <= 0]
+    extra = [n for n in forbidden if launches[n]]
+    if missing or extra:
+        failures.append(f"kernels never launched {missing}; kernels that "
+                        f"must not launch {extra}")
+    del target
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("4l: " + "; ".join(failures))
 
 
 def main() -> int:
@@ -3549,6 +4169,10 @@ def main() -> int:
           "HF directory, loaded INT4, the quantizer and the chat CLI, the "
           "slot PrefixStore at B=8, a 3-round ChatSession", phase_checkpoint,
           torch, dev)
+    phase("4l", "speculative decoding and beam search: llama2-7b INT4 "
+          "target, tinyllama-1.1b INT4 draft, B=8, k=4; the server over "
+          "SpeculativeScheduler; beam_search", phase_speculative, torch, dev,
+          results)
     say("  decode per step, eager bodies against graph replays (wall and "
         "card busy ms): " + json.dumps(DECODE))
 

@@ -13,9 +13,9 @@ Run: python -m llm_inference_engine_tpu_torch.cli --model llama2-7b \
          --dummy-weights --device cpu
 
 ``--device`` (default ``cuda``) replaces the JAX CLI's ``--platform``;
-with no card present, ``cuda`` raises. Beam search (``--beams`` > 1) waits
-for ROADMAP.md, queue 1, "Speculative decoding and beam search", and
-``--dp``/``--tp`` > 1 for "Parallelism".
+with no card present, ``cuda`` raises. ``--beams`` > 1 decodes each turn
+with beam search (``ChatSession.response_beam``, no streaming).
+``--dp``/``--tp`` > 1 wait for ROADMAP.md, queue 1, "Parallelism".
 """
 
 from __future__ import annotations
@@ -83,8 +83,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--top-p", type=float, default=1.0)
     p.add_argument("--greedy", action="store_true")
     p.add_argument("--beams", type=int, default=0,
-                   help="beam-search width (0 = sampling; > 1 is not "
-                        "ported yet)")
+                   help="beam-search width (0 = sampling; beams>1 decodes "
+                        "each turn with beam search, no streaming)")
+    p.add_argument("--length-penalty", type=float, default=1.0)
     p.add_argument("--max-seq-len", type=int, default=2048)
     p.add_argument("--max-batch-size", type=int, default=1)
     p.add_argument("--quant", choices=["none", "int8", "int4"],
@@ -107,10 +108,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.beams > 1:
-        raise NotImplementedError(
-            "--beams > 1 is not ported yet (ROADMAP.md, queue 1, "
-            "'Speculative decoding and beam search')")
     if args.dp > 1 or args.tp > 1:
         raise NotImplementedError(
             "--dp/--tp > 1 are not ported yet (ROADMAP.md, queue 1, "
@@ -182,7 +179,13 @@ def main(argv=None) -> int:
             continue
         if not line.strip():
             continue
-        session.response(line, sampling, cb)
+        if args.beams > 1:
+            session.response_beam(line, num_beams=args.beams,
+                                  max_new_tokens=args.max_new_tokens,
+                                  length_penalty=args.length_penalty,
+                                  callback=cb)
+        else:
+            session.response(line, sampling, cb)
     return 0
 
 

@@ -47,8 +47,8 @@ from llm_inference_engine_tpu_torch.ops.rmsnorm import (
 from llm_inference_engine_tpu_torch.ops.rope import (
     rope_cos_sin, rotate, split_qkv)
 
-__all__ = ["decoder_forward", "forward_hidden", "lm_head_logits",
-           "run_layers"]
+__all__ = ["decoder_forward", "forward_all_logits", "forward_hidden",
+           "lm_head_logits", "run_layers"]
 
 
 def _layer_step(cfg: ModelConfig, eng: EngineConfig, h_norm: torch.Tensor,
@@ -165,6 +165,18 @@ def lm_head_logits(cfg: ModelConfig, eng: EngineConfig, params: dict,
     the model dtype)."""
     return linear(hidden_last, params["lm_head"], out_dtype=torch.float32,
                   kernels=eng.kernels)
+
+
+def forward_all_logits(cfg: ModelConfig, eng: EngineConfig, params: dict,
+                       token_ids: torch.Tensor, cache: kvc.KVCache,
+                       q_start: torch.Tensor, kv_len: torch.Tensor):
+    """decoder_forward + the lm head on EVERY position -> (logits
+    [B, T, V] f32, cache): the verify forward of speculative decoding.
+    The head sees B * T rows (40 at B = 8, T = 5: a quantized head runs
+    kernel E's or F's prefill mode)."""
+    hidden, cache = decoder_forward(cfg, eng, params, token_ids, cache,
+                                    q_start, kv_len)
+    return lm_head_logits(cfg, eng, params, hidden), cache
 
 
 def forward_hidden(cfg: ModelConfig, eng: EngineConfig, params: dict,

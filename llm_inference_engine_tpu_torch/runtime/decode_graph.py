@@ -44,7 +44,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from llm_inference_engine_tpu_torch.ops import counted_wrappers
 
 __all__ = ["FLAG_EVERY", "FlagPoll", "HostReadError", "NoHostReads",
-           "Program", "capture", "run_eagerly"]
+           "Program", "capture", "run", "run_eagerly"]
 
 # replays between two reads of a rollout's "any row active" flag
 FLAG_EVERY = 4
@@ -157,6 +157,29 @@ def capture(name: str, body: Callable[[], None],
     return Program(graph, [(w, n) for w, n in launches if n])
 
 
+def run(owner, name: str, keep=(), quiet: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None) -> None:
+    """Run ``owner``'s body ``_<name>_body`` once: eagerly where
+    ``owner._programs`` is None (the CPU, :func:`run_eagerly`), else
+    replay its program, captured at the first run. The capture's warm-up
+    runs with ``quiet`` (the body's "row active" input) zeroed, so that it
+    writes no K/V; then the ``keep`` tensors (the state the warm-up would
+    move, ``quiet`` among them or inside one) are put back."""
+    body = getattr(owner, f"_{name}_body")
+    if owner._programs is None:
+        body()
+        return
+    program = owner._programs.get(name)
+    if program is None:
+        saved = [t.clone() for t in keep]
+        if quiet is not None:
+            quiet.zero_()
+        program = owner._programs[name] = capture(name, body, generator)
+        for t, v in zip(keep, saved):
+            t.copy_(v)
+    program.replay()
+
+
 class FlagPoll:
     """Reads a rollout's device "any row active" flag on the host every
     ``every`` replays. On the card the flag of each block of ``every``
@@ -190,9 +213,11 @@ class FlagPoll:
 
 @contextlib.contextmanager
 def run_eagerly(engine):
-    """Inside, ``engine`` runs its decode bodies eagerly on the card, as on
-    the CPU: the reference that replays are held against (chip_smoke.py,
-    the card tests). Nothing in the package enters it."""
+    """Inside, ``engine`` (an engine, a ``SpeculativeDecoder`` or a
+    ``BeamSearch``: whatever holds ``_programs``) runs its decode bodies
+    eagerly on the card, as on the CPU: the reference that replays are
+    held against (chip_smoke.py, the card tests). Nothing in the package
+    enters it."""
     programs, engine._programs = engine._programs, None
     try:
         yield engine

@@ -609,21 +609,10 @@ class InferenceEngine:
     def _run(self, name: str) -> None:
         """Run decode body ``name`` once: replay its graph on the card
         (captured at the first run), call it on the CPU."""
-        body = getattr(self, f"_{name}_body")
-        if self._programs is None:
-            body()
-            return
-        program = self._programs.get(name)
-        if program is None:
-            # warm up with no row active, which changes no state; then put
-            # the staged inputs and the step index back
-            saved = (self._input_buf.clone(), self._roll_i.clone())
-            self._x.active.zero_()
-            program = self._programs[name] = decode_graph.capture(
-                name, body, self._gen)
-            self._input_buf.copy_(saved[0])
-            self._roll_i.copy_(saved[1])
-        program.replay()
+        # the warm-up runs with no row active; a rollout's step index and
+        # carry are put back after it
+        decode_graph.run(self, name, (self._input_buf, self._roll_i),
+                         self._x.active, self._gen)
 
     def _step_body(self) -> None:
         """JAX ``_decode_step``: one step over all slots; rows with

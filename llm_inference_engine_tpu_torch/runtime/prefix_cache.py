@@ -22,8 +22,10 @@ the tail.
 - :class:`AutoPrefixCache` (paged): every finished request donates its
   page-aligned context (``auto_prefix_cache=True``).
 
-``DualPrefixStore`` (speculative serving) waits for ROADMAP.md, queue 1,
-"Speculative decoding and beam search".
+- :class:`DualPrefixStore` (speculative serving, slot layout): paired
+  snapshots of one prefix in the target and the draft engine, registered,
+  evicted and restored together, so that both caches hold the same
+  lengths at every round boundary.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ from llm_inference_engine_tpu_torch.utils import round_up
 
 __all__ = ["PrefixEntry", "PrefixStore", "snapshot_prefix",
            "restore_prefix", "RESTORE_BUCKET", "PagedPrefixEntry",
-           "PagedPrefixStore", "AutoPrefixCache"]
+           "PagedPrefixStore", "AutoPrefixCache", "DualPrefixEntry",
+           "DualPrefixStore"]
 
 RESTORE_BUCKET = 64   # snapshot lengths round up to this (the JAX package
                       # bounds its compiled restore variants with it)
@@ -155,15 +158,13 @@ class PrefixStore:
             raise ValueError(
                 f"prefix of {len(key)} tokens >= max_seq_len "
                 f"{self.engine.engine_config.max_seq_len}")
-        eng = self.engine
-        eng.reset([slot])
-        eng.prefill([list(key)], slots=[slot])
-        entry = snapshot_prefix(eng.cache, slot, len(key))
-        entry = dataclasses.replace(entry, tokens=key)
-        eng.reset([slot])
+        entry = self._snapshot(key, slot)
         self._evict_to_fit(entry.padded_length)
         self._entries[key] = entry
         return entry
+
+    def _snapshot(self, key: tuple, slot: int) -> PrefixEntry:
+        return _snapshot_of(self.engine, key, slot)
 
     def match(self, prompt: Sequence[int]) -> Optional[PrefixEntry]:
         """Longest registered prefix that strictly prefixes ``prompt``
@@ -183,11 +184,74 @@ class PrefixStore:
         """Copy ``entry`` into ``slot`` on the engine (in place) and set
         the slot's length, host mirror included; returns the number of
         prompt tokens the caller may skip."""
-        eng = self.engine
-        restore_prefix(eng.cache, slot, entry)
-        lengths = eng._lengths.copy()
-        lengths[slot] = entry.length
-        eng._set_lengths(lengths)
+        _restore_into(self.engine, slot, entry)
+        return entry.length
+
+
+def _restore_into(engine, slot: int, entry: PrefixEntry) -> None:
+    """Restore ``entry`` into ``slot`` of ``engine``'s cache in place and
+    set the slot's length, the engine's host mirror included."""
+    restore_prefix(engine.cache, slot, entry)
+    lengths = engine._lengths.copy()
+    lengths[slot] = entry.length
+    engine._set_lengths(lengths)
+
+
+def _snapshot_of(engine, key: tuple, slot: int) -> PrefixEntry:
+    """Prefill ``key`` into the scratch ``slot`` of ``engine``, snapshot
+    its rows and reset the slot."""
+    engine.reset([slot])
+    engine.prefill([list(key)], slots=[slot])
+    entry = snapshot_prefix(engine.cache, slot, len(key))
+    engine.reset([slot])
+    return dataclasses.replace(entry, tokens=key)
+
+
+@dataclasses.dataclass
+class DualPrefixEntry:
+    """Paired snapshots of one prefix in a target and a draft engine; has
+    the ``tokens`` / ``length`` surface the scheduler reads."""
+    target: PrefixEntry
+    draft: PrefixEntry
+
+    @property
+    def tokens(self):
+        return self.target.tokens
+
+    @property
+    def length(self) -> int:
+        return self.target.length
+
+    @property
+    def padded_length(self) -> int:
+        return self.target.padded_length
+
+
+class DualPrefixStore(PrefixStore):
+    """Prefix caching under speculative decoding: a speculative round
+    needs the draft cache's length equal to the target's at every round
+    boundary, so a restored prefix lands in both caches. Entries are
+    registered, evicted and restored as pairs; ``max_tokens`` budgets
+    target rows (one shared budget keeps eviction paired)."""
+
+    def __init__(self, target_engine, draft_engine, max_tokens: int = 16384):
+        super().__init__(target_engine, max_tokens)
+        _require_slot_layout(draft_engine.cache)
+        self.draft = draft_engine
+
+    @property
+    def target(self):
+        return self.engine
+
+    def _snapshot(self, key: tuple, slot: int) -> DualPrefixEntry:
+        return DualPrefixEntry(target=_snapshot_of(self.engine, key, slot),
+                               draft=_snapshot_of(self.draft, key, slot))
+
+    def restore(self, slot: int, entry: DualPrefixEntry) -> int:
+        """Copy the pair into ``slot`` of both engines, in place (int8
+        scale planes included); returns the prompt tokens to skip."""
+        _restore_into(self.engine, slot, entry.target)
+        _restore_into(self.draft, slot, entry.draft)
         return entry.length
 
 

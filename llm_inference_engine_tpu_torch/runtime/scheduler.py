@@ -3,10 +3,9 @@
 Port of ``llm_inference_engine_tpu/runtime/scheduler.py``, which is
 framework-free: only the imports changed, and the engine's sampled ids
 and logprobs (tensors on the engine's device) are copied to the host
-explicitly. The speculative hooks ``_mirror_reset`` and
-``_mirror_prefill`` stay no-op hooks; ``SpeculativeScheduler`` is not
-ported yet (ROADMAP.md, queue 1, "Speculative decoding and beam
-search").
+explicitly. The hooks ``_mirror_reset`` and ``_mirror_prefill`` and
+``_decode_phase`` are filled by ``SpeculativeScheduler``
+(``speculative_scheduler.py``).
 
 The capability the reference explicitly lacked: its batch size is pinned to
 1 (reference: llama.h:31) and one request owns the whole engine for its

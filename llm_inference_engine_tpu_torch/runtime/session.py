@@ -7,8 +7,9 @@ reference's index protocol (0 first chunk, >0 continuation, -1 end). A
 paged engine carries the history's full pages across the slot reset
 (``_paged_carry_history``). The engine's one-token top-up of a
 length-terminated row is mirrored as it is (ROADMAP.md, queue 3), so the
-session's ids equal the JAX session's. ``response_beam`` waits for
-ROADMAP.md, queue 1, "Speculative decoding and beam search".
+session's ids equal the JAX session's. ``response_beam`` decodes a
+round with beam search (``beam_search.py``) and re-prefills the winning
+turn into the session's slot.
 """
 
 from __future__ import annotations
@@ -129,7 +130,36 @@ class ChatSession:
                       max_new_tokens: int = 64, length_penalty: float = 1.0,
                       callback: Optional[Callable[[int, str], None]] = None
                       ) -> str:
-        """Beam search over the session's history: not ported yet."""
-        raise NotImplementedError(
-            "ChatSession.response_beam is not ported yet (ROADMAP.md, queue "
-            "1, 'Speculative decoding and beam search')")
+        """Generate one reply with beam search (no streaming: the winning
+        beam is known only at the end; the callback receives the final
+        text as one chunk). The search replays the whole token history as
+        its prompt, in beam caches of its own, then the winning turn is
+        re-prefilled into this session's slot so that later rounds
+        continue from it."""
+        from llm_inference_engine_tpu_torch.runtime.beam_search import (
+            beam_search)
+        input_ids = self.make_input(user_input)
+        prompt_history = self.token_history + input_ids
+
+        res = beam_search(
+            self.engine.config, self.engine.engine_config, self.engine.params,
+            prompt_history, num_beams=num_beams,
+            max_new_tokens=max_new_tokens,
+            eos_token_id=getattr(self.tokenizer, "eos_id", 2),
+            length_penalty=length_penalty)
+        out_ids = res.sequences[0]
+        # decode the whole reply relative to the history
+        full = self.tokenizer.decode(prompt_history + out_ids)
+        base = self.tokenizer.decode(prompt_history)
+        text = full[len(base):] if full.startswith(base) else \
+            self.tokenizer.decode(out_ids)
+        if callback is not None:
+            callback(0, text)
+            callback(-1, "")
+
+        # resync the engine slot: replay this round into the live cache
+        self.engine.reset([self.slot])
+        self.engine.prefill([prompt_history + out_ids], slots=[self.slot])
+        self.token_history = prompt_history + out_ids
+        self.round += 1
+        return text

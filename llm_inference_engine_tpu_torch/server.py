@@ -9,9 +9,13 @@ there is no CPU fallback: without a card ``main`` raises).
 ``--checkpoint`` takes an HF safetensors or reference ``.bin`` directory
 or a ``save_params`` ``.npz``; ``--tokenizer`` (default: a checkpoint
 directory's own) loads through ``tokenizer.load_tokenizer``, and dummy
-weights or a ``.npz`` without ``--tokenizer`` serve ids as text. Not ported yet: ``--draft-model`` (speculative serving)
-raises NotImplementedError; the JAX package's ``--platform`` picks a JAX
-backend and has no counterpart.
+weights or a ``.npz`` without ``--tokenizer`` serve ids as text.
+``--draft-model`` (with ``--draft-checkpoint`` and ``--num-draft``)
+serves through ``SpeculativeScheduler``: the draft is built by
+``create_engine`` with the target's ``EngineConfig`` (quantized the same
+way), needs the slot layout (``--kv-layout paged`` exits 2), and
+``/metrics`` then reports ``llm_spec_acceptance_rate``. The JAX package's
+``--platform`` picks a JAX backend and has no counterpart.
 
 The reference's only user surface was a single-user blocking CLI REPL
 (user_entry.cpp:9-43). This is the deployable counterpart: an HTTP server
@@ -648,7 +652,11 @@ def main(argv=None) -> int:
                          "the checkpoint directory's, else token ids as "
                          "text")
     ap.add_argument("--dummy-weights", action="store_true")
-    ap.add_argument("--draft-model", default="")
+    ap.add_argument("--draft-model", default="",
+                    help="enable speculative serving with this draft "
+                         "model preset (slot layout only)")
+    ap.add_argument("--draft-checkpoint", default="")
+    ap.add_argument("--num-draft", type=int, default=4)
     ap.add_argument("--quant", default="none",
                     choices=["none", "int8", "int4"])
     ap.add_argument("--kv-cache-dtype", choices=["", "int8"], default="")
@@ -668,10 +676,6 @@ def main(argv=None) -> int:
                     help="torch device of the engine (default cuda)")
     args = ap.parse_args(argv)
 
-    if args.draft_model:
-        raise NotImplementedError(
-            "--draft-model is not ported yet (ROADMAP.md, queue 1, "
-            "'Speculative decoding and beam search')")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available "
@@ -679,6 +683,10 @@ def main(argv=None) -> int:
     if not args.dummy_weights and not args.checkpoint:
         print("either --checkpoint or --dummy-weights is required",
               file=sys.stderr)
+        return 2
+
+    if args.draft_model and args.kv_layout == "paged":
+        print("--draft-model requires --kv-layout slot", file=sys.stderr)
         return 2
 
     eng = EngineConfig(max_batch_size=args.max_batch_size,
@@ -693,10 +701,20 @@ def main(argv=None) -> int:
     template = (template_for_model(args.model)
                 if args.chat_template == "auto"
                 else get_chat_template(args.chat_template))
-    sched = ContinuousBatchingScheduler(
-        engine, eos_token_id=getattr(tokenizer, "eos_id", 2),
-        auto_prefix_cache=args.auto_prefix_cache
-        and args.kv_layout == "paged")
+    eos = getattr(tokenizer, "eos_id", 2)
+    if args.draft_model:
+        from llm_inference_engine_tpu_torch.runtime.speculative_scheduler \
+            import SpeculativeScheduler
+        draft = create_engine(args.draft_model,
+                              args.draft_checkpoint or None, eng,
+                              device=device)
+        sched = SpeculativeScheduler(engine, draft, eos_token_id=eos,
+                                     num_draft=args.num_draft)
+    else:
+        sched = ContinuousBatchingScheduler(
+            engine, eos_token_id=eos,
+            auto_prefix_cache=args.auto_prefix_cache
+            and args.kv_layout == "paged")
 
     httpd, llm = make_server(sched, tokenizer, template, args.model,
                              args.host, args.port)

@@ -302,6 +302,9 @@ def test_package_imports_no_jax():
         "import llm_inference_engine_tpu_torch.native\n"
         "import llm_inference_engine_tpu_torch.runtime.native_io\n"
         "import llm_inference_engine_tpu_torch.runtime.session\n"
+        "import llm_inference_engine_tpu_torch.runtime.speculative\n"
+        "import llm_inference_engine_tpu_torch.runtime.speculative_scheduler\n"
+        "import llm_inference_engine_tpu_torch.runtime.beam_search\n"
         "import llm_inference_engine_tpu_torch.tokenizer\n"
         "import llm_inference_engine_tpu_torch.tokenizer.bpe\n"
         "import llm_inference_engine_tpu_torch.tokenizer.bytelevel\n"

@@ -1537,3 +1537,63 @@ def test_replay_launch_counts_equal_eager(cuda, layout):
     assert replayed == eager and replayed["rmsnorm"] == 5
     assert replayed["add_residual_rmsnorm"] == 5 * 6
     assert replayed["silu_and_mul"] == 5 * 3
+
+
+def _spec_pair(cuda, draft_seed):
+    """A target and a draft engine (bf16 debug widths, 3 layers; the draft
+    from another seed, or the target's own weights), B = 3."""
+    target = _graph_engine(cuda, "slot")
+    if draft_seed is None:
+        draft = InferenceEngine(target.config, target.engine_config,
+                                target.params, device=cuda)
+    else:
+        cfg = target.config
+        draft = InferenceEngine(cfg, target.engine_config,
+                                init_dummy_params(cfg, seed=draft_seed,
+                                                  device=cuda), device=cuda)
+    return target, draft
+
+
+@pytest.mark.parametrize("draft_seed", [None, 5])
+def test_speculative_replays_equal_eager_rounds(cuda, draft_seed):
+    """SpeculativeDecoder.generate, greedy and then sampled from one seed,
+    with its rounds replayed (CUDA graphs, the ingest program among them
+    when the draft is the target) equals the same rounds run eagerly: ids
+    and drafted/accepted counts."""
+    from llm_inference_engine_tpu_torch.runtime.speculative import (
+        SpeculativeDecoder)
+    spec = SpeculativeDecoder(*_spec_pair(cuda, draft_seed), num_draft=3)
+    prompts = [list(range(3, 40)), [5, 9], [11] * 17]
+    sampled = SamplingParams(temperature=0.8, top_p=0.95)
+
+    def run():
+        out = []
+        for sp in (None, sampled):
+            spec._gen.manual_seed(3)
+            r = spec.generate(prompts, max_new_tokens=20, eos_token_id=None,
+                              sampling=sp)
+            out.append((r.token_ids, r.num_drafted, r.num_accepted))
+        return out
+    with run_eagerly(spec):
+        eager = run()
+    assert spec._programs == {}
+    replayed = run()
+    assert {"greedy", "sampled"} <= set(spec._programs)
+    assert replayed == eager
+    if draft_seed is None:
+        assert "ingest" in spec._programs
+        assert eager[0][2] == eager[0][1]      # greedy: all accepted
+
+
+def test_beam_step_replays_equal_eager_steps(cuda):
+    """A 3-beam search with its step replayed equals the eager steps:
+    sequences and scores; a second search with other rows to reorder is
+    captured again and equals its eager run."""
+    from llm_inference_engine_tpu_torch.runtime.beam_search import BeamSearch
+    e = _graph_engine(cuda, "slot")
+    bs = BeamSearch(e.config, e.engine_config, e.params, num_beams=3)
+    for prompt, n in (([1, 2, 3] * 10, 12), (list(range(5, 60)), 7)):
+        with run_eagerly(bs):
+            want = bs.search(prompt, n, eos_token_id=None)
+        assert bs.search(prompt, n, eos_token_id=None) == want
+        assert set(bs._programs) == {"step"}

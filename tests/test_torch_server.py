@@ -355,16 +355,22 @@ def test_greedy_completion_matches_jax_server(weights, prompt, kv):
         _stop(tpair)
 
 
-def test_main_refuses_what_is_not_ported_and_a_missing_card():
+def test_main_refuses_what_is_not_ported_and_a_missing_card(capsys):
     for argv, err, match in (
-            (["--draft-model", "debug"], NotImplementedError, "Speculative"),
             (["--dummy-weights", "--device", "cuda"], RuntimeError,
-             "no CUDA device")):
+             "no CUDA device"),):
         if err is RuntimeError and torch.cuda.is_available():
             continue
         with pytest.raises(err, match=match):
             port_server.main(["--model", "debug", *argv])
     assert port_server.main(["--model", "debug", "--device", "cpu"]) == 2
+    # ported: --draft-model serves speculatively (test_torch_speculative.py)
+    # over the slot layout, and refuses a paged one as the JAX server does
+    assert port_server.main(["--model", "debug", "--dummy-weights",
+                             "--device", "cpu", "--draft-model", "debug",
+                             "--kv-layout", "paged"]) == 2
+    assert "--draft-model requires --kv-layout slot" in \
+        capsys.readouterr().err
     # ported: the int8 KV flag is no longer refused before the weights
     assert port_server.main(["--model", "debug", "--device", "cpu",
                              "--kv-cache-dtype", "int8"]) == 2

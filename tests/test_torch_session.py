@@ -294,8 +294,14 @@ def test_chat_session_matches_jax_over_three_rounds(chat_ckpt, layout):
         assert te._lengths[0] == len(t_hist) - sum(by_length[1:])
     ts.reset()
     assert ts.token_history == [] and te._lengths[0] == 0
-    with pytest.raises(NotImplementedError, match="beam search"):
-        ts.response_beam("hi")
+    # ported: a beam-search round (its text and the history re-prefilled
+    # into the slot) equal to the JAX session's
+    js.reset()
+    beam = dict(num_beams=2, max_new_tokens=5)
+    want = js.response_beam(QUESTIONS[0], **beam)
+    got = ts.response_beam(QUESTIONS[0], **beam)
+    assert got == want and ts.token_history == js.token_history
+    assert te._lengths[0] == je.cache.lengths[0] == len(ts.token_history)
 
 
 def _repl(main, argv, stdin, monkeypatch, capsys):
@@ -320,7 +326,7 @@ def test_cli_repl_matches_jax(chat_ckpt, monkeypatch, capsys):
     assert "(history cleared)" in tail
 
 
-def test_cli_dummy_mode_and_refusals(monkeypatch, capsys):
+def test_cli_dummy_mode_and_refusals(chat_ckpt, monkeypatch, capsys):
     out = _repl(cli.main, ["--model", "debug", "--dummy-weights", "--greedy",
                            "--max-new-tokens", "3", "--max-seq-len", "64",
                            "--device", "cpu"], "7 11 13\n", monkeypatch,
@@ -328,7 +334,6 @@ def test_cli_dummy_mode_and_refusals(monkeypatch, capsys):
     reply = out.split("please input the question: ")[1]
     assert reply.startswith(":") and len(reply[1:].split()) == 3
     for argv, err, match in (
-            (["--beams", "2"], NotImplementedError, "beam search"),
             (["--tp", "2"], NotImplementedError, "Parallelism"),
             (["--dummy-weights", "--device", "cuda"], RuntimeError,
              "no CUDA device")):
@@ -337,6 +342,18 @@ def test_cli_dummy_mode_and_refusals(monkeypatch, capsys):
         with pytest.raises(err, match=match):
             cli.main(["--model", "debug", *argv])
     assert cli.main(["--model", "debug", "--device", "cpu"]) == 2
+    # ported: --beams 2 answers each turn by beam search, the JAX CLI's
+    # text over the checkpoint and the SPM asset
+    argv = ["--model", str(chat_ckpt / "config.json"), "--checkpoint",
+            str(chat_ckpt), "--tokenizer", SPM, "--beams", "2",
+            "--max-new-tokens", "5", "--max-seq-len", "128"]
+    stdin = f"{QUESTIONS[0]}\n{QUESTIONS[1]}\ns\n"
+    got = _repl(cli.main, argv + ["--device", "cpu"], stdin, monkeypatch,
+                capsys)
+    want = _repl(j_cli.main, argv, stdin, monkeypatch, capsys)
+    tail = got.split("ready.", 1)[1]
+    assert tail == want.split("ready.", 1)[1]
+    assert tail.count("please input the question: :") == 2
 
 
 def test_cli_over_an_npz_without_a_tokenizer_speaks_ids(tmp_path,
