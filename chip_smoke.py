@@ -135,6 +135,33 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
       tokens: one beam equal to ``generate`` at B = 1, 4 beams replayed
       equal to eager, the step's time and its reorder's bytes beside
       their bounds, the best score against a teacher-forced recompute;
+   m. evals, calibration and the debugging utilities (after 4l):
+      first the kernels at the shapes scoring adds (G on the lm_head
+      [4096, 32000], the INT4 lm_head at m = 2048 with an f32 output, D2's
+      int8 mode at B 4, T 512), then llama2-7b bf16 (32 layers, seed 0)
+      with every launch counter set to 0 just before and read just after:
+      (a) the windowed ``Scorer`` (window 512, batch 4) over 4089 tokens:
+      4088 predictions, a zeroed lm_head gives ppl 32000 (1e-5), one
+      window against ``forward_all_logits`` at B = 1 (1e-3), the kernel
+      route against ``kernels="torch"`` (2e-2 on the mean NLL), and
+      ``python -m llm_inference_engine_tpu_torch.evals.ppl --quant int4``
+      in a subprocess (7B width, 4 layers, from a config JSON) printing
+      the in-process value (1e-6); (b) a tapped ``generate`` at B = 2 on
+      both routes: the JAX package's 29 dump names, prefill and decode
+      dumps, the same names from ``compare_dumps``, each name's largest
+      relative difference printed; (c) ``calibrate_act_sq`` over 512
+      tokens and ``quantize_params_calibrated`` INT4 in
+      ``quantize_params``' format; ``tools/quantize --calibrate
+      random:512`` over an HF directory (7B width, 4 layers) bit for bit
+      the in-process run; ``create_engine`` over its .npz generates
+      through E and D; (d) ``nan_guard`` over a forward: clean (logits
+      unchanged), then a NaN planted in layer 5's ``wo`` (named:
+      ``aten.mm``) and in its ``ffn_norm`` (named: kernel A's wrapper);
+      printed only: (e) fp, int8, int4 (``quant_ppl_report``),
+      calibrated INT4 and int8-KV perplexities (dummy weights: no
+      quality), (f) tokens scored a second, card busy a batch by kernel
+      group (``utils.profiling.trace``), calibration and clip-search
+      seconds, peak memory;
    (3d, before 4: kernel I, H's int8 mode, D2's and D's int8 modes
    against their plain versions at 7B widths, in both scale numerics, the
    decode modes held per row; then at head_dim 80, 96
@@ -1222,7 +1249,6 @@ def device_profile(torch, fn, reps: int, cpu_ops: bool = False):
     a kernel's duration includes the time its blocks sit resident in
     ``griddepcontrol.wait``, and the sum of durations counts that time
     twice."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CUDA] + (
         [ProfilerActivity.CPU] if cpu_ops else [])
@@ -1230,9 +1256,19 @@ def device_profile(torch, fn, reps: int, cpu_ops: bool = False):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    out = profile_of(prof, reps)
+    return (out, prof) if cpu_ops else out
+
+
+def profile_of(prof, reps: int):
+    """The ``Profile`` of a finished torch.profiler run over ``reps``
+    repetitions: the card's activities only (a trace that also recorded
+    CPU ops, as ``utils.profiling.trace`` does, counts each kernel once)."""
+    from torch.autograd import DeviceType
     per_kernel = sorted(((e.self_device_time_total / 1e3 / reps, e.key)
                          for e in prof.key_averages()
-                         if e.self_device_time_total > 0), reverse=True)
+                         if e.self_device_time_total > 0
+                         and e.device_type == DeviceType.CUDA), reverse=True)
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
     union, overlaps, reach = 0.0, 0, float("-inf")
@@ -1241,10 +1277,9 @@ def device_profile(torch, fn, reps: int, cpu_ops: bool = False):
             overlaps += 1
         union += max(0.0, end - max(start, reach))
         reach = max(reach, end)
-    out = Profile(union / 1e3 / reps, per_kernel,
-                  sum(ms for ms, _ in per_kernel), overlaps / reps,
-                  len(spans) / reps)
-    return (out, prof) if cpu_ops else out
+    return Profile(union / 1e3 / reps, per_kernel,
+                   sum(ms for ms, _ in per_kernel), overlaps / reps,
+                   len(spans) / reps)
 
 
 def _short(kernel_name: str) -> str:
@@ -1256,12 +1291,13 @@ def _short(kernel_name: str) -> str:
 
 
 # device time by group of kernels (profiler names, first match wins):
-# kernel D2 (the prefill modes), kernel D (the decode modes), E/F, cuBLAS,
-# the K/V row writes C, H, I (kv_write_kernel, paged_kv_write_kernel,
-# kv_write_quant_kernel), kernels A and B
+# kernel D2 (the prefill modes), kernel D (the decode modes), E/F, G,
+# cuBLAS, the K/V row writes C, H, I (kv_write_kernel,
+# paged_kv_write_kernel, kv_write_quant_kernel), kernels A and B
 KERNEL_GROUPS = (("D2", ("attention_prefill_kernel",)),
                  ("D", ("attention_decode_kernel",)),
                  ("E/F", ("quant_matmul_decode", "quant_matmul_prefill")),
+                 ("G", ("dequant_int4_kernel",)),
                  ("cuBLAS", ("nvjet", "gemm", "cutlass", "xmma")),
                  ("writes", ("kv_write",)),
                  ("A", ("rmsnorm_kernel",)),
@@ -4040,6 +4076,474 @@ def phase_speculative(torch, dev, results) -> None:
         raise AssertionError("4l: " + "; ".join(failures))
 
 
+# 4m: evals, calibration and the debugging utilities at llama2-7b's width
+EVAL_WINDOW, EVAL_BATCH = 512, 4
+EVAL_TOKENS = 8 * (EVAL_WINDOW - 1) + 1   # 4089: 8 windows, 4088 predicted
+EVAL_CLI_LAYERS = 4       # depth of the CLI's and the quantizer's model
+EVAL_CALIB = 512          # calibration tokens
+EVAL_TAP_PROMPTS = (17, 40)
+EVAL_TAP_NEW = 4
+EVAL_NAN_LAYER = 5
+# the JAX package's tap names (its models/llama.py), 3 layers kept
+TAP_NAMES = {"embedding", "final_norm"} | {
+    f"L{i}_{n}" for i in range(3)
+    for n in ("attn_norm", "qkv_proj", "q_rope", "k_rope", "attn_ctx",
+              "attn_out", "ffn_in", "ffn_act", "layer_out")}
+# 4m's kernels: (must launch, must not)
+EVAL_PATH = (NORM_ACT + ("kv_write", "kv_write_quant", "attention_prefill",
+                         "attention_prefill_int8", "attention_decode",
+                         "int4_matmul", "dequant_int4"),
+             BF16_PAGED + INT8_PAGED + ("int8_matmul",
+                                        "attention_decode_int8"))
+
+
+def eval_kernel_rows(torch, dev, results) -> None:
+    """The kernels at the shapes scoring adds, each against its plain
+    version with its time, bound and library call: G on the lm_head
+    [4096, 32000] (bit for bit), the INT4 lm_head at m = 2048 with an f32
+    output (``_large_m_linear``: G, then cuBLAS; library:
+    ``_weight_int4pack_mm``, bf16 out), and D2's int8 slot mode at a
+    scoring batch (B 4, T 512, q_start 0, kv_len 512)."""
+    from llm_inference_engine_tpu_torch.ops import attention, quant
+    from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(2718)
+    k, n, m = 4096, 32000, EVAL_BATCH * EVAL_WINDOW
+    ts = quant_weights(torch, quant, dev, gen, "int4", k, n,
+                       min_bytes=120_000_000)
+
+    def g(t, kern):
+        return quant.dequant_int4(t.q, t.scale, 128, kernels=kern)
+    got, want = g(ts[0], "cuda"), g(ts[0], "torch")
+    if not torch.equal(got, want):
+        raise AssertionError("dequant_int4 on the lm_head: not bit-identical "
+                             "to the plain dequant")
+    check_close(torch, "dequant_int4", got, want, results,
+                f"lm_head [{k // 2},{n}] -> bf16 [{k},{n}] (torch.equal)",
+                (time_ms(torch, cycling(ts, lambda t: g(t, "cuda"))),
+                 time_ms(torch, cycling(ts, lambda t: g(t, "torch")),
+                         iters=3, warmup=1)),
+                work=(ts[0].nbytes + k * n * 2, 2 * k * n))
+    del got, want
+    x = torch.randn(m, k, generator=gen, device=dev, dtype=bf16)
+
+    def head(t, kern):
+        return quant._large_m_linear(x, t, torch.float32, kern)
+    check_close(torch, "dequant_int4", head(ts[0], "auto"),
+                head(ts[0], "torch"), results,
+                f"lm_head m{m} f32 out (G + cuBLAS)",
+                (time_ms(torch, cycling(ts, lambda t: head(t, "auto")),
+                         iters=5),
+                 time_ms(torch, cycling(ts, lambda t: head(t, "torch")),
+                         iters=3, warmup=1)),
+                work=(ts[0].nbytes + x.numel() * 2 + m * n * 4, 2 * m * k * n),
+                library=int4pack_ms(torch, quant, ts, x, bf16))
+    del ts, x
+    torch.cuda.empty_cache()
+    B, T, H, K, D = EVAL_BATCH, EVAL_WINDOW, 32, 32, 128
+    cache = kvc.new_kv_cache(1, B, K, T, D, device=dev, quantized=True)
+    zeros = torch.zeros(B, dtype=torch.int32, device=dev)
+    full = torch.full((B,), T, dtype=torch.int32, device=dev)
+    kvc.update_cache_at_layer(cache, 0, *(torch.randn(
+        B, T, K, D, generator=gen, device=dev, dtype=bf16) for _ in "kv"),
+        zeros, full)
+    q = torch.randn(B, T, H, D, generator=gen, device=dev, dtype=bf16)
+
+    def run(kern):
+        return attention.attention(q, cache.k, cache.v, zeros, full, layer=0,
+                                   kernels=kern, k_scale=cache.k_scale,
+                                   v_scale=cache.v_scale)
+    check_close(torch, "attention_prefill_int8", run("cuda"), run("torch"),
+                results, f"scoring B{B} T{T} q_start 0 kv_len {T}",
+                (time_ms(torch, lambda: run("cuda"), iters=5),
+                 time_ms(torch, lambda: run("torch"), iters=3, warmup=1)),
+                work=attn_work([0] * B, [T] * B, T, H, K, D, kv_elem=1))
+    del cache, q
+    torch.cuda.empty_cache()
+
+
+def param_format(params, prefix: str = "") -> dict:
+    """{leaf name: its format}: a quantized leaf's mode, group and the
+    shapes and dtypes of q and scale; a plain leaf's shape and dtype."""
+    from llm_inference_engine_tpu_torch.ops.quant import QuantizedTensor
+    out = {}
+    for k, v in params.items():
+        if isinstance(v, dict):
+            out.update(param_format(v, prefix + k + "."))
+        elif isinstance(v, QuantizedTensor):
+            out[prefix + k] = (v.mode, v.group_size, tuple(v.q.shape),
+                               v.q.dtype, tuple(v.scale.shape), v.scale.dtype)
+        else:
+            out[prefix + k] = (tuple(v.shape), v.dtype)
+    return out
+
+
+def dump_errors(dir_a: Path, dir_b: Path, valid: int) -> dict:
+    """{tap name: [prefill, first decode step]}: the largest |a - b| over
+    max |b| of that name's first two dumps in two dump directories (the
+    prefill's over its first ``valid`` positions, which every row holds;
+    later steps may follow other tokens)."""
+    import numpy as np
+
+    def index(d):
+        out = {}
+        for f in sorted(os.listdir(d)):
+            out.setdefault(f.split("_", 1)[1][:-4], []).append(d / f)
+        return out
+    a, b = index(dir_a), index(dir_b)
+    errs = {}
+    for name in sorted(set(a) & set(b)):
+        errs[name] = []
+        for step, (fa, fb) in enumerate(zip(a[name][:2], b[name][:2])):
+            x, y = np.load(fa), np.load(fb)
+            if step == 0:
+                x, y = x[:, :valid], y[:, :valid]
+            if x.shape != y.shape:
+                errs[name].append("shape")
+                continue
+            err = np.abs(x - y).max() / max(float(np.abs(y).max()), 1e-30)
+            errs[name].append(float(f"{err:.3g}"))
+    return errs
+
+
+def phase_evals(torch, dev, results) -> None:
+    """4m: the evals, calibration and debugging utilities on llama2-7b (32
+    layers, full width), seed-0 dummy weights; the kernels at the shapes
+    scoring adds first (``eval_kernel_rows``), then, with every launch
+    counter set to 0, (a) the windowed Scorer (bf16, window 512, batch 4,
+    4089 tokens = 8 windows): 4088 predictions, a zeroed lm_head gives
+    ppl 32000, one window against ``forward_all_logits`` at B = 1, the
+    kernel route against ``kernels="torch"``, and ``evals.ppl``'s CLI in a
+    subprocess (INT4, 7B width at 4 layers) printing the in-process value;
+    (b) a tapped ``generate`` at B = 2, kernel route and plain route: the
+    JAX package's dump names for prefill and decode; (c) ``calibrate_act_sq``
+    over 512 tokens and ``quantize_params_calibrated`` INT4 in
+    ``quantize_params``' format, the quantizer's ``--calibrate random:512``
+    over an HF directory (7B width, 4 layers) bit for bit the in-process
+    run, its .npz served by ``create_engine``; (d) ``nan_guard`` over a
+    forward, clean and with a NaN planted in layer 5's ``wo`` and in its
+    ``ffn_norm``; printed only: (e) perplexities (dummy weights: no
+    quality) and (f) tokens scored a second, card busy a batch by kernel
+    group (``utils.profiling.trace``), calibration and clip-search seconds,
+    peak memory."""
+    import gc
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from llm_inference_engine_tpu_torch.config import (
+        EngineConfig, SamplingParams, get_config)
+    from llm_inference_engine_tpu_torch.evals import ppl
+    from llm_inference_engine_tpu_torch.models import llama
+    from llm_inference_engine_tpu_torch.models import weights as W
+    from llm_inference_engine_tpu_torch.models.registry import create_engine
+    from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
+    from llm_inference_engine_tpu_torch.runtime.engine import InferenceEngine
+    from llm_inference_engine_tpu_torch.tools import quantize
+    from llm_inference_engine_tpu_torch.utils import (
+        checks, debug, nan_guard, profiling)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    eval_kernel_rows(torch, dev, results)
+    cfg = get_config("llama2-7b")
+    cfg4 = cfg.replace(num_layers=EVAL_CLI_LAYERS)
+    W_, B_ = EVAL_WINDOW, EVAL_BATCH
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(3, cfg.vocab_size, EVAL_TOKENS).tolist()
+    params = W.init_dummy_params(cfg, seed=0, device=dev)
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="llm_evals_", dir=build))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = _zero_counters()
+
+    def ints(vals):
+        return torch.tensor(vals, dtype=torch.int32, device=dev)
+
+    def scored(p, eng=None, toks=tokens):
+        """(NLL, predictions, seconds) of a fresh Scorer over ``toks``."""
+        scorer = ppl.Scorer(cfg, p, eng, window=W_, batch=B_)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nll, n = scorer.score(toks)
+        return nll, n, time.perf_counter() - t0
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+    try:
+        # (a) scoring
+        nll, n, _ = scored(params)
+        nll2, n2, s_bf16 = scored(params)
+        say(f"  (a) bf16 Scorer (window {W_}, batch {B_}, {len(tokens)} "
+            f"tokens): {n} predicted, NLL {nll:.6f}, mean {nll / n:.6f}, "
+            f"ppl {math.exp(nll / n):.4f}; a second run {s_bf16:.3f} s, "
+            f"{n / s_bf16:.1f} tokens/s, NLL equal bit for bit: "
+            f"{nll2 == nll}")
+        if n != EVAL_TOKENS - 1 or n2 != n or not math.isfinite(nll):
+            raise AssertionError(f"4m (a): {n} predictions (want "
+                                 f"{EVAL_TOKENS - 1}), NLL {nll}")
+        zero_head = dict(params, lm_head=torch.zeros_like(params["lm_head"]))
+        p0 = ppl.perplexity(cfg, zero_head, tokens, window=W_, batch=B_)
+        del zero_head
+        say(f"  (a) zeroed lm_head: ppl {p0:.6f} (vocab {cfg.vocab_size}, "
+            f"rel {rel(p0, cfg.vocab_size):.2e})")
+        if rel(p0, cfg.vocab_size) > 1e-5:
+            raise AssertionError(f"4m (a): a zeroed lm_head gives ppl {p0}")
+        win = tokens[:W_]
+        one, n1, _ = scored(params, toks=win)
+        cache = kvc.new_kv_cache(cfg.num_layers, 1, cfg.num_kv_heads, W_,
+                                 cfg.head_dim, dtype=cfg.dtype, device=dev)
+        ids = ints([win])
+        logits, _ = llama.forward_all_logits(
+            cfg, EngineConfig(max_batch_size=1, max_seq_len=W_), params, ids,
+            cache, ints([0]), ints([W_]))
+        lp = torch.log_softmax(logits[0, :-1].double(), -1).gather(
+            -1, ids[0, 1:, None].long())
+        direct = -lp.sum().item()
+        del cache, logits, lp
+        say(f"  (a) one window (B = {B_}, 3 rows empty) {one:.6f} against "
+            f"forward_all_logits at B = 1 {direct:.6f}: rel "
+            f"{rel(one, direct):.2e} ({n1} predictions)")
+        if n1 != W_ - 1 or rel(one, direct) > 1e-3:
+            raise AssertionError("4m (a): one window disagrees with the "
+                                 "direct forward")
+        nll_t, n_t, s_t = scored(params, EngineConfig(kernels="torch"))
+        say(f"  (a) kernels='torch': mean NLL {nll_t / n_t:.6f} against "
+            f"{nll / n:.6f} (rel {rel(nll / n, nll_t / n_t):.2e}); "
+            f"{s_t:.3f} s")
+        if n_t != n or rel(nll / n, nll_t / n_t) > 2e-2:
+            raise AssertionError("4m (a): the kernel route's mean NLL is off "
+                                 "the plain route's")
+        cfg_json = tmp / f"llama2-7b-{EVAL_CLI_LAYERS}l.json"
+        cfg_json.write_text(json.dumps(dataclasses.asdict(cfg4)))
+        data = tmp / "tokens.npy"
+        np.save(data, np.asarray(tokens, np.int32))
+        p4 = W.init_dummy_params(cfg4, seed=0, device=dev)
+        want = ppl.perplexity(cfg4, W.quantize_params(p4, "int4", 128),
+                              tokens, window=W_, batch=B_)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "llm_inference_engine_tpu_torch.evals.ppl",
+             "--model", str(cfg_json), "--dummy-weights", "--data",
+             str(data), "--quant", "int4"], cwd=ROOT, capture_output=True,
+            text=True, timeout=600)
+        cli = (json.loads(proc.stdout.strip().splitlines()[-1])
+               if proc.returncode == 0 else {})
+        say(f"  (a) python -m llm_inference_engine_tpu_torch.evals.ppl "
+            f"--quant int4 (llama2-7b width, {EVAL_CLI_LAYERS} layers, "
+            f"dummy weights): exit {proc.returncode} in "
+            f"{time.perf_counter() - t0:.2f} s, {cli}; in process {want!r}")
+        if not cli or cli["n_tokens"] != len(tokens) or rel(cli["ppl"],
+                                                            want) > 1e-6:
+            raise AssertionError(f"4m (a): the ppl CLI disagrees:\n"
+                                 f"{proc.stdout[-2000:]}\n"
+                                 f"{proc.stderr[-4000:]}")
+
+        # (b) taps
+        prompts = [rng.integers(3, cfg.vocab_size, k).tolist()
+                   for k in EVAL_TAP_PROMPTS]
+        dumps = {}
+        for kern in ("auto", "torch"):
+            d = tmp / f"taps-{kern}"
+            debug.set_dump_dir(str(d))
+            try:
+                engine = InferenceEngine(cfg, EngineConfig(
+                    max_batch_size=2, max_seq_len=256, kernels=kern), params,
+                    device=dev)
+                t0 = time.perf_counter()
+                got = engine.generate(prompts, SamplingParams(
+                    greedy=True, max_new_tokens=EVAL_TAP_NEW),
+                    eos_token_id=None).token_ids
+                s_tap = time.perf_counter() - t0
+            finally:
+                debug.set_dump_dir(None)
+            del engine
+            files = sorted(os.listdir(d))
+            names = {f.split("_", 1)[1][:-4] for f in files}
+            norms = [np.load(d / f).shape for f in files
+                     if f.endswith("_L0_attn_norm.npy")]
+            say(f"  (b) tapped generate, kernels={kern!r}: ids {got}; "
+                f"{len(files)} dumps of {len(names)} names in {s_tap:.2f} s; "
+                f"L0_attn_norm shapes {norms}")
+            # the prefill's dumps (T > 1), then decode steps' (T = 1)
+            if (names != TAP_NAMES or norms[0][1] < 2
+                    or not any(shape[1] == 1 for shape in norms)):
+                raise AssertionError(f"4m (b): dump names or forwards: "
+                                     f"{sorted(names ^ TAP_NAMES)}, {norms}")
+            dumps[kern] = d
+        bad = debug.compare_dumps(str(dumps["auto"]), str(dumps["torch"]))
+        say(f"  (b) compare_dumps(kernels, torch) at 1e-3: "
+            f"{len(bad)} names differ, none missing: "
+            f"{not any(b.startswith('missing:') for b in bad)}")
+        say("  (b) largest |kernels - torch| / max |torch| per name "
+            "[prefill's first {} positions, first decode step]: ".format(
+                min(EVAL_TAP_PROMPTS))
+            + json.dumps(dump_errors(dumps["auto"], dumps["torch"],
+                                     min(EVAL_TAP_PROMPTS))))
+        if any(b.startswith("missing:") for b in bad):
+            raise AssertionError(f"4m (b): the two routes dump other names: "
+                                 f"{bad}")
+        for d in dumps.values():
+            shutil.rmtree(d)
+
+        # (c) calibration
+        calib = rng.integers(0, cfg.vocab_size, (1, EVAL_CALIB)).astype(
+            np.int32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        act_sq = W.calibrate_act_sq(cfg, params, [calib])
+        torch.cuda.synchronize()
+        s_cal = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        qcal = W.quantize_params_calibrated(params, act_sq, "int4", 128)
+        torch.cuda.synchronize()
+        s_clip = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rtn = W.quantize_params(params, "int4", 128)
+        torch.cuda.synchronize()
+        s_rtn = time.perf_counter() - t0
+        stats = {k: (tuple(v.shape), f"{v.min().item():.3e}",
+                     f"{v.max().item():.3e}") for k, v in act_sq.items()}
+        moved = [int((qcal["layers"][k].scale != rtn["layers"][k].scale).sum())
+                 / rtn["layers"][k].scale.numel()
+                 for k in ("wqkv", "wo", "w_gate_up", "w_down")]
+        say(f"  (c) calibrate_act_sq over {EVAL_CALIB} tokens: {s_cal:.3f} s "
+            f"(shape, min, max: {stats}); quantize_params_calibrated int4 "
+            f"(clip search): {s_clip:.3f} s, quantize_params: {s_rtn:.3f} s; "
+            f"share of scale blocks clipped (wqkv, wo, gate|up, down): "
+            f"{[round(x, 4) for x in moved]}")
+        if param_format(qcal) != param_format(rtn) or not all(
+                bool(torch.isfinite(v).all()) and v.min().item() >= 0
+                for v in act_sq.values()):
+            raise AssertionError("4m (c): the calibrated format differs from "
+                                 "quantize_params', or act_sq is not finite")
+        hf = tmp / "hf"
+        hf.mkdir()
+        write_hf_checkpoint(cfg4, p4, hf)
+        npz = tmp / "calibrated-int4.npz"
+        t0 = time.perf_counter()
+        if quantize.main(["--model", str(cfg_json), "--checkpoint", str(hf),
+                          "--mode", "int4", "--calibrate",
+                          f"random:{EVAL_CALIB}", "--out", str(npz)]) != 0:
+            raise AssertionError("4m (c): tools/quantize --calibrate failed")
+        s_tool = time.perf_counter() - t0
+        shutil.rmtree(hf)
+        toks4 = np.random.default_rng(0).integers(
+            0, cfg4.vocab_size, size=(1, EVAL_CALIB)).astype(np.int32)
+        want4 = W.quantize_params_calibrated(
+            p4, W.calibrate_act_sq(cfg4, p4, [toks4]), "int4", 128)
+        bad = unequal_leaves(torch, W.load_saved_params(str(npz), dev), want4)
+        say(f"  (c) tools/quantize --calibrate random:{EVAL_CALIB} over an HF "
+            f"directory ({EVAL_CLI_LAYERS} layers): {s_tool:.2f} s; leaves "
+            f"unlike the in-process run: {bad}")
+        if bad:
+            raise AssertionError(f"4m (c): the calibrated .npz differs in "
+                                 f"{bad}")
+        del want4, p4
+        before = {k: f.launches for k, f in counters.items()}
+        engine = create_engine(str(cfg_json), str(npz), EngineConfig(
+            quant_mode="int4", max_batch_size=2, max_seq_len=256), device=dev)
+        got = engine.generate(prompts, SamplingParams(
+            greedy=True, max_new_tokens=8), eos_token_id=None).token_ids
+        ran = {k: counters[k].launches - before[k]
+               for k in ("int4_matmul", "attention_decode")}
+        del engine
+        say(f"  (c) create_engine over the .npz: ids {got}; launches {ran}")
+        if min(ran.values()) <= 0 or any(len(r) != 8 for r in got):
+            raise AssertionError("4m (c): the calibrated engine did not run "
+                                 "E and D")
+
+        # (d) nan_guard
+        ids = ints([tokens[:32]])
+
+        def forward():
+            c = kvc.new_kv_cache(cfg.num_layers, 1, cfg.num_kv_heads, 64,
+                                 cfg.head_dim, dtype=cfg.dtype, device=dev)
+            return llama.forward_all_logits(
+                cfg, EngineConfig(max_batch_size=1, max_seq_len=64), params,
+                ids, c, ints([0]), ints([32]))[0]
+        t0 = time.perf_counter()
+        guarded = nan_guard(forward)()
+        s_guard = time.perf_counter() - t0
+        same = torch.equal(guarded, forward())
+        say(f"  (d) nan_guard over a clean forward (B 1, T 32): passed in "
+            f"{s_guard:.3f} s, logits equal to the unguarded forward's: "
+            f"{same}")
+        if not same:
+            raise AssertionError("4m (d): the guard changed the forward")
+        layers = params["layers"]
+        for leaf, want_op in (("wo", "aten.mm"),
+                              ("ffn_norm", "kernel add_residual_rmsnorm")):
+            w = layers[leaf][EVAL_NAN_LAYER].view(-1)
+            keep = w[3].clone()
+            w[3] = float("nan")
+            try:
+                nan_guard(forward)()
+                msg = None
+            except checks.NonFiniteError as e:
+                msg = str(e)
+            finally:
+                w[3] = keep
+            say(f"  (d) a NaN planted in layer {EVAL_NAN_LAYER}'s {leaf}: "
+                f"{msg}")
+            if msg is None or f"NaN generated by {want_op}" not in msg:
+                raise AssertionError(f"4m (d): the guard did not name "
+                                     f"{want_op}: {msg}")
+
+        # (e) perplexities (printed): dummy weights say nothing of quality
+        t0 = time.perf_counter()
+        report = ppl.quant_ppl_report(cfg, params, tokens, group_size=128,
+                                      window=W_, batch=B_)
+        s_rep = time.perf_counter() - t0
+        nll_c, _, s_int4c = scored(qcal)
+        nll_r, _, s_int4 = scored(rtn)
+        nll_k, _, s_kv8 = scored(params, EngineConfig(
+            kv_cache_dtype_name="int8"))
+        say(f"  (e) quant_ppl_report (group 128; {s_rep:.2f} s with two "
+            f"quantizations): " + json.dumps(
+                {k: float(f"{v:.6g}") for k, v in report.items()}))
+        say(f"  (e) INT4 calibrated ppl {math.exp(nll_c / n):.6g} beside RTN "
+            f"{math.exp(nll_r / n):.6g}; bf16 with an int8 KV cache "
+            f"{math.exp(nll_k / n):.6g} beside bf16 {math.exp(nll / n):.6g}")
+
+        # (f) cost
+        say(f"  (f) tokens scored a second: bf16 {n / s_bf16:.1f}, INT4 "
+            f"{n / s_int4:.1f} (calibrated {n / s_int4c:.1f}), bf16 + int8 "
+            f"KV {n / s_kv8:.1f}, kernels='torch' {n / s_t:.1f}")
+        batch = tokens[:B_ * (W_ - 1) + 1]          # one batch of 4 windows
+        for label, p, eng in (("bf16", params, None), ("INT4", rtn, None),
+                              ("bf16 + int8 KV", params, EngineConfig(
+                                  kv_cache_dtype_name="int8"))):
+            scorer = ppl.Scorer(cfg, p, eng, window=W_, batch=B_)
+            scorer.score(batch)
+            with profiling.trace(str(tmp / "trace")) as prof:
+                scorer.score(batch)
+            prof_ = profile_of(prof, 1)
+            say(f"  (f) {label}, one batch ({B_} x {W_}): card busy "
+                f"{prof_.busy:.3f} ms; by group: {_groups(prof_.per_kernel)}")
+        del rtn, qcal
+        say(f"  (f) calibration {s_cal:.3f} s, clip search {s_clip:.3f} s; "
+            f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        launches = {k: f.launches for k, f in counters.items()}
+        say(f"  4m launches: {_launch_counts(counters)}")
+        must, must_not = EVAL_PATH
+        missing = [k for k in must if launches[k] <= 0]
+        extra = [k for k in must_not if launches[k]]
+        if missing or extra:
+            raise AssertionError(f"4m: kernels never launched {missing}; "
+                                 f"kernels that must not launch {extra}")
+    finally:
+        debug.set_dump_dir(None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4173,6 +4677,9 @@ def main() -> int:
           "target, tinyllama-1.1b INT4 draft, B=8, k=4; the server over "
           "SpeculativeScheduler; beam_search", phase_speculative, torch, dev,
           results)
+    phase("4m", "evals, calibration and the debugging utilities: llama2-7b "
+          "(32 layers), the windowed Scorer, the taps, calibrate_act_sq and "
+          "--calibrate, nan_guard", phase_evals, torch, dev, results)
     say("  decode per step, eager bodies against graph replays (wall and "
         "card busy ms): " + json.dumps(DECODE))
 

@@ -24,8 +24,17 @@ quantized weights. The KV cache is updated in place, its lengths
 included: a captured decode program (``runtime/decode_graph.py``)
 replays fixed addresses.
 
-Not ported: the TPU tile-padded cache adapter, context parallelism,
-tensor-parallel partial sums and debug taps (ROADMAP.md, queue 1).
+Intermediate dumping (``utils/debug.py``) fires at the JAX package's tap
+points, with its names and shapes: ``embedding``, per layer
+``attn_norm``, ``qkv_proj``, ``q_rope`` [B, T, H, D], ``k_rope``
+[B, T, K, D], ``attn_ctx``, ``attn_out``, ``ffn_in``, ``ffn_act`` and
+``layer_out``, then ``final_norm``. The layer's output is never stored
+on the main path (the next norm adds it), so ``layer_out`` is computed
+for the dump only, by the plain ``add_residual``, whose bits equal kernel
+A's stored sum. With the tap disabled the forward calls none of it.
+
+Not ported: the TPU tile-padded cache adapter, context parallelism and
+tensor-parallel partial sums (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -36,7 +45,8 @@ import torch
 
 from llm_inference_engine_tpu_torch.config import EngineConfig, ModelConfig
 from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
-from llm_inference_engine_tpu_torch.ops.activations import silu_and_mul
+from llm_inference_engine_tpu_torch.ops.activations import (
+    add_residual, silu_and_mul)
 from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
 from llm_inference_engine_tpu_torch.ops.attention import (
     attention, attention_decode, attention_decode_fused, can_fuse_decode)
@@ -46,6 +56,7 @@ from llm_inference_engine_tpu_torch.ops.rmsnorm import (
     add_residual_rmsnorm, rmsnorm)
 from llm_inference_engine_tpu_torch.ops.rope import (
     rope_cos_sin, rotate, split_qkv)
+from llm_inference_engine_tpu_torch.utils import debug as _debug
 
 __all__ = ["decoder_forward", "forward_all_logits", "forward_hidden",
            "lm_head_logits", "run_layers"]
@@ -60,6 +71,10 @@ def _layer_step(cfg: ModelConfig, eng: EngineConfig, h_norm: torch.Tensor,
     residual): the layer's output is their sum, which the next norm adds."""
     kernels = eng.kernels
     B, T, _ = x.shape
+    # the dump hook (utils/debug.py), None unless it keeps this layer
+    tap = _debug.tap if _debug.tap.wants(layer_idx) else None
+    if tap:
+        tap("attn_norm", h_norm, layer_idx)
 
     qkv = linear(h_norm, layer["wqkv"], kernels=kernels)
     if "bqkv" in layer:
@@ -68,6 +83,10 @@ def _layer_step(cfg: ModelConfig, eng: EngineConfig, h_norm: torch.Tensor,
                                 cfg.head_dim)
     q = rotate(q, cos, sin)
     k_new = rotate(k_new, cos, sin)
+    if tap:
+        tap("qkv_proj", qkv, layer_idx)
+        tap("q_rope", q, layer_idx)
+        tap("k_rope", k_new, layer_idx)
     v_new = v_new.contiguous()
     sm_scale = 1.0 / math.sqrt(cfg.head_dim)
 
@@ -96,14 +115,20 @@ def _layer_step(cfg: ModelConfig, eng: EngineConfig, h_norm: torch.Tensor,
                              sm_scale=sm_scale, kernels=kernels,
                              layer=layer_idx, window=cfg.sliding_window,
                              **scales)
-    attn_out = linear(attn_out.reshape(B, T, cfg.q_size), layer["wo"],
-                      kernels=kernels)
+    attn_ctx = attn_out.reshape(B, T, cfg.q_size)
+    attn_out = linear(attn_ctx, layer["wo"], kernels=kernels)
 
     ffn_in, resid = add_residual_rmsnorm(
         attn_out, x, layer["ffn_norm"], cfg.rms_norm_eps, kernels=kernels)
     gate_up = linear(ffn_in, layer["w_gate_up"], kernels=kernels)
     act = silu_and_mul(gate_up, kernels=kernels)
     down = linear(act, layer["w_down"], kernels=kernels)
+    if tap:
+        tap("attn_ctx", attn_ctx, layer_idx)
+        tap("attn_out", attn_out, layer_idx)
+        tap("ffn_in", ffn_in, layer_idx)
+        tap("ffn_act", act, layer_idx)
+        tap("layer_out", add_residual(down, resid), layer_idx)
     return down, resid
 
 
@@ -150,12 +175,16 @@ def decoder_forward(cfg: ModelConfig, eng: EngineConfig, params: dict,
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]
 
     x = embedding_lookup(params["embed"], token_ids).to(cfg.dtype)
+    if _debug.tap.enabled:
+        _debug.tap("embedding", x)
     down, resid = run_layers(cfg, eng, params["layers"], x, cache, cos, sin,
                              q_start, kv_len)
     cache.lengths.copy_(kv_len)
     # the last layer's residual add, fused into the final norm
     x, _ = add_residual_rmsnorm(down, resid, params["final_norm"],
                                 cfg.rms_norm_eps, kernels=eng.kernels)
+    if _debug.tap.enabled:
+        _debug.tap("final_norm", x)
     return x, cache
 
 

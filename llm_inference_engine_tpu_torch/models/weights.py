@@ -21,8 +21,14 @@ the model dtype on the target device tensor by tensor, through one reused
 staging buffer (pinned when the target is the card), and transpose and
 fuse on the device.
 
-Not ported yet: calibrated quantization (ROADMAP.md, queue 1, 'Evals,
-tools and utils').
+Calibration-aware quantization (``calibrate_act_sq`` and
+``quantize_params_calibrated``) is the JAX package's AWQ-lite pass: the
+activation second moments of every matmul's input, gathered through the
+forward's debug tap (``utils/debug.py``), weight the per-block clip
+search of ``ops.quant.search_clip``. The JAX package dumps the tapped
+tensors to ``.npy`` files and sums them on the host; here the tap hands
+them to a sink that sums them on the device, in f64, as the files' sums
+are taken.
 """
 
 from __future__ import annotations
@@ -36,10 +42,11 @@ import torch
 
 from llm_inference_engine_tpu_torch.config import ModelConfig
 from llm_inference_engine_tpu_torch.ops.quant import (
-    QuantizedTensor, quantize_tensor)
+    QuantizedTensor, quantize_tensor, search_clip)
 
 __all__ = ["init_dummy_params", "init_dummy_quantized_params",
-           "quantize_params", "quantize_params_calibrated", "fuse_qkv",
+           "quantize_params", "calibrate_act_sq",
+           "quantize_params_calibrated", "fuse_qkv",
            "fuse_gate_up",
            "params_from_numpy", "save_params", "load_saved_params",
            "load_hf_safetensors", "load_reference_bin", "param_count",
@@ -169,8 +176,21 @@ def quantize_params(params: Params, mode: str = "int8",
                     quantize_lm_head: bool = True) -> Params:
     """Quantize every matmul weight layer by layer (scales stacked on the
     same leading axis); the gate|up stack becomes [L, 2, in', I]."""
+    return _quantize(params, mode, group_size, quantize_lm_head, None)
+
+
+def _quantize(params: Params, mode: str, group_size: int,
+              quantize_lm_head: bool, clip_of: Optional[Callable]) -> Params:
+    """quantize_params, each [in, out] weight ``w`` of matmul ``name``
+    (layer ``l``; the lm_head: None) quantized with the clip factors
+    ``clip_of(name, l, w)`` (None: round to nearest)."""
     if mode in ("none", None, ""):
         return params
+
+    def quant(name, l, w):
+        clip = clip_of(name, l, w) if clip_of is not None else None
+        return quantize_tensor(w, mode, group_size, clip=clip)
+
     out = {"embed": params["embed"], "final_norm": params["final_norm"]}
     layers = dict(params["layers"])
     for name in _QUANT_KEYS:
@@ -180,7 +200,7 @@ def quantize_params(params: Params, mode: str = "int8",
             w = w.reshape(w.shape[0], w.shape[1], -1)
         qs, ss = [], []
         for l in range(w.shape[0]):
-            t = quantize_tensor(w[l], mode, group_size)
+            t = quant(name, l, w[l])
             q, s = t.q, t.scale
             if structured:        # [in', 2I] -> [2, in', I]
                 q = q.reshape(q.shape[0], 2, -1).transpose(0, 1)
@@ -191,19 +211,92 @@ def quantize_params(params: Params, mode: str = "int8",
             q=torch.stack(qs), scale=torch.stack(ss),
             mode=mode, group_size=group_size)
     out["layers"] = layers
-    out["lm_head"] = (quantize_tensor(params["lm_head"], mode, group_size)
+    out["lm_head"] = (quant("lm_head", None, params["lm_head"])
                       if quantize_lm_head else params["lm_head"])
     return out
+
+
+#: tap name -> the matmul whose INPUT it is (models/llama._layer_step)
+_CAL_TAPS = {"attn_norm": "wqkv", "attn_ctx": "wo",
+             "ffn_in": "w_gate_up", "ffn_act": "w_down"}
+
+
+def calibrate_act_sq(config: ModelConfig, params: Params, token_batches,
+                     engine_config=None) -> dict:
+    """Per-input-dim activation second moments for calibration-aware
+    quantization (ops.quant.search_clip).
+
+    Runs the real forward (models/llama.py, on the device of
+    ``params``) teacher-forced over ``token_batches`` (a list of [B, T]
+    int arrays or tensors), each batch into a fresh cache, with the debug
+    tap capturing every matmul's input, and returns ``{"wqkv" | "wo" |
+    "w_gate_up" | "w_down": [L, in] f32}``: E[x_i^2] per layer per input
+    dimension, summed in f64 over every row of every batch."""
+    from llm_inference_engine_tpu_torch.config import EngineConfig
+    from llm_inference_engine_tpu_torch.models import llama
+    from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
+    from llm_inference_engine_tpu_torch.utils import debug
+
+    L = config.num_layers
+    device = params["embed"].device
+    batches = [torch.as_tensor(np.asarray(t), dtype=torch.int32).to(device)
+               for t in token_batches]
+    max_t = max(t.shape[1] for t in batches)
+    max_b = max(t.shape[0] for t in batches)
+    eng = engine_config or EngineConfig(max_batch_size=max_b,
+                                        max_seq_len=max(2 * max_t, 64))
+    dims = {"wqkv": config.hidden_size, "wo": config.q_size,
+            "w_gate_up": config.hidden_size,
+            "w_down": config.intermediate_size}
+    sums = {m: torch.zeros((L, d), dtype=torch.float64, device=device)
+            for m, d in dims.items()}
+    rows = {m: [0] * L for m in dims}
+
+    def sink(name, value, layer):
+        mm = _CAL_TAPS.get(name)
+        if mm is None or layer is None:
+            return
+        x = value.reshape(-1, value.shape[-1]).to(torch.float64)
+        sums[mm][layer] += x.square().sum(dim=0)
+        rows[mm][layer] += x.shape[0]
+
+    prev = debug.tap
+    debug.tap = debug._SinkTap(sink, L)
+    try:
+        for tb in batches:
+            B, T = tb.shape
+            cache = kvc.new_kv_cache(L, B, config.num_kv_heads,
+                                     eng.max_seq_len, config.head_dim,
+                                     dtype=config.dtype, device=device)
+            q0 = torch.zeros((B,), dtype=torch.int32, device=device)
+            kv = torch.full((B,), T, dtype=torch.int32, device=device)
+            llama.decoder_forward(config, eng, params, tb, cache, q0, kv)
+    finally:
+        debug.tap = prev
+    return {m: (s / torch.tensor(rows[m], dtype=torch.float64,
+                                 device=device).clamp_min(1.0)[:, None]
+                ).to(torch.float32)
+            for m, s in sums.items()}
 
 
 def quantize_params_calibrated(params: Params, act_sq: dict,
                                mode: str = "int8", group_size: int = 128,
                                quantize_lm_head: bool = True) -> Params:
-    """Calibration-aware quantization (the JAX package's AWQ-lite pass over
-    activation statistics): not ported yet."""
-    raise NotImplementedError(
-        "quantize_params_calibrated is not ported yet (ROADMAP.md, queue 1, "
-        "'Evals, tools and utils'); quantize_params and search_clip are")
+    """quantize_params with calibration-aware clip search (AWQ-lite,
+    ops.quant.search_clip): per-scale-block clip factors minimize the
+    activation-weighted weight error using ``act_sq`` from
+    :func:`calibrate_act_sq`. The output format is identical to
+    quantize_params: only q and the scales differ, so every kernel and
+    loader works unchanged. The lm_head has no tap point for its input
+    (the final norm's output): plain MSE clip search."""
+
+    def clip_of(name, l, w):
+        d = act_sq.get(name) if l is not None else None
+        if d is not None:
+            d = torch.as_tensor(d[l]).to(w.device)
+        return search_clip(w, mode, group_size, act_sq=d)
+
+    return _quantize(params, mode, group_size, quantize_lm_head, clip_of)
 
 
 def _tensor_from_numpy(a, device) -> torch.Tensor:

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from llm_inference_engine_tpu_torch.utils import use_kernel
+from llm_inference_engine_tpu_torch.utils.checks import kernel_output
 
 __all__ = ["silu_and_mul", "silu_and_mul_torch", "add_residual"]
 
@@ -50,6 +51,7 @@ def silu_and_mul(gate_up: torch.Tensor, *, kernels: str = "auto") -> torch.Tenso
         _native.stream_of(gate_up))
     _native.check(status, "silu_and_mul")
     silu_and_mul.launches += 1
+    kernel_output("silu_and_mul", out)
     return out
 
 

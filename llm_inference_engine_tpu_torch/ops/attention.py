@@ -63,6 +63,7 @@ from llm_inference_engine_tpu_torch.ops.kv_cache import (
 from llm_inference_engine_tpu_torch.ops.paged_kv import (
     PagedKVCache, gather_pages)
 from llm_inference_engine_tpu_torch.utils import use_kernel
+from llm_inference_engine_tpu_torch.utils.checks import kernel_output
 
 __all__ = ["attention", "attention_torch", "attention_paged_torch",
            "attention_int8", "attention_prefill_paged",
@@ -232,6 +233,7 @@ def attention(q, k_cache, v_cache, q_start, kv_len, *,
         _scale_of(sm_scale, D), int(window or 0), _native.stream_of(q))
     _native.check(status, "attention_prefill")
     attention.launches += 1
+    kernel_output("attention_prefill", out)
     return out
 
 
@@ -264,6 +266,7 @@ def attention_int8(q, k_cache, v_cache, q_start, kv_len, *, k_scale,
         _scale_of(sm_scale, D), int(window or 0), _native.stream_of(q))
     _native.check(status, "attention_prefill_int8")
     attention_int8.launches += 1
+    kernel_output("attention_prefill_int8", out)
     return out
 
 
@@ -315,6 +318,7 @@ def attention_prefill_paged(q, k_pool, v_pool, q_start, kv_len, layer: int,
     out = _launch_paged("attention_prefill_paged", q, k_pool, v_pool,
                         q_start, kv_len, layer, table, sm_scale, window)
     attention_prefill_paged.launches += 1
+    kernel_output("attention_prefill_paged", out)
     return out
 
 
@@ -337,6 +341,7 @@ def attention_prefill_paged_int8(q, k_pool, v_pool, q_start, kv_len,
                         q_start, kv_len, layer, table, sm_scale, window,
                         k_scale, v_scale)
     attention_prefill_paged_int8.launches += 1
+    kernel_output("attention_prefill_paged_int8", out)
     return out
 
 
@@ -373,6 +378,7 @@ def attention_decode(q, k_pool, v_pool, q_start, kv_len, layer: int, *,
     out = _launch_paged("attention_decode_paged", q, k_pool, v_pool,
                         q_start, kv_len, layer, table, sm_scale, window)
     attention_decode.launches += 1
+    kernel_output("attention_decode_paged", out)
     return out
 
 
@@ -396,6 +402,7 @@ def attention_decode_int8(q, k_pool, v_pool, q_start, kv_len, layer: int,
                         q_start, kv_len, layer, table, sm_scale, window,
                         k_scale, v_scale)
     attention_decode_int8.launches += 1
+    kernel_output("attention_decode_paged_int8", out)
     return out
 
 
@@ -518,6 +525,8 @@ def attention_decode_fused(q, k_new, v_new, k_cache, v_cache, q_start,
         _scale_of(sm_scale, D), int(window or 0), _native.stream_of(q))
     _native.check(status, "attention_decode")
     attention_decode_fused.launches += 1
+    kernel_output("attention_decode", out)
+    kernel_output("attention_decode", k_cache, v_cache, layer=layer)
     return out, k_cache, v_cache
 
 
@@ -555,6 +564,8 @@ def attention_decode_fused_int8(q, k_new, v_new, k_cache, v_cache, q_start,
         _native.stream_of(q))
     _native.check(status, "attention_decode_int8")
     attention_decode_fused_int8.launches += 1
+    kernel_output("attention_decode_int8", out)
+    kernel_output("attention_decode_int8", k_scale, v_scale, layer=layer)
     return out, k_cache, v_cache
 
 

@@ -42,6 +42,7 @@ import torch
 
 from llm_inference_engine_tpu_torch.ops._native import HEAD_DIMS
 from llm_inference_engine_tpu_torch.utils import cdiv, use_kernel
+from llm_inference_engine_tpu_torch.utils.checks import kernel_output
 
 __all__ = ["KVCache", "new_kv_cache", "update_cache_at_layer",
            "update_cache_at_layer_torch", "kv_write_quant",
@@ -278,6 +279,7 @@ def update_cache_at_layer(cache: KVCache, layer: int, new_k: torch.Tensor,
         _native.stream_of(new_k))
     _native.check(status, "kv_write")
     update_cache_at_layer.launches += 1
+    kernel_output("kv_write", cache.k, cache.v, layer=layer)
     return cache
 
 
@@ -337,6 +339,8 @@ def kv_write_quant(cache: KVCache, layer: int, new_k: torch.Tensor,
         _native.stream_of(new_k))
     _native.check(status, "kv_write_quant")
     kv_write_quant.launches += 1
+    kernel_output("kv_write_quant", cache.k_scale, cache.v_scale,
+                  layer=layer)
     return cache
 
 

@@ -42,6 +42,7 @@ import torch
 from llm_inference_engine_tpu_torch.ops._native import HEAD_DIMS
 from llm_inference_engine_tpu_torch.ops.kv_cache import quantize_kv_snapped
 from llm_inference_engine_tpu_torch.utils import use_kernel
+from llm_inference_engine_tpu_torch.utils.checks import kernel_output
 
 __all__ = ["PagedKVCache", "PageAllocator", "new_paged_kv_cache",
            "paged_update_at_layer", "paged_update_at_layer_torch",
@@ -306,6 +307,7 @@ def paged_update_at_layer(cache: PagedKVCache, layer: int,
         page, max_pages, row_bytes, _native.stream_of(new_k))
     _native.check(status, "paged_kv_write")
     paged_update_at_layer.launches += 1
+    kernel_output("paged_kv_write", cache.k, cache.v, layer=layer)
     return cache
 
 
@@ -335,6 +337,8 @@ def paged_kv_write_quant(cache: PagedKVCache, layer: int,
         page, max_pages, D, _native.stream_of(new_k))
     _native.check(status, "paged_kv_write_quant")
     paged_kv_write_quant.launches += 1
+    kernel_output("paged_kv_write_int8", cache.k_scale, cache.v_scale,
+                  layer=layer)
     return cache
 
 

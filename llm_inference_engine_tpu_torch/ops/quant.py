@@ -44,6 +44,7 @@ from typing import Optional
 import torch
 
 from llm_inference_engine_tpu_torch.utils import cdiv, use_kernel
+from llm_inference_engine_tpu_torch.utils.checks import kernel_output
 
 __all__ = [
     "QuantizedTensor",
@@ -430,6 +431,7 @@ def int4_matmul(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     out = _launch_fused("int4_matmul", x2, q, scale, out_dtype, True,
                         group_size)
     int4_matmul.launches += 1
+    kernel_output("int4_matmul", out)
     return out
 
 
@@ -446,6 +448,7 @@ def int8_matmul(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
         return int8_matmul_torch(x2, q, scale, out_dtype)
     out = _launch_fused("int8_matmul", x2, q, scale, out_dtype, False, 0)
     int8_matmul.launches += 1
+    kernel_output("int8_matmul", out)
     return out
 
 
@@ -485,6 +488,7 @@ def dequant_int4(q: torch.Tensor, scale: torch.Tensor, group_size: int, *,
     for h, (qh, sh) in enumerate(pairs):
         _triton_kernels.dequant_int4(qh, sh, out[:, h * n:], group_size)
         dequant_int4.launches += 1
+    kernel_output("dequant_int4", out)
     return out
 
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from llm_inference_engine_tpu_torch.utils import use_kernel
+from llm_inference_engine_tpu_torch.utils.checks import kernel_output
 
 __all__ = ["rmsnorm", "rmsnorm_torch", "add_residual_rmsnorm",
            "add_residual_rmsnorm_torch"]
@@ -88,6 +89,7 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5, *,
     _check(x, weight)
     y, _ = _launch(x, None, weight, eps)
     rmsnorm.launches += 1
+    kernel_output("rmsnorm", y)
     return y
 
 
@@ -103,6 +105,7 @@ def add_residual_rmsnorm(x: torch.Tensor, residual: torch.Tensor,
     _check(x, weight, residual)
     y, h = _launch(x, residual, weight, eps)
     add_residual_rmsnorm.launches += 1
+    kernel_output("add_residual_rmsnorm", y, h)
     return y, h
 
 

@@ -30,7 +30,10 @@ What a replay cannot do by itself is handled here:
 
 On the CPU the engine runs the bodies eagerly (graphs need a card);
 :func:`run_eagerly` does the same on the card, as the reference the
-replays are held against.
+replays are held against. So does :func:`run` while the debug tap
+(``utils/debug.py``) or a ``nan_guard`` (``utils/checks.py``) is active:
+both read each value on the host as it is made, and a replay runs no
+Python.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from llm_inference_engine_tpu_torch.ops import counted_wrappers
+from llm_inference_engine_tpu_torch.utils import checks, debug
 
 __all__ = ["FLAG_EVERY", "FlagPoll", "HostReadError", "NoHostReads",
            "Program", "capture", "run", "run_eagerly"]
@@ -160,13 +164,13 @@ def capture(name: str, body: Callable[[], None],
 def run(owner, name: str, keep=(), quiet: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None) -> None:
     """Run ``owner``'s body ``_<name>_body`` once: eagerly where
-    ``owner._programs`` is None (the CPU, :func:`run_eagerly`), else
-    replay its program, captured at the first run. The capture's warm-up
+    ``owner._programs`` is None (the CPU, :func:`run_eagerly`) or a tap or
+    guard watches the values, else replay its program, captured at the first run. The capture's warm-up
     runs with ``quiet`` (the body's "row active" input) zeroed, so that it
     writes no K/V; then the ``keep`` tensors (the state the warm-up would
     move, ``quiet`` among them or inside one) are put back."""
     body = getattr(owner, f"_{name}_body")
-    if owner._programs is None:
+    if owner._programs is None or debug.tap.enabled or checks.guarding():
         body()
         return
     program = owner._programs.get(name)

@@ -70,6 +70,7 @@ from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
 from llm_inference_engine_tpu_torch.ops.sampling import (
     apply_penalties, greedy_sample, sample_tokens, token_logprobs)
 from llm_inference_engine_tpu_torch.runtime import decode_graph
+from llm_inference_engine_tpu_torch.utils import debug
 
 __all__ = ["InferenceEngine", "GenerationResult", "check_kernel_dtypes"]
 
@@ -718,9 +719,12 @@ class InferenceEngine:
         self._roll_i.zero_()
         # a row runs at most S - 1 steps before it reaches capacity
         n = min(steps, S)
+        # a tap dumps every step: stop where the JAX while-loop stops
+        tapped = debug.tap.enabled
         for done in range(1, n + 1):
             self._run("sampled")
-            if not self._flags.running(done):
+            if not (bool(self._roll_flag.any()) if tapped
+                    else self._flags.running(done)):
                 n = done
                 break
         host = torch.cat([self._roll_tok[:n].flatten(),

@@ -9,9 +9,8 @@ Port of ``llm_inference_engine_tpu.tools.quantize``. The output is the
 (``create_engine("llama2-7b", "llama2-7b-int4.npz")``, or ``--checkpoint``
 on the chat CLI and the server): no bf16 staging and no re-quantization
 at engine start. The checkpoint loads and quantizes on ``--device``
-(default ``cuda``; ``cpu`` works for any size that fits the host).
-Calibration-aware quantization (``--calibrate``) waits for ROADMAP.md,
-queue 1, "Evals, tools and utils".
+(default ``cuda``; ``cpu`` works for any size that fits the host), and
+so does the calibration forward of ``--calibrate``.
 """
 
 from __future__ import annotations
@@ -36,13 +35,16 @@ def main(argv=None) -> int:
                     help="torch device of the load and quantization pass "
                          "(default cuda)")
     ap.add_argument("--calibrate", default=None, metavar="TOKENS",
-                    help="calibration-aware clip search: not ported yet")
+                    help="calibration-aware clip search (AWQ-lite, "
+                         "ops.quant.search_clip): path to an int32 .npy "
+                         "of token ids — [B, T] or flat (reshaped to "
+                         "[1, -1]) — used to weight the per-block clip "
+                         "objective by real activation statistics; "
+                         "'random:N' draws N random tokens (weight-only "
+                         "MSE would be the uniform-weights special case)")
     args = ap.parse_args(argv)
-    if args.calibrate:
-        raise NotImplementedError(
-            "--calibrate (calibrate_act_sq, quantize_params_calibrated) is "
-            "not ported yet (ROADMAP.md, queue 1, 'Evals, tools and utils')")
 
+    import numpy as np
     import torch
 
     from llm_inference_engine_tpu_torch.models import weights as W
@@ -57,9 +59,25 @@ def main(argv=None) -> int:
     print(f"loading {args.checkpoint} onto {device} ...", flush=True)
     params = load_checkpoint_dir(cfg, args.checkpoint, device)
     if args.mode != "none":
-        print(f"quantizing to {args.mode} (group {args.group_size}) ...",
-              flush=True)
-        params = W.quantize_params(params, args.mode, args.group_size)
+        if args.calibrate:
+            if args.calibrate.startswith("random:"):
+                n = int(args.calibrate.split(":", 1)[1])
+                rng = np.random.default_rng(0)
+                toks = rng.integers(0, cfg.vocab_size, size=(1, n))
+            else:
+                toks = np.load(args.calibrate)
+                if toks.ndim == 1:
+                    toks = toks[None, :]
+            print(f"calibrating on {toks.shape} tokens ...", flush=True)
+            act_sq = W.calibrate_act_sq(cfg, params, [toks.astype(np.int32)])
+            print(f"quantizing to {args.mode} (group {args.group_size}, "
+                  f"clip search) ...", flush=True)
+            params = W.quantize_params_calibrated(params, act_sq, args.mode,
+                                                  args.group_size)
+        else:
+            print(f"quantizing to {args.mode} (group {args.group_size}) ...",
+                  flush=True)
+            params = W.quantize_params(params, args.mode, args.group_size)
     W.save_params(params, args.out)
     sz = os.path.getsize(args.out) / 1e9
     print(f"wrote {args.out} ({sz:.2f} GB)")

@@ -401,11 +401,24 @@ def test_quantize_script_runs_the_ports_tool():
     assert "--device" in proc.stdout and "llm-torch-quantize" in proc.stdout
 
 
-def test_quantize_tool_refuses_what_is_not_ported(tmp_path):
-    args = ["--model", "debug", "--checkpoint", str(tmp_path), "--out",
-            str(tmp_path / "x.npz")]
-    with pytest.raises(NotImplementedError, match="Evals, tools and utils"):
-        t_quantize.main(args + ["--calibrate", "random:64"])
+def test_quantize_tool_refuses_what_is_not_ported(rng, tmp_path):
+    """``--calibrate random:64`` writes an .npz that the JAX package's
+    ``load_saved_params`` reads leaf for leaf as the port's in-process
+    ``quantize_params_calibrated`` over the same 64 tokens; without a card
+    the default ``--device cuda`` is refused."""
+    cfg_j = j_get_config("debug")
+    cfg = _port_cfg(cfg_j)
+    ckpt = _write_hf(tmp_path / "hf", _hf_tensors(cfg_j, rng, torch.bfloat16))
+    out = str(tmp_path / "cal.npz")
+    args = ["--model", "debug", "--checkpoint", str(ckpt), "--mode", "int4",
+            "--group-size", "64", "--out", out]
+    assert t_quantize.main(args + ["--calibrate", "random:64",
+                                   "--device", "cpu"]) == 0
+    params = weights.load_hf_safetensors(cfg, str(ckpt))
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(1, 64))
+    act_sq = weights.calibrate_act_sq(cfg, params, [toks.astype(np.int32)])
+    want = weights.quantize_params_calibrated(params, act_sq, "int4", 64)
+    _cmp_params(want, j_weights.load_saved_params(out, device=False))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             t_quantize.main(args)

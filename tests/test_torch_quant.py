@@ -397,8 +397,15 @@ def test_npz_checkpoint_crosses_both_ways(rng, tmp_path, mode):
 
 
 def test_unported_quantization_paths_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        weights.quantize_params_calibrated({}, {}, "int4")
+    """quantize_params_calibrated with no activation statistics runs the
+    plain MSE clip search on every weight, bit for bit as the JAX package
+    does; an empty safetensors shard is refused as a malformed file."""
+    cfg_j = j_get_config("debug")
+    dense = j_weights.init_dummy_params(cfg_j, seed=4)
+    _cmp_trees(weights.quantize_params_calibrated(
+                   weights.params_from_numpy(jax.tree.map(np.asarray, dense)),
+                   {}, "int4", 64),
+               j_weights.quantize_params_calibrated(dense, {}, "int4", 64))
     # safetensors directories load since the checkpoint loaders were
     # ported; an empty shard is refused as a malformed file
     (tmp_path / "model.safetensors").write_bytes(b"")
