@@ -82,6 +82,21 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    j. llama2-7b INT8 with an int8 KV cache (slot, B=8): as 4g through F,
       whose logits do move with K/V: every planted fault must leave the
       logit limits;
+   n. tensor and data parallelism on one card (after 4j, on 4b's
+      weights): meshes of two ranks on cuda:0, every launch counter set
+      to 0 just before each path and read just after: tp = 2 (prefill
+      logits against 4b's, first tokens under the tie rule, 16 greedy
+      tokens, 16 replayed steps equal to 16 eager ones, the step's wall,
+      busy and idle with the cross-rank sums split out of the glue, A's
+      and B's launches per rank); dp = 2 (ids identical to 4b's); tp = 2
+      over the int8 slot cache (against 4g); tp = 2 paged (pages of 64)
+      through the scheduler, 4 requests whose ids equal the slot tp = 2
+      engine's; then E/F at m 8 and 512 on the tp = 2 local shapes (wqkv
+      n 6144, wo k 2048, gate|up 2 x 5504, down k 5504, the lm_head's
+      16000-row vocab shard), B at [8, 2 x 5504], C, I, D2 and D at 16
+      heads, every input with NaN past its end and every cache row past
+      kv_len NaN, against the plain versions, timed with bound and
+      library call;
    h. paged == slot with the int8 cache: as 4d, bit-identical logits and
       ids, through H's and D's int8 paged modes only;
    i. the server over a paged INT4 engine with an int8 pool of 4e's pool
@@ -166,11 +181,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    against their plain versions at 7B widths, in both scale numerics, the
    decode modes held per row; then at head_dim 80, 96
    and 256, at small shapes, D's four decode modes, D2's four prefill
-   modes and I's two writes; 4j runs after 4g, before 4d); every
-   profiled step and prefill prints its device time by kernel group
+   modes and I's two writes; 4j runs after 4g, 4n after 4j, before
+   4d); every profiled step and prefill prints its device time by kernel group
    (KERNEL_GROUPS, the writes and kernels A and B among them; a decode
-   step's torch glue split into RoPE, casts, sampling and other by the
-   ops that launch it, GLUE); card busy is the union of the card's
+   step's torch glue split into RoPE, casts, sampling, a mesh's
+   cross-rank sums and other by the ops that launch it, GLUE); card busy is the union of the card's
    activity intervals (kernels A, B and E's decode mode are programmatic
    dependents and overlap their neighbours); every forward's launches of
    A and B are counted (``check_norm_launches``);
@@ -316,6 +331,9 @@ MUST_SEE_FAULTS = ("int8-kv8",)
 # per main path: decode wall and card busy per step, eager bodies against
 # graph replays (graph_checks), printed as one line at the end of phase 4
 DECODE: dict = {}
+# what 4n reuses of 4b (its weights, prompts, kernel-path prefill logits
+# and round-1 greedy ids) and of 4g (its logits and ids), by path
+MAIN_RUNS: dict = {}
 
 
 def say(*parts) -> None:
@@ -393,8 +411,8 @@ def record(name, err, results, case, timed=None, work=None, library=None,
     """Record a kernel's check; the first timed case is the main path's
     shape, and its time, work and library time go into the JSON line. A
     write row's ``floor`` (floor_ms) is printed beside its time."""
-    r = results.setdefault(name, {"max_abs_err": 0.0})
-    r["max_abs_err"] = max(r["max_abs_err"], err)
+    r = results.setdefault(name, {})
+    r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
     line = f"  {name:22s} {case:44s} max_abs_err {err:.3e}"
     if timed is not None:
         ms, plain_ms = timed
@@ -1021,6 +1039,17 @@ def quant_weights(torch, quant, dev, gen, mode, k, n, halves=1,
         max(1, -(-min_bytes // first.nbytes)) - 1)]
 
 
+def poisoned(torch, t, pad: int = 1 << 16):
+    """``t``'s values at the head of a larger buffer whose tail holds NaN
+    (127 for an integer dtype): a kernel that reads past any ragged tail
+    of ``t`` shows it (the OOB rule)."""
+    fill = float("nan") if t.is_floating_point() else 127
+    buf = torch.full((t.numel() + pad,), fill, dtype=t.dtype,
+                     device=t.device)
+    buf[:t.numel()].copy_(t.flatten())
+    return buf[:t.numel()].view(t.shape)
+
+
 def fused_matmul(quant, t, x, out, kern):
     """Kernel E or F (or its plain version) through the wrapper every tree
     has."""
@@ -1063,14 +1092,16 @@ def quant_rows(torch, dev) -> dict:
 
 
 def quant_case(torch, dev, gen, results, mode, m, label,
-               shapes=QUANT_SHAPES, tag=""):
+               shapes=QUANT_SHAPES, tag="", poison=False):
     """Kernel E (``mode`` int4) or F (int8) for x [m, k] times the
     ``label`` weight of ``shapes`` (k, n, halves; an f32 output for the
     lm_head), random weights cycled through 120 MB: held against its plain
     version and timed beside it, with its bound, its library call (one
     weight with a bf16 output: ``_weight_int4pack_mm`` /
-    ``_weight_int8pack_mm``) and its plan. Returns (kernel ms, the
-    weights, x, the output dtype)."""
+    ``_weight_int8pack_mm``) and its plan; with ``poison``, x and the
+    first weight's q and scale lie at the head of buffers whose tails are
+    NaN (``poisoned``). Returns (kernel ms, the weights, x, the output
+    dtype)."""
     from llm_inference_engine_tpu_torch.ops import quant
     bf16 = torch.bfloat16
     name = f"{mode}_matmul"
@@ -1079,6 +1110,10 @@ def quant_case(torch, dev, gen, results, mode, m, label,
     ts = quant_weights(torch, quant, dev, gen, mode, k, n, halves,
                        120_000_000)
     x = torch.randn(m, k, generator=gen, device=dev, dtype=bf16)
+    if poison:
+        x = poisoned(torch, x)
+        ts[0] = quant.QuantizedTensor(poisoned(torch, ts[0].q),
+                                      poisoned(torch, ts[0].scale), mode, 128)
     ms = time_ms(torch, cycling(ts, lambda t: fused_matmul(quant, t, x, out,
                                                            "cuda")))
     plain_ms = time_ms(torch, cycling(ts, lambda t: fused_matmul(
@@ -1304,23 +1339,28 @@ KERNEL_GROUPS = (("D2", ("attention_prefill_kernel",)),
                  ("B", ("silu_mul_kernel",)))
 # the torch glue of a decode step (the kernels outside KERNEL_GROUPS), by
 # where the eager body launched them: RoPE (ops/rope.py's rope_cos_sin and
-# rotate), sampling (ops/sampling.py's functions the engine calls), casts
-# (aten::to / copy_ elsewhere), other
-GLUE = ("RoPE", "casts", "sampling", "other")
+# rotate), sampling (ops/sampling.py's functions the engine calls), the
+# cross-rank sums of a mesh engine (parallel/sharding.py's rank_sum),
+# casts (aten::to / copy_ elsewhere), other
+GLUE = ("RoPE", "casts", "sampling", "sums", "other")
 
 
 @contextlib.contextmanager
 def glue_labels():
     """Run the RoPE and sampling functions that the decoder and the engine
-    call under ``record_function("glue:RoPE")`` / ``("glue:sampling")``,
-    so that a profile names the ops they launch (instrumentation of this
-    check only; the functions are put back after)."""
+    call, and a mesh engine's cross-rank sums, under
+    ``record_function("glue:RoPE")`` / ``("glue:sampling")`` /
+    ``("glue:sums")``, so that a profile names the ops they launch
+    (instrumentation of this check only; the functions are put back
+    after)."""
     import torch
     from llm_inference_engine_tpu_torch.models import llama
+    from llm_inference_engine_tpu_torch.parallel import sharding
     from llm_inference_engine_tpu_torch.runtime import engine
     patches = [(llama, n, "RoPE") for n in ("rope_cos_sin", "rotate")] + [
         (engine, n, "sampling") for n in ("apply_penalties", "greedy_sample",
-                                          "sample_tokens", "token_logprobs")]
+                                          "sample_tokens", "token_logprobs")
+    ] + [(sharding, "rank_sum", "sums")]
     saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
 
     def labelled(fn, group):
@@ -1828,6 +1868,7 @@ def phase_main_path(torch, dev, results, path: str, eng_cfg, prompt_lens,
     params32 = {k: ({n: up(w) for n, w in v.items()}
                     if isinstance(v, dict) else up(v))
                 for k, v in engine.params.items()}
+    params = engine.params
     ref32 = InferenceEngine(cfg.replace(dtype_name="float32"),
                             eng_cfg.replace(kernels="torch"), params32,
                             device=dev)
@@ -1889,6 +1930,10 @@ def phase_main_path(torch, dev, results, path: str, eng_cfg, prompt_lens,
         failures.append("generate's first token is not the prefill argmax")
     if failures:
         raise AssertionError(f"{path} path: " + "; ".join(failures))
+    if path in ("int4", "int4-kv8"):
+        MAIN_RUNS[path] = dict(params=params if path == "int4" else None,
+                               prompts=prompts, logits=logits,
+                               ids=r1.token_ids)
     return logits
 
 
@@ -4544,6 +4589,388 @@ def phase_evals(torch, dev, results) -> None:
     torch.cuda.empty_cache()
 
 
+# 4n: a model rank's local shapes of llama2-7b under tp = 2: E and F's
+# (k, n, halves), the column-sharded wqkv, gate|up and vocab, the
+# row-sharded wo and down (k 5504: 43 groups, 21.5 decode stages of 256);
+# 16 of the 32 heads
+TP2_SHAPES = {"wqkv": (4096, 6144, 1), "wo": (2048, 4096, 1),
+              "gate_up": (4096, 5504, 2), "down": (5504, 4096, 1),
+              "lm_head": (4096, 16000, 1)}
+TP2_HEADS = 16
+# 4n (d)'s requests: prompts of one chunk, so that the paged scheduler runs
+# (a)'s generate's steps (one prefill at one bucket, then decode)
+TP2_SCHED_PROMPTS = (5, 17, 40, 64)
+
+
+def tp2_kernel_rows(torch, dev, results) -> None:
+    """4n (e): the kernels at a model rank's local shapes under tp = 2,
+    every input at the head of a buffer whose tail holds NaN
+    (``poisoned``) and every cache row past kv_len NaN, held against the
+    plain versions (on clean copies) and timed beside them, with their
+    bounds and library calls: E and F at m 8 and 512 on TP2_SHAPES, B at
+    [8, 2 x 5504], C and I writing 4b's first chunk (8 x 512, ragged) at
+    16 heads, D2 attending it, and D's fused decode at 4b's decode
+    contexts."""
+    from llm_inference_engine_tpu_torch.ops import activations, attention
+    from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    for mode in ("int4", "int8"):
+        for m in (8, 512):
+            for label in TP2_SHAPES:
+                quant_case(torch, dev, gen, results, mode, m, label,
+                           TP2_SHAPES, tag="tp2 ", poison=True)
+    torch.cuda.empty_cache()
+    nan = float("nan")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    def ints(vals):
+        return torch.tensor(vals, dtype=torch.int32, device=dev)
+
+    gu = poisoned(torch, randn(8, 2 * 5504))
+    check_close(torch, "silu_and_mul",
+                activations.silu_and_mul(gu, kernels="cuda"),
+                activations.silu_and_mul_torch(gu), results,
+                "tp2 [8,11008] NaN past the tail", (
+                    time_ms(torch, lambda: activations.silu_and_mul(
+                        gu, kernels="cuda")),
+                    time_ms(torch, lambda: activations.silu_and_mul_torch(
+                        gu))),
+                work=(3 * 8 * 5504 * 2, 5 * 8 * 5504))
+
+    L, B, S, K, D, T = 2, 8, 2048, TP2_HEADS, 128, 512
+    new_len_l = [min(n, T) for n in QUANT_PROMPTS]
+    starts_l = [0] * B
+    starts, new_len = ints(starts_l), ints(new_len_l)
+    kv_len = starts + new_len
+    kn, vn = poisoned(torch, randn(B, T, K, D)), poisoned(torch,
+                                                          randn(B, T, K, D))
+    rows, picked = slot_rows(starts_l, new_len_l, T, S)
+    cache = kvc.new_kv_cache(L, B, K, S, D, device=dev)
+    ref = kvc.KVCache(cache.k.clone(), cache.v.clone(), cache.lengths)
+    kvc.update_cache_at_layer(cache, 1, kn, vn, starts, new_len,
+                              kernels="cuda")
+    kvc.update_cache_at_layer_torch(ref, 1, kn, vn, starts, new_len)
+    torch.cuda.synchronize()
+    if not (torch.equal(cache.k, ref.k) and torch.equal(cache.v, ref.v)):
+        raise AssertionError("kv_write at 16 heads: cache differs from the "
+                             "plain write")
+    check_close(torch, "kv_write", cache.k[1], ref.k[1], results,
+                "tp2 [8,512,16,128] 4b's first chunk, cold L2", (
+                    time_ms(torch, lambda: kvc.update_cache_at_layer(
+                        cache, 1, kn, vn, starts, new_len, kernels="cuda"),
+                        cold=True),
+                    time_ms(torch, lambda: kvc.update_cache_at_layer_torch(
+                        ref, 1, kn, vn, starts, new_len))),
+                work=write_work(len(rows), K, D),
+                library=index_copy_ms(torch, (cache.k[1], cache.v[1]),
+                                      (kn, vn), (ints(rows).long(),
+                                                 ints(picked).long())))
+    c8 = kvc.new_kv_cache(L, B, K, S, D, device=dev, quantized=True,
+                          snapped=True)
+    ref8 = dataclasses.replace(c8, **{n: getattr(c8, n).clone() for n in (
+        "k", "v", "k_scale", "v_scale")})
+    kvc.update_cache_at_layer(c8, 1, kn, vn, starts, new_len, kernels="cuda")
+    kvc.update_cache_at_layer_torch(ref8, 1, kn, vn, starts, new_len)
+    torch.cuda.synchronize()
+    if not (torch.equal(c8.v, ref8.v) and torch.equal(c8.v_scale,
+                                                      ref8.v_scale)):
+        raise AssertionError("kv_write_quant at 16 heads: v differs")
+    hold_int8_write(torch, "kv_write_quant", (c8.k, c8.k_scale),
+                    (ref8.k, ref8.k_scale), results,
+                    "tp2 [8,512,16,128] 4b's first chunk snapped, cold L2", (
+                        time_ms(torch, lambda: kvc.update_cache_at_layer(
+                            c8, 1, kn, vn, starts, new_len, kernels="cuda"),
+                            cold=True),
+                        time_ms(torch, lambda: kvc.update_cache_at_layer_torch(
+                            ref8, 1, kn, vn, starts, new_len))),
+                    work=write_work(len(rows), K, D, quant=True))
+    del c8, ref8
+
+    # D2 attends the chunk just written; rows past kv_len NaN
+    for b, n in enumerate(new_len_l):
+        cache.k[1, b, n:] = nan
+        cache.v[1, b, n:] = nan
+    q = poisoned(torch, randn(B, T, K, D))
+    run = lambda: attention.attention(  # noqa: E731
+        q, cache.k, cache.v, starts, kv_len, layer=1, kernels="cuda")
+    plain = lambda: attention.attention_torch(  # noqa: E731
+        q, ref.k, ref.v, starts, kv_len, layer=1)
+    check_close(torch, "attention_prefill", run(), plain(), results,
+                "tp2 B8 T512 H16 K16 4b's first chunk, NaN past kv_len",
+                (time_ms(torch, run, iters=5),
+                 time_ms(torch, plain, iters=3, warmup=1)),
+                work=attn_work(starts_l, new_len_l, T, K, K, D),
+                library=sdpa_ms(torch, q, ref.k[1], ref.v[1], starts,
+                                kv_len))
+    del cache, ref
+
+    # D's fused decode at 4b's decode contexts; rows past kv_len NaN
+    hist = [p + 16 + f + 16 for p, f in zip(QUANT_PROMPTS, QUANT_FOLLOW)]
+    c = kvc.new_kv_cache(L, B, K, S, D, device=dev)
+    c.k.copy_(randn(L, B, S, K, D))
+    c.v.copy_(randn(L, B, S, K, D))
+    ref = kvc.KVCache(c.k.clone(), c.v.clone(), c.lengths)
+    for b, n in enumerate(hist):
+        c.k[1, b, n + 1:] = nan
+        c.v[1, b, n + 1:] = nan
+    qs = ints(hist)
+    kl = qs + 1
+    qd = poisoned(torch, randn(B, 1, K, D))
+    kn1, vn1 = poisoned(torch, randn(B, 1, K, D)), poisoned(torch,
+                                                            randn(B, 1, K, D))
+    run = lambda: attention.attention_decode_fused(  # noqa: E731
+        qd, kn1, vn1, c.k, c.v, qs, kl, 1, kernels="cuda")[0]
+    plain = lambda: attention.attention_decode_fused_torch(  # noqa: E731
+        qd, kn1, vn1, ref.k, ref.v, qs, kl, 1)[0]
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    b_idx = torch.arange(B, device=dev)
+    for x, y in ((c.k, ref.k), (c.v, ref.v)):
+        if not torch.equal(x[1, b_idx, qs.long()], y[1, b_idx, qs.long()]):
+            raise AssertionError("attention_decode at 16 heads: the fused "
+                                 "write differs from the plain write")
+    say_plan(attention, "tp2 B8 H16 K16 D128", B, K, K, D)
+    check_close(torch, "attention_decode", got, want, results,
+                f"tp2 B8 H16 K16 4b contexts {min(hist)}-{max(hist)}, NaN "
+                "past kv_len", (time_ms(torch, run),
+                                time_ms(torch, plain, iters=3, warmup=1)),
+                work=attn_work(hist, [h + 1 for h in hist], 1, K, K, D,
+                               new_rows=B * 2 * K * D * 2 * 2),
+                library=sdpa_ms(torch, qd, ref.k[1], ref.v[1], qs, kl),
+                row_rel=DECODE_ROW_TOL)
+    del c, ref
+    torch.cuda.empty_cache()
+
+
+def mesh_steps(torch, engine, toks, active, tag: str) -> list:
+    """A mesh engine's decode programs: 16 steps through the eager bodies
+    and the same 16 through the CUDA-graph replays (twice, the first with
+    the capture, whose warm-up launches count), from one state: ids, and
+    the launch counts of the second replayed run, must equal the eager
+    run's.
+    Prints wall a step of each, the replayed step's card busy (union of
+    intervals over 4 steps) and idle share, its device ms by group with
+    the cross-rank sums split out of the torch glue (``glue_labels``), and
+    the one-rank 4b step beside it. Returns the eager ids."""
+    from llm_inference_engine_tpu_torch.config import SamplingParams
+    from llm_inference_engine_tpu_torch.runtime.decode_graph import (
+        run_eagerly)
+    B = engine.engine_config.max_batch_size
+    snap = snapshot(engine)
+    eager_ids, eager_ms, eager_l = _steps(torch, engine, toks, active, 16,
+                                          True)
+    restore(engine, snap)
+    graph_ids, _, _ = _steps(torch, engine, toks, active, 16, False)
+    restore(engine, snap)
+    again, graph_ms, graph_l = _steps(torch, engine, toks, active, 16, False)
+    state = {}
+
+    def step():
+        state["toks"] = engine.decode_step(state["toks"], active,
+                                           SamplingParams(greedy=True))
+    restore(engine, snap)
+    state["toks"] = toks
+    prof = device_profile(torch, step, 4)
+    restore(engine, snap)
+    state["toks"] = toks
+    with run_eagerly(engine), glue_labels():
+        _, cpu_prof = device_profile(torch, step, 1, cpu_ops=True)
+    glue = glue_map(cpu_prof)
+    del cpu_prof
+    restore(engine, snap)
+    groups = group_ms(prof.per_kernel, glue)
+    one = DECODE.get("int4", {})
+    say(f"  {tag} decode, eager / graphs: wall {eager_ms:.3f} / "
+        f"{graph_ms:.3f} ms/step ({B * 1e3 / graph_ms:.1f} tok/s replayed "
+        f"at B={B}); replayed card busy {prof.busy:.3f} ms/step, idle "
+        f"{1 - prof.busy / graph_ms:.3f}; cross-rank sums "
+        f"{groups['sums']:.4f} ms/step of durations summed "
+        f"{prof.summed:.3f}; one-rank 4b: wall {one.get('graph_ms', 0):.3f}"
+        f" ms/step, busy {min(one.get('graph_busy_ms', [0])):.3f}")
+    say(f"  {tag} replayed decode step, device ms by group: "
+        f"{_groups(prof.per_kernel, glue)}; by kernel: "
+        + "; ".join(f"{_short(name)} {ms:.4f}"
+                    for ms, name in prof.per_kernel[:8]))
+    failures = []
+    if graph_ids != eager_ids or again != eager_ids:
+        failures.append("replayed steps differ from the eager steps")
+    if graph_l != eager_l:
+        failures.append(f"launches of 16 replays {graph_l} != of 16 eager "
+                        f"steps {eager_l}")
+    say(f"  {tag} 16 replayed steps == 16 eager steps: "
+        f"{graph_ids == eager_ids and again == eager_ids}; launches equal: "
+        f"{graph_l == eager_l}")
+    if failures:
+        raise AssertionError(f"{tag}: " + "; ".join(failures))
+    DECODE[tag] = dict(B=B, eager_ms=eager_ms, graph_ms=graph_ms,
+                       graph_busy_ms=[prof.busy],
+                       graph_summed_ms=prof.summed,
+                       graph_groups_ms=groups)
+    return eager_ids
+
+
+def first_token_rule(tag: str, logits, ref_logits, ref_ids) -> None:
+    """The tie rule of 4a-4j against a one-rank engine's kernel path: a
+    row's first token must equal the one-rank engine's, or lie in its top
+    2 where the one-rank top-1/top-2 margin is below the largest logit
+    difference between the two engines. Prints the logits' distance."""
+    d, r = _logit_diff(logits, ref_logits)
+    top2, top2_ids = ref_logits.topk(2, dim=-1)
+    margins = (top2[:, 0] - top2[:, 1]).tolist()
+    got = logits.argmax(-1).tolist()
+    want = [ids[0] for ids in ref_ids]
+    differ = [i for i in range(len(got)) if got[i] != want[i]]
+    bad = [i for i in differ if margins[i] >= d
+           or got[i] not in top2_ids[i].tolist()]
+    say(f"  {tag} prefill logits against the one-rank engine: max abs "
+        f"{d:.4e}, rel L2 {r:.4e}; first tokens {got}; rows that differ "
+        f"{differ} (one-rank top-2 margins "
+        f"{[round(margins[i], 4) for i in differ]})")
+    if bad:
+        raise AssertionError(f"{tag}: first tokens differ from the one-rank "
+                             f"engine's outside the tie rule in rows {bad}")
+
+
+def _path_launches(tag: str, counters, expected) -> dict:
+    """Every kernel of ``expected`` launched since the counters were set
+    to 0 (printed)."""
+    launches = _launch_counts(counters)
+    say(f"  launches during {tag}: {launches}")
+    missing = [n for n in expected if not launches.get(n)]
+    if missing:
+        raise AssertionError(f"{tag}: kernels never launched {missing}")
+    return launches
+
+
+def phase_parallel(torch, dev, results) -> None:
+    """4n: tensor and data parallelism on one card, llama2-7b INT4 (4b's
+    weights and prompts), B = 8, meshes of two ranks on cuda:0, every
+    launch counter set to 0 just before each path and read just after:
+    (a) tp = 2: prefill logits against 4b's, first tokens under the tie
+    rule, 16 greedy tokens, ``mesh_steps``, and the launches of one decode
+    step (A and B per rank); (b) dp = 2: 16 greedy ids identical to 4b's;
+    (c) tp = 2 with the int8 slot cache: against 4g as (a) against 4b;
+    (d) tp = 2 paged (pages of 64) through the scheduler: 4 requests whose
+    ids must equal (a)'s engine's ``generate`` of the same prompts; (e)
+    ``tp2_kernel_rows``."""
+    import numpy as np
+
+    from llm_inference_engine_tpu_torch.config import (
+        EngineConfig, SamplingParams, get_config)
+    from llm_inference_engine_tpu_torch.parallel import make_mesh, sharding
+    from llm_inference_engine_tpu_torch.runtime.engine import InferenceEngine
+    from llm_inference_engine_tpu_torch.runtime.scheduler import (
+        ContinuousBatchingScheduler)
+
+    base, kv8 = MAIN_RUNS["int4"], MAIN_RUNS["int4-kv8"]
+    cfg = get_config("llama2-7b")
+    L, B = cfg.num_layers, 8
+    eng = EngineConfig(quant_mode="int4", max_batch_size=B, max_seq_len=2048)
+    prompts = base["prompts"]
+    greedy = SamplingParams(greedy=True, max_new_tokens=16)
+    active = np.ones(B, bool)
+    tp2 = make_mesh(1, 2, devices=[dev, dev])
+    sp = sharding.shard_params(base["params"], tp2)
+
+    def last(r):
+        return torch.tensor([o[-1] for o in r.token_ids], device=dev,
+                            dtype=torch.int32)
+
+    # (a) tp = 2
+    counters = _zero_counters()
+    e = InferenceEngine(cfg, eng, sp)
+    logits = e.prefill(prompts)
+    first_token_rule("4n (a) tp=2", logits, base["logits"], base["ids"])
+    e.reset()
+    t0 = time.perf_counter()
+    r = e.generate(prompts, greedy, eos_token_id=None)
+    gen_s = time.perf_counter() - t0
+    if [o[0] for o in r.token_ids] != logits.argmax(-1).tolist():
+        raise AssertionError("4n (a): generate's first token is not the "
+                             "prefill argmax")
+    agree = sum(a == b for x, y in zip(r.token_ids, base["ids"])
+                for a, b in zip(x, y))
+    say(f"  4n (a) tp=2 generate of 16 greedy tokens {gen_s:.3f} s; tokens "
+        f"agreeing with 4b position by position {agree}/{16 * B}; "
+        f"tokens[0][:8] {r.token_ids[0][:8]}")
+    mesh_steps(torch, e, last(r), active, "tp2 int4")
+    rng = np.random.default_rng(3)
+    sched_prompts = [rng.integers(3, cfg.vocab_size, n).tolist()
+                     for n in TP2_SCHED_PROMPTS]
+    e.reset()
+    sched_ref = e.generate(sched_prompts, greedy, eos_token_id=None).token_ids
+    _path_launches("4n (a) tp=2", counters, MAIN_PATHS["int4"][0])
+    _zero_counters()
+    e.decode_step(last(r), active, SamplingParams(greedy=True))
+    per_step = _launch_counts(counters)
+    say(f"  4n (a) launches per tp=2 decode step (two ranks): {per_step}")
+    check_norm_launches("4n tp=2 decode step", per_step, L, 2)
+    del e
+    torch.cuda.empty_cache()
+
+    # (b) dp = 2: no row's arithmetic changes
+    counters = _zero_counters()
+    e = InferenceEngine(cfg, eng, base["params"],
+                        mesh=make_mesh(2, 1, devices=[dev, dev]))
+    r = e.generate(prompts, greedy, eos_token_id=None)
+    differ = [i for i in range(B) if r.token_ids[i] != base["ids"][i]]
+    say(f"  4n (b) dp=2: 16 greedy ids identical to 4b's: {not differ}"
+        + (f" (rows that differ: {differ})" if differ else ""))
+    mesh_steps(torch, e, last(r), active, "dp2 int4")
+    _path_launches("4n (b) dp=2", counters, MAIN_PATHS["int4"][0])
+    del e
+    torch.cuda.empty_cache()
+    if differ:
+        raise AssertionError(f"4n (b): dp=2 ids differ from 4b's in rows "
+                             f"{differ}")
+
+    # (c) tp = 2 with the int8 slot cache
+    counters = _zero_counters()
+    e = InferenceEngine(cfg, eng.replace(kv_cache_dtype_name="int8"), sp)
+    snapped = [s.snapped for row in e.cache.shards for s in row]
+    say(f"  4n (c) shards' int8 numerics snapped: {snapped}; KV "
+        f"{sum(kv_bytes(s) for row in e.cache.shards for s in row) / 1e9:.2f}"
+        " GB")
+    logits = e.prefill(prompts)
+    first_token_rule("4n (c) tp=2 int8 KV", logits, kv8["logits"],
+                     kv8["ids"])
+    e.reset()
+    r = e.generate(prompts, greedy, eos_token_id=None)
+    mesh_steps(torch, e, last(r), active, "tp2 int4-kv8")
+    _path_launches("4n (c) tp=2 int8 KV", counters, MAIN_PATHS["int4-kv8"][0])
+    del e
+    torch.cuda.empty_cache()
+
+    # (d) tp = 2 paged, through the scheduler
+    counters = _zero_counters()
+    e = InferenceEngine(cfg, eng.replace(kv_layout="paged", page_size=64,
+                                         max_prefill_len=64), sp)
+    sched = ContinuousBatchingScheduler(e, eos_token_id=None)
+    reqs = [sched.submit(p, greedy) for p in sched_prompts]
+    t0 = time.perf_counter()
+    sched.run()
+    wall = time.perf_counter() - t0
+    ids = [q.output_ids for q in reqs]
+    _check_paged_launches("4n (d) tp=2 paged scheduler", counters,
+                          NORM_ACT + ("int4_matmul",) + BF16_PAGED)
+    say(f"  4n (d) tp=2 paged scheduler: {len(reqs)} requests of "
+        f"{list(TP2_SCHED_PROMPTS)} tokens, 16 greedy tokens each in "
+        f"{wall:.3f} s; ids equal (a)'s engine's generate: "
+        f"{ids == sched_ref}; free pages after {e.free_pages}")
+    del e, sched, sp
+    MAIN_RUNS.clear()
+    torch.cuda.empty_cache()
+    if ids != sched_ref:
+        raise AssertionError("4n (d): the paged tp=2 scheduler's ids differ "
+                             "from the slot tp=2 engine's")
+
+    # (e)
+    tp2_kernel_rows(torch, dev, results)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4639,6 +5066,10 @@ def main() -> int:
         say(f"  {tags} (int8 vs bf16 KV, same weights, both kernel paths): "
             f"prefill logits max abs {d:.4e}, rel L2 {r:.4e} (quantization "
             "noise, not a check)")
+    phase("4n", "tensor and data parallelism: llama2-7b INT4 (4b's weights), "
+          "B=8, two ranks on cuda:0: tp=2, dp=2, tp=2 with the int8 slot "
+          "cache, tp=2 paged through the scheduler; the kernels at the "
+          "tp=2 local shapes", phase_parallel, torch, dev, results)
 
     # the paged serving path, INT4 weights (the JAX package's benchmark
     # format, bench.py)

@@ -15,7 +15,9 @@ Run: python -m llm_inference_engine_tpu_torch.cli --model llama2-7b \
 ``--device`` (default ``cuda``) replaces the JAX CLI's ``--platform``;
 with no card present, ``cuda`` raises. ``--beams`` > 1 decodes each turn
 with beam search (``ChatSession.response_beam``, no streaming).
-``--dp``/``--tp`` > 1 wait for ROADMAP.md, queue 1, "Parallelism".
+``--dp``/``--tp`` build a mesh (``parallel/mesh.py``): over
+``cuda:0 ... cuda:n-1`` (too few cards raise), or with ``--device cpu``
+over n copies of the CPU.
 """
 
 from __future__ import annotations
@@ -108,10 +110,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.dp > 1 or args.tp > 1:
-        raise NotImplementedError(
-            "--dp/--tp > 1 are not ported yet (ROADMAP.md, queue 1, "
-            "'Parallelism')")
     import torch
 
     from llm_inference_engine_tpu_torch.config import (
@@ -133,8 +131,8 @@ def main(argv=None) -> int:
     eng = EngineConfig(
         max_batch_size=args.max_batch_size, max_seq_len=args.max_seq_len,
         quant_mode=args.quant, kv_cache_dtype_name=args.kv_cache_dtype,
-        kv_layout=args.kv_layout, page_size=args.page_size,
-        num_pages=args.num_pages)
+        dp=args.dp, tp=args.tp, kv_layout=args.kv_layout,
+        page_size=args.page_size, num_pages=args.num_pages)
     print(f"loading {args.model} "
           f"({'dummy weights' if args.dummy_weights else args.checkpoint}, "
           f"quant={args.quant}, {device}) ...", flush=True)

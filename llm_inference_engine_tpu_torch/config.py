@@ -220,7 +220,7 @@ class EngineConfig:
     layout's ``page_size`` and ``num_pages`` included. Its TPU tiling
     knobs (attention block sizes, layer-scan unroll) and the unused
     ``max_prefill_batch`` have no counterpart: the CUDA kernels pick their
-    own tiles. Values outside the ported slice (meshes) are accepted by
+    own tiles. ``cp`` > 1 (context parallelism, not ported) is accepted by
     the dataclass and refused by the engine with ``NotImplementedError``.
     """
 

@@ -86,6 +86,7 @@ constexpr int kStages = 2;           // tiles in the cp.async ring
 constexpr int kKeysPerWarp = kKeys / kWarps;
 constexpr int kMaxSplit = 8;         // the portable cluster size
 constexpr int kTargetBlocksPerSm = 8;
+constexpr int kMaxDevices = 16;      // launch attributes are set per device
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
@@ -528,12 +529,17 @@ template <int D, int R, bool PAGED, bool INT8, bool WRITE_NEW>
 int launch(const Params& p, cudaStream_t stream, int* report) {
   auto kernel = attention_decode_kernel<D, R, PAGED, INT8, WRITE_NEW>;
   const int smem = Layout<D, R, INT8>::kBytes + (PAGED ? 4 * p.table_max : 0);
-  static int smem_set = 0;   // the largest dynamic shared memory allowed yet
-  if (smem > smem_set) {
+  // the largest dynamic shared memory allowed yet, per device: an
+  // attribute set on one device does not reach another
+  static int smem_set[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices)
+    return (int)cudaErrorInvalidDevice;
+  if (smem > smem_set[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    smem_set = smem;
+    smem_set[dev] = smem;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.nsplit, p.K * p.row_blocks, p.B);

@@ -73,6 +73,7 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kRows = kWarps * 16;   // query rows (t, g) of one block
 constexpr int kStages = 2;           // tiles in the cp.async ring
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMaxDevices = 16;      // launch attributes are set per device
 
 struct Params {
   const __nv_bfloat16* q;   // [B, T, H, D]
@@ -500,12 +501,16 @@ int launch(const Params& p, cudaStream_t stream, int* report = nullptr) {
     return 0;
   }
   auto kernel = attention_prefill_kernel<D, PAGED, INT8>;
-  static bool attr_set = false;
-  if (!attr_set) {
+  // per device: an attribute set on one device does not reach another
+  static bool attr_set[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices)
+    return (int)cudaErrorInvalidDevice;
+  if (!attr_set[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    attr_set = true;
+    attr_set[dev] = true;
   }
   const dim3 grid((p.T * p.G + kRows - 1) / kRows, p.K, p.B);
   kernel<<<grid, kThreads, smem, stream>>>(p);

@@ -974,14 +974,21 @@ bool weight_map(CUtensorMap* map, const Params& p, int kr, int rows,
   return true;
 }
 
-// Allow `smem` bytes of dynamic shared memory for `kernel` (once per
-// size reached).
+// Allow `smem` bytes of dynamic shared memory for `kernel` on the current
+// device (once per size reached; an attribute set on one device does not
+// reach another, so `allowed` holds a size a device).
+constexpr int kMaxDevices = 16;
 template <typename K>
-cudaError_t allow_smem(K kernel, int smem, int& allowed) {
-  if (smem <= allowed) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess) allowed = smem;
+cudaError_t allow_smem(K kernel, int smem, int (&allowed)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (smem <= allowed[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err == cudaSuccess) allowed[dev] = smem;
   return err;
 }
 
@@ -989,7 +996,7 @@ template <bool INT4, int BM>
 int launch_decode(const Params& p, const Plan& pl, cudaStream_t stream,
                   int* blocks_per_sm) {
   auto kernel = quant_matmul_decode<INT4, BM>;
-  static int allowed = 0;
+  static int allowed[kMaxDevices] = {};
   cudaError_t err = allow_smem(kernel, pl.smem, allowed);
   if (err != cudaSuccess) return (int)err;
   if (blocks_per_sm)
@@ -1025,7 +1032,7 @@ int launch_prefill(const Params& p, const Plan& pl, cudaStream_t stream,
                    int* blocks_per_sm) {
   using P = Pre<INT4, N>;
   auto kernel = quant_matmul_prefill<INT4, N>;
-  static int allowed = 0;
+  static int allowed[kMaxDevices] = {};
   cudaError_t err = allow_smem(kernel, P::kSmem, allowed);
   if (err != cudaSuccess) return (int)err;
   if (blocks_per_sm)

@@ -1,6 +1,6 @@
 """Llama-class decoder forward pass over the slot or the paged KV cache.
 
-Port of ``llm_inference_engine_tpu/models/llama.py`` for one device.
+Port of ``llm_inference_engine_tpu/models/llama.py`` (one rank's body).
 Each layer runs: rmsnorm -> packed QKV matmul -> split + RoPE -> cache
 write -> attention -> o-proj -> fused add-residual + rmsnorm -> gate|up
 matmul -> silu_and_mul -> down-proj -> residual add. The layer's final
@@ -33,8 +33,17 @@ on the main path (the next norm adds it), so ``layer_out`` is computed
 for the dump only, by the plain ``add_residual``, whose bits equal kernel
 A's stored sum. With the tap disabled the forward calls none of it.
 
-Not ported: the TPU tile-padded cache adapter, context parallelism and
-tensor-parallel partial sums (ROADMAP.md, queue 1).
+Tensor parallelism (the JAX package's ``model_axis``): the layer loop is
+a generator (:func:`layers`, :func:`decoder`) that yields the partial
+products of the row-sharded ``wo`` and ``w_down`` and is sent back their
+sum over the model ranks (the JAX ``psum``). On one device,
+:func:`decoder_forward` sends each partial back as it is (:func:`whole`):
+it is already whole. Over a mesh, ``parallel/sharding.py`` runs
+one generator per rank in lockstep and sums in between. The taps are a
+no-op there (``tapped=False``), as under the JAX package's mesh.
+
+Not ported: the TPU tile-padded cache adapter and context parallelism
+(ROADMAP.md, queue 1, "Context parallelism").
 """
 
 from __future__ import annotations
@@ -58,21 +67,36 @@ from llm_inference_engine_tpu_torch.ops.rope import (
     rope_cos_sin, rotate, split_qkv)
 from llm_inference_engine_tpu_torch.utils import debug as _debug
 
-__all__ = ["decoder_forward", "forward_all_logits", "forward_hidden",
-           "lm_head_logits", "run_layers"]
+__all__ = ["decoder", "decoder_forward", "forward_all_logits",
+           "forward_hidden", "layers", "lm_head_logits", "whole"]
 
 
-def _layer_step(cfg: ModelConfig, eng: EngineConfig, h_norm: torch.Tensor,
-                x: torch.Tensor, layer: dict, layer_idx: int, cache, cos,
-                sin, q_start: torch.Tensor, kv_len: torch.Tensor):
+def whole(gen):
+    """Run a layer generator on one device: every partial product it
+    yields is already the whole product, so it is sent back as it is.
+    Returns the generator's value."""
+    try:
+        part = next(gen)
+        while True:
+            part = gen.send(part)
+    except StopIteration as stop:
+        return stop.value
+
+
+def _layer_gen(cfg: ModelConfig, eng: EngineConfig, h_norm: torch.Tensor,
+               x: torch.Tensor, layer: dict, layer_idx: int, cache, cos,
+               sin, q_start: torch.Tensor, kv_len: torch.Tensor,
+               tapped: bool):
     """One decoder layer from its normed input ``h_norm`` and its residual
     stream ``x`` ([B, T, hidden] each); ``layer`` holds this layer's weight
-    views; the cache is written in place at ``layer_idx``. Returns (down,
-    residual): the layer's output is their sum, which the next norm adds."""
+    views; the cache is written in place at ``layer_idx``. A generator: it
+    yields the ``wo`` and ``w_down`` products and is sent back their sums
+    over the model ranks. Returns (down, residual): the layer's output is
+    their sum, which the next norm adds."""
     kernels = eng.kernels
     B, T, _ = x.shape
     # the dump hook (utils/debug.py), None unless it keeps this layer
-    tap = _debug.tap if _debug.tap.wants(layer_idx) else None
+    tap = _debug.tap if tapped and _debug.tap.wants(layer_idx) else None
     if tap:
         tap("attn_norm", h_norm, layer_idx)
 
@@ -116,13 +140,13 @@ def _layer_step(cfg: ModelConfig, eng: EngineConfig, h_norm: torch.Tensor,
                              layer=layer_idx, window=cfg.sliding_window,
                              **scales)
     attn_ctx = attn_out.reshape(B, T, cfg.q_size)
-    attn_out = linear(attn_ctx, layer["wo"], kernels=kernels)
+    attn_out = yield linear(attn_ctx, layer["wo"], kernels=kernels)
 
     ffn_in, resid = add_residual_rmsnorm(
         attn_out, x, layer["ffn_norm"], cfg.rms_norm_eps, kernels=kernels)
     gate_up = linear(ffn_in, layer["w_gate_up"], kernels=kernels)
     act = silu_and_mul(gate_up, kernels=kernels)
-    down = linear(act, layer["w_down"], kernels=kernels)
+    down = yield linear(act, layer["w_down"], kernels=kernels)
     if tap:
         tap("attn_ctx", attn_ctx, layer_idx)
         tap("attn_out", attn_out, layer_idx)
@@ -132,11 +156,12 @@ def _layer_step(cfg: ModelConfig, eng: EngineConfig, h_norm: torch.Tensor,
     return down, resid
 
 
-def run_layers(cfg: ModelConfig, eng: EngineConfig, layers_params: dict,
-               x: torch.Tensor, cache: kvc.KVCache, cos, sin,
-               q_start: torch.Tensor, kv_len: torch.Tensor):
+def layers(cfg: ModelConfig, eng: EngineConfig, layers_params: dict,
+           x: torch.Tensor, cache: kvc.KVCache, cos, sin,
+           q_start: torch.Tensor, kv_len: torch.Tensor, tapped: bool = True):
     """The decoder layer loop over ``w[i]`` views of the stacked weights
-    (quantized or not). Returns the last layer's (down, residual): the
+    (quantized or not), as a generator of the row-sharded products (see
+    the module docstring). Returns the last layer's (down, residual): the
     caller's final norm adds them."""
     kernels, eps = eng.kernels, cfg.rms_norm_eps
     down = None
@@ -148,9 +173,38 @@ def run_layers(cfg: ModelConfig, eng: EngineConfig, layers_params: dict,
             # the previous layer's residual add, fused into this norm
             h_norm, x = add_residual_rmsnorm(down, x, layer["attn_norm"], eps,
                                              kernels=kernels)
-        down, x = _layer_step(cfg, eng, h_norm, x, layer, i, cache, cos, sin,
-                              q_start, kv_len)
+        down, x = yield from _layer_gen(cfg, eng, h_norm, x, layer, i, cache,
+                                        cos, sin, q_start, kv_len, tapped)
     return down, x
+
+
+def decoder(cfg: ModelConfig, eng: EngineConfig, params: dict,
+            token_ids: torch.Tensor, cache: kvc.KVCache,
+            q_start: torch.Tensor, kv_len: torch.Tensor, tapped: bool = True):
+    """:func:`decoder_forward` as a generator of the row-sharded products
+    (see the module docstring). Returns hidden [B, T, H]."""
+    B, T = token_ids.shape
+    positions = (q_start[:, None]
+                 + torch.arange(T, dtype=torch.int32,
+                                device=token_ids.device)[None, :])
+    # RoPE angles once per forward, shared by every layer
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
+                            cfg.rope_scaling)
+    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+
+    x = embedding_lookup(params["embed"], token_ids).to(cfg.dtype)
+    tapped = tapped and _debug.tap.enabled
+    if tapped:
+        _debug.tap("embedding", x)
+    down, resid = yield from layers(cfg, eng, params["layers"], x, cache,
+                                    cos, sin, q_start, kv_len, tapped)
+    cache.lengths.copy_(kv_len)
+    # the last layer's residual add, fused into the final norm
+    x, _ = add_residual_rmsnorm(down, resid, params["final_norm"],
+                                cfg.rms_norm_eps, kernels=eng.kernels)
+    if tapped:
+        _debug.tap("final_norm", x)
+    return x
 
 
 def decoder_forward(cfg: ModelConfig, eng: EngineConfig, params: dict,
@@ -165,27 +219,9 @@ def decoder_forward(cfg: ModelConfig, eng: EngineConfig, params: dict,
     q_start:   [B] int32 write/attend offset (history length per slot)
     kv_len:    [B] int32 total valid kv after this call (q_start + new)
     """
-    B, T = token_ids.shape
-    positions = (q_start[:, None]
-                 + torch.arange(T, dtype=torch.int32,
-                                device=token_ids.device)[None, :])
-    # RoPE angles once per forward, shared by every layer
-    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
-                            cfg.rope_scaling)
-    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
-
-    x = embedding_lookup(params["embed"], token_ids).to(cfg.dtype)
-    if _debug.tap.enabled:
-        _debug.tap("embedding", x)
-    down, resid = run_layers(cfg, eng, params["layers"], x, cache, cos, sin,
-                             q_start, kv_len)
-    cache.lengths.copy_(kv_len)
-    # the last layer's residual add, fused into the final norm
-    x, _ = add_residual_rmsnorm(down, resid, params["final_norm"],
-                                cfg.rms_norm_eps, kernels=eng.kernels)
-    if _debug.tap.enabled:
-        _debug.tap("final_norm", x)
-    return x, cache
+    hidden = whole(decoder(cfg, eng, params, token_ids, cache, q_start,
+                           kv_len))
+    return hidden, cache
 
 
 def lm_head_logits(cfg: ModelConfig, eng: EngineConfig, params: dict,

@@ -216,7 +216,7 @@ def _quantize(params: Params, mode: str, group_size: int,
     return out
 
 
-#: tap name -> the matmul whose INPUT it is (models/llama._layer_step)
+#: tap name -> the matmul whose INPUT it is (models/llama._layer_gen)
 _CAL_TAPS = {"attn_norm": "wqkv", "attn_ctx": "wo",
              "ffn_in": "w_gate_up", "ffn_act": "w_down"}
 

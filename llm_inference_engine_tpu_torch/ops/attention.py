@@ -45,9 +45,10 @@ sliding window W, j > p - W, using kv head h // G. A row with no visible
 key gives 0, not NaN. The decode kernel reads ``kv_len`` per sequence, so
 the JAX package's static ``kv_hi`` watermark has no counterpart.
 
-Not ported yet: the attend-only decode over a slot cache (the engine
-always fuses the slot decode) and tensor-parallel decode (ROADMAP.md,
-queue 1, "Parallelism").
+Under tensor parallelism every mode runs on a model rank's local heads
+(``parallel/sharding.py``), the slot decode fused as on one device. The
+engine never runs the attend-only decode over a slot cache: it always
+fuses the slot decode.
 """
 
 from __future__ import annotations

@@ -27,7 +27,9 @@ elsewhere. Kernel I (CUDA, ``csrc/kv_write_quant.cu``) replaces the TPU
 kernel ``_write_kernel_quant``: it quantizes the new bf16 rows and writes
 values and scales in one launch (the JAX package quantizes in XLA first).
 
-Not ported yet: head-group sharding (ROADMAP.md, queue 1, "Parallelism").
+Under tensor parallelism each model rank holds a cache of its K/tp heads
+(``parallel/sharding.py``), its scale planes with them, its numerics
+picked on its local head count as the JAX package picks per shard group.
 The TPU tile padding of K and D is dropped: it was a DMA-layout
 workaround.
 """

@@ -30,6 +30,11 @@ embeds log2-snapped scale codes in 8 pad rows per token of its int8 pool
 mode (``paged_kv_write_quant``, the paged instance of kernel I in
 ``csrc/kv_write_quant.cu``) quantizes the bf16 rows and writes values and
 scales through the table in one launch.
+
+Under tensor parallelism each model rank holds the pool's K/tp heads of
+every page, and each data group a whole pool, with its own rows of the
+block table and lengths (``parallel/sharding.py``). The int8 pool is
+refused under a mesh, as in the JAX package.
 """
 
 from __future__ import annotations

@@ -118,6 +118,36 @@ class QuantizedTensor:
         return QuantizedTensor(self.q[i], self.scale[i], self.mode,
                                self.group_size)
 
+    def to(self, device) -> "QuantizedTensor":
+        return QuantizedTensor(self.q.to(device), self.scale.to(device),
+                               self.mode, self.group_size)
+
+    def columns(self, start: int, stop: int) -> "QuantizedTensor":
+        """Output columns [start, stop) of q and scale alike: a column
+        shard (contiguous copies)."""
+        return QuantizedTensor(self.q[..., start:stop].contiguous(),
+                               self.scale[..., start:stop].contiguous(),
+                               self.mode, self.group_size)
+
+    def rows(self, start: int, stop: int) -> "QuantizedTensor":
+        """Contraction rows [start, stop): a row shard (contiguous copies).
+        INT4 takes q's byte rows [start/2, stop/2) and the scale groups
+        [start/group, stop/group), so both ends must be whole groups; INT8
+        keeps its per-output-channel scale whole."""
+        if self.mode == "int4":
+            g = self.group_size
+            if start % g or stop % g:
+                raise ValueError(
+                    f"int4 row shard [{start}, {stop}) splits a scale group "
+                    f"of {g}: a shard's rows must be whole groups")
+            return QuantizedTensor(
+                self.q[..., start // 2:stop // 2, :].contiguous(),
+                self.scale[..., start // g:stop // g, :].contiguous(),
+                self.mode, g)
+        return QuantizedTensor(self.q[..., start:stop, :].contiguous(),
+                               self.scale.contiguous(), self.mode,
+                               self.group_size)
+
 
 def _pack_int4(qvals: torch.Tensor, group_size: int = 0) -> torch.Tensor:
     """[in, out] int8 in [-8, 7] -> [in//2, out] packed: byte r =

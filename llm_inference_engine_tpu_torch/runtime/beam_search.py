@@ -59,6 +59,11 @@ class BeamSearch:
 
     def __init__(self, config: ModelConfig, engine_config: EngineConfig,
                  params: dict, num_beams: int = 4, device=None):
+        if not isinstance(params, dict):
+            raise NotImplementedError(
+                "beam search over a mesh engine's sharded params is not "
+                "ported yet (ROADMAP.md, queue 1, "
+                "'Prefix snapshots, speculation and beams on a mesh')")
         self.config = config
         self.engine_config = eng = engine_config.replace(
             max_batch_size=num_beams)

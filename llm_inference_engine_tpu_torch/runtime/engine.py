@@ -1,12 +1,12 @@
 """Inference engine: prefill / decode steps + generation loop.
 
-Port of the single-device path of
-``llm_inference_engine_tpu/runtime/engine.py``, over the slot cache or
-the paged pool. The JAX package's jitted closures become methods. Kept
-from it: power-of-two prefill buckets, chunked prefill with the
-near-capacity bucket shrink and the loud capacity refusal, per-slot
-penalty count planes, logprobs, multi-round history in the cache, and the
-one-token top-up of length-terminated rows.
+Port of ``llm_inference_engine_tpu/runtime/engine.py`` without context
+parallelism, over the slot cache or the paged pool. The JAX package's
+jitted closures become methods. Kept from it: power-of-two prefill
+buckets, chunked prefill with the near-capacity bucket shrink and the
+loud capacity refusal, per-slot penalty count planes, logprobs,
+multi-round history in the cache, and the one-token top-up of
+length-terminated rows.
 
 Decode runs as the JAX engine's device programs do, one device program a
 step or a rollout with its state on the device (``runtime/decode_graph.py``):
@@ -49,9 +49,26 @@ Weights may be dense or quantized (``ops/quant.py``); the engine does
 not look at them. ``kv_cache_dtype_name="int8"`` gives an int8 cache or
 pool with f32 scale planes (``ops/kv_cache.py``, ``ops/paged_kv.py``);
 the slot cache picks its scale numerics by device as the JAX engine
-does, the pool is always snapped. Not ported yet (each raises
-NotImplementedError): meshes (dp/tp/cp), multi-host lockstep overrides
-(ROADMAP.md, queue 1).
+does, the pool is always snapped.
+
+Meshes (``EngineConfig.dp``/``tp``, or a ``parallel.mesh.Mesh`` passed
+in; ``parallel/sharding.py``): the weights are sharded over the model
+ranks and the slots over the data ranks (data rank d owns slots
+``[d * B / dp, (d + 1) * B / dp)``), the cache or pool is a
+``MeshCache`` of per-rank shards, and every forward runs each rank's
+layer body on its local shapes with the same kernels. Everything else of
+the engine (inputs, sampling, penalty counts, the global lengths and
+block table, the page allocator) stays as it is on the mesh's home
+device, rank (0, 0)'s: the scheduler, the server and the prefix caches
+of the paged layout see the same engine. A block-table upload reaches
+every data group. On a mesh whose devices are all one card the decode
+bodies stay CUDA-graph replays (the whole step is on one device); on a
+mesh of several cards they run eagerly (ROADMAP.md, queue 1). Without a
+mesh, ``dp``/``tp`` > 1 build one over ``cuda:0 ... cuda:n-1``, or over
+n copies of the CPU when the engine's device is the CPU. Not ported
+(NotImplementedError): ``cp`` > 1 (ROADMAP.md, queue 1, "Context
+parallelism"), an int8 pool under a mesh (the JAX package's limit), and
+the slot ``PrefixStore``, speculation and beams over a mesh engine.
 """
 
 from __future__ import annotations
@@ -69,6 +86,8 @@ from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
 from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
 from llm_inference_engine_tpu_torch.ops.sampling import (
     apply_penalties, greedy_sample, sample_tokens, token_logprobs)
+from llm_inference_engine_tpu_torch.parallel import sharding
+from llm_inference_engine_tpu_torch.parallel.mesh import Mesh, make_mesh
 from llm_inference_engine_tpu_torch.runtime import decode_graph
 from llm_inference_engine_tpu_torch.utils import debug
 
@@ -140,24 +159,42 @@ def check_kernel_dtypes(config: ModelConfig, eng: EngineConfig,
 
 
 def _refuse_unported(eng: EngineConfig) -> None:
-    if eng.dp > 1 or eng.tp > 1 or eng.cp > 1:
+    if eng.cp > 1:
         raise NotImplementedError(
-            "dp/tp/cp meshes are not ported yet (ROADMAP.md, queue 1, "
-            "'Parallelism')")
+            "cp > 1 (context parallelism) is not ported yet (ROADMAP.md, "
+            "queue 1, 'Context parallelism')")
     if eng.kv_layout not in ("slot", "paged"):
         raise ValueError(f"kv_layout must be 'slot' or 'paged', got "
                          f"{eng.kv_layout!r}")
 
 
+def _mesh_for(eng: EngineConfig, device: torch.device) -> Optional[Mesh]:
+    """The mesh that ``dp``/``tp`` ask for (None for one rank): the CPU
+    n times over for a CPU engine, else ``cuda:0 ... cuda:n-1``."""
+    n = eng.dp * eng.tp
+    if n == 1:
+        return None
+    return make_mesh(eng.dp, eng.tp,
+                     devices=[device] * n if device.type == "cpu" else None)
+
+
 class InferenceEngine:
-    """Single-device engine over one model replica and its slot cache or
-    paged pool."""
+    """Engine over one model replica, on one device or over a mesh, and
+    its slot cache or paged pool."""
 
     def __init__(self, config: ModelConfig, engine_config: EngineConfig,
-                 params: dict, rng_seed: int = 0, device=None):
+                 params: dict, rng_seed: int = 0, device=None,
+                 mesh: Optional[Mesh] = None):
         _refuse_unported(engine_config)
-        device = torch.device(device) if device is not None else \
-            params["embed"].device
+        if isinstance(params, sharding.ShardedParams):
+            mesh = mesh or params.mesh
+        if mesh is None:
+            device = torch.device(device if device is not None
+                                  else params["embed"].device)
+            mesh = _mesh_for(engine_config, device)
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.home
         check_kernel_dtypes(config, engine_config, device)
         # NTK rope scaling folds into rope_theta at the engine's context
         # length (config.NTKScaling: one theta, cached keys consistent)
@@ -165,6 +202,12 @@ class InferenceEngine:
         self.config = config
         self.engine_config = engine_config
         self.device = device
+        self._fwd = None
+        if mesh is not None:
+            self._fwd = sharding.make_sharded_forward(config, engine_config,
+                                                      mesh)
+            if not isinstance(params, sharding.ShardedParams):
+                params = sharding.shard_params(params, mesh)
         self.params = params
         B, V = engine_config.max_batch_size, config.vocab_size
         # an int8 cache holds int8 values and f32 scale planes
@@ -174,10 +217,11 @@ class InferenceEngine:
         if self.paged:
             self._init_paged(dtype, quantized)
         else:
-            self.cache = kvc.new_kv_cache(
-                config.num_layers, B, config.num_kv_heads,
-                engine_config.max_seq_len, config.head_dim, dtype=dtype,
-                device=self.device, quantized=quantized)
+            self.cache = self._new_cache(
+                lambda b, k, dev: kvc.new_kv_cache(
+                    config.num_layers, b, k, engine_config.max_seq_len,
+                    config.head_dim, dtype=dtype, device=dev,
+                    quantized=quantized))
         self._lengths = np.zeros((B,), np.int32)     # host mirror
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(rng_seed)
@@ -188,7 +232,17 @@ class InferenceEngine:
         self._counts_gen = torch.zeros_like(self._counts_ctx)
         self._init_decode_programs()
 
+    def _new_cache(self, new, max_pages: Optional[int] = None):
+        """``new(batch, kv_heads, device)``'s cache at the engine's batch
+        and head count, or a ``MeshCache`` of one at each rank's."""
+        B, K = self.engine_config.max_batch_size, self.config.num_kv_heads
+        if self.mesh is None:
+            return new(B, K, self.device)
+        return sharding.sharded_cache(self.mesh, new, B, K, max_pages)
+
     def _init_paged(self, dtype: torch.dtype, quantized: bool) -> None:
+        if self.mesh is not None and quantized:
+            raise NotImplementedError(sharding.INT8_POOL_REFUSAL)
         eng = self.engine_config
         page = eng.page_size
         # multi-token writes must stay within one page: the chunk size
@@ -202,10 +256,11 @@ class InferenceEngine:
         B = eng.max_batch_size
         maxp = -(-eng.max_seq_len // page)
         num_pages = eng.num_pages or (B * maxp + 1)   # +1: reserved page 0
-        self.cache = pkv.new_paged_kv_cache(
-            self.config.num_layers, B, self.config.num_kv_heads, num_pages,
-            page, self.config.head_dim, maxp, dtype=dtype,
-            device=self.device, quantized=quantized)
+        self.cache = self._new_cache(
+            lambda b, k, dev: pkv.new_paged_kv_cache(
+                self.config.num_layers, b, k, num_pages, page,
+                self.config.head_dim, maxp, dtype=dtype, device=dev,
+                quantized=quantized), maxp)
         self._allocator = pkv.PageAllocator(num_pages)
         self._slot_pages: list[list[int]] = [[] for _ in range(B)]
         self._table_host = np.zeros((B, maxp), np.int32)
@@ -236,7 +291,9 @@ class InferenceEngine:
         self._flags = decode_graph.FlagPoll(self._roll_flag)
         cuda = dev.type == "cuda"
         # graphs by body name on the card; None runs the bodies eagerly
-        self._programs: Optional[dict] = {} if cuda else None
+        # (also over a mesh of several cards: a graph is one device's)
+        one_device = self.mesh is None or self.mesh.one_device
+        self._programs: Optional[dict] = {} if cuda and one_device else None
         if cuda:
             self._input_pinned = torch.zeros(self._input_buf.shape,
                                              dtype=torch.int32,
@@ -273,11 +330,14 @@ class InferenceEngine:
         table = self.cache.block_table
         if self.device.type != "cuda":
             table.copy_(torch.from_numpy(self._table_host))
-            return
-        self._table_copied.synchronize()
-        self._table_pinned.numpy()[...] = self._table_host
-        table.copy_(self._table_pinned, non_blocking=True)
-        self._table_copied.record()
+        else:
+            self._table_copied.synchronize()
+            self._table_pinned.numpy()[...] = self._table_host
+            table.copy_(self._table_pinned, non_blocking=True)
+        if self.mesh is not None:
+            self.cache.upload_table()
+        if self.device.type == "cuda":
+            self._table_copied.record()
 
     @staticmethod
     def _count_tokens(counts: torch.Tensor, token_ids: torch.Tensor,
@@ -288,6 +348,10 @@ class InferenceEngine:
 
     def _forward(self, token_ids: torch.Tensor, q_start: torch.Tensor,
                  kv_len: torch.Tensor) -> torch.Tensor:
+        if self._fwd is not None:
+            logits, _ = self._fwd(self.params, self.cache, token_ids, q_start,
+                                  kv_len)
+            return logits
         logits, self.cache = llama_model.forward_hidden(
             self.config, self.engine_config, self.params, token_ids,
             self.cache, q_start, kv_len)
@@ -412,13 +476,20 @@ class InferenceEngine:
             self._release_pages(rows)
 
     def prefill(self, prompts: Sequence[Sequence[int]],
-                slots: Optional[Sequence[int]] = None) -> torch.Tensor:
+                slots: Optional[Sequence[int]] = None,
+                pad_to: Optional[int] = None) -> torch.Tensor:
         """Prefill prompt token ids into ``slots`` (default [0, len)).
 
         Appends to any existing history in those slots (multi-round). Slots
         not listed run with zero new tokens and are untouched. Prompts
         longer than ``max_prefill_len`` run as several chunks, each
         attending the cache its predecessors filled.
+
+        ``pad_to``: the multi-host lockstep override
+        (``runtime/multihost_scheduler.py``): every host runs the agreed
+        chunk length and round count, whatever its own prompts (possibly
+        none); the near-capacity split and bucket shrink are then skipped,
+        as in the JAX package.
 
         Returns last-token logits [B, V] f32 (rows of untouched slots are
         don't-care)."""
@@ -432,9 +503,11 @@ class InferenceEngine:
                              f"{len(slots)} slots for {len(prompts)} prompts")
         C = max(1, eng.max_prefill_len)
         max_len = max([len(p) for p in prompts] or [0])
+        if pad_to is not None:
+            max_len = max(max_len, pad_to)
         lengths_host = self._lengths.copy()
 
-        if len(prompts) > 1:
+        if pad_to is None and len(prompts) > 1:
             # near-capacity appends need a SMALLER padded bucket than fresh
             # admissions can share: run them as a separate call ("near" is
             # judged against the bucket this batch would use)
@@ -463,12 +536,14 @@ class InferenceEngine:
                 n = min(max(len(p) - offset, 0), C)
                 chunk_lens[slot] = n
                 chunk_max = max(chunk_max, n)
+            if pad_to is not None:
+                chunk_max = max(chunk_max, min(max_len - offset, C))
             T = _bucket_len(max(chunk_max, 1), cap=C)
             # near capacity the PADDED window must not cross the cache
             # end: shrink the bucket (down to an exact-fit tail bucket),
             # and refuse loudly if the real tokens cannot fit
             active_rows = chunk_lens > 0
-            if active_rows.any():
+            if pad_to is None and active_rows.any():
                 qmax = int(lengths_host[active_rows].max())
 
                 def crosses(t):

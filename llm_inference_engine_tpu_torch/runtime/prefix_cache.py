@@ -64,6 +64,12 @@ class PrefixEntry:
 
 
 def _require_slot_layout(cache) -> None:
+    if hasattr(cache, "shards"):
+        raise NotImplementedError(
+            "slot prefix snapshots over a mesh engine are not ported yet "
+            "(ROADMAP.md, queue 1, "
+            "'Prefix snapshots, speculation and beams on a mesh'); "
+            "the paged prefix caches work over a mesh")
     if hasattr(cache, "block_table"):
         raise NotImplementedError(
             "prefix caching requires the slot KV layout (kv_layout='slot'):"

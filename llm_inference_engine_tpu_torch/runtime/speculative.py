@@ -80,6 +80,11 @@ class SpeculativeDecoder:
         if target.paged or draft.paged:
             raise NotImplementedError(
                 "speculative decoding uses the slot KV layout")
+        if target.mesh is not None or draft.mesh is not None:
+            raise NotImplementedError(
+                "speculative decoding over a mesh engine is not ported yet "
+                "(ROADMAP.md, queue 1, "
+                "'Prefix snapshots, speculation and beams on a mesh')")
         self.target = target
         self.draft = draft
         self.k = num_draft

@@ -15,7 +15,10 @@ serves through ``SpeculativeScheduler``: the draft is built by
 ``create_engine`` with the target's ``EngineConfig`` (quantized the same
 way), needs the slot layout (``--kv-layout paged`` exits 2), and
 ``/metrics`` then reports ``llm_spec_acceptance_rate``. The JAX package's
-``--platform`` picks a JAX backend and has no counterpart.
+``--platform`` picks a JAX backend and has no counterpart. The server
+runs unchanged over a mesh engine (``InferenceEngine(..., mesh=...)``);
+:func:`aggregate_metrics` merges the ``/metrics`` of replicas behind a
+``RequestRouter``.
 
 The reference's only user surface was a single-user blocking CLI REPL
 (user_entry.cpp:9-43). This is the deployable counterpart: an HTTP server
@@ -55,7 +58,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from llm_inference_engine_tpu_torch.config import SamplingParams
 
-__all__ = ["LLMServer", "make_server", "main"]
+__all__ = ["LLMServer", "aggregate_metrics", "make_server", "main"]
 
 _STEP_IDLE_SLEEP = 0.002
 
@@ -618,6 +621,64 @@ class _Handler(BaseHTTPRequestHandler):
             self.llm.request_cancel(pending)
             for _ in events:
                 pass
+
+
+def aggregate_metrics(texts) -> str:
+    """Fleet view of per-replica ``/metrics`` expositions (the DP-router
+    deployment: independent replicas behind a request router,
+    ``runtime/multihost_scheduler.RequestRouter``; the JAX package's
+    function, character for character in its output).
+
+    Counters and resource gauges (inflight, queue depth, free pages)
+    ADD across replicas; ratio gauges (``*_rate``) average. TYPE lines
+    keep the first-seen declaration; metric order is first-seen."""
+    order: list[str] = []
+    types: dict[str, str] = {}
+    sums: dict[str, float] = {}
+    counts: dict[str, int] = {}
+    for text in texts:
+        for line in text.splitlines():
+            if line.startswith("# TYPE "):
+                _, _, name, mtype = line.split()
+                types.setdefault(name, mtype)
+                continue
+            if not line.strip() or line.startswith("#"):
+                continue
+            # exposition sample: name[{labels}] value [timestamp] —
+            # labels may contain quoted spaces, so split from the RIGHT;
+            # a trailing integer preceded by another number is a
+            # timestamp (Prometheus text format)
+            parts = line.rsplit(None, 1)
+            if len(parts) != 2:
+                continue
+            name, value = parts
+            try:
+                fval = float(value)
+            except ValueError:
+                continue                     # not a sample line: skip
+            h2 = name.rsplit(None, 1)
+            if len(h2) == 2 and value.lstrip("-+").isdigit():
+                try:
+                    fval = float(h2[1])      # "name value timestamp"
+                    name = h2[0]
+                except ValueError:
+                    pass                     # name legitimately has space
+            if name not in sums:
+                order.append(name)
+                sums[name] = 0.0
+                counts[name] = 0
+            sums[name] += fval
+            counts[name] += 1
+    out = []
+    for name in order:
+        val = sums[name]
+        if name.endswith("_rate") and counts[name]:
+            val /= counts[name]
+        if name in types:
+            out.append(f"# TYPE {name} {types[name]}")
+        txt = f"{val:.6f}".rstrip("0").rstrip(".")
+        out.append(f"{name} {txt}")
+    return "\n".join(out) + "\n"
 
 
 def make_server(scheduler, tokenizer, template, model_name: str,

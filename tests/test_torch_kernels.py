@@ -1597,3 +1597,151 @@ def test_beam_step_replays_equal_eager_steps(cuda):
             want = bs.search(prompt, n, eos_token_id=None)
         assert bs.search(prompt, n, eos_token_id=None) == want
         assert set(bs._programs) == {"step"}
+
+
+# ---------------------------------------------------------------------------
+# the kernels at a model rank's local shapes of llama2-7b under tp = 2
+# (parallel/sharding.py): every input a view at the head of a buffer whose
+# tail past it holds NaN (int8 weights: 127), so a read past any ragged
+# tail shows
+# ---------------------------------------------------------------------------
+
+# (k, n, halves) of E/F: the column-sharded wqkv, gate|up and vocab, the
+# row-sharded wo (k 2048) and down (k 5504: 43 groups, 21.5 decode stages)
+TP2_PROJECTIONS = {"wqkv": (4096, 6144, 1), "wo": (2048, 4096, 1),
+                   "gate_up": (4096, 5504, 2), "down": (5504, 4096, 1),
+                   "lm_head": (4096, 16000, 1)}
+TP2_HEADS = 16
+
+
+def _tail_poisoned(t: torch.Tensor, pad: int = 1 << 16) -> torch.Tensor:
+    """``t``'s values at the head of a larger buffer whose tail is NaN (or
+    127 for an integer dtype)."""
+    fill = float("nan") if t.is_floating_point() else 127
+    buf = torch.full((t.numel() + pad,), fill, dtype=t.dtype,
+                     device=t.device)
+    buf[:t.numel()].copy_(t.flatten())
+    return buf[:t.numel()].view(t.shape)
+
+
+@pytest.mark.parametrize("mode", ["int4", "int8"])
+@pytest.mark.parametrize("m", [8, 512])
+@pytest.mark.parametrize("proj", list(TP2_PROJECTIONS))
+def test_quant_matmul_at_tp2_local_shapes(cuda, mode, m, proj):
+    k, n, halves = TP2_PROJECTIONS[proj]
+    t = _qweight(cuda, mode, k, n, halves)
+    t = quant.QuantizedTensor(_tail_poisoned(t.q), _tail_poisoned(t.scale),
+                              mode, t.group_size)
+    x = _tail_poisoned(torch.randn(m, k, device=cuda, dtype=torch.bfloat16))
+    if proj == "lm_head":
+        got = _held_against_plain(t, x, torch.float32, atol=1e-3, rtol=1e-4)
+    else:
+        got = _held_against_plain(t, x, torch.bfloat16)
+    assert got.shape == (m, n * halves) and torch.isfinite(got).all()
+
+
+def test_silu_and_mul_at_tp2_local_shape(cuda):
+    x = _tail_poisoned(torch.randn(8, 2 * 5504, device=cuda,
+                                   dtype=torch.bfloat16))
+    got = activations.silu_and_mul(x, kernels="cuda")
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, activations.silu_and_mul_torch(x), **TOL)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_kv_writes_at_tp2_local_heads(cuda, int8):
+    """C (bf16) and I (int8, snapped as the 16-head shard of the engine)
+    writing a ragged chunk at 16 heads: bit-identical to the plain write."""
+    L, B, S, K, D, T = 2, 4, 600, TP2_HEADS, 128, 77
+    if int8:
+        c = _int8_slot(cuda, L, B, S, K, D, True)
+        ref = kvc.KVCache(c.k.clone(), c.v.clone(), c.lengths,
+                          c.k_scale.clone(), c.v_scale.clone(), snapped=True)
+    else:
+        base = torch.randn(L, B, S, K, D, device=cuda, dtype=torch.bfloat16)
+        c = kvc.KVCache(base.clone(), base.clone(),
+                        torch.zeros(B, device=cuda, dtype=torch.int32))
+        ref = kvc.KVCache(base.clone(), base.clone(), c.lengths)
+    new_k = _tail_poisoned(torch.randn(B, T, K, D, device=cuda,
+                                       dtype=torch.bfloat16))
+    new_v = _tail_poisoned(torch.randn(B, T, K, D, device=cuda,
+                                       dtype=torch.bfloat16))
+    starts = torch.tensor([0, 37, 599, 88], device=cuda, dtype=torch.int32)
+    new_len = torch.tensor([77, 40, 1, 0], device=cuda, dtype=torch.int32)
+    kvc.update_cache_at_layer(c, 1, new_k, new_v, starts, new_len,
+                              kernels="cuda")
+    kvc.update_cache_at_layer_torch(ref, 1, new_k, new_v, starts, new_len)
+    torch.cuda.synchronize()
+    for name in ("k", "v") + (("k_scale", "v_scale") if int8 else ()):
+        assert torch.equal(getattr(c, name), getattr(ref, name))
+
+
+@pytest.mark.parametrize("mode", ["slot", "int8", "paged"])
+def test_attention_at_tp2_local_heads(cuda, mode):
+    """D2 (a ragged prefill chunk) and D (the fused slot decode, or the
+    paged decode) at a model rank's 16 heads of llama2-7b, every cache row
+    past kv_len NaN (values; an int8 cache's scales; pool pages outside
+    the table), held against the plain versions on clean copies."""
+    T, S, q_start, kv_len = _lens(cuda, CHUNK)
+    K, D, L, B, page = TP2_HEADS, 128, 2, 4, 64
+    q = _tail_poisoned(torch.randn(B, T, K, D, device=cuda,
+                                   dtype=torch.bfloat16))
+    if mode == "paged":
+        c = _paged_pool(cuda, L, B, S // page + 2, page, K, D)
+    elif mode == "int8":
+        c = _int8_slot(cuda, L, B, S, K, D, True)
+    else:
+        c = kvc.KVCache(*_qkv(cuda, L, B, 1, 1, K, S, D)[1:], q_start)
+    clean = [None if t is None else t.clone()
+             for t in (c.k, c.v, c.k_scale, c.v_scale)]
+    kw = dict(table=c.block_table) if mode == "paged" else {}
+    if mode == "paged":
+        _poison_pool(c, kv_len, page)
+    else:
+        _poison_slot(c, kv_len)
+    planes = _planes(c) if c.k_scale is not None else {}
+    got = attention.attention(q, c.k, c.v, q_start, kv_len, layer=1,
+                              kernels="cuda", **kw, **planes)
+    want = attention.attention(q, clean[0], clean[1], q_start, kv_len,
+                               layer=1, kernels="torch", **kw,
+                               **({} if clean[2] is None else dict(
+                                   k_scale=clean[2], v_scale=clean[3])))
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **TOL)
+
+    # decode, one token a sequence, row 2 inactive: the paged mode attends
+    # up to each row's last valid key; the fused slot mode writes the new
+    # key at kv_len (row 3 at 0: a first token) and attends up to it
+    qd = _tail_poisoned(torch.randn(B, 1, K, D, device=cuda,
+                                    dtype=torch.bfloat16))
+    step = torch.tensor([1, 1, 0, 1], device=cuda, dtype=torch.int32)
+    if mode == "paged":
+        start = kv_len - 1
+    else:
+        start = kv_len.clone()
+        start[3] = 0
+    end = start + step
+    if mode == "paged":
+        got = attention.attention_decode(qd, c.k, c.v, start, end, 1,
+                                         table=c.block_table, kernels="cuda")
+        want = attention.attention_paged_torch(
+            qd, c.k.nan_to_num(), c.v.nan_to_num(), start, end, 1,
+            c.block_table)
+    else:
+        k_new = _tail_poisoned(torch.randn(B, 1, K, D, device=cuda,
+                                           dtype=torch.bfloat16))
+        v_new = torch.randn_like(k_new)
+        ref = [None if t is None else t.clone()
+               for t in (c.k, c.v, c.k_scale, c.v_scale)]
+        for t in ref[2:] if mode == "int8" else ref[:2]:
+            t.nan_to_num_(1.0 if mode == "int8" else 0.0)
+        got, _, _ = attention.attention_decode_fused(
+            qd, k_new, v_new, c.k, c.v, start, end, 1, kernels="cuda",
+            snapped=mode == "int8", **planes)
+        want, _, _ = attention.attention_decode_fused_torch(
+            qd, k_new, v_new, ref[0], ref[1], start, end, 1,
+            snapped=mode == "int8",
+            **({} if ref[2] is None else dict(k_scale=ref[2],
+                                              v_scale=ref[3])))
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **TOL)

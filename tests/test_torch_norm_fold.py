@@ -97,8 +97,9 @@ def _unfolded_forward(cfg, eng, params, ids, cache, q_start, kv_len):
     for i in range(cache.num_layers):
         layer = {name: w[i] for name, w in params["layers"].items()}
         h_norm = rmsnorm(x, layer["attn_norm"], eps)
-        down, resid = llama._layer_step(cfg, eng, h_norm, x, layer, i, cache,
-                                        cos, sin, q_start, kv_len)
+        down, resid = llama.whole(llama._layer_gen(
+            cfg, eng, h_norm, x, layer, i, cache, cos, sin, q_start, kv_len,
+            True))
         x = add_residual(down, resid)
     cache.lengths.copy_(kv_len)
     return rmsnorm(x, params["final_norm"], eps)

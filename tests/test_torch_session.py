@@ -333,8 +333,14 @@ def test_cli_dummy_mode_and_refusals(chat_ckpt, monkeypatch, capsys):
                 capsys)
     reply = out.split("please input the question: ")[1]
     assert reply.startswith(":") and len(reply[1:].split()) == 3
+    # --tp 2 on the CPU: a mesh of two CPU ranks, the one-rank reply
+    out_tp = _repl(cli.main, ["--model", "debug", "--dummy-weights",
+                              "--greedy", "--max-new-tokens", "3",
+                              "--max-seq-len", "64", "--device", "cpu",
+                              "--tp", "2"], "7 11 13\n", monkeypatch, capsys)
+    assert out_tp.split("please input the question: ")[1] == reply
     for argv, err, match in (
-            (["--tp", "2"], NotImplementedError, "Parallelism"),
+            (["--tp", "2"], RuntimeError, "no CUDA device"),
             (["--dummy-weights", "--device", "cuda"], RuntimeError,
              "no CUDA device")):
         if err is RuntimeError and torch.cuda.is_available():
