@@ -331,9 +331,18 @@ MUST_SEE_FAULTS = ("int8-kv8",)
 # per main path: decode wall and card busy per step, eager bodies against
 # graph replays (graph_checks), printed as one line at the end of phase 4
 DECODE: dict = {}
-# what 4n reuses of 4b (its weights, prompts, kernel-path prefill logits
-# and round-1 greedy ids) and of 4g (its logits and ids), by path
+# what 4n reuses of 4b (its prompts, kernel-path prefill logits and
+# round-1 greedy ids) and of 4g (its logits and ids), by path; 4n makes
+# 4b's seed-0 weights again, so no later path's peak memory holds them
 MAIN_RUNS: dict = {}
+# 4n: the largest relative L2 distance allowed between the prefill logits
+# of a tp = 2 engine and of the one-rank engine on the same weights. The two
+# differ in where each row sum splits (K/2 per rank, then the cross-rank
+# sum), so in bf16 rounding only: 4.5e-4 (tp = 2) and 5.0e-4 (tp = 2 over
+# the int8 cache) on an H100, beside 1.2e-3 between 4b's plain bf16 path
+# and f32. A planted fault (one rank's partial product left out of every
+# sum) must land above the limit.
+TP_LOGIT_REL_L2 = 2e-3
 
 
 def say(*parts) -> None:
@@ -1931,8 +1940,7 @@ def phase_main_path(torch, dev, results, path: str, eng_cfg, prompt_lens,
     if failures:
         raise AssertionError(f"{path} path: " + "; ".join(failures))
     if path in ("int4", "int4-kv8"):
-        MAIN_RUNS[path] = dict(params=params if path == "int4" else None,
-                               prompts=prompts, logits=logits,
+        MAIN_RUNS[path] = dict(prompts=prompts, logits=logits,
                                ids=r1.token_ids)
     return logits
 
@@ -4607,18 +4615,44 @@ def tp2_kernel_rows(torch, dev, results) -> None:
     every input at the head of a buffer whose tail holds NaN
     (``poisoned``) and every cache row past kv_len NaN, held against the
     plain versions (on clean copies) and timed beside them, with their
-    bounds and library calls: E and F at m 8 and 512 on TP2_SHAPES, B at
+    bounds and library calls: E and F at m 8 and 512 on TP2_SHAPES, G
+    on TP2_SHAPES (the m >= 1024 route of 4n's first prefill chunk), B at
     [8, 2 x 5504], C and I writing 4b's first chunk (8 x 512, ragged) at
-    16 heads, D2 attending it, and D's fused decode at 4b's decode
-    contexts."""
+    16 heads, D2 attending it, D's fused decode at 4b's decode contexts,
+    and ``tp2_paged_rows``."""
     from llm_inference_engine_tpu_torch.ops import activations, attention
     from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
+    from llm_inference_engine_tpu_torch.ops import quant
     gen = torch.Generator(device=dev).manual_seed(2024)
     for mode in ("int4", "int8"):
         for m in (8, 512):
             for label in TP2_SHAPES:
                 quant_case(torch, dev, gen, results, mode, m, label,
                            TP2_SHAPES, tag="tp2 ", poison=True)
+    torch.cuda.empty_cache()
+
+    def g(t, kern):
+        return quant.dequant_int4(t.q, t.scale, 128, kernels=kern)
+    for label, (k, n, halves) in TP2_SHAPES.items():
+        ts = quant_weights(torch, quant, dev, gen, "int4", k, n, halves,
+                           120_000_000)
+        ts[0] = quant.QuantizedTensor(poisoned(torch, ts[0].q),
+                                      poisoned(torch, ts[0].scale), "int4",
+                                      128)
+        got, want = g(ts[0], "cuda"), g(ts[0], "torch")
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"dequant_int4 tp2 {label}: not "
+                                 "bit-identical to the plain dequant")
+        check_close(torch, "dequant_int4", got, want, results,
+                    f"tp2 {label} [{k // 2},{halves * n}] -> bf16 "
+                    "(torch.equal), NaN past the tail",
+                    (time_ms(torch, cycling(ts, lambda t: g(t, "cuda"))),
+                     time_ms(torch, cycling(ts, lambda t: g(t, "torch")),
+                             iters=3, warmup=1)),
+                    work=(ts[0].nbytes + k * halves * n * 2,
+                          2 * k * halves * n))
+        del ts, got, want
     torch.cuda.empty_cache()
     nan = float("nan")
 
@@ -4743,6 +4777,165 @@ def tp2_kernel_rows(torch, dev, results) -> None:
                 row_rel=DECODE_ROW_TOL)
     del c, ref
     torch.cuda.empty_cache()
+    tp2_paged_rows(torch, dev, gen, results)
+
+
+def tp2_paged_rows(torch, dev, gen, results) -> None:
+    """4n (e), paged: H, D2's paged mode and D's paged decode at 16 heads
+    over a pool of 4n (d)'s (pages of 64, 1 + 8 x 32 pages, B = 8), its
+    table a random page permutation cut to each row's pages (entries past
+    them at the scratch page 0, as the engine's): H writing 4n (d)'s
+    prefill chunk (TP2_SCHED_PROMPTS in rows 0-3, four empty rows) and its
+    last decode step's rows, each bit-identical to the plain write; D2
+    attending the chunk and D the last decode step's contexts, every pool
+    row no key below kv_len maps to NaN (the scratch page, the unused
+    pages, the tails of the last used ones), held against the plain
+    versions on a clean copy. Library calls: ``index_copy_`` for H, SDPA
+    over the rows' pages gathered into a slot layout beforehand for D2
+    and D."""
+    from llm_inference_engine_tpu_torch.ops import attention
+    from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+    L, B, S, K, D, page = 2, 8, 2048, TP2_HEADS, 128, 64
+    maxp = S // page
+    P = 1 + B * maxp
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    def ints(vals):
+        return torch.tensor(vals, dtype=torch.int32, device=dev)
+
+    perm = (torch.randperm(P - 1, generator=gen, device=dev) + 1).to(
+        torch.int32).reshape(B, maxp)
+
+    def cut(kv_len):
+        used = [-(-n // page) for n in kv_len]
+        return torch.where(torch.arange(maxp, device=dev)[None, :]
+                           < ints(used)[:, None], perm, 0).to(
+            torch.int32).contiguous()
+
+    def live_mask(table, kv_len):
+        """Pool rows [P * page] that a key below kv_len maps to."""
+        keep = torch.zeros(P * page, dtype=torch.bool, device=dev)
+        for b, n in enumerate(kv_len):
+            j = torch.arange(n, device=dev)
+            keep[table[b, j // page].long() * page + j % page] = True
+        return keep
+
+    def gathered(pool, table):
+        """A layer's pages of each row in a slot layout [B, S, K, D]."""
+        return pool[table.long()].reshape(B, maxp * page, K, D)
+
+    # 4n (d): prompts in rows 0-3 of 8; 16 decode steps after the prefill
+    chunk = list(TP2_SCHED_PROMPTS) + [0] * (B - len(TP2_SCHED_PROMPTS))
+    last = [n + 16 if n else 0 for n in chunk]       # the last step's kv_len
+    k, v = randn(L, P, page, K, D), randn(L, P, page, K, D)
+    cache = pkv.PagedKVCache(k, v, cut(chunk), ints([0] * B))
+    ref = pkv.PagedKVCache(k[1:].clone(), v[1:].clone(), cache.block_table,
+                           cache.lengths)
+
+    # H: the prefill chunk (T 64), then the last decode step's rows
+    kn, vn = poisoned(torch, randn(B, 64, K, D)), poisoned(torch,
+                                                           randn(B, 64, K, D))
+    starts, new_len = ints([0] * B), ints(chunk)
+    pkv.paged_update_at_layer(cache, 1, kn, vn, starts, new_len,
+                              kernels="cuda")
+    pkv.paged_update_at_layer_torch(ref, 0, kn, vn, starts, new_len)
+    torch.cuda.synchronize()
+    if not (torch.equal(cache.k[1], ref.k[0])
+            and torch.equal(cache.v[1], ref.v[0])):
+        raise AssertionError("paged_kv_write at 16 heads: the chunk's pool "
+                             "differs from the plain write")
+    table = cache.block_table.tolist()
+    pos, picked = slot_rows([0] * B, chunk, 64, 0)
+    flat = [table[i // 64][p // page] * page + p % page
+            for p, i in zip(pos, picked)]
+    check_close(torch, "paged_kv_write", cache.k[1], ref.k[0], results,
+                f"tp2 B8 4n (d)'s chunk {list(TP2_SCHED_PROMPTS)} + 4 empty "
+                "rows, page 64 cold L2",
+                (time_ms(torch, lambda: pkv.paged_update_at_layer(
+                    cache, 1, kn, vn, starts, new_len, kernels="cuda"),
+                    cold=True),
+                 time_ms(torch, lambda: pkv.paged_update_at_layer_torch(
+                     ref, 0, kn, vn, starts, new_len))),
+                work=write_work(len(pos), K, D),
+                library=index_copy_ms(torch, (cache.k[1], cache.v[1]),
+                                      (kn, vn), (ints(flat).long(),
+                                                 ints(picked).long())))
+    cache.block_table.copy_(cut(last))
+    kn1, vn1 = poisoned(torch, randn(B, 1, K, D)), poisoned(torch,
+                                                            randn(B, 1, K, D))
+    qs = [n - 1 if n else 0 for n in last]
+    step = ints([1 if n else 0 for n in last])
+    pkv.paged_update_at_layer(cache, 1, kn1, vn1, ints(qs), step,
+                              kernels="cuda")
+    pkv.paged_update_at_layer_torch(ref, 0, kn1, vn1, ints(qs), step)
+    torch.cuda.synchronize()
+    if not (torch.equal(cache.k[1], ref.k[0])
+            and torch.equal(cache.v[1], ref.v[0])):
+        raise AssertionError("paged_kv_write at 16 heads: the decode rows' "
+                             "pool differs from the plain write")
+    check_close(torch, "paged_kv_write", cache.k[1], ref.k[0], results,
+                f"tp2 B8 4n (d)'s last decode step, kv_len {last}")
+
+    # D2: the chunk, rows of kv_len 0 included
+    clean_k, clean_v = ref.k[0], ref.v[0]
+    table_c = cut(chunk)
+    dead = ~live_mask(table_c, chunk)
+    cache.k[1].view(P * page, K, D)[dead] = float("nan")
+    cache.v[1].view(P * page, K, D)[dead] = float("nan")
+    q = poisoned(torch, randn(B, 64, K, D))
+    kv_len = ints(chunk)
+    run = lambda: attention.attention(  # noqa: E731
+        q, cache.k, cache.v, starts, kv_len, layer=1, table=table_c,
+        kernels="cuda")
+    plain = lambda: attention.attention(  # noqa: E731
+        q, ref.k, ref.v, starts, kv_len, layer=0, table=table_c,
+        kernels="torch")
+    check_close(torch, "attention_prefill_paged", run(), plain(), results,
+                f"tp2 B8 T64 H16 K16 4n (d)'s chunk page 64, NaN past kv_len",
+                (time_ms(torch, run), time_ms(torch, plain, iters=3,
+                                              warmup=1)),
+                work=attn_work([0] * B, chunk, 64, K, K, D),
+                library=sdpa_ms(torch, q, gathered(clean_k, table_c),
+                                gathered(clean_v, table_c), starts, kv_len))
+
+    # D: the last decode step's contexts, rows of kv_len 0 included
+    cache.k[1].copy_(clean_k)
+    cache.v[1].copy_(clean_v)
+    table_d = cut(last)
+    dead = ~live_mask(table_d, last)
+    cache.k[1].view(P * page, K, D)[dead] = float("nan")
+    cache.v[1].view(P * page, K, D)[dead] = float("nan")
+    qd = poisoned(torch, randn(B, 1, K, D))
+    q_start, kv_len = ints(qs), ints(last)
+    say_plan(attention, "tp2 paged B8 H16 K16 D128 page 64", B, K, K, D,
+             page=page, max_pages=maxp)
+    run = lambda: attention.attention_decode(  # noqa: E731
+        qd, cache.k, cache.v, q_start, kv_len, 1, table=table_d,
+        kernels="cuda")
+    plain = lambda: attention.attention_decode(  # noqa: E731
+        qd, ref.k, ref.v, q_start, kv_len, 0, table=table_d,
+        kernels="torch")
+    # the empty rows give zeros; the row limit holds the others
+    got, want = run(), plain()
+    live = ints([b for b, n in enumerate(last) if n]).long()
+    empty = ints([b for b, n in enumerate(last) if not n]).long()
+    if got[empty].abs().max().item() or want[empty].abs().max().item():
+        raise AssertionError("attention_decode_paged at 16 heads: a row of "
+                             "kv_len 0 is not zero")
+    check_close(torch, "attention_decode_paged", got[live], want[live],
+                results, f"tp2 B8 H16 K16 4n (d)'s last step kv_len {last} "
+                "(the 4 live rows held), NaN past kv_len",
+                (time_ms(torch, run),
+                           time_ms(torch, plain, iters=3, warmup=1)),
+                work=attn_work(qs, last, 1, K, K, D),
+                library=sdpa_ms(torch, qd, gathered(clean_k, table_d),
+                                gathered(clean_v, table_d), q_start, kv_len),
+                row_rel=DECODE_ROW_TOL)
+    del cache, ref, k, v
+    torch.cuda.empty_cache()
 
 
 def mesh_steps(torch, engine, toks, active, tag: str) -> list:
@@ -4812,12 +5005,41 @@ def mesh_steps(torch, engine, toks, active, tag: str) -> list:
     return eager_ids
 
 
-def first_token_rule(tag: str, logits, ref_logits, ref_ids) -> None:
-    """The tie rule of 4a-4j against a one-rank engine's kernel path: a
-    row's first token must equal the one-rank engine's, or lie in its top
-    2 where the one-rank top-1/top-2 margin is below the largest logit
-    difference between the two engines. Prints the logits' distance."""
+def dropped_rank_logits(engine, prompts):
+    """``engine``'s prefill logits (from empty slots) with model rank 1's
+    partial product left out of every cross-rank sum: the fault that
+    ``first_token_rule``'s distance limit must see (instrumentation of
+    that check only; ``rank_sum`` is restored after)."""
+    from llm_inference_engine_tpu_torch.parallel import sharding
+    plain = sharding.rank_sum
+    sharding.rank_sum = lambda parts, devices: plain(parts[:1], devices)
+    try:
+        engine.reset()
+        return engine.prefill(prompts)
+    finally:
+        sharding.rank_sum = plain
+        engine.reset()
+
+
+def first_token_rule(tag: str, logits, ref_logits, ref_ids,
+                     faulted) -> None:
+    """A tp = 2 engine's prefill logits against a one-rank engine's kernel
+    path: their relative L2 distance at most TP_LOGIT_REL_L2, and that of
+    ``faulted`` (``dropped_rank_logits``) above it; then the tie rule of
+    4a-4j: a row's first token must equal the one-rank engine's, or lie
+    in its top 2 where the one-rank top-1/top-2 margin is below the
+    largest logit difference between the two engines."""
     d, r = _logit_diff(logits, ref_logits)
+    fd, fr = _logit_diff(faulted, ref_logits)
+    say(f"  {tag} with model rank 1's partial left out of every sum "
+        f"(planted): max abs {fd:.4e}, rel L2 {fr:.4e}; limit "
+        f"{TP_LOGIT_REL_L2:.1e}")
+    if r > TP_LOGIT_REL_L2:
+        raise AssertionError(f"{tag}: prefill logits rel L2 {r:.4e} from the "
+                             f"one-rank engine's, over {TP_LOGIT_REL_L2}")
+    if fr <= TP_LOGIT_REL_L2:
+        raise AssertionError(f"{tag}: the limit {TP_LOGIT_REL_L2} cannot see "
+                             f"a partial product left out (rel L2 {fr:.4e})")
     top2, top2_ids = ref_logits.topk(2, dim=-1)
     margins = (top2[:, 0] - top2[:, 1]).tolist()
     got = logits.argmax(-1).tolist()
@@ -4849,8 +5071,9 @@ def phase_parallel(torch, dev, results) -> None:
     """4n: tensor and data parallelism on one card, llama2-7b INT4 (4b's
     weights and prompts), B = 8, meshes of two ranks on cuda:0, every
     launch counter set to 0 just before each path and read just after:
-    (a) tp = 2: prefill logits against 4b's, first tokens under the tie
-    rule, 16 greedy tokens, ``mesh_steps``, and the launches of one decode
+    4b's seed-0 weights made again: (a) tp = 2: prefill logits within
+    TP_LOGIT_REL_L2 of 4b's (and a partial product left out, beyond it),
+    first tokens under the tie rule, 16 greedy tokens, ``mesh_steps``, and the launches of one decode
     step (A and B per rank); (b) dp = 2: 16 greedy ids identical to 4b's;
     (c) tp = 2 with the int8 slot cache: against 4g as (a) against 4b;
     (d) tp = 2 paged (pages of 64) through the scheduler: 4 requests whose
@@ -4860,6 +5083,8 @@ def phase_parallel(torch, dev, results) -> None:
 
     from llm_inference_engine_tpu_torch.config import (
         EngineConfig, SamplingParams, get_config)
+    from llm_inference_engine_tpu_torch.models.weights import (
+        init_dummy_quantized_params)
     from llm_inference_engine_tpu_torch.parallel import make_mesh, sharding
     from llm_inference_engine_tpu_torch.runtime.engine import InferenceEngine
     from llm_inference_engine_tpu_torch.runtime.scheduler import (
@@ -4873,7 +5098,10 @@ def phase_parallel(torch, dev, results) -> None:
     greedy = SamplingParams(greedy=True, max_new_tokens=16)
     active = np.ones(B, bool)
     tp2 = make_mesh(1, 2, devices=[dev, dev])
-    sp = sharding.shard_params(base["params"], tp2)
+    # 4b's weights (create_engine's for llama2-7b INT4, seed 0)
+    params = init_dummy_quantized_params(cfg, "int4", eng.quant_group_size,
+                                         seed=0, device=dev)
+    sp = sharding.shard_params(params, tp2)
 
     def last(r):
         return torch.tensor([o[-1] for o in r.token_ids], device=dev,
@@ -4883,8 +5111,8 @@ def phase_parallel(torch, dev, results) -> None:
     counters = _zero_counters()
     e = InferenceEngine(cfg, eng, sp)
     logits = e.prefill(prompts)
-    first_token_rule("4n (a) tp=2", logits, base["logits"], base["ids"])
-    e.reset()
+    first_token_rule("4n (a) tp=2", logits, base["logits"], base["ids"],
+                     dropped_rank_logits(e, prompts))
     t0 = time.perf_counter()
     r = e.generate(prompts, greedy, eos_token_id=None)
     gen_s = time.perf_counter() - t0
@@ -4913,7 +5141,7 @@ def phase_parallel(torch, dev, results) -> None:
 
     # (b) dp = 2: no row's arithmetic changes
     counters = _zero_counters()
-    e = InferenceEngine(cfg, eng, base["params"],
+    e = InferenceEngine(cfg, eng, params,
                         mesh=make_mesh(2, 1, devices=[dev, dev]))
     r = e.generate(prompts, greedy, eos_token_id=None)
     differ = [i for i in range(B) if r.token_ids[i] != base["ids"][i]]
@@ -4921,7 +5149,7 @@ def phase_parallel(torch, dev, results) -> None:
         + (f" (rows that differ: {differ})" if differ else ""))
     mesh_steps(torch, e, last(r), active, "dp2 int4")
     _path_launches("4n (b) dp=2", counters, MAIN_PATHS["int4"][0])
-    del e
+    del e, params
     torch.cuda.empty_cache()
     if differ:
         raise AssertionError(f"4n (b): dp=2 ids differ from 4b's in rows "
@@ -4936,8 +5164,7 @@ def phase_parallel(torch, dev, results) -> None:
         " GB")
     logits = e.prefill(prompts)
     first_token_rule("4n (c) tp=2 int8 KV", logits, kv8["logits"],
-                     kv8["ids"])
-    e.reset()
+                     kv8["ids"], dropped_rank_logits(e, prompts))
     r = e.generate(prompts, greedy, eos_token_id=None)
     mesh_steps(torch, e, last(r), active, "tp2 int4-kv8")
     _path_launches("4n (c) tp=2 int8 KV", counters, MAIN_PATHS["int4-kv8"][0])

@@ -68,6 +68,13 @@ class Mesh:
         """Whether every rank lies on the same device."""
         return len(set(self.devices.flat)) == 1
 
+    def same_as(self, other: "Mesh") -> bool:
+        """Whether ``other`` has this mesh's shape and each rank's device
+        (the same ranks on the same devices)."""
+        return (self.devices.shape == other.devices.shape
+                and all(a == b for a, b in zip(self.devices.flat,
+                                               other.devices.flat)))
+
 
 def make_mesh(dp: int = 1, tp: int = 1,
               devices: Optional[Sequence[torch.device]] = None) -> Mesh:

@@ -18,6 +18,7 @@ group on gloo, over which they exchange scheduler metadata only:
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import os
 from typing import Optional, Sequence
@@ -45,7 +46,8 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
     ("host:port"), else at ``MASTER_ADDR``:``MASTER_PORT``, with
     ``num_processes`` (else ``WORLD_SIZE``) processes as ``process_id``
     (else ``RANK``). A no-op when the group is up already, or in one
-    process: no address, or a world of one."""
+    process: no address, or a world of one. The group is destroyed at
+    exit, before the interpreter tears down its threads."""
     if process_count() > 1 or not dist.is_available():
         return
     address = coordinator_address
@@ -60,6 +62,12 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
         return
     dist.init_process_group("gloo", init_method=f"tcp://{address}",
                             world_size=world, rank=rank)
+    atexit.register(_destroy_group)
+
+
+def _destroy_group() -> None:
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def make_multihost_mesh(dp: int = 1, tp: int = 1,

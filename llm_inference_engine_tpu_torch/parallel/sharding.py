@@ -57,7 +57,6 @@ import torch
 
 from llm_inference_engine_tpu_torch.models import llama as llama_model
 from llm_inference_engine_tpu_torch.ops.kv_cache import KVCache
-from llm_inference_engine_tpu_torch.ops.paged_kv import PagedKVCache
 from llm_inference_engine_tpu_torch.ops.quant import QuantizedTensor
 from llm_inference_engine_tpu_torch.parallel.mesh import (
     Mesh, local_config, validate_mesh)
@@ -178,43 +177,26 @@ def sharded_cache(mesh: Mesh, new_shard: Callable, batch_size: int,
     return MeshCache(mesh, shards, lengths, table)
 
 
-def shard_cache(cache, mesh: Mesh) -> MeshCache:
-    """Slice a one-device slot cache or page pool into its shards (rows
-    over data, heads over model), each a copy on its rank's device."""
-    paged = isinstance(cache, PagedKVCache)
-    if paged and cache.quantized:
-        raise NotImplementedError(INT8_POOL_REFUSAL)
+def shard_cache(cache: KVCache, mesh: Mesh) -> MeshCache:
+    """Slice a one-device slot cache into its shards (rows over data,
+    heads over model), each a copy on its rank's device. The engine
+    builds its caches and pools with :func:`sharded_cache`."""
     B, K = cache.lengths.shape[0], cache.k.shape[3]
     kb, hb = B // mesh.dp, K // mesh.tp
 
-    def part(t, d, r, heads_axis):
+    def part(t, d, r):
         if t is None:
             return None
-        if not paged:
-            t = t.narrow(1, d * kb, kb)
-        return t.narrow(heads_axis, r * hb, hb).contiguous().to(
+        return t.narrow(1, d * kb, kb).narrow(3, r * hb, hb).contiguous().to(
             mesh.devices[d, r])
 
-    shards = []
-    for d in range(mesh.dp):
-        row = []
-        rows = slice(d * kb, (d + 1) * kb)
-        for r in range(mesh.tp):
-            dev = mesh.devices[d, r]
-            lengths = cache.lengths[rows].clone().to(dev)
-            if paged:
-                row.append(PagedKVCache(
-                    part(cache.k, d, r, 3), part(cache.v, d, r, 3),
-                    cache.block_table[rows].clone().to(dev), lengths))
-            else:
-                row.append(KVCache(
-                    part(cache.k, d, r, 3), part(cache.v, d, r, 3), lengths,
-                    part(cache.k_scale, d, r, 3), part(cache.v_scale, d, r, 3),
-                    snapped=cache.snapped))
-        shards.append(row)
-    return MeshCache(mesh, shards, cache.lengths.clone().to(mesh.home),
-                     cache.block_table.clone().to(mesh.home)
-                     if paged else None)
+    shards = [[KVCache(part(cache.k, d, r), part(cache.v, d, r),
+                       cache.lengths[d * kb:(d + 1) * kb].clone().to(
+                           mesh.devices[d, r]),
+                       part(cache.k_scale, d, r), part(cache.v_scale, d, r),
+                       snapped=cache.snapped)
+               for r in range(mesh.tp)] for d in range(mesh.dp)]
+    return MeshCache(mesh, shards, cache.lengths.clone().to(mesh.home))
 
 
 def rank_sum(parts: list, devices) -> list:

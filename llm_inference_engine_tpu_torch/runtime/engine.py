@@ -65,7 +65,10 @@ every data group. On a mesh whose devices are all one card the decode
 bodies stay CUDA-graph replays (the whole step is on one device); on a
 mesh of several cards they run eagerly (ROADMAP.md, queue 1). Without a
 mesh, ``dp``/``tp`` > 1 build one over ``cuda:0 ... cuda:n-1``, or over
-n copies of the CPU when the engine's device is the CPU. Not ported
+n copies of the CPU when the engine's device is the CPU. A mesh comes
+from one place, and ``engine_config`` then carries its ``dp``/``tp``:
+``ShardedParams`` bring theirs (a different ``mesh=`` raises), a
+``mesh=`` must agree with any ``dp``/``tp`` > 1 (ValueError). Not ported
 (NotImplementedError): ``cp`` > 1 (ROADMAP.md, queue 1, "Context
 parallelism"), an int8 pool under a mesh (the JAX package's limit), and
 the slot ``PrefixStore``, speculation and beams over a mesh engine.
@@ -178,6 +181,16 @@ def _mesh_for(eng: EngineConfig, device: torch.device) -> Optional[Mesh]:
                      devices=[device] * n if device.type == "cpu" else None)
 
 
+def _config_of(eng: EngineConfig, mesh: Mesh) -> EngineConfig:
+    """``eng`` with the mesh's ``dp``/``tp``: the engine's config always
+    describes its mesh. ``dp``/``tp`` left at 1 take the mesh's; others
+    must equal them (ValueError)."""
+    if (eng.dp, eng.tp) not in ((1, 1), (mesh.dp, mesh.tp)):
+        raise ValueError(f"EngineConfig dp={eng.dp} tp={eng.tp} disagrees "
+                         f"with the mesh's dp={mesh.dp} tp={mesh.tp}")
+    return eng.replace(dp=mesh.dp, tp=mesh.tp)
+
+
 class InferenceEngine:
     """Engine over one model replica, on one device or over a mesh, and
     its slot cache or paged pool."""
@@ -187,13 +200,18 @@ class InferenceEngine:
                  mesh: Optional[Mesh] = None):
         _refuse_unported(engine_config)
         if isinstance(params, sharding.ShardedParams):
-            mesh = mesh or params.mesh
+            if mesh is not None and not mesh.same_as(params.mesh):
+                raise ValueError("params are sharded over another mesh than "
+                                 "the mesh= given: shard them over it, or "
+                                 "leave mesh= out")
+            mesh = params.mesh
         if mesh is None:
             device = torch.device(device if device is not None
                                   else params["embed"].device)
             mesh = _mesh_for(engine_config, device)
         self.mesh = mesh
         if mesh is not None:
+            engine_config = _config_of(engine_config, mesh)
             device = mesh.home
         check_kernel_dtypes(config, engine_config, device)
         # NTK rope scaling folds into rope_theta at the engine's context

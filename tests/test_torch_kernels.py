@@ -1648,6 +1648,46 @@ def test_silu_and_mul_at_tp2_local_shape(cuda):
     torch.testing.assert_close(got, activations.silu_and_mul_torch(x), **TOL)
 
 
+@pytest.mark.parametrize("proj", list(TP2_PROJECTIONS))
+def test_dequant_int4_at_tp2_local_shapes(cuda, proj):
+    """G on a model rank's shard (the m >= 1024 prefill route), q and
+    scale tail-poisoned: bit-identical to the plain dequant."""
+    k, n, halves = TP2_PROJECTIONS[proj]
+    t = _qweight(cuda, "int4", k, n, halves)
+    q, scale = _tail_poisoned(t.q), _tail_poisoned(t.scale)
+    got = quant.dequant_int4(q, scale, 128, kernels="cuda")
+    want = quant.dequant_int4(q, scale, 128, kernels="torch")
+    torch.cuda.synchronize()
+    assert got.shape == (k, halves * n)
+    assert torch.equal(got, want)
+
+
+def test_paged_kv_write_at_tp2_local_heads(cuda):
+    """H at 16 heads, pages of 64: a chunk of four prompts (5, 17, 40 and
+    64 tokens) beside four empty rows, then one decode row each of the
+    four, the new rows tail-poisoned: bit-identical to the plain write."""
+    from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+    B, K, D, page = 8, TP2_HEADS, 128, 64
+    cache = _paged_pool(cuda, 2, B, 4, page, K, D)
+    ref = pkv.PagedKVCache(cache.k.clone(), cache.v.clone(),
+                           cache.block_table, cache.lengths)
+    chunk = [5, 17, 40, 64, 0, 0, 0, 0]
+    for T, starts, new_len in (
+            (64, [0] * B, chunk),
+            (1, [n + 15 if n else 0 for n in chunk],
+             [1 if n else 0 for n in chunk])):
+        new_k, new_v = (_tail_poisoned(torch.randn(
+            B, T, K, D, device=cuda, dtype=torch.bfloat16)) for _ in "kv")
+        starts = torch.tensor(starts, device=cuda, dtype=torch.int32)
+        new_len = torch.tensor(new_len, device=cuda, dtype=torch.int32)
+        pkv.paged_update_at_layer(cache, 1, new_k, new_v, starts, new_len,
+                                  kernels="cuda")
+        pkv.paged_update_at_layer_torch(ref, 1, new_k, new_v, starts,
+                                        new_len)
+        torch.cuda.synchronize()
+        assert torch.equal(cache.k, ref.k) and torch.equal(cache.v, ref.v)
+
+
 @pytest.mark.parametrize("int8", [False, True])
 def test_kv_writes_at_tp2_local_heads(cuda, int8):
     """C (bf16) and I (int8, snapped as the 16-head shard of the engine)

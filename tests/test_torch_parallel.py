@@ -86,24 +86,28 @@ def _engines(dp, tp, jp, seed_params=None, **kw):
 
 @pytest.mark.parametrize("dp,tp", MESHES)
 def test_sharded_forward_matches_jax_mesh(rng, dp, tp):
-    """make_sharded_forward over shard_params / shard_cache: a ragged
-    prefill then a decode step, logits within 1e-5 of the JAX package's
-    sharded forward, the global and the shards' lengths written."""
+    """make_sharded_forward over shard_params / shard_cache: a slot cache
+    holding a ragged history (random keys and values, a row of none) is
+    sharded, a ragged prefill appends to it, then a decode step; logits
+    within 1e-5 of the JAX package's sharded forward over the same cache,
+    the global and the shards' lengths written."""
     jp = j_init_dummy_params(CFG_J, seed=1)
     B, T, S = 4, 8, 32
+    L, K, D = CFG.num_layers, CFG.num_kv_heads, CFG.head_dim
     ids = rng.integers(0, CFG.vocab_size, size=(B, T)).astype(np.int32)
-    lens = np.array([8, 5, 8, 3], np.int32)
+    hist = np.array([3, 0, 6, 2], np.int32)
+    lens = hist + np.array([8, 5, 8, 3], np.int32)
     nxt = rng.integers(0, CFG.vocab_size, size=(B, 1)).astype(np.int32)
-    zeros = np.zeros((B,), np.int32)
+    k0, v0 = (rng.standard_normal((L, B, S, K, D)).astype(np.float32)
+              for _ in "kv")
     jmesh, mesh = _meshes(dp, tp)
 
     jeng = JEngineConfig(max_batch_size=B, max_seq_len=S, kernels="xla")
     jfwd = jax.jit(j_sharding.make_sharded_forward(CFG_J, jeng, jmesh, jp))
     jsp = j_sharding.shard_params(jp, jmesh)
-    jc = j_sharding.shard_cache(j_kvc.new_kv_cache(
-        CFG.num_layers, B, CFG.num_kv_heads, S, CFG.head_dim,
-        dtype=CFG_J.dtype), jmesh)
-    want1, jc = jfwd(jsp, jc, jnp.asarray(ids), jnp.asarray(zeros),
+    jc = j_sharding.shard_cache(j_kvc.KVCache(
+        jnp.asarray(k0), jnp.asarray(v0), jnp.asarray(hist)), jmesh)
+    want1, jc = jfwd(jsp, jc, jnp.asarray(ids), jnp.asarray(hist),
                      jnp.asarray(lens))
     want2, _ = jfwd(jsp, jc, jnp.asarray(nxt), jnp.asarray(lens),
                     jnp.asarray(lens + 1))
@@ -111,10 +115,10 @@ def test_sharded_forward_matches_jax_mesh(rng, dp, tp):
     fwd = sharding.make_sharded_forward(
         CFG, EngineConfig(max_batch_size=B, max_seq_len=S), mesh)
     sp = sharding.shard_params(_crossed(jp), mesh)
-    mc = sharding.shard_cache(kvc.new_kv_cache(
-        CFG.num_layers, B, CFG.num_kv_heads, S, CFG.head_dim,
-        dtype=CFG.dtype), mesh)
-    got1, mc = fwd(sp, mc, torch.from_numpy(ids), torch.from_numpy(zeros),
+    mc = sharding.shard_cache(kvc.KVCache(
+        torch.from_numpy(k0), torch.from_numpy(v0), torch.from_numpy(hist)),
+        mesh)
+    got1, mc = fwd(sp, mc, torch.from_numpy(ids), torch.from_numpy(hist),
                    torch.from_numpy(lens))
     got2, mc = fwd(sp, mc, torch.from_numpy(nxt), torch.from_numpy(lens),
                    torch.from_numpy(lens + 1))
@@ -125,11 +129,17 @@ def test_sharded_forward_matches_jax_mesh(rng, dp, tp):
     np.testing.assert_array_equal(mc.lengths.numpy(), lens + 1)
     loc = local_config(CFG, mesh)
     for d, row in enumerate(mc.shards):
-        for shard in row:
-            assert shard.k.shape == (CFG.num_layers, B // dp, S,
-                                     loc.num_kv_heads, CFG.head_dim)
+        rows = mc.rows(d)
+        for r, shard in enumerate(row):
+            assert shard.k.shape == (L, B // dp, S, loc.num_kv_heads, D)
             np.testing.assert_array_equal(shard.lengths.numpy(),
-                                          (lens + 1)[mc.rows(d)])
+                                          (lens + 1)[rows])
+            # the history the forward did not overwrite is the one sharded
+            heads = slice(r * loc.num_kv_heads, (r + 1) * loc.num_kv_heads)
+            for b in range(B // dp):
+                np.testing.assert_array_equal(
+                    shard.k[:, b, :hist[rows][b]].numpy(),
+                    k0[:, rows][:, b, :hist[rows][b], heads])
 
 
 @pytest.mark.parametrize("dp,tp", MESHES)
@@ -318,6 +328,32 @@ def test_int4_row_shards_must_hold_whole_groups():
     with pytest.raises(ValueError, match="need 4 devices for dp=2 tp=2, "
                        "have 1"):
         make_mesh(2, 2, devices=[CPU])
+
+
+def test_engine_config_describes_the_mesh_it_runs_on():
+    """A mesh comes from one place: the engine's config carries the dp/tp
+    of a mesh= or of ShardedParams; a mesh= other than the params' mesh,
+    or a dp/tp that disagrees with the mesh, raises."""
+    jp = j_init_dummy_params(CFG_J, seed=0)
+    eng = EngineConfig(max_batch_size=2, max_seq_len=32)
+    tp2 = make_mesh(1, 2, devices=[CPU] * 2)
+    sp = sharding.shard_params(_crossed(jp), tp2)
+    by_params = InferenceEngine(CFG, eng, sp)
+    assert by_params.mesh is tp2
+    assert (by_params.engine_config.dp, by_params.engine_config.tp) == (1, 2)
+    by_mesh = InferenceEngine(CFG, eng, _crossed(jp), mesh=make_mesh(
+        2, 1, devices=[CPU] * 2))
+    assert (by_mesh.engine_config.dp, by_mesh.engine_config.tp) == (2, 1)
+    # the same ranks on the same devices is the same mesh
+    InferenceEngine(CFG, eng.replace(tp=2), sp,
+                    mesh=make_mesh(1, 2, devices=[CPU] * 2))
+    with pytest.raises(ValueError, match="sharded over another mesh"):
+        InferenceEngine(CFG, eng, sp, mesh=make_mesh(2, 1,
+                                                     devices=[CPU] * 2))
+    with pytest.raises(ValueError, match="dp=1 tp=2 disagrees with the "
+                       "mesh's dp=2 tp=1"):
+        InferenceEngine(CFG, eng.replace(tp=2), _crossed(jp),
+                        mesh=make_mesh(2, 1, devices=[CPU] * 2))
 
 
 @pytest.mark.parametrize("layout", ["slot", "paged"])

@@ -7,21 +7,25 @@ llama2-7b INT4 (group 128, seed-0 dummy weights), B = 8, the prompts of
 ``chip_smoke.py``'s phase 4b, 16 greedy tokens, through
 ``InferenceEngine`` on these meshes:
 
-- one rank on cuda:0 (the reference), and tp = 2 with both ranks on
-  cuda:0 (decode as CUDA-graph replays, as chip_smoke's 4n runs it);
+- one rank on cuda:0 (the reference), and tp = 2, dp = 2 (and, with
+  four cards, dp = 2 x tp = 2) with every rank on cuda:0 (decode as
+  CUDA-graph replays, as chip_smoke's 4n runs it);
 - tp = 2 over cuda:0 and cuda:1, and dp = 2 over cuda:0 and cuda:1;
 - with four cards, dp = 2 x tp = 2 over cuda:0-3.
 
 A mesh of several cards runs its decode bodies eagerly (a CUDA graph is
 one device's). Every rank's kernels launch on its own card, and the
 cross-rank sums copy each partial product to model rank 0's card and the
-sum back. Checks, each raising on failure: tp = 2 over two cards gives
-the one-card tp = 2 engine's ids (the same kernels at the same shapes,
-summed in the same order); dp = 2 over two cards gives the one-rank
-engine's ids; dp = 2 x tp = 2 gives the tp = 2 ids. Prints each
-engine's prefill seconds, its decode wall a step (host clock around 16
-steps, synchronized) and peak memory per card, the card names and power
-limits, then one JSON line. Exits non-zero with fewer than two cards.
+sum back. Checks, each raising on failure: a mesh over several cards
+gives bit for bit the prefill logits, and the ids, of the same mesh with
+every rank on cuda:0 (the same kernels at the same shapes, summed in the
+same order: a partial lost, misordered or stale on its way between cards
+shows in the logits); dp = 2 over two cards gives the one-rank engine's
+ids, and dp = 2 x tp = 2 the tp = 2 ids. Prints each engine's prefill
+seconds, its decode wall a step (host clock around 16 steps,
+synchronized) and peak memory per card, the largest logit difference of
+each mesh from the one-rank engine, the card names and power limits,
+then one JSON line. Exits non-zero with fewer than two cards.
 """
 
 from __future__ import annotations
@@ -88,11 +92,14 @@ def main() -> int:
 
     meshes = [("one rank, cuda:0", None),
               ("tp=2 on cuda:0", make_mesh(1, 2, [cards[0]] * 2)),
+              ("dp=2 on cuda:0", make_mesh(2, 1, [cards[0]] * 2)),
               ("tp=2 over cuda:0-1", make_mesh(1, 2, cards[:2])),
               ("dp=2 over cuda:0-1", make_mesh(2, 1, cards[:2]))]
     if n_cards >= 4:
-        meshes.append(("dp=2 x tp=2 over cuda:0-3", make_mesh(2, 2,
-                                                               cards[:4])))
+        meshes += [("dp=2 x tp=2 on cuda:0", make_mesh(2, 2,
+                                                       [cards[0]] * 4)),
+                   ("dp=2 x tp=2 over cuda:0-3", make_mesh(2, 2,
+                                                           cards[:4]))]
     out = {}
     for tag, mesh in meshes:
         for d in cards:
@@ -103,7 +110,7 @@ def main() -> int:
         engine.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        engine.prefill(prompts)
+        logits = engine.prefill(prompts)
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
         engine.reset()
@@ -114,8 +121,9 @@ def main() -> int:
         peak = [round(torch.cuda.max_memory_allocated(d) / 2**30, 2)
                 for d in cards]
         replays = engine._programs is not None
-        out[tag] = dict(ids=r.token_ids, prefill_s=prefill_s, step_ms=ms,
-                        replays=replays, peak_gib=peak)
+        out[tag] = dict(ids=r.token_ids, logits=logits.cpu(),
+                        prefill_s=prefill_s, step_ms=ms, replays=replays,
+                        peak_gib=peak)
         print(f"{tag}: prefill of 8 prompts {prefill_s:.4f} s; decode "
               f"{ms:.3f} ms/step ({8e3 / ms:.1f} tok/s at B=8, "
               f"{'replays' if replays else 'eager'}); peak GiB per card "
@@ -123,16 +131,30 @@ def main() -> int:
         del engine
         torch.cuda.empty_cache()
 
+    def same(a, b):
+        return (out[a]["ids"] == out[b]["ids"]
+                and torch.equal(out[a]["logits"], out[b]["logits"]))
     checks = {
-        "tp=2 over two cards == tp=2 on one card":
-            out["tp=2 over cuda:0-1"]["ids"] == out["tp=2 on cuda:0"]["ids"],
-        "dp=2 over two cards == one rank":
+        "tp=2 over two cards == tp=2 on one card, logits bit for bit":
+            same("tp=2 over cuda:0-1", "tp=2 on cuda:0"),
+        "dp=2 over two cards == dp=2 on one card, logits bit for bit":
+            same("dp=2 over cuda:0-1", "dp=2 on cuda:0"),
+        "dp=2 over two cards == one rank, ids":
             out["dp=2 over cuda:0-1"]["ids"] == out["one rank, cuda:0"]["ids"],
     }
     if n_cards >= 4:
-        checks["dp=2 x tp=2 == tp=2 on one card"] = (
+        checks["dp=2 x tp=2 over four cards == on one card, logits bit for "
+               "bit"] = same("dp=2 x tp=2 over cuda:0-3",
+                             "dp=2 x tp=2 on cuda:0")
+        checks["dp=2 x tp=2 == tp=2 on one card, ids"] = (
             out["dp=2 x tp=2 over cuda:0-3"]["ids"]
             == out["tp=2 on cuda:0"]["ids"])
+    ref = out["one rank, cuda:0"]["logits"]
+    for tag, d in out.items():
+        d["logits_max_abs_vs_one_rank"] = (d.pop("logits") - ref).abs().max(
+            ).item()
+        print(f"{tag}: prefill logits max abs from the one-rank engine's "
+              f"{d['logits_max_abs_vs_one_rank']:.4e}", flush=True)
     for name, ok in checks.items():
         print(f"{name}: {ok}", flush=True)
     print(json.dumps({"cards": smi, "checks": checks,
