@@ -97,6 +97,30 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
       heads, every input with NaN past its end and every cache row past
       kv_len NaN, against the plain versions, timed with bound and
       library call;
+   o. context parallelism on one card (after 4n; 4b's weights made
+      again): llama2-7b INT4, B = 4, max_seq_len 8192, chunks of 512,
+      prompts of 1000-6500 tokens, seq ranks on cuda:0, against a cp = 1
+      engine on the same weights: cp = 2 over a bf16 log (a planted ring
+      of own chunks must move the last layer's K rows CP_FAULT_RATIO
+      times as far as the clean path; prefill logits within
+      TP_LOGIT_REL_L2, first tokens under the tie rule, layer 0's K rows
+      put in position order by kv_pos bit for bit the cp = 1 cache's, 16
+      greedy ids equal or ties only; the cp engine's own launches of A,
+      B and C, exact per forward, counted over its prefill and its
+      rollout alone, no D or D2); its decode replays
+      against the eager bodies, the step's wall, busy and idle with the
+      split-KV math split out of the glue, beside the cp = 1 step's D at
+      the same contexts; one more 512-token chunk profiled on both: the
+      ring's ms against D2's; the int8 log (snapped) against the cp = 1
+      int8 slot cache; cp = 2 x tp = 2 (four ranks; the planted fault a
+      model rank's partial left out); then C and I at the CP write
+      shapes (ragged log tails, counts 0 .. 256 and a decode token on
+      one rank of two, NaN past every tail) bit for bit, timed with
+      their bounds; the peak memory;
+   p. the pipeline forward (after 4o, on its weights): pp = 2 on cuda:0
+      against the one-rank forward, pp = 2 x tp = 2 against the tp = 2
+      forward, a [4, 512] chunk and a decode step: logits and every K/V
+      row bit for bit; the stages' weights are views;
    h. paged == slot with the int8 cache: as 4d, bit-identical logits and
       ids, through H's and D's int8 paged modes only;
    i. the server over a paged INT4 engine with an int8 pool of 4e's pool
@@ -181,8 +205,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    against their plain versions at 7B widths, in both scale numerics, the
    decode modes held per row; then at head_dim 80, 96
    and 256, at small shapes, D's four decode modes, D2's four prefill
-   modes and I's two writes; 4j runs after 4g, 4n after 4j, before
-   4d); every profiled step and prefill prints its device time by kernel group
+   modes and I's two writes; 4j runs after 4g, 4n after 4j, 4o and 4p
+   after 4n, before 4d); every profiled step and prefill prints its device time by kernel group
    (KERNEL_GROUPS, the writes and kernels A and B among them; a decode
    step's torch glue split into RoPE, casts, sampling, a mesh's
    cross-rank sums and other by the ops that launch it, GLUE); card busy is the union of the card's
@@ -1309,12 +1333,18 @@ def profile_of(prof, reps: int):
     repetitions: the card's activities only (a trace that also recorded
     CPU ops, as ``utils.profiling.trace`` does, counts each kernel once)."""
     from torch.autograd import DeviceType
+
+    def activity(e):
+        # a ``glue_labels`` range also shows on the card's timeline (a
+        # user annotation): it is no activity
+        return (e.device_type == DeviceType.CUDA
+                and not e.key.startswith("glue:"))
     per_kernel = sorted(((e.self_device_time_total / 1e3 / reps, e.key)
                          for e in prof.key_averages()
-                         if e.self_device_time_total > 0
-                         and e.device_type == DeviceType.CUDA), reverse=True)
+                         if e.self_device_time_total > 0 and activity(e)),
+                        reverse=True)
     spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+                   for e in prof.events() if activity(e))
     union, overlaps, reach = 0.0, 0, float("-inf")
     for start, end in spans:
         if start < reach:
@@ -1349,27 +1379,34 @@ KERNEL_GROUPS = (("D2", ("attention_prefill_kernel",)),
 # the torch glue of a decode step (the kernels outside KERNEL_GROUPS), by
 # where the eager body launched them: RoPE (ops/rope.py's rope_cos_sin and
 # rotate), sampling (ops/sampling.py's functions the engine calls), the
-# cross-rank sums of a mesh engine (parallel/sharding.py's rank_sum),
-# casts (aten::to / copy_ elsewhere), other
-GLUE = ("RoPE", "casts", "sampling", "sums", "other")
+# cross-rank sums of a mesh engine (parallel/sharding.py's rank_sum), the
+# context-parallel attention math (parallel/context_parallel.py's stats,
+# merges and combine; its f32 matmuls are cuBLAS kernels, which
+# ``label_ms`` counts), casts (aten::to / copy_ elsewhere), other
+GLUE = ("RoPE", "casts", "sampling", "sums", "CP", "other")
 
 
 @contextlib.contextmanager
 def glue_labels():
     """Run the RoPE and sampling functions that the decoder and the engine
-    call, and a mesh engine's cross-rank sums, under
-    ``record_function("glue:RoPE")`` / ``("glue:sampling")`` /
-    ``("glue:sums")``, so that a profile names the ops they launch
+    call, a mesh engine's cross-rank sums and the context-parallel
+    attention math, under ``record_function("glue:RoPE")`` /
+    ``("glue:sampling")`` / ``("glue:sums")`` / ``("glue:CP")``, so that
+    a profile names the ops they launch
     (instrumentation of this check only; the functions are put back
     after)."""
     import torch
     from llm_inference_engine_tpu_torch.models import llama
-    from llm_inference_engine_tpu_torch.parallel import sharding
+    from llm_inference_engine_tpu_torch.parallel import (
+        context_parallel, sharding)
     from llm_inference_engine_tpu_torch.runtime import engine
     patches = [(llama, n, "RoPE") for n in ("rope_cos_sin", "rotate")] + [
         (engine, n, "sampling") for n in ("apply_penalties", "greedy_sample",
                                           "sample_tokens", "token_logprobs")
-    ] + [(sharding, "rank_sum", "sums")]
+    ] + [(sharding, "rank_sum", "sums")] + [
+        (context_parallel, n, "CP") for n in ("chunk_attention_stats",
+                                              "merge_stats", "combine_stats",
+                                              "_finalize")]
     saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
 
     def labelled(fn, group):
@@ -1452,6 +1489,28 @@ def glue_map(prof) -> dict:
             for name, d in ms.items() if sum(d.values()) > 0}
 
 
+def label_ms(prof, per_kernel, label: str) -> float:
+    """Device ms of ``per_kernel`` ([(ms, kernel name)]) launched under
+    ``glue_labels``' ``glue:<label>``, by the profile of CPU ops ``prof``
+    (the same run, or an eager run of the body a replay replays): each
+    kernel name's time times the share of its time in ``prof`` that ops
+    under the label launched, whatever its KERNEL_GROUPS group."""
+    from torch.autograd import DeviceType
+    under, total = {}, {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        op = e
+        while op is not None and op.name != f"glue:{label}":
+            op = op.cpu_parent
+        for k in e.kernels:
+            total[k.name] = total.get(k.name, 0.0) + k.duration
+            if op is not None:
+                under[k.name] = under.get(k.name, 0.0) + k.duration
+    return sum(ms * under.get(name, 0.0) / total[name]
+               for ms, name in per_kernel if total.get(name))
+
+
 def _logit_diff(x, ref):
     d = (x - ref).abs().max().item()
     return d, ((x - ref).norm() / ref.norm()).item()
@@ -1514,19 +1573,27 @@ def check_norm_launches(label: str, counts: dict, layers: int,
 
 def snapshot(engine):
     """What a decode run changes besides K/V rows past the lengths: the
-    lengths, both count planes, the generator. Restoring it replays the
-    same run on the same state (the rows it rewrites are rewritten with
-    the same values before they are read)."""
-    return (engine._lengths.copy(), engine._counts_ctx.clone(),
+    lengths, both count planes, the generator, and a context-parallel
+    engine's log row counts (device and host mirror; the kv_pos entries
+    past them are rewritten before they are read, as the rows are).
+    Restoring it replays the same run on the same state (the rows it
+    rewrites are rewritten with the same values before they are read)."""
+    snap = (engine._lengths.copy(), engine._counts_ctx.clone(),
             engine._counts_gen.clone(), engine._gen.get_state())
+    if engine.cp > 1:
+        snap += (engine._llen.copy(), engine.cache.llen.clone())
+    return snap
 
 
 def restore(engine, snap) -> None:
-    lengths, ctx, gen, rng = snap
+    lengths, ctx, gen, rng, *logs = snap
     engine._set_lengths(lengths)
     engine._counts_ctx.copy_(ctx)
     engine._counts_gen.copy_(gen)
     engine._gen.set_state(rng)
+    if logs:
+        engine._llen = logs[0].copy()
+        engine.cache.llen.copy_(logs[1])
 
 
 def sm_clock_mhz() -> int:
@@ -4938,9 +5005,9 @@ def tp2_paged_rows(torch, dev, gen, results) -> None:
     torch.cuda.empty_cache()
 
 
-def mesh_steps(torch, engine, toks, active, tag: str) -> list:
-    """A mesh engine's decode programs: 16 steps through the eager bodies
-    and the same 16 through the CUDA-graph replays (twice, the first with
+def mesh_steps(torch, engine, toks, active, tag: str, n: int = 16) -> list:
+    """A mesh engine's decode programs: n steps through the eager bodies
+    and the same n through the CUDA-graph replays (twice, the first with
     the capture, whose warm-up launches count), from one state: ids, and
     the launch counts of the second replayed run, must equal the eager
     run's.
@@ -4953,12 +5020,12 @@ def mesh_steps(torch, engine, toks, active, tag: str) -> list:
         run_eagerly)
     B = engine.engine_config.max_batch_size
     snap = snapshot(engine)
-    eager_ids, eager_ms, eager_l = _steps(torch, engine, toks, active, 16,
+    eager_ids, eager_ms, eager_l = _steps(torch, engine, toks, active, n,
                                           True)
     restore(engine, snap)
-    graph_ids, _, _ = _steps(torch, engine, toks, active, 16, False)
+    graph_ids, _, _ = _steps(torch, engine, toks, active, n, False)
     restore(engine, snap)
-    again, graph_ms, graph_l = _steps(torch, engine, toks, active, 16, False)
+    again, graph_ms, graph_l = _steps(torch, engine, toks, active, n, False)
     state = {}
 
     def step():
@@ -4972,9 +5039,10 @@ def mesh_steps(torch, engine, toks, active, tag: str) -> list:
     with run_eagerly(engine), glue_labels():
         _, cpu_prof = device_profile(torch, step, 1, cpu_ops=True)
     glue = glue_map(cpu_prof)
-    del cpu_prof
     restore(engine, snap)
     groups = group_ms(prof.per_kernel, glue)
+    cp_ms = label_ms(cpu_prof, prof.per_kernel, "CP")
+    del cpu_prof
     one = DECODE.get("int4", {})
     say(f"  {tag} decode, eager / graphs: wall {eager_ms:.3f} / "
         f"{graph_ms:.3f} ms/step ({B * 1e3 / graph_ms:.1f} tok/s replayed "
@@ -4987,13 +5055,17 @@ def mesh_steps(torch, engine, toks, active, tag: str) -> list:
         f"{_groups(prof.per_kernel, glue)}; by kernel: "
         + "; ".join(f"{_short(name)} {ms:.4f}"
                     for ms, name in prof.per_kernel[:8]))
+    if engine.cp > 1:
+        say(f"  {tag} replayed decode step: the split-KV attention (torch "
+            f"math, its matmuls included) {cp_ms:.4f} ms of durations "
+            f"summed {prof.summed:.3f}")
     failures = []
     if graph_ids != eager_ids or again != eager_ids:
         failures.append("replayed steps differ from the eager steps")
     if graph_l != eager_l:
-        failures.append(f"launches of 16 replays {graph_l} != of 16 eager "
+        failures.append(f"launches of {n} replays {graph_l} != of {n} eager "
                         f"steps {eager_l}")
-    say(f"  {tag} 16 replayed steps == 16 eager steps: "
+    say(f"  {tag} {n} replayed steps == {n} eager steps: "
         f"{graph_ids == eager_ids and again == eager_ids}; launches equal: "
         f"{graph_l == eager_l}")
     if failures:
@@ -5002,6 +5074,8 @@ def mesh_steps(torch, engine, toks, active, tag: str) -> list:
                        graph_busy_ms=[prof.busy],
                        graph_summed_ms=prof.summed,
                        graph_groups_ms=groups)
+    if engine.cp > 1:
+        DECODE[tag]["cp_attention_ms"] = cp_ms
     return eager_ids
 
 
@@ -5023,21 +5097,24 @@ def dropped_rank_logits(engine, prompts):
 
 def first_token_rule(tag: str, logits, ref_logits, ref_ids,
                      faulted) -> None:
-    """A tp = 2 engine's prefill logits against a one-rank engine's kernel
+    """A mesh engine's prefill logits against a one-rank engine's kernel
     path: their relative L2 distance at most TP_LOGIT_REL_L2, and that of
-    ``faulted`` (``dropped_rank_logits``) above it; then the tie rule of
-    4a-4j: a row's first token must equal the one-rank engine's, or lie
-    in its top 2 where the one-rank top-1/top-2 margin is below the
-    largest logit difference between the two engines."""
+    ``faulted`` (``dropped_rank_logits``; None: no fault here) above it;
+    then the tie rule of 4a-4j: a row's first token must equal the
+    one-rank engine's, or lie in its top 2 where the one-rank top-1/top-2
+    margin is below the largest logit difference between the two
+    engines."""
     d, r = _logit_diff(logits, ref_logits)
-    fd, fr = _logit_diff(faulted, ref_logits)
-    say(f"  {tag} with model rank 1's partial left out of every sum "
-        f"(planted): max abs {fd:.4e}, rel L2 {fr:.4e}; limit "
-        f"{TP_LOGIT_REL_L2:.1e}")
+    fr = None
+    if faulted is not None:
+        fd, fr = _logit_diff(faulted, ref_logits)
+        say(f"  {tag} with model rank 1's partial left out of every sum "
+            f"(planted): max abs {fd:.4e}, rel L2 {fr:.4e}; limit "
+            f"{TP_LOGIT_REL_L2:.1e}")
     if r > TP_LOGIT_REL_L2:
         raise AssertionError(f"{tag}: prefill logits rel L2 {r:.4e} from the "
                              f"one-rank engine's, over {TP_LOGIT_REL_L2}")
-    if fr <= TP_LOGIT_REL_L2:
+    if fr is not None and fr <= TP_LOGIT_REL_L2:
         raise AssertionError(f"{tag}: the limit {TP_LOGIT_REL_L2} cannot see "
                              f"a partial product left out (rel L2 {fr:.4e})")
     top2, top2_ids = ref_logits.topk(2, dim=-1)
@@ -5198,6 +5275,572 @@ def phase_parallel(torch, dev, results) -> None:
     tp2_kernel_rows(torch, dev, results)
 
 
+# 4o: context parallelism at llama2-7b INT4 (4b's weights), B = 4, a
+# context of 8192 (two seq logs of 4096 rows), chunks of 512: four
+# prompts of 2 to 13 chunks
+CP_ENGINE = dict(quant_mode="int4", max_batch_size=4, max_seq_len=8192,
+                 max_prefill_len=512)
+CP_PROMPTS = (1000, 2500, 4000, 6500)
+# 4o: the prefill logits of a cp = 2 engine against the cp = 1 engine's on
+# the same weights are held to TP_LOGIT_REL_L2: the two differ in bf16
+# rounding only, in the attention arithmetic (the CP math in f32 against
+# kernel D2's bf16 probabilities) and in where cuBLAS splits the
+# projections (m 1024 a rank against 2048): 1.9e-4 (cp = 2), 1.8e-4 (int8
+# log) and 4.4e-4 (cp = 2 x tp = 2) on an H100. The INT4 dummies' logits
+# barely move with K/V (a ring that merges only each rank's own chunk
+# moves them 9.3e-4), so the planted faults are held on the K rows
+# instead (CP_FAULT_RATIO).
+# 4o: layer 0's K rows written into the seq logs, put back in position
+# order by kv_pos, against the cp = 1 cache's rows: the same projections
+# of the same tokens through the same routing (G + cuBLAS at m 1024 and
+# 2048), bit for bit on an H100 (a row at a wrong log tail or position is
+# off by order 1)
+CP_ROWS_REL_L2 = 0.0
+# 4o: a planted fault (a ring of own chunks only; a model rank's partial
+# left out of every sum) must move the last layer's K rows, against the
+# cp = 1 cache, at least this many times as far as the clean path does
+CP_FAULT_RATIO = 4.0
+
+
+def _cp_rows_by_position(torch, engine, layer: int):
+    """Layer ``layer``'s K rows of an engine in position order, f32
+    [B, S, K, D] (an int8 cache dequantized; zeros where no row holds the
+    position), and the count of rows placed: a cp engine's from every
+    rank's log by kv_pos, a one-rank engine's as they lie."""
+    cache, eng = engine.cache, engine.engine_config
+    if engine.cp == 1:
+        k = cache.k[layer].float()
+        return (k if cache.k_scale is None
+                else k * cache.k_scale[layer, ..., None]), None
+    B, S = eng.max_batch_size, eng.max_seq_len
+    k_local = engine.config.num_kv_heads // engine.mesh.tp
+    out = torch.zeros((B, S, engine.config.num_kv_heads,
+                       engine.config.head_dim), dtype=torch.float32,
+                      device=engine.device)
+    placed = 0
+    for d, s, r, shard, kv_pos in cache.ranks():
+        rows = range(cache.rows(d).start, cache.rows(d).stop)
+        for b_local, b in enumerate(rows):
+            n = int(engine._llen[b, s])
+            k = shard.k[layer, b_local, :n].float()
+            if shard.quantized:
+                k = k * shard.k_scale[layer, b_local, :n, :, None]
+            out[b, kv_pos[b_local, :n].long(),
+                r * k_local:(r + 1) * k_local] = k.to(out.device)
+            placed += n if r == 0 else 0
+    return out, placed
+
+
+def cp_rows_distance(torch, tag: str, engine, base, layer: int) -> float:
+    """Rel L2 of ``engine``'s K rows of ``layer`` in position order
+    against the cp = 1 engine ``base``'s over every valid position; the
+    logs must hold as many rows as positions (a position held twice or
+    missed leaves a zero row, and a distance of order 1)."""
+    rows, placed = _cp_rows_by_position(torch, engine, layer)
+    want, _ = _cp_rows_by_position(torch, base, layer)
+    lengths = engine._lengths
+    if placed != int(lengths.sum()):
+        raise AssertionError(f"{tag}: the logs hold {placed} rows for "
+                             f"{int(lengths.sum())} positions")
+    num = den = 0.0
+    for b, n in enumerate(lengths):
+        num += (rows[b, :n] - want[b, :n]).pow(2).sum().item()
+        den += want[b, :n].pow(2).sum().item()
+    return (num / den) ** 0.5
+
+
+@contextlib.contextmanager
+def planted(module, name: str, make):
+    """``module.name`` replaced by ``make(original)`` inside (a fault a
+    check must see; put back after)."""
+    plain = getattr(module, name)
+    setattr(module, name, make(plain))
+    try:
+        yield
+    finally:
+        setattr(module, name, plain)
+
+
+def ring_of_own_chunks(plain):
+    """``seq_exchange`` whose ring hands each rank its own chunk at every
+    position (the other ranks' chunks never merged)."""
+    from llm_inference_engine_tpu_torch.parallel import context_parallel
+
+    def exchange(requests, devices):
+        replies = plain(requests, devices)
+        if isinstance(requests[0], context_parallel.RingPass):
+            return [[reply[i]] * len(reply)
+                    for i, reply in enumerate(replies)]
+        return replies
+    return exchange
+
+
+def cp_fault_probe(torch, tag: str, engine, base, prompts, fault) -> None:
+    """The first 1024 tokens of each prompt through both engines from
+    empty slots, clean and with ``fault()`` (a ``planted`` context) on
+    ``engine``: the logits' and the last layer's K rows' rel L2 against
+    the cp = 1 engine's printed; the fault must move the rows at least
+    CP_FAULT_RATIO times as far as the clean path. Resets both engines."""
+    short = [p[:1024] for p in prompts]
+    last = engine.config.num_layers - 1
+    base.reset()
+    ref = base.prefill(short)
+    out = []
+    for ctx in (contextlib.nullcontext, fault):
+        engine.reset()
+        with ctx():
+            logits = engine.prefill(short)
+        out.append((_logit_diff(logits, ref)[1],
+                    cp_rows_distance(torch, tag, engine, base, last)))
+    engine.reset()
+    base.reset()
+    (lc, rc), (lf, rf) = out
+    rc = max(rc, 1e-30)
+    say(f"  {tag} on the prompts' first 1024 tokens, clean / planted fault: "
+        f"logits rel L2 {lc:.4e} / {lf:.4e}; layer {last}'s K rows rel L2 "
+        f"{rc:.4e} / {rf:.4e} ({rf / rc:.1f}x; at least {CP_FAULT_RATIO}x)")
+    if rf < CP_FAULT_RATIO * rc:
+        raise AssertionError(f"{tag}: the planted fault moves the K rows "
+                             f"only {rf / rc:.2f}x as far as the clean path")
+
+
+# kernels a cp engine's body must not launch: its attention is the CP
+# torch math, and every rank writes its log with C (or I)
+CP_ABSENT = ("attention_prefill", "attention_decode",
+             "attention_prefill_int8", "attention_decode_int8")
+
+
+def cp_launches(tag: str, engine, pre: dict, roll: dict, write: str) -> None:
+    """A cp engine's own launches, counted from 0 over its prefill of
+    CP_PROMPTS (``pre``) and then over its 15-step rollout (``roll``):
+    every rank (data x seq x model) runs each forward's A and B
+    (``check_norm_launches``) and ``write`` once a layer, in the prefill
+    exactly ranks x chunks forwards, in the rollout a whole number of
+    forwards of every rank; E on every path, G in the prefill (m 1024 a
+    rank); the kernels of CP_ABSENT and the other log write never."""
+    L = engine.config.num_layers
+    mesh = engine.mesh
+    ranks = mesh.dp * mesh.cp * mesh.tp
+    chunks = -(-max(CP_PROMPTS) // engine.engine_config.max_prefill_len)
+    say(f"  launches during {tag}'s prefill ({ranks} ranks x {chunks} "
+        f"chunks): {pre}; during its rollout: {roll}")
+    other = "kv_write" if write == "kv_write_quant" else "kv_write_quant"
+    failures = []
+    for what, counts, forwards in (("prefill", pre, ranks * chunks),
+                                   ("rollout", roll, None)):
+        try:
+            check_norm_launches(f"{tag} {what}", counts, L, forwards)
+        except AssertionError as e:
+            failures.append(str(e))
+        f = counts.get("rmsnorm", 0)
+        if f % ranks or counts.get(write, 0) != L * f:
+            failures.append(f"{what}: {counts.get(write, 0)} launches of "
+                            f"{write} for {f} forwards of {L} layers over "
+                            f"{ranks} ranks")
+        for name in ("int4_matmul",) + (("dequant_int4",)
+                                        if what == "prefill" else ()):
+            if not counts.get(name):
+                failures.append(f"{what}: {name} never launched")
+        launched = [k for k in CP_ABSENT + (other,) if counts.get(k)]
+        if launched:
+            failures.append(f"{what}: launched {launched}")
+    if failures:
+        raise AssertionError(f"{tag}: " + "; ".join(failures))
+
+
+def greedy_ids(torch, engine, logits, n: int) -> list:
+    """The first token (the prefill logits' argmax) and n - 1 more from a
+    replayed greedy decode_rollout, per row: generate's greedy ids
+    without a second prefill."""
+    first = logits.argmax(-1).to(torch.int32)
+    rolled = engine.decode_rollout(first, n - 1).tolist()
+    return [[int(first[i])] + [row[i] for row in rolled]
+            for i in range(first.shape[0])]
+
+
+def ids_or_ties(tag: str, ids, ref_ids, engine, base, prompts) -> None:
+    """Each row's ids equal the cp = 1 engine's, or differ first at a
+    near-tie: there both engines prefill the prompt and the reference
+    ids before it, and the token must lie in the cp = 1 engine's top 2
+    with its top-1/top-2 margin below the largest logit difference
+    between the two. The engines are reset after where a row differs."""
+    differ, bad = [], []
+    for i, (a, b) in enumerate(zip(ids, ref_ids)):
+        if a == b:
+            continue
+        t = next(k for k in range(len(a)) if a[k] != b[k])
+        lg = []
+        for e in (engine, base):
+            e.reset()
+            lg.append(e.prefill([prompts[i] + b[:t]])[0])
+        diff = (lg[0] - lg[1]).abs().max().item()
+        top2, top2_ids = lg[1].topk(2)
+        margin = (top2[0] - top2[1]).item()
+        differ.append((i, t, round(margin, 4), round(diff, 4)))
+        if margin >= diff or a[t] not in top2_ids.tolist():
+            bad.append(i)
+    say(f"  {tag} {len(ids[0])} greedy ids equal the cp=1 engine's in "
+        f"{len(ids) - len(differ)}/{len(ids)} rows; rows that differ (row, "
+        f"first step, cp=1 top-2 margin, logit difference there): {differ}")
+    if differ:
+        engine.reset()
+        base.reset()
+    if bad:
+        raise AssertionError(f"{tag}: ids differ from the cp=1 engine's "
+                             f"outside the tie rule in rows {bad}")
+
+
+def cp_chunk_profile(torch, engine, chunk) -> dict:
+    """One prefill chunk appended to every row, profiled with its CPU ops
+    under ``glue_labels``: card busy, device ms by group, and the CP
+    attention's ms (``label_ms``)."""
+    with glue_labels():
+        prof, cpu = device_profile(torch, lambda: engine.prefill(chunk), 1,
+                                   cpu_ops=True)
+    out = dict(busy=prof.busy, groups=group_ms(prof.per_kernel),
+               cp=label_ms(cpu, prof.per_kernel, "CP"),
+               top=prof.per_kernel[:6])
+    del cpu
+    return out
+
+
+def phase_context_parallel(torch, dev, results):
+    """4o: context parallelism on one card, llama2-7b INT4 (4b's seed-0
+    weights), B = 4, max_seq_len 8192, chunks of 512, prompts of
+    CP_PROMPTS tokens, seq ranks on cuda:0, every launch counter set to 0
+    just before each path and read just after: (a) cp = 2 over a bf16 log
+    against a cp = 1 engine on the same weights: a ring of own chunks
+    planted (``cp_fault_probe``), prefill logits within TP_LOGIT_REL_L2
+    and first tokens under the tie rule, layer 0's K rows in position
+    order bit for bit the cp = 1 cache's (CP_ROWS_REL_L2), 16 greedy
+    ids equal or ties only (``ids_or_ties``), the launches of the cp
+    engine's prefill and rollout alone (``cp_launches``); (b)
+    ``mesh_steps``: 16
+    replayed steps equal to 16 eager ones, the step's wall, busy and
+    idle, the split-KV math's ms; the cp = 1 engine's step at the same
+    contexts (kernel D); one more 512-token chunk on both engines,
+    profiled: the ring's ms against D2's; (c) the int8 log (snapped
+    numerics) against the cp = 1 int8 slot cache, as (a); (d) cp = 2 x
+    tp = 2, four ranks, against (a)'s cp = 1 engine, as (a) with a model
+    rank's partial left out as the fault; (e) ``cp_write_rows``; the peak
+    memory. Returns the weights (4p reuses them)."""
+    import numpy as np
+
+    from llm_inference_engine_tpu_torch.config import EngineConfig, get_config
+    from llm_inference_engine_tpu_torch.models.weights import (
+        init_dummy_quantized_params)
+    from llm_inference_engine_tpu_torch.parallel import (
+        context_parallel, make_mesh, sharding)
+    from llm_inference_engine_tpu_torch.runtime.engine import InferenceEngine
+
+    cfg = get_config("llama2-7b")
+    eng = EngineConfig(**CP_ENGINE)
+    B = eng.max_batch_size
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(3, cfg.vocab_size, n).tolist()
+               for n in CP_PROMPTS]
+    active = np.ones(B, bool)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_dummy_quantized_params(cfg, "int4", eng.quant_group_size,
+                                         seed=0, device=dev)
+    cp2 = make_mesh(1, 1, 2, devices=[dev, dev])
+    t_phase = time.perf_counter()
+
+    def ring_fault():
+        return planted(context_parallel, "seq_exchange", ring_of_own_chunks)
+
+    def elapsed(part):
+        say(f"  4o {part} done at {time.perf_counter() - t_phase:.1f} s")
+
+    def prefill(e):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = e.prefill(prompts)
+        torch.cuda.synchronize()
+        return logits, time.perf_counter() - t0
+
+    def path(tag, e, b, fault, ref, write):
+        """(a), (c), (d): the probe, the prompts through the cp = 1
+        engine ``b`` where ``ref`` is None (its logits and ids become
+        the reference), then through ``e``, whose own prefill and
+        rollout ``cp_launches`` counts (``write``: its log's write
+        kernel). Returns (ids, ref)."""
+        cp_fault_probe(torch, tag, e, b, prompts, fault)
+        if ref is None:
+            ref_logits, seconds = prefill(b)
+            ref = (ref_logits, greedy_ids(torch, b, ref_logits, 16))
+            say(f"  {tag}: the cp=1 engine's prefill {seconds:.3f} s")
+        counters = _zero_counters()
+        logits, seconds = prefill(e)
+        pre = _launch_counts(counters)
+        say(f"  {tag} prefill of {list(CP_PROMPTS)} tokens (chunks of 512) "
+            f"{seconds:.3f} s; logs' rows a rank {e._llen.tolist()}")
+        _zero_counters()
+        ids = greedy_ids(torch, e, logits, 16)
+        roll = _launch_counts(counters)
+        cp_launches(tag, e, pre, roll, write)
+        first_token_rule(tag, logits, ref[0], ref[1], None)
+        return ids, ref
+
+    # (a) cp = 2, bf16 log
+    base = InferenceEngine(cfg, eng, params)
+    e = InferenceEngine(cfg, eng, params, mesh=cp2)
+    say(f"  4o (a) seq ranks share their weights: "
+        f"{e.params.shard(0, 0, 0) is e.params.shard(0, 1, 0)}")
+    elapsed("set-up")
+    ids, ref = path("4o (a) cp=2", e, base, ring_fault, None, "kv_write")
+    layer0 = cp_rows_distance(torch, "4o (a)", e, base, 0)
+    say(f"  4o (a) layer 0's K rows in position order (kv_pos) against "
+        f"the cp=1 cache: rel L2 {layer0:.4e} (limit {CP_ROWS_REL_L2})")
+    if layer0 > CP_ROWS_REL_L2:
+        raise AssertionError(f"4o (a): layer 0's K rows rel L2 {layer0:.4e}")
+    ids_or_ties("4o (a) cp=2", ids, ref[1], e, base, prompts)
+    elapsed("(a)")
+
+    # (b) the decode replays, the split-KV and ring times beside D's, D2's
+    if e._lengths.sum() == 0:             # ids_or_ties reset the engines
+        for x in (e, base):
+            greedy_ids(torch, x, x.prefill(prompts), 16)
+    last = torch.tensor([r[-1] for r in ref[1]], dtype=torch.int32,
+                        device=dev)
+    mesh_steps(torch, e, last, active, "cp2 int4", n=8)
+    mesh_steps(torch, base, last, active, "cp1 int4 8k")
+    ctx = e._lengths.tolist()
+    chunk = [rng.integers(3, cfg.vocab_size, 512).tolist() for _ in range(B)]
+    ring = cp_chunk_profile(torch, e, chunk)
+    flat = cp_chunk_profile(torch, base, chunk)
+    say(f"  4o (b) one 512-token chunk on every row at contexts {ctx}: cp=2 "
+        f"card busy {ring['busy']:.3f} ms, ring attention (torch math, "
+        f"both ranks, 32 layers) {ring['cp']:.3f} ms; cp=1 busy "
+        f"{flat['busy']:.3f} ms, D2 {flat['groups']['D2']:.3f} ms")
+    for tag, prof in (("cp=2", ring), ("cp=1", flat)):
+        say(f"  4o (b) the chunk on {tag}, device ms by group: "
+            + ", ".join(f"{g} {ms:.3f}" for g, ms in prof["groups"].items())
+            + "; by kernel: " + "; ".join(f"{_short(name)} {ms:.3f}"
+                                          for ms, name in prof["top"]))
+    say(f"  4o (b) a replayed decode step at contexts {ctx}: cp=2 split-KV "
+        f"{DECODE['cp2 int4']['cp_attention_ms']:.4f} ms, cp=1 D "
+        f"{DECODE['cp1 int4 8k']['graph_groups_ms']['D']:.4f} ms")
+    say(f"  4o (a)-(b) peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (KV 2 x "
+        f"{kv_bytes(base.cache) / 2**30:.2f} GiB)")
+    del e
+    torch.cuda.empty_cache()
+    elapsed("(b)")
+
+    # (c) the int8 log against the cp = 1 int8 slot cache
+    kv8 = eng.replace(kv_cache_dtype_name="int8")
+    b8 = InferenceEngine(cfg, kv8, params)
+    e = InferenceEngine(cfg, kv8, params, mesh=cp2)
+    snapped = [log.snapped for *_, log, _ in e.cache.ranks()]
+    say(f"  4o (c) int8 logs' numerics snapped: {snapped}")
+    if not all(snapped):
+        raise AssertionError("4o (c): an int8 log is not snapped")
+    ids, ref8 = path("4o (c) cp=2 int8 log", e, b8, ring_fault, None,
+                     "kv_write_quant")
+    layer0 = cp_rows_distance(torch, "4o (c)", e, b8, 0)
+    say(f"  4o (c) layer 0's K rows (dequantized) against the cp=1 int8 "
+        f"cache: rel L2 {layer0:.4e} (limit {CP_ROWS_REL_L2})")
+    if layer0 > CP_ROWS_REL_L2:
+        raise AssertionError(f"4o (c): layer 0's K rows rel L2 {layer0:.4e}")
+    ids_or_ties("4o (c) cp=2 int8 log", ids, ref8[1], e, b8, prompts)
+    del e, b8
+    torch.cuda.empty_cache()
+    elapsed("(c)")
+
+    # (d) cp = 2 x tp = 2
+    e = InferenceEngine(cfg, eng, params,
+                        mesh=make_mesh(1, 2, 2, devices=[dev] * 4))
+
+    def rank_fault():
+        return planted(sharding, "rank_sum", lambda plain: (
+            lambda parts, devices: plain(parts[:1], devices)))
+    ids, _ = path("4o (d) cp=2 x tp=2", e, base, rank_fault, ref,
+                  "kv_write")
+    say(f"  4o (d) peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    ids_or_ties("4o (d) cp=2 x tp=2", ids, ref[1], e, base, prompts)
+    del e, base
+    torch.cuda.empty_cache()
+    elapsed("(d)")
+
+    # (e)
+    cp_write_rows(torch, dev, results)
+    elapsed("(e)")
+    return params
+
+
+def cp_write_rows(torch, dev, results) -> None:
+    """4o (e): kernels C and I at the context-parallel write shapes, held
+    against their plain versions bit for bit and timed beside them with
+    their bounds: a rank's log of 4096 rows (two layers, 32 heads), the
+    prefill sub-chunk of 4o (B 4, 256 rows a rank) at ragged log tails
+    with counts 0 .. 256, and a decode token written by one rank of two
+    (counts 0 and 1); the new rows past each count and the log rows past
+    each tail hold NaN (int8 log: 127 and NaN scales), and must keep it."""
+    from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
+    gen = torch.Generator(device=dev).manual_seed(2025)
+    L, B, S, K, D = 2, 4, 4096, 32, 128
+    nan = float("nan")
+
+    def ints(vals):
+        return torch.tensor(vals, dtype=torch.int32, device=dev)
+
+    def bits(t):
+        return t.view(torch.int16 if t.element_size() == 2 else
+                      torch.int32 if t.element_size() == 4 else torch.int8)
+
+    cases = (("prefill rank 0", 256, [500, 1250, 2000, 3250],
+              [256, 256, 256, 133]),
+             ("prefill rank 1", 256, [244, 994, 1744, 2994],
+              [0, 17, 256, 0]),
+             ("decode", 1, [1262, 1631, 2005, 3257], [1, 0, 0, 1]))
+    for quant in (False, True):
+        for label, T, starts_l, counts_l in cases:
+            starts, counts = ints(starts_l), ints(counts_l)
+            new = [torch.randn((B, T, K, D), generator=gen, device=dev,
+                               dtype=torch.bfloat16) for _ in "kv"]
+            for n in new:
+                for b, c in enumerate(counts_l):
+                    n[b, c:] = nan
+            cache = kvc.new_kv_cache(L, B, K, S, D, device=dev,
+                                     quantized=quant, snapped=True)
+            for t in (cache.k, cache.v):
+                t.fill_(127 if quant else nan)
+            if quant:
+                cache.k_scale.fill_(nan)
+                cache.v_scale.fill_(nan)
+            names = ("k", "v", "k_scale", "v_scale") if quant else ("k", "v")
+            ref = dataclasses.replace(cache, **{n: getattr(cache, n).clone()
+                                                for n in names})
+            kvc.update_cache_at_layer(cache, 1, *new, starts, counts,
+                                      kernels="cuda")
+            kvc.update_cache_at_layer_torch(ref, 1, *new, starts, counts)
+            torch.cuda.synchronize()
+            for n in names:
+                if not torch.equal(bits(getattr(cache, n)),
+                                   bits(getattr(ref, n))):
+                    raise AssertionError(f"{label}: {n} differs from the "
+                                         "plain write (bits)")
+            tail = cache.k[1, 0, starts_l[0] + counts_l[0]:]
+            if (tail != 127).any() if quant else not tail.isnan().all():
+                raise AssertionError(f"{label}: a row past the tail was "
+                                     "written")
+            rows = sum(counts_l)
+            timed = (time_ms(torch, lambda: kvc.update_cache_at_layer(
+                cache, 1, *new, starts, counts, kernels="cuda"), cold=True),
+                time_ms(torch, lambda: kvc.update_cache_at_layer_torch(
+                    ref, 1, *new, starts, counts)))
+            case = (f"cp [4,{T},32,128] {label}, tails {starts_l}, counts "
+                    f"{counts_l}, NaN past them (bits equal), cold L2")
+            if quant:
+                hold_int8_write(torch, "kv_write_quant",
+                                (cache.k, cache.k_scale.nan_to_num()),
+                                (ref.k, ref.k_scale.nan_to_num()), results,
+                                case, timed,
+                                work=write_work(rows, K, D, quant=True))
+            else:
+                sl = slot_rows(starts_l, counts_l, T, S)
+                check_close(torch, "kv_write", cache.k[1].nan_to_num(),
+                            ref.k[1].nan_to_num(), results, case, timed,
+                            work=write_work(rows, K, D),
+                            library=index_copy_ms(
+                                torch, (cache.k[1], cache.v[1]), new,
+                                (ints(sl[0]).long(), ints(sl[1]).long())))
+            del cache, ref, new
+    torch.cuda.empty_cache()
+
+
+def phase_pipeline(torch, dev, params) -> None:
+    """4p: the pipeline forward on one card at llama2-7b INT4 (4o's
+    weights), B = 4, every launch counter set to 0 just before and read
+    just after: pp = 2 (two stages of 16 layers, views of the weights) on
+    cuda:0 against the one-rank forward over the same inputs (a ragged
+    512-token chunk, then a decode step): logits and every K/V row of both
+    stages bit for bit; pp = 2 x tp = 2 (four ranks) against the tp = 2
+    forward (``make_sharded_forward``): logits and K/V rows bit for bit."""
+    from llm_inference_engine_tpu_torch.config import EngineConfig, get_config
+    from llm_inference_engine_tpu_torch.models import llama
+    from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
+    from llm_inference_engine_tpu_torch.parallel import (
+        make_mesh, pipeline, sharding)
+
+    cfg = get_config("llama2-7b")
+    B, T, S = 4, 512, 1024
+    eng = EngineConfig(quant_mode="int4", max_batch_size=B, max_seq_len=S)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    ids = torch.randint(3, cfg.vocab_size, (B, T), generator=gen,
+                        device=dev, dtype=torch.int32)
+    q0 = torch.zeros(B, dtype=torch.int32, device=dev)
+    lens = torch.tensor([512, 300, 77, 5], dtype=torch.int32, device=dev)
+
+    def new_cache():
+        return kvc.new_kv_cache(cfg.num_layers, B, cfg.num_kv_heads, S,
+                                cfg.head_dim, device=dev)
+
+    def joined(caches, name):
+        return torch.cat([torch.cat([torch.cat([getattr(sh, name)
+                                                for sh in row], dim=3)
+                                     for row in c.shards], dim=1)
+                          for c in caches], dim=0)
+
+    def two_steps(fwd, p, c):
+        out1, c = fwd(p, c, ids, q0, lens)
+        tok = out1.argmax(-1).to(torch.int32)[:, None]
+        out2, c = fwd(p, c, tok, lens.clone(), lens + 1)
+        torch.cuda.synchronize()
+        return out1, out2, c
+
+    for pp_tp in ((2, 1), (2, 2)):
+        pp, tp = pp_tp
+        counters = _zero_counters()
+        mesh = pipeline.make_pp_mesh(pp, 1, tp, devices=[dev] * (pp * tp))
+        sp = pipeline.shard_params_pp(params, mesh)
+        fwd = pipeline.make_pp_forward(cfg, eng, mesh)
+        t0 = time.perf_counter()
+        got1, got2, caches = two_steps(
+            fwd, sp, pipeline.shard_cache_pp(new_cache(), mesh))
+        wall = time.perf_counter() - t0
+        launches = _path_launches(f"4p pp={pp} tp={tp}", counters,
+                                  NORM_ACT + ("kv_write", "int4_matmul",
+                                              "dequant_int4",
+                                              "attention_prefill",
+                                              "attention_decode"))
+        if tp == 1:
+            views = (sp[1].shards[0][0]["layers"]["wo"].q.data_ptr()
+                     == params["layers"]["wo"].q[cfg.num_layers // 2]
+                     .data_ptr())
+
+            def flat(p, c, i, qs, kl):
+                return llama.forward_hidden(cfg, eng, p, i, c, qs, kl)
+            want1, want2, ref = two_steps(flat, params, new_cache())
+            k, v = ref.k, ref.v
+            what = "the one-rank forward"
+        else:
+            views = None
+            tp2 = make_mesh(1, 2, devices=[dev, dev])
+            want1, want2, ref = two_steps(
+                sharding.make_sharded_forward(cfg, eng, tp2),
+                sharding.shard_params(params, tp2),
+                sharding.shard_cache(new_cache(), tp2))
+            k, v = joined([ref], "k"), joined([ref], "v")
+            what = "the tp=2 forward"
+        same = dict(logits=torch.equal(got1, want1)
+                    and torch.equal(got2, want2),
+                    k=torch.equal(joined(caches, "k"), k),
+                    v=torch.equal(joined(caches, "v"), v))
+        say(f"  4p pp={pp} x tp={tp} on cuda:0 ({pp * tp} ranks, stages of "
+            f"{cfg.num_layers // pp} layers): a [4, 512] chunk and a decode "
+            f"step in {wall:.3f} s; bit for bit against {what}: {same}"
+            + (f"; stage weights are views: {views}" if views is not None
+               else "") + f"; A launches {launches['rmsnorm']}")
+        if not all(same.values()) or views is False:
+            raise AssertionError(f"4p pp={pp} tp={tp}: differs from {what} "
+                                 f"{same}")
+        del sp, caches, ref, k, v
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5297,6 +5940,16 @@ def main() -> int:
           "B=8, two ranks on cuda:0: tp=2, dp=2, tp=2 with the int8 slot "
           "cache, tp=2 paged through the scheduler; the kernels at the "
           "tp=2 local shapes", phase_parallel, torch, dev, results)
+    params = phase("4o", "context parallelism: llama2-7b INT4 (4b's "
+                   "weights), B=4, max_seq_len 8192, prompts of 1000-6500 "
+                   "tokens, seq ranks on cuda:0: cp=2 over a bf16 log, its "
+                   "replays, the int8 log, cp=2 x tp=2; C and I at the CP "
+                   "write shapes", phase_context_parallel, torch, dev,
+                   results)
+    phase("4p", "pipeline: llama2-7b INT4, pp=2 and pp=2 x tp=2 on cuda:0, "
+          "bit for bit against the forward without the pipe axis",
+          phase_pipeline, torch, dev, params)
+    del params
 
     # the paged serving path, INT4 weights (the JAX package's benchmark
     # format, bench.py)

@@ -220,8 +220,8 @@ class EngineConfig:
     layout's ``page_size`` and ``num_pages`` included. Its TPU tiling
     knobs (attention block sizes, layer-scan unroll) and the unused
     ``max_prefill_batch`` have no counterpart: the CUDA kernels pick their
-    own tiles. ``cp`` > 1 (context parallelism, not ported) is accepted by
-    the dataclass and refused by the engine with ``NotImplementedError``.
+    own tiles. ``cp`` > 1 is context parallelism
+    (``parallel/cp_engine.py``).
     """
 
     max_batch_size: int = 8          # decode batch slots

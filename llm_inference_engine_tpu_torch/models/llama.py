@@ -42,8 +42,21 @@ it is already whole. Over a mesh, ``parallel/sharding.py`` runs
 one generator per rank in lockstep and sums in between. The taps are a
 no-op there (``tapped=False``), as under the JAX package's mesh.
 
-Not ported: the TPU tile-padded cache adapter and context parallelism
-(ROADMAP.md, queue 1, "Context parallelism").
+Context parallelism (the JAX package's ``cp`` argument,
+``parallel/cp_engine.py``): a seq rank's body gets a ``CPSpec``
+(``parallel/cp_cache.py``) and its local append log as the cache. It
+writes its new rows at its log's tail (kernel C, or I for an int8 log,
+with the plan's ragged counts: 0 on most ranks in decode), then attends
+through a third kind of yield, beside the two sums: ring attention in
+prefill (it yields its KV chunk and is sent every seq rank's), split-KV
+in decode (it yields its partials and is sent the combined output),
+``parallel/context_parallel.py``.
+
+Pipeline parallelism (``parallel/pipeline.py``) runs :func:`decoder` on a
+stage's slice of the layers, handing the (down, residual) pair from one
+stage to the next (``carry``, ``final``).
+
+Not ported: the TPU tile-padded cache adapter.
 """
 
 from __future__ import annotations
@@ -65,10 +78,13 @@ from llm_inference_engine_tpu_torch.ops.rmsnorm import (
     add_residual_rmsnorm, rmsnorm)
 from llm_inference_engine_tpu_torch.ops.rope import (
     rope_cos_sin, rotate, split_qkv)
+from llm_inference_engine_tpu_torch.parallel.context_parallel import (
+    ring_attention, split_kv_decode_attention)
 from llm_inference_engine_tpu_torch.utils import debug as _debug
 
 __all__ = ["decoder", "decoder_forward", "forward_all_logits",
-           "forward_hidden", "layers", "lm_head_logits", "whole"]
+           "forward_hidden", "layers", "lm_head_logits", "rope_tables",
+           "whole"]
 
 
 def whole(gen):
@@ -86,12 +102,13 @@ def whole(gen):
 def _layer_gen(cfg: ModelConfig, eng: EngineConfig, h_norm: torch.Tensor,
                x: torch.Tensor, layer: dict, layer_idx: int, cache, cos,
                sin, q_start: torch.Tensor, kv_len: torch.Tensor,
-               tapped: bool):
+               tapped: bool, cp=None):
     """One decoder layer from its normed input ``h_norm`` and its residual
     stream ``x`` ([B, T, hidden] each); ``layer`` holds this layer's weight
     views; the cache is written in place at ``layer_idx``. A generator: it
     yields the ``wo`` and ``w_down`` products and is sent back their sums
-    over the model ranks. Returns (down, residual): the layer's output is
+    over the model ranks (and, with ``cp``, a seq-axis request, see the
+    module docstring). Returns (down, residual): the layer's output is
     their sum, which the next norm adds."""
     kernels = eng.kernels
     B, T, _ = x.shape
@@ -116,7 +133,28 @@ def _layer_gen(cfg: ModelConfig, eng: EngineConfig, h_norm: torch.Tensor,
 
     # an int8 cache's scale planes (None for bf16)
     scales = dict(k_scale=cache.k_scale, v_scale=cache.v_scale)
-    if isinstance(cache, pkv.PagedKVCache):
+    if cp is not None:
+        # a seq rank: write at the local log's tail, then the ring
+        # (prefill) or the split-KV combine (decode) over the seq ranks
+        kvc.update_cache_at_layer(cache, layer_idx, k_new, v_new, cp.start,
+                                  new_len=cp.count, kernels=kernels)
+        rows = cp.kv_valid.shape[1]
+        k_loc = cache.k[layer_idx, :, :rows]
+        v_loc = cache.v[layer_idx, :, :rows]
+        if cache.quantized:
+            scales = dict(k_scale=cache.k_scale[layer_idx, :, :rows],
+                          v_scale=cache.v_scale[layer_idx, :, :rows])
+        if T == 1:
+            attn_out = yield from split_kv_decode_attention(
+                q, k_loc, v_loc, cp.q_pos, cp.kv_pos, cp.kv_valid,
+                sm_scale=sm_scale, window=cfg.sliding_window,
+                out_dtype=x.dtype, **scales)
+        else:
+            attn_out = yield from ring_attention(
+                q, k_loc, v_loc, cp.q_pos, cp.kv_pos, cp.kv_valid, cp.me,
+                cp.n, sm_scale=sm_scale, window=cfg.sliding_window,
+                out_dtype=x.dtype, **scales)
+    elif isinstance(cache, pkv.PagedKVCache):
         # paged: write through the block table, then attend through it
         pkv.paged_update_at_layer(cache, layer_idx, k_new, v_new, q_start,
                                   new_len=kv_len - q_start, kernels=kernels)
@@ -158,13 +196,18 @@ def _layer_gen(cfg: ModelConfig, eng: EngineConfig, h_norm: torch.Tensor,
 
 def layers(cfg: ModelConfig, eng: EngineConfig, layers_params: dict,
            x: torch.Tensor, cache: kvc.KVCache, cos, sin,
-           q_start: torch.Tensor, kv_len: torch.Tensor, tapped: bool = True):
+           q_start: torch.Tensor, kv_len: torch.Tensor, tapped: bool = True,
+           cp=None, carry=None):
     """The decoder layer loop over ``w[i]`` views of the stacked weights
     (quantized or not), as a generator of the row-sharded products (see
-    the module docstring). Returns the last layer's (down, residual): the
-    caller's final norm adds them."""
+    the module docstring). ``carry``: the (down, residual) pair of the
+    layer before the first (a pipeline stage's input; ``x`` is then
+    unused). Returns the last layer's (down, residual): the caller's
+    final norm adds them."""
     kernels, eps = eng.kernels, cfg.rms_norm_eps
     down = None
+    if carry is not None:
+        down, x = carry
     for i in range(cache.num_layers):
         layer = {name: w[i] for name, w in layers_params.items()}
         if down is None:
@@ -174,31 +217,53 @@ def layers(cfg: ModelConfig, eng: EngineConfig, layers_params: dict,
             h_norm, x = add_residual_rmsnorm(down, x, layer["attn_norm"], eps,
                                              kernels=kernels)
         down, x = yield from _layer_gen(cfg, eng, h_norm, x, layer, i, cache,
-                                        cos, sin, q_start, kv_len, tapped)
+                                        cos, sin, q_start, kv_len, tapped,
+                                        cp)
     return down, x
+
+
+def rope_tables(cfg: ModelConfig, positions: torch.Tensor):
+    """RoPE angles [B, T, 1, D/2] for ``positions`` [B, T], once per
+    forward, shared by every layer."""
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
+                            cfg.rope_scaling)
+    return cos[:, :, None, :], sin[:, :, None, :]
 
 
 def decoder(cfg: ModelConfig, eng: EngineConfig, params: dict,
             token_ids: torch.Tensor, cache: kvc.KVCache,
-            q_start: torch.Tensor, kv_len: torch.Tensor, tapped: bool = True):
+            q_start: torch.Tensor, kv_len: torch.Tensor, tapped: bool = True,
+            cp=None, carry=None, final: bool = True):
     """:func:`decoder_forward` as a generator of the row-sharded products
-    (see the module docstring). Returns hidden [B, T, H]."""
+    (see the module docstring). Returns hidden [B, T, H]. With ``cp`` (a
+    ``CPSpec``) this is a seq rank's body: ``token_ids`` are its query
+    rows, at positions ``cp.q_pos``, and ``cache`` its local log, whose
+    lengths become the log's row count. A pipeline stage's body:
+    ``carry``, the stage before's (down, residual) pair, enters in place
+    of the embedding (``token_ids`` then give only the chunk's shape), and
+    ``final`` False returns this stage's last pair in place of the final
+    norm's hidden states."""
     B, T = token_ids.shape
-    positions = (q_start[:, None]
-                 + torch.arange(T, dtype=torch.int32,
-                                device=token_ids.device)[None, :])
-    # RoPE angles once per forward, shared by every layer
-    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
-                            cfg.rope_scaling)
-    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    if cp is not None:
+        positions = cp.q_pos
+    else:
+        positions = (q_start[:, None]
+                     + torch.arange(T, dtype=torch.int32,
+                                    device=token_ids.device)[None, :])
+    cos, sin = rope_tables(cfg, positions)
 
-    x = embedding_lookup(params["embed"], token_ids).to(cfg.dtype)
     tapped = tapped and _debug.tap.enabled
-    if tapped:
-        _debug.tap("embedding", x)
+    x = None
+    if carry is None:
+        x = embedding_lookup(params["embed"], token_ids).to(cfg.dtype)
+        if tapped:
+            _debug.tap("embedding", x)
     down, resid = yield from layers(cfg, eng, params["layers"], x, cache,
-                                    cos, sin, q_start, kv_len, tapped)
-    cache.lengths.copy_(kv_len)
+                                    cos, sin, q_start, kv_len, tapped, cp,
+                                    carry)
+    cache.lengths.copy_(kv_len if cp is None else cp.start + cp.count)
+    if not final:
+        return down, resid
     # the last layer's residual add, fused into the final norm
     x, _ = add_residual_rmsnorm(down, resid, params["final_norm"],
                                 cfg.rms_norm_eps, kernels=eng.kernels)

@@ -88,7 +88,7 @@ def make_multihost_mesh(dp: int = 1, tp: int = 1,
         raise ValueError(
             f"tp={tp} does not tile the {c} devices per host; model-"
             f"axis collectives would cross hosts")
-    return make_mesh(dp // hosts, tp, devices)
+    return make_mesh(dp // hosts, tp, devices=devices)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -45,6 +45,14 @@ global lengths and block table) lives on the mesh's home device
 (``Mesh.home``); each rank reads its rows from there. The shards'
 own ``lengths`` are written by each forward; the engine reads the global
 ones.
+
+A mesh with a ``seq`` axis (context parallelism) runs
+``parallel/cp_engine.py``'s forward: :func:`lockstep` then also answers
+a third kind of yield, a seq-axis request (the ring's chunks, the
+split-KV combine), over each (data, model) rank's seq ranks; the sums
+run over the model ranks of each (data, seq) group. Its ranks share
+weights where their model index and device agree
+(:func:`shard_params`).
 """
 
 from __future__ import annotations
@@ -63,7 +71,8 @@ from llm_inference_engine_tpu_torch.parallel.mesh import (
 
 __all__ = ["MeshCache", "ShardedParams", "param_pspecs", "shard_params",
            "shard_cache", "sharded_cache", "make_sharded_forward",
-           "rank_sum", "INT8_POOL_REFUSAL"]
+           "mesh_decoder", "mesh_logits", "rank_sum", "lockstep",
+           "INT8_POOL_REFUSAL"]
 
 COLUMNS, ROWS = "columns", "rows"
 # how each layer leaf splits over the model axis (None: whole)
@@ -99,11 +108,20 @@ def _split(w, how: Optional[str], r: int, tp: int):
 
 @dataclasses.dataclass(eq=False)
 class ShardedParams:
-    """shards[d][r]: data rank d's, model rank r's params, a dict of the
-    one-device params' structure on that rank's device. Ranks with the same
-    model index on the same device share one dict."""
+    """grid[d][s][r]: data rank d's, seq rank s's, model rank r's params,
+    a dict of the one-device params' structure on that rank's device.
+    Ranks with the same model index on the same device share one dict (no
+    copy: seq ranks on one device share every weight tensor)."""
     mesh: Mesh
-    shards: list
+    grid: list
+
+    @property
+    def shards(self) -> list:
+        """shards[d][r]: seq rank 0's params of (d, r)."""
+        return [[row[0][r] for r in range(self.mesh.tp)] for row in self.grid]
+
+    def shard(self, d: int, s: int, r: int) -> dict:
+        return self.grid[d][s][r]
 
 
 def shard_params(params: dict, mesh: Mesh) -> ShardedParams:
@@ -114,23 +132,27 @@ def shard_params(params: dict, mesh: Mesh) -> ShardedParams:
     tp = mesh.tp
     specs = param_pspecs(params)
     made: dict = {}
-    shards = []
+    grid = []
     for d in range(mesh.dp):
-        row = []
-        for r in range(tp):
-            dev = mesh.devices[d, r]
-            key = (r, dev)
-            if key not in made:
-                made[key] = {
-                    "embed": params["embed"].to(dev),
-                    "layers": {n: _split(w, specs["layers"][n], r, tp).to(dev)
-                               for n, w in params["layers"].items()},
-                    "final_norm": params["final_norm"].to(dev),
-                    "lm_head": _split(params["lm_head"], COLUMNS, r,
-                                      tp).to(dev)}
-            row.append(made[key])
-        shards.append(row)
-    return ShardedParams(mesh, shards)
+        seq = []
+        for s in range(mesh.cp):
+            row = []
+            for r in range(tp):
+                dev = mesh.device(d, s, r)
+                key = (r, dev)
+                if key not in made:
+                    made[key] = {
+                        "embed": params["embed"].to(dev),
+                        "layers": {n: _split(w, specs["layers"][n], r,
+                                             tp).to(dev)
+                                   for n, w in params["layers"].items()},
+                        "final_norm": params["final_norm"].to(dev),
+                        "lm_head": _split(params["lm_head"], COLUMNS, r,
+                                          tp).to(dev)}
+                row.append(made[key])
+            seq.append(row)
+        grid.append(seq)
+    return ShardedParams(mesh, grid)
 
 
 @dataclasses.dataclass(eq=False)
@@ -218,13 +240,16 @@ def _on(device: torch.device):
     return contextlib.nullcontext()
 
 
-def _lockstep(gens: list, mesh: Mesh) -> list:
-    """Drive one layer generator per rank (rank-major: data, then model)
-    to its end, each with its device current; each time every rank has
-    yielded a partial product, send each the sum over its data group's
-    model ranks. Returns the ranks' values."""
-    tp = mesh.tp
-    devices = list(mesh.devices.flat)
+def lockstep(gens: list, mesh: Mesh) -> list:
+    """Drive one layer generator per rank (rank-major: data, seq, model)
+    to its end, each with its device current. Each time every rank has
+    yielded, answer: a partial product (a tensor) with the sum over its
+    model ranks (:func:`rank_sum`); a seq-axis request
+    (``context_parallel.RingPass`` / ``SeqStats``) with the exchange over
+    its seq ranks (``context_parallel.seq_exchange``). Returns the ranks'
+    values."""
+    tp, cp = mesh.tp, mesh.cp
+    devices = list(mesh.grid.flat)
     sent = [None] * len(gens)
     while True:
         parts, outs = [], []
@@ -238,9 +263,67 @@ def _lockstep(gens: list, mesh: Mesh) -> list:
             if len(outs) != len(gens):
                 raise RuntimeError("mesh ranks left the layer loop apart")
             return outs
-        sent = []
+        if isinstance(parts[0], torch.Tensor):
+            sent = []
+            for g in range(len(gens) // tp):
+                sent += rank_sum(parts[g * tp:(g + 1) * tp],
+                                 devices[g * tp:(g + 1) * tp])
+            continue
+        from llm_inference_engine_tpu_torch.parallel.context_parallel import (
+            seq_exchange)
         for d in range(mesh.dp):
-            sent += rank_sum(parts[d * tp:(d + 1) * tp], mesh.devices[d])
+            for r in range(tp):
+                group = [(d * cp + s) * tp + r for s in range(cp)]
+                replies = seq_exchange([parts[i] for i in group],
+                                       [devices[i] for i in group])
+                for i, reply in zip(group, replies):
+                    sent[i] = reply
+
+
+def mesh_decoder(cfg, eng, mesh: Mesh, params: ShardedParams,
+                 cache: MeshCache, token_ids, q_start, kv_len, carry=None,
+                 final: bool = True) -> list:
+    """Every (data, model) rank's ``models.llama.decoder`` over its data
+    rank's rows (token_ids, q_start, kv_len: the global ones, on the home
+    device), driven in :func:`lockstep`; the ranks' values, rank-major.
+    ``carry`` and ``final``: a pipeline stage's, as ``decoder`` takes
+    them, with ``carry`` the stage before's values."""
+    gens = []
+    for d in range(mesh.dp):
+        rows = cache.rows(d)
+        for r in range(mesh.tp):
+            dev = mesh.devices[d, r]
+            pair = (None if carry is None else
+                    tuple(t.to(dev) for t in carry[d * mesh.tp + r]))
+            gens.append(llama_model.decoder(
+                cfg, eng, params.shards[d][r], token_ids[rows].to(dev),
+                cache.shards[d][r], q_start[rows].to(dev),
+                kv_len[rows].to(dev), tapped=False, carry=pair, final=final))
+    return lockstep(gens, mesh)
+
+
+def mesh_logits(cfg, eng, mesh: Mesh, params: ShardedParams, hidden: list,
+                last: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The lm_head on each (data, model) rank's last valid hidden states:
+    ``hidden`` rank-major on the ranks' devices, each [b, T, H] with
+    ``last`` [B] the index of every row's last valid token, or each
+    [b, H] already taken. Logits [B, V] f32 on the home device, the
+    vocab shards concatenated over the model ranks, then the data
+    ranks."""
+    logits = []
+    for d in range(mesh.dp):
+        group = []
+        for r in range(mesh.tp):
+            h = hidden[d * mesh.tp + r]
+            with _on(h.device):
+                if last is not None:
+                    b = h.shape[0]
+                    h = h[torch.arange(b, device=h.device),
+                          last[d * b:(d + 1) * b].to(h.device)]
+                group.append(llama_model.lm_head_logits(
+                    cfg, eng, params.shard(d, 0, r), h).to(mesh.home))
+        logits.append(torch.cat(group, dim=1) if mesh.tp > 1 else group[0])
+    return torch.cat(logits, dim=0) if mesh.dp > 1 else logits[0]
 
 
 def make_sharded_forward(config, engine_config, mesh: Mesh):
@@ -250,44 +333,21 @@ def make_sharded_forward(config, engine_config, mesh: Mesh):
     cache), with the shards' K/V and the global lengths updated in place.
     The shards carry their own layout (slot or paged, bf16 or int8)."""
     validate_mesh(config, engine_config, mesh)
+    if mesh.cp > 1:
+        raise ValueError("a mesh with a seq axis runs "
+                         "parallel.cp_engine.make_cp_forward")
     cfg_local = local_config(config, mesh)
-    home = mesh.home
 
     def fwd(params: ShardedParams, cache: MeshCache, token_ids, q_start,
             kv_len):
         T = token_ids.shape[1]
-        gens, last = [], []
-        for d in range(mesh.dp):
-            rows = cache.rows(d)
-            # before the forward: it overwrites the lengths, which q_start
-            # may be
-            last_d = torch.clamp(kv_len[rows] - q_start[rows] - 1, 0,
-                                 T - 1).long()
-            for r in range(mesh.tp):
-                dev = mesh.devices[d, r]
-                gens.append(llama_model.decoder(
-                    cfg_local, engine_config, params.shards[d][r],
-                    token_ids[rows].to(dev), cache.shards[d][r],
-                    q_start[rows].to(dev), kv_len[rows].to(dev),
-                    tapped=False))
-                last.append(last_d.to(dev))
-        hidden = _lockstep(gens, mesh)
-        logits = []
-        for d in range(mesh.dp):
-            group = []
-            for r in range(mesh.tp):
-                i = d * mesh.tp + r
-                h = hidden[i]
-                with _on(h.device):
-                    h_last = h[torch.arange(h.shape[0], device=h.device),
-                               last[i]]
-                    group.append(llama_model.lm_head_logits(
-                        cfg_local, engine_config, params.shards[d][r],
-                        h_last).to(home))
-            logits.append(torch.cat(group, dim=1) if mesh.tp > 1
-                          else group[0])
+        # before the forward: it overwrites the lengths, which q_start may
+        # be
+        last = torch.clamp(kv_len - q_start - 1, 0, T - 1).long()
+        hidden = mesh_decoder(cfg_local, engine_config, mesh, params, cache,
+                              token_ids, q_start, kv_len)
         cache.lengths.copy_(kv_len)
-        return (torch.cat(logits, dim=0) if mesh.dp > 1 else logits[0]), cache
+        return mesh_logits(cfg_local, engine_config, mesh, params, hidden,
+                           last), cache
 
     return fwd
-

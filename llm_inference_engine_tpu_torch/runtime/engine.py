@@ -1,7 +1,7 @@
 """Inference engine: prefill / decode steps + generation loop.
 
-Port of ``llm_inference_engine_tpu/runtime/engine.py`` without context
-parallelism, over the slot cache or the paged pool. The JAX package's
+Port of ``llm_inference_engine_tpu/runtime/engine.py``, over the slot
+cache, the paged pool or context-parallel append logs. The JAX package's
 jitted closures become methods. Kept from it: power-of-two prefill
 buckets, chunked prefill with the near-capacity bucket shrink and the
 loud capacity refusal, per-slot penalty count planes, logprobs,
@@ -68,10 +68,22 @@ mesh, ``dp``/``tp`` > 1 build one over ``cuda:0 ... cuda:n-1``, or over
 n copies of the CPU when the engine's device is the CPU. A mesh comes
 from one place, and ``engine_config`` then carries its ``dp``/``tp``:
 ``ShardedParams`` bring theirs (a different ``mesh=`` raises), a
-``mesh=`` must agree with any ``dp``/``tp`` > 1 (ValueError). Not ported
-(NotImplementedError): ``cp`` > 1 (ROADMAP.md, queue 1, "Context
-parallelism"), an int8 pool under a mesh (the JAX package's limit), and
-the slot ``PrefixStore``, speculation and beams over a mesh engine.
+``mesh=`` must agree with any ``dp``/``tp``/``cp`` > 1 (ValueError).
+
+Context parallelism (``cp`` > 1, a mesh with a ``seq`` axis;
+``parallel/cp_engine.py``): the cache is a ``CPCache`` of per-rank
+append logs, and the host mirrors its ``llen`` [B, cp] as it mirrors the
+lengths: prefill by the chunk split (refusing, as the JAX engine does, a
+chunk a local log cannot hold, after shrinking the padded bucket to a
+floor of 2 * cp rows and an exact-fit tail), decode by the argmin rule,
+never read back. A prefill attends the rows its mirror says are written
+(rounded up to the CP attention's 512-row blocks); the decode bodies
+read whole local logs, so that one captured graph serves every length.
+Refused with the JAX engine's messages: cp with the paged pool, a log
+neither bf16 (the model dtype) nor int8. Not ported
+(NotImplementedError): an int8 pool under a mesh (the JAX package's
+limit), and the slot ``PrefixStore``, speculation and beams over a mesh
+engine, a cp engine included.
 """
 
 from __future__ import annotations
@@ -89,10 +101,13 @@ from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
 from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
 from llm_inference_engine_tpu_torch.ops.sampling import (
     apply_penalties, greedy_sample, sample_tokens, token_logprobs)
-from llm_inference_engine_tpu_torch.parallel import sharding
+from llm_inference_engine_tpu_torch.parallel import cp_engine, sharding
+from llm_inference_engine_tpu_torch.parallel.cp_cache import (
+    new_cp_cache, reset_cp_cache)
 from llm_inference_engine_tpu_torch.parallel.mesh import Mesh, make_mesh
+from llm_inference_engine_tpu_torch.parallel.context_parallel import BLOCK_KV
 from llm_inference_engine_tpu_torch.runtime import decode_graph
-from llm_inference_engine_tpu_torch.utils import debug
+from llm_inference_engine_tpu_torch.utils import debug, round_up
 
 __all__ = ["InferenceEngine", "GenerationResult", "check_kernel_dtypes"]
 
@@ -161,34 +176,48 @@ def check_kernel_dtypes(config: ModelConfig, eng: EngineConfig,
                 "config or kernels='torch'")
 
 
-def _refuse_unported(eng: EngineConfig) -> None:
-    if eng.cp > 1:
-        raise NotImplementedError(
-            "cp > 1 (context parallelism) is not ported yet (ROADMAP.md, "
-            "queue 1, 'Context parallelism')")
+def _check_layout(eng: EngineConfig) -> None:
     if eng.kv_layout not in ("slot", "paged"):
         raise ValueError(f"kv_layout must be 'slot' or 'paged', got "
                          f"{eng.kv_layout!r}")
 
 
 def _mesh_for(eng: EngineConfig, device: torch.device) -> Optional[Mesh]:
-    """The mesh that ``dp``/``tp`` ask for (None for one rank): the CPU
-    n times over for a CPU engine, else ``cuda:0 ... cuda:n-1``."""
-    n = eng.dp * eng.tp
+    """The mesh that ``dp``/``tp``/``cp`` ask for (None for one rank): the
+    CPU n times over for a CPU engine, else ``cuda:0 ... cuda:n-1``."""
+    n = eng.dp * eng.tp * eng.cp
     if n == 1:
         return None
-    return make_mesh(eng.dp, eng.tp,
+    return make_mesh(eng.dp, eng.tp, eng.cp,
                      devices=[device] * n if device.type == "cpu" else None)
 
 
 def _config_of(eng: EngineConfig, mesh: Mesh) -> EngineConfig:
-    """``eng`` with the mesh's ``dp``/``tp``: the engine's config always
-    describes its mesh. ``dp``/``tp`` left at 1 take the mesh's; others
+    """``eng`` with the mesh's ``dp``/``tp``/``cp``: the engine's config
+    always describes its mesh. Sizes left at 1 take the mesh's; others
     must equal them (ValueError)."""
-    if (eng.dp, eng.tp) not in ((1, 1), (mesh.dp, mesh.tp)):
-        raise ValueError(f"EngineConfig dp={eng.dp} tp={eng.tp} disagrees "
-                         f"with the mesh's dp={mesh.dp} tp={mesh.tp}")
-    return eng.replace(dp=mesh.dp, tp=mesh.tp)
+    if (eng.dp, eng.tp, eng.cp) not in ((1, 1, 1),
+                                        (mesh.dp, mesh.tp, mesh.cp)):
+        cp = eng.cp > 1 or mesh.cp > 1
+        raise ValueError(
+            f"EngineConfig dp={eng.dp} tp={eng.tp}"
+            + (f" cp={eng.cp}" if cp else "")
+            + f" disagrees with the mesh's dp={mesh.dp} tp={mesh.tp}"
+            + (f" cp={mesh.cp}" if cp else ""))
+    return eng.replace(dp=mesh.dp, tp=mesh.tp, cp=mesh.cp)
+
+
+def _refuse_for_cp(eng: EngineConfig, paged: bool) -> None:
+    """What the JAX engine refuses under cp > 1, with its messages."""
+    if paged:
+        raise NotImplementedError(
+            "cp>1 + paged KV: the page pool is a single-chip memory "
+            "manager; CP's capacity axis replaces it "
+            "(docs/ADR-composition-matrix.md)")
+    if eng.kv_cache_dtype not in (None, torch.int8):
+        raise NotImplementedError(
+            f"cp>1 supports bf16 or int8 KV logs, not "
+            f"{eng.kv_cache_dtype_name}")
 
 
 class InferenceEngine:
@@ -198,7 +227,7 @@ class InferenceEngine:
     def __init__(self, config: ModelConfig, engine_config: EngineConfig,
                  params: dict, rng_seed: int = 0, device=None,
                  mesh: Optional[Mesh] = None):
-        _refuse_unported(engine_config)
+        _check_layout(engine_config)
         if isinstance(params, sharding.ShardedParams):
             if mesh is not None and not mesh.same_as(params.mesh):
                 raise ValueError("params are sharded over another mesh than "
@@ -220,19 +249,31 @@ class InferenceEngine:
         self.config = config
         self.engine_config = engine_config
         self.device = device
+        self.cp = 1 if mesh is None else mesh.cp
+        self.paged = engine_config.kv_layout == "paged"
+        if self.cp > 1:
+            _refuse_for_cp(engine_config, self.paged)
         self._fwd = None
-        if mesh is not None:
+        if self.cp > 1:
+            self._fwd = cp_engine.make_cp_forward(config, engine_config, mesh)
+        elif mesh is not None:
             self._fwd = sharding.make_sharded_forward(config, engine_config,
                                                       mesh)
-            if not isinstance(params, sharding.ShardedParams):
-                params = sharding.shard_params(params, mesh)
+        if mesh is not None and not isinstance(params,
+                                               sharding.ShardedParams):
+            params = sharding.shard_params(params, mesh)
         self.params = params
         B, V = engine_config.max_batch_size, config.vocab_size
         # an int8 cache holds int8 values and f32 scale planes
         quantized = engine_config.kv_cache_dtype == torch.int8
         dtype = engine_config.kv_cache_dtype or config.dtype
-        self.paged = engine_config.kv_layout == "paged"
-        if self.paged:
+        if self.cp > 1:
+            self.cache = new_cp_cache(
+                config.num_layers, B, config.num_kv_heads,
+                engine_config.max_seq_len, config.head_dim, mesh,
+                dtype=dtype, quantized=quantized)
+            self._llen = np.zeros((B, self.cp), np.int32)   # host mirror
+        elif self.paged:
             self._init_paged(dtype, quantized)
         else:
             self.cache = self._new_cache(
@@ -365,7 +406,15 @@ class InferenceEngine:
         counts.scatter_add_(1, token_ids.long(), valid.to(counts.dtype))
 
     def _forward(self, token_ids: torch.Tensor, q_start: torch.Tensor,
-                 kv_len: torch.Tensor) -> torch.Tensor:
+                 kv_len: torch.Tensor, kv_hi: Optional[int] = None
+                 ) -> torch.Tensor:
+        """``kv_hi``: the local log rows a cp prefill reads (its host
+        mirror's written rows); None, as in decode, reads whole local logs
+        (a graph replays one shape)."""
+        if self.cp > 1:
+            logits, _ = self._fwd(self.params, self.cache, token_ids, q_start,
+                                  kv_len, kv_hi)
+            return logits
         if self._fwd is not None:
             logits, _ = self._fwd(self.params, self.cache, token_ids, q_start,
                                   kv_len)
@@ -489,9 +538,23 @@ class InferenceEngine:
             lengths[rows] = 0
             self._counts_ctx[rows] = 0
             self._counts_gen[rows] = 0
+        if self.cp > 1:
+            # the append logs carry state beyond the lengths (kv_pos, llen)
+            reset_cp_cache(self.cache, rows)
+            self._llen[rows] = 0
+            self._lengths = lengths
+            return
         self._set_lengths(lengths)
         if self.paged:
             self._release_pages(rows)
+
+    def _advance_llen(self, active) -> None:
+        """The host mirror of a cp decode step's ``llen`` update, by the
+        device's rule (``parallel/cp_cache.cp_llen_after``): each active
+        row's token goes to its least-full rank, ties to the lowest."""
+        if self.cp > 1:
+            rows = np.nonzero(np.asarray(active, bool))[0]
+            self._llen[rows, np.argmin(self._llen[rows], axis=1)] += 1
 
     def prefill(self, prompts: Sequence[Sequence[int]],
                 slots: Optional[Sequence[int]] = None,
@@ -524,6 +587,8 @@ class InferenceEngine:
         if pad_to is not None:
             max_len = max(max_len, pad_to)
         lengths_host = self._lengths.copy()
+        cp = self.cp
+        llen_host = self._llen.copy() if cp > 1 else None
 
         if pad_to is None and len(prompts) > 1:
             # near-capacity appends need a SMALLER padded bucket than fresh
@@ -547,6 +612,7 @@ class InferenceEngine:
         final_logits = None
         offset = 0
         S = eng.max_seq_len
+        s_local = S // cp
         while offset == 0 or offset < max_len:
             chunk_lens = np.zeros((B,), np.int32)
             chunk_max = 0
@@ -558,28 +624,40 @@ class InferenceEngine:
                 chunk_max = max(chunk_max, min(max_len - offset, C))
             T = _bucket_len(max(chunk_max, 1), cap=C)
             # near capacity the PADDED window must not cross the cache
-            # end: shrink the bucket (down to an exact-fit tail bucket),
-            # and refuse loudly if the real tokens cannot fit
+            # end (under cp, a rank's local log end): shrink the bucket
+            # (down to an exact-fit tail bucket), and refuse loudly if the
+            # real tokens cannot fit
             active_rows = chunk_lens > 0
             if pad_to is None and active_rows.any():
                 qmax = int(lengths_host[active_rows].max())
+                lmax = (int(llen_host[active_rows].max()) if cp > 1 else 0)
 
                 def crosses(t):
-                    return qmax + t > S
+                    return (qmax + t > S
+                            or (cp > 1 and lmax + max(1, t // cp) > s_local))
 
-                t_floor = max(chunk_max, 1)
+                # floor: the real tokens, and under cp a >= 2-row chunk
+                # per rank (T // cp == 1 would look like decode)
+                t_floor = max(chunk_max, 2 * cp if cp > 1 else 1)
                 while T > 1 and T // 2 >= t_floor and crosses(T):
                     T //= 2
                 if crosses(T) and chunk_max <= S - qmax:
+                    # exact-fit tail: room for the real tokens, but below
+                    # any power-of-two bucket
                     fit = S - qmax
+                    if cp > 1:
+                        fit = min(fit, (s_local - lmax) * cp)
+                        fit -= fit % cp
                     if fit >= t_floor and not crosses(fit):
                         T = fit
                 if crosses(T):
                     raise ValueError(
                         f"prefill append at history {qmax} cannot fit a "
-                        f"{T}-token padded chunk inside max_seq_len {S}; the "
-                        "request exceeds the slot's remaining capacity — "
-                        "raise max_seq_len or finish the slot")
+                        f"{T}-token padded chunk inside max_seq_len {S}"
+                        + (f" (cp={cp}: a rank's local log is at "
+                           f"{lmax}/{s_local})" if cp > 1 else "")
+                        + "; the request exceeds the slot's remaining "
+                        "capacity — raise max_seq_len or finish the slot")
             token_ids = np.zeros((B, T), np.int32)
             for slot, p in zip(slots, prompts):
                 chunk = p[offset:offset + chunk_lens[slot]]
@@ -599,13 +677,32 @@ class InferenceEngine:
                         f"{np.nonzero(bad)[0].tolist()} are mid-page); "
                         "use kv_layout='slot' for arbitrary-offset appends")
                 self.ensure_capacity(lengths_host + chunk_lens)
+            kv_hi = None
+            if llen_host is not None:
+                # the append logs fill unevenly across ragged chunks (rank
+                # 0 takes each chunk's head): mirror the llen update and
+                # refuse before a local log overflows
+                t_local = max(T // cp, 1)
+                llen_host = llen_host + np.clip(
+                    chunk_lens[:, None]
+                    - np.arange(cp)[None, :] * t_local, 0, t_local)
+                if (llen_host > s_local).any():
+                    raise ValueError(
+                        f"cp={cp}: a rank's local KV log would exceed "
+                        f"its {s_local}-row capacity (ragged chunked "
+                        "prefill skews fills toward rank 0); raise "
+                        "max_seq_len or prefill in fewer, larger chunks")
+                # the rows attention reads: the written ones, in whole
+                # blocks of the CP attention
+                kv_hi = round_up(int(llen_host.max()), BLOCK_KV)
+                self._llen = llen_host.copy()
             ids = self._dev(token_ids)
             q_start = self.cache.lengths
             kv_len = self._dev(lengths_host + chunk_lens)
             valid = (torch.arange(T, device=self.device)[None, :]
                      < (kv_len - q_start)[:, None])
             self._count_tokens(self._counts_ctx, ids, valid)
-            logits = self._forward(ids, q_start, kv_len)
+            logits = self._forward(ids, q_start, kv_len, kv_hi)
             lengths_host = lengths_host + chunk_lens
             self._lengths = lengths_host.copy()
 
@@ -772,6 +869,7 @@ class InferenceEngine:
         self.ensure_capacity(self._lengths + active_host)
         self._stage(tokens, active_host, arrays)
         self._run("step")
+        self._advance_llen(active_host)
         self._lengths = self._lengths + active_host.astype(np.int32)
         out = self._step_out.clone()
         nxt, lp = out[0], out[1].view(torch.float32)
@@ -792,6 +890,7 @@ class InferenceEngine:
         self._roll_i.zero_()
         for _ in range(num_steps):
             self._run("greedy")
+            self._advance_llen(np.ones((B,), bool))
         self._lengths = self._lengths + num_steps
         return self._roll_tok[:num_steps].clone()
 
@@ -824,6 +923,8 @@ class InferenceEngine:
                           self._roll_lp[:n].view(torch.int32).flatten(),
                           self.cache.lengths]).cpu().numpy()
         self._lengths = host[2 * n * B:].copy()
+        for row in host[:n * B].reshape(n, B):
+            self._advance_llen(row >= 0)       # the rows that ran the step
         return (host[:n * B].reshape(n, B),
                 host[n * B:2 * n * B].view(np.float32).reshape(n, B))
 

@@ -211,14 +211,19 @@ def test_create_engine_dummy_and_unported_paths():
     # checkpoint directories are ported: a missing one is not found
     with pytest.raises(FileNotFoundError):
         create_engine("debug", "/nonexistent/checkpoint", device="cpu")
-    # meshes are ported (a tp = 2 CPU engine is a mesh of two CPU ranks);
-    # context parallelism is refused, naming its ROADMAP item
+    # meshes are ported (a tp = 2 CPU engine is a mesh of two CPU ranks,
+    # a cp = 2 one a mesh with a seq axis); cp refuses the paged pool
     e2 = create_engine("debug", None, EngineConfig(max_batch_size=2,
                                                    max_seq_len=32, tp=2),
                        device="cpu")
     assert e2.mesh.shape == {"data": 1, "model": 2}
-    with pytest.raises(NotImplementedError, match="Context parallelism"):
-        create_engine("debug", None, EngineConfig(cp=2), device="cpu")
+    e3 = create_engine("debug", None, EngineConfig(max_batch_size=2,
+                                                   max_seq_len=32, cp=2),
+                       device="cpu")
+    assert e3.mesh.shape == {"data": 1, "seq": 2, "model": 1}
+    with pytest.raises(NotImplementedError, match="paged"):
+        create_engine("debug", None, EngineConfig(cp=2, kv_layout="paged"),
+                      device="cpu")
     # the int8 KV cache is ported in both layouts
     for kw in (dict(), dict(kv_layout="paged", max_prefill_len=16)):
         e8 = create_engine("debug", None, EngineConfig(
@@ -320,6 +325,10 @@ def test_package_imports_no_jax():
         "import llm_inference_engine_tpu_torch.parallel.mesh\n"
         "import llm_inference_engine_tpu_torch.parallel.sharding\n"
         "import llm_inference_engine_tpu_torch.parallel.multihost\n"
+        "import llm_inference_engine_tpu_torch.parallel.context_parallel\n"
+        "import llm_inference_engine_tpu_torch.parallel.cp_cache\n"
+        "import llm_inference_engine_tpu_torch.parallel.cp_engine\n"
+        "import llm_inference_engine_tpu_torch.parallel.pipeline\n"
         "import llm_inference_engine_tpu_torch.runtime.multihost_scheduler\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('llm_inference_engine_tpu.')"

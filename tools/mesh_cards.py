@@ -91,15 +91,15 @@ def main() -> int:
     greedy = SamplingParams(greedy=True, max_new_tokens=16)
 
     meshes = [("one rank, cuda:0", None),
-              ("tp=2 on cuda:0", make_mesh(1, 2, [cards[0]] * 2)),
-              ("dp=2 on cuda:0", make_mesh(2, 1, [cards[0]] * 2)),
-              ("tp=2 over cuda:0-1", make_mesh(1, 2, cards[:2])),
-              ("dp=2 over cuda:0-1", make_mesh(2, 1, cards[:2]))]
+              ("tp=2 on cuda:0", make_mesh(1, 2, devices=[cards[0]] * 2)),
+              ("dp=2 on cuda:0", make_mesh(2, 1, devices=[cards[0]] * 2)),
+              ("tp=2 over cuda:0-1", make_mesh(1, 2, devices=cards[:2])),
+              ("dp=2 over cuda:0-1", make_mesh(2, 1, devices=cards[:2]))]
     if n_cards >= 4:
-        meshes += [("dp=2 x tp=2 on cuda:0", make_mesh(2, 2,
-                                                       [cards[0]] * 4)),
-                   ("dp=2 x tp=2 over cuda:0-3", make_mesh(2, 2,
-                                                           cards[:4]))]
+        meshes += [("dp=2 x tp=2 on cuda:0", make_mesh(
+                       2, 2, devices=[cards[0]] * 4)),
+                   ("dp=2 x tp=2 over cuda:0-3", make_mesh(
+                       2, 2, devices=cards[:4]))]
     out = {}
     for tag, mesh in meshes:
         for d in cards:
