@@ -121,6 +121,26 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
       against the one-rank forward, pp = 2 x tp = 2 against the tp = 2
       forward, a [4, 512] chunk and a decode step: logits and every K/V
       row bit for bit; the stages' weights are views;
+   q. prefix snapshots, speculation and beams on a mesh (after 4p, on its
+      weights): tp = 2 on cuda:0, B = 8, chunks of 1024, every launch
+      counter set to 0 just before each path: (a) the slot PrefixStore
+      through the scheduler, 4k (c)'s prompts (restored rows bit for bit
+      on each rank, the tails' logits within PREFIX_TP2_LIMITS of the
+      full prompts' and both wrong-prefix controls outside them, ids
+      equal with and without the store, TTFT); (b) SpeculativeDecoder
+      over a tinyllama-1.1b INT4 draft on the same mesh, k = 4: 8
+      replayed rounds equal to 8 eager, the ids against the tp = 2
+      target's ``generate`` (a divergence only at a near-tie), a round's
+      wall, busy and idle, the launches of A-E exact per forward; (c)
+      ``beam_search`` with 4 beams over the sharded params: replayed
+      equal to eager, the first expansion's log-probs within
+      TP_LOGIT_REL_L2 of the one-rank search's, the step's ms and its
+      reorder's bytes, the launches exact; (d) E at m = 40 on the tp = 2
+      shards and at m = 8 on tinyllama's, D2 at the verify at 16 heads,
+      D at the draft's rank (G = 8, 2 kv heads, head_dim 64), B at
+      [8, 5632], C into the beams' and the draft's local caches, NaN past
+      every end, against the plain versions, timed with bound and
+      library call;
    h. paged == slot with the int8 cache: as 4d, bit-identical logits and
       ids, through H's and D's int8 paged modes only;
    i. the server over a paged INT4 engine with an int8 pool of 4e's pool
@@ -205,8 +225,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    against their plain versions at 7B widths, in both scale numerics, the
    decode modes held per row; then at head_dim 80, 96
    and 256, at small shapes, D's four decode modes, D2's four prefill
-   modes and I's two writes; 4j runs after 4g, 4n after 4j, 4o and 4p
-   after 4n, before 4d); every profiled step and prefill prints its device time by kernel group
+   modes and I's two writes; 4j runs after 4g, 4n after 4j, 4o, 4p and
+   4q after 4n, before 4d); every profiled step and prefill prints its device time by kernel group
    (KERNEL_GROUPS, the writes and kernels A and B among them; a decode
    step's torch glue split into RoPE, casts, sampling, a mesh's
    cross-rank sums and other by the ops that launch it, GLUE); card busy is the union of the card's
@@ -3437,11 +3457,34 @@ def prefix_prompts(rng) -> dict:
                 other=rng.integers(3, 32000, SYSTEM_LEN).tolist())
 
 
-def prefix_store_rows(torch, engine, prefix: dict, hold_ids: bool) -> None:
+def snapshot_parts(cache, slot: int, entry) -> list:
+    """(shard, local row, snapshot part) of ``slot``: the cache and the
+    entry of one device, or one a model rank over a mesh's ``MeshCache``
+    (a ``MeshPrefixEntry``)."""
+    if hasattr(cache, "slot_shards"):
+        row, shards = cache.slot_shards(slot)
+        return [(s, row, part) for s, part in zip(shards, entry.parts)]
+    return [(cache, slot, entry)]
+
+
+def restored_exactly(torch, cache, slot: int, entry) -> bool:
+    """Every row (and an int8 cache's scale row) of ``entry`` lies in
+    ``slot`` bit for bit, shard by shard."""
+    return all(torch.equal(getattr(s, n)[:, row, :part.padded_length],
+                           getattr(part, n))
+               for s, row, part in snapshot_parts(cache, slot, entry)
+               for n in ("k", "v", "k_scale", "v_scale")
+               if getattr(part, n) is not None)
+
+
+def prefix_store_rows(torch, engine, prefix: dict, hold_ids: bool,
+                      tag: str = "", limits=(LOGIT_ATOL, LOGIT_REL_L2)
+                      ) -> None:
     """4k (c): a 320-token system prompt registered through the scheduler
     (the slot PrefixStore) on a loaded engine, then 8 requests that share
     it. The restore must be an exact byte copy; the tails' prefill logits
-    must agree with the full prompts' within LOGIT_ATOL / LOGIT_REL_L2,
+    must agree with the full prompts' within ``limits`` (max abs, rel L2;
+    LOGIT_ATOL / LOGIT_REL_L2 unless given),
     and first tokens under the tie rule (the full prompts' top two within
     the largest logit difference). Two controls prefill the same tails
     over a wrong prefix (its K/V zeroed; another prompt's K/V): each must
@@ -3449,7 +3492,7 @@ def prefix_store_rows(torch, engine, prefix: dict, hold_ids: bool) -> None:
     ignores the restored rows. The scheduler's greedy ids with and
     without the store are compared position by position; with
     ``hold_ids`` (an engine whose chunks take every prompt whole) they
-    must be equal."""
+    must be equal. A mesh engine's cache is held shard by shard (4q)."""
     from llm_inference_engine_tpu_torch.config import SamplingParams
     from llm_inference_engine_tpu_torch.runtime.prefix_cache import (
         restore_prefix, snapshot_prefix)
@@ -3459,7 +3502,9 @@ def prefix_store_rows(torch, engine, prefix: dict, hold_ids: bool) -> None:
     system, tails = prefix["system"], prefix["tails"]
     prompts = [system + t for t in tails]
     B = len(prompts)
-    tag = "(c) " + engine.engine_config.quant_mode.upper()
+    tag = tag or "(c) " + engine.engine_config.quant_mode.upper()
+    phase_tag = tag.split(" ")[0] if tag.startswith("4") else "4k"
+    atol, rel = limits
     engine.reset()
     sched = ContinuousBatchingScheduler(engine, eos_token_id=None)
     entry = sched.register_prefix(system)
@@ -3468,12 +3513,12 @@ def prefix_store_rows(torch, engine, prefix: dict, hold_ids: bool) -> None:
     store.restore(B - 1, entry)
     c = engine.cache
     tpad = entry.padded_length
-    exact = (torch.equal(c.k[:, B - 1, :tpad], entry.k)
-             and torch.equal(c.v[:, B - 1, :tpad], entry.v)
+    exact = (restored_exactly(torch, c, B - 1, entry)
              and int(c.lengths[B - 1]) == engine._lengths[B - 1]
              == SYSTEM_LEN)
     ms = time_ms(torch, lambda: restore_prefix(c, B - 1, entry), iters=20)
-    kv = entry.k.nbytes + entry.v.nbytes
+    kv = sum(part.k.nbytes + part.v.nbytes
+             for _, _, part in snapshot_parts(c, B - 1, entry))
     moved = 2 * kv                                    # read + write
     bound = moved / HBM_BYTES_PER_S * 1e3
     say(f"  {tag}: restore of {SYSTEM_LEN} tokens ({kv} bytes of K/V, "
@@ -3481,7 +3526,7 @@ def prefix_store_rows(torch, engine, prefix: dict, hold_ids: bool) -> None:
         f"{moved / ms / 1e6:.1f} GB/s read + write; bound {bound:.4f} ms "
         f"(bytes, {bound / ms:.2f} of it)")
     if not exact:
-        raise AssertionError("4k: the restored rows differ from the "
+        raise AssertionError(f"{phase_tag}: the restored rows differ from the "
                              "snapshot")
     # the misread-prefix control: another system prompt's K/V, same length
     engine.reset()
@@ -3498,8 +3543,9 @@ def prefix_store_rows(torch, engine, prefix: dict, hold_ids: bool) -> None:
             for s in range(B):
                 store.restore(s, e)
                 if zero:
-                    engine.cache.k[:, s, :tpad].zero_()
-                    engine.cache.v[:, s, :tpad].zero_()
+                    for sh, row, _ in snapshot_parts(engine.cache, s, e):
+                        sh.k[:, row, :tpad].zero_()
+                        sh.v[:, row, :tpad].zero_()
             return engine.prefill(tails)
         return run
 
@@ -3528,24 +3574,24 @@ def prefix_store_rows(torch, engine, prefix: dict, hold_ids: bool) -> None:
     say(f"  {tag}: warm prefill of the 8 prompts ({sum(map(len, prompts))} "
         f"tokens): {walls['full'][0] * 1e3:.2f} ms; 8 restores + the tails "
         f"({sum(PREFIX_TAILS)} tokens): {walls['reused'][0] * 1e3:.2f} ms; "
-        f"logits max abs {d:.4e}, rel L2 {r:.4e} (limits {LOGIT_ATOL}, "
-        f"{LOGIT_REL_L2}); first tokens that differ {differ}, outside the "
+        f"logits max abs {d:.4e}, rel L2 {r:.4e} (limits {atol}, "
+        f"{rel}); first tokens that differ {differ}, outside the "
         f"tie rule {bad}")
-    if d > LOGIT_ATOL or r > LOGIT_REL_L2 or bad:
-        raise AssertionError("4k: prefix reuse moved the logits past the "
+    if d > atol or r > rel or bad:
+        raise AssertionError(f"{phase_tag}: prefix reuse moved the logits past the "
                              "limits or a first token outside the tie rule")
     controls = {name: _logit_diff(prefill_over(e, zero)(), lg_full)
                 for name, e, zero in (("prefix K/V zeroed", entry, True),
                                       ("another prompt's prefix", other,
                                        False))}
     blind = [k for k, (dc, rc) in controls.items()
-             if dc <= LOGIT_ATOL and rc <= LOGIT_REL_L2]
+             if dc <= atol and rc <= rel]
     say(f"  {tag}: controls, the tails over a wrong prefix against the full "
         f"prompts (max abs / rel L2): " + "; ".join(
             f"{k} {dc:.4e} / {rc:.4e}" for k, (dc, rc) in controls.items())
         + f"; inside the limits: {blind}")
     if blind:
-        raise AssertionError(f"4k: the logit limits cannot see a wrong "
+        raise AssertionError(f"{phase_tag}: the logit limits cannot see a wrong "
                              f"prefix: {blind}")
     del other
 
@@ -3576,10 +3622,10 @@ def prefix_store_rows(torch, engine, prefix: dict, hold_ids: bool) -> None:
         + ("" if hold_ids else " (printed only: a prompt of two chunks "
            "makes a mixed step only the run without the store takes)"))
     if skipped != SYSTEM_LEN * B:
-        raise AssertionError(f"4k: {skipped} prefix tokens reused, want "
+        raise AssertionError(f"{phase_tag}: {skipped} prefix tokens reused, want "
                              f"{SYSTEM_LEN * B}")
     if hold_ids and same != B:
-        raise AssertionError(f"4k: greedy ids with the store differ from "
+        raise AssertionError(f"{phase_tag}: greedy ids with the store differ from "
                              f"those without ({agree}/{16 * B} equal)")
     engine.reset()
 
@@ -3773,6 +3819,21 @@ def spec_kernel_rows(torch, dev, results) -> None:
     torch.cuda.empty_cache()
 
 
+def all_logits(engine, ids, q_start, kv_len):
+    """The logits at every position of ``ids`` appended to ``engine``'s
+    cache (the verify path): ``forward_all_logits``, or its sharded
+    counterpart over a mesh engine's ranks."""
+    from llm_inference_engine_tpu_torch.models import llama
+    from llm_inference_engine_tpu_torch.parallel import sharding
+    if engine.mesh is None:
+        return llama.forward_all_logits(
+            engine.config, engine.engine_config, engine.params, ids,
+            engine.cache, q_start, kv_len)[0]
+    fwd = sharding.make_sharded_forward(engine.config, engine.engine_config,
+                                        engine.mesh, all_logits=True)
+    return fwd(engine.params, engine.cache, ids, q_start, kv_len)[0]
+
+
 def near_ties(torch, engine, events) -> list:
     """For each rejection ``(context, draft token)`` of a self-draft run:
     the target's logits at the end of ``context`` through the verify path
@@ -3780,7 +3841,6 @@ def near_ties(torch, engine, events) -> list:
     through the decode path (a T = 1 forward after the first len - 1),
     8 contexts a batch. Returns [(top-1 minus top-2 of the verify logits,
     max |verify - decode|, verify argmax, decode argmax, draft token)]."""
-    from llm_inference_engine_tpu_torch.models import llama
     B = engine.engine_config.max_batch_size
     out = []
     for i in range(0, len(events), B):
@@ -3793,10 +3853,7 @@ def near_ties(torch, engine, events) -> list:
             ids = torch.tensor([c[-T:] for c in pads], dtype=torch.int32,
                                device=engine.device)
             q = engine.cache.lengths.clone()
-            lg, _ = llama.forward_all_logits(
-                engine.config, engine.engine_config, engine.params, ids,
-                engine.cache, q, q + T)
-            logits.append(lg[:, -1])
+            logits.append(all_logits(engine, ids, q, q + T)[:, -1])
         v, d = logits
         top2 = v.topk(2, dim=-1).values
         for r, (_, tok) in enumerate(batch):
@@ -5841,6 +5898,416 @@ def phase_pipeline(torch, dev, params) -> None:
         torch.cuda.empty_cache()
 
 
+# 4q: prefix snapshots, speculation and beam search on a tp = 2 mesh of two
+# ranks on cuda:0: llama2-7b INT4 (4b's weights) with a tinyllama-1.1b INT4
+# draft sharded over the same mesh. tinyllama's local shapes under tp = 2,
+# (k, n, halves) of E's decode mode at the draft's m = 8: wqkv n 1280, wo
+# k 1024, gate|up 2 x 2816, down k 2816 (22 groups), the lm_head's
+# 16000-row vocab shard; 2 of its 4 kv heads a rank (G = 8, head_dim 64)
+TINY_TP2_SHAPES = {"wqkv": (2048, 1280, 1), "wo": (1024, 2048, 1),
+                   "gate|up": (2048, 2816, 2), "down": (2816, 2048, 1),
+                   "lm_head": (2048, 16000, 1)}
+TINY_TP2_HEADS, TINY_HEAD_DIM = (16, 2), 64
+# 4q (a): the tails' prefill logits over a restored prefix against the full
+# prompts', tp = 2, chunks of 1024 (every prompt whole): the same kernels at
+# the same per-row arithmetic, bit for bit on an H100 (rel L2 0). The INT4
+# dummies' logits barely move with K/V: another prompt's 320-token prefix
+# moved them 8.1e-4 rel L2 (2.4e-2 abs) there, inside 4k's limits, so
+# 4q's limits sit under it
+PREFIX_TP2_LIMITS = (2e-3, 1e-4)
+# 4l's one-rank replayed round (llama2-7b INT4 B = 8, the tinyllama-1.1b
+# INT4 draft, k = 4) on an H100 SXM at 700 W, ms: the yardstick 4q prints
+# its tp = 2 round beside
+SPEC_ROUND_ONE_RANK_MS = 22.073
+
+
+def write_case(torch, dev, results, gen, tag: str, B, T, K, D, new_len_l):
+    """Kernel C writing a chunk of T rows a sequence (ragged: ``new_len_l``
+    live rows each, from row 0) into a slot cache of K kv heads, the new
+    rows at the head of buffers whose tails hold NaN: bit for bit the plain
+    write, timed cold beside it, its bound and two ``index_copy_``."""
+    from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
+    S = 2048
+    starts_l = [0] * B
+
+    def ints(vals):
+        return torch.tensor(vals, dtype=torch.int32, device=dev)
+    starts, new_len = ints(starts_l), ints(new_len_l)
+    kn, vn = (poisoned(torch, torch.randn(B, T, K, D, generator=gen,
+                                          device=dev, dtype=torch.bfloat16))
+              for _ in "kv")
+    rows, picked = slot_rows(starts_l, new_len_l, T, S)
+    cache = kvc.new_kv_cache(2, B, K, S, D, device=dev)
+    ref = kvc.KVCache(cache.k.clone(), cache.v.clone(), cache.lengths)
+    kvc.update_cache_at_layer(cache, 1, kn, vn, starts, new_len,
+                              kernels="cuda")
+    kvc.update_cache_at_layer_torch(ref, 1, kn, vn, starts, new_len)
+    torch.cuda.synchronize()
+    if not (torch.equal(cache.k, ref.k) and torch.equal(cache.v, ref.v)):
+        raise AssertionError(f"kv_write {tag}: cache differs from the plain "
+                             "write")
+    check_close(torch, "kv_write", cache.k[1], ref.k[1], results,
+                f"{tag} [{B},{T},{K},{D}] NaN past the rows, cold L2", (
+                    time_ms(torch, lambda: kvc.update_cache_at_layer(
+                        cache, 1, kn, vn, starts, new_len, kernels="cuda"),
+                        cold=True),
+                    time_ms(torch, lambda: kvc.update_cache_at_layer_torch(
+                        ref, 1, kn, vn, starts, new_len))),
+                work=write_work(len(rows), K, D),
+                library=index_copy_ms(torch, (cache.k[1], cache.v[1]),
+                                      (kn, vn), (ints(rows).long(),
+                                                 ints(picked).long())))
+
+
+def mesh_decoding_kernel_rows(torch, dev, results) -> None:
+    """4q (d): the kernels at the local shapes the tp = 2 mesh's
+    speculation and beams give them, every input at the head of a buffer
+    whose tail holds NaN and every cache row past kv_len NaN, held against
+    the plain versions (on clean copies) and timed beside them, with their
+    bounds and library calls: E's prefill mode at the verify's m = 40 on
+    llama2-7b's tp = 2 shards and its decode mode at m = 8 on tinyllama's;
+    D2 at the verify (B 8, T 5, 16 heads, q_start 45-600); D's fused
+    decode at the draft's rank (G = 8, 2 kv heads, head_dim 64); B at
+    [8, 5632]; C into the beams' local cache (4 x 128 rows, 16 heads) and
+    the draft's (a ragged 8 x 512 chunk, 2 heads)."""
+    from llm_inference_engine_tpu_torch.ops import activations, attention
+    from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
+    gen = torch.Generator(device=dev).manual_seed(2026)
+    for label in TP2_SHAPES:
+        quant_case(torch, dev, gen, results, "int4", 8 * (SPEC_K + 1), label,
+                   TP2_SHAPES, tag="tp2 verify ", poison=True)
+    for label in TINY_TP2_SHAPES:
+        quant_case(torch, dev, gen, results, "int4", 8, label,
+                   TINY_TP2_SHAPES, tag="tinyllama tp2 ", poison=True)
+    torch.cuda.empty_cache()
+    nan = float("nan")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    def ints(vals):
+        return torch.tensor(vals, dtype=torch.int32, device=dev)
+
+    # D2 at the verify; rows past kv_len NaN
+    B, T, K, D, S = 8, SPEC_K + 1, TP2_HEADS, 128, 2048
+    starts = [n + 40 for n in QUANT_PROMPTS]
+    qs, kl = ints(starts), ints([s + T for s in starts])
+    kc, vc = randn(2, B, S, K, D), randn(2, B, S, K, D)
+    ref_k, ref_v = kc.clone(), vc.clone()
+    for b, s in enumerate(starts):
+        kc[1, b, s + T:] = nan
+        vc[1, b, s + T:] = nan
+    q = poisoned(torch, randn(B, T, K, D))
+    run = lambda: attention.attention(  # noqa: E731
+        q, kc, vc, qs, kl, layer=1, kernels="cuda")
+    plain = lambda: attention.attention_torch(  # noqa: E731
+        q, ref_k, ref_v, qs, kl, layer=1)
+    check_close(torch, "attention_prefill", run(), plain(), results,
+                f"tp2 verify B{B} T{T} H{K} K{K} q_start {starts[0]}.."
+                f"{starts[-1]}, NaN past kv_len",
+                (time_ms(torch, run), time_ms(torch, plain, iters=3,
+                                              warmup=1)),
+                work=attn_work(starts, kl.tolist(), T, K, K, D),
+                library=sdpa_ms(torch, q, ref_k[1], ref_v[1], qs, kl))
+    del kc, vc, ref_k, ref_v
+
+    # D's fused decode (WRITE_NEW) at the draft's rank; rows past kv_len NaN
+    (H, K), D = TINY_TP2_HEADS, TINY_HEAD_DIM
+    hist = [s + SPEC_K for s in starts]
+    c = kvc.new_kv_cache(2, B, K, S, D, device=dev)
+    c.k.copy_(randn(2, B, S, K, D))
+    c.v.copy_(randn(2, B, S, K, D))
+    ref = kvc.KVCache(c.k.clone(), c.v.clone(), c.lengths)
+    for b, n in enumerate(hist):
+        c.k[1, b, n + 1:] = nan
+        c.v[1, b, n + 1:] = nan
+    qs = ints(hist)
+    kl = qs + 1
+    qd = poisoned(torch, randn(B, 1, H, D))
+    kn1, vn1 = poisoned(torch, randn(B, 1, K, D)), poisoned(torch,
+                                                            randn(B, 1, K, D))
+    run = lambda: attention.attention_decode_fused(  # noqa: E731
+        qd, kn1, vn1, c.k, c.v, qs, kl, 1, kernels="cuda")[0]
+    plain = lambda: attention.attention_decode_fused_torch(  # noqa: E731
+        qd, kn1, vn1, ref.k, ref.v, qs, kl, 1)[0]
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    b_idx = torch.arange(B, device=dev)
+    for x, y in ((c.k, ref.k), (c.v, ref.v)):
+        if not torch.equal(x[1, b_idx, qs.long()], y[1, b_idx, qs.long()]):
+            raise AssertionError("attention_decode at the draft's rank: the "
+                                 "fused write differs from the plain write")
+    say_plan(attention, f"tinyllama tp2 B{B} H{H} K{K} D{D}", B, H, K, D)
+    check_close(torch, "attention_decode", got, want, results,
+                f"tinyllama tp2 B{B} H{H} K{K} D{D} contexts {min(hist)}-"
+                f"{max(hist)}, NaN past kv_len",
+                (time_ms(torch, run), time_ms(torch, plain, iters=3,
+                                              warmup=1)),
+                work=attn_work(hist, [h + 1 for h in hist], 1, H, K, D,
+                               new_rows=B * 2 * K * D * 2 * 2),
+                library=sdpa_ms(torch, qd, ref.k[1], ref.v[1], qs, kl),
+                row_rel=DECODE_ROW_TOL)
+    del c, ref
+
+    # B at tinyllama's gate|up a rank
+    inter = TINY_TP2_SHAPES["gate|up"][1]
+    gu = poisoned(torch, randn(8, 2 * inter))
+    check_close(torch, "silu_and_mul",
+                activations.silu_and_mul(gu, kernels="cuda"),
+                activations.silu_and_mul_torch(gu), results,
+                f"tinyllama tp2 [8,{2 * inter}] NaN past the tail", (
+                    time_ms(torch, lambda: activations.silu_and_mul(
+                        gu, kernels="cuda")),
+                    time_ms(torch, lambda: activations.silu_and_mul_torch(
+                        gu))),
+                work=(3 * 8 * inter * 2, 5 * 8 * inter))
+
+    # C into the beams' and the draft's local caches
+    write_case(torch, dev, results, gen, "tp2 beams' prefill", BEAMS,
+               BEAM_PROMPT, TP2_HEADS, 128, [BEAM_PROMPT] * BEAMS)
+    write_case(torch, dev, results, gen, "tinyllama tp2 draft's chunk", B,
+               512, TINY_TP2_HEADS[1], TINY_HEAD_DIM,
+               [min(n, 512) for n in QUANT_PROMPTS])
+    torch.cuda.empty_cache()
+
+
+def exact_launches(tag: str, counts: dict, want: dict) -> None:
+    """A path's launches over a known number of forwards against the count
+    each forward makes on each rank (``want``); printed, and raising where
+    they differ."""
+    got = {k: counts.get(k, 0) for k in want}
+    say(f"  {tag} launches: {got}" + ("" if got == want
+                                        else f", want {want}"))
+    if got != want:
+        raise AssertionError(f"{tag}: launches {got}, want {want}")
+
+
+def forward_launches(ranks: int, forwards: int, layer_forwards: int,
+                     **kernels) -> dict:
+    """What ``forwards`` INT4 forwards of ``layer_forwards`` layers in all
+    launch on each of ``ranks`` ranks: A once a forward plain and twice a
+    layer with a residual, B once a layer, E four times a layer (wqkv, wo,
+    gate|up, down) and once for the lm_head; ``kernels``: the attention
+    and write kernels' counts on one rank."""
+    return dict(rmsnorm=ranks * forwards,
+                add_residual_rmsnorm=ranks * 2 * layer_forwards,
+                silu_and_mul=ranks * layer_forwards,
+                int4_matmul=ranks * (4 * layer_forwards + forwards),
+                **{k: ranks * n for k, n in kernels.items()})
+
+
+def phase_mesh_decoding(torch, dev, results, params) -> None:
+    """4q: prefix snapshots, speculation and beam search on a tp = 2 mesh of
+    two ranks on cuda:0, llama2-7b INT4 (4b's weights, ``params``), B = 8,
+    chunks of 1024 (every prompt whole, 4k (c)'s rule): (a) the slot
+    PrefixStore through the scheduler (``prefix_store_rows``: restored rows
+    bit for bit on each rank, the tails' logits within PREFIX_TP2_LIMITS
+    and the controls outside them, ids equal with and without the store,
+    TTFT);
+    (b) SpeculativeDecoder over a tinyllama-1.1b INT4 draft on the same
+    mesh, k = 4: replayed rounds equal to eager rounds from one state, the
+    greedy ids against the tp = 2 target's own ``generate`` (a divergence
+    only at a near-tie, 4l's rule), a round's wall, busy and idle beside
+    4l's one-rank round, the launches of A, B, C, D, D2 and E exact per
+    forward; then the target drafting for itself, so that the draft's
+    ingest program runs: acceptance >= 0.9, replayed rounds (the ingest
+    among them) equal to eager, the launches exact; (c) ``beam_search`` with 4 beams over the sharded params:
+    replayed equal to eager, the first expansion's log-probs within
+    TP_LOGIT_REL_L2 of the one-rank search's, the step's ms and its
+    reorder's bytes, the launches exact per forward; (d)
+    ``mesh_decoding_kernel_rows``."""
+    import numpy as np
+
+    from llm_inference_engine_tpu_torch.config import (
+        EngineConfig, SamplingParams, get_config)
+    from llm_inference_engine_tpu_torch.models.weights import (
+        init_dummy_quantized_params, param_bytes)
+    from llm_inference_engine_tpu_torch.parallel import make_mesh, sharding
+    from llm_inference_engine_tpu_torch.runtime.beam_search import (
+        BeamSearch)
+    from llm_inference_engine_tpu_torch.runtime.decode_graph import (
+        run_eagerly)
+    from llm_inference_engine_tpu_torch.runtime.engine import InferenceEngine
+    from llm_inference_engine_tpu_torch.runtime.speculative import (
+        SpeculativeDecoder)
+
+    cfg, tiny = get_config("llama2-7b"), get_config("tinyllama-1.1b")
+    L, Ld, B = cfg.num_layers, tiny.num_layers, 8
+    eng = EngineConfig(quant_mode="int4", max_batch_size=B, max_seq_len=2048,
+                       max_prefill_len=1024)
+    tp2 = make_mesh(1, 2, devices=[dev, dev])
+    torch.cuda.reset_peak_memory_stats()
+    sp = sharding.shard_params(params, tp2)
+    rng = np.random.default_rng(0)
+
+    # (a) the slot PrefixStore
+    counters = _zero_counters()
+    target = InferenceEngine(cfg, eng, sp)
+    prefix_store_rows(torch, target, prefix_prompts(rng), hold_ids=True,
+                      tag="4q (a) tp=2 INT4", limits=PREFIX_TP2_LIMITS)
+    _path_launches("4q (a)", counters, MAIN_PATHS["int4"][0])
+
+    # (b) speculation: a tinyllama-1.1b INT4 draft on the same mesh
+    counters = _zero_counters()
+    draft = InferenceEngine(tiny, eng, init_dummy_quantized_params(
+        tiny, "int4", eng.quant_group_size, seed=0, device=dev), mesh=tp2)
+    spec = SpeculativeDecoder(target, draft, SPEC_K)
+    prompts = [rng.integers(3, 32000, n).tolist() for n in QUANT_PROMPTS]
+    plain = target.generate(prompts, SamplingParams(
+        greedy=True, max_new_tokens=SPEC_NEW), eos_token_id=None).token_ids
+    spec.generate(prompts, SPEC_NEW, eos_token_id=None)     # captures
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = spec.generate(prompts, SPEC_NEW, eos_token_id=None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # both engines as generate left them: the rounds below start there
+    state = spec_snapshot(spec)
+    events = []
+    for i, (a, b) in enumerate(zip(res.token_ids, plain)):
+        t = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if t is not None:
+            events.append((prompts[i] + b[:t], a[t]))
+    ties = near_ties(torch, target, events)
+    not_tie = [k for k, tie in enumerate(ties) if tie[0] > tie[1]]
+    say(f"  4q (b) tinyllama-1.1b INT4 draft at tp=2, k = {SPEC_K}, greedy, "
+        f"{SPEC_NEW} new tokens at B = {B}: acceptance "
+        f"{res.acceptance_rate:.4f} ({res.num_accepted}/{res.num_drafted}); "
+        f"generate {wall:.3f} s; rows whose ids differ from the tp=2 "
+        f"target's generate: {len(events)}; at the first divergence (verify "
+        f"margin, max |verify - decode|, verify argmax, decode argmax): "
+        f"{[(round(a, 4), round(b, 4), c, d) for a, b, c, d, _ in ties]}")
+    if not_tie:
+        raise AssertionError(f"4q (b): ids differ from the target's generate "
+                             f"outside a near-tie at {not_tie}")
+    if events:
+        # near_ties prefilled the target: generate's last round once more
+        # puts the rows back that the rounds below attend
+        spec.generate(prompts, SPEC_NEW, eos_token_id=None)
+        spec_restore(spec, state)
+    last = np.array([t[-1] for t in res.token_ids], np.int32)
+    greedy = target._host_arrays(SamplingParams(greedy=True))
+    snap = spec_snapshot(spec)
+    eager, eager_ms = spec_rounds(torch, spec, last, greedy, False,
+                                  SPEC_ROUNDS, True)
+    spec_restore(spec, snap)
+    _zero_counters()
+    replayed, graph_ms = spec_rounds(torch, spec, last, greedy, False,
+                                     SPEC_ROUNDS, False)
+    per_rounds = _launch_counts(counters)
+    spec_restore(spec, snap)
+    prof = device_profile(torch, lambda: spec.run_round(
+        last, np.ones(B, bool), greedy, False), 4)
+    spec_restore(spec, snap)
+    say(f"  4q (b) {SPEC_ROUNDS} replayed rounds == {SPEC_ROUNDS} eager "
+        f"rounds: {replayed == eager}; wall eager / replayed {eager_ms:.3f} "
+        f"/ {graph_ms:.3f} ms a round (4l's one-rank round on an H100: "
+        f"{SPEC_ROUND_ONE_RANK_MS} ms); replayed card busy {prof.busy:.3f} "
+        f"ms a round (idle {1 - prof.busy / graph_ms:.3f}); by group: "
+        f"{_groups(prof.per_kernel)}")
+    if replayed != eager:
+        raise AssertionError("4q (b): replayed rounds differ from eager "
+                             "rounds")
+    # a round on each rank: k draft decode steps (D), the verify (C, D2),
+    # and the draft's ingest (D) after a round where a row fully accepted
+    ingests = sum(SPEC_K in na for _, _, na in replayed)
+    R = SPEC_ROUNDS
+    exact_launches(
+        f"4q (b) {R} replayed rounds ({ingests} with the ingest), 2 ranks",
+        per_rounds, forward_launches(
+            2, R * (SPEC_K + 1) + ingests,
+            R * (SPEC_K * Ld + L) + ingests * Ld,
+            attention_decode=(R * SPEC_K + ingests) * Ld,
+            attention_prefill=R * L, kv_write=R * L, dequant_int4=0))
+    del spec, draft
+
+    # the ingest: the target drafting for itself (a second engine over the
+    # same shards) accepts whole rounds, so the draft's ingest program runs
+    twin = InferenceEngine(cfg, eng, sp)
+    spec = SpeculativeDecoder(target, twin, SPEC_K)
+    res = spec.generate(prompts, SPEC_NEW // 2, eos_token_id=None)
+    last = np.array([t[-1] for t in res.token_ids], np.int32)
+    snap = spec_snapshot(spec)
+    eager, _ = spec_rounds(torch, spec, last, greedy, False, 4, True)
+    spec_restore(spec, snap)
+    _zero_counters()
+    replayed, twin_ms = spec_rounds(torch, spec, last, greedy, False, 4,
+                                    False)
+    per_rounds = _launch_counts(counters)
+    ingests = sum(SPEC_K in na for _, _, na in replayed)
+    say(f"  4q (b) self-draft at tp=2: acceptance {res.acceptance_rate:.4f} "
+        f"({res.num_accepted}/{res.num_drafted}); 4 replayed rounds == 4 "
+        f"eager rounds: {replayed == eager} ({ingests} with the ingest); "
+        f"{twin_ms:.3f} ms a round")
+    if replayed != eager or not ingests or res.acceptance_rate < 0.9:
+        raise AssertionError("4q (b): self-draft rounds replayed differ from "
+                             "eager, no ingest ran, or acceptance < 0.9")
+    exact_launches(
+        f"4q (b) 4 replayed self-draft rounds ({ingests} with the ingest), "
+        "2 ranks", per_rounds, forward_launches(
+            2, 4 * (SPEC_K + 1) + ingests, (4 * (SPEC_K + 1) + ingests) * L,
+            attention_decode=(4 * SPEC_K + ingests) * L,
+            attention_prefill=4 * L, kv_write=4 * L, dequant_int4=0))
+    del spec, twin
+    target.reset()
+
+    # (c) beam search over the sharded params
+    prompt = rng.integers(3, 32000, BEAM_PROMPT).tolist()
+    bs = BeamSearch(cfg, eng, sp, BEAMS)
+    one = BeamSearch(cfg, eng, params, BEAMS)
+    P = len(prompt)
+    ids = torch.tensor([prompt] * BEAMS, dtype=torch.int32, device=dev)
+    zero = torch.zeros(BEAMS, dtype=torch.int32, device=dev)
+    logp = [torch.log_softmax(s._forward(ids, zero, zero + P).float(), -1)
+            for s in (bs, one)]
+    d, r = _logit_diff(logp[0], logp[1])
+    want = one.search(prompt, BEAM_NEW, eos_token_id=None)
+    del one
+    with run_eagerly(bs):
+        ref = bs.search(prompt, BEAM_NEW, eos_token_id=None)
+    bs.search(prompt, BEAM_NEW, eos_token_id=None)          # captures
+    _zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = bs.search(prompt, BEAM_NEW, eos_token_id=None)
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t0
+    per_search = _launch_counts(counters)
+    step_ms = time_ms(torch, bs._programs["step"].replay, iters=8)
+    gather = bs.gather_bytes()
+    step_bound = bound_ms((param_bytes(params) + gather // 4 + gather, 0))[0]
+    say(f"  4q (c) beam_search at tp=2, {BEAMS} beams, {P}-token prompt, "
+        f"{BEAM_NEW} new: replayed == eager (sequences, scores): "
+        f"{got == ref}; first expansion's log-probs against the one-rank "
+        f"search's: max abs {d:.4e}, rel L2 {r:.4e} (limit "
+        f"{TP_LOGIT_REL_L2:.1e}); best beam equal to the one-rank search's: "
+        f"{got.sequences[0] == want.sequences[0]} (printed only); search "
+        f"{graph_s:.3f} s replayed; step {step_ms:.4f} ms (replay, CUDA "
+        f"events), bound {step_bound:.4f} ms (weights + live K/V + reorder, "
+        f"bytes); its reorder of {P + BEAM_NEW} rows a beam on both ranks "
+        f"moves {gather} bytes")
+    if got != ref:
+        raise AssertionError("4q (c): replayed beam steps differ from the "
+                             "eager steps")
+    if r > TP_LOGIT_REL_L2:
+        raise AssertionError(f"4q (c): first expansion's log-probs rel L2 "
+                             f"{r:.4e} over {TP_LOGIT_REL_L2}")
+    steps = BEAM_NEW - 1
+    exact_launches(f"4q (c) one replayed search (a prefill, {steps} steps),"
+                   " 2 ranks", per_search, forward_launches(
+                       2, 1 + steps, L * (1 + steps),
+                       attention_decode=L * steps, attention_prefill=L,
+                       kv_write=L, dequant_int4=0))
+    del bs, target, sp
+    torch.cuda.empty_cache()
+    say(f"  4q peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        "GiB")
+
+    # (d)
+    mesh_decoding_kernel_rows(torch, dev, results)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5949,6 +6416,11 @@ def main() -> int:
     phase("4p", "pipeline: llama2-7b INT4, pp=2 and pp=2 x tp=2 on cuda:0, "
           "bit for bit against the forward without the pipe axis",
           phase_pipeline, torch, dev, params)
+    phase("4q", "prefix snapshots, speculation and beams on a mesh: "
+          "llama2-7b INT4 (4b's weights) at tp=2 on cuda:0, the slot "
+          "PrefixStore, a tinyllama-1.1b INT4 draft on the same mesh, "
+          "beam_search; the kernels at the local shapes these give them",
+          phase_mesh_decoding, torch, dev, results, params)
     del params
 
     # the paged serving path, INT4 weights (the JAX package's benchmark

@@ -17,7 +17,8 @@ with no card present, ``cuda`` raises. ``--beams`` > 1 decodes each turn
 with beam search (``ChatSession.response_beam``, no streaming).
 ``--dp``/``--tp`` build a mesh (``parallel/mesh.py``): over
 ``cuda:0 ... cuda:n-1`` (too few cards raise), or with ``--device cpu``
-over n copies of the CPU.
+over n copies of the CPU; with ``--beams`` the search runs over the mesh
+engine's sharded weights.
 """
 
 from __future__ import annotations

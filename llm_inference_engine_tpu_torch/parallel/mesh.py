@@ -89,6 +89,10 @@ class Mesh:
         """Whether every rank lies on the same device."""
         return len(set(self.grid.flat)) == 1
 
+    def __str__(self) -> str:
+        axes = " ".join(f"{k}={v}" for k, v in self.shape.items())
+        return f"mesh {axes} over {[str(d) for d in self.grid.flat]}"
+
     def same_as(self, other: "Mesh") -> bool:
         """Whether ``other`` has this mesh's shape and each rank's device
         (the same ranks on the same devices)."""

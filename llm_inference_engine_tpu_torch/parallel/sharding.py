@@ -46,6 +46,16 @@ global lengths and block table) lives on the mesh's home device
 own ``lengths`` are written by each forward; the engine reads the global
 ones.
 
+What prefix snapshots, speculation and beam search need of a mesh: a
+slot's rows lie in one data group, each model rank holding its heads
+(:meth:`MeshCache.slot_shards`: a snapshot is one copy a rank, a restore
+copies each rank's part onto the ranks of the slot's data group, across
+cards where the mesh spans them); the verify of a speculative round takes
+the lm_head at every position (:func:`make_sharded_forward` with
+``all_logits``); a beam search runs one sequence on data group 0's model
+ranks (:meth:`ShardedParams.data_group`) over a :class:`MeshCache` of its
+own.
+
 A mesh with a ``seq`` axis (context parallelism) runs
 ``parallel/cp_engine.py``'s forward: :func:`lockstep` then also answers
 a third kind of yield, a seq-axis request (the ring's chunks, the
@@ -61,6 +71,7 @@ import contextlib
 import dataclasses
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from llm_inference_engine_tpu_torch.models import llama as llama_model
@@ -123,6 +134,15 @@ class ShardedParams:
     def shard(self, d: int, s: int, r: int) -> dict:
         return self.grid[d][s][r]
 
+    def data_group(self) -> "ShardedParams":
+        """Data rank 0's model ranks of seq rank 0 as params over a mesh of
+        their own (dp = cp = 1), sharing this one's tensors: what one
+        sequence runs on (a beam search), since every data rank holds the
+        same weights."""
+        grid = np.empty((1, 1, self.mesh.tp), dtype=object)
+        grid[0, 0, :] = self.mesh.grid[0, 0, :]
+        return ShardedParams(Mesh(grid), [[self.grid[0][0]]])
+
 
 def shard_params(params: dict, mesh: Mesh) -> ShardedParams:
     """Each rank's shard of ``params`` (one device's params, dense or
@@ -173,6 +193,13 @@ class MeshCache:
         """The global batch rows of data rank d."""
         b = self.lengths.shape[0] // self.mesh.dp
         return slice(d * b, (d + 1) * b)
+
+    def slot_shards(self, slot: int) -> tuple[int, list]:
+        """Global row ``slot``'s local row, and the shards that hold it:
+        data rank ``slot // (B / dp)``'s, one a model rank (its heads, and
+        an int8 cache's scale planes of those heads)."""
+        b = self.lengths.shape[0] // self.mesh.dp
+        return slot % b, self.shards[slot // b]
 
     def upload_table(self) -> None:
         """Copy the global block table's rows into every shard's table, in
@@ -307,7 +334,8 @@ def mesh_logits(cfg, eng, mesh: Mesh, params: ShardedParams, hidden: list,
     """The lm_head on each (data, model) rank's last valid hidden states:
     ``hidden`` rank-major on the ranks' devices, each [b, T, H] with
     ``last`` [B] the index of every row's last valid token, or each
-    [b, H] already taken. Logits [B, V] f32 on the home device, the
+    [b, H] already taken, or each [b, T, H] with ``last`` None for every
+    position. Logits [B, V] (or [B, T, V]) f32 on the home device, the
     vocab shards concatenated over the model ranks, then the data
     ranks."""
     logits = []
@@ -322,16 +350,20 @@ def mesh_logits(cfg, eng, mesh: Mesh, params: ShardedParams, hidden: list,
                           last[d * b:(d + 1) * b].to(h.device)]
                 group.append(llama_model.lm_head_logits(
                     cfg, eng, params.shard(d, 0, r), h).to(mesh.home))
-        logits.append(torch.cat(group, dim=1) if mesh.tp > 1 else group[0])
+        logits.append(torch.cat(group, dim=-1) if mesh.tp > 1 else group[0])
     return torch.cat(logits, dim=0) if mesh.dp > 1 else logits[0]
 
 
-def make_sharded_forward(config, engine_config, mesh: Mesh):
+def make_sharded_forward(config, engine_config, mesh: Mesh,
+                         all_logits: bool = False):
     """``forward_hidden`` over the mesh: a function of (sharded params, a
     :class:`MeshCache`, token_ids [B, T], q_start [B], kv_len [B], all on
     the home device) returning (logits [B, V] f32 on the home device, the
     cache), with the shards' K/V and the global lengths updated in place.
-    The shards carry their own layout (slot or paged, bf16 or int8)."""
+    The shards carry their own layout (slot or paged, bf16 or int8).
+    ``all_logits``: ``forward_all_logits`` over the mesh instead, logits
+    [B, T, V] at every position (the verify of speculative decoding). The
+    cache need not be an engine's: a beam search passes its own."""
     validate_mesh(config, engine_config, mesh)
     if mesh.cp > 1:
         raise ValueError("a mesh with a seq axis runs "
@@ -343,7 +375,8 @@ def make_sharded_forward(config, engine_config, mesh: Mesh):
         T = token_ids.shape[1]
         # before the forward: it overwrites the lengths, which q_start may
         # be
-        last = torch.clamp(kv_len - q_start - 1, 0, T - 1).long()
+        last = (None if all_logits else
+                torch.clamp(kv_len - q_start - 1, 0, T - 1).long())
         hidden = mesh_decoder(cfg_local, engine_config, mesh, params, cache,
                               token_ids, q_start, kv_len)
         cache.lengths.copy_(kv_len)

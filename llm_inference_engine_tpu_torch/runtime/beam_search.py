@@ -21,6 +21,17 @@ reorder gathers into a scratch buffer and copies back. It moves only the
 rows a search can have written, the first ``prompt + max_new_tokens`` of
 each beam (rows at or past a beam's length are never attended), not all
 ``max_seq_len``.
+
+Over a mesh engine's params (a ``parallel.sharding.ShardedParams``, dp
+x tp, or a context-parallel engine's) the search runs on data group 0's
+model ranks of seq rank 0 (``ShardedParams.data_group``): a search is one
+sequence, and every data rank holds the same weights. Its cache is a slot
+``MeshCache`` over those ranks, each holding its kv heads of every beam,
+the step's forward is the sharded forward (``make_sharded_forward``), and
+the reorder runs on every rank. The JAX package runs its search over
+sharded params through GSPMD. The step stays a CUDA-graph replay on a
+mesh whose ranks are all on one card, and runs eagerly over several
+cards, as the engine's decode does.
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ import torch
 from llm_inference_engine_tpu_torch.config import EngineConfig, ModelConfig
 from llm_inference_engine_tpu_torch.models import llama as llama_model
 from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
+from llm_inference_engine_tpu_torch.parallel import sharding
 from llm_inference_engine_tpu_torch.runtime import decode_graph
 from llm_inference_engine_tpu_torch.runtime.engine import check_kernel_dtypes
 
@@ -58,40 +70,54 @@ class BeamSearch:
     when the rows to reorder change."""
 
     def __init__(self, config: ModelConfig, engine_config: EngineConfig,
-                 params: dict, num_beams: int = 4, device=None):
-        if not isinstance(params, dict):
-            raise NotImplementedError(
-                "beam search over a mesh engine's sharded params is not "
-                "ported yet (ROADMAP.md, queue 1, "
-                "'Prefix snapshots, speculation and beams on a mesh')")
+                 params, num_beams: int = 4, device=None):
+        """``params``: one device's params, or a mesh engine's
+        ``ShardedParams`` (``device`` is then the mesh's home)."""
         self.config = config
-        self.engine_config = eng = engine_config.replace(
-            max_batch_size=num_beams)
+        eng = engine_config.replace(max_batch_size=num_beams)
+        self.mesh = mesh = None
+        self._fwd = None
+        if isinstance(params, sharding.ShardedParams):
+            params = params.data_group()
+            self.mesh = mesh = params.mesh
+            eng = eng.replace(dp=1, cp=1, tp=mesh.tp)
+            self._fwd = sharding.make_sharded_forward(config, eng, mesh)
+            device = mesh.home
+        self.engine_config = eng
         self.params = params
         self.num_beams = num_beams
         self.device = device = torch.device(
             device if device is not None else params["embed"].device)
         check_kernel_dtypes(config, eng, device)
-        self.cache = kvc.new_kv_cache(
-            config.num_layers, num_beams, config.num_kv_heads,
-            eng.max_seq_len, config.head_dim,
-            dtype=eng.kv_cache_dtype or config.dtype, device=device,
-            quantized=eng.kv_cache_dtype == torch.int8)
+
+        def new(batch, kv_heads, dev):
+            return kvc.new_kv_cache(
+                config.num_layers, batch, kv_heads, eng.max_seq_len,
+                config.head_dim, dtype=eng.kv_cache_dtype or config.dtype,
+                device=dev, quantized=eng.kv_cache_dtype == torch.int8)
+        self.cache = (new(num_beams, config.num_kv_heads, device)
+                      if mesh is None else sharding.sharded_cache(
+                          mesh, new, num_beams, config.num_kv_heads))
         self._state = torch.zeros((len(_ROWS), num_beams), dtype=torch.int32,
                                   device=device)
         # eos (-1: none) and pad, read by the step on the device
         self._ids = torch.zeros((2,), dtype=torch.int32, device=device)
         self._rows = 0
         self._scratch: list = []
-        # the step's graph on the card (None runs it eagerly), and the rows
-        # it reorders
-        self._programs: Optional[dict] = {} if device.type == "cuda" else None
+        # the step's graph on the card (None runs it eagerly, as over a
+        # mesh of several cards: a graph is one device's), and the rows it
+        # reorders
+        one_device = mesh is None or mesh.one_device
+        self._programs: Optional[dict] = (
+            {} if device.type == "cuda" and one_device else None)
         self._captured_rows = 0
 
     def _planes(self) -> list:
-        """The cache tensors whose rows follow their beam."""
-        c = self.cache
-        return [t for t in (c.k, c.v, c.k_scale, c.v_scale) if t is not None]
+        """The cache tensors whose rows follow their beam, every rank's."""
+        shards = ([self.cache] if self.mesh is None
+                  else [s for row in self.cache.shards for s in row])
+        return [t for c in shards for t in (c.k, c.v, c.k_scale, c.v_scale)
+                if t is not None]
 
     def _set_rows(self, rows: int) -> None:
         """Reorder the first ``rows`` rows of each beam from now on."""
@@ -103,8 +129,18 @@ class BeamSearch:
 
     def gather_bytes(self) -> int:
         """Bytes one step's reorder reads and writes: each plane's rows
-        gathered into the scratch and copied back."""
+        gathered into the scratch and copied back, on every rank."""
         return 4 * sum(s.numel() * s.element_size() for s in self._scratch)
+
+    def _forward(self, token_ids, q_start, kv_len) -> torch.Tensor:
+        """The model's last-token logits over the beams' cache (the sharded
+        forward over a mesh)."""
+        if self._fwd is not None:
+            return self._fwd(self.params, self.cache, token_ids, q_start,
+                             kv_len)[0]
+        return llama_model.forward_hidden(
+            self.config, self.engine_config, self.params, token_ids,
+            self.cache, q_start, kv_len)[0]
 
     def _step_body(self) -> None:
         """One beam step on the state buffer (tokens, scores, finished,
@@ -114,9 +150,7 @@ class BeamSearch:
         tokens, scores = st[0], st[1].view(torch.float32)
         finished, lengths = st[2] != 0, st[3]
         q_start = c.lengths
-        logits, _ = llama_model.forward_hidden(
-            self.config, self.engine_config, self.params, tokens[:, None], c,
-            q_start, q_start + 1)
+        logits = self._forward(tokens[:, None], q_start, q_start + 1)
         logp = torch.log_softmax(logits.float(), dim=-1)          # [B, V]
         V = logp.shape[-1]
         # finished beams: only successor is themselves with pad at the
@@ -133,7 +167,8 @@ class BeamSearch:
         rows = self._rows
         for plane, scratch in zip(self._planes(), self._scratch):
             live = plane[:, :, :rows]
-            torch.index_select(live, 1, parents, out=scratch)
+            torch.index_select(live, 1, parents.to(plane.device),
+                               out=scratch)
             live.copy_(scratch)
         c.lengths.copy_(c.lengths.index_select(0, parents))
         new_finished = finished.index_select(0, parents)
@@ -177,11 +212,9 @@ class BeamSearch:
         # every beam prefills the same prompt
         ids = torch.tensor(list(prompt_ids), dtype=torch.int32)
         ids = ids.to(dev)[None, :].expand(B, P).contiguous()
-        c = self.cache
-        c.lengths.zero_()
-        logits, _ = llama_model.forward_hidden(
-            self.config, self.engine_config, self.params, ids, c,
-            torch.zeros((B,), dtype=torch.int32, device=dev),
+        self.cache.lengths.zero_()
+        logits = self._forward(
+            ids, torch.zeros((B,), dtype=torch.int32, device=dev),
             torch.full((B,), P, dtype=torch.int32, device=dev))
         logp0 = torch.log_softmax(logits.float(), dim=-1)
         # first expansion: the beams are identical, so the top B tokens of
@@ -228,7 +261,8 @@ def beam_search(config: ModelConfig, engine_config: EngineConfig, params,
                 max_new_tokens: int = 64, eos_token_id: Optional[int] = 2,
                 length_penalty: float = 1.0,
                 pad_token_id: int = 0) -> BeamSearchResult:
-    """Beam-search a single prompt on the device of ``params`` (see
+    """Beam-search a single prompt on the device of ``params``, or on data
+    group 0's ranks of a mesh engine's ``ShardedParams`` (see
     :class:`BeamSearch`). Returns the beams sorted by length-penalized
     score, best first."""
     return BeamSearch(config, engine_config, params, num_beams).search(

@@ -82,8 +82,11 @@ read whole local logs, so that one captured graph serves every length.
 Refused with the JAX engine's messages: cp with the paged pool, a log
 neither bf16 (the model dtype) nor int8. Not ported
 (NotImplementedError): an int8 pool under a mesh (the JAX package's
-limit), and the slot ``PrefixStore``, speculation and beams over a mesh
-engine, a cp engine included.
+limit), and on a cp engine the slot ``PrefixStore`` and speculation,
+whose JAX counterparts give wrong ids or fail there (ROADMAP.md, queue
+3). Over a dp x tp mesh the slot prefix stores, speculation and beam
+search run (``runtime/prefix_cache.py``, ``runtime/speculative.py``,
+``runtime/beam_search.py``); beams also over a cp engine's params.
 """
 
 from __future__ import annotations

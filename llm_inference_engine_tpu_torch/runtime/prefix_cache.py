@@ -26,6 +26,18 @@ the tail.
   snapshots of one prefix in the target and the draft engine, registered,
   evicted and restored together, so that both caches hold the same
   lengths at every round boundary.
+
+Over a mesh engine's slot cache (a ``parallel.sharding.MeshCache``) a
+snapshot is a :class:`MeshPrefixEntry`: one ``PrefixEntry`` a model rank,
+the slot's rows of that rank's heads (and scale planes), taken from the
+shards of the slot's data group; a restore copies each part into the
+shards of the target slot's data group, across cards where the mesh spans
+them. The JAX package slices and updates the sharded arrays alike. A
+context-parallel engine's append logs are refused: the JAX package's
+snapshot of a ``CPCache`` copies log rows without their positions
+(``kv_pos``) and row counts (``llen``), so its restored prefix gives other
+ids than the same engine without the store (ROADMAP.md, queue 3), and
+porting it would port that fault.
 """
 
 from __future__ import annotations
@@ -36,9 +48,12 @@ from typing import Optional, Sequence
 
 import torch
 
+from llm_inference_engine_tpu_torch.parallel.cp_cache import CPCache
+from llm_inference_engine_tpu_torch.parallel.sharding import MeshCache
 from llm_inference_engine_tpu_torch.utils import round_up
 
-__all__ = ["PrefixEntry", "PrefixStore", "snapshot_prefix",
+__all__ = ["PrefixEntry", "MeshPrefixEntry", "PrefixStore",
+           "snapshot_prefix",
            "restore_prefix", "RESTORE_BUCKET", "PagedPrefixEntry",
            "PagedPrefixStore", "AutoPrefixCache", "DualPrefixEntry",
            "DualPrefixStore"]
@@ -63,26 +78,56 @@ class PrefixEntry:
         return self.k.shape[1]
 
 
+@dataclasses.dataclass
+class MeshPrefixEntry:
+    """A snapshot over a mesh engine's slot cache: ``parts[r]`` holds model
+    rank r's heads of the prefix rows, on that rank's device in the data
+    group the snapshot was taken from."""
+    tokens: tuple[int, ...]
+    length: int
+    parts: list
+
+    @property
+    def padded_length(self) -> int:
+        return self.parts[0].padded_length
+
+
+CP_SNAPSHOT_REFUSAL = (
+    "slot prefix snapshots of a context-parallel engine are not ported: "
+    "the JAX package's snapshot of a CPCache copies the append logs' rows "
+    "[:, slot, :tpad] without their kv_pos or llen, so a restored prefix "
+    "gives other ids than the same engine without the store (a fault of "
+    "the reference, ROADMAP.md queue 3); the paged prefix caches and the "
+    "dp/tp meshes take snapshots")
+
+
 def _require_slot_layout(cache) -> None:
-    if hasattr(cache, "shards"):
-        raise NotImplementedError(
-            "slot prefix snapshots over a mesh engine are not ported yet "
-            "(ROADMAP.md, queue 1, "
-            "'Prefix snapshots, speculation and beams on a mesh'); "
-            "the paged prefix caches work over a mesh")
-    if hasattr(cache, "block_table"):
+    if isinstance(cache, CPCache):
+        raise NotImplementedError(CP_SNAPSHOT_REFUSAL)
+    if getattr(cache, "block_table", None) is not None:
         raise NotImplementedError(
             "prefix caching requires the slot KV layout (kv_layout='slot'):"
             " a page pool has no contiguous per-slot rows to snapshot "
             "(use PagedPrefixStore)")
 
 
-def snapshot_prefix(cache, slot: int, length: int) -> PrefixEntry:
+def snapshot_prefix(cache, slot: int, length: int):
     """Copy ``length`` KV rows of ``slot`` out of the cache in storage
-    form. The pad rows up to RESTORE_BUCKET carry whatever the cache held
-    (they restore beyond the entry's valid length and are never attended,
-    exactly like a slot's own unwritten tail)."""
+    form: a ``PrefixEntry``, or over a ``MeshCache`` a
+    :class:`MeshPrefixEntry` of one a model rank. The pad rows up to
+    RESTORE_BUCKET carry whatever the cache held (they restore beyond the
+    entry's valid length and are never attended, exactly like a slot's
+    own unwritten tail)."""
     _require_slot_layout(cache)
+    if isinstance(cache, MeshCache):
+        row, shards = cache.slot_shards(slot)
+        return MeshPrefixEntry((), length, [_snapshot_rows(s, row, length)
+                                            for s in shards])
+    return _snapshot_rows(cache, slot, length)
+
+
+def _snapshot_rows(cache, slot: int, length: int) -> PrefixEntry:
+    """One device's cache: ``snapshot_prefix``."""
     tpad = min(round_up(max(length, 1), RESTORE_BUCKET), cache.k.shape[2])
     ks = vs = None
     if cache.quantized:
@@ -94,12 +139,30 @@ def snapshot_prefix(cache, slot: int, length: int) -> PrefixEntry:
                        k_scale=ks, v_scale=vs, snapped=cache.snapped)
 
 
-def restore_prefix(cache, slot: int, entry: PrefixEntry):
+def restore_prefix(cache, slot: int, entry):
     """Copy ``entry``'s rows into ``slot`` of the cache IN PLACE and set
     the slot's device length to the prefix length; returns the same
-    cache. (An engine's host mirror of the lengths is the caller's:
-    :meth:`PrefixStore.restore` keeps it.)"""
+    cache. Over a ``MeshCache`` each model rank's part goes to that rank's
+    shard of the slot's data group (a copy between cards where the part
+    was taken on another). (An engine's host mirror of the lengths is the
+    caller's: :meth:`PrefixStore.restore` keeps it.)"""
     _require_slot_layout(cache)
+    mesh_cache = isinstance(cache, MeshCache)
+    if mesh_cache != isinstance(entry, MeshPrefixEntry) or (
+            mesh_cache and len(entry.parts) != cache.mesh.tp):
+        raise ValueError("prefix snapshot does not match the cache's "
+                         "layout (one device's, or a mesh's model ranks)")
+    if mesh_cache:
+        row, shards = cache.slot_shards(slot)
+        for shard, part in zip(shards, entry.parts):
+            _restore_rows(shard, row, part)
+        cache.lengths[slot] = entry.length
+        return cache
+    return _restore_rows(cache, slot, entry)
+
+
+def _restore_rows(cache, slot: int, entry: PrefixEntry):
+    """One device's cache: ``restore_prefix``."""
     if (entry.k.dtype != cache.k.dtype
             or entry.k.shape[2:] != cache.k.shape[3:]
             or entry.snapped != cache.snapped

@@ -8,8 +8,9 @@ paged engine carries the history's full pages across the slot reset
 (``_paged_carry_history``). The engine's one-token top-up of a
 length-terminated row is mirrored as it is (ROADMAP.md, queue 3), so the
 session's ids equal the JAX session's. ``response_beam`` decodes a
-round with beam search (``beam_search.py``) and re-prefills the winning
-turn into the session's slot.
+round with beam search (``beam_search.py``; over a mesh engine's sharded
+weights, on its data group 0) and re-prefills the winning turn into the
+session's slot.
 """
 
 from __future__ import annotations

@@ -32,6 +32,18 @@ their lengths. The JAX round's ``lax.cond(any(full), ingest, ...)``, the
 draft's ingest of its own d_k after a fully accepted round, is a second
 program here, replayed only when the host, which reads every round's
 ``n_acc``, sees a fully accepted row.
+
+Over a mesh (dp x tp) the target and the draft must lie on the same mesh
+(``Mesh.same_as``): each forward of the round runs every rank's layer
+body through the engine's sharded forward, the verify with the lm_head at
+every position (``make_sharded_forward(..., all_logits=True)``), and the
+acceptance, the rewinds, the counts and the draws stay on the mesh's home
+device, where the engines keep their inputs and lengths. The round and
+the ingest are replayed on a mesh whose ranks are all on one card, and
+run eagerly over several cards, as the engine's decode does. A
+context-parallel engine is refused: the JAX package's round runs
+``forward_hidden`` over a ``CPCache`` with no ``CPSpec`` and fails there
+(ROADMAP.md, queue 3).
 """
 
 from __future__ import annotations
@@ -47,9 +59,20 @@ from llm_inference_engine_tpu_torch.models import llama as llama_model
 from llm_inference_engine_tpu_torch.ops.sampling import (
     accepted_tokens, apply_penalties, greedy_sample, processed_probs,
     sample_tokens, speculative_accept)
+from llm_inference_engine_tpu_torch.parallel import sharding
 from llm_inference_engine_tpu_torch.runtime import decode_graph
 
-__all__ = ["SpeculativeDecoder", "SpecResult"]
+__all__ = ["SpeculativeDecoder", "SpecResult", "CP_SPEC_REFUSAL"]
+
+CP_SPEC_REFUSAL = (
+    "speculative decoding over a context-parallel engine is not ported: "
+    "the JAX package's round runs forward_hidden over a CPCache with no "
+    "CPSpec and fails ('CPCache requires a CPSpec (cp_engine)'), a fault of "
+    "the reference (ROADMAP.md, queue 3); dp/tp meshes speculate")
+
+
+def _place(engine) -> str:
+    return str(engine.device if engine.mesh is None else engine.mesh)
 
 
 @dataclasses.dataclass
@@ -65,8 +88,8 @@ class SpecResult:
 
 class SpeculativeDecoder:
     """Speculative decoding over two InferenceEngines that share a
-    vocabulary, a batch size and a device; ``num_draft`` tokens are
-    proposed per round."""
+    vocabulary, a batch size and a device or a mesh; ``num_draft`` tokens
+    are proposed per round."""
 
     def __init__(self, target, draft, num_draft: int = 4, rng_seed: int = 0):
         if target.config.vocab_size != draft.config.vocab_size:
@@ -74,20 +97,26 @@ class SpeculativeDecoder:
         B = target.engine_config.max_batch_size
         if draft.engine_config.max_batch_size != B:
             raise ValueError("target/draft max_batch_size mismatch")
-        if draft.device != target.device:
-            raise ValueError(f"target on {target.device}, draft on "
-                             f"{draft.device}")
+        if target.cp > 1 or draft.cp > 1:
+            raise NotImplementedError(CP_SPEC_REFUSAL)
+        mesh = target.mesh
+        if ((mesh is None) != (draft.mesh is None)
+                or (mesh is None and draft.device != target.device)
+                or (mesh is not None and not mesh.same_as(draft.mesh))):
+            raise ValueError(f"target on {_place(target)}, draft on "
+                             f"{_place(draft)}: a round runs both on one "
+                             "device or one mesh")
         if target.paged or draft.paged:
             raise NotImplementedError(
                 "speculative decoding uses the slot KV layout")
-        if target.mesh is not None or draft.mesh is not None:
-            raise NotImplementedError(
-                "speculative decoding over a mesh engine is not ported yet "
-                "(ROADMAP.md, queue 1, "
-                "'Prefix snapshots, speculation and beams on a mesh')")
         self.target = target
         self.draft = draft
         self.k = num_draft
+        # the verify: the target's lm_head at every position
+        self._verify = (None if mesh is None else
+                        sharding.make_sharded_forward(
+                            target.config, target.engine_config, mesh,
+                            all_logits=True))
         dev = target.device
         self._gen = torch.Generator(device=dev)
         self._gen.manual_seed(rng_seed)
@@ -100,7 +129,10 @@ class SpeculativeDecoder:
         # (1 where the row fully accepted)
         self._ingest = torch.zeros((2, B), dtype=torch.int32, device=dev)
         # graphs by body name on the card; None runs the bodies eagerly
-        self._programs: Optional[dict] = {} if dev.type == "cuda" else None
+        # (also over a mesh of several cards: a graph is one device's)
+        one_device = mesh is None or mesh.one_device
+        self._programs: Optional[dict] = (
+            {} if dev.type == "cuda" and one_device else None)
 
     # ------------------------------------------------------------------
     # the round on the device
@@ -133,9 +165,7 @@ class SpeculativeDecoder:
         tok, drafts, qs = x.tokens, [], []
         for _ in range(k):
             lengths = dc.lengths
-            logits, _ = llama_model.forward_hidden(
-                d.config, d.engine_config, d.params, tok[:, None], dc,
-                lengths, lengths + act)
+            logits = d._forward(tok[:, None], lengths, lengths + act)
             logits = self._pen(logits, *counts, rep, pres, freq)
             if sampled:
                 qs.append(processed_probs(logits, x.temperature, x.top_k,
@@ -148,9 +178,13 @@ class SpeculativeDecoder:
         draft_toks = torch.stack(drafts, dim=1)                 # [B, k]
 
         block = torch.cat([x.tokens[:, None], draft_toks], dim=1)
-        logits, _ = llama_model.forward_all_logits(
-            t.config, t.engine_config, t.params, block, tc, t_len,
-            t_len + act * (k + 1))
+        if self._verify is not None:
+            logits, _ = self._verify(t.params, tc, block, t_len,
+                                     t_len + act * (k + 1))
+        else:
+            logits, _ = llama_model.forward_all_logits(
+                t.config, t.engine_config, t.params, block, tc, t_len,
+                t_len + act * (k + 1))
         logits = self._pen(logits, *counts, rep, pres, freq)    # [B, k+1, V]
         if sampled:
             def per_pos(a):
@@ -197,9 +231,8 @@ class SpeculativeDecoder:
         length 1; 0 elsewhere, which writes nothing)."""
         d = self.draft
         lengths = d.cache.lengths
-        llama_model.forward_hidden(d.config, d.engine_config, d.params,
-                                   self._ingest[0][:, None], d.cache,
-                                   lengths, lengths + self._ingest[1])
+        d._forward(self._ingest[0][:, None], lengths,
+                   lengths + self._ingest[1])
 
     def run_round(self, last, active, arrays, sampled: bool):
         """One round from ``last`` [B] for the ``active`` [B] rows with the

@@ -18,7 +18,11 @@ counts frozen at each round's start. A slot needs k + 2 rows of headroom
 a round, so requests finish with reason 'capacity' slightly earlier than
 under the plain scheduler. Prefix caching restores paired snapshots into
 both caches (``prefix_cache.DualPrefixStore``). Paged engines are
-refused, as in the JAX package.
+refused, as in the JAX package, with its messages. Two engines on one
+dp x tp mesh run as two one-device engines do: the mixed steps prefill
+both through their sharded forwards, the rounds run over the mesh
+(``speculative.py``), and the paired snapshots are taken and restored
+per shard.
 """
 
 from __future__ import annotations
@@ -38,7 +42,14 @@ __all__ = ["SpeculativeScheduler"]
 class SpeculativeScheduler(ContinuousBatchingScheduler):
     def __init__(self, target, draft, eos_token_id: Optional[int] = 2,
                  num_draft: int = 4):
-        # refuses a vocabulary, batch or device mismatch and paged engines
+        if (target.engine_config.max_batch_size
+                != draft.engine_config.max_batch_size):
+            raise ValueError("target/draft max_batch_size mismatch")
+        if target.paged or draft.paged:
+            raise NotImplementedError(
+                "speculative scheduling uses the slot KV layout")
+        # refuses a vocabulary mismatch, engines on other devices or
+        # meshes, and context-parallel engines
         self._spec = SpeculativeDecoder(target, draft, num_draft)
         super().__init__(target, eos_token_id)
         self.draft = draft

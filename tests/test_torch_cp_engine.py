@@ -31,6 +31,8 @@ from llm_inference_engine_tpu.parallel.mesh import (
     validate_mesh as j_validate_mesh)
 from llm_inference_engine_tpu.runtime.engine import (
     InferenceEngine as JInferenceEngine)
+from llm_inference_engine_tpu.runtime.scheduler import (
+    ContinuousBatchingScheduler as JScheduler)
 from llm_inference_engine_tpu_torch.config import (
     EngineConfig, SamplingParams, get_config)
 from llm_inference_engine_tpu_torch.models.weights import params_from_numpy
@@ -343,18 +345,60 @@ def test_scheduler_over_a_cp_engine(rng, params):
 
 
 def test_prefix_snapshots_speculation_and_beams_refuse_a_cp_engine(params):
+    """On a cp engine the slot prefix store and speculation stay refused,
+    naming the reference's fault (its snapshot carries no kv_pos/llen; its
+    round fails its CPSpec assertion: see the next test); beams over the
+    cp engine's params run (on the seq-rank-0 face) and give the one-rank
+    engine's sequences (the JAX package's, in
+    ``test_torch_mesh_decoding.py``)."""
     from llm_inference_engine_tpu_torch.runtime.beam_search import (
         beam_search)
     from llm_inference_engine_tpu_torch.runtime.prefix_cache import (
-        PrefixStore)
+        DualPrefixStore, PrefixStore)
     from llm_inference_engine_tpu_torch.runtime.speculative import (
         SpeculativeDecoder)
     te = _engine(params, cp=2)
-    item = "Prefix snapshots, speculation and beams on a mesh"
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError,
+                       match="without their kv_pos or llen"):
         PrefixStore(te)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError,
+                       match="without their kv_pos or llen"):
+        DualPrefixStore(_engine(params), te)
+    with pytest.raises(NotImplementedError,
+                       match=r"CPCache requires a CPSpec \(cp_engine\)"):
         SpeculativeDecoder(te, te)
-    with pytest.raises(NotImplementedError, match=item):
-        beam_search(CFG, te.engine_config, te.params, [1, 2, 3],
-                    num_beams=2)
+    got = beam_search(CFG, te.engine_config, te.params, [1, 2, 3],
+                      num_beams=2, max_new_tokens=4, eos_token_id=None)
+    one = _engine(params)
+    want = beam_search(CFG, one.engine_config, one.params, [1, 2, 3],
+                       num_beams=2, max_new_tokens=4, eos_token_id=None)
+    assert got.sequences == want.sequences
+    np.testing.assert_allclose(got.scores, want.scores, atol=TOL, rtol=TOL)
+
+
+def test_jax_prefix_store_on_a_cp_engine_gives_other_ids(fresh, params):
+    """The reference's fault that keeps the port's refusal: the JAX cp = 2
+    scheduler with a registered prefix restores log rows without their
+    kv_pos/llen, and its greedy ids differ from the same engine's without
+    the store, which the port's cp engine reproduces."""
+    jcp, _ = fresh
+    rng = np.random.default_rng(0)
+    prefix = _prompts(rng, [20])[0]
+    prompts = [prefix + t for t in _prompts(rng, [5, 3, 9, 2])]
+    runs = []
+    for store in (False, True):
+        jcp.reset()
+        sched = JScheduler(jcp, eos_token_id=None)
+        if store:
+            sched.register_prefix(prefix)
+        reqs = [sched.submit(p, JSamplingParams(**GREEDY)) for p in prompts]
+        sched.run()
+        runs.append([r.output_ids for r in reqs])
+        assert [r.reused_prefix_len for r in reqs] == [20 * store] * 4
+    jcp.reset()
+    assert runs[1] != runs[0]
+    sched = ContinuousBatchingScheduler(_engine(params, cp=2),
+                                        eos_token_id=None)
+    reqs = [sched.submit(p, SamplingParams(**GREEDY)) for p in prompts]
+    sched.run()
+    assert [r.output_ids for r in reqs] == runs[0]

@@ -375,26 +375,3 @@ def test_mesh_decode_bodies_read_nothing_on_the_host(layout):
     for name in ("step", "greedy", "sampled"):
         with NoHostReads(name):
             getattr(te, f"_{name}_body")()
-
-
-def test_prefix_snapshots_speculation_and_beams_refuse_a_mesh():
-    from llm_inference_engine_tpu_torch.runtime.beam_search import (
-        beam_search)
-    from llm_inference_engine_tpu_torch.runtime.prefix_cache import (
-        PagedPrefixStore, PrefixStore)
-    from llm_inference_engine_tpu_torch.runtime.speculative import (
-        SpeculativeDecoder)
-    jp = j_init_dummy_params(CFG_J, seed=0)
-    eng = EngineConfig(max_batch_size=2, max_seq_len=32, tp=2)
-    te = InferenceEngine(CFG, eng, _crossed(jp), device=CPU)
-    item = "Prefix snapshots, speculation and beams on a mesh"
-    with pytest.raises(NotImplementedError, match=item):
-        PrefixStore(te)
-    with pytest.raises(NotImplementedError, match=item):
-        SpeculativeDecoder(te, te)
-    with pytest.raises(NotImplementedError, match=item):
-        beam_search(CFG, eng, te.params, [1, 2, 3], num_beams=2)
-    # the paged prefix store works over the table and the allocator
-    paged = InferenceEngine(CFG, EngineConfig(tp=2, **PAGED), _crossed(jp),
-                            device=CPU)
-    PagedPrefixStore(paged)

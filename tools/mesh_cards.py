@@ -26,6 +26,17 @@ seconds, its decode wall a step (host clock around 16 steps,
 synchronized) and peak memory per card, the largest logit difference of
 each mesh from the one-rank engine, the card names and power limits,
 then one JSON line. Exits non-zero with fewer than two cards.
+
+Then prefix snapshots, speculation and beams (``chip_smoke.py``'s 4q
+(a)-(c)) on tp = 2 over cuda:0 and cuda:1 against tp = 2 on cuda:0,
+with chunks of 1024: the scheduler's greedy ids with a slot
+``PrefixStore`` holding a 320-token prefix, the snapshot's rows of
+each rank, and a restore of them into the last slot, exact; a
+``SpeculativeDecoder`` over a tinyllama-1.1b INT4 draft (seed 0) on the
+same mesh, k = 4: 64 greedy tokens and the drafted and accepted counts;
+``beam_search`` with 4 beams over the sharded params: sequences and
+scores. Each must be equal bit for bit across the two meshes (the rounds
+and beam steps replay CUDA graphs on one card and run eagerly over two).
 """
 
 from __future__ import annotations
@@ -54,6 +65,66 @@ def steps_ms(torch, engine, toks, n: int = 16) -> float:
         toks = engine.decode_step(toks, active, sp)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / n * 1e3
+
+
+def decoding(torch, cs, params, draft_params, mesh) -> dict:
+    """4q (a)-(c) on ``mesh``: the prefix store's ids and snapshot (on the
+    host), the speculative ids and counts, the beams; with each path's
+    wall seconds."""
+    import numpy as np
+
+    from llm_inference_engine_tpu_torch.config import (
+        EngineConfig, SamplingParams, get_config)
+    from llm_inference_engine_tpu_torch.runtime.beam_search import (
+        beam_search)
+    from llm_inference_engine_tpu_torch.runtime.engine import InferenceEngine
+    from llm_inference_engine_tpu_torch.runtime.scheduler import (
+        ContinuousBatchingScheduler)
+    from llm_inference_engine_tpu_torch.runtime.speculative import (
+        SpeculativeDecoder)
+    cfg, tiny = get_config("llama2-7b"), get_config("tinyllama-1.1b")
+    eng = EngineConfig(quant_mode="int4", max_batch_size=8, max_seq_len=2048,
+                       max_prefill_len=1024)
+    rng = np.random.default_rng(0)
+    prefix = cs.prefix_prompts(rng)
+    out, wall = {}, {}
+    target = InferenceEngine(cfg, eng, params, mesh=mesh)
+
+    t0 = time.perf_counter()
+    sched = ContinuousBatchingScheduler(target, eos_token_id=None)
+    entry = sched.register_prefix(prefix["system"])
+    reqs = [sched.submit(prefix["system"] + t, SamplingParams(
+        greedy=True, max_new_tokens=16)) for t in prefix["tails"]]
+    sched.run()
+    torch.cuda.synchronize()
+    wall["prefix"] = time.perf_counter() - t0
+    target.reset()
+    sched.prefix_store.restore(7, entry)
+    out["prefix ids"] = [r.output_ids for r in reqs]
+    out["snapshot"] = [(part.k.cpu(), part.v.cpu()) for part in entry.parts]
+    out["restored exactly"] = cs.restored_exactly(torch, target.cache, 7,
+                                                  entry)
+    target.reset()
+    del sched, entry
+
+    draft = InferenceEngine(tiny, eng, draft_params, mesh=mesh)
+    spec = SpeculativeDecoder(target, draft, cs.SPEC_K)
+    prompts = [rng.integers(3, 32000, n).tolist() for n in cs.QUANT_PROMPTS]
+    t0 = time.perf_counter()
+    res = spec.generate(prompts, cs.SPEC_NEW, eos_token_id=None)
+    torch.cuda.synchronize()
+    wall["speculative"] = time.perf_counter() - t0
+    out["speculative"] = (res.token_ids, res.num_drafted, res.num_accepted)
+    del spec, draft
+
+    prompt = rng.integers(3, 32000, cs.BEAM_PROMPT).tolist()
+    t0 = time.perf_counter()
+    beams = beam_search(cfg, eng, target.params, prompt, cs.BEAMS,
+                        cs.BEAM_NEW, eos_token_id=None)
+    torch.cuda.synchronize()
+    wall["beams"] = time.perf_counter() - t0
+    out["beams"] = (beams.sequences, beams.scores)
+    return out, wall
 
 
 def main() -> int:
@@ -155,6 +226,37 @@ def main() -> int:
             ).item()
         print(f"{tag}: prefill logits max abs from the one-rank engine's "
               f"{d['logits_max_abs_vs_one_rank']:.4e}", flush=True)
+    # prefix snapshots, speculation and beams at tp = 2: two cards against
+    # one
+    from llm_inference_engine_tpu_torch.models.weights import (
+        init_dummy_quantized_params as dummies)
+    draft_params = dummies(get_config("tinyllama-1.1b"), "int4", 128, seed=0,
+                           device=cards[0])
+    dec = {}
+    for tag, devices in (("tp=2 on cuda:0", [cards[0]] * 2),
+                         ("tp=2 over cuda:0-1", cards[:2])):
+        got, wall = decoding(torch, cs, params, draft_params,
+                             make_mesh(1, 2, devices=devices))
+        dec[tag] = got
+        print(f"{tag}: prefix store, speculation, beams: wall s "
+              f"{ {k: round(v, 3) for k, v in wall.items()} }; acceptance "
+              f"{got['speculative'][2]}/{got['speculative'][1]}; restored "
+              f"exactly {got['restored exactly']}", flush=True)
+        out[tag]["decoding_wall_s"] = wall
+        torch.cuda.empty_cache()
+    one, two = dec["tp=2 on cuda:0"], dec["tp=2 over cuda:0-1"]
+    snaps = all(torch.equal(a, b) for pa, pb in zip(one["snapshot"],
+                                                    two["snapshot"])
+                for a, b in zip(pa, pb))
+    checks.update({
+        "tp=2 over two cards == on one card: prefix store ids and snapshot "
+        "bit for bit, restores exact": (
+            one["prefix ids"] == two["prefix ids"] and snaps
+            and one["restored exactly"] and two["restored exactly"]),
+        "tp=2 over two cards == on one card: speculative ids and counts":
+            one["speculative"] == two["speculative"],
+        "tp=2 over two cards == on one card: beam sequences and scores":
+            one["beams"] == two["beams"]})
     for name, ok in checks.items():
         print(f"{name}: {ok}", flush=True)
     print(json.dumps({"cards": smi, "checks": checks,
