@@ -221,6 +221,19 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
       quality), (f) tokens scored a second, card busy a batch by kernel
       group (``utils.profiling.trace``), calibration and clip-search
       seconds, peak memory;
+   r. the quantization quality proxy (after 4m), in this process:
+      ``tools.quant_divergence``'s synthetic weights (the JAX tool's, seed
+      0) at llama2-7b's width, 4 layers; fp, int8, int4 and int4cal
+      (calibrated through the kernels) built on the card; (a) layer 0's
+      q and scales of each quantized variant equal the CPU's bit for
+      bit; (b) each variant's logits over B 4 x T 512 teacher-forced
+      tokens, kernel route against ``kernels="torch"``, within
+      QDIV_REL_L2, and a planted fault (one layer's wo scales doubled)
+      outside it; (c) every kernel's launches exact per forward; (d)
+      the report printed;
+   s. every example driver of ``examples_torch`` (after 4r), its
+      ``main`` in this process on the card: a driver's exit 1 fails the
+      script;
    (3d, before 4: kernel I, H's int8 mode, D2's and D's int8 modes
    against their plain versions at 7B widths, in both scale numerics, the
    decode modes held per row; then at head_dim 80, 96
@@ -243,6 +256,7 @@ It imports nothing of JAX.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
@@ -6308,6 +6322,185 @@ def phase_mesh_decoding(torch, dev, results, params) -> None:
     mesh_decoding_kernel_rows(torch, dev, results)
 
 
+# 4r: the quantization quality proxy (tools/quant_divergence.py of the
+# port) at llama2-7b's width, 4 layers, B 4, T 512, group 128
+QDIV_LAYERS = 4
+QDIV_BATCH, QDIV_WINDOW, QDIV_GROUP, QDIV_CALIB = 4, 512, 128, 64
+QDIV_MODES = ("int8", "int4", "int4cal")
+QDIV_FAULT_LAYER = 2
+# the kernel route's logits against kernels="torch" on the same variant,
+# relative L2: 1.51e-2-1.54e-2 on an H100 for all four variants (the
+# synthetic weights' outlier channels and bf16 sums in another order);
+# the planted fault (one layer's wo scales doubled in the kernel route's
+# copy of the int4 variant) landed at 1.04e-1
+QDIV_REL_L2 = 3e-2
+
+
+def qdiv_launches(layers: int, forwards: int, int4: bool) -> dict:
+    """Every counter's launches over ``forwards`` forwards at m = B x T >=
+    1024 rows: A once plain and twice a layer with a residual, B, C and
+    D2 once a layer, G once per INT4 weight half a layer (wqkv, wo, gate
+    and up, down) and once for the lm_head; E, F and the decode and paged
+    kernels never (the large-m route dequantizes, then cuBLAS)."""
+    want = {name: 0 for name in REPLACES}
+    want.update(rmsnorm=forwards, add_residual_rmsnorm=2 * layers * forwards,
+                silu_and_mul=layers * forwards, kv_write=layers * forwards,
+                attention_prefill=layers * forwards,
+                dequant_int4=(5 * layers + 1) * forwards if int4 else 0)
+    return want
+
+
+def phase_quant_divergence(torch, dev) -> None:
+    """4r: ``tools.quant_divergence``'s functions on the card, in this
+    process: the JAX tool's synthetic weights (seed 0) at llama2-7b's width
+    and QDIV_LAYERS layers, the fp, int8, int4 and int4cal variants built on
+    the card (int4cal calibrated on the fp variant's bf16 params through
+    the kernels). (a) layer 0's q and scales of every quantized variant
+    built on the CPU from the same f32 weights (and the same act_sq) equal
+    the card's bit for bit; (b) each variant's logits over B x T
+    teacher-forced tokens, kernel route against ``kernels="torch"``, within
+    QDIV_REL_L2, and a planted fault outside it; (c) the kernel route's
+    launches exact per forward (``qdiv_launches``); (d) the report printed
+    (not gated: synthetic weights)."""
+    import gc
+
+    import numpy as np
+
+    from llm_inference_engine_tpu_torch.config import get_config
+    from llm_inference_engine_tpu_torch.models import weights as W
+    from llm_inference_engine_tpu_torch.ops.quant import QuantizedTensor
+    from llm_inference_engine_tpu_torch.tools import quant_divergence as qd
+
+    cfg = get_config("llama2-7b").replace(num_layers=QDIV_LAYERS)
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    p32 = qd.synth_params(cfg, 0, dev)
+    torch.cuda.synchronize()
+    s_syn = time.perf_counter() - t0
+    variants, act, info, s_build, s_cal = qd.build_variants(
+        cfg, p32, QDIV_MODES, QDIV_GROUP,
+        qd.calib_tokens(cfg, 0, QDIV_CALIB), say=lambda m: say("  " + m))
+    say(f"  synthesis {s_syn:.2f} s ({L} layers, host draws), variants built "
+        f"in {s_build:.2f} s, calibration {s_cal:.2f} s")
+
+    # (a) layer 0 built on the CPU from the same f32 weights, in a thread
+    # while the card runs (b) and (c) (torch's CPU ops release the GIL)
+    cpu = torch.device("cpu")
+    one = dict(p32, layers={k: v[:1].to(cpu) for k, v in p32["layers"].items()})
+    act0 = {k: v[:1].to(cpu) for k, v in act["int4cal"].items()}
+    del p32
+
+    def layer0_on_cpu():
+        t0 = time.perf_counter()
+        refs = {mode: (W.quantize_params_calibrated(
+                    one, act0, "int4", QDIV_GROUP, quantize_lm_head=False)
+                       if mode == "int4cal" else W.quantize_params(
+                    one, mode, QDIV_GROUP, quantize_lm_head=False))
+                for mode in QDIV_MODES}
+        return refs, time.perf_counter() - t0
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    cpu_refs = pool.submit(layer0_on_cpu)
+
+    # (b), (c)
+    tokens = qd.eval_tokens(cfg, 0, QDIV_BATCH, QDIV_WINDOW)
+    counters = _counters()
+
+    def rel(a, b):
+        return float(np.linalg.norm((a - b).astype(np.float64))
+                     / np.linalg.norm(b.astype(np.float64)))
+    kern, dist, failures = {}, {}, []
+    for mode in ("fp",) + QDIV_MODES:
+        for f in counters.values():
+            f.launches = 0
+        kern[mode], ms = qd.run_variant(cfg, variants[mode], tokens)
+        got = {k: f.launches for k, f in counters.items()}
+        want = qdiv_launches(L, 2, mode in ("int4", "int4cal"))
+        plain, _ = qd.run_variant(cfg, variants[mode], tokens,
+                                  kernels="torch", warmup=False)
+        dist[mode] = rel(kern[mode], plain)
+        say(f"  (b) {mode}: forward {ms:.3f} ms (B {QDIV_BATCH} x T "
+            f"{QDIV_WINDOW}, CUDA events after a warm-up), kernel route vs "
+            f"kernels='torch' rel L2 {dist[mode]:.4e}, finite "
+            f"{bool(np.isfinite(kern[mode]).all())}")
+        say(f"  (c) {mode} launches over 2 forwards: "
+            f"{ {k: v for k, v in got.items() if v} }")
+        if got != want:
+            failures.append(f"{mode} launches {got}, want {want}")
+        if dist[mode] > QDIV_REL_L2 or not np.isfinite(kern[mode]).all():
+            failures.append(f"{mode}: rel L2 {dist[mode]:.4e} over "
+                            f"{QDIV_REL_L2}")
+        if mode == "int4":
+            wo = variants[mode]["layers"]["wo"]
+            scale = wo.scale.clone()
+            scale[QDIV_FAULT_LAYER] *= 2
+            faulty = dict(variants[mode], layers=dict(
+                variants[mode]["layers"], wo=QuantizedTensor(
+                    wo.q, scale, wo.mode, wo.group_size)))
+            fault, _ = qd.run_variant(cfg, faulty, tokens, warmup=False)
+            d = rel(fault, plain)
+            say(f"  (b) planted fault (layer {QDIV_FAULT_LAYER}'s wo scales "
+                f"doubled in the kernel route's int4 copy): rel L2 {d:.4e}")
+            if d <= QDIV_REL_L2:
+                failures.append(f"the planted fault's rel L2 {d:.4e} is "
+                                f"within {QDIV_REL_L2}")
+            del faulty, fault, scale
+        del plain
+    # (d)
+    report = {mode: qd.divergence(kern["fp"], kern[mode])
+              for mode in QDIV_MODES}
+    say(f"  (d) report (kernel route, {L} layers, synthetic weights): "
+        + json.dumps(report))
+    refs, s_cpu = cpu_refs.result()
+    pool.shutdown()
+    unequal = [f"{mode} {name}.{part}" for mode in QDIV_MODES
+               for name in ("wqkv", "wo", "w_gate_up", "w_down")
+               for part in ("q", "scale")
+               if not torch.equal(
+                   getattr(variants[mode]["layers"][name], part)[0].cpu(),
+                   getattr(refs[mode]["layers"][name], part)[0])]
+    say(f"  (a) layer 0 built on the CPU ({s_cpu:.2f} s, beside (b) and (c)) "
+        f"against the card: unequal {unequal}")
+    if unequal:
+        failures.append(f"(a) layer 0's storage differs between the card "
+                        f"and the CPU: {unequal}")
+    del one, refs
+    say(f"  4r peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        "GiB")
+    del variants, act, kern
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("4r: " + "; ".join(failures))
+
+
+# 4s: the example drivers (examples_torch/), each in this process on the
+# card
+EXAMPLES = ("run_attention_prefill", "run_attention_decode", "run_ffn",
+            "run_decoder", "run_engine_generate", "run_quantized",
+            "run_sharded_tp", "run_beam_search", "run_speculative",
+            "run_context_parallel", "run_serving_stack")
+
+
+def phase_examples(torch, dev) -> None:
+    """4s: every driver of ``examples_torch`` run by its ``main`` on the
+    card (its default device), in this process: each checks its kernel
+    route against the plain versions and exits 1 on a failure, which is
+    not caught here (the script then exits non-zero)."""
+    import gc
+    import importlib
+    times = {}
+    for name in EXAMPLES:
+        say(f"  -- examples_torch.{name}")
+        module = importlib.import_module(f"examples_torch.{name}")
+        t0 = time.perf_counter()
+        module.main([])
+        torch.cuda.synchronize()
+        times[name] = round(time.perf_counter() - t0, 2)
+        gc.collect()
+        torch.cuda.empty_cache()
+    say(f"  4s seconds per driver: {json.dumps(times)}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -6463,6 +6656,12 @@ def main() -> int:
     phase("4m", "evals, calibration and the debugging utilities: llama2-7b "
           "(32 layers), the windowed Scorer, the taps, calibrate_act_sq and "
           "--calibrate, nan_guard", phase_evals, torch, dev, results)
+    phase("4r", "the quantization quality proxy: tools.quant_divergence at "
+          "llama2-7b width (4 layers), fp/int8/int4/int4cal built on the card "
+          "against the CPU, kernel route vs kernels='torch', B=4 T=512",
+          phase_quant_divergence, torch, dev)
+    phase("4s", "the example drivers (examples_torch), each on the card",
+          phase_examples, torch, dev)
     say("  decode per step, eager bodies against graph replays (wall and "
         "card busy ms): " + json.dumps(DECODE))
 

@@ -171,6 +171,14 @@ def _unpack_int4(packed: torch.Tensor, group_size: int = 0) -> torch.Tensor:
     return out.reshape(*lead, k2 * 2, n).to(torch.int8)
 
 
+def _div(t: torch.Tensor, d: float) -> torch.Tensor:
+    """t / d as an IEEE divide, as the JAX package computes it on every
+    device: PyTorch on a CUDA tensor turns a divide by a Python number
+    into a multiply by its reciprocal, which can differ in the last bit
+    (and then move a quantized value across a rounding edge)."""
+    return t / torch.full_like(t, d)
+
+
 def quantize_tensor(w: torch.Tensor, mode: str = "int8",
                     group_size: int = 128,
                     clip: Optional[torch.Tensor] = None) -> QuantizedTensor:
@@ -186,7 +194,7 @@ def quantize_tensor(w: torch.Tensor, mode: str = "int8",
         absmax = w.abs().amax(dim=0, keepdim=True)                 # [1, out]
         if clip is not None:
             absmax = absmax * clip.reshape(1, n)
-        scale = absmax.clamp_min(1e-8) / 127.0
+        scale = _div(absmax.clamp_min(1e-8), 127.0)
         q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
         return QuantizedTensor(q=q, scale=scale, mode="int8",
                                group_size=group_size)
@@ -197,7 +205,7 @@ def quantize_tensor(w: torch.Tensor, mode: str = "int8",
         absmax = wg.abs().amax(dim=1, keepdim=True)                # [G,1,N]
         if clip is not None:
             absmax = absmax * clip.reshape(k // group_size, 1, n)
-        scale = absmax.clamp_min(1e-8) / 7.0
+        scale = _div(absmax.clamp_min(1e-8), 7.0)
         q = torch.clamp(torch.round(wg / scale), -8, 7).to(torch.int8)
         return QuantizedTensor(q=_pack_int4(q.reshape(k, n)),
                                scale=scale[:, 0, :], mode="int4",
@@ -229,7 +237,7 @@ def search_clip(w: torch.Tensor, mode: str = "int4", group_size: int = 128,
 
     best_err = best_clip = None
     for alpha in grid:
-        scale = absmax * alpha / qmax                              # [G,1,N]
+        scale = _div(absmax * alpha, qmax)                         # [G,1,N]
         q = torch.clamp(torch.round(wg / scale), -qmax - 1, qmax)
         err = torch.sum(dg * (wg - q * scale) ** 2, dim=1)         # [G, N]
         if best_err is None:

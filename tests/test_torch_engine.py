@@ -321,6 +321,7 @@ def test_package_imports_no_jax():
         "import llm_inference_engine_tpu_torch.tokenizer.bytelevel\n"
         "import llm_inference_engine_tpu_torch.tokenizer.native\n"
         "import llm_inference_engine_tpu_torch.tools.quantize\n"
+        "import llm_inference_engine_tpu_torch.tools.quant_divergence\n"
         "import llm_inference_engine_tpu_torch.parallel\n"
         "import llm_inference_engine_tpu_torch.parallel.mesh\n"
         "import llm_inference_engine_tpu_torch.parallel.sharding\n"

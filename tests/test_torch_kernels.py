@@ -450,6 +450,26 @@ def test_dequant_int4_kernel_bit_identical(cuda, k, n, halves):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("mode", ["int8", "int4", "int4cal"])
+def test_quantizer_on_the_card_equals_the_cpu(cuda, mode):
+    """quantize_tensor (and the clip search of int4cal) on the card gives
+    the CPU's q and scales bit for bit: every divide is an IEEE divide."""
+    gen = torch.Generator().manual_seed(1)
+    w = torch.randn(1024, 3000, generator=gen) * torch.rand(3000,
+                                                             generator=gen)
+    act = torch.rand(1024, generator=gen)
+    base = "int4" if mode == "int4cal" else mode
+
+    def build(device):
+        wd = w.to(device)
+        clip = (quant.search_clip(wd, base, 128, act_sq=act.to(device))
+                if mode == "int4cal" else None)
+        return quant.quantize_tensor(wd, base, 128, clip=clip)
+    got, want = build(cuda), build(torch.device("cpu"))
+    assert torch.equal(got.q.cpu(), want.q)
+    assert torch.equal(got.scale.cpu(), want.scale)
+
+
 @pytest.mark.parametrize("mode", ["int4", "int8"])
 def test_quantized_linear_large_m_routes_through_kernels(cuda, mode):
     """m >= 1024: int4 dequantizes through kernel G, then a bf16 matmul."""
