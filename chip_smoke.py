@@ -23,16 +23,20 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    the four projections beside G + cuBLAS; library calls
    ``_weight_int4pack_mm`` and ``_weight_int8pack_mm``) and G (INT4
    dequantize, bit-identical), then (3c) H (the paged write) and
-   D2's paged mode (a B=16, T=64 mixed step, then 8 x 512) and D's
-   attend-only paged decode over a pool of page 64 with a random page
-   permutation, the mixed step and the decode case again at page 16, and
+   D2's paged mode (a B=16, T=64 mixed step, then 8 x 512) over a pool
+   of page 64 with a random page permutation, D's fused paged decode
+   (the write through the table and the attention in one launch) at the
+   server's B=16, then at 4d's shape, each bit for bit H then the
+   attend-only decode and timed beside them, the attend-only decode
+   alone, the mixed step and the B=16 decode cases again at page 16, and
    a G = 7 paged decode, then both bf16 decode modes at G = 4, 7 and 8
    at the engine's B8, timed; every decode row prints kernel D's split
    plan (blocks a cluster, tile, stages, shared memory, blocks an SM
    holds), and D2's tiling of every head dim is printed; the decode rows
    are held per row (DECODE_ROW_TOL); every K/V row write (C, H, H's
    int8 mode, I) prints its floor (floor_ms: one ``copy_`` of the same
-   live rows under the same warm or cold method), and H and its int8
+   live rows under the same warm or cold method) and C and H two
+   ``index_copy_``, and H and its int8
    mode are also timed at decode shape (B = 8 and 16, one token each at
    odd in-page offsets, DECODE_WRITE_STARTS), I at 8 x 64 as well as
    8 x 512; (3e) A, A with residual and B at decode shape (B = 8) held
@@ -58,8 +62,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    d. paged == slot: llama2-7b INT4, B=8, the prompts of 4b, chunks of
       64: a paged engine (page 64) and a slot engine give bit-identical
       prefill logits and the same 32 greedy tokens; the paged engine
-      launches H and D's paged modes and never kernel C or the fused
-      decode; ``graph_checks`` on the paged engine, and a warm paged
+      launches H and D2's paged mode in prefill and a decode step D's
+      fused paged decode once a layer and no H, never kernel C, the slot
+      fused decode or the attend-only paged decode;
+      ``graph_checks`` on the paged engine, and a warm paged
       prefill profiled (card busy by kernel group);
    e. the serving path: the port's HTTP server in-process on
       127.0.0.1:0 over the continuous-batching scheduler and a paged
@@ -67,7 +73,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
       cache): 24 concurrent greedy completions (wave 1, admission gated
       by pages), then 8 multi-turn resends (wave 2, prefix reuse); the
       scheduler's pure-decode steps (replays) and mixed steps (eager)
-      counted and timed;
+      counted and timed, each pure-decode step's launches held (one
+      fused paged decode a layer, no H); wave 1 again through a fresh
+      scheduler with eager decode bodies gives every request the
+      server's ids;
    f. recompute preemption: the scheduler alone on that engine with 16
       prompts that fit the pool and full lengths that do not; prefill
       logits held against the plain path within the limits of 4b, then
@@ -91,9 +100,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
       and B's launches per rank); dp = 2 (ids identical to 4b's); tp = 2
       over the int8 slot cache (against 4g); tp = 2 paged (pages of 64)
       through the scheduler, 4 requests whose ids equal the slot tp = 2
-      engine's; then E/F at m 8 and 512 on the tp = 2 local shapes (wqkv
+      engine's and the same scheduler's with its decode bodies eager,
+      each pure-decode step one fused paged decode a layer a rank and no
+      H; then E/F at m 8 and 512 on the tp = 2 local shapes (wqkv
       n 6144, wo k 2048, gate|up 2 x 5504, down k 5504, the lm_head's
-      16000-row vocab shard), B at [8, 2 x 5504], C, I, D2 and D at 16
+      16000-row vocab shard), B at [8, 2 x 5504], C, I, H, D2 and D
+      (D's fused paged decode too) at 16
       heads, every input with NaN past its end and every cache row past
       kv_len NaN, against the plain versions, timed with bound and
       library call;
@@ -314,6 +326,8 @@ REPLACES = {
     "paged_kv_write": "llm_inference_engine_tpu/ops/paged_kv.py:169",
     "attention_prefill_paged": "llm_inference_engine_tpu/ops/attention.py:135",
     "attention_decode_paged": "llm_inference_engine_tpu/ops/attention.py:356",
+    "attention_decode_paged_fused":
+        "llm_inference_engine_tpu/ops/attention.py:356",
     "kv_write_quant": "llm_inference_engine_tpu/ops/kv_cache.py:289",
     "attention_prefill_int8": "llm_inference_engine_tpu/ops/attention.py:135",
     "attention_decode_int8": "llm_inference_engine_tpu/ops/attention.py:569",
@@ -335,9 +349,10 @@ SOURCES = {
     "int4_matmul": ("cuda", "llm_inference_engine_tpu_torch/csrc/quant_matmul.cu"),
     "int8_matmul": ("cuda", "llm_inference_engine_tpu_torch/csrc/quant_matmul.cu"),
     "dequant_int4": _TRITON,
-    "paged_kv_write": ("cuda", "llm_inference_engine_tpu_torch/csrc/paged_kv_write.cu"),
+    "paged_kv_write": ("cuda", "llm_inference_engine_tpu_torch/csrc/kv_write.cu"),
     "attention_prefill_paged": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention_prefill.cu"),
     "attention_decode_paged": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention_decode.cu"),
+    "attention_decode_paged_fused": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention_decode.cu"),
     "kv_write_quant": ("cuda", "llm_inference_engine_tpu_torch/csrc/kv_write_quant.cu"),
     "attention_prefill_int8": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention_prefill.cu"),
     "attention_decode_int8": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention_decode.cu"),
@@ -345,11 +360,15 @@ SOURCES = {
     "attention_prefill_paged_int8": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention_prefill.cu"),
     "attention_decode_paged_int8": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention_decode.cu"),
 }
-# the main path whose launch count each kernel reports
+# the main path whose launch count each kernel reports; the attend-only
+# decode over a bf16 pool runs on none since the fused paged decode took
+# its place (3c holds and times it; it is left out of the JSON line)
 PATH_OF = {name: "bf16" for name in REPLACES}
 PATH_OF.update(int4_matmul="int4", dequant_int4="int4", int8_matmul="int8",
                paged_kv_write="server", attention_prefill_paged="server",
-               attention_decode_paged="server", kv_write_quant="int4-kv8",
+               attention_decode_paged=None,
+               attention_decode_paged_fused="server",
+               kv_write_quant="int4-kv8",
                attention_prefill_int8="int4-kv8",
                attention_decode_int8="int4-kv8",
                paged_kv_write_int8="server-kv8",
@@ -360,20 +379,22 @@ BF16_SLOT = ("kv_write", "attention_prefill", "attention_decode")
 INT8_SLOT = ("kv_write_quant", "attention_prefill_int8",
              "attention_decode_int8")
 BF16_PAGED = ("paged_kv_write", "attention_prefill_paged",
-              "attention_decode_paged")
+              "attention_decode_paged_fused")
 INT8_PAGED = ("paged_kv_write_int8", "attention_prefill_paged_int8",
               "attention_decode_paged_int8")
+# the paged kernels no slot path launches
+PAGED_ALL = BF16_PAGED + INT8_PAGED + ("attention_decode_paged",)
 # each slot main path: (kernels that must launch, kernels that must not)
 MAIN_PATHS = {
-    "bf16": (NORM_ACT + BF16_SLOT, INT8_SLOT + BF16_PAGED + INT8_PAGED),
+    "bf16": (NORM_ACT + BF16_SLOT, INT8_SLOT + PAGED_ALL),
     "int4": (NORM_ACT + BF16_SLOT + ("int4_matmul", "dequant_int4"),
-             INT8_SLOT + BF16_PAGED + INT8_PAGED),
+             INT8_SLOT + PAGED_ALL),
     "int8": (NORM_ACT + BF16_SLOT + ("int8_matmul",),
-             INT8_SLOT + BF16_PAGED + INT8_PAGED),
+             INT8_SLOT + PAGED_ALL),
     "int4-kv8": (NORM_ACT + INT8_SLOT + ("int4_matmul", "dequant_int4"),
-                 BF16_SLOT + BF16_PAGED + INT8_PAGED),
+                 BF16_SLOT + PAGED_ALL),
     "int8-kv8": (NORM_ACT + INT8_SLOT + ("int8_matmul",),
-                 BF16_SLOT + BF16_PAGED + INT8_PAGED),
+                 BF16_SLOT + PAGED_ALL),
 }
 # Faults planted in the plain int8 attention (attention_torch with scale
 # planes) to show that a path's logit limits can see a broken int8 kernel:
@@ -980,9 +1001,12 @@ def write_rows(torch, dev) -> dict:
     int8 mode at 3c's mixed step (520 rows) and at decode shape (B = 8 and
     16), cold; I at I_CHUNKS, warm (snapped); each beside its floor, and
     the 520-row rows and their floors again under a clean flush
-    (time_ms's ``clean``). ``tools/chip_kernel_ab.py --rows writes`` times
-    another tree's kernels through this function, so it calls only the
-    wrappers every tree has."""
+    (time_ms's ``clean``); then C and H at the narrower rows of the mesh
+    paths, cold: C at 16 heads (4n's 8 x 512 chunk, 4q's beams' 4 x 128
+    prefill) and at 2 kv heads of 64 (4q's draft chunk, 256-byte rows),
+    H at 16 heads (4n (d)'s chunk). ``tools/chip_kernel_ab.py --rows
+    writes`` times another tree's kernels through this function, so it
+    calls only the wrappers every tree has."""
     from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
     from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
     bf16, i8 = torch.bfloat16, torch.int8
@@ -1047,6 +1071,32 @@ def write_rows(torch, dev) -> dict:
                 list(range(B)), dtype, True)
         del pool
         torch.cuda.empty_cache()
+    first = [min(n, 512) for n in QUANT_PROMPTS]
+    for tag, B, T, Kn, Dn, nl in (
+            ("16 heads 8x512", 8, 512, TP2_HEADS, 128, first),
+            ("16 heads 4x128", BEAMS, BEAM_PROMPT, TP2_HEADS, 128,
+             [BEAM_PROMPT] * BEAMS),
+            ("2x64 heads 8x512", 8, 512, TINY_TP2_HEADS[1], TINY_HEAD_DIM,
+             first)):
+        cache = kvc.new_kv_cache(2, B, Kn, S, Dn, device=dev)
+        kn, vn = randn(B, T, Kn, Dn), randn(B, T, Kn, Dn)
+        starts, new_len = ints([0] * B), ints(nl)
+        row(f"kv_write {tag} cold", lambda: kvc.update_cache_at_layer(
+            cache, 1, kn, vn, starts, new_len, kernels="cuda"), (kn, vn),
+            slot_rows([0] * B, nl, T, S)[1], bf16, True)
+        del cache
+    chunk = list(TP2_SCHED_PROMPTS) + [0] * 4
+    pool = pkv.new_paged_kv_cache(2, 8, TP2_HEADS, P, 64, D, maxp,
+                                  device=dev)
+    pool.block_table.copy_(table[:8])
+    kn, vn = randn(8, 64, TP2_HEADS, D), randn(8, 64, TP2_HEADS, D)
+    starts, new_len = ints([0] * 8), ints(chunk)
+    row("paged_kv_write 16 heads 4n (d) chunk cold",
+        lambda: pkv.paged_update_at_layer(pool, 1, kn, vn, starts, new_len,
+                                          kernels="cuda"),
+        (kn, vn), slot_rows([0] * 8, chunk, 64, 0)[1], bf16, True)
+    del pool
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1400,8 +1450,8 @@ def _short(kernel_name: str) -> str:
 
 # device time by group of kernels (profiler names, first match wins):
 # kernel D2 (the prefill modes), kernel D (the decode modes), E/F, G,
-# cuBLAS, the K/V row writes C, H, I (kv_write_kernel,
-# paged_kv_write_kernel, kv_write_quant_kernel), kernels A and B
+# cuBLAS, the K/V row writes C, H, I (kv_write_kernel: C and H;
+# kv_write_quant_kernel: I and H's int8 mode), kernels A and B
 KERNEL_GROUPS = (("D2", ("attention_prefill_kernel",)),
                  ("D", ("attention_decode_kernel",)),
                  ("E/F", ("quant_matmul_decode", "quant_matmul_prefill")),
@@ -1568,6 +1618,8 @@ def _counters():
         "paged_kv_write": pkv.paged_update_at_layer,
         "attention_prefill_paged": attention.attention_prefill_paged,
         "attention_decode_paged": attention.attention_decode,
+        "attention_decode_paged_fused":
+            attention.attention_decode_paged_fused,
         "kv_write_quant": kvc.kv_write_quant,
         "attention_prefill_int8": attention.attention_int8,
         "attention_decode_int8": attention.attention_decode_fused_int8,
@@ -2077,9 +2129,9 @@ def decode_write_rows(torch, results, cache, ints) -> None:
     31 of a pool of 16 table rows: B = 8 and 16 tokens at
     DECODE_WRITE_STARTS, a step's write of one layer; bit for bit against
     the plain write on a copy of the layer, timed cold beside the floor
-    (printed only: the JSON line keeps each row's first timed case). Its
-    rows come from a generator of its own, so the phase's later cases
-    draw what they drew before."""
+    and (bf16) two ``index_copy_`` (printed only: the JSON line keeps each
+    row's first timed case). Its rows come from a generator of its own, so
+    the phase's later cases draw what they drew before."""
     from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
     gen = torch.Generator(device=cache.k.device).manual_seed(77)
 
@@ -2108,6 +2160,9 @@ def decode_write_rows(torch, results, cache, ints) -> None:
                          torch.int8 if int8 else torch.bfloat16, cold=True)
         case = f"decode B{B} T1 odd in-page offsets page 64 cold L2"
         work = write_work(B, K, D, quant=int8)
+        page = cache.k.shape[2]
+        rows = [int(pool.block_table[b, s // page]) * page + s % page
+                for b, s in enumerate(DECODE_WRITE_STARTS[:B])]
         if int8:
             for side, v, sc in ((0, "k", "k_scale"), (1, "v", "v_scale")):
                 hold_int8_write(torch, name, (getattr(pool, v)[31],
@@ -2121,8 +2176,87 @@ def decode_write_rows(torch, results, cache, ints) -> None:
                 raise AssertionError(f"{name} [{case}]: pool differs from "
                                      "the plain write")
             check_close(torch, name, pool.k[31], ref.k[0], results, case,
-                        timed, work=work, floor=floor)
+                        timed, work=work, floor=floor,
+                        library=index_copy_ms(
+                            torch, (pool.k[31], pool.v[31]), (kn, vn),
+                            (ints(rows).long(), ints(list(range(B))).long())))
         del ref
+
+
+def fused_paged_decode_row(torch, dev, results) -> None:
+    """Kernel D's fused paged decode (``attention_decode_paged_fused``) at
+    4d's decode shape: llama2-7b widths (H = K = 32, D = 128), B = 8, 4b's
+    decode contexts, a two-layer pool of page 64 with a random page
+    permutation, layer 1, pool rows past kv_len NaN: the pool and the
+    output bit for bit kernel H then the attend-only paged decode on a copy,
+    the output per row against the plain version (DECODE_ROW_TOL); timed
+    beside H + attend-only (back to back, the same method), the
+    attend-only decode alone, its bound and the plain version."""
+    from llm_inference_engine_tpu_torch.ops import attention
+    from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+    gen = torch.Generator(device=dev).manual_seed(88)
+    B, H, K, D, S, page = 8, 32, 32, 128, 2048, 64
+    maxp, P = S // page, 1 + B * S // page
+    hist = [p + 16 + f + 16 for p, f in zip(QUANT_PROMPTS, QUANT_FOLLOW)]
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    def ints(vals):
+        return torch.tensor(vals, device=dev, dtype=torch.int32)
+    q_start = ints(hist)
+    kv_len, active = q_start + 1, ints([1] * B)
+    table = (torch.randperm(P - 1, generator=gen, device=dev) + 1).to(
+        torch.int32).reshape(B, maxp)
+    fused = pkv.PagedKVCache(randn(2, P, page, K, D), randn(2, P, page, K, D),
+                             table, ints([0] * B))
+    keep = torch.zeros(P * page, dtype=torch.bool, device=dev)
+    for b, n in enumerate(kv_len.tolist()):
+        j = torch.arange(n, device=dev)
+        keep[table[b, j // page].long() * page + j % page] = True
+    clean = pkv.PagedKVCache(fused.k.clone(), fused.v.clone(), table,
+                             fused.lengths)
+    for t in (fused.k, fused.v):
+        t[1].view(P * page, K, D)[~keep] = float("nan")
+    split = pkv.PagedKVCache(fused.k.clone(), fused.v.clone(), table,
+                             fused.lengths)
+    q, kn, vn = randn(B, 1, H, D), randn(B, 1, K, D), randn(B, 1, K, D)
+    say_plan(attention, f"paged B{B} H{H} K{K} D{D} page {page}", B, H, K,
+             D, page=page, max_pages=maxp)
+    run = lambda: attention.attention_decode_paged_fused(  # noqa: E731
+        q, kn, vn, fused.k, fused.v, q_start, kv_len, 1, table=table,
+        kernels="cuda")[0]
+    plain = lambda: attention.attention_decode_paged_fused_torch(  # noqa: E731
+        q, kn, vn, clean.k, clean.v, q_start, kv_len, 1, table=table)[0]
+
+    def write_then_attend():
+        pkv.paged_update_at_layer(split, 1, kn, vn, q_start, active,
+                                  kernels="cuda")
+        return attention.attention_decode(q, split.k, split.v, q_start,
+                                          kv_len, 1, table=table,
+                                          kernels="cuda")
+    got, want = run(), write_then_attend()
+    torch.cuda.synchronize()
+    bits = lambda t: t.view(torch.int16)  # noqa: E731
+    if not (torch.equal(bits(fused.k), bits(split.k))
+            and torch.equal(bits(fused.v), bits(split.v))
+            and torch.equal(got, want)):
+        raise AssertionError("attention_decode_paged_fused: pool or output "
+                             "differs from H then the attend-only decode")
+    ms, two = time_ms(torch, run), time_ms(torch, write_then_attend)
+    alone = time_ms(torch, lambda: attention.attention_decode(
+        q, split.k, split.v, q_start, kv_len, 1, table=table,
+        kernels="cuda"))
+    new_rows = B * 2 * K * D * 2 * 2
+    check_close(torch, "attention_decode_paged_fused", got, plain(), results,
+                f"B{B} H{H} K{K} page {page} 4b contexts {min(hist)}-"
+                f"{max(hist)}, NaN past kv_len (bits equal H + attend-only "
+                f"{two:.4f} ms; attend-only alone {alone:.4f} ms)",
+                (ms, time_ms(torch, plain, iters=3, warmup=1)),
+                work=attn_work(hist, kv_len.tolist(), 1, H, K, D,
+                               new_rows=new_rows),
+                row_rel=DECODE_ROW_TOL)
 
 
 def phase_paged_kernels(torch, dev, results) -> None:
@@ -2162,24 +2296,68 @@ def phase_paged_kernels(torch, dev, results) -> None:
                            0).to(torch.int32).contiguous()
 
     def decode_case(cache, page, tag):
+        """Kernel D over the pool at layer 31, B = 16 (the server's decode
+        shape at 4e's page of 64), kv_len 1-2048: first the fused paged
+        decode writing new rows at q_start = kv_len - 1, its pool and output
+        bit for bit against kernel H then the attend-only decode on a copy
+        of the layer, the output per row against its plain version; then
+        the attend-only decode (the JAX package's order after H) alone. Both
+        timed: the fused decode's JSON row is this first case, the shape
+        its launches in 4e come from."""
         B = cache.block_table.shape[0]
         kv_len = torch.cat([ints([1, S]), torch.randint(
             2, S, (B - 2,), generator=gen, device=dev, dtype=torch.int32)])
+        q_start = kv_len - 1
         table = cut(cache.block_table, kv_len, page)
         q = randn(B, 1, 32, D)
+        kn, vn = randn(B, 1, K, D), randn(B, 1, K, D)
         say_plan(attention, f"paged B{B} H32 K32 D128 page {page}", B, 32, K,
                  D, page=page, max_pages=table.shape[1])
+        split = pkv.PagedKVCache(cache.k[31:].clone(), cache.v[31:].clone(),
+                                 table, cache.lengths)
+        fused = lambda: attention.attention_decode_paged_fused(  # noqa: E731
+            q, kn, vn, cache.k, cache.v, q_start, kv_len, 31, table=table,
+            kernels="cuda")[0]
+
+        def write_then_attend():
+            pkv.paged_update_at_layer(split, 0, kn, vn, q_start,
+                                      torch.ones_like(kv_len),
+                                      kernels="cuda")
+            return attention.attention_decode(q, split.k, split.v, q_start,
+                                              kv_len, 0, table=table,
+                                              kernels="cuda")
+        got, want = fused(), write_then_attend()
+        torch.cuda.synchronize()
+        bits = lambda t: t.view(torch.int16)  # noqa: E731
+        if not (torch.equal(bits(cache.k[31]), bits(split.k[0]))
+                and torch.equal(bits(cache.v[31]), bits(split.v[0]))
+                and torch.equal(bits(got), bits(want))):
+            raise AssertionError(f"attention_decode_paged_fused B{B} page "
+                                 f"{page}: pool or output differs from H "
+                                 "then the attend-only decode")
+        plain = lambda: attention.attention_decode_paged_fused_torch(  # noqa: E731
+            q, kn, vn, split.k, split.v, q_start, kv_len, 0, table=table)[0]
+        ms, two = time_ms(torch, fused), time_ms(torch, write_then_attend)
+        kv_bytes = int(kv_len.sum()) * K * D * 2 * 2
+        check_close(torch, "attention_decode_paged_fused", got, plain(),
+                    results, f"B{B} page {page} {tag} "
+                    f"{kv_bytes / ms / 1e6:.0f} GB/s (bits equal H + "
+                    f"attend-only {two:.4f} ms)",
+                    (ms, time_ms(torch, plain, iters=3, warmup=1)),
+                    work=attn_work(q_start.tolist(), kv_len.tolist(), 1, 32,
+                                   K, D, new_rows=B * 2 * K * D * 2 * 2),
+                    row_rel=DECODE_ROW_TOL)
+        del split
         run = lambda kern: attention.attention_decode(  # noqa: E731
-            q, cache.k, cache.v, kv_len - 1, kv_len, 31, table=table,
+            q, cache.k, cache.v, q_start, kv_len, 31, table=table,
             kernels=kern)
         ms = time_ms(torch, lambda: run("cuda"))
         plain_ms = time_ms(torch, lambda: run("torch"), iters=3, warmup=1)
-        kv_bytes = int(kv_len.sum()) * K * D * 2 * 2
         check_close(torch, "attention_decode_paged", run("cuda"), run("torch"),
                     results, f"B{B} page {page} {tag} "
                     f"{kv_bytes / ms / 1e6:.0f} GB/s", (ms, plain_ms),
-                    work=attn_work((kv_len - 1).tolist(), kv_len.tolist(), 1,
-                                   32, K, D),
+                    work=attn_work(q_start.tolist(), kv_len.tolist(), 1, 32,
+                                   K, D),
                     row_rel=DECODE_ROW_TOL)
 
     cache = pool(16, 64)
@@ -2250,10 +2428,13 @@ def phase_paged_kernels(torch, dev, results) -> None:
                 results, "B8 T512 kv_len 512-2048 page 64", (
                     time_ms(torch, lambda: run("cuda"), iters=5),
                     time_ms(torch, lambda: run("torch"), iters=3, warmup=1)))
-    # D attend-only paged decode: B = 16, kv_len 1-2048
+    # D's fused paged decode, then the attend-only one: B = 16, kv_len
+    # 1-2048
     decode_case(cache, 64, "kv_len 1-2048")
     del cache, kn, vn, q
     torch.cuda.empty_cache()
+    # D's fused paged decode at 4d's shape, against H + attend-only
+    fused_paged_decode_row(torch, dev, results)
     cache = pool(16, 16)
     # D2's paged prefill at pages of 16: 64-key tiles straddle pages
     table16 = cut(cache.block_table, kv_mixed, 16)
@@ -2594,7 +2775,7 @@ def phase_kv_int8_kernels(torch, dev, results) -> None:
 
 
 def head_dim_kernels(torch, dev, results, D, gen, fill) -> None:
-    """Kernel D's four decode modes, D2's four prefill modes and kernel
+    """Kernel D's five decode modes, D2's four prefill modes and kernel
     I's two writes at head_dim D (80, 96 or 256: no Llama2-7B width, so
     small shapes: B = 4, S = 512, H = 28, K = 4, G = 7, pages of 16),
     each against its plain version; the writes bit for bit."""
@@ -2651,6 +2832,30 @@ def head_dim_kernels(torch, dev, results, D, gen, fill) -> None:
         check_close(torch, name, run("cuda"), run("torch"), results,
                     f"{tag} page {page} kv_len 1, 32, 33, 512 window 200",
                     row_rel=DECODE_ROW_TOL)
+    # the fused paged mode (bf16 pool) against H then the attend-only mode
+    c = pool(False)
+    split = dataclasses.replace(c, k=c.k.clone(), v=c.v.clone())
+    q_start = ints([0, 31, 300, 511])
+    kv_len = q_start + ints([1, 1, 0, 1])
+    kn, vn = randn(B, 1, K, D), randn(B, 1, K, D)
+    got = attention.attention_decode_paged_fused(
+        q1, kn, vn, c.k, c.v, q_start, kv_len, 1, table=c.block_table,
+        window=200, kernels="cuda")[0]
+    pkv.paged_update_at_layer(split, 1, kn, vn, q_start, kv_len - q_start,
+                              kernels="cuda")
+    run = lambda kern: attention.attention_decode(  # noqa: E731
+        q1, split.k, split.v, q_start, kv_len, 1, table=c.block_table,
+        window=200, kernels=kern)
+    if not (torch.equal(c.k, split.k) and torch.equal(c.v, split.v)
+            and torch.equal(got, run("cuda"))):
+        raise AssertionError(f"attention_decode_paged_fused {tag}: pool or "
+                             "output differs from H then the attend-only "
+                             "decode")
+    check_close(torch, "attention_decode_paged_fused", got, run("torch"),
+                results, f"{tag} page {page} kv_len 1, 32, 300 (inactive), "
+                "512 window 200 (bits equal H + attend-only)",
+                row_rel=DECODE_ROW_TOL)
+    del c, split
     # D2: a 64-row chunk (ragged) in the four prefill modes
     q_start, new = ints([0, 100, 300, 448]), ints([64, 37, 1, 64])
     kv_len = q_start + new
@@ -2713,16 +2918,57 @@ def _zero_counters():
 def _check_paged_launches(label, counters, expected) -> dict:
     """Read the counters after a paged path: every kernel of ``expected``
     launched; the slot cache's kernels never, nor the paged kernels of the
-    other KV dtype."""
+    other KV dtype, nor (a bf16 pool) the attend-only paged decode."""
     launches = {k: f.launches for k, f in counters.items()}
     say(f"  launches during {label}: {launches}")
     missing = [n for n in expected if launches[n] <= 0]
-    other = INT8_PAGED if "paged_kv_write" in expected else BF16_PAGED
+    other = (INT8_PAGED + ("attention_decode_paged",)
+             if "paged_kv_write" in expected else BF16_PAGED)
     extra = [n for n in BF16_SLOT + INT8_SLOT + other if launches[n]]
     if missing or extra:
         raise AssertionError(f"{label}: kernels never launched {missing}; "
                              f"kernels that must not launch {extra}")
     return launches
+
+
+def decode_phase_launches(sched, counters) -> list:
+    """Wrap ``sched``'s pure-decode phase so that each call appends the
+    launches it added ({kernel: n}) to the returned list."""
+    seen, plain = [], sched._decode_phase
+
+    def counted():
+        before = {k: f.launches for k, f in counters.items()}
+        plain()
+        seen.append({k: f.launches - before[k] for k, f in counters.items()
+                     if f.launches != before[k]})
+    sched._decode_phase = counted
+    return seen
+
+
+def check_decode_step_launches(label, steps, layers, int8=False,
+                               ranks=1) -> None:
+    """Each pure-decode step (launch counts added, one dict a step) ran
+    whole forwards on every rank (kernel A's plain mode once a forward a
+    rank: a step that captures its program also runs the warm-up) and,
+    for each forward a rank, a layer, over a bf16 pool exactly one fused
+    paged decode and no kernel H or attend-only decode; over an int8
+    pool H's int8 mode and the attend-only int8 decode."""
+    def want(f):
+        return ({"paged_kv_write_int8": layers * f,
+                 "attention_decode_paged_int8": layers * f,
+                 "attention_decode_paged_fused": 0} if int8 else
+                {"attention_decode_paged_fused": layers * f,
+                 "paged_kv_write": 0, "attention_decode_paged": 0})
+    bad = [s for s in steps
+           if not s.get("rmsnorm") or s["rmsnorm"] % ranks
+           or any(s.get(k, 0) != n for k, n in want(s["rmsnorm"]).items())]
+    say(f"  {label}: {len(steps)} pure-decode steps, each launching "
+        f"{want(ranks)} a forward on {ranks} rank(s): "
+        f"{'yes' if steps and not bad else 'NO'}")
+    if not steps or bad:
+        raise AssertionError(f"{label}: pure-decode steps' launches "
+                             f"{bad[:2] or steps}, want {want(ranks)} a "
+                             "forward")
 
 
 def norm_rows(torch, dev) -> dict:
@@ -2735,9 +2981,14 @@ def norm_rows(torch, dev) -> dict:
     of the card's activities (kernels, copies) in one. Two checksums
     (keys ending in "checksum") show two trees' bits equal: of A's, A's
     residual mode's and B's outputs at the prefill shapes, and of the
-    ids of 4b's and 4c's ``generate`` and steps. ``tools/chip_kernel_ab.py
-    --rows norm`` times another tree through this function, so it calls
-    only what every tree has."""
+    ids of 4b's and 4c's ``generate`` and steps. 4d's replayed paged step
+    (4b over a bf16 pool of pages of 64, chunks of 64) is timed the same
+    way, with the card's busy ms a step (the union of its activity
+    intervals, over 4 replays) beside each path's wall, and the kernels'
+    durations a step summed: all, kernel D's and the K/V writes'
+    (KERNEL_GROUPS).
+    ``tools/chip_kernel_ab.py --rows norm`` times another tree through
+    this function, so it calls only what every tree has."""
 
     def checksum(values) -> float:
         """Position-weighted sum of integers (bf16 bit patterns, ids)."""
@@ -2774,10 +3025,12 @@ def norm_rows(torch, dev) -> dict:
     del x, r, gu
     rng = np.random.default_rng(0)
     prompts = [rng.integers(3, 32000, n).tolist() for n in QUANT_PROMPTS]
-    for tag, quant in (("4b", "int4"), ("4c", "int8")):
+    paged = dict(kv_layout="paged", page_size=64, max_prefill_len=64)
+    for tag, quant, layout in (("4b", "int4", {}), ("4c", "int8", {}),
+                               ("4d", "int4", paged)):
         engine = create_engine("llama2-7b", None, EngineConfig(
-            quant_mode=quant, max_batch_size=8, max_seq_len=2048), seed=0,
-            device=dev)
+            quant_mode=quant, max_batch_size=8, max_seq_len=2048, **layout),
+            seed=0, device=dev)
         res = engine.generate(prompts, SamplingParams(greedy=True,
                                                       max_new_tokens=16),
                               eos_token_id=None)
@@ -2795,8 +3048,15 @@ def norm_rows(torch, dev) -> dict:
         out[f"{tag} replayed step wall"] = (time.perf_counter() - t0) / 32 * 1e3
         out[f"{tag} greedy ids checksum"] = checksum(
             [torch.tensor(res.token_ids, device=dev), *ids])
-        out[f"{tag} replayed step activities"] = device_profile(
-            torch, lambda: engine.decode_step(toks, active, sp), 1).activities
+        prof = device_profile(
+            torch, lambda: engine.decode_step(toks, active, sp), 4)
+        out[f"{tag} replayed step busy"] = prof.busy
+        out[f"{tag} replayed step activities"] = prof.activities
+        # kernel durations a step: all, and kernel D's and the K/V writes'
+        groups = group_ms(prof.per_kernel)
+        out[f"{tag} replayed step summed"] = prof.summed
+        for g in ("D", "writes"):
+            out[f"{tag} replayed step {g}"] = groups[g]
         del engine
         torch.cuda.empty_cache()
     return out
@@ -2863,6 +3123,8 @@ def phase_paged_vs_slot(torch, dev, model: str, quant: dict, prompts,
     L = cfg.num_layers
     check_norm_launches(f"paged {kv} prefill", per_prefill, L)
     check_norm_launches(f"paged {kv} decode step", per_step, L, 1)
+    check_decode_step_launches(f"paged {kv} decode step", [per_step], L,
+                               int8=bool(quant.get("kv_cache_dtype_name")))
     say(f"  warm paged prefill: card busy {prefill.busy:.3f} ms (kernel "
         f"durations summed {prefill.summed:.3f}); by group: "
         f"{_groups(prefill.per_kernel)}; by kernel: "
@@ -2905,9 +3167,11 @@ def phase_server(torch, dev, results, model: str, quant: dict, params,
     16-96 tokens from seed 0, all enqueued before the engine thread
     starts so the scheduler sees them in order. Wave 2: multi-turn
     resends (a wave-1 prompt + its answer + a short suffix) of the
-    requests that finished last. 4i runs wave 1 alone over an int8 pool
-    of the same bytes (``num_pages`` ~2x), where admission need not wait
-    for pages. Returns the engine."""
+    requests that finished last. Then wave 1 runs again through a fresh
+    scheduler in-process with the decode bodies eager: every request's ids
+    equal the server's. 4i runs wave 1 alone over an int8 pool of the same
+    bytes (``num_pages`` ~2x), where admission need not wait for pages.
+    Returns the engine."""
     import http.client
     import threading
 
@@ -2917,6 +3181,8 @@ def phase_server(torch, dev, results, model: str, quant: dict, params,
     from llm_inference_engine_tpu_torch.config import EngineConfig, get_config
     from llm_inference_engine_tpu_torch.runtime.chat_template import (
         get_chat_template)
+    from llm_inference_engine_tpu_torch.runtime.decode_graph import (
+        run_eagerly)
     from llm_inference_engine_tpu_torch.runtime.engine import InferenceEngine
     from llm_inference_engine_tpu_torch.runtime.scheduler import (
         ContinuousBatchingScheduler)
@@ -2953,6 +3219,7 @@ def phase_server(torch, dev, results, model: str, quant: dict, params,
         kind.append(1)
         return decode_phase()
     sched.step, sched._decode_phase = timed_step, noted_decode_phase
+    decode_steps = decode_phase_launches(sched, _counters())
 
     def recording_submit(*a, **kw):
         requests.append(submit(*a, **kw))
@@ -3042,6 +3309,9 @@ def phase_server(torch, dev, results, model: str, quant: dict, params,
     expected = paged_kernels(quant)
     launches = _check_paged_launches(f"the server {quant}", counters,
                                      expected + ("dequant_int4",))
+    check_decode_step_launches(f"the server {quant}", decode_steps,
+                               cfg.num_layers,
+                               int8=bool(quant.get("kv_cache_dtype_name")))
     for name in expected[-3:]:            # the paged write and attention
         results.setdefault(name, {})["launches"] = launches[name]
     ap = sched.auto_prefix
@@ -3072,6 +3342,24 @@ def phase_server(torch, dev, results, model: str, quant: dict, params,
     if engine.free_pages + ap.cached_pages != engine._allocator.num_pages - 1:
         raise AssertionError("pages leaked")
     ap.clear()
+    # wave 1 again, in this thread, through a fresh scheduler with every
+    # decode body eager: the same submissions in the same order take the
+    # same steps, so each request's ids equal the server's (its pure-decode
+    # steps replayed)
+    eager = ContinuousBatchingScheduler(engine, eos_token_id=None,
+                                        auto_prefix_cache=True)
+    with run_eagerly(engine):
+        again = [eager.submit(r.prompt_ids, r.sampling) for r in wave1]
+        while eager.has_work:
+            eager.step()
+    differ = [i for i, (a, r) in enumerate(zip(again, wave1))
+              if a.output_ids != r.output_ids]
+    say(f"  wave 1 again with eager decode bodies: ids equal the server's "
+        f"in {len(wave1) - len(differ)} of {len(wave1)} requests")
+    if differ:
+        raise AssertionError(f"the server's ids differ from eager ones in "
+                             f"requests {differ}")
+    eager.auto_prefix.clear()
     return engine
 
 
@@ -4284,8 +4572,7 @@ TAP_NAMES = {"embedding", "final_norm"} | {
 EVAL_PATH = (NORM_ACT + ("kv_write", "kv_write_quant", "attention_prefill",
                          "attention_prefill_int8", "attention_decode",
                          "int4_matmul", "dequant_int4"),
-             BF16_PAGED + INT8_PAGED + ("int8_matmul",
-                                        "attention_decode_int8"))
+             PAGED_ALL + ("int8_matmul", "attention_decode_int8"))
 
 
 def eval_kernel_rows(torch, dev, results) -> None:
@@ -4839,7 +5126,9 @@ def tp2_kernel_rows(torch, dev, results) -> None:
                 work=write_work(len(rows), K, D),
                 library=index_copy_ms(torch, (cache.k[1], cache.v[1]),
                                       (kn, vn), (ints(rows).long(),
-                                                 ints(picked).long())))
+                                                 ints(picked).long())),
+                floor=floor_ms(torch, (kn, vn), picked, torch.bfloat16,
+                               cold=True))
     c8 = kvc.new_kv_cache(L, B, K, S, D, device=dev, quantized=True,
                           snapped=True)
     ref8 = dataclasses.replace(c8, **{n: getattr(c8, n).clone() for n in (
@@ -5000,7 +5289,9 @@ def tp2_paged_rows(torch, dev, gen, results) -> None:
                 work=write_work(len(pos), K, D),
                 library=index_copy_ms(torch, (cache.k[1], cache.v[1]),
                                       (kn, vn), (ints(flat).long(),
-                                                 ints(picked).long())))
+                                                 ints(picked).long())),
+                floor=floor_ms(torch, (kn, vn), picked, torch.bfloat16,
+                               cold=True))
     cache.block_table.copy_(cut(last))
     kn1, vn1 = poisoned(torch, randn(B, 1, K, D)), poisoned(torch,
                                                             randn(B, 1, K, D))
@@ -5071,6 +5362,30 @@ def tp2_paged_rows(torch, dev, gen, results) -> None:
                 work=attn_work(qs, last, 1, K, K, D),
                 library=sdpa_ms(torch, qd, gathered(clean_k, table_d),
                                 gathered(clean_v, table_d), q_start, kv_len),
+                row_rel=DECODE_ROW_TOL)
+    # D's fused paged decode of the same step (the engine's at tp = 2): it
+    # writes the rows H wrote above again, so the pool keeps its bits and
+    # the output is bit for bit the attend-only decode's
+    before = [t[1].view(torch.int16).clone() for t in (cache.k, cache.v)]
+    fused = lambda: attention.attention_decode_paged_fused(  # noqa: E731
+        qd, kn1, vn1, cache.k, cache.v, q_start, kv_len, 1, table=table_d,
+        kernels="cuda")[0]
+    got_f = fused()
+    torch.cuda.synchronize()
+    if not (torch.equal(got_f, got) and all(
+            torch.equal(t[1].view(torch.int16), b)
+            for t, b in zip((cache.k, cache.v), before))):
+        raise AssertionError("attention_decode_paged_fused at 16 heads: "
+                             "pool or output differs from H then the "
+                             "attend-only decode")
+    check_close(torch, "attention_decode_paged_fused", got_f[live],
+                want[live], results, f"tp2 B8 H16 K16 4n (d)'s last step "
+                f"kv_len {last} (bits equal H + attend-only), NaN past "
+                "kv_len and the new rows",
+                (time_ms(torch, fused),
+                 time_ms(torch, plain, iters=3, warmup=1)),
+                work=attn_work(qs, last, 1, K, K, D,
+                               new_rows=len(live) * 2 * K * D * 2 * 2),
                 row_rel=DECODE_ROW_TOL)
     del cache, ref, k, v
     torch.cuda.empty_cache()
@@ -5319,11 +5634,13 @@ def phase_parallel(torch, dev, results) -> None:
     del e
     torch.cuda.empty_cache()
 
-    # (d) tp = 2 paged, through the scheduler
+    # (d) tp = 2 paged, through the scheduler (its pure-decode steps
+    # replayed), then again with the decode bodies run eagerly
     counters = _zero_counters()
     e = InferenceEngine(cfg, eng.replace(kv_layout="paged", page_size=64,
                                          max_prefill_len=64), sp)
     sched = ContinuousBatchingScheduler(e, eos_token_id=None)
+    decode_steps = decode_phase_launches(sched, counters)
     reqs = [sched.submit(p, greedy) for p in sched_prompts]
     t0 = time.perf_counter()
     sched.run()
@@ -5331,16 +5648,28 @@ def phase_parallel(torch, dev, results) -> None:
     ids = [q.output_ids for q in reqs]
     _check_paged_launches("4n (d) tp=2 paged scheduler", counters,
                           NORM_ACT + ("int4_matmul",) + BF16_PAGED)
+    check_decode_step_launches("4n (d) tp=2 paged scheduler", decode_steps,
+                               cfg.num_layers, ranks=2)
+    from llm_inference_engine_tpu_torch.runtime.decode_graph import (
+        run_eagerly)
+    e.reset()
+    sched = ContinuousBatchingScheduler(e, eos_token_id=None)
+    with run_eagerly(e):
+        eager = [sched.submit(p, greedy) for p in sched_prompts]
+        sched.run()
+    eager = [q.output_ids for q in eager]
     say(f"  4n (d) tp=2 paged scheduler: {len(reqs)} requests of "
         f"{list(TP2_SCHED_PROMPTS)} tokens, 16 greedy tokens each in "
         f"{wall:.3f} s; ids equal (a)'s engine's generate: "
-        f"{ids == sched_ref}; free pages after {e.free_pages}")
+        f"{ids == sched_ref}, equal with the decode bodies eager: "
+        f"{ids == eager}; free pages after {e.free_pages}")
     del e, sched, sp
     MAIN_RUNS.clear()
     torch.cuda.empty_cache()
-    if ids != sched_ref:
+    if ids != sched_ref or ids != eager:
         raise AssertionError("4n (d): the paged tp=2 scheduler's ids differ "
-                             "from the slot tp=2 engine's")
+                             "from the slot tp=2 engine's or from its "
+                             "eager bodies'")
 
     # (e)
     tp2_kernel_rows(torch, dev, results)
@@ -5817,7 +6146,9 @@ def cp_write_rows(torch, dev, results) -> None:
                             work=write_work(rows, K, D),
                             library=index_copy_ms(
                                 torch, (cache.k[1], cache.v[1]), new,
-                                (ints(sl[0]).long(), ints(sl[1]).long())))
+                                (ints(sl[0]).long(), ints(sl[1]).long())),
+                            floor=floor_ms(torch, new, sl[1], torch.bfloat16,
+                                           cold=True))
             del cache, ref, new
     torch.cuda.empty_cache()
 
@@ -5939,7 +6270,8 @@ def write_case(torch, dev, results, gen, tag: str, B, T, K, D, new_len_l):
     """Kernel C writing a chunk of T rows a sequence (ragged: ``new_len_l``
     live rows each, from row 0) into a slot cache of K kv heads, the new
     rows at the head of buffers whose tails hold NaN: bit for bit the plain
-    write, timed cold beside it, its bound and two ``index_copy_``."""
+    write, timed cold beside it, its bound, its floor and two
+    ``index_copy_``."""
     from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
     S = 2048
     starts_l = [0] * B
@@ -5970,7 +6302,9 @@ def write_case(torch, dev, results, gen, tag: str, B, T, K, D, new_len_l):
                 work=write_work(len(rows), K, D),
                 library=index_copy_ms(torch, (cache.k[1], cache.v[1]),
                                       (kn, vn), (ints(rows).long(),
-                                                 ints(picked).long())))
+                                                 ints(picked).long())),
+                floor=floor_ms(torch, (kn, vn), picked, torch.bfloat16,
+                               cold=True))
 
 
 def mesh_decoding_kernel_rows(torch, dev, results) -> None:
@@ -6668,6 +7002,8 @@ def main() -> int:
     # 5. results
     kernels = []
     for name in REPLACES:
+        if PATH_OF[name] is None:         # on no main path
+            continue
         r = results[name]
         bound, bound_by = bound_ms(r["work"])
         kernels.append(dict(

@@ -1,8 +1,9 @@
 // Kernel D: single-token decode attention of bf16 queries against the
 // stacked KV cache, split along the keys over a thread-block cluster
-// (flash-decoding), in all four decode modes: the fused write + attend over
-// the slot cache and the attend-only decode over the paged pool, each with a
-// bf16 or an int8 cache. The prefill modes are kernel D2
+// (flash-decoding), in four decode modes: the fused write + attend over
+// the slot cache (bf16 or int8), the fused write + attend over the bf16
+// paged pool (given no new rows, it attends only), and the attend-only
+// decode over the int8 paged pool. The prefill modes are kernel D2
 // (attention_prefill.cu).
 //
 // Replaces two TPU kernels of the JAX package
@@ -12,8 +13,15 @@
 //     (WRITE_NEW; an int8 cache gets the row quantized with kernel I's row
 //     quantizer, kv_quant.cuh, in the numerics `snapped` picks);
 //   - `_decode_mxu_kernel` (launched by `_attention_decode_mxu` with a block
-//     table): attend-only decode over the paged pool, after kernel H wrote
-//     the token (PAGED).
+//     table): decode over the paged pool (PAGED). On a bf16 pool the
+//     token's row is written through the table by the kernel itself
+//     (PAGED && WRITE_NEW, with the rules of kernel H's write,
+//     kv_write.cu: the JAX package's `_paged_write_kernel` runs before its
+//     attend-only decode), which saves a launch of H a layer in every
+//     decode step; `attention_decode_paged` runs the same instance with no
+//     new rows, after kernel H wrote the token (the JAX package's order,
+//     kept to hold the fused write against). The attend-only mode stays
+//     for the int8 pool, after kernel H's int8 mode wrote the token.
 //
 // Semantics. q [B, 1, H, D]; out [B, 1, H, D]. Query head h sits at position
 // p = q_start[b] and attends key j iff j < kv_len[b], j <= p and, with a
@@ -21,7 +29,10 @@
 // sequence share p, so they see the same keys [lo, hi): lo = max(0, p - W +
 // 1) (0 without a window), hi = min(kv_len[b], p + 1). A head with no
 // visible key gives 0. The fused modes first write the token at p when
-// kv_len[b] > p and 0 <= p < S (inactive rows write nothing). The cache is
+// kv_len[b] > p and 0 <= p < S (inactive rows write nothing; over a pool S
+// is max_pages * page, and a table entry e = table[b, p / page] outside
+// [0, P) writes nothing either, the row landing at [layer, e, p % page]).
+// The cache is
 // the slot cache [L, B, S, K, D] or the pool [L, P, page, K, D] with a block
 // table [B, max_pages] (key j of sequence b at page table[b, j / page], row
 // j % page); bf16, or int8 with f32 scale planes [.., K] holding each
@@ -53,6 +64,12 @@
 //     left stale. In the paged modes the
 //     slice's table entries are staged in shared memory once, before the
 //     ring starts, so no K/V copy waits on a table load.
+//   - The fused write comes before any tile is loaded: the block whose
+//     slice holds the token writes its row (with G > R, the block of each
+//     row block of the kv head writes the same bytes). Over a pool that
+//     block reads the token's table entry straight from global memory, its
+//     load in flight beside the query loads, before the slice's entries
+//     are staged.
 //   - Parallel P V on the CUDA cores. A warp takes kKeys / kWarps keys of
 //     each tile, a few at a time: lane (group, c) holds query values
 //     [8c, 8c + 8) of each head in registers and owns output columns
@@ -190,7 +207,8 @@ __device__ __forceinline__ void int8x8_to_f32(const uint2& raw, float* f) {
 template <int D, int R, bool PAGED, bool INT8, bool WRITE_NEW>
 __global__ void __launch_bounds__(kThreads)
 attention_decode_kernel(const Params p) {
-  static_assert(!(WRITE_NEW && PAGED), "the fused write is slot-only");
+  static_assert(!(WRITE_NEW && PAGED && INT8),
+                "the fused paged write is bf16-only");
   using Ln = Lanes<D>;
   using Ly = Layout<D, R, INT8>;
   constexpr int kChunks = Ln::kChunks;
@@ -238,6 +256,17 @@ attention_decode_kernel(const Params p) {
     }
   };
 
+  // the fused write's block: the one whose slice holds the token (k1 <= S);
+  // a pool launched with no new rows writes nothing
+  [[maybe_unused]] const bool writes =
+      WRITE_NEW && (!PAGED || p.k_new != nullptr) && kl > qs && qs >= 0 &&
+      qs >= k0 && qs < k1;
+  // over a pool, the token's table entry, loaded beside the queries
+  int w_entry = -1;
+  if constexpr (WRITE_NEW && PAGED) {
+    if (writes) w_entry = p.table[(size_t)b * p.max_pages + qs / p.page];
+  }
+
   // queries of this lane's chunk, pre-scaled into the log2 domain
   float qf[R][8];
 #pragma unroll
@@ -255,9 +284,11 @@ attention_decode_kernel(const Params p) {
   // any tile of the slice is loaded (with G > R, the block of each row
   // block of kh writes the same bytes)
   if constexpr (WRITE_NEW) {
-    if (kl > qs && qs >= 0 && qs < p.S && qs >= k0 && qs < k1) {
+    if (writes && (!PAGED || (w_entry >= 0 && w_entry < p.P))) {
       const size_t src = ((size_t)b * p.K + kh) * D;
-      const size_t row = kv_row(qs);
+      const size_t row =
+          PAGED ? base + ((size_t)w_entry * p.page + qs % p.page) * p.K
+                : kv_row(qs);
       if constexpr (INT8) {
         // warp 0 quantizes and writes the k row, warp 1 the v row
         if (warp < 2) {
@@ -642,8 +673,25 @@ extern "C" int attention_decode(const void* q, const void* k_new,
   return dispatch<false, false, true>(p, D, (cudaStream_t)stream, nullptr);
 }
 
+// Decode over the bf16 paged pool with the new token's K/V write through
+// the table (kernel H's rules).
+extern "C" int attention_decode_paged_fused(
+    const void* q, const void* k_new, const void* v_new, void* k_pool,
+    void* v_pool, void* out, const int* q_start, const int* kv_len,
+    const int* table, int layer, int B, int H, int K, int P, int page,
+    int max_pages, int D, float sm_scale, int window, void* stream) {
+  Params p = paged(make_params(q, k_pool, v_pool, nullptr, nullptr, out,
+                               q_start, kv_len, layer, B, H, K,
+                               page * max_pages, sm_scale, window),
+                   table, P, page, max_pages);
+  p.k_new = (const __nv_bfloat16*)k_new;
+  p.v_new = (const __nv_bfloat16*)v_new;
+  if (!valid_shape(p) || page <= 0) return (int)cudaErrorInvalidValue;
+  return dispatch<true, false, true>(p, D, (cudaStream_t)stream, nullptr);
+}
+
 // Attend-only decode over the bf16 paged pool, after kernel H wrote the
-// token.
+// token: the fused instance with no new rows.
 extern "C" int attention_decode_paged(const void* q, const void* k_pool,
                                       const void* v_pool, void* out,
                                       const int* q_start, const int* kv_len,
@@ -656,7 +704,7 @@ extern "C" int attention_decode_paged(const void* q, const void* k_pool,
                                page * max_pages, sm_scale, window),
                    table, P, page, max_pages);
   if (!valid_shape(p) || page <= 0) return (int)cudaErrorInvalidValue;
-  return dispatch<true, false, false>(p, D, (cudaStream_t)stream, nullptr);
+  return dispatch<true, false, true>(p, D, (cudaStream_t)stream, nullptr);
 }
 
 // Decode over the int8 slot cache: the new token's K/V rows are quantized
@@ -709,7 +757,7 @@ extern "C" int attention_decode_plan(int B, int H, int K, int D, int int8,
   int occ[3] = {0, 0, 0};
   const int err =
       is_paged ? (int8 ? dispatch<true, true, false>(p, D, nullptr, occ)
-                       : dispatch<true, false, false>(p, D, nullptr, occ))
+                       : dispatch<true, false, true>(p, D, nullptr, occ))
                : (int8 ? dispatch<false, true, true>(p, D, nullptr, occ)
                        : dispatch<false, false, true>(p, D, nullptr, occ));
   out[0] = p.nsplit;

@@ -12,8 +12,10 @@ place of four eager ops). The cache write and
 attention, by layout: slot, kernel C (int8: kernel I) then kernel D at
 T > 1, and the fused write+attend decode mode of kernel D at T == 1;
 paged (the JAX package's paged branch), kernel H through the block table,
-then kernel D's paged prefill mode at T > 1 or its attend-only paged
-decode at T == 1. An int8 cache or pool passes its scale planes (the
+then kernel D's paged prefill mode at T > 1, and at T == 1 kernel D's
+fused paged decode (a bf16 pool: the write through the table and the
+attention in one launch) or H's int8 mode then D's attend-only paged
+decode (an int8 pool). An int8 cache or pool passes its scale planes (the
 slot cache also its ``snapped`` numerics) to the same calls, which run
 the kernels' int8 modes. The layer loop is a Python loop over ``w[layer]``
 views of the stacked weights (the JAX package's ``lax.scan``; a stacked
@@ -71,7 +73,8 @@ from llm_inference_engine_tpu_torch.ops.activations import (
     add_residual, silu_and_mul)
 from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
 from llm_inference_engine_tpu_torch.ops.attention import (
-    attention, attention_decode, attention_decode_fused, can_fuse_decode)
+    attention, attention_decode, attention_decode_fused,
+    attention_decode_paged_fused, can_fuse_decode, can_fuse_paged_decode)
 from llm_inference_engine_tpu_torch.ops.embedding import embedding_lookup
 from llm_inference_engine_tpu_torch.ops.linear import linear
 from llm_inference_engine_tpu_torch.ops.rmsnorm import (
@@ -154,6 +157,13 @@ def _layer_gen(cfg: ModelConfig, eng: EngineConfig, h_norm: torch.Tensor,
                 q, k_loc, v_loc, cp.q_pos, cp.kv_pos, cp.kv_valid, cp.me,
                 cp.n, sm_scale=sm_scale, window=cfg.sliding_window,
                 out_dtype=x.dtype, **scales)
+    elif can_fuse_paged_decode(q.shape, cache):
+        # bf16 paged decode: one kernel writes the token's K/V through the
+        # block table and attends
+        attn_out, _, _ = attention_decode_paged_fused(
+            q, k_new, v_new, cache.k, cache.v, q_start, kv_len, layer_idx,
+            table=cache.block_table, sm_scale=sm_scale,
+            window=cfg.sliding_window, kernels=kernels)
     elif isinstance(cache, pkv.PagedKVCache):
         # paged: write through the block table, then attend through it
         pkv.paged_update_at_layer(cache, layer_idx, k_new, v_new, q_start,

@@ -79,6 +79,11 @@ _SIGNATURES = {
     # layer, B, H, K, P, page, max_pages, D, sm_scale, window, stream
     "attention_decode_paged": [_P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # q, k_new, v_new, k_pool, v_pool, out, q_start, kv_len, table,
+    # layer, B, H, K, P, page, max_pages, D, sm_scale, window, stream
+    "attention_decode_paged_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                                     _I, _P],
     # q, k_pool, v_pool, k_scale, v_scale, out, q_start, kv_len, table,
     # layer, B, T, H, K, P, page, max_pages, D, sm_scale, window, stream
     "attention_prefill_paged_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -89,6 +94,8 @@ _SIGNATURES = {
     "attention_decode_paged_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                                     _P],
+    # B, T, row_bytes, out[6]
+    "kv_write_plan": [_I, _I, _I, _P],
     # B, T, K, D, out[5]
     "kv_write_quant_plan": [_I, _I, _I, _I, _P],
     # B, H, K, D, int8, page, max_pages, out[7]

@@ -25,13 +25,22 @@ Port of ``llm_inference_engine_tpu/ops/attention.py`` over the slot cache
   ``attention_decode_fused_mxu``): it writes the new K/V row into the
   cache IN PLACE (an int8 cache: quantized in the cache's numerics, with
   its scale) and attends history plus the new token;
+- :func:`attention_decode_paged_fused` (one new token per sequence,
+  bf16 paged pool) runs kernel D's fused paged mode
+  (``attention_decode_paged_fused``) in place of the TPU kernels
+  ``_paged_write_kernel`` and ``_decode_mxu_kernel`` (``_attention_decode_mxu``
+  with a table), which the JAX package runs one after the other: it
+  writes the new K/V row through the block table IN PLACE, with kernel
+  H's rules, and attends;
 - :func:`attention_decode` (one token per sequence, paged pool, written
   by kernel H first) runs kernel D's attend-only mode
-  (``attention_decode_paged``, int8: :func:`attention_decode_int8`) in
-  place of the TPU kernel ``_decode_mxu_kernel`` (``_attention_decode_mxu``
-  with a table). Its split plan and summation order are the fused mode's
-  (:func:`decode_plan`), so a paged engine reproduces a slot engine bit
-  for bit.
+  (``attention_decode_paged``: the fused paged instance given no new
+  rows; int8: :func:`attention_decode_int8`) in place of
+  ``_decode_mxu_kernel``; the engine takes it for the int8 pool (after
+  kernel H's int8 mode), and the bf16 one serves as the JAX package's
+  order that the fused mode is held against. The paged modes' split plan and summation
+  order are the slot mode's (:func:`decode_plan`), so a paged engine
+  reproduces a slot engine bit for bit.
 
 Every kernel is built for the head dims ``_native.HEAD_DIMS`` (64, 80,
 96, 128, 256); another head_dim raises ``NotImplementedError`` on a CUDA
@@ -46,9 +55,10 @@ key gives 0, not NaN. The decode kernel reads ``kv_len`` per sequence, so
 the JAX package's static ``kv_hi`` watermark has no counterpart.
 
 Under tensor parallelism every mode runs on a model rank's local heads
-(``parallel/sharding.py``), the slot decode fused as on one device. The
-engine never runs the attend-only decode over a slot cache: it always
-fuses the slot decode.
+(``parallel/sharding.py``), the decode fused as on one device. The
+engine never runs the attend-only decode over a slot cache or a bf16
+pool: it fuses their decode (:func:`can_fuse_decode`,
+:func:`can_fuse_paged_decode`).
 """
 
 from __future__ import annotations
@@ -62,7 +72,7 @@ from llm_inference_engine_tpu_torch.ops import _native
 from llm_inference_engine_tpu_torch.ops.kv_cache import (
     _write_rows_torch, quantize_rows)
 from llm_inference_engine_tpu_torch.ops.paged_kv import (
-    PagedKVCache, gather_pages)
+    PagedKVCache, _write_rows_torch as _write_pool_rows_torch, gather_pages)
 from llm_inference_engine_tpu_torch.utils import use_kernel
 from llm_inference_engine_tpu_torch.utils.checks import kernel_output
 
@@ -71,7 +81,9 @@ __all__ = ["attention", "attention_torch", "attention_paged_torch",
            "attention_prefill_paged_int8", "attention_decode",
            "attention_decode_int8", "attention_decode_fused",
            "attention_decode_fused_int8", "attention_decode_fused_torch",
-           "can_fuse_decode", "decode_plan", "prefill_plan"]
+           "attention_decode_paged_fused",
+           "attention_decode_paged_fused_torch", "can_fuse_decode",
+           "can_fuse_paged_decode", "decode_plan", "prefill_plan"]
 
 
 def attention_torch(q, k_cache, v_cache, q_start, kv_len, *,
@@ -440,11 +452,18 @@ def prefill_plan(D: int, *, int8: bool = False) -> dict:
 
 def can_fuse_decode(q_shape, cache) -> bool:
     """Fused-decode gate: one new token against a bf16 or int8 SLOT cache
-    (the paged pool writes through kernel H, then attends). The JAX
-    package fuses only its embedded-scale int8 cache; the port's one scale
-    layout makes both int8 numerics fusible."""
+    (a pool takes :func:`can_fuse_paged_decode`). The JAX package fuses
+    only its embedded-scale int8 cache; the port's one scale layout makes
+    both int8 numerics fusible."""
     return (q_shape[1] == 1 and not isinstance(cache, PagedKVCache)
             and (cache.k.dtype == torch.bfloat16 or cache.quantized))
+
+
+def can_fuse_paged_decode(q_shape, cache) -> bool:
+    """Fused paged-decode gate: one new token against a bf16 paged pool
+    (an int8 pool writes through kernel H's int8 mode, then attends)."""
+    return (q_shape[1] == 1 and isinstance(cache, PagedKVCache)
+            and cache.k.dtype == torch.bfloat16)
 
 
 def attention_decode_fused_torch(q, k_new, v_new, k_cache, v_cache, q_start,
@@ -571,3 +590,61 @@ def attention_decode_fused_int8(q, k_new, v_new, k_cache, v_cache, q_start,
 
 
 attention_decode_fused_int8.launches = 0
+
+
+def attention_decode_paged_fused_torch(q, k_new, v_new, k_pool, v_pool,
+                                       q_start, kv_len, layer: int, *,
+                                       table,
+                                       sm_scale: Optional[float] = None,
+                                       window: Optional[int] = None):
+    """Plain version of kernel D's fused paged decode: kernel H's plain
+    write of k_new/v_new [B, 1, K, D] at q_start through ``table`` for rows
+    with kv_len > q_start (in place), then the paged attention. Returns
+    (out [B, 1, H, D], k_pool, v_pool)."""
+    active = (kv_len > q_start).to(torch.int32)
+    for pool, new in ((k_pool, k_new), (v_pool, v_new)):
+        _write_pool_rows_torch(pool, new, layer, q_start, active, table)
+    out = attention_paged_torch(q, k_pool, v_pool, q_start, kv_len, layer,
+                                table, sm_scale=sm_scale, window=window)
+    return out, k_pool, v_pool
+
+
+def attention_decode_paged_fused(q, k_new, v_new, k_pool, v_pool, q_start,
+                                 kv_len, layer: int, *, table,
+                                 sm_scale: Optional[float] = None,
+                                 window: Optional[int] = None,
+                                 kernels: str = "auto"):
+    """Fused decode write + attend over the bf16 paged pool (the
+    counterpart of the JAX package's ``_paged_write_kernel`` followed by
+    ``_decode_mxu_kernel``).
+
+    q [B, 1, H, D]; k_new/v_new [B, 1, K, D]; pools [L, P, page, K, D],
+    updated in place; ``table`` [B, max_pages]. The token's row goes to
+    [layer, table[b, q_start // page], q_start % page] when kv_len >
+    q_start, 0 <= q_start < max_pages * page and the entry lies in [0, P)
+    (kernel H's rules), then the row attends as in
+    :func:`attention_decode`. Returns (out [B, 1, H, D], k_pool, v_pool)."""
+    if not use_kernel(kernels, q):
+        return attention_decode_paged_fused_torch(
+            q, k_new, v_new, k_pool, v_pool, q_start, kv_len, layer,
+            table=table, sm_scale=sm_scale, window=window)
+    _check(q, k_pool, v_pool, q_start, kv_len, layer, table)
+    _check_new_rows(q, k_new, v_new, k_pool)
+    B, _, H, D = q.shape
+    _, P, page, K, _ = k_pool.shape
+    out = torch.empty_like(q)
+    status = _native.library().attention_decode_paged_fused(
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(),
+        v_pool.data_ptr(), out.data_ptr(), q_start.data_ptr(),
+        kv_len.data_ptr(), table.data_ptr(), int(layer), B, H, K, P, page,
+        table.shape[1], D, _scale_of(sm_scale, D), int(window or 0),
+        _native.stream_of(q))
+    _native.check(status, "attention_decode_paged_fused")
+    attention_decode_paged_fused.launches += 1
+    kernel_output("attention_decode_paged_fused", out)
+    kernel_output("attention_decode_paged_fused", k_pool, v_pool,
+                  layer=layer)
+    return out, k_pool, v_pool
+
+
+attention_decode_paged_fused.launches = 0

@@ -9,10 +9,11 @@ each step; here the tensors are mutated IN PLACE by
 :func:`update_cache_at_layer` and by the fused decode attention, and the
 functions return the same :class:`KVCache` object.
 
-Kernel C (CUDA, ``csrc/kv_write.cu``) replaces the TPU kernel
-``_write_kernel``. It writes only each sequence's real rows
-(``t < new_len[b]``); the JAX kernel DMAs the whole padded T-window, which
-differs only in rows >= kv_len that attention never reads.
+Kernel C (CUDA, ``csrc/kv_write.cu``, whose paged instance is kernel H)
+replaces the TPU kernel ``_write_kernel``. It writes only each sequence's
+real rows (``t < new_len[b]``); the JAX kernel DMAs the whole padded
+T-window, which differs only in rows >= kv_len that attention never
+reads. Its launch is :func:`write_plan`.
 
 The int8 cache keeps int8 values [L, B, S, K, D] and one f32 scale per
 (token, head) in planes ``k_scale``/``v_scale`` [L, B, S, K]. The JAX
@@ -47,7 +48,7 @@ from llm_inference_engine_tpu_torch.utils import cdiv, use_kernel
 from llm_inference_engine_tpu_torch.utils.checks import kernel_output
 
 __all__ = ["KVCache", "new_kv_cache", "update_cache_at_layer",
-           "update_cache_at_layer_torch", "kv_write_quant",
+           "update_cache_at_layer_torch", "write_plan", "kv_write_quant",
            "embedded_supported", "quantize_kv", "quantize_kv_snapped",
            "quantize_rows", "kv_scales_from_numpy"]
 
@@ -286,6 +287,37 @@ def update_cache_at_layer(cache: KVCache, layer: int, new_k: torch.Tensor,
 
 
 update_cache_at_layer.launches = 0
+
+
+_COPY_THREADS, _COPY_VECS = 128, 4
+_COPY_PLAN_KEYS = ("threads", "vecs", "rows_per_block", "blocks_x",
+                   "blocks_y", "passes")
+
+
+def write_plan(B: int, T: int, row_bytes: int) -> dict:
+    """The launch of kernels C and H (bf16) for new rows [B, T] of
+    ``row_bytes`` bytes a token row, as ``csrc/kv_write.cu`` makes it: a
+    block of ``threads`` threads, each holding up to ``vecs`` 16-byte
+    vectors a pass, takes rows_per_block whole rows of sequence y's flat
+    order r = 2 t + (k|v), rows [x * rows_per_block, (x + 1) *
+    rows_per_block): as many as fit threads * vecs vectors (8 KB), one
+    for rows of 4 KB or more, in ``passes`` passes. Pure Python: the CPU
+    tests call it; :func:`write_plan_native` asks the built library."""
+    row_vecs, block_vecs = row_bytes // 16, _COPY_THREADS * _COPY_VECS
+    rb = 1 if 2 * row_vecs >= block_vecs else block_vecs // row_vecs
+    return dict(zip(_COPY_PLAN_KEYS, (_COPY_THREADS, _COPY_VECS, rb,
+                                      cdiv(2 * T, rb), B,
+                                      cdiv(rb * row_vecs, block_vecs))))
+
+
+def write_plan_native(B: int, T: int, row_bytes: int) -> dict:
+    """The plan from the built library on the card (``kv_write_plan``)."""
+    import ctypes
+    from llm_inference_engine_tpu_torch.ops import _native
+    out = (ctypes.c_int * len(_COPY_PLAN_KEYS))()
+    _native.check(_native.library().kv_write_plan(B, T, row_bytes, out),
+                  "kv_write_plan")
+    return dict(zip(_COPY_PLAN_KEYS, out))
 
 
 _WRITE_THREADS = 256

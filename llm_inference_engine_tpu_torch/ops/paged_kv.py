@@ -10,7 +10,8 @@ scratch page every unused table entry points at; it never holds live
 data. The allocator is host-side bookkeeping; the device only sees the
 table. The pool is updated IN PLACE.
 
-Kernel H (CUDA, ``csrc/paged_kv_write.cu``) replaces the TPU kernel
+Kernel H (CUDA, the paged instance of kernel C in ``csrc/kv_write.cu``;
+its launch is ``kv_cache.write_plan``) replaces the TPU kernel
 ``_paged_write_kernel``. One launch serves chunk rows (``new_len > 1``,
 starting page-aligned in the engine) and decode rows (``new_len == 1``,
 at any in-page offset); rows with ``new_len == 0`` write nothing. Every
@@ -19,7 +20,10 @@ not rest on the page-alignment invariant. H writes only real rows
 (``t < new_len[b]``), as kernel C does; the TPU kernel DMAs the whole
 padded T-window inside the page. The two differ only in rows at or past
 ``kv_len``, which attention never reads and a later write overwrites
-before they become valid.
+before they become valid. The engine's pure-decode steps over a bf16 pool
+launch no H: kernel D's fused paged decode writes the token through the
+table with H's rules and attends
+(``attention.attention_decode_paged_fused``).
 
 The int8 pool (``quantized=True``) holds int8 values [L, P, page, K, D]
 and f32 scale planes [L, P, page, K], indexed by page as the values are,

@@ -671,6 +671,15 @@ def test_paged_kernels_refuse_instead_of_falling_back(cuda):
     with pytest.raises(TypeError):
         pkv.paged_update_at_layer(cache, 0, q[:, :, :2], q[:, :, :2],
                                   lens, lens)
+    new = torch.randn(2, 1, 2, 128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        attention.attention_decode_paged_fused(
+            q, new, new, cache.k, cache.v, lens - 1, lens, 0,
+            table=cache.block_table)
+    with pytest.raises(ValueError):
+        attention.attention_decode_paged_fused(
+            q.bfloat16(), new.float(), new, cache.k, cache.v, lens - 1,
+            lens, 0, table=cache.block_table)
 
 
 def test_paged_engine_matches_slot_engine_and_plain(cuda):
@@ -997,7 +1006,8 @@ def test_int8_kv_engines_match_plain_and_paged_matches_slot(cuda):
 # ---------------------------------------------------------------------------
 
 HEAD_DIMS = (64, 80, 96, 128, 256)
-DECODE_MODES = ("fused", "paged", "fused-int8", "paged-int8")
+DECODE_MODES = ("fused", "paged", "fused-int8", "paged-int8",
+                "paged-fused")
 # kv_len per sequence: 1, one 32-key tile, one tile + 1, a slice ending
 # mid-page, an inactive row (kv_len == q_start), and S itself
 DEC_S = 600
@@ -1030,8 +1040,13 @@ def _decode_inputs(cuda, mode, K, G, D, page=16, snapped=True):
 def _run_decode(mode, c, q, kn, vn, q_start, kv_len, window, kernels,
                 snapped=True):
     """One decode step of ``mode`` at layer 1: the fused modes write the
-    token and attend; the paged modes attend (the pool holds the token)."""
+    token and attend (paged-fused through the table); the paged modes
+    attend (the pool holds the token)."""
     planes = _planes(c) if c.k_scale is not None else {}
+    if mode == "paged-fused":
+        return attention.attention_decode_paged_fused(
+            q, kn, vn, c.k, c.v, q_start, kv_len, 1, table=c.block_table,
+            window=window, kernels=kernels)[0]
     if mode.startswith("paged"):
         if kernels == "torch":
             return attention.attention_paged_torch(
@@ -1064,9 +1079,9 @@ def test_decode_kernel_modes(cuda, mode, D, G, window):
     versions: kv_len 1, one tile, one tile + 1, slices ending mid-page, S,
     an inactive row; G 1, 3 and 4 (blocks of 4 query heads, one idle at
     3), 7 (a group that is no power of two) and 8, windows starting inside
-    a tile. The fused writes are bit-identical to
-    the plain write; page 0 and the pages past each sequence's pages hold
-    NaN, so a read outside the table shows."""
+    a tile. The fused writes (slot and paged) are bit-identical to the
+    plain write; page 0 and the pages past each sequence's pages hold NaN,
+    so a read outside the table shows."""
     K = 2
     page = 16 if D != 96 else 24
     c, q, kn, vn, q_start, kv_len = _decode_inputs(cuda, mode, K, G, D, page)
@@ -1081,17 +1096,21 @@ def test_decode_kernel_modes(cuda, mode, D, G, window):
     counter = {"fused": attention.attention_decode_fused,
                "paged": attention.attention_decode,
                "fused-int8": attention.attention_decode_fused_int8,
-               "paged-int8": attention.attention_decode_int8}[mode]
+               "paged-int8": attention.attention_decode_int8,
+               "paged-fused": attention.attention_decode_paged_fused}[mode]
     n0 = counter.launches
     got = _run_decode(mode, c, q, kn, vn, q_start, kv_len, window, "cuda")
     want = _run_decode(mode, ref, q, kn, vn, q_start, kv_len, window,
                        "torch")
     torch.cuda.synchronize()
     assert counter.launches == n0 + 1
-    if mode.startswith("fused"):
+    if "fused" in mode:
         for name in ("k", "v", "k_scale", "v_scale"):
-            if getattr(c, name) is not None:
-                assert torch.equal(getattr(c, name), getattr(ref, name)), name
+            t = getattr(c, name)
+            if t is not None:
+                # the paged pool's NaN page 0 is zero in ref
+                t = t.nan_to_num() if t.is_floating_point() else t
+                assert torch.equal(t, getattr(ref, name)), name
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, **TOL)
 
@@ -1152,6 +1171,42 @@ def test_paged_decode_bit_identical_to_slot_at_head_dims(cuda, int8, D):
                                      table=cache.block_table, kernels="cuda",
                                      **pp)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("page", [16, 64])
+def test_fused_paged_decode_bit_identical_to_slot(cuda, D, page):
+    """The fused paged decode gives the fused slot decode's output bytes
+    on the same keys (its pages gathered into a slot cache), and its pool
+    equals kernel H's plain write on a copy bit for bit: a check that goes
+    through neither kernel H nor the paged decode without new rows. Rows:
+    a first token, q_start at in-page offsets page - 1 and 0, and one
+    deep in the sequence."""
+    from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+    L, B, K, G, maxp = 2, 4, 2, 4, 512 // page
+    cache = _paged_pool(cuda, L, B, maxp, page, K, D)
+    slot = kvc.new_kv_cache(L, B, K, maxp * page, D, device=cuda)
+    for layer in range(L):
+        for n in ("k", "v"):
+            getattr(slot, n)[layer] = pkv.gather_pages(
+                getattr(cache, n), layer, cache.block_table)
+    ref = pkv.PagedKVCache(cache.k.clone(), cache.v.clone(),
+                           cache.block_table, cache.lengths)
+    hist = torch.tensor([0, page - 1, page, 400], device=cuda,
+                        dtype=torch.int32)
+    kv_len = hist + 1
+    q = torch.randn(B, 1, K * G, D, device=cuda, dtype=torch.bfloat16)
+    kn = torch.randn(B, 1, K, D, device=cuda, dtype=torch.bfloat16)
+    vn = torch.randn_like(kn)
+    want, _, _ = attention.attention_decode_fused(
+        q, kn, vn, slot.k, slot.v, hist, kv_len, 1, kernels="cuda")
+    got, _, _ = attention.attention_decode_paged_fused(
+        q, kn, vn, cache.k, cache.v, hist, kv_len, 1,
+        table=cache.block_table, kernels="cuda")
+    pkv.paged_update_at_layer_torch(ref, 1, kn, vn, hist, kv_len - hist)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(cache.k, ref.k) and torch.equal(cache.v, ref.v)
 
 
 @pytest.mark.parametrize("K,G,D,window,lens", [
@@ -1408,6 +1463,19 @@ def test_write_quant_plan_mirror_equals_library(cuda, B, T):
         for D in HEAD_DIMS:
             assert kvc.write_quant_plan_native(B, T, K, D) == \
                 kvc.write_quant_plan(B, T, K, D)
+
+
+@pytest.mark.parametrize("B,T", [(1, 1), (8, 1), (16, 1), (8, 64),
+                                 (16, 64), (8, 512), (1, 2048)])
+def test_write_plan_mirror_equals_library(cuda, B, T):
+    """ops.kv_cache.write_plan (Python, what the CPU tests check) equals
+    the library's plan of kernels C and H."""
+    for K in (1, 2, 4, 8, 16, 32, 40):
+        for D in HEAD_DIMS:
+            for elem in (2, 4):
+                row_bytes = K * D * elem
+                assert kvc.write_plan_native(B, T, row_bytes) == \
+                    kvc.write_plan(B, T, row_bytes)
 
 
 @pytest.mark.parametrize("snapped", [True, False])
@@ -1805,3 +1873,114 @@ def test_attention_at_tp2_local_heads(cuda, mode):
                                               v_scale=ref[3])))
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# kernel D's fused paged decode against kernel H then the attend-only decode,
+# and the bf16 row writes C and H at the model's row widths
+# ---------------------------------------------------------------------------
+
+def _bits_equal(a, b):
+    return torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("B,page,window", [(8, 64, None), (16, 16, 40),
+                                           (16, 64, 300)])
+def test_fused_paged_decode_equals_write_then_attend(cuda, D, G, B, page,
+                                                     window):
+    """The fused paged decode against H then the attend-only paged decode
+    on a copy of the pool: pools and outputs bit for bit; against its
+    plain version on a clean copy: the pool (page 0 aside) bit for bit,
+    the output within TOL. Rows: a first token (q_start 0), q_start at
+    in-page offsets 0 and page - 1, an inactive row, an active row whose
+    table entry at q_start's page is -1 (neither writes; it attends layer
+    0's last page, the same bytes for both, and is left out of the plain
+    comparison), the rest random up to S = 1024. NaN in every pool row
+    past kv_len and every page outside the table, and past the ends of q
+    and the new rows."""
+    from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+    K, S, neg = 2, 1024, 4
+    c = _paged_pool(cuda, 2, B, S // page, page, K, D)
+    g = torch.Generator(device=cuda).manual_seed(B * D + G)
+    kv_len = torch.randint(2, S + 1, (B,), generator=g, device=cuda,
+                           dtype=torch.int32)
+    kv_len[:3] = torch.tensor([1, page + 1, 2 * page], device=cuda)
+    q_start = kv_len - 1
+    q_start[3] = kv_len[3]
+    _poison_pool(c, kv_len, page)
+    entry = int(c.block_table[neg, q_start[neg] // page])
+    c.block_table[neg, q_start[neg] // page] = -1
+    split = pkv.PagedKVCache(c.k.clone(), c.v.clone(), c.block_table,
+                             c.lengths)
+    table = c.block_table.clone()
+    table[neg, q_start[neg] // page] = 0
+    clean = pkv.PagedKVCache(c.k.nan_to_num(), c.v.nan_to_num(), table,
+                             c.lengths)
+    q, kn, vn = (_tail_poisoned(torch.randn(
+        B, 1, n, D, device=cuda, dtype=torch.bfloat16))
+        for n in (K * G, K, K))
+    n0 = attention.attention_decode_paged_fused.launches
+    h0 = pkv.paged_update_at_layer.launches
+    got, _, _ = attention.attention_decode_paged_fused(
+        q, kn, vn, c.k, c.v, q_start, kv_len, 1, table=c.block_table,
+        window=window, kernels="cuda")
+    assert attention.attention_decode_paged_fused.launches == n0 + 1
+    assert pkv.paged_update_at_layer.launches == h0
+    pkv.paged_update_at_layer(split, 1, kn, vn, q_start, kv_len - q_start,
+                              kernels="cuda")
+    want = attention.attention_decode(q, split.k, split.v, q_start, kv_len,
+                                      1, table=c.block_table, window=window,
+                                      kernels="cuda")
+    plain, _, _ = attention.attention_decode_paged_fused_torch(
+        q, kn, vn, clean.k, clean.v, q_start, kv_len, 1, table=table,
+        window=window)
+    torch.cuda.synchronize()
+    assert _bits_equal(c.k, split.k) and _bits_equal(c.v, split.v)
+    assert _bits_equal(got, want)
+    assert entry > 0
+    for mine, ref in ((c.k, clean.k), (c.v, clean.v)):
+        assert torch.equal(mine[:, 1:].nan_to_num(), ref[:, 1:])
+    rows = [b for b in range(B) if b != neg]
+    assert torch.isfinite(got[rows]).all()
+    torch.testing.assert_close(got[rows], plain[rows], **TOL)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("T", [1, 64, 512])
+@pytest.mark.parametrize("K,D", [(32, 128), (16, 128), (2, 64)])
+def test_copy_writes_at_model_rows(cuda, paged, T, K, D):
+    """C (slot) and H (pool, pages of 64) at llama2-7b's 8 KB rows, a tp =
+    2 rank's 4 KB rows and the tinyllama draft rank's 256-byte rows: a
+    ragged launch (a full row, one from an odd offset, a new_len == 0 row,
+    one of new_len 1), the new rows with NaN past their ends, twice;
+    the cache or pool equals the plain write bit for bit."""
+    from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+    B, L, page = 4, 2, 64
+    S = T + 2 * page
+    if paged:
+        c = _paged_pool(cuda, L, B, S // page + 1, page, K, D)
+        ref = pkv.PagedKVCache(c.k.clone(), c.v.clone(), c.block_table,
+                               c.lengths)
+        write, plain = pkv.paged_update_at_layer, \
+            pkv.paged_update_at_layer_torch
+    else:
+        _, kc, vc = _qkv(cuda, L, B, 1, 1, K, S, D)
+        c = kvc.KVCache(kc, vc, torch.zeros(B, device=cuda,
+                                            dtype=torch.int32))
+        ref = kvc.KVCache(kc.clone(), vc.clone(), c.lengths)
+        write, plain = kvc.update_cache_at_layer, \
+            kvc.update_cache_at_layer_torch
+    kn, vn = (_tail_poisoned(torch.randn(B, T, K, D, device=cuda,
+                                         dtype=torch.bfloat16))
+              for _ in "kv")
+    starts = torch.tensor([0, page - 3, 5, 2 * page + 1], device=cuda,
+                          dtype=torch.int32)
+    new_len = torch.tensor([T, max(T - 9, 1), 0, 1], device=cuda,
+                           dtype=torch.int32)
+    for _ in range(2):
+        write(c, 1, kn, vn, starts, new_len, kernels="cuda")
+    plain(ref, 1, kn, vn, starts, new_len)
+    torch.cuda.synchronize()
+    assert torch.equal(c.k, ref.k) and torch.equal(c.v, ref.v)

@@ -1,11 +1,14 @@
-"""The launch geometry of the int8 K/V row write, on the CPU: the plan
-that ``csrc/kv_write_quant.cu`` (kernel I and kernel H's int8 mode) makes
-on the host, through its Python mirror ``ops.kv_cache.write_quant_plan``
-(a card test holds the mirror equal to the built library's). The test
-walks the plan's blocks, thread slots and rows a thread as the kernel
-does, and holds that every live (token, k|v, head) row is taken exactly
-once, at every head dim the kernel is built for and every K of the
-repository's presets."""
+"""The launch geometry of the K/V row writes, on the CPU: the plans that
+``csrc/kv_write_quant.cu`` (kernel I and kernel H's int8 mode) and
+``csrc/kv_write.cu`` (kernels C and H, bf16) make on the host, through
+their Python mirrors ``ops.kv_cache.write_quant_plan`` and
+``ops.kv_cache.write_plan`` (card tests hold each mirror equal to the
+built library's). The tests walk each plan's blocks, thread slots and
+rows a thread as the kernels do, and hold that every live row is taken
+exactly once: for the int8 write at every head dim the kernel is built
+for and every K of the repository's presets; for the bf16 copy at the
+draft's, tp = 2's and llama2-7b's rows, every head dim at K 8 and an
+f32 row of 16 KB."""
 
 import numpy as np
 import pytest
@@ -49,3 +52,45 @@ def test_write_quant_plan_takes_each_live_row_once(D, K, T):
         taken = r[(x * rb < live) & (r < live)]
         assert np.array_equal(np.unique(taken), np.arange(live)), b
         assert (np.bincount(taken, minlength=live) == lanes).all(), b
+
+
+# (K, D, bytes a value) of the bf16 copy's rows: tinyllama's rank at tp = 2
+# (256-byte rows), llama2-7b's rank at tp = 2 (4 KB) and llama2-7b (8 KB),
+# K 8 at the other head dims, and an f32 7B row of 16 KB (two passes)
+COPY_ROWS = ([(2, 64, 2), (16, 128, 2), (32, 128, 2), (32, 128, 4)]
+             + [(8, d, 2) for d in HEAD_DIMS if d != 128])
+
+
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("T", [1, 64, 512])
+@pytest.mark.parametrize("K,D,elem", COPY_ROWS)
+def test_write_plan_takes_each_live_row_once(B, T, K, D, elem):
+    """Block (x, y) takes sequence y's flat rows r = 2 t + (k|v) from x *
+    rows_per_block, up to the live rows; thread i of a pass holds vectors
+    pass + j * threads + i of the block's run, j < vecs. Every 16-byte
+    vector of every live row is taken once, blocks past the live rows
+    exit, and a block moves more than 4 KB (about 8 KB) unless one row is
+    all it takes."""
+    row_bytes = K * D * elem
+    row_vecs = row_bytes // 16
+    p = kvc.write_plan(B, T, row_bytes)
+    rb, block_vecs = p["rows_per_block"], p["threads"] * p["vecs"]
+    assert p["blocks_y"] == B
+    assert p["blocks_x"] * rb >= 2 * T > (p["blocks_x"] - 1) * rb
+    assert p["passes"] * block_vecs >= rb * row_vecs
+    assert (p["passes"] - 1) * block_vecs < rb * row_vecs
+    assert rb == 1 or 4096 < rb * row_bytes <= 16 * block_vecs
+    slots = (np.arange(p["passes"])[:, None, None] * block_vecs
+             + np.arange(p["vecs"])[None, :, None] * p["threads"]
+             + np.arange(p["threads"])[None, None, :]).ravel()
+    for b, n in enumerate(_new_len(B, T, K * D * elem + T)):
+        live = 2 * int(n)
+        taken = []
+        for x in range(p["blocks_x"]):
+            r0 = x * rb
+            if r0 >= live:
+                continue                       # the block exits at once
+            n_vecs = (min(r0 + rb, live) - r0) * row_vecs
+            taken.append(r0 * row_vecs + slots[slots < n_vecs])
+        taken = np.concatenate(taken) if taken else np.zeros(0, np.int64)
+        assert np.array_equal(np.sort(taken), np.arange(live * row_vecs)), b

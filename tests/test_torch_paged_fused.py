@@ -1,0 +1,237 @@
+"""The fused paged decode (kernel D writing the token's K/V through the
+block table, then attending), on the CPU.
+
+The fused decode's plain route is held against the JAX package's two
+steps, ``paged_update_at_layer`` then the paged ``attention`` at T = 1,
+both as Pallas kernels in interpret mode (``kernels="pallas"``; conftest
+sets interpret mode), at the ``debug`` preset's widths (H 4, K 2, D 16,
+pages of 16, L 2), inputs from a numpy seed. The engine cases hold the
+bf16 paged engine, whose decode steps take the fused route, against the
+port's bf16 slot engine, and show that no paged write runs in a pure
+decode step.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from llm_inference_engine_tpu.ops import attention as j_attn
+from llm_inference_engine_tpu.ops import paged_kv as j_pkv
+
+from llm_inference_engine_tpu_torch.config import (
+    EngineConfig, SamplingParams, get_config)
+from llm_inference_engine_tpu_torch.models.weights import init_dummy_params
+from llm_inference_engine_tpu_torch.ops import attention
+from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
+from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+from llm_inference_engine_tpu_torch.runtime.engine import InferenceEngine
+
+_DEBUG = get_config("debug")
+L, PAGE = _DEBUG.num_layers, 16
+H, K, D = _DEBUG.num_heads, _DEBUG.num_kv_heads, _DEBUG.head_dim
+MAXP = 4
+# tolerances of the paged attention tests against the JAX kernels
+F32 = dict(atol=1e-5, rtol=1e-5)
+BF16 = dict(atol=2e-2, rtol=2e-2)
+DTYPES = {"float32": (jnp.float32, torch.float32, F32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, BF16)}
+
+# one decode token a sequence: q_start at in-page offset 0 (the first
+# token of a page), at offset page - 1, an inactive row (kv_len ==
+# q_start), the first token of a sequence (q_start 0), and a row whose
+# table entry at q_start's page is -1 (NEG_ROW: its write is skipped)
+Q_START = [PAGE, 2 * PAGE - 1, 40, 0, PAGE + 5]
+ACTIVE = [1, 1, 0, 1, 1]
+NEG_ROW = 4
+
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """Few torch threads: the suite runs beside JAX in parallel workers."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _as_np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [None, 20])
+def test_fused_paged_decode_matches_jax_write_then_decode(rng, dtype,
+                                                         window):
+    """Two decode steps at each layer: the pool equals the JAX pool bit
+    for bit on every page but the scratch page 0, which the port never
+    writes (a JAX DMA through a -1 entry is clamped into the pool); the
+    outputs agree within the paged attention tests' tolerances on every
+    row whose keys lie in the table (NEG_ROW's newest key sits on page
+    -1)."""
+    jd, td, tol = DTYPES[dtype]
+    B = len(Q_START)
+    P = 1 + B * MAXP
+    table = rng.permutation(np.arange(1, P)).reshape(B, MAXP).astype(
+        np.int32)
+    table[NEG_ROW, Q_START[NEG_ROW] // PAGE] = -1
+    base = rng.normal(size=(L, P, PAGE, K, D)).astype(np.float32)
+    jk, jv = jnp.asarray(base, jd), jnp.asarray(-base, jd)
+    tk = torch.from_numpy(base.copy()).to(td)
+    tv = torch.from_numpy(-base).to(td)
+    ttable = torch.from_numpy(table.copy())
+    q_start = np.array(Q_START, np.int32)
+    for step in range(2):
+        qs = q_start + step
+        kv_len = qs + np.array(ACTIVE, np.int32)
+        for layer in (1, 0):
+            q = rng.normal(size=(B, 1, H, D)).astype(np.float32)
+            kn = rng.normal(size=(B, 1, K, D)).astype(np.float32)
+            vn = rng.normal(size=(B, 1, K, D)).astype(np.float32)
+            jcache = j_pkv.paged_update_at_layer(
+                j_pkv.PagedKVCache(k=jk, v=jv,
+                                   block_table=jnp.asarray(table),
+                                   lengths=jnp.zeros((B,), jnp.int32)),
+                jnp.int32(layer), jnp.asarray(kn, jd), jnp.asarray(vn, jd),
+                jnp.asarray(qs), jnp.asarray(kv_len - qs), kernels="pallas")
+            jk, jv = jcache.k, jcache.v
+            want = j_attn.attention(
+                jnp.asarray(q, jd), jk, jv, jnp.asarray(qs),
+                jnp.asarray(kv_len), kernels="pallas", block_q=16,
+                block_kv=16, layer=jnp.int32(layer),
+                table=jnp.asarray(table), window=window)
+            got, k_out, v_out = attention.attention_decode_paged_fused(
+                torch.from_numpy(q).to(td), torch.from_numpy(kn).to(td),
+                torch.from_numpy(vn).to(td), tk, tv, torch.from_numpy(qs),
+                torch.from_numpy(kv_len), layer, table=ttable,
+                window=window)
+            assert k_out is tk and v_out is tv                # in place
+            assert got.dtype == td and got.shape == (B, 1, H, D)
+            rows = [b for b in range(B) if b != NEG_ROW]
+            np.testing.assert_allclose(_as_np(got)[rows],
+                                       _as_np(want)[rows], **tol)
+    start = _as_np(torch.from_numpy(base).to(td))
+    for got, want, sign in ((tk, jk, 1), (tv, jv, -1)):
+        got, want = _as_np(got), _as_np(want)
+        np.testing.assert_array_equal(got[:, 1:], want[:, 1:])
+        np.testing.assert_array_equal(got[:, 0], sign * start[:, 0])
+    # the skipped rows: NEG_ROW's and the inactive row's positions
+    for b in (NEG_ROW, 2):
+        for step in range(2):
+            pos = Q_START[b] + step
+            page = table[b, pos // PAGE]
+            if page > 0:
+                np.testing.assert_array_equal(
+                    _as_np(tk)[:, page, pos % PAGE],
+                    start[:, page, pos % PAGE])
+
+
+@pytest.mark.parametrize("window", [None, 20])
+def test_fused_paged_decode_equals_write_then_attend(rng, window):
+    """The plain route is bit for bit the port's two plain steps: kernel
+    H's plain write with new_len = kv_len - q_start, then the paged
+    attention (the engine's unfused route, as the int8 pool still runs
+    it)."""
+    B = len(Q_START)
+    P = 1 + B * MAXP
+    table = torch.from_numpy(rng.permutation(np.arange(1, P)).reshape(
+        B, MAXP).astype(np.int32))
+    base = torch.from_numpy(rng.normal(size=(L, P, PAGE, K, D)).astype(
+        np.float32)).to(torch.bfloat16)
+    fused = pkv.PagedKVCache(base.clone(), -base, table,
+                             torch.zeros(B, dtype=torch.int32))
+    split = pkv.PagedKVCache(base.clone(), -base, table, fused.lengths)
+    q_start = torch.tensor(Q_START, dtype=torch.int32)
+    kv_len = q_start + torch.tensor(ACTIVE, dtype=torch.int32)
+    q, kn, vn = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+        torch.bfloat16) for s in ((B, 1, H, D), (B, 1, K, D), (B, 1, K, D)))
+    got, _, _ = attention.attention_decode_paged_fused(
+        q, kn, vn, fused.k, fused.v, q_start, kv_len, 1, table=table,
+        window=window)
+    pkv.paged_update_at_layer(split, 1, kn, vn, q_start, kv_len - q_start)
+    want = attention.attention_decode(q, split.k, split.v, q_start, kv_len,
+                                      1, table=table, window=window)
+    assert torch.equal(fused.k, split.k) and torch.equal(fused.v, split.v)
+    assert torch.equal(got, want)
+
+
+def test_fused_paged_decode_refuses_bad_input_on_the_kernel_route():
+    c = pkv.new_paged_kv_cache(1, 2, K, 5, PAGE, D, 2, dtype=torch.bfloat16)
+    q = torch.zeros((2, 1, H, D), dtype=torch.bfloat16)
+    new = torch.zeros((2, 1, K, D), dtype=torch.bfloat16)
+    lens = torch.ones((2,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        attention.attention_decode_paged_fused(
+            q, new, new, c.k, c.v, lens - 1, lens, 0, table=c.block_table,
+            kernels="cuda")
+
+
+def test_fused_paged_decode_gate():
+    """bf16 pools at T == 1 only: the int8 pool keeps H's int8 mode and
+    the attend-only decode, and the slot gate stays slot-only."""
+    bf16 = pkv.new_paged_kv_cache(1, 2, K, 5, PAGE, D, 2,
+                                  dtype=torch.bfloat16)
+    int8 = pkv.new_paged_kv_cache(1, 2, K, 5, PAGE, D, 2, quantized=True)
+    f32 = pkv.new_paged_kv_cache(1, 2, K, 5, PAGE, D, 2,
+                                 dtype=torch.float32)
+    slot = kvc.new_kv_cache(1, 2, K, 32, D, dtype=torch.bfloat16)
+    assert attention.can_fuse_paged_decode((2, 1, H, D), bf16)
+    assert not attention.can_fuse_paged_decode((2, 3, H, D), bf16)
+    for other in (int8, f32, slot):
+        assert not attention.can_fuse_paged_decode((2, 1, H, D), other)
+    assert not attention.can_fuse_decode((2, 1, H, D), bf16)
+
+
+def _counting(monkeypatch, module, name, counts):
+    fn = getattr(module, name)
+
+    def counted(*args, **kwargs):
+        counts[name] = counts.get(name, 0) + 1
+        return fn(*args, **kwargs)
+    monkeypatch.setattr(module, name, counted)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_engine_decode_route(monkeypatch, int8):
+    """A bf16 paged engine's prefill writes through H and its decode steps
+    through the fused paged decode alone: L a step, no H; its greedy ids
+    equal the bf16 slot engine's. An int8 pool keeps H's int8 mode and the
+    attend-only decode a layer a step."""
+    cfg = _DEBUG.replace(dtype_name="bfloat16")
+    params = init_dummy_params(cfg, seed=0)
+    eng = EngineConfig(max_batch_size=2, max_seq_len=64, max_prefill_len=8,
+                       kv_layout="paged", page_size=PAGE,
+                       kv_cache_dtype_name="int8" if int8 else "")
+    paged = InferenceEngine(cfg, eng, params)
+    prompts = [list(range(1, 20)), [9, 8, 7]]
+    sp = SamplingParams(greedy=True)
+    counts = {}
+    for name in ("attention_decode_paged_fused_torch",
+                 "attention_paged_torch"):
+        _counting(monkeypatch, attention, name, counts)
+    _counting(monkeypatch, pkv, "paged_update_at_layer", counts)
+    toks = paged.prefill(prompts).argmax(-1).to(torch.int32)
+    assert counts == {"paged_update_at_layer": L * 3,
+                      "attention_paged_torch": L * 3}
+    counts.clear()
+    active = np.ones(2, bool)
+    ids = [toks.tolist()]
+    for _ in range(4):
+        toks = paged.decode_step(toks, active, sp)
+        ids.append(toks.tolist())
+    if int8:
+        assert counts == {"paged_update_at_layer": 4 * L,
+                          "attention_paged_torch": 4 * L}
+        return
+    # the fused route's plain version calls the plain attention itself
+    assert counts == {"attention_decode_paged_fused_torch": 4 * L,
+                      "attention_paged_torch": 4 * L}
+    slot = InferenceEngine(cfg, eng.replace(kv_layout="slot"), params)
+    toks = slot.prefill(prompts).argmax(-1).to(torch.int32)
+    want = [toks.tolist()]
+    for _ in range(4):
+        toks = slot.decode_step(toks, active, sp)
+        want.append(toks.tolist())
+    assert ids == want

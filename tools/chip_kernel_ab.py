@@ -45,11 +45,13 @@ K/V writes' ms of it (torch.profiler), through this checkout's
 ``--rows norm`` times kernels A (plain and with a residual) and B at
 decode shape ([8, 4096], [8, 22016]: 64 calls in a CUDA graph, CUDA
 events over its replays) and at prefill shape ([2048, 4096] cold,
-[2048, 22016]), and the wall of 4b's and 4c's replayed decode step
-(llama2-7b INT4 and INT8, B = 8), through this checkout's
+[2048, 22016]), and the wall and card busy of 4b's, 4c's and 4d's
+replayed decode step (llama2-7b INT4 and INT8, B = 8; 4d: INT4 over a
+bf16 pool of pages of 64) with its kernels' durations a step (all, kernel
+D's and the K/V writes'), through this checkout's
 ``chip_smoke.norm_rows``, with the count of the card's activities in
 one replayed step; it also prints whether checksums of A's and B's
-outputs and of 4b's and 4c's greedy ids are equal in every run.
+outputs and of 4b's, 4c's and 4d's greedy ids are equal in every run.
 """
 
 from __future__ import annotations
@@ -68,7 +70,8 @@ def one(root: Path, rows: str = "attention") -> dict:
     return {row: kernel ms} of its attention rows (``rows="quant"``: of
     kernels E and F at QUANT_ROWS; ``rows="writes"``: of the K/V row
     writes and their floors; ``rows="prefill"``: warm prefills;
-    ``rows="norm"``: kernels A and B and 4b's and 4c's replayed step)."""
+    ``rows="norm"``: kernels A and B and 4b's, 4c's and 4d's replayed
+    step)."""
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_kernel_ab: no CUDA device")
@@ -141,7 +144,8 @@ def main(argv) -> int:
     for name in runs[0][1]:
         mean = {tag: sum(ms[name] for t, ms in runs if t == tag) / 2
                 for tag in ("parent", "change")}
-        ratio[name] = mean["change"] / mean["parent"]
+        ratio[name] = (mean["change"] / mean["parent"] if mean["parent"]
+                       else float("nan"))
         if name.endswith("checksum"):
             same = len({ms[name] for _, ms in runs}) == 1
             print(f"  {name:30s} equal in every run: {same}", flush=True)
