@@ -42,7 +42,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    8 x 512; (3e) A, A with residual and B at decode shape (B = 8) held
    against and timed beside their plain versions and ``F.rms_norm``, 64
    calls captured in one CUDA graph: CUDA events around its replays, and
-   the union of the kernels' intervals under the profiler;
+   the union of the kernels' intervals under the profiler; (3f) the float
+   instances of ``csrc/float_kernels.cu`` in float32 and float16 at 7B
+   widths (``phase_float_kernels``: D2f slot, int8 and paged, Df fused
+   and paged, If bit for bit, Ef / Ff at m 8 and 512, A, B and C on float
+   rows; head_dim 16 and 64 small), NaN planted past every tail, each
+   timed cold beside its bound (operations at the f32 or f16 rate), its
+   plain version and SDPA;
 4. the main paths, each through ``create_engine`` with dummy weights (seed
    0) at full width and depth, with every launch counter set to 0 just
    before the path and read just after, and a rerun of round 1 with
@@ -246,6 +252,18 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    s. every example driver of ``examples_torch`` (after 4r), its
       ``main`` in this process on the card: a driver's exit 1 fails the
       script;
+   t. float models end to end (after 4s, ``phase_float_models``): (a) the
+      ``debug`` preset as shipped (float32, head_dim 16) and in float16,
+      params from seed 0 on the CPU copied to the card, six engines
+      (slot; paged through the scheduler; int8 slot cache; int8 pool;
+      INT4 group 64; INT8), each against the same engine on the CPU:
+      greedy ids equal (float16: where they part, the card's token is the
+      CPU's second there), prefill logits within FLOAT_LOGIT_REL_L2, the
+      replays equal to the eager bodies; (b) llama2-7b float16 at B 4
+      (4a's prompts, 32 tokens) and INT4 at B 8 (4b's prompts), (c)
+      llama2-7b float32 at B 2 (7 and 700 tokens, 16 tokens): the first
+      token against ``kernels="torch"`` by 4a's rule, launches per forward
+      (no bf16 kernel, no plain version), ``graph_checks``;
    (3d, before 4: kernel I, H's int8 mode, D2's and D's int8 modes
    against their plain versions at 7B widths, in both scale numerics, the
    decode modes held per row; then at head_dim 80, 96
@@ -312,6 +330,24 @@ INT8_SHARE, INT8_SCALE_REL = 1e-3, 2.0 ** -20
 # at the bf16 rate)
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
+# the float instances' operations: f32 on the CUDA cores at the data
+# sheet's 67 TFLOP/s (no tensor core runs in an f32 instance), f16 at the
+# dense f16 tensor-core rate (the same 989 TFLOP/s as bf16)
+F32_OPS_PER_S = 67e12
+FLOAT_OPS_PER_S = {"f32": F32_OPS_PER_S, "f16": BF16_OPS_PER_S}
+# 3f: the float instances against their plain versions on the card: max
+# |kernel - plain| over max |plain| (both compute in f32 and sum in
+# another order; a float16 output also rounds once, 2^-11 relative); If's
+# int8 values and scales (and Df's fused int8 write) bit for bit
+FLOAT_REL = {"f32": 1e-5, "f16": 2e-3}
+# 4t (a): the debug preset's prefill logits on the card against the CPU
+# plain route's, relative L2 (f32: the sums' order only; f16: its rounding
+# points, which the CPU's plain route shares, but sums in another order)
+FLOAT_LOGIT_REL_L2 = {"f32": 1e-4, "f16": 2e-2}
+FLOAT_DTYPE = {"f32": "float32", "f16": "float16"}
+# 3f's attention widths: Llama2-7B's heads, kv heads, head_dim, and the
+# cache length of 3c's rows
+FLOAT_WIDTHS = (32, 32, 128, 2048)
 
 REPLACES = {
     "rmsnorm": "llm_inference_engine_tpu/ops/rmsnorm.py:58",
@@ -374,6 +410,50 @@ PATH_OF.update(int4_matmul="int4", dequant_int4="int4", int8_matmul="int8",
                paged_kv_write_int8="server-kv8",
                attention_prefill_paged_int8="server-kv8",
                attention_decode_paged_int8="server-kv8")
+# The float instances (csrc/float_kernels.cu), one JSON row per counter and
+# dtype, "<counter>[f32]" and "<counter>[f16]": the TPU kernel each
+# replaces, and the 4t engine whose run gives its launches
+FLOAT_INSTANCES = {
+    "attention_prefill_float": (
+        "llm_inference_engine_tpu/ops/attention.py:135", "7b"),
+    "attention_prefill_float_int8": (
+        "llm_inference_engine_tpu/ops/attention.py:135", "debug kv8"),
+    "attention_prefill_paged_float": (
+        "llm_inference_engine_tpu/ops/attention.py:135", "debug paged"),
+    "attention_prefill_paged_float_int8": (
+        "llm_inference_engine_tpu/ops/attention.py:135", "debug paged-kv8"),
+    "attention_decode_float": (
+        "llm_inference_engine_tpu/ops/attention.py:569", "7b"),
+    "attention_decode_float_int8": (
+        "llm_inference_engine_tpu/ops/attention.py:569", "debug kv8"),
+    "attention_decode_paged_float": (
+        "llm_inference_engine_tpu/ops/attention.py:356", "debug paged"),
+    "attention_decode_paged_float_int8": (
+        "llm_inference_engine_tpu/ops/attention.py:356", "debug paged-kv8"),
+    "kv_write_quant_float": (
+        "llm_inference_engine_tpu/ops/kv_cache.py:289", "debug kv8"),
+    "paged_kv_write_quant_float": (
+        "llm_inference_engine_tpu/ops/paged_kv.py:169", "debug paged-kv8"),
+    "int4_matmul_float": (
+        "llm_inference_engine_tpu/ops/quant.py:416", "debug int4"),
+    "int8_matmul_float": (
+        "llm_inference_engine_tpu/ops/quant.py:389", "debug int8w"),
+}
+_FLOAT_SRC = ("cuda", "llm_inference_engine_tpu_torch/csrc/float_kernels.cu")
+for _name, (_tpu, _engine) in FLOAT_INSTANCES.items():
+    for _tag in FLOAT_DTYPE:
+        REPLACES[f"{_name}[{_tag}]"] = _tpu
+        SOURCES[f"{_name}[{_tag}]"] = _FLOAT_SRC
+        PATH_OF[f"{_name}[{_tag}]"] = f"{_tag} {_engine}"
+# at float16 the INT4 weights' launches come from llama2-7b's (4t (b))
+PATH_OF["int4_matmul_float[f16]"] = "f16 7b int4"
+# kernels of the bf16 (and bf16-row) instances that no float path runs
+BF16_ONLY = ("attention_prefill", "attention_decode", "kv_write_quant",
+             "attention_prefill_int8", "attention_decode_int8",
+             "attention_prefill_paged", "attention_decode_paged",
+             "attention_decode_paged_fused", "paged_kv_write_int8",
+             "attention_prefill_paged_int8", "attention_decode_paged_int8",
+             "int4_matmul", "int8_matmul")
 NORM_ACT = ("rmsnorm", "add_residual_rmsnorm", "silu_and_mul")
 BF16_SLOT = ("kv_write", "attention_prefill", "attention_decode")
 INT8_SLOT = ("kv_write_quant", "attention_prefill_int8",
@@ -487,10 +567,11 @@ def time_ms(torch, fn, iters: int = 10, warmup: int = 2,
 
 def bound_ms(work):
     """(least time in ms, "bytes" or "operations") for ``work`` = (bytes
-    moved, each input read once and each output written once; operations)
-    at the H100's HBM rate and bf16 tensor-core rate."""
+    moved, each input read once and each output written once; operations
+    [, their peak rate]) at the H100's HBM rate and, unless a rate is
+    given, its bf16 tensor-core rate."""
     t_bytes = work[0] / HBM_BYTES_PER_S * 1e3
-    t_ops = work[1] / BF16_OPS_PER_S * 1e3
+    t_ops = work[1] / (work[2] if len(work) > 2 else BF16_OPS_PER_S) * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -565,17 +646,19 @@ def hold_int8_write(torch, name, got, want, results, case, timed=None,
            floor=floor)
 
 
-def attn_work(q_start, kv_len, T, H, K, D, kv_elem=2, new_rows=0):
+def attn_work(q_start, kv_len, T, H, K, D, kv_elem=2, new_rows=0,
+              q_elem=2):
     """(bytes, operations) of kernel D over this run's rows: every query
     row t < T of sequence b sees min(kv_len[b], q_start[b] + t + 1) keys
-    (no window in the timed cases); q and out are read and written once,
-    each sequence's kv_len keys once (k and v, int8 with a 4-byte scale per
-    head, or bf16), plus ``new_rows`` bytes of a fused write. Operations:
-    QK^T and PV, 2 per multiply-add each."""
+    (no window in the timed cases); q and out (``q_elem`` bytes a value)
+    are read and written once, each sequence's kv_len keys once (k and v,
+    int8 with a 4-byte scale per head, or ``kv_elem`` bytes a value), plus
+    ``new_rows`` bytes of a fused write. Operations: QK^T and PV, 2 per
+    multiply-add each."""
     qs, kl = [int(x) for x in q_start], [int(x) for x in kv_len]
     pairs = sum(min(l, s + t + 1) for s, l in zip(qs, kl) for t in range(T))
     per_key = K * (D * kv_elem + (4 if kv_elem == 1 else 0)) * 2
-    return (2 * len(qs) * T * H * D * 2 + sum(kl) * per_key + new_rows,
+    return (2 * len(qs) * T * H * D * q_elem + sum(kl) * per_key + new_rows,
             4 * D * H * pairs)
 
 
@@ -1459,7 +1542,9 @@ KERNEL_GROUPS = (("D2", ("attention_prefill_kernel",)),
                  ("cuBLAS", ("nvjet", "gemm", "cutlass", "xmma")),
                  ("writes", ("kv_write",)),
                  ("A", ("rmsnorm_kernel",)),
-                 ("B", ("silu_mul_kernel",)))
+                 ("B", ("silu_mul_kernel",)),
+                 ("D2f/Df", ("attend_float_kernel",)),
+                 ("Ef/Ff", ("quant_matmul_float",)))
 # the torch glue of a decode step (the kernels outside KERNEL_GROUPS), by
 # where the eager body launched them: RoPE (ops/rope.py's rope_cos_sin and
 # rotate), sampling (ops/sampling.py's functions the engine calls), the
@@ -1627,6 +1712,9 @@ def _counters():
         "attention_prefill_paged_int8":
             attention.attention_prefill_paged_int8,
         "attention_decode_paged_int8": attention.attention_decode_int8,
+        **{name: getattr(attention, name, None)
+           or getattr(kvc, name, None) or getattr(pkv, name, None)
+           or getattr(quant, name) for name in FLOAT_INSTANCES},
     }
 
 
@@ -6676,7 +6764,7 @@ def qdiv_launches(layers: int, forwards: int, int4: bool) -> dict:
     D2 once a layer, G once per INT4 weight half a layer (wqkv, wo, gate
     and up, down) and once for the lm_head; E, F and the decode and paged
     kernels never (the large-m route dequantizes, then cuBLAS)."""
-    want = {name: 0 for name in REPLACES}
+    want = {name: 0 for name in _counters()}
     want.update(rmsnorm=forwards, add_residual_rmsnorm=2 * layers * forwards,
                 silu_and_mul=layers * forwards, kv_write=layers * forwards,
                 attention_prefill=layers * forwards,
@@ -6835,6 +6923,762 @@ def phase_examples(torch, dev) -> None:
     say(f"  4s seconds per driver: {json.dumps(times)}")
 
 
+# ---------------------------------------------------------------------------
+# 3f and 4t: the float instances (csrc/float_kernels.cu)
+# ---------------------------------------------------------------------------
+
+def scale_planes(cache, **kw) -> dict:
+    """An int8 cache's scale planes as keyword arguments (with ``kw``), or
+    none for a float cache."""
+    if cache.k_scale is None:
+        return {}
+    return dict(k_scale=cache.k_scale, v_scale=cache.v_scale, **kw)
+
+
+def float_held(torch, results, name, got, want, case, tag, timed=None,
+               work=None, library=None) -> None:
+    """Hold a float instance's output against its plain version's: finite,
+    and max |got - want| within FLOAT_REL[tag] of max |want|; record it."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs().max().item()
+    rel = err / max(w.abs().max().item(), 1e-30)
+    if not torch.isfinite(g).all() or rel > FLOAT_REL[tag]:
+        raise AssertionError(f"{name} [{case}]: kernel disagrees with its "
+                             f"plain version (max abs err {err}, relative "
+                             f"{rel:.3e}, limit {FLOAT_REL[tag]})")
+    record(name, err, results, f"{case} rel {rel:.2e}", timed, work, library)
+
+
+def plant_nan(torch, cache, kv_len, page=None):
+    """A clean copy of ``cache`` (the plain versions are not NaN-safe:
+    0 * NaN), then NaN into every row no key below kv_len maps to (an int8
+    cache: its scales): slot rows at or past kv_len; pool pages outside
+    the table and the used pages' tails, table entries past the used
+    pages pointed at page 0. Returns the clean copy (sharing the table)."""
+    clean = dataclasses.replace(cache, **{
+        n: getattr(cache, n).clone() for n in ("k", "v", "k_scale", "v_scale")
+        if getattr(cache, n) is not None})
+    names = ("k_scale", "v_scale") if cache.k_scale is not None else ("k", "v")
+    if page is None:
+        for name in names:
+            for b, n in enumerate(kv_len.tolist()):
+                getattr(cache, name)[:, b, n:] = float("nan")
+        return clean
+    table, dev = cache.block_table, kv_len.device
+    used = (kv_len.long() + page - 1) // page
+    cols = torch.arange(table.shape[1], device=dev)
+    table[cols[None, :] >= used[:, None]] = 0
+    keep = torch.zeros(cache.k.shape[1], page, dtype=torch.bool, device=dev)
+    for b, n in enumerate(kv_len.tolist()):
+        j = torch.arange(n, device=dev)
+        keep[table[b, j // page].long(), j % page] = True
+    for name in names:
+        getattr(cache, name)[:, ~keep] = float("nan")
+    return clean
+
+
+def cache_copy(cache):
+    """A copy of a cache or pool, its table and lengths included."""
+    return dataclasses.replace(cache, **{
+        f.name: getattr(cache, f.name).clone()
+        for f in dataclasses.fields(cache)
+        if isinstance(getattr(cache, f.name), type(cache.k))})
+
+
+def float_caches(torch, dev, gen, dtype, L, B, S, K, D, page=None):
+    """A float slot cache [L, B, S, K, D] (or, with ``page``, a pool of
+    B * S / page pages plus the scratch page 0, its table a random
+    permutation of pages 1..) of random ``dtype`` rows, and its int8
+    counterpart (snapped scales, quantized from the same rows)."""
+    from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
+    from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+    if page is None:
+        shape = (L, B, S, K, D)
+        lengths = torch.zeros(B, device=dev, dtype=torch.int32)
+    else:
+        maxp = S // page
+        P = 1 + B * maxp
+        shape = (L, P, page, K, D)
+        table = (torch.randperm(P - 1, generator=gen, device=dev) + 1).to(
+            torch.int32).reshape(B, maxp)
+    rows = [torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+            for _ in range(2)]
+    quant = [kvc.quantize_kv_snapped(r) for r in rows]
+    if page is None:
+        return (kvc.KVCache(*rows, lengths),
+                kvc.KVCache(quant[0][0], quant[1][0], lengths.clone(),
+                            quant[0][1], quant[1][1], snapped=True))
+    lengths = torch.zeros(B, device=dev, dtype=torch.int32)
+    return (pkv.PagedKVCache(*rows, table, lengths),
+            pkv.PagedKVCache(quant[0][0], quant[1][0], table.clone(),
+                             lengths.clone(), quant[0][1], quant[1][1]))
+
+
+def float_int8pack_ms(torch, ts, x, out_dtype):
+    """``int8pack_ms`` for a float16 or float32 x: None, with the reason
+    printed, where this torch refuses the dtype."""
+    try:
+        return int8pack_ms(torch, ts, x, out_dtype)
+    except (RuntimeError, NotImplementedError) as err:
+        say(f"    _weight_int8pack_mm refuses {x.dtype}: "
+            f"{str(err).splitlines()[0][:120]}")
+        return None
+
+
+def phase_float_kernels(torch, dev, results) -> None:
+    """3f: the float instances against their plain versions at Llama2-7B
+    widths (H = K = 32, D = 128), in float32 and float16, with NaN planted
+    past kv_len, in every pool page outside the table and past the ends of
+    x and of the scales: D2f at B4 T512 (slot, int8 slot) and at 3c's B16
+    T64 mixed step over pools of page 64 (float and int8); Df's fused slot
+    decode at B4 over 4a's contexts (float and int8, the write bit for
+    bit) and its attend-only paged decode at B16; If at 8 x 512 (2254
+    rows) in both numerics and through the table at 3c's mixed step, bit
+    for bit; Ef / Ff at m 8 and 512 on wqkv and down; A, B and C on float
+    rows; then head_dim 16 and 64 at small shapes. Each timed row: its
+    time (CUDA events, cold L2), its bound (bytes at the HBM rate,
+    operations at FLOAT_OPS_PER_S), its plain version's time and, on a
+    float cache, SDPA's (and ``_weight_int8pack_mm`` for Ff where this
+    torch takes the dtype)."""
+    import torch.nn.functional as F
+
+    from llm_inference_engine_tpu_torch.ops import activations, attention
+    from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
+    from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+    from llm_inference_engine_tpu_torch.ops import quant, rmsnorm
+    from llm_inference_engine_tpu_torch.ops.paged_kv import gather_pages
+
+    gen = torch.Generator(device=dev).manual_seed(1919)
+    H, K, D, S = FLOAT_WIDTHS
+
+    def ints(vals):
+        return torch.tensor(vals, device=dev, dtype=torch.int32)
+
+    for tag in FLOAT_DTYPE:
+        dtype = getattr(torch, FLOAT_DTYPE[tag])
+        esz, rate = dtype.itemsize, FLOAT_OPS_PER_S[tag]
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+        def held(name, got, want, case, timed=None, work=None, library=None):
+            float_held(torch, results, f"{name}[{tag}]", got, want,
+                       f"{tag} {case}", tag, timed,
+                       None if work is None else (*work, rate), library)
+
+        def timed(kernel, plain, iters=10):
+            return (time_ms(torch, kernel, iters=iters, cold=True),
+                    time_ms(torch, plain, iters=3, warmup=1))
+
+        # A, B (they take every float dtype) and C (rows by bytes)
+        for n in (8, 2048):
+            x, r = randn(n, 4096), randn(n, 4096)
+            w = randn(4096) * 0.1 + 1.0
+            held("rmsnorm", rmsnorm.rmsnorm(x, w, kernels="cuda"),
+                 rmsnorm.rmsnorm_torch(x, w), f"[{n},4096] cold L2", timed(
+                     lambda: rmsnorm.rmsnorm(x, w, kernels="cuda"),
+                     lambda: rmsnorm.rmsnorm_torch(x, w)),
+                 ((2 * n + 1) * 4096 * esz, 4 * n * 4096),
+                 time_ms(torch, lambda: F.rms_norm(x, (4096,), w, 1e-5),
+                         cold=True))
+            y, h = rmsnorm.add_residual_rmsnorm(x, r, w, kernels="cuda")
+            y0, h0 = rmsnorm.add_residual_rmsnorm_torch(x, r, w)
+            if not torch.equal(h, h0):
+                raise AssertionError(f"add_residual_rmsnorm {tag}: residual "
+                                     "sum differs")
+            held("add_residual_rmsnorm", y, y0, f"[{n},4096] with residual")
+            gu = randn(n, 22016)
+            held("silu_and_mul", activations.silu_and_mul(gu, kernels="cuda"),
+                 activations.silu_and_mul_torch(gu), f"[{n},22016]", timed(
+                     lambda: activations.silu_and_mul(gu, kernels="cuda"),
+                     lambda: activations.silu_and_mul_torch(gu)),
+                 (3 * n * 11008 * esz, 5 * n * 11008))
+        T, st, nl = C_CHUNK
+        starts, new_len = ints(st), ints(nl)
+        kv_len = starts + new_len
+        slot, slot8 = float_caches(torch, dev, gen, dtype, 1, 4, S, K, D)
+        kn, vn = randn(4, T, K, D), randn(4, T, K, D)
+        ref = dataclasses.replace(slot, k=slot.k.clone(), v=slot.v.clone())
+        kvc.update_cache_at_layer(slot, 0, kn, vn, starts, new_len,
+                                  kernels="cuda")
+        kvc.update_cache_at_layer_torch(ref, 0, kn, vn, starts, new_len)
+        torch.cuda.synchronize()
+        if not (torch.equal(slot.k, ref.k) and torch.equal(slot.v, ref.v)):
+            raise AssertionError(f"kv_write {tag}: differs from the plain "
+                                 "write")
+        live = sum(nl)
+        record(f"kv_write[{tag}]", 0.0, results,
+               f"{tag} [4,512,32,128] rows (bit for bit) cold L2", timed(
+                   lambda: kvc.update_cache_at_layer(
+                       slot, 0, kn, vn, starts, new_len, kernels="cuda"),
+                   lambda: kvc.update_cache_at_layer_torch(
+                       ref, 0, kn, vn, starts, new_len)),
+               (live * 2 * K * D * esz * 2, 0, rate))
+        del ref
+
+        # D2f: B4 T512 over the slot cache (4a's chunk shape), float and
+        # int8, NaN past kv_len
+        q = randn(4, T, H, D)
+        for name, c in (("attention_prefill_float", cache_copy(slot)),
+                        ("attention_prefill_float_int8", cache_copy(slot8))):
+            clean = plant_nan(torch, c, kv_len)
+            planes, cplanes = scale_planes(c), scale_planes(clean)
+
+            def run(cc=c, pl=planes):
+                return attention.attention(q, cc.k, cc.v, starts, kv_len,
+                                           layer=0, kernels="cuda", **pl)
+
+            def plain(cc=clean, pl=cplanes):
+                return attention.attention(q, cc.k, cc.v, starts, kv_len,
+                                           layer=0, kernels="torch", **pl)
+            held(name, run(), plain(), f"B4 T512 H32 K32 qs{st} NaN past "
+                 "kv_len", timed(run, plain, 5),
+                 attn_work(st, kv_len.tolist(), T, H, K, D,
+                           kv_elem=1 if planes else esz, q_elem=esz),
+                 None if planes else sdpa_ms(torch, q, clean.k[0],
+                                             clean.v[0], starts, kv_len))
+            del c, clean
+
+        # Df: the fused slot decode at B4 over 4a's contexts, the write
+        # bit for bit; NaN from q_start on (the write must land first)
+        qs = ints([7, 129, 384, 700])
+        dkv = qs + 1
+        q1, k1, v1 = randn(4, 1, H, D), randn(4, 1, K, D), randn(4, 1, K, D)
+        for name, c in (("attention_decode_float", slot),
+                        ("attention_decode_float_int8", slot8)):
+            clean = plant_nan(torch, c, qs)   # the last use of slot(8)
+            planes = scale_planes(c, snapped=True)
+            cplanes = scale_planes(clean, snapped=True)
+
+            def run(cc=c, pl=planes):
+                return attention.attention_decode_fused(
+                    q1, k1, v1, cc.k, cc.v, qs, dkv, 0, kernels="cuda",
+                    **pl)[0]
+
+            def plain(cc=clean, pl=cplanes):
+                return attention.attention_decode_fused_torch(
+                    q1, k1, v1, cc.k, cc.v, qs, dkv, 0, **pl)[0]
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            for part in ("k", "v", "k_scale", "v_scale"):
+                a, b = getattr(c, part), getattr(clean, part)
+                if a is not None and not all(
+                        torch.equal(a[0, i, :n], b[0, i, :n])
+                        for i, n in enumerate(dkv.tolist())):
+                    raise AssertionError(f"{name} {tag}: the fused write of "
+                                         f"{part} differs from the plain one")
+            held(name, got, want, "B4 H32 K32 4a contexts (write bit for "
+                 "bit)", timed(run, plain),
+                 attn_work(qs.tolist(), dkv.tolist(), 1, H, K, D,
+                           kv_elem=1 if planes else esz, q_elem=esz,
+                           new_rows=4 * 2 * K * D * (esz + (
+                               1 if planes else esz))),
+                 None if planes else sdpa_ms(torch, q1, clean.k[0],
+                                             clean.v[0], qs, dkv))
+            del c, clean
+        del slot, slot8
+
+        # If: 8 x 512 (2254 live rows) into the int8 slot cache, both
+        # numerics, bit for bit; NaN in the new rows past new_len
+        T8, st8, nl8 = I_CHUNKS[0]
+        s8, n8 = ints(st8), ints(nl8)
+        for snapped in (True, False):
+            cache = kvc.new_kv_cache(1, 8, K, S, D, device=dev,
+                                     quantized=True, snapped=snapped)
+            kn, vn = randn(8, T8, K, D), randn(8, T8, K, D)
+            for b, n in enumerate(nl8):
+                kn[b, n:] = float("nan")
+                vn[b, n:] = float("nan")
+            ref = dataclasses.replace(cache, **{
+                p: getattr(cache, p).clone()
+                for p in ("k", "v", "k_scale", "v_scale")})
+            kvc.update_cache_at_layer(cache, 0, kn, vn, s8, n8,
+                                      kernels="cuda")
+            kvc.update_cache_at_layer_torch(ref, 0, kn, vn, s8, n8)
+            torch.cuda.synchronize()
+            for p in ("k", "v", "k_scale", "v_scale"):
+                if not torch.equal(getattr(cache, p), getattr(ref, p)):
+                    raise AssertionError(f"kv_write_quant_float {tag} "
+                                         f"{'snapped' if snapped else 'absmax'}"
+                                         f": {p} differs from the plain write")
+            rows = sum(nl8)
+            hold_int8_write(
+                torch, f"kv_write_quant_float[{tag}]", (cache.k, cache.k_scale),
+                (ref.k, ref.k_scale), results,
+                f"{tag} 8x512 ({rows} rows) "
+                f"{'snapped' if snapped else 'absmax'} warm",
+                (time_ms(torch, lambda: kvc.update_cache_at_layer(
+                    cache, 0, kn, vn, s8, n8, kernels="cuda")),
+                 time_ms(torch, lambda: kvc.update_cache_at_layer_torch(
+                     ref, 0, kn, vn, s8, n8), iters=3, warmup=1)),
+                (rows * 2 * (K * D * esz + K * (D + 4)), rows * 2 * K * D * 4,
+                 rate))
+            del cache, ref
+
+        # 3c's B16 T64 mixed step over pools of page 64: If through the
+        # table (H_STARTS / H_NEW_LEN), then D2f (MIXED_START / MIXED_LEN)
+        pool, pool8 = float_caches(torch, dev, gen, dtype, 1, 16, S, K, D,
+                                   page=64)
+        hs, hn = ints(H_STARTS), ints(H_NEW_LEN)
+        kn, vn = randn(16, 64, K, D), randn(16, 64, K, D)
+        w8, ref = cache_copy(pool8), cache_copy(pool8)
+        pkv.paged_update_at_layer(w8, 0, kn, vn, hs, hn, kernels="cuda")
+        pkv.paged_update_at_layer_torch(ref, 0, kn, vn, hs, hn)
+        torch.cuda.synchronize()
+        for p in ("k", "v", "k_scale", "v_scale"):
+            if not torch.equal(getattr(w8, p), getattr(ref, p)):
+                raise AssertionError(f"paged_kv_write_quant_float {tag}: {p} "
+                                     "differs from the plain write")
+        rows = sum(H_NEW_LEN)
+        hold_int8_write(
+            torch, f"paged_kv_write_quant_float[{tag}]",
+            (w8.k, w8.k_scale), (ref.k, ref.k_scale), results,
+            f"{tag} B16 mixed step ({rows} rows) page 64 warm",
+            (time_ms(torch, lambda: pkv.paged_update_at_layer(
+                w8, 0, kn, vn, hs, hn, kernels="cuda")),
+             time_ms(torch, lambda: pkv.paged_update_at_layer_torch(
+                 ref, 0, kn, vn, hs, hn), iters=3, warmup=1)),
+            (rows * 2 * (K * D * esz + K * (D + 4)), rows * 2 * K * D * 4,
+             rate))
+        del w8, ref
+        ms, ml = ints(MIXED_START), ints(MIXED_LEN)
+        mkv = ms + ml
+        qm = randn(16, 64, H, D)
+        for name, c in (("attention_prefill_paged_float", cache_copy(pool)),
+                        ("attention_prefill_paged_float_int8",
+                         cache_copy(pool8))):
+            clean = plant_nan(torch, c, mkv, 64)
+            planes, cplanes = scale_planes(c), scale_planes(clean)
+
+            def run(cc=c, pl=planes):
+                return attention.attention(qm, cc.k, cc.v, ms, mkv, layer=0,
+                                           table=cc.block_table,
+                                           kernels="cuda", **pl)
+
+            def plain(cc=clean, pl=cplanes):
+                return attention.attention(qm, cc.k, cc.v, ms, mkv, layer=0,
+                                           table=cc.block_table,
+                                           kernels="torch", **pl)
+            library = None
+            if not planes:
+                dk = gather_pages(clean.k, 0, clean.block_table)
+                dv = gather_pages(clean.v, 0, clean.block_table)
+                library = sdpa_ms(torch, qm, dk, dv, ms, mkv)
+                del dk, dv
+            held(name, run(), plain(), "B16 T64 mixed step page 64 NaN "
+                 "outside the table", timed(run, plain, 5),
+                 attn_work(MIXED_START, mkv.tolist(), 64, H, K, D,
+                           kv_elem=1 if planes else esz, q_elem=esz),
+                 library)
+            del c, clean
+
+        # Df's attend-only paged decode at B16 (the pool holds the token)
+        dq = ints(DECODE_WRITE_STARTS)
+        dk_len = dq + 1
+        q16 = randn(16, 1, H, D)
+        for name, c in (("attention_decode_paged_float", pool),
+                        ("attention_decode_paged_float_int8", pool8)):
+            clean = plant_nan(torch, c, dk_len, 64)   # the last use
+            planes, cplanes = scale_planes(c), scale_planes(clean)
+
+            def run(cc=c, pl=planes):
+                return attention.attention_decode(
+                    q16, cc.k, cc.v, dq, dk_len, 0, table=cc.block_table,
+                    kernels="cuda", **pl)
+
+            def plain(cc=clean, pl=cplanes):
+                return attention.attention_paged_torch(
+                    q16, cc.k, cc.v, dq, dk_len, 0, cc.block_table, **pl)
+            library = None
+            if not planes:
+                dk = gather_pages(clean.k, 0, clean.block_table)
+                dv = gather_pages(clean.v, 0, clean.block_table)
+                library = sdpa_ms(torch, q16, dk, dv, dq, dk_len)
+                del dk, dv
+            held(name, run(), plain(), "B16 H32 K32 page 64 kv_len 2-2048 "
+                 "NaN outside the table", timed(run, plain),
+                 attn_work(DECODE_WRITE_STARTS, dk_len.tolist(), 1, H, K, D,
+                           kv_elem=1 if planes else esz, q_elem=esz),
+                 library)
+            del c, clean
+        del pool, pool8
+
+        # Ef / Ff at m 8 and 512 on wqkv and down (group 128), weights
+        # cycled through 120 MB; NaN past the ends of x and of the first
+        # weight's scales (garbage past its q)
+        for mode in ("int4", "int8"):
+            name = f"{mode}_matmul_float"
+            for m, label in ((8, "wqkv"), (8, "down"), (512, "wqkv"),
+                             (512, "down")):
+                k, n, halves = QUANT_SHAPES[label]
+                ts = quant_weights(torch, quant, dev, gen, mode, k, n, halves,
+                                   120_000_000)
+                ts[0] = quant.QuantizedTensor(
+                    poisoned(torch, ts[0].q), poisoned(torch, ts[0].scale),
+                    mode, 128)
+                x = poisoned(torch, randn(m, k))
+                got = fused_matmul(quant, ts[0], x, dtype, "cuda")
+                want = fused_matmul(quant, ts[0], x, dtype, "torch")
+                held(name, got, want, f"m{m} {label} NaN past x and scales",
+                     (time_ms(torch, cycling(ts, lambda t: fused_matmul(
+                         quant, t, x, dtype, "cuda"))),
+                      time_ms(torch, cycling(ts, lambda t: fused_matmul(
+                          quant, t, x, dtype, "torch")), iters=3, warmup=1)),
+                     (ts[0].nbytes + m * k * esz + m * n * esz, 2 * m * k * n),
+                     float_int8pack_ms(torch, ts, x, dtype)
+                     if mode == "int8" else None)
+                say(f"    plan: " + str(quant.float_matmul_plan(
+                    m, k, n, halves, 128 if mode == "int4" else 0,
+                    torch.cuda.get_device_properties(
+                        dev).multi_processor_count)))
+                del ts
+        torch.cuda.empty_cache()
+
+        # head_dim 16 (the debug preset's) and 64 at small shapes: D2f in
+        # the four modes, Df's two decodes, If both ways
+        for d in (16, 64):
+            Ls, Bs, Ss, Ks, G = 2, 3, 96, 2, 2
+            qs3, nl3 = ints([0, 5, 60]), ints([37, 20, 1])
+            kl3 = qs3 + nl3
+            qd = randn(Bs, 37, Ks * G, d)
+            for page in (None, 16):
+                fc, ic = float_caches(torch, dev, gen, dtype, Ls, Bs, Ss, Ks,
+                                      d, page)
+                names = (("attention_prefill_float",
+                          "attention_prefill_float_int8") if page is None
+                         else ("attention_prefill_paged_float",
+                               "attention_prefill_paged_float_int8"))
+                for name, c in zip(names, (fc, ic)):
+                    clean = plant_nan(torch, c, kl3, page)
+                    tbl = {} if page is None else dict(table=c.block_table)
+                    pl, cpl = scale_planes(c), scale_planes(clean)
+                    held(name, attention.attention(
+                        qd, c.k, c.v, qs3, kl3, layer=1, window=20,
+                        kernels="cuda", **tbl, **pl), attention.attention(
+                        qd, clean.k, clean.v, qs3, kl3, layer=1, window=20,
+                        kernels="torch", **tbl, **cpl),
+                        f"D{d} B3 T37 G2 window 20"
+                        + ("" if page is None else " page 16"))
+                    # the decode row of each sequence at kl3 - 1
+                    q1d = randn(Bs, 1, Ks * G, d)
+                    if page is None:
+                        kd, vd = randn(Bs, 1, Ks, d), randn(Bs, 1, Ks, d)
+                        snap = dict(snapped=True) if pl else {}
+                        got = attention.attention_decode_fused(
+                            q1d, kd, vd, c.k, c.v, kl3, kl3 + 1, 1,
+                            kernels="cuda", **pl, **snap)[0]
+                        want = attention.attention_decode_fused_torch(
+                            q1d, kd, vd, clean.k, clean.v, kl3, kl3 + 1, 1,
+                            **cpl, **snap)[0]
+                        dname = ("attention_decode_float_int8" if pl
+                                 else "attention_decode_float")
+                    else:
+                        got = attention.attention_decode(
+                            q1d, c.k, c.v, kl3 - 1, kl3, 1, kernels="cuda",
+                            **tbl, **pl)
+                        want = attention.attention_paged_torch(
+                            q1d, clean.k, clean.v, kl3 - 1, kl3, 1,
+                            c.block_table, **cpl)
+                        dname = ("attention_decode_paged_float_int8" if pl
+                                 else "attention_decode_paged_float")
+                    held(dname, got, want, f"D{d} B3 G2 decode"
+                         + ("" if page is None else " page 16"))
+                    del clean
+                # If at this head_dim (into a fresh cache: the decode
+                # above left NaN past its rows)
+                fc, ic = float_caches(torch, dev, gen, dtype, Ls, Bs, Ss, Ks,
+                                      d, page)
+                kn3, vn3 = randn(Bs, 37, Ks, d), randn(Bs, 37, Ks, d)
+                ref = cache_copy(ic)
+                if page is None:
+                    kvc.update_cache_at_layer(ic, 1, kn3, vn3, qs3, nl3,
+                                              kernels="cuda")
+                    kvc.update_cache_at_layer_torch(ref, 1, kn3, vn3, qs3,
+                                                    nl3)
+                else:
+                    pkv.paged_update_at_layer(ic, 1, kn3, vn3, qs3, nl3,
+                                              kernels="cuda")
+                    pkv.paged_update_at_layer_torch(ref, 1, kn3, vn3, qs3,
+                                                    nl3)
+                torch.cuda.synchronize()
+                if not all(torch.equal(getattr(ic, p), getattr(ref, p))
+                           for p in ("k", "v", "k_scale", "v_scale")):
+                    raise AssertionError(f"If {tag} D{d}: differs from the "
+                                         "plain write")
+                say(f"  If {tag} D{d} B3 T37{'' if page is None else ' paged'}"
+                    " bit for bit")
+                del fc, ic, ref
+        torch.cuda.empty_cache()
+
+
+def params_to(params, device):
+    """A params tree (dense tensors or QuantizedTensors) on ``device``."""
+    if isinstance(params, dict):
+        return {k: params_to(v, device) for k, v in params.items()}
+    return params.to(device)
+
+
+def float_path_launches(label, counters, tag, engine_tag, expected,
+                        results) -> dict:
+    """The launches of a 4t engine's run: every kernel of ``expected``
+    launched, no bf16-only kernel; the float rows whose main path this
+    engine is (PATH_OF) take their launch counts from it."""
+    launches = {k: f.launches for k, f in counters.items() if f.launches}
+    say(f"  {label} launches: {launches}")
+    missing = [n for n in expected if not launches.get(n)]
+    extra = [n for n in BF16_ONLY if launches.get(n)]
+    if missing or extra:
+        raise AssertionError(f"{label}: kernels never launched {missing}; "
+                             f"bf16 kernels that launched {extra}")
+    for name in FLOAT_INSTANCES:
+        row = f"{name}[{tag}]"
+        if PATH_OF[row] == f"{tag} {engine_tag}":
+            results.setdefault(row, {})["launches"] = launches.get(name, 0)
+    return launches
+
+
+def float_first_token(torch, label, logits, logits_ref):
+    """4a's rule for the first greedy token, with the reference's own
+    top-1 / top-2 margin: a row may pick another token than the reference
+    only where that margin is below the largest logit difference and the
+    pick is the reference's second. Returns the rows that differ."""
+    d = (logits - logits_ref).abs().max().item()
+    top2, ids2 = logits_ref.topk(2, dim=-1)
+    margins = (top2[:, 0] - top2[:, 1]).tolist()
+    got, want = logits.argmax(-1).tolist(), ids2[:, 0].tolist()
+    differ = [i for i in range(len(got)) if got[i] != want[i]]
+    bad = [i for i in differ if margins[i] >= d
+           or got[i] != ids2[i, 1].item()]
+    say(f"  {label}: first greedy tokens {got}, reference {want}; rows that "
+        f"differ {differ} (margins {[round(m, 5) for m in margins]}, max "
+        f"logit difference {d:.3e})")
+    if bad:
+        raise AssertionError(f"{label}: first greedy token differs from the "
+                             f"reference in rows {bad}")
+    return differ
+
+
+def debug_engine_check(torch, dev, results, tag, cfg, etag, eng, cpu_params,
+                       prompts, greedy):
+    """4t (a): one debug-preset engine on the card against the same engine
+    on the CPU (device "cpu", the plain route), same params: prefill logits
+    within FLOAT_LOGIT_REL_L2, greedy ids equal (f16: where they part, the
+    card's token is one of the CPU's top two at that step, teacher-forced),
+    the decode replays equal the eager bodies (graph_checks on a slot
+    engine; a paged engine serves through the scheduler, replayed against
+    eager)."""
+    import numpy as np
+
+    from llm_inference_engine_tpu_torch.runtime.decode_graph import (
+        run_eagerly)
+    from llm_inference_engine_tpu_torch.runtime.engine import InferenceEngine
+    from llm_inference_engine_tpu_torch.runtime.scheduler import (
+        ContinuousBatchingScheduler)
+
+    counters = _zero_counters()
+    card = InferenceEngine(cfg, eng, params_to(cpu_params, dev), device=dev)
+    cpu = InferenceEngine(cfg, eng, cpu_params, device="cpu")
+    lc, lr = card.prefill(prompts), cpu.prefill(prompts)
+    rel = ((lc.cpu() - lr).norm() / lr.norm()).item()
+    card.reset()
+    cpu.reset()
+    if eng.kv_layout == "paged":
+        def serve(engine, eager=False):
+            sched = ContinuousBatchingScheduler(engine, eos_token_id=None)
+            with run_eagerly(engine) if eager else contextlib.nullcontext():
+                reqs = [sched.submit(p, greedy) for p in prompts]
+                sched.run()
+            engine.reset()
+            return [r.output_ids for r in reqs]
+        got, want = serve(card), serve(cpu)
+        eager = serve(card, True)
+        replays = f"scheduler replayed == eager: {got == eager}"
+        if got != eager:
+            raise AssertionError(f"4t {tag} {etag}: the scheduler's replayed "
+                                 "ids differ from its eager bodies'")
+    else:
+        got = card.generate(prompts, greedy, eos_token_id=None).token_ids
+        want = cpu.generate(prompts, greedy, eos_token_id=None).token_ids
+        toks = torch.tensor([o[-1] for o in got], device=dev,
+                            dtype=torch.int32)
+        graph_checks(torch, card, f"4t {tag} debug {etag}", toks,
+                     np.ones(len(prompts), bool), prompts)
+        replays = "graph_checks passed"
+    paged, kv8 = eng.kv_layout == "paged", bool(eng.kv_cache_dtype_name)
+    expected = NORM_ACT + tuple(
+        n for n, (_, e) in FLOAT_INSTANCES.items()
+        if e == f"debug {etag}" or (e == "7b" and not paged and not kv8))
+    expected += (() if kv8 else ("paged_kv_write",) if paged
+                 else ("kv_write",))
+    float_path_launches(f"4t (a) {tag} debug {etag}", counters, tag,
+                        f"debug {etag}", expected, results)
+    agree = sum(a == b for x, y in zip(got, want) for a, b in zip(x, y))
+    say(f"  4t (a) {tag} debug {etag}: prefill logits rel L2 card vs CPU "
+        f"{rel:.3e} (limit {FLOAT_LOGIT_REL_L2[tag]}); greedy ids equal: "
+        f"{got == want} ({agree}/{sum(map(len, want))}); {replays}")
+    if rel > FLOAT_LOGIT_REL_L2[tag]:
+        raise AssertionError(f"4t {tag} {etag}: prefill logits rel L2 {rel}")
+    if got != want:
+        if tag == "f32":
+            raise AssertionError(f"4t f32 {etag}: greedy ids differ from the "
+                                 f"CPU's: {got} vs {want}")
+        for i, (a, b) in enumerate(zip(got, want)):
+            j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                     None)
+            if j is None:
+                continue
+            cpu.reset()
+            ref = cpu.prefill([prompts[i] + b[:j]])[0]
+            top2 = ref.topk(2).indices.tolist()
+            say(f"    row {i} parts at step {j}: card {a[j]}, CPU {b[j]}, "
+                f"the CPU's top two there {top2}")
+            if a[j] not in top2:
+                raise AssertionError(f"4t f16 {etag}: row {i}'s token at step "
+                                     f"{j} is not one of the CPU's top two")
+    del card, cpu
+    torch.cuda.empty_cache()
+
+
+def float_7b(torch, dev, results, tag, label, engine_tag, cfg, eng, params,
+             prompt_lens, greedy_tokens):
+    """4t (b) / (c): llama2-7b at full width in a float dtype through the
+    float instances: prefill logits and the first greedy token held to
+    kernels="torch" on the card (float_first_token), ``greedy_tokens``
+    greedy tokens, the launches per prefill and per decode step (no bf16
+    kernel, no plain version), graph_checks (replayed step wall and card
+    busy ms, tok/s)."""
+    import numpy as np
+
+    from llm_inference_engine_tpu_torch.config import SamplingParams
+    from llm_inference_engine_tpu_torch.models.weights import param_bytes
+    from llm_inference_engine_tpu_torch.runtime.engine import InferenceEngine
+
+    counters = _zero_counters()
+    B = eng.max_batch_size
+    engine = InferenceEngine(cfg, eng, params, device=dev)
+    say(f"  {label}: weights {param_bytes(params) / 1e9:.2f} GB, cache "
+        f"{kv_bytes(engine.cache) / 1e9:.2f} GB, B={B}, max_seq_len "
+        f"{eng.max_seq_len}")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(3, 32000, n).tolist() for n in prompt_lens]
+    engine.prefill(prompts)                   # cold: first use of shapes
+    engine.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = engine.prefill(prompts)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    engine.reset()
+    r = engine.generate(prompts, SamplingParams(
+        greedy=True, max_new_tokens=greedy_tokens), eos_token_id=None)
+    if (r.num_generated != [greedy_tokens] * B
+            or not np.isfinite(np.asarray(r.logprobs)).all()):
+        raise AssertionError(f"{label}: tokens {r.num_generated} or "
+                             "non-finite logprobs")
+    toks = torch.tensor([o[-1] for o in r.token_ids], device=dev,
+                        dtype=torch.int32)
+    active = np.ones(B, bool)
+    graph_checks(torch, engine, f"4t {tag} {engine_tag}", toks, active,
+                 prompts)
+    expected = NORM_ACT + ("kv_write", "attention_prefill_float",
+                           "attention_decode_float") + (
+        ("int4_matmul_float", "dequant_int4") if eng.quant_mode == "int4"
+        else ())
+    float_path_launches(f"4t {label}", counters, tag, engine_tag, expected,
+                        results)
+    engine.reset()
+    _zero_counters()
+    engine.prefill(prompts)
+    per_prefill = _launch_counts(counters)
+    _zero_counters()
+    engine.decode_step(toks, active, SamplingParams(greedy=True))
+    per_step = _launch_counts(counters)
+    say(f"  {label}: launches per prefill of the {B} prompts: {per_prefill}; "
+        f"per decode step: {per_step}")
+    check_norm_launches(f"4t {label} prefill", per_prefill, cfg.num_layers)
+    check_norm_launches(f"4t {label} decode step", per_step, cfg.num_layers,
+                        1)
+    ref = InferenceEngine(cfg, eng.replace(kernels="torch"), engine.params,
+                          device=dev)
+    logits_t = ref.prefill(prompts)
+    del ref
+    d, rel = _logit_diff(logits, logits_t)
+    say(f"  {label}: prefill of {sum(prompt_lens)} tokens warm "
+        f"{prefill_s:.3f} s; logits kernels vs torch max abs {d:.4e}, rel "
+        f"L2 {rel:.4e}; round 1 tokens[0][:8] {r.token_ids[0][:8]}")
+    if rel > LOGIT_REL_L2 or not torch.isfinite(logits).all():
+        raise AssertionError(f"{label}: prefill logits disagree with the "
+                             "plain path")
+    float_first_token(torch, f"{label} first token", logits, logits_t)
+    if [o[0] for o in r.token_ids] != logits.argmax(-1).tolist():
+        raise AssertionError(f"{label}: generate's first token is not the "
+                             "prefill argmax")
+    del engine
+    torch.cuda.empty_cache()
+
+
+def phase_float_models(torch, dev, results) -> None:
+    """4t: float32 and float16 models end to end through the float
+    instances. (a) the debug preset as shipped (float32, head_dim 16, 2
+    layers) and in float16: params from seed 0 made on the CPU and copied
+    to the card; engines slot, paged (page 16, through the scheduler), an
+    int8 slot cache, an int8 pool, INT4 weights (group 64) and INT8
+    weights, each against the same engine on the CPU (debug_engine_check);
+    (b) llama2-7b in float16 at full width, B 4 on 4a's prompts, 32 greedy
+    tokens, then INT4 weights at B 8 on 4b's prompts (Ef at m 8 and 512,
+    G and cuBLAS at m >= 1024); (c) llama2-7b in float32, B 2,
+    max_seq_len 1024, prompts of 7 and 700 tokens, 16 greedy tokens
+    (float_7b)."""
+    import numpy as np
+
+    from llm_inference_engine_tpu_torch.config import (
+        EngineConfig, SamplingParams, get_config)
+    from llm_inference_engine_tpu_torch.models import weights as W
+
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(3, 256, n).tolist() for n in (5, 23, 61)]
+    greedy = SamplingParams(greedy=True, max_new_tokens=16)
+    base = dict(max_batch_size=3, max_seq_len=128)
+    engines = (("slot", {}), ("paged", dict(kv_layout="paged", page_size=16)),
+               ("kv8", dict(kv_cache_dtype_name="int8")),
+               ("paged-kv8", dict(kv_layout="paged", page_size=16,
+                                  kv_cache_dtype_name="int8")),
+               ("int4", dict(quant_mode="int4", quant_group_size=64)),
+               ("int8w", dict(quant_mode="int8")))
+    for tag in FLOAT_DTYPE:
+        cfg = get_config("debug").replace(dtype_name=FLOAT_DTYPE[tag])
+        dense = W.init_dummy_params(cfg, seed=0, device="cpu")
+        for etag, kw in engines:
+            mode = kw.get("quant_mode")
+            cpu_params = dense if mode is None else \
+                W.init_dummy_quantized_params(cfg, mode, 64, seed=0,
+                                              device="cpu")
+            t0 = time.perf_counter()
+            debug_engine_check(torch, dev, results, tag, cfg, etag,
+                               EngineConfig(**base, **kw), cpu_params,
+                               prompts, greedy)
+            say(f"    ({time.perf_counter() - t0:.1f} s)")
+
+    seven = get_config("llama2-7b")
+    cfg = seven.replace(dtype_name="float16")
+    float_7b(torch, dev, results, "f16", "(b) llama2-7b float16", "7b", cfg,
+             EngineConfig(max_batch_size=4, max_seq_len=2048),
+             W.init_dummy_params(cfg, seed=0, device=dev), (7, 129, 384, 700),
+             32)
+    torch.cuda.empty_cache()
+    float_7b(torch, dev, results, "f16", "(b) llama2-7b float16 INT4",
+             "7b int4", cfg, EngineConfig(quant_mode="int4", max_batch_size=8,
+                                          max_seq_len=2048),
+             W.init_dummy_quantized_params(cfg, "int4", 128, seed=0,
+                                           device=dev), QUANT_PROMPTS, 16)
+    torch.cuda.empty_cache()
+    cfg = seven.replace(dtype_name="float32")
+    float_7b(torch, dev, results, "f32", "(c) llama2-7b float32", "7b", cfg,
+             EngineConfig(max_batch_size=2, max_seq_len=1024),
+             W.init_dummy_params(cfg, seed=0, device=dev), (7, 700), 16)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -6890,6 +7734,9 @@ def main() -> int:
           results)
     phase("3e", "kernels A and B at decode shape (B = 8), timed in CUDA-graph "
           "replays", decode_shape_rows, torch, dev)
+    phase("3f", "the float instances (float32, float16) vs plain versions "
+          "(7B widths; head_dim 16 and 64 small)", phase_float_kernels,
+          torch, dev, results)
 
     # 4. main paths
     from llm_inference_engine_tpu_torch.config import EngineConfig, get_config
@@ -6996,6 +7843,9 @@ def main() -> int:
           phase_quant_divergence, torch, dev)
     phase("4s", "the example drivers (examples_torch), each on the card",
           phase_examples, torch, dev)
+    phase("4t", "float32 and float16 models end to end: the debug preset "
+          "(6 engines each) against the CPU, llama2-7b float16 (B=4; INT4 "
+          "B=8) and float32 (B=2)", phase_float_models, torch, dev, results)
     say("  decode per step, eager bodies against graph replays (wall and "
         "card busy ms): " + json.dumps(DECODE))
 

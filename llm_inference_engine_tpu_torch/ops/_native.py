@@ -34,6 +34,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # head_dim of every attention and int8-write kernel instance (the
 # ``switch (D)`` of each source; a test holds them equal)
 HEAD_DIMS = (64, 80, 96, 128, 256)
+# head_dim of the float instances (csrc/float_kernels.cu, f16 and f32:
+# a runtime argument; the debug preset's 16 and every bf16 head dim)
+FLOAT_HEAD_DIMS = (16,) + HEAD_DIMS
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
@@ -114,6 +117,21 @@ _SIGNATURES = {
     "rmsnorm": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     # gate_up, out, n, inter, dtype, stream
     "silu_and_mul": [_P, _P, _I, _I, _I, _P],
+    # q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, out, q_start,
+    # kv_len, table (null pointers pick the mode), layer, B, T, H, K,
+    # S (or P), page, max_pages, D, dtype, sm_scale, window, snapped, stream
+    "attention_float": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+                        _P],
+    # k_new, v_new, k_cache, v_cache, k_scale, v_scale, starts, new_len,
+    # table (null: slot), layer, B, T, K, S (or P), page, max_pages, D,
+    # dtype, snapped, stream
+    "kv_write_quant_float": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, q, scale, work, out, m, k, n, halves, q_half, s_half,
+    # group (0: INT8), chunk, splits, dtype, out_f32, stream
+    "quant_matmul_float": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L,
+                           _I, _I, _I, _I, _I, _P],
 }
 
 

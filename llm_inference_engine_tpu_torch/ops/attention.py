@@ -42,9 +42,20 @@ Port of ``llm_inference_engine_tpu/ops/attention.py`` over the slot cache
   order are the slot mode's (:func:`decode_plan`), so a paged engine
   reproduces a slot engine bit for bit.
 
-Every kernel is built for the head dims ``_native.HEAD_DIMS`` (64, 80,
-96, 128, 256); another head_dim raises ``NotImplementedError`` on a CUDA
-tensor.
+Every bf16 kernel is built for the head dims ``_native.HEAD_DIMS`` (64,
+80, 96, 128, 256); another head_dim raises ``NotImplementedError`` on a
+CUDA tensor.
+
+A float16 or float32 q (and a cache of its dtype, or int8) takes the
+float instances D2f and Df of ``csrc/float_kernels.cu`` (one entry
+point, ``attention_float``; f32 math on the CUDA cores; head_dim
+``_native.FLOAT_HEAD_DIMS``): each wrapper below hands such a q to its
+counted launcher (``attention_prefill_float``, ``..._float_int8``,
+``attention_prefill_paged_float[_int8]``, ``attention_decode_float[_int8]``
+for the fused slot decode, ``attention_decode_paged_float[_int8]`` for
+the attend-only paged decode). The fused paged decode has no float
+instance: a float pool's token is written by kernel H, then attended.
+Any other dtype raises, naming the instances.
 
 Each int8 mode is a wrapper of its own with its own launch counter.
 
@@ -75,6 +86,9 @@ from llm_inference_engine_tpu_torch.ops.paged_kv import (
     PagedKVCache, _write_rows_torch as _write_pool_rows_torch, gather_pages)
 from llm_inference_engine_tpu_torch.utils import use_kernel
 from llm_inference_engine_tpu_torch.utils.checks import kernel_output
+
+# the dtypes of q that the float instances D2f/Df take
+FLOAT_DTYPES = (torch.float16, torch.float32)
 
 __all__ = ["attention", "attention_torch", "attention_paged_torch",
            "attention_int8", "attention_prefill_paged",
@@ -152,6 +166,10 @@ def attention_paged_torch(q, k_pool, v_pool, q_start, kv_len, layer: int,
 
 def _check(q, k_cache, v_cache, q_start, kv_len, layer, table=None,
            k_scale=None, v_scale=None):
+    """Validate a launch; the instance follows from q's dtype: a bf16 q
+    takes kernels D2/D (``_native.HEAD_DIMS``), a float16 or float32 q
+    their float instances D2f/Df (``_native.FLOAT_HEAD_DIMS``, a cache of
+    q's dtype or int8). Any other dtype raises, naming the instances."""
     if q.dim() != 4 or k_cache.dim() != 5:
         raise ValueError(f"attention kernel: need q [B,T,H,D] and a stacked "
                          f"cache [L,B,S,K,D] or pool [L,P,page,K,D], got "
@@ -169,17 +187,24 @@ def _check(q, k_cache, v_cache, q_start, kv_len, layer, table=None,
     if Bc != B or Dc != D or H % K:
         raise ValueError(f"attention kernel: q {tuple(q.shape)} does not fit "
                          f"cache {tuple(k_cache.shape)}")
-    if D not in _native.HEAD_DIMS:
+    if q.dtype in FLOAT_DTYPES:
+        head_dims, q_dtype = _native.FLOAT_HEAD_DIMS, q.dtype
+    elif q.dtype == torch.bfloat16:
+        head_dims, q_dtype = _native.HEAD_DIMS, torch.bfloat16
+    else:
+        raise TypeError(f"attention kernel: no {q.dtype} instance (kernels "
+                        f"D2 and D take bfloat16, D2f and Df float16 and "
+                        f"float32)")
+    if D not in head_dims:
         raise NotImplementedError(f"attention kernel: head_dim {D} (built "
-                                  f"for {_native.HEAD_DIMS})")
+                                  f"for {head_dims})")
     if not 0 <= layer < L:
         raise IndexError(f"layer {layer} outside [0, {L})")
     int8 = k_scale is not None
-    kv_dtype = torch.int8 if int8 else torch.bfloat16
-    for t, want in ((q, torch.bfloat16), (k_cache, kv_dtype),
-                    (v_cache, kv_dtype)):
+    kv_dtype = torch.int8 if int8 else q_dtype
+    for t, want in ((q, q_dtype), (k_cache, kv_dtype), (v_cache, kv_dtype)):
         if t.dtype != want:
-            raise TypeError(f"attention kernel: need bf16 q and a "
+            raise TypeError(f"attention kernel: need {q_dtype} q and a "
                             f"{kv_dtype} cache, got {t.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("attention kernel: tensors must be contiguous "
@@ -205,6 +230,93 @@ def _check(q, k_cache, v_cache, q_start, kv_len, layer, table=None,
 
 def _scale_of(sm_scale, D):
     return float(sm_scale if sm_scale is not None else 1.0 / math.sqrt(D))
+
+
+def _launch_float(name: str, q, k_cache, v_cache, q_start, kv_len, layer,
+                  *, table=None, k_scale=None, v_scale=None, k_new=None,
+                  v_new=None, snapped: bool = False,
+                  sm_scale: Optional[float] = None,
+                  window: Optional[int] = None) -> torch.Tensor:
+    """One launch of D2f or Df (``attention_float`` in
+    ``csrc/float_kernels.cu``) for a float16 or float32 q: ``table`` picks
+    the pool, scale planes an int8 cache, ``k_new``/``v_new`` the slot
+    decode that writes the token first (in place). Returns out."""
+    if q.dtype not in FLOAT_DTYPES:
+        raise TypeError(f"{name}: the float instance takes a float16 or "
+                        f"float32 q, got {q.dtype}")
+    _check(q, k_cache, v_cache, q_start, kv_len, layer, table, k_scale,
+           v_scale)
+    if k_new is not None:
+        _check_new_rows(q, k_new, v_new, k_cache)
+    B, T, H, D = q.shape
+    K = k_cache.shape[3]
+    if table is None:                  # [L, B, S, K, D]
+        rows, page, max_pages = k_cache.shape[2], 0, 0
+    else:                              # [L, P, page, K, D]
+        rows, page, max_pages = k_cache.shape[1], k_cache.shape[2], \
+            table.shape[1]
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    out = torch.empty_like(q)
+    status = _native.library().attention_float(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ptr(k_scale),
+        ptr(v_scale), ptr(k_new), ptr(v_new), out.data_ptr(),
+        q_start.data_ptr(), kv_len.data_ptr(), ptr(table), int(layer), B, T,
+        H, K, rows, page, max_pages, D, _native.dtype_code(q.dtype),
+        _scale_of(sm_scale, D), int(window or 0), int(snapped),
+        _native.stream_of(q))
+    _native.check(status, name)
+    return out
+
+
+def _float_instance(name: str, doc: str):
+    """A counted launcher of one mode of D2f/Df (its own ``launches``):
+    the wrappers below call it on a float16 or float32 CUDA q."""
+    def instance(q, k_cache, v_cache, q_start, kv_len, layer, **kw):
+        out = _launch_float(name, q, k_cache, v_cache, q_start, kv_len,
+                            layer, **kw)
+        instance.launches += 1
+        kernel_output(name, out)
+        if kw.get("k_new") is not None:
+            written = ((kw["k_scale"], kw["v_scale"])
+                       if kw.get("k_scale") is not None
+                       else (k_cache, v_cache))
+            kernel_output(name, *written, layer=layer)
+        return out
+    instance.__name__ = instance.__qualname__ = name
+    instance.__doc__ = doc
+    instance.launches = 0
+    return instance
+
+
+attention_prefill_float = _float_instance(
+    "attention_prefill_float",
+    "Kernel D2f over a float slot cache (prefill, chunk, mixed steps).")
+attention_prefill_float_int8 = _float_instance(
+    "attention_prefill_float_int8",
+    "Kernel D2f over an int8 slot cache with its scale planes.")
+attention_prefill_paged_float = _float_instance(
+    "attention_prefill_paged_float",
+    "Kernel D2f over a float pool through the block table.")
+attention_prefill_paged_float_int8 = _float_instance(
+    "attention_prefill_paged_float_int8",
+    "Kernel D2f over an int8 pool through the block table.")
+attention_decode_float = _float_instance(
+    "attention_decode_float",
+    "Kernel Df over a float slot cache: write the token's row, attend.")
+attention_decode_float_int8 = _float_instance(
+    "attention_decode_float_int8",
+    "Kernel Df over an int8 slot cache: quantize and write the token's "
+    "row (kernel If's bits), attend.")
+attention_decode_paged_float = _float_instance(
+    "attention_decode_paged_float",
+    "Kernel Df's attend-only decode over a float pool (kernel H wrote the "
+    "token).")
+attention_decode_paged_float_int8 = _float_instance(
+    "attention_decode_paged_float_int8",
+    "Kernel Df's attend-only decode over an int8 pool (kernel If wrote "
+    "the token).")
 
 
 def attention(q, k_cache, v_cache, q_start, kv_len, *,
@@ -236,6 +348,10 @@ def attention(q, k_cache, v_cache, q_start, kv_len, *,
                                sm_scale=sm_scale, layer=layer, window=window)
     if layer is None:                 # a plain [B, S, K, D] cache
         k_cache, v_cache, layer = k_cache[None], v_cache[None], 0
+    if q.dtype in FLOAT_DTYPES:
+        return attention_prefill_float(q, k_cache, v_cache, q_start, kv_len,
+                                       layer, sm_scale=sm_scale,
+                                       window=window)
     _check(q, k_cache, v_cache, q_start, kv_len, layer)
     B, T, H, D = q.shape
     _, _, S, K, _ = k_cache.shape
@@ -267,6 +383,10 @@ def attention_int8(q, k_cache, v_cache, q_start, kv_len, *, k_scale,
     if layer is None:
         k_cache, v_cache, layer = k_cache[None], v_cache[None], 0
         k_scale, v_scale = k_scale[None], v_scale[None]
+    if q.dtype in FLOAT_DTYPES:
+        return attention_prefill_float_int8(
+            q, k_cache, v_cache, q_start, kv_len, layer, k_scale=k_scale,
+            v_scale=v_scale, sm_scale=sm_scale, window=window)
     _check(q, k_cache, v_cache, q_start, kv_len, layer, k_scale=k_scale,
            v_scale=v_scale)
     B, T, H, D = q.shape
@@ -328,6 +448,10 @@ def attention_prefill_paged(q, k_pool, v_pool, q_start, kv_len, layer: int,
         return attention_paged_torch(q, k_pool, v_pool, q_start, kv_len,
                                      layer, table, sm_scale=sm_scale,
                                      window=window)
+    if q.dtype in FLOAT_DTYPES:
+        return attention_prefill_paged_float(
+            q, k_pool, v_pool, q_start, kv_len, layer, table=table,
+            sm_scale=sm_scale, window=window)
     out = _launch_paged("attention_prefill_paged", q, k_pool, v_pool,
                         q_start, kv_len, layer, table, sm_scale, window)
     attention_prefill_paged.launches += 1
@@ -350,6 +474,11 @@ def attention_prefill_paged_int8(q, k_pool, v_pool, q_start, kv_len,
                                      layer, table, sm_scale=sm_scale,
                                      window=window, k_scale=k_scale,
                                      v_scale=v_scale)
+    if q.dtype in FLOAT_DTYPES:
+        return attention_prefill_paged_float_int8(
+            q, k_pool, v_pool, q_start, kv_len, layer, table=table,
+            k_scale=k_scale, v_scale=v_scale, sm_scale=sm_scale,
+            window=window)
     out = _launch_paged("attention_prefill_paged_int8", q, k_pool, v_pool,
                         q_start, kv_len, layer, table, sm_scale, window,
                         k_scale, v_scale)
@@ -388,6 +517,10 @@ def attention_decode(q, k_pool, v_pool, q_start, kv_len, layer: int, *,
         return attention_paged_torch(q, k_pool, v_pool, q_start, kv_len,
                                      layer, table, sm_scale=sm_scale,
                                      window=window)
+    if q.dtype in FLOAT_DTYPES:
+        return attention_decode_paged_float(
+            q, k_pool, v_pool, q_start, kv_len, layer, table=table,
+            sm_scale=sm_scale, window=window)
     out = _launch_paged("attention_decode_paged", q, k_pool, v_pool,
                         q_start, kv_len, layer, table, sm_scale, window)
     attention_decode.launches += 1
@@ -411,6 +544,11 @@ def attention_decode_int8(q, k_pool, v_pool, q_start, kv_len, layer: int,
                                      layer, table, sm_scale=sm_scale,
                                      window=window, k_scale=k_scale,
                                      v_scale=v_scale)
+    if q.dtype in FLOAT_DTYPES:
+        return attention_decode_paged_float_int8(
+            q, k_pool, v_pool, q_start, kv_len, layer, table=table,
+            k_scale=k_scale, v_scale=v_scale, sm_scale=sm_scale,
+            window=window)
     out = _launch_paged("attention_decode_paged_int8", q, k_pool, v_pool,
                         q_start, kv_len, layer, table, sm_scale, window,
                         k_scale, v_scale)
@@ -451,17 +589,20 @@ def prefill_plan(D: int, *, int8: bool = False) -> dict:
 
 
 def can_fuse_decode(q_shape, cache) -> bool:
-    """Fused-decode gate: one new token against a bf16 or int8 SLOT cache
-    (a pool takes :func:`can_fuse_paged_decode`). The JAX package fuses
-    only its embedded-scale int8 cache; the port's one scale layout makes
-    both int8 numerics fusible."""
+    """Fused-decode gate: one new token against a bf16, float16, float32
+    or int8 SLOT cache (kernel D, or its float instance Df; a pool takes
+    :func:`can_fuse_paged_decode`). The JAX package fuses only its
+    embedded-scale int8 cache; the port's one scale layout makes both int8
+    numerics fusible."""
     return (q_shape[1] == 1 and not isinstance(cache, PagedKVCache)
-            and (cache.k.dtype == torch.bfloat16 or cache.quantized))
+            and (cache.k.dtype in (torch.bfloat16,) + FLOAT_DTYPES
+                 or cache.quantized))
 
 
 def can_fuse_paged_decode(q_shape, cache) -> bool:
     """Fused paged-decode gate: one new token against a bf16 paged pool
-    (an int8 pool writes through kernel H's int8 mode, then attends)."""
+    (an int8 pool writes through kernel H's int8 mode, a float16 or float32
+    pool through kernel H, then attends)."""
     return (q_shape[1] == 1 and isinstance(cache, PagedKVCache)
             and cache.k.dtype == torch.bfloat16)
 
@@ -501,10 +642,11 @@ def _check_new_rows(q, k_new, v_new, k_cache):
                          f"{tuple(k_new.shape)} for cache "
                          f"{tuple(k_cache.shape)}")
     for t in (k_new, v_new):
-        if (t.dtype != torch.bfloat16 or t.device != q.device
+        if (t.dtype != q.dtype or t.device != q.device
                 or not t.is_contiguous() or t.data_ptr() % 16):
-            raise ValueError("decode kernel: new rows must be contiguous, "
-                             "16-byte aligned bf16 on q's device")
+            raise ValueError(f"decode kernel: new rows must be contiguous, "
+                             f"16-byte aligned {q.dtype} (q's dtype) on "
+                             f"q's device")
 
 
 def attention_decode_fused(q, k_new, v_new, k_cache, v_cache, q_start,
@@ -533,6 +675,11 @@ def attention_decode_fused(q, k_new, v_new, k_cache, v_cache, q_start,
         return attention_decode_fused_torch(
             q, k_new, v_new, k_cache, v_cache, q_start, kv_len, layer,
             sm_scale=sm_scale, window=window)
+    if q.dtype in FLOAT_DTYPES:
+        out = attention_decode_float(
+            q, k_cache, v_cache, q_start, kv_len, layer, k_new=k_new,
+            v_new=v_new, sm_scale=sm_scale, window=window)
+        return out, k_cache, v_cache
     _check(q, k_cache, v_cache, q_start, kv_len, layer)
     _check_new_rows(q, k_new, v_new, k_cache)
     B, _, H, D = q.shape
@@ -570,6 +717,12 @@ def attention_decode_fused_int8(q, k_new, v_new, k_cache, v_cache, q_start,
             q, k_new, v_new, k_cache, v_cache, q_start, kv_len, layer,
             sm_scale=sm_scale, window=window, k_scale=k_scale,
             v_scale=v_scale, snapped=snapped)
+    if q.dtype in FLOAT_DTYPES:
+        out = attention_decode_float_int8(
+            q, k_cache, v_cache, q_start, kv_len, layer, k_new=k_new,
+            v_new=v_new, k_scale=k_scale, v_scale=v_scale, snapped=snapped,
+            sm_scale=sm_scale, window=window)
+        return out, k_cache, v_cache
     _check(q, k_cache, v_cache, q_start, kv_len, layer, k_scale=k_scale,
            v_scale=v_scale)
     _check_new_rows(q, k_new, v_new, k_cache)
@@ -628,6 +781,11 @@ def attention_decode_paged_fused(q, k_new, v_new, k_pool, v_pool, q_start,
         return attention_decode_paged_fused_torch(
             q, k_new, v_new, k_pool, v_pool, q_start, kv_len, layer,
             table=table, sm_scale=sm_scale, window=window)
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"attention_decode_paged_fused: no {q.dtype} "
+                        f"instance (kernel D's fused paged decode is "
+                        f"bfloat16 only; a float pool's token is written by "
+                        f"kernel H, then attention_decode runs Df)")
     _check(q, k_pool, v_pool, q_start, kv_len, layer, table)
     _check_new_rows(q, k_new, v_new, k_pool)
     B, _, H, D = q.shape

@@ -27,6 +27,9 @@ lies on a CUDA device and :func:`embedded_supported` holds, absmax
 elsewhere. Kernel I (CUDA, ``csrc/kv_write_quant.cu``) replaces the TPU
 kernel ``_write_kernel_quant``: it quantizes the new bf16 rows and writes
 values and scales in one launch (the JAX package quantizes in XLA first).
+Float16 and float32 rows (a float model over an int8 cache) take its
+float instance If (``csrc/float_kernels.cu``, :func:`kv_write_quant_float`)
+with the same rounding; kernel C copies rows of any float dtype by bytes.
 
 Under tensor parallelism each model rank holds a cache of its K/tp heads
 (``parallel/sharding.py``), its scale planes with them, its numerics
@@ -43,14 +46,20 @@ from typing import Optional
 import numpy as np
 import torch
 
-from llm_inference_engine_tpu_torch.ops._native import HEAD_DIMS
+from llm_inference_engine_tpu_torch.ops._native import (
+    FLOAT_HEAD_DIMS, HEAD_DIMS)
 from llm_inference_engine_tpu_torch.utils import cdiv, use_kernel
 from llm_inference_engine_tpu_torch.utils.checks import kernel_output
 
 __all__ = ["KVCache", "new_kv_cache", "update_cache_at_layer",
            "update_cache_at_layer_torch", "write_plan", "kv_write_quant",
+           "kv_write_quant_float",
            "embedded_supported", "quantize_kv", "quantize_kv_snapped",
            "quantize_rows", "kv_scales_from_numpy"]
+
+
+# the rows that kernel I's float instance If quantizes
+FLOAT_ROW_DTYPES = (torch.float16, torch.float32)
 
 
 @dataclasses.dataclass
@@ -217,8 +226,12 @@ def _check_write(cache, layer, new_k, new_v, starts, new_len,
     if new_k.dim() != 4 or new_k.shape[0] != B or new_k.shape[2:] != (K, D):
         raise ValueError(f"{name}: new rows {tuple(new_k.shape)} do not "
                          f"fit cache {tuple(cache.k.shape)}")
-    # an int8 cache takes bf16 rows (the kernel quantizes them)
-    new_dtype = torch.bfloat16 if cache.quantized else cache.k.dtype
+    # an int8 cache takes bf16 rows (kernel I quantizes them) or float16 /
+    # float32 rows (its float instance If)
+    new_dtype = cache.k.dtype
+    if cache.quantized:
+        new_dtype = (new_k.dtype if new_k.dtype in FLOAT_ROW_DTYPES
+                     else torch.bfloat16)
     for t, want in ((new_k, new_dtype), (new_v, new_dtype),
                     (cache.k, cache.k.dtype), (cache.v, cache.k.dtype)):
         if t.dtype != want or t.device != cache.k.device:
@@ -232,9 +245,11 @@ def _check_write(cache, layer, new_k, new_v, starts, new_len,
                     or t.device != cache.k.device or not t.is_contiguous()):
                 raise ValueError(f"{name}: scale planes must be contiguous "
                                  f"float32 [{L}, {B}, {S}, {K}]")
-        if D not in HEAD_DIMS:
+        dims = (FLOAT_HEAD_DIMS if new_dtype in FLOAT_ROW_DTYPES
+                else HEAD_DIMS)
+        if D not in dims:
             raise NotImplementedError(f"{name}: head_dim {D} (built for "
-                                      f"{HEAD_DIMS})")
+                                      f"{dims})")
     if new_v.shape != new_k.shape or cache.v.shape != cache.k.shape:
         raise ValueError(f"{name}: k and v shapes differ")
     for t in (starts, new_len):
@@ -357,10 +372,14 @@ def kv_write_quant(cache: KVCache, layer: int, new_k: torch.Tensor,
     """The int8 write (kernel I, in place of ``_write_kernel_quant``):
     quantize bf16 new rows [B, T, K, D] in the cache's numerics and write
     values and scales at ``starts`` for rows t < new_len (the rules of
-    :func:`update_cache_at_layer`)."""
+    :func:`update_cache_at_layer`). Float16 or float32 rows take
+    :func:`kv_write_quant_float`."""
     if not use_kernel(kernels, new_k):
         return update_cache_at_layer_torch(cache, layer, new_k, new_v,
                                            starts, new_len)
+    if new_k.dtype in FLOAT_ROW_DTYPES:
+        return kv_write_quant_float(cache, layer, new_k, new_v, starts,
+                                    new_len)
     from llm_inference_engine_tpu_torch.ops import _native
     _check_write(cache, layer, new_k, new_v, starts, new_len,
                  "kv_write_quant")
@@ -379,3 +398,49 @@ def kv_write_quant(cache: KVCache, layer: int, new_k: torch.Tensor,
 
 
 kv_write_quant.launches = 0
+
+
+def write_quant_float(name: str, cache, layer: int, new_k: torch.Tensor,
+                      new_v: torch.Tensor, starts: torch.Tensor,
+                      new_len: torch.Tensor, table=None) -> None:
+    """One launch of kernel If (``kv_write_quant_float`` in
+    ``csrc/float_kernels.cu``), after the caller's checks: float16 or
+    float32 rows [B, T, K, D] quantized into an int8 slot cache, or with
+    ``table`` into an int8 pool (snapped scales)."""
+    from llm_inference_engine_tpu_torch.ops import _native
+    if table is None:                 # slot [L, B, S, K, D]
+        extent, page, max_pages = cache.k.shape[2], 0, 0
+        snapped = cache.snapped
+    else:                             # pool [L, P, page, K, D]
+        extent, page, max_pages = cache.k.shape[1], cache.k.shape[2], \
+            table.shape[1]
+        snapped = True
+    B, T, K, D = new_k.shape
+    status = _native.library().kv_write_quant_float(
+        new_k.data_ptr(), new_v.data_ptr(), cache.k.data_ptr(),
+        cache.v.data_ptr(), cache.k_scale.data_ptr(),
+        cache.v_scale.data_ptr(), starts.data_ptr(), new_len.data_ptr(),
+        None if table is None else table.data_ptr(), int(layer), B, T, K,
+        extent, page, max_pages, D, _native.dtype_code(new_k.dtype),
+        int(snapped), _native.stream_of(new_k))
+    _native.check(status, name)
+    kernel_output(name, cache.k_scale, cache.v_scale, layer=layer)
+
+
+def kv_write_quant_float(cache: KVCache, layer: int, new_k: torch.Tensor,
+                         new_v: torch.Tensor, starts: torch.Tensor,
+                         new_len: torch.Tensor) -> KVCache:
+    """Kernel If over the int8 slot cache: what :func:`kv_write_quant`
+    runs for float16 or float32 rows on the card."""
+    if new_k.dtype not in FLOAT_ROW_DTYPES:
+        raise TypeError(f"kv_write_quant_float: kernel If takes float16 or "
+                        f"float32 rows, got {new_k.dtype}")
+    _check_write(cache, layer, new_k, new_v, starts, new_len,
+                 "kv_write_quant_float")
+    write_quant_float("kv_write_quant_float", cache, layer, new_k, new_v,
+                      starts, new_len)
+    kv_write_quant_float.launches += 1
+    return cache
+
+
+kv_write_quant_float.launches = 0

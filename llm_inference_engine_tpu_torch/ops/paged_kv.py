@@ -33,7 +33,9 @@ embeds log2-snapped scale codes in 8 pad rows per token of its int8 pool
 (``kv_cache.quantize_kv_snapped``) in the plane layout. Kernel H's int8
 mode (``paged_kv_write_quant``, the paged instance of kernel I in
 ``csrc/kv_write_quant.cu``) quantizes the bf16 rows and writes values and
-scales through the table in one launch.
+scales through the table in one launch; float16 and float32 rows take
+kernel If (:func:`paged_kv_write_quant_float`). A float16 or float32
+pool's decode is kernel H's write, then the attend-only decode (Df).
 
 Under tensor parallelism each model rank holds the pool's K/tp heads of
 every page, and each data group a whole pool, with its own rows of the
@@ -48,14 +50,17 @@ from typing import Optional, Sequence
 
 import torch
 
-from llm_inference_engine_tpu_torch.ops._native import HEAD_DIMS
-from llm_inference_engine_tpu_torch.ops.kv_cache import quantize_kv_snapped
+from llm_inference_engine_tpu_torch.ops._native import (
+    FLOAT_HEAD_DIMS, HEAD_DIMS)
+from llm_inference_engine_tpu_torch.ops.kv_cache import (
+    FLOAT_ROW_DTYPES, quantize_kv_snapped, write_quant_float)
 from llm_inference_engine_tpu_torch.utils import use_kernel
 from llm_inference_engine_tpu_torch.utils.checks import kernel_output
 
 __all__ = ["PagedKVCache", "PageAllocator", "new_paged_kv_cache",
            "paged_update_at_layer", "paged_update_at_layer_torch",
-           "paged_kv_write_quant", "gather_pages", "gather_layer_pages"]
+           "paged_kv_write_quant", "paged_kv_write_quant_float",
+           "gather_pages", "gather_layer_pages"]
 
 
 @dataclasses.dataclass
@@ -251,8 +256,12 @@ def _check_write(cache, layer, new_k, new_v, starts, new_len,
         raise ValueError(f"{name}: new rows {tuple(new_k.shape)} do "
                          f"not fit pool {tuple(cache.k.shape)} with {B} "
                          "table rows")
-    # an int8 pool takes bf16 rows (the kernel quantizes them)
-    new_dtype = torch.bfloat16 if cache.quantized else cache.k.dtype
+    # an int8 pool takes bf16 rows (kernel H's int8 mode quantizes them)
+    # or float16 / float32 rows (kernel If)
+    new_dtype = cache.k.dtype
+    if cache.quantized:
+        new_dtype = (new_k.dtype if new_k.dtype in FLOAT_ROW_DTYPES
+                     else torch.bfloat16)
     for t, want in ((new_k, new_dtype), (new_v, new_dtype),
                     (cache.k, cache.k.dtype), (cache.v, cache.k.dtype)):
         if t.dtype != want or t.device != cache.k.device:
@@ -266,9 +275,11 @@ def _check_write(cache, layer, new_k, new_v, starts, new_len,
                     or t.device != cache.k.device or not t.is_contiguous()):
                 raise ValueError(f"{name}: scale planes must be contiguous "
                                  f"float32 [{L}, {P}, {page}, {K}]")
-        if D not in HEAD_DIMS:
+        dims = (FLOAT_HEAD_DIMS if new_dtype in FLOAT_ROW_DTYPES
+                else HEAD_DIMS)
+        if D not in dims:
             raise NotImplementedError(f"{name}: head_dim {D} (built for "
-                                      f"{HEAD_DIMS})")
+                                      f"{dims})")
     if new_v.shape != new_k.shape or cache.v.shape != cache.k.shape:
         raise ValueError(f"{name}: k and v shapes differ")
     for t in (starts, new_len, cache.block_table):
@@ -329,10 +340,14 @@ def paged_kv_write_quant(cache: PagedKVCache, layer: int,
                          kernels: str = "auto") -> PagedKVCache:
     """Kernel H's int8 mode: quantize bf16 rows [B, T, K, D] with snapped
     scales and write values and scales through the table (the rules of
-    :func:`paged_update_at_layer`), in place."""
+    :func:`paged_update_at_layer`), in place. Float16 or float32 rows take
+    :func:`paged_kv_write_quant_float`."""
     if not use_kernel(kernels, new_k):
         return paged_update_at_layer_torch(cache, layer, new_k, new_v,
                                            starts, new_len)
+    if new_k.dtype in FLOAT_ROW_DTYPES:
+        return paged_kv_write_quant_float(cache, layer, new_k, new_v,
+                                          starts, new_len)
     from llm_inference_engine_tpu_torch.ops import _native
     _check_write(cache, layer, new_k, new_v, starts, new_len,
                  "paged_kv_write_quant")
@@ -352,6 +367,26 @@ def paged_kv_write_quant(cache: PagedKVCache, layer: int,
 
 
 paged_kv_write_quant.launches = 0
+
+
+def paged_kv_write_quant_float(cache: PagedKVCache, layer: int,
+                               new_k: torch.Tensor, new_v: torch.Tensor,
+                               starts: torch.Tensor, new_len: torch.Tensor
+                               ) -> PagedKVCache:
+    """Kernel If through the block table: what :func:`paged_kv_write_quant`
+    runs for float16 or float32 rows on the card (snapped scales)."""
+    if new_k.dtype not in FLOAT_ROW_DTYPES:
+        raise TypeError(f"paged_kv_write_quant_float: kernel If takes "
+                        f"float16 or float32 rows, got {new_k.dtype}")
+    _check_write(cache, layer, new_k, new_v, starts, new_len,
+                 "paged_kv_write_quant_float")
+    write_quant_float("paged_kv_write_quant_float", cache, layer, new_k,
+                      new_v, starts, new_len, cache.block_table)
+    paged_kv_write_quant_float.launches += 1
+    return cache
+
+
+paged_kv_write_quant_float.launches = 0
 
 
 def gather_pages(pool: torch.Tensor, layer: int, table: torch.Tensor):

@@ -29,6 +29,12 @@ over a thread-block cluster; a prefill mode on wgmma above); at m >= 1024
 bakes the scale into the bf16 weight: one extra rounding (~2^-9 relative)
 that the fused path does not have.
 
+A float16 or float32 x takes the float instances Ef / Ff
+(``csrc/float_kernels.cu``, :func:`int4_matmul_float`,
+:func:`int8_matmul_float`: f32 FMA on the CUDA cores over K splits whose
+partial sums the wrapper's workspace holds, :func:`float_matmul_plan`);
+at m >= 1024 x is cast to bf16 as the JAX package's large-m path does.
+
 On CPU tensors, or with ``kernels="torch"``, every op runs its plain
 version (same routing, same rounding points). On a CUDA tensor the
 kernels launch or the wrapper raises. The TPU block planning
@@ -57,6 +63,9 @@ __all__ = [
     "int4_matmul_torch",
     "int8_matmul",
     "int8_matmul_torch",
+    "int4_matmul_float",
+    "int8_matmul_float",
+    "float_matmul_plan",
     "dequant_int4",
     "dequant_int4_torch",
     "quant_matmul_plan",
@@ -65,6 +74,8 @@ __all__ = [
 ]
 
 _PREFILL_M = 1024   # m >= this dequantizes once and runs a bf16 matmul
+# the x dtypes of the float instances Ef / Ff (csrc/float_kernels.cu)
+FLOAT_X_DTYPES = (torch.float16, torch.float32)
 
 # The plan of kernels E and F (``make_plan`` in csrc/quant_matmul.cu; a
 # card test holds the two equal).
@@ -373,6 +384,26 @@ def cluster_k_ranges(m: int, k: int, n: int, halves: int = 1, *,
             for r in range(cs)]
 
 
+_FLOAT_THREADS, _FLOAT_COLS, _FLOAT_ROWS, _FLOAT_K = 128, 4, 8, 64
+
+
+def float_matmul_plan(m: int, k: int, n: int, halves: int = 1,
+                      group: int = 0, sms: int = 132) -> dict:
+    """The launch of kernels Ef (``group`` > 0, INT4) and Ff (INT8) as
+    ``csrc/float_kernels.cu`` takes it: blocks of 8 x rows and 512 output
+    columns over ``splits`` K splits of ``chunk`` rows (whole scale groups,
+    else whole 64-row stages), enough splits for two blocks an SM where
+    the rows and columns give fewer; the partial sums, [splits, m,
+    halves * n] f32, are then summed in split order."""
+    unit = group if group else _FLOAT_K
+    units = cdiv(k, unit)
+    blocks = (cdiv(halves * n, _FLOAT_THREADS * _FLOAT_COLS)
+              * cdiv(m, _FLOAT_ROWS))
+    splits = max(1, min(units, cdiv(2 * sms, blocks)))
+    chunk = cdiv(units, splits) * unit
+    return dict(chunk=chunk, splits=cdiv(k, chunk), blocks=blocks)
+
+
 def quant_matmul_plan_native(m: int, k: int, n: int, halves: int = 1, *,
                              int4: bool = True, group: int = 128) -> dict:
     """The plan from the built library on the card (``quant_matmul_plan``
@@ -393,15 +424,17 @@ def quant_matmul_plan_native(m: int, k: int, n: int, halves: int = 1, *,
 # ---------------------------------------------------------------------------
 
 def _check_fused(name, x2, q, scale, out_dtype, int4: bool, group_size: int):
-    """Validate the inputs of kernels E/F; returns (halves, k, n)."""
-    if x2.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: x must be bfloat16, got {x2.dtype}")
+    """Validate the inputs of kernels E/F (a bf16 x) or of their float
+    instances Ef/Ff (a float16 or float32 x); returns (halves, k, n)."""
+    if x2.dtype not in (torch.bfloat16,) + FLOAT_X_DTYPES:
+        raise TypeError(f"{name}: x must be bfloat16 (kernels E/F), float16 "
+                        f"or float32 (Ef/Ff), got {x2.dtype}")
     if q.dtype != torch.int8 or scale.dtype != torch.float32:
         raise TypeError(f"{name}: need int8 q and float32 scale, got "
                         f"{q.dtype} / {scale.dtype}")
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"{name}: out dtype must be bf16 or f32, got "
-                        f"{out_dtype}")
+    if out_dtype not in (x2.dtype, torch.float32):
+        raise TypeError(f"{name}: out dtype must be x's ({x2.dtype}) or "
+                        f"f32, got {out_dtype}")
     if q.dim() not in (2, 3) or scale.dim() != q.dim():
         raise ValueError(f"{name}: q {tuple(q.shape)} / scale "
                          f"{tuple(scale.shape)} are not [k', n] or "
@@ -444,6 +477,22 @@ def _launch_fused(name, x2, q, scale, out_dtype, int4, group_size):
     q_half = q.shape[-2] * n if halves == 2 else 0
     s_half = scale.shape[-2] * n if halves == 2 else 0
     lib = _native.library()
+    if x2.dtype in FLOAT_X_DTYPES:
+        # Ef / Ff: the K splits' partial sums go through a workspace
+        sms = torch.cuda.get_device_properties(
+            x2.device).multi_processor_count
+        plan = float_matmul_plan(m, k, n, halves, group_size if int4 else 0,
+                                 sms)
+        work = torch.empty((plan["splits"], m, halves * n),
+                           dtype=torch.float32, device=x2.device)
+        status = lib.quant_matmul_float(
+            x2.data_ptr(), q.data_ptr(), scale.data_ptr(), work.data_ptr(),
+            out.data_ptr(), m, k, n, halves, q_half, s_half,
+            group_size if int4 else 0, plan["chunk"], plan["splits"],
+            _native.dtype_code(x2.dtype), int(out_dtype == torch.float32),
+            _native.stream_of(x2))
+        _native.check(status, name)
+        return out
     args = (x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
             m, k, n, halves, q_half, s_half)
     if int4:
@@ -466,6 +515,8 @@ def int4_matmul(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     grouped scales; out bf16 or f32."""
     if not use_kernel(kernels, x2):
         return int4_matmul_torch(x2, q, scale, group_size, out_dtype)
+    if x2.dtype in FLOAT_X_DTYPES:
+        return int4_matmul_float(x2, q, scale, group_size, out_dtype)
     out = _launch_fused("int4_matmul", x2, q, scale, out_dtype, True,
                         group_size)
     int4_matmul.launches += 1
@@ -484,6 +535,8 @@ def int8_matmul(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     scale [1, n] applied to the f32 accumulator."""
     if not use_kernel(kernels, x2):
         return int8_matmul_torch(x2, q, scale, out_dtype)
+    if x2.dtype in FLOAT_X_DTYPES:
+        return int8_matmul_float(x2, q, scale, out_dtype)
     out = _launch_fused("int8_matmul", x2, q, scale, out_dtype, False, 0)
     int8_matmul.launches += 1
     kernel_output("int8_matmul", out)
@@ -491,6 +544,44 @@ def int8_matmul(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
 
 
 int8_matmul.launches = 0
+
+
+def _need_float_x(name, x2):
+    if x2.dtype not in FLOAT_X_DTYPES:
+        raise TypeError(f"{name}: the float instance takes a float16 or "
+                        f"float32 x, got {x2.dtype}")
+
+
+def int4_matmul_float(x2: torch.Tensor, q: torch.Tensor,
+                      scale: torch.Tensor, group_size: int,
+                      out_dtype: torch.dtype) -> torch.Tensor:
+    """Kernel Ef (``csrc/float_kernels.cu``): what :func:`int4_matmul` runs
+    for a float16 or float32 x on the card; out x's dtype or f32."""
+    _need_float_x("int4_matmul_float", x2)
+    out = _launch_fused("int4_matmul_float", x2, q, scale, out_dtype, True,
+                        group_size)
+    int4_matmul_float.launches += 1
+    kernel_output("int4_matmul_float", out)
+    return out
+
+
+int4_matmul_float.launches = 0
+
+
+def int8_matmul_float(x2: torch.Tensor, q: torch.Tensor,
+                      scale: torch.Tensor,
+                      out_dtype: torch.dtype) -> torch.Tensor:
+    """Kernel Ff (``csrc/float_kernels.cu``): what :func:`int8_matmul` runs
+    for a float16 or float32 x on the card; out x's dtype or f32."""
+    _need_float_x("int8_matmul_float", x2)
+    out = _launch_fused("int8_matmul_float", x2, q, scale, out_dtype, False,
+                        0)
+    int8_matmul_float.launches += 1
+    kernel_output("int8_matmul_float", out)
+    return out
+
+
+int8_matmul_float.launches = 0
 
 
 def dequant_int4(q: torch.Tensor, scale: torch.Tensor, group_size: int, *,

@@ -51,6 +51,15 @@ pool with f32 scale planes (``ops/kv_cache.py``, ``ops/paged_kv.py``);
 the slot cache picks its scale numerics by device as the JAX engine
 does, the pool is always snapped.
 
+Dtypes on the card (``check_kernel_dtypes``): a bfloat16 model runs
+kernels A-I; a float16 or float32 model (the ``debug`` preset is
+float32) runs A, B, C and H, which take its rows as they are, and the
+float instances of the others (``csrc/float_kernels.cu``: D2f, Df, If,
+Ef, Ff). Either takes a cache of the model's dtype or int8; a float
+cache of another dtype is refused before anything is allocated. A float
+pool's decode writes through H, then attends (Df); the fused paged
+decode is bf16 only.
+
 Meshes (``EngineConfig.dp``/``tp``, or a ``parallel.mesh.Mesh`` passed
 in; ``parallel/sharding.py``): the weights are sharded over the model
 ranks and the slots over the data ranks (data rank d owns slots
@@ -162,21 +171,25 @@ def check_kernel_dtypes(config: ModelConfig, eng: EngineConfig,
                         device) -> None:
     """Refuse, before anything is allocated, an engine whose kernels
     cannot take its dtypes: on a CUDA device with ``kernels`` other than
-    "torch", the attention, KV-write and quantized-matmul kernels take a
-    bf16 model (and a bf16 or int8 cache) only. Raises ValueError naming
-    the dtype."""
+    "torch", the kernels take a bfloat16 model (kernels A-I) or a float16
+    or float32 one (A, B, C, H and the float instances D2f, Df, If, Ef,
+    Ff), each with a KV cache of the model's own dtype or int8. A float
+    cache of another dtype than the model's (the JAX package takes that
+    mix) has no kernel instance yet: ValueError naming both dtypes."""
     if torch.device(device).type != "cuda" or eng.kernels == "torch":
         return
     cache = eng.kv_cache_dtype or config.dtype
-    for what, dtype, allowed in (("model", config.dtype, (torch.bfloat16,)),
-                                 ("KV cache", cache,
-                                  (torch.bfloat16, torch.int8))):
-        if dtype not in allowed:
-            raise ValueError(
-                f"{config.name}: {what} dtype {dtype} on {device}: the CUDA "
-                "kernels (attention, KV write, quantized matmul) take "
-                "bfloat16 only (an int8 KV cache too); use a bfloat16 "
-                "config or kernels='torch'")
+    if config.dtype not in (torch.bfloat16, torch.float16, torch.float32):
+        raise ValueError(f"{config.name}: model dtype {config.dtype} on "
+                         f"{device}: the CUDA kernels take bfloat16, "
+                         "float16 or float32; use kernels='torch'")
+    if cache not in (config.dtype, torch.int8):
+        raise ValueError(
+            f"{config.name}: KV cache dtype {cache} with a {config.dtype} "
+            f"model on {device}: the CUDA kernels take a cache of the "
+            "model's dtype or int8 (a float cache of another dtype: "
+            "ROADMAP.md, queue 1 item 6); use kv_cache_dtype_name='' or "
+            "'int8', or kernels='torch'")
 
 
 def _check_layout(eng: EngineConfig) -> None:

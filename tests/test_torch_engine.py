@@ -255,20 +255,23 @@ def test_create_engine_dummy_and_unported_paths():
 
 
 @pytest.mark.parametrize("dtype,kv,device,kernels,refused", [
-    ("float32", "", "cuda", "auto", "model dtype torch.float32"),
-    ("float32", "", "cuda", "cuda", "model dtype torch.float32"),
-    ("bfloat16", "float32", "cuda", "auto", "KV cache dtype torch.float32"),
-    ("float16", "", "cuda", "auto", "model dtype torch.float16"),
+    ("float32", "", "cuda", "auto", None),
+    ("float32", "bfloat16", "cuda", "cuda",
+     "KV cache dtype torch.bfloat16 with a torch.float32 model"),
+    ("bfloat16", "float32", "cuda", "auto",
+     "KV cache dtype torch.float32 with a torch.bfloat16 model"),
+    ("float16", "", "cuda", "auto", None),
     ("float32", "", "cuda", "torch", None),
     ("float32", "", "cpu", "auto", None),
     ("bfloat16", "", "cuda", "auto", None),
     ("bfloat16", "int8", "cuda", "auto", None)])
 def test_kernel_dtype_check_refuses_before_allocating(dtype, kv, device,
                                                       kernels, refused):
-    """On a CUDA device the kernels take a bf16 model and a bf16 or int8
-    cache; anything else is refused with the dtype named, before the
-    engine allocates (here its params lie on the CPU and no card exists,
-    so any allocation on the device would fail otherwise)."""
+    """On a CUDA device the kernels take a bf16, f16 or f32 model with a
+    cache of the model's dtype or int8; a float cache of another dtype is
+    refused with both dtypes named, before the engine allocates (here its
+    params lie on the CPU and no card exists, so any allocation on the
+    device would fail otherwise)."""
     cfg = get_config("debug").replace(dtype_name=dtype)
     eng = EngineConfig(max_batch_size=2, max_seq_len=32,
                        kv_cache_dtype_name=kv, kernels=kernels)
@@ -278,7 +281,7 @@ def test_kernel_dtype_check_refuses_before_allocating(dtype, kv, device,
     with pytest.raises(ValueError, match=refused):
         check_kernel_dtypes(cfg, eng, torch.device(device))
     params = init_dummy_params(cfg, seed=0, device="cpu")
-    with pytest.raises(ValueError, match="bfloat16 only"):
+    with pytest.raises(ValueError, match="of the model's dtype or int8"):
         InferenceEngine(cfg, eng, params, device=device)
 
 

@@ -15,6 +15,7 @@ so an output can land one bf16 ulp (~4e-3 relative) apart.
 
 import contextlib
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -431,13 +432,68 @@ def test_quant_matmul_plan_mirror_equals_library(cuda, m):
                 m, k, n, halves, int4=int4, sms=sms), (k, n, halves, int4)
 
 
-def test_debug_preset_is_refused_on_the_card(cuda):
-    """The f32 debug preset: refused at construction, naming the dtype,
-    where the kernels would raise deep inside the first forward."""
+def _params_to(tree, device):
+    """A params tree (dense or quantized leaves) moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: _params_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "float16"])
+def test_debug_preset_generates_on_the_card(cuda, dtype_name):
+    """The debug preset (float32, head_dim 16, as shipped; and in float16)
+    builds on the card through create_engine and generates through the
+    float kernels; on the same weights its float32 greedy ids equal the
+    CPU plain route's."""
     from llm_inference_engine_tpu_torch.models.registry import create_engine
-    with pytest.raises(ValueError, match="float32"):
-        create_engine("debug", None, EngineConfig(max_batch_size=2,
-                                                  max_seq_len=32))
+    eng = EngineConfig(max_batch_size=3, max_seq_len=64)
+    prompts = [[1, 17, 93, 5], [7] * 11, [200, 3]]
+    sp = SamplingParams(greedy=True, max_new_tokens=12)
+    counters = (attention.attention_prefill_float,
+                attention.attention_decode_float)
+    before = [f.launches for f in counters]
+    if dtype_name == "float32":
+        card = create_engine("debug", None, eng)
+    else:
+        cfg = get_config("debug").replace(dtype_name=dtype_name)
+        card = InferenceEngine(cfg, eng, init_dummy_params(
+            cfg, seed=0, device=cuda), device=cuda)
+    got = card.generate(prompts, sp, eos_token_id=None).token_ids
+    assert [f.launches for f in counters] > before
+    assert all(len(ids) == 12 for ids in got)
+    if dtype_name == "float32":
+        cpu = InferenceEngine(card.config, eng,
+                              _params_to(card.params, "cpu"), device="cpu")
+        assert got == cpu.generate(prompts, sp, eos_token_id=None).token_ids
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "float16"])
+def test_float_params_on_the_card(cuda, tmp_path, dtype_name):
+    """init_dummy_params on the card, params_from_numpy and the .npz
+    loader give float16 / float32 leaves on the card, and the three serve
+    an engine the same greedy ids."""
+    from llm_inference_engine_tpu_torch.models import weights as W
+    cfg = get_config("debug").replace(dtype_name=dtype_name)
+    drawn = init_dummy_params(cfg, seed=0, device=cuda)
+
+    def numpy_tree(tree):
+        return {k: numpy_tree(v) if isinstance(v, dict) else v.cpu().numpy()
+                for k, v in tree.items()}
+    path = str(tmp_path / "params.npz")
+    W.save_params(drawn, path)
+    trees = [drawn, W.params_from_numpy(numpy_tree(drawn), cuda),
+             W.load_saved_params(path, cuda)]
+    ids = []
+    for tree in trees:
+        leaves = [tree[k] for k in ("embed", "final_norm", "lm_head")] + \
+            list(tree["layers"].values())
+        assert all(t.dtype == cfg.dtype and t.is_cuda for t in leaves)
+        engine = InferenceEngine(cfg, EngineConfig(max_batch_size=2,
+                                                   max_seq_len=32), tree,
+                                 device=cuda)
+        ids.append(engine.generate([[3, 9, 27], [1] * 7], SamplingParams(
+            greedy=True, max_new_tokens=6), eos_token_id=None).token_ids)
+    assert ids[0] == ids[1] == ids[2]
 
 
 @pytest.mark.parametrize("k,n,halves", [(11008, 384, 1), (512, 1040, 2)])
@@ -485,8 +541,9 @@ def test_quantized_linear_large_m_routes_through_kernels(cuda, mode):
 
 def test_quant_kernels_refuse_instead_of_falling_back(cuda):
     t = _qweight(cuda, "int4", 256, 128)
-    with pytest.raises(TypeError):
-        quant.quantized_linear(torch.randn(4, 256, device=cuda), t)
+    with pytest.raises(TypeError):     # no instance takes a float64 x
+        quant.quantized_linear(
+            torch.randn(4, 256, device=cuda, dtype=torch.float64), t)
     with pytest.raises(ValueError):
         quant.quantized_linear(
             torch.randn(4, 256, device=cuda, dtype=torch.bfloat16),
@@ -961,9 +1018,9 @@ def test_int8_kernels_refuse_instead_of_falling_back(cuda):
     c = _int8_slot(cuda, 1, 2, 32, 2, 128, True)
     q = torch.randn(2, 3, 4, 128, device=cuda, dtype=torch.bfloat16)
     lens = torch.full((2,), 3, device=cuda, dtype=torch.int32)
-    with pytest.raises(TypeError):            # an f32 row into an int8 cache
-        kvc.update_cache_at_layer(c, 0, q[:, :, :2].float(),
-                                  q[:, :, :2].float(), lens - 3, lens)
+    with pytest.raises(TypeError):            # an f64 row into an int8 cache
+        kvc.update_cache_at_layer(c, 0, q[:, :, :2].double(),
+                                  q[:, :, :2].double(), lens - 3, lens)
     with pytest.raises(ValueError):           # a scale plane of the wrong type
         attention.attention(q, c.k, c.v, lens - 3, lens, layer=0,
                             k_scale=c.k_scale.double(), v_scale=c.v_scale)
@@ -1984,3 +2041,277 @@ def test_copy_writes_at_model_rows(cuda, paged, T, K, D):
     plain(ref, 1, kn, vn, starts, new_len)
     torch.cuda.synchronize()
     assert torch.equal(c.k, ref.k) and torch.equal(c.v, ref.v)
+
+
+# ---------------------------------------------------------------------------
+# the float instances (csrc/float_kernels.cu): D2f, Df, If, Ef, Ff
+# ---------------------------------------------------------------------------
+
+FLOAT_DTYPES = [torch.float32, torch.float16]
+# max |kernel - plain| over max |plain|: both sum in f32 in another order;
+# float16 outputs also round once (2^-11 relative)
+FLOAT_TOL = {torch.float32: 1e-5, torch.float16: 2e-3}
+FLOAT_MODES = ["slot", "paged", "int8", "paged-int8"]
+
+
+def _held_float(got, want, dtype):
+    g, w = got.float(), want.float()
+    assert torch.isfinite(g).all()
+    rel = ((g - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+    assert rel <= FLOAT_TOL[dtype], rel
+
+
+def _float_cache(cuda, dtype, mode, L, B, S, K, D, page=16):
+    """A cache of random rows for ``mode``: a float slot cache or pool of
+    ``dtype`` (a shuffled table over pages 1..), or an int8 one."""
+    if mode == "int8":
+        return _int8_slot(cuda, L, B, S, K, D, True)
+    if mode == "paged-int8":
+        return _int8_pool(cuda, L, B, -(-S // page), page, K, D)
+    if mode == "paged":
+        c = _paged_pool(cuda, L, B, -(-S // page), page, K, D)
+        return dataclasses.replace(c, k=c.k.to(dtype), v=c.v.to(dtype))
+    k = torch.randn(L, B, S, K, D, device=cuda, dtype=dtype)
+    return kvc.KVCache(k, torch.randn_like(k),
+                       torch.zeros(B, device=cuda, dtype=torch.int32))
+
+
+def _float_counter(kind, mode):
+    return getattr(attention, {"slot": f"attention_{kind}_float",
+                               "paged": f"attention_{kind}_paged_float",
+                               "int8": f"attention_{kind}_float_int8",
+                               "paged-int8":
+                                   f"attention_{kind}_paged_float_int8"}[mode])
+
+
+def _poisoned(c, mode, kv_len, page=16):
+    """A clean copy of ``c`` for the plain version, then NaN into every
+    row of ``c`` at or past kv_len and every pool page outside the table
+    (values, or an int8 cache's scales); returns (clean, table kwargs)."""
+    clean = _clone_cache(c)
+    if mode.startswith("paged"):
+        _poison_pool(c, kv_len, page)
+        return clean, dict(table=c.block_table)
+    _poison_slot(c, kv_len)
+    return clean, {}
+
+
+@pytest.mark.parametrize("dtype", FLOAT_DTYPES, ids=str)
+@pytest.mark.parametrize("mode", FLOAT_MODES)
+@pytest.mark.parametrize("D,G,window,lens", [
+    (16, 2, None, CHUNK), (64, 4, 70, CHUNK), (128, 1, None, CHUNK),
+    (128, 4, None, LONG), (80, 2, 100, CHUNK), (256, 1, None, CHUNK)])
+def test_float_prefill_attention(cuda, dtype, mode, D, G, window, lens):
+    """D2f in each mode against the plain version on a clean copy, with NaN
+    past kv_len and outside the table: prefill, chunk and ragged rows."""
+    T, S, q_start, kv_len = _lens(cuda, lens)
+    K = 2
+    q = torch.randn(4, T, K * G, D, device=cuda, dtype=dtype)
+    c = _float_cache(cuda, dtype, mode, 2, 4, S, K, D)
+    clean, kw = _poisoned(c, mode, kv_len)
+    counter = _float_counter("prefill", mode)
+    before = counter.launches
+    got = attention.attention(q, c.k, c.v, q_start, kv_len, layer=1,
+                              window=window, kernels="cuda", **kw,
+                              **(_planes(c) if c.k_scale is not None else {}))
+    want = attention.attention(q, clean.k, clean.v, q_start, kv_len, layer=1,
+                               window=window, kernels="torch", **kw,
+                               **(_planes(clean) if clean.k_scale is not None
+                                  else {}))
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert got.dtype == dtype
+    _held_float(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", FLOAT_DTYPES, ids=str)
+@pytest.mark.parametrize("mode", FLOAT_MODES)
+def test_float_prefill_attention_empty_rows_are_zero(cuda, dtype, mode):
+    q = torch.randn(2, 9, 4, 16, device=cuda, dtype=dtype)
+    zero = torch.zeros(2, device=cuda, dtype=torch.int32)
+    c = _float_cache(cuda, dtype, mode, 1, 2, 64, 2, 16)
+    kw = dict(table=c.block_table) if mode.startswith("paged") else {}
+    if c.k_scale is not None:
+        kw.update(_planes(c))
+    out = attention.attention(q, c.k, c.v, zero, zero, layer=0,
+                              kernels="cuda", **kw)
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+@pytest.mark.parametrize("dtype", FLOAT_DTYPES, ids=str)
+@pytest.mark.parametrize("int8,snapped", [(False, False), (True, False),
+                                          (True, True)])
+@pytest.mark.parametrize("D,G,window", [(16, 2, None), (64, 4, 45),
+                                        (128, 1, None), (128, 8, None)])
+def test_float_fused_decode(cuda, dtype, int8, snapped, D, G, window):
+    """Df's slot decode: the token's row written (an int8 cache's values
+    and scales bit for bit as the plain quantizer writes them), then
+    attended; NaN in every row from q_start on, which the write must
+    replace before the attention reads it."""
+    L, B, S, K = 2, 5, 300, 2
+    kv_len = torch.tensor([1, 40, 299, 300, 77], device=cuda,
+                          dtype=torch.int32)
+    q_start = kv_len - 1
+    q_start[3] = kv_len[3]                  # inactive: writes nothing
+    c = (_int8_slot(cuda, L, B, S, K, D, snapped) if int8
+         else _float_cache(cuda, dtype, "slot", L, B, S, K, D))
+    clean = _clone_cache(c)
+    _poison_slot(c, q_start)
+    q = torch.randn(B, 1, K * G, D, device=cuda, dtype=dtype)
+    kn = torch.randn(B, 1, K, D, device=cuda, dtype=dtype)
+    vn = torch.randn_like(kn)
+    planes = (lambda x: _planes(x)) if int8 else (lambda x: {})
+    counter = (attention.attention_decode_float_int8 if int8
+               else attention.attention_decode_float)
+    before = counter.launches
+    got = attention.attention_decode_fused(
+        q, kn, vn, c.k, c.v, q_start, kv_len, 1, window=window,
+        kernels="cuda", snapped=snapped, **planes(c))[0]
+    want = attention.attention_decode_fused_torch(
+        q, kn, vn, clean.k, clean.v, q_start, kv_len, 1, window=window,
+        snapped=snapped, **planes(clean))[0]
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    _held_float(got, want, dtype)
+    names = ("k", "v", "k_scale", "v_scale") if int8 else ("k", "v")
+    for b, n in enumerate(kv_len.tolist()):      # layer 1 was written
+        for name in names:
+            assert torch.equal(getattr(c, name)[1, b, :n],
+                               getattr(clean, name)[1, b, :n]), (b, name)
+
+
+@pytest.mark.parametrize("dtype", FLOAT_DTYPES, ids=str)
+@pytest.mark.parametrize("mode", ["paged", "paged-int8"])
+@pytest.mark.parametrize("D,G,window,page", [(16, 2, None, 16),
+                                             (64, 4, 45, 16),
+                                             (128, 1, None, 64),
+                                             (128, 8, None, 16)])
+def test_float_paged_decode(cuda, dtype, mode, D, G, window, page):
+    """Df's attend-only decode through the table (the pool already holds
+    the token), NaN past kv_len and outside the table."""
+    B, S, K = 5, 300, 2
+    kv_len = torch.tensor([1, 40, 299, 300, 77], device=cuda,
+                          dtype=torch.int32)
+    q_start = kv_len - 1
+    c = _float_cache(cuda, dtype, mode, 2, B, S, K, D, page)
+    clean, kw = _poisoned(c, mode, kv_len, page)
+    q = torch.randn(B, 1, K * G, D, device=cuda, dtype=dtype)
+    planes = _planes if mode.endswith("int8") else (lambda x: {})
+    counter = _float_counter("decode", mode)
+    before = counter.launches
+    got = attention.attention_decode(q, c.k, c.v, q_start, kv_len, 1,
+                                     window=window, kernels="cuda", **kw,
+                                     **planes(c))
+    want = attention.attention_paged_torch(q, clean.k, clean.v, q_start,
+                                           kv_len, 1, kw["table"],
+                                           window=window, **planes(clean))
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    _held_float(got, want, dtype)
+
+
+def _float_rows(cuda, dtype, B, T, K, D, new_len):
+    """New rows [B, T, K, D] with a zero row, a tiny and a large one, and
+    NaN in every row at or past new_len (never read)."""
+    x = torch.randn(B, T, K, D, device=cuda, dtype=torch.float32) * 2
+    x[0, 0, 0] = 0.0
+    x[0, 0, 1] *= 1e-3
+    x[0, 1, 0] *= 3e3
+    for b, n in enumerate(new_len.tolist()):
+        x[b, n:] = float("nan")
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", FLOAT_DTYPES, ids=str)
+@pytest.mark.parametrize("paged,snapped", [(False, False), (False, True),
+                                           (True, True)])
+@pytest.mark.parametrize("D", [16, 64, 128])
+def test_float_int8_write_bit_for_bit(cuda, dtype, paged, snapped, D):
+    """If: float rows quantized into the int8 slot cache or pool, values
+    and scales bit for bit as the plain quantizer writes them; rows past
+    new_len hold NaN, rows past S (or the table) are not written."""
+    from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+    L, B, T, K, page = 2, 4, 37, 4, 16
+    starts = torch.tensor([0, 5, 250, 290], device=cuda, dtype=torch.int32)
+    new_len = torch.tensor([37, 1, 0, 37], device=cuda, dtype=torch.int32)
+    kn = _float_rows(cuda, dtype, B, T, K, D, new_len)
+    vn = _float_rows(cuda, dtype, B, T, K, D, new_len)
+    if paged:
+        c = _int8_pool(cuda, L, B, -(-300 // page), page, K, D)
+        ref = _clone_cache(c)
+        counter = pkv.paged_kv_write_quant_float
+        before = counter.launches
+        pkv.paged_update_at_layer(c, 1, kn, vn, starts, new_len,
+                                  kernels="cuda")
+        pkv.paged_update_at_layer_torch(ref, 1, kn, vn, starts, new_len)
+    else:
+        c = _int8_slot(cuda, L, B, 300, K, D, snapped)
+        ref = _clone_cache(c)
+        counter = kvc.kv_write_quant_float
+        before = counter.launches
+        kvc.update_cache_at_layer(c, 1, kn, vn, starts, new_len,
+                                  kernels="cuda")
+        kvc.update_cache_at_layer_torch(ref, 1, kn, vn, starts, new_len)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    for name in ("k", "v", "k_scale", "v_scale"):
+        assert torch.equal(getattr(c, name), getattr(ref, name)), name
+
+
+def _nan_tailed(t):
+    """``t`` copied into the front of a larger buffer whose tail holds NaN
+    (or -128 for int8): a kernel that reads past its end shows it."""
+    flat = torch.empty(t.numel() + 4096, device=t.device, dtype=t.dtype)
+    flat.fill_(-128 if t.dtype == torch.int8 else float("nan"))
+    flat[:t.numel()] = t.reshape(-1)
+    return flat[:t.numel()].view(t.shape)
+
+
+@pytest.mark.parametrize("dtype", FLOAT_DTYPES, ids=str)
+@pytest.mark.parametrize("mode", ["int4", "int8"])
+@pytest.mark.parametrize("m,k,n,halves,out_f32", [
+    (1, 4096, 1040, 1, False), (8, 4096, 1040, 1, False),
+    (8, 4096, 1040, 1, True), (5, 1024, 688, 2, False),
+    (300, 1024, 1040, 1, False), (64, 64, 128, 2, False),
+    (512, 128, 64, 1, True)])
+def test_float_quant_matmul(cuda, dtype, mode, m, k, n, halves, out_f32):
+    """Ef / Ff against the plain versions (group 64), with NaN past the
+    ends of x and of the scales and garbage past the weights'."""
+    t = _qweight(cuda, mode, k, n, halves=halves, group=64)
+    t = quant.QuantizedTensor(_nan_tailed(t.q), _nan_tailed(t.scale),
+                              mode, 64)
+    x = _nan_tailed(torch.randn(m, k, device=cuda, dtype=dtype))
+    out_dtype = torch.float32 if out_f32 else dtype
+    counter = getattr(quant, f"{mode}_matmul_float")
+    before = counter.launches
+    got = _run_fused(t, x, out_dtype, "cuda")
+    want = _run_fused(t, x, out_dtype, "torch")
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert got.dtype == out_dtype and got.shape == (m, halves * n)
+    _held_float(got, want, dtype)
+
+
+def test_float_kernels_refuse_instead_of_falling_back(cuda):
+    """No instance, no fallback: a float16 q on the bf16-only fused paged
+    decode, a head_dim outside FLOAT_HEAD_DIMS, a float64 q, a float
+    cache of another dtype than q's."""
+    from llm_inference_engine_tpu_torch.ops import _native
+    c = _float_cache(cuda, torch.float16, "paged", 1, 2, 32, 2, 64)
+    q = torch.randn(2, 1, 4, 64, device=cuda, dtype=torch.float16)
+    new = torch.randn(2, 1, 2, 64, device=cuda, dtype=torch.float16)
+    lens = torch.ones(2, device=cuda, dtype=torch.int32)
+    with pytest.raises(TypeError, match="no torch.float16 instance"):
+        attention.attention_decode_paged_fused(
+            q, new, new, c.k, c.v, lens - 1, lens, 0, table=c.block_table)
+    q48 = torch.randn(2, 1, 4, 48, device=cuda, dtype=torch.float32)
+    c48 = torch.randn(1, 2, 32, 2, 48, device=cuda, dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match=re.escape(
+            str(_native.FLOAT_HEAD_DIMS))):
+        attention.attention(q48, c48, c48, lens - 1, lens, layer=0)
+    with pytest.raises(TypeError, match="no torch.float64 instance"):
+        attention.attention(q48.double(), c48.double(), c48.double(),
+                            lens - 1, lens, layer=0)
+    c32 = torch.randn(1, 2, 32, 2, 64, device=cuda, dtype=torch.float32)
+    with pytest.raises(TypeError, match="need torch.float16 q"):
+        attention.attention(q, c32, c32, lens - 1, lens, layer=0)

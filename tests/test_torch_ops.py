@@ -254,8 +254,12 @@ def test_decode_gate():
     c = kvc.new_kv_cache(1, 2, 2, 8, 16, dtype=torch.bfloat16)
     assert attention.can_fuse_decode((2, 1, 4, 16), c)
     assert not attention.can_fuse_decode((2, 3, 4, 16), c)
+    # a float32 (or float16) cache fuses through kernel D's float
+    # instance Df; a dtype no instance takes does not
     c32 = kvc.new_kv_cache(1, 2, 2, 8, 16, dtype=torch.float32)
-    assert not attention.can_fuse_decode((2, 1, 4, 16), c32)
+    assert attention.can_fuse_decode((2, 1, 4, 16), c32)
+    c64 = kvc.new_kv_cache(1, 2, 2, 8, 16, dtype=torch.float64)
+    assert not attention.can_fuse_decode((2, 1, 4, 16), c64)
 
 
 # ---------------------------------------------------------------------------
