@@ -43,12 +43,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    against and timed beside their plain versions and ``F.rms_norm``, 64
    calls captured in one CUDA graph: CUDA events around its replays, and
    the union of the kernels' intervals under the profiler; (3f) the float
-   instances of ``csrc/float_kernels.cu`` in float32 and float16 at 7B
-   widths (``phase_float_kernels``: D2f slot, int8 and paged, Df fused
-   and paged, If bit for bit, Ef / Ff at m 8 and 512, A, B and C on float
-   rows; head_dim 16 and 64 small), NaN planted past every tail, each
-   timed cold beside its bound (operations at the f32 or f16 rate), its
-   plain version and SDPA;
+   instances in float32 and float16 at 7B widths (``phase_float_kernels``:
+   D2f slot, int8 and paged, Df's fused slot decode, its fused paged
+   decode bit for bit H + the attend-only one (B16 at pages of 64 and
+   16, 4d's B8) and the attend-only paged decode, If bit for bit, Ef / Ff
+   at m 8 and 512, A, B and C on float rows; head_dim 16 and 64 small),
+   NaN planted past every tail, each timed cold beside its bound
+   (operations at the f32 or f16 rate), its plain version, SDPA and the
+   time of the simple instances they replaced;
 4. the main paths, each through ``create_engine`` with dummy weights (seed
    0) at full width and depth, with every launch counter set to 0 just
    before the path and read just after, and a rerun of round 1 with
@@ -259,8 +261,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
       INT4 group 64; INT8), each against the same engine on the CPU:
       greedy ids equal (float16: where they part, the card's token is the
       CPU's second there), prefill logits within FLOAT_LOGIT_REL_L2, the
-      replays equal to the eager bodies; (b) llama2-7b float16 at B 4
-      (4a's prompts, 32 tokens) and INT4 at B 8 (4b's prompts), (c)
+      replays equal to the eager bodies, a paged engine's pure-decode step
+      with no H (a float pool: Df's fused paged decode; paged == slot bit
+      for bit); (b) llama2-7b float16 at B 4 (4a's prompts, 32 tokens;
+      then paged over pages of 64, bit for bit the slot engine, its step
+      with no H, ``graph_checks``) and INT4 at B 8 (4b's prompts), (c)
       llama2-7b float32 at B 2 (7 and 700 tokens, 16 tokens): the first
       token against ``kernels="torch"`` by 4a's rule, launches per forward
       (no bf16 kernel, no plain version), ``graph_checks``;
@@ -410,9 +415,12 @@ PATH_OF.update(int4_matmul="int4", dequant_int4="int4", int8_matmul="int8",
                paged_kv_write_int8="server-kv8",
                attention_prefill_paged_int8="server-kv8",
                attention_decode_paged_int8="server-kv8")
-# The float instances (csrc/float_kernels.cu), one JSON row per counter and
-# dtype, "<counter>[f32]" and "<counter>[f16]": the TPU kernel each
-# replaces, and the 4t engine whose run gives its launches
+# The float instances, one JSON row per counter and dtype,
+# "<counter>[f32]" and "<counter>[f16]": the TPU kernel each replaces, and
+# the 4t engine whose run gives its launches (None: on no main path, left
+# out of the JSON line; the attend-only decode over a float pool, which
+# the fused paged decode replaced on the paged engines as bf16's did, is
+# held and timed in 3f as its reference)
 FLOAT_INSTANCES = {
     "attention_prefill_float": (
         "llm_inference_engine_tpu/ops/attention.py:135", "7b"),
@@ -426,8 +434,10 @@ FLOAT_INSTANCES = {
         "llm_inference_engine_tpu/ops/attention.py:569", "7b"),
     "attention_decode_float_int8": (
         "llm_inference_engine_tpu/ops/attention.py:569", "debug kv8"),
-    "attention_decode_paged_float": (
+    "attention_decode_paged_fused_float": (
         "llm_inference_engine_tpu/ops/attention.py:356", "debug paged"),
+    "attention_decode_paged_float": (
+        "llm_inference_engine_tpu/ops/attention.py:356", None),
     "attention_decode_paged_float_int8": (
         "llm_inference_engine_tpu/ops/attention.py:356", "debug paged-kv8"),
     "kv_write_quant_float": (
@@ -439,12 +449,38 @@ FLOAT_INSTANCES = {
     "int8_matmul_float": (
         "llm_inference_engine_tpu/ops/quant.py:389", "debug int8w"),
 }
-_FLOAT_SRC = ("cuda", "llm_inference_engine_tpu_torch/csrc/float_kernels.cu")
+_CSRC = "llm_inference_engine_tpu_torch/csrc/"
+
+
+def _float_source(name: str, tag: str) -> tuple:
+    """(route, source) of a float instance: D2f and Df are the f16 / f32
+    sources of kernels D2 and D, If / Ef / Ff csrc/float_kernels.cu."""
+    if name.startswith("attention_prefill"):
+        return "cuda", f"{_CSRC}attention_prefill_{tag}.cu"
+    if name.startswith("attention_decode"):
+        return "cuda", f"{_CSRC}attention_decode_{tag}.cu"
+    return "cuda", f"{_CSRC}float_kernels.cu"
+
+
 for _name, (_tpu, _engine) in FLOAT_INSTANCES.items():
     for _tag in FLOAT_DTYPE:
         REPLACES[f"{_name}[{_tag}]"] = _tpu
-        SOURCES[f"{_name}[{_tag}]"] = _FLOAT_SRC
-        PATH_OF[f"{_name}[{_tag}]"] = f"{_tag} {_engine}"
+        SOURCES[f"{_name}[{_tag}]"] = _float_source(_name, _tag)
+        PATH_OF[f"{_name}[{_tag}]"] = (None if _engine is None
+                                       else f"{_tag} {_engine}")
+# the timed 3f rows' kernel ms of the simple CUDA-core float instances
+# that D2f and Df replaced (H100 80GB HBM3, 700.00 W; PERF.md, the kernel
+# table's brackets), printed in brackets as "before"
+FLOAT_BEFORE_MS = {
+    "attention_prefill_float": (2.4693, 2.4724),
+    "attention_prefill_float_int8": (2.8992, 2.9160),
+    "attention_prefill_paged_float": (0.7396, 0.7241),
+    "attention_prefill_paged_float_int8": (0.8538, 0.8566),
+    "attention_decode_float": (0.2198, 0.1646),
+    "attention_decode_float_int8": (0.1757, 0.1757),
+    "attention_decode_paged_float": (0.6168, 0.5082),
+    "attention_decode_paged_float_int8": (0.5852, 0.5853),
+}
 # at float16 the INT4 weights' launches come from llama2-7b's (4t (b))
 PATH_OF["int4_matmul_float[f16]"] = "f16 7b int4"
 # kernels of the bf16 (and bf16-row) instances that no float path runs
@@ -1291,6 +1327,62 @@ def quant_rows(torch, dev) -> dict:
     return out
 
 
+def float_attention_rows(torch, dev) -> dict:
+    """Kernel ms (cold L2) of the float attention instances at 3f's shapes,
+    in float16 and float32, no checks: the prefill over the slot cache (B4
+    T512, C_CHUNK) and through the table (3c's B16 T64 mixed step, pages
+    of 64), the fused slot decode (B4, 4a's contexts) and the attend-only
+    paged decode (B16, DECODE_WRITE_STARTS, pages of 64).
+    ``tools/chip_kernel_ab.py --rows float`` times another tree's kernels
+    through this function, so it calls only the wrappers every tree has
+    (the fused paged float decode is new: 3f times it)."""
+    from llm_inference_engine_tpu_torch.ops import attention
+    gen = torch.Generator(device=dev).manual_seed(2020)
+    H, K, D, S = FLOAT_WIDTHS
+    out = {}
+
+    def ints(vals):
+        return torch.tensor(vals, device=dev, dtype=torch.int32)
+    for tag, name in FLOAT_DTYPE.items():
+        dtype = getattr(torch, name)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+        slot, _ = float_caches(torch, dev, gen, dtype, 1, 4, S, K, D)
+        T, st, nl = C_CHUNK
+        starts = ints(st)
+        kv_len = starts + ints(nl)
+        q = randn(4, T, H, D)
+        out[f"prefill {tag} B4 T512"] = time_ms(
+            torch, lambda: attention.attention(q, slot.k, slot.v, starts,
+                                               kv_len, layer=0,
+                                               kernels="cuda"), cold=True)
+        qs = ints([7, 129, 384, 700])
+        q1, k1, v1 = randn(4, 1, H, D), randn(4, 1, K, D), randn(4, 1, K, D)
+        out[f"decode {tag} slot B4"] = time_ms(
+            torch, lambda: attention.attention_decode_fused(
+                q1, k1, v1, slot.k, slot.v, qs, qs + 1, 0,
+                kernels="cuda"), cold=True)
+        del slot
+        pool, _ = float_caches(torch, dev, gen, dtype, 1, 16, S, K, D,
+                               page=64)
+        ms, mkv = ints(MIXED_START), ints(MIXED_START) + ints(MIXED_LEN)
+        qm = randn(16, 64, H, D)
+        out[f"prefill {tag} paged B16 T64"] = time_ms(
+            torch, lambda: attention.attention(
+                qm, pool.k, pool.v, ms, mkv, layer=0, table=pool.block_table,
+                kernels="cuda"), cold=True)
+        dq = ints(DECODE_WRITE_STARTS)
+        q16 = randn(16, 1, H, D)
+        out[f"decode {tag} paged attend-only B16"] = time_ms(
+            torch, lambda: attention.attention_decode(
+                q16, pool.k, pool.v, dq, dq + 1, 0, table=pool.block_table,
+                kernels="cuda"), cold=True)
+        del pool
+        torch.cuda.empty_cache()
+    return out
+
+
 def quant_case(torch, dev, gen, results, mode, m, label,
                shapes=QUANT_SHAPES, tag="", poison=False):
     """Kernel E (``mode`` int4) or F (int8) for x [m, k] times the
@@ -1531,11 +1623,17 @@ def _short(kernel_name: str) -> str:
     return name.split("(")[0][:60]
 
 
-# device time by group of kernels (profiler names, first match wins):
-# kernel D2 (the prefill modes), kernel D (the decode modes), E/F, G,
-# cuBLAS, the K/V row writes C, H, I (kv_write_kernel: C and H;
-# kv_write_quant_kernel: I and H's int8 mode), kernels A and B
-KERNEL_GROUPS = (("D2", ("attention_prefill_kernel",)),
+# device time by group of kernels (profiler names, first match wins): the
+# float16 / float32 instances of D2 and D (D2f/Df: the same templates over
+# __half or float, and the f32 prefill kernel), kernel D2 (the prefill
+# modes), kernel D (the decode modes), E/F, G, cuBLAS, the K/V row writes
+# C, H, I (kv_write_kernel: C and H; kv_write_quant_kernel: I and H's int8
+# mode), kernels A and B, the float matmuls Ef/Ff
+KERNEL_GROUPS = (("D2f/Df", ("attention_prefill_kernel<__half",
+                             "attention_prefill_f32_kernel",
+                             "attention_decode_kernel<__half",
+                             "attention_decode_kernel<float")),
+                 ("D2", ("attention_prefill_kernel",)),
                  ("D", ("attention_decode_kernel",)),
                  ("E/F", ("quant_matmul_decode", "quant_matmul_prefill")),
                  ("G", ("dequant_int4_kernel",)),
@@ -1543,7 +1641,6 @@ KERNEL_GROUPS = (("D2", ("attention_prefill_kernel",)),
                  ("writes", ("kv_write",)),
                  ("A", ("rmsnorm_kernel",)),
                  ("B", ("silu_mul_kernel",)),
-                 ("D2f/Df", ("attend_float_kernel",)),
                  ("Ef/Ff", ("quant_matmul_float",)))
 # the torch glue of a decode step (the kernels outside KERNEL_GROUPS), by
 # where the eager body launched them: RoPE (ops/rope.py's rope_cos_sin and
@@ -6924,7 +7021,8 @@ def phase_examples(torch, dev) -> None:
 
 
 # ---------------------------------------------------------------------------
-# 3f and 4t: the float instances (csrc/float_kernels.cu)
+# 3f and 4t: the float instances (D2f and Df: csrc/attention_*_f16.cu and
+# _f32.cu; If, Ef and Ff: csrc/float_kernels.cu)
 # ---------------------------------------------------------------------------
 
 def scale_planes(cache, **kw) -> dict:
@@ -7032,14 +7130,17 @@ def phase_float_kernels(torch, dev, results) -> None:
     x and of the scales: D2f at B4 T512 (slot, int8 slot) and at 3c's B16
     T64 mixed step over pools of page 64 (float and int8); Df's fused slot
     decode at B4 over 4a's contexts (float and int8, the write bit for
-    bit) and its attend-only paged decode at B16; If at 8 x 512 (2254
+    bit), its fused paged decode (B16 at pages of 64 and 16, 4d's B8; pool
+    and output bit for bit H then the attend-only decode) and its
+    attend-only paged decode at B16; If at 8 x 512 (2254
     rows) in both numerics and through the table at 3c's mixed step, bit
     for bit; Ef / Ff at m 8 and 512 on wqkv and down; A, B and C on float
     rows; then head_dim 16 and 64 at small shapes. Each timed row: its
     time (CUDA events, cold L2), its bound (bytes at the HBM rate,
-    operations at FLOAT_OPS_PER_S), its plain version's time and, on a
-    float cache, SDPA's (and ``_weight_int8pack_mm`` for Ff where this
-    torch takes the dtype)."""
+    operations at FLOAT_OPS_PER_S), its plain version's time, the time
+    before the redesign (FLOAT_BEFORE_MS) and, on a float cache, SDPA's (and
+    ``_weight_int8pack_mm`` for Ff where this torch takes the dtype). D2f
+    and Df's plans print beside their rows."""
     import torch.nn.functional as F
 
     from llm_inference_engine_tpu_torch.ops import activations, attention
@@ -7062,6 +7163,9 @@ def phase_float_kernels(torch, dev, results) -> None:
             return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
 
         def held(name, got, want, case, timed=None, work=None, library=None):
+            before = FLOAT_BEFORE_MS.get(name)
+            if timed is not None and before is not None:
+                case += f" [before: {before[list(FLOAT_DTYPE).index(tag)]}]"
             float_held(torch, results, f"{name}[{tag}]", got, want,
                        f"{tag} {case}", tag, timed,
                        None if work is None else (*work, rate), library)
@@ -7118,6 +7222,9 @@ def phase_float_kernels(torch, dev, results) -> None:
 
         # D2f: B4 T512 over the slot cache (4a's chunk shape), float and
         # int8, NaN past kv_len
+        for int8 in (False, True):
+            say(f"  prefill plan {tag} D{D}{' int8' if int8 else ''}: "
+                + str(attention.prefill_plan(D, int8=int8, dtype=dtype)))
         q = randn(4, T, H, D)
         for name, c in (("attention_prefill_float", cache_copy(slot)),
                         ("attention_prefill_float_int8", cache_copy(slot8))):
@@ -7143,6 +7250,8 @@ def phase_float_kernels(torch, dev, results) -> None:
         # bit for bit; NaN from q_start on (the write must land first)
         qs = ints([7, 129, 384, 700])
         dkv = qs + 1
+        say_plan(attention, f"{tag} slot B4 H{H} K{K} D{D}", 4, H, K, D,
+                 dtype=dtype)
         q1, k1, v1 = randn(4, 1, H, D), randn(4, 1, K, D), randn(4, 1, K, D)
         for name, c in (("attention_decode_float", slot),
                         ("attention_decode_float_int8", slot8)):
@@ -7272,7 +7381,80 @@ def phase_float_kernels(torch, dev, results) -> None:
                  library)
             del c, clean
 
-        # Df's attend-only paged decode at B16 (the pool holds the token)
+        # Df's fused paged decode (a float pool's decode step): B16 at
+        # kv_len 2-2048 over pages of 64 (the server's shape: the JSON row)
+        # and 16, and 4d's B8 at 4b's contexts over pages of 64; NaN in
+        # every pool row no key below kv_len maps to; the pool and the
+        # output bit for bit kernel H then the attend-only decode on a copy,
+        # the output against the plain version on a clean copy
+        hist = [p + 16 + f + 16 for p, f in zip(QUANT_PROMPTS, QUANT_FOLLOW)]
+        for B, page, starts in ((16, 64, DECODE_WRITE_STARTS),
+                                (16, 16, DECODE_WRITE_STARTS),
+                                (8, 64, hist)):
+            fp, _ = float_caches(torch, dev, gen, dtype, 1, B, S, K, D,
+                                 page=page)
+            fq = ints(starts)
+            fkv = fq + 1
+            clean = plant_nan(torch, fp, fkv, page)
+            split = cache_copy(fp)
+            tbl = fp.block_table
+            q16, kn, vn = randn(B, 1, H, D), randn(B, 1, K, D), \
+                randn(B, 1, K, D)
+            say_plan(attention, f"{tag} paged B{B} H{H} K{K} D{D} page "
+                     f"{page}", B, H, K, D, page=page,
+                     max_pages=tbl.shape[1], dtype=dtype)
+
+            def fused(fp=fp, q16=q16, kn=kn, vn=vn, fq=fq, fkv=fkv, tbl=tbl):
+                return attention.attention_decode_paged_fused(
+                    q16, kn, vn, fp.k, fp.v, fq, fkv, 0, table=tbl,
+                    kernels="cuda")[0]
+
+            def write_then_attend(split=split, q16=q16, kn=kn, vn=vn, fq=fq,
+                                  fkv=fkv, tbl=tbl):
+                pkv.paged_update_at_layer(split, 0, kn, vn, fq,
+                                          torch.ones_like(fq),
+                                          kernels="cuda")
+                return attention.attention_decode(
+                    q16, split.k, split.v, fq, fkv, 0, table=tbl,
+                    kernels="cuda")
+
+            def plain(clean=clean, q16=q16, kn=kn, vn=vn, fq=fq, fkv=fkv,
+                      tbl=tbl):
+                return attention.attention_decode_paged_fused_torch(
+                    q16, kn, vn, clean.k, clean.v, fq, fkv, 0, table=tbl)[0]
+            got, want = fused(), write_then_attend()
+            torch.cuda.synchronize()
+            bits = lambda t: t.view(  # noqa: E731
+                torch.int16 if esz == 2 else torch.int32)
+            if not (torch.equal(bits(fp.k), bits(split.k))
+                    and torch.equal(bits(fp.v), bits(split.v))
+                    and torch.equal(bits(got), bits(want))):
+                raise AssertionError(f"attention_decode_paged_fused_float "
+                                     f"{tag} B{B} page {page}: pool or "
+                                     "output differs from H then the "
+                                     "attend-only decode")
+            two = time_ms(torch, write_then_attend, cold=True)
+            alone = time_ms(torch, lambda: attention.attention_decode(
+                q16, split.k, split.v, fq, fkv, 0, table=tbl,
+                kernels="cuda"), cold=True)
+            dk = gather_pages(clean.k, 0, tbl)
+            dv = gather_pages(clean.v, 0, tbl)
+            library = sdpa_ms(torch, q16, dk, dv, fq, fkv)
+            del dk, dv
+            held("attention_decode_paged_fused_float", got, plain(),
+                 f"B{B} H{H} K{K} page {page} kv_len {min(starts) + 1}-"
+                 f"{max(starts) + 1} NaN outside the table (bits equal H + "
+                 f"attend-only, {two:.4f} ms; attend-only alone "
+                 f"{alone:.4f} ms)", timed(fused, plain),
+                 attn_work(starts, fkv.tolist(), 1, H, K, D, kv_elem=esz,
+                           q_elem=esz, new_rows=B * 2 * K * D * esz * 2),
+                 library)
+            del fp, clean, split
+        torch.cuda.empty_cache()
+
+        # Df's attend-only paged decode at B16 (the pool holds the token):
+        # a float pool's reference order (the engine fuses its write), and
+        # the int8 pool's decode after If
         dq = ints(DECODE_WRITE_STARTS)
         dk_len = dq + 1
         q16 = randn(16, 1, H, D)
@@ -7458,6 +7640,62 @@ def float_first_token(torch, label, logits, logits_ref):
     return differ
 
 
+def float_paged_step(torch, engine, label, prompts, layers, kv8):
+    """The launches of one pure-decode step (eager) of a paged float
+    engine: over a pool of the model's dtype Df's fused paged decode a
+    layer and no H; over an int8 pool If and the attend-only int8 decode a
+    layer."""
+    import numpy as np
+
+    from llm_inference_engine_tpu_torch.config import SamplingParams
+    from llm_inference_engine_tpu_torch.runtime.decode_graph import (
+        run_eagerly)
+    engine.reset()
+    toks = engine.prefill(prompts).argmax(-1).to(torch.int32)
+    counters = _zero_counters()
+    with run_eagerly(engine):
+        engine.decode_step(toks, np.ones(len(prompts), bool),
+                           SamplingParams(greedy=True))
+    step = _launch_counts(counters)
+    engine.reset()
+    want = ({"paged_kv_write_quant_float": layers,
+             "attention_decode_paged_float_int8": layers} if kv8 else
+            {"attention_decode_paged_fused_float": layers})
+    bad = {k: step.get(k, 0) for k in want if step.get(k, 0) != want[k]}
+    h = step.get("paged_kv_write", 0)
+    say(f"  {label}: launches a pure-decode step {step} (kernel H: {h})")
+    if bad or h:
+        raise AssertionError(f"{label}: a decode step launched {bad} "
+                             f"(want {want}) and H {h} times")
+
+
+def float_paged_vs_slot(torch, dev, label, cfg, eng, params, prompts,
+                        greedy, page=None):
+    """A paged float engine (D2f through the table, Df's fused paged
+    decode) against the slot engine of the same params and chunking on
+    the card: prefill logits and greedy ids bit for bit."""
+    from llm_inference_engine_tpu_torch.runtime.engine import InferenceEngine
+    kw = dict(kv_layout="paged") if page is None else dict(
+        kv_layout="paged", page_size=page)
+    paged = InferenceEngine(cfg, eng.replace(**kw), params, device=dev)
+    slot = InferenceEngine(cfg, eng.replace(kv_layout="slot"), params,
+                           device=dev)
+    lp, ls = paged.prefill(prompts), slot.prefill(prompts)
+    paged.reset()
+    slot.reset()
+    rp = paged.generate(prompts, greedy, eos_token_id=None).token_ids
+    rs = slot.generate(prompts, greedy, eos_token_id=None).token_ids
+    same = torch.equal(lp, ls)
+    say(f"  {label} paged == slot (page {paged.cache.k.shape[2]}): prefill "
+        f"logits torch.equal {same} (max abs diff "
+        f"{(lp - ls).abs().max().item():.3e}); greedy ids equal {rp == rs}")
+    del paged, slot
+    torch.cuda.empty_cache()
+    if not same or rp != rs:
+        raise AssertionError(f"{label}: the paged engine differs from the "
+                             "slot engine")
+
+
 def debug_engine_check(torch, dev, results, tag, cfg, etag, eng, cpu_params,
                        prompts, greedy):
     """4t (a): one debug-preset engine on the card against the same engine
@@ -7512,6 +7750,12 @@ def debug_engine_check(torch, dev, results, tag, cfg, etag, eng, cpu_params,
                  else ("kv_write",))
     float_path_launches(f"4t (a) {tag} debug {etag}", counters, tag,
                         f"debug {etag}", expected, results)
+    if paged:
+        float_paged_step(torch, card, f"4t (a) {tag} debug {etag}", prompts,
+                         cfg.num_layers, kv8)
+    if paged and not kv8:
+        float_paged_vs_slot(torch, dev, f"4t (a) {tag} debug", cfg, eng,
+                            card.params, prompts, greedy)
     agree = sum(a == b for x, y in zip(got, want) for a, b in zip(x, y))
     say(f"  4t (a) {tag} debug {etag}: prefill logits rel L2 card vs CPU "
         f"{rel:.3e} (limit {FLOAT_LOGIT_REL_L2[tag]}); greedy ids equal: "
@@ -7540,13 +7784,15 @@ def debug_engine_check(torch, dev, results, tag, cfg, etag, eng, cpu_params,
 
 
 def float_7b(torch, dev, results, tag, label, engine_tag, cfg, eng, params,
-             prompt_lens, greedy_tokens):
+             prompt_lens, greedy_tokens, page=None):
     """4t (b) / (c): llama2-7b at full width in a float dtype through the
     float instances: prefill logits and the first greedy token held to
     kernels="torch" on the card (float_first_token), ``greedy_tokens``
     greedy tokens, the launches per prefill and per decode step (no bf16
     kernel, no plain version), graph_checks (replayed step wall and card
-    busy ms, tok/s)."""
+    busy ms, tok/s). With ``page``, then a paged engine of the same params
+    (pages of ``page``): paged == slot bit for bit, its launches a decode
+    step (Df's fused paged decode, no H) and its graph_checks."""
     import numpy as np
 
     from llm_inference_engine_tpu_torch.config import SamplingParams
@@ -7613,7 +7859,26 @@ def float_7b(torch, dev, results, tag, label, engine_tag, cfg, eng, params,
     if [o[0] for o in r.token_ids] != logits.argmax(-1).tolist():
         raise AssertionError(f"{label}: generate's first token is not the "
                              "prefill argmax")
+    params = engine.params
     del engine
+    torch.cuda.empty_cache()
+    if page is None:
+        return
+    greedy = SamplingParams(greedy=True, max_new_tokens=greedy_tokens)
+    float_paged_vs_slot(torch, dev, f"4t {label}", cfg, eng, params, prompts,
+                        greedy, page)
+    paged = InferenceEngine(cfg, eng.replace(kv_layout="paged",
+                                             page_size=page), params,
+                            device=dev)
+    float_paged_step(torch, paged, f"4t {label} paged", prompts,
+                     cfg.num_layers, False)
+    r = paged.generate(prompts, SamplingParams(
+        greedy=True, max_new_tokens=greedy_tokens), eos_token_id=None)
+    toks = torch.tensor([o[-1] for o in r.token_ids], device=dev,
+                        dtype=torch.int32)
+    graph_checks(torch, paged, f"4t {tag} {engine_tag} paged", toks, active,
+                 prompts)
+    del paged
     torch.cuda.empty_cache()
 
 
@@ -7664,7 +7929,7 @@ def phase_float_models(torch, dev, results) -> None:
     float_7b(torch, dev, results, "f16", "(b) llama2-7b float16", "7b", cfg,
              EngineConfig(max_batch_size=4, max_seq_len=2048),
              W.init_dummy_params(cfg, seed=0, device=dev), (7, 129, 384, 700),
-             32)
+             32, page=64)
     torch.cuda.empty_cache()
     float_7b(torch, dev, results, "f16", "(b) llama2-7b float16 INT4",
              "7b int4", cfg, EngineConfig(quant_mode="int4", max_batch_size=8,

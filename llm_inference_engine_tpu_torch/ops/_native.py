@@ -31,11 +31,12 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
-# head_dim of every attention and int8-write kernel instance (the
-# ``switch (D)`` of each source; a test holds them equal)
+# head_dim of every bf16 attention and int8-write kernel instance (the
+# ``switch (D)`` of each bf16 source; a test holds them equal)
 HEAD_DIMS = (64, 80, 96, 128, 256)
-# head_dim of the float instances (csrc/float_kernels.cu, f16 and f32:
-# a runtime argument; the debug preset's 16 and every bf16 head dim)
+# head_dim of the float16 and float32 instances (the ``switch (D)`` of
+# csrc/attention_*_f16.cu and _f32.cu; csrc/float_kernels.cu takes it as a
+# runtime argument): the debug preset's 16 and every bf16 head dim
 FLOAT_HEAD_DIMS = (16,) + HEAD_DIMS
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -117,12 +118,6 @@ _SIGNATURES = {
     "rmsnorm": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     # gate_up, out, n, inter, dtype, stream
     "silu_and_mul": [_P, _P, _I, _I, _I, _P],
-    # q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, out, q_start,
-    # kv_len, table (null pointers pick the mode), layer, B, T, H, K,
-    # S (or P), page, max_pages, D, dtype, sm_scale, window, snapped, stream
-    "attention_float": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
-                        _P],
     # k_new, v_new, k_cache, v_cache, k_scale, v_scale, starts, new_len,
     # table (null: slot), layer, B, T, K, S (or P), page, max_pages, D,
     # dtype, snapped, stream
@@ -133,6 +128,19 @@ _SIGNATURES = {
     "quant_matmul_float": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L,
                            _I, _I, _I, _I, _I, _P],
 }
+# the float16 and float32 instances of kernels D2 and D
+# (csrc/attention_{prefill,decode}_{f16,f32}.cu): the bf16 entry points'
+# signatures, the name suffixed with the dtype's (ATTENTION_SUFFIX)
+ATTENTION_ENTRIES = (
+    "attention_prefill", "attention_prefill_paged", "attention_prefill_int8",
+    "attention_prefill_paged_int8", "attention_prefill_plan",
+    "attention_decode", "attention_decode_paged_fused",
+    "attention_decode_paged", "attention_decode_int8",
+    "attention_decode_paged_int8", "attention_decode_plan")
+ATTENTION_SUFFIX = {"bfloat16": "", "float16": "_f16", "float32": "_f32"}
+for _name in ATTENTION_ENTRIES:
+    for _suffix in ("_f16", "_f32"):
+        _SIGNATURES[_name + _suffix] = _SIGNATURES[_name]
 
 
 def nvcc_path() -> str:

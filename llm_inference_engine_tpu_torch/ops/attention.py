@@ -26,7 +26,7 @@ Port of ``llm_inference_engine_tpu/ops/attention.py`` over the slot cache
   cache IN PLACE (an int8 cache: quantized in the cache's numerics, with
   its scale) and attends history plus the new token;
 - :func:`attention_decode_paged_fused` (one new token per sequence,
-  bf16 paged pool) runs kernel D's fused paged mode
+  a paged pool of q's dtype) runs kernel D's fused paged mode
   (``attention_decode_paged_fused``) in place of the TPU kernels
   ``_paged_write_kernel`` and ``_decode_mxu_kernel`` (``_attention_decode_mxu``
   with a table), which the JAX package runs one after the other: it
@@ -37,8 +37,8 @@ Port of ``llm_inference_engine_tpu/ops/attention.py`` over the slot cache
   (``attention_decode_paged``: the fused paged instance given no new
   rows; int8: :func:`attention_decode_int8`) in place of
   ``_decode_mxu_kernel``; the engine takes it for the int8 pool (after
-  kernel H's int8 mode), and the bf16 one serves as the JAX package's
-  order that the fused mode is held against. The paged modes' split plan and summation
+  kernel H's int8 mode or If), and over a pool of q's dtype it serves as
+  the JAX package's order that the fused mode is held against. The paged modes' split plan and summation
   order are the slot mode's (:func:`decode_plan`), so a paged engine
   reproduces a slot engine bit for bit.
 
@@ -47,15 +47,18 @@ Every bf16 kernel is built for the head dims ``_native.HEAD_DIMS`` (64,
 CUDA tensor.
 
 A float16 or float32 q (and a cache of its dtype, or int8) takes the
-float instances D2f and Df of ``csrc/float_kernels.cu`` (one entry
-point, ``attention_float``; f32 math on the CUDA cores; head_dim
-``_native.FLOAT_HEAD_DIMS``): each wrapper below hands such a q to its
-counted launcher (``attention_prefill_float``, ``..._float_int8``,
+float instances D2f and Df of the same kernels (head_dim
+``_native.FLOAT_HEAD_DIMS``; the entry points of the bf16 ones with the
+dtype's suffix, ``_native.ATTENTION_SUFFIX``): float16 prefill on D2's
+tensor-core template (``csrc/attention_prefill_f16.cu``), float32 prefill
+on a register-tiled CUDA-core kernel (``csrc/attention_prefill_f32.cu``),
+both decodes on D's split-KV template (``csrc/attention_decode_f16.cu``,
+``_f32.cu``). Each wrapper below hands such a q to its counted launcher
+(``attention_prefill_float``, ``..._float_int8``,
 ``attention_prefill_paged_float[_int8]``, ``attention_decode_float[_int8]``
-for the fused slot decode, ``attention_decode_paged_float[_int8]`` for
-the attend-only paged decode). The fused paged decode has no float
-instance: a float pool's token is written by kernel H, then attended.
-Any other dtype raises, naming the instances.
+for the fused slot decode, ``attention_decode_paged_fused_float`` for the
+fused paged decode, ``attention_decode_paged_float[_int8]`` for the
+attend-only paged decode). Any other dtype raises, naming the instances.
 
 Each int8 mode is a wrapper of its own with its own launch counter.
 
@@ -67,8 +70,8 @@ the JAX package's static ``kv_hi`` watermark has no counterpart.
 
 Under tensor parallelism every mode runs on a model rank's local heads
 (``parallel/sharding.py``), the decode fused as on one device. The
-engine never runs the attend-only decode over a slot cache or a bf16
-pool: it fuses their decode (:func:`can_fuse_decode`,
+engine never runs the attend-only decode over a slot cache or a pool of
+the model's dtype: it fuses their decode (:func:`can_fuse_decode`,
 :func:`can_fuse_paged_decode`).
 """
 
@@ -232,50 +235,65 @@ def _scale_of(sm_scale, D):
     return float(sm_scale if sm_scale is not None else 1.0 / math.sqrt(D))
 
 
-def _launch_float(name: str, q, k_cache, v_cache, q_start, kv_len, layer,
-                  *, table=None, k_scale=None, v_scale=None, k_new=None,
-                  v_new=None, snapped: bool = False,
-                  sm_scale: Optional[float] = None,
-                  window: Optional[int] = None) -> torch.Tensor:
-    """One launch of D2f or Df (``attention_float`` in
-    ``csrc/float_kernels.cu``) for a float16 or float32 q: ``table`` picks
-    the pool, scale planes an int8 cache, ``k_new``/``v_new`` the slot
-    decode that writes the token first (in place). Returns out."""
-    if q.dtype not in FLOAT_DTYPES:
-        raise TypeError(f"{name}: the float instance takes a float16 or "
-                        f"float32 q, got {q.dtype}")
+def _entry(name: str, dtype: torch.dtype) -> str:
+    """The C entry point ``name`` of kernel D2 or D for a q of ``dtype``:
+    the bf16 instance's name, or the float16 / float32 one's (suffixed,
+    ``_native.ATTENTION_SUFFIX``)."""
+    return name + _native.ATTENTION_SUFFIX[str(dtype).split(".")[-1]]
+
+
+def _launch(entry: str, q, k_cache, v_cache, q_start, kv_len, layer, *,
+            table=None, k_scale=None, v_scale=None, k_new=None, v_new=None,
+            snapped: Optional[bool] = None,
+            sm_scale: Optional[float] = None,
+            window: Optional[int] = None) -> torch.Tensor:
+    """One launch of the C entry point ``entry`` of kernel D2 or D
+    (``csrc/attention_*.cu``) in q's dtype: the bf16 instance, or the
+    float16 / float32 one (``entry`` with ``_native.ATTENTION_SUFFIX``).
+    ``table`` picks the pool, scale planes an int8 cache, ``k_new`` /
+    ``v_new`` a fused decode that writes the token first (in place),
+    ``snapped`` an int8 slot decode's numerics. Returns out."""
     _check(q, k_cache, v_cache, q_start, kv_len, layer, table, k_scale,
            v_scale)
     if k_new is not None:
         _check_new_rows(q, k_new, v_new, k_cache)
     B, T, H, D = q.shape
     K = k_cache.shape[3]
-    if table is None:                  # [L, B, S, K, D]
-        rows, page, max_pages = k_cache.shape[2], 0, 0
-    else:                              # [L, P, page, K, D]
-        rows, page, max_pages = k_cache.shape[1], k_cache.shape[2], \
-            table.shape[1]
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
     out = torch.empty_like(q)
-    status = _native.library().attention_float(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ptr(k_scale),
-        ptr(v_scale), ptr(k_new), ptr(v_new), out.data_ptr(),
-        q_start.data_ptr(), kv_len.data_ptr(), ptr(table), int(layer), B, T,
-        H, K, rows, page, max_pages, D, _native.dtype_code(q.dtype),
-        _scale_of(sm_scale, D), int(window or 0), int(snapped),
-        _native.stream_of(q))
+    args = [q.data_ptr()]
+    if k_new is not None:
+        args += [k_new.data_ptr(), v_new.data_ptr()]
+    args += [k_cache.data_ptr(), v_cache.data_ptr()]
+    if k_scale is not None:
+        args += [k_scale.data_ptr(), v_scale.data_ptr()]
+    args += [out.data_ptr(), q_start.data_ptr(), kv_len.data_ptr()]
+    if table is not None:
+        args.append(table.data_ptr())
+    args += [int(layer), B] + ([T] if entry.startswith("attention_prefill")
+                               else []) + [H, K]
+    if table is None:                  # [L, B, S, K, D]: S
+        args.append(k_cache.shape[2])
+    else:                              # [L, P, page, K, D]: P, page, pages
+        args += [k_cache.shape[1], k_cache.shape[2], table.shape[1]]
+    args += [D, _scale_of(sm_scale, D), int(window or 0)]
+    if snapped is not None:
+        args.append(int(snapped))
+    name = _entry(entry, q.dtype)
+    status = getattr(_native.library(), name)(*args, _native.stream_of(q))
     _native.check(status, name)
     return out
 
 
-def _float_instance(name: str, doc: str):
+def _float_instance(name: str, entry: str, doc: str):
     """A counted launcher of one mode of D2f/Df (its own ``launches``):
-    the wrappers below call it on a float16 or float32 CUDA q."""
+    the wrappers below call it on a float16 or float32 CUDA q; it runs
+    ``entry`` of q's dtype."""
     def instance(q, k_cache, v_cache, q_start, kv_len, layer, **kw):
-        out = _launch_float(name, q, k_cache, v_cache, q_start, kv_len,
-                            layer, **kw)
+        if q.dtype not in FLOAT_DTYPES:
+            raise TypeError(f"{name}: the float instance takes a float16 or "
+                            f"float32 q, got {q.dtype}")
+        out = _launch(entry, q, k_cache, v_cache, q_start, kv_len, layer,
+                      **kw)
         instance.launches += 1
         kernel_output(name, out)
         if kw.get("k_new") is not None:
@@ -291,30 +309,34 @@ def _float_instance(name: str, doc: str):
 
 
 attention_prefill_float = _float_instance(
-    "attention_prefill_float",
+    "attention_prefill_float", "attention_prefill",
     "Kernel D2f over a float slot cache (prefill, chunk, mixed steps).")
 attention_prefill_float_int8 = _float_instance(
-    "attention_prefill_float_int8",
+    "attention_prefill_float_int8", "attention_prefill_int8",
     "Kernel D2f over an int8 slot cache with its scale planes.")
 attention_prefill_paged_float = _float_instance(
-    "attention_prefill_paged_float",
+    "attention_prefill_paged_float", "attention_prefill_paged",
     "Kernel D2f over a float pool through the block table.")
 attention_prefill_paged_float_int8 = _float_instance(
-    "attention_prefill_paged_float_int8",
+    "attention_prefill_paged_float_int8", "attention_prefill_paged_int8",
     "Kernel D2f over an int8 pool through the block table.")
 attention_decode_float = _float_instance(
-    "attention_decode_float",
+    "attention_decode_float", "attention_decode",
     "Kernel Df over a float slot cache: write the token's row, attend.")
 attention_decode_float_int8 = _float_instance(
-    "attention_decode_float_int8",
+    "attention_decode_float_int8", "attention_decode_int8",
     "Kernel Df over an int8 slot cache: quantize and write the token's "
     "row (kernel If's bits), attend.")
+attention_decode_paged_fused_float = _float_instance(
+    "attention_decode_paged_fused_float", "attention_decode_paged_fused",
+    "Kernel Df over a float pool: write the token's row through the block "
+    "table (kernel H's rules), attend.")
 attention_decode_paged_float = _float_instance(
-    "attention_decode_paged_float",
+    "attention_decode_paged_float", "attention_decode_paged",
     "Kernel Df's attend-only decode over a float pool (kernel H wrote the "
-    "token).")
+    "token): the fused paged instance given no new rows.")
 attention_decode_paged_float_int8 = _float_instance(
-    "attention_decode_paged_float_int8",
+    "attention_decode_paged_float_int8", "attention_decode_paged_int8",
     "Kernel Df's attend-only decode over an int8 pool (kernel If wrote "
     "the token).")
 
@@ -352,15 +374,8 @@ def attention(q, k_cache, v_cache, q_start, kv_len, *,
         return attention_prefill_float(q, k_cache, v_cache, q_start, kv_len,
                                        layer, sm_scale=sm_scale,
                                        window=window)
-    _check(q, k_cache, v_cache, q_start, kv_len, layer)
-    B, T, H, D = q.shape
-    _, _, S, K, _ = k_cache.shape
-    out = torch.empty_like(q)
-    status = _native.library().attention_prefill(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        q_start.data_ptr(), kv_len.data_ptr(), int(layer), B, T, H, K, S, D,
-        _scale_of(sm_scale, D), int(window or 0), _native.stream_of(q))
-    _native.check(status, "attention_prefill")
+    out = _launch("attention_prefill", q, k_cache, v_cache, q_start, kv_len,
+                  layer, sm_scale=sm_scale, window=window)
     attention.launches += 1
     kernel_output("attention_prefill", out)
     return out
@@ -387,43 +402,15 @@ def attention_int8(q, k_cache, v_cache, q_start, kv_len, *, k_scale,
         return attention_prefill_float_int8(
             q, k_cache, v_cache, q_start, kv_len, layer, k_scale=k_scale,
             v_scale=v_scale, sm_scale=sm_scale, window=window)
-    _check(q, k_cache, v_cache, q_start, kv_len, layer, k_scale=k_scale,
-           v_scale=v_scale)
-    B, T, H, D = q.shape
-    _, _, S, K, _ = k_cache.shape
-    out = torch.empty_like(q)
-    status = _native.library().attention_prefill_int8(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(),
-        q_start.data_ptr(), kv_len.data_ptr(), int(layer), B, T, H, K, S, D,
-        _scale_of(sm_scale, D), int(window or 0), _native.stream_of(q))
-    _native.check(status, "attention_prefill_int8")
+    out = _launch("attention_prefill_int8", q, k_cache, v_cache, q_start,
+                  kv_len, layer, k_scale=k_scale, v_scale=v_scale,
+                  sm_scale=sm_scale, window=window)
     attention_int8.launches += 1
     kernel_output("attention_prefill_int8", out)
     return out
 
 
 attention_int8.launches = 0
-
-
-def _launch_paged(entry: str, q, k_pool, v_pool, q_start, kv_len, layer,
-                  table, sm_scale, window, k_scale=None, v_scale=None):
-    _check(q, k_pool, v_pool, q_start, kv_len, layer, table, k_scale,
-           v_scale)
-    B, T, H, D = q.shape
-    _, P, page, K, _ = k_pool.shape
-    out = torch.empty_like(q)
-    shape = (B, T, H, K) if entry.startswith("attention_prefill") \
-        else (B, H, K)
-    scales = () if k_scale is None else (k_scale.data_ptr(),
-                                         v_scale.data_ptr())
-    status = getattr(_native.library(), entry)(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *scales,
-        out.data_ptr(), q_start.data_ptr(), kv_len.data_ptr(),
-        table.data_ptr(), int(layer), *shape, P, page, table.shape[1], D,
-        _scale_of(sm_scale, D), int(window or 0), _native.stream_of(q))
-    _native.check(status, entry)
-    return out
 
 
 def attention_prefill_paged(q, k_pool, v_pool, q_start, kv_len, layer: int,
@@ -452,8 +439,9 @@ def attention_prefill_paged(q, k_pool, v_pool, q_start, kv_len, layer: int,
         return attention_prefill_paged_float(
             q, k_pool, v_pool, q_start, kv_len, layer, table=table,
             sm_scale=sm_scale, window=window)
-    out = _launch_paged("attention_prefill_paged", q, k_pool, v_pool,
-                        q_start, kv_len, layer, table, sm_scale, window)
+    out = _launch("attention_prefill_paged", q, k_pool, v_pool, q_start,
+                  kv_len, layer, table=table, sm_scale=sm_scale,
+                  window=window)
     attention_prefill_paged.launches += 1
     kernel_output("attention_prefill_paged", out)
     return out
@@ -479,9 +467,9 @@ def attention_prefill_paged_int8(q, k_pool, v_pool, q_start, kv_len,
             q, k_pool, v_pool, q_start, kv_len, layer, table=table,
             k_scale=k_scale, v_scale=v_scale, sm_scale=sm_scale,
             window=window)
-    out = _launch_paged("attention_prefill_paged_int8", q, k_pool, v_pool,
-                        q_start, kv_len, layer, table, sm_scale, window,
-                        k_scale, v_scale)
+    out = _launch("attention_prefill_paged_int8", q, k_pool, v_pool,
+                  q_start, kv_len, layer, table=table, k_scale=k_scale,
+                  v_scale=v_scale, sm_scale=sm_scale, window=window)
     attention_prefill_paged_int8.launches += 1
     kernel_output("attention_prefill_paged_int8", out)
     return out
@@ -521,8 +509,9 @@ def attention_decode(q, k_pool, v_pool, q_start, kv_len, layer: int, *,
         return attention_decode_paged_float(
             q, k_pool, v_pool, q_start, kv_len, layer, table=table,
             sm_scale=sm_scale, window=window)
-    out = _launch_paged("attention_decode_paged", q, k_pool, v_pool,
-                        q_start, kv_len, layer, table, sm_scale, window)
+    out = _launch("attention_decode_paged", q, k_pool, v_pool, q_start,
+                  kv_len, layer, table=table, sm_scale=sm_scale,
+                  window=window)
     attention_decode.launches += 1
     kernel_output("attention_decode_paged", out)
     return out
@@ -549,9 +538,9 @@ def attention_decode_int8(q, k_pool, v_pool, q_start, kv_len, layer: int,
             q, k_pool, v_pool, q_start, kv_len, layer, table=table,
             k_scale=k_scale, v_scale=v_scale, sm_scale=sm_scale,
             window=window)
-    out = _launch_paged("attention_decode_paged_int8", q, k_pool, v_pool,
-                        q_start, kv_len, layer, table, sm_scale, window,
-                        k_scale, v_scale)
+    out = _launch("attention_decode_paged_int8", q, k_pool, v_pool,
+                  q_start, kv_len, layer, table=table, k_scale=k_scale,
+                  v_scale=v_scale, sm_scale=sm_scale, window=window)
     attention_decode_int8.launches += 1
     kernel_output("attention_decode_paged_int8", out)
     return out
@@ -561,30 +550,36 @@ attention_decode_int8.launches = 0
 
 
 def decode_plan(B: int, H: int, K: int, D: int, *, int8: bool = False,
-                page: int = 0, max_pages: int = 0) -> dict:
+                page: int = 0, max_pages: int = 0,
+                dtype: torch.dtype = torch.bfloat16) -> dict:
     """Kernel D's split plan for a decode launch at these shapes (a paged
-    pool: ``page`` and ``max_pages`` > 0), from the built library on the
-    card: blocks a cluster along the keys, query heads a block, tile keys,
-    ring stages, dynamic shared memory a block, blocks an SM holds and
-    clusters the card holds at once."""
+    pool: ``page`` and ``max_pages`` > 0) for a q of ``dtype`` (bf16: D,
+    float16 / float32: Df), from the built library on the card: blocks a
+    cluster along the keys, query heads a block, tile keys, ring stages,
+    dynamic shared memory a block, blocks an SM holds and clusters the card
+    holds at once."""
     import ctypes
     out = (ctypes.c_int * 7)()
-    status = _native.library().attention_decode_plan(
+    name = _entry("attention_decode_plan", dtype)
+    status = getattr(_native.library(), name)(
         B, H, K, D, int(int8), page, max_pages, out)
-    _native.check(status, "attention_decode_plan")
+    _native.check(status, name)
     return dict(zip(("nsplit", "heads_per_block", "tile_keys", "stages",
                      "smem_bytes", "blocks_per_sm", "max_active_clusters"),
                     out))
 
 
-def prefill_plan(D: int, *, int8: bool = False) -> dict:
-    """Kernel D2's tiling at head_dim ``D`` (the paged modes tile alike),
-    from the built library on the card: tile keys, ring stages and dynamic
-    shared memory a block."""
+def prefill_plan(D: int, *, int8: bool = False,
+                 dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Kernel D2's tiling at head_dim ``D`` (the paged modes tile alike)
+    for a q of ``dtype`` (bf16: D2, float16 / float32: D2f), from the built
+    library on the card: tile keys, ring stages and dynamic shared memory a
+    block."""
     import ctypes
     out = (ctypes.c_int * 3)()
-    status = _native.library().attention_prefill_plan(D, int(int8), out)
-    _native.check(status, "attention_prefill_plan")
+    name = _entry("attention_prefill_plan", dtype)
+    status = getattr(_native.library(), name)(D, int(int8), out)
+    _native.check(status, name)
     return dict(zip(("tile_keys", "stages", "smem_bytes"), out))
 
 
@@ -600,11 +595,11 @@ def can_fuse_decode(q_shape, cache) -> bool:
 
 
 def can_fuse_paged_decode(q_shape, cache) -> bool:
-    """Fused paged-decode gate: one new token against a bf16 paged pool
-    (an int8 pool writes through kernel H's int8 mode, a float16 or float32
-    pool through kernel H, then attends)."""
+    """Fused paged-decode gate: one new token against a bf16, float16 or
+    float32 paged pool (kernel D, or its float instance Df; an int8 pool
+    writes through kernel H's int8 mode or If, then attends)."""
     return (q_shape[1] == 1 and isinstance(cache, PagedKVCache)
-            and cache.k.dtype == torch.bfloat16)
+            and cache.k.dtype in (torch.bfloat16,) + FLOAT_DTYPES)
 
 
 def attention_decode_fused_torch(q, k_new, v_new, k_cache, v_cache, q_start,
@@ -680,17 +675,9 @@ def attention_decode_fused(q, k_new, v_new, k_cache, v_cache, q_start,
             q, k_cache, v_cache, q_start, kv_len, layer, k_new=k_new,
             v_new=v_new, sm_scale=sm_scale, window=window)
         return out, k_cache, v_cache
-    _check(q, k_cache, v_cache, q_start, kv_len, layer)
-    _check_new_rows(q, k_new, v_new, k_cache)
-    B, _, H, D = q.shape
-    _, _, S, K, _ = k_cache.shape
-    out = torch.empty_like(q)
-    status = _native.library().attention_decode(
-        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
-        v_cache.data_ptr(), out.data_ptr(), q_start.data_ptr(),
-        kv_len.data_ptr(), int(layer), B, H, K, S, D,
-        _scale_of(sm_scale, D), int(window or 0), _native.stream_of(q))
-    _native.check(status, "attention_decode")
+    out = _launch("attention_decode", q, k_cache, v_cache, q_start, kv_len,
+                  layer, k_new=k_new, v_new=v_new, sm_scale=sm_scale,
+                  window=window)
     attention_decode_fused.launches += 1
     kernel_output("attention_decode", out)
     kernel_output("attention_decode", k_cache, v_cache, layer=layer)
@@ -723,19 +710,10 @@ def attention_decode_fused_int8(q, k_new, v_new, k_cache, v_cache, q_start,
             v_new=v_new, k_scale=k_scale, v_scale=v_scale, snapped=snapped,
             sm_scale=sm_scale, window=window)
         return out, k_cache, v_cache
-    _check(q, k_cache, v_cache, q_start, kv_len, layer, k_scale=k_scale,
-           v_scale=v_scale)
-    _check_new_rows(q, k_new, v_new, k_cache)
-    B, _, H, D = q.shape
-    _, _, S, K, _ = k_cache.shape
-    out = torch.empty_like(q)
-    status = _native.library().attention_decode_int8(
-        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
-        v_cache.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-        out.data_ptr(), q_start.data_ptr(), kv_len.data_ptr(), int(layer), B,
-        H, K, S, D, _scale_of(sm_scale, D), int(window or 0), int(snapped),
-        _native.stream_of(q))
-    _native.check(status, "attention_decode_int8")
+    out = _launch("attention_decode_int8", q, k_cache, v_cache, q_start,
+                  kv_len, layer, k_new=k_new, v_new=v_new, k_scale=k_scale,
+                  v_scale=v_scale, snapped=snapped, sm_scale=sm_scale,
+                  window=window)
     attention_decode_fused_int8.launches += 1
     kernel_output("attention_decode_int8", out)
     kernel_output("attention_decode_int8", k_scale, v_scale, layer=layer)
@@ -767,9 +745,11 @@ def attention_decode_paged_fused(q, k_new, v_new, k_pool, v_pool, q_start,
                                  sm_scale: Optional[float] = None,
                                  window: Optional[int] = None,
                                  kernels: str = "auto"):
-    """Fused decode write + attend over the bf16 paged pool (the
+    """Fused decode write + attend over a paged pool of q's dtype (the
     counterpart of the JAX package's ``_paged_write_kernel`` followed by
-    ``_decode_mxu_kernel``).
+    ``_decode_mxu_kernel``): kernel D over a bf16 pool, its float instance
+    (:func:`attention_decode_paged_fused_float`) over a float16 or
+    float32 one.
 
     q [B, 1, H, D]; k_new/v_new [B, 1, K, D]; pools [L, P, page, K, D],
     updated in place; ``table`` [B, max_pages]. The token's row goes to
@@ -781,23 +761,14 @@ def attention_decode_paged_fused(q, k_new, v_new, k_pool, v_pool, q_start,
         return attention_decode_paged_fused_torch(
             q, k_new, v_new, k_pool, v_pool, q_start, kv_len, layer,
             table=table, sm_scale=sm_scale, window=window)
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"attention_decode_paged_fused: no {q.dtype} "
-                        f"instance (kernel D's fused paged decode is "
-                        f"bfloat16 only; a float pool's token is written by "
-                        f"kernel H, then attention_decode runs Df)")
-    _check(q, k_pool, v_pool, q_start, kv_len, layer, table)
-    _check_new_rows(q, k_new, v_new, k_pool)
-    B, _, H, D = q.shape
-    _, P, page, K, _ = k_pool.shape
-    out = torch.empty_like(q)
-    status = _native.library().attention_decode_paged_fused(
-        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(),
-        v_pool.data_ptr(), out.data_ptr(), q_start.data_ptr(),
-        kv_len.data_ptr(), table.data_ptr(), int(layer), B, H, K, P, page,
-        table.shape[1], D, _scale_of(sm_scale, D), int(window or 0),
-        _native.stream_of(q))
-    _native.check(status, "attention_decode_paged_fused")
+    if q.dtype in FLOAT_DTYPES:
+        out = attention_decode_paged_fused_float(
+            q, k_pool, v_pool, q_start, kv_len, layer, table=table,
+            k_new=k_new, v_new=v_new, sm_scale=sm_scale, window=window)
+        return out, k_pool, v_pool
+    out = _launch("attention_decode_paged_fused", q, k_pool, v_pool,
+                  q_start, kv_len, layer, table=table, k_new=k_new,
+                  v_new=v_new, sm_scale=sm_scale, window=window)
     attention_decode_paged_fused.launches += 1
     kernel_output("attention_decode_paged_fused", out)
     kernel_output("attention_decode_paged_fused", k_pool, v_pool,

@@ -20,10 +20,10 @@ not rest on the page-alignment invariant. H writes only real rows
 (``t < new_len[b]``), as kernel C does; the TPU kernel DMAs the whole
 padded T-window inside the page. The two differ only in rows at or past
 ``kv_len``, which attention never reads and a later write overwrites
-before they become valid. The engine's pure-decode steps over a bf16 pool
-launch no H: kernel D's fused paged decode writes the token through the
-table with H's rules and attends
-(``attention.attention_decode_paged_fused``).
+before they become valid. The engine's pure-decode steps over a bf16,
+float16 or float32 pool launch no H: kernel D's fused paged decode (Df
+for a float pool) writes the token through the table with H's rules and
+attends (``attention.attention_decode_paged_fused``).
 
 The int8 pool (``quantized=True``) holds int8 values [L, P, page, K, D]
 and f32 scale planes [L, P, page, K], indexed by page as the values are,
@@ -34,8 +34,8 @@ embeds log2-snapped scale codes in 8 pad rows per token of its int8 pool
 mode (``paged_kv_write_quant``, the paged instance of kernel I in
 ``csrc/kv_write_quant.cu``) quantizes the bf16 rows and writes values and
 scales through the table in one launch; float16 and float32 rows take
-kernel If (:func:`paged_kv_write_quant_float`). A float16 or float32
-pool's decode is kernel H's write, then the attend-only decode (Df).
+kernel If (:func:`paged_kv_write_quant_float`), then the attend-only
+int8 decode (Df).
 
 Under tensor parallelism each model rank holds the pool's K/tp heads of
 every page, and each data group a whole pool, with its own rows of the

@@ -173,22 +173,43 @@ def test_generate_greedy_ids_match_jax_at_head_dims(rng, D):
     assert rt.token_ids == rj.token_ids
 
 
-# every attention and int8-write source, and the quantizer's header
-_SOURCES = ("attention_prefill.cu", "attention_decode.cu",
-            "kv_write_quant.cu")
+# every source with a ``switch (D)``, by the head dims its instances take:
+# the bf16 attention and int8-write sources ``_native.HEAD_DIMS``, the
+# float16 and float32 attention sources ``_native.FLOAT_HEAD_DIMS``
+_SOURCES = {
+    "attention_prefill.cu": _native.HEAD_DIMS,
+    "attention_decode.cu": _native.HEAD_DIMS,
+    "kv_write_quant.cu": _native.HEAD_DIMS,
+    "attention_prefill_f16.cu": _native.FLOAT_HEAD_DIMS,
+    "attention_prefill_f32.cu": _native.FLOAT_HEAD_DIMS,
+    "attention_decode_f16.cu": _native.FLOAT_HEAD_DIMS,
+    "attention_decode_f32.cu": _native.FLOAT_HEAD_DIMS,
+}
+_SWITCH = re.compile(r"switch \(D\) \{(.*?)\n\s*\}", re.S)
 
 
-@pytest.mark.parametrize("name", _SOURCES)
+@pytest.mark.parametrize("name", list(_SOURCES))
 def test_kernel_switches_match_the_python_head_dims(name):
     """Each ``switch (D)`` of the source instantiates exactly the head dims
-    that the Python wrappers accept (``_native.HEAD_DIMS``)."""
+    that the Python wrappers accept for the dtype it serves
+    (``_native.HEAD_DIMS`` for bf16, ``_native.FLOAT_HEAD_DIMS`` for
+    float16 and float32)."""
     text = (_native.CSRC / name).read_text()
-    blocks = re.findall(r"switch \(D\) \{(.*?)\n\s*\}", text, re.S)
+    blocks = _SWITCH.findall(text)
     assert blocks, f"{name} has no switch (D)"
     for block in blocks:
         cases = tuple(sorted(int(c) for c in re.findall(r"case (\d+):",
                                                         block)))
-        assert cases == _native.HEAD_DIMS
+        assert cases == _SOURCES[name]
+
+
+def test_every_head_dim_switch_is_held():
+    """No source or header has a ``switch (D)`` that the test above does not
+    hold to a head-dim set."""
+    found = {src.name for src in (*_native.CSRC.glob("*.cu"),
+                                  *_native.CSRC.glob("*.cuh"))
+             if _SWITCH.search(src.read_text())}
+    assert found == set(_SOURCES)
 
 
 def test_quantizer_header_matches_the_python_head_dims():

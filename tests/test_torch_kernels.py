@@ -2044,7 +2044,8 @@ def test_copy_writes_at_model_rows(cuda, paged, T, K, D):
 
 
 # ---------------------------------------------------------------------------
-# the float instances (csrc/float_kernels.cu): D2f, Df, If, Ef, Ff
+# the float instances: D2f and Df (csrc/attention_*_f16.cu, _f32.cu), If,
+# Ef and Ff (csrc/float_kernels.cu)
 # ---------------------------------------------------------------------------
 
 FLOAT_DTYPES = [torch.float32, torch.float16]
@@ -2292,18 +2293,144 @@ def test_float_quant_matmul(cuda, dtype, mode, m, k, n, halves, out_f32):
     _held_float(got, want, dtype)
 
 
+@pytest.mark.parametrize("dtype", FLOAT_DTYPES, ids=str)
+@pytest.mark.parametrize("D,G", [(16, 2), (64, 4), (128, 1), (128, 8),
+                                 (256, 1)])
+@pytest.mark.parametrize("B,page,window", [(8, 64, None), (16, 16, 40),
+                                           (16, 64, 300)])
+def test_float_fused_paged_decode_equals_write_then_attend(
+        cuda, dtype, D, G, B, page, window):
+    """Df's fused paged decode over a float pool against kernel H then
+    Df's attend-only paged decode on a copy: pools and outputs bit for
+    bit, no H launched by the fused one; against the plain version on a
+    clean copy within FLOAT_TOL. The rows of the bf16 test above: a first
+    token, q_start at in-page offsets 0 and page - 1, an inactive row, an
+    active row whose table entry at q_start's page is -1 (it writes
+    nothing and is left out of the plain comparison); NaN in every pool row
+    past kv_len, every page outside the table and past the ends of q and
+    the new rows."""
+    from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+    K, S, neg = 2, 1024, 4
+    c = _float_cache(cuda, dtype, "paged", 2, B, S, K, D, page)
+    g = torch.Generator(device=cuda).manual_seed(B * D + G)
+    kv_len = torch.randint(2, S + 1, (B,), generator=g, device=cuda,
+                           dtype=torch.int32)
+    kv_len[:3] = torch.tensor([1, page + 1, 2 * page], device=cuda)
+    q_start = kv_len - 1
+    q_start[3] = kv_len[3]
+    _poison_pool(c, kv_len, page)
+    c.block_table[neg, q_start[neg] // page] = -1
+    split = dataclasses.replace(c, k=c.k.clone(), v=c.v.clone())
+    table = c.block_table.clone()
+    table[neg, q_start[neg] // page] = 0
+    clean = dataclasses.replace(c, k=c.k.nan_to_num(), v=c.v.nan_to_num(),
+                                block_table=table)
+    q, kn, vn = (_tail_poisoned(torch.randn(
+        B, 1, n, D, device=cuda, dtype=dtype)) for n in (K * G, K, K))
+    n0 = attention.attention_decode_paged_fused_float.launches
+    h0 = pkv.paged_update_at_layer.launches
+    got, _, _ = attention.attention_decode_paged_fused(
+        q, kn, vn, c.k, c.v, q_start, kv_len, 1, table=c.block_table,
+        window=window, kernels="cuda")
+    assert attention.attention_decode_paged_fused_float.launches == n0 + 1
+    assert pkv.paged_update_at_layer.launches == h0
+    pkv.paged_update_at_layer(split, 1, kn, vn, q_start, kv_len - q_start,
+                              kernels="cuda")
+    want = attention.attention_decode(q, split.k, split.v, q_start, kv_len,
+                                      1, table=c.block_table, window=window,
+                                      kernels="cuda")
+    plain, _, _ = attention.attention_decode_paged_fused_torch(
+        q, kn, vn, clean.k, clean.v, q_start, kv_len, 1, table=table,
+        window=window)
+    torch.cuda.synchronize()
+    assert _bits_equal(c.k, split.k) and _bits_equal(c.v, split.v)
+    assert _bits_equal(got, want)
+    for mine, ref in ((c.k, clean.k), (c.v, clean.v)):
+        assert torch.equal(mine[:, 1:].nan_to_num(), ref[:, 1:])
+    rows = [b for b in range(B) if b != neg]
+    _held_float(got[rows], plain[rows], dtype)
+
+
+@pytest.mark.parametrize("dtype", FLOAT_DTYPES, ids=str)
+def test_float_paged_engine_equals_slot_engine(cuda, dtype):
+    """A small float16 or float32 model, pages of 16: the paged engine
+    (D2f through the table, Df's fused paged decode: no H in a decode step)
+    gives prefill logits bit for bit the slot engine's under the same
+    kernels and chunk size, and the same greedy ids and decode logits."""
+    from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+    cfg = get_config("debug").replace(dtype_name=str(dtype).split(".")[-1],
+                                      head_dim=128, num_layers=3)
+    eng = EngineConfig(max_batch_size=3, max_seq_len=256, max_prefill_len=16)
+    params = init_dummy_params(cfg, device=cuda)
+    paged = InferenceEngine(cfg, eng.replace(kv_layout="paged",
+                                             page_size=16), params,
+                            device=cuda)
+    slot = InferenceEngine(cfg, eng, params, device=cuda)
+    prompts = [[1, 2, 3], list(range(5, 100)), [7] * 30]
+    lp, ls = paged.prefill(prompts), slot.prefill(prompts)
+    assert torch.equal(lp, ls)
+    toks = lp.argmax(-1).to(torch.int32)
+    active = np.ones(3, bool)
+    sp = SamplingParams(greedy=True)
+    with run_eagerly(paged), run_eagerly(slot):
+        for _ in range(6):
+            h0 = pkv.paged_update_at_layer.launches
+            tp = paged.decode_step(toks, active, sp)
+            assert pkv.paged_update_at_layer.launches == h0
+            ts = slot.decode_step(toks, active, sp)
+            assert torch.equal(tp, ts)
+            toks = tp
+    paged.reset()
+    slot.reset()
+    sp = SamplingParams(greedy=True, max_new_tokens=12)
+    assert (paged.generate(prompts, sp, eos_token_id=None).token_ids
+            == slot.generate(prompts, sp, eos_token_id=None).token_ids)
+
+
+@pytest.mark.parametrize("mode", FLOAT_MODES)
+@pytest.mark.parametrize("D,G,window", [(16, 4, None), (16, 1, 50),
+                                        (256, 4, None), (256, 2, 90)])
+def test_float16_prefill_tensor_core_head_dims(cuda, mode, D, G, window):
+    """D2's float16 instance at the head dims of its edge tiles: 16 (one
+    k-step, a 24-element row pitch) and 256 (32-key tiles, Q fragments read
+    from shared memory each tile), long ragged rows (LONG) with NaN past
+    kv_len and outside the table; its tiling is D2's."""
+    T, S, q_start, kv_len = _lens(cuda, LONG)
+    K = 2
+    q = torch.randn(4, T, K * G, D, device=cuda, dtype=torch.float16)
+    c = _float_cache(cuda, torch.float16, mode, 2, 4, S, K, D)
+    clean, kw = _poisoned(c, mode, kv_len)
+    planes = _planes if c.k_scale is not None else (lambda x: {})
+    got = attention.attention(q, c.k, c.v, q_start, kv_len, layer=1,
+                              window=window, kernels="cuda", **kw,
+                              **planes(c))
+    want = attention.attention(q, clean.k, clean.v, q_start, kv_len, layer=1,
+                               window=window, kernels="torch", **kw,
+                               **planes(clean))
+    torch.cuda.synchronize()
+    _held_float(got, want, torch.float16)
+    plan = attention.prefill_plan(D, int8=c.k_scale is not None,
+                                  dtype=torch.float16)
+    assert plan["tile_keys"] == (32 if D > 128 else 64)
+
+
 def test_float_kernels_refuse_instead_of_falling_back(cuda):
-    """No instance, no fallback: a float16 q on the bf16-only fused paged
-    decode, a head_dim outside FLOAT_HEAD_DIMS, a float64 q, a float
-    cache of another dtype than q's."""
+    """No instance, no fallback: a float64 q on the fused paged decode
+    (which has float16 and float32 instances now) or on the prefill, a
+    float16 q against a float32 pool, a head_dim outside FLOAT_HEAD_DIMS,
+    a float cache of another dtype than q's."""
     from llm_inference_engine_tpu_torch.ops import _native
-    c = _float_cache(cuda, torch.float16, "paged", 1, 2, 32, 2, 64)
+    c = _float_cache(cuda, torch.float32, "paged", 1, 2, 32, 2, 64)
     q = torch.randn(2, 1, 4, 64, device=cuda, dtype=torch.float16)
     new = torch.randn(2, 1, 2, 64, device=cuda, dtype=torch.float16)
     lens = torch.ones(2, device=cuda, dtype=torch.int32)
-    with pytest.raises(TypeError, match="no torch.float16 instance"):
+    with pytest.raises(TypeError, match="need torch.float16 q"):
         attention.attention_decode_paged_fused(
             q, new, new, c.k, c.v, lens - 1, lens, 0, table=c.block_table)
+    with pytest.raises(TypeError, match="no torch.float64 instance"):
+        attention.attention_decode_paged_fused(
+            q.double(), new.double(), new.double(), c.k.double(),
+            c.v.double(), lens - 1, lens, 0, table=c.block_table)
     q48 = torch.randn(2, 1, 4, 48, device=cuda, dtype=torch.float32)
     c48 = torch.randn(1, 2, 32, 2, 48, device=cuda, dtype=torch.float32)
     with pytest.raises(NotImplementedError, match=re.escape(

@@ -5,10 +5,11 @@ The fused decode's plain route is held against the JAX package's two
 steps, ``paged_update_at_layer`` then the paged ``attention`` at T = 1,
 both as Pallas kernels in interpret mode (``kernels="pallas"``; conftest
 sets interpret mode), at the ``debug`` preset's widths (H 4, K 2, D 16,
-pages of 16, L 2), inputs from a numpy seed. The engine cases hold the
-bf16 paged engine, whose decode steps take the fused route, against the
-port's bf16 slot engine, and show that no paged write runs in a pure
-decode step.
+pages of 16, L 2), inputs from a numpy seed, in float32, float16 and
+bfloat16. The engine cases hold the bf16, float16 and float32 paged
+engines, whose decode steps take the fused route, against the port's
+slot engine of the same dtype, and show that no paged write runs in a
+pure decode step.
 """
 
 import jax.numpy as jnp
@@ -32,9 +33,14 @@ L, PAGE = _DEBUG.num_layers, 16
 H, K, D = _DEBUG.num_heads, _DEBUG.num_kv_heads, _DEBUG.head_dim
 MAXP = 4
 # tolerances of the paged attention tests against the JAX kernels
+# (f32: the sums' order; f16: the JAX kernel rounds p to f16 and its
+# output once, 2^-11 relative, the port's plain route only the output;
+# bf16: 2^-8)
 F32 = dict(atol=1e-5, rtol=1e-5)
+F16 = dict(atol=2e-3, rtol=2e-3)
 BF16 = dict(atol=2e-2, rtol=2e-2)
 DTYPES = {"float32": (jnp.float32, torch.float32, F32),
+          "float16": (jnp.float16, torch.float16, F16),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, BF16)}
 
 # one decode token a sequence: q_start at in-page offset 0 (the first
@@ -61,7 +67,7 @@ def _as_np(x):
     return np.asarray(jnp.asarray(x, jnp.float32))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("window", [None, 20])
 def test_fused_paged_decode_matches_jax_write_then_decode(rng, dtype,
                                                          window):
@@ -169,19 +175,20 @@ def test_fused_paged_decode_refuses_bad_input_on_the_kernel_route():
 
 
 def test_fused_paged_decode_gate():
-    """bf16 pools at T == 1 only: the int8 pool keeps H's int8 mode and
-    the attend-only decode, and the slot gate stays slot-only."""
-    bf16 = pkv.new_paged_kv_cache(1, 2, K, 5, PAGE, D, 2,
-                                  dtype=torch.bfloat16)
+    """bf16, float16 and float32 pools at T == 1 only: the int8 pool keeps
+    H's int8 mode (or If) and the attend-only decode, a float64 pool has
+    no instance, and the slot gate stays slot-only."""
+    pools = {dt: pkv.new_paged_kv_cache(1, 2, K, 5, PAGE, D, 2, dtype=dt)
+             for dt in (torch.bfloat16, torch.float16, torch.float32,
+                        torch.float64)}
     int8 = pkv.new_paged_kv_cache(1, 2, K, 5, PAGE, D, 2, quantized=True)
-    f32 = pkv.new_paged_kv_cache(1, 2, K, 5, PAGE, D, 2,
-                                 dtype=torch.float32)
     slot = kvc.new_kv_cache(1, 2, K, 32, D, dtype=torch.bfloat16)
-    assert attention.can_fuse_paged_decode((2, 1, H, D), bf16)
-    assert not attention.can_fuse_paged_decode((2, 3, H, D), bf16)
-    for other in (int8, f32, slot):
+    for dt in (torch.bfloat16, torch.float16, torch.float32):
+        assert attention.can_fuse_paged_decode((2, 1, H, D), pools[dt])
+        assert not attention.can_fuse_paged_decode((2, 3, H, D), pools[dt])
+        assert not attention.can_fuse_decode((2, 1, H, D), pools[dt])
+    for other in (int8, pools[torch.float64], slot):
         assert not attention.can_fuse_paged_decode((2, 1, H, D), other)
-    assert not attention.can_fuse_decode((2, 1, H, D), bf16)
 
 
 def _counting(monkeypatch, module, name, counts):
@@ -195,43 +202,47 @@ def _counting(monkeypatch, module, name, counts):
 
 @pytest.mark.parametrize("int8", [False, True])
 def test_paged_engine_decode_route(monkeypatch, int8):
-    """A bf16 paged engine's prefill writes through H and its decode steps
+    """A paged engine's prefill writes through H and its decode steps
     through the fused paged decode alone: L a step, no H; its greedy ids
-    equal the bf16 slot engine's. An int8 pool keeps H's int8 mode and the
-    attend-only decode a layer a step."""
-    cfg = _DEBUG.replace(dtype_name="bfloat16")
-    params = init_dummy_params(cfg, seed=0)
-    eng = EngineConfig(max_batch_size=2, max_seq_len=64, max_prefill_len=8,
-                       kv_layout="paged", page_size=PAGE,
-                       kv_cache_dtype_name="int8" if int8 else "")
-    paged = InferenceEngine(cfg, eng, params)
-    prompts = [list(range(1, 20)), [9, 8, 7]]
-    sp = SamplingParams(greedy=True)
-    counts = {}
-    for name in ("attention_decode_paged_fused_torch",
-                 "attention_paged_torch"):
-        _counting(monkeypatch, attention, name, counts)
-    _counting(monkeypatch, pkv, "paged_update_at_layer", counts)
-    toks = paged.prefill(prompts).argmax(-1).to(torch.int32)
-    assert counts == {"paged_update_at_layer": L * 3,
-                      "attention_paged_torch": L * 3}
-    counts.clear()
-    active = np.ones(2, bool)
-    ids = [toks.tolist()]
-    for _ in range(4):
-        toks = paged.decode_step(toks, active, sp)
-        ids.append(toks.tolist())
-    if int8:
-        assert counts == {"paged_update_at_layer": 4 * L,
-                          "attention_paged_torch": 4 * L}
-        return
-    # the fused route's plain version calls the plain attention itself
-    assert counts == {"attention_decode_paged_fused_torch": 4 * L,
-                      "attention_paged_torch": 4 * L}
-    slot = InferenceEngine(cfg, eng.replace(kv_layout="slot"), params)
-    toks = slot.prefill(prompts).argmax(-1).to(torch.int32)
-    want = [toks.tolist()]
-    for _ in range(4):
-        toks = slot.decode_step(toks, active, sp)
-        want.append(toks.tolist())
-    assert ids == want
+    equal the slot engine's of the same dtype. So for bf16, float16 and
+    float32 models (kernel D, or Df). An int8 pool keeps H's int8 mode (If
+    for float rows) and the attend-only decode a layer a step."""
+    for dtype in ("bfloat16", "float16", "float32"):
+        cfg = _DEBUG.replace(dtype_name=dtype)
+        params = init_dummy_params(cfg, seed=0)
+        eng = EngineConfig(max_batch_size=2, max_seq_len=64,
+                           max_prefill_len=8, kv_layout="paged",
+                           page_size=PAGE,
+                           kv_cache_dtype_name="int8" if int8 else "")
+        paged = InferenceEngine(cfg, eng, params)
+        prompts = [list(range(1, 20)), [9, 8, 7]]
+        sp = SamplingParams(greedy=True)
+        counts = {}
+        with monkeypatch.context() as mp:
+            for name in ("attention_decode_paged_fused_torch",
+                         "attention_paged_torch"):
+                _counting(mp, attention, name, counts)
+            _counting(mp, pkv, "paged_update_at_layer", counts)
+            toks = paged.prefill(prompts).argmax(-1).to(torch.int32)
+            assert counts == {"paged_update_at_layer": L * 3,
+                              "attention_paged_torch": L * 3}, dtype
+            counts.clear()
+            active = np.ones(2, bool)
+            ids = [toks.tolist()]
+            for _ in range(4):
+                toks = paged.decode_step(toks, active, sp)
+                ids.append(toks.tolist())
+        if int8:
+            assert counts == {"paged_update_at_layer": 4 * L,
+                              "attention_paged_torch": 4 * L}, dtype
+            continue
+        # the fused route's plain version calls the plain attention itself
+        assert counts == {"attention_decode_paged_fused_torch": 4 * L,
+                          "attention_paged_torch": 4 * L}, dtype
+        slot = InferenceEngine(cfg, eng.replace(kv_layout="slot"), params)
+        toks = slot.prefill(prompts).argmax(-1).to(torch.int32)
+        want = [toks.tolist()]
+        for _ in range(4):
+            toks = slot.decode_step(toks, active, sp)
+            want.append(toks.tolist())
+        assert ids == want, dtype

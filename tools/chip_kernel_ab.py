@@ -3,7 +3,8 @@
 CUDA card (an H100).
 
     python3 tools/chip_kernel_ab.py
-        [--rows attention|quant|writes|prefill|norm] PARENT_ROOT [CHANGE_ROOT]
+        [--rows attention|quant|writes|prefill|norm|float] PARENT_ROOT
+        [CHANGE_ROOT]
 
 PARENT_ROOT and CHANGE_ROOT (default: this checkout) are roots of the
 repository, e.g. a parent commit unpacked with ``git archive`` into a
@@ -42,6 +43,12 @@ pages of 64, and slot over an int8 cache (4g): the card's busy ms and the
 K/V writes' ms of it (torch.profiler), through this checkout's
 ``chip_smoke.prefill_rows``.
 
+``--rows float`` times the float16 and float32 attention instances D2f and
+Df instead, and only them, at phase 3f's shapes (the prefill over the
+slot cache and through the table, the fused slot decode, the attend-only
+paged decode), through this checkout's ``chip_smoke.float_attention_rows``,
+which calls only the wrappers every tree has.
+
 ``--rows norm`` times kernels A (plain and with a residual) and B at
 decode shape ([8, 4096], [8, 22016]: 64 calls in a CUDA graph, CUDA
 events over its replays) and at prefill shape ([2048, 4096] cold,
@@ -71,7 +78,7 @@ def one(root: Path, rows: str = "attention") -> dict:
     kernels E and F at QUANT_ROWS; ``rows="writes"``: of the K/V row
     writes and their floors; ``rows="prefill"``: warm prefills;
     ``rows="norm"``: kernels A and B and 4b's, 4c's and 4d's replayed
-    step)."""
+    step; ``rows="float"``: the float attention instances)."""
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_kernel_ab: no CUDA device")
@@ -98,6 +105,8 @@ def one(root: Path, rows: str = "attention") -> dict:
         return here.prefill_rows(torch, dev)
     if rows == "norm":
         return here.norm_rows(torch, dev)
+    if rows == "float":
+        return here.float_attention_rows(torch, dev)
     results: dict = {}
     for fn in (smoke.phase_kernels, smoke.phase_paged_kernels,
                smoke.phase_kv_int8_kernels):
@@ -111,7 +120,8 @@ def main(argv) -> int:
     rows = "attention"
     if len(argv) >= 2 and argv[0] == "--rows":
         rows, argv = argv[1], argv[2:]
-    if rows not in ("attention", "quant", "writes", "prefill", "norm"):
+    if rows not in ("attention", "quant", "writes", "prefill", "norm",
+                    "float"):
         raise SystemExit(__doc__)
     if len(argv) >= 2 and argv[0] == "--one":
         print(json.dumps(one(Path(argv[1]).resolve(), rows)), flush=True)
