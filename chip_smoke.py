@@ -453,12 +453,14 @@ _CSRC = "llm_inference_engine_tpu_torch/csrc/"
 
 
 def _float_source(name: str, tag: str) -> tuple:
-    """(route, source) of a float instance: D2f and Df are the f16 / f32
-    sources of kernels D2 and D, If / Ef / Ff csrc/float_kernels.cu."""
+    """(route, source) of a float instance: D2f, Df, Ef and Ff are the f16
+    / f32 sources of kernels D2, D, E and F, If csrc/float_kernels.cu."""
     if name.startswith("attention_prefill"):
         return "cuda", f"{_CSRC}attention_prefill_{tag}.cu"
     if name.startswith("attention_decode"):
         return "cuda", f"{_CSRC}attention_decode_{tag}.cu"
+    if name.endswith("_matmul_float"):
+        return "cuda", f"{_CSRC}quant_matmul_{tag}.cu"
     return "cuda", f"{_CSRC}float_kernels.cu"
 
 
@@ -480,6 +482,20 @@ FLOAT_BEFORE_MS = {
     "attention_decode_float_int8": (0.1757, 0.1757),
     "attention_decode_paged_float": (0.6168, 0.5082),
     "attention_decode_paged_float_int8": (0.5852, 0.5853),
+}
+# 3f's Ef / Ff rows (m, QUANT_SHAPES label), and the kernel ms of the
+# simple CUDA-core instances the redesign replaced, (f32, f16) (H100 80GB
+# HBM3, 700.00 W; PERF.md, the kernel table's brackets; gate|up was not
+# timed then)
+FLOAT_MATMUL_ROWS = ((8, "wqkv"), (8, "down"), (8, "gate|up"), (512, "wqkv"),
+                     (512, "down"), (512, "gate|up"))
+FLOAT_MATMUL_BEFORE_MS = {
+    ("int4", 8, "wqkv"): (0.0744, 0.0743), ("int4", 8, "down"): (0.0736, 0.0735),
+    ("int4", 512, "wqkv"): (2.6120, 2.6130),
+    ("int4", 512, "down"): (3.4895, 3.4879),
+    ("int8", 8, "wqkv"): (0.1098, 0.1099), ("int8", 8, "down"): (0.1096, 0.1093),
+    ("int8", 512, "wqkv"): (2.9083, 2.9053),
+    ("int8", 512, "down"): (2.6355, 2.6307),
 }
 # at float16 the INT4 weights' launches come from llama2-7b's (4t (b))
 PATH_OF["int4_matmul_float[f16]"] = "f16 7b int4"
@@ -1383,6 +1399,31 @@ def float_attention_rows(torch, dev) -> dict:
     return out
 
 
+def float_matmul_rows(torch, dev) -> dict:
+    """Kernel ms of the float instances of E and F (Ef, Ff) at m 8 and 512
+    on wqkv and down, in float16 and float32, weights cycled past the L2
+    as in 3f, no checks; ``tools/chip_kernel_ab.py --rows float`` times
+    another tree's through this function (the wrappers every tree has)."""
+    from llm_inference_engine_tpu_torch.ops import quant
+    gen = torch.Generator(device=dev).manual_seed(2121)
+    out = {}
+    for tag, name in FLOAT_DTYPE.items():
+        dtype = getattr(torch, name)
+        for mode in ("int4", "int8"):
+            for m, label in ((8, "wqkv"), (8, "down"), (512, "wqkv"),
+                             (512, "down")):
+                k, n, halves = QUANT_SHAPES[label]
+                ts = quant_weights(torch, quant, dev, gen, mode, k, n, halves,
+                                   120_000_000)
+                x = torch.randn(m, k, generator=gen, device=dev, dtype=dtype)
+                out[f"{mode}_matmul_float {tag} m{m} {label}"] = time_ms(
+                    torch, cycling(ts, lambda t: fused_matmul(
+                        quant, t, x, dtype, "cuda")))
+                del ts
+        torch.cuda.empty_cache()
+    return out
+
+
 def quant_case(torch, dev, gen, results, mode, m, label,
                shapes=QUANT_SHAPES, tag="", poison=False):
     """Kernel E (``mode`` int4) or F (int8) for x [m, k] times the
@@ -1537,8 +1578,8 @@ def int4pack_ms(torch, quant, ts, x, out_dtype):
         for t in ts:
             u = (quant._unpack_int4(t.q).to(torch.int32) + 8).t()  # [n, k]
             w = ((u[:, 0::2] << 4) | u[:, 1::2]).to(torch.uint8)
-            sz = torch.stack([t.scale.to(torch.bfloat16),
-                              torch.zeros_like(t.scale, dtype=torch.bfloat16)],
+            sz = torch.stack([t.scale.to(x.dtype),
+                              torch.zeros_like(t.scale, dtype=x.dtype)],
                              dim=-1).contiguous()                 # [k/g, n, 2]
             packed.append((torch._convert_weight_to_int4pack(
                 w.contiguous(), 8), sz))
@@ -1625,14 +1666,19 @@ def _short(kernel_name: str) -> str:
 
 # device time by group of kernels (profiler names, first match wins): the
 # float16 / float32 instances of D2 and D (D2f/Df: the same templates over
-# __half or float, and the f32 prefill kernel), kernel D2 (the prefill
+# __half or float, and the f32 prefill kernel) and of E and F (Ef/Ff: E/F's
+# template over __half, and the f32 kernels), kernel D2 (the prefill
 # modes), kernel D (the decode modes), E/F, G, cuBLAS, the K/V row writes
 # C, H, I (kv_write_kernel: C and H; kv_write_quant_kernel: I and H's int8
-# mode), kernels A and B, the float matmuls Ef/Ff
+# mode), kernels A and B
 KERNEL_GROUPS = (("D2f/Df", ("attention_prefill_kernel<__half",
                              "attention_prefill_f32_kernel",
                              "attention_decode_kernel<__half",
                              "attention_decode_kernel<float")),
+                 ("Ef/Ff", ("quant_matmul_decode<__half",
+                            "quant_matmul_prefill<__half",
+                            "quant_matmul_decode_f32",
+                            "quant_matmul_prefill_f32")),
                  ("D2", ("attention_prefill_kernel",)),
                  ("D", ("attention_decode_kernel",)),
                  ("E/F", ("quant_matmul_decode", "quant_matmul_prefill")),
@@ -1640,8 +1686,7 @@ KERNEL_GROUPS = (("D2f/Df", ("attention_prefill_kernel<__half",
                  ("cuBLAS", ("nvjet", "gemm", "cutlass", "xmma")),
                  ("writes", ("kv_write",)),
                  ("A", ("rmsnorm_kernel",)),
-                 ("B", ("silu_mul_kernel",)),
-                 ("Ef/Ff", ("quant_matmul_float",)))
+                 ("B", ("silu_mul_kernel",)))
 # the torch glue of a decode step (the kernels outside KERNEL_GROUPS), by
 # where the eager body launched them: RoPE (ops/rope.py's rope_cos_sin and
 # rotate), sampling (ops/sampling.py's functions the engine calls), the
@@ -7022,7 +7067,8 @@ def phase_examples(torch, dev) -> None:
 
 # ---------------------------------------------------------------------------
 # 3f and 4t: the float instances (D2f and Df: csrc/attention_*_f16.cu and
-# _f32.cu; If, Ef and Ff: csrc/float_kernels.cu)
+# _f32.cu; Ef and Ff: csrc/quant_matmul_f16.cu and _f32.cu; If:
+# csrc/float_kernels.cu)
 # ---------------------------------------------------------------------------
 
 def scale_planes(cache, **kw) -> dict:
@@ -7134,13 +7180,15 @@ def phase_float_kernels(torch, dev, results) -> None:
     and output bit for bit H then the attend-only decode) and its
     attend-only paged decode at B16; If at 8 x 512 (2254
     rows) in both numerics and through the table at 3c's mixed step, bit
-    for bit; Ef / Ff at m 8 and 512 on wqkv and down; A, B and C on float
-    rows; then head_dim 16 and 64 at small shapes. Each timed row: its
-    time (CUDA events, cold L2), its bound (bytes at the HBM rate,
-    operations at FLOAT_OPS_PER_S), its plain version's time, the time
-    before the redesign (FLOAT_BEFORE_MS) and, on a float cache, SDPA's (and
-    ``_weight_int8pack_mm`` for Ff where this torch takes the dtype). D2f
-    and Df's plans print beside their rows."""
+    for bit; Ef / Ff at FLOAT_MATMUL_ROWS (m 8 and 512 on wqkv, down and
+    gate|up); A, B and C on float rows; then head_dim 16 and 64 at small
+    shapes. Each timed row: its time (CUDA events, cold L2), its bound
+    (bytes at the HBM rate, operations at FLOAT_OPS_PER_S), its plain
+    version's time, the time before the redesign (FLOAT_BEFORE_MS,
+    FLOAT_MATMUL_BEFORE_MS) and, on a float cache, SDPA's (and
+    ``_weight_int8pack_mm`` for Ff, ``_weight_int4pack_mm`` for Ef, or the
+    words this torch refuses the dtype with). D2f, Df, Ef and Ff's plans
+    print beside their rows."""
     import torch.nn.functional as F
 
     from llm_inference_engine_tpu_torch.ops import activations, attention
@@ -7485,13 +7533,13 @@ def phase_float_kernels(torch, dev, results) -> None:
             del c, clean
         del pool, pool8
 
-        # Ef / Ff at m 8 and 512 on wqkv and down (group 128), weights
-        # cycled through 120 MB; NaN past the ends of x and of the first
-        # weight's scales (garbage past its q)
+        # Ef / Ff at m 8 and 512 on wqkv, down and gate|up (group 128),
+        # weights cycled through 120 MB; NaN past the ends of x and of the
+        # first weight's scales (garbage past its q); the time of the
+        # simple instances they replaced in brackets where it was taken
         for mode in ("int4", "int8"):
             name = f"{mode}_matmul_float"
-            for m, label in ((8, "wqkv"), (8, "down"), (512, "wqkv"),
-                             (512, "down")):
+            for m, label in FLOAT_MATMUL_ROWS:
                 k, n, halves = QUANT_SHAPES[label]
                 ts = quant_weights(torch, quant, dev, gen, mode, k, n, halves,
                                    120_000_000)
@@ -7501,18 +7549,23 @@ def phase_float_kernels(torch, dev, results) -> None:
                 x = poisoned(torch, randn(m, k))
                 got = fused_matmul(quant, ts[0], x, dtype, "cuda")
                 want = fused_matmul(quant, ts[0], x, dtype, "torch")
-                held(name, got, want, f"m{m} {label} NaN past x and scales",
+                before = FLOAT_MATMUL_BEFORE_MS.get((mode, m, label))
+                case = f"m{m} {label} NaN past x and scales" + (
+                    "" if before is None else
+                    f" [before: {before[list(FLOAT_DTYPE).index(tag)]}]")
+                n_out = halves * n
+                held(name, got, want, case,
                      (time_ms(torch, cycling(ts, lambda t: fused_matmul(
                          quant, t, x, dtype, "cuda"))),
                       time_ms(torch, cycling(ts, lambda t: fused_matmul(
                           quant, t, x, dtype, "torch")), iters=3, warmup=1)),
-                     (ts[0].nbytes + m * k * esz + m * n * esz, 2 * m * k * n),
-                     float_int8pack_ms(torch, ts, x, dtype)
-                     if mode == "int8" else None)
-                say(f"    plan: " + str(quant.float_matmul_plan(
-                    m, k, n, halves, 128 if mode == "int4" else 0,
-                    torch.cuda.get_device_properties(
-                        dev).multi_processor_count)))
+                     (ts[0].nbytes + m * k * esz + m * n_out * esz,
+                      2 * m * k * n_out),
+                     None if halves == 2 else
+                     float_int8pack_ms(torch, ts, x, dtype) if mode == "int8"
+                     else int4pack_ms(torch, quant, ts, x, dtype))
+                say("    plan: " + str(quant.quant_matmul_plan_native(
+                    m, k, n, halves, int4=mode == "int4", dtype=dtype)))
                 del ts
         torch.cuda.empty_cache()
 

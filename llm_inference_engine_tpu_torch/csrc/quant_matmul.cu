@@ -1,1149 +1,36 @@
-// Kernels E and F: bf16 activations times weight-only quantized weights,
-// the dequantization fused into the matmul.
-//
-// Replaces two TPU kernels of the JAX package:
-//   - E (INT4 = true): llm_inference_engine_tpu/ops/quant.py
-//     `_int4_matmul_kernel`. Weight q int8 [k/2, n], byte r holding K row
-//     2r in its low nibble and row 2r+1 in its high nibble (both signed,
-//     -8..7); scales f32 [k/group, n]. One f32 partial product per scale
-//     group is multiplied by that group's scales and added to the f32
-//     accumulator.
-//   - F (INT4 = false): `_int8_matmul_kernel`. Weight q int8 [k, n] cast
-//     exactly to bf16; scale f32 [1, n] multiplies the f32 accumulator once
-//     at the end.
-// x bf16 [m, k] (m < 1024 on the engine's path), out bf16 or f32
-// [m, halves * n]. With halves = 2 the weight is one layer of the gate|up
-// stack [2, k', n]: one launch covers both halves and writes gate into
-// columns [0, n) and up into [n, 2n) of each output row. The weights are
-// read in the JAX package's layout as they are: no repacking.
-//
-// Both modes swap the roles of the product: the tensor cores' A operand is
-// the dequantized weight^T (rows = output columns), B is x^T (columns = x
-// rows). The dequantized weight is then the one operand built in
-// registers, and a byte of two nibbles is exactly one A register (two K
-// rows of one column). A thread's A rows g and g + 8 stand for two
-// adjacent columns, so one shared load fetches the columns it needs
-// (decode: four columns, two m16 tiles, one 32-bit load; prefill: two
-// columns, one 16-bit load). INT4 bytes become bf16 pairs with a byte
-// permute, a LOP3 and an FMA (`int4_to_bf16x2`), INT8 ones through exact
-// f32 (`int8_pairs`).
-//
-// Decode mode (m <= 16: generate, the server's decode step, the lm_head).
-// Every weight byte is read once and used by at most 16 rows: bound by
-// HBM bytes, and at INT4 the dequantizing instructions come close to it
-// (PERF.md). The design:
-//   - a block owns 64 output columns of one half; the blocks of a
-//     thread-block cluster (1, 2, 4 or 8: the plan's `cluster`) split K
-//     into whole split units (INT4: scale groups of 64 or 128 rows; INT8:
-//     128 rows), balanced, so that every 7B projection, n = 4096
-//     included, launches >= 2 blocks an SM;
-//   - the weights stream by TMA (one 8 KB box a stage: 128 stored rows x
-//     64 bytes, 64-byte swizzle; tensor maps kept by weight address, so a
-//     decode step encodes none) through a 3-stage (INT4, 256 K rows a
-//     stage) or 4-stage (INT8, 128 K rows) ring, one mbarrier a stage;
-//     5 blocks an SM at m <= 8, 4 at m <= 16: >= 32 KB in flight an SM;
-//   - x is staged once a block, a stage at a time behind the weights:
-//     every thread copies its share of the stage's x rows (and INT4
-//     scales) by cp.async and arrives on the same mbarrier when they land
-//     (x is never restaged per warp);
-//   - warps 0-1 take the first half of each stage's K rows, warps 2-3 the
-//     second (whole scale groups each), mma.sync m16n8k16 on one 8-row
-//     (m <= 8) or 16-row (m 9-16) x tile; the two halves meet once in
-//     shared memory;
-//   - the cluster's partial sums meet in distributed shared memory: after
-//     a cluster barrier every rank sums a share of the tile over ranks 0,
-//     1, ... in order and stores it. Deterministic, no workspace, no host
-//     read: a CUDA graph can capture it;
-//   - it is launched as a programmatic dependent (PDL, the rule in
-//     csrc/norm_act.cu): on the decode step x comes from kernel A or B,
-//     so the first S - 1 stages' weight boxes and INT4 scales are
-//     requested before `griddepcontrol.wait`, and x's copies after it;
-//     it lets the kernel after it (A or B, which wait for it to finish
-//     and only then let the next E launch) become resident once its K
-//     loop is done, not at its start: with the trigger at the start, E
-//     launched back to back (chip_smoke.py phase 3b) ran up to 1.3x
-//     slower at m8 on wqkv and gate|up, the next launch's blocks sharing
-//     the SMs with a decode E that still streams.
-// Prefill mode (16 < m < 1024: the 64-row prefill tails, mixed steps).
-// Bound by tensor-core operations above m ~ 75. The design:
-//   - a block owns 128 output columns x 64 or 128 x rows, no split-K;
-//     3 warpgroups: one producer thread issues TMA loads of the x tiles
-//     (bf16 [rows, 64 K] boxes, 128-byte swizzle, the layout wgmma reads
-//     as B) and the weight tile (int8 bytes [stored rows, 128 columns],
-//     128-byte swizzle, so the dequantizing reads hit distinct banks),
-//     128 K rows a stage, into a 4-stage ring guarded by an mbarrier pair
-//     a stage; two consumer warpgroups (64 columns each, `setmaxnreg`
-//     232) dequantize their weight fragments into registers and issue
-//     `wgmma.mma_async m64nNk16` with A from registers, B from the ring;
-//   - the A registers alternate between two sets, so a stage's dequant
-//     overlaps the previous stage's wgmma (wait_group 1), and a stage is
-//     released as soon as the wgmmas reading it have completed;
-//   - INT4 keeps the JAX numerics: each scale group (a multiple of 64
-//     rows) accumulates into a second set of f32 registers (scale-d = 0
-//     at its first k-step), then acc += partial * scale[column];
-//     INT8 has one accumulator, scaled in the epilogue;
-//   - TMA zero-fills rows past m, columns past n and the K tail.
-// Both modes sit under the two C entry points; `dispatch` picks the mode
-// by m (and INT4 groups other than 64 and 128 take the prefill mode at
-// any m), and `quant_matmul_plan` reports the plan (ops/quant.py mirrors
-// it in Python for the CPU tests).
+// Kernels E and F: bf16 activations times INT4 / INT8 weights, the
+// dequantization fused into the matmul (the template and its design:
+// quant_matmul.cuh). Replace the JAX package's ops/quant.py
+// `_int4_matmul_kernel` and `_int8_matmul_kernel` for a bf16 model.
 
-#include <cooperative_groups.h>
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "quant_matmul.cuh"
 
-#include <mutex>
+using BF16 = __nv_bfloat16;
 
-namespace cg = cooperative_groups;
-
-namespace {
-
-// ---------------------------------------------------------------------------
-// the plan
-// ---------------------------------------------------------------------------
-
-constexpr int kDecodeM = 16;          // m <= this: the decode mode
-constexpr int kDecCols = 64;          // output columns of a decode block
-constexpr int kDecThreads = 128;      // 2 pairs of warps, 32 columns a warp
-constexpr int kInt8Unit = 128;        // K rows of an INT8 split unit
-constexpr int kMaxCluster = 8;        // the portable cluster size
-constexpr int kRedPitch = kDecCols + 4;   // floats a row of partial sums
-
-constexpr int kPreCols = 128;         // output columns of a prefill block
-constexpr int kPreK = 128;            // K elements a prefill stage
-constexpr int kPreStages = 4;
-constexpr int kPreThreads = 384;      // 2 consumer warpgroups + producer
-
-// A decode stage: 128 stored weight rows of 64 columns (INT4: 256 K
-// rows; INT8: 128), a TMA box of 8 KB, 1024-aligned; the stage's x rows
-// [BM][kK] bf16, rows padded by 16 bytes; (INT4) the scales of its groups
-// [<= 4][64] f32. INT4 keeps 3 stages, INT8 4: 5 blocks an SM at m <= 8,
-// 4 at m <= 16.
-template <bool INT4, int BM>
-struct Dec {
-  static constexpr int kK = INT4 ? 256 : 128;       // K rows a stage
-  static constexpr int kStages = INT4 ? 3 : 4;
-  static constexpr int kRows = 128;                 // stored rows a stage
-  static constexpr int kW = kRows * kDecCols;       // 1024-aligned
-  static constexpr int kXPitch = kK * 2 + 16;       // bytes an x row
-  static constexpr int kX = BM * kXPitch;
-  static constexpr int kS = INT4 ? kK / 64 * kDecCols * 4 : 0;
-  static constexpr int kSmem = 1024 + kStages * (kW + kX + kS) + 8 * kStages;
-};
-
-template <bool INT4, int N>
-struct Pre {
-  static constexpr int kXAtom = N * 128;                    // [N][64] bf16
-  static constexpr int kXBytes = 2 * kXAtom;                // [2][N][64]
-  static constexpr int kWRows = INT4 ? kPreK / 2 : kPreK;   // stored rows
-  static constexpr int kWBytes = kWRows * kPreCols;         // [rows][128]
-  static constexpr int kStage = kXBytes + kWBytes;          // 1024-aligned
-  static constexpr int kSmem = 1024 + kPreStages * kStage + 2 * kPreStages * 8;
-};
-
-int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-struct Plan {
-  int mode;      // 0 decode, 1 prefill
-  int rows;      // x rows a block
-  int cols;      // output columns a block
-  int cluster;   // decode: blocks of a cluster along K
-  int blocks;    // grid size
-  int stages;    // ring stages
-  int smem;      // dynamic shared memory a block
-  int tiles_n;   // column tiles of one half
-  int su;        // decode: K rows of a split unit
-  int nsu;       // decode: split units along K
-};
-
-// A function of the shapes and the SM count only. INT4 groups other
-// than 64 and 128 (a half stage must hold whole groups) take the prefill
-// mode.
-Plan make_plan(int m, int k, int n, int halves, bool int4, int group,
-               int sms) {
-  Plan pl{};
-  const bool decode = m <= kDecodeM && (!int4 || group == 64 || group == 128);
-  if (decode) {
-    pl.mode = 0;
-    pl.rows = m <= 8 ? 8 : 16;
-    pl.cols = kDecCols;
-    pl.tiles_n = cdiv(n, kDecCols);
-    pl.su = int4 ? group : kInt8Unit;
-    pl.nsu = cdiv(k, pl.su);
-    const long long tiles = (long long)pl.tiles_n * halves;
-    int cs = 1;
-    while (cs < kMaxCluster && 2 * cs <= pl.nsu && tiles * cs < 2LL * sms)
-      cs *= 2;
-    pl.cluster = cs;
-    pl.blocks = (int)(tiles * cs);
-    pl.stages = int4 ? Dec<true, 8>::kStages : Dec<false, 8>::kStages;
-    pl.smem = pl.rows == 8
-                  ? (int4 ? Dec<true, 8>::kSmem : Dec<false, 8>::kSmem)
-                  : (int4 ? Dec<true, 16>::kSmem : Dec<false, 16>::kSmem);
-  } else {
-    pl.mode = 1;
-    pl.rows = m <= 64 ? 64 : 128;
-    pl.cols = kPreCols;
-    pl.tiles_n = cdiv(n, kPreCols);
-    pl.cluster = 1;
-    pl.blocks = pl.tiles_n * halves * cdiv(m, pl.rows);
-    pl.stages = kPreStages;
-    pl.smem = pl.rows == 64
-                  ? (int4 ? Pre<true, 64>::kSmem : Pre<false, 64>::kSmem)
-                  : (int4 ? Pre<true, 128>::kSmem : Pre<false, 128>::kSmem);
-  }
-  return pl;
-}
-
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      sms = 132;
-  }
-  return sms;
-}
-
-struct Params {
-  const __nv_bfloat16* x;  // [m, k]
-  const int8_t* q;         // [halves][kr, n], kr = k/2 (INT4) or k
-  const float* scale;      // [halves][groups, n], groups = k/group or 1
-  void* out;               // [m, halves * n]
-  long long q_half;        // elements between the two halves of q
-  long long s_half;        // elements between the two halves of scale
-  int m, k, n, halves, group, out_f32;
-  int tiles_n, cluster, su, nsu;   // from the plan
-};
-
-// ---------------------------------------------------------------------------
-// device helpers
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-// Bytes 0 .. NB-1 of w, each two signed nibbles (low: K row 2r, high:
-// K row 2r + 1) -> NB bf16 pairs, the low nibble in the low half. Exact:
-// nibble ^ 8 is the value + 8 in [0, 15], 0x4300 | u is the bf16 of
-// 128 + u, and 1 * x - 136 rounds nothing. A byte permute, a LOP3 and an
-// FMA a pair.
-template <int NB>
-__device__ __forceinline__ void int4_to_bf16x2(uint32_t w, uint32_t* o) {
-  const uint32_t u = w ^ 0x88888888u;
-  const uint32_t h = u >> 4;   // byte i: its high nibble in bits 0-3
-#pragma unroll
-  for (int i = 0; i < NB; ++i) {
-    const uint32_t v =
-        (__byte_perm(u, h, i | ((4 + i) << 8)) & 0x000F000Fu) | 0x43004300u;
-    asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
-        : "=r"(o[i])
-        : "r"(v), "r"(0x3F803F80u), "r"(0xC308C308u));
-  }
-}
-
-// Byte i of u (int8 ^ 0x80, i.e. value + 128) -> the f32 value, exact:
-// 0x4b0000uu is 2^23 + u.
-__device__ __forceinline__ float biased_byte_to_f32(uint32_t u, int i) {
-  return __uint_as_float(__byte_perm(u, 0x4b000000u, 0x7540u | i)) -
-         8388736.f;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 r = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&r);
-}
-
-// INT8 A fragments: w0, w1 hold K rows r and r + 1 of NC consecutive
-// columns (NC = 2 or 4 bytes). o[i] = column i's (row r, row r + 1) as a
-// bf16 pair (exact: |v| <= 128).
-template <int NC>
-__device__ __forceinline__ void int8_pairs(uint32_t w0, uint32_t w1,
-                                           uint32_t* o) {
-#pragma unroll
-  for (int j = 0; j < NC / 2; ++j) {
-    const uint32_t u =
-        __byte_perm(w0, w1, j ? 0x7362u : 0x5140u) ^ 0x80808080u;
-    o[2 * j] = pack_bf16x2(biased_byte_to_f32(u, 0), biased_byte_to_f32(u, 1));
-    o[2 * j + 1] =
-        pack_bf16x2(biased_byte_to_f32(u, 2), biased_byte_to_f32(u, 3));
-  }
-}
-
-__device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t lds16(const unsigned char* p) {
-  return *reinterpret_cast<const uint16_t*>(p);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void store_pair(const Params& p, long long o,
-                                           float v0, float v1) {
-  if (p.out_f32) {
-    *reinterpret_cast<float2*>(static_cast<float*>(p.out) + o) =
-        make_float2(v0, v1);
-  } else {
-    *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(p.out) + o) =
-        pack_bf16x2(v0, v1);
-  }
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// Programmatic dependent launch: wait for the previous kernel's results
-// (at once without the launch attribute), and let the next kernel launch.
-__device__ __forceinline__ void pdl_wait() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void pdl_launch_dependents() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
-}
-
-// ---------------------------------------------------------------------------
-// decode mode
-// ---------------------------------------------------------------------------
-
-// Byte (row r, column c) of a [rows][64] tile stored with the 64-byte
-// swizzle (16-byte chunk index ^ ((r / 2) % 4)).
-__device__ __forceinline__ const unsigned char* sw64_at(
-    const unsigned char* tile, int r, int c) {
-  return tile + r * 64 + ((((c >> 4) ^ ((r >> 1) & 3)) << 4) | (c & 15));
-}
-
-// One block: BM x rows (m <= BM) by 64 columns of one half, the K rows of
-// its cluster rank, in stages of 256 K rows through a ring of S slots
-// (Dec). Thread 0 loads a stage's weight box by TMA; every thread copies
-// its share of the stage's x rows (zero past m and past the rank's K
-// rows) and INT4 scales by cp.async and arrives on the stage's barrier
-// when they land, so x is staged once a block, a stage at a time, behind
-// the weights. S - 1 stages are in flight; the block's barrier at the end
-// of each stage frees its slot.
-// A stage's first 128 K rows go to warps 0-1, its second to warps 2-3
-// (whole scale groups: the plan sends groups other than 64 and 128 to the
-// prefill mode); warp w owns columns (w % 2) * 32 .. + 32, as two m16
-// tiles whose four columns a thread reads with one 32-bit load.
-template <bool INT4, int BM>
-__global__ void __launch_bounds__(kDecThreads)
-    quant_matmul_decode(const __grid_constant__ CUtensorMap wmap,
-                        const Params p) {
-  using D = Dec<INT4, BM>;
-  constexpr int S = D::kStages;
-  constexpr int NT = BM / 8;
-  constexpr int HR = D::kRows / 2;   // stored rows of a half stage
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* ring = align1024(smem_raw);       // S weight boxes
-  unsigned char* xring = ring + S * D::kW;         // S x parts
-  float* sring = reinterpret_cast<float*>(xring + S * D::kX);  // S scales
-  uint64_t* full = reinterpret_cast<uint64_t*>(
-      reinterpret_cast<unsigned char*>(sring) + S * D::kS);
-
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int pair = warp >> 1;               // which half of each stage
-  const int wc = (warp & 1) * 32 + 4 * g;   // this thread's columns wc..+3
-  const int tile = blockIdx.x / p.cluster;
-  const int half = tile / p.tiles_n;
-  const int col0 = (tile - half * p.tiles_n) * kDecCols;
-  const float* sc = p.scale + half * p.s_half;
-
-  // this rank's K rows [k_lo, k_hi): whole split units, balanced
-  const int u_lo = (int)((long long)rank * p.nsu / p.cluster);
-  const int u_hi = (int)((long long)(rank + 1) * p.nsu / p.cluster);
-  const int k_lo = u_lo * p.su;
-  const int k_hi = min(u_hi * p.su, p.k);
-  const int nstage = k_hi > k_lo ? (k_hi - k_lo + D::kK - 1) / D::kK : 0;
-  const int kr_lo = INT4 ? k_lo / 2 : k_lo;
-
-  if (tid == 0) {
-    asm volatile("prefetch.tensormap [%0];\n" ::"l"(
-                     reinterpret_cast<uint64_t>(&wmap))
-                 : "memory");
-    for (int s = 0; s < S; ++s) mbar_init(&full[s], kDecThreads + 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  // stage j into slot j % S, in two parts: what is constant (the weight
-  // box by TMA, the INT4 scales) and the activations (x). Weight rows
-  // past the weight's end are zero-filled by TMA, and weight rows past
-  // k_hi meet zeros of x.
-  auto issue_weights = [&](int j) {
-    const int s = j % S;
-    const int k0 = k_lo + j * D::kK;
-    if (tid == 0) {
-      fence_proxy_async();
-      mbar_expect_tx(&full[s], D::kW);
-      tma_load_3d(ring + s * D::kW, &wmap, &full[s], col0,
-                  kr_lo + j * D::kRows, half);
-    }
-    if constexpr (INT4) {
-      const int groups = min(D::kK, k_hi - k0) / p.group;
-      for (int i = tid; i < groups * (kDecCols / 4); i += kDecThreads) {
-        const int gi = i / (kDecCols / 4), c = (i % (kDecCols / 4)) * 4;
-        const bool ok = col0 + c < p.n;
-        cp_async16(sring + s * (D::kS / 4) + gi * kDecCols + c,
-                   ok ? sc + (long long)(k0 / p.group + gi) * p.n + col0 + c
-                      : sc,
-                   ok);
-      }
-    }
-  };
-  // x's copies, then this thread's arrival on the stage's barrier when
-  // all its copies so far have landed (the barrier counts arrivals and
-  // bytes, not their order)
-  auto issue_x = [&](int j) {
-    const int s = j % S;
-    const int k0 = k_lo + j * D::kK;
-    unsigned char* xs = xring + s * D::kX;
-    for (int i = tid; i < BM * (D::kK / 8); i += kDecThreads) {
-      const int r = i / (D::kK / 8), c = (i % (D::kK / 8)) * 8;
-      const bool ok = r < p.m && k0 + c < k_hi;
-      cp_async16(xs + r * D::kXPitch + c * 2,
-                 ok ? p.x + (long long)r * p.k + k0 + c : p.x, ok);
-    }
-    asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(
-                     smem_u32(&full[s]))
-                 : "memory");
-  };
-  // Launched as a programmatic dependent (launch_decode): the first S - 1
-  // stages' weights and scales are requested before the wait for the
-  // kernel that writes x (kernel A or B) to finish; x, and every global
-  // store, come after it.
-  for (int j = 0; j < S - 1 && j < nstage; ++j) issue_weights(j);
-  pdl_wait();
-  for (int j = 0; j < S - 1 && j < nstage; ++j) issue_x(j);
-
-  // acc[mt][nt]: m16 tile mt (A-row g: column wc + 2 mt, A-row g + 8:
-  // column wc + 2 mt + 1) by x rows nt * 8 ..
-  float acc[2][NT][4], part[2][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = part[mt][nt][e] = 0.f;
-
-  for (int j = 0; j < nstage; ++j) {
-    if (j + S - 1 < nstage) {
-      issue_weights(j + S - 1);
-      issue_x(j + S - 1);
-    }
-    const int s = j % S;
-    mbar_wait(&full[s], (j / S) & 1);
-    const unsigned char* ws = ring + s * D::kW + pair * HR * 64;
-    const unsigned char* xs = xring + s * D::kX;
-    const float* ss = sring + s * (D::kS / 4);
-#pragma unroll
-    for (int h = 0; h < D::kK / 128; ++h) {   // units of 64 K rows
-      const int ku = pair * (D::kK / 2) + h * 64;   // K offset in the stage
-      const int kk = j * D::kK + ku;                // K offset in the slice
-      if (k_lo + kk >= k_hi) break;
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        uint32_t a[2][4];   // [m tile][fragment register]
-        if constexpr (INT4) {
-          const int r = h * 32 + ks * 8 + t;
-          uint32_t lo[4], hi[4];   // columns wc .. wc + 3
-          int4_to_bf16x2<4>(lds32(sw64_at(ws, r, wc)), lo);
-          int4_to_bf16x2<4>(lds32(sw64_at(ws, r + 4, wc)), hi);
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            a[mt][0] = lo[2 * mt];
-            a[mt][1] = lo[2 * mt + 1];
-            a[mt][2] = hi[2 * mt];
-            a[mt][3] = hi[2 * mt + 1];
-          }
-        } else {
-          const int r = h * 64 + ks * 16 + 2 * t;
-          uint32_t lo[4], hi[4];
-          int8_pairs<4>(lds32(sw64_at(ws, r, wc)),
-                        lds32(sw64_at(ws, r + 1, wc)), lo);
-          int8_pairs<4>(lds32(sw64_at(ws, r + 8, wc)),
-                        lds32(sw64_at(ws, r + 9, wc)), hi);
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            a[mt][0] = lo[2 * mt];
-            a[mt][1] = lo[2 * mt + 1];
-            a[mt][2] = hi[2 * mt];
-            a[mt][3] = hi[2 * mt + 1];
-          }
-        }
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const unsigned char* xr =
-              xs + (nt * 8 + g) * D::kXPitch + (ku + ks * 16 + 2 * t) * 2;
-          const uint32_t b0 = lds32(xr), b1 = lds32(xr + 16);
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-            mma_bf16(INT4 ? part[mt][nt] : acc[mt][nt], a[mt], b0, b1);
-        }
-      }
-      if constexpr (INT4) {
-        if (((kk + 64) & (p.group - 1)) == 0) {   // a group ends: fold it
-          const float4 s4 = *reinterpret_cast<const float4*>(
-              ss + (ku / p.group) * kDecCols + wc);
-          const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-              for (int e = 0; e < 4; ++e) {
-                acc[mt][nt][e] += part[mt][nt][e] * sv[2 * mt + (e >> 1)];
-                part[mt][nt][e] = 0.f;
-              }
-        }
-      }
-    }
-    __syncthreads();   // slot j % S is free for stage j + S
-  }
-
-  // the K loop is done: the kernel after this one (A or B) may become
-  // resident and load its constants while the sums meet
-  pdl_launch_dependents();
-
-  // the two halves' sums meet in shared memory (the ring is free), pair 0
-  // first; d0/d1 of a tile hold x rows 2t and 2t + 1 of its A-row g
-  float* red = reinterpret_cast<float*>(ring);   // [BM][kRedPitch]
-  for (int turn = 0; turn < 2; ++turn) {
-    if (pair == turn) {
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            float& r = red[(nt * 8 + 2 * t + (e & 1)) * kRedPitch + wc +
-                           2 * mt + (e >> 1)];
-            r = turn ? r + acc[mt][nt][e] : acc[mt][nt][e];
-          }
-    }
-    __syncthreads();
-  }
-
-  // every rank sums a share of the tile over the ranks, in rank order
-  cluster.sync();
-  const long long ldo = (long long)p.halves * p.n;
-  for (int i = rank * kDecThreads + tid; i < BM * kDecCols;
-       i += p.cluster * kDecThreads) {
-    const int r = i / kDecCols, c = i % kDecCols;
-    const int gc = col0 + c;
-    if (r >= p.m || gc >= p.n) continue;
-    float v = 0.f;
-    for (int s = 0; s < p.cluster; ++s)
-      v += cluster.map_shared_rank(red, s)[r * kRedPitch + c];
-    if constexpr (!INT4) v *= sc[gc];
-    const long long o = r * ldo + (long long)half * p.n + gc;
-    if (p.out_f32)
-      static_cast<float*>(p.out)[o] = v;
-    else
-      static_cast<__nv_bfloat16*>(p.out)[o] = __float2bfloat16_rn(v);
-  }
-  cluster.sync();   // every block's partial sums stay until all have read
-}
-
-// ---------------------------------------------------------------------------
-// prefill mode
-// ---------------------------------------------------------------------------
-
-// wgmma descriptor of a K-major bf16 tile of 128-byte rows, 128-byte
-// swizzle: 8-row groups 1024 bytes apart.
-__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
-  return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) | (1ull << 16) |
-         (64ull << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-#define WG_R8(i)                                                        \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// D[64 x N] (+)= A[64 x 16] (registers) x B[16 x N] (shared, descriptor)
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t (&a)[4],
-                                         uint64_t desc, int scale_d);
-
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float* d,
-                                              const uint32_t (&a)[4],
-                                              uint64_t desc, int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-      : WG_R8(0), WG_R8(8), WG_R8(16), WG_R8(24), WG_R8(32), WG_R8(40),
-        WG_R8(48), WG_R8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-        "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t (&a)[4],
-                                             uint64_t desc, int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : WG_R8(0), WG_R8(8), WG_R8(16), WG_R8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-        "r"(scale_d));
-}
-
-#undef WG_R8
-
-// Byte (row r, column c) of a [rows][128] tile stored with the 128-byte
-// swizzle (16-byte chunk index ^ (r % 8)).
-__device__ __forceinline__ const unsigned char* sw128_at(
-    const unsigned char* tile, int r, int c) {
-  return tile + r * 128 + ((((c >> 4) ^ (r & 7)) << 4) | (c & 15));
-}
-
-// One block: N x rows by 128 columns of one half. Warpgroups 0 and 1
-// consume (64 columns each); warp 8 of warpgroup 2 produces. A stage is
-// 128 K rows: two x boxes of [N rows, 64 K] (one 128-byte swizzle atom
-// each) and one weight box. Scale groups (multiples of 64 rows) end after
-// the stage's fourth or eighth k-step, so a stage is issued as two
-// segments of 4 wgmmas; a segment that starts a group clears the partial
-// (scale-d = 0), one that ends it waits for it and folds it into acc.
-template <bool INT4, int N>
-__global__ void __launch_bounds__(kPreThreads, 1)
-    quant_matmul_prefill(const __grid_constant__ CUtensorMap xmap,
-                         const __grid_constant__ CUtensorMap wmap,
-                         const Params p) {
-  using P = Pre<INT4, N>;
-  constexpr int S = kPreStages;
-  constexpr int NR = N / 2;   // accumulator registers a thread
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* sm = align1024(smem_raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(sm + S * P::kStage);
-  uint64_t* empty = full + S;
-
-  const int wg = threadIdx.x >> 7;
-  const int half = blockIdx.x / p.tiles_n;
-  const int col0 = (blockIdx.x - half * p.tiles_n) * kPreCols;
-  const int row0 = blockIdx.y * N;
-  const int nk = (p.k + kPreK - 1) / kPreK;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < S; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 8);   // one arrival per consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (wg == 2) {
-    // producer: one thread keeps the ring full
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (threadIdx.x == 256) {
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
-                       reinterpret_cast<uint64_t>(&xmap))
-                   : "memory");
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
-                       reinterpret_cast<uint64_t>(&wmap))
-                   : "memory");
-      for (int i = 0; i < nk; ++i) {
-        const int s = i % S;
-        mbar_wait(&empty[s], ((i / S) & 1) ^ 1);
-        mbar_expect_tx(&full[s], P::kStage);
-        unsigned char* st = sm + s * P::kStage;
-        tma_load_2d(st, &xmap, &full[s], i * kPreK, row0);
-        tma_load_2d(st + P::kXAtom, &xmap, &full[s], i * kPreK + 64, row0);
-        tma_load_3d(st + P::kXBytes, &wmap, &full[s], col0, i * P::kWRows,
-                    half);
-      }
-    }
-  } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-    const int wq = (threadIdx.x >> 5) & 3;
-    const int wcol = wg * 64 + wq * 16;      // this warp's 16 columns
-    const int c = col0 + wcol + 2 * g;       // this thread's columns c, c+1
-    const float* sc = p.scale + half * p.s_half;
-
-    float acc[NR];
-    float part[INT4 ? NR : 1];
-    if constexpr (INT4) {   // INT8: the first wgmma clears acc (scale-d 0)
-#pragma unroll
-      for (int j = 0; j < NR; ++j) acc[j] = 0.f;
-    }
-    uint32_t areg[2][8][4];
-    float s0 = 0.f, s1 = 0.f;   // the current group's scales (INT4)
-    int pend = -1;              // stage whose release waits on wgmma
-
-    auto release = [&](int s) {
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[s]);
-    };
-    auto fold = [&]() {   // acc += partial * scale
-#pragma unroll
-      for (int j = 0; j < NR; j += 4) {
-        acc[j] += part[j] * s0;
-        acc[j + 1] += part[j + 1] * s0;
-        acc[j + 2] += part[j + 2] * s1;
-        acc[j + 3] += part[j + 3] * s1;
-      }
-    };
-    auto scales = [&](int k0) {   // the scales of the group at row k0
-      const long long grow = (long long)(k0 / p.group) * p.n;
-      s0 = c < p.n ? __ldg(sc + grow + c) : 0.f;
-      s1 = c < p.n ? __ldg(sc + grow + c + 1) : 0.f;
-    };
-
-    // stage i with A register set `a`
-    auto stage = [&](int i, uint32_t (&a)[8][4]) {
-      const int s = i % S;
-      const unsigned char* st = sm + s * P::kStage;
-      const unsigned char* ws = st + P::kXBytes;
-      const int kb = i * kPreK;
-      // INT4 group edges at the two segments (k-steps 0-3 and 4-7)
-      const bool new_a = INT4 && kb % p.group == 0;
-      const bool end_a = INT4 && (kb + 64) % p.group == 0;
-      const bool live_b = kb + 64 < p.k;
-      const bool end_b = INT4 && live_b &&
-                         ((kb + kPreK) % p.group == 0 || i == nk - 1);
-      if (new_a) scales(kb);
-      mbar_wait(&full[s], (i / S) & 1);
-#pragma unroll
-      for (int ks = 0; ks < 8; ++ks) {
-        if constexpr (INT4) {
-          const int r = ks * 8 + t;
-          int4_to_bf16x2<2>(lds16(sw128_at(ws, r, wcol + 2 * g)), &a[ks][0]);
-          int4_to_bf16x2<2>(lds16(sw128_at(ws, r + 4, wcol + 2 * g)),
-                            &a[ks][2]);
-        } else {
-          const int r = ks * 16 + 2 * t;
-          const int cc = wcol + 2 * g;
-          int8_pairs<2>(lds16(sw128_at(ws, r, cc)),
-                        lds16(sw128_at(ws, r + 1, cc)), &a[ks][0]);
-          int8_pairs<2>(lds16(sw128_at(ws, r + 8, cc)),
-                        lds16(sw128_at(ws, r + 9, cc)), &a[ks][2]);
-        }
-      }
-      const uint64_t desc_a = sw128_desc(st), desc_b = sw128_desc(st + P::kXAtom);
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        if constexpr (INT4)
-          wgmma_rs<N>(part, a[ks], desc_a + 2 * ks, new_a && ks == 0 ? 0 : 1);
-        else
-          wgmma_rs<N>(acc, a[ks], desc_a + 2 * ks, i == 0 && ks == 0 ? 0 : 1);
-      }
-      if constexpr (INT4) {
-        if (end_a || !live_b) {   // a group ends mid-stage (or K does)
-          wgmma_commit();
-          wgmma_wait<0>();
-          fold();
-          if (!live_b) {
-            if (pend >= 0) release(pend);
-            release(s);
-            pend = -1;
-            return;
-          }
-          scales(kb + 64);
-          wgmma_fence();
-        }
-      }
-#pragma unroll
-      for (int ks = 4; ks < 8; ++ks) {
-        if constexpr (INT4)
-          wgmma_rs<N>(part, a[ks], desc_b + 2 * (ks - 4),
-                      end_a && ks == 4 ? 0 : 1);
-        else
-          wgmma_rs<N>(acc, a[ks], desc_b + 2 * (ks - 4), 1);
-      }
-      wgmma_commit();
-      if constexpr (INT4) {
-        if (end_b) {   // the group is complete: fold it
-          wgmma_wait<0>();
-          if (pend >= 0) release(pend);
-          release(s);
-          pend = -1;
-          fold();
-          return;
-        }
-      }
-      wgmma_wait<1>();   // the previous stage's wgmmas are done
-      if (pend >= 0) release(pend);
-      pend = s;
-    };
-
-    for (int i = 0; i < nk; i += 2) {
-      stage(i, areg[0]);
-      if (i + 1 < nk) stage(i + 1, areg[1]);
-    }
-    wgmma_wait<0>();
-
-    // epilogue: accumulator j = 4 jj + e holds x row 8 jj + 2t + (e & 1)
-    // of column c + (e >> 1)
-    if (c < p.n) {
-      float f0 = 1.f, f1 = 1.f;
-      if constexpr (!INT4) {
-        f0 = sc[c];
-        f1 = sc[c + 1];
-      }
-      const long long ldo = (long long)p.halves * p.n;
-#pragma unroll
-      for (int jj = 0; jj < N / 8; ++jj) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int r = row0 + jj * 8 + 2 * t + e;
-          if (r < p.m)
-            store_pair(p, r * ldo + (long long)half * p.n + c,
-                       acc[4 * jj + e] * f0, acc[4 * jj + 2 + e] * f1);
-        }
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// launch
-// ---------------------------------------------------------------------------
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// The tensor map of a weight, bytes [halves, kr, n] (kr stored rows), in
-// boxes of [rows,
-// cols] with `swizzle`. A decode step launches the same weights every
-// step, so maps are kept by (address, shape, box): the host encodes each
-// once (a map holds nothing but these). Returns false if encoding failed.
-bool weight_map(CUtensorMap* map, const Params& p, int kr, int rows,
-                int cols, CUtensorMapSwizzle swizzle) {
-  struct Entry {
-    const void* q;
-    int n, kr, halves, rows, cols, swizzle;
-    CUtensorMap map;
-  };
-  static Entry cache[1024];
-  static int used = 0, next = 0;
-  static std::mutex lock;
-  std::lock_guard<std::mutex> guard(lock);
-  for (int i = 0; i < used; ++i) {
-    const Entry& e = cache[i];
-    if (e.q == p.q && e.n == p.n && e.kr == kr && e.halves == p.halves &&
-        e.rows == rows && e.cols == cols && e.swizzle == (int)swizzle) {
-      *map = e.map;
-      return true;
-    }
-  }
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return false;
-  const cuuint64_t dim[3] = {(cuuint64_t)p.n, (cuuint64_t)kr,
-                             (cuuint64_t)p.halves};
-  const cuuint64_t stride[2] = {(cuuint64_t)p.n, (cuuint64_t)kr * p.n};
-  const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)rows, 1};
-  const cuuint32_t ones[3] = {1, 1, 1};
-  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3,
-             const_cast<int8_t*>(p.q), dim, stride, box, ones,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return false;
-  Entry& e = cache[next];
-  e = Entry{p.q, p.n, kr, p.halves, rows, cols, (int)swizzle, *map};
-  next = (next + 1) % 1024;
-  used = used < 1024 ? used + 1 : used;
-  return true;
-}
-
-// Allow `smem` bytes of dynamic shared memory for `kernel` on the current
-// device (once per size reached; an attribute set on one device does not
-// reach another, so `allowed` holds a size a device).
-constexpr int kMaxDevices = 16;
-template <typename K>
-cudaError_t allow_smem(K kernel, int smem, int (&allowed)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (smem <= allowed[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err == cudaSuccess) allowed[dev] = smem;
-  return err;
-}
-
-template <bool INT4, int BM>
-int launch_decode(const Params& p, const Plan& pl, cudaStream_t stream,
-                  int* blocks_per_sm) {
-  auto kernel = quant_matmul_decode<INT4, BM>;
-  static int allowed[kMaxDevices] = {};
-  cudaError_t err = allow_smem(kernel, pl.smem, allowed);
-  if (err != cudaSuccess) return (int)err;
-  if (blocks_per_sm)
-    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, kernel, kDecThreads, pl.smem);
-  CUtensorMap wmap;
-  if (!weight_map(&wmap, p, INT4 ? p.k / 2 : p.k, Dec<INT4, BM>::kRows,
-                  kDecCols,
-                  CU_TENSOR_MAP_SWIZZLE_64B))
-    return (int)cudaErrorInvalidValue;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(pl.blocks);
-  cfg.blockDim = dim3(kDecThreads);
-  cfg.dynamicSmemBytes = pl.smem;
-  cfg.stream = stream;
-  // a programmatic dependent of the kernel before it (the PDL rule:
-  // csrc/norm_act.cu), in a cluster of pl.cluster blocks
-  cudaLaunchAttribute attr[2];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  attr[1].id = cudaLaunchAttributeClusterDimension;
-  attr[1].val.clusterDim.x = pl.cluster;
-  attr[1].val.clusterDim.y = 1;
-  attr[1].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = pl.cluster > 1 ? 2 : 1;   // one block: no cluster
-  err = cudaLaunchKernelEx(&cfg, kernel, wmap, p);
-  return (int)(err != cudaSuccess ? err : cudaGetLastError());
-}
-
-template <bool INT4, int N>
-int launch_prefill(const Params& p, const Plan& pl, cudaStream_t stream,
-                   int* blocks_per_sm) {
-  using P = Pre<INT4, N>;
-  auto kernel = quant_matmul_prefill<INT4, N>;
-  static int allowed[kMaxDevices] = {};
-  cudaError_t err = allow_smem(kernel, P::kSmem, allowed);
-  if (err != cudaSuccess) return (int)err;
-  if (blocks_per_sm)
-    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, kernel, kPreThreads, P::kSmem);
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return (int)cudaErrorNotSupported;
-  // x: bf16 [m, k], boxes of [N rows, 64 K] (two a stage)
-  CUtensorMap xmap, wmap;
-  const cuuint64_t xdim[2] = {(cuuint64_t)p.k, (cuuint64_t)p.m};
-  const cuuint64_t xstride[1] = {(cuuint64_t)p.k * 2};
-  const cuuint32_t xbox[2] = {64, N};
-  const cuuint32_t ones[2] = {1, 1};
-  if (encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-             const_cast<__nv_bfloat16*>(p.x), xdim, xstride, xbox, ones,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
-      !weight_map(&wmap, p, INT4 ? p.k / 2 : p.k, P::kWRows, kPreCols,
-                  CU_TENSOR_MAP_SWIZZLE_128B))
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(pl.tiles_n * p.halves, cdiv(p.m, N));
-  kernel<<<grid, kPreThreads, P::kSmem, stream>>>(xmap, wmap, p);
-  return (int)cudaGetLastError();
-}
-
-// The plan's mode and tile pick the instance. With `blocks_per_sm`,
-// launch nothing and report the blocks an SM holds instead.
-template <bool INT4>
-int dispatch(Params p, cudaStream_t stream, int* blocks_per_sm) {
-  const Plan pl = make_plan(p.m, p.k, p.n, p.halves, INT4, p.group,
-                            sm_count());
-  p.tiles_n = pl.tiles_n;
-  p.cluster = pl.cluster;
-  p.su = pl.su;
-  p.nsu = pl.nsu;
-  if (pl.mode == 0)
-    return pl.rows == 8 ? launch_decode<INT4, 8>(p, pl, stream, blocks_per_sm)
-                        : launch_decode<INT4, 16>(p, pl, stream, blocks_per_sm);
-  return pl.rows == 64
-             ? launch_prefill<INT4, 64>(p, pl, stream, blocks_per_sm)
-             : launch_prefill<INT4, 128>(p, pl, stream, blocks_per_sm);
-}
-
-Params make_params(const void* x, const void* q, const void* scale, void* out,
-                   int m, int k, int n, int halves, long long q_half,
-                   long long s_half, int group, int out_f32) {
-  Params p{};
-  p.x = static_cast<const __nv_bfloat16*>(x);
-  p.q = static_cast<const int8_t*>(q);
-  p.scale = static_cast<const float*>(scale);
-  p.out = out;
-  p.q_half = q_half;
-  p.s_half = s_half;
-  p.m = m;
-  p.k = k;
-  p.n = n;
-  p.halves = halves;
-  p.group = group;
-  p.out_f32 = out_f32;
-  return p;
-}
-
-bool valid_int4(int k, int n, int group) {
-  return group > 0 && group % 64 == 0 && k % group == 0 && n % 16 == 0;
-}
-
-}  // namespace
-
-// Kernel E. Requires k % group == 0, group % 64 == 0, n % 16 == 0, and
-// 16-byte aligned x, q and scale (the wrapper in ops/quant.py checks).
+// Kernel E: x bf16 [m, k] times the packed INT4 weight [halves][k/2, n]
+// with grouped scales; out bf16 or f32 [m, halves * n].
 extern "C" int int4_matmul(const void* x, const void* q, const void* scale,
                            void* out, int m, int k, int n, int halves,
                            long long q_half, long long s_half, int group,
                            int out_f32, void* stream) {
-  if (!valid_int4(k, n, group)) return (int)cudaErrorInvalidValue;
-  if (m <= 0 || n <= 0) return 0;
-  return dispatch<true>(make_params(x, q, scale, out, m, k, n, halves, q_half,
-                                    s_half, group, out_f32),
-                        static_cast<cudaStream_t>(stream), nullptr);
+  return int4_entry<BF16, dispatch<BF16, true>>(
+      x, q, scale, out, m, k, n, halves, q_half, s_half, group, out_f32,
+      stream);
 }
 
-// Kernel F. Requires k % 8 == 0, n % 16 == 0, 16-byte aligned x and q.
+// Kernel F: x bf16 [m, k] times the INT8 weight [halves][k, n], the
+// per-channel scale after the f32 sum.
 extern "C" int int8_matmul(const void* x, const void* q, const void* scale,
                            void* out, int m, int k, int n, int halves,
                            long long q_half, long long s_half, int out_f32,
                            void* stream) {
-  if (n % 16 || k % 8) return (int)cudaErrorInvalidValue;
-  if (m <= 0 || n <= 0) return 0;
-  return dispatch<false>(make_params(x, q, scale, out, m, k, n, halves, q_half,
-                                     s_half, kInt8Unit, out_f32),
-                         static_cast<cudaStream_t>(stream), nullptr);
+  return int8_entry<BF16, dispatch<BF16, false>>(
+      x, q, scale, out, m, k, n, halves, q_half, s_half, out_f32, stream);
 }
 
-// The plan of a launch at these shapes (group: INT4 only), for reports
-// and tests: out = {mode (0 decode, 1 prefill), x rows a block, columns a
-// block, blocks a cluster, blocks, ring stages, dynamic shared memory
-// bytes, blocks an SM holds}.
+// The plan of kernel E (int4 != 0) or F at these shapes (plan_entry).
 extern "C" int quant_matmul_plan(int m, int k, int n, int halves, int int4,
                                  int group, int* out) {
-  if (m <= 0 || n <= 0 || n % 16 || k % 8 || (int4 && !valid_int4(k, n, group)))
-    return (int)cudaErrorInvalidValue;
-  const Plan pl = make_plan(m, k, n, halves, int4 != 0,
-                            int4 ? group : kInt8Unit, sm_count());
-  const Params p = make_params(nullptr, nullptr, nullptr, nullptr, m, k, n,
-                               halves, 0, 0, int4 ? group : kInt8Unit, 0);
-  int occ = 0;
-  const int err = int4 ? dispatch<true>(p, nullptr, &occ)
-                       : dispatch<false>(p, nullptr, &occ);
-  const int vals[8] = {pl.mode,   pl.rows,   pl.cols, pl.cluster,
-                       pl.blocks, pl.stages, pl.smem, occ};
-  for (int i = 0; i < 8; ++i) out[i] = vals[i];
-  return err;
+  return plan_entry<BF16, dispatch<BF16, true>, dispatch<BF16, false>>(
+      m, k, n, halves, int4, group, out);
 }

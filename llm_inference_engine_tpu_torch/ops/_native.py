@@ -123,10 +123,6 @@ _SIGNATURES = {
     # dtype, snapped, stream
     "kv_write_quant_float": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # x, q, scale, work, out, m, k, n, halves, q_half, s_half,
-    # group (0: INT8), chunk, splits, dtype, out_f32, stream
-    "quant_matmul_float": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L,
-                           _I, _I, _I, _I, _I, _P],
 }
 # the float16 and float32 instances of kernels D2 and D
 # (csrc/attention_{prefill,decode}_{f16,f32}.cu): the bf16 entry points'
@@ -138,9 +134,19 @@ ATTENTION_ENTRIES = (
     "attention_decode_paged", "attention_decode_int8",
     "attention_decode_paged_int8", "attention_decode_plan")
 ATTENTION_SUFFIX = {"bfloat16": "", "float16": "_f16", "float32": "_f32"}
-for _name in ATTENTION_ENTRIES:
+# the float16 and float32 instances of kernels E and F, Ef and Ff
+# (csrc/quant_matmul_f16.cu, _f32.cu): the same suffixes
+QUANT_ENTRIES = ("int4_matmul", "int8_matmul", "quant_matmul_plan")
+for _name in ATTENTION_ENTRIES + QUANT_ENTRIES:
     for _suffix in ("_f16", "_f32"):
         _SIGNATURES[_name + _suffix] = _SIGNATURES[_name]
+
+
+def entry_name(name: str, dtype) -> str:
+    """The C entry point ``name`` of kernel D2, D, E or F for tensors of
+    ``dtype``: the bf16 instance's name, or the float16 / float32 one's
+    (suffixed, ATTENTION_SUFFIX)."""
+    return name + ATTENTION_SUFFIX[str(dtype).split(".")[-1]]
 
 
 def nvcc_path() -> str:

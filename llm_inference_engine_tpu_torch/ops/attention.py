@@ -235,13 +235,6 @@ def _scale_of(sm_scale, D):
     return float(sm_scale if sm_scale is not None else 1.0 / math.sqrt(D))
 
 
-def _entry(name: str, dtype: torch.dtype) -> str:
-    """The C entry point ``name`` of kernel D2 or D for a q of ``dtype``:
-    the bf16 instance's name, or the float16 / float32 one's (suffixed,
-    ``_native.ATTENTION_SUFFIX``)."""
-    return name + _native.ATTENTION_SUFFIX[str(dtype).split(".")[-1]]
-
-
 def _launch(entry: str, q, k_cache, v_cache, q_start, kv_len, layer, *,
             table=None, k_scale=None, v_scale=None, k_new=None, v_new=None,
             snapped: Optional[bool] = None,
@@ -278,7 +271,7 @@ def _launch(entry: str, q, k_cache, v_cache, q_start, kv_len, layer, *,
     args += [D, _scale_of(sm_scale, D), int(window or 0)]
     if snapped is not None:
         args.append(int(snapped))
-    name = _entry(entry, q.dtype)
+    name = _native.entry_name(entry, q.dtype)
     status = getattr(_native.library(), name)(*args, _native.stream_of(q))
     _native.check(status, name)
     return out
@@ -560,7 +553,7 @@ def decode_plan(B: int, H: int, K: int, D: int, *, int8: bool = False,
     holds at once."""
     import ctypes
     out = (ctypes.c_int * 7)()
-    name = _entry("attention_decode_plan", dtype)
+    name = _native.entry_name("attention_decode_plan", dtype)
     status = getattr(_native.library(), name)(
         B, H, K, D, int(int8), page, max_pages, out)
     _native.check(status, name)
@@ -577,7 +570,7 @@ def prefill_plan(D: int, *, int8: bool = False,
     block."""
     import ctypes
     out = (ctypes.c_int * 3)()
-    name = _entry("attention_prefill_plan", dtype)
+    name = _native.entry_name("attention_prefill_plan", dtype)
     status = getattr(_native.library(), name)(D, int(int8), out)
     _native.check(status, name)
     return dict(zip(("tile_keys", "stages", "smem_bytes"), out))

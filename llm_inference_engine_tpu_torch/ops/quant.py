@@ -19,7 +19,8 @@ scalar-prefetched layer index.
 
 Routing follows the JAX package: at m < 1024 rows the fused kernels run,
 E (``int4_matmul``) or F (``int8_matmul``), CUDA C++ in
-``csrc/quant_matmul.cu``, in one of two modes that
+``csrc/quant_matmul.cuh`` (built for bf16 by ``quant_matmul.cu``), in one
+of two modes that
 :func:`quant_matmul_plan` describes (a decode mode at m <= 16, split-K
 over a thread-block cluster; a prefill mode on wgmma above); at m >= 1024
 (``_PREFILL_M``) the weight is dequantized once to bf16 (INT4: kernel G, ``dequant_int4``, Triton in
@@ -30,10 +31,13 @@ bakes the scale into the bf16 weight: one extra rounding (~2^-9 relative)
 that the fused path does not have.
 
 A float16 or float32 x takes the float instances Ef / Ff
-(``csrc/float_kernels.cu``, :func:`int4_matmul_float`,
-:func:`int8_matmul_float`: f32 FMA on the CUDA cores over K splits whose
-partial sums the wrapper's workspace holds, :func:`float_matmul_plan`);
-at m >= 1024 x is cast to bf16 as the JAX package's large-m path does.
+(:func:`int4_matmul_float`, :func:`int8_matmul_float`; the C entry points
+suffixed ``_f16`` / ``_f32``): float16 is E/F's template over ``__half``
+(``csrc/quant_matmul_f16.cu``, the same tensor-core modes), float32 runs
+on the CUDA cores with E/F's decode skeleton and a register-tiled prefill
+mode (``csrc/quant_matmul_f32.cu``); one launch a matmul, no workspace,
+the plan :func:`quant_matmul_plan` with ``dtype``. At m >= 1024 x is cast
+to bf16 as the JAX package's large-m path does.
 
 On CPU tensors, or with ``kernels="torch"``, every op runs its plain
 version (same routing, same rounding points). On a CUDA tensor the
@@ -65,7 +69,6 @@ __all__ = [
     "int8_matmul_torch",
     "int4_matmul_float",
     "int8_matmul_float",
-    "float_matmul_plan",
     "dequant_int4",
     "dequant_int4_torch",
     "quant_matmul_plan",
@@ -74,11 +77,12 @@ __all__ = [
 ]
 
 _PREFILL_M = 1024   # m >= this dequantizes once and runs a bf16 matmul
-# the x dtypes of the float instances Ef / Ff (csrc/float_kernels.cu)
+# the x dtypes of the float instances Ef / Ff (csrc/quant_matmul_f16.cu,
+# csrc/quant_matmul_f32.cu)
 FLOAT_X_DTYPES = (torch.float16, torch.float32)
 
-# The plan of kernels E and F (``make_plan`` in csrc/quant_matmul.cu; a
-# card test holds the two equal).
+# The plan of kernels E and F and of their float instances (``make_plan``
+# in csrc/quant_matmul.cuh; a card test holds the two equal).
 _DECODE_M = 16             # m <= this: the decode mode
 _DEC_COLS = 64             # output columns of a decode block
 _INT8_UNIT = 128           # K rows of an INT8 split unit
@@ -88,6 +92,8 @@ _MAX_CLUSTER = 8
 _PRE_COLS = 128            # output columns of a prefill block
 _PRE_K = 128               # K elements a prefill stage
 _PRE_STAGES = 4
+_F32_SLICES = 8            # K slices of a float32 decode block
+_PRE_F32_ROWS, _PRE_F32_K, _PRE_F32_STAGES = 128, 32, 4   # float32 prefill
 _PLAN_KEYS = ("mode", "rows", "cols", "cluster", "blocks", "stages",
               "smem_bytes")
 
@@ -349,29 +355,43 @@ def _decode_split(m: int, k: int, n: int, halves: int, int4: bool,
 
 def quant_matmul_plan(m: int, k: int, n: int, halves: int = 1, *,
                       int4: bool = True, group: int = 128,
-                      sms: int = 132) -> dict:
-    """Kernel E's (``int4``) or F's plan for x [m, k] times a [k, n] weight
-    (``halves`` = 2: the gate|up stack) on ``sms`` SMs, as
-    ``csrc/quant_matmul.cu`` makes it: mode ("decode" at m <= 16 with
+                      sms: int = 132,
+                      dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Kernel E's (``int4``) or F's plan for x [m, k] of ``dtype`` times a
+    [k, n] weight (``halves`` = 2: the gate|up stack) on ``sms`` SMs, as
+    ``csrc/quant_matmul.cuh`` makes it: mode ("decode" at m <= 16 with
     INT4 groups of 64 or 128, else "prefill"), x rows and output columns a
     block, blocks a cluster along K, blocks, ring stages and dynamic shared
-    memory a block. Pure Python: the CPU tests call it;
-    :func:`quant_matmul_plan_native` asks the built library."""
+    memory a block. float16 takes bf16's plan; float32 (Ef / Ff on the
+    CUDA cores) stages 4-byte x rows in the decode mode, 8 K slices 16
+    bytes apart, and takes 128-row prefill tiles of 32 K rows. Pure
+    Python: the CPU tests call it; :func:`quant_matmul_plan_native` asks
+    the built library."""
+    f32 = dtype == torch.float32
     if m <= _DECODE_M and (not int4 or group in (64, 128)):
         rows = 8 if m <= 8 else 16
         _, _, cs = _decode_split(m, k, n, halves, int4, group, sms)
         stages, kk = _DEC_STAGES[int4], _DEC_STAGE_K[int4]
-        stage = (128 * _DEC_COLS + rows * (kk * 2 + 16)
+        x_pitch = kk * 4 + _F32_SLICES * 16 + 16 if f32 else kk * 2 + 16
+        stage = (128 * _DEC_COLS + rows * x_pitch
                  + (kk // 64 * _DEC_COLS * 4 if int4 else 0))
         return dict(mode="decode", rows=rows, cols=_DEC_COLS, cluster=cs,
                     blocks=cdiv(n, _DEC_COLS) * halves * cs, stages=stages,
                     smem_bytes=1024 + stages * stage + 8 * stages)
-    rows = 64 if m <= 64 else 128
-    stage = rows * _PRE_K * 2 + (_PRE_K // 2 if int4 else _PRE_K) * _PRE_COLS
+    if f32:
+        rows, kk = _PRE_F32_ROWS, _PRE_F32_K
+        stage = rows * (kk * 4 + 16) + (kk // 2 if int4 else kk) * _PRE_COLS
+        smem = 128 + _PRE_F32_STAGES * stage + 2 * kk * _PRE_COLS * 4
+        stages = _PRE_F32_STAGES
+    else:
+        rows = 64 if m <= 64 else 128
+        stage = (rows * _PRE_K * 2
+                 + (_PRE_K // 2 if int4 else _PRE_K) * _PRE_COLS)
+        smem = 1024 + _PRE_STAGES * stage + 2 * _PRE_STAGES * 8
+        stages = _PRE_STAGES
     return dict(mode="prefill", rows=rows, cols=_PRE_COLS, cluster=1,
                 blocks=cdiv(n, _PRE_COLS) * halves * cdiv(m, rows),
-                stages=_PRE_STAGES,
-                smem_bytes=1024 + _PRE_STAGES * stage + 2 * _PRE_STAGES * 8)
+                stages=stages, smem_bytes=smem)
 
 
 def cluster_k_ranges(m: int, k: int, n: int, halves: int = 1, *,
@@ -384,36 +404,19 @@ def cluster_k_ranges(m: int, k: int, n: int, halves: int = 1, *,
             for r in range(cs)]
 
 
-_FLOAT_THREADS, _FLOAT_COLS, _FLOAT_ROWS, _FLOAT_K = 128, 4, 8, 64
-
-
-def float_matmul_plan(m: int, k: int, n: int, halves: int = 1,
-                      group: int = 0, sms: int = 132) -> dict:
-    """The launch of kernels Ef (``group`` > 0, INT4) and Ff (INT8) as
-    ``csrc/float_kernels.cu`` takes it: blocks of 8 x rows and 512 output
-    columns over ``splits`` K splits of ``chunk`` rows (whole scale groups,
-    else whole 64-row stages), enough splits for two blocks an SM where
-    the rows and columns give fewer; the partial sums, [splits, m,
-    halves * n] f32, are then summed in split order."""
-    unit = group if group else _FLOAT_K
-    units = cdiv(k, unit)
-    blocks = (cdiv(halves * n, _FLOAT_THREADS * _FLOAT_COLS)
-              * cdiv(m, _FLOAT_ROWS))
-    splits = max(1, min(units, cdiv(2 * sms, blocks)))
-    chunk = cdiv(units, splits) * unit
-    return dict(chunk=chunk, splits=cdiv(k, chunk), blocks=blocks)
-
-
 def quant_matmul_plan_native(m: int, k: int, n: int, halves: int = 1, *,
-                             int4: bool = True, group: int = 128) -> dict:
+                             int4: bool = True, group: int = 128,
+                             dtype: torch.dtype = torch.bfloat16) -> dict:
     """The plan from the built library on the card (``quant_matmul_plan``
-    in ``csrc/quant_matmul.cu``), with the blocks an SM holds."""
+    of x's ``dtype``, ``csrc/quant_matmul.cuh``), with the blocks an SM
+    holds."""
     import ctypes
     from llm_inference_engine_tpu_torch.ops import _native
     out = (ctypes.c_int * 8)()
-    status = _native.library().quant_matmul_plan(m, k, n, halves, int(int4),
-                                                 group, out)
-    _native.check(status, "quant_matmul_plan")
+    name = _native.entry_name("quant_matmul_plan", dtype)
+    status = getattr(_native.library(), name)(m, k, n, halves, int(int4),
+                                              group, out)
+    _native.check(status, name)
     plan = dict(zip(_PLAN_KEYS + ("blocks_per_sm",), out))
     plan["mode"] = ("decode", "prefill")[plan["mode"]]
     return plan
@@ -476,32 +479,16 @@ def _launch_fused(name, x2, q, scale, out_dtype, int4, group_size):
         return out
     q_half = q.shape[-2] * n if halves == 2 else 0
     s_half = scale.shape[-2] * n if halves == 2 else 0
-    lib = _native.library()
-    if x2.dtype in FLOAT_X_DTYPES:
-        # Ef / Ff: the K splits' partial sums go through a workspace
-        sms = torch.cuda.get_device_properties(
-            x2.device).multi_processor_count
-        plan = float_matmul_plan(m, k, n, halves, group_size if int4 else 0,
-                                 sms)
-        work = torch.empty((plan["splits"], m, halves * n),
-                           dtype=torch.float32, device=x2.device)
-        status = lib.quant_matmul_float(
-            x2.data_ptr(), q.data_ptr(), scale.data_ptr(), work.data_ptr(),
-            out.data_ptr(), m, k, n, halves, q_half, s_half,
-            group_size if int4 else 0, plan["chunk"], plan["splits"],
-            _native.dtype_code(x2.dtype), int(out_dtype == torch.float32),
-            _native.stream_of(x2))
-        _native.check(status, name)
-        return out
+    # E / F, or their float16 / float32 instance Ef / Ff: one launch
+    entry = getattr(_native.library(), _native.entry_name(
+        "int4_matmul" if int4 else "int8_matmul", x2.dtype))
     args = (x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
             m, k, n, halves, q_half, s_half)
+    out_f32, stream = int(out_dtype == torch.float32), _native.stream_of(x2)
     if int4:
-        status = lib.int4_matmul(*args, group_size,
-                                 int(out_dtype == torch.float32),
-                                 _native.stream_of(x2))
+        status = entry(*args, group_size, out_f32, stream)
     else:
-        status = lib.int8_matmul(*args, int(out_dtype == torch.float32),
-                                 _native.stream_of(x2))
+        status = entry(*args, out_f32, stream)
     _native.check(status, name)
     return out
 
@@ -509,7 +496,7 @@ def _launch_fused(name, x2, q, scale, out_dtype, int4, group_size):
 def int4_matmul(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                 group_size: int, out_dtype: torch.dtype, *,
                 kernels: str = "auto") -> torch.Tensor:
-    """Kernel E (W4A16 fused dequant-matmul, ``csrc/quant_matmul.cu``):
+    """Kernel E (W4A16 fused dequant-matmul, ``csrc/quant_matmul.cuh``):
     x2 bf16 [m, k] times the packed int4 weight [k/2, n] (or the
     [2, k/2, I] gate|up stack in one launch, flat [m, 2I] out) with
     grouped scales; out bf16 or f32."""
@@ -530,7 +517,7 @@ int4_matmul.launches = 0
 def int8_matmul(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                 out_dtype: torch.dtype, *,
                 kernels: str = "auto") -> torch.Tensor:
-    """Kernel F (W8A16 fused dequant-matmul, ``csrc/quant_matmul.cu``):
+    """Kernel F (W8A16 fused dequant-matmul, ``csrc/quant_matmul.cuh``):
     x2 bf16 [m, k] times int8 [k, n] (or [2, k, I]) with the per-channel
     scale [1, n] applied to the f32 accumulator."""
     if not use_kernel(kernels, x2):
@@ -555,8 +542,9 @@ def _need_float_x(name, x2):
 def int4_matmul_float(x2: torch.Tensor, q: torch.Tensor,
                       scale: torch.Tensor, group_size: int,
                       out_dtype: torch.dtype) -> torch.Tensor:
-    """Kernel Ef (``csrc/float_kernels.cu``): what :func:`int4_matmul` runs
-    for a float16 or float32 x on the card; out x's dtype or f32."""
+    """Kernel Ef (``csrc/quant_matmul_f16.cu``, ``_f32.cu``): what
+    :func:`int4_matmul` runs for a float16 or float32 x on the card; out
+    x's dtype or f32."""
     _need_float_x("int4_matmul_float", x2)
     out = _launch_fused("int4_matmul_float", x2, q, scale, out_dtype, True,
                         group_size)
@@ -571,8 +559,9 @@ int4_matmul_float.launches = 0
 def int8_matmul_float(x2: torch.Tensor, q: torch.Tensor,
                       scale: torch.Tensor,
                       out_dtype: torch.dtype) -> torch.Tensor:
-    """Kernel Ff (``csrc/float_kernels.cu``): what :func:`int8_matmul` runs
-    for a float16 or float32 x on the card; out x's dtype or f32."""
+    """Kernel Ff (``csrc/quant_matmul_f16.cu``, ``_f32.cu``): what
+    :func:`int8_matmul` runs for a float16 or float32 x on the card; out
+    x's dtype or f32."""
     _need_float_x("int8_matmul_float", x2)
     out = _launch_fused("int8_matmul_float", x2, q, scale, out_dtype, False,
                         0)

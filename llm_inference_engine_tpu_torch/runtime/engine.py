@@ -54,8 +54,9 @@ does, the pool is always snapped.
 Dtypes on the card (``check_kernel_dtypes``): a bfloat16 model runs
 kernels A-I; a float16 or float32 model (the ``debug`` preset is
 float32) runs A, B, C and H, which take its rows as they are, and the
-float instances of the others (D2f and Df: ``csrc/attention_*_f16.cu``
-and ``_f32.cu``; If, Ef, Ff: ``csrc/float_kernels.cu``). Either takes a
+float instances of the others (D2f, Df, Ef and Ff:
+``csrc/attention_*_f16.cu``, ``csrc/quant_matmul_f16.cu`` and their
+``_f32.cu``; If: ``csrc/float_kernels.cu``). Either takes a
 cache of the model's dtype or int8; a float cache of another dtype is
 refused before anything is allocated. A pool of the model's dtype
 decodes through the fused paged decode (D or Df), an int8 pool through

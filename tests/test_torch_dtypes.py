@@ -3,8 +3,9 @@ JAX package, on the CPU, and the card's dtype check.
 
 The JAX package takes a float32, float16 or bfloat16 model, its Pallas
 kernels computing in f32 inside; on the card the port runs such a model
-through the float instances of its kernels (``csrc/float_kernels.cu``,
-held against the plain versions by the card tests). Here each path of the
+through the float instances of its kernels (``csrc/*_f16.cu``,
+``csrc/*_f32.cu``, ``csrc/float_kernels.cu``, held against the plain
+versions by the card tests). Here each path of the
 ``debug`` preset (2 layers, head_dim 16) in float16 runs on both sides
 from one set of JAX dummy weights (``params_from_numpy``): the JAX engine
 with ``kernels="pallas"`` in interpret mode (conftest), built once per

@@ -415,10 +415,13 @@ def test_fused_quant_matmul_is_deterministic(cuda, mode, m, k, n):
     assert torch.equal(first, second)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32], ids=str)
 @pytest.mark.parametrize("m", [8, 16, 512])
-def test_quant_matmul_plan_mirror_equals_library(cuda, m):
+def test_quant_matmul_plan_mirror_equals_library(cuda, m, dtype):
     """ops.quant.quant_matmul_plan (Python, what the CPU tests check)
-    equals the library's quant_matmul_plan on every 7B projection."""
+    equals the library's quant_matmul_plan of x's dtype (E/F, and the
+    float16 / float32 instances Ef/Ff) on every 7B projection."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     cfg = get_config("llama2-7b")
     H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
@@ -426,10 +429,11 @@ def test_quant_matmul_plan_mirror_equals_library(cuda, m):
                          (H, V, 1)):
         for int4 in (True, False):
             native = quant.quant_matmul_plan_native(m, k, n, halves,
-                                                    int4=int4)
+                                                    int4=int4, dtype=dtype)
             assert native.pop("blocks_per_sm") >= 1
             assert native == quant.quant_matmul_plan(
-                m, k, n, halves, int4=int4, sms=sms), (k, n, halves, int4)
+                m, k, n, halves, int4=int4, sms=sms, dtype=dtype), (
+                    k, n, halves, int4)
 
 
 def _params_to(tree, device):
@@ -2044,8 +2048,8 @@ def test_copy_writes_at_model_rows(cuda, paged, T, K, D):
 
 
 # ---------------------------------------------------------------------------
-# the float instances: D2f and Df (csrc/attention_*_f16.cu, _f32.cu), If,
-# Ef and Ff (csrc/float_kernels.cu)
+# the float instances: D2f and Df (csrc/attention_*_f16.cu, _f32.cu), Ef
+# and Ff (csrc/quant_matmul_f16.cu, _f32.cu), If (csrc/float_kernels.cu)
 # ---------------------------------------------------------------------------
 
 FLOAT_DTYPES = [torch.float32, torch.float16]
@@ -2268,19 +2272,32 @@ def _nan_tailed(t):
     return flat[:t.numel()].view(t.shape)
 
 
+# Ef / Ff: every plan boundary of m (decode 8- and 16-row tiles, the
+# prefill mode's 64- and 128-row tiles, the last m below the bf16
+# route), scale groups 64 and 128 and 192 (which takes the prefill mode
+# at any m), the gate|up stack, f32 out, ragged n and k
+FLOAT_MATMUL_CASES = (
+    [(m, 4096, 1040, 1, False, 128) for m in (1, 8, 9, 16, 17, 64, 65, 512,
+                                              1023)]
+    + [(1, 4096, 1040, 1, False, 64), (8, 4096, 1040, 1, True, 64),
+       (5, 1024, 688, 2, False, 64), (300, 1024, 1040, 1, False, 64),
+       (64, 64, 128, 2, False, 64), (512, 128, 64, 1, True, 64),
+       (9, 4096, 1040, 2, True, 128), (16, 1536, 688, 2, False, 192),
+       (8, 1536, 1040, 1, True, 192), (65, 1152, 688, 2, False, 192),
+       (512, 1536, 1040, 1, False, 192)])
+
+
 @pytest.mark.parametrize("dtype", FLOAT_DTYPES, ids=str)
 @pytest.mark.parametrize("mode", ["int4", "int8"])
-@pytest.mark.parametrize("m,k,n,halves,out_f32", [
-    (1, 4096, 1040, 1, False), (8, 4096, 1040, 1, False),
-    (8, 4096, 1040, 1, True), (5, 1024, 688, 2, False),
-    (300, 1024, 1040, 1, False), (64, 64, 128, 2, False),
-    (512, 128, 64, 1, True)])
-def test_float_quant_matmul(cuda, dtype, mode, m, k, n, halves, out_f32):
-    """Ef / Ff against the plain versions (group 64), with NaN past the
-    ends of x and of the scales and garbage past the weights'."""
-    t = _qweight(cuda, mode, k, n, halves=halves, group=64)
+@pytest.mark.parametrize("m,k,n,halves,out_f32,group", FLOAT_MATMUL_CASES)
+def test_float_quant_matmul(cuda, dtype, mode, m, k, n, halves, out_f32,
+                            group):
+    """Ef / Ff against the plain versions, with NaN past the ends of x and
+    of the scales and garbage past the weights'; one launch, in the mode
+    the plan names."""
+    t = _qweight(cuda, mode, k, n, halves=halves, group=group)
     t = quant.QuantizedTensor(_nan_tailed(t.q), _nan_tailed(t.scale),
-                              mode, 64)
+                              mode, group)
     x = _nan_tailed(torch.randn(m, k, device=cuda, dtype=dtype))
     out_dtype = torch.float32 if out_f32 else dtype
     counter = getattr(quant, f"{mode}_matmul_float")
@@ -2291,6 +2308,43 @@ def test_float_quant_matmul(cuda, dtype, mode, m, k, n, halves, out_f32):
     assert counter.launches == before + 1
     assert got.dtype == out_dtype and got.shape == (m, halves * n)
     _held_float(got, want, dtype)
+    plan = quant.quant_matmul_plan_native(m, k, n, halves,
+                                          int4=mode == "int4", group=group,
+                                          dtype=dtype)
+    assert plan["mode"] == ("decode" if m <= 16 and (
+        mode == "int8" or group in (64, 128)) else "prefill")
+
+
+@pytest.mark.parametrize("dtype", FLOAT_DTYPES, ids=str)
+@pytest.mark.parametrize("mode", ["int4", "int8"])
+@pytest.mark.parametrize("m", [8, 16])
+def test_float_quant_matmul_graph_replays_equal_eager(cuda, dtype, mode, m):
+    """The decode mode of Ef / Ff (a cluster merge and a programmatic
+    dependent, no workspace) captured in a CUDA graph behind kernel A
+    replays bit for bit what it computes eagerly, on new x each replay."""
+    t = _qweight(cuda, mode, 4096, 11008, halves=2)
+    w = torch.rand(4096, device=cuda, dtype=dtype) + 0.5
+    x = torch.randn(m, 4096, device=cuda, dtype=dtype)
+    out = torch.empty(m, 2 * 11008, device=cuda, dtype=dtype)
+
+    def body():
+        out.copy_(_run_fused(t, rmsnorm.rmsnorm(x, w, kernels="cuda"), dtype,
+                             "cuda"))
+    body()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        body()
+    for _ in range(3):
+        x.copy_(torch.randn_like(x))
+        graph.replay()
+        torch.cuda.synchronize()
+        replayed = out.clone()
+        body()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, out)
+        _held_float(out, _run_fused(t, rmsnorm.rmsnorm(x, w, kernels="cuda"),
+                                    dtype, "torch"), dtype)
 
 
 @pytest.mark.parametrize("dtype", FLOAT_DTYPES, ids=str)

@@ -174,8 +174,13 @@ def test_one_forward_calls_each_norm_as_folded(rng, monkeypatch, layers):
 # ---------------------------------------------------------------------------
 
 def _source(name: str) -> str:
-    """A csrc source without its // comments."""
-    return re.sub(r"//[^\n]*", "", (_native.CSRC / name).read_text())
+    """A csrc source, the csrc headers it includes written in place (a
+    template such as quant_matmul.cuh is compiled by each source that
+    includes it), without its // comments."""
+    text = re.sub(r'#include "(\w+\.cuh)"',
+                  lambda m: (_native.CSRC / m.group(1)).read_text(),
+                  (_native.CSRC / name).read_text())
+    return re.sub(r"//[^\n]*", "", text)
 
 
 def _body(text: str, start: int) -> str:

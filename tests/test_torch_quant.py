@@ -39,8 +39,11 @@ from llm_inference_engine_tpu_torch.ops.linear import linear
 from llm_inference_engine_tpu_torch.runtime.engine import InferenceEngine
 
 MODES = ["int8", "int4"]
+# (JAX dtype, torch dtype, relative tolerance): float16 rounds its output
+# once (2^-11) where the sums' order differs, as FLOAT_REL on the card
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
-          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2),
+          "float16": (jnp.float16, torch.float16, 2e-3)}
 
 
 @pytest.fixture(autouse=True)
@@ -174,6 +177,18 @@ def _linear_case(rng, mode, m, k, n, dtype, group=128):
                                    (1, 128, 256)])
 def test_quantized_linear_matches_jax(rng, mode, dtype, m, k, n):
     _linear_case(rng, mode, m, k, n, dtype)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dtype", ["float16", "float32"])
+@pytest.mark.parametrize("m", [8, 9, 16, 17, 64, 65])
+def test_float_quantized_linear_at_plan_boundaries_matches_jax(rng, mode,
+                                                               dtype, m):
+    """A float16 / float32 x at the m where kernels Ef / Ff change mode or
+    tile on the card (decode 8- and 16-row tiles up to 16, then the
+    prefill mode's 64- and 128-row tiles; float32 prefill 128 rows),
+    group 64, against the JAX package's Pallas path."""
+    _linear_case(rng, mode, m, 256, 128, dtype, group=64)
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -416,7 +431,7 @@ def test_unported_quantization_paths_raise(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# the plan of kernels E and F (csrc/quant_matmul.cu; a card test holds the
+# the plan of kernels E and F (csrc/quant_matmul.cuh; a card test holds the
 # Python mirror equal to the library's)
 # ---------------------------------------------------------------------------
 
@@ -429,16 +444,23 @@ def _projections(name):
             ("lm_head", H, cfg.vocab_size, 1)]
 
 
+PLAN_DTYPES = [torch.bfloat16, torch.float16, torch.float32]
+
+
+@pytest.mark.parametrize("dtype", PLAN_DTYPES, ids=str)
 @pytest.mark.parametrize("int4", [True, False], ids=["int4", "int8"])
 @pytest.mark.parametrize("m", [8, 16])
 @pytest.mark.parametrize("model", ["llama2-7b", "llama3-8b", "mistral-7b",
                                    "qwen2-7b"])
-def test_decode_plan_fills_the_card_with_whole_groups(model, m, int4):
-    """Decode mode on 132 SMs: >= 2 blocks an SM for every projection
-    (n = 4096 included), and every cluster rank a whole number of scale
-    groups (INT4) or 128-row units (INT8), balanced and covering K."""
+def test_decode_plan_fills_the_card_with_whole_groups(model, m, int4, dtype):
+    """Decode mode on 132 SMs, for x of each dtype (E/F, Ef/Ff): >= 2
+    blocks an SM for every projection (n = 4096 included), shared memory
+    that fits a block (float32's x stage is twice as wide), and every
+    cluster rank a whole number of scale groups (INT4) or 128-row units
+    (INT8), balanced and covering K."""
     for label, k, n, halves in _projections(model):
-        plan = quant.quant_matmul_plan(m, k, n, halves, int4=int4, sms=132)
+        plan = quant.quant_matmul_plan(m, k, n, halves, int4=int4, sms=132,
+                                       dtype=dtype)
         assert plan["mode"] == "decode" and plan["rows"] == (8 if m <= 8
                                                              else 16), label
         assert plan["blocks"] >= 2 * 132, (label, plan)
@@ -456,26 +478,35 @@ def test_decode_plan_fills_the_card_with_whole_groups(model, m, int4):
         assert max(sizes) - min(sizes) <= 1, (label, ranges)
 
 
-def test_plan_modes_follow_m():
+@pytest.mark.parametrize("dtype", PLAN_DTYPES, ids=str)
+def test_plan_modes_follow_m(dtype):
     """m <= 8: 8-row decode tiles; 9-16: 16-row ones; above: the prefill
-    mode, 64-row tiles up to m = 64, then 128; the routing's 1024 is not
-    the plan's. Shared memory fits a block at every m."""
+    mode, 64-row tiles up to m = 64, then 128 (float32: 128 from m = 17);
+    the routing's 1024 is not the plan's. Shared memory fits a block at
+    every m; float16 takes bf16's plan as it is."""
+    f32 = dtype == torch.float32
     for m, mode, rows in ((1, "decode", 8), (8, "decode", 8),
                           (9, "decode", 16), (16, "decode", 16),
-                          (17, "prefill", 64), (64, "prefill", 64),
+                          (17, "prefill", 128 if f32 else 64),
+                          (64, "prefill", 128 if f32 else 64),
                           (65, "prefill", 128), (512, "prefill", 128),
                           (1023, "prefill", 128)):
         for int4 in (True, False):
-            plan = quant.quant_matmul_plan(m, 4096, 12288, int4=int4)
+            plan = quant.quant_matmul_plan(m, 4096, 12288, int4=int4,
+                                           dtype=dtype)
             assert (plan["mode"], plan["rows"]) == (mode, rows), (m, plan)
             assert plan["smem_bytes"] <= 232448
             if mode == "prefill":
                 assert plan["cluster"] == 1 and plan["cols"] == 128
                 assert plan["blocks"] == 96 * -(-m // rows)
+            if dtype == torch.float16:
+                assert plan == quant.quant_matmul_plan(m, 4096, 12288,
+                                                       int4=int4)
     # INT4 groups other than 64 and 128 take the prefill mode at any m
     for group in (64, 128, 256):
-        plan = quant.quant_matmul_plan(8, 4096, 4096, group=group)
+        plan = quant.quant_matmul_plan(8, 4096, 4096, group=group,
+                                       dtype=dtype)
         assert plan["mode"] == ("prefill" if group == 256 else "decode")
-    assert quant.quant_matmul_plan(8, 4096, 4096, int4=False)["mode"] == \
-        "decode"
+    assert quant.quant_matmul_plan(8, 4096, 4096, int4=False,
+                                   dtype=dtype)["mode"] == "decode"
     assert quant._PREFILL_M == 1024

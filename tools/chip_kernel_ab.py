@@ -43,11 +43,13 @@ pages of 64, and slot over an int8 cache (4g): the card's busy ms and the
 K/V writes' ms of it (torch.profiler), through this checkout's
 ``chip_smoke.prefill_rows``.
 
-``--rows float`` times the float16 and float32 attention instances D2f and
-Df instead, and only them, at phase 3f's shapes (the prefill over the
+``--rows float`` times the float16 and float32 instances D2f, Df, Ef and
+Ff instead, and only them, at phase 3f's shapes (the prefill over the
 slot cache and through the table, the fused slot decode, the attend-only
-paged decode), through this checkout's ``chip_smoke.float_attention_rows``,
-which calls only the wrappers every tree has.
+paged decode; Ef and Ff at m 8 and 512 on wqkv and down), through this
+checkout's ``chip_smoke.float_attention_rows`` and
+``chip_smoke.float_matmul_rows``, which call only the wrappers every tree
+has.
 
 ``--rows norm`` times kernels A (plain and with a residual) and B at
 decode shape ([8, 4096], [8, 22016]: 64 calls in a CUDA graph, CUDA
@@ -78,7 +80,7 @@ def one(root: Path, rows: str = "attention") -> dict:
     kernels E and F at QUANT_ROWS; ``rows="writes"``: of the K/V row
     writes and their floors; ``rows="prefill"``: warm prefills;
     ``rows="norm"``: kernels A and B and 4b's, 4c's and 4d's replayed
-    step; ``rows="float"``: the float attention instances)."""
+    step; ``rows="float"``: the float instances D2f, Df, Ef, Ff)."""
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_kernel_ab: no CUDA device")
@@ -106,7 +108,8 @@ def one(root: Path, rows: str = "attention") -> dict:
     if rows == "norm":
         return here.norm_rows(torch, dev)
     if rows == "float":
-        return here.float_attention_rows(torch, dev)
+        return {**here.float_attention_rows(torch, dev),
+                **here.float_matmul_rows(torch, dev)}
     results: dict = {}
     for fn in (smoke.phase_kernels, smoke.phase_paged_kernels,
                smoke.phase_kv_int8_kernels):
