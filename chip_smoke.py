@@ -46,13 +46,17 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    instances in float32 and float16 at 7B widths (``phase_float_kernels``:
    D2f slot, int8 and paged, Df's fused slot decode, its fused paged
    decode bit for bit H + the attend-only one (B16 at pages of 64 and
-   16, 4d's B8) and the attend-only paged decode, If bit for bit, Ef / Ff
-   at m 8 and 512, A, B and C on float rows; head_dim 16 and 64 small),
+   16, 4d's B8), the attend-only paged decode, its fused decode over an
+   int8 pool bit for bit If + the attend-only one (B16 and 4d's B8 at
+   pages of 64), If (kernel I's template over f16 / f32 rows) bit for bit
+   at 8 x 512 and 3c's 520 rows, Ef / Ff at m 8 and 512, A, B and C on
+   float rows; head_dim 16 and 64 small),
    NaN planted past every tail, each timed cold beside its bound
    (operations at the f32 or f16 rate), its plain version, SDPA and the
    time of the simple instances they replaced;
 4. the main paths, each through ``create_engine`` with dummy weights (seed
-   0) at full width and depth, with every launch counter set to 0 just
+   0) at full width and depth (4k: 4 layers), with every launch counter
+   set to 0 just
    before the path and read just after, and a rerun of round 1 with
    ``kernels="torch"`` on the same weights as the reference:
    a. llama2-7b bf16, B=4: two ``generate`` rounds (greedy, then sampled)
@@ -162,11 +166,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
       every end, against the plain versions, timed with bound and
       library call;
    h. paged == slot with the int8 cache: as 4d, bit-identical logits and
-      ids, through H's and D's int8 paged modes only;
+      ids, through H's and D's int8 paged modes only, a decode step
+      through D's fused decode over the int8 pool (no H int8);
    i. the server over a paged INT4 engine with an int8 pool of 4e's pool
       bytes (~2x the pages): 4e's wave 1;
    k. a checkpoint on disk (after 4i, every earlier engine freed): the
-      seed-0 bf16 dummy weights of llama2-7b written as an HF directory
+      seed-0 bf16 dummy weights of llama2-7b at full width and 4 layers
+      (CKPT_LAYERS; the model named by a config JSON) written as an HF
+      directory
       (two BF16 shards of unfused [out, in] projections, no
       ``safetensors`` package) and loaded INT4 through ``create_engine``
       by the native reader (``build/native/``): every leaf bit for bit
@@ -265,13 +272,18 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
       with no H (a float pool: Df's fused paged decode; paged == slot bit
       for bit); (b) llama2-7b float16 at B 4 (4a's prompts, 32 tokens;
       then paged over pages of 64, bit for bit the slot engine, its step
-      with no H, ``graph_checks``) and INT4 at B 8 (4b's prompts), (c)
+      with no H, ``graph_checks``), the same weights over an int8 cache
+      (slot B 4, then paged over pages of 64: If and D2f in prefill, a
+      decode step Df's fused int8 decode a layer and no If) and INT4 at
+      B 8 (4b's prompts), (c)
       llama2-7b float32 at B 2 (7 and 700 tokens, 16 tokens): the first
       token against ``kernels="torch"`` by 4a's rule, launches per forward
       (no bf16 kernel, no plain version), ``graph_checks``;
    (3d, before 4: kernel I, H's int8 mode, D2's and D's int8 modes
    against their plain versions at 7B widths, in both scale numerics, the
-   decode modes held per row; then at head_dim 80, 96
+   decode modes held per row, D's fused decode over an int8 pool bit for
+   bit H's int8 mode then the attend-only decode (B16 and 4h's B8, pages
+   of 64); then at head_dim 80, 96
    and 256, at small shapes, D's four decode modes, D2's four prefill
    modes and I's two writes; 4j runs after 4g, 4n after 4j, 4o, 4p and
    4q after 4n, before 4d); every profiled step and prefill prints its device time by kernel group
@@ -283,8 +295,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    A and B are counted (``check_norm_launches``);
 5. one JSON line of kernel results (each with its time, its plain
    version's, its bound from this run's inputs and, where one PyTorch call
-   computes the same function, that call's time), the nvidia-smi line,
-   and as the last line ``{"ok": true, "device": {...}}``.
+   computes the same function, that call's time), the whole run's time,
+   the nvidia-smi line, and as the last line ``{"ok": true, "device":
+   {...}}``.
 
 It imports nothing of JAX.
 """
@@ -377,6 +390,8 @@ REPLACES = {
         "llm_inference_engine_tpu/ops/attention.py:135",
     "attention_decode_paged_int8":
         "llm_inference_engine_tpu/ops/attention.py:356",
+    "attention_decode_paged_fused_int8":
+        "llm_inference_engine_tpu/ops/attention.py:356",
 }
 _TRITON = ("triton", "llm_inference_engine_tpu_torch/ops/_triton_kernels.py")
 _NORM_ACT = ("cuda", "llm_inference_engine_tpu_torch/csrc/norm_act.cu")
@@ -400,10 +415,12 @@ SOURCES = {
     "paged_kv_write_int8": ("cuda", "llm_inference_engine_tpu_torch/csrc/kv_write_quant.cu"),
     "attention_prefill_paged_int8": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention_prefill.cu"),
     "attention_decode_paged_int8": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention_decode.cu"),
+    "attention_decode_paged_fused_int8": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention_decode.cu"),
 }
 # the main path whose launch count each kernel reports; the attend-only
-# decode over a bf16 pool runs on none since the fused paged decode took
-# its place (3c holds and times it; it is left out of the JSON line)
+# decodes over a bf16 and an int8 pool run on none since the fused paged
+# decodes took their place (3c and 3d hold and time them; they are left
+# out of the JSON line)
 PATH_OF = {name: "bf16" for name in REPLACES}
 PATH_OF.update(int4_matmul="int4", dequant_int4="int4", int8_matmul="int8",
                paged_kv_write="server", attention_prefill_paged="server",
@@ -414,7 +431,8 @@ PATH_OF.update(int4_matmul="int4", dequant_int4="int4", int8_matmul="int8",
                attention_decode_int8="int4-kv8",
                paged_kv_write_int8="server-kv8",
                attention_prefill_paged_int8="server-kv8",
-               attention_decode_paged_int8="server-kv8")
+               attention_decode_paged_int8=None,
+               attention_decode_paged_fused_int8="server-kv8")
 # The float instances, one JSON row per counter and dtype,
 # "<counter>[f32]" and "<counter>[f16]": the TPU kernel each replaces, and
 # the 4t engine whose run gives its launches (None: on no main path, left
@@ -438,8 +456,10 @@ FLOAT_INSTANCES = {
         "llm_inference_engine_tpu/ops/attention.py:356", "debug paged"),
     "attention_decode_paged_float": (
         "llm_inference_engine_tpu/ops/attention.py:356", None),
-    "attention_decode_paged_float_int8": (
+    "attention_decode_paged_fused_float_int8": (
         "llm_inference_engine_tpu/ops/attention.py:356", "debug paged-kv8"),
+    "attention_decode_paged_float_int8": (
+        "llm_inference_engine_tpu/ops/attention.py:356", None),
     "kv_write_quant_float": (
         "llm_inference_engine_tpu/ops/kv_cache.py:289", "debug kv8"),
     "paged_kv_write_quant_float": (
@@ -454,14 +474,14 @@ _CSRC = "llm_inference_engine_tpu_torch/csrc/"
 
 def _float_source(name: str, tag: str) -> tuple:
     """(route, source) of a float instance: D2f, Df, Ef and Ff are the f16
-    / f32 sources of kernels D2, D, E and F, If csrc/float_kernels.cu."""
+    / f32 sources of kernels D2, D, E and F; If is kernel I's source."""
     if name.startswith("attention_prefill"):
         return "cuda", f"{_CSRC}attention_prefill_{tag}.cu"
     if name.startswith("attention_decode"):
         return "cuda", f"{_CSRC}attention_decode_{tag}.cu"
     if name.endswith("_matmul_float"):
         return "cuda", f"{_CSRC}quant_matmul_{tag}.cu"
-    return "cuda", f"{_CSRC}float_kernels.cu"
+    return "cuda", f"{_CSRC}kv_write_quant.cu"
 
 
 for _name, (_tpu, _engine) in FLOAT_INSTANCES.items():
@@ -483,6 +503,13 @@ FLOAT_BEFORE_MS = {
     "attention_decode_paged_float": (0.6168, 0.5082),
     "attention_decode_paged_float_int8": (0.5852, 0.5853),
 }
+# 3f's If rows (8 x 512 into the slot cache warm, snapped and absmax;
+# 3c's 520-row mixed step through the table warm): the kernel ms of the
+# warp-a-row design that kernel I's template replaced, (f32, f16) (H100
+# 80GB HBM3, 700.00 W; PERF.md, the kernel table's brackets)
+IF_BEFORE_MS = {"slot snapped": (0.0544, 0.0556),
+                "slot absmax": (0.0496, 0.0504),
+                "pool": (0.0173, 0.0175)}
 # 3f's Ef / Ff rows (m, QUANT_SHAPES label), and the kernel ms of the
 # simple CUDA-core instances the redesign replaced, (f32, f16) (H100 80GB
 # HBM3, 700.00 W; PERF.md, the kernel table's brackets; gate|up was not
@@ -497,15 +524,24 @@ FLOAT_MATMUL_BEFORE_MS = {
     ("int8", 512, "wqkv"): (2.9083, 2.9053),
     ("int8", 512, "down"): (2.6355, 2.6307),
 }
-# at float16 the INT4 weights' launches come from llama2-7b's (4t (b))
+# at float16 the INT4 weights' launches come from llama2-7b's (4t (b)),
+# and the int8 cache's kernels' from llama2-7b's over an int8 cache, slot
+# and paged (4t (b))
 PATH_OF["int4_matmul_float[f16]"] = "f16 7b int4"
+PATH_OF.update({f"{name}[f16]": "f16 7b kv8" for name in (
+    "kv_write_quant_float", "attention_prefill_float_int8",
+    "attention_decode_float_int8")})
+PATH_OF.update({f"{name}[f16]": "f16 7b paged-kv8" for name in (
+    "paged_kv_write_quant_float", "attention_prefill_paged_float_int8",
+    "attention_decode_paged_fused_float_int8")})
 # kernels of the bf16 (and bf16-row) instances that no float path runs
 BF16_ONLY = ("attention_prefill", "attention_decode", "kv_write_quant",
              "attention_prefill_int8", "attention_decode_int8",
              "attention_prefill_paged", "attention_decode_paged",
              "attention_decode_paged_fused", "paged_kv_write_int8",
              "attention_prefill_paged_int8", "attention_decode_paged_int8",
-             "int4_matmul", "int8_matmul")
+             "attention_decode_paged_fused_int8", "int4_matmul",
+             "int8_matmul")
 NORM_ACT = ("rmsnorm", "add_residual_rmsnorm", "silu_and_mul")
 BF16_SLOT = ("kv_write", "attention_prefill", "attention_decode")
 INT8_SLOT = ("kv_write_quant", "attention_prefill_int8",
@@ -513,9 +549,10 @@ INT8_SLOT = ("kv_write_quant", "attention_prefill_int8",
 BF16_PAGED = ("paged_kv_write", "attention_prefill_paged",
               "attention_decode_paged_fused")
 INT8_PAGED = ("paged_kv_write_int8", "attention_prefill_paged_int8",
-              "attention_decode_paged_int8")
+              "attention_decode_paged_fused_int8")
 # the paged kernels no slot path launches
-PAGED_ALL = BF16_PAGED + INT8_PAGED + ("attention_decode_paged",)
+PAGED_ALL = BF16_PAGED + INT8_PAGED + ("attention_decode_paged",
+                                       "attention_decode_paged_int8")
 # each slot main path: (kernels that must launch, kernels that must not)
 MAIN_PATHS = {
     "bf16": (NORM_ACT + BF16_SLOT, INT8_SLOT + PAGED_ALL),
@@ -1139,9 +1176,12 @@ def write_rows(torch, dev) -> dict:
     (time_ms's ``clean``); then C and H at the narrower rows of the mesh
     paths, cold: C at 16 heads (4n's 8 x 512 chunk, 4q's beams' 4 x 128
     prefill) and at 2 kv heads of 64 (4q's draft chunk, 256-byte rows),
-    H at 16 heads (4n (d)'s chunk). ``tools/chip_kernel_ab.py --rows
-    writes`` times another tree's kernels through this function, so it
-    calls only the wrappers every tree has."""
+    H at 16 heads (4n (d)'s chunk); then If (float16 and float32 rows
+    into an int8 cache, snapped) at 3f's rows, warm: 8 x 512 into the slot
+    cache and 3c's 520-row mixed step through the table.
+    ``tools/chip_kernel_ab.py --rows writes`` times another tree's kernels
+    through this function, so it calls only the wrappers every tree
+    has."""
     from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
     from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
     bf16, i8 = torch.bfloat16, torch.int8
@@ -1232,6 +1272,31 @@ def write_rows(torch, dev) -> dict:
         (kn, vn), slot_rows([0] * 8, chunk, 64, 0)[1], bf16, True)
     del pool
     torch.cuda.empty_cache()
+    T, st, nl = I_CHUNKS[0]
+    for name in FLOAT_DTYPE.values():
+        dtype = getattr(torch, name)
+        cache = kvc.new_kv_cache(1, 8, K, S, D, device=dev, quantized=True,
+                                 snapped=True)
+        kn, vn = (torch.randn(8, T, K, D, generator=gen, device=dev,
+                              dtype=dtype) for _ in range(2))
+        starts, new_len = ints(st), ints(nl)
+        row(f"If {name} 8x{T} ({sum(nl)} rows) warm",
+            lambda: kvc.update_cache_at_layer(cache, 0, kn, vn, starts,
+                                              new_len, kernels="cuda"),
+            (kn, vn), slot_rows(st, nl, T, S)[1], i8, False)
+        del cache
+        pool = pkv.new_paged_kv_cache(1, 16, K, P, 64, D, maxp, device=dev,
+                                      quantized=True)
+        pool.block_table.copy_(table)
+        kn, vn = (torch.randn(16, 64, K, D, generator=gen, device=dev,
+                              dtype=dtype) for _ in range(2))
+        starts, new_len = ints(H_STARTS), ints(H_NEW_LEN)
+        row(f"If {name} paged {sum(H_NEW_LEN)} rows warm",
+            lambda: pkv.paged_update_at_layer(pool, 0, kn, vn, starts,
+                                              new_len, kernels="cuda"),
+            (kn, vn), slot_rows(H_STARTS, H_NEW_LEN, 64, 0)[1], i8, False)
+        del pool
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1348,7 +1413,12 @@ def float_attention_rows(torch, dev) -> dict:
     in float16 and float32, no checks: the prefill over the slot cache (B4
     T512, C_CHUNK) and through the table (3c's B16 T64 mixed step, pages
     of 64), the fused slot decode (B4, 4a's contexts) and the attend-only
-    paged decode (B16, DECODE_WRITE_STARTS, pages of 64).
+    paged decode (B16, DECODE_WRITE_STARTS, pages of 64); and a decode
+    step's K/V work over an int8 pool at that shape, in float16,
+    float32 and bf16, by the route the tree's engine takes: the fused
+    int8 paged decode where the tree has it
+    (``attention_decode_paged_fused_int8``), else kernel H's int8 mode
+    (If for float rows) then the attend-only int8 decode.
     ``tools/chip_kernel_ab.py --rows float`` times another tree's kernels
     through this function, so it calls only the wrappers every tree has
     (the fused paged float decode is new: 3f times it)."""
@@ -1396,7 +1466,38 @@ def float_attention_rows(torch, dev) -> dict:
                 kernels="cuda"), cold=True)
         del pool
         torch.cuda.empty_cache()
+    for tag, name in (*FLOAT_DTYPE.items(), ("bf16", "bfloat16")):
+        dtype = getattr(torch, name)
+        _, pool8 = float_caches(torch, dev, gen, dtype, 1, 16, S, K, D,
+                                page=64)
+        dq = ints(DECODE_WRITE_STARTS)
+        q16, kn, vn = (torch.randn(16, 1, n, D, generator=gen, device=dev,
+                                   dtype=dtype) for n in (H, K, K))
+        out[f"int8 pool decode step {tag} B16"] = time_ms(
+            torch, lambda: int8_pool_decode_step(
+                attention, pool8, q16, kn, vn, dq), cold=True)
+        del pool8
+        torch.cuda.empty_cache()
     return out
+
+
+def int8_pool_decode_step(attention, pool, q, kn, vn, q_start):
+    """A decode step's K/V work at one layer of an int8 pool, by the route
+    the tree's engine takes: the fused decode (one launch) where the tree
+    has it, else kernel H's int8 mode (If for float rows) and the
+    attend-only int8 decode (two)."""
+    from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+    kv_len = q_start + 1
+    planes = dict(k_scale=pool.k_scale, v_scale=pool.v_scale)
+    if hasattr(attention, "attention_decode_paged_fused_int8"):
+        return attention.attention_decode_paged_fused(
+            q, kn, vn, pool.k, pool.v, q_start, kv_len, 0,
+            table=pool.block_table, kernels="cuda", **planes)[0]
+    pkv.paged_update_at_layer(pool, 0, kn, vn, q_start,
+                              kv_len - q_start, kernels="cuda")
+    return attention.attention_decode(q, pool.k, pool.v, q_start, kv_len, 0,
+                                      table=pool.block_table, kernels="cuda",
+                                      **planes)
 
 
 def float_matmul_rows(torch, dev) -> dict:
@@ -1854,6 +1955,8 @@ def _counters():
         "attention_prefill_paged_int8":
             attention.attention_prefill_paged_int8,
         "attention_decode_paged_int8": attention.attention_decode_int8,
+        "attention_decode_paged_fused_int8":
+            attention.attention_decode_paged_fused_int8,
         **{name: getattr(attention, name, None)
            or getattr(kvc, name, None) or getattr(pkv, name, None)
            or getattr(quant, name) for name in FLOAT_INSTANCES},
@@ -2489,6 +2592,74 @@ def fused_paged_decode_row(torch, dev, results) -> None:
                 row_rel=DECODE_ROW_TOL)
 
 
+def int8_fused_decode_case(torch, dev, gen, dtype, B, page, starts,
+                           H=32, K=32, D=128, S=2048) -> dict:
+    """The fused decode over an int8 pool (kernel D, or Df for a float16 /
+    float32 q: ``attention_decode_paged_fused`` with scale planes) at B
+    rows decoding at ``starts`` (kv_len = starts + 1), a one-layer pool of
+    page ``page`` holding random rows quantized with snapped scales, a
+    random page permutation, NaN scales in every row no key below kv_len
+    maps to and NaN past the ends of q and the new rows. The pool (values
+    and scales) and the output are held bit for bit against the route it
+    replaced on a copy: kernel H's int8 mode (If for float rows), then the
+    attend-only int8 decode. Returns the output, the plain version's on a
+    clean copy, (kernel ms, plain ms) cold, the replaced route's ms and the
+    attend-only decode's alone, and the work."""
+    from llm_inference_engine_tpu_torch.ops import attention
+    from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+    _, pool = float_caches(torch, dev, gen, dtype, 1, B, S, K, D, page=page)
+    fq = torch.tensor(starts, device=dev, dtype=torch.int32)
+    fkv = fq + 1
+    clean = plant_nan(torch, pool, fkv, page)
+    split = cache_copy(pool)
+    tbl = pool.block_table
+
+    def randn(*shape):
+        return poisoned(torch, torch.randn(shape, generator=gen, device=dev,
+                                           dtype=dtype))
+    q, kn, vn = randn(B, 1, H, D), randn(B, 1, K, D), randn(B, 1, K, D)
+    planes = lambda c: dict(k_scale=c.k_scale, v_scale=c.v_scale)  # noqa
+
+    def fused():
+        return attention.attention_decode_paged_fused(
+            q, kn, vn, pool.k, pool.v, fq, fkv, 0, table=tbl,
+            kernels="cuda", **planes(pool))[0]
+
+    def write_then_attend():
+        pkv.paged_update_at_layer(split, 0, kn, vn, fq, torch.ones_like(fq),
+                                  kernels="cuda")
+        return attention.attention_decode(q, split.k, split.v, fq, fkv, 0,
+                                          table=tbl, kernels="cuda",
+                                          **planes(split))
+
+    def plain():
+        return attention.attention_decode_paged_fused_torch(
+            q, kn, vn, clean.k, clean.v, fq, fkv, 0, table=tbl,
+            **planes(clean))[0]
+    got, want = fused(), write_then_attend()
+    torch.cuda.synchronize()
+    bits = lambda t: t.view({1: torch.int8, 2: torch.int16,  # noqa: E731
+                             4: torch.int32}[t.element_size()])
+    same = all(torch.equal(bits(getattr(pool, n)), bits(getattr(split, n)))
+               for n in ("k", "v", "k_scale", "v_scale"))
+    if not same or not torch.equal(bits(got), bits(want)):
+        raise AssertionError(f"the fused int8 paged decode ({dtype}) B{B} "
+                             f"page {page}: pool or output differs from "
+                             "H's int8 mode (If) then the attend-only decode")
+    esz = torch.empty((), dtype=dtype).element_size()
+    return dict(
+        got=got, plain=plain(),
+        timed=(time_ms(torch, fused, cold=True),
+               time_ms(torch, plain, iters=3, warmup=1)),
+        two=time_ms(torch, write_then_attend, cold=True),
+        alone=time_ms(torch, lambda: attention.attention_decode(
+            q, split.k, split.v, fq, fkv, 0, table=tbl, kernels="cuda",
+            **planes(split)), cold=True),
+        work=attn_work(starts, fkv.tolist(), 1, H, K, D, kv_elem=1,
+                       q_elem=esz,
+                       new_rows=B * 2 * K * (D * esz + D + 4)))
+
+
 def phase_paged_kernels(torch, dev, results) -> None:
     """3c: kernel H and kernel D's paged modes against their plain versions
     at Llama2-7B widths (L=32, K=32, D=128) over a pool of page 64 with a
@@ -2998,6 +3169,24 @@ def phase_kv_int8_kernels(torch, dev, results) -> None:
                     row_rel=DECODE_ROW_TOL)
     del pool
     torch.cuda.empty_cache()
+    # D's fused decode over an int8 pool (a decode step's write and attend
+    # in one launch): B16 at pages of 64 (the server's shape: the JSON
+    # row), and 4h's B8 at 4b's contexts; bit for bit H's int8 mode then
+    # the attend-only decode
+    hist = [p + 16 + f + 16 for p, f in zip(QUANT_PROMPTS, QUANT_FOLLOW)]
+    for B, starts in ((16, DECODE_WRITE_STARTS), (8, hist)):
+        say_plan(attention, f"int8 paged fused B{B} H32 K32 D128 page 64",
+                 B, 32, K, D, int8=True, page=64, max_pages=S // 64)
+        c = int8_fused_decode_case(torch, dev, gen, bf16, B, 64, starts)
+        check_close(torch, "attention_decode_paged_fused_int8", c["got"],
+                    c["plain"], results,
+                    f"B{B} page 64 kv_len {min(starts) + 1}-"
+                    f"{max(starts) + 1} NaN outside the table (bits equal H "
+                    f"int8 + attend-only, {c['two']:.4f} ms; attend-only "
+                    f"alone {c['alone']:.4f} ms)", c["timed"],
+                    work=c["work"], row_rel=DECODE_ROW_TOL)
+        del c
+    torch.cuda.empty_cache()
     for head_dim in (80, 96, 256):
         head_dim_kernels(torch, dev, results, head_dim, gen, fill)
     torch.cuda.synchronize()
@@ -3148,12 +3337,12 @@ def _zero_counters():
 def _check_paged_launches(label, counters, expected) -> dict:
     """Read the counters after a paged path: every kernel of ``expected``
     launched; the slot cache's kernels never, nor the paged kernels of the
-    other KV dtype, nor (a bf16 pool) the attend-only paged decode."""
+    other KV dtype, nor the attend-only paged decodes."""
     launches = {k: f.launches for k, f in counters.items()}
     say(f"  launches during {label}: {launches}")
     missing = [n for n in expected if launches[n] <= 0]
-    other = (INT8_PAGED + ("attention_decode_paged",)
-             if "paged_kv_write" in expected else BF16_PAGED)
+    other = (INT8_PAGED if "paged_kv_write" in expected else BF16_PAGED) + (
+        "attention_decode_paged", "attention_decode_paged_int8")
     extra = [n for n in BF16_SLOT + INT8_SLOT + other if launches[n]]
     if missing or extra:
         raise AssertionError(f"{label}: kernels never launched {missing}; "
@@ -3180,12 +3369,12 @@ def check_decode_step_launches(label, steps, layers, int8=False,
     """Each pure-decode step (launch counts added, one dict a step) ran
     whole forwards on every rank (kernel A's plain mode once a forward a
     rank: a step that captures its program also runs the warm-up) and,
-    for each forward a rank, a layer, over a bf16 pool exactly one fused
-    paged decode and no kernel H or attend-only decode; over an int8
-    pool H's int8 mode and the attend-only int8 decode."""
+    for each forward a rank, a layer, exactly one fused paged decode (over
+    an int8 pool its int8 instance) and no kernel H (nor its int8 mode) or
+    attend-only decode."""
     def want(f):
-        return ({"paged_kv_write_int8": layers * f,
-                 "attention_decode_paged_int8": layers * f,
+        return ({"attention_decode_paged_fused_int8": layers * f,
+                 "paged_kv_write_int8": 0, "attention_decode_paged_int8": 0,
                  "attention_decode_paged_fused": 0} if int8 else
                 {"attention_decode_paged_fused": layers * f,
                  "paged_kv_write": 0, "attention_decode_paged": 0})
@@ -3216,7 +3405,7 @@ def norm_rows(torch, dev) -> dict:
     way, with the card's busy ms a step (the union of its activity
     intervals, over 4 replays) beside each path's wall, and the kernels'
     durations a step summed: all, kernel D's and the K/V writes'
-    (KERNEL_GROUPS).
+    (KERNEL_GROUPS). 4h's (4d over an int8 pool) likewise.
     ``tools/chip_kernel_ab.py --rows norm`` times another tree through
     this function, so it calls only what every tree has."""
 
@@ -3257,7 +3446,9 @@ def norm_rows(torch, dev) -> dict:
     prompts = [rng.integers(3, 32000, n).tolist() for n in QUANT_PROMPTS]
     paged = dict(kv_layout="paged", page_size=64, max_prefill_len=64)
     for tag, quant, layout in (("4b", "int4", {}), ("4c", "int8", {}),
-                               ("4d", "int4", paged)):
+                               ("4d", "int4", paged),
+                               ("4h", "int4", dict(
+                                   paged, kv_cache_dtype_name="int8"))):
         engine = create_engine("llama2-7b", None, EngineConfig(
             quant_mode=quant, max_batch_size=8, max_seq_len=2048, **layout),
             seed=0, device=dev)
@@ -3687,7 +3878,10 @@ PREFIX_TAILS = (5, 17, 33, 64, 90, 128, 160, 200)
 CHAT_TURNS = ("What does a tokenizer do?", "Say it in fewer words.",
               "And what does the cache keep?")
 SPM_ASSET = "tests/assets/tiny_spm_bpe.model"
-CKPT_FREE_GB = 24     # 13.5 GB of shards and a 3.7 GB .npz, with room
+# 4k's depth: llama2-7b's full width at 4 layers (as 4r's), written as an
+# HF directory of 1.7 GB and a .npz of 0.5 GB; 4k's every check runs on it
+CKPT_LAYERS = 4
+CKPT_FREE_GB = 6      # 1.7 GB of shards and a 0.5 GB .npz, with room
 
 
 def hf_tensors(cfg, params, layers) -> dict:
@@ -3804,13 +3998,14 @@ def ckpt_dir() -> Path:
 
 
 def phase_checkpoint(torch, dev) -> None:
-    """4k: llama2-7b (32 layers, full width) from a checkpoint on disk;
-    (a) seed-0 bf16 dummy weights written as an HF directory and loaded
-    INT4 through ``create_engine``: bit for bit ``quantize_params`` of the
-    same weights, and the in-memory engine's greedy ids on 4b's prompts;
-    (b) the offline quantizer's .npz, and the chat CLI over it in a
-    subprocess; (c) and (d) on the loaded engine, and (c) again on an INT8
-    engine loaded from the same directory."""
+    """4k: llama2-7b at full width and CKPT_LAYERS layers from a
+    checkpoint on disk, the model named by a config JSON beside it (as
+    every entry point takes it); (a) seed-0 bf16 dummy weights written as
+    an HF directory and loaded INT4 through ``create_engine``: bit for bit
+    ``quantize_params`` of the same weights, and the in-memory engine's
+    greedy ids on 4b's prompts; (b) the offline quantizer's .npz, and the
+    chat CLI over it in a subprocess; (c) and (d) on the loaded engine, and
+    (c) again on an INT8 engine loaded from the same directory."""
     import gc
     import shutil
 
@@ -3827,7 +4022,7 @@ def phase_checkpoint(torch, dev) -> None:
 
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config("llama2-7b")
+    cfg = get_config("llama2-7b").replace(num_layers=CKPT_LAYERS)
     eng_cfg = EngineConfig(quant_mode="int4", max_batch_size=8,
                            max_seq_len=2048)
     rng = np.random.default_rng(0)
@@ -3836,6 +4031,9 @@ def phase_checkpoint(torch, dev) -> None:
     tmp = ckpt_dir()
     try:
         # (a) write, the in-memory reference, load
+        model = str(tmp / f"llama2-7b-{CKPT_LAYERS}l.json")
+        Path(model).write_text(json.dumps(dataclasses.asdict(cfg)))
+        say(f"  llama2-7b at {CKPT_LAYERS} layers, full width ({model})")
         ckpt = tmp / "llama2-7b-hf"
         ckpt.mkdir()
         params = W.init_dummy_params(cfg, seed=0, device=dev)
@@ -3855,8 +4053,7 @@ def phase_checkpoint(torch, dev) -> None:
         torch.cuda.synchronize()
         with RssPeak() as rss:
             t0 = time.perf_counter()
-            engine = create_engine("llama2-7b", str(ckpt), eng_cfg,
-                                   device=dev)
+            engine = create_engine(model, str(ckpt), eng_cfg, device=dev)
             torch.cuda.synchronize()
             load_s = time.perf_counter() - t0
         read = {k: native_io.READ_BYTES[k] - before[k] for k in before}
@@ -3907,7 +4104,7 @@ def phase_checkpoint(torch, dev) -> None:
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         engine = create_engine(
-            "llama2-7b", str(ckpt),
+            model, str(ckpt),
             eng_cfg.replace(quant_mode="int8", max_prefill_len=1024),
             device=dev)
         torch.cuda.synchronize()
@@ -3922,7 +4119,7 @@ def phase_checkpoint(torch, dev) -> None:
         # (b) the offline quantizer, and the chat CLI over its .npz
         npz = tmp / "llama2-7b-int4.npz"
         t0 = time.perf_counter()
-        if quantize.main(["--model", "llama2-7b", "--checkpoint", str(ckpt),
+        if quantize.main(["--model", model, "--checkpoint", str(ckpt),
                           "--mode", "int4", "--out", str(npz)]) != 0:
             raise AssertionError("4k: tools/quantize failed")
         say(f"  (b) tools/quantize: {npz.stat().st_size / 1e9:.3f} GB .npz "
@@ -3938,7 +4135,7 @@ def phase_checkpoint(torch, dev) -> None:
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "llm_inference_engine_tpu_torch.cli",
-             "--model", "llama2-7b", "--checkpoint", str(npz),
+             "--model", model, "--checkpoint", str(npz),
              "--tokenizer", SPM_ASSET, "--quant", "int4", "--greedy",
              "--max-new-tokens", "16"],
             input=f"{CHAT_TURNS[0]}\n{CHAT_TURNS[1]}\ns\n", cwd=ROOT,
@@ -3958,7 +4155,7 @@ def phase_checkpoint(torch, dev) -> None:
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "llm_inference_engine_tpu_torch.cli",
-             "--model", "llama2-7b", "--checkpoint", str(npz),
+             "--model", model, "--checkpoint", str(npz),
              "--tokenizer", SPM_ASSET, "--quant", "int4", "--beams", "2",
              "--max-new-tokens", "16"],
             input=f"{CHAT_TURNS[0]}\ns\n", cwd=ROOT, capture_output=True,
@@ -7067,8 +7264,8 @@ def phase_examples(torch, dev) -> None:
 
 # ---------------------------------------------------------------------------
 # 3f and 4t: the float instances (D2f and Df: csrc/attention_*_f16.cu and
-# _f32.cu; Ef and Ff: csrc/quant_matmul_f16.cu and _f32.cu; If:
-# csrc/float_kernels.cu)
+# _f32.cu; Ef and Ff: csrc/quant_matmul_f16.cu and _f32.cu; If: kernel
+# I's template in csrc/kv_write_quant.cu)
 # ---------------------------------------------------------------------------
 
 def scale_planes(cache, **kw) -> dict:
@@ -7363,7 +7560,10 @@ def phase_float_kernels(torch, dev, results) -> None:
                 torch, f"kv_write_quant_float[{tag}]", (cache.k, cache.k_scale),
                 (ref.k, ref.k_scale), results,
                 f"{tag} 8x512 ({rows} rows) "
-                f"{'snapped' if snapped else 'absmax'} warm",
+                f"{'snapped' if snapped else 'absmax'} warm [before: "
+                + str(IF_BEFORE_MS["slot snapped" if snapped else
+                                   "slot absmax"][list(FLOAT_DTYPE).index(tag)])
+                + "]",
                 (time_ms(torch, lambda: kvc.update_cache_at_layer(
                     cache, 0, kn, vn, s8, n8, kernels="cuda")),
                  time_ms(torch, lambda: kvc.update_cache_at_layer_torch(
@@ -7390,7 +7590,8 @@ def phase_float_kernels(torch, dev, results) -> None:
         hold_int8_write(
             torch, f"paged_kv_write_quant_float[{tag}]",
             (w8.k, w8.k_scale), (ref.k, ref.k_scale), results,
-            f"{tag} B16 mixed step ({rows} rows) page 64 warm",
+            f"{tag} B16 mixed step ({rows} rows) page 64 warm [before: "
+            f"{IF_BEFORE_MS['pool'][list(FLOAT_DTYPE).index(tag)]}]",
             (time_ms(torch, lambda: pkv.paged_update_at_layer(
                 w8, 0, kn, vn, hs, hn, kernels="cuda")),
              time_ms(torch, lambda: pkv.paged_update_at_layer_torch(
@@ -7532,6 +7733,20 @@ def phase_float_kernels(torch, dev, results) -> None:
                  library)
             del c, clean
         del pool, pool8
+
+        # Df's fused decode over an int8 pool (a decode step's If write and
+        # attend in one launch): B16 at pages of 64 (the JSON row) and 4d's
+        # B8 at 4b's contexts; bit for bit If then the attend-only decode
+        for B, starts in ((16, DECODE_WRITE_STARTS), (8, hist)):
+            c = int8_fused_decode_case(torch, dev, gen, dtype, B, 64, starts)
+            held("attention_decode_paged_fused_float_int8", c["got"],
+                 c["plain"], f"B{B} H{H} K{K} page 64 kv_len "
+                 f"{min(starts) + 1}-{max(starts) + 1} NaN outside the "
+                 f"table (bits equal If + attend-only, {c['two']:.4f} ms; "
+                 f"attend-only alone {c['alone']:.4f} ms)", c["timed"],
+                 c["work"])
+            del c
+        torch.cuda.empty_cache()
 
         # Ef / Ff at m 8 and 512 on wqkv, down and gate|up (group 128),
         # weights cycled through 120 MB; NaN past the ends of x and of the
@@ -7695,9 +7910,8 @@ def float_first_token(torch, label, logits, logits_ref):
 
 def float_paged_step(torch, engine, label, prompts, layers, kv8):
     """The launches of one pure-decode step (eager) of a paged float
-    engine: over a pool of the model's dtype Df's fused paged decode a
-    layer and no H; over an int8 pool If and the attend-only int8 decode a
-    layer."""
+    engine: Df's fused paged decode a layer (over an int8 pool its int8
+    instance) and no H, If or attend-only decode."""
     import numpy as np
 
     from llm_inference_engine_tpu_torch.config import SamplingParams
@@ -7711,15 +7925,18 @@ def float_paged_step(torch, engine, label, prompts, layers, kv8):
                            SamplingParams(greedy=True))
     step = _launch_counts(counters)
     engine.reset()
-    want = ({"paged_kv_write_quant_float": layers,
-             "attention_decode_paged_float_int8": layers} if kv8 else
-            {"attention_decode_paged_fused_float": layers})
+    want = ({"attention_decode_paged_fused_float_int8": layers} if kv8
+            else {"attention_decode_paged_fused_float": layers})
     bad = {k: step.get(k, 0) for k in want if step.get(k, 0) != want[k]}
-    h = step.get("paged_kv_write", 0)
-    say(f"  {label}: launches a pure-decode step {step} (kernel H: {h})")
+    h = sum(step.get(k, 0) for k in (
+        "paged_kv_write", "paged_kv_write_quant_float",
+        "attention_decode_paged_float", "attention_decode_paged_float_int8"))
+    say(f"  {label}: launches a pure-decode step {step} (kernel H, If and "
+        f"the attend-only decodes: {h})")
     if bad or h:
         raise AssertionError(f"{label}: a decode step launched {bad} "
-                             f"(want {want}) and H {h} times")
+                             f"(want {want}) and H, If or an attend-only "
+                             f"decode {h} times")
 
 
 def float_paged_vs_slot(torch, dev, label, cfg, eng, params, prompts,
@@ -7839,13 +8056,15 @@ def debug_engine_check(torch, dev, results, tag, cfg, etag, eng, cpu_params,
 def float_7b(torch, dev, results, tag, label, engine_tag, cfg, eng, params,
              prompt_lens, greedy_tokens, page=None):
     """4t (b) / (c): llama2-7b at full width in a float dtype through the
-    float instances: prefill logits and the first greedy token held to
-    kernels="torch" on the card (float_first_token), ``greedy_tokens``
-    greedy tokens, the launches per prefill and per decode step (no bf16
-    kernel, no plain version), graph_checks (replayed step wall and card
-    busy ms, tok/s). With ``page``, then a paged engine of the same params
-    (pages of ``page``): paged == slot bit for bit, its launches a decode
-    step (Df's fused paged decode, no H) and its graph_checks."""
+    float instances (over an int8 cache where ``eng`` names one): prefill
+    logits and the first greedy token held to kernels="torch" on the card
+    (float_first_token), ``greedy_tokens`` greedy tokens, the launches per
+    prefill and per decode step (no bf16 kernel, no plain version),
+    graph_checks (replayed step wall and card busy ms by group, tok/s).
+    With ``page``, then a paged engine of the same params (pages of
+    ``page``): paged == slot bit for bit, its launches a decode step (Df's
+    fused paged decode, no H or If) and its graph_checks. Returns the
+    params."""
     import numpy as np
 
     from llm_inference_engine_tpu_torch.config import SamplingParams
@@ -7879,8 +8098,11 @@ def float_7b(torch, dev, results, tag, label, engine_tag, cfg, eng, params,
     active = np.ones(B, bool)
     graph_checks(torch, engine, f"4t {tag} {engine_tag}", toks, active,
                  prompts)
-    expected = NORM_ACT + ("kv_write", "attention_prefill_float",
-                           "attention_decode_float") + (
+    kv8 = eng.kv_cache_dtype_name == "int8"
+    expected = NORM_ACT + (
+        ("kv_write_quant_float", "attention_prefill_float_int8",
+         "attention_decode_float_int8") if kv8 else
+        ("kv_write", "attention_prefill_float", "attention_decode_float")) + (
         ("int4_matmul_float", "dequant_int4") if eng.quant_mode == "int4"
         else ())
     float_path_launches(f"4t {label}", counters, tag, engine_tag, expected,
@@ -7916,23 +8138,32 @@ def float_7b(torch, dev, results, tag, label, engine_tag, cfg, eng, params,
     del engine
     torch.cuda.empty_cache()
     if page is None:
-        return
+        return params
     greedy = SamplingParams(greedy=True, max_new_tokens=greedy_tokens)
     float_paged_vs_slot(torch, dev, f"4t {label}", cfg, eng, params, prompts,
                         greedy, page)
     paged = InferenceEngine(cfg, eng.replace(kv_layout="paged",
                                              page_size=page), params,
                             device=dev)
-    float_paged_step(torch, paged, f"4t {label} paged", prompts,
-                     cfg.num_layers, False)
+    counters = _zero_counters()
     r = paged.generate(prompts, SamplingParams(
         greedy=True, max_new_tokens=greedy_tokens), eos_token_id=None)
     toks = torch.tensor([o[-1] for o in r.token_ids], device=dev,
                         dtype=torch.int32)
     graph_checks(torch, paged, f"4t {tag} {engine_tag} paged", toks, active,
                  prompts)
+    if kv8:
+        float_path_launches(
+            f"4t {label} paged", counters, tag, f"{engine_tag.split()[0]} "
+            "paged-kv8", NORM_ACT + ("paged_kv_write_quant_float",
+                                     "attention_prefill_paged_float_int8",
+                                     "attention_decode_paged_fused_float_int8"),
+            results)
+    float_paged_step(torch, paged, f"4t {label} paged", prompts,
+                     cfg.num_layers, kv8)
     del paged
     torch.cuda.empty_cache()
+    return params
 
 
 def phase_float_models(torch, dev, results) -> None:
@@ -7946,7 +8177,9 @@ def phase_float_models(torch, dev, results) -> None:
     tokens, then INT4 weights at B 8 on 4b's prompts (Ef at m 8 and 512,
     G and cuBLAS at m >= 1024); (c) llama2-7b in float32, B 2,
     max_seq_len 1024, prompts of 7 and 700 tokens, 16 greedy tokens
-    (float_7b)."""
+    (float_7b); (b) also runs (b)'s float16 weights over an int8 cache,
+    slot at B 4 and paged over pages of 64, each held to kernels="torch"
+    as (b) is."""
     import numpy as np
 
     from llm_inference_engine_tpu_torch.config import (
@@ -7979,10 +8212,16 @@ def phase_float_models(torch, dev, results) -> None:
 
     seven = get_config("llama2-7b")
     cfg = seven.replace(dtype_name="float16")
-    float_7b(torch, dev, results, "f16", "(b) llama2-7b float16", "7b", cfg,
-             EngineConfig(max_batch_size=4, max_seq_len=2048),
-             W.init_dummy_params(cfg, seed=0, device=dev), (7, 129, 384, 700),
-             32, page=64)
+    b4 = EngineConfig(max_batch_size=4, max_seq_len=2048)
+    params = float_7b(torch, dev, results, "f16", "(b) llama2-7b float16",
+                      "7b", cfg, b4, W.init_dummy_params(cfg, seed=0,
+                                                         device=dev),
+                      (7, 129, 384, 700), 32, page=64)
+    torch.cuda.empty_cache()
+    float_7b(torch, dev, results, "f16", "(b) llama2-7b float16 int8 KV",
+             "7b kv8", cfg, b4.replace(kv_cache_dtype_name="int8"), params,
+             (7, 129, 384, 700), 32, page=64)
+    del params
     torch.cuda.empty_cache()
     float_7b(torch, dev, results, "f16", "(b) llama2-7b float16 INT4",
              "7b int4", cfg, EngineConfig(quant_mode="int4", max_batch_size=8,
@@ -8001,6 +8240,7 @@ def main() -> int:
     import numpy as np
     import torch
 
+    start = time.perf_counter()
     # 1. card check
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this check runs on "
@@ -8144,10 +8384,10 @@ def main() -> int:
                    dev, results, "llama2-7b", int4_kv8, params, int8_pages,
                    24, 0, False)
     del engine, params
-    phase("4k", "a checkpoint on disk: llama2-7b (32 layers) written as an "
-          "HF directory, loaded INT4, the quantizer and the chat CLI, the "
-          "slot PrefixStore at B=8, a 3-round ChatSession", phase_checkpoint,
-          torch, dev)
+    phase("4k", f"a checkpoint on disk: llama2-7b ({CKPT_LAYERS} layers, full "
+          "width) written as an HF directory, loaded INT4, the quantizer and "
+          "the chat CLI, the slot PrefixStore at B=8, a 3-round "
+          "ChatSession", phase_checkpoint, torch, dev)
     phase("4l", "speculative decoding and beam search: llama2-7b INT4 "
           "target, tinyllama-1.1b INT4 draft, B=8, k=4; the server over "
           "SpeculativeScheduler; beam_search", phase_speculative, torch, dev,
@@ -8162,8 +8402,9 @@ def main() -> int:
     phase("4s", "the example drivers (examples_torch), each on the card",
           phase_examples, torch, dev)
     phase("4t", "float32 and float16 models end to end: the debug preset "
-          "(6 engines each) against the CPU, llama2-7b float16 (B=4; INT4 "
-          "B=8) and float32 (B=2)", phase_float_models, torch, dev, results)
+          "(6 engines each) against the CPU, llama2-7b float16 (B=4; over an "
+          "int8 cache, slot B=4 and paged; INT4 B=8) and float32 (B=2)",
+          phase_float_models, torch, dev, results)
     say("  decode per step, eager bodies against graph replays (wall and "
         "card busy ms): " + json.dumps(DECODE))
 
@@ -8181,6 +8422,7 @@ def main() -> int:
             plain_ms=r["plain_ms"], bound_ms=bound, bound_by=bound_by,
             library_ms=r["library_ms"]))
     say(json.dumps({"kernels": kernels}))
+    say(f"== total {time.perf_counter() - start:.1f} s")
     say(smi)
     say(json.dumps({"ok": True,
                     "device": {"platform": "gpu",

@@ -1,9 +1,8 @@
 // Kernel D: single-token decode attention against the stacked KV cache,
 // split along the keys over a thread-block cluster (flash-decoding), in
-// four decode modes: the fused write + attend over the slot cache (a
-// cache of q's dtype or int8), the fused write + attend over a paged pool
-// of q's dtype (given no new rows, it attends only), and the attend-only
-// decode over the int8 paged pool. One template over the element type E
+// four decode modes: the fused write + attend over the slot cache and over
+// a paged pool, each of q's dtype or int8 (a pool given no new rows
+// attends only). One template over the element type E
 // of q, the new rows and out: __nv_bfloat16 (attention_decode.cu, kernel
 // D), __half and float (attention_decode_f16.cu, attention_decode_f32.cu:
 // kernel Df, the float instances). The prefill modes are kernel D2
@@ -18,16 +17,17 @@
 //     row with the row quantizer of kernel If, bit for bit as If writes
 //     it);
 //   - `_decode_mxu_kernel` (launched by `_attention_decode_mxu` with a block
-//     table): decode over the paged pool (PAGED). On a pool of q's dtype
-//     the token's row is written through the table by the kernel itself
-//     (PAGED && WRITE_NEW, with the rules of kernel H's write,
-//     kv_write.cu: the JAX package's `_paged_write_kernel` runs before its
-//     attend-only decode), which saves a launch of H a layer in every
-//     decode step; `attention_decode_paged` runs the same instance with no
-//     new rows, after kernel H wrote the token (the JAX package's order,
-//     kept to hold the fused write against). The attend-only mode stays
-//     for the int8 pool, after kernel H's int8 mode (or If) wrote the
-//     token.
+//     table): decode over the paged pool (PAGED). The token's row is
+//     written through the table by the kernel itself (PAGED && WRITE_NEW,
+//     with the rules of kernel H's write, kv_write.cu: the JAX package's
+//     `_paged_write_kernel` runs before its attend-only decode), which
+//     saves a launch of H a layer in every decode step; an int8 pool gets
+//     the row quantized as over the slot cache, always in the snapped
+//     numerics (the pool's), bit for bit as kernel H's int8 mode (or If)
+//     writes it. `attention_decode_paged` and `attention_decode_paged_int8`
+//     run the same instances with no new rows, after kernel H (or its int8
+//     mode, or If) wrote the token: the JAX package's order, kept to hold
+//     the fused write against.
 //
 // Semantics. q [B, 1, H, D]; out [B, 1, H, D]. Query head h sits at position
 // p = q_start[b] and attends key j iff j < kv_len[b], j <= p and, with a
@@ -142,6 +142,7 @@ struct Params {
   float scale_log2;              // sm_scale * log2(e)
   int window;                    // 0 = no sliding window
   int snapped;                   // INT8 && WRITE_NEW: snapped scale numerics
+                                 // (always over a pool)
 };
 
 // Lanes of a warp: lane = group * kLanes + c. Lane c < kChunks of a group
@@ -263,8 +264,6 @@ __device__ __forceinline__ void int8x8_to_f32(const uint2& raw, float* f) {
 template <typename E, int D, int R, bool PAGED, bool INT8, bool WRITE_NEW>
 __global__ void __launch_bounds__(kThreads)
 attention_decode_kernel(const Params<E> p) {
-  static_assert(!(WRITE_NEW && PAGED && INT8),
-                "the fused paged write takes a pool of q's dtype");
   using Ln = Lanes<D>;
   using Ly = Layout<E, D, R, INT8>;
   constexpr int kChunks = Ln::kChunks;
@@ -748,9 +747,9 @@ int slot_entry(const void* q, const void* k_new, const void* v_new,
   return dispatch<E, false, INT8, true>(p, D, (cudaStream_t)stream, nullptr);
 }
 
-// Decode over a pool: of E with the new token's K/V write through the
-// table (kernel H's rules; k_new null: attend only), or int8 attend-only
-// (INT8).
+// Decode over a pool of E, or int8 (INT8: the row quantized with snapped
+// scales, the pool's numerics), with the new token's K/V write through
+// the table (kernel H's rules; k_new null: attend only).
 template <typename E, bool INT8>
 int paged_entry(const void* q, const void* k_new, const void* v_new,
                 void* k_pool, void* v_pool, void* k_scale, void* v_scale,
@@ -764,8 +763,9 @@ int paged_entry(const void* q, const void* k_new, const void* v_new,
                       table, P, page, max_pages);
   p.k_new = (const E*)k_new;
   p.v_new = (const E*)v_new;
+  p.snapped = 1;
   if (!valid_shape(p) || page <= 0) return (int)cudaErrorInvalidValue;
-  return dispatch<E, true, INT8, !INT8>(p, D, (cudaStream_t)stream, nullptr);
+  return dispatch<E, true, INT8, true>(p, D, (cudaStream_t)stream, nullptr);
 }
 
 // The split plan of a decode launch at these shapes (paged: page and
@@ -783,7 +783,7 @@ int plan_entry(int B, int H, int K, int D, int int8, int page, int max_pages,
   if (is_paged) p = paged(p, nullptr, 1, page, max_pages);
   int occ[3] = {0, 0, 0};
   const int err =
-      is_paged ? (int8 ? dispatch<E, true, true, false>(p, D, nullptr, occ)
+      is_paged ? (int8 ? dispatch<E, true, true, true>(p, D, nullptr, occ)
                        : dispatch<E, true, false, true>(p, D, nullptr, occ))
                : (int8 ? dispatch<E, false, true, true>(p, D, nullptr, occ)
                        : dispatch<E, false, false, true>(p, D, nullptr, occ));

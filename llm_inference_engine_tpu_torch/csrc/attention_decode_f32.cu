@@ -1,9 +1,8 @@
 // Kernel Df's float32 instances: kernel D's split-KV cluster template
 // (attention_decode.cuh) over float, f32 math on the CUDA cores: the fused
-// slot decode over a float32 or int8 cache (the int8 row written bit for
-// bit as kernel If writes it), the fused paged decode over a float32 pool
-// (kernel H's rules for the write; with no new rows, attend only) and the
-// attend-only decode over an int8 pool.
+// slot and paged decodes over a float32 or int8 cache or pool (an int8
+// row written bit for bit as kernel If writes it; through the table with
+// kernel H's rules; a pool given no new rows attends only).
 
 #include "attention_decode.cuh"
 
@@ -80,8 +79,24 @@ extern "C" int attention_decode_int8_f32(const void* q, const void* k_new,
                               S, D, sm_scale, window, snapped, stream);
 }
 
+// Decode over the int8 paged pool with the new token's K/V write: the
+// rows quantized with snapped scales (kernel H's int8 mode's bits) and
+// written with their scales through the table (kernel H's rules), then
+// attended.
+extern "C" int attention_decode_paged_fused_int8_f32(
+    const void* q, const void* k_new, const void* v_new, void* k_pool,
+    void* v_pool, void* k_scale, void* v_scale, void* out,
+    const int* q_start, const int* kv_len, const int* table, int layer,
+    int B, int H, int K, int P, int page, int max_pages, int D,
+    float sm_scale, int window, void* stream) {
+  return paged_entry<float, true>(q, k_new, v_new, k_pool, v_pool, k_scale,
+                               v_scale, out, q_start, kv_len, table, layer,
+                               B, H, K, P, page, max_pages, D, sm_scale,
+                               window, stream);
+}
+
 // Attend-only decode over the int8 paged pool, after kernel H's int8 mode
-// (or If) wrote the token.
+// (or If) wrote the token: the fused int8 instance with no new rows.
 extern "C" int attention_decode_paged_int8_f32(
     const void* q, const void* k_pool, const void* v_pool, void* k_scale,
     void* v_scale, void* out, const int* q_start, const int* kv_len,

@@ -1,7 +1,10 @@
 // Kernel I: quantize new K/V token rows and write them into an int8 KV
 // cache with their f32 scales, in place: the stacked slot cache
 // (`kv_write_quant`) or, through the block table, the paged pool
-// (`paged_kv_write_quant`, kernel H's int8 mode).
+// (`paged_kv_write_quant`, kernel H's int8 mode). One template over the
+// rows' element type E: bf16 (kernel I), and __half and float (kernel If,
+// the int8 write of a float16 or float32 model's rows: the entry points
+// suffixed `_f16` and `_f32`).
 //
 // Replaces the TPU kernel llm_inference_engine_tpu/ops/kv_cache.py
 // `_write_kernel_quant` (launched by `_write_pallas(quantized=True)`), which
@@ -10,10 +13,10 @@
 // int8 mode of llm_inference_engine_tpu/ops/paged_kv.py `_paged_write_kernel`
 // on the JAX package's int8 pool. The JAX package quantizes in XLA ahead of
 // its copy kernels; here the quantize is fused into the write
-// (kv_quant.cuh), so the bf16 rows are read once and no int8 intermediate
-// goes through device memory.
+// (kv_quant.cuh), so the rows are read once and no int8 intermediate goes
+// through device memory.
 //
-// Layout: new rows bf16 [B, T, K, D]; slot: values int8 [L, B, S, K, D],
+// Layout: new rows E [B, T, K, D]; slot: values int8 [L, B, S, K, D],
 // scales f32 [L, B, S, K]; paged (PAGED): values int8 [L, P, page, K, D],
 // scales f32 [L, P, page, K]; all contiguous. Row t of sequence b, at
 // position pos = starts[b] + t, is written when t < new_len[b] and
@@ -23,19 +26,25 @@
 //          (kernel H's rules: only table entries of written rows are read).
 // Other rows (padding, sequences with new_len == 0, anything past the end)
 // are never written. SNAPPED picks the log2-snapped scale numerics (the
-// pool always uses them), otherwise absmax / 127 (kv_quant.cuh).
+// pool always uses them), otherwise absmax / 127 (kv_quant.cuh). Every
+// element type rounds alike: a value is converted to f32 exactly and
+// quantized by the same instructions, so an f16 or f32 row is written bit
+// for bit as the plain version and kvq::quantize_row_strided (kernel D's
+// fused float write) write it.
 //
-// Bound: HBM bytes (2 x rows x K x D x 2 bytes read, half that plus 4 bytes
-// per (token, head) written). The quantize is the next cost: the card's
-// issue slots nearly match its memory here, so every value takes a
-// handful of full-rate instructions (kv_quant.cuh), and what a thread
-// pays once (its row, addresses, the scale) is spread over 16 values a
-// row. Design:
-//   - a group of W lanes holds a row, each lane two 16-byte pieces (16
-//     values, 32 contiguous bytes): W = 4 at D = 64, 8 at D = 80, 96 and
-//     128, 16 at D = 256, so a warp holds 32 / W rows at once; D = 80 and
-//     96 leave the group's lanes past D / 16 idle; values are stored 16
-//     bytes a lane;
+// Bound: HBM bytes (2 x rows x K x D x sizeof(E) bytes read, a byte a value
+// plus 4 bytes per (token, head) written). The quantize is the next cost:
+// the card's issue slots nearly match its memory here, so every value
+// takes a handful of full-rate instructions (kv_quant.cuh), and what a
+// thread pays once (its row, addresses, the scale) is spread over the
+// values it holds. Design:
+//   - a group of W lanes holds a row, each lane two 16-byte pieces (32
+//     contiguous bytes: 16 values of a 2-byte E, 8 of f32): W is the
+//     smallest power of two whose lanes cover D (bf16 / f16: 1, 4, 8, 8,
+//     8, 16 at D = 16, 64, 80, 96, 128, 256; f32 twice that), so a warp
+//     holds 32 / W rows at once; D = 80 and 96 leave the group's lanes past
+//     the row idle; a lane stores its int8 values at once (16 bytes of a
+//     2-byte E, 8 of f32);
 //   - a block's rows are a run of the flat order (t, k|v, head) of one
 //     sequence: neighbouring groups take neighbouring heads of one token,
 //     so a warp reads and writes contiguous spans;
@@ -55,8 +64,11 @@
 // and a CPU test holds that the blocks take every row once.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "kv_quant.cuh"
 
@@ -99,8 +111,11 @@ __device__ __forceinline__ long long token_row(const Dest& d, int b,
   return ((long long)d.layer * d.B + b) * d.S + pos;
 }
 
-__host__ __device__ constexpr int lanes_a_row(int D) {
-  return D == 64 ? 4 : D == 256 ? 16 : 8;
+// Lanes a row of D values of esize bytes: the smallest power of two whose
+// lanes, 32 bytes each, cover the row.
+__host__ __device__ constexpr int lanes_a_row(int D, int esize) {
+  return D * esize <= 32 ? 1 : D * esize <= 64 ? 2 : D * esize <= 128 ? 4
+       : D * esize <= 256 ? 8 : D * esize <= 512 ? 16 : 32;
 }
 
 // The launch: kThreads / lanes rows of the flat (t, k|v, head) order a
@@ -109,16 +124,31 @@ struct Plan {
   int lanes, rows_per_block, blocks_x;
 };
 
-Plan make_plan(int T, int K, int D) {
-  const int lanes = lanes_a_row(D);
+Plan make_plan(int T, int K, int D, int esize) {
+  const int lanes = lanes_a_row(D, esize);
   const int rb = kThreads / lanes;
   return {lanes, rb, (int)((2LL * T * K + rb - 1) / rb)};
 }
 
-template <int D, bool SNAPPED, bool PAGED>
+// The largest |x| of a lane's two 16-byte pieces, unpacked to f32 into x
+// and y (f32 rows: all 8 values into x).
+template <typename E>
+__device__ __forceinline__ float lane_absmax(const uint4 (&raw)[2],
+                                             float x[8], float y[8]) {
+  if constexpr (sizeof(E) == 4)
+    return fmaxf(kvq::piece_absmax4(raw[0], x),
+                 kvq::piece_absmax4(raw[1], x + 4));
+  else if constexpr (std::is_same<E, __half>::value)
+    return fmaxf(kvq::piece_absmax_f16(raw[0], x),
+                 kvq::piece_absmax_f16(raw[1], y));
+  else
+    return fmaxf(kvq::piece_absmax(raw[0], x), kvq::piece_absmax(raw[1], y));
+}
+
+template <typename E, int D, bool SNAPPED, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
-kv_write_quant_kernel(const __nv_bfloat16* __restrict__ k_new,
-                      const __nv_bfloat16* __restrict__ v_new,
+kv_write_quant_kernel(const E* __restrict__ k_new,
+                      const E* __restrict__ v_new,
                       signed char* __restrict__ k_cache,
                       signed char* __restrict__ v_cache,
                       float* __restrict__ k_scale,
@@ -126,9 +156,10 @@ kv_write_quant_kernel(const __nv_bfloat16* __restrict__ k_new,
                       const int* __restrict__ starts,
                       const int* __restrict__ new_len, Dest dest, int T,
                       int K) {
-  constexpr int W = lanes_a_row(D);
+  constexpr int W = lanes_a_row(D, (int)sizeof(E));
   constexpr int G = 32 / W;                  // rows a warp holds
   constexpr int kRows = kThreads / W;        // rows a block holds
+  constexpr int kLaneVals = 32 / (int)sizeof(E);  // values a lane holds
   const int b = blockIdx.y;
   const long long start = starts[b];
   const int n_tok = max(min(new_len[b], T), 0);
@@ -136,9 +167,10 @@ kv_write_quant_kernel(const __nv_bfloat16* __restrict__ k_new,
   const int r = blockIdx.x * kRows + threadIdx.x / W;  // the thread's row
   if (blockIdx.x * kRows >= n_tok * rows_a_token) return;  // block-uniform
   const int lane = threadIdx.x % 32;
-  // the lane's two pieces: values [16 p, 16 p + 16) of its row
+  // the lane's two pieces: values [kLaneVals p, kLaneVals (p + 1)) of its
+  // row
   const int p = lane % W;
-  const bool has = 16 * p < D;
+  const bool has = kLaneVals * p < D;
   const int t = r / rows_a_token;
   const int head = r - t * rows_a_token;
   const bool v = head >= K;
@@ -156,10 +188,10 @@ kv_write_quant_kernel(const __nv_bfloat16* __restrict__ k_new,
   }
   // the row's absmax, reduced over its group; lane l computes the scale
   // (and its reciprocal) of the warp's row l % G, then each lane takes its
-  // own row's; x and y keep the two pieces' values for the quantize
+  // own row's; x and y keep the lane's values for the quantize (f32: all 8
+  // in x)
   float x[8], y[8];
-  const float amax = kvq::group_max<W>(fmaxf(kvq::piece_absmax(raw[0], x),
-                                             kvq::piece_absmax(raw[1], y)));
+  const float amax = kvq::group_max<W>(lane_absmax<E>(raw, x, y));
   const float mine = kvq::row_scale<SNAPPED>(
       __shfl_sync(0xffffffffu, amax, lane % G * W));
   const float mine_recip = kvq::divide_recip(mine);
@@ -167,25 +199,30 @@ kv_write_quant_kernel(const __nv_bfloat16* __restrict__ k_new,
   const float recip = __shfl_sync(0xffffffffu, mine_recip, lane / W);
   const long long row = token_row<PAGED>(dest, b, start + t, entry);
   if (row >= 0 && has) {
-    const uint2 lo = kvq::quantize_piece(x, scale, recip);
-    const uint2 hi = kvq::quantize_piece(y, scale, recip);
-    reinterpret_cast<uint4*>((v ? v_cache : k_cache) + (row * K + kh) * D)[p] =
-        make_uint4(lo.x, lo.y, hi.x, hi.y);
+    if constexpr (sizeof(E) == 4) {
+      reinterpret_cast<uint2*>((v ? v_cache : k_cache) + (row * K + kh) * D)[p] =
+          kvq::quantize_piece(x, scale, recip);
+    } else {
+      const uint2 lo = kvq::quantize_piece(x, scale, recip);
+      const uint2 hi = kvq::quantize_piece(y, scale, recip);
+      reinterpret_cast<uint4*>((v ? v_cache : k_cache) + (row * K + kh) * D)[p] =
+          make_uint4(lo.x, lo.y, hi.x, hi.y);
+    }
     if (p == 0) (v ? v_scale : k_scale)[row * K + kh] = scale;
   }
 }
 
-template <int D, bool SNAPPED, bool PAGED>
+template <typename E, int D, bool SNAPPED, bool PAGED>
 int launch(const void* k_new, const void* v_new, void* k_cache,
            void* v_cache, void* k_scale, void* v_scale, const int* starts,
            const int* new_len, const Dest& dest, int B, int T, int K,
            cudaStream_t stream) {
-  const Plan pl = make_plan(T, K, D);
-  kv_write_quant_kernel<D, SNAPPED, PAGED>
+  const Plan pl = make_plan(T, K, D, (int)sizeof(E));
+  kv_write_quant_kernel<E, D, SNAPPED, PAGED>
       <<<dim3(pl.blocks_x, B), kThreads, 0, stream>>>(
-          (const __nv_bfloat16*)k_new, (const __nv_bfloat16*)v_new,
-          (signed char*)k_cache, (signed char*)v_cache, (float*)k_scale,
-          (float*)v_scale, starts, new_len, dest, T, K);
+          (const E*)k_new, (const E*)v_new, (signed char*)k_cache,
+          (signed char*)v_cache, (float*)k_scale, (float*)v_scale, starts,
+          new_len, dest, T, K);
   return (int)cudaGetLastError();
 }
 
@@ -193,43 +230,67 @@ using LaunchFn = int (*)(const void*, const void*, void*, void*, void*,
                          void*, const int*, const int*, const Dest&, int,
                          int, int, cudaStream_t);
 
-template <bool PAGED>
-LaunchFn pick(int D, int snapped) {
+template <typename E, int D, bool PAGED>
+LaunchFn pick_numerics(int snapped) {
+  return snapped ? &launch<E, D, true, PAGED> : &launch<E, D, false, PAGED>;
+}
+
+// The instance of bf16 rows (kernel I) at head_dim D, null for none.
+template <typename E, bool PAGED>
+LaunchFn pick_bf16(int D, int snapped) {
   switch (D) {
-    case 64: return snapped ? &launch<64, true, PAGED> : &launch<64, false, PAGED>;
-    case 80: return snapped ? &launch<80, true, PAGED> : &launch<80, false, PAGED>;
-    case 96: return snapped ? &launch<96, true, PAGED> : &launch<96, false, PAGED>;
-    case 128: return snapped ? &launch<128, true, PAGED> : &launch<128, false, PAGED>;
-    case 256: return snapped ? &launch<256, true, PAGED> : &launch<256, false, PAGED>;
+    case 64: return pick_numerics<E, 64, PAGED>(snapped);
+    case 80: return pick_numerics<E, 80, PAGED>(snapped);
+    case 96: return pick_numerics<E, 96, PAGED>(snapped);
+    case 128: return pick_numerics<E, 128, PAGED>(snapped);
+    case 256: return pick_numerics<E, 256, PAGED>(snapped);
     default: return nullptr;
   }
 }
 
-}  // namespace
+// The instance of f16 or f32 rows (kernel If) at head_dim D, null for none.
+template <typename E, bool PAGED>
+LaunchFn pick_float(int D, int snapped) {
+  switch (D) {
+    case 16: return pick_numerics<E, 16, PAGED>(snapped);
+    case 64: return pick_numerics<E, 64, PAGED>(snapped);
+    case 80: return pick_numerics<E, 80, PAGED>(snapped);
+    case 96: return pick_numerics<E, 96, PAGED>(snapped);
+    case 128: return pick_numerics<E, 128, PAGED>(snapped);
+    case 256: return pick_numerics<E, 256, PAGED>(snapped);
+    default: return nullptr;
+  }
+}
 
-extern "C" int kv_write_quant(const void* k_new, const void* v_new,
-                              void* k_cache, void* v_cache, void* k_scale,
-                              void* v_scale, const int* starts,
-                              const int* new_len, int layer, int B, int T,
-                              int K, int S, int D, int snapped,
-                              void* stream) {
+template <typename E, bool PAGED>
+LaunchFn pick(int D, int snapped) {
+  if constexpr (std::is_same<E, __nv_bfloat16>::value)
+    return pick_bf16<E, PAGED>(D, snapped);
+  else
+    return pick_float<E, PAGED>(D, snapped);
+}
+
+template <typename E>
+int slot_entry(const void* k_new, const void* v_new, void* k_cache,
+               void* v_cache, void* k_scale, void* v_scale,
+               const int* starts, const int* new_len, int layer, int B,
+               int T, int K, int S, int D, int snapped, void* stream) {
   if (B <= 0 || T <= 0) return 0;
-  LaunchFn fn = pick<false>(D, snapped);
+  LaunchFn fn = pick<E, false>(D, snapped);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   const Dest dest{layer, B, S, nullptr, 0, 0, 0};
   return fn(k_new, v_new, k_cache, v_cache, k_scale, v_scale, starts,
             new_len, dest, B, T, K, (cudaStream_t)stream);
 }
 
-extern "C" int paged_kv_write_quant(const void* k_new, const void* v_new,
-                                    void* k_pool, void* v_pool,
-                                    void* k_scale, void* v_scale,
-                                    const int* starts, const int* new_len,
-                                    const int* table, int layer, int B,
-                                    int T, int K, int P, int page,
-                                    int max_pages, int D, void* stream) {
+template <typename E>
+int paged_entry(const void* k_new, const void* v_new, void* k_pool,
+                void* v_pool, void* k_scale, void* v_scale,
+                const int* starts, const int* new_len, const int* table,
+                int layer, int B, int T, int K, int P, int page,
+                int max_pages, int D, void* stream) {
   if (B <= 0 || T <= 0) return 0;
-  LaunchFn fn = pick<true>(D, 1);
+  LaunchFn fn = pick<E, true>(D, 1);
   if (page <= 0 || max_pages <= 0 || P <= 0 || fn == nullptr)
     return (int)cudaErrorInvalidValue;
   const Dest dest{layer, B, 0, table, P, page, max_pages};
@@ -237,14 +298,117 @@ extern "C" int paged_kv_write_quant(const void* k_new, const void* v_new,
             new_len, dest, B, T, K, (cudaStream_t)stream);
 }
 
-// The launch of kv_write_quant / paged_kv_write_quant at these shapes:
-// out = {threads, lanes a row, rows a block, blocks_x, blocks_y}.
-extern "C" int kv_write_quant_plan(int B, int T, int K, int D, int* out) {
-  if (B <= 0 || T <= 0 || K <= 0 || pick<false>(D, 0) == nullptr)
+template <typename E>
+int plan_entry(int B, int T, int K, int D, int* out) {
+  if (B <= 0 || T <= 0 || K <= 0 || pick<E, false>(D, 0) == nullptr)
     return (int)cudaErrorInvalidValue;
-  const Plan pl = make_plan(T, K, D);
+  const Plan pl = make_plan(T, K, D, (int)sizeof(E));
   const int vals[5] = {kThreads, pl.lanes, pl.rows_per_block, pl.blocks_x,
                        B};
   for (int i = 0; i < 5; ++i) out[i] = vals[i];
   return 0;
+}
+
+}  // namespace
+
+// The slot cache, bf16 rows (kernel I): rows [B, T, K, D] quantized (snapped != 0:
+// log2-snapped scales, else absmax / 127) into [layer, b, starts[b] + t].
+extern "C" int kv_write_quant(const void* k_new, const void* v_new,
+                              void* k_cache, void* v_cache, void* k_scale,
+                              void* v_scale, const int* starts,
+                              const int* new_len, int layer, int B, int T,
+                              int K, int S, int D, int snapped,
+                              void* stream) {
+  return slot_entry<__nv_bfloat16>(k_new, v_new, k_cache, v_cache, k_scale, v_scale,
+                         starts, new_len, layer, B, T, K, S, D, snapped,
+                         stream);
+}
+
+// The pool, bf16 rows (kernel I): through the block table, snapped scales.
+extern "C" int paged_kv_write_quant(const void* k_new,
+                                    const void* v_new, void* k_pool,
+                                    void* v_pool, void* k_scale,
+                                    void* v_scale, const int* starts,
+                                    const int* new_len, const int* table,
+                                    int layer, int B, int T, int K, int P,
+                                    int page, int max_pages, int D,
+                                    void* stream) {
+  return paged_entry<__nv_bfloat16>(k_new, v_new, k_pool, v_pool, k_scale, v_scale,
+                          starts, new_len, table, layer, B, T, K, P, page,
+                          max_pages, D, stream);
+}
+
+// The launch of the two above at these shapes: out = {threads, lanes a
+// row, rows a block, blocks_x, blocks_y}.
+extern "C" int kv_write_quant_plan(int B, int T, int K, int D,
+                                   int* out) {
+  return plan_entry<__nv_bfloat16>(B, T, K, D, out);
+}
+
+// The slot cache, float16 rows (kernel If): rows [B, T, K, D] quantized (snapped != 0:
+// log2-snapped scales, else absmax / 127) into [layer, b, starts[b] + t].
+extern "C" int kv_write_quant_f16(const void* k_new, const void* v_new,
+                              void* k_cache, void* v_cache, void* k_scale,
+                              void* v_scale, const int* starts,
+                              const int* new_len, int layer, int B, int T,
+                              int K, int S, int D, int snapped,
+                              void* stream) {
+  return slot_entry<__half>(k_new, v_new, k_cache, v_cache, k_scale, v_scale,
+                         starts, new_len, layer, B, T, K, S, D, snapped,
+                         stream);
+}
+
+// The pool, float16 rows (kernel If): through the block table, snapped scales.
+extern "C" int paged_kv_write_quant_f16(const void* k_new,
+                                    const void* v_new, void* k_pool,
+                                    void* v_pool, void* k_scale,
+                                    void* v_scale, const int* starts,
+                                    const int* new_len, const int* table,
+                                    int layer, int B, int T, int K, int P,
+                                    int page, int max_pages, int D,
+                                    void* stream) {
+  return paged_entry<__half>(k_new, v_new, k_pool, v_pool, k_scale, v_scale,
+                          starts, new_len, table, layer, B, T, K, P, page,
+                          max_pages, D, stream);
+}
+
+// The launch of the two above at these shapes: out = {threads, lanes a
+// row, rows a block, blocks_x, blocks_y}.
+extern "C" int kv_write_quant_plan_f16(int B, int T, int K, int D,
+                                   int* out) {
+  return plan_entry<__half>(B, T, K, D, out);
+}
+
+// The slot cache, float32 rows (kernel If): rows [B, T, K, D] quantized (snapped != 0:
+// log2-snapped scales, else absmax / 127) into [layer, b, starts[b] + t].
+extern "C" int kv_write_quant_f32(const void* k_new, const void* v_new,
+                              void* k_cache, void* v_cache, void* k_scale,
+                              void* v_scale, const int* starts,
+                              const int* new_len, int layer, int B, int T,
+                              int K, int S, int D, int snapped,
+                              void* stream) {
+  return slot_entry<float>(k_new, v_new, k_cache, v_cache, k_scale, v_scale,
+                         starts, new_len, layer, B, T, K, S, D, snapped,
+                         stream);
+}
+
+// The pool, float32 rows (kernel If): through the block table, snapped scales.
+extern "C" int paged_kv_write_quant_f32(const void* k_new,
+                                    const void* v_new, void* k_pool,
+                                    void* v_pool, void* k_scale,
+                                    void* v_scale, const int* starts,
+                                    const int* new_len, const int* table,
+                                    int layer, int B, int T, int K, int P,
+                                    int page, int max_pages, int D,
+                                    void* stream) {
+  return paged_entry<float>(k_new, v_new, k_pool, v_pool, k_scale, v_scale,
+                          starts, new_len, table, layer, B, T, K, P, page,
+                          max_pages, D, stream);
+}
+
+// The launch of the two above at these shapes: out = {threads, lanes a
+// row, rows a block, blocks_x, blocks_y}.
+extern "C" int kv_write_quant_plan_f32(int B, int T, int K, int D,
+                                   int* out) {
+  return plan_entry<float>(B, T, K, D, out);
 }

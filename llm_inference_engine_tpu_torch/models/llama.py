@@ -158,12 +158,12 @@ def _layer_gen(cfg: ModelConfig, eng: EngineConfig, h_norm: torch.Tensor,
                 cp.n, sm_scale=sm_scale, window=cfg.sliding_window,
                 out_dtype=x.dtype, **scales)
     elif can_fuse_paged_decode(q.shape, cache):
-        # paged decode over a pool of the model's dtype: one kernel writes
-        # the token's K/V through the block table and attends
+        # paged decode over a pool of the model's dtype or int8: one kernel
+        # writes the token's K/V through the block table and attends
         attn_out, _, _ = attention_decode_paged_fused(
             q, k_new, v_new, cache.k, cache.v, q_start, kv_len, layer_idx,
             table=cache.block_table, sm_scale=sm_scale,
-            window=cfg.sliding_window, kernels=kernels)
+            window=cfg.sliding_window, kernels=kernels, **scales)
     elif isinstance(cache, pkv.PagedKVCache):
         # paged: write through the block table, then attend through it
         pkv.paged_update_at_layer(cache, layer_idx, k_new, v_new, q_start,

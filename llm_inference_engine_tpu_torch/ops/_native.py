@@ -35,8 +35,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # ``switch (D)`` of each bf16 source; a test holds them equal)
 HEAD_DIMS = (64, 80, 96, 128, 256)
 # head_dim of the float16 and float32 instances (the ``switch (D)`` of
-# csrc/attention_*_f16.cu and _f32.cu; csrc/float_kernels.cu takes it as a
-# runtime argument): the debug preset's 16 and every bf16 head dim
+# csrc/attention_*_f16.cu and _f32.cu, and the float one of
+# csrc/kv_write_quant.cu): the debug preset's 16 and every bf16 head dim
 FLOAT_HEAD_DIMS = (16,) + HEAD_DIMS
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -98,6 +98,12 @@ _SIGNATURES = {
     "attention_decode_paged_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                                     _P],
+    # q, k_new, v_new, k_pool, v_pool, k_scale, v_scale, out, q_start,
+    # kv_len, table, layer, B, H, K, P, page, max_pages, D, sm_scale,
+    # window, stream
+    "attention_decode_paged_fused_int8": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                          _P, _P, _P, _I, _I, _I, _I, _I,
+                                          _I, _I, _I, _F, _I, _P],
     # B, T, row_bytes, out[6]
     "kv_write_plan": [_I, _I, _I, _P],
     # B, T, K, D, out[5]
@@ -118,11 +124,6 @@ _SIGNATURES = {
     "rmsnorm": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     # gate_up, out, n, inter, dtype, stream
     "silu_and_mul": [_P, _P, _I, _I, _I, _P],
-    # k_new, v_new, k_cache, v_cache, k_scale, v_scale, starts, new_len,
-    # table (null: slot), layer, B, T, K, S (or P), page, max_pages, D,
-    # dtype, snapped, stream
-    "kv_write_quant_float": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 # the float16 and float32 instances of kernels D2 and D
 # (csrc/attention_{prefill,decode}_{f16,f32}.cu): the bf16 entry points'
@@ -132,19 +133,24 @@ ATTENTION_ENTRIES = (
     "attention_prefill_paged_int8", "attention_prefill_plan",
     "attention_decode", "attention_decode_paged_fused",
     "attention_decode_paged", "attention_decode_int8",
-    "attention_decode_paged_int8", "attention_decode_plan")
+    "attention_decode_paged_int8", "attention_decode_paged_fused_int8",
+    "attention_decode_plan")
 ATTENTION_SUFFIX = {"bfloat16": "", "float16": "_f16", "float32": "_f32"}
 # the float16 and float32 instances of kernels E and F, Ef and Ff
 # (csrc/quant_matmul_f16.cu, _f32.cu): the same suffixes
 QUANT_ENTRIES = ("int4_matmul", "int8_matmul", "quant_matmul_plan")
-for _name in ATTENTION_ENTRIES + QUANT_ENTRIES:
+# the float16 and float32 instances of kernel I, If
+# (csrc/kv_write_quant.cu): the same suffixes
+WRITE_QUANT_ENTRIES = ("kv_write_quant", "paged_kv_write_quant",
+                       "kv_write_quant_plan")
+for _name in ATTENTION_ENTRIES + QUANT_ENTRIES + WRITE_QUANT_ENTRIES:
     for _suffix in ("_f16", "_f32"):
         _SIGNATURES[_name + _suffix] = _SIGNATURES[_name]
 
 
 def entry_name(name: str, dtype) -> str:
-    """The C entry point ``name`` of kernel D2, D, E or F for tensors of
-    ``dtype``: the bf16 instance's name, or the float16 / float32 one's
+    """The C entry point ``name`` of kernel D2, D, E, F or I for tensors
+    of ``dtype``: the bf16 instance's name, or the float16 / float32 one's
     (suffixed, ATTENTION_SUFFIX)."""
     return name + ATTENTION_SUFFIX[str(dtype).split(".")[-1]]
 

@@ -26,21 +26,23 @@ Port of ``llm_inference_engine_tpu/ops/attention.py`` over the slot cache
   cache IN PLACE (an int8 cache: quantized in the cache's numerics, with
   its scale) and attends history plus the new token;
 - :func:`attention_decode_paged_fused` (one new token per sequence,
-  a paged pool of q's dtype) runs kernel D's fused paged mode
-  (``attention_decode_paged_fused``) in place of the TPU kernels
+  a paged pool of q's dtype or int8) runs kernel D's fused paged mode
+  (``attention_decode_paged_fused``, int8:
+  :func:`attention_decode_paged_fused_int8`) in place of the TPU kernels
   ``_paged_write_kernel`` and ``_decode_mxu_kernel`` (``_attention_decode_mxu``
   with a table), which the JAX package runs one after the other: it
   writes the new K/V row through the block table IN PLACE, with kernel
-  H's rules, and attends;
+  H's rules (an int8 pool's row quantized with snapped scales, kernel H's
+  int8 bits), and attends;
 - :func:`attention_decode` (one token per sequence, paged pool, written
   by kernel H first) runs kernel D's attend-only mode
   (``attention_decode_paged``: the fused paged instance given no new
   rows; int8: :func:`attention_decode_int8`) in place of
-  ``_decode_mxu_kernel``; the engine takes it for the int8 pool (after
-  kernel H's int8 mode or If), and over a pool of q's dtype it serves as
-  the JAX package's order that the fused mode is held against. The paged modes' split plan and summation
-  order are the slot mode's (:func:`decode_plan`), so a paged engine
-  reproduces a slot engine bit for bit.
+  ``_decode_mxu_kernel``; the engine runs it on no path: it is the JAX
+  package's order that the fused mode is held against. The paged modes'
+  split plan and summation order are the slot mode's
+  (:func:`decode_plan`), so a paged engine reproduces a slot engine bit
+  for bit.
 
 Every bf16 kernel is built for the head dims ``_native.HEAD_DIMS`` (64,
 80, 96, 128, 256); another head_dim raises ``NotImplementedError`` on a
@@ -56,9 +58,10 @@ both decodes on D's split-KV template (``csrc/attention_decode_f16.cu``,
 ``_f32.cu``). Each wrapper below hands such a q to its counted launcher
 (``attention_prefill_float``, ``..._float_int8``,
 ``attention_prefill_paged_float[_int8]``, ``attention_decode_float[_int8]``
-for the fused slot decode, ``attention_decode_paged_fused_float`` for the
-fused paged decode, ``attention_decode_paged_float[_int8]`` for the
-attend-only paged decode). Any other dtype raises, naming the instances.
+for the fused slot decode, ``attention_decode_paged_fused_float[_int8]``
+for the fused paged decode, ``attention_decode_paged_float[_int8]`` for
+the attend-only paged decode). Any other dtype raises, naming the
+instances.
 
 Each int8 mode is a wrapper of its own with its own launch counter.
 
@@ -70,9 +73,8 @@ the JAX package's static ``kv_hi`` watermark has no counterpart.
 
 Under tensor parallelism every mode runs on a model rank's local heads
 (``parallel/sharding.py``), the decode fused as on one device. The
-engine never runs the attend-only decode over a slot cache or a pool of
-the model's dtype: it fuses their decode (:func:`can_fuse_decode`,
-:func:`can_fuse_paged_decode`).
+engine never runs the attend-only decode: it fuses every decode
+(:func:`can_fuse_decode`, :func:`can_fuse_paged_decode`).
 """
 
 from __future__ import annotations
@@ -99,6 +101,7 @@ __all__ = ["attention", "attention_torch", "attention_paged_torch",
            "attention_decode_int8", "attention_decode_fused",
            "attention_decode_fused_int8", "attention_decode_fused_torch",
            "attention_decode_paged_fused",
+           "attention_decode_paged_fused_int8",
            "attention_decode_paged_fused_torch", "can_fuse_decode",
            "can_fuse_paged_decode", "decode_plan", "prefill_plan"]
 
@@ -324,6 +327,12 @@ attention_decode_paged_fused_float = _float_instance(
     "attention_decode_paged_fused_float", "attention_decode_paged_fused",
     "Kernel Df over a float pool: write the token's row through the block "
     "table (kernel H's rules), attend.")
+attention_decode_paged_fused_float_int8 = _float_instance(
+    "attention_decode_paged_fused_float_int8",
+    "attention_decode_paged_fused_int8",
+    "Kernel Df over an int8 pool: quantize the token's row (snapped, "
+    "kernel If's bits), write it through the block table (kernel H's "
+    "rules), attend.")
 attention_decode_paged_float = _float_instance(
     "attention_decode_paged_float", "attention_decode_paged",
     "Kernel Df's attend-only decode over a float pool (kernel H wrote the "
@@ -331,7 +340,7 @@ attention_decode_paged_float = _float_instance(
 attention_decode_paged_float_int8 = _float_instance(
     "attention_decode_paged_float_int8", "attention_decode_paged_int8",
     "Kernel Df's attend-only decode over an int8 pool (kernel If wrote "
-    "the token).")
+    "the token): the fused int8 paged instance given no new rows.")
 
 
 def attention(q, k_cache, v_cache, q_start, kv_len, *,
@@ -519,7 +528,8 @@ def attention_decode_int8(q, k_pool, v_pool, q_start, kv_len, layer: int,
                           window: Optional[int] = None,
                           kernels: str = "auto") -> torch.Tensor:
     """Kernel D's int8 attend-only paged decode (the int8 mode of
-    ``_decode_mxu_kernel``), after kernel H's int8 mode wrote the token."""
+    ``_decode_mxu_kernel``), after kernel H's int8 mode wrote the token:
+    the fused int8 paged instance given no new rows."""
     _check_decode_q(q)
     if not use_kernel(kernels, q):
         return attention_paged_torch(q, k_pool, v_pool, q_start, kv_len,
@@ -588,11 +598,11 @@ def can_fuse_decode(q_shape, cache) -> bool:
 
 
 def can_fuse_paged_decode(q_shape, cache) -> bool:
-    """Fused paged-decode gate: one new token against a bf16, float16 or
-    float32 paged pool (kernel D, or its float instance Df; an int8 pool
-    writes through kernel H's int8 mode or If, then attends)."""
+    """Fused paged-decode gate: one new token against a bf16, float16,
+    float32 or int8 paged pool (kernel D, or its float instance Df)."""
     return (q_shape[1] == 1 and isinstance(cache, PagedKVCache)
-            and cache.k.dtype in (torch.bfloat16,) + FLOAT_DTYPES)
+            and (cache.k.dtype in (torch.bfloat16,) + FLOAT_DTYPES
+                 or cache.quantized))
 
 
 def attention_decode_fused_torch(q, k_new, v_new, k_cache, v_cache, q_start,
@@ -720,16 +730,27 @@ def attention_decode_paged_fused_torch(q, k_new, v_new, k_pool, v_pool,
                                        q_start, kv_len, layer: int, *,
                                        table,
                                        sm_scale: Optional[float] = None,
-                                       window: Optional[int] = None):
+                                       window: Optional[int] = None,
+                                       k_scale: Optional[torch.Tensor] = None,
+                                       v_scale: Optional[torch.Tensor] = None):
     """Plain version of kernel D's fused paged decode: kernel H's plain
     write of k_new/v_new [B, 1, K, D] at q_start through ``table`` for rows
-    with kv_len > q_start (in place), then the paged attention. Returns
-    (out [B, 1, H, D], k_pool, v_pool)."""
+    with kv_len > q_start (in place; an int8 pool, scale planes given, gets
+    them quantized with snapped scales, with their scales), then the paged
+    attention. Returns (out [B, 1, H, D], k_pool, v_pool)."""
     active = (kv_len > q_start).to(torch.int32)
-    for pool, new in ((k_pool, k_new), (v_pool, v_new)):
-        _write_pool_rows_torch(pool, new, layer, q_start, active, table)
+    if k_scale is None:
+        for pool, new in ((k_pool, k_new), (v_pool, v_new)):
+            _write_pool_rows_torch(pool, new, layer, q_start, active, table)
+    else:
+        for new, vals, scales in ((k_new, k_pool, k_scale),
+                                  (v_new, v_pool, v_scale)):
+            qv, sc = quantize_rows(new, True)
+            _write_pool_rows_torch(vals, qv, layer, q_start, active, table)
+            _write_pool_rows_torch(scales, sc, layer, q_start, active, table)
     out = attention_paged_torch(q, k_pool, v_pool, q_start, kv_len, layer,
-                                table, sm_scale=sm_scale, window=window)
+                                table, sm_scale=sm_scale, window=window,
+                                k_scale=k_scale, v_scale=v_scale)
     return out, k_pool, v_pool
 
 
@@ -737,12 +758,15 @@ def attention_decode_paged_fused(q, k_new, v_new, k_pool, v_pool, q_start,
                                  kv_len, layer: int, *, table,
                                  sm_scale: Optional[float] = None,
                                  window: Optional[int] = None,
-                                 kernels: str = "auto"):
+                                 kernels: str = "auto",
+                                 k_scale: Optional[torch.Tensor] = None,
+                                 v_scale: Optional[torch.Tensor] = None):
     """Fused decode write + attend over a paged pool of q's dtype (the
     counterpart of the JAX package's ``_paged_write_kernel`` followed by
     ``_decode_mxu_kernel``): kernel D over a bf16 pool, its float instance
     (:func:`attention_decode_paged_fused_float`) over a float16 or
-    float32 one.
+    float32 one; an int8 pool (scale planes given) takes
+    :func:`attention_decode_paged_fused_int8`.
 
     q [B, 1, H, D]; k_new/v_new [B, 1, K, D]; pools [L, P, page, K, D],
     updated in place; ``table`` [B, max_pages]. The token's row goes to
@@ -750,6 +774,11 @@ def attention_decode_paged_fused(q, k_new, v_new, k_pool, v_pool, q_start,
     q_start, 0 <= q_start < max_pages * page and the entry lies in [0, P)
     (kernel H's rules), then the row attends as in
     :func:`attention_decode`. Returns (out [B, 1, H, D], k_pool, v_pool)."""
+    if k_scale is not None:
+        return attention_decode_paged_fused_int8(
+            q, k_new, v_new, k_pool, v_pool, q_start, kv_len, layer,
+            table=table, k_scale=k_scale, v_scale=v_scale,
+            sm_scale=sm_scale, window=window, kernels=kernels)
     if not use_kernel(kernels, q):
         return attention_decode_paged_fused_torch(
             q, k_new, v_new, k_pool, v_pool, q_start, kv_len, layer,
@@ -770,3 +799,44 @@ def attention_decode_paged_fused(q, k_new, v_new, k_pool, v_pool, q_start,
 
 
 attention_decode_paged_fused.launches = 0
+
+
+def attention_decode_paged_fused_int8(q, k_new, v_new, k_pool, v_pool,
+                                      q_start, kv_len, layer: int, *, table,
+                                      k_scale, v_scale,
+                                      sm_scale: Optional[float] = None,
+                                      window: Optional[int] = None,
+                                      kernels: str = "auto"):
+    """Kernel D's fused decode over an int8 pool (the counterpart of the
+    JAX package's int8 ``_paged_write_kernel`` followed by the int8
+    ``_decode_mxu_kernel``): the kernel quantizes the rows k_new/v_new
+    [B, 1, K, D] of q's dtype with snapped scales (kernel H's int8 mode's
+    bits, or If's for float16 / float32 rows: its float instance
+    :func:`attention_decode_paged_fused_float_int8`), writes values and
+    scales through ``table`` with kernel H's rules, and attends as
+    :func:`attention_decode_int8`. Returns (out [B, 1, H, D], k_pool,
+    v_pool)."""
+    _check_decode_q(q)
+    if not use_kernel(kernels, q):
+        return attention_decode_paged_fused_torch(
+            q, k_new, v_new, k_pool, v_pool, q_start, kv_len, layer,
+            table=table, sm_scale=sm_scale, window=window, k_scale=k_scale,
+            v_scale=v_scale)
+    if q.dtype in FLOAT_DTYPES:
+        out = attention_decode_paged_fused_float_int8(
+            q, k_pool, v_pool, q_start, kv_len, layer, table=table,
+            k_new=k_new, v_new=v_new, k_scale=k_scale, v_scale=v_scale,
+            sm_scale=sm_scale, window=window)
+        return out, k_pool, v_pool
+    out = _launch("attention_decode_paged_fused_int8", q, k_pool, v_pool,
+                  q_start, kv_len, layer, table=table, k_new=k_new,
+                  v_new=v_new, k_scale=k_scale, v_scale=v_scale,
+                  sm_scale=sm_scale, window=window)
+    attention_decode_paged_fused_int8.launches += 1
+    kernel_output("attention_decode_paged_fused_int8", out)
+    kernel_output("attention_decode_paged_fused_int8", k_scale, v_scale,
+                  layer=layer)
+    return out, k_pool, v_pool
+
+
+attention_decode_paged_fused_int8.launches = 0

@@ -28,8 +28,10 @@ elsewhere. Kernel I (CUDA, ``csrc/kv_write_quant.cu``) replaces the TPU
 kernel ``_write_kernel_quant``: it quantizes the new bf16 rows and writes
 values and scales in one launch (the JAX package quantizes in XLA first).
 Float16 and float32 rows (a float model over an int8 cache) take its
-float instance If (``csrc/float_kernels.cu``, :func:`kv_write_quant_float`)
-with the same rounding; kernel C copies rows of any float dtype by bytes.
+float instance If, the same template over their element type (the entry
+points suffixed ``_f16`` / ``_f32``, counted by
+:func:`kv_write_quant_float`), with the same rounding; kernel C copies
+rows of any float dtype by bytes.
 
 Under tensor parallelism each model rank holds a cache of its K/tp heads
 (``parallel/sharding.py``), its scale planes with them, its numerics
@@ -60,6 +62,8 @@ __all__ = ["KVCache", "new_kv_cache", "update_cache_at_layer",
 
 # the rows that kernel I's float instance If quantizes
 FLOAT_ROW_DTYPES = (torch.float16, torch.float32)
+# threads a block of kernels I and If (csrc/kv_write_quant.cu kThreads)
+_WRITE_THREADS = 256
 
 
 @dataclasses.dataclass
@@ -335,35 +339,68 @@ def write_plan_native(B: int, T: int, row_bytes: int) -> dict:
     return dict(zip(_COPY_PLAN_KEYS, out))
 
 
-_WRITE_THREADS = 256
 _WRITE_PLAN_KEYS = ("threads", "lanes", "rows_per_block", "blocks_x",
                     "blocks_y")
 
 
-def write_quant_plan(B: int, T: int, K: int, D: int) -> dict:
-    """The launch of kernel I (and of kernel H's int8 mode) for new rows
-    [B, T, K, D], as ``csrc/kv_write_quant.cu`` makes it: ``lanes`` lanes
-    hold a row of D values, 32 bytes each, so a block of ``threads``
-    holds rows_per_block = threads // lanes rows; block (x, y) takes rows
-    [x * rows_per_block, (x + 1) * rows_per_block) of sequence y's flat
-    order r = (t * 2 + kv) * K + head, thread i its row i // lanes. Pure
-    Python: the CPU tests call it; :func:`write_quant_plan_native` asks the
-    built library."""
-    lanes = 4 if D == 64 else 16 if D == 256 else 8
+def write_quant_plan(B: int, T: int, K: int, D: int,
+                     dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The launch of kernel I (and of kernel H's int8 mode; If for float16
+    and float32 rows) for new rows [B, T, K, D] of ``dtype``, as
+    ``csrc/kv_write_quant.cu`` makes it: ``lanes`` lanes hold a row of D
+    values, 32 bytes each (the smallest power of two that covers the
+    row), so a block of ``threads`` holds rows_per_block = threads //
+    lanes rows; block (x, y) takes rows [x * rows_per_block, (x + 1) *
+    rows_per_block) of sequence y's flat order r = (t * 2 + kv) * K +
+    head, thread i its row i // lanes. Pure Python: the CPU tests call it;
+    :func:`write_quant_plan_native` asks the built library."""
+    need = cdiv(D * torch.empty((), dtype=dtype).element_size(), 32)
+    lanes = 1
+    while lanes < need:
+        lanes *= 2
     rb = _WRITE_THREADS // lanes
     return dict(zip(_WRITE_PLAN_KEYS, (_WRITE_THREADS, lanes, rb,
                                        cdiv(2 * T * K, rb), B)))
 
 
-def write_quant_plan_native(B: int, T: int, K: int, D: int) -> dict:
+def write_quant_plan_native(B: int, T: int, K: int, D: int,
+                            dtype: torch.dtype = torch.bfloat16) -> dict:
     """The plan from the built library on the card
-    (``kv_write_quant_plan``)."""
+    (``kv_write_quant_plan`` of ``dtype``)."""
     import ctypes
     from llm_inference_engine_tpu_torch.ops import _native
     out = (ctypes.c_int * len(_WRITE_PLAN_KEYS))()
-    _native.check(_native.library().kv_write_quant_plan(B, T, K, D, out),
-                  "kv_write_quant_plan")
+    name = _native.entry_name("kv_write_quant_plan", dtype)
+    _native.check(getattr(_native.library(), name)(B, T, K, D, out), name)
     return dict(zip(_WRITE_PLAN_KEYS, out))
+
+
+def launch_write_quant(name: str, cache, layer: int, new_k: torch.Tensor,
+                       new_v: torch.Tensor, starts: torch.Tensor,
+                       new_len: torch.Tensor, table=None) -> None:
+    """One launch of kernel I (bf16 rows) or If (float16 / float32 rows:
+    the entry point of their dtype) after the caller's checks: rows [B, T,
+    K, D] quantized into an int8 slot cache in its numerics, or with
+    ``table`` through the block table into an int8 pool (snapped
+    scales)."""
+    from llm_inference_engine_tpu_torch.ops import _native
+    B, T, K, D = new_k.shape
+    args = [new_k.data_ptr(), new_v.data_ptr(), cache.k.data_ptr(),
+            cache.v.data_ptr(), cache.k_scale.data_ptr(),
+            cache.v_scale.data_ptr(), starts.data_ptr(), new_len.data_ptr()]
+    if table is None:                 # slot [L, B, S, K, D]
+        entry = "kv_write_quant"
+        args += [int(layer), B, T, K, cache.k.shape[2], D,
+                 int(cache.snapped)]
+    else:                             # pool [L, P, page, K, D]
+        entry = "paged_kv_write_quant"
+        args += [table.data_ptr(), int(layer), B, T, K, cache.k.shape[1],
+                 cache.k.shape[2], table.shape[1], D]
+    entry = _native.entry_name(entry, new_k.dtype)
+    status = getattr(_native.library(), entry)(*args,
+                                                _native.stream_of(new_k))
+    _native.check(status, entry)
+    kernel_output(name, cache.k_scale, cache.v_scale, layer=layer)
 
 
 def kv_write_quant(cache: KVCache, layer: int, new_k: torch.Tensor,
@@ -380,65 +417,30 @@ def kv_write_quant(cache: KVCache, layer: int, new_k: torch.Tensor,
     if new_k.dtype in FLOAT_ROW_DTYPES:
         return kv_write_quant_float(cache, layer, new_k, new_v, starts,
                                     new_len)
-    from llm_inference_engine_tpu_torch.ops import _native
     _check_write(cache, layer, new_k, new_v, starts, new_len,
                  "kv_write_quant")
-    L, B, S, K, D = cache.k.shape
-    status = _native.library().kv_write_quant(
-        new_k.data_ptr(), new_v.data_ptr(), cache.k.data_ptr(),
-        cache.v.data_ptr(), cache.k_scale.data_ptr(),
-        cache.v_scale.data_ptr(), starts.data_ptr(), new_len.data_ptr(),
-        int(layer), B, new_k.shape[1], K, S, D, int(cache.snapped),
-        _native.stream_of(new_k))
-    _native.check(status, "kv_write_quant")
+    launch_write_quant("kv_write_quant", cache, layer, new_k, new_v, starts,
+                       new_len)
     kv_write_quant.launches += 1
-    kernel_output("kv_write_quant", cache.k_scale, cache.v_scale,
-                  layer=layer)
     return cache
 
 
 kv_write_quant.launches = 0
 
 
-def write_quant_float(name: str, cache, layer: int, new_k: torch.Tensor,
-                      new_v: torch.Tensor, starts: torch.Tensor,
-                      new_len: torch.Tensor, table=None) -> None:
-    """One launch of kernel If (``kv_write_quant_float`` in
-    ``csrc/float_kernels.cu``), after the caller's checks: float16 or
-    float32 rows [B, T, K, D] quantized into an int8 slot cache, or with
-    ``table`` into an int8 pool (snapped scales)."""
-    from llm_inference_engine_tpu_torch.ops import _native
-    if table is None:                 # slot [L, B, S, K, D]
-        extent, page, max_pages = cache.k.shape[2], 0, 0
-        snapped = cache.snapped
-    else:                             # pool [L, P, page, K, D]
-        extent, page, max_pages = cache.k.shape[1], cache.k.shape[2], \
-            table.shape[1]
-        snapped = True
-    B, T, K, D = new_k.shape
-    status = _native.library().kv_write_quant_float(
-        new_k.data_ptr(), new_v.data_ptr(), cache.k.data_ptr(),
-        cache.v.data_ptr(), cache.k_scale.data_ptr(),
-        cache.v_scale.data_ptr(), starts.data_ptr(), new_len.data_ptr(),
-        None if table is None else table.data_ptr(), int(layer), B, T, K,
-        extent, page, max_pages, D, _native.dtype_code(new_k.dtype),
-        int(snapped), _native.stream_of(new_k))
-    _native.check(status, name)
-    kernel_output(name, cache.k_scale, cache.v_scale, layer=layer)
-
-
 def kv_write_quant_float(cache: KVCache, layer: int, new_k: torch.Tensor,
                          new_v: torch.Tensor, starts: torch.Tensor,
                          new_len: torch.Tensor) -> KVCache:
-    """Kernel If over the int8 slot cache: what :func:`kv_write_quant`
-    runs for float16 or float32 rows on the card."""
+    """Kernel If over the int8 slot cache (kernel I's instance over
+    float16 or float32 rows): what :func:`kv_write_quant` runs for such
+    rows on the card, counted apart from kernel I's bf16 launches."""
     if new_k.dtype not in FLOAT_ROW_DTYPES:
         raise TypeError(f"kv_write_quant_float: kernel If takes float16 or "
                         f"float32 rows, got {new_k.dtype}")
     _check_write(cache, layer, new_k, new_v, starts, new_len,
                  "kv_write_quant_float")
-    write_quant_float("kv_write_quant_float", cache, layer, new_k, new_v,
-                      starts, new_len)
+    launch_write_quant("kv_write_quant_float", cache, layer, new_k, new_v,
+                       starts, new_len)
     kv_write_quant_float.launches += 1
     return cache
 

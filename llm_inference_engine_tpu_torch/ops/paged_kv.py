@@ -34,8 +34,10 @@ embeds log2-snapped scale codes in 8 pad rows per token of its int8 pool
 mode (``paged_kv_write_quant``, the paged instance of kernel I in
 ``csrc/kv_write_quant.cu``) quantizes the bf16 rows and writes values and
 scales through the table in one launch; float16 and float32 rows take
-kernel If (:func:`paged_kv_write_quant_float`), then the attend-only
-int8 decode (Df).
+its float instance If (:func:`paged_kv_write_quant_float`). The engine's
+pure-decode steps over an int8 pool launch neither: kernel D's fused
+paged decode (Df for float rows) quantizes the token's row, writes it
+through the table with H's rules and attends.
 
 Under tensor parallelism each model rank holds the pool's K/tp heads of
 every page, and each data group a whole pool, with its own rows of the
@@ -53,7 +55,7 @@ import torch
 from llm_inference_engine_tpu_torch.ops._native import (
     FLOAT_HEAD_DIMS, HEAD_DIMS)
 from llm_inference_engine_tpu_torch.ops.kv_cache import (
-    FLOAT_ROW_DTYPES, quantize_kv_snapped, write_quant_float)
+    FLOAT_ROW_DTYPES, launch_write_quant, quantize_kv_snapped)
 from llm_inference_engine_tpu_torch.utils import use_kernel
 from llm_inference_engine_tpu_torch.utils.checks import kernel_output
 
@@ -348,21 +350,11 @@ def paged_kv_write_quant(cache: PagedKVCache, layer: int,
     if new_k.dtype in FLOAT_ROW_DTYPES:
         return paged_kv_write_quant_float(cache, layer, new_k, new_v,
                                           starts, new_len)
-    from llm_inference_engine_tpu_torch.ops import _native
     _check_write(cache, layer, new_k, new_v, starts, new_len,
                  "paged_kv_write_quant")
-    L, P, page, K, D = cache.k.shape
-    B, max_pages = cache.block_table.shape
-    status = _native.library().paged_kv_write_quant(
-        new_k.data_ptr(), new_v.data_ptr(), cache.k.data_ptr(),
-        cache.v.data_ptr(), cache.k_scale.data_ptr(),
-        cache.v_scale.data_ptr(), starts.data_ptr(), new_len.data_ptr(),
-        cache.block_table.data_ptr(), int(layer), B, new_k.shape[1], K, P,
-        page, max_pages, D, _native.stream_of(new_k))
-    _native.check(status, "paged_kv_write_quant")
+    launch_write_quant("paged_kv_write_int8", cache, layer, new_k, new_v,
+                       starts, new_len, cache.block_table)
     paged_kv_write_quant.launches += 1
-    kernel_output("paged_kv_write_int8", cache.k_scale, cache.v_scale,
-                  layer=layer)
     return cache
 
 
@@ -373,15 +365,16 @@ def paged_kv_write_quant_float(cache: PagedKVCache, layer: int,
                                new_k: torch.Tensor, new_v: torch.Tensor,
                                starts: torch.Tensor, new_len: torch.Tensor
                                ) -> PagedKVCache:
-    """Kernel If through the block table: what :func:`paged_kv_write_quant`
-    runs for float16 or float32 rows on the card (snapped scales)."""
+    """Kernel If through the block table (kernel I's paged instance over
+    float16 or float32 rows): what :func:`paged_kv_write_quant` runs for
+    such rows on the card (snapped scales)."""
     if new_k.dtype not in FLOAT_ROW_DTYPES:
         raise TypeError(f"paged_kv_write_quant_float: kernel If takes "
                         f"float16 or float32 rows, got {new_k.dtype}")
     _check_write(cache, layer, new_k, new_v, starts, new_len,
                  "paged_kv_write_quant_float")
-    write_quant_float("paged_kv_write_quant_float", cache, layer, new_k,
-                      new_v, starts, new_len, cache.block_table)
+    launch_write_quant("paged_kv_write_quant_float", cache, layer, new_k,
+                       new_v, starts, new_len, cache.block_table)
     paged_kv_write_quant_float.launches += 1
     return cache
 

@@ -47,7 +47,8 @@ from llm_inference_engine_tpu_torch.models import llama as llama_model
 from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
 from llm_inference_engine_tpu_torch.parallel import sharding
 from llm_inference_engine_tpu_torch.runtime import decode_graph
-from llm_inference_engine_tpu_torch.runtime.engine import check_kernel_dtypes
+from llm_inference_engine_tpu_torch.runtime.engine import (
+    check_kernel_dtypes, kv_cache_dtype_of)
 
 __all__ = ["BeamSearchResult", "BeamSearch", "beam_search"]
 
@@ -90,11 +91,13 @@ class BeamSearch:
             device if device is not None else params["embed"].device)
         check_kernel_dtypes(config, eng, device)
 
+        dtype, quantized = kv_cache_dtype_of(config, eng)
+
         def new(batch, kv_heads, dev):
             return kvc.new_kv_cache(
                 config.num_layers, batch, kv_heads, eng.max_seq_len,
-                config.head_dim, dtype=eng.kv_cache_dtype or config.dtype,
-                device=dev, quantized=eng.kv_cache_dtype == torch.int8)
+                config.head_dim, dtype=dtype, device=dev,
+                quantized=quantized)
         self.cache = (new(num_beams, config.num_kv_heads, device)
                       if mesh is None else sharding.sharded_cache(
                           mesh, new, num_beams, config.num_kv_heads))

@@ -46,21 +46,22 @@ memory, and only when the host table changed, so a graph reads the new
 entries.
 
 Weights may be dense or quantized (``ops/quant.py``); the engine does
-not look at them. ``kv_cache_dtype_name="int8"`` gives an int8 cache or
-pool with f32 scale planes (``ops/kv_cache.py``, ``ops/paged_kv.py``);
-the slot cache picks its scale numerics by device as the JAX engine
-does, the pool is always snapped.
+not look at them. The KV cache takes the model's dtype, as the JAX
+engine's does (``kv_cache_dtype_of``): ``kv_cache_dtype_name="int8"``
+gives an int8 cache or pool with f32 scale planes (``ops/kv_cache.py``,
+``ops/paged_kv.py``), and any float name gives a cache of the model's
+dtype. The slot cache picks its scale numerics by device as the JAX
+engine does, the pool is always snapped.
 
 Dtypes on the card (``check_kernel_dtypes``): a bfloat16 model runs
 kernels A-I; a float16 or float32 model (the ``debug`` preset is
 float32) runs A, B, C and H, which take its rows as they are, and the
 float instances of the others (D2f, Df, Ef and Ff:
 ``csrc/attention_*_f16.cu``, ``csrc/quant_matmul_f16.cu`` and their
-``_f32.cu``; If: ``csrc/float_kernels.cu``). Either takes a
-cache of the model's dtype or int8; a float cache of another dtype is
-refused before anything is allocated. A pool of the model's dtype
-decodes through the fused paged decode (D or Df), an int8 pool through
-H's int8 mode or If, then the attend-only decode.
+``_f32.cu``; If: kernel I's ``csrc/kv_write_quant.cu`` over float16 and
+float32 rows). A pool of the model's dtype or int8 decodes through the
+fused paged decode (D or Df), which writes the token's row (an int8
+pool's quantized) and attends in one launch a layer.
 
 Meshes (``EngineConfig.dp``/``tp``, or a ``parallel.mesh.Mesh`` passed
 in; ``parallel/sharding.py``): the weights are sharded over the model
@@ -74,7 +75,7 @@ device, rank (0, 0)'s: the scheduler, the server and the prefix caches
 of the paged layout see the same engine. A block-table upload reaches
 every data group. On a mesh whose devices are all one card the decode
 bodies stay CUDA-graph replays (the whole step is on one device); on a
-mesh of several cards they run eagerly (ROADMAP.md, queue 1). Without a
+mesh of several cards they run eagerly (ROADMAP.md, queue 2 item 7). Without a
 mesh, ``dp``/``tp`` > 1 build one over ``cuda:0 ... cuda:n-1``, or over
 n copies of the CPU when the engine's device is the CPU. A mesh comes
 from one place, and ``engine_config`` then carries its ``dp``/``tp``:
@@ -123,7 +124,8 @@ from llm_inference_engine_tpu_torch.parallel.context_parallel import BLOCK_KV
 from llm_inference_engine_tpu_torch.runtime import decode_graph
 from llm_inference_engine_tpu_torch.utils import debug, round_up
 
-__all__ = ["InferenceEngine", "GenerationResult", "check_kernel_dtypes"]
+__all__ = ["InferenceEngine", "GenerationResult", "check_kernel_dtypes",
+           "kv_cache_dtype_of"]
 
 # Rows of the decode programs' input buffer, int32 [len(INPUT_ROWS), B];
 # the float rows hold f32 bits. A rollout keeps its carry there too:
@@ -169,29 +171,28 @@ def _bucket_len(n: int, floor: int = 16, cap: int | None = None) -> int:
     return min(b, cap) if cap is not None else b
 
 
+def kv_cache_dtype_of(config: ModelConfig, eng: EngineConfig):
+    """(dtype, quantized) of the engine's KV cache, as the JAX engine
+    allocates it: int8 with scale planes for ``kv_cache_dtype_name="int8"``,
+    else the model's dtype, whatever float the name gives."""
+    quantized = eng.kv_cache_dtype == torch.int8
+    return (torch.int8 if quantized else config.dtype), quantized
+
+
 def check_kernel_dtypes(config: ModelConfig, eng: EngineConfig,
                         device) -> None:
     """Refuse, before anything is allocated, an engine whose kernels
     cannot take its dtypes: on a CUDA device with ``kernels`` other than
     "torch", the kernels take a bfloat16 model (kernels A-I) or a float16
     or float32 one (A, B, C, H and the float instances D2f, Df, If, Ef,
-    Ff), each with a KV cache of the model's own dtype or int8. A float
-    cache of another dtype than the model's (the JAX package takes that
-    mix) has no kernel instance yet: ValueError naming both dtypes."""
+    Ff); the cache is of the model's dtype or int8
+    (:func:`kv_cache_dtype_of`)."""
     if torch.device(device).type != "cuda" or eng.kernels == "torch":
         return
-    cache = eng.kv_cache_dtype or config.dtype
     if config.dtype not in (torch.bfloat16, torch.float16, torch.float32):
         raise ValueError(f"{config.name}: model dtype {config.dtype} on "
                          f"{device}: the CUDA kernels take bfloat16, "
                          "float16 or float32; use kernels='torch'")
-    if cache not in (config.dtype, torch.int8):
-        raise ValueError(
-            f"{config.name}: KV cache dtype {cache} with a {config.dtype} "
-            f"model on {device}: the CUDA kernels take a cache of the "
-            "model's dtype or int8 (a float cache of another dtype: "
-            "ROADMAP.md, queue 1 item 6); use kv_cache_dtype_name='' or "
-            "'int8', or kernels='torch'")
 
 
 def _check_layout(eng: EngineConfig) -> None:
@@ -283,8 +284,7 @@ class InferenceEngine:
         self.params = params
         B, V = engine_config.max_batch_size, config.vocab_size
         # an int8 cache holds int8 values and f32 scale planes
-        quantized = engine_config.kv_cache_dtype == torch.int8
-        dtype = engine_config.kv_cache_dtype or config.dtype
+        dtype, quantized = kv_cache_dtype_of(config, engine_config)
         if self.cp > 1:
             self.cache = new_cp_cache(
                 config.num_layers, B, config.num_kv_heads,

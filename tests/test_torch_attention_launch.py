@@ -31,6 +31,7 @@ ENTRIES = {
     "attention_decode_paged_fused": (True, False, True, True, None),
     "attention_decode_paged": (True, False, False, True, None),
     "attention_decode_paged_int8": (True, True, False, True, None),
+    "attention_decode_paged_fused_int8": (True, True, True, True, None),
 }
 
 

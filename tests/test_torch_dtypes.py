@@ -4,7 +4,7 @@ JAX package, on the CPU, and the card's dtype check.
 The JAX package takes a float32, float16 or bfloat16 model, its Pallas
 kernels computing in f32 inside; on the card the port runs such a model
 through the float instances of its kernels (``csrc/*_f16.cu``,
-``csrc/*_f32.cu``, ``csrc/float_kernels.cu``, held against the plain
+``csrc/*_f32.cu``, If in ``csrc/kv_write_quant.cu``, held against the plain
 versions by the card tests). Here each path of the
 ``debug`` preset (2 layers, head_dim 16) in float16 runs on both sides
 from one set of JAX dummy weights (``params_from_numpy``): the JAX engine
@@ -116,22 +116,37 @@ def test_float_model_matches_jax_pallas(runs, dtype, path):
     ("float32", "", None), ("float32", "int8", None),
     ("float16", "", None), ("float16", "int8", None),
     ("float16", "float16", None), ("bfloat16", "int8", None),
-    ("bfloat16", "float16",
-     "KV cache dtype torch.float16 with a torch.bfloat16 model"),
-    ("float32", "bfloat16",
-     "KV cache dtype torch.bfloat16 with a torch.float32 model"),
-    ("float16", "float32",
-     "KV cache dtype torch.float32 with a torch.float16 model")])
+    # a float cache of another dtype than the model's: the model's dtype,
+    # as the JAX engine allocates it (the names kept from when the check
+    # refused them)
+    pytest.param("bfloat16", "float16", None, id="bfloat16-float16-KV cache "
+                 "dtype torch.float16 with a torch.bfloat16 model"),
+    pytest.param("float32", "bfloat16", None, id="float32-bfloat16-KV cache "
+                 "dtype torch.bfloat16 with a torch.float32 model"),
+    pytest.param("float16", "float32", None, id="float16-float32-KV cache "
+                 "dtype torch.float32 with a torch.float16 model"),
+    ("float64", "", "model dtype torch.float64"),
+    ("float64", "int8", "model dtype torch.float64")])
 def test_card_dtype_check(model, cache, refused):
     """On a CUDA device (no card needed: the check allocates nothing) a
-    float16 or float32 model takes a cache of its own dtype or int8; a
-    float cache of another dtype is refused, naming both."""
+    bfloat16, float16 or float32 model is taken with any cache name, the
+    cache resolved as the JAX engine resolves it: int8, or the model's own
+    dtype whatever float is named. A model dtype that no kernel takes
+    (float64; no preset names it, so a stand-in carries it) is refused."""
+    import types
+
     from llm_inference_engine_tpu_torch.config import get_config
-    cfg = get_config("debug").replace(dtype_name=model)
+    from llm_inference_engine_tpu_torch.runtime.engine import (
+        kv_cache_dtype_of)
+    cfg = (types.SimpleNamespace(name="debug", dtype=torch.float64)
+           if model == "float64"
+           else get_config("debug").replace(dtype_name=model))
     eng = EngineConfig(max_batch_size=2, max_seq_len=32,
                        kv_cache_dtype_name=cache)
-    if refused is None:
-        check_kernel_dtypes(cfg, eng, torch.device("cuda"))
-    else:
+    if refused is not None:
         with pytest.raises(ValueError, match=refused):
             check_kernel_dtypes(cfg, eng, torch.device("cuda"))
+        return
+    check_kernel_dtypes(cfg, eng, torch.device("cuda"))
+    assert kv_cache_dtype_of(cfg, eng) == (
+        (torch.int8, True) if cache == "int8" else (cfg.dtype, False))

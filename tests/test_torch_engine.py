@@ -256,33 +256,44 @@ def test_create_engine_dummy_and_unported_paths():
 
 @pytest.mark.parametrize("dtype,kv,device,kernels,refused", [
     ("float32", "", "cuda", "auto", None),
-    ("float32", "bfloat16", "cuda", "cuda",
-     "KV cache dtype torch.bfloat16 with a torch.float32 model"),
-    ("bfloat16", "float32", "cuda", "auto",
-     "KV cache dtype torch.float32 with a torch.bfloat16 model"),
+    # a float cache named other than the model's dtype is the model's
+    # dtype, as in the JAX engine (the names kept from when it was refused)
+    pytest.param("float32", "bfloat16", "cuda", "cuda", None,
+                 id="float32-bfloat16-cuda-cuda-KV cache dtype "
+                 "torch.bfloat16 with a torch.float32 model"),
+    pytest.param("bfloat16", "float32", "cuda", "auto", None,
+                 id="bfloat16-float32-cuda-auto-KV cache dtype "
+                 "torch.float32 with a torch.bfloat16 model"),
     ("float16", "", "cuda", "auto", None),
     ("float32", "", "cuda", "torch", None),
     ("float32", "", "cpu", "auto", None),
     ("bfloat16", "", "cuda", "auto", None),
-    ("bfloat16", "int8", "cuda", "auto", None)])
+    ("bfloat16", "int8", "cuda", "auto", None),
+    ("float64", "", "cuda", "auto", "model dtype torch.float64"),
+    ("float64", "", "cuda", "torch", None)])
 def test_kernel_dtype_check_refuses_before_allocating(dtype, kv, device,
                                                       kernels, refused):
-    """On a CUDA device the kernels take a bf16, f16 or f32 model with a
-    cache of the model's dtype or int8; a float cache of another dtype is
-    refused with both dtypes named, before the engine allocates (here its
-    params lie on the CPU and no card exists, so any allocation on the
-    device would fail otherwise)."""
-    cfg = get_config("debug").replace(dtype_name=dtype)
+    """On a CUDA device the kernels take a bf16, f16 or f32 model, with a
+    cache of the model's dtype or int8 whatever float the cache's name
+    gives; a model dtype no kernel takes (float64, carried by a stand-in
+    config: no preset names it) is refused before the engine allocates
+    (here its params lie on the CPU and no card exists, so any allocation
+    on the device would fail otherwise)."""
+    import types
+    f64 = dtype == "float64"
+    cfg = get_config("debug").replace(dtype_name="float32" if f64 else dtype)
     eng = EngineConfig(max_batch_size=2, max_seq_len=32,
                        kv_cache_dtype_name=kv, kernels=kernels)
+    checked = types.SimpleNamespace(name=cfg.name, dtype=torch.float64) \
+        if f64 else cfg
     if refused is None:
-        check_kernel_dtypes(cfg, eng, torch.device(device))
+        check_kernel_dtypes(checked, eng, torch.device(device))
         return
     with pytest.raises(ValueError, match=refused):
-        check_kernel_dtypes(cfg, eng, torch.device(device))
+        check_kernel_dtypes(checked, eng, torch.device(device))
     params = init_dummy_params(cfg, seed=0, device="cpu")
-    with pytest.raises(ValueError, match="of the model's dtype or int8"):
-        InferenceEngine(cfg, eng, params, device=device)
+    with pytest.raises(ValueError, match=refused):
+        InferenceEngine(checked, eng, params, device=device)
 
 
 @pytest.mark.parametrize("factory", ["create_engine", "create_dummy_engine",

@@ -174,12 +174,14 @@ def test_generate_greedy_ids_match_jax_at_head_dims(rng, D):
 
 
 # every source with a ``switch (D)``, by the head dims its instances take:
-# the bf16 attention and int8-write sources ``_native.HEAD_DIMS``, the
-# float16 and float32 attention sources ``_native.FLOAT_HEAD_DIMS``
+# the bf16 attention sources ``_native.HEAD_DIMS``, the float16 and
+# float32 attention sources ``_native.FLOAT_HEAD_DIMS``; the int8 write's
+# source has one switch for each, in that order (bf16 rows, then float16
+# and float32 rows)
 _SOURCES = {
     "attention_prefill.cu": _native.HEAD_DIMS,
     "attention_decode.cu": _native.HEAD_DIMS,
-    "kv_write_quant.cu": _native.HEAD_DIMS,
+    "kv_write_quant.cu": (_native.HEAD_DIMS, _native.FLOAT_HEAD_DIMS),
     "attention_prefill_f16.cu": _native.FLOAT_HEAD_DIMS,
     "attention_prefill_f32.cu": _native.FLOAT_HEAD_DIMS,
     "attention_decode_f16.cu": _native.FLOAT_HEAD_DIMS,
@@ -197,10 +199,15 @@ def test_kernel_switches_match_the_python_head_dims(name):
     text = (_native.CSRC / name).read_text()
     blocks = _SWITCH.findall(text)
     assert blocks, f"{name} has no switch (D)"
-    for block in blocks:
+    want = _SOURCES[name]
+    if isinstance(want[0], tuple):        # one switch a set, in order
+        assert len(blocks) == len(want)
+    else:
+        want = (want,) * len(blocks)
+    for block, dims in zip(blocks, want):
         cases = tuple(sorted(int(c) for c in re.findall(r"case (\d+):",
                                                         block)))
-        assert cases == _SOURCES[name]
+        assert cases == dims
 
 
 def test_every_head_dim_switch_is_held():

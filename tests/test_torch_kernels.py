@@ -2049,10 +2049,12 @@ def test_copy_writes_at_model_rows(cuda, paged, T, K, D):
 
 # ---------------------------------------------------------------------------
 # the float instances: D2f and Df (csrc/attention_*_f16.cu, _f32.cu), Ef
-# and Ff (csrc/quant_matmul_f16.cu, _f32.cu), If (csrc/float_kernels.cu)
+# and Ff (csrc/quant_matmul_f16.cu, _f32.cu), If (csrc/kv_write_quant.cu)
 # ---------------------------------------------------------------------------
 
 FLOAT_DTYPES = [torch.float32, torch.float16]
+# head dims of the float16 / float32 instances: 16 and HEAD_DIMS
+FLOAT_HEAD_DIMS = (16,) + HEAD_DIMS
 # max |kernel - plain| over max |plain|: both sum in f32 in another order;
 # float16 outputs also round once (2^-11 relative)
 FLOAT_TOL = {torch.float32: 1e-5, torch.float16: 2e-3}
@@ -2261,6 +2263,173 @@ def test_float_int8_write_bit_for_bit(cuda, dtype, paged, snapped, D):
     assert counter.launches == before + 1
     for name in ("k", "v", "k_scale", "v_scale"):
         assert torch.equal(getattr(c, name), getattr(ref, name)), name
+
+
+@pytest.mark.parametrize("dtype", FLOAT_DTYPES, ids=str)
+@pytest.mark.parametrize("paged,snapped", [(False, False), (False, True),
+                                           (True, True)])
+@pytest.mark.parametrize("D", FLOAT_HEAD_DIMS)
+def test_float_int8_write_every_head_dim(cuda, dtype, paged, snapped, D):
+    """If, kernel I's template over float16 and float32 rows, at every
+    head dim of its instances: values and scales bit for bit as the plain
+    quantizer writes them, at 8 x 512 rows (the slot prefill chunk) with
+    ragged new_len. NaN in every row past new_len and past the end of the
+    new rows' buffer (never read); over a pool, NaN scales in every page
+    outside the table and in the rows past each sequence's last written
+    position, -128 values in the scratch page 0,
+    which stay as they were."""
+    from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+    L, B, T, K, page = 2, 8, 512, 4, 64
+    starts = torch.tensor([0, 512, 1000, 1535, 7, 1536, 100, 1200],
+                          device=cuda, dtype=torch.int32)
+    new_len = torch.tensor([512, 300, 1, 0, 512, 512, 77, 512],
+                           device=cuda, dtype=torch.int32)
+    kn, vn = (_tail_poisoned(_float_rows(cuda, dtype, B, T, K, D, new_len))
+              for _ in range(2))
+    if paged:
+        c = _int8_pool(cuda, L, B, 2048 // page, page, K, D)
+        _poison_pool(c, torch.clamp(starts + new_len, max=2048), page)
+        c.k[:, 0] = c.v[:, 0] = INT8_POISON
+        ref = _clone_cache(c)
+        counter = pkv.paged_kv_write_quant_float
+        before = counter.launches
+        pkv.paged_update_at_layer(c, 1, kn, vn, starts, new_len,
+                                  kernels="cuda")
+        pkv.paged_update_at_layer_torch(ref, 1, kn, vn, starts, new_len)
+    else:
+        c = _int8_slot(cuda, L, B, 2048, K, D, snapped)
+        ref = _clone_cache(c)
+        counter = kvc.kv_write_quant_float
+        before = counter.launches
+        kvc.update_cache_at_layer(c, 1, kn, vn, starts, new_len,
+                                  kernels="cuda")
+        kvc.update_cache_at_layer_torch(ref, 1, kn, vn, starts, new_len)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    for name in ("k", "v", "k_scale", "v_scale"):
+        got, want = getattr(c, name), getattr(ref, name)
+        if paged:                      # the plain write may touch page 0
+            got, want = got[:, 1:], want[:, 1:]
+        assert _bits_equal(got, want), name
+
+
+@pytest.mark.parametrize("dtype", FLOAT_DTYPES, ids=str)
+@pytest.mark.parametrize("snapped", [True, False])
+@pytest.mark.parametrize("D", FLOAT_HEAD_DIMS)
+def test_float_int8_write_equals_fused_decode_write(cuda, dtype, snapped, D):
+    """If (a sub-warp a row, 32-byte pieces) and the row quantizer it
+    replaced (kvq::quantize_row_strided, a warp a row, which Df's fused
+    int8 slot decode still runs) write the same new token rows alike:
+    values and scales bit for bit, a row of zeros and a row of tiny values
+    among them."""
+    L, B, S, K = 2, 4, 300, 8
+    c = _int8_slot(cuda, L, B, S, K, D, snapped)
+    other = _clone_cache(c)
+    q = torch.randn(B, 1, K, D, device=cuda, dtype=dtype)
+    kn = torch.randn(B, 1, K, D, device=cuda, dtype=dtype)
+    vn = torch.randn_like(kn)
+    kn[1, 0, 3] = 0.0                                  # a row of zeros
+    vn[2, 0, 1] *= 1e-4
+    q_start = torch.tensor([0, 17, 150, 299], device=cuda, dtype=torch.int32)
+    attention.attention_decode_fused(q, kn, vn, c.k, c.v, q_start,
+                                     q_start + 1, 1, kernels="cuda",
+                                     snapped=snapped, **_planes(c))
+    kvc.kv_write_quant(other, 1, kn, vn, q_start,
+                       torch.ones_like(q_start), kernels="cuda")
+    torch.cuda.synchronize()
+    for name in ("k", "v", "k_scale", "v_scale"):
+        assert torch.equal(getattr(c, name), getattr(other, name)), name
+
+
+@pytest.mark.parametrize("dtype", FLOAT_DTYPES, ids=str)
+@pytest.mark.parametrize("B,T", [(1, 1), (8, 1), (16, 1), (8, 7), (8, 64),
+                                 (8, 512)])
+def test_float_write_quant_plan_mirror_equals_library(cuda, dtype, B, T):
+    """ops.kv_cache.write_quant_plan of float16 and float32 rows equals
+    If's plan in the built library at every head dim and preset K."""
+    from llm_inference_engine_tpu_torch.config import PRESETS
+    for K in sorted({c.num_kv_heads for c in PRESETS.values()}):
+        for D in FLOAT_HEAD_DIMS:
+            assert kvc.write_quant_plan_native(B, T, K, D, dtype) == \
+                kvc.write_quant_plan(B, T, K, D, dtype)
+
+
+# kernel D's fused decode over an int8 pool: bf16 q at every head dim and
+# group size, float16 / float32 q (Df) at the float tests' shapes
+INT8_FUSED_CASES = (
+    [(torch.bfloat16, d, g) for d in HEAD_DIMS for g in (1, 4, 8)]
+    + [(dt, d, g) for dt in FLOAT_DTYPES
+       for d, g in ((16, 2), (64, 4), (128, 1), (128, 8), (256, 1))])
+
+
+@pytest.mark.parametrize("dtype,D,G", INT8_FUSED_CASES,
+                         ids=lambda v: str(v).split(".")[-1])
+@pytest.mark.parametrize("B,page,window", [(8, 64, None), (16, 16, 40),
+                                           (16, 64, 300)])
+def test_int8_fused_paged_decode_equals_write_then_attend(
+        cuda, dtype, D, G, B, page, window):
+    """The fused decode over an int8 pool (the token's row quantized with
+    snapped scales inside kernel D / Df and written through the table)
+    against the route it replaced on a copy: kernel H's int8 mode (If for
+    float rows) then the attend-only int8 paged decode; pool values,
+    scales and outputs bit for bit, no H launched by the fused one.
+    Against the plain version on a clean copy: the pool (page 0 aside) bit
+    for bit, the output within TOL (bf16) or FLOAT_TOL. The rows of the
+    tests above: a first token, q_start at in-page offsets 0 and page - 1,
+    an inactive row, an active row whose table entry at q_start's page is
+    -1 (it writes nothing and is left out of the plain comparison); NaN
+    scales in every pool row past kv_len and every page outside the table,
+    and NaN past the ends of q and the new rows."""
+    from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+    K, S, neg = 2, 1024, 4
+    c = _int8_pool(cuda, 2, B, S // page, page, K, D)
+    g = torch.Generator(device=cuda).manual_seed(B * D + G)
+    kv_len = torch.randint(2, S + 1, (B,), generator=g, device=cuda,
+                           dtype=torch.int32)
+    kv_len[:3] = torch.tensor([1, page + 1, 2 * page], device=cuda)
+    q_start = kv_len - 1
+    q_start[3] = kv_len[3]
+    _poison_pool(c, kv_len, page)
+    c.block_table[neg, q_start[neg] // page] = -1
+    split = _clone_cache(c)
+    table = c.block_table.clone()
+    table[neg, q_start[neg] // page] = 0
+    clean = dataclasses.replace(_clone_cache(c), block_table=table,
+                                k_scale=c.k_scale.nan_to_num(),
+                                v_scale=c.v_scale.nan_to_num())
+    q, kn, vn = (_tail_poisoned(torch.randn(
+        B, 1, n, D, device=cuda, dtype=dtype)) for n in (K * G, K, K))
+    bf16 = dtype == torch.bfloat16
+    fused = (attention.attention_decode_paged_fused_int8 if bf16
+             else attention.attention_decode_paged_fused_float_int8)
+    writes = (pkv.paged_kv_write_quant, pkv.paged_kv_write_quant_float,
+              pkv.paged_update_at_layer)
+    n0, h0 = fused.launches, [w.launches for w in writes]
+    got, _, _ = attention.attention_decode_paged_fused(
+        q, kn, vn, c.k, c.v, q_start, kv_len, 1, table=c.block_table,
+        window=window, kernels="cuda", **_planes(c))
+    assert fused.launches == n0 + 1
+    assert [w.launches for w in writes] == h0
+    pkv.paged_update_at_layer(split, 1, kn, vn, q_start, kv_len - q_start,
+                              kernels="cuda")
+    want = attention.attention_decode(q, split.k, split.v, q_start, kv_len,
+                                      1, table=c.block_table, window=window,
+                                      kernels="cuda", **_planes(split))
+    plain, _, _ = attention.attention_decode_paged_fused_torch(
+        q, kn, vn, clean.k, clean.v, q_start, kv_len, 1, table=table,
+        window=window, **_planes(clean))
+    torch.cuda.synchronize()
+    for name in ("k", "v", "k_scale", "v_scale"):
+        assert _bits_equal(getattr(c, name), getattr(split, name)), name
+        mine, ref = getattr(c, name)[:, 1:], getattr(clean, name)[:, 1:]
+        assert torch.equal(mine.nan_to_num(), ref), name
+    assert _bits_equal(got, want)
+    rows = [b for b in range(B) if b != neg]
+    if bf16:
+        assert torch.isfinite(got[rows]).all()
+        torch.testing.assert_close(got[rows], plain[rows], **TOL)
+    else:
+        _held_float(got[rows], plain[rows], dtype)
 
 
 def _nan_tailed(t):

@@ -1,21 +1,24 @@
 """The launch geometry of the K/V row writes, on the CPU: the plans that
-``csrc/kv_write_quant.cu`` (kernel I and kernel H's int8 mode) and
+``csrc/kv_write_quant.cu`` (kernel I and kernel H's int8 mode, and
+their float instance If over float16 and float32 rows) and
 ``csrc/kv_write.cu`` (kernels C and H, bf16) make on the host, through
 their Python mirrors ``ops.kv_cache.write_quant_plan`` and
 ``ops.kv_cache.write_plan`` (card tests hold each mirror equal to the
 built library's). The tests walk each plan's blocks, thread slots and
 rows a thread as the kernels do, and hold that every live row is taken
 exactly once: for the int8 write at every head dim the kernel is built
-for and every K of the repository's presets; for the bf16 copy at the
+for, in each row dtype, and every K of the repository's presets; for the bf16 copy at the
 draft's, tp = 2's and llama2-7b's rows, every head dim at K 8 and an
 f32 row of 16 KB."""
 
 import numpy as np
 import pytest
+import torch
 
 from llm_inference_engine_tpu_torch.config import PRESETS
 from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
-from llm_inference_engine_tpu_torch.ops._native import HEAD_DIMS
+from llm_inference_engine_tpu_torch.ops._native import (
+    FLOAT_HEAD_DIMS, HEAD_DIMS)
 
 PRESET_KS = sorted({c.num_kv_heads for c in PRESETS.values()})
 # T: a decode row, a ragged chunk, the paged chunk, the slot chunk
@@ -31,15 +34,16 @@ def _new_len(B, T, seed):
     return n
 
 
-@pytest.mark.parametrize("T", WRITE_TS)
-@pytest.mark.parametrize("K", PRESET_KS)
-@pytest.mark.parametrize("D", HEAD_DIMS)
-def test_write_quant_plan_takes_each_live_row_once(D, K, T):
+def _walk_write_quant_plan(D, K, T, dtype):
     B = 16 if T == 1 else 8
-    p = kvc.write_quant_plan(B, T, K, D)
+    p = kvc.write_quant_plan(B, T, K, D, dtype)
     lanes, rb = p["lanes"], p["rows_per_block"]
-    # a row's 16-value pieces of 32 bytes fit one aligned group of lanes
-    assert lanes in (4, 8, 16) and -(-D // 16) <= lanes
+    # a row's pieces of 32 bytes a lane (16 values of a 2-byte dtype, 8 of
+    # f32) fit one aligned group of lanes, a power of two, no larger than
+    # the row needs
+    per_lane = 32 // torch.empty((), dtype=dtype).element_size()
+    need = -(-D // per_lane)
+    assert lanes & (lanes - 1) == 0 and need <= lanes < 2 * need
     assert p["threads"] % 32 == 0 and rb * lanes == p["threads"]
     assert p["blocks_y"] == B
     assert p["blocks_x"] * rb >= 2 * T * K > (p["blocks_x"] - 1) * rb
@@ -52,6 +56,31 @@ def test_write_quant_plan_takes_each_live_row_once(D, K, T):
         taken = r[(x * rb < live) & (r < live)]
         assert np.array_equal(np.unique(taken), np.arange(live)), b
         assert (np.bincount(taken, minlength=live) == lanes).all(), b
+    return lanes
+
+
+@pytest.mark.parametrize("T", WRITE_TS)
+@pytest.mark.parametrize("K", PRESET_KS)
+@pytest.mark.parametrize("D", HEAD_DIMS)
+def test_write_quant_plan_takes_each_live_row_once(D, K, T):
+    """Kernel I's bf16 rows: 4, 8, 8, 8 or 16 lanes a row."""
+    assert _walk_write_quant_plan(D, K, T, torch.bfloat16) in (4, 8, 16)
+
+
+@pytest.mark.parametrize("T", WRITE_TS)
+@pytest.mark.parametrize("K", PRESET_KS)
+@pytest.mark.parametrize("D", FLOAT_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32], ids=str)
+def test_float_write_quant_plan_takes_each_live_row_once(dtype, D, K, T):
+    """Kernel If, I's instance over float16 and float32 rows: a float16
+    row takes the lanes of a bf16 row of its head dim (1 at D = 16), a
+    float32 row twice as many."""
+    lanes = _walk_write_quant_plan(D, K, T, dtype)
+    if dtype == torch.float16 and D in HEAD_DIMS:
+        assert lanes == kvc.write_quant_plan(1, T, K, D)["lanes"]
+    if dtype == torch.float32:
+        assert lanes == 2 * kvc.write_quant_plan(1, T, K, D,
+                                                 torch.float16)["lanes"]
 
 
 # (K, D, bytes a value) of the bf16 copy's rows: tinyllama's rank at tp = 2

@@ -45,7 +45,8 @@ from llm_inference_engine_tpu.runtime.speculative_scheduler import (
 from llm_inference_engine_tpu_torch import cli
 from llm_inference_engine_tpu_torch.config import (
     EngineConfig, SamplingParams, get_config)
-from llm_inference_engine_tpu_torch.models.weights import params_from_numpy
+from llm_inference_engine_tpu_torch.models.weights import (
+    init_dummy_params, params_from_numpy)
 from llm_inference_engine_tpu_torch.parallel import make_mesh
 from llm_inference_engine_tpu_torch.runtime import speculative
 from llm_inference_engine_tpu_torch.runtime.beam_search import (
@@ -192,10 +193,16 @@ def test_prefix_store_ids_and_rows_match_jax(dp, tp, kv):
 
 @pytest.mark.parametrize("dp,tp", MESHES)
 def test_bf16_prefix_store_restores_bit_for_bit(dp, tp):
-    """A bf16 cache under the f32 model: a snapshot taken in each data
-    group restores into every slot bit for bit, shard by shard, and the
-    scheduler's greedy ids with the store equal those without it."""
-    te = _port(0, dp, tp, kv="bfloat16")
+    """A bf16 cache, a bf16 model's (a float cache takes the model's
+    dtype whatever its name, as the JAX engine allocates it): a snapshot
+    taken in each data group restores into every slot bit for bit, shard
+    by shard, and the scheduler's greedy ids with the store equal those
+    without it."""
+    cfg = CFG.replace(dtype_name="bfloat16")
+    te = InferenceEngine(cfg, EngineConfig(kv_cache_dtype_name="bfloat16",
+                                           **KW),
+                         init_dummy_params(cfg, seed=0, device="cpu"),
+                         mesh=make_mesh(dp, tp, devices=[CPU] * (dp * tp)))
     base = _serve(ContinuousBatchingScheduler(te, eos_token_id=None),
                   SamplingParams)
     te.reset()

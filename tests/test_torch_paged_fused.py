@@ -138,8 +138,7 @@ def test_fused_paged_decode_matches_jax_write_then_decode(rng, dtype,
 def test_fused_paged_decode_equals_write_then_attend(rng, window):
     """The plain route is bit for bit the port's two plain steps: kernel
     H's plain write with new_len = kv_len - q_start, then the paged
-    attention (the engine's unfused route, as the int8 pool still runs
-    it)."""
+    attention (the JAX package's order)."""
     B = len(Q_START)
     P = 1 + B * MAXP
     table = torch.from_numpy(rng.permutation(np.arange(1, P)).reshape(
@@ -163,6 +162,51 @@ def test_fused_paged_decode_equals_write_then_attend(rng, window):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+@pytest.mark.parametrize("window", [None, 20])
+def test_fused_int8_paged_decode_equals_write_then_attend(rng, dtype,
+                                                          window):
+    """Over an int8 pool the plain route is bit for bit the port's two
+    plain steps: kernel H's int8 write (snapped scales; If's numerics for
+    float rows) with new_len = kv_len - q_start, then the int8 paged
+    attention; rows whose entry is -1 or that are inactive write nothing,
+    values or scales."""
+    td = DTYPES[dtype][1]
+    B = len(Q_START)
+    P = 1 + B * MAXP
+    table = rng.permutation(np.arange(1, P)).reshape(B, MAXP).astype(
+        np.int32)
+    table[NEG_ROW, Q_START[NEG_ROW] // PAGE] = -1
+    table = torch.from_numpy(table)
+    vals = torch.from_numpy(rng.integers(-127, 128, (L, P, PAGE, K, D),
+                                         dtype=np.int8))
+    sc = torch.from_numpy(rng.uniform(0.01, 0.1, (L, P, PAGE, K)).astype(
+        np.float32))
+    lens = torch.zeros(B, dtype=torch.int32)
+    fused = pkv.PagedKVCache(vals.clone(), -vals, table, lens, sc.clone(),
+                             2 * sc)
+    split = pkv.PagedKVCache(vals.clone(), -vals, table, lens, sc.clone(),
+                             2 * sc)
+    q_start = torch.tensor(Q_START, dtype=torch.int32)
+    kv_len = q_start + torch.tensor(ACTIVE, dtype=torch.int32)
+    q, kn, vn = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+        td) for s in ((B, 1, H, D), (B, 1, K, D), (B, 1, K, D)))
+    got, k_out, _ = attention.attention_decode_paged_fused(
+        q, kn, vn, fused.k, fused.v, q_start, kv_len, 1, table=table,
+        window=window, k_scale=fused.k_scale, v_scale=fused.v_scale)
+    assert k_out is fused.k and got.dtype == td
+    pkv.paged_update_at_layer(split, 1, kn, vn, q_start, kv_len - q_start)
+    want = attention.attention_decode(
+        q, split.k, split.v, q_start, kv_len, 1, table=table, window=window,
+        k_scale=split.k_scale, v_scale=split.v_scale)
+    for a, b in ((fused.k, split.k), (fused.v, split.v),
+                 (fused.k_scale, split.k_scale),
+                 (fused.v_scale, split.v_scale)):
+        assert torch.equal(a, b)
+    assert not torch.equal(fused.k_scale, sc)        # the token was written
+    assert torch.equal(got, want)
+
+
 def test_fused_paged_decode_refuses_bad_input_on_the_kernel_route():
     c = pkv.new_paged_kv_cache(1, 2, K, 5, PAGE, D, 2, dtype=torch.bfloat16)
     q = torch.zeros((2, 1, H, D), dtype=torch.bfloat16)
@@ -175,19 +219,19 @@ def test_fused_paged_decode_refuses_bad_input_on_the_kernel_route():
 
 
 def test_fused_paged_decode_gate():
-    """bf16, float16 and float32 pools at T == 1 only: the int8 pool keeps
-    H's int8 mode (or If) and the attend-only decode, a float64 pool has
-    no instance, and the slot gate stays slot-only."""
+    """bf16, float16, float32 and int8 pools at T == 1 only: a float64
+    pool has no instance, and the slot gate stays slot-only."""
     pools = {dt: pkv.new_paged_kv_cache(1, 2, K, 5, PAGE, D, 2, dtype=dt)
              for dt in (torch.bfloat16, torch.float16, torch.float32,
                         torch.float64)}
     int8 = pkv.new_paged_kv_cache(1, 2, K, 5, PAGE, D, 2, quantized=True)
     slot = kvc.new_kv_cache(1, 2, K, 32, D, dtype=torch.bfloat16)
-    for dt in (torch.bfloat16, torch.float16, torch.float32):
-        assert attention.can_fuse_paged_decode((2, 1, H, D), pools[dt])
-        assert not attention.can_fuse_paged_decode((2, 3, H, D), pools[dt])
-        assert not attention.can_fuse_decode((2, 1, H, D), pools[dt])
-    for other in (int8, pools[torch.float64], slot):
+    for pool in (pools[torch.bfloat16], pools[torch.float16],
+                 pools[torch.float32], int8):
+        assert attention.can_fuse_paged_decode((2, 1, H, D), pool)
+        assert not attention.can_fuse_paged_decode((2, 3, H, D), pool)
+        assert not attention.can_fuse_decode((2, 1, H, D), pool)
+    for other in (pools[torch.float64], slot):
         assert not attention.can_fuse_paged_decode((2, 1, H, D), other)
 
 
@@ -203,10 +247,14 @@ def _counting(monkeypatch, module, name, counts):
 @pytest.mark.parametrize("int8", [False, True])
 def test_paged_engine_decode_route(monkeypatch, int8):
     """A paged engine's prefill writes through H and its decode steps
-    through the fused paged decode alone: L a step, no H; its greedy ids
-    equal the slot engine's of the same dtype. So for bf16, float16 and
-    float32 models (kernel D, or Df). An int8 pool keeps H's int8 mode (If
-    for float rows) and the attend-only decode a layer a step."""
+    through the fused paged decode alone: L a step, no H. So for bf16,
+    float16 and float32 models (kernel D, or Df), over a pool of the
+    model's dtype or an int8 pool. Its greedy ids equal the slot engine's
+    of the same dtype, or, over an int8 pool (snapped scales, where the
+    CPU's slot cache quantizes absmax), those of the same pool decoding
+    in the JAX package's order: H's int8 write, then the attend-only
+    decode."""
+    from llm_inference_engine_tpu_torch.models import llama
     for dtype in ("bfloat16", "float16", "float32"):
         cfg = _DEBUG.replace(dtype_name=dtype)
         params = init_dummy_params(cfg, seed=0)
@@ -232,13 +280,21 @@ def test_paged_engine_decode_route(monkeypatch, int8):
             for _ in range(4):
                 toks = paged.decode_step(toks, active, sp)
                 ids.append(toks.tolist())
-        if int8:
-            assert counts == {"paged_update_at_layer": 4 * L,
-                              "attention_paged_torch": 4 * L}, dtype
-            continue
         # the fused route's plain version calls the plain attention itself
         assert counts == {"attention_decode_paged_fused_torch": 4 * L,
                           "attention_paged_torch": 4 * L}, dtype
+        if int8:
+            with monkeypatch.context() as mp:
+                mp.setattr(llama, "can_fuse_paged_decode",
+                           lambda *args: False)
+                split = InferenceEngine(cfg, eng, params)
+                toks = split.prefill(prompts).argmax(-1).to(torch.int32)
+                want = [toks.tolist()]
+                for _ in range(4):
+                    toks = split.decode_step(toks, active, sp)
+                    want.append(toks.tolist())
+            assert ids == want, dtype
+            continue
         slot = InferenceEngine(cfg, eng.replace(kv_layout="slot"), params)
         toks = slot.prefill(prompts).argmax(-1).to(torch.int32)
         want = [toks.tolist()]

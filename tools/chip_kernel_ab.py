@@ -32,9 +32,10 @@ wrappers every tree has.
 ``--rows writes`` times the K/V row writes instead, and only them: kernel
 C at phase 3's chunk, H and its int8 mode at 3c's mixed step (520 rows,
 cold, then under a clean flush) and at decode shape (B = 8 and 16, cold),
-I at the 8 x 512 and 8 x 64 chunks (warm), each beside its floor (one
-``copy_`` of the same live rows), through this checkout's
-``chip_smoke.write_rows``. The floors run the same code in both trees,
+I at the 8 x 512 and 8 x 64 chunks (warm), If (float16 and float32
+rows) at 8 x 512 into the slot cache and at the 520-row mixed step
+through the table (warm), each beside its floor (one ``copy_`` of the
+same live rows), through this checkout's ``chip_smoke.write_rows``. The floors run the same code in both trees,
 so their change / parent ratios show the noise.
 
 ``--rows prefill`` times one warm prefill of llama2-7b INT4 (4b's
@@ -46,21 +47,24 @@ K/V writes' ms of it (torch.profiler), through this checkout's
 ``--rows float`` times the float16 and float32 instances D2f, Df, Ef and
 Ff instead, and only them, at phase 3f's shapes (the prefill over the
 slot cache and through the table, the fused slot decode, the attend-only
-paged decode; Ef and Ff at m 8 and 512 on wqkv and down), through this
-checkout's ``chip_smoke.float_attention_rows`` and
+paged decode; a decode step's K/V work over an int8 pool at B 16 in
+float16, float32 and bf16 by the route each tree's engine takes; Ef and
+Ff at m 8 and 512 on wqkv and down), through this checkout's
+``chip_smoke.float_attention_rows`` and
 ``chip_smoke.float_matmul_rows``, which call only the wrappers every tree
 has.
 
 ``--rows norm`` times kernels A (plain and with a residual) and B at
 decode shape ([8, 4096], [8, 22016]: 64 calls in a CUDA graph, CUDA
 events over its replays) and at prefill shape ([2048, 4096] cold,
-[2048, 22016]), and the wall and card busy of 4b's, 4c's and 4d's
+[2048, 22016]), and the wall and card busy of 4b's, 4c's, 4d's and 4h's
 replayed decode step (llama2-7b INT4 and INT8, B = 8; 4d: INT4 over a
-bf16 pool of pages of 64) with its kernels' durations a step (all, kernel
-D's and the K/V writes'), through this checkout's
-``chip_smoke.norm_rows``, with the count of the card's activities in
-one replayed step; it also prints whether checksums of A's and B's
-outputs and of 4b's, 4c's and 4d's greedy ids are equal in every run.
+bf16 pool of pages of 64; 4h: over an int8 pool) with its kernels'
+durations a step (all, kernel D's and the K/V writes'), through this
+checkout's ``chip_smoke.norm_rows``, with the count of the card's
+activities in one replayed step; it also prints whether checksums of
+A's and B's outputs and of 4b's, 4c's, 4d's and 4h's greedy ids are
+equal in every run.
 """
 
 from __future__ import annotations
