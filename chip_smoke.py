@@ -161,7 +161,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
       TP_LOGIT_REL_L2 of the one-rank search's, the step's ms and its
       reorder's bytes, the launches exact; (d) E at m = 40 on the tp = 2
       shards and at m = 8 on tinyllama's, D2 at the verify at 16 heads,
-      D at the draft's rank (G = 8, 2 kv heads, head_dim 64), B at
+      D at the draft's rank (G = 8, 2 kv heads, head_dim 64; paged ==
+      slot bit for bit), B at
       [8, 5632], C into the beams' and the draft's local caches, NaN past
       every end, against the plain versions, timed with bound and
       library call;
@@ -197,10 +198,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
       slot's length equal to the history after it);
    l. speculative decoding and beam search (after 4k): first the kernels
       at the shapes these paths add (E and F at m = 40, the verify's
-      projections and its f32 lm_head; D2 at T = 5 in chunk mode; at
-      tinyllama-1.1b's widths, B = 8: E's decode mode, D's fused decode
-      at G = 8 and head_dim 64, A and B), each against its plain
-      version with its time, bound and library call; then llama2-7b
+      projections and its f32 lm_head, NaN past every tail, with their
+      plans; D2 at T = 5 in chunk mode; at tinyllama-1.1b's widths, B =
+      8: E's decode mode, D's fused decode at G = 8 and head_dim 64 with
+      its plan, paged == slot bit for bit, A and B), each against its
+      plain version with its time, bound and library call; then llama2-7b
       INT4 at 4b's engine config with a tinyllama-1.1b INT4 draft of
       the same config, k = 4, every launch counter set to 0 just before
       and read just after: (a) greedy generate of 64 tokens over 4b's
@@ -875,6 +877,43 @@ def fused_decode_case(torch, attention, results, case, randn, ints, *, B, H,
     return ms
 
 
+def paged_equals_slot(torch, dev, gen, tag, B, H, K, D, hist,
+                      page: int = 64) -> None:
+    """Kernel D's fused decode over a slot cache and over a pool of page
+    ``page`` (a random page permutation) holding the same rows, at the
+    token positions ``hist``: the two plans split alike and the outputs
+    are equal bit for bit (a paged engine reproduces a slot engine)."""
+    from llm_inference_engine_tpu_torch.ops import attention
+    S = 2048
+    maxp, P = S // page, 1 + B * (S // page)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+    kc, vc = randn(2, B, S, K, D), randn(2, B, S, K, D)
+    kp, vp = randn(2, P, page, K, D), randn(2, P, page, K, D)
+    table = (torch.randperm(P - 1, generator=gen, device=dev) + 1).to(
+        torch.int32).reshape(B, maxp)
+    for pool, slot in ((kp, kc), (vp, vc)):
+        pool[1][table.long()] = slot[1].view(B, maxp, page, K, D)
+    q, kn, vn = randn(B, 1, H, D), randn(B, 1, K, D), randn(B, 1, K, D)
+    qs = torch.tensor(hist, dtype=torch.int32, device=dev)
+    kl = qs + 1
+    slot = attention.attention_decode_fused(q, kn, vn, kc, vc, qs, kl, 1,
+                                            kernels="cuda")[0]
+    paged = attention.attention_decode_paged_fused(
+        q, kn, vn, kp, vp, qs, kl, 1, table=table, kernels="cuda")[0]
+    torch.cuda.synchronize()
+    plans = [attention.decode_plan(B, H, K, D, **kw)["nsplit"]
+             for kw in ({}, dict(page=page, max_pages=maxp))]
+    same = torch.equal(slot, paged)
+    say(f"  attention_decode {tag} B{B} H{H} K{K} D{D}: paged (page {page}) "
+        f"== slot bit for bit: {same}; nsplit slot / paged {plans}")
+    if not same or plans[0] != plans[1]:
+        raise AssertionError(f"attention_decode {tag}: the paged decode "
+                             "differs from the slot decode")
+
+
 def decode_shape_rows(torch, dev, hidden: int = 4096,
                       inter: int = 11008) -> dict:
     """Kernels A, A with residual and B at the decode shape of 4b (B = 8:
@@ -1159,12 +1198,14 @@ def phase_kernels(torch, dev, results) -> None:
 
 # Kernels E and F in phase 3b: (k, n, halves) of Llama2-7B's quantized
 # projections, and the timed rows (m, projection): a decode layer and the
-# lm_head at the engine's m = 8, the server's B = 16 step (wo and down,
-# the n = 4096 projections), and the 8 x 64 prefill tail (m = 512)
+# lm_head at the engine's m = 8, the server's B = 16 step and generate at
+# B = 32 (wo and down, the n = 4096 projections; m 32 takes the decode
+# mode's 32-row tile), and the 8 x 64 prefill tail (m = 512)
 QUANT_SHAPES = {"wqkv": (4096, 12288, 1), "wo": (4096, 4096, 1),
                 "gate|up": (4096, 11008, 2), "down": (11008, 4096, 1),
                 "lm_head": (4096, 32000, 1)}
-QUANT_ROWS = ([(8, p) for p in QUANT_SHAPES] + [(16, "wo"), (16, "down")]
+QUANT_ROWS = ([(8, p) for p in QUANT_SHAPES] + [(16, "wo"), (16, "down"),
+                                                (32, "wo"), (32, "down")]
               + [(512, p) for p in ("wqkv", "wo", "gate|up", "down")])
 
 
@@ -3390,6 +3431,14 @@ def check_decode_step_launches(label, steps, layers, int8=False,
                              "forward")
 
 
+def bits_checksum(torch, values) -> float:
+    """Position-weighted sum of integers (bf16 bit patterns, ids): equal in
+    two trees where their bits are."""
+    v = torch.cat([t.reshape(-1).to(torch.int64) for t in values])
+    weights = torch.arange(v.numel(), device=v.device) % 65521 + 1
+    return float((v * weights).sum().item())
+
+
 def norm_rows(torch, dev) -> dict:
     """Kernels A, A with residual and B timed, no checks beyond 3e's: at
     decode shape (``decode_shape_rows``: 64 calls in a CUDA graph, CUDA
@@ -3408,12 +3457,6 @@ def norm_rows(torch, dev) -> dict:
     (KERNEL_GROUPS). 4h's (4d over an int8 pool) likewise.
     ``tools/chip_kernel_ab.py --rows norm`` times another tree through
     this function, so it calls only what every tree has."""
-
-    def checksum(values) -> float:
-        """Position-weighted sum of integers (bf16 bit patterns, ids)."""
-        v = torch.cat([t.reshape(-1).to(torch.int64) for t in values])
-        weights = torch.arange(v.numel(), device=v.device) % 65521 + 1
-        return float((v * weights).sum().item())
     import numpy as np
 
     from llm_inference_engine_tpu_torch.config import (
@@ -3436,11 +3479,11 @@ def norm_rows(torch, dev) -> dict:
         cold=True)
     out["silu_and_mul prefill"] = time_ms(
         torch, lambda: activations.silu_and_mul(gu, kernels="cuda"))
-    out["A, A with residual, B outputs checksum"] = checksum(
+    out["A, A with residual, B outputs checksum"] = bits_checksum(torch, [
         t.view(torch.int16) for t in (
             rmsnorm.rmsnorm(x, w, kernels="cuda"),
             *rmsnorm.add_residual_rmsnorm(x, r, w, kernels="cuda"),
-            activations.silu_and_mul(gu, kernels="cuda")))
+            activations.silu_and_mul(gu, kernels="cuda"))])
     del x, r, gu
     rng = np.random.default_rng(0)
     prompts = [rng.integers(3, 32000, n).tolist() for n in QUANT_PROMPTS]
@@ -3467,8 +3510,8 @@ def norm_rows(torch, dev) -> dict:
             ids.append(toks)
         torch.cuda.synchronize()
         out[f"{tag} replayed step wall"] = (time.perf_counter() - t0) / 32 * 1e3
-        out[f"{tag} greedy ids checksum"] = checksum(
-            [torch.tensor(res.token_ids, device=dev), *ids])
+        out[f"{tag} greedy ids checksum"] = bits_checksum(
+            torch, [torch.tensor(res.token_ids, device=dev), *ids])
         prof = device_profile(
             torch, lambda: engine.decode_step(toks, active, sp), 4)
         out[f"{tag} replayed step busy"] = prof.busy
@@ -3480,6 +3523,141 @@ def norm_rows(torch, dev) -> dict:
             out[f"{tag} replayed step {g}"] = groups[g]
         del engine
         torch.cuda.empty_cache()
+    return out
+
+
+def spec_rows(torch, dev) -> dict:
+    """The speculative round's kernels and the round itself, for
+    ``tools/chip_kernel_ab.py --rows spec`` (only what every tree has):
+    kernel D's fused decode at the draft's shapes (4l: tinyllama B 8, 32 q
+    heads over 4 kv heads, head_dim 64; 4q: its tp = 2 rank, 16 over 2;
+    4l's contexts) and at GQA_WIDTHS (``gqa_decode_cases``); E and F at
+    the verify's m = 40 on QUANT_SHAPES and E at the draft's m = 8 on
+    TINY_SHAPES and TINY_TP2_SHAPES (weights cycled past the L2); a
+    checksum of D's outputs at the G = 1 shapes of 4a (B 4, 4a's prompt
+    lengths + 40), 4b (B 8, 4b's decode contexts), 4d (over a pool of
+    page 64) and 4h (an int8 pool), equal in two trees where their bits
+    are; then 4l (a)'s
+    replayed round (llama2-7b INT4 target, tinyllama-1.1b INT4 draft, B 8,
+    k = 4): its wall over 8 rounds and the card's busy ms with its groups
+    (KERNEL_GROUPS) over 4 profiled rounds."""
+    import numpy as np
+
+    from llm_inference_engine_tpu_torch.config import EngineConfig
+    from llm_inference_engine_tpu_torch.models.registry import create_engine
+    from llm_inference_engine_tpu_torch.ops import attention, quant
+    from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
+    from llm_inference_engine_tpu_torch.runtime.speculative import (
+        SpeculativeDecoder)
+    gen = torch.Generator(device=dev).manual_seed(4243)
+    out = {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    def ints(vals):
+        return torch.tensor(vals, dtype=torch.int32, device=dev)
+    B, S = 8, 2048
+    starts = [n + 40 for n in QUANT_PROMPTS]
+    for tag, H, K, D in (("4l tinyllama", 32, 4, 64),
+                         ("4q tinyllama tp2", 16, 2, 64)):
+        cache = kvc.new_kv_cache(2, B, K, S, D, device=dev)
+        cache.k.copy_(randn(2, B, S, K, D))
+        cache.v.copy_(randn(2, B, S, K, D))
+        q, kn, vn = randn(B, 1, H, D), randn(B, 1, K, D), randn(B, 1, K, D)
+        qs = ints(starts)
+        out[f"attention_decode {tag}"] = time_ms(
+            torch, lambda: attention.attention_decode_fused(
+                q, kn, vn, cache.k, cache.v, qs, qs + 1, 1,
+                kernels="cuda"), iters=20)
+        del cache
+    out.update(gqa_decode_cases(torch, dev, {}))
+    cases = [(mode, 8 * (SPEC_K + 1), label, QUANT_SHAPES, "verify")
+             for mode in ("int4", "int8") for label in QUANT_SHAPES]
+    cases += [("int4", 8, label, shapes, tag)
+              for shapes, tag in ((TINY_SHAPES, "tinyllama"),
+                                  (TINY_TP2_SHAPES, "tinyllama tp2"))
+              for label in shapes]
+    for mode, m, label, shapes, tag in cases:
+        k, n, halves = shapes[label]
+        dt = torch.float32 if label == "lm_head" else torch.bfloat16
+        ts = quant_weights(torch, quant, dev, gen, mode, k, n, halves,
+                           120_000_000)
+        x = randn(m, k)
+        out[f"{mode}_matmul {tag} m{m} {label}"] = time_ms(torch, cycling(
+            ts, lambda t: fused_matmul(quant, t, x, dt, "cuda")), iters=20)
+        del ts
+    torch.cuda.empty_cache()
+
+    # D's bits at G = 1: 4a, 4b (slot), 4d (pool), 4h (int8 pool)
+    def checksum(t) -> float:
+        return bits_checksum(torch, [t.view(torch.int16)])
+    H = K = 32
+    D, page = 128, 64
+    hist4b = [p + 16 + f + 16 for p, f in zip(QUANT_PROMPTS, QUANT_FOLLOW)]
+    for tag, Bx, hist in (("4a", 4, [7 + 40, 129 + 40, 384 + 40, 700 + 40]),
+                          ("4b", 8, hist4b)):
+        cache = kvc.new_kv_cache(2, Bx, K, S, D, device=dev)
+        cache.k.copy_(randn(2, Bx, S, K, D))
+        cache.v.copy_(randn(2, Bx, S, K, D))
+        q, kn, vn = randn(Bx, 1, H, D), randn(Bx, 1, K, D), randn(Bx, 1, K, D)
+        qs = ints(hist)
+        got = attention.attention_decode_fused(q, kn, vn, cache.k, cache.v,
+                                               qs, qs + 1, 1,
+                                               kernels="cuda")[0]
+        out[f"D {tag} output checksum"] = checksum(got)
+        del cache
+    maxp, P = S // page, 1 + B * S // page
+    for tag, int8 in (("4d", False), ("4h", True)):
+        table = (torch.randperm(P - 1, generator=gen, device=dev) + 1).to(
+            torch.int32).reshape(B, maxp)
+        q, kn, vn = randn(B, 1, H, D), randn(B, 1, K, D), randn(B, 1, K, D)
+        qs = ints(hist4b)
+        if int8:
+            kp = torch.randint(-127, 128, (2, P, page, K, D), generator=gen,
+                               device=dev, dtype=torch.int8)
+            vp = torch.randint(-127, 128, (2, P, page, K, D), generator=gen,
+                               device=dev, dtype=torch.int8)
+            ks = torch.rand((2, P, page, K), generator=gen, device=dev) / 64
+            vs = torch.rand((2, P, page, K), generator=gen, device=dev) / 64
+            got = attention.attention_decode_paged_fused(
+                q, kn, vn, kp, vp, qs, qs + 1, 1, table=table,
+                k_scale=ks, v_scale=vs, kernels="cuda")[0]
+        else:
+            kp, vp = randn(2, P, page, K, D), randn(2, P, page, K, D)
+            got = attention.attention_decode_paged_fused(
+                q, kn, vn, kp, vp, qs, qs + 1, 1, table=table,
+                kernels="cuda")[0]
+        out[f"D {tag} output checksum"] = checksum(got)
+        del kp, vp
+    torch.cuda.empty_cache()
+
+    # 4l (a)'s replayed round
+    eng_cfg = EngineConfig(quant_mode="int4", max_batch_size=B,
+                           max_seq_len=S)
+    target = create_engine("llama2-7b", None, eng_cfg, seed=0, device=dev)
+    draft = create_engine("tinyllama-1.1b", None, eng_cfg, seed=0,
+                          device=dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(3, 32000, n).tolist() for n in QUANT_PROMPTS]
+    spec = SpeculativeDecoder(target, draft, SPEC_K)
+    res = spec.generate(prompts, SPEC_NEW, eos_token_id=None)   # captures
+    from llm_inference_engine_tpu_torch.config import SamplingParams
+    greedy = target._host_arrays(SamplingParams(greedy=True))
+    last = np.array([t[-1] for t in res.token_ids], np.int32)
+    snap = spec_snapshot(spec)
+    _, out["4l (a) replayed round wall"] = spec_rounds(
+        torch, spec, last, greedy, False, SPEC_ROUNDS, False)
+    spec_restore(spec, snap)
+    prof = device_profile(torch, lambda: spec.run_round(
+        last, np.ones(B, bool), greedy, False), 4)
+    out["4l (a) replayed round busy"] = prof.busy
+    out["4l (a) replayed round activities"] = prof.activities
+    for g, ms in group_ms(prof.per_kernel).items():
+        out[f"4l (a) replayed round {g}"] = ms
+    del spec, target, draft
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4488,7 +4666,7 @@ def spec_kernel_rows(torch, dev, results) -> None:
     for mode in ("int4", "int8"):
         for label in QUANT_SHAPES:
             quant_case(torch, dev, gen, results, mode, m, label,
-                       tag="verify ")
+                       tag="verify ", poison=True)
     for label in TINY_SHAPES:
         quant_case(torch, dev, gen, results, "int4", 8, label, TINY_SHAPES,
                    tag="tinyllama ")
@@ -4543,6 +4721,7 @@ def spec_kernel_rows(torch, dev, results) -> None:
                 library=sdpa_ms(torch, qd, cache.k[1], cache.v[1], qs, kl),
                 row_rel=DECODE_ROW_TOL)
     del cache
+    paged_equals_slot(torch, dev, gen, "tinyllama", B, H, K, D, starts)
     rows = decode_shape_rows(torch, dev, hidden=2048, inter=5632)
     say("  tinyllama A/B at decode shape (ms a call): " + json.dumps(rows))
     torch.cuda.empty_cache()
@@ -6824,6 +7003,7 @@ def mesh_decoding_kernel_rows(torch, dev, results) -> None:
                 library=sdpa_ms(torch, qd, ref.k[1], ref.v[1], qs, kl),
                 row_rel=DECODE_ROW_TOL)
     del c, ref
+    paged_equals_slot(torch, dev, gen, "tinyllama tp2", B, H, K, D, hist)
 
     # B at tinyllama's gate|up a rank
     inter = TINY_TP2_SHAPES["gate|up"][1]

@@ -52,19 +52,22 @@
 //     query heads) is a cluster of `nsplit` blocks along the keys. Block r
 //     takes a contiguous, tile-aligned slice of [lo, hi), computed on the
 //     card from kv_len, q_start and the window, and keeps a softmax state
-//     (m, l, acc) per query head. Rank 0 merges the blocks' states in rank
-//     order through distributed shared memory, so the merge is one launch,
-//     needs no workspace and no atomics, and is deterministic. The split
-//     plan (nsplit, tile) depends on B, K, G, D, the element size and the
-//     SM count only, never on S, the page size or kv_len: tiles start at the slice's lo,
-//     never at a page boundary, so a paged instance sums in the slot
+//     (m, l, acc) per query head. The blocks' states meet through
+//     distributed shared memory, every rank merging a share of the outputs
+//     in rank order (each row's maximum and weights computed once), so the
+//     merge is one launch, needs no workspace and no atomics, and is
+//     deterministic. The split plan (R, nsplit: make_plan) depends on B, K,
+//     G, D, the element size, the SM count and the instance's residency
+//     only, never on S, the page size or kv_len: tiles start at the slice's
+//     lo, never at a page boundary, so a paged instance sums in the slot
 //     instance's order and a paged engine reproduces a slot engine bit for
-//     bit.
+//     bit. At G > 1 the plan keeps the grid's clusters in one wave.
 //   - A cp.async ring of kStages tiles of kKeys keys: the next tile's K/V
 //     (and an int8 tile's scales, in the same group as its values) is in
 //     flight while a tile is consumed. Two stages of 32 keys, with about
-//     kTargetBlocksPerSm = 8 blocks an SM in the grid, timed fastest on
-//     the H100 of the plans tried (tools/decode_plan_sweep.py, PERF.md):
+//     kTargetBlocksPerSm = 8 blocks an SM in the grid at G = 1, timed
+//     fastest on the H100 of the plans tried (PERF.md; G > 1:
+//     tools/plan_sweep.py):
 //     small blocks keep 6 (bf16, f16) or 10 (int8) of them resident an
 //     SM; an f32 tile holds twice the bytes and 3 blocks fit an SM at
 //     D = 128, so f32 aims at half as many blocks an SM.
@@ -139,6 +142,7 @@ struct Params {
   int rows;                      // R: query heads a block (1, 4 or 8)
   int row_blocks;                // blocks of R query heads per kv head
   int table_max;                 // table entries a slice can span (PAGED)
+                                 // (these four: the plan, set by run)
   float scale_log2;              // sm_scale * log2(e)
   int window;                    // 0 = no sliding window
   int snapped;                   // INT8 && WRITE_NEW: snapped scale numerics
@@ -569,50 +573,143 @@ attention_decode_kernel(const Params<E> p) {
     blk[r * kSt + d] = v;
   }
 
-  // rank 0 merges the cluster's states in rank order and writes out
+  // the cluster's merge, spread over its ranks: rank r writes a share of
+  // the nrows x D outputs (row-major); each row it touches gets its maximum,
+  // its ranks' weights e_s = exp2(m_s - max) and its sum l = sum_s l_s e_s
+  // once, in rank order, in the space of the warps' states (no rank reads
+  // it remotely); then every output sums a_s e_s over ranks 0, 1, ... in
+  // order, the arithmetic of a merge by one rank, so the bits do not
+  // depend on which rank writes
   cluster.sync();
-  if (rank == 0) {
-    for (int x = tid; x < nrows * D; x += kThreads) {
-      const int r = x / D;
-      const int d = x % D;
-      float mx = -INFINITY;
-      for (int s = 0; s < p.nsplit; ++s)
-        mx = fmaxf(mx, cluster.map_shared_rank(blk, s)[r * kSt + D]);
-      float o = 0.f;
-      if (mx != -INFINITY) {
-        float a = 0.f, lsum = 0.f;
-        for (int s = 0; s < p.nsplit; ++s) {
-          const float* src = cluster.map_shared_rank(blk, s) + r * kSt;
-          const float e = exp2f(src[D] - mx);
-          a += src[d] * e;
-          lsum += src[D + 1] * e;
-        }
-        o = lsum > 0.f ? a / lsum : 0.f;
+  {
+    const int n_out = nrows * D;
+    const int share = (n_out + p.nsplit - 1) / p.nsplit;
+    const int x0 = min(rank * share, n_out);
+    const int x1 = min(x0 + share, n_out);
+    if (x1 > x0) {                                      // block-uniform
+      const int ra = x0 / D;
+      const int nr = (x1 - 1) / D - ra + 1;             // rows touched
+      float* wts = st_w;                                // [nr][kMaxSplit]
+      float* ls = wts + R * kMaxSplit;                  // [nr][kMaxSplit]
+      float* row_m = ls + R * kMaxSplit;                // [nr]
+      float* row_l = row_m + R;                         // [nr]
+      for (int y = tid; y < nr * p.nsplit; y += kThreads) {
+        const int rr = y / p.nsplit;
+        const int s = y % p.nsplit;
+        const float* src = cluster.map_shared_rank(blk, s) + (ra + rr) * kSt;
+        wts[rr * kMaxSplit + s] = src[D];
+        ls[rr * kMaxSplit + s] = src[D + 1];
       }
-      p.out[((size_t)b * p.H + kh * p.G + r0 + r) * D + d] = from_f32<E>(o);
+      __syncthreads();
+      for (int rr = tid; rr < nr; rr += kThreads) {
+        float mx = -INFINITY;
+        for (int s = 0; s < p.nsplit; ++s)
+          mx = fmaxf(mx, wts[rr * kMaxSplit + s]);
+        float lsum = 0.f;
+        if (mx != -INFINITY) {
+          for (int s = 0; s < p.nsplit; ++s) {
+            const float e = exp2f(wts[rr * kMaxSplit + s] - mx);
+            wts[rr * kMaxSplit + s] = e;
+            lsum += ls[rr * kMaxSplit + s] * e;
+          }
+        }
+        row_m[rr] = mx;
+        row_l[rr] = lsum;
+      }
+      __syncthreads();
+      for (int x = x0 + tid; x < x1; x += kThreads) {
+        const int r = x / D;
+        const int d = x % D;
+        const int rr = r - ra;
+        float o = 0.f;
+        if (row_m[rr] != -INFINITY) {
+          float a = 0.f;
+#pragma unroll
+          for (int s = 0; s < kMaxSplit; ++s) {
+            if (s < p.nsplit) {
+              const float e = wts[rr * kMaxSplit + s];
+              a += cluster.map_shared_rank(blk, s)[r * kSt + d] * e;
+            }
+          }
+          const float lsum = row_l[rr];
+          o = lsum > 0.f ? a / lsum : 0.f;
+        }
+        p.out[((size_t)b * p.H + kh * p.G + r0 + r) * D + d] = from_f32<E>(o);
+      }
     }
   }
-  cluster.sync();    // every block's state stays until rank 0 has read it
+  cluster.sync();    // every block's state stays until every rank has read it
 }
 
-// The split plan: blocks of R query heads per kv head (R = 1 at G = 1, 4
-// up to G = 4, else 8: a block's registers grow with R, so a small group
-// keeps more blocks resident), and nsplit blocks along the keys so that
-// the grid holds about kTargetBlocksPerSm blocks an SM (half as many for
-// f32, whose tiles take twice the shared memory). A function of B, K, G,
-// the element size and the SM count only.
+// The split plan: blocks of R query heads per kv head and nsplit blocks
+// along the keys. A function of B, K, G, the element size, the SM count
+// and the compiled instance (its residency) only, never of S, the page
+// size or kv_len.
+//   - G = 1 (R = 1): nsplit so that the grid holds about
+//     kTargetBlocksPerSm blocks an SM (half as many for f32, whose tiles
+//     take twice the shared memory).
+//   - G > 1: each candidate R (4 up to G = 4; else 8, then 4: a block's
+//     registers grow with R, so a smaller R keeps more blocks resident)
+//     takes the largest nsplit, up to that target, whose grid of
+//     B * K * ceil(G / R) clusters the card holds in one wave
+//     (`clusters[R][n]`, cudaOccupancyMaxActiveClusters of R's slot
+//     instance; nsplit 1 where no split fits one wave); the candidate
+//     with the most blocks wins, the first on a tie. A short context
+//     split over a second wave waits for it: at B 8, K 4, G 8, D 64 the
+//     old plan's 32 clusters of 8 met 30 resident ones.
+// The paged instances take their slot instance's residency, so a paged
+// launch splits as the slot one and a paged engine reproduces a slot
+// engine bit for bit.
 struct Plan {
   int rows, row_blocks, nsplit;
 };
 
-Plan make_plan(int B, int K, int G, int esize, int sms) {
-  Plan pl;
-  pl.rows = G == 1 ? 1 : G <= 4 ? 4 : 8;
-  pl.row_blocks = (G + pl.rows - 1) / pl.rows;
-  const long long clusters = (long long)B * K * pl.row_blocks;
+// clusters[0][n]: clusters of n blocks of the R = 4 slot instance the card
+// holds at once; clusters[1][n]: of the R = 8 one (n = 1 .. kMaxSplit)
+typedef int Residency[2][kMaxSplit + 1];
+constexpr int kReport = 5 + 2 * kMaxSplit;
+
+#ifdef PLAN_SWEEP
+// tools/plan_sweep.py: a forced plan (rows 0: none)
+int g_force_rows = 0, g_force_nsplit = 0;
+#endif
+
+Plan make_plan(int B, int K, int G, int esize, int sms,
+               const Residency& clusters) {
+  Plan pl{};
   const long long want = (long long)kTargetBlocksPerSm * 2 / esize * sms;
-  pl.nsplit = (int)max(1ll, min((long long)kMaxSplit,
-                                (want + clusters / 2) / max(clusters, 1ll)));
+  auto target = [&](long long c) {
+    return (int)max(1ll, min((long long)kMaxSplit,
+                             (want + c / 2) / max(c, 1ll)));
+  };
+  if (G == 1) {
+    pl.rows = 1;
+    pl.row_blocks = 1;
+    pl.nsplit = target((long long)B * K);
+  } else {
+    long long best = -1;
+    const int cands[2] = {G <= 4 ? 4 : 8, 4};
+    for (int i = 0; i < (G <= 4 ? 1 : 2); ++i) {
+      const int R = cands[i];
+      const int rb = (G + R - 1) / R;
+      const long long c = (long long)B * K * rb;
+      int n = target(c);
+      while (n > 1 && c > clusters[R == 8][n]) --n;
+      if (c * n > best) {
+        best = c * n;
+        pl.rows = R;
+        pl.row_blocks = rb;
+        pl.nsplit = n;
+      }
+    }
+  }
+#ifdef PLAN_SWEEP
+  if (g_force_rows > 0 && G > 1) {
+    pl.rows = g_force_rows;
+    pl.row_blocks = (G + g_force_rows - 1) / g_force_rows;
+    pl.nsplit = g_force_nsplit;
+  }
+#endif
   return pl;
 }
 
@@ -628,6 +725,66 @@ int sm_count() {
   return sms;
 }
 
+// Allow an instance `smem` bytes of dynamic shared memory on the current
+// device: the largest size allowed yet is kept per device (an attribute
+// set on one device does not reach another).
+template <typename E, int D, int R, bool PAGED, bool INT8, bool WRITE_NEW>
+cudaError_t allow_smem(int smem) {
+  static int smem_set[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices)
+    return cudaErrorInvalidDevice;
+  if (smem <= smem_set[dev]) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      attention_decode_kernel<E, D, R, PAGED, INT8, WRITE_NEW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) smem_set[dev] = smem;
+  return err;
+}
+
+// Clusters of n = 1 .. kMaxSplit blocks of R's slot instance (fused
+// write, no table) that the card holds at once, asked once a device.
+template <typename E, int D, int R, bool INT8>
+cudaError_t slot_clusters(int* out) {
+  static int cache[kMaxDevices][kMaxSplit + 1] = {};   // value + 1
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices)
+    return cudaErrorInvalidDevice;
+  if (cache[dev][1] == 0) {
+    const int smem = Layout<E, D, R, INT8>::kBytes;
+    cudaError_t err = allow_smem<E, D, R, false, INT8, true>(smem);
+    if (err != cudaSuccess) return err;
+    for (int n = 1; n <= kMaxSplit; ++n) {
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(n, 1, 1);
+      cfg.blockDim = dim3(kThreads);
+      cfg.dynamicSmemBytes = smem;
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = n;
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      int c = 0;
+      err = cudaOccupancyMaxActiveClusters(
+          &c, attention_decode_kernel<E, D, R, false, INT8, true>, &cfg);
+      if (err != cudaSuccess) return err;
+      cache[dev][n] = c + 1;
+    }
+  }
+  for (int n = 1; n <= kMaxSplit; ++n) out[n] = cache[dev][n] - 1;
+  out[0] = 0;
+  return cudaSuccess;
+}
+
+template <typename E, int D, bool INT8>
+cudaError_t residency(Residency& r) {
+  cudaError_t err = slot_clusters<E, D, 4, INT8>(r[0]);
+  if (err == cudaSuccess) err = slot_clusters<E, D, 8, INT8>(r[1]);
+  return err;
+}
+
 // Launch one instance with a cluster of nsplit blocks along x; with
 // `report`, launch nothing and report instead {blocks an SM holds,
 // clusters the card holds at once, dynamic shared memory a block}.
@@ -636,18 +793,8 @@ int launch(const Params<E>& p, cudaStream_t stream, int* report) {
   auto kernel = attention_decode_kernel<E, D, R, PAGED, INT8, WRITE_NEW>;
   const int smem =
       Layout<E, D, R, INT8>::kBytes + (PAGED ? 4 * p.table_max : 0);
-  // the largest dynamic shared memory allowed yet, per device: an
-  // attribute set on one device does not reach another
-  static int smem_set[kMaxDevices] = {};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices)
-    return (int)cudaErrorInvalidDevice;
-  if (smem > smem_set[dev]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_set[dev] = smem;
-  }
+  cudaError_t err = allow_smem<E, D, R, PAGED, INT8, WRITE_NEW>(smem);
+  if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.nsplit, p.K * p.row_blocks, p.B);
   cfg.blockDim = dim3(kThreads);
@@ -662,19 +809,47 @@ int launch(const Params<E>& p, cudaStream_t stream, int* report) {
   cfg.numAttrs = 1;
   if (report) {
     report[2] = smem;
-    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &report[0], kernel, kThreads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&report[0], kernel,
+                                                        kThreads, smem);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveClusters(&report[1], kernel, &cfg);
     return (int)err;
   }
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p);
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-// One head_dim: the instance of the plan's query heads a block.
+// One head_dim: the plan (from the slot instances' residency), then the
+// instance of its query heads a block. With `report` (kReport ints),
+// launch nothing and report {blocks an SM holds, clusters the card holds,
+// dynamic shared memory a block, nsplit, query heads a block, then the
+// residency: clusters of n = 1 .. 8 blocks of R = 4's slot instance, then
+// of R = 8's}.
 template <typename E, int D, bool PAGED, bool INT8, bool WRITE_NEW>
-int run(const Params<E>& p, cudaStream_t stream, int* report) {
+int run(Params<E> p, cudaStream_t stream, int* report) {
+  Residency res = {};
+  if (p.G > 1 || report) {   // G = 1 reads no residency
+    const cudaError_t err = residency<E, D, INT8>(res);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const Plan pl = make_plan(p.B, p.K, p.G, (int)sizeof(E), sm_count(), res);
+  p.nsplit = pl.nsplit;
+  p.rows = pl.rows;
+  p.row_blocks = pl.row_blocks;
+  if constexpr (PAGED) {
+    // the most table entries one slice can span
+    const int tiles = (p.page * p.max_pages + kKeys - 1) / kKeys;
+    const int slice = (tiles + p.nsplit - 1) / p.nsplit * kKeys;
+    p.table_max = p.page > 0 ? (slice + p.page - 2) / p.page + 1 : 0;
+  }
+  if (report) {
+    report[3] = p.nsplit;
+    report[4] = p.rows;
+    for (int n = 1; n <= kMaxSplit; ++n) {
+      report[4 + n] = res[0][n];
+      report[4 + kMaxSplit + n] = res[1][n];
+    }
+  }
   switch (p.rows) {
     case 1: return launch<E, D, 1, PAGED, INT8, WRITE_NEW>(p, stream, report);
     case 4: return launch<E, D, 4, PAGED, INT8, WRITE_NEW>(p, stream, report);
@@ -702,24 +877,17 @@ Params<E> make_params(const void* q, void* k_cache, void* v_cache,
   p.kv_len = kv_len;
   p.layer = layer; p.B = B; p.H = H; p.K = K; p.S = S;
   p.G = K > 0 ? H / K : 0;
-  const Plan pl = make_plan(B, K, p.G, (int)sizeof(E), sm_count());
-  p.nsplit = pl.nsplit;
-  p.rows = pl.rows;
-  p.row_blocks = pl.row_blocks;
   p.scale_log2 = sm_scale * kLog2e;
   p.window = window;
   return p;
 }
 
-// The paged geometry, and the most table entries one slice can span.
+// The paged geometry (the table's span a slice, after the plan: run).
 template <typename E>
 Params<E> paged(Params<E> p, const int* table, int P, int page,
                 int max_pages) {
   p.table = table;
   p.P = P; p.page = page; p.max_pages = max_pages;
-  const int tiles = (page * max_pages + kKeys - 1) / kKeys;
-  const int slice = (tiles + p.nsplit - 1) / p.nsplit * kKeys;
-  p.table_max = page > 0 ? (slice + page - 2) / page + 1 : 0;
   return p;
 }
 
@@ -781,19 +949,35 @@ int plan_entry(int B, int H, int K, int D, int int8, int page, int max_pages,
   if (!valid_shape(p)) return (int)cudaErrorInvalidValue;
   const bool is_paged = page > 0 && max_pages > 0;
   if (is_paged) p = paged(p, nullptr, 1, page, max_pages);
-  int occ[3] = {0, 0, 0};
+  int occ[kReport] = {};
   const int err =
       is_paged ? (int8 ? dispatch<E, true, true, true>(p, D, nullptr, occ)
                        : dispatch<E, true, false, true>(p, D, nullptr, occ))
                : (int8 ? dispatch<E, false, true, true>(p, D, nullptr, occ)
                        : dispatch<E, false, false, true>(p, D, nullptr, occ));
-  out[0] = p.nsplit;
-  out[1] = p.rows;
+  out[0] = occ[3];
+  out[1] = occ[4];
   out[2] = kKeys;
   out[3] = kStages;
   out[4] = occ[2];
   out[5] = occ[0];
   out[6] = occ[1];
+  return err;
+}
+
+// The residency the plan reads at head_dim D: out[8 i + n - 1] = clusters
+// of n blocks (n = 1 .. 8) of the slot instance of R = 4 (i = 0) or 8
+// (i = 1) that the card holds at once. A head_dim with no instance
+// reports cudaErrorInvalidValue.
+template <typename E>
+int clusters_entry(int D, int int8, int* out) {
+  Params<E> p = make_params<E>(nullptr, nullptr, nullptr, nullptr, nullptr,
+                               nullptr, nullptr, nullptr, 0, 1, 8, 1, 0, 1.f,
+                               0);
+  int occ[kReport] = {};
+  const int err = int8 ? dispatch<E, false, true, true>(p, D, nullptr, occ)
+                       : dispatch<E, false, false, true>(p, D, nullptr, occ);
+  for (int i = 0; i < 2 * kMaxSplit; ++i) out[i] = occ[5 + i];
   return err;
 }
 

@@ -117,3 +117,18 @@ extern "C" int attention_decode_plan_f32(int B, int H, int K, int D,
                                      int* out) {
   return plan_entry<float>(B, H, K, D, int8, page, max_pages, out);
 }
+
+// The residency kernel D's plan reads at head_dim D (clusters_entry):
+// out[8 i + n - 1] = clusters of n blocks of the R = 4 (i = 0) or R = 8
+// (i = 1) slot instance the card holds at once.
+extern "C" int attention_decode_clusters_f32(int D, int int8, int* out) {
+  return clusters_entry<float>(D, int8, out);
+}
+
+#ifdef PLAN_SWEEP
+// tools/plan_sweep.py only: force the plan at G > 1 (rows 0: the plan's)
+extern "C" void attention_decode_force_plan_f32(int rows, int nsplit) {
+  g_force_rows = rows;
+  g_force_nsplit = nsplit;
+}
+#endif

@@ -34,3 +34,12 @@ extern "C" int quant_matmul_plan(int m, int k, int n, int halves, int int4,
   return plan_entry<BF16, dispatch<BF16, true>, dispatch<BF16, false>>(
       m, k, n, halves, int4, group, out);
 }
+
+#ifdef PLAN_SWEEP
+// tools/plan_sweep.py only: force the decode mode's cluster (0: the
+// plan's) and the mode (0: the plan's, 1: prefill, 2: decode)
+extern "C" void quant_matmul_force_plan(int cluster, int mode) {
+  g_force_cluster = cluster;
+  g_force_mode = mode;
+}
+#endif

@@ -38,28 +38,30 @@
 // output rounding differ between the two instances (`if constexpr`, so
 // the bf16 code is the one kernels E and F always ran).
 //
-// Decode mode (m <= 16: generate, the server's decode step, the lm_head).
-// Every weight byte is read once and used by at most 16 rows: bound by
-// HBM bytes, and at INT4 the dequantizing instructions come close to it
-// (PERF.md). The design:
+// Decode mode (m <= 16, and 17-48 where n is narrow: `make_plan`; the
+// float32 instances m <= 16: generate, the server's decode step, the
+// lm_head, a speculative verify of B x (k + 1) rows). Every weight byte is
+// read once and used by at most 48 rows: bound by HBM bytes, and at INT4
+// the dequantizing instructions come close to it (PERF.md). The design:
 //   - a block owns 64 output columns of one half; the blocks of a
 //     thread-block cluster (1, 2, 4 or 8: the plan's `cluster`) split K
 //     into whole split units (INT4: scale groups of 64 or 128 rows; INT8:
 //     128 rows), balanced, so that every 7B projection, n = 4096
-//     included, launches >= 2 blocks an SM;
+//     included, launches >= 2 blocks an SM (`decode_cluster`);
 //   - the weights stream by TMA (one 8 KB box a stage: 128 stored rows x
 //     64 bytes, 64-byte swizzle; tensor maps kept by weight address, so a
 //     decode step encodes none) through a 3-stage (INT4, 256 K rows a
 //     stage) or 4-stage (INT8, 128 K rows) ring, one mbarrier a stage;
-//     5 blocks an SM at m <= 8, 4 at m <= 16: >= 32 KB in flight an SM;
+//     5 blocks an SM at m <= 8, 4 at m <= 16, 2-4 at m 17-48 (x's stage
+//     grows with the rows): >= 32 KB of weights in flight an SM;
 //   - x is staged once a block, a stage at a time behind the weights:
 //     every thread copies its share of the stage's x rows (and INT4
 //     scales) by cp.async and arrives on the same mbarrier when they land
 //     (x is never restaged per warp);
 //   - warps 0-1 take the first half of each stage's K rows, warps 2-3 the
-//     second (whole scale groups each), mma.sync m16n8k16 on one 8-row
-//     (m <= 8) or 16-row (m 9-16) x tile; the two halves meet once in
-//     shared memory;
+//     second (whole scale groups each), mma.sync m16n8k16 on an x tile of
+//     8 (m <= 8), 16 (m 9-16), 32 (m 17-32) or 48 (m 33-48) rows, one n8
+//     tile per 8 rows; the two halves meet once in shared memory;
 //   - the cluster's partial sums meet in distributed shared memory: after
 //     a cluster barrier every rank sums a share of the tile over ranks 0,
 //     1, ... in order and stores it. Deterministic, no workspace, no host
@@ -74,7 +76,8 @@
 //     launched back to back (chip_smoke.py phase 3b) ran up to 1.3x
 //     slower at m8 on wqkv and gate|up, the next launch's blocks sharing
 //     the SMs with a decode E that still streams.
-// Prefill mode (16 < m < 1024: the 64-row prefill tails, mixed steps).
+// Prefill mode (16 < m < 1024 but the decode mode's narrow 17-48; float32
+// 16 < m: the 64-row prefill tails, mixed steps, a wide verify).
 // Bound by tensor-core operations above m ~ 75. The design:
 //   - a block owns 128 output columns x 64 or 128 x rows, no split-K;
 //     3 warpgroups: one producer thread issues TMA loads of the x tiles
@@ -119,7 +122,8 @@ namespace {
 // the plan
 // ---------------------------------------------------------------------------
 
-constexpr int kDecodeM = 16;          // m <= this: the decode mode
+constexpr int kDecodeM = 48;          // m <= this: the decode mode
+constexpr int kDecodeMF32 = 16;       // the same for the float32 instances
 constexpr int kDecCols = 64;          // output columns of a decode block
 constexpr int kDecThreads = 128;      // 2 pairs of warps, 32 columns a warp
 constexpr int kInt8Unit = 128;        // K rows of an INT8 split unit
@@ -134,18 +138,23 @@ constexpr int kPreThreads = 384;      // 2 consumer warpgroups + producer
 // A decode stage: 128 stored weight rows of 64 columns (INT4: 256 K
 // rows; INT8: 128), a TMA box of 8 KB, 1024-aligned; the stage's x rows
 // [BM][kK] bf16, rows padded by 16 bytes; (INT4) the scales of its groups
-// [<= 4][64] f32. INT4 keeps 3 stages, INT8 4: 5 blocks an SM at m <= 8,
-// 4 at m <= 16.
+// [<= 4][64] f32. INT4 keeps 3 stages, INT8 4 (3 at 32 and 48 rows): 5
+// blocks an SM at m <= 8, 4 at m <= 16; INT4 2 at 32 and 48 rows (79 and
+// 105 KB a block), INT8 4 and 3.
 template <bool INT4, int BM>
 struct Dec {
   static constexpr int kK = INT4 ? 256 : 128;       // K rows a stage
-  static constexpr int kStages = INT4 ? 3 : 4;
+  // INT8 at 32 and 48 rows keeps 3 stages, 3-4 blocks an SM (4 stages,
+  // or deeper rings at one block an SM, ran no faster on the H100)
+  static constexpr int kStages = INT4 || BM > 16 ? 3 : 4;
   static constexpr int kRows = 128;                 // stored rows a stage
   static constexpr int kW = kRows * kDecCols;       // 1024-aligned
   static constexpr int kXPitch = kK * 2 + 16;       // bytes an x row
   static constexpr int kX = BM * kXPitch;
   static constexpr int kS = INT4 ? kK / 64 * kDecCols * 4 : 0;
   static constexpr int kSmem = 1024 + kStages * (kW + kX + kS) + 8 * kStages;
+  // the pairs' sums [BM][kRedPitch] reuse the weight boxes
+  static_assert(BM * kRedPitch * 4 <= kStages * kW, "the sums fit the ring");
 };
 
 template <bool INT4, int N>
@@ -220,34 +229,83 @@ struct Plan {
 // size; 4: the float32 instances) and the SM count only. INT4 groups
 // other than 64 and 128 (a half stage must hold whole groups) take the
 // prefill mode.
+#ifdef PLAN_SWEEP
+// tools/plan_sweep.py only: a forced decode cluster (0: the plan's), and
+// a forced mode (0: the plan's, 1: prefill, 2: decode wherever it runs)
+int g_force_cluster = 0, g_force_mode = 0;
+#endif
+
+// The decode mode's cluster along K, each rank keeping >= kMinRankK rows
+// of whole split units: the smallest power of two (<= 8) that gives >= 2
+// blocks an SM at x tiles of 8 and 16 rows (4-5 resident an SM); at 32
+// and 48 rows, >= 1 block on 7/8 of the SMs (INT4: 2 resident) or
+// >= 4/3 blocks an SM (INT8, 3-4 resident). Swept on the H100
+// (tools/plan_sweep.py, PERF.md): at the draft's widths (tinyllama-1.1b
+// and its tp = 2 shards, n 1280-5632) no cluster reaches the target and
+// the largest was fastest down to 256 rows a rank, a rank of 128 rows
+// slower; at 40 rows the clusters that 8 rows take ran up to 1.6x slower
+// than these. No 7B projection's cluster at m <= 16 changes.
+constexpr int kMinRankK = 256;
+int decode_cluster(long long tiles, int su, int nsu, int rows, bool int4,
+                   int sms) {
+  const long long fill = rows <= 16 ? 2LL * sms
+                         : int4     ? sms - sms / 8
+                                    : sms + sms / 3;
+  int cs = 1;
+  while (cs < kMaxCluster && (long long)(nsu / (2 * cs)) * su >= kMinRankK &&
+         tiles * cs < fill)
+    cs *= 2;
+#ifdef PLAN_SWEEP
+  if (g_force_cluster > 0) cs = g_force_cluster;
+#endif
+  return cs;
+}
+
 Plan make_plan(int m, int k, int n, int halves, bool int4, int group,
                int sms, int esize = 2) {
   Plan pl{};
-  const bool decode = m <= kDecodeM && (!int4 || group == 64 || group == 128);
   const bool f32 = esize == 4;
+  // 17-48 rows take the decode mode where the prefill mode's grid (128
+  // columns a block, one 64-row tile) would hold at most half the SMs:
+  // wider, that grid beat the decode mode on the H100 at every m timed
+  // (llama2-7b's wqkv, gate|up and lm_head; tinyllama's gate|up)
+  const bool narrow = 2LL * cdiv(n, kPreCols) * halves <= sms;
+  bool decode = (m <= kDecodeMF32 || (!f32 && m <= kDecodeM && narrow)) &&
+                (!int4 || group == 64 || group == 128);
+#ifdef PLAN_SWEEP
+  if (g_force_mode == 1) decode = false;
+  if (g_force_mode == 2)
+    decode = m <= (f32 ? kDecodeMF32 : kDecodeM) &&
+             (!int4 || group == 64 || group == 128);
+#endif
   if (decode) {
     pl.mode = 0;
-    pl.rows = m <= 8 ? 8 : 16;
+    pl.rows = m <= 8 ? 8 : m <= 16 ? 16 : m <= 32 ? 32 : 48;
     pl.cols = kDecCols;
     pl.tiles_n = cdiv(n, kDecCols);
     pl.su = int4 ? group : kInt8Unit;
     pl.nsu = cdiv(k, pl.su);
     const long long tiles = (long long)pl.tiles_n * halves;
-    int cs = 1;
-    while (cs < kMaxCluster && 2 * cs <= pl.nsu && tiles * cs < 2LL * sms)
-      cs *= 2;
-    pl.cluster = cs;
-    pl.blocks = (int)(tiles * cs);
-    pl.stages = int4 ? Dec<true, 8>::kStages : Dec<false, 8>::kStages;
+    pl.cluster = decode_cluster(tiles, pl.su, pl.nsu, pl.rows, int4, sms);
+    pl.blocks = (int)(tiles * pl.cluster);
+    pl.stages = pl.rows <= 16
+                    ? (int4 ? Dec<true, 8>::kStages : Dec<false, 8>::kStages)
+                    : (int4 ? Dec<true, 48>::kStages : Dec<false, 48>::kStages);
     if (f32)
       pl.smem = pl.rows == 8 ? (int4 ? DecF32<true, 8>::kSmem
                                      : DecF32<false, 8>::kSmem)
                              : (int4 ? DecF32<true, 16>::kSmem
                                      : DecF32<false, 16>::kSmem);
+    else if (pl.rows <= 16)
+      pl.smem = pl.rows == 8 ? (int4 ? Dec<true, 8>::kSmem
+                                     : Dec<false, 8>::kSmem)
+                             : (int4 ? Dec<true, 16>::kSmem
+                                     : Dec<false, 16>::kSmem);
     else
-      pl.smem = pl.rows == 8
-                    ? (int4 ? Dec<true, 8>::kSmem : Dec<false, 8>::kSmem)
-                    : (int4 ? Dec<true, 16>::kSmem : Dec<false, 16>::kSmem);
+      pl.smem = pl.rows == 32 ? (int4 ? Dec<true, 32>::kSmem
+                                      : Dec<false, 32>::kSmem)
+                              : (int4 ? Dec<true, 48>::kSmem
+                                      : Dec<false, 48>::kSmem);
   } else {
     pl.mode = 1;
     pl.rows = f32 ? kPreF32Rows : m <= 64 ? 64 : 128;
@@ -1227,10 +1285,14 @@ Plan plan_of(Params<E>& p, bool int4) {
 template <typename E, bool INT4>
 int dispatch(Params<E> p, cudaStream_t stream, int* blocks_per_sm) {
   const Plan pl = plan_of(p, INT4);
-  if (pl.mode == 0)
-    return pl.rows == 8
-               ? launch_decode<E, INT4, 8>(p, pl, stream, blocks_per_sm)
-               : launch_decode<E, INT4, 16>(p, pl, stream, blocks_per_sm);
+  if (pl.mode == 0) {
+    switch (pl.rows) {
+      case 8: return launch_decode<E, INT4, 8>(p, pl, stream, blocks_per_sm);
+      case 16: return launch_decode<E, INT4, 16>(p, pl, stream, blocks_per_sm);
+      case 32: return launch_decode<E, INT4, 32>(p, pl, stream, blocks_per_sm);
+      default: return launch_decode<E, INT4, 48>(p, pl, stream, blocks_per_sm);
+    }
+  }
   return pl.rows == 64
              ? launch_prefill<E, INT4, 64>(p, pl, stream, blocks_per_sm)
              : launch_prefill<E, INT4, 128>(p, pl, stream, blocks_per_sm);

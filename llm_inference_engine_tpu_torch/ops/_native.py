@@ -110,6 +110,8 @@ _SIGNATURES = {
     "kv_write_quant_plan": [_I, _I, _I, _I, _P],
     # B, H, K, D, int8, page, max_pages, out[7]
     "attention_decode_plan": [_I, _I, _I, _I, _I, _I, _I, _P],
+    # D, int8, out[16]
+    "attention_decode_clusters": [_I, _I, _P],
     # D, int8, out[3]
     "attention_prefill_plan": [_I, _I, _P],
     # x, q, scale, out, m, k, n, halves, q_half, s_half, group, out_f32,
@@ -134,7 +136,7 @@ ATTENTION_ENTRIES = (
     "attention_decode", "attention_decode_paged_fused",
     "attention_decode_paged", "attention_decode_int8",
     "attention_decode_paged_int8", "attention_decode_paged_fused_int8",
-    "attention_decode_plan")
+    "attention_decode_plan", "attention_decode_clusters")
 ATTENTION_SUFFIX = {"bfloat16": "", "float16": "_f16", "float32": "_f32"}
 # the float16 and float32 instances of kernels E and F, Ef and Ff
 # (csrc/quant_matmul_f16.cu, _f32.cu): the same suffixes

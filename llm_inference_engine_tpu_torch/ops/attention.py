@@ -103,7 +103,8 @@ __all__ = ["attention", "attention_torch", "attention_paged_torch",
            "attention_decode_paged_fused",
            "attention_decode_paged_fused_int8",
            "attention_decode_paged_fused_torch", "can_fuse_decode",
-           "can_fuse_paged_decode", "decode_plan", "prefill_plan"]
+           "can_fuse_paged_decode", "decode_plan", "decode_plan_mirror",
+           "decode_residency", "prefill_plan", "H100_DECODE_CLUSTERS"]
 
 
 def attention_torch(q, k_cache, v_cache, q_start, kv_len, *,
@@ -570,6 +571,83 @@ def decode_plan(B: int, H: int, K: int, D: int, *, int8: bool = False,
     return dict(zip(("nsplit", "heads_per_block", "tile_keys", "stages",
                      "smem_bytes", "blocks_per_sm", "max_active_clusters"),
                     out))
+
+
+# Kernel D's plan (``make_plan`` in csrc/attention_decode.cuh)
+_DEC_TARGET_BLOCKS_PER_SM = 8   # kTargetBlocksPerSm, at G = 1
+_DEC_MAX_SPLIT = 8              # kMaxSplit, the portable cluster size
+
+
+# The residency kernel D's plan reads on an H100 80GB HBM3 (recorded by
+# ``tools/plan_sweep.py --only residency``; a card test holds it equal to
+# the library's on such a card): the clusters of n = 1 .. 8 blocks it holds
+# at once at 1-4 blocks an SM (its GPCs hold fewer clusters of 3, 5, 6 and
+# 7 blocks than the SM count alone gives), and the blocks an SM of D's
+# R = 4 and R = 8 slot instances, 4 and 2 but where named
+_H100_CLUSTERS_AT = {1: (132, 66, 39, 30, 22, 17, 15, 15),
+                     2: (264, 132, 79, 62, 47, 39, 32, 30),
+                     3: (396, 198, 124, 92, 69, 62, 47, 45),
+                     4: (528, 264, 163, 124, 94, 79, 69, 62)}
+_H100_BLOCKS_PER_SM = {("bfloat16", 256, False): (3, 2),
+                       ("float16", 16, True): (4, 3),
+                       ("float16", 256, False): (3, 2),
+                       ("float32", 16, True): (4, 3),
+                       ("float32", 128, False): (3, 2),
+                       ("float32", 256, False): (1, 1)}
+# (dtype name, head_dim, int8) -> {R: clusters of n = 1 .. 8 blocks}
+H100_DECODE_CLUSTERS = {
+    (dt, D, int8): {R: _H100_CLUSTERS_AT[b] for R, b in zip(
+        (4, 8), _H100_BLOCKS_PER_SM.get((dt, D, int8), (4, 2)))}
+    for dt, dims in (("bfloat16", _native.HEAD_DIMS),
+                     ("float16", _native.FLOAT_HEAD_DIMS),
+                     ("float32", _native.FLOAT_HEAD_DIMS))
+    for D in dims for int8 in (False, True)}
+
+
+def decode_plan_mirror(B: int, K: int, G: int, *, clusters: dict,
+                       esize: int = 2, sms: int = 132) -> dict:
+    """Kernel D's split plan (``make_plan`` in csrc/attention_decode.cuh)
+    in pure Python, for the CPU tests: at G = 1 one query head a block and
+    nsplit blocks along the keys so that the grid holds about 8 blocks an
+    SM (4 for float32, ``esize`` 4); at G > 1 each candidate R (4 up to
+    G = 4, else 8 then 4) takes the largest nsplit up to that target whose
+    B * K * ceil(G / R) clusters the card holds in one wave, and the
+    candidate with the most blocks wins (the first on a tie). ``clusters``
+    is the compiled instance's residency: R (4, 8) -> the clusters of
+    n = 1 .. 8 blocks of R's slot instance that the card holds at once
+    (:func:`decode_residency` reads it from the library;
+    ``H100_DECODE_CLUSTERS`` holds an H100's). Never a function of S, the
+    page size or kv_len. Returns nsplit, heads_per_block, row_blocks."""
+    want = _DEC_TARGET_BLOCKS_PER_SM * 2 // esize * sms
+
+    def target(c):
+        return max(1, min(_DEC_MAX_SPLIT, (want + c // 2) // max(c, 1)))
+    if G == 1:
+        return dict(nsplit=target(B * K), heads_per_block=1, row_blocks=1)
+    best = None
+    for R in ((4,) if G <= 4 else (8, 4)):
+        rb = -(-G // R)
+        c = B * K * rb
+        n = target(c)
+        while n > 1 and c > clusters[R][n - 1]:
+            n -= 1
+        if best is None or c * n > best[0]:
+            best = (c * n, dict(nsplit=n, heads_per_block=R, row_blocks=rb))
+    return best[1]
+
+
+def decode_residency(D: int, *, int8: bool = False,
+                     dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The residency kernel D's plan reads at head_dim ``D``, from the
+    built library on the card: R (4, 8) -> the clusters of n = 1 .. 8
+    blocks of R's slot instance (q's ``dtype``; int8 or not) that the card
+    holds at once (``cudaOccupancyMaxActiveClusters``)."""
+    import ctypes
+    out = (ctypes.c_int * 16)()
+    name = _native.entry_name("attention_decode_clusters", dtype)
+    status = getattr(_native.library(), name)(D, int(int8), out)
+    _native.check(status, name)
+    return {4: tuple(out[:8]), 8: tuple(out[8:])}
 
 
 def prefill_plan(D: int, *, int8: bool = False,

@@ -21,8 +21,9 @@ Routing follows the JAX package: at m < 1024 rows the fused kernels run,
 E (``int4_matmul``) or F (``int8_matmul``), CUDA C++ in
 ``csrc/quant_matmul.cuh`` (built for bf16 by ``quant_matmul.cu``), in one
 of two modes that
-:func:`quant_matmul_plan` describes (a decode mode at m <= 16, split-K
-over a thread-block cluster; a prefill mode on wgmma above); at m >= 1024
+:func:`quant_matmul_plan` describes (a decode mode at m <= 16 and at
+17-48 where n is narrow, split-K over a thread-block cluster; a prefill
+mode on wgmma otherwise); at m >= 1024
 (``_PREFILL_M``) the weight is dequantized once to bf16 (INT4: kernel G, ``dequant_int4``, Triton in
 ``_triton_kernels.py``; INT8: an exact cast) and a plain bf16
 ``torch.matmul`` with f32 accumulation runs, as the JAX package's
@@ -83,12 +84,15 @@ FLOAT_X_DTYPES = (torch.float16, torch.float32)
 
 # The plan of kernels E and F and of their float instances (``make_plan``
 # in csrc/quant_matmul.cuh; a card test holds the two equal).
-_DECODE_M = 16             # m <= this: the decode mode
+_DECODE_M = 48             # m <= this: the decode mode
+_DECODE_M_F32 = 16         # the same for the float32 instances
 _DEC_COLS = 64             # output columns of a decode block
 _INT8_UNIT = 128           # K rows of an INT8 split unit
 _DEC_STAGE_K = {True: 256, False: 128}   # K rows a decode stage (INT4, INT8)
-_DEC_STAGES = {True: 3, False: 4}        # decode ring stages
+_DEC_STAGES = {True: 3, False: 4}        # decode ring stages (INT8 3 at
+                                         # 32 and 48 rows)
 _MAX_CLUSTER = 8
+_MIN_RANK_K = 256          # K rows a decode cluster rank keeps at least
 _PRE_COLS = 128            # output columns of a prefill block
 _PRE_K = 128               # K elements a prefill stage
 _PRE_STAGES = 4
@@ -342,15 +346,31 @@ def dequant_int4_torch(q: torch.Tensor, scale: torch.Tensor,
 def _decode_split(m: int, k: int, n: int, halves: int, int4: bool,
                   group: int, sms: int):
     """(split unit in K rows, split units, blocks a cluster) of the decode
-    mode: the smallest power-of-two cluster (<= 8, >= 2 units a rank) that
-    gives >= 2 blocks an SM."""
+    mode: the smallest power-of-two cluster (<= 8, every rank >= 256 K rows
+    of whole units) that gives >= 2 blocks an SM at m <= 16; at m 17-48,
+    >= 1 block on 7/8 of the SMs (INT4) or >= 4/3 blocks an SM (INT8)."""
     su = group if int4 else _INT8_UNIT
     nsu = cdiv(k, su)
     tiles = cdiv(n, _DEC_COLS) * halves
+    if m <= 16:
+        fill = 2 * sms
+    else:
+        fill = sms - sms // 8 if int4 else sms + sms // 3
     cs = 1
-    while cs < _MAX_CLUSTER and 2 * cs <= nsu and tiles * cs < 2 * sms:
+    while (cs < _MAX_CLUSTER and nsu // (2 * cs) * su >= _MIN_RANK_K
+           and tiles * cs < fill):
         cs *= 2
     return su, nsu, cs
+
+
+def _decode_mode(m: int, n: int, halves: int, int4: bool, group: int,
+                 sms: int, f32: bool) -> bool:
+    """Whether the plan takes the decode mode: m <= 16, and 17-48 (not
+    float32) where the prefill mode's grid (128 columns a block) would
+    hold at most half the SMs; INT4 groups of 64 or 128 only."""
+    narrow = 2 * cdiv(n, _PRE_COLS) * halves <= sms
+    return ((m <= _DECODE_M_F32 or (not f32 and m <= _DECODE_M and narrow))
+            and (not int4 or group in (64, 128)))
 
 
 def quant_matmul_plan(m: int, k: int, n: int, halves: int = 1, *,
@@ -359,8 +379,10 @@ def quant_matmul_plan(m: int, k: int, n: int, halves: int = 1, *,
                       dtype: torch.dtype = torch.bfloat16) -> dict:
     """Kernel E's (``int4``) or F's plan for x [m, k] of ``dtype`` times a
     [k, n] weight (``halves`` = 2: the gate|up stack) on ``sms`` SMs, as
-    ``csrc/quant_matmul.cuh`` makes it: mode ("decode" at m <= 16 with
-    INT4 groups of 64 or 128, else "prefill"), x rows and output columns a
+    ``csrc/quant_matmul.cuh`` makes it: mode ("decode" at m <= 16 and at
+    17-48 where n is narrow, float32 m <= 16, with INT4 groups of 64 or
+    128, else "prefill"; x tiles of 8, 16, 32 or 48 rows), x rows and
+    output columns a
     block, blocks a cluster along K, blocks, ring stages and dynamic shared
     memory a block. float16 takes bf16's plan; float32 (Ef / Ff on the
     CUDA cores) stages 4-byte x rows in the decode mode, 8 K slices 16
@@ -368,10 +390,11 @@ def quant_matmul_plan(m: int, k: int, n: int, halves: int = 1, *,
     Python: the CPU tests call it; :func:`quant_matmul_plan_native` asks
     the built library."""
     f32 = dtype == torch.float32
-    if m <= _DECODE_M and (not int4 or group in (64, 128)):
-        rows = 8 if m <= 8 else 16
+    if _decode_mode(m, n, halves, int4, group, sms, f32):
+        rows = next(r for r in (8, 16, 32, 48) if m <= r)
         _, _, cs = _decode_split(m, k, n, halves, int4, group, sms)
-        stages, kk = _DEC_STAGES[int4], _DEC_STAGE_K[int4]
+        stages = _DEC_STAGES[int4] if rows <= 16 else 3
+        kk = _DEC_STAGE_K[int4]
         x_pitch = kk * 4 + _F32_SLICES * 16 + 16 if f32 else kk * 2 + 16
         stage = (128 * _DEC_COLS + rows * x_pitch
                  + (kk // 64 * _DEC_COLS * 4 if int4 else 0))

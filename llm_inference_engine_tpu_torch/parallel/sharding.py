@@ -38,7 +38,7 @@ Sharding map (weights [in, out]):
   disjoint pages to disjoint slots), so the replicas differ only in pages
   no slot of the group references. The int8 pool is refused under a mesh
   as in the JAX package, whose scale rows ride the kv-head axis; the
-  port's scale planes could shard (ROADMAP.md, queue 1).
+  port's scale planes could shard (ROADMAP.md, queue 2 item 7).
 
 What every rank shares (the batch's token ids, q_start, kv_len, the
 global lengths and block table) lives on the mesh's home device

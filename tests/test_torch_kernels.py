@@ -1368,6 +1368,40 @@ def test_decode_plan_ignores_page_and_length(cuda, B, H, K, D):
     assert slot["max_active_clusters"] >= 1
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32], ids=str)
+def test_decode_plan_mirror_equals_library(cuda, dtype):
+    """ops.attention.decode_plan_mirror (Python, what the CPU tests check),
+    given the residency the library reads (decode_residency), equals the
+    library's decode_plan at every head dim, cache kind, B 1-16 and the
+    presets' (H, K) and their tp = 2 shards; on an H100 80GB HBM3 that
+    residency is H100_DECODE_CLUSTERS."""
+    from llm_inference_engine_tpu_torch.ops import _native
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    name = str(dtype).split(".")[-1]
+    dims = _native.HEAD_DIMS if dtype == torch.bfloat16 else \
+        _native.FLOAT_HEAD_DIMS
+    h100 = torch.cuda.get_device_name(0) == "NVIDIA H100 80GB HBM3"
+    for D in dims:
+        for int8 in (False, True):
+            res = attention.decode_residency(D, int8=int8, dtype=dtype)
+            if h100:
+                assert res == attention.H100_DECODE_CLUSTERS[
+                    (name, D, int8)], (D, int8)
+            for B in (1, 4, 8, 16):
+                for H, K in ((32, 32), (16, 16), (40, 40), (32, 8),
+                             (16, 4), (32, 4), (16, 2), (28, 4), (14, 2),
+                             (4, 2), (2, 1)):
+                    plan = attention.decode_plan(B, H, K, D, int8=int8,
+                                                 dtype=dtype)
+                    want = attention.decode_plan_mirror(
+                        B, K, H // K, clusters=res, esize=dtype.itemsize,
+                        sms=sms)
+                    assert (plan["nsplit"], plan["heads_per_block"]) == (
+                        want["nsplit"], want["heads_per_block"]), (
+                            B, H, K, D, int8)
+
+
 @pytest.mark.parametrize("int8", [False, True])
 def test_prefill_plan_reports_every_head_dim(cuda, int8):
     """D2's tiling, as the source reports it, at every head dim: 64-key
@@ -1787,6 +1821,58 @@ def test_quant_matmul_at_tp2_local_shapes(cuda, mode, m, proj):
     else:
         got = _held_against_plain(t, x, torch.bfloat16)
     assert got.shape == (m, n * halves) and torch.isfinite(got).all()
+
+
+# the projections of llama2-7b, tinyllama-1.1b and their tp = 2 shards (k,
+# n, halves): a speculative verify (B 8 x k + 1 = 5 rows) or a decode batch
+# of 17-48 rows runs E/F's decode mode at 32- and 48-row x tiles
+ROWS_17_48_PROJECTIONS = {
+    "7b wqkv": (4096, 12288, 1), "7b wo": (4096, 4096, 1),
+    "7b gate_up": (4096, 11008, 2), "7b down": (11008, 4096, 1),
+    "tiny wqkv": (2048, 2560, 1), "tiny wo": (2048, 2048, 1),
+    "tiny gate_up": (2048, 5632, 2), "tiny down": (5632, 2048, 1),
+    **{f"7b tp2 {p}": v for p, v in TP2_PROJECTIONS.items()
+       if p != "lm_head"},
+    "tiny tp2 wqkv": (2048, 1280, 1), "tiny tp2 wo": (1024, 2048, 1),
+    "tiny tp2 gate_up": (2048, 2816, 2), "tiny tp2 down": (2816, 2048, 1)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("mode", ["int4", "int8"])
+@pytest.mark.parametrize("m", [17, 24, 32, 40, 48])
+def test_quant_matmul_rows_17_to_48(cuda, dtype, mode, m):
+    """E / F (bf16) and Ef / Ff (f16) at m 17-48 on every projection of
+    llama2-7b, tinyllama-1.1b and their tp = 2 shards (the decode mode's
+    32- and 48-row tiles where n is narrow, the prefill mode elsewhere),
+    x, q and the scales at the head of buffers whose tails hold NaN (127
+    for q): one launch, in the mode the plan and its mirror name, against
+    the plain version."""
+    counter = (getattr(quant, f"{mode}_matmul_float")
+               if dtype == torch.float16 else _fused(mode))
+    for proj, (k, n, halves) in ROWS_17_48_PROJECTIONS.items():
+        t = _qweight(cuda, mode, k, n, halves)
+        t = quant.QuantizedTensor(_tail_poisoned(t.q),
+                                  _tail_poisoned(t.scale), mode,
+                                  t.group_size)
+        x = _tail_poisoned(torch.randn(m, k, device=cuda, dtype=dtype))
+        before = counter.launches
+        got = _run_fused(t, x, dtype, "cuda")
+        want = _run_fused(t, x, dtype, "torch")
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1, proj
+        assert got.shape == (m, halves * n) and torch.isfinite(got).all()
+        if dtype == torch.float16:
+            _held_float(got, want, dtype)
+        else:
+            torch.testing.assert_close(got, want, **TOL)
+        plan = quant.quant_matmul_plan_native(m, k, n, halves,
+                                              int4=mode == "int4",
+                                              dtype=dtype)
+        assert plan.pop("blocks_per_sm") >= 1
+        assert plan == quant.quant_matmul_plan(
+            m, k, n, halves, int4=mode == "int4", dtype=dtype), proj
+        if plan["mode"] == "decode":
+            assert plan["rows"] == (32 if m <= 32 else 48), (proj, plan)
 
 
 def test_silu_and_mul_at_tp2_local_shape(cuda):
@@ -2480,8 +2566,12 @@ def test_float_quant_matmul(cuda, dtype, mode, m, k, n, halves, out_f32,
     plan = quant.quant_matmul_plan_native(m, k, n, halves,
                                           int4=mode == "int4", group=group,
                                           dtype=dtype)
-    assert plan["mode"] == ("decode" if m <= 16 and (
-        mode == "int8" or group in (64, 128)) else "prefill")
+    assert plan["mode"] == quant.quant_matmul_plan(
+        m, k, n, halves, int4=mode == "int4", group=group,
+        dtype=dtype)["mode"]
+    if m <= 16 or m > 48 or dtype == torch.float32:
+        assert plan["mode"] == ("decode" if m <= 16 and (
+            mode == "int8" or group in (64, 128)) else "prefill")
 
 
 @pytest.mark.parametrize("dtype", FLOAT_DTYPES, ids=str)

@@ -181,13 +181,14 @@ def test_quantized_linear_matches_jax(rng, mode, dtype, m, k, n):
 
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("dtype", ["float16", "float32"])
-@pytest.mark.parametrize("m", [8, 9, 16, 17, 64, 65])
+@pytest.mark.parametrize("m", [8, 9, 16, 17, 32, 33, 48, 49, 64, 65])
 def test_float_quantized_linear_at_plan_boundaries_matches_jax(rng, mode,
                                                                dtype, m):
     """A float16 / float32 x at the m where kernels Ef / Ff change mode or
-    tile on the card (decode 8- and 16-row tiles up to 16, then the
-    prefill mode's 64- and 128-row tiles; float32 prefill 128 rows),
-    group 64, against the JAX package's Pallas path."""
+    tile on the card (float16: decode 8-, 16-, 32- and 48-row tiles up to
+    48, then the prefill mode's 64- and 128-row tiles; float32: decode up
+    to 16, then 128-row prefill tiles), group 64, against the JAX
+    package's Pallas path."""
     _linear_case(rng, mode, m, 256, 128, dtype, group=64)
 
 
@@ -449,21 +450,29 @@ PLAN_DTYPES = [torch.bfloat16, torch.float16, torch.float32]
 
 @pytest.mark.parametrize("dtype", PLAN_DTYPES, ids=str)
 @pytest.mark.parametrize("int4", [True, False], ids=["int4", "int8"])
-@pytest.mark.parametrize("m", [8, 16])
+@pytest.mark.parametrize("m", [8, 16, 32, 48])
 @pytest.mark.parametrize("model", ["llama2-7b", "llama3-8b", "mistral-7b",
                                    "qwen2-7b"])
 def test_decode_plan_fills_the_card_with_whole_groups(model, m, int4, dtype):
-    """Decode mode on 132 SMs, for x of each dtype (E/F, Ef/Ff): >= 2
-    blocks an SM for every projection (n = 4096 included), shared memory
-    that fits a block (float32's x stage is twice as wide), and every
-    cluster rank a whole number of scale groups (INT4) or 128-row units
-    (INT8), balanced and covering K."""
+    """Decode mode on 132 SMs, for x of each dtype (E/F, Ef/Ff): at m <=
+    16 every projection, >= 2 blocks an SM (n = 4096 included); at m 32
+    and 48 (not float32) the projections whose 128-column prefill grid
+    would hold at most 66 blocks, >= 1 block on 7/8 of the SMs, the rest
+    in the prefill mode; shared memory that fits a block (float32's x
+    stage is twice as wide; 48 bf16 rows take 105 KB), and every cluster
+    rank a whole number of scale groups (INT4) or 128-row units (INT8),
+    balanced and covering K."""
     for label, k, n, halves in _projections(model):
         plan = quant.quant_matmul_plan(m, k, n, halves, int4=int4, sms=132,
                                        dtype=dtype)
-        assert plan["mode"] == "decode" and plan["rows"] == (8 if m <= 8
-                                                             else 16), label
-        assert plan["blocks"] >= 2 * 132, (label, plan)
+        narrow = 2 * -(-n // 128) * halves <= 132
+        if m > 16 and (dtype == torch.float32 or not narrow):
+            assert plan["mode"] == "prefill", (label, plan)
+            continue
+        assert plan["mode"] == "decode" and plan["rows"] == next(
+            r for r in (8, 16, 32, 48) if m <= r), label
+        assert plan["blocks"] >= (2 * 132 if m <= 16 else 132 - 132 // 8), (
+            label, plan)
         assert plan["cluster"] in (1, 2, 4, 8), (label, plan)
         assert plan["smem_bytes"] <= 232448, (label, plan)
         ranges = quant.cluster_k_ranges(m, k, n, halves, int4=int4, sms=132)
@@ -478,16 +487,83 @@ def test_decode_plan_fills_the_card_with_whole_groups(model, m, int4, dtype):
         assert max(sizes) - min(sizes) <= 1, (label, ranges)
 
 
+# the decode mode's cluster at tinyllama-1.1b's widths and their tp = 2
+# shards, (k, n, halves) -> cluster: the fastest of 1, 2, 4, 8 on an H100
+# 80GB HBM3 at m 8 (tools/plan_sweep.py; PERF.md)
+DRAFT_CLUSTERS = {(2048, 2560, 1): 8, (2048, 2048, 1): 8,
+                  (2048, 5632, 2): 2, (5632, 2048, 1): 8,
+                  (2048, 1280, 1): 8, (1024, 2048, 1): 4,
+                  (2048, 2816, 2): 4, (2816, 2048, 1): 8}
+# the verify's m 40 (B 8 x k + 1 = 5): (k, n, halves) -> (mode, cluster),
+# the faster mode and cluster of those timed on the H100 (the same
+# sweep): llama2-7b's four projections, its tp = 2 shards, tinyllama's
+# wqkv, wo, gate|up, down and the tp = 2 shards' wo and down
+VERIFY_PLANS = {(4096, 12288, 1): ("prefill", 1),
+                (4096, 4096, 1): ("decode", 2),
+                (4096, 11008, 2): ("prefill", 1),
+                (11008, 4096, 1): ("decode", 2),
+                (2048, 4096, 1): ("decode", 2),
+                (2048, 2560, 1): ("decode", 4), (2048, 2048, 1): ("decode", 4),
+                (2048, 5632, 2): ("prefill", 1),
+                (5632, 2048, 1): ("decode", 4), (1024, 2048, 1): ("decode", 4),
+                (2816, 2048, 1): ("decode", 4)}
+# the same for F (INT8: 3-4 blocks an SM at 48 rows)
+VERIFY_PLANS_INT8 = {(4096, 12288, 1): ("prefill", 1),
+                     (4096, 4096, 1): ("decode", 4),
+                     (11008, 4096, 1): ("decode", 4),
+                     (4096, 6144, 1): ("decode", 2),
+                     (2048, 4096, 1): ("decode", 4),
+                     (2048, 2048, 1): ("decode", 8),
+                     (5632, 2048, 1): ("decode", 8),
+                     (2048, 1280, 1): ("decode", 8),
+                     (1024, 2048, 1): ("decode", 4)}
+
+
+@pytest.mark.parametrize("dtype", PLAN_DTYPES, ids=str)
+@pytest.mark.parametrize("int4", [True, False], ids=["int4", "int8"])
+def test_decode_cluster_keeps_7b_choice_and_the_draft_sweep(dtype, int4):
+    """Every llama2-7b projection keeps, at m <= 16, the cluster of the
+    plan before (the smallest power of two <= 8 that gives >= 2 blocks an
+    SM, >= 1 split unit a rank), so its bits and ids do not move; at the
+    draft's widths (m 8) and the verify's (m 40) the plan (>= 256 K rows
+    a rank) picks the mode and cluster the card timed fastest."""
+    for m in (1, 8, 16):
+        for label, k, n, halves in _projections("llama2-7b"):
+            plan = quant.quant_matmul_plan(m, k, n, halves, int4=int4,
+                                           dtype=dtype)
+            nsu, tiles, cs = -(-k // 128), -(-n // 64) * halves, 1
+            while cs < 8 and 2 * cs <= nsu and tiles * cs < 2 * 132:
+                cs *= 2
+            assert plan["cluster"] == cs, (label, m, plan)
+    if int4:
+        for (k, n, halves), cs in DRAFT_CLUSTERS.items():
+            plan = quant.quant_matmul_plan(8, k, n, halves, dtype=dtype)
+            assert plan["cluster"] == cs, (k, n, plan)
+    if dtype != torch.float32:
+        for (k, n, halves), (mode, cs) in (
+                VERIFY_PLANS if int4 else VERIFY_PLANS_INT8).items():
+            plan = quant.quant_matmul_plan(40, k, n, halves, int4=int4,
+                                           dtype=dtype)
+            assert plan["mode"] == mode, (k, n, plan)
+            if mode == "decode":
+                assert plan["cluster"] == cs, (k, n, plan)
+
+
 @pytest.mark.parametrize("dtype", PLAN_DTYPES, ids=str)
 def test_plan_modes_follow_m(dtype):
     """m <= 8: 8-row decode tiles; 9-16: 16-row ones; above: the prefill
-    mode, 64-row tiles up to m = 64, then 128 (float32: 128 from m = 17);
-    the routing's 1024 is not the plan's. Shared memory fits a block at
-    every m; float16 takes bf16's plan as it is."""
+    mode, 64-row tiles up to m = 64, then 128 (float32: 128 from m = 17),
+    but where n is narrow (a 128-column prefill grid of at most half the
+    SMs: llama2-7b's wo and down), where 17-32 rows take 32-row decode
+    tiles and 33-48 48-row ones (not float32); the routing's 1024 is not
+    the plan's. Shared memory fits a block at every m; float16 takes
+    bf16's plan as it is."""
     f32 = dtype == torch.float32
+    pre = ("prefill", 128 if f32 else 64)
     for m, mode, rows in ((1, "decode", 8), (8, "decode", 8),
                           (9, "decode", 16), (16, "decode", 16),
-                          (17, "prefill", 128 if f32 else 64),
+                          (17, *pre), (32, *pre), (33, *pre), (48, *pre),
+                          (49, "prefill", 128 if f32 else 64),
                           (64, "prefill", 128 if f32 else 64),
                           (65, "prefill", 128), (512, "prefill", 128),
                           (1023, "prefill", 128)):
@@ -502,6 +578,16 @@ def test_plan_modes_follow_m(dtype):
             if dtype == torch.float16:
                 assert plan == quant.quant_matmul_plan(m, 4096, 12288,
                                                        int4=int4)
+    for m, rows in ((17, 32), (32, 32), (33, 48), (40, 48), (48, 48),
+                    (49, 64)):
+        for int4 in (True, False):
+            for k, n in ((4096, 4096), (11008, 4096)):
+                plan = quant.quant_matmul_plan(m, k, n, int4=int4,
+                                               dtype=dtype)
+                want = ("prefill", 128) if f32 else (
+                    "decode" if m <= 48 else "prefill", rows)
+                assert (plan["mode"], plan["rows"]) == want, (m, plan)
+                assert plan["smem_bytes"] <= 232448
     # INT4 groups other than 64 and 128 take the prefill mode at any m
     for group in (64, 128, 256):
         plan = quant.quant_matmul_plan(8, 4096, 4096, group=group,

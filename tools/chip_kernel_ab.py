@@ -3,7 +3,7 @@
 CUDA card (an H100).
 
     python3 tools/chip_kernel_ab.py
-        [--rows attention|quant|writes|prefill|norm|float] PARENT_ROOT
+        [--rows attention|quant|writes|prefill|norm|float|spec] PARENT_ROOT
         [CHANGE_ROOT]
 
 PARENT_ROOT and CHANGE_ROOT (default: this checkout) are roots of the
@@ -65,6 +65,15 @@ checkout's ``chip_smoke.norm_rows``, with the count of the card's
 activities in one replayed step; it also prints whether checksums of
 A's and B's outputs and of 4b's, 4c's, 4d's and 4h's greedy ids are
 equal in every run.
+
+``--rows spec`` times the speculative round's kernels and the round,
+through this checkout's ``chip_smoke.spec_rows``: kernel D's fused decode
+at the draft's shapes (4l: tinyllama B 8, G 8, head_dim 64; 4q: its tp =
+2 rank) and at GQA_WIDTHS, E and F at the verify's m 40 on llama2-7b's
+projections and E at the draft's m 8 on tinyllama's and its tp = 2
+shards, and 4l (a)'s replayed round (wall, the card's busy ms and its
+kernel groups); it prints whether D's outputs at the G = 1 shapes of 4a,
+4b, 4d and 4h are bit for bit equal in every run.
 """
 
 from __future__ import annotations
@@ -84,7 +93,8 @@ def one(root: Path, rows: str = "attention") -> dict:
     kernels E and F at QUANT_ROWS; ``rows="writes"``: of the K/V row
     writes and their floors; ``rows="prefill"``: warm prefills;
     ``rows="norm"``: kernels A and B and 4b's, 4c's and 4d's replayed
-    step; ``rows="float"``: the float instances D2f, Df, Ef, Ff)."""
+    step; ``rows="float"``: the float instances D2f, Df, Ef, Ff;
+    ``rows="spec"``: the speculative round's kernels and the round)."""
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_kernel_ab: no CUDA device")
@@ -114,6 +124,8 @@ def one(root: Path, rows: str = "attention") -> dict:
     if rows == "float":
         return {**here.float_attention_rows(torch, dev),
                 **here.float_matmul_rows(torch, dev)}
+    if rows == "spec":
+        return here.spec_rows(torch, dev)
     results: dict = {}
     for fn in (smoke.phase_kernels, smoke.phase_paged_kernels,
                smoke.phase_kv_int8_kernels):
@@ -128,7 +140,7 @@ def main(argv) -> int:
     if len(argv) >= 2 and argv[0] == "--rows":
         rows, argv = argv[1], argv[2:]
     if rows not in ("attention", "quant", "writes", "prefill", "norm",
-                    "float"):
+                    "float", "spec"):
         raise SystemExit(__doc__)
     if len(argv) >= 2 and argv[0] == "--one":
         print(json.dumps(one(Path(argv[1]).resolve(), rows)), flush=True)
