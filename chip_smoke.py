@@ -13,7 +13,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 2. build the CUDA kernels from the sources in the checkout;
 3. every hand-written kernel against its plain PyTorch version on the
    card, at Llama2-7B shapes, with its time beside the plain version's
-   (CUDA events, after warm-up): A-C, kernel D2 (the prefill modes:
+   (CUDA events, after warm-up): A, B, J (the QKV split with RoPE at a
+   prefill chunk and a decode step, bit for bit, NaN past the tails), C,
+   kernel D2 (the prefill modes:
    B4 T512, GQA with and without a window, G = 8 against kv_len 2048)
    and kernel D's fused decode (split-KV over a cluster; B4, then the
    engine's B8, kv_len of one tile and one tile + 1, G = 7 with a
@@ -21,9 +23,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    decode mode at m = 8 on every projection and the lm_head and at m =
    16 on wo and down, each with its plan; the prefill mode at m = 512 on
    the four projections beside G + cuBLAS; library calls
-   ``_weight_int4pack_mm`` and ``_weight_int8pack_mm``) and G (INT4
-   dequantize, bit-identical), then (3c) H (the paged write) and
-   D2's paged mode (a B=16, T=64 mixed step, then 8 x 512) over a pool
+   ``_weight_int4pack_mm`` and ``_weight_int8pack_mm``), INT8 at m =
+   4096 on the four projections (G8 + cuBLAS, the parent's cast + cuBLAS
+   and F's prefill mode in turns; G8 and its epilogue alone, bit for
+   bit) and G (INT4 dequantize, bit-identical), then (3c) H (the paged
+   write) and D2's paged mode (a B=16, T=64 mixed step, then 8 x 512) over a pool
    of page 64 with a random page permutation, D's fused paged decode
    (the write through the table and the attention in one launch) at the
    server's B=16, then at 4d's shape, each bit for bit H then the
@@ -39,8 +43,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    ``index_copy_``, and H and its int8
    mode are also timed at decode shape (B = 8 and 16, one token each at
    odd in-page offsets, DECODE_WRITE_STARTS), I at 8 x 64 as well as
-   8 x 512; (3e) A, A with residual and B at decode shape (B = 8) held
-   against and timed beside their plain versions and ``F.rms_norm``, 64
+   8 x 512; (3e) A, A with residual, B and J at decode shape (B = 8)
+   held against and timed beside their plain versions and
+   ``F.rms_norm``, 64
    calls captured in one CUDA graph: CUDA events around its replays, and
    the union of the kernels' intervals under the profiler; (3f) the float
    instances in float32 and float16 at 7B widths (``phase_float_kernels``:
@@ -50,7 +55,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    int8 pool bit for bit If + the attend-only one (B16 and 4d's B8 at
    pages of 64), If (kernel I's template over f16 / f32 rows) bit for bit
    at 8 x 512 and 3c's 520 rows, Ef / Ff at m 8 and 512, A, B and C on
-   float rows; head_dim 16 and 64 small),
+   float rows, J at 7B widths; head_dim 16 and 64 small),
    NaN planted past every tail, each timed cold beside its bound
    (operations at the f32 or f16 rate), its plain version, SDPA and the
    time of the simple instances they replaced;
@@ -108,15 +113,15 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
       to 0 just before each path and read just after: tp = 2 (prefill
       logits against 4b's, first tokens under the tie rule, 16 greedy
       tokens, 16 replayed steps equal to 16 eager ones, the step's wall,
-      busy and idle with the cross-rank sums split out of the glue, A's
-      and B's launches per rank); dp = 2 (ids identical to 4b's); tp = 2
+      busy and idle with the cross-rank sums split out of the glue, A's,
+      B's and J's launches per rank); dp = 2 (ids identical to 4b's); tp = 2
       over the int8 slot cache (against 4g); tp = 2 paged (pages of 64)
       through the scheduler, 4 requests whose ids equal the slot tp = 2
       engine's and the same scheduler's with its decode bodies eager,
       each pure-decode step one fused paged decode a layer a rank and no
       H; then E/F at m 8 and 512 on the tp = 2 local shapes (wqkv
       n 6144, wo k 2048, gate|up 2 x 5504, down k 5504, the lm_head's
-      16000-row vocab shard), B at [8, 2 x 5504], C, I, H, D2 and D
+      16000-row vocab shard), B at [8, 2 x 5504], J, C, I, H, D2 and D
       (D's fused paged decode too) at 16
       heads, every input with NaN past its end and every cache row past
       kv_len NaN, against the plain versions, timed with bound and
@@ -201,7 +206,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
       projections and its f32 lm_head, NaN past every tail, with their
       plans; D2 at T = 5 in chunk mode; at tinyllama-1.1b's widths, B =
       8: E's decode mode, D's fused decode at G = 8 and head_dim 64 with
-      its plan, paged == slot bit for bit, A and B), each against its
+      its plan, paged == slot bit for bit, A, B and J; J at the
+      verify's m = 40), each against its
       plain version with its time, bound and library call; then llama2-7b
       INT4 at 4b's engine config with a tinyllama-1.1b INT4 draft of
       the same config, k = 4, every launch counter set to 0 just before
@@ -289,12 +295,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    and 256, at small shapes, D's four decode modes, D2's four prefill
    modes and I's two writes; 4j runs after 4g, 4n after 4j, 4o, 4p and
    4q after 4n, before 4d); every profiled step and prefill prints its device time by kernel group
-   (KERNEL_GROUPS, the writes and kernels A and B among them; a decode
-   step's torch glue split into RoPE, casts, sampling, a mesh's
+   (KERNEL_GROUPS, the writes and kernels A, B, J and G8 among them; a
+   decode step's torch glue split into RoPE (rope_cos_sin), casts,
+   sampling, a mesh's
    cross-rank sums and other by the ops that launch it, GLUE); card busy is the union of the card's
-   activity intervals (kernels A, B and E's decode mode are programmatic
-   dependents and overlap their neighbours); every forward's launches of
-   A and B are counted (``check_norm_launches``);
+   activity intervals (kernels A, B, J and E's decode mode are
+   programmatic dependents and overlap their neighbours); every
+   forward's launches of A, B and J are counted (``check_norm_launches``);
 5. one JSON line of kernel results (each with its time, its plain
    version's, its bound from this run's inputs and, where one PyTorch call
    computes the same function, that call's time), the whole run's time,
@@ -394,6 +401,13 @@ REPLACES = {
         "llm_inference_engine_tpu/ops/attention.py:356",
     "attention_decode_paged_fused_int8":
         "llm_inference_engine_tpu/ops/attention.py:356",
+    # J and G8 (its cast and its epilogue) replace no TPU kernel: the JAX
+    # package runs the QKV split with RoPE, the INT8 cast and the scale
+    # after the dot in XLA (its Pallas rotation kernel was retired,
+    # ops/rope.py:123-140); each row names that XLA code
+    "split_qkv_rope": "llm_inference_engine_tpu/ops/rope.py:167",
+    "dequant_int8": "llm_inference_engine_tpu/ops/quant.py:262",
+    "int8_scale_cast": "llm_inference_engine_tpu/ops/quant.py:373",
 }
 _TRITON = ("triton", "llm_inference_engine_tpu_torch/ops/_triton_kernels.py")
 _NORM_ACT = ("cuda", "llm_inference_engine_tpu_torch/csrc/norm_act.cu")
@@ -418,6 +432,9 @@ SOURCES = {
     "attention_prefill_paged_int8": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention_prefill.cu"),
     "attention_decode_paged_int8": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention_decode.cu"),
     "attention_decode_paged_fused_int8": ("cuda", "llm_inference_engine_tpu_torch/csrc/attention_decode.cu"),
+    "split_qkv_rope": _NORM_ACT,
+    "dequant_int8": _TRITON,
+    "int8_scale_cast": _TRITON,
 }
 # the main path whose launch count each kernel reports; the attend-only
 # decodes over a bf16 and an int8 pool run on none since the fused paged
@@ -425,6 +442,7 @@ SOURCES = {
 # out of the JSON line)
 PATH_OF = {name: "bf16" for name in REPLACES}
 PATH_OF.update(int4_matmul="int4", dequant_int4="int4", int8_matmul="int8",
+               dequant_int8="int8", int8_scale_cast="int8",
                paged_kv_write="server", attention_prefill_paged="server",
                attention_decode_paged=None,
                attention_decode_paged_fused="server",
@@ -544,7 +562,9 @@ BF16_ONLY = ("attention_prefill", "attention_decode", "kv_write_quant",
              "attention_prefill_paged_int8", "attention_decode_paged_int8",
              "attention_decode_paged_fused_int8", "int4_matmul",
              "int8_matmul")
-NORM_ACT = ("rmsnorm", "add_residual_rmsnorm", "silu_and_mul")
+# kernels A, B and J: every forward of every path launches them
+NORM_ACT = ("rmsnorm", "add_residual_rmsnorm", "silu_and_mul",
+            "split_qkv_rope")
 BF16_SLOT = ("kv_write", "attention_prefill", "attention_decode")
 INT8_SLOT = ("kv_write_quant", "attention_prefill_int8",
              "attention_decode_int8")
@@ -552,20 +572,22 @@ BF16_PAGED = ("paged_kv_write", "attention_prefill_paged",
               "attention_decode_paged_fused")
 INT8_PAGED = ("paged_kv_write_int8", "attention_prefill_paged_int8",
               "attention_decode_paged_fused_int8")
+# G8: the INT8 weight's cast at m >= 1024 and its scale epilogue
+G8 = ("dequant_int8", "int8_scale_cast")
 # the paged kernels no slot path launches
 PAGED_ALL = BF16_PAGED + INT8_PAGED + ("attention_decode_paged",
                                        "attention_decode_paged_int8")
 # each slot main path: (kernels that must launch, kernels that must not)
 MAIN_PATHS = {
-    "bf16": (NORM_ACT + BF16_SLOT, INT8_SLOT + PAGED_ALL),
+    "bf16": (NORM_ACT + BF16_SLOT, INT8_SLOT + PAGED_ALL + G8),
     "int4": (NORM_ACT + BF16_SLOT + ("int4_matmul", "dequant_int4"),
-             INT8_SLOT + PAGED_ALL),
-    "int8": (NORM_ACT + BF16_SLOT + ("int8_matmul",),
-             INT8_SLOT + PAGED_ALL),
+             INT8_SLOT + PAGED_ALL + G8),
+    "int8": (NORM_ACT + BF16_SLOT + ("int8_matmul",) + G8,
+             INT8_SLOT + PAGED_ALL + ("dequant_int4",)),
     "int4-kv8": (NORM_ACT + INT8_SLOT + ("int4_matmul", "dequant_int4"),
-                 BF16_SLOT + PAGED_ALL),
-    "int8-kv8": (NORM_ACT + INT8_SLOT + ("int8_matmul",),
-                 BF16_SLOT + PAGED_ALL),
+                 BF16_SLOT + PAGED_ALL + G8),
+    "int8-kv8": (NORM_ACT + INT8_SLOT + ("int8_matmul",) + G8,
+                 BF16_SLOT + PAGED_ALL + ("dequant_int4",)),
 }
 # Faults planted in the plain int8 attention (attention_torch with scale
 # planes) to show that a path's logit limits can see a broken int8 kernel:
@@ -937,25 +959,6 @@ def decode_shape_rows(torch, dev, hidden: int = 4096,
     x, r, gu = randn(8, hidden), randn(8, hidden), randn(8, 2 * inter)
     w = randn(hidden) * 0.1 + 1.0
 
-    def replayed_ms(fn):
-        """(events, union) ms a call"""
-        fn()
-        torch.cuda.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(64):
-                fn()
-        graph.replay()
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(4):
-            graph.replay()
-        end.record()
-        end.synchronize()
-        return (start.elapsed_time(end) / 4 / 64,
-                device_profile(torch, graph.replay, 4).busy / 64)
-
     got = rmsnorm.add_residual_rmsnorm(x, r, w, kernels="cuda")
     want = rmsnorm.add_residual_rmsnorm_torch(x, r, w)
     if not torch.equal(got[1], want[1]):
@@ -986,10 +989,12 @@ def decode_shape_rows(torch, dev, hidden: int = 4096,
             3 * 8 * inter * 2)}
     rows = {}
     for name, (kern, plain, library, nbytes) in cases.items():
-        (k_ev, k_union), (p_ev, _) = replayed_ms(kern), replayed_ms(plain)
+        k_ev, k_union = graph_replayed_ms(torch, kern)
+        p_ev = graph_replayed_ms(torch, plain)[0]
         row = rows[name] = dict(
             kernel=k_ev, kernel_union=k_union, plain=p_ev,
-            library=replayed_ms(library)[0] if library else None,
+            library=(graph_replayed_ms(torch, library)[0] if library
+                     else None),
             bound=bound_ms((nbytes, 0))[0])
         say(f"  {name:22s} decode shape [8, {hidden}], graph replays, held "
             f"against plain: "
@@ -999,6 +1004,140 @@ def decode_shape_rows(torch, dev, hidden: int = 4096,
                if library else "")
             + f"; bound {row['bound'] * 1e3:.4f} us (bytes)")
     return rows
+
+
+def graph_replayed_ms(torch, fn, calls: int = 64):
+    """(CUDA events, union of the card's activity intervals) ms a call of
+    ``fn``, ``calls`` calls captured in one CUDA graph and replayed: as
+    the decode programs run a fixed-cost launch."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(4):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return (start.elapsed_time(end) / 4 / calls,
+            device_profile(torch, graph.replay, 4).busy / calls)
+
+
+def rope_route():
+    """The tree's QKV split with RoPE as its ``models.llama`` calls it:
+    kernel J where the tree has it, else the split, two rotations and v's
+    copy (the glue J replaced). ``tools/chip_kernel_ab.py --rows rope``
+    times both trees through it."""
+    from llm_inference_engine_tpu_torch.models import llama
+    if hasattr(llama, "split_qkv_rope_fused"):
+        return llama.split_qkv_rope_fused
+
+    def glue(qkv, cos, sin, H, K, D):
+        q, k, v = llama.split_qkv(qkv, H, K, D)
+        return (llama.rotate(q, cos, sin), llama.rotate(k, cos, sin),
+                v.contiguous())
+    return glue
+
+
+def rope_inputs(torch, gen, n: int, K: int, G: int, D: int, dtype,
+                poison: bool = False):
+    """J's inputs for ``n`` tokens: packed qkv [n, K*(G+2)*D] of
+    ``dtype`` and cos/sin [n, 1, D/2] (``rope_tables``' layout) of random
+    positions below 4096 (llama2-7b's theta); with ``poison``, each at
+    the head of a buffer whose tail is NaN."""
+    from llm_inference_engine_tpu_torch.ops import rope
+    dev = gen.device
+    qkv = torch.randn(n, K * (G + 2) * D, generator=gen, device=dev,
+                      dtype=dtype)
+    pos = torch.randint(0, 4096, (n,), generator=gen, device=dev)
+    cos, sin = (t[:, None, :].contiguous()
+                for t in rope.rope_cos_sin(pos, D, 10000.0))
+    if poison:
+        qkv, cos, sin = (poisoned(torch, t) for t in (qkv, cos, sin))
+    return qkv, cos, sin
+
+
+def rope_work(n: int, K: int, G: int, D: int, elem: int):
+    """(bytes, operations, their rate) of J: the packed rows read and q, k,
+    v written once (the same element count), cos and sin read once; 6
+    f32 operations a rotated pair (four products, a sum, a difference)."""
+    row = K * (G + 2) * D
+    return (2 * n * row * elem + 2 * n * (D // 2) * 4,
+            6 * n * K * (G + 1) * (D // 2), F32_OPS_PER_S)
+
+
+def rope_case(torch, gen, results, case: str, n: int, K: int, G: int,
+              D: int, dtype=None, timed: bool = True) -> None:
+    """Kernel J for ``n`` tokens at K kv heads, group G, head_dim D: q, k
+    and v bit for bit its plain version's (the split, two rotations, v's
+    copy), every input at the head of a buffer whose tail is NaN; timed
+    beside the plain version with its bound. No single PyTorch call
+    splits and rotates: its library column is none."""
+    from llm_inference_engine_tpu_torch.ops import rope
+    dtype = dtype or torch.bfloat16
+    qkv, cos, sin = rope_inputs(torch, gen, n, K, G, D, dtype, poison=True)
+    H = K * G
+    got = rope.split_qkv_rope_fused(qkv, cos, sin, H, K, D, kernels="cuda")
+    want = rope.split_qkv_rope_fused_torch(qkv, cos, sin, H, K, D)
+    torch.cuda.synchronize()
+    for part, g, w in zip("qkv", got, want):
+        if not torch.equal(g, w):
+            bad = (g != w).sum().item()
+            raise AssertionError(f"split_qkv_rope [{case}]: {part} differs "
+                                 f"from the plain version in {bad} of "
+                                 f"{w.numel()} values")
+    t = None
+    if timed:
+        t = (time_ms(torch, lambda: rope.split_qkv_rope_fused(
+                qkv, cos, sin, H, K, D, kernels="cuda"), iters=20),
+             time_ms(torch, lambda: rope.split_qkv_rope_fused_torch(
+                 qkv, cos, sin, H, K, D), iters=20))
+    record("split_qkv_rope", 0.0, results,
+           f"{case} [{n}] K{K} G{G} D{D} {str(dtype)[6:]} bit for bit, NaN "
+           "past the tails, library none", t,
+           rope_work(n, K, G, D, qkv.element_size()))
+
+
+def rope_replayed_rows(torch, dev, tag: str, K: int, G: int, D: int,
+                       n: int = 8, held: bool = True) -> dict:
+    """J at a decode step's ``n`` tokens, timed as the decode programs run
+    it (``graph_replayed_ms``: 64 calls in one CUDA graph), beside the
+    plain version timed the same way, with its bound; ``held``: its
+    outputs bit for bit the plain version's first (this tree's kernel;
+    ``tools/chip_kernel_ab.py`` times the other tree's route, which
+    ``rope_route`` picks, without it). Returns {name: ms a call}."""
+    from llm_inference_engine_tpu_torch.ops import rope
+    gen = torch.Generator(device=dev).manual_seed(77)
+    qkv, cos, sin = rope_inputs(torch, gen, n, K, G, D, torch.bfloat16)
+    H = K * G
+    route = rope_route()
+    if held:
+        got = route(qkv, cos, sin, H, K, D)
+        want = rope.split_qkv_rope_fused_torch(qkv, cos, sin, H, K, D)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"split_qkv_rope {tag} in graph replays: "
+                                 "not bit for bit the plain version")
+    (k_ev, k_union) = graph_replayed_ms(
+        torch, lambda: route(qkv, cos, sin, H, K, D))
+    row = {f"split_qkv_rope {tag} decode": k_ev,
+           f"split_qkv_rope {tag} decode union": k_union}
+    if held:
+        row[f"split_qkv_rope {tag} decode plain"] = graph_replayed_ms(
+            torch, lambda: rope.split_qkv_rope_fused_torch(
+                qkv, cos, sin, H, K, D))[0]
+    b = bound_ms(rope_work(n, K, G, D, 2))[0]
+    say(f"  split_qkv_rope {tag} [{n}] K{K} G{G} D{D}, graph replays"
+        + (", bit for bit the plain version" if held else "")
+        + f": {k_ev * 1e3:.3f} us a call (events; union {k_union * 1e3:.3f}"
+        " us)" + (f", plain {row[f'split_qkv_rope {tag} decode plain'] * 1e3:.3f}"
+                  " us" if held else "")
+        + f"; bound {b * 1e3:.4f} us (bytes); library none")
+    return row
 
 
 def phase_kernels(torch, dev, results) -> None:
@@ -1057,6 +1196,10 @@ def phase_kernels(torch, dev, results) -> None:
                             gu, kernels="cuda")),
                         time_ms(torch, lambda: activations.silu_and_mul_torch(gu))),
                     work=(3 * n * 11008 * 2, 5 * n * 11008))
+
+    # J: a prefill chunk's 8 x 512 tokens and a decode step's 8
+    for n, case in ((8 * 512, "prefill 8 x 512"), (8, "decode")):
+        rope_case(torch, gen, results, case, n, 32, 1, 128)
 
     # C: a 512-token prefill chunk into the full 7B cache at layer 31
     L, B, S, K, D = 32, 4, 2048, 32, 128
@@ -1345,9 +1488,11 @@ def prefill_rows(torch, dev) -> dict:
     """Card busy ms of one warm prefill of 4b's prompts (llama2-7b INT4,
     B = 8) and the K/V writes' share of it, no checks: paged with a bf16
     pool (4d) and an int8 pool (4h), pages and chunks of 64, and slot with
-    an int8 cache (4g). ``tools/chip_kernel_ab.py --rows prefill`` times
-    another tree through this function, so it calls only what every tree
-    has."""
+    an int8 cache (4g); then slot at INT4 (4b) and INT8 (4c), the first
+    chunk 8 x 512 rows (the m >= 1024 route: G or G8, cuBLAS), with the
+    ms of kernel J, G, G8, cuBLAS and the rest (KERNEL_GROUPS).
+    ``tools/chip_kernel_ab.py --rows prefill`` times another tree through
+    this function, so it calls only what every tree has."""
     import numpy as np
 
     from llm_inference_engine_tpu_torch.config import EngineConfig
@@ -1372,6 +1517,139 @@ def prefill_rows(torch, dev) -> dict:
             ms for ms, name in prof.per_kernel if "kv_write" in name)
         del engine
         torch.cuda.empty_cache()
+    for tag, quant in (("4b int4 slot", "int4"), ("4c int8 slot", "int8")):
+        engine = create_engine("llama2-7b", None, base.replace(
+            quant_mode=quant), seed=0, device=dev)
+        engine.prefill(prompts)
+        engine.reset()
+        prof = device_profile(torch, lambda: engine.prefill(prompts), 1)
+        out[f"{tag} prefill busy"] = prof.busy
+        groups = group_ms(prof.per_kernel)
+        for g in ("J", "G", "G8", "cuBLAS", "rest"):
+            out[f"{tag} prefill {g}"] = groups[g]
+        del engine
+        torch.cuda.empty_cache()
+    return out
+
+
+def replayed_step_rows(torch, dev, engine, tag: str, prompts) -> dict:
+    """One slot engine's replayed decode step after a 16-token greedy
+    ``generate`` of ``prompts``: wall a step over 32 replays, the card's
+    busy ms a step (4 replays), kernel J's ms and the RoPE glue's ms of it
+    (``glue_labels`` over one eager step: rope_cos_sin, and the split and
+    rotations in a tree that still runs them), the RoPE group (their
+    sum), the casts' ms (where a tree's copy of v lands) and a checksum of
+    the ids."""
+    import numpy as np
+
+    from llm_inference_engine_tpu_torch.config import SamplingParams
+    from llm_inference_engine_tpu_torch.runtime.decode_graph import (
+        run_eagerly)
+    res = engine.generate(prompts, SamplingParams(greedy=True,
+                                                  max_new_tokens=16),
+                          eos_token_id=None)
+    toks = torch.tensor([o[-1] for o in res.token_ids], device=dev,
+                        dtype=torch.int32)
+    active, sp = np.ones(len(prompts), bool), SamplingParams(greedy=True)
+    toks = engine.decode_step(toks, active, sp)   # captures the step
+    snap = snapshot(engine)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = []
+    for _ in range(32):
+        toks = engine.decode_step(toks, active, sp)
+        ids.append(toks)
+    torch.cuda.synchronize()
+    out = {f"{tag} replayed step wall": (time.perf_counter() - t0) / 32 * 1e3,
+           f"{tag} greedy ids checksum": bits_checksum(
+               torch, [torch.tensor(res.token_ids, device=dev), *ids])}
+    restore(engine, snap)
+    prof = device_profile(torch, lambda: engine.decode_step(toks, active,
+                                                            sp), 4)
+    restore(engine, snap)
+    with run_eagerly(engine), glue_labels():
+        _, cpu = device_profile(torch, lambda: engine.decode_step(
+            toks, active, sp), 1, cpu_ops=True)
+    groups = group_ms(prof.per_kernel, glue_map(cpu))
+    out.update({f"{tag} replayed step busy": prof.busy,
+                f"{tag} replayed step J": groups["J"],
+                f"{tag} replayed step RoPE glue": groups["RoPE"],
+                f"{tag} replayed step RoPE group": groups["J"]
+                + groups["RoPE"],
+                f"{tag} replayed step casts": groups["casts"]})
+    engine.reset()
+    return out
+
+
+def rope_rows(torch, dev) -> dict:
+    """The QKV split with RoPE of this tree (``rope_route``: kernel J, or
+    the glue J replaced), no checks: at 4b's decode step ([8] tokens,
+    llama2-7b: 64 calls in a CUDA graph), at tinyllama's ([8], G 8,
+    head_dim 64) and a tp = 2 rank's (K 16), all in graph replays; at a
+    prefill chunk (8 x 512) and the verify's 8 x 5 (CUDA events); a
+    checksum of the route's outputs at the prefill chunk; then the
+    replayed decode step (``replayed_step_rows``) of 4a (bf16, B 4), 4b
+    (INT4, B 8), 4n (INT4 at tp = 2 on two ranks of this card, B 8) and
+    4t (float16, B 4). ``tools/chip_kernel_ab.py --rows rope`` times
+    another tree through this function, so it calls only what every tree
+    has."""
+    import numpy as np
+
+    from llm_inference_engine_tpu_torch.config import EngineConfig, get_config
+    from llm_inference_engine_tpu_torch.models import weights as W
+    from llm_inference_engine_tpu_torch.models.registry import create_engine
+    from llm_inference_engine_tpu_torch.parallel import make_mesh, sharding
+    from llm_inference_engine_tpu_torch.runtime.engine import InferenceEngine
+    out = {}
+    for tag, K, G, D in (("4b", 32, 1, 128), ("tinyllama", 4, 8, 64),
+                         ("tp2", TP2_HEADS, 1, 128)):
+        rows = rope_replayed_rows(torch, dev, tag, K, G, D, held=False)
+        out[f"split_qkv_rope {tag} decode"] = rows[
+            f"split_qkv_rope {tag} decode"]
+    route = rope_route()
+    gen = torch.Generator(device=dev).manual_seed(78)
+    for tag, n in (("prefill 8 x 512", 8 * 512),
+                   ("verify 8 x 5", 8 * (SPEC_K + 1))):
+        qkv, cos, sin = rope_inputs(torch, gen, n, 32, 1, 128,
+                                    torch.bfloat16)
+        out[f"split_qkv_rope {tag}"] = time_ms(
+            torch, lambda: route(qkv, cos, sin, 32, 32, 128), iters=20)
+        if n == 8 * 512:
+            out["split_qkv_rope outputs checksum"] = bits_checksum(torch, [
+                t.reshape(-1).view(torch.int16)
+                for t in route(qkv, cos, sin, 32, 32, 128)])
+    rng = np.random.default_rng(0)
+    quant_prompts = [rng.integers(3, 32000, n).tolist()
+                     for n in QUANT_PROMPTS]
+    rng = np.random.default_rng(0)
+    b4_prompts = [rng.integers(3, 32000, n).tolist()
+                  for n in (7, 129, 384, 700)]
+    b4 = EngineConfig(max_batch_size=4, max_seq_len=2048)
+    engine = create_engine("llama2-7b", None, b4, seed=0, device=dev)
+    out.update(replayed_step_rows(torch, dev, engine, "4a", b4_prompts))
+    del engine
+    torch.cuda.empty_cache()
+    int4 = EngineConfig(quant_mode="int4", max_batch_size=8,
+                        max_seq_len=2048)
+    engine = create_engine("llama2-7b", None, int4, seed=0, device=dev)
+    out.update(replayed_step_rows(torch, dev, engine, "4b", quant_prompts))
+    params = engine.params
+    del engine
+    engine = InferenceEngine(get_config("llama2-7b"), int4,
+                             sharding.shard_params(params, make_mesh(
+                                 1, 2, devices=[dev, dev])))
+    del params
+    out.update(replayed_step_rows(torch, dev, engine, "4n tp2",
+                                  quant_prompts))
+    del engine
+    torch.cuda.empty_cache()
+    cfg = get_config("llama2-7b").replace(dtype_name="float16")
+    engine = InferenceEngine(cfg, b4, W.init_dummy_params(cfg, seed=0,
+                                                          device=dev),
+                             device=dev)
+    out.update(replayed_step_rows(torch, dev, engine, "4t f16", b4_prompts))
+    del engine
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1669,6 +1947,9 @@ def phase_quant_kernels(torch, dev, results) -> None:
                     cutover([t], x, bf16)
         torch.cuda.empty_cache()
 
+    # INT8 at m 4096: G8's route, its parent's, F; G8 alone
+    large_m_int8_rows(torch, dev, gen, results)
+
     # G: bit-identical to its plain version
     for k, n in ((4096, 12288), (11008, 4096)):
         ts = quant_weights(torch, quant, dev, gen, "int4", k, n,
@@ -1690,6 +1971,105 @@ def phase_quant_kernels(torch, dev, results) -> None:
         del ts, got, want
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+
+
+# 3b's INT8 rows at m = 4096 (4c's first prefill chunk, 8 x 512): the
+# routes timed in turns on each projection
+LARGE_M = 8 * 512
+
+
+def large_m_int8_rows(torch, dev, gen, results) -> dict:
+    """INT8 weights at m = LARGE_M on the four projections of QUANT_SHAPES
+    (weights cycled through 120 MB): the route ``_large_m_linear`` takes
+    (G8, cuBLAS with an f32 result, the scale, the cast), its parent's
+    (the same with ``.to(bfloat16)`` and ``_cat`` in place of G8: the
+    plain version on the card) and kernel F's wgmma prefill mode at the
+    same m, timed in turns (parent, G8, F, F, G8, parent); G8's route
+    bit for bit the parent's, F's within KERNEL_TOL of it; then G8 alone
+    bit for bit its plain version (cast + ``_cat``), q at the head of a
+    buffer whose tail holds 127, and G8's epilogue alone (the f32 product
+    times the scale, rounded to bf16) bit for bit ``(y * post).to``, y and
+    the scale with NaN past their tails, each timed with its bound.
+    Returns {row: ms}."""
+    from llm_inference_engine_tpu_torch.ops import quant
+    bf16 = torch.bfloat16
+    out = {}
+    for label in ("wqkv", "wo", "gate|up", "down"):
+        k, n, halves = QUANT_SHAPES[label]
+        ts = quant_weights(torch, quant, dev, gen, "int8", k, n, halves,
+                           120_000_000)
+        x = torch.randn(LARGE_M, k, generator=gen, device=dev, dtype=bf16)
+        routes = {
+            "parent cast + cuBLAS": lambda t: quant._large_m_linear(
+                x, t, bf16, "torch"),
+            "G8 + cuBLAS": lambda t: quant._large_m_linear(x, t, bf16,
+                                                           "auto"),
+            "F (wgmma)": lambda t: quant.int8_matmul(x, t.q, t.scale, bf16,
+                                                     kernels="cuda")}
+        ref = routes["parent cast + cuBLAS"](ts[0])
+        if not torch.equal(routes["G8 + cuBLAS"](ts[0]), ref):
+            raise AssertionError(f"G8 + cuBLAS m{LARGE_M} {label}: not bit "
+                                 "for bit the cast + _cat route")
+        f_out = routes["F (wgmma)"](ts[0])
+        if not torch.allclose(f_out.float(), ref.float(), **KERNEL_TOL):
+            raise AssertionError(f"F m{LARGE_M} {label}: disagrees with the "
+                                 "cast + cuBLAS route")
+        ms = {r: [] for r in routes}
+        for r in ("parent cast + cuBLAS", "G8 + cuBLAS", "F (wgmma)",
+                  "F (wgmma)", "G8 + cuBLAS", "parent cast + cuBLAS"):
+            ms[r].append(time_ms(torch, cycling(ts, routes[r]), iters=5))
+        n_out = halves * n
+        b, by = bound_ms((ts[0].nbytes + x.numel() * 2 + LARGE_M * n_out * 2,
+                          2 * LARGE_M * k * n_out))
+        say(f"  int8 m{LARGE_M} {label} [{k},{n_out}]: " + "; ".join(
+            f"{r} {sum(v) / 2:.4f} ms ({v[0]:.4f}, {v[1]:.4f})"
+            for r, v in ms.items())
+            + f"; bound {b:.4f} ms ({by}); F vs cast + cuBLAS max abs "
+            f"{(f_out.float() - ref.float()).abs().max().item():.3e}")
+        for r, v in ms.items():
+            out[f"int8 m{LARGE_M} {label} {r}"] = sum(v) / 2
+        # G8 alone
+        ts[0] = quant.QuantizedTensor(poisoned(torch, ts[0].q), ts[0].scale,
+                                      "int8", 128)
+        got = quant.dequant_int8(ts[0].q, kernels="cuda")
+        want = quant.dequant_int8_torch(ts[0].q)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"dequant_int8 {label}: not bit for bit "
+                                 ".to(bfloat16) + _cat")
+        g8 = time_ms(torch, cycling(ts, lambda t: quant.dequant_int8(
+            t.q, kernels="cuda")))
+        out[f"dequant_int8 {label}"] = g8
+        record("dequant_int8", 0.0, results,
+               f"{label} int8 [{k},{n_out}] -> bf16 (torch.equal), 127 past "
+               "the tail", (g8, time_ms(torch, cycling(
+                   ts, lambda t: quant.dequant_int8_torch(t.q)), iters=3,
+                   warmup=1)),
+               work=(k * n_out * 3, 0))
+        # G8's epilogue alone
+        y = poisoned(torch, torch.randn(LARGE_M, n_out, generator=gen,
+                                        device=dev))
+        post = poisoned(torch, quant._cat([
+            sh.reshape(1, -1) for _, sh in quant._halves(ts[0].q,
+                                                         ts[0].scale)]))
+        got = quant.int8_scale_cast(y, post, bf16, kernels="cuda")
+        want = quant.int8_scale_cast_torch(y, post, bf16)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"int8_scale_cast {label}: not bit for bit "
+                                 "(y * post).to(bfloat16)")
+        ep = time_ms(torch, lambda: quant.int8_scale_cast(y, post, bf16,
+                                                          kernels="cuda"))
+        out[f"int8_scale_cast {label}"] = ep
+        record("int8_scale_cast", 0.0, results,
+               f"{label} f32 [{LARGE_M},{n_out}] x scale -> bf16 "
+               "(torch.equal), NaN past the tails",
+               (ep, time_ms(torch, lambda: quant.int8_scale_cast_torch(
+                   y, post, bf16))),
+               work=(LARGE_M * n_out * 6 + n_out * 4, LARGE_M * n_out))
+        del ts, x, ref, f_out, got, want, y, post
+        torch.cuda.empty_cache()
+    return out
 
 
 def int8pack_ms(torch, ts, x, out_dtype):
@@ -1810,9 +2190,9 @@ def _short(kernel_name: str) -> str:
 # float16 / float32 instances of D2 and D (D2f/Df: the same templates over
 # __half or float, and the f32 prefill kernel) and of E and F (Ef/Ff: E/F's
 # template over __half, and the f32 kernels), kernel D2 (the prefill
-# modes), kernel D (the decode modes), E/F, G, cuBLAS, the K/V row writes
-# C, H, I (kv_write_kernel: C and H; kv_write_quant_kernel: I and H's int8
-# mode), kernels A and B
+# modes), kernel D (the decode modes), E/F, G, G8, cuBLAS, the K/V row
+# writes C, H, I (kv_write_kernel: C and H; kv_write_quant_kernel: I and
+# H's int8 mode), kernels A, B and J
 KERNEL_GROUPS = (("D2f/Df", ("attention_prefill_kernel<__half",
                              "attention_prefill_f32_kernel",
                              "attention_decode_kernel<__half",
@@ -1825,14 +2205,18 @@ KERNEL_GROUPS = (("D2f/Df", ("attention_prefill_kernel<__half",
                  ("D", ("attention_decode_kernel",)),
                  ("E/F", ("quant_matmul_decode", "quant_matmul_prefill")),
                  ("G", ("dequant_int4_kernel",)),
+                 ("G8", ("dequant_int8_kernel", "int8_scale_cast_kernel")),
                  ("cuBLAS", ("nvjet", "gemm", "cutlass", "xmma")),
                  ("writes", ("kv_write",)),
                  ("A", ("rmsnorm_kernel",)),
-                 ("B", ("silu_mul_kernel",)))
+                 ("B", ("silu_mul_kernel",)),
+                 ("J", ("split_qkv_rope_kernel",)))
 # the torch glue of a decode step (the kernels outside KERNEL_GROUPS), by
-# where the eager body launched them: RoPE (ops/rope.py's rope_cos_sin and
-# rotate), sampling (ops/sampling.py's functions the engine calls), the
-# cross-rank sums of a mesh engine (parallel/sharding.py's rank_sum), the
+# where the eager body launched them: RoPE (ops/rope.py's rope_cos_sin,
+# once a forward; a tree whose decoder still calls rotate and split_qkv,
+# its rotations too), sampling (ops/sampling.py's functions the engine
+# calls), the cross-rank sums of a mesh engine (parallel/sharding.py's
+# rank_sum), the
 # context-parallel attention math (parallel/context_parallel.py's stats,
 # merges and combine; its f32 matmuls are cuBLAS kernels, which
 # ``label_ms`` counts), casts (aten::to / copy_ elsewhere), other
@@ -1853,7 +2237,9 @@ def glue_labels():
     from llm_inference_engine_tpu_torch.parallel import (
         context_parallel, sharding)
     from llm_inference_engine_tpu_torch.runtime import engine
-    patches = [(llama, n, "RoPE") for n in ("rope_cos_sin", "rotate")] + [
+    patches = [(llama, n, "RoPE") for n in ("rope_cos_sin", "rotate",
+                                             "split_qkv")
+               if hasattr(llama, n)] + [
         (engine, n, "sampling") for n in ("apply_penalties", "greedy_sample",
                                           "sample_tokens", "token_logprobs")
     ] + [(sharding, "rank_sum", "sums")] + [
@@ -1973,7 +2359,7 @@ def _counters():
     from llm_inference_engine_tpu_torch.ops import activations, attention
     from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
     from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
-    from llm_inference_engine_tpu_torch.ops import quant, rmsnorm
+    from llm_inference_engine_tpu_torch.ops import quant, rmsnorm, rope
     return {
         "rmsnorm": rmsnorm.rmsnorm,
         "add_residual_rmsnorm": rmsnorm.add_residual_rmsnorm,
@@ -1998,6 +2384,9 @@ def _counters():
         "attention_decode_paged_int8": attention.attention_decode_int8,
         "attention_decode_paged_fused_int8":
             attention.attention_decode_paged_fused_int8,
+        "split_qkv_rope": rope.split_qkv_rope_fused,
+        "dequant_int8": quant.dequant_int8,
+        "int8_scale_cast": quant.int8_scale_cast,
         **{name: getattr(attention, name, None)
            or getattr(kvc, name, None) or getattr(pkv, name, None)
            or getattr(quant, name) for name in FLOAT_INSTANCES},
@@ -2020,14 +2409,15 @@ def check_norm_launches(label: str, counts: dict, layers: int,
     """Each forward of ``layers`` layers launches kernel A once plain (the
     first norm), 2 x layers times with a residual (each layer's second
     norm, and each later first norm or the final norm adding the layer
-    before's output) and B once a layer; ``forwards``: how many forwards
-    ``counts`` covers, where known."""
+    before's output), B once a layer and J (the QKV split with RoPE) once
+    a layer; ``forwards``: how many forwards ``counts`` covers, where
+    known."""
     f = counts.get("rmsnorm", 0)
     want = dict(rmsnorm=f, add_residual_rmsnorm=2 * layers * f,
-                silu_and_mul=layers * f)
+                silu_and_mul=layers * f, split_qkv_rope=layers * f)
     got = {k: counts.get(k, 0) for k in want}
     if f == 0 or got != want or forwards not in (None, f):
-        raise AssertionError(f"{label}: launches of A and B {got}, want "
+        raise AssertionError(f"{label}: launches of A, B and J {got}, want "
                              f"{want} for {forwards or 'some'} forward(s)")
 
 
@@ -4724,6 +5114,12 @@ def spec_kernel_rows(torch, dev, results) -> None:
     paged_equals_slot(torch, dev, gen, "tinyllama", B, H, K, D, starts)
     rows = decode_shape_rows(torch, dev, hidden=2048, inter=5632)
     say("  tinyllama A/B at decode shape (ms a call): " + json.dumps(rows))
+    # J at tinyllama's widths (G = 8, head_dim 64: the draft's step, and
+    # in graph replays) and at the verify's m 40 (8 x 5, llama2-7b)
+    rope_case(torch, gen, results, "tinyllama decode", 8, 4, 8, 64)
+    rope_replayed_rows(torch, dev, "tinyllama", 4, 8, 64)
+    rope_case(torch, gen, results, "verify 8 x 5", 8 * (SPEC_K + 1), 32, 1,
+              128)
     torch.cuda.empty_cache()
 
 
@@ -4917,10 +5313,10 @@ def phase_speculative(torch, dev, results) -> None:
               + ingests * draft.config.num_layers)
     forwards = SPEC_ROUNDS * (SPEC_K + 1) + ingests
     want = dict(rmsnorm=forwards, add_residual_rmsnorm=2 * layers,
-                silu_and_mul=layers)
+                silu_and_mul=layers, split_qkv_rope=layers)
     got = {k: round(per_round.get(k, 0) * SPEC_ROUNDS) for k in want}
     if got != want:
-        failures.append(f"launches of A and B over {SPEC_ROUNDS} rounds "
+        failures.append(f"launches of A, B and J over {SPEC_ROUNDS} rounds "
                         f"{got}, want {want}")
 
     # (c) the sampled round, from the same state
@@ -5810,6 +6206,11 @@ def tp2_kernel_rows(torch, dev, results) -> None:
                 row_rel=DECODE_ROW_TOL)
     del c, ref
     torch.cuda.empty_cache()
+    # J at a rank's local heads (K = 16): 4b's first chunk and its decode
+    # step, and the step in graph replays
+    for n, case in ((8 * 512, "tp2 prefill 8 x 512"), (8, "tp2 decode")):
+        rope_case(torch, gen, results, case, n, TP2_HEADS, 1, 128)
+    rope_replayed_rows(torch, dev, "tp2", TP2_HEADS, 1, 128)
     tp2_paged_rows(torch, dev, gen, results)
 
 
@@ -7042,12 +7443,13 @@ def forward_launches(ranks: int, forwards: int, layer_forwards: int,
                      **kernels) -> dict:
     """What ``forwards`` INT4 forwards of ``layer_forwards`` layers in all
     launch on each of ``ranks`` ranks: A once a forward plain and twice a
-    layer with a residual, B once a layer, E four times a layer (wqkv, wo,
-    gate|up, down) and once for the lm_head; ``kernels``: the attention
-    and write kernels' counts on one rank."""
+    layer with a residual, B and J once a layer, E four times a layer
+    (wqkv, wo, gate|up, down) and once for the lm_head; ``kernels``: the
+    attention and write kernels' counts on one rank."""
     return dict(rmsnorm=ranks * forwards,
                 add_residual_rmsnorm=ranks * 2 * layer_forwards,
                 silu_and_mul=ranks * layer_forwards,
+                split_qkv_rope=ranks * layer_forwards,
                 int4_matmul=ranks * (4 * layer_forwards + forwards),
                 **{k: ranks * n for k, n in kernels.items()})
 
@@ -7277,17 +7679,24 @@ QDIV_FAULT_LAYER = 2
 QDIV_REL_L2 = 3e-2
 
 
-def qdiv_launches(layers: int, forwards: int, int4: bool) -> dict:
+def qdiv_launches(layers: int, forwards: int, int4: bool,
+                  int8: bool = False) -> dict:
     """Every counter's launches over ``forwards`` forwards at m = B x T >=
-    1024 rows: A once plain and twice a layer with a residual, B, C and
-    D2 once a layer, G once per INT4 weight half a layer (wqkv, wo, gate
-    and up, down) and once for the lm_head; E, F and the decode and paged
-    kernels never (the large-m route dequantizes, then cuBLAS)."""
+    1024 rows: A once plain and twice a layer with a residual, B, J, C
+    and D2 once a layer, G (INT4) or G8 (INT8; ``int4`` False with
+    ``int8``) once per weight half a layer (wqkv, wo, gate and up, down)
+    and once for the lm_head, G8's epilogue once a weight (4 a layer and
+    the lm_head); E, F and the decode and paged kernels never (the
+    large-m route dequantizes, then cuBLAS)."""
     want = {name: 0 for name in _counters()}
+    halves = (5 * layers + 1) * forwards
     want.update(rmsnorm=forwards, add_residual_rmsnorm=2 * layers * forwards,
                 silu_and_mul=layers * forwards, kv_write=layers * forwards,
+                split_qkv_rope=layers * forwards,
                 attention_prefill=layers * forwards,
-                dequant_int4=(5 * layers + 1) * forwards if int4 else 0)
+                dequant_int4=halves if int4 else 0,
+                dequant_int8=halves if int8 else 0,
+                int8_scale_cast=(4 * layers + 1) * forwards if int8 else 0)
     return want
 
 
@@ -7355,7 +7764,8 @@ def phase_quant_divergence(torch, dev) -> None:
             f.launches = 0
         kern[mode], ms = qd.run_variant(cfg, variants[mode], tokens)
         got = {k: f.launches for k, f in counters.items()}
-        want = qdiv_launches(L, 2, mode in ("int4", "int4cal"))
+        want = qdiv_launches(L, 2, mode in ("int4", "int4cal"),
+                             mode == "int8")
         plain, _ = qd.run_variant(cfg, variants[mode], tokens,
                                   kernels="torch", warmup=False)
         dist[mode] = rel(kern[mode], plain)
@@ -8039,6 +8449,17 @@ def phase_float_kernels(torch, dev, results) -> None:
                     " bit for bit")
                 del fc, ic, ref
         torch.cuda.empty_cache()
+    # J's float16 and float32 instances: 7B widths at a prefill chunk and
+    # a decode step, then head_dim 16 and 64 at GQA groups, ragged counts
+    jgen = torch.Generator(device=dev).manual_seed(1616)
+    for tag, dtype in (("f32", torch.float32), ("f16", torch.float16)):
+        for n, case in ((8 * 512, f"3f {tag} prefill"),
+                        (8, f"3f {tag} decode")):
+            rope_case(torch, jgen, results, case, n, 32, 1, 128, dtype)
+        for n, K, G, d in ((40, 4, 2, 16), (7, 2, 4, 16), (37, 8, 4, 64),
+                           (5, 4, 8, 64)):
+            rope_case(torch, jgen, results, f"3f {tag}", n, K, G, d, dtype,
+                      timed=False)
 
 
 def params_to(params, device):
@@ -8470,8 +8891,10 @@ def main() -> int:
     phase("3d", "int8 KV kernels vs plain versions (7B widths, both scale "
           "numerics, pages of 64 and 16)", phase_kv_int8_kernels, torch, dev,
           results)
-    phase("3e", "kernels A and B at decode shape (B = 8), timed in CUDA-graph "
-          "replays", decode_shape_rows, torch, dev)
+    phase("3e", "kernels A, B and J at decode shape (B = 8), timed in "
+          "CUDA-graph replays", lambda: (decode_shape_rows(torch, dev),
+                                         rope_replayed_rows(torch, dev, "7b",
+                                                            32, 1, 128)))
     phase("3f", "the float instances (float32, float16) vs plain versions "
           "(7B widths; head_dim 16 and 64 small)", phase_float_kernels,
           torch, dev, results)

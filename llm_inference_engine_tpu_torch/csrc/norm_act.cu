@@ -1,4 +1,5 @@
-// Kernels A (RMSNorm, with or without a residual add) and B (SiLU-and-mul).
+// Kernels A (RMSNorm, with or without a residual add), B (SiLU-and-mul)
+// and J (the QKV split with RoPE).
 //
 // Replaces three TPU kernels of the JAX package:
 //   - A: llm_inference_engine_tpu/ops/rmsnorm.py `_rmsnorm_kernel`, and
@@ -35,6 +36,33 @@
 //   - A at one vector a thread keeps 4 blocks of 512 threads an SM (at
 //     most 32 registers a thread), the occupancy of the kernel it
 //     replaced, for the prefill's thousands of rows.
+//
+// J replaces no TPU kernel. The JAX package splits the packed qkv and
+// rotates q and k in XLA, which fuses the rotation into the split
+// (llm_inference_engine_tpu/ops/rope.py `split_qkv_rope_xla`; its Pallas
+// rotation kernel was deleted there because the TPU's tiling forced two
+// head-major transposes around it). Eager torch runs the same math as
+// ten ops a rotation plus a copy of v, about twenty launches a layer; J
+// is the fused pass: it reads the group-major qkv row once and writes q,
+// k and v contiguous once. It is bound by its bytes (a few operations a
+// value) and, at the decode step's 8 tokens, by its launch, so:
+//   - a unit of work is one 16-byte vector of a head's first half and the
+//     vector D/2 values on (the rotation's pair), with E f32 values of cos
+//     and sin where the head is rotated (q and k; v is copied as read);
+//     neighbouring threads take neighbouring vectors of a head, then the
+//     next head, in the packed row's order;
+//   - the units of all tokens are one flat range, one unit a thread, 256
+//     threads a block: one round of loads a launch and few registers a
+//     thread, so a prefill keeps 8 blocks an SM in flight and a decode
+//     step's 8 tokens spread over 24 blocks at llama2-7b's widths (2, 4
+//     or 8 units a thread, their loads batched before their products,
+//     were slower at both shapes on an H100: registers cut the blocks an
+//     SM holds, and each launch waits for more of them);
+//   - torch's rounding, operation for operation: each product rounded to
+//     f32, then the difference or the sum, then one rounding to the
+//     element type (__fmul_rn, __fsub_rn, __fadd_rn: no FMA contraction),
+//     so J's q, k and v equal the plain version's bit for bit;
+//   - it is a programmatic dependent and reads nothing before the wait.
 // The PDL rule of this repository, for every kernel launched with the
 // attribute: before `griddepcontrol.wait` a kernel reads only constants
 // (weights, scales, norm weights), prefetches tensor maps and initializes
@@ -62,6 +90,8 @@ enum Dtype { kBF16 = 0, kF16 = 1, kF32 = 2 };
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxRowVecs = 16384;
 constexpr int kActThreads = 128;
+// J: threads a block, one unit (a vector pair) each
+constexpr int kRopeThreads = 256;
 
 __device__ __forceinline__ void pdl_wait() {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
@@ -255,6 +285,78 @@ __global__ void __launch_bounds__(kActThreads)
   reinterpret_cast<P*>(out + row * inter)[c] = o;
 }
 
+// J: unit w of the flat range [0, n * units) is unit u = w % units of
+// token w / units: its head slot hs = u / (D / 2 / E) at column hs * D +
+// (u % (D / 2 / E)) * E, and its pair D / 2 on; slot i = hs % (G + 2) of
+// group g = hs / (G + 2) is q head g * G + i (i < G), k head g (i == G)
+// or v head g (i == G + 1). cos and sin: [n, D / 2] f32.
+template <int E>
+__device__ __forceinline__ void load_f32(const float* p, float (&o)[E]) {
+  if constexpr (E % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < E / 4; ++j) {
+      const float4 f = reinterpret_cast<const float4*>(p)[j];
+      o[4 * j] = f.x;
+      o[4 * j + 1] = f.y;
+      o[4 * j + 2] = f.z;
+      o[4 * j + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < E; ++e) o[e] = p[e];
+  }
+}
+
+template <typename T, int E>
+__global__ void __launch_bounds__(kRopeThreads)
+    split_qkv_rope_kernel(const T* __restrict__ qkv,
+                          const float* __restrict__ cos_t,
+                          const float* __restrict__ sin_t, T* __restrict__ q,
+                          T* __restrict__ k, T* __restrict__ v, int n,
+                          int kv_heads, int group, int head_dim) {
+  using P = Pack<T, E>;
+  const unsigned half = head_dim >> 1;
+  const unsigned vecs = half / E;
+  const unsigned slots = group + 2;
+  const unsigned units = kv_heads * slots * vecs;
+  const unsigned w = blockIdx.x * kRopeThreads + threadIdx.x;
+  pdl_wait();
+  pdl_launch_dependents();
+  if (w >= (unsigned)n * units) return;
+
+  const unsigned tok = w / units;
+  const unsigned u = w - tok * units;
+  const unsigned hs = u / vecs;
+  const unsigned col = (u - hs * vecs) * E;
+  const unsigned g = hs / slots, i = hs - g * slots;
+  const T* x = qkv + ((size_t)tok * kv_heads * slots + hs) * head_dim + col;
+  const P x1 = *reinterpret_cast<const P*>(x);
+  const P x2 = *reinterpret_cast<const P*>(x + half);
+  if (i == slots - 1) {
+    T* dst = v + ((size_t)tok * kv_heads + g) * head_dim + col;
+    *reinterpret_cast<P*>(dst) = x1;
+    *reinterpret_cast<P*>(dst + half) = x2;
+    return;
+  }
+  float c[E], s[E];
+  load_f32<E>(cos_t + (size_t)tok * half + col, c);
+  load_f32<E>(sin_t + (size_t)tok * half + col, s);
+  P o1, o2;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const float a = to_f32(x1.v[e]), b = to_f32(x2.v[e]);
+    o1.v[e] = from_f32<T>(__fsub_rn(__fmul_rn(a, c[e]), __fmul_rn(b, s[e])));
+    o2.v[e] = from_f32<T>(__fadd_rn(__fmul_rn(b, c[e]), __fmul_rn(a, s[e])));
+  }
+  T* dst = (i < (unsigned)group
+                ? q + ((size_t)tok * kv_heads * group + g * group + i) *
+                          head_dim
+                : k + ((size_t)tok * kv_heads + g) * head_dim) +
+           col;
+  *reinterpret_cast<P*>(dst) = o1;
+  *reinterpret_cast<P*>(dst + half) = o2;
+}
+
 // Launch `kernel` as a programmatic dependent of the stream's previous
 // kernel.
 template <typename K, typename... Args>
@@ -349,6 +451,36 @@ int silu_mul_typed(const void* gate_up, void* out, int n, int inter,
                     kActThreads, stream, g, o, inter);
 }
 
+// J: 16-byte vectors where every pointer and the half row allow them,
+// else one value a load; one thread a unit
+template <typename T>
+int split_qkv_rope_typed(const void* qkv, const void* cos_t,
+                         const void* sin_t, void* q, void* k, void* v, int n,
+                         int kv_heads, int group, int head_dim,
+                         cudaStream_t stream) {
+  constexpr int E = 16 / sizeof(T);
+  const T* x = static_cast<const T*>(qkv);
+  const float *c = static_cast<const float*>(cos_t),
+              *s = static_cast<const float*>(sin_t);
+  T *qt = static_cast<T*>(q), *kt = static_cast<T*>(k),
+    *vt = static_cast<T*>(v);
+  const int half = head_dim / 2;
+  const bool vec = half % E == 0 && aligned16(qkv) && aligned16(cos_t) &&
+                   aligned16(sin_t) && aligned16(q) && aligned16(k) &&
+                   aligned16(v);
+  const long long units =
+      (long long)kv_heads * (group + 2) * (vec ? half / E : half);
+  // the flat unit index stays 32-bit
+  if ((long long)n * units + kRopeThreads > 0xFFFFFFFFLL)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((n * units + kRopeThreads - 1) / kRopeThreads));
+  if (vec)
+    return launch_pdl(split_qkv_rope_kernel<T, E>, grid, kRopeThreads, stream,
+                      x, c, s, qt, kt, vt, n, kv_heads, group, head_dim);
+  return launch_pdl(split_qkv_rope_kernel<T, 1>, grid, kRopeThreads, stream,
+                    x, c, s, qt, kt, vt, n, kv_heads, group, head_dim);
+}
+
 }  // namespace
 
 // Kernel A. x, y (and residual, h) contiguous [n, hidden] of one dtype
@@ -387,6 +519,33 @@ extern "C" int silu_and_mul(const void* gate_up, void* out, int n, int inter,
       return silu_mul_typed<__half>(gate_up, out, n, inter, s);
     case kF32:
       return silu_mul_typed<float>(gate_up, out, n, inter, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Kernel J. qkv contiguous [n, kv_heads * (group + 2) * head_dim], group-
+// major; cos, sin contiguous f32 [n, head_dim / 2]; q [n, kv_heads *
+// group, head_dim], k and v [n, kv_heads, head_dim], contiguous, of
+// qkv's dtype (codes as above). head_dim even.
+extern "C" int split_qkv_rope(const void* qkv, const void* cos_t,
+                              const void* sin_t, void* q, void* k, void* v,
+                              int n, int kv_heads, int group, int head_dim,
+                              int dtype, void* stream) {
+  if (n <= 0) return 0;
+  if (kv_heads <= 0 || group <= 0 || head_dim <= 0 || head_dim % 2)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kBF16:
+      return split_qkv_rope_typed<__nv_bfloat16>(qkv, cos_t, sin_t, q, k, v,
+                                                 n, kv_heads, group, head_dim,
+                                                 s);
+    case kF16:
+      return split_qkv_rope_typed<__half>(qkv, cos_t, sin_t, q, k, v, n,
+                                          kv_heads, group, head_dim, s);
+    case kF32:
+      return split_qkv_rope_typed<float>(qkv, cos_t, sin_t, q, k, v, n,
+                                         kv_heads, group, head_dim, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,9 +1,10 @@
 """Llama-class decoder forward pass over the slot or the paged KV cache.
 
 Port of ``llm_inference_engine_tpu/models/llama.py`` (one rank's body).
-Each layer runs: rmsnorm -> packed QKV matmul -> split + RoPE -> cache
-write -> attention -> o-proj -> fused add-residual + rmsnorm -> gate|up
-matmul -> silu_and_mul -> down-proj -> residual add. The layer's final
+Each layer runs: rmsnorm -> packed QKV matmul -> split + RoPE (kernel
+J, one launch) -> cache write -> attention -> o-proj -> fused
+add-residual + rmsnorm -> gate|up matmul -> silu_and_mul -> down-proj ->
+residual add. The layer's final
 residual add is handed to the norm that reads its sum next: each layer
 returns (down, residual), and the next layer's first norm (or the final
 norm) is ``add_residual_rmsnorm(down, residual)``, whose stored sum is
@@ -80,7 +81,7 @@ from llm_inference_engine_tpu_torch.ops.linear import linear
 from llm_inference_engine_tpu_torch.ops.rmsnorm import (
     add_residual_rmsnorm, rmsnorm)
 from llm_inference_engine_tpu_torch.ops.rope import (
-    rope_cos_sin, rotate, split_qkv)
+    rope_cos_sin, split_qkv_rope_fused)
 from llm_inference_engine_tpu_torch.parallel.context_parallel import (
     ring_attention, split_kv_decode_attention)
 from llm_inference_engine_tpu_torch.utils import debug as _debug
@@ -123,15 +124,14 @@ def _layer_gen(cfg: ModelConfig, eng: EngineConfig, h_norm: torch.Tensor,
     qkv = linear(h_norm, layer["wqkv"], kernels=kernels)
     if "bqkv" in layer:
         qkv = qkv + layer["bqkv"].to(qkv.dtype)
-    q, k_new, v_new = split_qkv(qkv, cfg.num_heads, cfg.num_kv_heads,
-                                cfg.head_dim)
-    q = rotate(q, cos, sin)
-    k_new = rotate(k_new, cos, sin)
+    # kernel J: q and k rotated, v, each contiguous, in one pass
+    q, k_new, v_new = split_qkv_rope_fused(
+        qkv, cos, sin, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+        kernels=kernels)
     if tap:
         tap("qkv_proj", qkv, layer_idx)
         tap("q_rope", q, layer_idx)
         tap("k_rope", k_new, layer_idx)
-    v_new = v_new.contiguous()
     sm_scale = 1.0 / math.sqrt(cfg.head_dim)
 
     # an int8 cache's scale planes (None for bf16)

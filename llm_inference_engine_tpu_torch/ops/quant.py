@@ -24,9 +24,12 @@ of two modes that
 :func:`quant_matmul_plan` describes (a decode mode at m <= 16 and at
 17-48 where n is narrow, split-K over a thread-block cluster; a prefill
 mode on wgmma otherwise); at m >= 1024
-(``_PREFILL_M``) the weight is dequantized once to bf16 (INT4: kernel G, ``dequant_int4``, Triton in
-``_triton_kernels.py``; INT8: an exact cast) and a plain bf16
-``torch.matmul`` with f32 accumulation runs, as the JAX package's
+(``_PREFILL_M``) the weight is dequantized once to bf16 (INT4: kernel
+G, ``dequant_int4``; INT8: kernel G8, ``dequant_int8``, an exact cast
+written in place for both halves of the gate|up stack, its per-column
+scale applied to the f32 product and rounded in one pass,
+``int8_scale_cast``; all Triton in ``_triton_kernels.py``) and a plain
+bf16 ``torch.matmul`` with f32 accumulation runs, as the JAX package's
 ``_large_m_linear`` leaves that product to XLA. The INT4 large-m path
 bakes the scale into the bf16 weight: one extra rounding (~2^-9 relative)
 that the fused path does not have.
@@ -72,6 +75,10 @@ __all__ = [
     "int8_matmul_float",
     "dequant_int4",
     "dequant_int4_torch",
+    "dequant_int8",
+    "dequant_int8_torch",
+    "int8_scale_cast",
+    "int8_scale_cast_torch",
     "quant_matmul_plan",
     "quant_matmul_plan_native",
     "cluster_k_ranges",
@@ -285,11 +292,15 @@ def dequantize_tensor(t: QuantizedTensor) -> torch.Tensor:
 # plain versions of kernels E, F and G
 # ---------------------------------------------------------------------------
 
+def _parts(t: torch.Tensor):
+    """[t] for a 2-D weight (or its scales), the two halves of the
+    [2, in', I] stack."""
+    return [t[0], t[1]] if t.dim() == 3 else [t]
+
+
 def _halves(q: torch.Tensor, scale: torch.Tensor):
     """[(q, scale)] for a 2-D weight, two pairs for the [2, in', I] stack."""
-    if q.dim() == 3:
-        return [(q[0], scale[0]), (q[1], scale[1])]
-    return [(q, scale)]
+    return list(zip(_parts(q), _parts(scale)))
 
 
 def _cat(outs):
@@ -337,6 +348,19 @@ def dequant_int4_torch(q: torch.Tensor, scale: torch.Tensor,
     k, n = qi.shape
     qg = qi.reshape(k // group_size, group_size, n)
     return (qg * scale[:, None, :]).reshape(k, n).to(torch.bfloat16)
+
+
+def dequant_int8_torch(q: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel G8: int8 [k, n] (or the [2, k, I] gate|up
+    stack) -> bf16 [k, n] (flat [k, 2I]), each value cast exactly."""
+    return _cat([qh.to(torch.bfloat16) for qh in _parts(q)])
+
+
+def int8_scale_cast_torch(y: torch.Tensor, scale: torch.Tensor,
+                          out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of G8's epilogue: the f32 product y [m, n] times the
+    per-column scale [1, n], rounded once to ``out_dtype``."""
+    return (y * scale).to(out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -636,6 +660,70 @@ def dequant_int4(q: torch.Tensor, scale: torch.Tensor, group_size: int, *,
 dequant_int4.launches = 0
 
 
+def dequant_int8(q: torch.Tensor, *, kernels: str = "auto") -> torch.Tensor:
+    """Kernel G8 (Triton): int8 [k, n] -> bf16 [k, n], each value cast
+    exactly. The [2, k, I] gate|up stack gives the flat [k, 2I] weight
+    (one launch per half, each writing its columns in place: no
+    concatenation)."""
+    if not use_kernel(kernels, q):
+        return dequant_int8_torch(q)
+    if q.dtype != torch.int8:
+        raise TypeError(f"dequant_int8: need int8 q, got {q.dtype}")
+    if q.dim() not in (2, 3) or (q.dim() == 3 and q.shape[0] != 2):
+        raise ValueError(f"dequant_int8: q {tuple(q.shape)} is not [k, n] "
+                         "or [2, k, I]")
+    if not q.is_contiguous():
+        raise ValueError("dequant_int8: q must be contiguous")
+    from llm_inference_engine_tpu_torch.ops import _native
+    _native.triton()
+    from llm_inference_engine_tpu_torch.ops import _triton_kernels
+    parts = _parts(q)
+    k, n = parts[0].shape
+    out = torch.empty((k, len(parts) * n), dtype=torch.bfloat16,
+                      device=q.device)
+    for h, qh in enumerate(parts):
+        _triton_kernels.dequant_int8(qh, out[:, h * n:])
+        dequant_int8.launches += 1
+    kernel_output("dequant_int8", out)
+    return out
+
+
+dequant_int8.launches = 0
+
+
+def int8_scale_cast(y: torch.Tensor, scale: torch.Tensor,
+                    out_dtype: torch.dtype, *,
+                    kernels: str = "auto") -> torch.Tensor:
+    """G8's epilogue (Triton): f32 y [m, n] times the f32 scale [1, n],
+    rounded once to ``out_dtype`` in one pass, bit for bit
+    :func:`int8_scale_cast_torch`."""
+    if not use_kernel(kernels, y):
+        return int8_scale_cast_torch(y, scale, out_dtype)
+    if y.dtype != torch.float32 or scale.dtype != torch.float32:
+        raise TypeError(f"int8_scale_cast: need float32 y and scale, got "
+                        f"{y.dtype} / {scale.dtype}")
+    if out_dtype not in (torch.bfloat16, torch.float16, torch.float32):
+        raise TypeError(f"int8_scale_cast: unsupported out dtype {out_dtype}")
+    if (y.dim() != 2 or scale.numel() != y.shape[1]
+            or not (y.is_contiguous() and scale.is_contiguous())
+            or scale.device != y.device):
+        raise ValueError(f"int8_scale_cast: need a contiguous [m, n] y and "
+                         f"an [n] scale on its device, got "
+                         f"{tuple(y.shape)} / {tuple(scale.shape)}")
+    from llm_inference_engine_tpu_torch.ops import _native
+    _native.triton()
+    from llm_inference_engine_tpu_torch.ops import _triton_kernels
+    out = torch.empty(y.shape, dtype=out_dtype, device=y.device)
+    if y.numel():
+        _triton_kernels.int8_scale_cast(y, scale, out)
+        int8_scale_cast.launches += 1
+    kernel_output("int8_scale_cast", out)
+    return out
+
+
+int8_scale_cast.launches = 0
+
+
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b with an f32 result: bf16 products accumulate in f32 and are
     never rounded through bf16 (``preferred_element_type=f32``)."""
@@ -647,17 +735,18 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _large_m_linear(x2, t: QuantizedTensor, out_dtype, kernels):
     """m >= _PREFILL_M: dequantize the weight once to bf16 and run one
     plain bf16 matmul with f32 accumulation (JAX ``_large_m_linear``).
-    INT8 casts exactly and scales the f32 result; INT4 bakes the grouped
-    scales into the bf16 weight (kernel G)."""
+    INT8 casts exactly (kernel G8) and scales the f32 result, rounding it
+    once in the same pass (G8's epilogue); INT4 bakes the grouped scales
+    into the bf16 weight (kernel G)."""
     if t.mode == "int4":
         w = dequant_int4(t.q, t.scale, t.group_size, kernels=kernels)
         post = None
     else:
-        w = _cat([qh.to(torch.bfloat16) for qh, _ in _halves(t.q, t.scale)])
-        post = _cat([sh.reshape(1, -1) for _, sh in _halves(t.q, t.scale)])
+        w = dequant_int8(t.q, kernels=kernels)
+        post = _cat([sh.reshape(1, -1) for sh in _parts(t.scale)])
     y = _mm_f32(x2.to(torch.bfloat16), w)
     if post is not None:
-        y = y * post
+        return int8_scale_cast(y, post, out_dtype, kernels=kernels)
     return y.to(out_dtype)
 
 

@@ -1,7 +1,14 @@
-"""Rotary position embeddings and the QKV split (plain torch).
+"""Rotary position embeddings and the QKV split.
 
 Port of ``llm_inference_engine_tpu/ops/rope.py``, which runs XLA at every
-shape. Kept from it:
+shape: the split is a view there and XLA fuses the rotation into it. The
+decoder's counterpart of that fused pass is kernel J (CUDA C,
+``csrc/norm_act.cu``), :func:`split_qkv_rope_fused`: it reads the packed
+qkv once and writes q and k rotated and v, each contiguous, in one
+launch, bit for bit its plain version (the split, two rotations and a
+copy of v: about twenty eager launches a layer). cos/sin stay torch,
+computed once a forward (``models/llama.py``'s ``rope_tables``). Kept
+from the JAX package:
 
 - cos/sin by a Cody-Waite modular reconstruction from the integer
   position (see :func:`rope_cos_sin`): plain f32 ``cos(pos * inv_freq)``
@@ -21,8 +28,12 @@ import math
 import numpy as np
 import torch
 
+from llm_inference_engine_tpu_torch.utils import use_kernel
+from llm_inference_engine_tpu_torch.utils.checks import kernel_output
+
 __all__ = ["apply_rope", "rope_cos_sin", "rotate", "split_qkv",
-           "split_qkv_rope"]
+           "split_qkv_rope", "split_qkv_rope_fused",
+           "split_qkv_rope_fused_torch"]
 
 
 def _llama3_inv_freq_np(inv_freq, rs):
@@ -126,3 +137,64 @@ def split_qkv_rope(qkv, positions, num_heads: int, num_kv_heads: int,
     q, k, v = split_qkv(qkv, num_heads, num_kv_heads, head_dim)
     cos, sin = cos[..., None, :], sin[..., None, :]
     return rotate(q, cos, sin), rotate(k, cos, sin), v
+
+
+def split_qkv_rope_fused_torch(qkv: torch.Tensor, cos: torch.Tensor,
+                               sin: torch.Tensor, num_heads: int,
+                               num_kv_heads: int, head_dim: int):
+    """Plain version of kernel J: :func:`split_qkv`, :func:`rotate` of q
+    and of k by cos/sin (broadcastable to [..., 1, D/2]), and v made
+    contiguous."""
+    q, k, v = split_qkv(qkv, num_heads, num_kv_heads, head_dim)
+    return rotate(q, cos, sin), rotate(k, cos, sin), v.contiguous()
+
+
+def split_qkv_rope_fused(qkv: torch.Tensor, cos: torch.Tensor,
+                         sin: torch.Tensor, num_heads: int, num_kv_heads: int,
+                         head_dim: int, *, kernels: str = "auto"):
+    """Kernel J: group-major packed qkv [..., K*(G+2)*D] -> q [..., H, D]
+    and k [..., K, D] rotated by cos/sin (f32, one [D/2] row a token:
+    ``rope_tables``' [B, T, 1, D/2]) and v [..., K, D], each contiguous."""
+    if not use_kernel(kernels, qkv):
+        return split_qkv_rope_fused_torch(qkv, cos, sin, num_heads,
+                                          num_kv_heads, head_dim)
+    if qkv.dtype not in (torch.bfloat16, torch.float16, torch.float32):
+        raise TypeError(f"split_qkv_rope kernel: unsupported dtype "
+                        f"{qkv.dtype}")
+    if cos.dtype != torch.float32 or sin.dtype != torch.float32:
+        raise TypeError(f"split_qkv_rope kernel: cos/sin must be float32, "
+                        f"got {cos.dtype} / {sin.dtype}")
+    K = num_kv_heads
+    G = num_heads // K if K > 0 else 0
+    if (head_dim <= 0 or head_dim % 2 or G * K != num_heads or G <= 0
+            or qkv.shape[-1] != K * (G + 2) * head_dim
+            or not qkv.is_contiguous()):
+        raise ValueError(f"split_qkv_rope kernel: need a contiguous "
+                         f"[..., K*(G+2)*D] qkv with D even, got "
+                         f"{tuple(qkv.shape)} at H {num_heads}, K {K}, D "
+                         f"{head_dim}")
+    lead = qkv.shape[:-1]
+    n = qkv.numel() // qkv.shape[-1]
+    half = head_dim // 2
+    for name, t in (("cos", cos), ("sin", sin)):
+        if (not t.is_contiguous() or t.numel() != n * half
+                or t.shape[-1] != half or t.device != qkv.device):
+            raise ValueError(f"split_qkv_rope kernel: {name} "
+                             f"{tuple(t.shape)} is not a contiguous "
+                             f"[{n} tokens, {half}] row set on {qkv.device}")
+    from llm_inference_engine_tpu_torch.ops import _native
+    q = torch.empty((*lead, num_heads, head_dim), dtype=qkv.dtype,
+                    device=qkv.device)
+    k = torch.empty((*lead, K, head_dim), dtype=qkv.dtype, device=qkv.device)
+    v = torch.empty_like(k)
+    status = _native.library().split_qkv_rope(
+        qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), n, K, G, head_dim,
+        _native.dtype_code(qkv.dtype), _native.stream_of(qkv))
+    _native.check(status, "split_qkv_rope")
+    split_qkv_rope_fused.launches += 1
+    kernel_output("split_qkv_rope", q, k, v)
+    return q, k, v
+
+
+split_qkv_rope_fused.launches = 0

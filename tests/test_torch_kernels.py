@@ -26,8 +26,9 @@ from llm_inference_engine_tpu_torch.config import (
 from llm_inference_engine_tpu_torch.models.weights import init_dummy_params
 from llm_inference_engine_tpu_torch.ops import activations, attention
 from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
-from llm_inference_engine_tpu_torch.ops import quant, rmsnorm
+from llm_inference_engine_tpu_torch.ops import quant, rmsnorm, rope
 from llm_inference_engine_tpu_torch.ops import counted_wrappers
+from llm_inference_engine_tpu_torch.ops._native import FLOAT_HEAD_DIMS
 from llm_inference_engine_tpu_torch.runtime.decode_graph import (
     HostReadError, run_eagerly)
 from llm_inference_engine_tpu_torch.runtime.engine import InferenceEngine
@@ -94,24 +95,29 @@ def test_norm_act_kernels_refuse_instead_of_falling_back(cuda):
 
 @pytest.mark.parametrize("mode", ["int4", "int8"])
 def test_pdl_chain_replays_equal_eager(cuda, mode):
-    """The decode step's chain at 7B widths, m = 8: E(wo) -> A with
-    residual -> E(gate|up) -> B -> E(down), every kernel a programmatic
-    dependent of the one before, captured in one CUDA graph and replayed
-    200 times: every replay's outputs are bit-identical to the eager
-    chain's."""
+    """The decode step's chain at 7B widths, m = 8: E(wqkv) -> J (the QKV
+    split with RoPE) -> E(wo) on J's q -> A with residual -> E(gate|up)
+    -> B -> E(down), every kernel a programmatic dependent of the one
+    before, captured in one CUDA graph and replayed 200 times: every
+    replay's outputs are bit-identical to the eager chain's."""
+    wqkv = _qweight(cuda, mode, 4096, 12288)
     wo = _qweight(cuda, mode, 4096, 4096)
     gate_up = _qweight(cuda, mode, 4096, 11008, halves=2)
     down = _qweight(cuda, mode, 11008, 4096)
     attn = torch.randn(8, 4096, device=cuda, dtype=torch.bfloat16)
     resid = torch.randn(8, 4096, device=cuda, dtype=torch.bfloat16)
     w = torch.rand(4096, device=cuda, dtype=torch.bfloat16) + 0.5
+    cos, sin = (t[:, None, :].contiguous() for t in rope.rope_cos_sin(
+        torch.arange(300, 308, device=cuda), 128, 10000.0))
 
     def chain():
-        o = _run_fused(wo, attn, torch.bfloat16, "cuda")
+        qkv = _run_fused(wqkv, attn, torch.bfloat16, "cuda")
+        q, k, v = rope.split_qkv_rope_fused(qkv, cos, sin, 32, 32, 128)
+        o = _run_fused(wo, q.reshape(8, 4096), torch.bfloat16, "cuda")
         y, h = rmsnorm.add_residual_rmsnorm(o, resid, w)
         act = activations.silu_and_mul(_run_fused(gate_up, y, torch.bfloat16,
                                                   "cuda"))
-        return h, _run_fused(down, act, torch.bfloat16, "cuda")
+        return k, v, h, _run_fused(down, act, torch.bfloat16, "cuda")
     want = chain()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
@@ -121,6 +127,115 @@ def test_pdl_chain_replays_equal_eager(cuda, mode):
         graph.replay()
         torch.cuda.synchronize()
         assert all(torch.equal(g, v) for g, v in zip(got, want))
+
+
+# Kernel J (csrc/norm_act.cu): the QKV split with RoPE, every dtype and
+# head dim of the float instances, groups 1 / 4 / 8 at 16 and 32 kv heads,
+# the decode step's token counts (1, 7, 8), the verify's 40 and a prefill
+# chunk's 4096; bit for bit the plain version (the same f32 products, sum
+# and difference, one rounding), every input at the head of a buffer
+# whose tail holds NaN.
+ROPE_HEADS = [(32, 1), (16, 1), (32, 4), (16, 8)]
+
+
+def _nan_tail(t, pad: int = 1 << 12, shift: int = 0):
+    """``t``'s values ``shift`` elements into a buffer of NaN (127 for an
+    integer dtype) that runs ``pad`` elements past them."""
+    fill = float("nan") if t.is_floating_point() else 127
+    buf = torch.full((t.numel() + pad + shift,), fill, dtype=t.dtype,
+                     device=t.device)
+    buf[shift:shift + t.numel()].copy_(t.flatten())
+    return buf[shift:shift + t.numel()].view(t.shape)
+
+
+def _rope_inputs(dev, n, K, G, D, dtype):
+    qkv = torch.randn(n, K * (G + 2) * D, device=dev, dtype=dtype)
+    pos = torch.randint(-70000, 1 << 20, (n,), device=dev)
+    cos, sin = (t[:, None, :].contiguous()
+                for t in rope.rope_cos_sin(pos, D, 10000.0))
+    return qkv, cos, sin
+
+
+def _rope_held(qkv, cos, sin, K, G, D, shift=0):
+    """J on poisoned copies of its inputs (qkv ``shift`` elements into its
+    buffer) against the plain version on the inputs: q, k, v bit for bit,
+    one launch."""
+    before = rope.split_qkv_rope_fused.launches
+    got = rope.split_qkv_rope_fused(_nan_tail(qkv, shift=shift),
+                                    _nan_tail(cos), _nan_tail(sin),
+                                    K * G, K, D)
+    want = rope.split_qkv_rope_fused_torch(qkv, cos, sin, K * G, K, D)
+    torch.cuda.synchronize()
+    assert rope.split_qkv_rope_fused.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.is_contiguous() and g.shape == w.shape
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", NORM_DTYPES, ids=str)
+@pytest.mark.parametrize("D", FLOAT_HEAD_DIMS)
+@pytest.mark.parametrize("K,G", ROPE_HEADS)
+def test_split_qkv_rope_kernel_bit_for_bit(cuda, dtype, D, K, G):
+    for n in (1, 7, 8, 40, 4096):
+        _rope_held(*_rope_inputs(cuda, n, K, G, D, dtype), K, G, D)
+
+
+@pytest.mark.parametrize("dtype", NORM_DTYPES, ids=str)
+def test_split_qkv_rope_kernel_one_value_a_load(cuda, dtype):
+    """A half row the 16-byte vector does not fill (head_dim 18) and a
+    qkv that is not 16-byte aligned take J's one-value loads."""
+    _rope_held(*_rope_inputs(cuda, 9, 4, 2, 18, dtype), 4, 2, 18)
+    _rope_held(*_rope_inputs(cuda, 9, 4, 2, 64, dtype), 4, 2, 64, shift=1)
+
+
+def test_split_qkv_rope_kernel_refuses_instead_of_falling_back(cuda):
+    """float64, a non-contiguous qkv and an odd head_dim raise on the
+    card."""
+    qkv, cos, sin = _rope_inputs(cuda, 8, 4, 1, 64, torch.float32)
+    with pytest.raises(TypeError, match="dtype"):
+        rope.split_qkv_rope_fused(qkv.double(), cos, sin, 4, 4, 64)
+    wide = torch.randn(8, 2 * qkv.shape[1], device=cuda)[:, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        rope.split_qkv_rope_fused(wide, cos, sin, 4, 4, 64)
+    odd = torch.randn(8, 4 * 3 * 63, device=cuda)
+    with pytest.raises(ValueError, match="even"):
+        rope.split_qkv_rope_fused(odd, cos[..., :31].contiguous(),
+                                  sin[..., :31].contiguous(), 4, 4, 63)
+
+
+# Kernel G8 (ops/_triton_kernels.py): the INT8 weight cast exactly to bf16,
+# each half of the gate|up stack into its columns, bit for bit
+# ``.to(torch.bfloat16)`` + ``_cat``, q at the head of a buffer whose tail
+# holds 127
+@pytest.mark.parametrize("k,n,halves", [(4096, 11008, 2), (11008, 4096, 1),
+                                        (1000, 1040, 2), (37, 100, 1)])
+def test_dequant_int8_kernel_bit_for_bit(cuda, k, n, halves):
+    t = _qweight(cuda, "int8", k, n, halves=halves)
+    before = quant.dequant_int8.launches
+    got = quant.dequant_int8(_nan_tail(t.q), kernels="cuda")
+    want = quant.dequant_int8_torch(t.q)
+    torch.cuda.synchronize()
+    assert quant.dequant_int8.launches == before + halves
+    assert got.shape == (k, halves * n)
+    assert torch.equal(got, want)
+
+
+# G8's epilogue: the f32 product times the per-column scale, rounded once
+# to the output dtype, bit for bit ``(y * scale).to(dtype)``; ragged m and
+# n, y and the scale with NaN past their tails
+@pytest.mark.parametrize("dtype", NORM_DTYPES, ids=str)
+@pytest.mark.parametrize("m,n", [(1024, 12288), (4096, 22016), (1030, 1040),
+                                 (1, 7)])
+def test_int8_scale_cast_kernel_bit_for_bit(cuda, dtype, m, n):
+    y = torch.randn(m, n, device=cuda) * 40.0
+    scale = torch.rand(1, n, device=cuda) * 1e-2 + 1e-4
+    before = quant.int8_scale_cast.launches
+    got = quant.int8_scale_cast(_nan_tail(y), _nan_tail(scale), dtype,
+                                kernels="cuda")
+    want = quant.int8_scale_cast_torch(y, scale, dtype)
+    torch.cuda.synchronize()
+    assert quant.int8_scale_cast.launches == before + 1
+    assert got.dtype == dtype and torch.equal(got, want)
 
 
 def test_kv_write_kernel(cuda):
@@ -532,14 +647,19 @@ def test_quantizer_on_the_card_equals_the_cpu(cuda, mode):
 
 @pytest.mark.parametrize("mode", ["int4", "int8"])
 def test_quantized_linear_large_m_routes_through_kernels(cuda, mode):
-    """m >= 1024: int4 dequantizes through kernel G, then a bf16 matmul."""
+    """m >= 1024: int4 dequantizes through kernel G, int8 casts through
+    kernel G8, then a bf16 matmul (int8: its scale and rounding in G8's
+    epilogue, bit for bit the plain route's)."""
     t = _qweight(cuda, mode, 1024, 384)
     x = torch.randn(2, 600, 1024, device=cuda, dtype=torch.bfloat16)
-    before = quant.dequant_int4.launches
+    before = (quant.dequant_int4.launches, quant.dequant_int8.launches,
+              quant.int8_scale_cast.launches)
     got = quant.quantized_linear(x, t)
     want = quant.quantized_linear_torch(x, t)
     assert got.shape == (2, 600, 384)
-    assert quant.dequant_int4.launches == before + (mode == "int4")
+    assert quant.dequant_int4.launches == before[0] + (mode == "int4")
+    assert quant.dequant_int8.launches == before[1] + (mode == "int8")
+    assert quant.int8_scale_cast.launches == before[2] + (mode == "int8")
     torch.testing.assert_close(got, want, **TOL)
 
 

@@ -3,7 +3,8 @@
 CUDA card (an H100).
 
     python3 tools/chip_kernel_ab.py
-        [--rows attention|quant|writes|prefill|norm|float|spec] PARENT_ROOT
+        [--rows attention|quant|writes|prefill|norm|float|spec|rope]
+        PARENT_ROOT
         [CHANGE_ROOT]
 
 PARENT_ROOT and CHANGE_ROOT (default: this checkout) are roots of the
@@ -41,8 +42,18 @@ so their change / parent ratios show the noise.
 ``--rows prefill`` times one warm prefill of llama2-7b INT4 (4b's
 prompts) paged over a bf16 pool (4d) and an int8 pool (4h), chunks and
 pages of 64, and slot over an int8 cache (4g): the card's busy ms and the
-K/V writes' ms of it (torch.profiler), through this checkout's
-``chip_smoke.prefill_rows``.
+K/V writes' ms of it (torch.profiler); then slot at INT4 (4b) and INT8
+(4c), chunks of 512: busy ms and the ms of kernels J, G, G8, cuBLAS and
+the rest, through this checkout's ``chip_smoke.prefill_rows``.
+
+``--rows rope`` times each tree's QKV split with RoPE as its
+``models.llama`` calls it (kernel J, or the split, two rotations and v's
+copy that J replaced), through this checkout's ``chip_smoke.rope_rows``:
+at 4b's, tinyllama's and a tp = 2 rank's decode step in CUDA-graph
+replays, at a prefill chunk and the verify's 8 x 5, with a checksum of
+its outputs; and the replayed decode step of 4a, 4b, 4n (tp = 2 on one
+card) and 4t (float16): wall, card busy, J's ms, the RoPE glue's ms and
+the ids' checksum.
 
 ``--rows float`` times the float16 and float32 instances D2f, Df, Ef and
 Ff instead, and only them, at phase 3f's shapes (the prefill over the
@@ -94,7 +105,8 @@ def one(root: Path, rows: str = "attention") -> dict:
     writes and their floors; ``rows="prefill"``: warm prefills;
     ``rows="norm"``: kernels A and B and 4b's, 4c's and 4d's replayed
     step; ``rows="float"``: the float instances D2f, Df, Ef, Ff;
-    ``rows="spec"``: the speculative round's kernels and the round)."""
+    ``rows="spec"``: the speculative round's kernels and the round;
+    ``rows="rope"``: the QKV split with RoPE and the replayed steps)."""
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_kernel_ab: no CUDA device")
@@ -126,6 +138,8 @@ def one(root: Path, rows: str = "attention") -> dict:
                 **here.float_matmul_rows(torch, dev)}
     if rows == "spec":
         return here.spec_rows(torch, dev)
+    if rows == "rope":
+        return here.rope_rows(torch, dev)
     results: dict = {}
     for fn in (smoke.phase_kernels, smoke.phase_paged_kernels,
                smoke.phase_kv_int8_kernels):
@@ -140,7 +154,7 @@ def main(argv) -> int:
     if len(argv) >= 2 and argv[0] == "--rows":
         rows, argv = argv[1], argv[2:]
     if rows not in ("attention", "quant", "writes", "prefill", "norm",
-                    "float", "spec"):
+                    "float", "spec", "rope"):
         raise SystemExit(__doc__)
     if len(argv) >= 2 and argv[0] == "--one":
         print(json.dumps(one(Path(argv[1]).resolve(), rows)), flush=True)
