@@ -2037,6 +2037,10 @@ def large_m_int8_rows(torch, dev, gen, results) -> dict:
         if not torch.equal(got, want):
             raise AssertionError(f"dequant_int8 {label}: not bit for bit "
                                  ".to(bfloat16) + _cat")
+        lib = library_int8_cast(torch, k, n_out)
+        if not torch.equal(lib(ts[0]), want):
+            raise AssertionError(f"dequant_int8 {label}: the library call "
+                                 "is not bit for bit .to(bfloat16) + _cat")
         g8 = time_ms(torch, cycling(ts, lambda t: quant.dequant_int8(
             t.q, kernels="cuda")))
         out[f"dequant_int8 {label}"] = g8
@@ -2045,7 +2049,8 @@ def large_m_int8_rows(torch, dev, gen, results) -> dict:
                "the tail", (g8, time_ms(torch, cycling(
                    ts, lambda t: quant.dequant_int8_torch(t.q)), iters=3,
                    warmup=1)),
-               work=(k * n_out * 3, 0))
+               work=(k * n_out * 3, 0),
+               library=time_ms(torch, cycling(ts, lib)))
         # G8's epilogue alone
         y = poisoned(torch, torch.randn(LARGE_M, n_out, generator=gen,
                                         device=dev))
@@ -2058,18 +2063,47 @@ def large_m_int8_rows(torch, dev, gen, results) -> dict:
         if not torch.equal(got, want):
             raise AssertionError(f"int8_scale_cast {label}: not bit for bit "
                                  "(y * post).to(bfloat16)")
-        ep = time_ms(torch, lambda: quant.int8_scale_cast(y, post, bf16,
-                                                          kernels="cuda"))
+        def mul():   # one torch call, the product rounded on the store
+            return torch.mul(y, post, out=torch.empty(y.shape, dtype=bf16,
+                                                      device=dev))
+        if not torch.equal(mul(), want):
+            raise AssertionError(f"torch.mul(out=bf16) {label}: not bit for "
+                                 "bit (y * post).to(bfloat16)")
+        turns = {"kernel": [], "mul": []}
+        for r in ("kernel", "mul", "mul", "kernel"):
+            turns[r].append(time_ms(torch, mul if r == "mul" else (
+                lambda: quant.int8_scale_cast(y, post, bf16,
+                                              kernels="cuda"))))
+        ep, lib_ms = (sum(turns["kernel"]) / 2, sum(turns["mul"]) / 2)
         out[f"int8_scale_cast {label}"] = ep
+        out[f"torch.mul out=bf16 {label}"] = lib_ms
+        say(f"  int8_scale_cast {label} in turns: kernel "
+            f"{turns['kernel'][0]:.4f}, {turns['kernel'][1]:.4f} ms; "
+            f"torch.mul(out=bf16) {turns['mul'][0]:.4f}, "
+            f"{turns['mul'][1]:.4f} ms")
         record("int8_scale_cast", 0.0, results,
                f"{label} f32 [{LARGE_M},{n_out}] x scale -> bf16 "
                "(torch.equal), NaN past the tails",
                (ep, time_ms(torch, lambda: quant.int8_scale_cast_torch(
                    y, post, bf16))),
-               work=(LARGE_M * n_out * 6 + n_out * 4, LARGE_M * n_out))
+               work=(LARGE_M * n_out * 6 + n_out * 4, LARGE_M * n_out),
+               library=lib_ms)
         del ts, x, ref, f_out, got, want, y, post
         torch.cuda.empty_cache()
     return out
+
+
+def library_int8_cast(torch, k, n_out):
+    """One PyTorch call that computes G8's function on a QuantizedTensor:
+    ``.to(bfloat16)`` of a 2-D weight, ``torch.cat(..., out=)`` into a
+    bf16 [k, 2I] buffer for the gate|up stack (the library yardstick; the
+    port never calls it)."""
+    def lib(t):
+        if t.q.dim() == 2:
+            return t.q.to(torch.bfloat16)
+        return torch.cat([t.q[0], t.q[1]], dim=-1, out=torch.empty(
+            (k, n_out), dtype=torch.bfloat16, device=t.q.device))
+    return lib
 
 
 def int8pack_ms(torch, ts, x, out_dtype):
