@@ -287,6 +287,18 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
       llama2-7b float32 at B 2 (7 and 700 tokens, 16 tokens): the first
       token against ``kernels="torch"`` by 4a's rule, launches per forward
       (no bf16 kernel, no plain version), ``graph_checks``;
+   u. the model families beside Llama-2 at full width and depth
+      (``FAMILIES``): llama3.1-8b (G 4, vocabulary 128256, Llama-3 RoPE
+      scaling), mistral-7b (a sliding window of 4096, prompts of 700-6100
+      in 8192 tokens) and qwen2-7b (qkv bias, G 7, hidden 3584,
+      vocabulary 152064): each family's kernels at its shapes, NaN past
+      every tail (E, G, A, B, J with Qwen2's bias, C, D2 and D under the
+      window, Mistral's H and fused paged D through a table), then its
+      bf16 path at B 4 with a control that switches its feature off (the
+      logits must move more than the kernel path's from the plain path's)
+      and its INT4 path, each a main path as 4a's (``phase_main_path``,
+      4b's tie rule), and Mistral's paged engine (pages and chunks of 64)
+      against its slot engine past the window, as 4d's;
    (3d, before 4: kernel I, H's int8 mode, D2's and D's int8 modes
    against their plain versions at 7B widths, in both scale numerics, the
    decode modes held per row, D's fused decode over an int8 pool bit for
@@ -316,6 +328,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -760,18 +773,24 @@ def hold_int8_write(torch, name, got, want, results, case, timed=None,
 
 
 def attn_work(q_start, kv_len, T, H, K, D, kv_elem=2, new_rows=0,
-              q_elem=2):
+              q_elem=2, window=None):
     """(bytes, operations) of kernel D over this run's rows: every query
-    row t < T of sequence b sees min(kv_len[b], q_start[b] + t + 1) keys
-    (no window in the timed cases); q and out (``q_elem`` bytes a value)
-    are read and written once, each sequence's kv_len keys once (k and v,
-    int8 with a 4-byte scale per head, or ``kv_elem`` bytes a value), plus
-    ``new_rows`` bytes of a fused write. Operations: QK^T and PV, 2 per
-    multiply-add each."""
+    row t < T of sequence b at p = q_start[b] + t sees the keys j <
+    min(kv_len[b], p + 1) and, with a sliding ``window`` W, j > p - W; q
+    and out (``q_elem`` bytes a value) are read and written once, each
+    sequence's keys that some row sees once (k and v, int8 with a 4-byte
+    scale per head, or ``kv_elem`` bytes a value), plus ``new_rows``
+    bytes of a fused write. Operations: QK^T and PV, 2 per multiply-add
+    each."""
     qs, kl = [int(x) for x in q_start], [int(x) for x in kv_len]
-    pairs = sum(min(l, s + t + 1) for s, l in zip(qs, kl) for t in range(T))
+
+    def low(p):
+        return 0 if window is None else max(0, p - window + 1)
+    pairs = sum(max(0, min(l, s + t + 1) - low(s + t))
+                for s, l in zip(qs, kl) for t in range(T))
+    keys = sum(max(0, l - low(s)) for s, l in zip(qs, kl))
     per_key = K * (D * kv_elem + (4 if kv_elem == 1 else 0)) * 2
-    return (2 * len(qs) * T * H * D * q_elem + sum(kl) * per_key + new_rows,
+    return (2 * len(qs) * T * H * D * q_elem + keys * per_key + new_rows,
             4 * D * H * pairs)
 
 
@@ -783,18 +802,21 @@ def write_work(rows, K, D, quant=False):
                                           else 0)
 
 
-def sdpa_ms(torch, q, k_layer, v_layer, q_start, kv_len):
+def sdpa_ms(torch, q, k_layer, v_layer, q_start, kv_len, window=None):
     """Time of torch's scaled_dot_product_attention over the slot layer's
     view (q [B, T, H, D]; k/v [B, S, K, D]) with an explicit causal and
-    length mask and enable_gqa: the library yardstick of kernel D's bf16
-    slot modes (the port never calls it)."""
+    length mask (and sliding ``window``) and enable_gqa: the library
+    yardstick of kernel D's bf16 slot modes (the port never calls it)."""
     import torch.nn.functional as F
     B, T = q.shape[:2]
     S = k_layer.shape[1]
     pos = q_start.long()[:, None] + torch.arange(T, device=q.device)[None]
     j = torch.arange(S, device=q.device)
     mask = ((j[None, None, :] < kv_len.long()[:, None, None])
-            & (j[None, None, :] <= pos[:, :, None]))[:, None]
+            & (j[None, None, :] <= pos[:, :, None]))
+    if window is not None:
+        mask = mask & (j[None, None, :] > pos[:, :, None] - window)
+    mask = mask[:, None]
     qt, kt, vt = q.transpose(1, 2), k_layer.transpose(1, 2), \
         v_layer.transpose(1, 2)
     return time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -996,7 +1018,8 @@ def decode_shape_rows(torch, dev, hidden: int = 4096,
             library=(graph_replayed_ms(torch, library)[0] if library
                      else None),
             bound=bound_ms((nbytes, 0))[0])
-        say(f"  {name:22s} decode shape [8, {hidden}], graph replays, held "
+        width = 2 * inter if name == "silu_and_mul" else hidden
+        say(f"  {name:22s} decode shape [8, {width}], graph replays, held "
             f"against plain: "
             f"kernel {k_ev * 1e3:.3f} us a call (events; union of kernel "
             f"intervals {k_union * 1e3:.3f} us), plain {p_ev * 1e3:.3f} us"
@@ -1045,11 +1068,12 @@ def rope_route():
 
 
 def rope_inputs(torch, gen, n: int, K: int, G: int, D: int, dtype,
-                poison: bool = False):
+                poison: bool = False, bias: bool = False):
     """J's inputs for ``n`` tokens: packed qkv [n, K*(G+2)*D] of
-    ``dtype`` and cos/sin [n, 1, D/2] (``rope_tables``' layout) of random
-    positions below 4096 (llama2-7b's theta); with ``poison``, each at
-    the head of a buffer whose tail is NaN."""
+    ``dtype``, cos/sin [n, 1, D/2] (``rope_tables``' layout) of random
+    positions below 4096 (llama2-7b's theta) and, with ``bias``, a packed
+    bias row [K*(G+2)*D] at a dummy bias's magnitude (0.02), else None;
+    with ``poison``, each at the head of a buffer whose tail is NaN."""
     from llm_inference_engine_tpu_torch.ops import rope
     dev = gen.device
     qkv = torch.randn(n, K * (G + 2) * D, generator=gen, device=dev,
@@ -1057,33 +1081,42 @@ def rope_inputs(torch, gen, n: int, K: int, G: int, D: int, dtype,
     pos = torch.randint(0, 4096, (n,), generator=gen, device=dev)
     cos, sin = (t[:, None, :].contiguous()
                 for t in rope.rope_cos_sin(pos, D, 10000.0))
+    b = (torch.randn(K * (G + 2) * D, generator=gen, device=dev,
+                     dtype=dtype) * 0.02 if bias else None)
     if poison:
         qkv, cos, sin = (poisoned(torch, t) for t in (qkv, cos, sin))
-    return qkv, cos, sin
+        b = None if b is None else poisoned(torch, b)
+    return qkv, cos, sin, b
 
 
-def rope_work(n: int, K: int, G: int, D: int, elem: int):
+def rope_work(n: int, K: int, G: int, D: int, elem: int,
+              bias: bool = False):
     """(bytes, operations, their rate) of J: the packed rows read and q, k,
-    v written once (the same element count), cos and sin read once; 6
-    f32 operations a rotated pair (four products, a sum, a difference)."""
+    v written once (the same element count), cos and sin read once (and a
+    bias row, added to each value: one f32 operation a value); 6 f32
+    operations a rotated pair (four products, a sum, a difference)."""
     row = K * (G + 2) * D
-    return (2 * n * row * elem + 2 * n * (D // 2) * 4,
-            6 * n * K * (G + 1) * (D // 2), F32_OPS_PER_S)
+    return (2 * n * row * elem + 2 * n * (D // 2) * 4 + bias * row * elem,
+            6 * n * K * (G + 1) * (D // 2) + bias * n * row, F32_OPS_PER_S)
 
 
 def rope_case(torch, gen, results, case: str, n: int, K: int, G: int,
-              D: int, dtype=None, timed: bool = True) -> None:
-    """Kernel J for ``n`` tokens at K kv heads, group G, head_dim D: q, k
-    and v bit for bit its plain version's (the split, two rotations, v's
-    copy), every input at the head of a buffer whose tail is NaN; timed
-    beside the plain version with its bound. No single PyTorch call
-    splits and rotates: its library column is none."""
+              D: int, dtype=None, timed: bool = True,
+              bias: bool = False) -> None:
+    """Kernel J for ``n`` tokens at K kv heads, group G, head_dim D (with
+    ``bias``: its bias mode, Qwen2's packed qkv bias added first): q, k
+    and v bit for bit its plain version's (the bias add, the split, two
+    rotations, v's copy), every input at the head of a buffer whose tail
+    is NaN; timed beside the plain version with its bound. No single
+    PyTorch call splits and rotates: its library column is none."""
     from llm_inference_engine_tpu_torch.ops import rope
     dtype = dtype or torch.bfloat16
-    qkv, cos, sin = rope_inputs(torch, gen, n, K, G, D, dtype, poison=True)
+    qkv, cos, sin, b = rope_inputs(torch, gen, n, K, G, D, dtype,
+                                   poison=True, bias=bias)
     H = K * G
-    got = rope.split_qkv_rope_fused(qkv, cos, sin, H, K, D, kernels="cuda")
-    want = rope.split_qkv_rope_fused_torch(qkv, cos, sin, H, K, D)
+    got = rope.split_qkv_rope_fused(qkv, cos, sin, H, K, D, bias=b,
+                                    kernels="cuda")
+    want = rope.split_qkv_rope_fused_torch(qkv, cos, sin, H, K, D, b)
     torch.cuda.synchronize()
     for part, g, w in zip("qkv", got, want):
         if not torch.equal(g, w):
@@ -1094,31 +1127,36 @@ def rope_case(torch, gen, results, case: str, n: int, K: int, G: int,
     t = None
     if timed:
         t = (time_ms(torch, lambda: rope.split_qkv_rope_fused(
-                qkv, cos, sin, H, K, D, kernels="cuda"), iters=20),
+                qkv, cos, sin, H, K, D, bias=b, kernels="cuda"), iters=20),
              time_ms(torch, lambda: rope.split_qkv_rope_fused_torch(
-                 qkv, cos, sin, H, K, D), iters=20))
+                 qkv, cos, sin, H, K, D, b), iters=20))
     record("split_qkv_rope", 0.0, results,
-           f"{case} [{n}] K{K} G{G} D{D} {str(dtype)[6:]} bit for bit, NaN "
-           "past the tails, library none", t,
-           rope_work(n, K, G, D, qkv.element_size()))
+           f"{case} [{n}] K{K} G{G} D{D} {str(dtype)[6:]}"
+           f"{' with bias' if bias else ''} bit for bit, NaN past the tails, "
+           "library none", t,
+           rope_work(n, K, G, D, qkv.element_size(), bias))
 
 
 def rope_replayed_rows(torch, dev, tag: str, K: int, G: int, D: int,
-                       n: int = 8, held: bool = True) -> dict:
+                       n: int = 8, held: bool = True,
+                       bias: bool = False) -> dict:
     """J at a decode step's ``n`` tokens, timed as the decode programs run
     it (``graph_replayed_ms``: 64 calls in one CUDA graph), beside the
     plain version timed the same way, with its bound; ``held``: its
     outputs bit for bit the plain version's first (this tree's kernel;
     ``tools/chip_kernel_ab.py`` times the other tree's route, which
-    ``rope_route`` picks, without it). Returns {name: ms a call}."""
+    ``rope_route`` picks, without it); ``bias``: J's bias mode (this
+    tree's wrapper). Returns {name: ms a call}."""
     from llm_inference_engine_tpu_torch.ops import rope
     gen = torch.Generator(device=dev).manual_seed(77)
-    qkv, cos, sin = rope_inputs(torch, gen, n, K, G, D, torch.bfloat16)
+    qkv, cos, sin, bq = rope_inputs(torch, gen, n, K, G, D, torch.bfloat16,
+                                    bias=bias)
     H = K * G
-    route = rope_route()
+    route = (functools.partial(rope.split_qkv_rope_fused, bias=bq) if bias
+             else rope_route())
     if held:
         got = route(qkv, cos, sin, H, K, D)
-        want = rope.split_qkv_rope_fused_torch(qkv, cos, sin, H, K, D)
+        want = rope.split_qkv_rope_fused_torch(qkv, cos, sin, H, K, D, bq)
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
             raise AssertionError(f"split_qkv_rope {tag} in graph replays: "
                                  "not bit for bit the plain version")
@@ -1129,9 +1167,10 @@ def rope_replayed_rows(torch, dev, tag: str, K: int, G: int, D: int,
     if held:
         row[f"split_qkv_rope {tag} decode plain"] = graph_replayed_ms(
             torch, lambda: rope.split_qkv_rope_fused_torch(
-                qkv, cos, sin, H, K, D))[0]
-    b = bound_ms(rope_work(n, K, G, D, 2))[0]
-    say(f"  split_qkv_rope {tag} [{n}] K{K} G{G} D{D}, graph replays"
+                qkv, cos, sin, H, K, D, bq))[0]
+    b = bound_ms(rope_work(n, K, G, D, 2, bias))[0]
+    say(f"  split_qkv_rope {tag} [{n}] K{K} G{G} D{D}"
+        f"{' with bias' if bias else ''}, graph replays"
         + (", bit for bit the plain version" if held else "")
         + f": {k_ev * 1e3:.3f} us a call (events; union {k_union * 1e3:.3f}"
         " us)" + (f", plain {row[f'split_qkv_rope {tag} decode plain'] * 1e3:.3f}"
@@ -1571,12 +1610,17 @@ def replayed_step_rows(torch, dev, engine, tag: str, prompts) -> dict:
         _, cpu = device_profile(torch, lambda: engine.decode_step(
             toks, active, sp), 1, cpu_ops=True)
     groups = group_ms(prof.per_kernel, glue_map(cpu))
+    adds = [ms for ms, name in prof.per_kernel
+            if _group_of(name) == "rest" and "_add" in name]
     out.update({f"{tag} replayed step busy": prof.busy,
                 f"{tag} replayed step J": groups["J"],
                 f"{tag} replayed step RoPE glue": groups["RoPE"],
                 f"{tag} replayed step RoPE group": groups["J"]
                 + groups["RoPE"],
-                f"{tag} replayed step casts": groups["casts"]})
+                f"{tag} replayed step casts": groups["casts"],
+                f"{tag} replayed step other": groups["other"],
+                f"{tag} replayed step elementwise adds": sum(adds),
+                f"{tag} replayed step activities": prof.activities})
     engine.reset()
     return out
 
@@ -1610,8 +1654,8 @@ def rope_rows(torch, dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(78)
     for tag, n in (("prefill 8 x 512", 8 * 512),
                    ("verify 8 x 5", 8 * (SPEC_K + 1))):
-        qkv, cos, sin = rope_inputs(torch, gen, n, 32, 1, 128,
-                                    torch.bfloat16)
+        qkv, cos, sin, _ = rope_inputs(torch, gen, n, 32, 1, 128,
+                                       torch.bfloat16)
         out[f"split_qkv_rope {tag}"] = time_ms(
             torch, lambda: route(qkv, cos, sin, 32, 32, 128), iters=20)
         if n == 8 * 512:
@@ -1650,6 +1694,43 @@ def rope_rows(torch, dev) -> dict:
     out.update(replayed_step_rows(torch, dev, engine, "4t f16", b4_prompts))
     del engine
     torch.cuda.empty_cache()
+    return out
+
+
+def bias_rows(torch, dev) -> dict:
+    """qwen2-7b's replayed decode step (``replayed_step_rows``; 4u's paths:
+    INT4 at B 8 on 4b's prompts, bf16 at B 4 on 4a's) and kernel J at its
+    decode step in graph replays (K 4, G 7; this tree's J, with its bias
+    mode where the tree's wrapper takes a bias): the step's busy ms, J's
+    ms and the elementwise adds' ms, where a tree that adds Qwen2's qkv
+    bias apart from J pays it. ``tools/chip_kernel_ab.py --rows bias``
+    times another tree through this function."""
+    import inspect
+
+    import numpy as np
+
+    from llm_inference_engine_tpu_torch.config import EngineConfig
+    from llm_inference_engine_tpu_torch.models.registry import create_engine
+    from llm_inference_engine_tpu_torch.ops import rope
+    out = {}
+    takes_bias = "bias" in inspect.signature(
+        rope.split_qkv_rope_fused).parameters
+    rows = rope_replayed_rows(torch, dev, "qwen2", 4, 7, 128, held=False,
+                              bias=takes_bias)
+    out["split_qkv_rope qwen2 decode"] = rows["split_qkv_rope qwen2 decode"]
+    for tag, eng, lens in (
+            ("qwen2 int4", dict(quant_mode="int4", max_batch_size=8,
+                                max_seq_len=2048), QUANT_PROMPTS),
+            ("qwen2 bf16", dict(max_batch_size=4, max_seq_len=2048),
+             B4_PROMPTS)):
+        rng = np.random.default_rng(0)
+        engine = create_engine("qwen2-7b", None, EngineConfig(**eng), seed=0,
+                               device=dev)
+        prompts = [rng.integers(3, engine.config.vocab_size, n).tolist()
+                   for n in lens]
+        out.update(replayed_step_rows(torch, dev, engine, tag, prompts))
+        del engine
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2685,10 +2766,23 @@ def graph_checks(torch, engine, tag: str, toks, active, prompts):
 
 
 def phase_main_path(torch, dev, results, path: str, eng_cfg, prompt_lens,
-                    follow_lens, greedy_tokens: int):
-    """One slot main path of llama2-7b: ``path`` names its MAIN_PATHS row,
-    the kernels that must launch and those that must not. Returns the
-    kernel path's prefill logits."""
+                    follow_lens, greedy_tokens: int,
+                    model: str = "llama2-7b", control=None,
+                    plain_generate: bool = True):
+    """One slot main path of ``model`` (a preset; seed-0 dummy weights made
+    on the card): ``path`` names its MAIN_PATHS row, the kernels that must
+    launch and those that must not. ``control``: (what, config fields,
+    rows): the same prompts' prefill with a feature of the model switched
+    off (``cfg.replace(**fields)``; ``attention_bias=False`` also drops
+    the bias tensor), whose last-row logits on ``rows`` (None: every row)
+    must differ from the feature's by more than the kernel path's from
+    the plain path's (max abs and relative L2), or the logit checks could
+    not have seen the feature. ``plain_generate``: round 1 again through
+    the plain versions, its greedy ids' agreement with the kernel path
+    printed (4u's paths leave it out: a printed ratio that costs the plain
+    route's prefill again, 14300 tokens in Mistral's). Prints the seconds
+    of the kernel path's part, the plain route's, the control's and the
+    f32 arbiter's. Returns the kernel path's prefill logits."""
     import numpy as np
 
     from llm_inference_engine_tpu_torch.config import SamplingParams, get_config
@@ -2701,10 +2795,17 @@ def phase_main_path(torch, dev, results, path: str, eng_cfg, prompt_lens,
     counters = _counters()
     expected, forbidden = MAIN_PATHS[path]
     B = eng_cfg.max_batch_size
-    cfg = get_config("llama2-7b")
-    engine = create_engine("llama2-7b", None, eng_cfg, seed=0, device=dev)
+    clock = [time.perf_counter()]
+
+    def lap() -> float:
+        clock.append(time.perf_counter())
+        return clock[-1] - clock[-2]
+    cfg = get_config(model)
+    V = cfg.vocab_size
+    engine = create_engine(model, None, eng_cfg, seed=0, device=dev)
     torch.cuda.synchronize()
-    say(f"  engine: llama2-7b {path}, {param_count(engine.params) / 1e9:.3f} "
+    name = path if path.startswith(model) else f"{model} {path}"
+    say(f"  engine: {name}, {param_count(engine.params) / 1e9:.3f} "
         f"G stored elements ({param_bytes(engine.params) / 1e9:.2f} GB), "
         f"B={B}, KV cache {kv_bytes(engine.cache) / 1e9:.2f} GB"
         + (f" (int8 values {2 * engine.cache.k.numel() / 1e9:.2f} GB + "
@@ -2714,8 +2815,8 @@ def phase_main_path(torch, dev, results, path: str, eng_cfg, prompt_lens,
            if engine.cache.quantized else ""))
 
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(3, 32000, n).tolist() for n in prompt_lens]
-    follow = [rng.integers(3, 32000, n).tolist() for n in follow_lens]
+    prompts = [rng.integers(3, V, n).tolist() for n in prompt_lens]
+    follow = [rng.integers(3, V, n).tolist() for n in follow_lens]
     greedy = SamplingParams(greedy=True, max_new_tokens=greedy_tokens)
     sampled = SamplingParams(temperature=0.8, top_k=5, max_new_tokens=16)
 
@@ -2732,7 +2833,7 @@ def phase_main_path(torch, dev, results, path: str, eng_cfg, prompt_lens,
         logits = engine.prefill(prompts)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    if logits.shape != (B, 32000) or not torch.isfinite(logits).all():
+    if logits.shape != (B, V) or not torch.isfinite(logits).all():
         raise AssertionError(f"prefill logits bad: {tuple(logits.shape)}")
     # the two generate rounds on the same slots
     engine.reset()
@@ -2793,11 +2894,14 @@ def phase_main_path(torch, dev, results, path: str, eng_cfg, prompt_lens,
                     for ms, name in prefill.per_kernel[:8]))
 
     # reference: round 1 again through the plain versions, same weights
+    t_kernels = lap()
     ref = InferenceEngine(cfg, eng_cfg.replace(kernels="torch"),
                           engine.params, device=dev)
     logits_t = ref.prefill(prompts)
-    ref.reset()
-    r1_ref = ref.generate(prompts, greedy, eos_token_id=None)
+    r1_ref = None
+    if plain_generate:
+        ref.reset()
+        r1_ref = ref.generate(prompts, greedy, eos_token_id=None)
     # int8 KV paths: the plain prefill again with a fault planted in its
     # int8 attention, for each of INT8_FAULTS (instrumentation of this
     # check only; the plain attention is restored after each)
@@ -2821,6 +2925,24 @@ def phase_main_path(torch, dev, results, path: str, eng_cfg, prompt_lens,
                 attn_mod.attention_torch = plain
     del ref
     torch.cuda.empty_cache()
+    t_plain = lap()
+    moved = None
+    if control is not None:
+        what, fields, rows = control
+        params_off = engine.params
+        if fields.get("attention_bias") is False:
+            params_off = {**params_off, "layers": {
+                k: v for k, v in params_off["layers"].items()
+                if k != "bqkv"}}
+        off = InferenceEngine(cfg.replace(**fields), eng_cfg, params_off,
+                              device=dev)
+        logits_off = off.prefill(prompts)
+        del off, params_off
+        torch.cuda.empty_cache()
+        rows = list(range(B)) if rows is None else rows
+        moved = (_logit_diff(logits_off[rows], logits[rows]),
+                 _logit_diff(logits_t[rows], logits[rows]))
+    t_control = lap()
     # arbiter: the plain path in f32 on the same (upcast) weights;
     # quantized weights stay as they are (their plain versions take f32)
     def up(v):
@@ -2835,6 +2957,8 @@ def phase_main_path(torch, dev, results, path: str, eng_cfg, prompt_lens,
     logits_32 = ref32.prefill(prompts)
     del ref32, params32, engine
     torch.cuda.empty_cache()
+    say(f"  seconds: kernel path {t_kernels:.1f}, plain route {t_plain:.1f}"
+        f", control {t_control:.1f}, f32 arbiter {lap():.1f}")
 
     d_kt, r_kt = _logit_diff(logits, logits_t)
     d_k32, r_k32 = _logit_diff(logits, logits_32)
@@ -2854,6 +2978,10 @@ def phase_main_path(torch, dev, results, path: str, eng_cfg, prompt_lens,
     # difference between the kernel and plain paths is a tie at the
     # precision both paths carry; on a quantized path such a row may pick
     # either of f32's top two. The bf16 path keeps the strict check.
+    # 4a (llama2-7b bf16) keeps the strict check. At the families'
+    # vocabularies (128256 and 152064 columns) a random bf16 model's f32
+    # top-two margins fall below the kernel-vs-plain noise (llama3.1-8b:
+    # 0.0052 against 0.32 on an H100): their bf16 paths take the tie rule
     ties = [] if path == "bf16" else [
         i for i in range(B) if margins[i] < d_kt]
     differ = [i for i in range(B) if first["kernels"][i] != first["torch"][i]]
@@ -2862,11 +2990,14 @@ def phase_main_path(torch, dev, results, path: str, eng_cfg, prompt_lens,
     say(f"  tie rows (f32 margin < {d_kt:.4f}): {ties}; rows whose first "
         f"token differs from the plain path: {differ}")
     total = B * greedy_tokens
-    agree = sum(a == b for x, y in zip(r1.token_ids, r1_ref.token_ids)
-                for a, b in zip(x, y))
-    say(f"  first greedy tokens {first}; round-1 greedy tokens agreeing "
-        f"with the plain path position by position: {agree}/{total} "
-        f"({agree / total:.3f})")
+    if r1_ref is None:
+        say(f"  first greedy tokens {first}")
+    else:
+        agree = sum(a == b for x, y in zip(r1.token_ids, r1_ref.token_ids)
+                    for a, b in zip(x, y))
+        say(f"  first greedy tokens {first}; round-1 greedy tokens agreeing "
+            f"with the plain path position by position: {agree}/{total} "
+            f"({agree / total:.3f})")
     failures = []
     if d_kt > LOGIT_ATOL or r_kt > LOGIT_REL_L2:
         failures.append("prefill logits disagree with the plain path")
@@ -2883,6 +3014,17 @@ def phase_main_path(torch, dev, results, path: str, eng_cfg, prompt_lens,
                             f"{blind}")
     if r_k32 > KERNEL_VS_F32 * r_t32:
         failures.append("kernel path is further from f32 than the plain path")
+    if moved is not None:
+        (d_off, r_off), (d_rows, r_rows) = moved
+        say(f"  control, {what} (rows {rows}): max abs / rel L2 of the last-"
+            f"row logits, feature off vs on {d_off:.4e} / {r_off:.4e}; "
+            f"kernels vs torch-{path} on those rows {d_rows:.4e} / "
+            f"{r_rows:.4e}")
+        if d_off <= d_rows or r_off <= r_rows:
+            failures.append(f"the control ({what}) moves the logits no "
+                            "more than the kernel path differs from the "
+                            "plain path: these checks cannot see the "
+                            "feature")
     if bad:
         failures.append(f"first greedy token differs from the reference in "
                         f"rows {bad}")
@@ -4092,11 +4234,14 @@ def paged_kernels(quant: dict) -> tuple:
 
 
 def phase_paged_vs_slot(torch, dev, model: str, quant: dict, prompts,
-                        greedy_tokens: int):
-    """4d (4h with an int8 cache): a paged engine (page 64) and a slot
-    engine, same kernels, same weights, chunks of 64: bit-identical prefill
-    logits and the same greedy ids. Returns the paged engine's params for
-    the phases after it."""
+                        greedy_tokens: int, max_seq_len: int = 2048,
+                        tag=None):
+    """4d (4h with an int8 cache; 4u's Mistral at ``max_seq_len`` 8192): a
+    paged engine (page 64) and a slot engine, same kernels, same weights,
+    chunks of 64: bit-identical prefill logits and the same greedy ids.
+    ``tag`` names the path in the printed lines (default ``paged`` and the
+    KV dtype). Returns the paged engine's params for the phases after
+    it."""
     import numpy as np
 
     from llm_inference_engine_tpu_torch.config import (
@@ -4105,7 +4250,7 @@ def phase_paged_vs_slot(torch, dev, model: str, quant: dict, prompts,
     from llm_inference_engine_tpu_torch.runtime.engine import InferenceEngine
 
     cfg = get_config(model)
-    base = EngineConfig(max_batch_size=len(prompts), max_seq_len=2048,
+    base = EngineConfig(max_batch_size=len(prompts), max_seq_len=max_seq_len,
                         max_prefill_len=64, **quant)
     greedy = SamplingParams(greedy=True, max_new_tokens=greedy_tokens)
     paged = create_engine(model, None, base.replace(kv_layout="paged",
@@ -4129,7 +4274,8 @@ def phase_paged_vs_slot(torch, dev, model: str, quant: dict, prompts,
                         dtype=torch.int32)
     sp = SamplingParams(greedy=True)
     kv = "int4-kv8" if quant.get("kv_cache_dtype_name") else "int4"
-    graph_checks(torch, paged, f"paged {kv}", toks, active, prompts)
+    tag = tag or f"paged {kv}"
+    graph_checks(torch, paged, tag, toks, active, prompts)
     _check_paged_launches(f"the paged engine {quant}", counters,
                           paged_kernels(quant))
     # the launches of one decode step and of one warm prefill of the
@@ -4144,9 +4290,9 @@ def phase_paged_vs_slot(torch, dev, model: str, quant: dict, prompts,
     say(f"  launches per paged prefill of the {B} prompts: "
         f"{per_prefill}; per paged decode step: {per_step}")
     L = cfg.num_layers
-    check_norm_launches(f"paged {kv} prefill", per_prefill, L)
-    check_norm_launches(f"paged {kv} decode step", per_step, L, 1)
-    check_decode_step_launches(f"paged {kv} decode step", [per_step], L,
+    check_norm_launches(f"{tag} prefill", per_prefill, L)
+    check_norm_launches(f"{tag} decode step", per_step, L, 1)
+    check_decode_step_launches(f"{tag} decode step", [per_step], L,
                                int8=bool(quant.get("kv_cache_dtype_name")))
     say(f"  warm paged prefill: card busy {prefill.busy:.3f} ms (kernel "
         f"durations summed {prefill.summed:.3f}); by group: "
@@ -8871,6 +9017,442 @@ def phase_float_models(torch, dev, results) -> None:
     torch.cuda.empty_cache()
 
 
+# 4u: the model families beside Llama-2 (config.py's presets), at full
+# width and depth: per family (path tag, engine fields, prompt and
+# follow-up lengths, greedy tokens) for its bf16 path (B = 4) and its INT4
+# path (group 128, the benchmark format), and its control: the feature
+# switched off in the bf16 path ((what, config fields, rows held)).
+# Llama-3.1's and Qwen2's paths take 4a's and 4b's prompts; Mistral's
+# prompts pass its window of 4096 in three rows of four (prefill, decode,
+# graph_checks' capacity row), its control held on the two rows whose
+# prompts pass it
+B4_PROMPTS = (7, 129, 384, 700)
+B4_FOLLOW = (5, 17, 33, 64)
+MISTRAL_PROMPTS = (700, 3000, 4500, 6100)
+FAMILIES = {
+    "llama3.1-8b": dict(
+        bf16=(dict(max_batch_size=4, max_seq_len=2048), B4_PROMPTS,
+              B4_FOLLOW, 32),
+        int4=(dict(quant_mode="int4", max_batch_size=8, max_seq_len=2048),
+              QUANT_PROMPTS, QUANT_FOLLOW, 16),
+        control=("Llama-3 RoPE scaling off", dict(rope_scaling=None),
+                 None)),
+    "mistral-7b": dict(
+        bf16=(dict(max_batch_size=4, max_seq_len=8192), MISTRAL_PROMPTS,
+              B4_FOLLOW, 32),
+        int4=(dict(quant_mode="int4", max_batch_size=4, max_seq_len=8192),
+              MISTRAL_PROMPTS, B4_FOLLOW, 16),
+        control=("no sliding window", dict(sliding_window=None), [2, 3])),
+    "qwen2-7b": dict(
+        bf16=(dict(max_batch_size=4, max_seq_len=2048), B4_PROMPTS,
+              B4_FOLLOW, 32),
+        int4=(dict(quant_mode="int4", max_batch_size=8, max_seq_len=2048),
+              QUANT_PROMPTS, QUANT_FOLLOW, 16),
+        control=("no qkv bias", dict(attention_bias=False), None)),
+}
+MAIN_PATHS.update({f"{model} {kind}": MAIN_PATHS[kind]
+                   for model in FAMILIES for kind in ("bf16", "int4")})
+
+
+def family_shapes(cfg) -> dict:
+    """(k, n, halves) of a model's quantized projections, as QUANT_SHAPES
+    holds Llama-2-7B's."""
+    return {"wqkv": (cfg.hidden_size, cfg.qkv_size, 1),
+            "wo": (cfg.q_size, cfg.hidden_size, 1),
+            "gate|up": (cfg.hidden_size, cfg.intermediate_size, 2),
+            "down": (cfg.intermediate_size, cfg.hidden_size, 1),
+            "lm_head": (cfg.hidden_size, cfg.vocab_size, 1)}
+
+
+def norm_act_rows(torch, dev, gen, results, tag: str, Hd: int,
+                  I: int) -> None:
+    """A and B at a prefill chunk's 2048 rows of a model's widths (cold:
+    A's set fits the L2; NaN past every tail), then at decode shape in
+    graph replays (``decode_shape_rows``)."""
+    import torch.nn.functional as F
+
+    from llm_inference_engine_tpu_torch.ops import activations, rmsnorm
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+    x, r = poisoned(torch, randn(2048, Hd)), poisoned(torch, randn(2048, Hd))
+    w = poisoned(torch, randn(Hd) * 0.1 + 1.0)
+    check_close(torch, "rmsnorm", rmsnorm.rmsnorm(x, w, kernels="cuda"),
+                rmsnorm.rmsnorm_torch(x, w), results,
+                f"{tag}[2048,{Hd}] cold L2, NaN past the tails", (
+                    time_ms(torch, lambda: rmsnorm.rmsnorm(
+                        x, w, kernels="cuda"), cold=True),
+                    time_ms(torch, lambda: rmsnorm.rmsnorm_torch(x, w))),
+                work=((2 * 2048 + 1) * Hd * 2, 4 * 2048 * Hd),
+                library=time_ms(torch, lambda: F.rms_norm(
+                    x, (Hd,), w, 1e-5), cold=True))
+    y, h = rmsnorm.add_residual_rmsnorm(x, r, w, kernels="cuda")
+    y0, h0 = rmsnorm.add_residual_rmsnorm_torch(x, r, w)
+    if not torch.equal(h, h0):
+        raise AssertionError(f"add_residual_rmsnorm {tag}[2048,{Hd}]: "
+                             "residual sum differs")
+    check_close(torch, "add_residual_rmsnorm", y, y0, results,
+                f"{tag}[2048,{Hd}] with residual, cold L2", (
+                    time_ms(torch, lambda: rmsnorm.add_residual_rmsnorm(
+                        x, r, w, kernels="cuda"), cold=True),
+                    time_ms(torch, lambda: rmsnorm.add_residual_rmsnorm_torch(
+                        x, r, w))),
+                work=((4 * 2048 + 1) * Hd * 2, 5 * 2048 * Hd))
+    gu = poisoned(torch, randn(2048, 2 * I))
+    check_close(torch, "silu_and_mul",
+                activations.silu_and_mul(gu, kernels="cuda"),
+                activations.silu_and_mul_torch(gu), results,
+                f"{tag}[2048,{2 * I}] NaN past the tail", (
+                    time_ms(torch, lambda: activations.silu_and_mul(
+                        gu, kernels="cuda")),
+                    time_ms(torch, lambda: activations.silu_and_mul_torch(
+                        gu))),
+                work=(3 * 2048 * I * 2, 5 * 2048 * I))
+    del x, r, gu, y, h, y0, h0
+    decode_shape_rows(torch, dev, Hd, I)
+
+
+def family_kernel_rows(torch, dev, results, model: str,
+                       seen: set) -> None:
+    """4u's kernels at a family's shapes, every input at the head of a
+    buffer whose tail is NaN and every cache row past kv_len (and, paged,
+    every pool row outside the table) NaN, held against the plain versions
+    and timed beside them with their bounds and library calls: E at the
+    INT4 path's decode m (B) on the five projections and at its prefill
+    mode's m (the 8 x 64 tail; Mistral: the paged check's 4 x 64 chunk) on
+    four, G on the four (bit for bit), A at [2048, hidden] and B at
+    [2048, 2 I] (and both at decode shape in graph replays), J at the
+    bf16 path's first chunk and a decode step (Qwen2: its bias mode; in
+    graph replays too), C writing the bf16 path's first chunk, D2
+    attending it and D's fused decode at the INT4 path's contexts (Mistral:
+    a chunk and contexts of 3600-6150 under its window of 4096, and D's
+    fused paged decode and H through a table at those contexts). ``seen``
+    holds the G and A/B shapes an earlier family held (Mistral's equal
+    Llama-3.1's): they run once."""
+    from llm_inference_engine_tpu_torch.config import get_config
+    from llm_inference_engine_tpu_torch.ops import attention
+    from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
+    from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+    from llm_inference_engine_tpu_torch.ops import quant
+    cfg = get_config(model)
+    Hd, I, H, K, D = (cfg.hidden_size, cfg.intermediate_size, cfg.num_heads,
+                      cfg.num_kv_heads, cfg.head_dim)
+    G, W = H // K, cfg.sliding_window
+    spec = FAMILIES[model]
+    mistral = W is not None
+    B8 = spec["int4"][0]["max_batch_size"]
+    shapes = family_shapes(cfg)
+    gen = torch.Generator(device=dev).manual_seed(2025)
+    tag = f"{model} "
+    nan = float("nan")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    def ints(vals):
+        return torch.tensor(vals, dtype=torch.int32, device=dev)
+
+    # E: the INT4 path's decode step, and its prefill mode's rows
+    m_pre = 4 * 64 if mistral else 8 * 64
+    for m, labels in ((B8, shapes), (m_pre, list(shapes)[:4])):
+        for label in labels:
+            quant_case(torch, dev, gen, results, "int4", m, label, shapes,
+                       tag=tag, poison=True)
+        torch.cuda.empty_cache()
+    # G: the first chunk's m >= 1024 route
+
+    def g(t, kern):
+        return quant.dequant_int4(t.q, t.scale, 128, kernels=kern)
+    for label in list(shapes)[:4]:
+        k, n, halves = shapes[label]
+        if ("G", k, n, halves) in seen:
+            continue
+        seen.add(("G", k, n, halves))
+        ts = quant_weights(torch, quant, dev, gen, "int4", k, n, halves,
+                           120_000_000)
+        ts[0] = quant.QuantizedTensor(poisoned(torch, ts[0].q),
+                                      poisoned(torch, ts[0].scale), "int4",
+                                      128)
+        got, want = g(ts[0], "cuda"), g(ts[0], "torch")
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"dequant_int4 {model} {label}: not "
+                                 "bit-identical to the plain dequant")
+        check_close(torch, "dequant_int4", got, want, results,
+                    f"{tag}{label} [{k // 2},{halves * n}] -> bf16 "
+                    "(torch.equal), NaN past the tail",
+                    (time_ms(torch, cycling(ts, lambda t: g(t, "cuda"))),
+                     time_ms(torch, cycling(ts, lambda t: g(t, "torch")),
+                             iters=3, warmup=1)),
+                    work=(ts[0].nbytes + k * halves * n * 2,
+                          2 * k * halves * n))
+        del ts, got, want
+    torch.cuda.empty_cache()
+
+    if ("A/B", Hd, I) not in seen:
+        seen.add(("A/B", Hd, I))
+        norm_act_rows(torch, dev, gen, results, tag, Hd, I)
+
+    # J: the bf16 path's first chunk (4 x 512) and a decode step (B8)
+    bias = cfg.attention_bias
+    for n, case in ((4 * 512, "prefill 4 x 512"), (B8, "decode")):
+        rope_case(torch, gen, results, f"{tag}{case}", n, K, G, D, bias=bias)
+    rope_replayed_rows(torch, dev, model, K, G, D, n=B8, bias=bias)
+
+    # C and D2: the bf16 path's first chunk (Mistral: a chunk deep in
+    # its context, the window cutting every row's keys)
+    L, B, T = 2, 4, 512
+    if mistral:
+        S, starts_l, new_len_l = 8192, [3584, 4096, 5120, 5632], [
+            512, 512, 512, 468]
+    else:
+        S, starts_l = 2048, [0] * B
+        new_len_l = [min(n, T) for n in spec["bf16"][1]]
+    starts, new_len = ints(starts_l), ints(new_len_l)
+    kv_len_l = [s + n for s, n in zip(starts_l, new_len_l)]
+    kv_len = ints(kv_len_l)
+    kn, vn = poisoned(torch, randn(B, T, K, D)), poisoned(torch,
+                                                          randn(B, T, K, D))
+    cache = kvc.new_kv_cache(L, B, K, S, D, device=dev)
+    cache.k[1], cache.v[1] = randn(B, S, K, D), randn(B, S, K, D)
+    ref = kvc.KVCache(cache.k.clone(), cache.v.clone(), cache.lengths)
+    kvc.update_cache_at_layer(cache, 1, kn, vn, starts, new_len,
+                              kernels="cuda")
+    kvc.update_cache_at_layer_torch(ref, 1, kn, vn, starts, new_len)
+    torch.cuda.synchronize()
+    if not (torch.equal(cache.k, ref.k) and torch.equal(cache.v, ref.v)):
+        raise AssertionError(f"kv_write {model}: cache differs from the "
+                             "plain write")
+    rows, picked = slot_rows(starts_l, new_len_l, T, S)
+    check_close(torch, "kv_write", cache.k[1], ref.k[1], results,
+                f"{tag}[4,512,{K},{D}] at {starts_l}, new {new_len_l}, cold "
+                "L2", (
+                    time_ms(torch, lambda: kvc.update_cache_at_layer(
+                        cache, 1, kn, vn, starts, new_len, kernels="cuda"),
+                        cold=True),
+                    time_ms(torch, lambda: kvc.update_cache_at_layer_torch(
+                        ref, 1, kn, vn, starts, new_len))),
+                work=write_work(len(rows), K, D),
+                library=index_copy_ms(torch, (cache.k[1], cache.v[1]),
+                                      (kn, vn), (ints(rows).long(),
+                                                 ints(picked).long())),
+                floor=floor_ms(torch, (kn, vn), picked, torch.bfloat16,
+                               cold=True))
+    for b, n in enumerate(kv_len_l):
+        cache.k[1, b, n:] = nan
+        cache.v[1, b, n:] = nan
+    q = poisoned(torch, randn(B, T, H, D))
+    run = lambda: attention.attention(  # noqa: E731
+        q, cache.k, cache.v, starts, kv_len, layer=1, window=W,
+        kernels="cuda")
+    plain = lambda: attention.attention_torch(  # noqa: E731
+        q, ref.k, ref.v, starts, kv_len, layer=1, window=W)
+    check_close(torch, "attention_prefill", run(), plain(), results,
+                f"{tag}B4 T512 H{H} K{K} qs {starts_l} window {W}, NaN past "
+                "kv_len", (time_ms(torch, run, iters=5),
+                           time_ms(torch, plain, iters=3, warmup=1)),
+                work=attn_work(starts_l, kv_len_l, T, H, K, D, window=W),
+                library=sdpa_ms(torch, q, ref.k[1], ref.v[1], starts, kv_len,
+                                window=W))
+    del cache, ref, kn, vn, q
+    torch.cuda.empty_cache()
+
+    # D: the fused decode at the INT4 path's step (Mistral: contexts past
+    # the window)
+    hist = ([3600, 4095, 5200, 6150] if mistral else
+            [p + 16 + f + 16 for p, f in zip(QUANT_PROMPTS, QUANT_FOLLOW)])
+    B = len(hist)
+    c = kvc.new_kv_cache(L, B, K, S, D, device=dev)
+    c.k.copy_(randn(L, B, S, K, D))
+    c.v.copy_(randn(L, B, S, K, D))
+    ref = kvc.KVCache(c.k.clone(), c.v.clone(), c.lengths)
+    for b, n in enumerate(hist):
+        c.k[1, b, n + 1:] = nan
+        c.v[1, b, n + 1:] = nan
+    qs = ints(hist)
+    kl = qs + 1
+    qd = poisoned(torch, randn(B, 1, H, D))
+    kn1, vn1 = poisoned(torch, randn(B, 1, K, D)), poisoned(torch,
+                                                            randn(B, 1, K, D))
+    run = lambda: attention.attention_decode_fused(  # noqa: E731
+        qd, kn1, vn1, c.k, c.v, qs, kl, 1, window=W, kernels="cuda")[0]
+    plain = lambda: attention.attention_decode_fused_torch(  # noqa: E731
+        qd, kn1, vn1, ref.k, ref.v, qs, kl, 1, window=W)[0]
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    b_idx = torch.arange(B, device=dev)
+    for x, y in ((c.k, ref.k), (c.v, ref.v)):
+        if not torch.equal(x[1, b_idx, qs.long()], y[1, b_idx, qs.long()]):
+            raise AssertionError(f"attention_decode {model}: the fused "
+                                 "write differs from the plain write")
+    say_plan(attention, f"{tag}B{B} H{H} K{K} D{D}", B, H, K, D)
+    check_close(torch, "attention_decode", got, want, results,
+                f"{tag}B{B} H{H} K{K} contexts {min(hist)}-{max(hist)} "
+                f"window {W}, NaN past kv_len",
+                (time_ms(torch, run), time_ms(torch, plain, iters=3,
+                                              warmup=1)),
+                work=attn_work(hist, [n + 1 for n in hist], 1, H, K, D,
+                               new_rows=B * 2 * K * D * 2 * 2, window=W),
+                library=sdpa_ms(torch, qd, ref.k[1], ref.v[1], qs, kl,
+                                window=W),
+                row_rel=DECODE_ROW_TOL)
+    if mistral:
+        family_paged_rows(torch, dev, gen, results, model, c.k[1], c.v[1],
+                          hist)
+    del c, ref
+    torch.cuda.empty_cache()
+
+
+def family_paged_rows(torch, dev, gen, results, model, k_slot, v_slot,
+                      hist) -> None:
+    """Mistral's paged rows (the paged check's kernels at its widths):
+    the slot rows ``k_slot`` / ``v_slot`` [B, S, K, D] (NaN past each
+    row's history) laid into a pool of pages of 64 through a random page
+    permutation, every pool row outside the table NaN; H writes a 4 x 64
+    chunk at page-aligned histories past the window, bit for bit the
+    plain write; D's fused paged decode at ``hist`` under the window
+    writes the token through the table and attends, bit for bit the
+    slot decode on the same rows and within the row limit of the plain
+    version."""
+    from llm_inference_engine_tpu_torch.config import get_config
+    from llm_inference_engine_tpu_torch.ops import attention
+    from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+    cfg = get_config(model)
+    H, K, D, W = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                  cfg.sliding_window)
+    B, S = k_slot.shape[:2]
+    page = 64
+    maxp = S // page
+    P = 1 + B * maxp
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    def ints(vals):
+        return torch.tensor(vals, dtype=torch.int32, device=dev)
+
+    table = (torch.randperm(P - 1, generator=gen, device=dev) + 1).to(
+        torch.int32).reshape(B, maxp)
+    k = torch.full((2, P, page, K, D), float("nan"), device=dev,
+                   dtype=torch.bfloat16)
+    v = torch.full_like(k, float("nan"))
+    k[1][table.long()] = k_slot.view(B, maxp, page, K, D)
+    v[1][table.long()] = v_slot.view(B, maxp, page, K, D)
+    cache = pkv.PagedKVCache(k.clone(), v.clone(), table, ints([0] * B))
+    ref = pkv.PagedKVCache(k.clone(), v.clone(), table, cache.lengths)
+    # H: a 4 x 64 prefill chunk at page-aligned histories
+    starts_l = [(n // page) * page for n in hist]
+    new_len_l = [64, 64, 64, 37]
+    starts, new_len = ints(starts_l), ints(new_len_l)
+    kn, vn = poisoned(torch, randn(B, 64, K, D)), poisoned(torch,
+                                                           randn(B, 64, K, D))
+    pkv.paged_update_at_layer(cache, 1, kn, vn, starts, new_len,
+                              kernels="cuda")
+    pkv.paged_update_at_layer_torch(ref, 1, kn, vn, starts, new_len)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+               for a, b in ((cache.k, ref.k), (cache.v, ref.v)))
+    if not same:
+        raise AssertionError(f"paged_kv_write {model}: the pool differs "
+                             "from the plain write")
+    tl = table.tolist()
+    pos, picked = slot_rows(starts_l, new_len_l, 64, 0)
+    flat = [tl[i // 64][p // page] * page + p % page
+            for p, i in zip(pos, picked)]
+    check_close(torch, "paged_kv_write", torch.nan_to_num(cache.k[1]),
+                torch.nan_to_num(ref.k[1]), results,
+                f"{model} B4 chunk 4 x 64 at {starts_l}, new {new_len_l}, page "
+                "64 cold L2, bits equal the plain write",
+                (time_ms(torch, lambda: pkv.paged_update_at_layer(
+                    cache, 1, kn, vn, starts, new_len, kernels="cuda"),
+                    cold=True),
+                 time_ms(torch, lambda: pkv.paged_update_at_layer_torch(
+                     ref, 1, kn, vn, starts, new_len))),
+                work=write_work(len(picked), K, D),
+                library=index_copy_ms(torch, (cache.k[1], cache.v[1]),
+                                      (kn, vn), (ints(flat).long(),
+                                                 ints(picked).long())),
+                floor=floor_ms(torch, (kn, vn), picked, torch.bfloat16,
+                               cold=True))
+    # D: the fused paged decode on the slot rows (the pool restored; the
+    # plain version's copy clean)
+    cache.k.copy_(k)
+    cache.v.copy_(v)
+    ref.k.copy_(k.nan_to_num())
+    ref.v.copy_(v.nan_to_num())
+    qs = ints(hist)
+    kl = qs + 1
+    qd = poisoned(torch, randn(B, 1, H, D))
+    kn1, vn1 = poisoned(torch, randn(B, 1, K, D)), poisoned(torch,
+                                                            randn(B, 1, K, D))
+    run = lambda: attention.attention_decode_paged_fused(  # noqa: E731
+        qd, kn1, vn1, cache.k, cache.v, qs, kl, 1, table=table, window=W,
+        kernels="cuda")[0]
+    plain = lambda: attention.attention_decode_paged_fused_torch(  # noqa: E731
+        qd, kn1, vn1, ref.k, ref.v, qs, kl, 1, table=table, window=W)[0]
+    got, want = run(), plain()
+    ks, vs = k_slot.clone(), v_slot.clone()
+    slot = attention.attention_decode_fused(
+        qd, kn1, vn1, ks[None], vs[None], qs, kl, 0, window=W,
+        kernels="cuda")[0]
+    torch.cuda.synchronize()
+    say_plan(attention, f"{model} paged B{B} H{H} K{K} D{D} page 64", B, H,
+             K, D, page=page, max_pages=maxp)
+    if not torch.equal(got, slot):
+        raise AssertionError(f"attention_decode_paged_fused {model}: not "
+                             "bit for bit the slot decode on the same rows")
+    check_close(torch, "attention_decode_paged_fused", got, want, results,
+                f"{model} B{B} H{H} K{K} page 64 contexts {min(hist)}-"
+                f"{max(hist)} window {W} (bits equal the slot decode), NaN "
+                "outside the table and past kv_len",
+                (time_ms(torch, run), time_ms(torch, plain, iters=3,
+                                              warmup=1)),
+                work=attn_work(hist, [n + 1 for n in hist], 1, H, K, D,
+                               new_rows=B * 2 * K * D * 2 * 2, window=W),
+                row_rel=DECODE_ROW_TOL)
+    del cache, ref, k, v, ks, vs
+    torch.cuda.empty_cache()
+
+
+def phase_model_families(torch, dev, results) -> None:
+    """4u: each family of FAMILIES at full width and depth, one sub-phase
+    a family: its kernels at its shapes (``family_kernel_rows``), its bf16
+    path with its control and its INT4 path through ``phase_main_path``
+    (the JSON ``kernels`` line keeps phase 3's rows), and for Mistral the
+    paged engine (pages of 64, chunks of 64) against the slot engine over
+    its 8192-token context: prefill logits bit for bit, greedy ids equal,
+    every decode step a fused paged decode a layer under the window."""
+    import numpy as np
+
+    from llm_inference_engine_tpu_torch.config import EngineConfig, get_config
+    seen: set = set()
+    for sub, (model, spec) in zip("abc", FAMILIES.items()):
+        t0 = time.perf_counter()
+        say(f"  -- 4u ({sub}) {model}")
+        family_kernel_rows(torch, dev, results, model, seen)
+        for kind in ("bf16", "int4"):
+            eng, lens, follow, n = spec[kind]
+            phase_main_path(torch, dev, results, f"{model} {kind}",
+                            EngineConfig(**eng), lens, follow, n,
+                            model=model,
+                            control=spec["control"] if kind == "bf16"
+                            else None, plain_generate=False)
+            torch.cuda.empty_cache()
+        if get_config(model).sliding_window is not None:
+            eng, lens, _, _ = spec["int4"]
+            rng = np.random.default_rng(0)
+            prompts = [rng.integers(3, get_config(model).vocab_size,
+                                    n).tolist() for n in lens]
+            phase_paged_vs_slot(torch, dev, model, dict(quant_mode="int4"),
+                                prompts, 32, max_seq_len=eng["max_seq_len"],
+                                tag=f"{model} paged int4")
+            torch.cuda.empty_cache()
+        say(f"  4u ({sub}) {model}: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -9042,6 +9624,12 @@ def main() -> int:
           "(6 engines each) against the CPU, llama2-7b float16 (B=4; over an "
           "int8 cache, slot B=4 and paged; INT4 B=8) and float32 (B=2)",
           phase_float_models, torch, dev, results)
+    phase("4u", "the model families at full width and depth: llama3.1-8b "
+          "(GQA G=4, Llama-3 RoPE scaling), mistral-7b (sliding window "
+          "4096, prompts to 6100 in 8192) and qwen2-7b (qkv bias, G=7), "
+          "each bf16 B=4 with its feature-off control and INT4; Mistral's "
+          "paged == slot; their kernels at their shapes",
+          phase_model_families, torch, dev, results)
     say("  decode per step, eager bodies against graph replays (wall and "
         "card busy ms): " + json.dumps(DECODE))
 

@@ -289,7 +289,10 @@ __global__ void __launch_bounds__(kActThreads)
 // token w / units: its head slot hs = u / (D / 2 / E) at column hs * D +
 // (u % (D / 2 / E)) * E, and its pair D / 2 on; slot i = hs % (G + 2) of
 // group g = hs / (G + 2) is q head g * G + i (i < G), k head g (i == G)
-// or v head g (i == G + 1). cos and sin: [n, D / 2] f32.
+// or v head g (i == G + 1). cos and sin: [n, D / 2] f32. With a bias
+// (Qwen2's packed qkv bias, [K * (G + 2) * D] of qkv's dtype), each value
+// is first x + b rounded once to the element type, as torch's
+// `qkv + bqkv` rounds it; the bias is a weight, read before the wait.
 template <int E>
 __device__ __forceinline__ void load_f32(const float* p, float (&o)[E]) {
   if constexpr (E % 4 == 0) {
@@ -308,8 +311,16 @@ __device__ __forceinline__ void load_f32(const float* p, float (&o)[E]) {
 }
 
 template <typename T, int E>
+__device__ __forceinline__ void add_bias(Pack<T, E>& x, const Pack<T, E>& b) {
+#pragma unroll
+  for (int e = 0; e < E; ++e)
+    x.v[e] = from_f32<T>(__fadd_rn(to_f32(x.v[e]), to_f32(b.v[e])));
+}
+
+template <typename T, int E, bool BIAS>
 __global__ void __launch_bounds__(kRopeThreads)
     split_qkv_rope_kernel(const T* __restrict__ qkv,
+                          const T* __restrict__ bias,
                           const float* __restrict__ cos_t,
                           const float* __restrict__ sin_t, T* __restrict__ q,
                           T* __restrict__ k, T* __restrict__ v, int n,
@@ -320,18 +331,31 @@ __global__ void __launch_bounds__(kRopeThreads)
   const unsigned slots = group + 2;
   const unsigned units = kv_heads * slots * vecs;
   const unsigned w = blockIdx.x * kRopeThreads + threadIdx.x;
-  pdl_wait();
-  pdl_launch_dependents();
-  if (w >= (unsigned)n * units) return;
-
+  const bool live = w < (unsigned)n * units;
   const unsigned tok = w / units;
   const unsigned u = w - tok * units;
   const unsigned hs = u / vecs;
   const unsigned col = (u - hs * vecs) * E;
+  P b1, b2;
+  if constexpr (BIAS) {
+    if (live) {
+      const T* b = bias + hs * head_dim + col;
+      b1 = *reinterpret_cast<const P*>(b);
+      b2 = *reinterpret_cast<const P*>(b + half);
+    }
+  }
+  pdl_wait();
+  pdl_launch_dependents();
+  if (!live) return;
+
   const unsigned g = hs / slots, i = hs - g * slots;
   const T* x = qkv + ((size_t)tok * kv_heads * slots + hs) * head_dim + col;
-  const P x1 = *reinterpret_cast<const P*>(x);
-  const P x2 = *reinterpret_cast<const P*>(x + half);
+  P x1 = *reinterpret_cast<const P*>(x);
+  P x2 = *reinterpret_cast<const P*>(x + half);
+  if constexpr (BIAS) {
+    add_bias(x1, b1);
+    add_bias(x2, b2);
+  }
   if (i == slots - 1) {
     T* dst = v + ((size_t)tok * kv_heads + g) * head_dim + col;
     *reinterpret_cast<P*>(dst) = x1;
@@ -452,14 +476,30 @@ int silu_mul_typed(const void* gate_up, void* out, int n, int inter,
 }
 
 // J: 16-byte vectors where every pointer and the half row allow them,
-// else one value a load; one thread a unit
+// else one value a load; one thread a unit; the bias instance where a
+// bias is given
+template <typename T, int E>
+int launch_split_qkv_rope(dim3 grid, cudaStream_t stream, const T* x,
+                          const T* b, const float* c, const float* s, T* q,
+                          T* k, T* v, int n, int kv_heads, int group,
+                          int head_dim) {
+  if (b != nullptr)
+    return launch_pdl(split_qkv_rope_kernel<T, E, true>, grid, kRopeThreads,
+                      stream, x, b, c, s, q, k, v, n, kv_heads, group,
+                      head_dim);
+  return launch_pdl(split_qkv_rope_kernel<T, E, false>, grid, kRopeThreads,
+                    stream, x, b, c, s, q, k, v, n, kv_heads, group,
+                    head_dim);
+}
+
 template <typename T>
-int split_qkv_rope_typed(const void* qkv, const void* cos_t,
+int split_qkv_rope_typed(const void* qkv, const void* bias, const void* cos_t,
                          const void* sin_t, void* q, void* k, void* v, int n,
                          int kv_heads, int group, int head_dim,
                          cudaStream_t stream) {
   constexpr int E = 16 / sizeof(T);
   const T* x = static_cast<const T*>(qkv);
+  const T* b = static_cast<const T*>(bias);
   const float *c = static_cast<const float*>(cos_t),
               *s = static_cast<const float*>(sin_t);
   T *qt = static_cast<T*>(q), *kt = static_cast<T*>(k),
@@ -467,7 +507,7 @@ int split_qkv_rope_typed(const void* qkv, const void* cos_t,
   const int half = head_dim / 2;
   const bool vec = half % E == 0 && aligned16(qkv) && aligned16(cos_t) &&
                    aligned16(sin_t) && aligned16(q) && aligned16(k) &&
-                   aligned16(v);
+                   aligned16(v) && (bias == nullptr || aligned16(bias));
   const long long units =
       (long long)kv_heads * (group + 2) * (vec ? half / E : half);
   // the flat unit index stays 32-bit
@@ -475,10 +515,10 @@ int split_qkv_rope_typed(const void* qkv, const void* cos_t,
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((n * units + kRopeThreads - 1) / kRopeThreads));
   if (vec)
-    return launch_pdl(split_qkv_rope_kernel<T, E>, grid, kRopeThreads, stream,
-                      x, c, s, qt, kt, vt, n, kv_heads, group, head_dim);
-  return launch_pdl(split_qkv_rope_kernel<T, 1>, grid, kRopeThreads, stream,
-                    x, c, s, qt, kt, vt, n, kv_heads, group, head_dim);
+    return launch_split_qkv_rope<T, E>(grid, stream, x, b, c, s, qt, kt, vt,
+                                       n, kv_heads, group, head_dim);
+  return launch_split_qkv_rope<T, 1>(grid, stream, x, b, c, s, qt, kt, vt, n,
+                                     kv_heads, group, head_dim);
 }
 
 }  // namespace
@@ -524,27 +564,29 @@ extern "C" int silu_and_mul(const void* gate_up, void* out, int n, int inter,
 }
 
 // Kernel J. qkv contiguous [n, kv_heads * (group + 2) * head_dim], group-
-// major; cos, sin contiguous f32 [n, head_dim / 2]; q [n, kv_heads *
-// group, head_dim], k and v [n, kv_heads, head_dim], contiguous, of
-// qkv's dtype (codes as above). head_dim even.
-extern "C" int split_qkv_rope(const void* qkv, const void* cos_t,
-                              const void* sin_t, void* q, void* k, void* v,
-                              int n, int kv_heads, int group, int head_dim,
-                              int dtype, void* stream) {
+// major; bias nullptr or contiguous [kv_heads * (group + 2) * head_dim] of
+// qkv's dtype, added to every row first; cos, sin contiguous f32 [n,
+// head_dim / 2]; q [n, kv_heads * group, head_dim], k and v [n, kv_heads,
+// head_dim], contiguous, of qkv's dtype (codes as above). head_dim even.
+extern "C" int split_qkv_rope(const void* qkv, const void* bias,
+                              const void* cos_t, const void* sin_t, void* q,
+                              void* k, void* v, int n, int kv_heads,
+                              int group, int head_dim, int dtype,
+                              void* stream) {
   if (n <= 0) return 0;
   if (kv_heads <= 0 || group <= 0 || head_dim <= 0 || head_dim % 2)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kBF16:
-      return split_qkv_rope_typed<__nv_bfloat16>(qkv, cos_t, sin_t, q, k, v,
-                                                 n, kv_heads, group, head_dim,
-                                                 s);
+      return split_qkv_rope_typed<__nv_bfloat16>(qkv, bias, cos_t, sin_t, q,
+                                                 k, v, n, kv_heads, group,
+                                                 head_dim, s);
     case kF16:
-      return split_qkv_rope_typed<__half>(qkv, cos_t, sin_t, q, k, v, n,
+      return split_qkv_rope_typed<__half>(qkv, bias, cos_t, sin_t, q, k, v, n,
                                           kv_heads, group, head_dim, s);
     case kF32:
-      return split_qkv_rope_typed<float>(qkv, cos_t, sin_t, q, k, v, n,
+      return split_qkv_rope_typed<float>(qkv, bias, cos_t, sin_t, q, k, v, n,
                                          kv_heads, group, head_dim, s);
   }
   return (int)cudaErrorInvalidValue;

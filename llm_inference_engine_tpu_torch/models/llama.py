@@ -2,9 +2,9 @@
 
 Port of ``llm_inference_engine_tpu/models/llama.py`` (one rank's body).
 Each layer runs: rmsnorm -> packed QKV matmul -> split + RoPE (kernel
-J, one launch) -> cache write -> attention -> o-proj -> fused
-add-residual + rmsnorm -> gate|up matmul -> silu_and_mul -> down-proj ->
-residual add. The layer's final
+J, one launch; it adds a Qwen2-style qkv bias first) -> cache write ->
+attention -> o-proj -> fused add-residual + rmsnorm -> gate|up matmul ->
+silu_and_mul -> down-proj -> residual add. The layer's final
 residual add is handed to the norm that reads its sum next: each layer
 returns (down, residual), and the next layer's first norm (or the final
 norm) is ``add_residual_rmsnorm(down, residual)``, whose stored sum is
@@ -122,14 +122,17 @@ def _layer_gen(cfg: ModelConfig, eng: EngineConfig, h_norm: torch.Tensor,
         tap("attn_norm", h_norm, layer_idx)
 
     qkv = linear(h_norm, layer["wqkv"], kernels=kernels)
-    if "bqkv" in layer:
-        qkv = qkv + layer["bqkv"].to(qkv.dtype)
-    # kernel J: q and k rotated, v, each contiguous, in one pass
+    # kernel J: Qwen2's qkv bias added, q and k rotated, v, each
+    # contiguous, in one pass
+    bias = layer.get("bqkv")
     q, k_new, v_new = split_qkv_rope_fused(
         qkv, cos, sin, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
-        kernels=kernels)
+        bias=bias, kernels=kernels)
     if tap:
-        tap("qkv_proj", qkv, layer_idx)
+        # J never stores the biased projection: the dump gets the plain
+        # add, whose rounding J's bias mode repeats
+        tap("qkv_proj", qkv if bias is None else qkv + bias.to(qkv.dtype),
+            layer_idx)
         tap("q_rope", q, layer_idx)
         tap("k_rope", k_new, layer_idx)
     sm_scale = 1.0 / math.sqrt(cfg.head_dim)

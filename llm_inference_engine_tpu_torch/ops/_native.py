@@ -126,8 +126,9 @@ _SIGNATURES = {
     "rmsnorm": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     # gate_up, out, n, inter, dtype, stream
     "silu_and_mul": [_P, _P, _I, _I, _I, _P],
-    # qkv, cos, sin, q, k, v, n, kv_heads, group, head_dim, dtype, stream
-    "split_qkv_rope": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # qkv, bias (or null), cos, sin, q, k, v, n, kv_heads, group,
+    # head_dim, dtype, stream
+    "split_qkv_rope": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 # the float16 and float32 instances of kernels D2 and D
 # (csrc/attention_{prefill,decode}_{f16,f32}.cu): the bf16 entry points'

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -141,23 +142,30 @@ def split_qkv_rope(qkv, positions, num_heads: int, num_kv_heads: int,
 
 def split_qkv_rope_fused_torch(qkv: torch.Tensor, cos: torch.Tensor,
                                sin: torch.Tensor, num_heads: int,
-                               num_kv_heads: int, head_dim: int):
-    """Plain version of kernel J: :func:`split_qkv`, :func:`rotate` of q
-    and of k by cos/sin (broadcastable to [..., 1, D/2]), and v made
-    contiguous."""
+                               num_kv_heads: int, head_dim: int,
+                               bias: Optional[torch.Tensor] = None):
+    """Plain version of kernel J: the packed ``bias`` added first (Qwen2:
+    ``qkv + bqkv.to(qkv.dtype)``, the JAX package's add), then
+    :func:`split_qkv`, :func:`rotate` of q and of k by cos/sin
+    (broadcastable to [..., 1, D/2]), and v made contiguous."""
+    if bias is not None:
+        qkv = qkv + bias.to(qkv.dtype)
     q, k, v = split_qkv(qkv, num_heads, num_kv_heads, head_dim)
     return rotate(q, cos, sin), rotate(k, cos, sin), v.contiguous()
 
 
 def split_qkv_rope_fused(qkv: torch.Tensor, cos: torch.Tensor,
                          sin: torch.Tensor, num_heads: int, num_kv_heads: int,
-                         head_dim: int, *, kernels: str = "auto"):
+                         head_dim: int, *, bias: Optional[torch.Tensor] = None,
+                         kernels: str = "auto"):
     """Kernel J: group-major packed qkv [..., K*(G+2)*D] -> q [..., H, D]
     and k [..., K, D] rotated by cos/sin (f32, one [D/2] row a token:
-    ``rope_tables``' [B, T, 1, D/2]) and v [..., K, D], each contiguous."""
+    ``rope_tables``' [B, T, 1, D/2]) and v [..., K, D], each contiguous;
+    with ``bias`` ([K*(G+2)*D], Qwen2's ``bqkv``), added to every row
+    first inside the kernel, rounded as the plain add rounds."""
     if not use_kernel(kernels, qkv):
         return split_qkv_rope_fused_torch(qkv, cos, sin, num_heads,
-                                          num_kv_heads, head_dim)
+                                          num_kv_heads, head_dim, bias)
     if qkv.dtype not in (torch.bfloat16, torch.float16, torch.float32):
         raise TypeError(f"split_qkv_rope kernel: unsupported dtype "
                         f"{qkv.dtype}")
@@ -182,13 +190,21 @@ def split_qkv_rope_fused(qkv: torch.Tensor, cos: torch.Tensor,
             raise ValueError(f"split_qkv_rope kernel: {name} "
                              f"{tuple(t.shape)} is not a contiguous "
                              f"[{n} tokens, {half}] row set on {qkv.device}")
+    if bias is not None:
+        bias = bias.to(qkv.dtype)
+        if (not bias.is_contiguous() or bias.shape != qkv.shape[-1:]
+                or bias.device != qkv.device):
+            raise ValueError(f"split_qkv_rope kernel: bias "
+                             f"{tuple(bias.shape)} is not a contiguous "
+                             f"[{qkv.shape[-1]}] row on {qkv.device}")
     from llm_inference_engine_tpu_torch.ops import _native
     q = torch.empty((*lead, num_heads, head_dim), dtype=qkv.dtype,
                     device=qkv.device)
     k = torch.empty((*lead, K, head_dim), dtype=qkv.dtype, device=qkv.device)
     v = torch.empty_like(k)
     status = _native.library().split_qkv_rope(
-        qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), q.data_ptr(),
+        qkv.data_ptr(), None if bias is None else bias.data_ptr(),
+        cos.data_ptr(), sin.data_ptr(), q.data_ptr(),
         k.data_ptr(), v.data_ptr(), n, K, G, head_dim,
         _native.dtype_code(qkv.dtype), _native.stream_of(qkv))
     _native.check(status, "split_qkv_rope")

@@ -2875,3 +2875,184 @@ def test_float_kernels_refuse_instead_of_falling_back(cuda):
     c32 = torch.randn(1, 2, 32, 2, 64, device=cuda, dtype=torch.float32)
     with pytest.raises(TypeError, match="need torch.float16 q"):
         attention.attention(q, c32, c32, lens - 1, lens, layer=0)
+
+
+# The model families beside Llama-2 (config.py's presets): the kernels at
+# the shapes llama3.1-8b, mistral-7b and qwen2-7b give them. E's (k, n,
+# halves) per family, the rows of a decode step (B 4 / 8) and of a prefill
+# chunk's tail (4 x 64, 8 x 64)
+FAMILY_PROJECTIONS = {
+    "llama3 wqkv": (4096, 6144, 1), "llama3 wo": (4096, 4096, 1),
+    "llama3 gate_up": (4096, 14336, 2), "llama3 down": (14336, 4096, 1),
+    "llama3 lm_head": (4096, 128256, 1), "mistral lm_head": (4096, 32000, 1),
+    "qwen2 wqkv": (3584, 4608, 1), "qwen2 wo": (3584, 3584, 1),
+    "qwen2 gate_up": (3584, 18944, 2), "qwen2 down": (18944, 3584, 1),
+    "qwen2 lm_head": (3584, 152064, 1)}
+
+
+@pytest.mark.parametrize("m", [4, 8, 256, 512])
+@pytest.mark.parametrize("proj", list(FAMILY_PROJECTIONS))
+def test_int4_matmul_at_family_shapes(cuda, proj, m):
+    """E (INT4, group 128) at each family's projections, every input at
+    the head of a buffer whose tail is NaN: the decode mode's cluster split
+    at k 3584, 14336 and 18944 and the prefill mode's tiles at n 4608,
+    28672, 37888 and the wide vocabularies."""
+    k, n, halves = FAMILY_PROJECTIONS[proj]
+    t = _qweight(cuda, "int4", k, n, halves)
+    t = quant.QuantizedTensor(_tail_poisoned(t.q), _tail_poisoned(t.scale),
+                              "int4", t.group_size)
+    x = _tail_poisoned(torch.randn(m, k, device=cuda, dtype=torch.bfloat16))
+    if proj.endswith("lm_head"):
+        got = _held_against_plain(t, x, torch.float32, atol=1e-3, rtol=1e-4)
+    else:
+        got = _held_against_plain(t, x, torch.bfloat16)
+    assert got.shape == (m, n * halves) and torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("dtype", NORM_DTYPES, ids=str)
+@pytest.mark.parametrize("n", [1, 8, 2048])
+def test_norm_act_at_family_widths(cuda, n, dtype):
+    """A at Qwen2's hidden 3584 (both modes; the residual sum bit for bit)
+    and B at intermediate 14336 and 18944."""
+    x = torch.randn(n, 3584, device=cuda, dtype=dtype)
+    r = torch.randn(n, 3584, device=cuda, dtype=dtype)
+    w = torch.rand(3584, device=cuda, dtype=dtype) + 0.5
+    torch.testing.assert_close(rmsnorm.rmsnorm(x, w, kernels="cuda"),
+                               rmsnorm.rmsnorm_torch(x, w), **TOL)
+    y, hh = rmsnorm.add_residual_rmsnorm(x, r, w, kernels="cuda")
+    y0, h0 = rmsnorm.add_residual_rmsnorm_torch(x, r, w)
+    assert torch.equal(hh, h0)
+    torch.testing.assert_close(y, y0, **TOL)
+    for inter in (14336, 18944):
+        gu = torch.randn(n, 2 * inter, device=cuda, dtype=dtype)
+        torch.testing.assert_close(
+            activations.silu_and_mul(gu, kernels="cuda"),
+            activations.silu_and_mul_torch(gu), **TOL)
+
+
+def _rope_bias_held(dev, n, K, G, D, dtype, shift=0):
+    """J's bias mode on poisoned copies of its inputs against the plain
+    add then the plain J (``qkv + bias``): q, k, v bit for bit, one
+    launch."""
+    qkv, cos, sin = _rope_inputs(dev, n, K, G, D, dtype)
+    bias = torch.randn(qkv.shape[-1], device=dev, dtype=dtype)
+    before = rope.split_qkv_rope_fused.launches
+    got = rope.split_qkv_rope_fused(
+        _nan_tail(qkv, shift=shift), _nan_tail(cos), _nan_tail(sin), K * G,
+        K, D, bias=_nan_tail(bias, shift=shift))
+    want = rope.split_qkv_rope_fused_torch(qkv + bias, cos, sin, K * G, K,
+                                           D)
+    torch.cuda.synchronize()
+    assert rope.split_qkv_rope_fused.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", NORM_DTYPES, ids=str)
+@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("K,G", [(8, 1), (8, 4), (4, 7), (4, 8)])
+def test_split_qkv_rope_kernel_bias_bit_for_bit(cuda, dtype, D, K, G):
+    """J's bias mode (Qwen2's packed qkv bias) is bit for bit the add
+    (rounded once to the dtype, as torch rounds ``qkv + bqkv``) then J, at
+    G 1, 4, 7 and 8, and without a bias J at the families' 32 / 8 and
+    28 / 4 heads."""
+    for n in (1, 7, 8, 40, 4096):
+        _rope_bias_held(cuda, n, K, G, D, dtype)
+        _rope_held(*_rope_inputs(cuda, n, K, G, D, dtype), K, G, D)
+    # one value a load: a qkv and a bias one element off 16 bytes
+    _rope_bias_held(cuda, 9, K, G, D, dtype, shift=1)
+
+
+# D and D2 at the families' groups with Mistral's window of 4096, at
+# contexts past it (4000-6150 of a cache of 8192): kv_len per sequence
+WINDOW = 4096
+WIDE_LENS = [4000, 4097, 5200, 6150]
+
+
+@pytest.mark.parametrize("mode", ["fused", "paged-fused"])
+@pytest.mark.parametrize("H,K", [(32, 8), (28, 4)])
+def test_decode_at_family_groups_with_window(cuda, mode, H, K):
+    """D's fused decode (slot) and fused paged decode (pages of 64, a
+    shuffled table) at G 4 and 7 under a window of 4096: every row at or
+    past kv_len and every pool row outside the table is NaN; the write is
+    bit for bit the plain write, the output within the tolerance of the
+    plain version on a clean copy, and the paged output bit for bit the
+    slot output on the same rows."""
+    D, S, page = 128, 8192, 64
+    B = len(WIDE_LENS)
+    kv_len = torch.tensor(WIDE_LENS, device=cuda, dtype=torch.int32)
+    q_start = kv_len - 1
+    k = torch.randn(2, B, S, K, D, device=cuda, dtype=torch.bfloat16)
+    v = torch.randn_like(k)
+    q = torch.randn(B, 1, H, D, device=cuda, dtype=torch.bfloat16)
+    kn = torch.randn(B, 1, K, D, device=cuda, dtype=torch.bfloat16)
+    vn = torch.randn_like(kn)
+    slot = kvc.KVCache(k.clone(), v.clone(), kv_len)
+    _poison_slot(slot, q_start)
+    want, _, _ = attention.attention_decode_fused_torch(
+        q, kn, vn, k.clone(), v.clone(), q_start, kv_len, 1, window=WINDOW)
+    got_slot = attention.attention_decode_fused(
+        q, kn, vn, slot.k, slot.v, q_start, kv_len, 1, window=WINDOW,
+        kernels="cuda")[0]
+    if mode == "fused":
+        got = got_slot
+        torch.cuda.synchronize()
+        for b, n in enumerate(WIDE_LENS):
+            assert torch.equal(slot.k[1, b, n - 1], kn[b, 0].to(k.dtype))
+            assert torch.equal(slot.v[1, b, n - 1], vn[b, 0].to(k.dtype))
+    else:
+        from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+        maxp = S // page
+        P = 1 + B * maxp + 3
+        table = (torch.randperm(P - 1, device=cuda)[:B * maxp] + 1).to(
+            torch.int32).reshape(B, maxp).contiguous()
+        kp = torch.randn(2, P, page, K, D, device=cuda, dtype=torch.bfloat16)
+        vp = torch.randn_like(kp)
+        kp[1][table.long()] = k[1].view(B, maxp, page, K, D)
+        vp[1][table.long()] = v[1].view(B, maxp, page, K, D)
+        pool = pkv.PagedKVCache(kp, vp, table, kv_len)
+        _poison_pool(pool, q_start, page)
+        before = attention.attention_decode_paged_fused.launches
+        got = attention.attention_decode_paged_fused(
+            q, kn, vn, pool.k, pool.v, q_start, kv_len, 1,
+            table=pool.block_table, window=WINDOW, kernels="cuda")[0]
+        torch.cuda.synchronize()
+        assert attention.attention_decode_paged_fused.launches == before + 1
+        assert torch.equal(got, got_slot)
+        for b, n in enumerate(WIDE_LENS):
+            p = pool.block_table[b, (n - 1) // page].long()
+            assert torch.equal(pool.k[1, p, (n - 1) % page],
+                               kn[b, 0].to(k.dtype))
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("mode", ["slot", "paged"])
+@pytest.mark.parametrize("H,K", [(32, 8), (28, 4)])
+def test_prefill_at_family_groups_with_window(cuda, mode, H, K):
+    """D2 at G 4 and 7 under a window of 4096: a 4 x 512 chunk at
+    histories 3584-5632 of a cache of 8192 (kv_len to 6144), the window
+    cutting every row's keys; NaN at or past kv_len and outside the
+    table (pages of 64), held against the plain version on a clean
+    copy."""
+    D, S, T, page = 128, 8192, 512, 64
+    q_start = torch.tensor([3584, 4096, 5120, 5632], device=cuda,
+                           dtype=torch.int32)
+    kv_len = q_start + torch.tensor([512, 512, 300, 512], device=cuda,
+                                    dtype=torch.int32)
+    B = 4
+    q = torch.randn(B, T, H, D, device=cuda, dtype=torch.bfloat16)
+    if mode == "slot":
+        c = kvc.KVCache(*(torch.randn(2, B, S, K, D, device=cuda,
+                                      dtype=torch.bfloat16)
+                          for _ in "kv"), kv_len)
+    else:
+        c = _paged_pool(cuda, 2, B, S // page, page, K, D)
+    clean, kw = _poisoned(c, mode, kv_len, page)
+    got = attention.attention(q, c.k, c.v, q_start, kv_len, layer=1,
+                              window=WINDOW, kernels="cuda", **kw)
+    want = attention.attention(q, clean.k, clean.v, q_start, kv_len,
+                               layer=1, window=WINDOW, kernels="torch", **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **TOL)

@@ -153,6 +153,34 @@ def test_fused_split_rope_is_the_glue_bit_for_bit(rng, dtype, G, D):
             assert torch.equal(g, w) and g.is_contiguous()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16], ids=str)
+@pytest.mark.parametrize("G,D", [(1, 16), (4, 64), (7, 128), (8, 128)])
+def test_fused_split_rope_with_bias_matches_jax(rng, dtype, G, D):
+    """Qwen2's packed qkv bias: the plain route adds ``bias`` first, as the
+    JAX decoder's ``qkv + bqkv.astype(qkv.dtype)`` before
+    ``split_qkv_rope_xla``; bit for bit the plain add then the plain J."""
+    B, T, K = 2, 5, 2 if G < 7 else 1
+    H = K * G
+    x = rng.normal(size=(B, T, K * (G + 2) * D)).astype(np.float32)
+    b = rng.normal(size=(K * (G + 2) * D,)).astype(np.float32)
+    pos = _positions(rng, B, T, "long")
+    qkv, bias = torch.from_numpy(x).to(dtype), torch.from_numpy(b).to(dtype)
+    got = _fused(qkv, torch.from_numpy(pos), H, K, D, bias=bias)
+    jx = jnp.asarray(x).astype(JNP[dtype])
+    want = j_rope.split_qkv_rope_xla(
+        jx + jnp.asarray(b).astype(JNP[dtype]).astype(jx.dtype),
+        jnp.asarray(pos), H, K, D)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(
+            _as_np(g), np.asarray(w.astype(jnp.float32)), **TOL[dtype])
+    cos, sin = rope.rope_cos_sin(torch.from_numpy(pos), D, 10000.0)
+    plain = rope.split_qkv_rope_fused_torch(qkv + bias, cos[..., None, :],
+                                            sin[..., None, :], H, K, D)
+    for g, w in zip(got, plain):
+        assert torch.equal(g, w)
+
+
 def test_fused_split_rope_is_a_counted_wrapper():
     assert rope.split_qkv_rope_fused in counted_wrappers()
     assert rope.split_qkv_rope_fused.launches == 0   # CPU: no launch

@@ -3,7 +3,7 @@
 CUDA card (an H100).
 
     python3 tools/chip_kernel_ab.py
-        [--rows attention|quant|writes|prefill|norm|float|spec|rope]
+        [--rows attention|quant|writes|prefill|norm|float|spec|rope|bias]
         PARENT_ROOT
         [CHANGE_ROOT]
 
@@ -54,6 +54,13 @@ replays, at a prefill chunk and the verify's 8 x 5, with a checksum of
 its outputs; and the replayed decode step of 4a, 4b, 4n (tp = 2 on one
 card) and 4t (float16): wall, card busy, J's ms, the RoPE glue's ms and
 the ids' checksum.
+
+``--rows bias`` times qwen2-7b's replayed decode step (INT4 at B 8 on
+4b's prompts, bf16 at B 4 on 4a's; llama2-7b's shapes are not touched)
+and kernel J at its decode step, through this checkout's
+``chip_smoke.bias_rows``: busy, wall, J's ms and the elementwise adds'
+ms a step, where a tree that adds Qwen2's qkv bias apart from J (the
+parent of J's bias mode) pays for the add, and the ids' checksum.
 
 ``--rows float`` times the float16 and float32 instances D2f, Df, Ef and
 Ff instead, and only them, at phase 3f's shapes (the prefill over the
@@ -106,7 +113,8 @@ def one(root: Path, rows: str = "attention") -> dict:
     ``rows="norm"``: kernels A and B and 4b's, 4c's and 4d's replayed
     step; ``rows="float"``: the float instances D2f, Df, Ef, Ff;
     ``rows="spec"``: the speculative round's kernels and the round;
-    ``rows="rope"``: the QKV split with RoPE and the replayed steps)."""
+    ``rows="rope"``: the QKV split with RoPE and the replayed steps;
+    ``rows="bias"``: qwen2-7b's replayed steps and J)."""
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_kernel_ab: no CUDA device")
@@ -140,6 +148,8 @@ def one(root: Path, rows: str = "attention") -> dict:
         return here.spec_rows(torch, dev)
     if rows == "rope":
         return here.rope_rows(torch, dev)
+    if rows == "bias":
+        return here.bias_rows(torch, dev)
     results: dict = {}
     for fn in (smoke.phase_kernels, smoke.phase_paged_kernels,
                smoke.phase_kv_int8_kernels):
@@ -154,7 +164,7 @@ def main(argv) -> int:
     if len(argv) >= 2 and argv[0] == "--rows":
         rows, argv = argv[1], argv[2:]
     if rows not in ("attention", "quant", "writes", "prefill", "norm",
-                    "float", "spec", "rope"):
+                    "float", "spec", "rope", "bias"):
         raise SystemExit(__doc__)
     if len(argv) >= 2 and argv[0] == "--one":
         print(json.dumps(one(Path(argv[1]).resolve(), rows)), flush=True)
