@@ -127,7 +127,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
       kv_len NaN, against the plain versions, timed with bound and
       library call;
    o. context parallelism on one card (after 4n; 4b's weights made
-      again): llama2-7b INT4, B = 4, max_seq_len 8192, chunks of 512,
+      again, the engines on their first DEPTH_CUT layers, a depth cut):
+      llama2-7b INT4, B = 4, max_seq_len 8192, chunks of 512,
       prompts of 1000-6500 tokens, seq ranks on cuda:0, against a cp = 1
       engine on the same weights: cp = 2 over a bf16 log (a planted ring
       of own chunks must move the last layer's K rows CP_FAULT_RATIO
@@ -284,9 +285,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
       (slot B 4, then paged over pages of 64: If and D2f in prefill, a
       decode step Df's fused int8 decode a layer and no If) and INT4 at
       B 8 (4b's prompts), (c)
-      llama2-7b float32 at B 2 (7 and 700 tokens, 16 tokens): the first
-      token against ``kernels="torch"`` by 4a's rule, launches per forward
-      (no bf16 kernel, no plain version), ``graph_checks``;
+      llama2-7b float32 at B 2 (7 and 700 tokens, 16 tokens; its first
+      DEPTH_CUT layers, a depth cut): the first token against
+      ``kernels="torch"`` by 4a's rule, launches per forward (no bf16
+      kernel, no plain version), ``graph_checks``;
    u. the model families beside Llama-2 at full width and depth
       (``FAMILIES``): llama3.1-8b (G 4, vocabulary 128256, Llama-3 RoPE
       scaling), mistral-7b (a sliding window of 4096, prompts of 700-6100
@@ -298,7 +300,21 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
       logits must move more than the kernel path's from the plain path's)
       and its INT4 path, each a main path as 4a's (``phase_main_path``,
       4b's tie rule), and Mistral's paged engine (pages and chunks of 64)
-      against its slot engine past the window, as 4d's;
+      against its slot engine past the window, as 4d's (Mistral's bf16
+      path and paged check at 8 of its 32 layers: DEPTH_CUT_PATHS);
+   v. the last paths (``phase_last_paths``): the INT4 prefill's product
+      with a bf16 result (the route) bit for bit its f32 result cast at
+      every m >= 1024 shape of 4b, the families and 13B; (a)
+      llama2-13b at full width and depth (``LARGE``): its kernels at its
+      shapes (``family_kernel_rows``), bf16 B 4 and INT4 B 8 as 4u's
+      paths, each replayed step beside its weight bytes' bound, and
+      paged == slot at INT4 B 8 as 4d's; (b) the server over llama3.1-8b:
+      4d's, 4e's and 4f's checks, then 4i's wave over an int8 pool of the
+      same bytes, each wave beside 4e's and 4i's; (c) mistral-7b INT8
+      weights over an int8 slot cache at B 4 in 8192 (``WINDOW_INT8``):
+      F, G8 and its epilogue, I, D2's and D's int8 modes at its shapes
+      (and D's at Qwen2's G 7), scales NaN past kv_len and left of the
+      window, then the path as 4j's;
    (3d, before 4: kernel I, H's int8 mode, D2's and D's int8 modes
    against their plain versions at 7B widths, in both scale numerics, the
    decode modes held per row, D's fused decode over an int8 pool bit for
@@ -329,6 +345,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import os
 import subprocess
@@ -613,9 +630,23 @@ INT8_FAULTS = {
     "newest key dropped": lambda kl, ks, vs: (kl - 1, ks, vs),
 }
 MUST_SEE_FAULTS = ("int8-kv8",)
+# off MUST_SEE_FAULTS the faults are planted only where a path's prompts
+# total at most this many tokens (each fault costs one more plain prefill)
+FAULT_PROMPT_TOKENS = 4096
+# Depth cuts that keep every width: the paths of DEPTH_CUT_PATHS (4u's
+# Mistral bf16 path and paged == slot check), 4o's cp engines (the first
+# layers of 4b's weights) and 4t's llama2-7b float32 path run the first
+# DEPTH_CUT layers of their model. Each layer only repeats the kernels,
+# which a full-depth path at the same widths holds (Mistral's INT4 path,
+# 4b and 4n, 3f).
+DEPTH_CUT = 8
+DEPTH_CUT_PATHS = ("mistral-7b bf16", "mistral-7b paged int4")
 # per main path: decode wall and card busy per step, eager bodies against
 # graph replays (graph_checks), printed as one line at the end of phase 4
 DECODE: dict = {}
+# each served path's waves (phase_server): {"model kv": {wave: (generated
+# tok/s, TTFT p50 s, TTFT p99 s)}}
+SERVED: dict = {}
 # what 4n reuses of 4b (its prompts, kernel-path prefill logits and
 # round-1 greedy ids) and of 4g (its logits and ids), by path; 4n makes
 # 4b's seed-0 weights again, so no later path's peak memory holds them
@@ -1935,7 +1966,8 @@ def quant_case(torch, dev, gen, results, mode, m, label,
     ``_weight_int8pack_mm``) and its plan; with ``poison``, x and the
     first weight's q and scale lie at the head of buffers whose tails are
     NaN (``poisoned``). Returns (kernel ms, the weights, x, the output
-    dtype)."""
+    dtype); the library's plan must equal its mirror
+    (``quant_matmul_plan``)."""
     from llm_inference_engine_tpu_torch.ops import quant
     bf16 = torch.bfloat16
     name = f"{mode}_matmul"
@@ -1967,6 +1999,13 @@ def quant_case(torch, dev, gen, results, mode, m, label,
     plan = quant.quant_matmul_plan_native(m, k, n, halves,
                                           int4=mode == "int4")
     say(f"    plan: {plan}")
+    mirror = quant.quant_matmul_plan(
+        m, k, n, halves, int4=mode == "int4",
+        sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    if {key: v for key, v in plan.items() if key != "blocks_per_sm"} \
+            != mirror:
+        raise AssertionError(f"{name} {tag}m{m} {label}: the library's plan "
+                             f"{plan} is not its mirror's {mirror}")
     return ms, ts, x, out
 
 
@@ -2109,69 +2148,83 @@ def large_m_int8_rows(torch, dev, gen, results) -> dict:
             f"{(f_out.float() - ref.float()).abs().max().item():.3e}")
         for r, v in ms.items():
             out[f"int8 m{LARGE_M} {label} {r}"] = sum(v) / 2
-        # G8 alone
-        ts[0] = quant.QuantizedTensor(poisoned(torch, ts[0].q), ts[0].scale,
-                                      "int8", 128)
-        got = quant.dequant_int8(ts[0].q, kernels="cuda")
-        want = quant.dequant_int8_torch(ts[0].q)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"dequant_int8 {label}: not bit for bit "
-                                 ".to(bfloat16) + _cat")
-        lib = library_int8_cast(torch, k, n_out)
-        if not torch.equal(lib(ts[0]), want):
-            raise AssertionError(f"dequant_int8 {label}: the library call "
-                                 "is not bit for bit .to(bfloat16) + _cat")
-        g8 = time_ms(torch, cycling(ts, lambda t: quant.dequant_int8(
-            t.q, kernels="cuda")))
+        g8, ep, lib_ms = g8_cases(torch, dev, gen, results, ts, label, k,
+                                  n_out, LARGE_M)
         out[f"dequant_int8 {label}"] = g8
-        record("dequant_int8", 0.0, results,
-               f"{label} int8 [{k},{n_out}] -> bf16 (torch.equal), 127 past "
-               "the tail", (g8, time_ms(torch, cycling(
-                   ts, lambda t: quant.dequant_int8_torch(t.q)), iters=3,
-                   warmup=1)),
-               work=(k * n_out * 3, 0),
-               library=time_ms(torch, cycling(ts, lib)))
-        # G8's epilogue alone
-        y = poisoned(torch, torch.randn(LARGE_M, n_out, generator=gen,
-                                        device=dev))
-        post = poisoned(torch, quant._cat([
-            sh.reshape(1, -1) for _, sh in quant._halves(ts[0].q,
-                                                         ts[0].scale)]))
-        got = quant.int8_scale_cast(y, post, bf16, kernels="cuda")
-        want = quant.int8_scale_cast_torch(y, post, bf16)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"int8_scale_cast {label}: not bit for bit "
-                                 "(y * post).to(bfloat16)")
-        def mul():   # one torch call, the product rounded on the store
-            return torch.mul(y, post, out=torch.empty(y.shape, dtype=bf16,
-                                                      device=dev))
-        if not torch.equal(mul(), want):
-            raise AssertionError(f"torch.mul(out=bf16) {label}: not bit for "
-                                 "bit (y * post).to(bfloat16)")
-        turns = {"kernel": [], "mul": []}
-        for r in ("kernel", "mul", "mul", "kernel"):
-            turns[r].append(time_ms(torch, mul if r == "mul" else (
-                lambda: quant.int8_scale_cast(y, post, bf16,
-                                              kernels="cuda"))))
-        ep, lib_ms = (sum(turns["kernel"]) / 2, sum(turns["mul"]) / 2)
         out[f"int8_scale_cast {label}"] = ep
         out[f"torch.mul out=bf16 {label}"] = lib_ms
-        say(f"  int8_scale_cast {label} in turns: kernel "
-            f"{turns['kernel'][0]:.4f}, {turns['kernel'][1]:.4f} ms; "
-            f"torch.mul(out=bf16) {turns['mul'][0]:.4f}, "
-            f"{turns['mul'][1]:.4f} ms")
-        record("int8_scale_cast", 0.0, results,
-               f"{label} f32 [{LARGE_M},{n_out}] x scale -> bf16 "
-               "(torch.equal), NaN past the tails",
-               (ep, time_ms(torch, lambda: quant.int8_scale_cast_torch(
-                   y, post, bf16))),
-               work=(LARGE_M * n_out * 6 + n_out * 4, LARGE_M * n_out),
-               library=lib_ms)
-        del ts, x, ref, f_out, got, want, y, post
+        del ts, x, ref, f_out
         torch.cuda.empty_cache()
     return out
+
+
+def g8_cases(torch, dev, gen, results, ts, label, k, n_out, m, tag=""):
+    """G8 alone on the INT8 weights ``ts`` (cycled; the first with q at
+    the head of a buffer whose tail holds 127), bit for bit its plain
+    version (cast + ``_cat``) and the library call (``library_int8_cast``),
+    then G8's epilogue alone on an f32 product [m, n_out] (the product
+    times the scale, rounded to bf16) bit for bit ``(y * post).to`` and
+    ``torch.mul(y, post, out=<bf16>)``, y and the scale with NaN past
+    their tails, timed in turns against that call; each with its bound.
+    Returns (G8 ms, epilogue ms, torch.mul ms)."""
+    from llm_inference_engine_tpu_torch.ops import quant
+    bf16 = torch.bfloat16
+    ts[0] = quant.QuantizedTensor(poisoned(torch, ts[0].q), ts[0].scale,
+                                  "int8", 128)
+    got = quant.dequant_int8(ts[0].q, kernels="cuda")
+    want = quant.dequant_int8_torch(ts[0].q)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"dequant_int8 {tag}{label}: not bit for bit "
+                             ".to(bfloat16) + _cat")
+    lib = library_int8_cast(torch, k, n_out)
+    if not torch.equal(lib(ts[0]), want):
+        raise AssertionError(f"dequant_int8 {tag}{label}: the library call "
+                             "is not bit for bit .to(bfloat16) + _cat")
+    g8 = time_ms(torch, cycling(ts, lambda t: quant.dequant_int8(
+        t.q, kernels="cuda")))
+    record("dequant_int8", 0.0, results,
+           f"{tag}{label} int8 [{k},{n_out}] -> bf16 (torch.equal), 127 "
+           "past the tail", (g8, time_ms(torch, cycling(
+               ts, lambda t: quant.dequant_int8_torch(t.q)), iters=3,
+               warmup=1)),
+           work=(k * n_out * 3, 0),
+           library=time_ms(torch, cycling(ts, lib)))
+    # G8's epilogue alone
+    y = poisoned(torch, torch.randn(m, n_out, generator=gen, device=dev))
+    post = poisoned(torch, quant._cat([
+        sh.reshape(1, -1) for _, sh in quant._halves(ts[0].q,
+                                                     ts[0].scale)]))
+    got = quant.int8_scale_cast(y, post, bf16, kernels="cuda")
+    want = quant.int8_scale_cast_torch(y, post, bf16)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"int8_scale_cast {tag}{label}: not bit for "
+                             "bit (y * post).to(bfloat16)")
+
+    def mul():   # one torch call, the product rounded on the store
+        return torch.mul(y, post, out=torch.empty(y.shape, dtype=bf16,
+                                                  device=dev))
+    if not torch.equal(mul(), want):
+        raise AssertionError(f"torch.mul(out=bf16) {tag}{label}: not bit "
+                             "for bit (y * post).to(bfloat16)")
+    turns = {"kernel": [], "mul": []}
+    for r in ("kernel", "mul", "mul", "kernel"):
+        turns[r].append(time_ms(torch, mul if r == "mul" else (
+            lambda: quant.int8_scale_cast(y, post, bf16, kernels="cuda"))))
+    ep, lib_ms = (sum(turns["kernel"]) / 2, sum(turns["mul"]) / 2)
+    say(f"  int8_scale_cast {tag}{label} in turns: kernel "
+        f"{turns['kernel'][0]:.4f}, {turns['kernel'][1]:.4f} ms; "
+        f"torch.mul(out=bf16) {turns['mul'][0]:.4f}, "
+        f"{turns['mul'][1]:.4f} ms")
+    record("int8_scale_cast", 0.0, results,
+           f"{tag}{label} f32 [{m},{n_out}] x scale -> bf16 (torch.equal), "
+           "NaN past the tails",
+           (ep, time_ms(torch, lambda: quant.int8_scale_cast_torch(
+               y, post, bf16))),
+           work=(m * n_out * 6 + n_out * 4, m * n_out),
+           library=lib_ms)
+    return g8, ep, lib_ms
 
 
 def library_int8_cast(torch, k, n_out):
@@ -2765,31 +2818,64 @@ def graph_checks(torch, engine, tag: str, toks, active, prompts):
     return kernels_g
 
 
+def preset(model: str, name: str):
+    """What ``create_engine`` builds for the path ``name`` of ``model``:
+    the preset's name, or where ``name`` is in DEPTH_CUT_PATHS its config
+    cut to the first DEPTH_CUT layers at full width."""
+    from llm_inference_engine_tpu_torch.config import get_config
+    if name in DEPTH_CUT_PATHS:
+        return get_config(model).replace(num_layers=DEPTH_CUT)
+    return model
+
+
+def upcast_in_place(torch, params: dict) -> dict:
+    """``params`` with every dense tensor replaced by its float32 copy,
+    one at a time, so that each bf16 tensor is freed as its copy is made
+    (Llama-2-13B: 26 GB of bf16 become 52 GB of f32 with no 78-GB peak);
+    quantized weights stay as they are (their plain versions take f32).
+    The caller holds no other reference to the bf16 tensors."""
+    from llm_inference_engine_tpu_torch.ops.quant import QuantizedTensor
+    for tree in [params] + [v for v in params.values()
+                            if isinstance(v, dict)]:
+        for k, v in tree.items():
+            if isinstance(v, torch.Tensor):
+                tree[k] = v.float()
+                del v
+                torch.cuda.empty_cache()
+            elif not isinstance(v, (dict, QuantizedTensor)):
+                raise TypeError(f"params[{k!r}]: {type(v).__name__}")
+    return params
+
+
 def phase_main_path(torch, dev, results, path: str, eng_cfg, prompt_lens,
                     follow_lens, greedy_tokens: int,
                     model: str = "llama2-7b", control=None,
                     plain_generate: bool = True):
     """One slot main path of ``model`` (a preset; seed-0 dummy weights made
-    on the card): ``path`` names its MAIN_PATHS row, the kernels that must
-    launch and those that must not. ``control``: (what, config fields,
-    rows): the same prompts' prefill with a feature of the model switched
-    off (``cfg.replace(**fields)``; ``attention_bias=False`` also drops
-    the bias tensor), whose last-row logits on ``rows`` (None: every row)
-    must differ from the feature's by more than the kernel path's from
-    the plain path's (max abs and relative L2), or the logit checks could
-    not have seen the feature. ``plain_generate``: round 1 again through
-    the plain versions, its greedy ids' agreement with the kernel path
-    printed (4u's paths leave it out: a printed ratio that costs the plain
-    route's prefill again, 14300 tokens in Mistral's). Prints the seconds
-    of the kernel path's part, the plain route's, the control's and the
-    f32 arbiter's. Returns the kernel path's prefill logits."""
+    on the card; cut in depth where ``preset`` says so): ``path`` names its
+    MAIN_PATHS row, the kernels that must launch and those that must not.
+    ``control``: (what, config fields, rows): the same prompts' prefill
+    with a feature of the model switched off (``cfg.replace(**fields)``;
+    ``attention_bias=False`` also drops the bias tensor), whose last-row
+    logits on ``rows`` (None: every row) must differ from the feature's by
+    more than the kernel path's from the plain path's (max abs and
+    relative L2), or the logit checks could not have seen the feature.
+    ``plain_generate``: round 1 again through the plain versions, its
+    greedy ids' agreement with the kernel path printed (4u's paths leave
+    it out: a printed ratio that costs the plain route's prefill again,
+    14300 tokens in Mistral's). On an int8 cache the INT8_FAULTS prefills
+    run on MUST_SEE_FAULTS and where the prompts total at most
+    FAULT_PROMPT_TOKENS (off MUST_SEE_FAULTS they are only printed, each
+    one more plain prefill: 4v's Mistral path, 14300 tokens, has none).
+    Prints the seconds of the kernel path's part, the plain route's, the
+    control's and the f32 arbiter's. Returns the kernel path's prefill
+    logits."""
     import numpy as np
 
     from llm_inference_engine_tpu_torch.config import SamplingParams, get_config
     from llm_inference_engine_tpu_torch.models.registry import create_engine
     from llm_inference_engine_tpu_torch.models.weights import (
         param_bytes, param_count)
-    from llm_inference_engine_tpu_torch.ops.quant import QuantizedTensor
     from llm_inference_engine_tpu_torch.runtime.engine import InferenceEngine
 
     counters = _counters()
@@ -2800,11 +2886,15 @@ def phase_main_path(torch, dev, results, path: str, eng_cfg, prompt_lens,
     def lap() -> float:
         clock.append(time.perf_counter())
         return clock[-1] - clock[-2]
-    cfg = get_config(model)
-    V = cfg.vocab_size
-    engine = create_engine(model, None, eng_cfg, seed=0, device=dev)
-    torch.cuda.synchronize()
     name = path if path.startswith(model) else f"{model} {path}"
+    engine = create_engine(preset(model, name), None, eng_cfg, seed=0,
+                           device=dev)
+    cfg = engine.config
+    V = cfg.vocab_size
+    torch.cuda.synchronize()
+    depth = get_config(model).num_layers
+    if cfg.num_layers != depth:
+        name += f" ({cfg.num_layers} of {depth} layers)"
     say(f"  engine: {name}, {param_count(engine.params) / 1e9:.3f} "
         f"G stored elements ({param_bytes(engine.params) / 1e9:.2f} GB), "
         f"B={B}, KV cache {kv_bytes(engine.cache) / 1e9:.2f} GB"
@@ -2850,6 +2940,10 @@ def phase_main_path(torch, dev, results, path: str, eng_cfg, prompt_lens,
     toks = torch.tensor([o[-1] for o in r2.token_ids], device=dev,
                         dtype=torch.int32)
     graph_checks(torch, engine, path, toks, active, prompts)
+    # the weights a decode step reads: all but the embedding table
+    DECODE[path]["weight_bytes"] = (
+        param_bytes(engine.params)
+        - param_bytes({"embed": engine.params["embed"]}))
     peak = torch.cuda.max_memory_allocated()
     launches = {k: f.launches for k, f in counters.items()}
     say(f"  launches during the {path} path: {launches}")
@@ -2906,7 +3000,8 @@ def phase_main_path(torch, dev, results, path: str, eng_cfg, prompt_lens,
     # int8 attention, for each of INT8_FAULTS (instrumentation of this
     # check only; the plain attention is restored after each)
     planted = {}
-    if engine.cache.quantized:
+    if engine.cache.quantized and (path in MUST_SEE_FAULTS or sum(
+            prompt_lens) <= FAULT_PROMPT_TOKENS):
         from llm_inference_engine_tpu_torch.ops import attention as attn_mod
         plain = attn_mod.attention_torch
         for fault, plant in INT8_FAULTS.items():
@@ -2943,19 +3038,18 @@ def phase_main_path(torch, dev, results, path: str, eng_cfg, prompt_lens,
         moved = (_logit_diff(logits_off[rows], logits[rows]),
                  _logit_diff(logits_t[rows], logits[rows]))
     t_control = lap()
-    # arbiter: the plain path in f32 on the same (upcast) weights;
-    # quantized weights stay as they are (their plain versions take f32)
-    def up(v):
-        return v if isinstance(v, QuantizedTensor) else v.float()
-    params32 = {k: ({n: up(w) for n, w in v.items()}
-                    if isinstance(v, dict) else up(v))
-                for k, v in engine.params.items()}
+    # arbiter: the plain path in f32 on the same (upcast) weights; the
+    # kernel engine goes first, and its weights are upcast in place
     params = engine.params
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    params32 = upcast_in_place(torch, params)
     ref32 = InferenceEngine(cfg.replace(dtype_name="float32"),
                             eng_cfg.replace(kernels="torch"), params32,
                             device=dev)
     logits_32 = ref32.prefill(prompts)
-    del ref32, params32, engine
+    del ref32, params32, params
     torch.cuda.empty_cache()
     say(f"  seconds: kernel path {t_kernels:.1f}, plain route {t_plain:.1f}"
         f", control {t_control:.1f}, f32 arbiter {lap():.1f}")
@@ -4240,25 +4334,26 @@ def phase_paged_vs_slot(torch, dev, model: str, quant: dict, prompts,
     paged engine (page 64) and a slot engine, same kernels, same weights,
     chunks of 64: bit-identical prefill logits and the same greedy ids.
     ``tag`` names the path in the printed lines (default ``paged`` and the
-    KV dtype). Returns the paged engine's params for the phases after
-    it."""
+    KV dtype, which ``preset`` reads for a depth cut).
+    Returns the paged engine's params for the phases after it."""
     import numpy as np
 
     from llm_inference_engine_tpu_torch.config import (
-        EngineConfig, SamplingParams, get_config)
+        EngineConfig, SamplingParams)
     from llm_inference_engine_tpu_torch.models.registry import create_engine
     from llm_inference_engine_tpu_torch.runtime.engine import InferenceEngine
 
-    cfg = get_config(model)
     base = EngineConfig(max_batch_size=len(prompts), max_seq_len=max_seq_len,
                         max_prefill_len=64, **quant)
     greedy = SamplingParams(greedy=True, max_new_tokens=greedy_tokens)
-    paged = create_engine(model, None, base.replace(kv_layout="paged",
-                                                    page_size=64),
+    paged = create_engine(preset(model, tag), None,
+                          base.replace(kv_layout="paged", page_size=64),
                           seed=0, device=dev)
+    cfg = paged.config
     B = len(prompts)
-    say(f"  paged engine: {model} {quant}, B={B}, {paged.cache.num_pages} "
-        f"pages of 64, pool {kv_bytes(paged.cache) / 1e9:.2f} GB")
+    say(f"  paged engine: {model} {quant}, B={B}, {cfg.num_layers} layers, "
+        f"{paged.cache.num_pages} pages of 64, pool "
+        f"{kv_bytes(paged.cache) / 1e9:.2f} GB")
     counters = _zero_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4326,6 +4421,15 @@ def _percentiles(xs):
     return " / ".join(f"{np.percentile(xs, q):.3f}" for q in (50, 90, 99))
 
 
+def int8_pool_pages(cfg) -> int:
+    """4i's page count: an int8 pool of the bytes of 4e's 193 pages of 64
+    (a page's values at 1 byte and its scales at 4 bytes per (token, head),
+    against 2 bytes a value)."""
+    page_heads = 2 * cfg.num_layers * 64 * cfg.num_kv_heads
+    return 193 * page_heads * cfg.head_dim * 2 // (
+        page_heads * (cfg.head_dim + 4))
+
+
 def phase_server(torch, dev, results, model: str, quant: dict, params,
                  num_pages: int = 193, n_wave1: int = 24, n_wave2: int = 8,
                  expect_page_waits: bool = True):
@@ -4340,7 +4444,11 @@ def phase_server(torch, dev, results, model: str, quant: dict, params,
     scheduler in-process with the decode bodies eager: every request's ids
     equal the server's. 4i runs wave 1 alone over an int8 pool of the same
     bytes (``num_pages`` ~2x), where admission need not wait for pages.
-    Returns the engine."""
+    The paged kernels' launches go into the JSON line where PATH_OF names
+    this server path (``server`` / ``server-kv8``, llama2-7b's, 4e and 4i;
+    another model's is ``<model> server``, as the main paths are named).
+    Each wave's tok/s and TTFT p50 / p99 go into SERVED. Returns the
+    engine."""
     import http.client
     import threading
 
@@ -4481,12 +4589,20 @@ def phase_server(torch, dev, results, model: str, quant: dict, params,
     check_decode_step_launches(f"the server {quant}", decode_steps,
                                cfg.num_layers,
                                int8=bool(quant.get("kv_cache_dtype_name")))
-    for name in expected[-3:]:            # the paged write and attention
-        results.setdefault(name, {})["launches"] = launches[name]
+    kv = "int4-kv8" if quant.get("kv_cache_dtype_name") else "int4"
+    path = "server-kv8" if kv == "int4-kv8" else "server"
+    if model != "llama2-7b":
+        path = f"{model} {path}"
+    for name in expected:
+        if PATH_OF[name] == path:
+            results.setdefault(name, {})["launches"] = launches[name]
     ap = sched.auto_prefix
     reused = [r.reused_prefix_len for r in requests[len(wave1):]]
     for tag, reqs, wall in waves:
         gen = sum(len(r.output_ids) for r in reqs)
+        ttft = [r.ttft for r in reqs]
+        SERVED.setdefault(f"{model} {kv}", {})[tag] = (
+            gen / wall, *np.percentile(ttft, (50, 99)).tolist())
         say(f"  {tag}: {len(reqs)} requests, "
             f"{sum(len(r.prompt_ids) for r in reqs)} prompt tokens, {gen} "
             f"generated in {wall:.3f} s ({gen / wall:.1f} generated tok/s); "
@@ -7091,11 +7207,19 @@ def cp_chunk_profile(torch, engine, chunk) -> dict:
     return out
 
 
+def first_layers(params: dict, n: int) -> dict:
+    """``params`` with every per-layer stack cut to its first ``n`` layers
+    (views: no copy)."""
+    return {**params, "layers": {k: v[:n] for k, v in
+                                 params["layers"].items()}}
+
+
 def phase_context_parallel(torch, dev, results):
     """4o: context parallelism on one card, llama2-7b INT4 (4b's seed-0
-    weights), B = 4, max_seq_len 8192, chunks of 512, prompts of
-    CP_PROMPTS tokens, seq ranks on cuda:0, every launch counter set to 0
-    just before each path and read just after: (a) cp = 2 over a bf16 log
+    weights, their first DEPTH_CUT layers), B = 4, max_seq_len 8192,
+    chunks of 512, prompts of CP_PROMPTS tokens, seq ranks on cuda:0,
+    every launch counter set to 0 just before each path and read just
+    after: (a) cp = 2 over a bf16 log
     against a cp = 1 engine on the same weights: a ring of own chunks
     planted (``cp_fault_probe``), prefill logits within TP_LOGIT_REL_L2
     and first tokens under the tie rule, layer 0's K rows in position
@@ -7110,7 +7234,7 @@ def phase_context_parallel(torch, dev, results):
     numerics) against the cp = 1 int8 slot cache, as (a); (d) cp = 2 x
     tp = 2, four ranks, against (a)'s cp = 1 engine, as (a) with a model
     rank's partial left out as the fault; (e) ``cp_write_rows``; the peak
-    memory. Returns the weights (4p reuses them)."""
+    memory. Returns the full-depth weights (4p reuses them)."""
     import numpy as np
 
     from llm_inference_engine_tpu_torch.config import EngineConfig, get_config
@@ -7120,7 +7244,8 @@ def phase_context_parallel(torch, dev, results):
         context_parallel, make_mesh, sharding)
     from llm_inference_engine_tpu_torch.runtime.engine import InferenceEngine
 
-    cfg = get_config("llama2-7b")
+    seven = get_config("llama2-7b")
+    cfg = seven.replace(num_layers=DEPTH_CUT)
     eng = EngineConfig(**CP_ENGINE)
     B = eng.max_batch_size
     rng = np.random.default_rng(5)
@@ -7128,8 +7253,11 @@ def phase_context_parallel(torch, dev, results):
                for n in CP_PROMPTS]
     active = np.ones(B, bool)
     torch.cuda.reset_peak_memory_stats()
-    params = init_dummy_quantized_params(cfg, "int4", eng.quant_group_size,
-                                         seed=0, device=dev)
+    full = init_dummy_quantized_params(seven, "int4", eng.quant_group_size,
+                                       seed=0, device=dev)
+    params = first_layers(full, DEPTH_CUT)
+    say(f"  4o: the first {DEPTH_CUT} of llama2-7b's {seven.num_layers} "
+        "layers (a depth cut), full width")
     cp2 = make_mesh(1, 1, 2, devices=[dev, dev])
     t_phase = time.perf_counter()
 
@@ -7198,7 +7326,7 @@ def phase_context_parallel(torch, dev, results):
     flat = cp_chunk_profile(torch, base, chunk)
     say(f"  4o (b) one 512-token chunk on every row at contexts {ctx}: cp=2 "
         f"card busy {ring['busy']:.3f} ms, ring attention (torch math, "
-        f"both ranks, 32 layers) {ring['cp']:.3f} ms; cp=1 busy "
+        f"both ranks, {DEPTH_CUT} layers) {ring['cp']:.3f} ms; cp=1 busy "
         f"{flat['busy']:.3f} ms, D2 {flat['groups']['D2']:.3f} ms")
     for tag, prof in (("cp=2", ring), ("cp=1", flat)):
         say(f"  4o (b) the chunk on {tag}, device ms by group: "
@@ -7254,7 +7382,7 @@ def phase_context_parallel(torch, dev, results):
     # (e)
     cp_write_rows(torch, dev, results)
     elapsed("(e)")
-    return params
+    return full
 
 
 def cp_write_rows(torch, dev, results) -> None:
@@ -8947,6 +9075,8 @@ def float_7b(torch, dev, results, tag, label, engine_tag, cfg, eng, params,
     return params
 
 
+
+
 def phase_float_models(torch, dev, results) -> None:
     """4t: float32 and float16 models end to end through the float
     instances. (a) the debug preset as shipped (float32, head_dim 16, 2
@@ -8956,11 +9086,11 @@ def phase_float_models(torch, dev, results) -> None:
     weights, each against the same engine on the CPU (debug_engine_check);
     (b) llama2-7b in float16 at full width, B 4 on 4a's prompts, 32 greedy
     tokens, then INT4 weights at B 8 on 4b's prompts (Ef at m 8 and 512,
-    G and cuBLAS at m >= 1024); (c) llama2-7b in float32, B 2,
-    max_seq_len 1024, prompts of 7 and 700 tokens, 16 greedy tokens
-    (float_7b); (b) also runs (b)'s float16 weights over an int8 cache,
-    slot at B 4 and paged over pages of 64, each held to kernels="torch"
-    as (b) is."""
+    G and cuBLAS at m >= 1024); (c) llama2-7b in float32 cut to its
+    first DEPTH_CUT layers at full width, B 2, max_seq_len 1024,
+    prompts of 7 and 700 tokens, 16 greedy tokens (float_7b); (b) also
+    runs (b)'s float16 weights over an int8 cache, slot at B 4 and paged
+    over pages of 64, each held to kernels="torch" as (b) is."""
     import numpy as np
 
     from llm_inference_engine_tpu_torch.config import (
@@ -9010,8 +9140,9 @@ def phase_float_models(torch, dev, results) -> None:
              W.init_dummy_quantized_params(cfg, "int4", 128, seed=0,
                                            device=dev), QUANT_PROMPTS, 16)
     torch.cuda.empty_cache()
-    cfg = seven.replace(dtype_name="float32")
-    float_7b(torch, dev, results, "f32", "(c) llama2-7b float32", "7b", cfg,
+    cfg = seven.replace(dtype_name="float32", num_layers=DEPTH_CUT)
+    float_7b(torch, dev, results, "f32", f"(c) llama2-7b float32, "
+             f"{DEPTH_CUT} of 32 layers", "7b", cfg,
              EngineConfig(max_batch_size=2, max_seq_len=1024),
              W.init_dummy_params(cfg, seed=0, device=dev), (7, 700), 16)
     torch.cuda.empty_cache()
@@ -9139,7 +9270,7 @@ def family_kernel_rows(torch, dev, results, model: str,
     Hd, I, H, K, D = (cfg.hidden_size, cfg.intermediate_size, cfg.num_heads,
                       cfg.num_kv_heads, cfg.head_dim)
     G, W = H // K, cfg.sliding_window
-    spec = FAMILIES[model]
+    spec = MODEL_PATHS[model]
     mistral = W is not None
     B8 = spec["int4"][0]["max_batch_size"]
     shapes = family_shapes(cfg)
@@ -9424,7 +9555,9 @@ def phase_model_families(torch, dev, results) -> None:
     (the JSON ``kernels`` line keeps phase 3's rows), and for Mistral the
     paged engine (pages of 64, chunks of 64) against the slot engine over
     its 8192-token context: prefill logits bit for bit, greedy ids equal,
-    every decode step a fused paged decode a layer under the window."""
+    every decode step a fused paged decode a layer under the window.
+    DEPTH_CUT_PATHS cuts the depth of Mistral's bf16 path and paged
+    check."""
     import numpy as np
 
     from llm_inference_engine_tpu_torch.config import EngineConfig, get_config
@@ -9451,6 +9584,392 @@ def phase_model_families(torch, dev, results) -> None:
                                 tag=f"{model} paged int4")
             torch.cuda.empty_cache()
         say(f"  4u ({sub}) {model}: {time.perf_counter() - t0:.1f} s")
+
+
+# 4v: the paths the port had not run on the card. (a) Llama-2-13B
+# (config.py's llama2-13b: hidden 5120, 40 heads, no GQA, 40 layers) at
+# full width and depth, bf16 B = 4 on 4a's prompts and INT4 B = 8 on 4b's,
+# as the families' paths (it has no family feature: no control); (c)
+# Mistral-7B with INT8 weights over an int8 slot cache, B = 4, prompts of
+# 700-6100 in 8192 (4j's route under its window of 4096)
+LARGE = {
+    "llama2-13b": dict(
+        bf16=(dict(max_batch_size=4, max_seq_len=2048), B4_PROMPTS,
+              B4_FOLLOW, 32),
+        int4=(dict(quant_mode="int4", max_batch_size=8, max_seq_len=2048),
+              QUANT_PROMPTS, QUANT_FOLLOW, 16),
+        control=None)}
+MODEL_PATHS = {**FAMILIES, **LARGE}
+WINDOW_INT8 = ("mistral-7b int8-kv8",
+               dict(quant_mode="int8", max_batch_size=4, max_seq_len=8192,
+                    kv_cache_dtype_name="int8"), MISTRAL_PROMPTS, B4_FOLLOW,
+               16)
+MAIN_PATHS.update({f"{model} {kind}": MAIN_PATHS[kind]
+                   for model in LARGE for kind in ("bf16", "int4")})
+MAIN_PATHS[WINDOW_INT8[0]] = MAIN_PATHS["int8-kv8"]
+# 4v (b): the server over Llama-3.1-8B (G 4, a vocabulary of 128256)
+SERVED_MODEL = "llama3.1-8b"
+# the INT4 prefill's m >= 1024 route (G, then cuBLAS): the projections
+# [k, n] of 4b's, the families', 13B's, tinyllama's (4l's draft) and
+# Llama-2-7B's tp = 2 local shapes (4n), at their first chunk's rows (8 x
+# 512; Mistral's B 4: 4 x 512), and at LARGE_M_ROWS, rows a chunk leaves
+# live (shorter prompts, the scheduler's mixed steps)
+LARGE_M_SHAPES = {"llama2-7b": 4096, "llama3.1-8b": 4096,
+                  "mistral-7b": 2048, "qwen2-7b": 4096, "llama2-13b": 4096,
+                  "tinyllama-1.1b": 4096, "llama2-7b tp2": 4096}
+LARGE_M_ROWS = (1024, 1100, 1536, 3000)
+
+
+def large_m_projections(name: str) -> dict:
+    """(k, n, halves) of the four projections of LARGE_M_SHAPES' ``name``:
+    a preset's, or with `` tp2`` one rank's shard at tp = 2 (wqkv and
+    gate|up split by columns, wo and down by rows)."""
+    from llm_inference_engine_tpu_torch.config import get_config
+    model, _, tp2 = name.partition(" ")
+    shapes = dict(list(family_shapes(get_config(model)).items())[:4])
+    if tp2:
+        rows = ("wo", "down")
+        shapes = {label: ((k // 2, n, h) if label in rows else (k, n // 2, h))
+                  for label, (k, n, h) in shapes.items()}
+    return shapes
+
+
+def bf16_out_mm_rows(torch, dev) -> None:
+    """The INT4 prefill's product at m >= 1024: ``quant._large_m_linear``'s
+    kernel route takes one cuBLAS call with a bf16 result (``_mm_bf16``)
+    where the plain route and the JAX package cast an f32 product
+    (``_mm_f32``, then ``.to(bfloat16)``), so the two must be bit for bit
+    at each projection of LARGE_M_SHAPES at its first chunk's rows and at
+    LARGE_M_ROWS (bf16 weights and activations drawn from a seed); both
+    routes timed in turns at the first chunk's rows."""
+    from llm_inference_engine_tpu_torch.ops import quant
+    gen = torch.Generator(device=dev).manual_seed(1024)
+    bf16 = torch.bfloat16
+    equal = True
+    for name, m in LARGE_M_SHAPES.items():
+        shapes = large_m_projections(name)
+        for label, (k, n, halves) in shapes.items():
+            w = torch.randn(k, halves * n, generator=gen, device=dev,
+                            dtype=bf16) * 0.02
+            x = torch.randn(m, k, generator=gen, device=dev, dtype=bf16)
+            odd = [rows for rows in LARGE_M_ROWS
+                   if not torch.equal(quant._mm_f32(x[:rows], w).to(bf16),
+                                      quant._mm_bf16(x[:rows], w))]
+
+            def cast():
+                return quant._mm_f32(x, w).to(bf16)
+
+            def one():
+                return quant._mm_bf16(x, w)
+            same = torch.equal(cast(), one()) and not odd
+            equal &= same
+            turns = {"cast": [], "one": []}
+            for r in ("cast", "one", "one", "cast"):
+                turns[r].append(time_ms(torch, cast if r == "cast" else one,
+                                        iters=5))
+            say(f"  bf16-out mm {name} m{m} {label} [{k},{halves * n}]: "
+                f"bit for bit the f32 product cast {same} (also at m "
+                f"{', '.join(map(str, LARGE_M_ROWS))}"
+                + (f"; differs at {odd}" if odd else "") + "); in turns f32 "
+                f"+ cast {sum(turns['cast']) / 2:.4f} ms, bf16 out (the "
+                f"route) {sum(turns['one']) / 2:.4f} ms")
+            del w, x
+        torch.cuda.empty_cache()
+    say(f"  bf16-out mm: every shape bit for bit {equal}")
+    if not equal:
+        raise AssertionError("the INT4 prefill's bf16-out product is not "
+                             "bit for bit the f32 product cast")
+
+
+def int8_window_rows(torch, dev, results, model: str = "mistral-7b") -> None:
+    """4v (c)'s kernels at Mistral's shapes, held against their plain
+    versions and timed beside them with their bounds: F at the decode
+    step's m 4 on the five projections (``_weight_int8pack_mm`` beside);
+    G8 and its epilogue at the first chunk's 2048 rows on the four
+    (``g8_cases``); I writing a 4 x 512 chunk at histories 3584-5632 of
+    8192 (snapped numerics, the card's), bit for bit; D2's ``INT8`` mode
+    attending that chunk under the window (kv_len to 6144); D's fused int8
+    decode (``INT8``, ``WRITE_NEW``) at B 4, contexts 3600-6150 under the
+    window, and at Qwen2's G 7 (28 heads, K 4) at B 8 on 4b's contexts
+    without one, its write bit for bit. Inputs lie at the head of buffers
+    whose tails are NaN; every scale past kv_len and left of every row's
+    window is NaN (keys there must not be read, nor their scales enter a
+    sum); the plain versions run on clean copies."""
+    from llm_inference_engine_tpu_torch.config import get_config
+    from llm_inference_engine_tpu_torch.ops import attention
+    from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
+    from llm_inference_engine_tpu_torch.ops import quant
+    cfg = get_config(model)
+    shapes = family_shapes(cfg)
+    gen = torch.Generator(device=dev).manual_seed(2026)
+    tag = f"{model} "
+    nan = float("nan")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    def ints(vals):
+        return torch.tensor(vals, dtype=torch.int32, device=dev)
+
+    # F: the decode step (B 4)
+    B = WINDOW_INT8[1]["max_batch_size"]
+    for label in shapes:
+        quant_case(torch, dev, gen, results, "int8", B, label, shapes,
+                   tag=tag, poison=True)
+    torch.cuda.empty_cache()
+    # G8 and its epilogue: the first chunk (4 x 512 rows)
+    m = 4 * 512
+    for label in list(shapes)[:4]:
+        k, n, halves = shapes[label]
+        ts = quant_weights(torch, quant, dev, gen, "int8", k, n, halves,
+                           120_000_000)
+        g8_cases(torch, dev, gen, results, ts, label, k, halves * n, m,
+                 tag=f"{tag}m{m} ")
+        del ts
+        torch.cuda.empty_cache()
+
+    def int8_cache(L, B, K, S, D):
+        c = kvc.new_kv_cache(L, B, K, S, D, device=dev, quantized=True,
+                             snapped=True)
+        for t in (c.k, c.v):
+            t.copy_(torch.randint(-127, 128, t.shape, generator=gen,
+                                  device=dev, dtype=torch.int8))
+        for t in (c.k_scale, c.v_scale):
+            t.copy_(torch.rand(t.shape, generator=gen, device=dev) * 0.02
+                    + 0.005)
+        return c
+
+    def clone(c):
+        return dataclasses.replace(c, **{n: getattr(c, n).clone() for n in
+                                         ("k", "v", "k_scale", "v_scale")})
+
+    def poison_scales(c, lo, hi):
+        """NaN scales of layer 1 left of ``lo[b]`` and from ``hi[b]``."""
+        for b, (a, z) in enumerate(zip(lo, hi)):
+            for t in (c.k_scale, c.v_scale):
+                t[1, b, :max(a, 0)] = nan
+                t[1, b, z:] = nan
+
+    def planes(c):
+        return dict(k_scale=c.k_scale, v_scale=c.v_scale)
+
+    H, K, D, W = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, \
+        cfg.sliding_window
+    S, T = WINDOW_INT8[1]["max_seq_len"], 512
+    # I: a 4 x 512 chunk deep in the context, ragged
+    starts_l, new_len_l = [3584, 4096, 5120, 5632], [512, 512, 300, 512]
+    starts, new_len = ints(starts_l), ints(new_len_l)
+    cache = int8_cache(2, 4, K, S, D)
+    kn, vn = poisoned(torch, randn(4, T, K, D)), poisoned(torch,
+                                                          randn(4, T, K, D))
+    ref = clone(cache)
+    kvc.update_cache_at_layer(cache, 1, kn, vn, starts, new_len,
+                              kernels="cuda")
+    kvc.update_cache_at_layer_torch(ref, 1, kn, vn, starts, new_len)
+    torch.cuda.synchronize()
+    timed = (time_ms(torch, lambda: kvc.update_cache_at_layer(
+        cache, 1, kn, vn, starts, new_len, kernels="cuda")),
+        time_ms(torch, lambda: kvc.update_cache_at_layer_torch(
+            ref, 1, kn, vn, starts, new_len), iters=3, warmup=1))
+    for side in ("k", "v"):
+        hold_int8_write(
+            torch, "kv_write_quant",
+            (getattr(cache, side)[1], getattr(cache, f"{side}_scale")[1]),
+            (getattr(ref, side)[1], getattr(ref, f"{side}_scale")[1]),
+            results, f"{tag}4x512 rows ({sum(new_len_l)} live) K{K} at "
+            f"{starts_l} snapped, NaN past the tails {side}", timed,
+            write_work(sum(new_len_l), K, D, quant=True),
+            floor_ms(torch, (kn, vn), slot_rows(starts_l, new_len_l, T,
+                                                S)[1], torch.int8,
+                     cold=False))
+    # D2's INT8 mode attending the chunk under the window
+    kv_len_l = [s + n for s, n in zip(starts_l, new_len_l)]
+    kv_len = ints(kv_len_l)
+    clean = clone(cache)
+    poison_scales(cache, [s - W + 1 for s in starts_l], kv_len_l)
+    q = poisoned(torch, randn(4, T, H, D))
+    run = lambda: attention.attention(  # noqa: E731
+        q, cache.k, cache.v, starts, kv_len, layer=1, window=W,
+        kernels="cuda", **planes(cache))
+    plain = lambda: attention.attention_torch(  # noqa: E731
+        q, clean.k, clean.v, starts, kv_len, layer=1, window=W,
+        **planes(clean))
+    check_close(torch, "attention_prefill_int8", run(), plain(), results,
+                f"{tag}B4 T512 H{H} K{K} qs {starts_l} kv_len to "
+                f"{max(kv_len_l)} window {W}, scales NaN past kv_len and "
+                "left of the window",
+                (time_ms(torch, run, iters=5),
+                 time_ms(torch, plain, iters=3, warmup=1)),
+                work=attn_work(starts_l, kv_len_l, T, H, K, D, kv_elem=1,
+                               window=W))
+    del cache, clean, ref, kn, vn, q
+    torch.cuda.empty_cache()
+    # D's fused int8 decode: Mistral under its window; Qwen2's G 7
+    qwen = get_config("qwen2-7b")
+    for name, Hh, Kk, win, hist, SS in (
+            (model, H, K, W, [3600, 4095, 5200, 6150], S),
+            ("qwen2-7b", qwen.num_heads, qwen.num_kv_heads, None,
+             [p + 16 + f + 16 for p, f in zip(QUANT_PROMPTS, QUANT_FOLLOW)],
+             2048)):
+        Bd = len(hist)
+        c = int8_cache(2, Bd, Kk, SS, D)
+        ref = clone(c)
+        poison_scales(c, [n - win + 1 if win else 0 for n in hist],
+                      [n + 1 for n in hist])
+        qs = ints(hist)
+        kl = qs + 1
+        q1 = poisoned(torch, randn(Bd, 1, Hh, D))
+        k1, v1 = (poisoned(torch, randn(Bd, 1, Kk, D)),
+                  poisoned(torch, randn(Bd, 1, Kk, D)))
+        run = lambda: attention.attention_decode_fused(  # noqa: E731
+            q1, k1, v1, c.k, c.v, qs, kl, 1, window=win, kernels="cuda",
+            snapped=True, **planes(c))[0]
+        plain = lambda: attention.attention_decode_fused_torch(  # noqa: E731
+            q1, k1, v1, ref.k, ref.v, qs, kl, 1, window=win, snapped=True,
+            **planes(ref))[0]
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        b_idx, rows = torch.arange(Bd, device=dev), qs.long()
+        for x, y in ((c.k, ref.k), (c.v, ref.v), (c.k_scale, ref.k_scale),
+                     (c.v_scale, ref.v_scale)):
+            if not torch.equal(x[1, b_idx, rows], y[1, b_idx, rows]):
+                raise AssertionError(f"attention_decode_int8 {name}: the "
+                                     "in-kernel write differs from the "
+                                     "plain write")
+        say_plan(attention, f"int8 {name} B{Bd} H{Hh} K{Kk} D{D}", Bd, Hh,
+                 Kk, D, int8=True)
+        check_close(torch, "attention_decode_int8", got, want, results,
+                    f"{name} B{Bd} H{Hh} K{Kk} contexts {min(hist)}-"
+                    f"{max(hist)} window {win} snapped (write bit for bit), "
+                    "scales NaN past kv_len"
+                    + (" and left of the window" if win else ""),
+                    (time_ms(torch, run), time_ms(torch, plain, iters=3,
+                                                  warmup=1)),
+                    work=attn_work(hist, [n + 1 for n in hist], 1, Hh, Kk, D,
+                                   kv_elem=1, new_rows=Bd * 2 * Kk * (
+                                       D * 2 + D + 4), window=win),
+                    row_rel=DECODE_ROW_TOL)
+        del c, ref
+        torch.cuda.empty_cache()
+
+
+def weight_bound_line(tag: str) -> None:
+    """A replayed decode step of ``tag`` (DECODE) beside the least time
+    the weights it reads take at the HBM rate."""
+    d = DECODE[tag]
+    weight_bytes = d["weight_bytes"]
+    bound = weight_bytes / HBM_BYTES_PER_S * 1e3
+    busy = sum(d["graph_busy_ms"]) / len(d["graph_busy_ms"])
+    say(f"  {tag}: replayed step wall {d['graph_ms']:.3f} ms, busy "
+        f"{busy:.3f} ms ({d['B'] * 1e3 / d['graph_ms']:.1f} tok/s) against "
+        f"the weight bytes' bound {bound:.3f} ms "
+        f"({weight_bytes / 1e9:.2f} GB at {HBM_BYTES_PER_S / 1e12:.2f} "
+        f"TB/s): {bound / busy:.2f} of it")
+
+
+def phase_llama2_13b(torch, dev, results) -> None:
+    """4v (a): Llama-2-13B at full width and depth: its kernels at its
+    shapes (``family_kernel_rows``: E at m 8 on the five projections and
+    its prefill mode at m 512, G, A at [2048, 5120] and B at
+    [2048, 27648] and both at decode shape in replays, J at K 40 G 1, C,
+    D2 and D over 40 heads, NaN past every tail; the library's E plans
+    equal their mirror); bf16 B = 4 and INT4 B = 8 through
+    ``phase_main_path`` (4b's tie rule), each replayed step beside its
+    weight bytes' bound; then paged == slot at INT4 B = 8, chunks of 64."""
+    import numpy as np
+
+    from llm_inference_engine_tpu_torch.config import EngineConfig, get_config
+    model = "llama2-13b"
+    cfg = get_config(model)
+    spec = LARGE[model]
+    family_kernel_rows(torch, dev, results, model, set())
+    for kind in ("bf16", "int4"):
+        eng, lens, follow, n = spec[kind]
+        phase_main_path(torch, dev, results, f"{model} {kind}",
+                        EngineConfig(**eng), lens, follow, n, model=model,
+                        control=spec["control"], plain_generate=False)
+        torch.cuda.empty_cache()
+        weight_bound_line(f"{model} {kind}")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(3, cfg.vocab_size, n).tolist()
+               for n in QUANT_PROMPTS]
+    phase_paged_vs_slot(torch, dev, model, dict(quant_mode="int4"), prompts,
+                        32, tag=f"{model} paged int4")
+    torch.cuda.empty_cache()
+
+
+def phase_family_server(torch, dev, results) -> None:
+    """4v (b): the serving path over SERVED_MODEL (INT4 weights): its
+    paged == slot check (4d's) makes the weights, then 4e's server (193
+    pages of 64, waves 1 and 2, the automatic prefix cache, every
+    request's ids equal to an eager rerun, admissions that wait for
+    pages), 4f's preemption on its engine, and 4i's wave 1 over an int8
+    pool of the same bytes (D's fused int8 paged decode and I's ``PAGED``
+    instance at G 4 under a scheduler), each wave beside 4e's and 4i's
+    llama2-7b figures of this run."""
+    import numpy as np
+
+    from llm_inference_engine_tpu_torch.config import get_config
+    model = SERVED_MODEL
+    cfg = get_config(model)
+    int4 = dict(quant_mode="int4")
+    int4_kv8 = dict(quant_mode="int4", kv_cache_dtype_name="int8")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(3, cfg.vocab_size, n).tolist()
+               for n in QUANT_PROMPTS]
+    params = phase_paged_vs_slot(torch, dev, model, int4, prompts, 32,
+                                 tag=f"{model} paged int4")
+    engine = phase_server(torch, dev, results, model, int4, params)
+    phase_preemption(torch, dev, model, engine)
+    del engine
+    torch.cuda.empty_cache()
+    engine = phase_server(torch, dev, results, model, int4_kv8, params,
+                          int8_pool_pages(cfg), 24, 0, False)
+    del engine, params
+    torch.cuda.empty_cache()
+    for kv in ("int4", "int4-kv8"):
+        ours = SERVED.get(f"{model} {kv}", {})
+        theirs = SERVED.get(f"llama2-7b {kv}", {})
+        for wave, (tps, p50, p99) in ours.items():
+            seven = theirs.get(wave)
+            say(f"  4v (b) {model} {kv} {wave}: {tps:.1f} tok/s, TTFT p50 / "
+                f"p99 {p50:.3f} / {p99:.3f} s"
+                + (f"; llama2-7b in this run {seven[0]:.1f} tok/s, "
+                   f"{seven[1]:.3f} / {seven[2]:.3f} s" if seven else ""))
+
+
+def phase_int8_window(torch, dev, results) -> None:
+    """4v (c): Mistral-7B with INT8 weights over an int8 slot cache
+    (WINDOW_INT8: B 4, prompts of 700-6100 in 8192, past its window of
+    4096): its kernels at its shapes (``int8_window_rows``), then the path
+    through ``phase_main_path`` (4j's checks but the planted faults,
+    which off MUST_SEE_FAULTS are only printed; 4b's tie rule)."""
+    from llm_inference_engine_tpu_torch.config import EngineConfig
+    int8_window_rows(torch, dev, results)
+    path, eng, lens, follow, n = WINDOW_INT8
+    phase_main_path(torch, dev, results, path, EngineConfig(**eng), lens,
+                    follow, n, model="mistral-7b", plain_generate=False)
+    torch.cuda.empty_cache()
+
+
+def phase_last_paths(torch, dev, results) -> None:
+    """4v: (a) ``phase_llama2_13b``, (b) ``phase_family_server``, (c)
+    ``phase_int8_window``, each timed; before them the INT4 prefill's
+    bf16-out product held bit for bit its f32 product cast
+    (``bf16_out_mm_rows``)."""
+    t0 = time.perf_counter()
+    bf16_out_mm_rows(torch, dev)
+    say(f"  4v bf16-out mm: {time.perf_counter() - t0:.1f} s")
+    for sub, what, fn in (("a", "llama2-13b", phase_llama2_13b),
+                          ("b", f"the server over {SERVED_MODEL}",
+                           phase_family_server),
+                          ("c", "mistral-7b INT8 + int8 KV",
+                           phase_int8_window)):
+        t0 = time.perf_counter()
+        say(f"  -- 4v ({sub}) {what}")
+        fn(torch, dev, results)
+        say(f"  4v ({sub}) {what}: {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -9558,8 +10077,9 @@ def main() -> int:
           "B=8, two ranks on cuda:0: tp=2, dp=2, tp=2 with the int8 slot "
           "cache, tp=2 paged through the scheduler; the kernels at the "
           "tp=2 local shapes", phase_parallel, torch, dev, results)
-    params = phase("4o", "context parallelism: llama2-7b INT4 (4b's "
-                   "weights), B=4, max_seq_len 8192, prompts of 1000-6500 "
+    params = phase("4o", f"context parallelism: llama2-7b INT4 (4b's "
+                   f"weights, the first {DEPTH_CUT} layers), B=4, "
+                   "max_seq_len 8192, prompts of 1000-6500 "
                    "tokens, seq ranks on cuda:0: cp=2 over a bf16 log, its "
                    "replays, the int8 log, cp=2 x tp=2; C and I at the CP "
                    "write shapes", phase_context_parallel, torch, dev,
@@ -9594,10 +10114,7 @@ def main() -> int:
                    dev, "llama2-7b", int4_kv8, prompts, 32)
     # 4i: an int8 pool of 4e's pool bytes (a page's values at 1 byte and
     # its scales at 4 bytes per (token, head), against 2 bytes a value)
-    cfg = get_config("llama2-7b")
-    page_heads = 2 * cfg.num_layers * 64 * cfg.num_kv_heads
-    int8_pages = 193 * page_heads * cfg.head_dim * 2 // (
-        page_heads * (cfg.head_dim + 4))
+    int8_pages = int8_pool_pages(get_config("llama2-7b"))
     engine = phase("4i", f"serving path over an int8 pool of 4e's bytes "
                    f"({int8_pages} pages of 64): wave 1", phase_server, torch,
                    dev, results, "llama2-7b", int4_kv8, params, int8_pages,
@@ -9622,7 +10139,8 @@ def main() -> int:
           phase_examples, torch, dev)
     phase("4t", "float32 and float16 models end to end: the debug preset "
           "(6 engines each) against the CPU, llama2-7b float16 (B=4; over an "
-          "int8 cache, slot B=4 and paged; INT4 B=8) and float32 (B=2)",
+          f"int8 cache, slot B=4 and paged; INT4 B=8) and float32 (B=2, "
+          f"the first {DEPTH_CUT} layers)",
           phase_float_models, torch, dev, results)
     phase("4u", "the model families at full width and depth: llama3.1-8b "
           "(GQA G=4, Llama-3 RoPE scaling), mistral-7b (sliding window "
@@ -9630,6 +10148,11 @@ def main() -> int:
           "each bf16 B=4 with its feature-off control and INT4; Mistral's "
           "paged == slot; their kernels at their shapes",
           phase_model_families, torch, dev, results)
+    phase("4v", "the last paths: llama2-13b at full width and depth (bf16 "
+          "B=4, INT4 B=8, paged == slot), the HTTP server over llama3.1-8b "
+          "(bf16 and int8 pools, preemption), mistral-7b INT8 weights over "
+          "an int8 KV cache under its window; their kernels at their "
+          "shapes", phase_last_paths, torch, dev, results)
     say("  decode per step, eager bodies against graph replays (wall and "
         "card busy ms): " + json.dumps(DECODE))
 

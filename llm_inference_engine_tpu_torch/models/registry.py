@@ -23,7 +23,10 @@ from llm_inference_engine_tpu_torch.runtime.engine import (
 __all__ = ["create_engine", "create_dummy_engine", "create_real_engine"]
 
 
-def _resolve_config(model: str) -> ModelConfig:
+def _resolve_config(model) -> ModelConfig:
+    """``model``: a ModelConfig, a preset name or a config JSON path."""
+    if isinstance(model, ModelConfig):
+        return model
     if model in PRESETS:
         return get_config(model)
     if os.path.exists(model):          # JSON config file (llama_config.json
@@ -43,7 +46,7 @@ def _on_device(device) -> torch.device:
     return device
 
 
-def create_dummy_engine(model: str,
+def create_dummy_engine(model,
                         engine_config: EngineConfig = EngineConfig(),
                         seed: int = 0, device="cuda") -> InferenceEngine:
     """Engine with random weights drawn on ``device`` from ``seed``
@@ -90,10 +93,11 @@ def load_checkpoint_dir(cfg: ModelConfig, path: str, device) -> dict:
     return W.load_reference_bin(cfg, path, device=device)
 
 
-def create_engine(model: str, checkpoint_path: Optional[str] = None,
+def create_engine(model, checkpoint_path: Optional[str] = None,
                   engine_config: EngineConfig = EngineConfig(),
                   seed: int = 0, device="cuda") -> InferenceEngine:
-    """Engine for ``model`` (a preset name or a config JSON path) on
+    """Engine for ``model`` (a preset name, a config JSON path or a
+    ModelConfig) on
     ``device``: the card by default (RuntimeError when there is none);
     pass ``device="cpu"`` to build on the CPU."""
     if checkpoint_path:

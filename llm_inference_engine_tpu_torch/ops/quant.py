@@ -732,22 +732,40 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.to(torch.float32) @ b.to(torch.float32)   # bf16 products exact
 
 
+def _mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in one cuBLAS call with a bf16 result: bf16 products summed in
+    f32 and rounded once. cuBLAS's reduced-precision reduction (split-K
+    partial sums kept in bf16) is switched off for the call, so no partial
+    sum is rounded before the end."""
+    flags = torch.backends.cuda.matmul
+    allow = flags.allow_bf16_reduced_precision_reduction
+    flags.allow_bf16_reduced_precision_reduction = False
+    try:
+        return torch.mm(a, b)
+    finally:
+        flags.allow_bf16_reduced_precision_reduction = allow
+
+
 def _large_m_linear(x2, t: QuantizedTensor, out_dtype, kernels):
     """m >= _PREFILL_M: dequantize the weight once to bf16 and run one
     plain bf16 matmul with f32 accumulation (JAX ``_large_m_linear``).
     INT8 casts exactly (kernel G8) and scales the f32 result, rounding it
     once in the same pass (G8's epilogue); INT4 bakes the grouped scales
-    into the bf16 weight (kernel G)."""
+    into the bf16 weight (kernel G). The kernel route takes a bf16 INT4
+    result from cuBLAS with a bf16 output (``_mm_bf16``), without the f32
+    product's cast pass; the plain route casts the f32 product, as JAX
+    does. The two may sum in another order: chip_smoke 4v and a card test
+    hold them bit for bit at the m >= 1024 shapes the models give (only
+    there is that measured)."""
+    x2 = x2.to(torch.bfloat16)
     if t.mode == "int4":
         w = dequant_int4(t.q, t.scale, t.group_size, kernels=kernels)
-        post = None
-    else:
-        w = dequant_int8(t.q, kernels=kernels)
-        post = _cat([sh.reshape(1, -1) for sh in _parts(t.scale)])
-    y = _mm_f32(x2.to(torch.bfloat16), w)
-    if post is not None:
-        return int8_scale_cast(y, post, out_dtype, kernels=kernels)
-    return y.to(out_dtype)
+        if use_kernel(kernels, x2) and out_dtype == torch.bfloat16:
+            return _mm_bf16(x2, w)
+        return _mm_f32(x2, w).to(out_dtype)
+    w = dequant_int8(t.q, kernels=kernels)
+    post = _cat([sh.reshape(1, -1) for sh in _parts(t.scale)])
+    return int8_scale_cast(_mm_f32(x2, w), post, out_dtype, kernels=kernels)
 
 
 def quantized_linear(x: torch.Tensor, t: QuantizedTensor,

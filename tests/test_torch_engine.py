@@ -310,6 +310,32 @@ def test_factories_run_on_the_card_unless_asked_for_the_cpu(factory):
         getattr(registry, factory)(*args)
 
 
+@pytest.mark.parametrize("quant_mode", ["none", "int4"])
+def test_create_engine_takes_a_model_config(quant_mode):
+    """A ModelConfig (here the debug preset cut to one layer) builds the
+    same seed's dummy engine as its preset would, at the config's depth."""
+    from llm_inference_engine_tpu_torch.models import registry
+    from llm_inference_engine_tpu_torch.models import weights as W
+    cfg = get_config("debug").replace(num_layers=1)
+    eng = EngineConfig(max_batch_size=1, max_seq_len=32,
+                       quant_mode=quant_mode, quant_group_size=32)
+    engine = registry.create_engine(cfg, None, eng, seed=3, device="cpu")
+    assert engine.config == cfg
+    want = (W.init_dummy_quantized_params(cfg, "int4", 32, seed=3,
+                                          device="cpu")
+            if quant_mode == "int4" else W.init_dummy_params(cfg, seed=3,
+                                                   device="cpu"))
+    got = engine.params
+    assert torch.equal(got["embed"], want["embed"])
+    layer = got["layers"]["wo"]
+    ref = want["layers"]["wo"]
+    if quant_mode == "int4":
+        assert torch.equal(layer.q, ref.q) and torch.equal(layer.scale,
+                                                           ref.scale)
+    else:
+        assert torch.equal(layer, ref)
+
+
 def test_package_imports_no_jax():
     code = (
         "import sys\n"

@@ -3056,3 +3056,275 @@ def test_prefill_at_family_groups_with_window(cuda, mode, H, K):
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, **TOL)
+
+
+# Llama-2-13B (config.py's llama2-13b: hidden 5120, 40 heads of 128, no
+# GQA, intermediate 13824): E at its projections, A / B at its widths, J
+# at K 40, D and D2 over 40 heads
+LLAMA_13B_PROJECTIONS = {
+    "wqkv": (5120, 15360, 1), "wo": (5120, 5120, 1),
+    "gate_up": (5120, 13824, 2), "down": (13824, 5120, 1),
+    "lm_head": (5120, 32000, 1)}
+
+
+@pytest.mark.parametrize("m", [8, 512])
+@pytest.mark.parametrize("proj", list(LLAMA_13B_PROJECTIONS))
+def test_int4_matmul_at_13b_shapes(cuda, proj, m):
+    """E (INT4, group 128) at 13B's projections, the decode step's m 8 and
+    the prefill tail's m 512, every input at the head of a buffer whose
+    tail is NaN; the library's plan equals its mirror."""
+    k, n, halves = LLAMA_13B_PROJECTIONS[proj]
+    t = _qweight(cuda, "int4", k, n, halves)
+    t = quant.QuantizedTensor(_tail_poisoned(t.q), _tail_poisoned(t.scale),
+                              "int4", t.group_size)
+    x = _tail_poisoned(torch.randn(m, k, device=cuda, dtype=torch.bfloat16))
+    if proj == "lm_head":
+        got = _held_against_plain(t, x, torch.float32, atol=1e-3, rtol=1e-4)
+    else:
+        got = _held_against_plain(t, x, torch.bfloat16)
+    assert got.shape == (m, n * halves) and torch.isfinite(got).all()
+    plan = quant.quant_matmul_plan_native(m, k, n, halves)
+    assert plan.pop("blocks_per_sm") >= 1
+    assert plan == quant.quant_matmul_plan(m, k, n, halves), proj
+
+
+@pytest.mark.parametrize("n", [1, 8, 2048])
+def test_norm_act_at_13b_widths(cuda, n):
+    """A at hidden 5120 (both modes; the residual sum bit for bit) and B
+    at intermediate 13824, NaN past the tails."""
+    bf16 = torch.bfloat16
+    x, r = (torch.randn(n, 5120, device=cuda, dtype=bf16) for _ in "xr")
+    w = torch.rand(5120, device=cuda, dtype=bf16) + 0.5
+    torch.testing.assert_close(
+        rmsnorm.rmsnorm(_tail_poisoned(x), _tail_poisoned(w),
+                        kernels="cuda"), rmsnorm.rmsnorm_torch(x, w), **TOL)
+    y, hh = rmsnorm.add_residual_rmsnorm(_tail_poisoned(x),
+                                         _tail_poisoned(r), w,
+                                         kernels="cuda")
+    y0, h0 = rmsnorm.add_residual_rmsnorm_torch(x, r, w)
+    assert torch.equal(hh, h0)
+    torch.testing.assert_close(y, y0, **TOL)
+    gu = torch.randn(n, 2 * 13824, device=cuda, dtype=bf16)
+    torch.testing.assert_close(
+        activations.silu_and_mul(_tail_poisoned(gu), kernels="cuda"),
+        activations.silu_and_mul_torch(gu), **TOL)
+
+
+@pytest.mark.parametrize("n", [1, 8, 2048])
+def test_split_qkv_rope_at_13b_heads(cuda, n):
+    """J at 40 heads over 40 kv heads (G 1), bit for bit, NaN past the
+    tails."""
+    _rope_held(*_rope_inputs(cuda, n, 40, 1, 128, torch.bfloat16), 40, 1,
+               128)
+
+
+@pytest.mark.parametrize("mode", ["prefill", "decode"])
+def test_attention_at_13b_heads(cuda, mode):
+    """D2 (a 4 x 512 chunk at 4a's prompts) and D's fused decode (B 8 at
+    4b's contexts) over 40 heads, every cache row at or past kv_len NaN,
+    held against the plain version on a clean copy; D's write bit for
+    bit."""
+    H = K = 40
+    D, S, L = 128, 2048, 2
+    if mode == "prefill":
+        B, T = 4, 512
+        q_start = torch.zeros(B, device=cuda, dtype=torch.int32)
+        kv_len = torch.tensor([7, 129, 384, 512], device=cuda,
+                              dtype=torch.int32)
+    else:
+        B, T = 8, 1
+        q_start = torch.tensor([40, 65, 163, 249, 354, 500, 540, 632],
+                               device=cuda, dtype=torch.int32)
+        kv_len = q_start + 1
+    k = torch.randn(L, B, S, K, D, device=cuda, dtype=torch.bfloat16)
+    v = torch.randn_like(k)
+    clean = kvc.KVCache(k.clone(), v.clone(), kv_len)
+    c = kvc.KVCache(k, v, kv_len)
+    _poison_slot(c, kv_len if mode == "prefill" else q_start)
+    q = torch.randn(B, T, H, D, device=cuda, dtype=torch.bfloat16)
+    if mode == "prefill":
+        got = attention.attention(q, c.k, c.v, q_start, kv_len, layer=1,
+                                  kernels="cuda")
+        want = attention.attention_torch(q, clean.k, clean.v, q_start,
+                                         kv_len, layer=1)
+    else:
+        kn = torch.randn(B, 1, K, D, device=cuda, dtype=torch.bfloat16)
+        vn = torch.randn_like(kn)
+        got = attention.attention_decode_fused(
+            q, kn, vn, c.k, c.v, q_start, kv_len, 1, kernels="cuda")[0]
+        want = attention.attention_decode_fused_torch(
+            q, kn, vn, clean.k, clean.v, q_start, kv_len, 1)[0]
+        rows = (torch.arange(B, device=cuda), q_start.long())
+        assert torch.equal(c.k[1][rows], clean.k[1][rows])
+        assert torch.equal(c.v[1][rows], clean.v[1][rows])
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **TOL)
+
+
+# Mistral-7B with INT8 weights over an int8 slot cache: F at its decode
+# step's m 4, G8 and its epilogue at its first chunk's 2048 rows, I at K
+# 8, D2's and D's int8 modes under its window of 4096 (and D's at Qwen2's
+# G 7 without one); every scale at or past kv_len and left of each row's
+# window NaN
+MISTRAL_INT8_PROJECTIONS = {
+    "wqkv": (4096, 6144, 1), "wo": (4096, 4096, 1),
+    "gate_up": (4096, 14336, 2), "down": (14336, 4096, 1),
+    "lm_head": (4096, 32000, 1)}
+
+
+@pytest.mark.parametrize("proj", list(MISTRAL_INT8_PROJECTIONS))
+def test_int8_matmul_at_mistral_decode_step(cuda, proj):
+    k, n, halves = MISTRAL_INT8_PROJECTIONS[proj]
+    t = _qweight(cuda, "int8", k, n, halves)
+    t = quant.QuantizedTensor(_tail_poisoned(t.q), _tail_poisoned(t.scale),
+                              "int8", t.group_size)
+    x = _tail_poisoned(torch.randn(4, k, device=cuda, dtype=torch.bfloat16))
+    out = torch.float32 if proj == "lm_head" else torch.bfloat16
+    got = _held_against_plain(t, x, out, **(
+        dict(atol=1e-3, rtol=1e-4) if proj == "lm_head" else TOL))
+    assert got.shape == (4, n * halves) and torch.isfinite(got).all()
+    plan = quant.quant_matmul_plan_native(4, k, n, halves, int4=False)
+    assert plan.pop("blocks_per_sm") >= 1
+    assert plan == quant.quant_matmul_plan(4, k, n, halves, int4=False)
+
+
+@pytest.mark.parametrize("proj", ["wqkv", "wo", "gate_up", "down"])
+def test_g8_and_epilogue_at_mistral_chunk(cuda, proj):
+    """G8 bit for bit ``.to(bfloat16)`` + ``_cat`` (127 past q's tail), its
+    epilogue on the 2048-row product bit for bit ``(y * scale).to``."""
+    k, n, halves = MISTRAL_INT8_PROJECTIONS[proj]
+    t = _qweight(cuda, "int8", k, n, halves)
+    got = quant.dequant_int8(_tail_poisoned(t.q), kernels="cuda")
+    assert torch.equal(got, quant.dequant_int8_torch(t.q))
+    y = torch.randn(2048, halves * n, device=cuda) * 40.0
+    scale = torch.rand(1, halves * n, device=cuda) * 1e-2 + 1e-4
+    out = quant.int8_scale_cast(_tail_poisoned(y), _tail_poisoned(scale),
+                                torch.bfloat16, kernels="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(out, quant.int8_scale_cast_torch(y, scale,
+                                                        torch.bfloat16))
+
+
+MISTRAL_CHUNK = ([3584, 4096, 5120, 5632], [512, 512, 300, 512])
+
+
+def _poison_scales_outside(c, lo, hi):
+    """NaN scales of layer 1 below ``lo[b]`` (left of every row's window)
+    and from ``hi[b]`` (past kv_len)."""
+    for b, (a, z) in enumerate(zip(lo, hi)):
+        for t in (c.k_scale, c.v_scale):
+            t[1, b, :max(a, 0)] = float("nan")
+            t[1, b, z:] = float("nan")
+
+
+def test_int8_write_and_prefill_at_mistral_window(cuda):
+    """I writes a 4 x 512 chunk at histories 3584-5632 of 8192 (K 8,
+    snapped) bit for bit the plain write, NaN past the new rows' tails;
+    then D2's int8 mode attends it under the window (kv_len to 6144),
+    scales NaN outside what any row sees, against the plain version on a
+    clean copy."""
+    H, K, D, S, T, W = 32, 8, 128, 8192, 512, WINDOW
+    starts_l, new_len_l = MISTRAL_CHUNK
+    starts = torch.tensor(starts_l, device=cuda, dtype=torch.int32)
+    new_len = torch.tensor(new_len_l, device=cuda, dtype=torch.int32)
+    c = _int8_slot(cuda, 2, 4, S, K, D, True)
+    ref = dataclasses.replace(c, **{n: getattr(c, n).clone() for n in
+                                    ("k", "v", "k_scale", "v_scale")})
+    kn = torch.randn(4, T, K, D, device=cuda, dtype=torch.bfloat16)
+    vn = torch.randn_like(kn)
+    n0 = kvc.kv_write_quant.launches
+    kvc.update_cache_at_layer(c, 1, _tail_poisoned(kn), _tail_poisoned(vn),
+                              starts, new_len, kernels="cuda")
+    kvc.update_cache_at_layer_torch(ref, 1, kn, vn, starts, new_len)
+    torch.cuda.synchronize()
+    assert kvc.kv_write_quant.launches == n0 + 1
+    for name in ("k", "v", "k_scale", "v_scale"):
+        assert torch.equal(getattr(c, name), getattr(ref, name)), name
+    kv_len_l = [s + n for s, n in zip(starts_l, new_len_l)]
+    kv_len = torch.tensor(kv_len_l, device=cuda, dtype=torch.int32)
+    _poison_scales_outside(c, [s - W + 1 for s in starts_l], kv_len_l)
+    q = torch.randn(4, T, H, D, device=cuda, dtype=torch.bfloat16)
+    n0 = attention.attention_int8.launches
+    got = attention.attention(q, c.k, c.v, starts, kv_len, layer=1,
+                              window=W, kernels="cuda", **_planes(c))
+    want = attention.attention_torch(q, ref.k, ref.v, starts, kv_len,
+                                     layer=1, window=W, **_planes(ref))
+    torch.cuda.synchronize()
+    assert attention.attention_int8.launches == n0 + 1
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("H,K,window,hist", [
+    (32, 8, WINDOW, [3600, 4095, 5200, 6150]),
+    (28, 4, None, [40, 65, 163, 249, 354, 500, 540, 632])])
+def test_fused_int8_decode_at_family_groups(cuda, H, K, window, hist):
+    """D's fused int8 decode (snapped) at Mistral's G 4 under its window
+    and at Qwen2's G 7 without one: scales NaN past kv_len and left of the
+    window; the write bit for bit, the output within TOL of the plain
+    version on a clean copy."""
+    D = 128
+    B, S = len(hist), 8192 if window else 2048
+    c = _int8_slot(cuda, 2, B, S, K, D, True)
+    ref = [t.clone() for t in (c.k, c.v, c.k_scale, c.v_scale)]
+    _poison_scales_outside(c, [n - window + 1 if window else 0
+                               for n in hist], [n + 1 for n in hist])
+    q = torch.randn(B, 1, H, D, device=cuda, dtype=torch.bfloat16)
+    kn = torch.randn(B, 1, K, D, device=cuda, dtype=torch.bfloat16)
+    vn = torch.randn_like(kn)
+    q_start = torch.tensor(hist, device=cuda, dtype=torch.int32)
+    kv_len = q_start + 1
+    n0 = attention.attention_decode_fused_int8.launches
+    got = attention.attention_decode_fused(
+        q, kn, vn, c.k, c.v, q_start, kv_len, 1, window=window,
+        kernels="cuda", snapped=True, **_planes(c))[0]
+    want = attention.attention_decode_fused_torch(
+        q, kn, vn, ref[0], ref[1], q_start, kv_len, 1, window=window,
+        k_scale=ref[2], v_scale=ref[3], snapped=True)[0]
+    torch.cuda.synchronize()
+    assert attention.attention_decode_fused_int8.launches == n0 + 1
+    rows = (torch.arange(B, device=cuda), q_start.long())
+    for got_t, want_t in zip((c.k, c.v, c.k_scale, c.v_scale), ref):
+        assert torch.equal(got_t[1][rows], want_t[1][rows])
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **TOL)
+
+
+def _projections(model: str) -> dict:
+    cfg = get_config(model)
+    return {"wqkv": (cfg.hidden_size, cfg.qkv_size, 1),
+            "wo": (cfg.q_size, cfg.hidden_size, 1),
+            "gate_up": (cfg.hidden_size, cfg.intermediate_size, 2),
+            "down": (cfg.intermediate_size, cfg.hidden_size, 1)}
+
+
+# the INT4 prefill's m >= 1024 projections: each preset the port runs on
+# the card, and Llama-2-7B's tp = 2 local shapes
+LARGE_M_PROJECTIONS = {
+    f"{model} {proj}": shape
+    for model in ("llama2-7b", "llama3.1-8b", "mistral-7b", "qwen2-7b",
+                  "llama2-13b", "tinyllama-1.1b")
+    for proj, shape in _projections(model).items()}
+LARGE_M_PROJECTIONS.update({f"llama2-7b tp2 {proj}": shape
+                            for proj, shape in TP2_PROJECTIONS.items()
+                            if proj != "lm_head"})
+
+
+@pytest.mark.parametrize("proj", list(LARGE_M_PROJECTIONS))
+def test_int4_large_m_route_bit_for_bit_plain(cuda, proj):
+    """m >= 1024 (whole chunks and rows a chunk leaves live): the kernel
+    route's bf16-output product (G, one launch a half of the gate|up
+    stack, then cuBLAS rounding once) is bit for bit the plain route's f32
+    product cast to bf16."""
+    k, n, halves = LARGE_M_PROJECTIONS[proj]
+    t = _qweight(cuda, "int4", k, n, halves)
+    x = torch.randn(4096, k, device=cuda, dtype=torch.bfloat16)
+    for m in (1024, 1100, 1536, 3000, 4096):
+        before = quant.dequant_int4.launches
+        got = quant.quantized_linear(x[:m], t)
+        assert quant.dequant_int4.launches == before + halves
+        want = quant.quantized_linear_torch(x[:m], t)
+        assert got.dtype == want.dtype == torch.bfloat16
+        assert got.shape == (m, halves * n)
+        assert torch.equal(got, want), (proj, m)

@@ -250,8 +250,8 @@ def test_feature_reaches_the_engine(rng, family):
         assert (on - off).abs().max().item() > 2e-3, family
 
 
-@pytest.mark.parametrize("name", ["llama3-8b", "llama3.1-8b", "mistral-7b",
-                                  "qwen2-7b"])
+@pytest.mark.parametrize("name", ["llama2-13b", "llama3-8b", "llama3.1-8b",
+                                  "mistral-7b", "qwen2-7b"])
 def test_family_presets_match_jax(name):
     """The port's presets of the families, field for field the JAX
     package's (the scaling by its fields), and ``resolve_rope_scaling``

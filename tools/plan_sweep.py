@@ -2,7 +2,7 @@
 """Sweep the split plans of kernel D (decode attention at G > 1) and kernel
 E/F (the quantized matmuls' decode mode) on one CUDA card (an H100).
 
-    python3 tools/plan_sweep.py [--only residency|d|e|modes]
+    python3 tools/plan_sweep.py [--only residency|d|e|modes|families]
 
 The kernels are built from this checkout's sources with ``-DPLAN_SWEEP``,
 which adds entry points that force a plan (``attention_decode_force_plan``,
@@ -24,7 +24,10 @@ against its plain version:
   narrow projections the plan runs in the decode mode;
 - modes: E and F at m 17, 24, 32, 40 and 48 in the decode mode against the
   prefill mode, in turns, on llama2-7b's projections, its tp = 2 shards
-  and tinyllama's, beside the mode the plan takes.
+  and tinyllama's, beside the mode the plan takes;
+- families: kernel E's decode mode at clusters 1, 2, 4, 8 and the plan's
+  on mistral-7b's projections at m 4 (its B 4 decode step) and
+  llama2-13b's at m 8, beside ``_weight_int4pack_mm``.
 
 It prints one line a case and, last, one JSON object with every number.
 It fails where there is no card.
@@ -59,6 +62,12 @@ TINY_NARROW = (("wqkv", 2048, 2560, 1), ("wo", 2048, 2048, 1),
                ("down", 5632, 2048, 1))
 TINY_TP2_NARROW = (("tp2 wqkv", 2048, 1280, 1), ("tp2 wo", 1024, 2048, 1),
                    ("tp2 down", 2816, 2048, 1))
+# the decode steps of chip_smoke 4u's Mistral (B 4) and 4v's 13B (B 8)
+MISTRAL = (("mistral wqkv", 4096, 6144, 1), ("mistral wo", 4096, 4096, 1),
+           ("mistral gate|up", 4096, 14336, 2),
+           ("mistral down", 14336, 4096, 1))
+LLAMA_13B = (("13b wqkv", 5120, 15360, 1), ("13b wo", 5120, 5120, 1),
+             ("13b gate|up", 5120, 13824, 2), ("13b down", 13824, 5120, 1))
 
 
 def main(argv) -> int:
@@ -89,6 +98,12 @@ def main(argv) -> int:
         out["e"] = sweep_e(torch, dev, cs, lib)
     if only in (None, "modes"):
         out["modes"] = sweep_modes(torch, dev, cs, lib)
+    if only in (None, "families"):
+        clusters = (0, 1, 2, 4, 8)
+        out["families"] = sweep_e(
+            torch, dev, cs, lib,
+            [("int4", 4, shape, clusters) for shape in MISTRAL]
+            + [("int4", 8, shape, clusters) for shape in LLAMA_13B])
     print(json.dumps(out))
     return 0
 
@@ -165,18 +180,21 @@ def sweep_d(torch, dev, cs, lib) -> dict:
     return rows
 
 
-def sweep_e(torch, dev, cs, lib) -> dict:
+def sweep_e(torch, dev, cs, lib, cases=None) -> dict:
+    """E / F's decode mode at forced clusters: ``cases`` of (mode, m,
+    (label, k, n, halves), clusters; 0 is the plan's)."""
     from llm_inference_engine_tpu_torch.ops import quant
     gen = torch.Generator(device=dev).manual_seed(4321)
     rows = {}
-    # m 8: clusters 1-8 at the draft's widths; m 40 (the verify's 48-row
-    # tiles): clusters 1-8, INT4 and INT8, on the projections the plan
-    # runs in the decode mode
-    cases = [("int4", 8, shape, (0, 1, 2, 4, 8))
-             for shape in TINY + TINY_TP2 + WIDE_SHARDS]
-    cases += [(mode, 40, shape, (0, 1, 2, 4, 8))
-              for mode in ("int4", "int8")
-              for shape in NARROW_7B + TINY_NARROW + TINY_TP2_NARROW]
+    if cases is None:
+        # m 8: clusters 1-8 at the draft's widths; m 40 (the verify's
+        # 48-row tiles): clusters 1-8, INT4 and INT8, on the projections
+        # the plan runs in the decode mode
+        cases = [("int4", 8, shape, (0, 1, 2, 4, 8))
+                 for shape in TINY + TINY_TP2 + WIDE_SHARDS]
+        cases += [(mode, 40, shape, (0, 1, 2, 4, 8))
+                  for mode in ("int4", "int8")
+                  for shape in NARROW_7B + TINY_NARROW + TINY_TP2_NARROW]
     for mode, m, (label, k, n, halves), clusters in cases:
         ts = cs.quant_weights(torch, quant, dev, gen, mode, k, n, halves,
                               120_000_000)
@@ -186,7 +204,7 @@ def sweep_e(torch, dev, cs, lib) -> dict:
                                "torch").float()
         row = {"plan": quant.quant_matmul_plan_native(
             m, k, n, halves, int4=mode == "int4")}
-        if halves == 1 and m == 8:
+        if halves == 1 and m <= 8 and mode == "int4":
             row["library"] = cs.int4pack_ms(torch, quant, ts, x,
                                             torch.bfloat16)
         for c in clusters:
