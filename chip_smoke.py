@@ -279,7 +279,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
       CPU's second there), prefill logits within FLOAT_LOGIT_REL_L2, the
       replays equal to the eager bodies, a paged engine's pure-decode step
       with no H (a float pool: Df's fused paged decode; paged == slot bit
-      for bit); (b) llama2-7b float16 at B 4 (4a's prompts, 32 tokens;
+      for bit); (b) llama2-7b float16, its first DEPTH_CUT layers (a depth
+      cut), at B 4 (4a's prompts, 32 tokens;
       then paged over pages of 64, bit for bit the slot engine, its step
       with no H, ``graph_checks``), the same weights over an int8 cache
       (slot B 4, then paged over pages of 64: If and D2f in prefill, a
@@ -315,6 +316,20 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
       F, G8 and its epilogue, I, D2's and D's int8 modes at its shapes
       (and D's at Qwen2's G 7), scales NaN past kv_len and left of the
       window, then the path as 4j's;
+   w. the model families under tensor parallelism (``phase_families_tp``,
+      after 4v): meshes of two ranks on cuda:0, as 4n, through each
+      family's INT4 path: (a) qwen2-7b B 8 at full depth (G 7, one kv head
+      a rank, J's bias mode) against 4u's one-rank path; (b) llama3.1-8b
+      B 8 and (c) mistral-7b B 4 in 8192 over prompts past its window,
+      each its first DEPTH_CUT layers beside a one-rank engine at the same
+      cut: prefill logits within TP_LOGIT_REL_L2 (a dropped rank's
+      partial beyond it), first tokens under the tie rule, greedy ids,
+      ``mesh_steps``, one decode step's launches, a paged tp = 2 engine
+      through the scheduler whose ids equal the slot engine's
+      ``generate``; the replayed step, warm prefill and peak memory
+      beside the one-rank path's; (d) every kernel at each family's rank
+      shapes (E with its plan and cluster K ranges, G, A, B, J, C, D2, D,
+      H and D's fused paged decode), NaN past every tail;
    (3d, before 4: kernel I, H's int8 mode, D2's and D's int8 modes
    against their plain versions at 7B widths, in both scale numerics, the
    decode modes held per row, D's fused decode over an int8 pool bit for
@@ -634,13 +649,15 @@ MUST_SEE_FAULTS = ("int8-kv8",)
 # total at most this many tokens (each fault costs one more plain prefill)
 FAULT_PROMPT_TOKENS = 4096
 # Depth cuts that keep every width: the paths of DEPTH_CUT_PATHS (4u's
-# Mistral bf16 path and paged == slot check), 4o's cp engines (the first
-# layers of 4b's weights) and 4t's llama2-7b float32 path run the first
+# Mistral bf16 path and paged == slot check, 4w's Llama-3.1-8B and
+# Mistral-7B tp = 2 paths), 4o's cp engines (the first layers of 4b's
+# weights) and 4t's llama2-7b float16 and float32 paths run the first
 # DEPTH_CUT layers of their model. Each layer only repeats the kernels,
 # which a full-depth path at the same widths holds (Mistral's INT4 path,
-# 4b and 4n, 3f).
+# 4b and 4n, 3f; at a rank's shapes 4w's Qwen2-7B path and 4w (d)).
 DEPTH_CUT = 8
-DEPTH_CUT_PATHS = ("mistral-7b bf16", "mistral-7b paged int4")
+DEPTH_CUT_PATHS = ("mistral-7b bf16", "mistral-7b paged int4",
+                   "llama3.1-8b tp2 int4", "mistral-7b tp2 int4")
 # per main path: decode wall and card busy per step, eager bodies against
 # graph replays (graph_checks), printed as one line at the end of phase 4
 DECODE: dict = {}
@@ -648,9 +665,12 @@ DECODE: dict = {}
 # tok/s, TTFT p50 s, TTFT p99 s)}}
 SERVED: dict = {}
 # what 4n reuses of 4b (its prompts, kernel-path prefill logits and
-# round-1 greedy ids) and of 4g (its logits and ids), by path; 4n makes
-# 4b's seed-0 weights again, so no later path's peak memory holds them
+# round-1 greedy ids) and of 4g (its logits and ids), and 4w (a) of 4u's
+# Qwen2-7B INT4 path (also its warm prefill's card busy and peak memory),
+# by path; 4n and 4w make the seed-0 weights again, so no later path's
+# peak memory holds them
 MAIN_RUNS: dict = {}
+KEPT_RUNS = ("int4", "int4-kv8", "qwen2-7b int4")
 # 4n: the largest relative L2 distance allowed between the prefill logits
 # of a tp = 2 engine and of the one-rank engine on the same weights. The two
 # differ in where each row sum splits (K/2 per rank, then the cross-rank
@@ -1967,7 +1987,8 @@ def quant_case(torch, dev, gen, results, mode, m, label,
     first weight's q and scale lie at the head of buffers whose tails are
     NaN (``poisoned``). Returns (kernel ms, the weights, x, the output
     dtype); the library's plan must equal its mirror
-    (``quant_matmul_plan``)."""
+    (``quant_matmul_plan``). A decode plan whose cluster ranks take K
+    ranges of unequal length (``cluster_k_ranges``) prints them too."""
     from llm_inference_engine_tpu_torch.ops import quant
     bf16 = torch.bfloat16
     name = f"{mode}_matmul"
@@ -1998,7 +2019,14 @@ def quant_case(torch, dev, gen, results, mode, m, label,
                 library=library)
     plan = quant.quant_matmul_plan_native(m, k, n, halves,
                                           int4=mode == "int4")
-    say(f"    plan: {plan}")
+    ranges = ""
+    if plan["mode"] == "decode":
+        rows = [hi - lo for lo, hi in quant.cluster_k_ranges(
+            m, k, n, halves, int4=mode == "int4",
+            sms=torch.cuda.get_device_properties(0).multi_processor_count)]
+        if len(set(rows)) > 1:
+            ranges = f"; uneven K rows a cluster rank {rows}"
+    say(f"    plan: {plan}{ranges}")
     mirror = quant.quant_matmul_plan(
         m, k, n, halves, int4=mode == "int4",
         sms=torch.cuda.get_device_properties(0).multi_processor_count)
@@ -3126,9 +3154,10 @@ def phase_main_path(torch, dev, results, path: str, eng_cfg, prompt_lens,
         failures.append("generate's first token is not the prefill argmax")
     if failures:
         raise AssertionError(f"{path} path: " + "; ".join(failures))
-    if path in ("int4", "int4-kv8"):
+    if path in KEPT_RUNS:
         MAIN_RUNS[path] = dict(prompts=prompts, logits=logits,
-                               ids=r1.token_ids)
+                               ids=r1.token_ids, prefill_busy=prefill.busy,
+                               peak=peak)
     return logits
 
 
@@ -6694,7 +6723,8 @@ def tp2_paged_rows(torch, dev, gen, results) -> None:
     torch.cuda.empty_cache()
 
 
-def mesh_steps(torch, engine, toks, active, tag: str, n: int = 16) -> list:
+def mesh_steps(torch, engine, toks, active, tag: str, n: int = 16,
+               beside: tuple = ("int4", "4b")) -> list:
     """A mesh engine's decode programs: n steps through the eager bodies
     and the same n through the CUDA-graph replays (twice, the first with
     the capture, whose warm-up launches count), from one state: ids, and
@@ -6703,7 +6733,8 @@ def mesh_steps(torch, engine, toks, active, tag: str, n: int = 16) -> list:
     Prints wall a step of each, the replayed step's card busy (union of
     intervals over 4 steps) and idle share, its device ms by group with
     the cross-rank sums split out of the torch glue (``glue_labels``), and
-    the one-rank 4b step beside it. Returns the eager ids."""
+    the one-rank step beside it (``beside``: its DECODE key and label;
+    4b's by default; None: none). Returns the eager ids."""
     from llm_inference_engine_tpu_torch.config import SamplingParams
     from llm_inference_engine_tpu_torch.runtime.decode_graph import (
         run_eagerly)
@@ -6732,14 +6763,16 @@ def mesh_steps(torch, engine, toks, active, tag: str, n: int = 16) -> list:
     groups = group_ms(prof.per_kernel, glue)
     cp_ms = label_ms(cpu_prof, prof.per_kernel, "CP")
     del cpu_prof
-    one = DECODE.get("int4", {})
+    one = DECODE.get(beside[0], {}) if beside else {}
     say(f"  {tag} decode, eager / graphs: wall {eager_ms:.3f} / "
         f"{graph_ms:.3f} ms/step ({B * 1e3 / graph_ms:.1f} tok/s replayed "
         f"at B={B}); replayed card busy {prof.busy:.3f} ms/step, idle "
         f"{1 - prof.busy / graph_ms:.3f}; cross-rank sums "
         f"{groups['sums']:.4f} ms/step of durations summed "
-        f"{prof.summed:.3f}; one-rank 4b: wall {one.get('graph_ms', 0):.3f}"
-        f" ms/step, busy {min(one.get('graph_busy_ms', [0])):.3f}")
+        f"{prof.summed:.3f}" + (
+            f"; one-rank {beside[1]}: wall {one.get('graph_ms', 0):.3f}"
+            f" ms/step, busy {min(one.get('graph_busy_ms', [0])):.3f}"
+            if beside else ""))
     say(f"  {tag} replayed decode step, device ms by group: "
         f"{_groups(prof.per_kernel, glue)}; by kernel: "
         + "; ".join(f"{_short(name)} {ms:.4f}"
@@ -7161,12 +7194,14 @@ def greedy_ids(torch, engine, logits, n: int) -> list:
             for i in range(first.shape[0])]
 
 
-def ids_or_ties(tag: str, ids, ref_ids, engine, base, prompts) -> None:
-    """Each row's ids equal the cp = 1 engine's, or differ first at a
-    near-tie: there both engines prefill the prompt and the reference
-    ids before it, and the token must lie in the cp = 1 engine's top 2
-    with its top-1/top-2 margin below the largest logit difference
-    between the two. The engines are reset after where a row differs."""
+def ids_or_ties(tag: str, ids, ref_ids, engine, base, prompts,
+                ref: str = "cp=1") -> None:
+    """Each row's ids equal the reference engine's (``base``, named
+    ``ref``: the cp = 1 engine), or differ first at a near-tie: there
+    both engines prefill the prompt and the reference ids before it, and
+    the token must lie in the reference engine's top 2 with its
+    top-1/top-2 margin below the largest logit difference between the
+    two. The engines are reset after where a row differs."""
     differ, bad = [], []
     for i, (a, b) in enumerate(zip(ids, ref_ids)):
         if a == b:
@@ -7182,14 +7217,15 @@ def ids_or_ties(tag: str, ids, ref_ids, engine, base, prompts) -> None:
         differ.append((i, t, round(margin, 4), round(diff, 4)))
         if margin >= diff or a[t] not in top2_ids.tolist():
             bad.append(i)
-    say(f"  {tag} {len(ids[0])} greedy ids equal the cp=1 engine's in "
+    say(f"  {tag} {len(ids[0])} greedy ids equal the {ref} engine's in "
         f"{len(ids) - len(differ)}/{len(ids)} rows; rows that differ (row, "
-        f"first step, cp=1 top-2 margin, logit difference there): {differ}")
+        f"first step, {ref} top-2 margin, logit difference there): "
+        f"{differ}")
     if differ:
         engine.reset()
         base.reset()
     if bad:
-        raise AssertionError(f"{tag}: ids differ from the cp=1 engine's "
+        raise AssertionError(f"{tag}: ids differ from the {ref} engine's "
                              f"outside the tie rule in rows {bad}")
 
 
@@ -9084,10 +9120,10 @@ def phase_float_models(torch, dev, results) -> None:
     to the card; engines slot, paged (page 16, through the scheduler), an
     int8 slot cache, an int8 pool, INT4 weights (group 64) and INT8
     weights, each against the same engine on the CPU (debug_engine_check);
-    (b) llama2-7b in float16 at full width, B 4 on 4a's prompts, 32 greedy
-    tokens, then INT4 weights at B 8 on 4b's prompts (Ef at m 8 and 512,
-    G and cuBLAS at m >= 1024); (c) llama2-7b in float32 cut to its
-    first DEPTH_CUT layers at full width, B 2, max_seq_len 1024,
+    (b) llama2-7b in float16 cut to its first DEPTH_CUT layers at full
+    width, B 4 on 4a's prompts, 32 greedy tokens, then INT4 weights at B 8
+    on 4b's prompts (Ef at m 8 and 512, G and cuBLAS at m >= 1024); (c)
+    llama2-7b in float32 cut the same way, B 2, max_seq_len 1024,
     prompts of 7 and 700 tokens, 16 greedy tokens (float_7b); (b) also
     runs (b)'s float16 weights over an int8 cache, slot at B 4 and paged
     over pages of 64, each held to kernels="torch" as (b) is."""
@@ -9122,27 +9158,28 @@ def phase_float_models(torch, dev, results) -> None:
             say(f"    ({time.perf_counter() - t0:.1f} s)")
 
     seven = get_config("llama2-7b")
-    cfg = seven.replace(dtype_name="float16")
+    cfg = seven.replace(dtype_name="float16", num_layers=DEPTH_CUT)
+    cut = f"{DEPTH_CUT} of 32 layers"
     b4 = EngineConfig(max_batch_size=4, max_seq_len=2048)
-    params = float_7b(torch, dev, results, "f16", "(b) llama2-7b float16",
-                      "7b", cfg, b4, W.init_dummy_params(cfg, seed=0,
-                                                         device=dev),
+    params = float_7b(torch, dev, results, "f16", f"(b) llama2-7b float16, "
+                      f"{cut}", "7b", cfg, b4,
+                      W.init_dummy_params(cfg, seed=0, device=dev),
                       (7, 129, 384, 700), 32, page=64)
     torch.cuda.empty_cache()
-    float_7b(torch, dev, results, "f16", "(b) llama2-7b float16 int8 KV",
-             "7b kv8", cfg, b4.replace(kv_cache_dtype_name="int8"), params,
-             (7, 129, 384, 700), 32, page=64)
+    float_7b(torch, dev, results, "f16", f"(b) llama2-7b float16 int8 KV, "
+             f"{cut}", "7b kv8", cfg, b4.replace(kv_cache_dtype_name="int8"),
+             params, (7, 129, 384, 700), 32, page=64)
     del params
     torch.cuda.empty_cache()
-    float_7b(torch, dev, results, "f16", "(b) llama2-7b float16 INT4",
+    float_7b(torch, dev, results, "f16", f"(b) llama2-7b float16 INT4, {cut}",
              "7b int4", cfg, EngineConfig(quant_mode="int4", max_batch_size=8,
                                           max_seq_len=2048),
              W.init_dummy_quantized_params(cfg, "int4", 128, seed=0,
                                            device=dev), QUANT_PROMPTS, 16)
     torch.cuda.empty_cache()
     cfg = seven.replace(dtype_name="float32", num_layers=DEPTH_CUT)
-    float_7b(torch, dev, results, "f32", f"(c) llama2-7b float32, "
-             f"{DEPTH_CUT} of 32 layers", "7b", cfg,
+    float_7b(torch, dev, results, "f32", f"(c) llama2-7b float32, {cut}",
+             "7b", cfg,
              EngineConfig(max_batch_size=2, max_seq_len=1024),
              W.init_dummy_params(cfg, seed=0, device=dev), (7, 700), 16)
     torch.cuda.empty_cache()
@@ -9183,6 +9220,19 @@ FAMILIES = {
 }
 MAIN_PATHS.update({f"{model} {kind}": MAIN_PATHS[kind]
                    for model in FAMILIES for kind in ("bf16", "int4")})
+
+
+def rank_config(cfg, tp: int):
+    """The shapes one model rank of ``tp`` computes with: ``cfg`` with its
+    heads, FFN and vocabulary split (the columns of wqkv, gate|up and the
+    lm_head, the rows of wo and down), so that ``family_shapes`` of it are
+    the rank's projections."""
+    if tp == 1:
+        return cfg
+    return cfg.replace(num_heads=cfg.num_heads // tp,
+                       num_kv_heads=cfg.num_kv_heads // tp,
+                       intermediate_size=cfg.intermediate_size // tp,
+                       vocab_size=cfg.vocab_size // tp)
 
 
 def family_shapes(cfg) -> dict:
@@ -9245,7 +9295,7 @@ def norm_act_rows(torch, dev, gen, results, tag: str, Hd: int,
 
 
 def family_kernel_rows(torch, dev, results, model: str,
-                       seen: set) -> None:
+                       seen: set, tp: int = 1) -> None:
     """4u's kernels at a family's shapes, every input at the head of a
     buffer whose tail is NaN and every cache row past kv_len (and, paged,
     every pool row outside the table) NaN, held against the plain versions
@@ -9260,13 +9310,15 @@ def family_kernel_rows(torch, dev, results, model: str,
     a chunk and contexts of 3600-6150 under its window of 4096, and D's
     fused paged decode and H through a table at those contexts). ``seen``
     holds the G and A/B shapes an earlier family held (Mistral's equal
-    Llama-3.1's): they run once."""
+    Llama-3.1's): they run once. With ``tp`` > 1, the same at one model
+    rank's shapes (``rank_config``: the heads, the FFN and the vocabulary
+    split), C and D2 at the INT4 path's first chunk, and every family's
+    paged rows (4w (d))."""
     from llm_inference_engine_tpu_torch.config import get_config
     from llm_inference_engine_tpu_torch.ops import attention
     from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
-    from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
     from llm_inference_engine_tpu_torch.ops import quant
-    cfg = get_config(model)
+    cfg = rank_config(get_config(model), tp)
     Hd, I, H, K, D = (cfg.hidden_size, cfg.intermediate_size, cfg.num_heads,
                       cfg.num_kv_heads, cfg.head_dim)
     G, W = H // K, cfg.sliding_window
@@ -9275,7 +9327,7 @@ def family_kernel_rows(torch, dev, results, model: str,
     B8 = spec["int4"][0]["max_batch_size"]
     shapes = family_shapes(cfg)
     gen = torch.Generator(device=dev).manual_seed(2025)
-    tag = f"{model} "
+    tag = f"{model} " if tp == 1 else f"{model} tp{tp} "
     nan = float("nan")
 
     def randn(*shape):
@@ -9330,17 +9382,19 @@ def family_kernel_rows(torch, dev, results, model: str,
     bias = cfg.attention_bias
     for n, case in ((4 * 512, "prefill 4 x 512"), (B8, "decode")):
         rope_case(torch, gen, results, f"{tag}{case}", n, K, G, D, bias=bias)
-    rope_replayed_rows(torch, dev, model, K, G, D, n=B8, bias=bias)
+    rope_replayed_rows(torch, dev, tag.strip(), K, G, D, n=B8, bias=bias)
 
-    # C and D2: the bf16 path's first chunk (Mistral: a chunk deep in
-    # its context, the window cutting every row's keys)
-    L, B, T = 2, 4, 512
+    # C and D2: the bf16 path's first chunk, at a rank the INT4 path's
+    # (Mistral: a chunk deep in its context, the window cutting every
+    # row's keys)
+    L, T = 2, 512
     if mistral:
-        S, starts_l, new_len_l = 8192, [3584, 4096, 5120, 5632], [
+        B, S, starts_l, new_len_l = 4, 8192, [3584, 4096, 5120, 5632], [
             512, 512, 512, 468]
     else:
-        S, starts_l = 2048, [0] * B
-        new_len_l = [min(n, T) for n in spec["bf16"][1]]
+        first = spec["bf16" if tp == 1 else "int4"][1]
+        B, S, starts_l = len(first), 2048, [0] * len(first)
+        new_len_l = [min(n, T) for n in first]
     starts, new_len = ints(starts_l), ints(new_len_l)
     kv_len_l = [s + n for s, n in zip(starts_l, new_len_l)]
     kv_len = ints(kv_len_l)
@@ -9358,8 +9412,8 @@ def family_kernel_rows(torch, dev, results, model: str,
                              "plain write")
     rows, picked = slot_rows(starts_l, new_len_l, T, S)
     check_close(torch, "kv_write", cache.k[1], ref.k[1], results,
-                f"{tag}[4,512,{K},{D}] at {starts_l}, new {new_len_l}, cold "
-                "L2", (
+                f"{tag}[{B},512,{K},{D}] at {starts_l}, new {new_len_l}, "
+                "cold L2", (
                     time_ms(torch, lambda: kvc.update_cache_at_layer(
                         cache, 1, kn, vn, starts, new_len, kernels="cuda"),
                         cold=True),
@@ -9381,8 +9435,8 @@ def family_kernel_rows(torch, dev, results, model: str,
     plain = lambda: attention.attention_torch(  # noqa: E731
         q, ref.k, ref.v, starts, kv_len, layer=1, window=W)
     check_close(torch, "attention_prefill", run(), plain(), results,
-                f"{tag}B4 T512 H{H} K{K} qs {starts_l} window {W}, NaN past "
-                "kv_len", (time_ms(torch, run, iters=5),
+                f"{tag}B{B} T512 H{H} K{K} qs {starts_l} window {W}, NaN "
+                "past kv_len", (time_ms(torch, run, iters=5),
                            time_ms(torch, plain, iters=3, warmup=1)),
                 work=attn_work(starts_l, kv_len_l, T, H, K, D, window=W),
                 library=sdpa_ms(torch, q, ref.k[1], ref.v[1], starts, kv_len,
@@ -9429,28 +9483,27 @@ def family_kernel_rows(torch, dev, results, model: str,
                 library=sdpa_ms(torch, qd, ref.k[1], ref.v[1], qs, kl,
                                 window=W),
                 row_rel=DECODE_ROW_TOL)
-    if mistral:
-        family_paged_rows(torch, dev, gen, results, model, c.k[1], c.v[1],
-                          hist)
+    if mistral or tp > 1:
+        family_paged_rows(torch, dev, gen, results, tag.strip(), cfg,
+                          c.k[1], c.v[1], hist)
     del c, ref
     torch.cuda.empty_cache()
 
 
-def family_paged_rows(torch, dev, gen, results, model, k_slot, v_slot,
-                      hist) -> None:
-    """Mistral's paged rows (the paged check's kernels at its widths):
-    the slot rows ``k_slot`` / ``v_slot`` [B, S, K, D] (NaN past each
-    row's history) laid into a pool of pages of 64 through a random page
-    permutation, every pool row outside the table NaN; H writes a 4 x 64
-    chunk at page-aligned histories past the window, bit for bit the
-    plain write; D's fused paged decode at ``hist`` under the window
-    writes the token through the table and attends, bit for bit the
-    slot decode on the same rows and within the row limit of the plain
+def family_paged_rows(torch, dev, gen, results, model, cfg, k_slot,
+                      v_slot, hist) -> None:
+    """A family's paged rows (the paged check's kernels at its widths, or
+    at a rank's heads: ``cfg``; ``model`` tags the rows): the slot rows
+    ``k_slot`` / ``v_slot`` [B, S, K, D] (NaN past each row's history)
+    laid into a pool of pages of 64 through a random page permutation,
+    every pool row outside the table NaN; H writes a B x 64 chunk at
+    page-aligned histories (Mistral's past the window), bit for bit the
+    plain write; D's fused paged decode at ``hist`` (under the window)
+    writes the token through the table and attends, bit for bit the slot
+    decode on the same rows and within the row limit of the plain
     version."""
-    from llm_inference_engine_tpu_torch.config import get_config
     from llm_inference_engine_tpu_torch.ops import attention
     from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
-    cfg = get_config(model)
     H, K, D, W = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                   cfg.sliding_window)
     B, S = k_slot.shape[:2]
@@ -9474,9 +9527,9 @@ def family_paged_rows(torch, dev, gen, results, model, k_slot, v_slot,
     v[1][table.long()] = v_slot.view(B, maxp, page, K, D)
     cache = pkv.PagedKVCache(k.clone(), v.clone(), table, ints([0] * B))
     ref = pkv.PagedKVCache(k.clone(), v.clone(), table, cache.lengths)
-    # H: a 4 x 64 prefill chunk at page-aligned histories
+    # H: a B x 64 prefill chunk at page-aligned histories
     starts_l = [(n // page) * page for n in hist]
-    new_len_l = [64, 64, 64, 37]
+    new_len_l = ([64, 64, 64, 37] * 2)[:B]
     starts, new_len = ints(starts_l), ints(new_len_l)
     kn, vn = poisoned(torch, randn(B, 64, K, D)), poisoned(torch,
                                                            randn(B, 64, K, D))
@@ -9495,8 +9548,8 @@ def family_paged_rows(torch, dev, gen, results, model, k_slot, v_slot,
             for p, i in zip(pos, picked)]
     check_close(torch, "paged_kv_write", torch.nan_to_num(cache.k[1]),
                 torch.nan_to_num(ref.k[1]), results,
-                f"{model} B4 chunk 4 x 64 at {starts_l}, new {new_len_l}, page "
-                "64 cold L2, bits equal the plain write",
+                f"{model} B{B} chunk {B} x 64 at {starts_l}, new "
+                f"{new_len_l}, page 64 cold L2, bits equal the plain write",
                 (time_ms(torch, lambda: pkv.paged_update_at_layer(
                     cache, 1, kn, vn, starts, new_len, kernels="cuda"),
                     cold=True),
@@ -9972,6 +10025,232 @@ def phase_last_paths(torch, dev, results) -> None:
         say(f"  4v ({sub}) {what}: {time.perf_counter() - t0:.1f} s")
 
 
+# 4w: the model families under tensor parallelism, meshes of two ranks of
+# cuda:0 (as 4n), through each family's INT4 path of FAMILIES: per family
+# (sub-phase, the scheduler's prompt lengths). Qwen2-7B keeps its full
+# depth (G 7, one kv head a rank, J's bias mode, a vocabulary shard of
+# 76032) and is held against 4u's one-rank INT4 path (MAIN_RUNS);
+# Llama-3.1-8B and Mistral-7B run their first DEPTH_CUT layers at full
+# width (DEPTH_CUT_PATHS) beside a one-rank engine at the same cut built
+# in the phase. Mistral's scheduler prompts pass its window of 4096
+MISTRAL_SCHED_PROMPTS = (4200, 4300, 4400, 4500)
+FAMILIES_TP = {"qwen2-7b": ("a", TP2_SCHED_PROMPTS),
+               "llama3.1-8b": ("b", TP2_SCHED_PROMPTS),
+               "mistral-7b": ("c", MISTRAL_SCHED_PROMPTS)}
+
+
+def family_tp2_path(torch, dev, results, model: str) -> None:
+    """4w (a)-(c): ``model``'s INT4 path (FAMILIES: its engine fields,
+    prompts and greedy tokens; seed-0 weights, cut in depth where
+    ``preset`` says so) on a mesh of two ranks of cuda:0, every launch
+    counter set to 0 just before each engine and read just after: the
+    prefill logits within TP_LOGIT_REL_L2 of the one-rank engine's (a
+    partial product left out, beyond it) and first tokens under the tie
+    rule (``first_token_rule``); ``generate``'s greedy ids (against the
+    one-rank engine's under ``ids_or_ties`` where it is built here,
+    else their agreement printed, as 4n's); ``mesh_steps``; the launches
+    of one decode step (A, B and J per rank); a warm prefill's card
+    busy; then a paged tp = 2 engine (pages of 64) through the scheduler,
+    whose ids must equal the slot mesh engine's ``generate`` of the same
+    prompts, each pure-decode step one fused paged decode a layer a rank
+    and no H. Prints the replayed step, the warm prefill's busy and the
+    peak memory (the one-rank engine freed first: the weights, their
+    shards and the tp = 2 engines) beside the one-rank path's."""
+    import numpy as np
+
+    from llm_inference_engine_tpu_torch.config import (
+        EngineConfig, SamplingParams, get_config)
+    from llm_inference_engine_tpu_torch.models.weights import (
+        init_dummy_quantized_params, param_bytes)
+    from llm_inference_engine_tpu_torch.parallel import make_mesh, sharding
+    from llm_inference_engine_tpu_torch.runtime.engine import InferenceEngine
+    from llm_inference_engine_tpu_torch.runtime.scheduler import (
+        ContinuousBatchingScheduler)
+
+    sub, sched_lens = FAMILIES_TP[model]
+    tag = f"4w ({sub}) {model} tp=2"
+    cfg = preset(model, f"{model} tp2 int4")
+    cfg = get_config(cfg) if isinstance(cfg, str) else cfg
+    eng_kw, prompt_lens, _, n_new = FAMILIES[model]["int4"]
+    eng = EngineConfig(**eng_kw)
+    B, L, V = eng.max_batch_size, cfg.num_layers, cfg.vocab_size
+    greedy = SamplingParams(greedy=True, max_new_tokens=n_new)
+    active = np.ones(B, bool)
+    gib = 2 ** 30
+
+    def last(r):
+        return torch.tensor([o[-1] for o in r.token_ids], device=dev,
+                            dtype=torch.int32)
+
+    # the one-rank path's weights (create_engine's, seed 0); the peaks
+    # count from them on, as phase_main_path's count from its engine on
+    params = init_dummy_quantized_params(cfg, "int4", eng.quant_group_size,
+                                         seed=0, device=dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    weight_bytes = (param_bytes(params)
+                    - param_bytes({"embed": params["embed"]}))
+    cut = L != get_config(model).num_layers
+    if not cut:
+        one = MAIN_RUNS.pop(f"{model} int4")
+        prompts, ref_logits, ref_ids = (one["prompts"], one["logits"],
+                                        one["ids"])
+        one_busy, one_peak = one["prefill_busy"], one["peak"] / gib
+        beside = (f"{model} int4", f"4u {model} INT4")
+    else:
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(3, V, n).tolist() for n in prompt_lens]
+        one_tag = f"{model} int4 ({L} layers)"
+        base = InferenceEngine(cfg, eng, params, device=dev)
+        ref_logits = base.prefill(prompts)
+        base.reset()
+        r = base.generate(prompts, greedy, eos_token_id=None)
+        ref_ids = r.token_ids
+        mesh_steps(torch, base, last(r), active, one_tag, beside=None)
+        base.reset()
+        one_busy = device_profile(torch, lambda: base.prefill(prompts),
+                                  1).busy
+        one_peak = torch.cuda.max_memory_allocated() / gib
+        beside = (one_tag, f"{model} INT4, {L} layers")
+        del base
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    say(f"  {tag}: {cfg.num_heads // 2} heads over {cfg.num_kv_heads // 2} "
+        f"kv heads a rank, {L} of {get_config(model).num_layers} layers, "
+        f"B={B}, max_seq_len {eng.max_seq_len}, prompts of "
+        f"{min(prompt_lens)}-{max(prompt_lens)} tokens; weights "
+        f"{param_bytes(params) / 1e9:.2f} GB")
+
+    tp2 = make_mesh(1, 2, devices=[dev, dev])
+    sp = sharding.shard_params(params, tp2)
+    counters = _zero_counters()
+    e = InferenceEngine(cfg, eng, sp)
+    logits = e.prefill(prompts)
+    first_token_rule(tag, logits, ref_logits, ref_ids,
+                     dropped_rank_logits(e, prompts))
+    t0 = time.perf_counter()
+    r = e.generate(prompts, greedy, eos_token_id=None)
+    gen_s = time.perf_counter() - t0
+    if [o[0] for o in r.token_ids] != logits.argmax(-1).tolist():
+        raise AssertionError(f"{tag}: generate's first token is not the "
+                             "prefill argmax")
+    agree = sum(a == b for x, y in zip(r.token_ids, ref_ids)
+                for a, b in zip(x, y))
+    say(f"  {tag} generate of {n_new} greedy tokens {gen_s:.3f} s; tokens "
+        f"agreeing with the one-rank path position by position "
+        f"{agree}/{n_new * B}; tokens[0][:8] {r.token_ids[0][:8]}")
+    if cut:
+        # the one-rank engine again only where a row's ids differ
+        base = (None if r.token_ids == ref_ids else
+                InferenceEngine(cfg, eng, params, device=dev))
+        ids_or_ties(tag, r.token_ids, ref_ids, e, base, prompts,
+                    ref="one-rank")
+        del base
+    mesh_steps(torch, e, last(r), active, tag, beside=beside)
+    rng = np.random.default_rng(3)
+    sched_prompts = [rng.integers(3, V, n).tolist() for n in sched_lens]
+    e.reset()
+    sched_ref = e.generate(sched_prompts, greedy, eos_token_id=None).token_ids
+    _path_launches(tag, counters, MAIN_PATHS["int4"][0])
+    _zero_counters()
+    e.decode_step(last(r), active, SamplingParams(greedy=True))
+    per_step = _launch_counts(counters)
+    say(f"  {tag} launches per decode step (two ranks): {per_step}")
+    check_norm_launches(f"{tag} decode step", per_step, L, 2)
+    e.reset()
+    prefill = device_profile(torch, lambda: e.prefill(prompts), 1)
+    say(f"  {tag} warm prefill of {sum(prompt_lens)} tokens: card busy "
+        f"{prefill.busy:.3f} ms (one-rank {one_busy:.3f}); by group: "
+        f"{_groups(prefill.per_kernel)}")
+    del e
+    torch.cuda.empty_cache()
+
+    # the paged tp = 2 engine through the scheduler
+    counters = _zero_counters()
+    pe = InferenceEngine(cfg, eng.replace(kv_layout="paged", page_size=64,
+                                          max_prefill_len=64), sp)
+    sched = ContinuousBatchingScheduler(pe, eos_token_id=None)
+    decode_steps = decode_phase_launches(sched, counters)
+    reqs = [sched.submit(p, greedy) for p in sched_prompts]
+    t0 = time.perf_counter()
+    sched.run()
+    wall = time.perf_counter() - t0
+    ids = [q.output_ids for q in reqs]
+    _check_paged_launches(f"{tag} paged scheduler", counters,
+                          NORM_ACT + ("int4_matmul",) + BF16_PAGED)
+    check_decode_step_launches(f"{tag} paged scheduler", decode_steps, L,
+                               ranks=2)
+    say(f"  {tag} paged scheduler: {len(reqs)} requests of "
+        f"{list(sched_lens)} tokens in chunks of 64, {n_new} greedy "
+        f"tokens each in {wall:.3f} s; ids equal the slot tp=2 engine's "
+        f"generate: {ids == sched_ref}; free pages after {pe.free_pages}")
+    del pe, sched, sp, params
+    torch.cuda.empty_cache()
+    d = DECODE[tag]
+    o = DECODE[beside[0]]
+    say(f"  {tag} beside {beside[1]}: replayed step wall / busy "
+        f"{d['graph_ms']:.3f} / {d['graph_busy_ms'][0]:.3f} ms "
+        f"({B * 1e3 / d['graph_ms']:.1f} tok/s), one rank "
+        f"{o['graph_ms']:.3f} / {min(o['graph_busy_ms']):.3f} ms "
+        f"({B * 1e3 / o['graph_ms']:.1f} tok/s); weight bytes' bound "
+        f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms "
+        f"({weight_bytes / 1e9:.2f} GB, the same on both); warm prefill "
+        f"busy {prefill.busy:.3f} / {one_busy:.3f} ms; peak "
+        f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB (one rank "
+        f"{one_peak:.2f})")
+    if ids != sched_ref:
+        raise AssertionError(f"{tag}: the paged tp=2 scheduler's ids differ "
+                             "from the slot tp=2 engine's generate")
+
+
+def phase_qwen2_tp2(torch, dev, results) -> None:
+    """4w (a): qwen2-7b INT4, B = 8, full width and depth, at tp = 2."""
+    family_tp2_path(torch, dev, results, "qwen2-7b")
+
+
+def phase_llama31_tp2(torch, dev, results) -> None:
+    """4w (b): llama3.1-8b INT4, B = 8, full width, DEPTH_CUT layers, at
+    tp = 2 (a rank's lm_head of 64128 columns, sampling over the gathered
+    128256)."""
+    family_tp2_path(torch, dev, results, "llama3.1-8b")
+
+
+def phase_mistral_tp2(torch, dev, results) -> None:
+    """4w (c): mistral-7b INT4, B = 4, max_seq_len 8192, full width,
+    DEPTH_CUT layers, at tp = 2 over MISTRAL_PROMPTS (4 kv heads a rank
+    under the window of 4096)."""
+    family_tp2_path(torch, dev, results, "mistral-7b")
+
+
+def families_tp2_kernel_rows(torch, dev, results) -> None:
+    """4w (d): ``family_kernel_rows`` at each family's rank shapes under
+    tp = 2 (E at the INT4 path's m and its prefill mode's, its plan equal
+    to the library's with the cluster's K ranges printed; G; A and B at
+    the rank's [2048, 2 I] and [B, 2 I]; J (Qwen2's bias mode at K 2, G
+    7); C and D2 at the INT4 path's first chunk; D's fused decode; H and
+    D's fused paged decode through a table), NaN past every tail."""
+    seen: set = set()
+    for model in FAMILIES_TP:
+        family_kernel_rows(torch, dev, results, model, seen, tp=2)
+
+
+def phase_families_tp(torch, dev, results) -> None:
+    """4w: the model families under tensor parallelism on one card, each
+    sub-phase timed: (a) ``phase_qwen2_tp2``, (b) ``phase_llama31_tp2``,
+    (c) ``phase_mistral_tp2``, (d) ``families_tp2_kernel_rows``."""
+    for sub, fn in zip("abcd", (phase_qwen2_tp2, phase_llama31_tp2,
+                                phase_mistral_tp2,
+                                families_tp2_kernel_rows)):
+        t0 = time.perf_counter()
+        say(f"  -- 4w ({sub}) {fn.__name__}")
+        fn(torch, dev, results)
+        gc.collect()      # an engine's captured programs hold it in cycles
+        torch.cuda.empty_cache()
+        say(f"  4w ({sub}) {fn.__name__}: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -10139,8 +10418,8 @@ def main() -> int:
           phase_examples, torch, dev)
     phase("4t", "float32 and float16 models end to end: the debug preset "
           "(6 engines each) against the CPU, llama2-7b float16 (B=4; over an "
-          f"int8 cache, slot B=4 and paged; INT4 B=8) and float32 (B=2, "
-          f"the first {DEPTH_CUT} layers)",
+          f"int8 cache, slot B=4 and paged; INT4 B=8) and float32 (B=2), "
+          f"each its first {DEPTH_CUT} layers",
           phase_float_models, torch, dev, results)
     phase("4u", "the model families at full width and depth: llama3.1-8b "
           "(GQA G=4, Llama-3 RoPE scaling), mistral-7b (sliding window "
@@ -10153,6 +10432,12 @@ def main() -> int:
           "(bf16 and int8 pools, preemption), mistral-7b INT8 weights over "
           "an int8 KV cache under its window; their kernels at their "
           "shapes", phase_last_paths, torch, dev, results)
+    phase("4w", "the model families under tensor parallelism, two ranks on "
+          "cuda:0: qwen2-7b INT4 B=8 (full depth), llama3.1-8b INT4 B=8 and "
+          f"mistral-7b INT4 B=4 in 8192 (the first {DEPTH_CUT} layers), each "
+          "against its one-rank path, paged through the scheduler; the "
+          "kernels at their rank shapes", phase_families_tp, torch, dev,
+          results)
     say("  decode per step, eager bodies against graph replays (wall and "
         "card busy ms): " + json.dumps(DECODE))
 

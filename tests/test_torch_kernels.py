@@ -3328,3 +3328,101 @@ def test_int4_large_m_route_bit_for_bit_plain(cuda, proj):
         assert got.dtype == want.dtype == torch.bfloat16
         assert got.shape == (m, halves * n)
         assert torch.equal(got, want), (proj, m)
+
+
+# The families' rank shapes at tp = 2: Qwen2-7B's rank holds 14 query
+# heads over 2 kv heads (G 7), Llama-3.1-8B's and Mistral-7B's 16 over 4;
+# the rank's projections are the presets' split by columns (wqkv, gate|up,
+# lm_head) or by rows (wo, down)
+def _rank_projections(model: str, tp: int = 2) -> dict:
+    shapes = _projections(model)
+    cfg = get_config(model)
+    shapes["lm_head"] = (cfg.hidden_size, cfg.vocab_size, 1)
+    return {p: ((k // tp, n, h) if p in ("wo", "down") else (k, n // tp, h))
+            for p, (k, n, h) in shapes.items()}
+
+
+QWEN2_CONTEXTS = [40, 65, 163, 249, 354, 500, 540, 632]
+
+
+def test_split_qkv_rope_kernel_bias_at_qwen2_rank(cuda):
+    """J's bias mode at Qwen2-7B's rank (K 2, G 7, head_dim 128): a decode
+    step's 8 rows, a 4 x 512 chunk and ragged counts, every input (the
+    bias too) at the head of a buffer of NaN, bit for bit the add then J;
+    and one value a load, qkv and bias one element off 16 bytes."""
+    for n in (1, 7, 8, 40, 2048):
+        _rope_bias_held(cuda, n, 2, 7, 128, torch.bfloat16)
+    _rope_bias_held(cuda, 9, 2, 7, 128, torch.bfloat16, shift=1)
+
+
+@pytest.mark.parametrize("H,K,window,hist", [
+    (14, 2, None, QWEN2_CONTEXTS),
+    (16, 4, WINDOW, [3600, 4095, 5200, 6150])], ids=["qwen2", "mistral"])
+def test_fused_decode_at_family_rank(cuda, H, K, window, hist):
+    """D's fused slot decode at a family's rank: Qwen2-7B's G 7 over 2 kv
+    heads (B 8, 4b's contexts), Mistral-7B's G 4 over 4 kv heads under
+    its window (B 4, contexts past 4096). Every cache row past kv_len and
+    the tails of q and the new rows NaN; the write bit for bit, the
+    output within TOL of the plain version on clean copies."""
+    D, B = 128, len(hist)
+    S = 8192 if window else 2048
+    q, kc, vc = _qkv(cuda, 2, B, 1, H, K, S, D)
+    kn = torch.randn(B, 1, K, D, device=cuda, dtype=torch.bfloat16)
+    vn = torch.randn_like(kn)
+    q_start = torch.tensor(hist, device=cuda, dtype=torch.int32)
+    kv_len = q_start + 1
+    c = kvc.KVCache(kc, vc, kv_len)
+    ref = _clone_cache(c)
+    _poison_slot(c, kv_len)
+    n0 = attention.attention_decode_fused.launches
+    got = attention.attention_decode_fused(
+        _nan_tail(q), _nan_tail(kn), _nan_tail(vn), c.k, c.v, q_start,
+        kv_len, 1, window=window, kernels="cuda")[0]
+    want = attention.attention_decode_fused_torch(
+        q, kn, vn, ref.k, ref.v, q_start, kv_len, 1, window=window)[0]
+    torch.cuda.synchronize()
+    assert attention.attention_decode_fused.launches == n0 + 1
+    rows = (torch.arange(B, device=cuda), q_start.long())
+    for got_t, want_t in ((c.k, ref.k), (c.v, ref.v)):
+        assert torch.equal(got_t[1][rows], want_t[1][rows])
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("model", ["qwen2-7b", "llama3.1-8b", "mistral-7b"])
+@pytest.mark.parametrize("m", [4, 8, 512])
+def test_quant_plan_at_family_rank_shapes(cuda, model, m):
+    """E's plan from the built library equals its mirror
+    (``quant_matmul_plan``) at every rank projection of the family at
+    tp = 2, the lm_head shard included (Qwen2-7B's n 76032, Llama-3.1-8B's
+    64128), and so do the decode mode's cluster K ranges."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for proj, (k, n, halves) in _rank_projections(model).items():
+        native = quant.quant_matmul_plan_native(m, k, n, halves)
+        assert native.pop("blocks_per_sm") >= 1
+        assert native == quant.quant_matmul_plan(m, k, n, halves,
+                                                 sms=sms), (proj, m)
+        if native["mode"] == "decode":
+            ranges = quant.cluster_k_ranges(m, k, n, halves, sms=sms)
+            assert len(ranges) == native["cluster"]
+            assert ranges[0][0] == 0 and ranges[-1][1] == k
+
+
+@pytest.mark.parametrize("proj", ["wo", "wqkv", "down"])
+def test_int4_decode_at_uneven_cluster_ranges(cuda, proj):
+    """E's decode mode at m 8 on Qwen2-7B's rank projections, whose K
+    splits over the cluster in ranges of unequal length (wo: k 1792 = 14
+    groups over 4 ranks, 384 / 512 / 384 / 512 rows), x, q and scales at
+    the head of buffers of NaN: within TOL of the plain version."""
+    k, n, halves = _rank_projections("qwen2-7b")[proj]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ranges = quant.cluster_k_ranges(8, k, n, halves, sms=sms)
+    assert len({hi - lo for lo, hi in ranges}) > 1, ranges
+    if proj == "wo":
+        assert [hi - lo for lo, hi in ranges] == [384, 512, 384, 512]
+    t = _qweight(cuda, "int4", k, n, halves)
+    t = quant.QuantizedTensor(_tail_poisoned(t.q), _tail_poisoned(t.scale),
+                              "int4", 128)
+    x = _tail_poisoned(torch.randn(8, k, device=cuda, dtype=torch.bfloat16))
+    got = _held_against_plain(t, x, torch.bfloat16)
+    assert torch.isfinite(got).all()
