@@ -19,9 +19,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    B4 T512, GQA with and without a window, G = 8 against kv_len 2048)
    and kernel D's fused decode (split-KV over a cluster; B4, then the
    engine's B8, kv_len of one tile and one tile + 1, G = 7 with a
-   window), then E and F (fused dequant-matmul, INT4 and INT8: the
-   decode mode at m = 8 on every projection and the lm_head and at m =
-   16 on wo and down, each with its plan; the prefill mode at m = 512 on
+   window), then E and F (fused dequant-matmul, INT4 and INT8: E's
+   fragment mode over the weights' fragment-order copy and F's decode
+   mode at m = 8 on every projection and the lm_head and at m = 16 on
+   wo and down, each with its plan (the gate|up stack's library call one
+   ``_weight_int4pack_mm`` on the [k, 2I] weight); the prefill mode at
+   m = 512 on
    the four projections beside G + cuBLAS; library calls
    ``_weight_int4pack_mm`` and ``_weight_int8pack_mm``), INT8 at m =
    4096 on the four projections (G8 + cuBLAS, the parent's cast + cuBLAS
@@ -74,7 +77,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
       from a row's eager token (that row stops there);
    b. llama2-7b INT4 (group 128), B=8: eight ragged prompts whose prefill
       runs through G (1024+ rows) and E, the same two rounds and
-      ``graph_checks``, decode through E (lm_head included);
+      ``graph_checks``, decode through E's fragment mode (lm_head
+      included); every INT4 path prints the bytes of its weights'
+      fragment-order copies (the context they would hold as KV cache)
+      and its peak without them;
    c. llama2-7b INT8, B=8: the same through F;
    d. paged == slot: llama2-7b INT4, B=8, the prompts of 4b, chunks of
       64: a paged engine (page 64) and a slot engine give bit-identical
@@ -1800,8 +1806,8 @@ def quant_weights(torch, quant, dev, gen, mode, k, n, halves=1,
                           dtype=torch.int8, device=dev)
         s = torch.rand((*lead, k // 128 if int4 else 1, n), generator=gen,
                        device=dev) + 0.5
-        return quant.QuantizedTensor(q, s * (0.02 / (7 if int4 else 127)),
-                                     mode, 128)
+        return with_layout(quant, quant.QuantizedTensor(
+            q, s * (0.02 / (7 if int4 else 127)), mode, 128))
     first = one()
     return [first] + [one() for _ in range(
         max(1, -(-min_bytes // first.nbytes)) - 1)]
@@ -1818,11 +1824,39 @@ def poisoned(torch, t, pad: int = 1 << 16):
     return buf[:t.numel()].view(t.shape)
 
 
+def with_layout(quant, t):
+    """INT4 ``t`` with the fragment-order copy (``qd``) that kernel E reads
+    at m <= 16 on the card, where the tree has one
+    (``quant.add_decode_layout``; engines build theirs); ``t`` as it is
+    otherwise."""
+    add = getattr(quant, "add_decode_layout", None)
+    return add(t) if add is not None and t.mode == "int4" else t
+
+
+def layout_of(t) -> dict:
+    """``qd=`` for kernel E's wrapper where ``t`` carries the fragment
+    order (a tree that has none takes no such argument)."""
+    qd = getattr(t, "qd", None)
+    return {} if qd is None else {"qd": qd}
+
+
+def poisoned_weight(torch, quant, t):
+    """``t`` with q, scale and (INT4, where the tree has it) the fragment
+    order each at the head of a NaN- (127-) tailed buffer (``poisoned``)."""
+    out = quant.QuantizedTensor(poisoned(torch, t.q),
+                                poisoned(torch, t.scale), t.mode,
+                                t.group_size)
+    if getattr(t, "qd", None) is not None:
+        out.qd = poisoned(torch, quant.repack_int4_decode(out.q))
+    return out
+
+
 def fused_matmul(quant, t, x, out, kern):
     """Kernel E or F (or its plain version) through the wrapper every tree
-    has."""
+    has (E's fragment mode reads ``t.qd`` where the tree has it)."""
     if t.mode == "int4":
-        return quant.int4_matmul(x, t.q, t.scale, 128, out, kernels=kern)
+        return quant.int4_matmul(x, t.q, t.scale, 128, out, kernels=kern,
+                                 **layout_of(t))
     return quant.int8_matmul(x, t.q, t.scale, out, kernels=kern)
 
 
@@ -1836,25 +1870,62 @@ def cycling(ts, fn):
     return run
 
 
+def e_decode_rows() -> dict:
+    """E's rows at m <= 16 beyond QUANT_ROWS, {label: (m, (k, n,
+    halves))}: the decode steps of the families (4u: llama3.1-8b and
+    qwen2-7b at m 8, mistral-7b at m 4), llama2-13b (4v, m 8), the tp = 2
+    ranks of llama2-7b (4n) and of the families (4w d), and tinyllama-1.1b
+    with its tp = 2 rank (4l, 4q, the draft's m 8); shapes listed once."""
+    from llm_inference_engine_tpu_torch.config import get_config
+    out, seen = {}, {(m, QUANT_SHAPES[label]) for m, label in QUANT_ROWS}
+    for model, m in (("llama3.1-8b", 8), ("qwen2-7b", 8), ("mistral-7b", 4),
+                     ("llama2-13b", 8), ("tinyllama-1.1b", 8)):
+        cfg = get_config(model)
+        H, I = cfg.hidden_size, cfg.intermediate_size
+        for tp in (1, 2):
+            if tp == 2 and model == "llama2-13b":
+                continue
+            for label, shape in (
+                    ("wqkv", (H, cfg.qkv_size // tp, 1)),
+                    ("wo", (cfg.q_size // tp, H, 1)),
+                    ("gate|up", (H, I // tp, 2)),
+                    ("down", (I // tp, H, 1)),
+                    ("lm_head", (H, cfg.vocab_size // tp, 1))):
+                if (m, shape) not in seen:
+                    seen.add((m, shape))
+                    out[f"{model}{' tp2' if tp == 2 else ''} {label}"] = (
+                        m, shape)
+    for label, shape in TP2_SHAPES.items():
+        if (8, shape) not in seen:
+            seen.add((8, shape))
+            out[f"llama2-7b tp2 {label}"] = (8, shape)
+    return out
+
+
 def quant_rows(torch, dev) -> dict:
-    """Kernel ms of E and F at QUANT_ROWS (weights cycled as in 3b), no
-    checks: ``tools/chip_kernel_ab.py`` times another tree's kernels
-    through this function, so it calls only the wrappers every tree
-    has."""
+    """Kernel ms of E and F at QUANT_ROWS, then of E at e_decode_rows()
+    (weights cycled as in 3b), no checks: ``tools/chip_kernel_ab.py``
+    times another tree's kernels through this function, so it calls only
+    the wrappers every tree has."""
     from llm_inference_engine_tpu_torch.ops import quant
     gen = torch.Generator(device=dev).manual_seed(4321)
     out = {}
+
+    def row(name, mode, m, label, k, n, halves):
+        dt = torch.float32 if label.endswith("lm_head") else torch.bfloat16
+        ts = quant_weights(torch, quant, dev, gen, mode, k, n, halves,
+                           120_000_000)
+        x = torch.randn(m, k, generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        out[f"{name} m{m} {label}"] = time_ms(torch, cycling(
+            ts, lambda t: fused_matmul(quant, t, x, dt, "cuda")))
+        del ts
     for mode, name in (("int4", "int4_matmul"), ("int8", "int8_matmul")):
         for m, label in QUANT_ROWS:
-            k, n, halves = QUANT_SHAPES[label]
-            dt = torch.float32 if label == "lm_head" else torch.bfloat16
-            ts = quant_weights(torch, quant, dev, gen, mode, k, n, halves,
-                               120_000_000)
-            x = torch.randn(m, k, generator=gen, device=dev,
-                            dtype=torch.bfloat16)
-            out[f"{name} m{m} {label}"] = time_ms(torch, cycling(
-                ts, lambda t: fused_matmul(quant, t, x, dt, "cuda")))
-            del ts
+            row(name, mode, m, label, *QUANT_SHAPES[label])
+        torch.cuda.empty_cache()
+    for label, (m, shape) in e_decode_rows().items():
+        row("int4_matmul", "int4", m, label, *shape)
         torch.cuda.empty_cache()
     return out
 
@@ -1999,8 +2070,7 @@ def quant_case(torch, dev, gen, results, mode, m, label,
     x = torch.randn(m, k, generator=gen, device=dev, dtype=bf16)
     if poison:
         x = poisoned(torch, x)
-        ts[0] = quant.QuantizedTensor(poisoned(torch, ts[0].q),
-                                      poisoned(torch, ts[0].scale), mode, 128)
+        ts[0] = poisoned_weight(torch, quant, ts[0])
     ms = time_ms(torch, cycling(ts, lambda t: fused_matmul(quant, t, x, out,
                                                            "cuda")))
     plain_ms = time_ms(torch, cycling(ts, lambda t: fused_matmul(
@@ -2008,7 +2078,8 @@ def quant_case(torch, dev, gen, results, mode, m, label,
     gbs = ts[0].nbytes / ms / 1e6     # weight bytes read per second
     n_out = halves * n
     library = None
-    if halves == 1 and out == bf16:
+    if out == bf16 and (halves == 1 or mode == "int4"):
+        # the gate|up stack: one _weight_int4pack_mm on the [k, 2I] weight
         library = (int4pack_ms(torch, quant, ts, x, out) if mode == "int4"
                    else int8pack_ms(torch, ts, x, out))
     check_close(torch, name, fused_matmul(quant, ts[0], x, out, "cuda"),
@@ -2020,12 +2091,16 @@ def quant_case(torch, dev, gen, results, mode, m, label,
     plan = quant.quant_matmul_plan_native(m, k, n, halves,
                                           int4=mode == "int4")
     ranges = ""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     if plan["mode"] == "decode":
         rows = [hi - lo for lo, hi in quant.cluster_k_ranges(
-            m, k, n, halves, int4=mode == "int4",
-            sms=torch.cuda.get_device_properties(0).multi_processor_count)]
+            m, k, n, halves, int4=mode == "int4", sms=sms)]
         if len(set(rows)) > 1:
             ranges = f"; uneven K rows a cluster rank {rows}"
+    elif plan["mode"] == "fragment":
+        rows = sorted({hi - lo for lo, hi in quant.fragment_k_slices(
+            m, k, n, halves, sms=sms)})
+        ranges = f"; K rows a warp {rows}"
     say(f"    plan: {plan}{ranges}")
     mirror = quant.quant_matmul_plan(
         m, k, n, halves, int4=mode == "int4",
@@ -2288,21 +2363,26 @@ def int4pack_ms(torch, quant, ts, x, out_dtype):
     and zero points, its own packing) over the same weights converted
     beforehand with torch._convert_weight_to_int4pack (unsigned nibble =
     value + 8, zero point 0), cycled as the kernel's: E's library
-    yardstick (the port never calls it). Its distance to kernel E's
-    output is printed (its scales are bf16, E's f32). None, with the
-    reason printed, where this torch refuses it."""
+    yardstick (the port never calls it); the gate|up stack as one
+    [k/2, 2I] weight, whose output is E's flat [gate | up]. Its distance
+    to kernel E's output is printed (its scales are bf16, E's f32). None,
+    with the reason printed, where this torch refuses it."""
     try:
         packed = []
         for t in ts:
-            u = (quant._unpack_int4(t.q).to(torch.int32) + 8).t()  # [n, k]
+            q, scale = t.q, t.scale
+            if q.dim() == 3:    # the gate|up stack: one [k/2, 2I] weight
+                q, scale = torch.cat([q[0], q[1]], -1), torch.cat(
+                    [scale[0], scale[1]], -1)
+            u = (quant._unpack_int4(q).to(torch.int32) + 8).t()  # [n, k]
             w = ((u[:, 0::2] << 4) | u[:, 1::2]).to(torch.uint8)
-            sz = torch.stack([t.scale.to(x.dtype),
-                              torch.zeros_like(t.scale, dtype=x.dtype)],
+            sz = torch.stack([scale.to(x.dtype),
+                              torch.zeros_like(scale, dtype=x.dtype)],
                              dim=-1).contiguous()                 # [k/g, n, 2]
             packed.append((torch._convert_weight_to_int4pack(
                 w.contiguous(), 8), sz))
         got = torch._weight_int4pack_mm(x, packed[0][0], 128, packed[0][1])
-        want = quant.int4_matmul(x, ts[0].q, ts[0].scale, 128, x.dtype)
+        want = fused_matmul(quant, ts[0], x, x.dtype, "cuda")
         say(f"    _weight_int4pack_mm vs kernel E: max abs "
             f"{(got.float() - want.float()).abs().max().item():.3e} "
             f"(output max {want.float().abs().max().item():.3e})")
@@ -2395,11 +2475,13 @@ KERNEL_GROUPS = (("D2f/Df", ("attention_prefill_kernel<__half",
                              "attention_decode_kernel<float")),
                  ("Ef/Ff", ("quant_matmul_decode<__half",
                             "quant_matmul_prefill<__half",
+                            "quant_matmul_fragment<__half",
                             "quant_matmul_decode_f32",
                             "quant_matmul_prefill_f32")),
                  ("D2", ("attention_prefill_kernel",)),
                  ("D", ("attention_decode_kernel",)),
-                 ("E/F", ("quant_matmul_decode", "quant_matmul_prefill")),
+                 ("E/F", ("quant_matmul_decode", "quant_matmul_prefill",
+                          "quant_matmul_fragment")),
                  ("G", ("dequant_int4_kernel",)),
                  ("G8", ("dequant_int8_kernel", "int8_scale_cast_kernel")),
                  ("cuBLAS", ("nvjet", "gemm", "cutlass", "xmma")),
@@ -2875,6 +2957,32 @@ def upcast_in_place(torch, params: dict) -> dict:
     return params
 
 
+def layout_bytes(tree) -> tuple:
+    """(bytes, weights) of the fragment-order copies (``qd``) the INT4
+    weights of a params tree hold."""
+    if isinstance(tree, dict):
+        parts = [layout_bytes(v) for v in tree.values()]
+        return sum(p[0] for p in parts), sum(p[1] for p in parts)
+    qd = getattr(tree, "qd", None)
+    return (0, 0) if qd is None else (qd.numel(), 1)
+
+
+def layout_line(engine) -> int:
+    """Print the bytes of the engine's fragment-order copies (what kernel
+    E reads at m <= 16; built when the engine was made) and the context
+    they would hold as this model's KV cache; returns the bytes."""
+    nbytes, n = layout_bytes(engine.params)
+    if n:
+        eng = engine.engine_config
+        per_token = kv_bytes(engine.cache) // (eng.max_batch_size
+                                               * eng.max_seq_len)
+        say(f"  fragment order (E's m <= 16 copy of {n} INT4 weights): "
+            f"{nbytes / 1e9:.3f} GB = {nbytes / 2**30:.3f} GiB, the KV cache "
+            f"of {nbytes // per_token} tokens of this model's context "
+            f"({per_token} bytes a token)")
+    return nbytes
+
+
 def phase_main_path(torch, dev, results, path: str, eng_cfg, prompt_lens,
                     follow_lens, greedy_tokens: int,
                     model: str = "llama2-7b", control=None,
@@ -2931,6 +3039,8 @@ def phase_main_path(torch, dev, results, path: str, eng_cfg, prompt_lens,
            f"{'snapped' if engine.cache.snapped else 'absmax'} scales; a "
            f"bf16 cache: {4 * engine.cache.k.numel() / 1e9:.2f} GB)"
            if engine.cache.quantized else ""))
+
+    frag = layout_line(engine)
 
     rng = np.random.default_rng(0)
     prompts = [rng.integers(3, V, n).tolist() for n in prompt_lens]
@@ -3008,7 +3118,9 @@ def phase_main_path(torch, dev, results, path: str, eng_cfg, prompt_lens,
     say(f"  prefill of {B} prompts ({sum(prompt_lens)} tokens): cold "
         f"{walls[0]:.4f} s, warm {walls[1]:.4f} s; round 1 generate "
         f"{gen1_s:.3f} s")
-    say(f"  peak memory {peak / 2**30:.2f} GiB")
+    say(f"  peak memory {peak / 2**30:.2f} GiB"
+        + (f" ({(peak - frag) / 2**30:.2f} GiB without the fragment order)"
+           if frag else ""))
     say(f"  warm prefill: card busy {prefill.busy:.3f} ms (kernel durations "
         f"summed {prefill.summed:.3f}); by group: "
         f"{_groups(prefill.per_kernel)}; by kernel: "
@@ -7517,10 +7629,15 @@ def phase_pipeline(torch, dev, params) -> None:
     from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
     from llm_inference_engine_tpu_torch.parallel import (
         make_mesh, pipeline, sharding)
+    from llm_inference_engine_tpu_torch.runtime.engine import (
+        add_decode_layouts)
 
     cfg = get_config("llama2-7b")
     B, T, S = 4, 512, 1024
     eng = EngineConfig(quant_mode="int4", max_batch_size=B, max_seq_len=S)
+    # the references run the forwards themselves, not through an engine:
+    # they build the fragment order E reads at m <= 16 as an engine would
+    add_decode_layouts(cfg, eng, params, dev)
     gen = torch.Generator(device=dev).manual_seed(11)
     ids = torch.randint(3, cfg.vocab_size, (B, T), generator=gen,
                         device=dev, dtype=torch.int32)
@@ -7572,9 +7689,10 @@ def phase_pipeline(torch, dev, params) -> None:
         else:
             views = None
             tp2 = make_mesh(1, 2, devices=[dev, dev])
+            shards = sharding.shard_params(params, tp2)
+            add_decode_layouts(cfg, eng, shards, dev)
             want1, want2, ref = two_steps(
-                sharding.make_sharded_forward(cfg, eng, tp2),
-                sharding.shard_params(params, tp2),
+                sharding.make_sharded_forward(cfg, eng, tp2), shards,
                 sharding.shard_cache(new_cache(), tp2))
             k, v = joined([ref], "k"), joined([ref], "v")
             what = "the tp=2 forward"
@@ -8130,7 +8248,7 @@ def phase_quant_divergence(torch, dev) -> None:
             scale[QDIV_FAULT_LAYER] *= 2
             faulty = dict(variants[mode], layers=dict(
                 variants[mode]["layers"], wo=QuantizedTensor(
-                    wo.q, scale, wo.mode, wo.group_size)))
+                    wo.q, scale, wo.mode, wo.group_size, wo.qd)))
             fault, _ = qd.run_variant(cfg, faulty, tokens, warmup=False)
             d = rel(fault, plain)
             say(f"  (b) planted fault (layer {QDIV_FAULT_LAYER}'s wo scales "
@@ -8692,9 +8810,7 @@ def phase_float_kernels(torch, dev, results) -> None:
                 k, n, halves = QUANT_SHAPES[label]
                 ts = quant_weights(torch, quant, dev, gen, mode, k, n, halves,
                                    120_000_000)
-                ts[0] = quant.QuantizedTensor(
-                    poisoned(torch, ts[0].q), poisoned(torch, ts[0].scale),
-                    mode, 128)
+                ts[0] = poisoned_weight(torch, quant, ts[0])
                 x = poisoned(torch, randn(m, k))
                 got = fused_matmul(quant, ts[0], x, dtype, "cuda")
                 want = fused_matmul(quant, ts[0], x, dtype, "torch")

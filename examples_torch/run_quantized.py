@@ -13,7 +13,7 @@ from llm_inference_engine_tpu_torch.config import EngineConfig
 from llm_inference_engine_tpu_torch.models.weights import (
     init_dummy_params, quantize_params)
 from llm_inference_engine_tpu_torch.ops.quant import (
-    dequantize_tensor, quantize_tensor, quantized_linear,
+    add_decode_layout, dequantize_tensor, quantize_tensor, quantized_linear,
     quantized_linear_torch)
 from llm_inference_engine_tpu_torch.runtime.engine import InferenceEngine
 
@@ -29,7 +29,10 @@ def main(argv=None) -> None:
     x = randn((16, 256), 0, dev)
     w = randn((256, 512), 1, dev, scale=0.1)
     for mode in ("int8", "int4"):
-        t = quantize_tensor(w, mode, group_size=128)
+        # on the card kernel E reads INT4 at m <= 16 in fragment order, a
+        # copy an engine builds for its weights and this weight needs too
+        t = add_decode_layout(quantize_tensor(w, mode, group_size=128),
+                              x.dtype)
         y = quantized_linear(x, t)
         golden = x.float() @ dequantize_tensor(t)
         qerr = max_err(x.float() @ w.float(), golden)

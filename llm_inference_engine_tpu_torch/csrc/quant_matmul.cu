@@ -8,13 +8,14 @@
 using BF16 = __nv_bfloat16;
 
 // Kernel E: x bf16 [m, k] times the packed INT4 weight [halves][k/2, n]
-// with grouped scales; out bf16 or f32 [m, halves * n].
-extern "C" int int4_matmul(const void* x, const void* q, const void* scale,
-                           void* out, int m, int k, int n, int halves,
-                           long long q_half, long long s_half, int group,
-                           int out_f32, void* stream) {
+// with grouped scales; out bf16 or f32. qd: the same weight in fragment
+// order, which the fragment mode (m <= 16) reads.
+extern "C" int int4_matmul(const void* x, const void* q, const void* qd,
+                           const void* scale, void* out, int m, int k, int n,
+                           int halves, long long q_half, long long s_half,
+                           int group, int out_f32, void* stream) {
   return int4_entry<BF16, dispatch<BF16, true>>(
-      x, q, scale, out, m, k, n, halves, q_half, s_half, group, out_f32,
+      x, q, qd, scale, out, m, k, n, halves, q_half, s_half, group, out_f32,
       stream);
 }
 
@@ -41,5 +42,12 @@ extern "C" int quant_matmul_plan(int m, int k, int n, int halves, int int4,
 extern "C" void quant_matmul_force_plan(int cluster, int mode) {
   g_force_cluster = cluster;
   g_force_mode = mode;
+}
+
+// tools/plan_sweep.py only: force the fragment mode's column groups a
+// block and blocks a cluster (0, 0: the plan's)
+extern "C" void quant_matmul_force_fragment(int wc, int cs) {
+  g_force_frag_wc = wc;
+  g_force_frag_cs = cs;
 }
 #endif

@@ -212,8 +212,28 @@ struct PreF32 {
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
+// The fragment mode (INT4, a 16-bit x, m <= 16): a warp owns 64 columns
+// (four m16 tiles) and a K slice of whole scale groups; a block of 4 warps
+// holds wc column groups x 4 / wc slices, a cluster cs blocks along K.
+// A lane holds 3 chunks of 64 K rows (16 bytes a tile each): two in
+// flight while it computes on the third.
+constexpr int kFragThreads = 128;
+constexpr int kFragWarpCols = 64;
+constexpr int kFragChunkK = 64;
+constexpr int kFragBufs = 3;
+constexpr int kFragMinSliceK = 128;   // K rows a warp's slice keeps on average
+constexpr int kFragFillSliceK = 256;  // ... to count as filling the card
+constexpr int kFragFill = 256;        // blocks (1024 warps) that fill the card
+constexpr int kSmemMax = 232448;      // dynamic shared memory a block may take
+// blocks an SM the launch bounds allow at x tiles of 8 and 16 rows
+template <int BM>
+constexpr int kFragOcc = BM == 8 ? 4 : 3;
+constexpr int frag_occ(int rows) {
+  return rows == 8 ? kFragOcc<8> : kFragOcc<16>;
+}
+
 struct Plan {
-  int mode;      // 0 decode, 1 prefill
+  int mode;      // 0 decode, 1 prefill, 2 fragment
   int rows;      // x rows a block
   int cols;      // output columns a block
   int cluster;   // decode: blocks of a cluster along K
@@ -261,10 +281,122 @@ int decode_cluster(long long tiles, int su, int nsu, int rows, bool int4,
   return cs;
 }
 
+// Dynamic shared memory of a fragment-mode block: x's rows of its K range
+// at a pitch 16 bytes past them (so the 8 rows an ldmatrix reads sit in
+// distinct banks) and the scales of its groups and columns, which the
+// warps' partial sums [4][rows][kRedPitch] reuse after the K loop, then
+// an mbarrier for each round of x (a chunk of every slice).
+int frag_smem(int rows, int k, int group, int cs, int wc) {
+  const int groups = cdiv(k / group, cs);
+  const int x = rows * (groups * group * 2 + 16);
+  const int scales = groups * wc * kFragWarpCols * 4;
+  const int bars = cdiv(k / group, cs * (4 / wc)) * (group / kFragChunkK) * 8;
+  const int red = 4 * rows * kRedPitch * 4;
+  return (x + scales > red ? x + scales : red) + bars;
+}
+
+#ifdef PLAN_SWEEP
+// tools/plan_sweep.py only: a forced fragment-mode arrangement (0: the
+// plan's)
+int g_force_frag_wc = 0, g_force_frag_cs = 0;
+#endif
+
+// The fragment mode's arrangement. Candidates: every (wc, cs) whose warp
+// K slices are whole scale groups of >= kFragMinSliceK rows on average
+// (or all of K) and whose shared memory fits, in the order wc = 4, 2, 1
+// (1, 2, 4 at m <= 4, where x is half as many bytes) then cs = 1, 2, 4, 8.
+// The first whose slices keep >= kFragFillSliceK rows on average (a slice
+// of two chunks pays its prologue twice over) and whose blocks fill the
+// card (>= kFragFill) in one wave (<= sms
+// x the blocks an SM holds by registers and shared memory, less a tenth
+// for clusters of 4 and 8, which place less densely) wins; else, where
+// every candidate is more than a wave (the widest vocabularies), of those
+// with wc >= 2 and cs <= 2 the one that fills its waves best, then holds
+// most blocks an SM; else the one of most blocks within a wave, then the
+// smallest cluster. Chosen from
+// tools/plan_sweep.py on the H100 (PERF.md); ops/quant.py `_frag_split`
+// mirrors it.
+void frag_plan(Plan& pl, int m, int k, int n, int halves, int group,
+               int sms) {
+  const int rows = m <= 8 ? 8 : 16;
+  const long long ncg = (long long)cdiv(n, kFragWarpCols) * halves;
+  const int G = k / group;
+  int cwc[12], ccs[12], cblocks[12], ccap[12], cocc[12], csmem[12], nc = 0;
+  int pick = -1;
+  for (int a = 0; a < 3; ++a) {
+    const int wc = m <= 4 ? 1 << a : 4 >> a;
+    for (int cs = 1; cs <= kMaxCluster; cs *= 2) {
+      const int S = cs * (4 / wc);
+      if (S > G || G * group < S * (k < kFragMinSliceK ? k : kFragMinSliceK))
+        continue;
+      const int smem = frag_smem(rows, k, group, cs, wc);
+      int occ = (kSmemMax + 1024) / (smem + 1024);
+      if (occ > frag_occ(rows)) occ = frag_occ(rows);
+      if (occ == 0) continue;
+      int cap = sms * occ;
+      if (cs >= 4) cap -= cap / 10;
+      cwc[nc] = wc;
+      ccs[nc] = cs;
+      cblocks[nc] = (int)((ncg + wc - 1) / wc * cs);
+      ccap[nc] = cap;
+      cocc[nc] = occ;
+      csmem[nc] = smem;
+#ifdef PLAN_SWEEP
+      if (wc == g_force_frag_wc && cs == g_force_frag_cs) pick = nc;
+#endif
+      ++nc;
+    }
+  }
+  for (int i = 0; i < nc && pick < 0; ++i) {
+    const int S = ccs[i] * (4 / cwc[i]);
+    if (cblocks[i] >= kFragFill && cblocks[i] <= ccap[i] &&
+        G * group >= S * (k < kFragFillSliceK ? k : kFragFillSliceK))
+      pick = i;
+  }
+  if (pick < 0) {
+    bool waves = nc > 0;
+    for (int i = 0; i < nc; ++i) waves &= cblocks[i] > ccap[i];
+    // more than a wave: blocks of >= 2 column groups in clusters of <= 2
+    bool wide = false;
+    for (int i = 0; i < nc; ++i) wide |= cwc[i] >= 2 && ccs[i] <= 2;
+    long long best = -1;
+    for (int i = 0; i < nc; ++i) {
+      if (waves && wide && (cwc[i] < 2 || ccs[i] > 2)) continue;
+      // waves: the slots its waves fill (%), then blocks an SM; else its
+      // blocks within a wave, then the smaller cluster
+      const int within = cblocks[i] < ccap[i] ? cblocks[i] : ccap[i];
+      const long long key =
+          waves ? (long long)cblocks[i] * 100 /
+                          ((long long)cdiv(cblocks[i], ccap[i]) * ccap[i]) *
+                          16 + cocc[i]
+                : (long long)within * 16 + (15 - ccs[i]);
+      if (key > best) {
+        best = key;
+        pick = i;
+      }
+    }
+  }
+  pl.mode = 2;
+  pl.rows = rows;
+  pl.cols = cwc[pick] * kFragWarpCols;
+  pl.cluster = ccs[pick];
+  pl.blocks = cblocks[pick];
+  pl.stages = kFragBufs;
+  pl.smem = csmem[pick];
+  pl.tiles_n = cdiv(n, kFragWarpCols);
+  pl.su = group;
+  pl.nsu = G;
+}
+
 Plan make_plan(int m, int k, int n, int halves, bool int4, int group,
                int sms, int esize = 2) {
   Plan pl{};
   const bool f32 = esize == 4;
+  // INT4 at m <= 16 with a 16-bit x: the fragment mode
+  if (int4 && !f32 && m <= 16 && (group == 64 || group == 128)) {
+    frag_plan(pl, m, k, n, halves, group, sms);
+    return pl;
+  }
   // 17-48 rows take the decode mode where the prefill mode's grid (128
   // columns a block, one 64-row tile) would hold at most half the SMs:
   // wider, that grid beat the decode mode on the H100 at every m timed
@@ -346,6 +478,7 @@ struct Params {
   long long s_half;        // elements between the two halves of scale
   int m, k, n, halves, group, out_f32;
   int tiles_n, cluster, su, nsu;   // from the plan
+  const int8_t* q_frag;    // INT4: q in fragment order (the fragment mode)
 };
 
 // ---------------------------------------------------------------------------
@@ -817,6 +950,390 @@ __global__ void __launch_bounds__(kDecThreads)
 }
 
 // ---------------------------------------------------------------------------
+// fragment mode (INT4, a 16-bit x, m <= 16)
+// ---------------------------------------------------------------------------
+//
+// Replaces, with the decode and prefill modes, the JAX package's
+// llm_inference_engine_tpu/ops/quant.py `_int4_matmul_kernel` on the
+// decode step's rows. Bound by HBM bytes: every weight byte is read once
+// and used by at most 16 rows (2 to 64 operations a byte), so the kernel
+// has to keep enough weight bytes in flight and spend few instructions a
+// byte. It reads the weight's copy in fragment order (ops/quant.py
+// `repack_int4_decode`, made once on the card when an engine is built):
+// for each m16 tile (16 columns) and chunk of 64 K rows, lane l's 16 bytes
+// are its mma.sync A fragments of the chunk's four k16 steps, so
+//   - a lane loads its weights straight into registers, one 128-bit load a
+//     tile and chunk (a warp's 512 contiguous bytes), three chunks held:
+//     two in flight while it computes on the third, >= 32 KB an SM; no
+//     TMA, no shared-memory weight ring, no swizzle, no barrier a stage;
+//   - a 32-bit word holds register i's two K rows at bits 4i and 16 + 4i,
+//     so one LOP3 (mask, sign bias and exponent in one) and one FMA make
+//     an exact bf16 / f16 pair (`frag_to_x2`), plus a shift for three of
+//     four pairs (bf16) or one of four (f16);
+//   - x is staged in shared memory once a block (its K range, rows past m
+//     zero-filled by cp.async without a read) in rounds, round r the r-th
+//     chunk of every slice behind an mbarrier, so a warp starts on its
+//     first chunk while the rest of x lands; read by ldmatrix, each x
+//     fragment feeds the warp's four m16 tiles, and a block of wc column
+//     groups shares its x over 64 wc columns;
+//   - one f32 partial a scale group (an mma with a zero C opens it), then
+//     acc += partial * scale[column] (the JAX numerics); the scales of the
+//     block's groups are staged beside x;
+//   - split-K only as far as the plan needs blocks to fill the card: the
+//     warps of a block and the blocks of a cluster each take whole groups,
+//     and every partial meets in one reduction, summed in K order by every
+//     rank of the cluster through distributed shared memory, four columns
+//     a load (deterministic, no atomics, no workspace, no host read);
+//   - a programmatic dependent (the PDL rule, csrc/norm_act.cu): its first
+//     chunks and its scales are requested before `griddepcontrol.wait`, x
+//     and every store after it.
+
+template <typename E>
+struct FragParams {
+  const E* x;              // [m, k]
+  const uint4* qd;         // [halves][n/16 tiles][k/64 chunks][32 lanes]
+  const float* scale;      // [halves][groups, n]
+  void* out;               // [m, halves * n]
+  long long qd_half;       // 16-byte words between the two halves of qd
+  long long s_half;        // floats between the two halves of scale
+  int m, k, n, halves, out_f32;
+  int tiles;               // m16 tiles of one half (n / 16)
+  int ncg;                 // 64-column groups of one half
+  int wc, cs;              // column groups a block, blocks a cluster
+  int groups;              // scale groups along K
+  int kb_groups;           // groups of the longest block K range
+};
+
+__device__ __forceinline__ uint32_t lop3_6a(uint32_t a, uint32_t b,
+                                            uint32_t c) {
+  // (b & (a ^ c)) | (~b & c): a's bits under the mask b, flipped where c
+  // has a bit, c's bits elsewhere
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0x6A;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t fma_x2(bool half, uint32_t a, uint32_t b,
+                                           uint32_t c) {
+  uint32_t d;
+  if (half)
+    asm("fma.rn.f16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  else
+    asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// A fragment-order word -> the tile's four A registers at one k16 step.
+// Register i's nibbles sit at bits 4i (even K row) and 16 + 4i (odd).
+// Exact: the LOP3 sets each half to 0x4300 | (nibble ^ 8), the bf16 of
+// 128 + value + 8, and 1 * x - 136 rounds nothing; in f16 0x6400 |
+// (nibble ^ 8) is 1024 + value + 8 (less 1032), and for the nibbles at
+// bits 4-7 of a half 0x6400 | (nibble ^ 8) << 4 is 1024 + 16 (value + 8),
+// times 1/16 less 72: every step exact in f16.
+template <typename E>
+__device__ __forceinline__ void frag_to_x2(uint32_t w, uint32_t (&a)[4]) {
+  if constexpr (kIsHalf<E>) {
+    const uint32_t h = w >> 8;
+    a[0] = fma_x2(true, lop3_6a(w, 0x000F000Fu, 0x64086408u), 0x3C003C00u,
+                  0xE408E408u);
+    a[1] = fma_x2(true, lop3_6a(w, 0x00F000F0u, 0x64806480u), 0x2C002C00u,
+                  0xD480D480u);
+    a[2] = fma_x2(true, lop3_6a(h, 0x000F000Fu, 0x64086408u), 0x3C003C00u,
+                  0xE408E408u);
+    a[3] = fma_x2(true, lop3_6a(h, 0x00F000F0u, 0x64806480u), 0x2C002C00u,
+                  0xD480D480u);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[i] = fma_x2(false, lop3_6a(w >> (4 * i), 0x000F000Fu, 0x43084308u),
+                    0x3F803F80u, 0xC308C308u);
+  }
+}
+
+// D = A B (a zero C: the first k16 step of a scale group)
+template <typename E>
+__device__ __forceinline__ void mma_x0(float (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  const float z = 0.f;
+  if constexpr (kIsHalf<E>)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+          "f"(z));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+          "f"(z));
+}
+
+// 16 bytes the kernel reads once: not kept in L1
+__device__ __forceinline__ uint4 ldg_stream(const uint4* p) {
+  uint4 v;
+  asm volatile(
+      "ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// One block: 4 warps, wc column groups of 64 columns by 4 / wc K slices,
+// rank `rank` of a cluster of cs along K. Warp (wks, wcol) computes its
+// column group over slice rank x 4 / wc + wks of S = cs x 4 / wc, whole
+// scale groups [i G / S, (i + 1) G / S). BM: 8 (m <= 8) or 16 x rows;
+// GROUP: 64 or 128 (one or two chunks a group).
+template <typename E, int BM, int GROUP>
+__global__ void __launch_bounds__(kFragThreads, kFragOcc<BM>)
+    quant_matmul_fragment(const FragParams<E> p) {
+  constexpr int NT = BM / 8;                  // n8 tiles of x rows
+  constexpr int GC = GROUP / kFragChunkK;     // chunks a scale group
+  constexpr int U = kFragBufs * GC;           // chunks a loop turn
+  extern __shared__ __align__(16) unsigned char frag_raw[];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = p.cs > 1 ? (int)cluster.block_rank() : 0;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wk = 4 / p.wc;
+  const int wcol = warp % p.wc, wks = warp / p.wc;
+  const int tile = blockIdx.x / p.cs;
+  const int ncg_all = p.ncg * p.halves;
+  const int cgw = tile * p.wc + wcol;         // this warp's column group
+  const bool live = cgw < ncg_all;
+  const int half = live ? cgw / p.ncg : 0;
+  const int tile0 = (cgw - half * p.ncg) * 4;     // its first m16 tile
+
+  // K: this block's groups [gb_lo, gb_hi), this warp's [g_lo, g_hi)
+  const int S = p.cs * wk;
+  const int gb_lo = (int)((long long)rank * wk * p.groups / S);
+  const int gb_hi = (int)((long long)(rank + 1) * wk * p.groups / S);
+  const int sl = rank * wk + wks;
+  const int g_lo = (int)((long long)sl * p.groups / S);
+  const int g_hi = (int)((long long)(sl + 1) * p.groups / S);
+  const int nchunk = live ? (g_hi - g_lo) * GC : 0;
+  const int ntile = live ? min(4, p.tiles - tile0) : 0;
+
+  const int xpitch = p.kb_groups * GROUP * 2 + 16;   // bytes an x row
+  const int scols = p.wc * kFragWarpCols;            // scale columns
+  unsigned char* xs = frag_raw;                      // [BM][xpitch]
+  float* ss = reinterpret_cast<float*>(frag_raw + BM * xpitch);
+  // x arrives in rounds, round r the r-th chunk of every slice of the
+  // block, each behind an mbarrier: a warp computes chunk r as soon as
+  // round r has landed
+  const int rounds = (p.groups + S - 1) / S * GC;
+  const int data = BM * xpitch + p.kb_groups * scols * 4;
+  const int red_bytes = 4 * BM * kRedPitch * 4;
+  uint64_t* xbar = reinterpret_cast<uint64_t*>(
+      frag_raw + (data > red_bytes ? data : red_bytes));
+  if (tid == 0) {
+    for (int r = 0; r < rounds; ++r) mbar_init(&xbar[r], kFragThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+
+  // the weights: chunk c of tile mt at wq[mt * tstride + c * 32]
+  const long long tstride = (long long)(p.k / kFragChunkK) * 32;
+  const uint4* wq = p.qd + half * p.qd_half + tile0 * tstride +
+                    (long long)g_lo * GC * 32 + lane;
+  uint4 buf[kFragBufs][4];
+  auto load = [&](uint4 (&b)[4], int c) {
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+      if (c < nchunk && mt < ntile) b[mt] = ldg_stream(wq + mt * tstride + c * 32);
+  };
+  // constants first: the first chunks and the block's scales
+#pragma unroll
+  for (int i = 0; i < kFragBufs; ++i) load(buf[i], i);
+  const int ng = gb_hi - gb_lo;
+  for (int i = tid; i < ng * (scols / 4); i += kFragThreads) {
+    const int gi = i / (scols / 4), c = (i % (scols / 4)) * 4;
+    const int cgc = tile * p.wc + c / kFragWarpCols;
+    const int hc = cgc < ncg_all ? cgc / p.ncg : 0;
+    const int col = (cgc - hc * p.ncg) * kFragWarpCols + c % kFragWarpCols;
+    const bool ok = cgc < ncg_all && col < p.n;
+    cp_async16(ss + gi * scols + c,
+               ok ? p.scale + hc * p.s_half + (long long)(gb_lo + gi) * p.n +
+                        col
+                  : p.scale,
+               ok);
+  }
+  __syncthreads();   // the barriers are initialized
+  pdl_wait();
+  // x rows [0, m) of each slice's K rows, round by round (rows past m
+  // zero-filled without a read); this thread's arrival on round r's
+  // barrier comes when all its copies so far (its scales too) have landed
+  int slo[4], schunks[4];
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    const int sw = rank * wk + (w < wk ? w : 0);
+    slo[w] = sw * p.groups / S;
+    schunks[w] = ((sw + 1) * p.groups / S - slo[w]) * GC;
+  }
+  for (int r = 0; r < rounds; ++r) {
+    for (int i = tid; i < wk * BM * (kFragChunkK / 8); i += kFragThreads) {
+      const int w = i / (BM * (kFragChunkK / 8));
+      const int row = (i / (kFragChunkK / 8)) % BM;
+      const int kc = (i % (kFragChunkK / 8)) * 8;
+      if (r >= schunks[w]) continue;
+      const int kx = slo[w] * GROUP + r * kFragChunkK + kc;   // x's column
+      const bool ok = row < p.m;
+      cp_async16(xs + row * xpitch + (kx - gb_lo * GROUP) * 2,
+                 ok ? p.x + (long long)row * p.k + kx : p.x, ok);
+    }
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(
+                     smem_u32(&xbar[r]))
+                 : "memory");
+  }
+
+  // ldmatrix.x4: NT 1, matrices (rows 0-7) x K 0-7, 8-15, 16-23, 24-31:
+  // b0, b1 of two k16 steps; NT 2, (rows 0-7, 8-15) x K 0-7, 8-15: b0, b1
+  // of both n8 tiles at one step
+  const int lrow = (NT == 2 ? (lane >> 4) * 8 : 0) + (lane & 7);
+  const int lk = NT == 2 ? ((lane >> 3) & 1) * 8 : (lane >> 3) * 8;
+  uint32_t xaddr = smem_u32(xs) + lrow * xpitch +
+                   ((g_lo - gb_lo) * GROUP + lk) * 2;
+  // this lane's scales (columns 16 mt + 2g, + 1), one row a group
+  const float* sw = ss + (g_lo - gb_lo) * scols + wcol * kFragWarpCols + 2 * g;
+
+  // acc[mt][nt]: tile mt's A rows g (column 2g) and g + 8 (column 2g + 1)
+  // by x rows nt * 8 + 2t, + 1
+  float acc[4][NT][4], part[4][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  for (int c0 = 0; c0 < nchunk; c0 += U) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int c = c0 + u;
+      if (u % GC == 0 && c >= nchunk) break;   // whole groups
+      mbar_wait(&xbar[c], 0);                   // x of chunk c is here
+      uint4 (&b)[4] = buf[u % kFragBufs];
+#pragma unroll
+      for (int j = 0; j < 4; j += 3 - NT) {
+        uint32_t xb[4];
+        ldsm_x4(xb, xaddr);
+        xaddr += (3 - NT) * 32;
+#pragma unroll
+        for (int h = 0; h < 3 - NT; ++h) {
+          const bool open = u % GC == 0 && j + h == 0;   // a group's first
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt) {
+            uint32_t a[4];
+            frag_to_x2<E>(word_of(b[mt], j + h), a);
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {
+              const uint32_t b0 = NT == 1 ? xb[2 * h] : xb[2 * nt];
+              const uint32_t b1 = NT == 1 ? xb[2 * h + 1] : xb[2 * nt + 1];
+              if (open)
+                mma_x0<E>(part[mt][nt], a, b0, b1);
+              else
+                mma_x<E>(part[mt][nt], a, b0, b1);
+            }
+          }
+        }
+      }
+      load(b, c + kFragBufs);
+      if (u % GC == GC - 1) {   // the group is complete: fold it
+        float2 sv[4];
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+          sv[mt] = *reinterpret_cast<const float2*>(sw + mt * 16);
+        sw += scols;
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            acc[mt][nt][0] += part[mt][nt][0] * sv[mt].x;
+            acc[mt][nt][1] += part[mt][nt][1] * sv[mt].x;
+            acc[mt][nt][2] += part[mt][nt][2] * sv[mt].y;
+            acc[mt][nt][3] += part[mt][nt][3] * sv[mt].y;
+          }
+      }
+    }
+  }
+
+  // the K loop is done: the kernel after this one may become resident
+  pdl_launch_dependents();
+  __syncthreads();   // every warp is done with x and the scales
+  float* red = reinterpret_cast<float*>(frag_raw);   // [4][BM][kRedPitch]
+  if (live) {
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {   // x rows 2t + e: columns 2g, + 1
+          const int r = nt * 8 + 2 * t + e;
+          if (r < p.m)
+            *reinterpret_cast<float2*>(
+                red + (warp * BM + r) * kRedPitch + mt * 16 + 2 * g) =
+                make_float2(acc[mt][nt][e], acc[mt][nt][2 + e]);
+        }
+  }
+  if (p.cs > 1)
+    cluster.sync();
+  else
+    __syncthreads();
+  // every rank sums a share of the block's outputs, four columns a load,
+  // over the ranks and their slices in K order
+  const int bq = p.wc * (kFragWarpCols / 4);   // column quads a row
+  const long long ldo = (long long)p.halves * p.n;
+  for (int i = rank * kFragThreads + tid; i < p.m * bq;
+       i += p.cs * kFragThreads) {
+    const int r = i / bq, q4 = i % bq;
+    const int oc = q4 / (kFragWarpCols / 4);
+    const int cc = (q4 % (kFragWarpCols / 4)) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int sr = 0; sr < p.cs; ++sr) {
+      const float* rs = p.cs > 1 ? cluster.map_shared_rank(red, sr) : red;
+#pragma unroll 4
+      for (int w = 0; w < wk; ++w) {
+        const float4 u = *reinterpret_cast<const float4*>(
+            rs + ((w * p.wc + oc) * BM + r) * kRedPitch + cc);
+        v.x += u.x;
+        v.y += u.y;
+        v.z += u.z;
+        v.w += u.w;
+      }
+    }
+    const int cgo = tile * p.wc + oc;
+    if (cgo >= ncg_all) continue;
+    const int ho = cgo / p.ncg;
+    const int col = (cgo - ho * p.ncg) * kFragWarpCols + cc;
+    if (col >= p.n) continue;   // n % 16 == 0: a quad is whole or out
+    const long long o = r * ldo + (long long)ho * p.n + col;
+    if (p.out_f32) {
+      *reinterpret_cast<float4*>(static_cast<float*>(p.out) + o) = v;
+    } else {
+      uint2 pk;
+      pk.x = pack_x2<E>(v.x, v.y);
+      pk.y = pack_x2<E>(v.z, v.w);
+      *reinterpret_cast<uint2*>(static_cast<E*>(p.out) + o) = pk;
+    }
+  }
+  if (p.cs > 1) cluster.sync();   // partial sums stay until all have read
+}
+
+// ---------------------------------------------------------------------------
 // prefill mode
 // ---------------------------------------------------------------------------
 
@@ -1233,6 +1750,57 @@ int launch_decode(const Params<E>& p, const Plan& pl, cudaStream_t stream,
                               allowed, stream, blocks_per_sm);
 }
 
+// Launch the fragment mode (a programmatic dependent, in a cluster of
+// cs blocks where cs > 1). With `blocks_per_sm`, launch nothing and
+// report the blocks an SM holds.
+template <typename E, int BM, int GROUP>
+int launch_fragment(const Params<E>& p, const Plan& pl, cudaStream_t stream,
+                    int* blocks_per_sm) {
+  auto kernel = quant_matmul_fragment<E, BM, GROUP>;
+  static int allowed[kMaxDevices] = {};
+  cudaError_t err = allow_smem(kernel, pl.smem, allowed);
+  if (err != cudaSuccess) return (int)err;
+  if (blocks_per_sm)
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, kernel, kFragThreads, pl.smem);
+  if (!p.q_frag || reinterpret_cast<uintptr_t>(p.q_frag) % 16)
+    return (int)cudaErrorInvalidValue;
+  FragParams<E> f{};
+  f.x = p.x;
+  f.qd = reinterpret_cast<const uint4*>(p.q_frag);
+  f.scale = p.scale;
+  f.out = p.out;
+  f.qd_half = p.q_half / 16;
+  f.s_half = p.s_half;
+  f.m = p.m;
+  f.k = p.k;
+  f.n = p.n;
+  f.halves = p.halves;
+  f.out_f32 = p.out_f32;
+  f.tiles = p.n / 16;
+  f.ncg = cdiv(p.n, kFragWarpCols);
+  f.wc = pl.cols / kFragWarpCols;
+  f.cs = pl.cluster;
+  f.groups = p.k / GROUP;
+  f.kb_groups = cdiv(f.groups, f.cs);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(pl.blocks);
+  cfg.blockDim = dim3(kFragThreads);
+  cfg.dynamicSmemBytes = pl.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  attr[1].id = cudaLaunchAttributeClusterDimension;
+  attr[1].val.clusterDim.x = pl.cluster;
+  attr[1].val.clusterDim.y = 1;
+  attr[1].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = pl.cluster > 1 ? 2 : 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, f);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
 template <typename E, bool INT4, int N>
 int launch_prefill(const Params<E>& p, const Plan& pl, cudaStream_t stream,
                    int* blocks_per_sm) {
@@ -1285,7 +1853,23 @@ Plan plan_of(Params<E>& p, bool int4) {
 template <typename E, bool INT4>
 int dispatch(Params<E> p, cudaStream_t stream, int* blocks_per_sm) {
   const Plan pl = plan_of(p, INT4);
-  if (pl.mode == 0) {
+  if constexpr (INT4) {
+    // m <= 16 (groups of 64 or 128): the fragment mode; INT4 keeps only
+    // the decode mode's 32- and 48-row tiles
+    if (pl.mode == 2) {
+      if (pl.rows == 8)
+        return p.group == 64
+                   ? launch_fragment<E, 8, 64>(p, pl, stream, blocks_per_sm)
+                   : launch_fragment<E, 8, 128>(p, pl, stream, blocks_per_sm);
+      return p.group == 64
+                 ? launch_fragment<E, 16, 64>(p, pl, stream, blocks_per_sm)
+                 : launch_fragment<E, 16, 128>(p, pl, stream, blocks_per_sm);
+    }
+    if (pl.mode == 0)
+      return pl.rows == 32
+                 ? launch_decode<E, true, 32>(p, pl, stream, blocks_per_sm)
+                 : launch_decode<E, true, 48>(p, pl, stream, blocks_per_sm);
+  } else if (pl.mode == 0) {
     switch (pl.rows) {
       case 8: return launch_decode<E, INT4, 8>(p, pl, stream, blocks_per_sm);
       case 16: return launch_decode<E, INT4, 16>(p, pl, stream, blocks_per_sm);
@@ -1302,10 +1886,11 @@ template <typename E>
 Params<E> make_params(const void* x, const void* q, const void* scale,
                       void* out, int m, int k, int n, int halves,
                       long long q_half, long long s_half, int group,
-                      int out_f32) {
+                      int out_f32, const void* q_frag = nullptr) {
   Params<E> p{};
   p.x = static_cast<const E*>(x);
   p.q = static_cast<const int8_t*>(q);
+  p.q_frag = static_cast<const int8_t*>(q_frag);
   p.scale = static_cast<const float*>(scale);
   p.out = out;
   p.q_half = q_half;
@@ -1327,15 +1912,18 @@ bool valid_int4(int k, int n, int group) {
 // quant_matmul_f16.cu, quant_matmul_f32.cu), over that dtype's dispatch
 // `D` (dispatch<E, INT4> above, or the float32 one).
 // E (INT4): requires k % group == 0, group % 64 == 0, n % 16 == 0, and
-// 16-byte aligned x, q and scale (the wrapper in ops/quant.py checks).
+// 16-byte aligned x, q and scale (the wrapper in ops/quant.py checks);
+// the fragment mode (a 16-bit x, m <= 16) also q_frag, q in fragment
+// order (ops/quant.py `repack_int4_decode`), and refuses a null one.
 template <typename E, int (*D)(Params<E>, cudaStream_t, int*)>
-int int4_entry(const void* x, const void* q, const void* scale, void* out,
-               int m, int k, int n, int halves, long long q_half,
-               long long s_half, int group, int out_f32, void* stream) {
+int int4_entry(const void* x, const void* q, const void* q_frag,
+               const void* scale, void* out, int m, int k, int n, int halves,
+               long long q_half, long long s_half, int group, int out_f32,
+               void* stream) {
   if (!valid_int4(k, n, group)) return (int)cudaErrorInvalidValue;
   if (m <= 0 || n <= 0) return 0;
   return D(make_params<E>(x, q, scale, out, m, k, n, halves, q_half, s_half,
-                          group, out_f32),
+                          group, out_f32, q_frag),
            static_cast<cudaStream_t>(stream), nullptr);
 }
 
@@ -1352,9 +1940,10 @@ int int8_entry(const void* x, const void* q, const void* scale, void* out,
 }
 
 // The plan of a launch at these shapes (group: INT4 only), for reports
-// and tests: out = {mode (0 decode, 1 prefill), x rows a block, columns a
-// block, blocks a cluster, blocks, ring stages, dynamic shared memory
-// bytes, blocks an SM holds}.
+// and tests: out = {mode (0 decode, 1 prefill, 2 fragment), x rows a
+// block, columns a block, blocks a cluster, blocks, ring stages (the
+// fragment mode: chunks a lane holds), dynamic shared memory bytes,
+// blocks an SM holds}.
 template <typename E, int (*D4)(Params<E>, cudaStream_t, int*),
           int (*D8)(Params<E>, cudaStream_t, int*)>
 int plan_entry(int m, int k, int n, int halves, int int4, int group,

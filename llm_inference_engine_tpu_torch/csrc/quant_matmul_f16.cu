@@ -8,14 +8,15 @@
 
 #include "quant_matmul.cuh"
 
-// Ef: x f16 [m, k] times the packed INT4 weight; out f16 or f32.
-extern "C" int int4_matmul_f16(const void* x, const void* q,
+// Ef: x f16 [m, k] times the packed INT4 weight; out f16 or f32. qd: the
+// same weight in fragment order (the fragment mode, m <= 16).
+extern "C" int int4_matmul_f16(const void* x, const void* q, const void* qd,
                                const void* scale, void* out, int m, int k,
                                int n, int halves, long long q_half,
                                long long s_half, int group, int out_f32,
                                void* stream) {
   return int4_entry<__half, dispatch<__half, true>>(
-      x, q, scale, out, m, k, n, halves, q_half, s_half, group, out_f32,
+      x, q, qd, scale, out, m, k, n, halves, q_half, s_half, group, out_f32,
       stream);
 }
 

@@ -471,13 +471,14 @@ int dispatch_f32(Params<float> p, cudaStream_t stream, int* blocks_per_sm) {
 
 }  // namespace
 
-// Ef: x f32 [m, k] times the packed INT4 weight; out f32.
-extern "C" int int4_matmul_f32(const void* x, const void* q,
+// Ef: x f32 [m, k] times the packed INT4 weight; out f32. qd (the
+// fragment order) is not read: float32 has no fragment mode.
+extern "C" int int4_matmul_f32(const void* x, const void* q, const void* qd,
                                const void* scale, void* out, int m, int k,
                                int n, int halves, long long q_half,
                                long long s_half, int group, int out_f32,
                                void* stream) {
-  return int4_entry<float, dispatch_f32<true>>(x, q, scale, out, m, k, n,
+  return int4_entry<float, dispatch_f32<true>>(x, q, qd, scale, out, m, k, n,
                                                halves, q_half, s_half, group,
                                                out_f32, stream);
 }

@@ -39,7 +39,7 @@ class Scorer:
                  engine_config: Optional[EngineConfig] = None,
                  window: int = 512, batch: int = 4, device=None):
         from llm_inference_engine_tpu_torch.runtime.engine import (
-            check_kernel_dtypes)
+            add_decode_layouts, check_kernel_dtypes)
         self.config = config
         self.window = window
         self.batch = batch
@@ -50,6 +50,7 @@ class Scorer:
         self.device = torch.device(device if device is not None
                                    else params["embed"].device)
         check_kernel_dtypes(config, self.eng, self.device)
+        add_decode_layouts(config, self.eng, params, self.device)
         self._cache = kvc.new_kv_cache(
             config.num_layers, batch, config.num_kv_heads, window,
             config.head_dim, dtype=config.dtype, device=self.device,

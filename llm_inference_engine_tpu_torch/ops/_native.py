@@ -114,9 +114,9 @@ _SIGNATURES = {
     "attention_decode_clusters": [_I, _I, _P],
     # D, int8, out[3]
     "attention_prefill_plan": [_I, _I, _P],
-    # x, q, scale, out, m, k, n, halves, q_half, s_half, group, out_f32,
-    # stream
-    "int4_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _I, _P],
+    # x, q, qd (q in fragment order, or null), scale, out, m, k, n,
+    # halves, q_half, s_half, group, out_f32, stream
+    "int4_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _I, _P],
     # x, q, scale, out, m, k, n, halves, q_half, s_half, out_f32, stream
     "int8_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _P],
     # m, k, n, halves, int4, group, out[8]

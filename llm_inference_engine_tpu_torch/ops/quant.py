@@ -34,6 +34,12 @@ bf16 ``torch.matmul`` with f32 accumulation runs, as the JAX package's
 bakes the scale into the bf16 weight: one extra rounding (~2^-9 relative)
 that the fused path does not have.
 
+At m <= 16 an INT4 bf16 or float16 x takes E's fragment mode, which
+reads a second copy of the weight in tensor-core fragment order
+(:func:`repack_int4_decode`, kept on the card as ``QuantizedTensor.qd``
+beside ``q``, built once per weight by :func:`add_decode_layouts` when an
+engine is made): a call there without it raises.
+
 A float16 or float32 x takes the float instances Ef / Ff
 (:func:`int4_matmul_float`, :func:`int8_matmul_float`; the C entry points
 suffixed ``_f16`` / ``_f32``): float16 is E/F's template over ``__half``
@@ -82,6 +88,13 @@ __all__ = [
     "quant_matmul_plan",
     "quant_matmul_plan_native",
     "cluster_k_ranges",
+    "fragment_k_slices",
+    "repack_int4_decode",
+    "unpack_int4_decode",
+    "int4_matmul_decode_torch",
+    "needs_decode_layout",
+    "add_decode_layout",
+    "add_decode_layouts",
 ]
 
 _PREFILL_M = 1024   # m >= this dequantizes once and runs a bf16 matmul
@@ -107,6 +120,21 @@ _F32_SLICES = 8            # K slices of a float32 decode block
 _PRE_F32_ROWS, _PRE_F32_K, _PRE_F32_STAGES = 128, 32, 4   # float32 prefill
 _PLAN_KEYS = ("mode", "rows", "cols", "cluster", "blocks", "stages",
               "smem_bytes")
+_PLAN_MODES = ("decode", "prefill", "fragment")
+# E's fragment mode (INT4, bf16 / float16 x, m <= 16; ``frag_plan`` in
+# csrc/quant_matmul.cuh): warps of 64 columns (four m16 tiles), 4 a block
+# split into WC column groups x 4 / WC K slices, a cluster of CS blocks
+# along K; chunks of 64 K rows (a lane's 16 bytes a tile)
+_FRAG_WARP_COLS = 64
+_FRAG_TILE_COLS = 16
+_FRAG_CHUNK_K = 64
+_FRAG_BUFS = 3             # chunks a lane holds: two in flight, one in use
+_FRAG_MIN_SLICE_K = 128    # K rows a warp's slice keeps on average
+_FRAG_FILL_SLICE_K = 256   # ... to count as filling the card
+_FRAG_OCC = {8: 4, 16: 3}  # blocks an SM its launch bounds allow (rows)
+_FRAG_FILL = 256           # blocks (1024 warps) that fill the card
+_RED_PITCH = _DEC_COLS + 4
+_SMEM_MAX = 232448
 
 
 @dataclasses.dataclass
@@ -119,12 +147,18 @@ class QuantizedTensor:
                  [..., in//group, out]
     A 3-D ``q`` seen by :func:`quantized_linear` is one layer of the
     gate|up stack, [2, in', I].
+
+    ``qd`` (INT4, on the card only): ``q``'s bytes in tensor-core fragment
+    order (:func:`repack_int4_decode`), what kernel E's fragment mode
+    reads at m <= 16; None until :func:`add_decode_layout` builds it.
+    ``q`` stays the layout of checkpoints, shards and every other route.
     """
 
     q: torch.Tensor
     scale: torch.Tensor
     mode: str = "int8"
     group_size: int = 128
+    qd: Optional[torch.Tensor] = None
 
     @property
     def shape(self):
@@ -142,17 +176,27 @@ class QuantizedTensor:
         return self.q.numel() + self.scale.numel()
 
     def __getitem__(self, i) -> "QuantizedTensor":
-        """Index the leading axis of q and scale alike (views, no copy)."""
+        """Index the leading axis of q, scale (and qd) alike (views, no
+        copy)."""
         return QuantizedTensor(self.q[i], self.scale[i], self.mode,
-                               self.group_size)
+                               self.group_size,
+                               None if self.qd is None else self.qd[i])
 
     def to(self, device) -> "QuantizedTensor":
-        return QuantizedTensor(self.q.to(device), self.scale.to(device),
-                               self.mode, self.group_size)
+        """The same weight on ``device``: itself where it is there already
+        (so a fragment-order copy built later is built once), else a copy
+        that takes ``qd`` along to another CUDA device and drops it
+        elsewhere."""
+        q, scale = self.q.to(device), self.scale.to(device)
+        if q is self.q and scale is self.scale:
+            return self
+        qd = self.qd.to(device) if (self.qd is not None
+                                    and q.is_cuda) else None
+        return QuantizedTensor(q, scale, self.mode, self.group_size, qd)
 
     def columns(self, start: int, stop: int) -> "QuantizedTensor":
         """Output columns [start, stop) of q and scale alike: a column
-        shard (contiguous copies)."""
+        shard (contiguous copies; a shard builds its own ``qd``)."""
         return QuantizedTensor(self.q[..., start:stop].contiguous(),
                                self.scale[..., start:stop].contiguous(),
                                self.mode, self.group_size)
@@ -197,6 +241,93 @@ def _unpack_int4(packed: torch.Tensor, group_size: int = 0) -> torch.Tensor:
     hi = b >> 4                           # high nibble (signed)
     out = torch.stack([lo, hi], dim=-2)   # [..., k2, 2, n]
     return out.reshape(*lead, k2 * 2, n).to(torch.int8)
+
+
+# ---------------------------------------------------------------------------
+# the fragment order of kernel E's fragment mode
+# ---------------------------------------------------------------------------
+#
+# One matrix's bytes (q [k/2, n], k % 64 == 0, n % 16 == 0) in the order
+# [n/16 tiles][k/64 chunks][32 lanes][4 k16 steps][4 bytes]: the 512 bytes
+# of a (tile, chunk) are the JAX tile of 32 stored rows x 16 columns, and
+# lane l = 4g + t holds, for each k16 step j of the chunk, one 32-bit word:
+# the A fragment of mma.sync m16n8k16 for the tile's 16 columns (A rows g
+# and g + 8 are columns 2g and 2g + 1) at K rows 64c + 16j + ...: register
+# i (0..3) holds K rows (2t, 2t + 1) + 8 (i >> 1) of column 2g + (i & 1),
+# its even row's nibble at bits 4i of the word and its odd row's at bits
+# 16 + 4i. So one 128-bit load gives a lane a tile's four k16 steps, and
+# (w >> 4i) & 0x000F000F lifts register i's two K rows into the two
+# halves of a pair. The permuted axes, K = 64c + 16j + 8kh + 2t + odd and
+# column = 16T + 2g + jl, word nibble = 4 odd + 2 kh + jl:
+_FRAG_SPLIT = (4, 2, 4, 2)        # K within a chunk: j, kh, t, odd
+_FRAG_COLS = (8, 2)               # columns within a tile: g, jl
+_FRAG_PERM = (5, 0, 6, 3, 1, 4, 2, 7)   # (c, j, kh, t, odd, T, g, jl) ->
+                                        # (T, c, g, t, j, odd, kh, jl)
+_FRAG_INV = tuple(_FRAG_PERM.index(i) for i in range(8))
+
+
+def _frag_check(name: str, q: torch.Tensor) -> tuple:
+    if q.dtype != torch.int8 or q.dim() < 2:
+        raise ValueError(f"{name}: need an int8 [..., k/2, n] tensor, got "
+                         f"{q.dtype} {tuple(q.shape)}")
+    k2, n = q.shape[-2:]
+    if (2 * k2) % _FRAG_CHUNK_K or n % _FRAG_TILE_COLS:
+        raise ValueError(f"{name}: the fragment order needs k % 64 == 0 "
+                         f"and n % 16 == 0 (k {2 * k2}, n {n})")
+    return k2, n
+
+
+def _nibbles(b: torch.Tensor) -> torch.Tensor:
+    """uint8 bytes [...] -> their nibbles [..., 2] (low first)."""
+    return torch.stack([b & 0xF, b >> 4], dim=-1)
+
+
+def _repack_one(q: torch.Tensor) -> torch.Tensor:
+    k2, n = q.shape
+    k = 2 * k2
+    nib = _nibbles(q.contiguous().view(torch.uint8))     # [k2, n, 2]
+    nib = nib.transpose(1, 2).reshape(k, n)              # row 2r, 2r + 1
+    v = nib.reshape(k // _FRAG_CHUNK_K, *_FRAG_SPLIT, n // _FRAG_TILE_COLS,
+                    *_FRAG_COLS).permute(_FRAG_PERM).reshape(-1, 2)
+    return (v[:, 0] | (v[:, 1] << 4)).view(torch.int8).reshape(k2, n)
+
+
+def _unrepack_one(qd: torch.Tensor) -> torch.Tensor:
+    k2, n = qd.shape
+    k = 2 * k2
+    v = _nibbles(qd.contiguous().view(torch.uint8).reshape(-1))
+    nib = v.reshape(n // _FRAG_TILE_COLS, k // _FRAG_CHUNK_K, _FRAG_COLS[0],
+                    _FRAG_SPLIT[2], _FRAG_SPLIT[0], _FRAG_SPLIT[3],
+                    _FRAG_SPLIT[1], _FRAG_COLS[1]).permute(_FRAG_INV)
+    nib = nib.reshape(k, n)
+    return (nib[0::2] | (nib[1::2] << 4)).view(torch.int8)
+
+
+def _per_matrix(fn, t: torch.Tensor) -> torch.Tensor:
+    """``fn`` over each [k/2, n] matrix of ``t`` [..., k/2, n] (a matrix at
+    a time, to bound the temporaries)."""
+    flat = t.reshape(-1, *t.shape[-2:])
+    out = torch.empty_like(flat)
+    for i in range(flat.shape[0]):
+        out[i] = fn(flat[i])
+    return out.reshape(t.shape)
+
+
+def repack_int4_decode(q: torch.Tensor) -> torch.Tensor:
+    """The packed INT4 weight q int8 [..., k/2, n] (the JAX layout: a
+    matrix, the [2, k/2, I] gate|up stack, or either stacked over layers)
+    in the fragment order kernel E's fragment mode reads: the same shape
+    and bytes, each matrix's nibbles permuted within its tiles of 32
+    stored rows x 16 columns (k % 64 == 0, n % 16 == 0). Pure torch, on
+    q's device; :func:`unpack_int4_decode` inverts it bit for bit."""
+    _frag_check("repack_int4_decode", q)
+    return _per_matrix(_repack_one, q)
+
+
+def unpack_int4_decode(qd: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`repack_int4_decode`: the JAX layout again."""
+    _frag_check("unpack_int4_decode", qd)
+    return _per_matrix(_unrepack_one, qd)
 
 
 def _div(t: torch.Tensor, d: float) -> torch.Tensor:
@@ -330,6 +461,17 @@ def int4_matmul_torch(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     return _cat(outs).to(out_dtype)
 
 
+def int4_matmul_decode_torch(x2: torch.Tensor, qd: torch.Tensor,
+                             scale: torch.Tensor, group_size: int,
+                             out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of kernel E's fragment mode: the fragment-order
+    weight ``qd`` back in the JAX layout (:func:`unpack_int4_decode`),
+    then :func:`int4_matmul_torch`. The tests and chip_smoke hold the
+    kernel against it; no main path runs it."""
+    return int4_matmul_torch(x2, unpack_int4_decode(qd), scale, group_size,
+                             out_dtype)
+
+
 def int8_matmul_torch(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                       out_dtype: torch.dtype) -> torch.Tensor:
     """Plain version of kernel F: f32 accumulation of x2 times the int8
@@ -397,6 +539,85 @@ def _decode_mode(m: int, n: int, halves: int, int4: bool, group: int,
             and (not int4 or group in (64, 128)))
 
 
+def _fragment_mode(m: int, int4: bool, group: int, dtype) -> bool:
+    """Whether kernel E takes its fragment mode: INT4 with groups of 64 or
+    128, a bf16 or float16 x, m <= 16."""
+    return (int4 and m <= 16 and group in (64, 128)
+            and dtype in (torch.bfloat16, torch.float16))
+
+
+def _frag_smem(rows: int, k: int, group: int, cs: int, wc: int) -> int:
+    """Dynamic shared memory of a fragment-mode block: the x rows of its K
+    range ([rows][K range] at a pitch 16 bytes past it) and the scales of
+    its groups and columns, which the warps' partial sums [4][rows][68]
+    f32 reuse after the K loop, then an mbarrier a round of x (a chunk of
+    every slice)."""
+    groups = cdiv(k // group, cs)
+    x = rows * (groups * group * 2 + 16)
+    scales = groups * wc * _FRAG_WARP_COLS * 4
+    bars = cdiv(k // group, cs * (4 // wc)) * (group // _FRAG_CHUNK_K) * 8
+    return max(x + scales, 4 * rows * _RED_PITCH * 4) + bars
+
+
+def _frag_split(m: int, k: int, n: int, halves: int, group: int,
+                sms: int) -> tuple:
+    """(rows, wc, cs, blocks, smem) of the fragment mode, as
+    ``frag_plan`` makes it. Candidates: every (wc, cs) whose warp K
+    slices are whole scale groups of >= 128 rows on average (or all of K)
+    and whose shared memory fits, in the order wc = 4, 2, 1 (1, 2, 4 at m
+    <= 4, where x is half as many bytes) then cs = 1, 2, 4, 8. The first
+    whose slices keep >= 256 rows on average (a slice of two chunks pays
+    its prologue twice over) and whose blocks fill the card (>=
+    _FRAG_FILL) in one wave (<= sms x the blocks an SM holds by registers
+    and shared memory, less a tenth for clusters of 4 and 8) wins; else,
+    where every candidate is more than a wave (the widest vocabularies),
+    of those with wc >= 2 and cs <= 2 the one that fills its waves best,
+    then holds most blocks an SM; else the one of most blocks within a
+    wave, then the smallest cluster. Chosen from tools/plan_sweep.py on
+    an H100."""
+    rows = 8 if m <= 8 else 16
+    ncg = cdiv(n, _FRAG_WARP_COLS) * halves
+    G = k // group
+    cands = []
+    for wc in ((1, 2, 4) if m <= 4 else (4, 2, 1)):
+        for cs in (1, 2, 4, 8):
+            S = cs * (4 // wc)
+            if S > G or G * group < S * min(_FRAG_MIN_SLICE_K, k):
+                continue
+            smem = _frag_smem(rows, k, group, cs, wc)
+            occ = min(_FRAG_OCC[rows], (_SMEM_MAX + 1024) // (smem + 1024))
+            if occ == 0:
+                continue
+            cap = sms * occ
+            if cs >= 4:
+                cap -= cap // 10
+            cands.append((wc, cs, cdiv(ncg, wc) * cs, cap, occ, smem))
+    for wc, cs, blocks, cap, occ, smem in cands:
+        S = cs * (4 // wc)
+        if (_FRAG_FILL <= blocks <= cap
+                and G * group >= S * min(_FRAG_FILL_SLICE_K, k)):
+            return rows, wc, cs, blocks, smem
+    if all(c[2] > c[3] for c in cands):
+        wide = [c for c in cands if c[0] >= 2 and c[1] <= 2] or cands
+        best = max(wide, key=lambda c: (
+            c[2] * 100 // (cdiv(c[2], c[3]) * c[3]), c[4]))
+    else:
+        best = max(cands, key=lambda c: (min(c[2], c[3]), -c[1]))
+    wc, cs, blocks, _, _, smem = best
+    return rows, wc, cs, blocks, smem
+
+
+def fragment_k_slices(m: int, k: int, n: int, halves: int = 1, *,
+                      group: int = 128, sms: int = 132) -> list:
+    """The K rows [lo, hi) of each warp slice of a fragment-mode column
+    group, in K order (cluster rank r's block holds slices r x 4 / wc ..):
+    whole scale groups, balanced (slice i takes groups [i G / S,
+    (i + 1) G / S))."""
+    _, wc, cs, _, _ = _frag_split(m, k, n, halves, group, sms)
+    S, G = cs * (4 // wc), k // group
+    return [(i * G // S * group, (i + 1) * G // S * group) for i in range(S)]
+
+
 def quant_matmul_plan(m: int, k: int, n: int, halves: int = 1, *,
                       int4: bool = True, group: int = 128,
                       sms: int = 132,
@@ -414,6 +635,11 @@ def quant_matmul_plan(m: int, k: int, n: int, halves: int = 1, *,
     Python: the CPU tests call it; :func:`quant_matmul_plan_native` asks
     the built library."""
     f32 = dtype == torch.float32
+    if _fragment_mode(m, int4, group, dtype):
+        rows, wc, cs, blocks, smem = _frag_split(m, k, n, halves, group, sms)
+        return dict(mode="fragment", rows=rows, cols=wc * _FRAG_WARP_COLS,
+                    cluster=cs, blocks=blocks, stages=_FRAG_BUFS,
+                    smem_bytes=smem)
     if _decode_mode(m, n, halves, int4, group, sms, f32):
         rows = next(r for r in (8, 16, 32, 48) if m <= r)
         _, _, cs = _decode_split(m, k, n, halves, int4, group, sms)
@@ -465,7 +691,7 @@ def quant_matmul_plan_native(m: int, k: int, n: int, halves: int = 1, *,
                                               group, out)
     _native.check(status, name)
     plan = dict(zip(_PLAN_KEYS + ("blocks_per_sm",), out))
-    plan["mode"] = ("decode", "prefill")[plan["mode"]]
+    plan["mode"] = _PLAN_MODES[plan["mode"]]
     return plan
 
 
@@ -516,10 +742,34 @@ def _check_fused(name, x2, q, scale, out_dtype, int4: bool, group_size: int):
     return halves, k, n
 
 
-def _launch_fused(name, x2, q, scale, out_dtype, int4, group_size):
+def _check_layout(name, x2, q, qd, group_size):
+    """At the fragment mode's m (INT4, bf16 / float16 x, m <= 16, groups of
+    64 or 128) the launch reads ``qd``, the weight's fragment-order copy:
+    it must be there, shaped and placed as q. Returns the pointer (0 where
+    the mode does not run)."""
+    if not _fragment_mode(x2.shape[0], True, group_size, x2.dtype):
+        return 0
+    if qd is None:
+        raise ValueError(
+            f"{name}: an INT4 matmul at m = {x2.shape[0]} <= 16 on the card "
+            "runs kernel E's fragment mode, which reads the weight's "
+            "fragment-order copy QuantizedTensor.qd, and this weight has "
+            "none: build it with ops.quant.add_decode_layout(weight) "
+            "(engines build theirs: ops.quant.add_decode_layouts)")
+    if (qd.dtype != torch.int8 or qd.shape != q.shape
+            or qd.device != q.device or not qd.is_contiguous()
+            or qd.data_ptr() % 16):
+        raise ValueError(f"{name}: qd must be a contiguous, 16-byte aligned "
+                         f"int8 tensor of q's shape {tuple(q.shape)} on its "
+                         f"device, got {qd.dtype} {tuple(qd.shape)}")
+    return qd.data_ptr()
+
+
+def _launch_fused(name, x2, q, scale, out_dtype, int4, group_size, qd=None):
     from llm_inference_engine_tpu_torch.ops import _native
     halves, k, n = _check_fused(name, x2, q, scale, out_dtype, int4,
                                 group_size)
+    qd_ptr = _check_layout(name, x2, q, qd, group_size) if int4 else 0
     m = x2.shape[0]
     out = torch.empty((m, halves * n), dtype=out_dtype, device=x2.device)
     if m == 0:
@@ -529,30 +779,36 @@ def _launch_fused(name, x2, q, scale, out_dtype, int4, group_size):
     # E / F, or their float16 / float32 instance Ef / Ff: one launch
     entry = getattr(_native.library(), _native.entry_name(
         "int4_matmul" if int4 else "int8_matmul", x2.dtype))
-    args = (x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            m, k, n, halves, q_half, s_half)
     out_f32, stream = int(out_dtype == torch.float32), _native.stream_of(x2)
     if int4:
-        status = entry(*args, group_size, out_f32, stream)
+        status = entry(x2.data_ptr(), q.data_ptr(), qd_ptr, scale.data_ptr(),
+                       out.data_ptr(), m, k, n, halves, q_half, s_half,
+                       group_size, out_f32, stream)
     else:
-        status = entry(*args, out_f32, stream)
+        status = entry(x2.data_ptr(), q.data_ptr(), scale.data_ptr(),
+                       out.data_ptr(), m, k, n, halves, q_half, s_half,
+                       out_f32, stream)
     _native.check(status, name)
     return out
 
 
 def int4_matmul(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                 group_size: int, out_dtype: torch.dtype, *,
+                qd: Optional[torch.Tensor] = None,
                 kernels: str = "auto") -> torch.Tensor:
     """Kernel E (W4A16 fused dequant-matmul, ``csrc/quant_matmul.cuh``):
     x2 bf16 [m, k] times the packed int4 weight [k/2, n] (or the
     [2, k/2, I] gate|up stack in one launch, flat [m, 2I] out) with
-    grouped scales; out bf16 or f32."""
+    grouped scales; out bf16 or f32. At m <= 16 (groups of 64 or 128) the
+    fragment mode reads ``qd``, q in fragment order
+    (:func:`repack_int4_decode`), and raises without it; the plain route
+    reads q."""
     if not use_kernel(kernels, x2):
         return int4_matmul_torch(x2, q, scale, group_size, out_dtype)
     if x2.dtype in FLOAT_X_DTYPES:
-        return int4_matmul_float(x2, q, scale, group_size, out_dtype)
+        return int4_matmul_float(x2, q, scale, group_size, out_dtype, qd=qd)
     out = _launch_fused("int4_matmul", x2, q, scale, out_dtype, True,
-                        group_size)
+                        group_size, qd)
     int4_matmul.launches += 1
     kernel_output("int4_matmul", out)
     return out
@@ -588,13 +844,15 @@ def _need_float_x(name, x2):
 
 def int4_matmul_float(x2: torch.Tensor, q: torch.Tensor,
                       scale: torch.Tensor, group_size: int,
-                      out_dtype: torch.dtype) -> torch.Tensor:
+                      out_dtype: torch.dtype, *,
+                      qd: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel Ef (``csrc/quant_matmul_f16.cu``, ``_f32.cu``): what
     :func:`int4_matmul` runs for a float16 or float32 x on the card; out
-    x's dtype or f32."""
+    x's dtype or f32. A float16 x at m <= 16 reads ``qd`` (the fragment
+    mode); float32 never does."""
     _need_float_x("int4_matmul_float", x2)
     out = _launch_fused("int4_matmul_float", x2, q, scale, out_dtype, True,
-                        group_size)
+                        group_size, qd)
     int4_matmul_float.launches += 1
     kernel_output("int4_matmul_float", out)
     return out
@@ -787,11 +1045,46 @@ def quantized_linear(x: torch.Tensor, t: QuantizedTensor,
     if x2.shape[0] >= _PREFILL_M:
         y = _large_m_linear(x2, t, out_dtype, kernels)
     elif t.mode == "int4":
-        y = int4_matmul(x2, t.q, t.scale, t.group_size, out_dtype,
+        y = int4_matmul(x2, t.q, t.scale, t.group_size, out_dtype, qd=t.qd,
                         kernels=kernels)
     else:
         y = int8_matmul(x2, t.q, t.scale, out_dtype, kernels=kernels)
     return y.reshape(*lead, n_out)
+
+
+def needs_decode_layout(t: QuantizedTensor, dtype: torch.dtype) -> bool:
+    """Whether weight ``t`` under a model of ``dtype`` runs kernel E's
+    fragment mode at m <= 16, so that it needs ``qd``: INT4 with groups of
+    64 or 128 on a CUDA device, a bf16 or float16 model."""
+    return (isinstance(t, QuantizedTensor) and t.mode == "int4"
+            and t.q.is_cuda and _fragment_mode(1, True, t.group_size, dtype))
+
+
+def add_decode_layout(t: QuantizedTensor,
+                      dtype: torch.dtype = torch.bfloat16) -> QuantizedTensor:
+    """Build ``t.qd`` (:func:`repack_int4_decode` of ``t.q``, on its
+    device) where :func:`needs_decode_layout` says so and it is missing,
+    in place; returns ``t``. A layer-stacked weight builds one copy, and
+    ``t[layer]`` gives its layer's view."""
+    if t.qd is None and needs_decode_layout(t, dtype):
+        t.qd = repack_int4_decode(t.q)
+    return t
+
+
+def add_decode_layouts(tree, dtype: torch.dtype):
+    """:func:`add_decode_layout` on every weight of a params tree (dicts,
+    lists and tuples of leaves), in place: what an engine on the card
+    builds once, after its tensor-parallel sharding (each rank's shard).
+    Returns ``tree``."""
+    if isinstance(tree, QuantizedTensor):
+        add_decode_layout(tree, dtype)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            add_decode_layouts(v, dtype)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            add_decode_layouts(v, dtype)
+    return tree
 
 
 def quantized_linear_torch(x: torch.Tensor, t: QuantizedTensor,

@@ -31,6 +31,7 @@ from typing import Optional, Sequence
 import torch
 
 from llm_inference_engine_tpu_torch.ops.kv_cache import KVCache
+from llm_inference_engine_tpu_torch.ops.quant import add_decode_layouts
 from llm_inference_engine_tpu_torch.parallel import sharding as S
 from llm_inference_engine_tpu_torch.parallel.mesh import (
     Mesh, local_config, make_mesh, validate_mesh)
@@ -110,7 +111,9 @@ def pp_cache_pspecs(quantized: bool = False) -> dict:
 def shard_params_pp(params: dict, mesh: PPMesh) -> list:
     """Stage s's params (its layers' views of the stacked leaves, the
     embedding, final norm and lm_head whole), sharded over the stage's
-    (data, model) mesh: a list of ``sharding.ShardedParams``."""
+    (data, model) mesh: a list of ``sharding.ShardedParams``. On the card
+    each INT4 shard gets its fragment-order copy, which kernel E reads at
+    m <= 16 (``quant.add_decode_layouts``, at the model's dtype)."""
     L = next(iter(params["layers"].values())).shape[0]
     out = []
     for s, stage in enumerate(mesh.stages):
@@ -119,6 +122,7 @@ def shard_params_pp(params: dict, mesh: PPMesh) -> list:
             {**params, "layers": {k: w[part]
                                   for k, w in params["layers"].items()}},
             stage))
+        add_decode_layouts(out[-1].grid, params["embed"].dtype)
     return out
 
 

@@ -48,7 +48,7 @@ from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
 from llm_inference_engine_tpu_torch.parallel import sharding
 from llm_inference_engine_tpu_torch.runtime import decode_graph
 from llm_inference_engine_tpu_torch.runtime.engine import (
-    check_kernel_dtypes, kv_cache_dtype_of)
+    add_decode_layouts, check_kernel_dtypes, kv_cache_dtype_of)
 
 __all__ = ["BeamSearchResult", "BeamSearch", "beam_search"]
 
@@ -90,6 +90,7 @@ class BeamSearch:
         self.device = device = torch.device(
             device if device is not None else params["embed"].device)
         check_kernel_dtypes(config, eng, device)
+        add_decode_layouts(config, eng, params, device)
 
         dtype, quantized = kv_cache_dtype_of(config, eng)
 

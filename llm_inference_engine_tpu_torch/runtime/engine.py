@@ -114,6 +114,7 @@ from llm_inference_engine_tpu_torch.config import (
 from llm_inference_engine_tpu_torch.models import llama as llama_model
 from llm_inference_engine_tpu_torch.ops import kv_cache as kvc
 from llm_inference_engine_tpu_torch.ops import paged_kv as pkv
+from llm_inference_engine_tpu_torch.ops import quant
 from llm_inference_engine_tpu_torch.ops.sampling import (
     apply_penalties, greedy_sample, sample_tokens, token_logprobs)
 from llm_inference_engine_tpu_torch.parallel import cp_engine, sharding
@@ -239,6 +240,20 @@ def _refuse_for_cp(eng: EngineConfig, paged: bool) -> None:
             f"{eng.kv_cache_dtype_name}")
 
 
+def add_decode_layouts(config: ModelConfig, engine_config: EngineConfig,
+                       params, device) -> None:
+    """Kernel E's fragment mode (INT4 at m <= 16, a bf16 or float16 model)
+    reads each weight's copy in fragment order: build it once, in place,
+    on every INT4 weight the kernels will run on the card, after the
+    tensor-parallel sharding (each rank's shard). Nothing on the CPU or
+    with ``kernels="torch"``; weights that have it already keep it."""
+    if torch.device(device).type != "cuda" or engine_config.kernels == "torch":
+        return
+    quant.add_decode_layouts(
+        params.grid if isinstance(params, sharding.ShardedParams)
+        else params, config.dtype)
+
+
 class InferenceEngine:
     """Engine over one model replica, on one device or over a mesh, and
     its slot cache or paged pool."""
@@ -282,6 +297,7 @@ class InferenceEngine:
                                                sharding.ShardedParams):
             params = sharding.shard_params(params, mesh)
         self.params = params
+        add_decode_layouts(config, engine_config, params, device)
         B, V = engine_config.max_batch_size, config.vocab_size
         # an int8 cache holds int8 values and f32 scale planes
         dtype, quantized = kv_cache_dtype_of(config, engine_config)

@@ -196,6 +196,12 @@ def run_variant(cfg, params: dict, tokens: np.ndarray,
     device = params["embed"].device
     B, T = tokens.shape
     eng = EngineConfig(max_batch_size=B, max_seq_len=T, kernels=kernels)
+    # kernel E reads INT4 at m <= 16 in fragment order (a B x T of 16 or
+    # fewer rows, the lm_head of such a batch): built once, as an engine
+    # does
+    from llm_inference_engine_tpu_torch.runtime.engine import (
+        add_decode_layouts)
+    add_decode_layouts(cfg, eng, params, device)
     cache = kvc.new_kv_cache(cfg.num_layers, B, cfg.num_kv_heads, T,
                              cfg.head_dim, dtype=cfg.dtype, device=device)
     toks = torch.from_numpy(tokens).to(device)

@@ -441,7 +441,10 @@ def _qweight(dev, mode, k, n, halves=1, group=128):
                       (*lead, k // 2 if int4 else k, n), dtype=torch.int8,
                       device=dev)
     s = torch.rand((*lead, k // group if int4 else 1, n), device=dev)
-    return quant.QuantizedTensor(q, s * 1e-2 + 1e-3, mode, group)
+    # INT4 with groups of 64 or 128: its fragment order too, which kernel
+    # E reads at m <= 16 (engines build theirs)
+    return quant.add_decode_layout(
+        quant.QuantizedTensor(q, s * 1e-2 + 1e-3, mode, group))
 
 
 def _fused(mode):
@@ -451,7 +454,7 @@ def _fused(mode):
 def _run_fused(t, x, out_dtype, kernels):
     if t.mode == "int4":
         return quant.int4_matmul(x, t.q, t.scale, t.group_size, out_dtype,
-                                 kernels=kernels)
+                                 qd=t.qd, kernels=kernels)
     return quant.int8_matmul(x, t.q, t.scale, out_dtype, kernels=kernels)
 
 
@@ -493,9 +496,9 @@ def test_fused_quant_matmul_gate_up_stack(cuda, mode, m):
     """One launch over both halves of a layer of the [L, 2, k', I] stack
     (a view with an offset), flat [m, gate | up] out."""
     stack = _qweight(cuda, mode, 512, 1040, halves=2)
-    full = quant.QuantizedTensor(stack.q[None].repeat(3, 1, 1, 1),
-                                 stack.scale[None].repeat(3, 1, 1, 1),
-                                 mode, 128)
+    full = quant.add_decode_layout(quant.QuantizedTensor(
+        stack.q[None].repeat(3, 1, 1, 1),
+        stack.scale[None].repeat(3, 1, 1, 1), mode, 128))
     layer = full[2]
     x = torch.randn(m, 512, device=cuda, dtype=torch.bfloat16)
     got = _run_fused(layer, x, torch.bfloat16, "cuda")
@@ -1927,14 +1930,24 @@ def _tail_poisoned(t: torch.Tensor, pad: int = 1 << 16) -> torch.Tensor:
     return buf[:t.numel()].view(t.shape)
 
 
+def _poisoned_weight(t, poison):
+    """``t`` with q, its scales and (INT4) its fragment order each at the
+    head of a buffer whose tail ``poison`` fills (``_tail_poisoned``,
+    ``_nan_tailed``)."""
+    out = quant.QuantizedTensor(poison(t.q), poison(t.scale), t.mode,
+                                t.group_size)
+    if t.qd is not None:
+        out.qd = poison(quant.repack_int4_decode(out.q))
+    return out
+
+
 @pytest.mark.parametrize("mode", ["int4", "int8"])
 @pytest.mark.parametrize("m", [8, 512])
 @pytest.mark.parametrize("proj", list(TP2_PROJECTIONS))
 def test_quant_matmul_at_tp2_local_shapes(cuda, mode, m, proj):
     k, n, halves = TP2_PROJECTIONS[proj]
     t = _qweight(cuda, mode, k, n, halves)
-    t = quant.QuantizedTensor(_tail_poisoned(t.q), _tail_poisoned(t.scale),
-                              mode, t.group_size)
+    t = _poisoned_weight(t, _tail_poisoned)
     x = _tail_poisoned(torch.randn(m, k, device=cuda, dtype=torch.bfloat16))
     if proj == "lm_head":
         got = _held_against_plain(t, x, torch.float32, atol=1e-3, rtol=1e-4)
@@ -1971,9 +1984,7 @@ def test_quant_matmul_rows_17_to_48(cuda, dtype, mode, m):
                if dtype == torch.float16 else _fused(mode))
     for proj, (k, n, halves) in ROWS_17_48_PROJECTIONS.items():
         t = _qweight(cuda, mode, k, n, halves)
-        t = quant.QuantizedTensor(_tail_poisoned(t.q),
-                                  _tail_poisoned(t.scale), mode,
-                                  t.group_size)
+        t = _poisoned_weight(t, _tail_poisoned)
         x = _tail_poisoned(torch.randn(m, k, device=cuda, dtype=dtype))
         before = counter.launches
         got = _run_fused(t, x, dtype, "cuda")
@@ -2671,8 +2682,7 @@ def test_float_quant_matmul(cuda, dtype, mode, m, k, n, halves, out_f32,
     of the scales and garbage past the weights'; one launch, in the mode
     the plan names."""
     t = _qweight(cuda, mode, k, n, halves=halves, group=group)
-    t = quant.QuantizedTensor(_nan_tailed(t.q), _nan_tailed(t.scale),
-                              mode, group)
+    t = _poisoned_weight(t, _nan_tailed)
     x = _nan_tailed(torch.randn(m, k, device=cuda, dtype=dtype))
     out_dtype = torch.float32 if out_f32 else dtype
     counter = getattr(quant, f"{mode}_matmul_float")
@@ -2690,8 +2700,11 @@ def test_float_quant_matmul(cuda, dtype, mode, m, k, n, halves, out_f32,
         m, k, n, halves, int4=mode == "int4", group=group,
         dtype=dtype)["mode"]
     if m <= 16 or m > 48 or dtype == torch.float32:
-        assert plan["mode"] == ("decode" if m <= 16 and (
-            mode == "int8" or group in (64, 128)) else "prefill")
+        fragment = (mode == "int4" and dtype == torch.float16
+                    and group in (64, 128))
+        assert plan["mode"] == (
+            ("fragment" if fragment else "decode") if m <= 16 and (
+                mode == "int8" or group in (64, 128)) else "prefill")
 
 
 @pytest.mark.parametrize("dtype", FLOAT_DTYPES, ids=str)
@@ -2899,8 +2912,7 @@ def test_int4_matmul_at_family_shapes(cuda, proj, m):
     28672, 37888 and the wide vocabularies."""
     k, n, halves = FAMILY_PROJECTIONS[proj]
     t = _qweight(cuda, "int4", k, n, halves)
-    t = quant.QuantizedTensor(_tail_poisoned(t.q), _tail_poisoned(t.scale),
-                              "int4", t.group_size)
+    t = _poisoned_weight(t, _tail_poisoned)
     x = _tail_poisoned(torch.randn(m, k, device=cuda, dtype=torch.bfloat16))
     if proj.endswith("lm_head"):
         got = _held_against_plain(t, x, torch.float32, atol=1e-3, rtol=1e-4)
@@ -3075,8 +3087,7 @@ def test_int4_matmul_at_13b_shapes(cuda, proj, m):
     tail is NaN; the library's plan equals its mirror."""
     k, n, halves = LLAMA_13B_PROJECTIONS[proj]
     t = _qweight(cuda, "int4", k, n, halves)
-    t = quant.QuantizedTensor(_tail_poisoned(t.q), _tail_poisoned(t.scale),
-                              "int4", t.group_size)
+    t = _poisoned_weight(t, _tail_poisoned)
     x = _tail_poisoned(torch.randn(m, k, device=cuda, dtype=torch.bfloat16))
     if proj == "lm_head":
         got = _held_against_plain(t, x, torch.float32, atol=1e-3, rtol=1e-4)
@@ -3177,8 +3188,7 @@ MISTRAL_INT8_PROJECTIONS = {
 def test_int8_matmul_at_mistral_decode_step(cuda, proj):
     k, n, halves = MISTRAL_INT8_PROJECTIONS[proj]
     t = _qweight(cuda, "int8", k, n, halves)
-    t = quant.QuantizedTensor(_tail_poisoned(t.q), _tail_poisoned(t.scale),
-                              "int8", t.group_size)
+    t = _poisoned_weight(t, _tail_poisoned)
     x = _tail_poisoned(torch.randn(4, k, device=cuda, dtype=torch.bfloat16))
     out = torch.float32 if proj == "lm_head" else torch.bfloat16
     got = _held_against_plain(t, x, out, **(
@@ -3410,19 +3420,195 @@ def test_quant_plan_at_family_rank_shapes(cuda, model, m):
 
 @pytest.mark.parametrize("proj", ["wo", "wqkv", "down"])
 def test_int4_decode_at_uneven_cluster_ranges(cuda, proj):
-    """E's decode mode at m 8 on Qwen2-7B's rank projections, whose K
-    splits over the cluster in ranges of unequal length (wo: k 1792 = 14
-    groups over 4 ranks, 384 / 512 / 384 / 512 rows), x, q and scales at
-    the head of buffers of NaN: within TOL of the plain version."""
+    """E's fragment mode (its decode rows since PR 28) at m 8 on
+    Qwen2-7B's rank projections, whose K splits over the warps of a
+    cluster in slices of unequal length (wo: k 1792 = 14 groups over 8
+    slices of 128 and 256 rows), x, q, its fragment order and the scales
+    at the head of buffers of NaN: within TOL of the plain version."""
     k, n, halves = _rank_projections("qwen2-7b")[proj]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    ranges = quant.cluster_k_ranges(8, k, n, halves, sms=sms)
+    assert quant.quant_matmul_plan(8, k, n, halves, sms=sms)["mode"] == \
+        "fragment"
+    ranges = quant.fragment_k_slices(8, k, n, halves, sms=sms)
     assert len({hi - lo for lo, hi in ranges}) > 1, ranges
     if proj == "wo":
-        assert [hi - lo for lo, hi in ranges] == [384, 512, 384, 512]
+        assert sorted({hi - lo for lo, hi in ranges}) == [128, 256]
     t = _qweight(cuda, "int4", k, n, halves)
-    t = quant.QuantizedTensor(_tail_poisoned(t.q), _tail_poisoned(t.scale),
-                              "int4", 128)
+    t = _poisoned_weight(t, _tail_poisoned)
     x = _tail_poisoned(torch.randn(8, k, device=cuda, dtype=torch.bfloat16))
     got = _held_against_plain(t, x, torch.bfloat16)
     assert torch.isfinite(got).all()
+
+
+# ---------------------------------------------------------------------------
+# kernel E's fragment mode (INT4 at m <= 16, a bf16 or float16 x)
+# ---------------------------------------------------------------------------
+
+def _fragment_held(cuda, m, k, n, halves, group, dtype, out_dtype,
+                   poison=_tail_poisoned):
+    """One fragment-mode launch against its plain version (the fragment
+    order unpacked, then kernel E's plain version), x, q, qd and the
+    scales each at the head of a buffer whose tail ``poison`` fills; the
+    library's plan equals its mirror."""
+    t = _poisoned_weight(_qweight(cuda, "int4", k, n, halves, group), poison)
+    x = poison(torch.randn(m, k, device=cuda, dtype=dtype))
+    plan = quant.quant_matmul_plan_native(m, k, n, halves, group=group,
+                                          dtype=dtype)
+    assert plan.pop("blocks_per_sm") >= 1
+    assert plan == quant.quant_matmul_plan(
+        m, k, n, halves, group=group, dtype=dtype,
+        sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    assert plan["mode"] == "fragment", plan
+    counter = quant.int4_matmul if dtype == torch.bfloat16 else \
+        quant.int4_matmul_float
+    before = counter.launches
+    got = quant.int4_matmul(x, t.q, t.scale, group, out_dtype, qd=t.qd)
+    want = quant.int4_matmul_decode_torch(x, t.qd, t.scale, group, out_dtype)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert got.dtype == out_dtype and got.shape == (m, halves * n)
+    assert torch.isfinite(got).all()
+    if out_dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)
+    elif dtype == torch.float16:
+        _held_float(got, want, dtype)
+    else:
+        torch.testing.assert_close(got, want, **TOL)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("m", list(range(1, 17)))
+def test_int4_fragment_mode_every_m(cuda, m, dtype):
+    """Every m of the fragment mode (8-row x tiles to 8, 16-row ones to
+    16; rows past m feed zeros): K of 86 groups over uneven warp slices,
+    a ragged n (1040: a column group of one tile), the gate|up stack,
+    groups of 64, and the lm_head's f32 output."""
+    for k, n, halves, group, out in ((11008, 384, 1, 128, dtype),
+                                     (4096, 1040, 1, 128, dtype),
+                                     (512, 1040, 2, 128, dtype),
+                                     (4096, 4096, 1, 64, dtype),
+                                     (4096, 32000, 1, 128, torch.float32)):
+        _fragment_held(cuda, m, k, n, halves, group, dtype, out)
+
+
+def _fragment_shapes() -> dict:
+    """Every INT4 projection of the models that run INT4 on the card, one
+    rank of tp 1 and 2: llama2-7b (4b, 4n), the families (4u, 4w d),
+    llama2-13b (4v) and tinyllama-1.1b (4l, 4q), shapes shared listed
+    once."""
+    out, seen = {}, set()
+    for model in ("llama2-7b", "llama3.1-8b", "mistral-7b", "qwen2-7b",
+                  "llama2-13b", "tinyllama-1.1b"):
+        for tp in (1, 2):
+            for proj, shape in _rank_projections(model, tp).items():
+                if shape not in seen:
+                    seen.add(shape)
+                    out[f"{model} tp{tp} {proj}"] = (proj, shape)
+    return out
+
+
+FRAGMENT_SHAPES = _fragment_shapes()
+
+
+@pytest.mark.parametrize("m", [4, 8, 16])
+@pytest.mark.parametrize("case", list(FRAGMENT_SHAPES))
+def test_int4_fragment_mode_at_model_shapes(cuda, case, m):
+    """The decode step's m (Mistral's 4, the B 8 paths, the server's 16)
+    at every listed shape, bf16 x (f32 out on the lm_head), every input
+    NaN- (127-) tailed; llama2-7b's in float16 too (4t's f16 INT4 path)."""
+    proj, (k, n, halves) = FRAGMENT_SHAPES[case]
+    out = torch.float32 if proj == "lm_head" else torch.bfloat16
+    _fragment_held(cuda, m, k, n, halves, 128, torch.bfloat16, out)
+    if case.startswith("llama2-7b tp1"):
+        _fragment_held(cuda, m, k, n, halves, 128, torch.float16,
+                       torch.float32 if proj == "lm_head" else torch.float16,
+                       poison=_nan_tailed)
+
+
+def test_int4_fragment_mode_refuses_without_its_layout(cuda):
+    """On the card an INT4 call at m <= 16 without the fragment order
+    raises, naming the function that builds it; nothing falls back to the
+    plain version or to another mode. m 17, a float32 x and the plain
+    route run without it."""
+    t = _qweight(cuda, "int4", 4096, 4096)
+    bare = quant.QuantizedTensor(t.q, t.scale, "int4", 128)
+    before = quant.int4_matmul.launches
+    for m in (1, 8, 16):
+        x = torch.randn(m, 4096, device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="add_decode_layout"):
+            quant.quantized_linear(x, bare)
+        with pytest.raises(ValueError, match="add_decode_layout"):
+            quant.int4_matmul_float(x.half(), t.q, t.scale, 128,
+                                    torch.float16)
+        torch.testing.assert_close(
+            quant.quantized_linear(x, bare, kernels="torch"),
+            quant.quantized_linear(x, t), **TOL)
+    assert quant.int4_matmul.launches == before + 3
+    quant.quantized_linear(torch.randn(17, 4096, device=cuda,
+                                       dtype=torch.bfloat16), bare)
+    quant.quantized_linear(torch.randn(8, 4096, device=cuda), bare)
+
+
+def _int4_leaves(tree) -> list:
+    if isinstance(tree, quant.QuantizedTensor):
+        return [tree] if tree.mode == "int4" else []
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _int4_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _int4_leaves(v)]
+    return []
+
+
+def test_engines_build_the_fragment_order(cuda):
+    """Every path that runs INT4 on the card holds each weight's fragment
+    order (q's bytes, permuted) before its first forward: a slot engine,
+    a tp = 2 mesh engine (each rank's shard), a beam search and pipeline
+    stages over fresh weights, a float16 model; a float32 model and
+    kernels="torch" build none. The slot engine's greedy ids equal the
+    plain route's."""
+    from llm_inference_engine_tpu_torch.models.weights import (
+        init_dummy_quantized_params)
+    from llm_inference_engine_tpu_torch.parallel import pipeline
+    from llm_inference_engine_tpu_torch.parallel.mesh import make_mesh
+    from llm_inference_engine_tpu_torch.runtime.beam_search import BeamSearch
+    cfg = get_config("debug").replace(
+        hidden_size=256, intermediate_size=512, num_heads=4, num_kv_heads=2,
+        head_dim=64, dtype_name="bfloat16")
+    eng = EngineConfig(max_batch_size=2, max_seq_len=64, quant_mode="int4",
+                       quant_group_size=64)
+
+    def fresh(c=cfg):
+        return init_dummy_quantized_params(c, "int4", 64, seed=0,
+                                           device=cuda)
+
+    def built(tree):
+        leaves = _int4_leaves(tree)
+        assert leaves
+        return all(t.qd is not None and t.qd.shape == t.q.shape
+                   and torch.equal(quant.unpack_int4_decode(t.qd), t.q)
+                   for t in leaves)
+
+    params = fresh()
+    engine = InferenceEngine(cfg, eng, params, device=cuda)
+    assert built(engine.params)
+    plain = InferenceEngine(cfg, eng.replace(kernels="torch"), fresh(),
+                            device=cuda)
+    assert not any(t.qd is not None for t in _int4_leaves(plain.params))
+    sp = SamplingParams(greedy=True, max_new_tokens=6)
+    prompts = [[1, 2, 3], [7] * 9]
+    assert engine.generate(prompts, sp, eos_token_id=None).token_ids == \
+        plain.generate(prompts, sp, eos_token_id=None).token_ids
+    mesh = InferenceEngine(cfg, eng, fresh(), mesh=make_mesh(
+        1, 2, devices=[cuda] * 2))
+    assert built(mesh.params.grid)
+    beams = BeamSearch(cfg, eng, fresh(), num_beams=2)
+    assert built(beams.params)
+    stages = pipeline.shard_params_pp(fresh(), pipeline.make_pp_mesh(
+        2, devices=[cuda] * 2))
+    assert built([s.grid for s in stages])
+    f16 = cfg.replace(dtype_name="float16")
+    assert built(InferenceEngine(f16, eng, fresh(f16), device=cuda).params)
+    f32 = cfg.replace(dtype_name="float32")
+    assert not any(t.qd is not None for t in _int4_leaves(
+        InferenceEngine(f32, eng, fresh(f32), device=cuda).params))

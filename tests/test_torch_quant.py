@@ -448,6 +448,37 @@ def _projections(name):
 PLAN_DTYPES = [torch.bfloat16, torch.float16, torch.float32]
 
 
+def _fragment(int4, m, dtype) -> bool:
+    """Whether kernel E's fragment mode takes the case (INT4 with a bf16
+    or float16 x at m <= 16, groups of 128 here)."""
+    return int4 and m <= 16 and dtype != torch.float32
+
+
+def _holds_fragment_plan(m, k, n, halves, plan, label, group=128):
+    """The fragment mode's invariants on 132 SMs: 8- or 16-row x tiles,
+    blocks of 1, 2 or 4 column groups of 64 in a cluster of 1-8 that put
+    >= 1 block on every SM, shared memory that fits a block, and warp K
+    slices of whole scale groups, balanced and covering K in order."""
+    assert plan["mode"] == "fragment", (label, plan)
+    assert plan["rows"] == (8 if m <= 8 else 16), (label, plan)
+    assert plan["cols"] in (64, 128, 256), (label, plan)
+    assert plan["cluster"] in (1, 2, 4, 8), (label, plan)
+    assert plan["blocks"] >= 132, (label, plan)
+    groups_of_64 = -(-n // 64) * halves
+    assert plan["blocks"] == -(-groups_of_64 // (plan["cols"] // 64)) * plan[
+        "cluster"], (label, plan)
+    assert plan["smem_bytes"] <= 232448, (label, plan)
+    slices = quant.fragment_k_slices(m, k, n, halves, group=group, sms=132)
+    assert len(slices) == plan["cluster"] * 4 // (plan["cols"] // 64)
+    assert slices[0][0] == 0 and slices[-1][1] == k, (label, slices)
+    sizes = []
+    for (lo, hi), (nxt, _) in zip(slices, slices[1:] + [(k, k)]):
+        assert hi == nxt and hi > lo, (label, slices)
+        assert lo % group == 0 and hi % group == 0, (label, slices)
+        sizes.append((hi - lo) // group)
+    assert max(sizes) - min(sizes) <= 1, (label, slices)
+
+
 @pytest.mark.parametrize("dtype", PLAN_DTYPES, ids=str)
 @pytest.mark.parametrize("int4", [True, False], ids=["int4", "int8"])
 @pytest.mark.parametrize("m", [8, 16, 32, 48])
@@ -465,6 +496,9 @@ def test_decode_plan_fills_the_card_with_whole_groups(model, m, int4, dtype):
     for label, k, n, halves in _projections(model):
         plan = quant.quant_matmul_plan(m, k, n, halves, int4=int4, sms=132,
                                        dtype=dtype)
+        if _fragment(int4, m, dtype):
+            _holds_fragment_plan(m, k, n, halves, plan, label)
+            continue
         narrow = 2 * -(-n // 128) * halves <= 132
         if m > 16 and (dtype == torch.float32 or not narrow):
             assert plan["mode"] == "prefill", (label, plan)
@@ -531,6 +565,9 @@ def test_decode_cluster_keeps_7b_choice_and_the_draft_sweep(dtype, int4):
         for label, k, n, halves in _projections("llama2-7b"):
             plan = quant.quant_matmul_plan(m, k, n, halves, int4=int4,
                                            dtype=dtype)
+            if _fragment(int4, m, dtype):
+                _holds_fragment_plan(m, k, n, halves, plan, label)
+                continue
             nsu, tiles, cs = -(-k // 128), -(-n // 64) * halves, 1
             while cs < 8 and 2 * cs <= nsu and tiles * cs < 2 * 132:
                 cs *= 2
@@ -538,6 +575,12 @@ def test_decode_cluster_keeps_7b_choice_and_the_draft_sweep(dtype, int4):
     if int4:
         for (k, n, halves), cs in DRAFT_CLUSTERS.items():
             plan = quant.quant_matmul_plan(8, k, n, halves, dtype=dtype)
+            if _fragment(int4, 8, dtype):
+                # the draft's narrow widths: fewer blocks than the card
+                # holds where no split of whole groups gives more
+                assert plan["mode"] == "fragment", (k, n, plan)
+                assert plan["smem_bytes"] <= 232448, (k, n, plan)
+                continue
             assert plan["cluster"] == cs, (k, n, plan)
     if dtype != torch.float32:
         for (k, n, halves), (mode, cs) in (
@@ -570,7 +613,11 @@ def test_plan_modes_follow_m(dtype):
         for int4 in (True, False):
             plan = quant.quant_matmul_plan(m, 4096, 12288, int4=int4,
                                            dtype=dtype)
-            assert (plan["mode"], plan["rows"]) == (mode, rows), (m, plan)
+            if _fragment(int4, m, dtype):
+                mode_here = "fragment"
+            else:
+                mode_here = mode
+            assert (plan["mode"], plan["rows"]) == (mode_here, rows), (m, plan)
             assert plan["smem_bytes"] <= 232448
             if mode == "prefill":
                 assert plan["cluster"] == 1 and plan["cols"] == 128
@@ -592,7 +639,8 @@ def test_plan_modes_follow_m(dtype):
     for group in (64, 128, 256):
         plan = quant.quant_matmul_plan(8, 4096, 4096, group=group,
                                        dtype=dtype)
-        assert plan["mode"] == ("prefill" if group == 256 else "decode")
+        assert plan["mode"] == ("prefill" if group == 256 else
+                                "decode" if f32 else "fragment")
     assert quant.quant_matmul_plan(8, 4096, 4096, int4=False,
                                    dtype=dtype)["mode"] == "decode"
     assert quant._PREFILL_M == 1024

@@ -26,9 +26,11 @@ over the mean of the parent's. It fails where there is no card.
 ``--rows quant`` times kernels E and F instead, and only them: each run
 builds its root's kernels and times them at ``QUANT_ROWS`` (the decode
 projections and lm_head at m = 8, wo and down at m = 16, the four
-projections at m = 512, weights cycled past the L2 as in phase 3b)
-through this checkout's ``chip_smoke.quant_rows``, which calls only the
-wrappers every tree has.
+projections at m = 512, weights cycled past the L2 as in phase 3b), then
+E at every model's m <= 16 decode shapes (``chip_smoke.e_decode_rows``:
+the families, llama2-13b, the tp = 2 ranks, tinyllama), through this
+checkout's ``chip_smoke.quant_rows``, which calls only the wrappers every
+tree has.
 
 ``--rows writes`` times the K/V row writes instead, and only them: kernel
 C at phase 3's chunk, H and its int8 mode at 3c's mixed step (520 rows,

@@ -6,7 +6,8 @@ E/F (the quantized matmuls' decode mode) on one CUDA card (an H100).
 
 The kernels are built from this checkout's sources with ``-DPLAN_SWEEP``,
 which adds entry points that force a plan (``attention_decode_force_plan``,
-``quant_matmul_force_plan``); the engine's build has none. Then, each
+``quant_matmul_force_plan``, ``quant_matmul_force_fragment``); the
+engine's build has none. Then, each
 timed with CUDA events as ``chip_smoke.py`` times its rows and held
 against its plain version:
 
@@ -17,17 +18,21 @@ against its plain version:
   q heads over 4 kv heads, head_dim 64; its tp = 2 rank, 16 over 2) and
   at ``chip_smoke.GQA_WIDTHS`` (head_dim 128), chip_smoke 4l's contexts,
   at every (R, nsplit) and at the plan's choice, beside SDPA;
-- e: kernel E's decode mode at m 8 at every cluster of 1, 2, 4, 8 and
-  the plan's, on tinyllama's projections, their tp = 2 shards and two
-  wider ones, beside ``_weight_int4pack_mm``; E and F at m 40 (the
-  verify's 48-row tiles) at clusters 1, 2, 4, 8 and the plan's, on the
-  narrow projections the plan runs in the decode mode;
+- e: E and F at m 40 (the verify's 48-row tiles) at clusters 1, 2, 4, 8
+  and the plan's, on the narrow projections the plan runs in the decode
+  mode; F at m 8 at every cluster on tinyllama's projections and their
+  tp = 2 shards;
 - modes: E and F at m 17, 24, 32, 40 and 48 in the decode mode against the
   prefill mode, in turns, on llama2-7b's projections, its tp = 2 shards
   and tinyllama's, beside the mode the plan takes;
-- families: kernel E's decode mode at clusters 1, 2, 4, 8 and the plan's
-  on mistral-7b's projections at m 4 (its B 4 decode step) and
-  llama2-13b's at m 8, beside ``_weight_int4pack_mm``.
+- families: kernel E's fragment mode (INT4 at m <= 16) at every
+  arrangement its plan may take (column groups a block wc 1, 2, 4 by
+  blocks a cluster cs 1, 2, 4, 8, where the K slices stay whole groups
+  and shared memory fits; ``quant_matmul_force_fragment``) and at the
+  plan's, beside ``_weight_int4pack_mm``: mistral-7b's projections at m 4
+  (its B 4 decode step), llama2-7b's, llama3.1-8b's, qwen2-7b's and
+  llama2-13b's at m 8, llama2-7b's wo and down at m 16, tinyllama's and
+  the tp = 2 shards' at m 8.
 
 It prints one line a case and, last, one JSON object with every number.
 It fails where there is no card.
@@ -68,6 +73,17 @@ MISTRAL = (("mistral wqkv", 4096, 6144, 1), ("mistral wo", 4096, 4096, 1),
            ("mistral down", 14336, 4096, 1))
 LLAMA_13B = (("13b wqkv", 5120, 15360, 1), ("13b wo", 5120, 5120, 1),
              ("13b gate|up", 5120, 13824, 2), ("13b down", 13824, 5120, 1))
+# the fragment mode's decode steps beside Mistral's and 13B's: the
+# lm_heads (f32 out) and the other families
+LM_HEADS = (("7b lm_head", 4096, 32000, 1), ("13b lm_head", 5120, 32000, 1),
+            ("llama3.1 lm_head", 4096, 128256, 1),
+            ("qwen2 lm_head", 3584, 152064, 1))
+LLAMA31 = (("llama3.1 wqkv", 4096, 6144, 1),
+           ("llama3.1 gate|up", 4096, 14336, 2))
+QWEN2 = (("qwen2 wqkv", 3584, 4608, 1), ("qwen2 wo", 3584, 3584, 1),
+         ("qwen2 gate|up", 3584, 18944, 2), ("qwen2 down", 18944, 3584, 1))
+# (wc, cs) the fragment plan chooses among
+ARRANGEMENTS = tuple((wc, c) for c in (1, 2, 4, 8) for wc in (4, 2, 1))
 
 
 def main(argv) -> int:
@@ -82,6 +98,8 @@ def main(argv) -> int:
     lib.attention_decode_force_plan.restype = None
     lib.quant_matmul_force_plan.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.quant_matmul_force_plan.restype = None
+    lib.quant_matmul_force_fragment.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.quant_matmul_force_fragment.restype = None
     import chip_smoke as cs
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -99,11 +117,12 @@ def main(argv) -> int:
     if only in (None, "modes"):
         out["modes"] = sweep_modes(torch, dev, cs, lib)
     if only in (None, "families"):
-        clusters = (0, 1, 2, 4, 8)
-        out["families"] = sweep_e(
+        out["families"] = sweep_fragment(
             torch, dev, cs, lib,
-            [("int4", 4, shape, clusters) for shape in MISTRAL]
-            + [("int4", 8, shape, clusters) for shape in LLAMA_13B])
+            [(4, shape) for shape in MISTRAL]
+            + [(8, shape) for shape in SEVEN_B + LLAMA_13B + LLAMA31 + QWEN2
+               + LM_HEADS + TINY + TINY_TP2 + SEVEN_B_TP2]
+            + [(16, shape) for shape in SEVEN_B[1::2]])
     print(json.dumps(out))
     return 0
 
@@ -190,8 +209,8 @@ def sweep_e(torch, dev, cs, lib, cases=None) -> dict:
         # m 8: clusters 1-8 at the draft's widths; m 40 (the verify's
         # 48-row tiles): clusters 1-8, INT4 and INT8, on the projections
         # the plan runs in the decode mode
-        cases = [("int4", 8, shape, (0, 1, 2, 4, 8))
-                 for shape in TINY + TINY_TP2 + WIDE_SHARDS]
+        cases = [("int8", 8, shape, (0, 1, 2, 4, 8))
+                 for shape in TINY + TINY_TP2]
         cases += [(mode, 40, shape, (0, 1, 2, 4, 8))
                   for mode in ("int4", "int8")
                   for shape in NARROW_7B + TINY_NARROW + TINY_TP2_NARROW]
@@ -225,6 +244,56 @@ def sweep_e(torch, dev, cs, lib, cases=None) -> dict:
             if isinstance(v, float)) + f"; plan cluster "
             f"{row['plan']['cluster']}",
             flush=True)
+        del ts
+        torch.cuda.empty_cache()
+    return rows
+
+
+def sweep_fragment(torch, dev, cs, lib, cases) -> dict:
+    """E's fragment mode at every arrangement (wc, cs) its plan may take
+    and at the plan's, each held against the plain version and timed with
+    its weights cycled through 120 MB, beside ``_weight_int4pack_mm``
+    (bf16 out; the lm_heads f32): ``cases`` of (m, (label, k, n,
+    halves))."""
+    from llm_inference_engine_tpu_torch.ops import quant
+    gen = torch.Generator(device=dev).manual_seed(4323)
+    rows = {}
+    for m, (label, k, n, halves) in cases:
+        out = torch.float32 if "lm_head" in label else torch.bfloat16
+        ts = cs.quant_weights(torch, quant, dev, gen, "int4", k, n, halves,
+                              120_000_000)
+        x = torch.randn(m, k, generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        want = cs.fused_matmul(quant, ts[0], x, out, "torch").float()
+        plan = quant.quant_matmul_plan_native(m, k, n, halves)
+        row = {"plan": f"wc {plan['cols'] // 64} cs {plan['cluster']}"}
+        if halves == 1:
+            row["library"] = cs.int4pack_ms(torch, quant, ts, x,
+                                            torch.bfloat16)
+        for wc, c in ((0, 0),) + ARRANGEMENTS:
+            lib.quant_matmul_force_fragment(wc, c)
+            got_plan = quant.quant_matmul_plan_native(m, k, n, halves)
+            if wc and (got_plan["cols"] // 64, got_plan["cluster"]) != (wc,
+                                                                       c):
+                continue   # not an arrangement of whole groups that fits
+            got = cs.fused_matmul(quant, ts[0], x, out, "cuda").float()
+            err = (got - want).abs().max().item()
+            if err > 0.1 * max(1.0, want.abs().max().item()):
+                raise AssertionError(f"fragment {label} m{m} wc{wc} cs{c}: "
+                                     f"err {err}")
+            row[f"wc{wc} cs{c}" if wc else "plan ms"] = cs.time_ms(
+                torch, cs.cycling(ts, lambda t: cs.fused_matmul(
+                    quant, t, x, out, "cuda")), iters=20)
+        lib.quant_matmul_force_fragment(0, 0)
+        best = min((v, key) for key, v in row.items()
+                   if isinstance(v, float) and key not in ("library",))
+        rows[f"int4 m{m} {label}"] = row
+        print(f"  fragment m{m} {label} (k {k}, n {n}x{halves}): plan "
+              f"{row['plan']} {row['plan ms']:.4f} ms, fastest {best[1]} "
+              f"{best[0]:.4f}; library {row.get('library')}; " + ", ".join(
+                  f"{key} {v:.4f}" for key, v in row.items()
+                  if isinstance(v, float) and key.startswith("wc")),
+              flush=True)
         del ts
         torch.cuda.empty_cache()
     return rows
